@@ -1,0 +1,183 @@
+"""Data-parallel training: DistributedOptimizer and the train step.
+
+Counterpart of ``byteps_tpu/parallel/data_parallel.py``.  The JAX package
+wraps an optax transform and traces the whole step under jit; here
+``DistributedOptimizer`` wraps a ``torch.optim.Optimizer`` and, before each
+update, reduces the gradients with the partitioned, priority-ordered
+all-reduce of ``ops.collectives`` — bucket 0 holds the tail of the
+parameter list, the first gradients out of the backward pass.  Build the
+inner optimizer over ``common.tree.tree_leaves(params)`` so the leaf order,
+and with it the bucket plan, is the JAX package's.
+
+PyTorch updates parameters in place, which is what the JAX step's buffer
+donation buys there: ``build_train_step``'s step returns only the loss.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import torch
+
+from ..common.device import DeviceLike, resolve_device
+from ..common.tree import tree_leaves
+from ..ops import collectives
+from ..ops.compression import Compression, Compressor
+
+Tree = Any
+
+
+class DistributedOptimizer:
+    """Wrap a torch optimizer so each ``step()`` first all-reduces (and by
+    default averages) the gradients of its parameters over the group.
+
+    ``compression`` is the cast applied around the reduce
+    (``Compression.fp16`` sends bf16).  ``backward_passes_per_step > 1``
+    scales the reduced gradients by its inverse, for loops that accumulate
+    that many backward passes per step.  ``named_parameters`` is accepted
+    for API parity and unused.
+    """
+
+    def __init__(self, optimizer: torch.optim.Optimizer,
+                 named_parameters: Any = None,
+                 compression: Optional[Compressor] = None,
+                 inter_compressor: Optional[Any] = None,
+                 group=None,
+                 average: bool = True,
+                 partition_bytes: Optional[int] = None,
+                 hierarchical: bool = False,
+                 backward_passes_per_step: int = 1):
+        del named_parameters
+        if inter_compressor is not None:
+            raise NotImplementedError(
+                "inter_compressor (onebit/topk/randomk/dithering) is not "
+                "ported yet (ROADMAP.md Queue 1 item 7)")
+        if hierarchical:
+            raise NotImplementedError(
+                "hierarchical reduction is not ported yet (ROADMAP.md "
+                "Queue 1 item 4)")
+        if backward_passes_per_step < 1:
+            raise ValueError("backward_passes_per_step must be >= 1")
+        self.optimizer = optimizer
+        self.compression = compression or Compression.none
+        self.group = group
+        self.average = average
+        self.partition_bytes = partition_bytes
+        self.backward_passes_per_step = backward_passes_per_step
+        self.params = [p for g in optimizer.param_groups for p in g["params"]]
+
+    @property
+    def param_groups(self):
+        return self.optimizer.param_groups
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        self.optimizer.zero_grad(set_to_none=set_to_none)
+
+    def synchronize(self) -> None:
+        """Replace every parameter's gradient by its reduced value.  A
+        parameter without a gradient contributes zeros, so every rank
+        reduces the same buckets."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        packed = [self.compression.compress(g) for g in grads]
+        wire = [w for w, _ in packed]
+        if collectives.axis_size(self.group) == 1:
+            with collectives.local_mode():
+                reduced = self._reduce(wire)
+        else:
+            reduced = self._reduce(wire)
+        scale = 1.0 / self.backward_passes_per_step
+        for p, r, (_, ctx) in zip(self.params, reduced, packed):
+            g = self.compression.decompress(r, ctx)
+            p.grad = g * scale if scale != 1.0 else g
+
+    def _reduce(self, wire):
+        return collectives.bucketed_tree_all_reduce(
+            wire, group=self.group, average=self.average,
+            partition_bytes=self.partition_bytes)
+
+    def step(self, closure: Optional[Callable] = None):
+        self.synchronize()
+        return self.optimizer.step(closure)
+
+
+def build_train_step(loss_fn: Callable[..., torch.Tensor],
+                     optimizer: Any,
+                     accum_steps: int = 1,
+                     device: DeviceLike = None) -> Callable:
+    """Returns ``step(params, batch) -> loss``: forward, backward, gradient
+    reduce (through a DistributedOptimizer) and update, in place.
+
+    ``params`` is the parameter tree the optimizer was built over; the
+    batch is this rank's shard, and the loss returned is the mean over
+    ranks.  ``accum_steps > 1`` splits the batch (dim 0) into that many
+    microbatches and averages their gradients in float32 before the one
+    reduce of the step; it refuses a DistributedOptimizer with
+    ``backward_passes_per_step > 1``, the other form of the same average.
+    A world of one runs under ``collectives.local_mode()``: no collective.
+    ``device`` (default CUDA) is where the params must live.
+    """
+    dev = resolve_device(device)
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    if (accum_steps > 1
+            and getattr(optimizer, "backward_passes_per_step", 1) > 1):
+        raise ValueError(
+            "accum_steps and DistributedOptimizer(backward_passes_per_step)"
+            " are alternative forms of the same averaging — combining them"
+            " would divide the update by the product.  Use accum_steps for"
+            " in-step accumulation, or backward_passes_per_step when the"
+            " training loop itself calls step() once per pass.")
+
+    def _value_and_grad(leaves, params, batch) -> torch.Tensor:
+        for p in leaves:
+            p.grad = None
+        if accum_steps == 1:
+            loss = loss_fn(params, batch)
+            loss.backward()
+            return loss.detach()
+
+        def split(x):
+            if x.shape[0] % accum_steps:
+                raise ValueError(
+                    f"per-rank batch dim {x.shape[0]} is not divisible by "
+                    f"accum_steps={accum_steps}")
+            return x.chunk(accum_steps, 0)
+
+        micros = list(zip(*(split(x) for x in batch)))
+        # Accumulate in f32 whatever the grad dtype, so the average equals
+        # the full-batch gradient; cast back after averaging.
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+        for mb in micros:
+            for p in leaves:
+                p.grad = None
+            loss = loss_fn(params, mb)
+            loss.backward()
+            loss_sum += loss.detach().float()
+            for s, p in zip(g_sum, leaves):
+                if p.grad is not None:
+                    s += p.grad.float()
+        inv = 1.0 / accum_steps
+        for s, p in zip(g_sum, leaves):
+            p.grad = (s * inv).to(p.dtype)
+        return loss_sum * inv
+
+    def step(params: Tree, batch) -> torch.Tensor:
+        leaves = tree_leaves(params)
+        if leaves[0].device.type != dev.type:
+            raise ValueError(f"params live on {leaves[0].device}, the step "
+                             f"was built for {dev}")
+        group = getattr(optimizer, "group", None)
+        world = collectives.axis_size(group)
+        if world == 1:
+            with collectives.local_mode():
+                loss = _value_and_grad(leaves, params, batch)
+                optimizer.step()
+            return loss
+        loss = _value_and_grad(leaves, params, batch)
+        optimizer.step()
+        # Per-rank losses -> global mean for reporting.
+        return collectives.all_reduce(loss.clone(), group) / world
+
+    return step

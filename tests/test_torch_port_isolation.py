@@ -1,0 +1,80 @@
+"""byteps_tpu_torch stands alone: it imports neither JAX nor byteps_tpu,
+and its entry points refuse to run on the CPU unless asked to."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import byteps_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(byteps_tpu_torch.__path__,
+                                               "byteps_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "byteps_tpu", "optax",
+                                    "flax"))
+print(json.dumps({"modules": mods, "bad": bad}))
+"""
+
+
+def test_import_pulls_in_no_jax_and_no_reference_package():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=REPO,
+                         capture_output=True, text=True, timeout=50)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for mod in ("byteps_tpu_torch.ops.flash_attention",
+                "byteps_tpu_torch.ops.collectives",
+                "byteps_tpu_torch.models.transformer",
+                "byteps_tpu_torch.parallel.data_parallel",
+                "byteps_tpu_torch.common.api"):
+        assert mod in res["modules"]
+
+
+def test_sources_never_name_jax():
+    pkg = os.path.join(REPO, "byteps_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    for line in fh:
+                        s = line.strip()
+                        if s.startswith(("import ", "from ")):
+                            assert "jax" not in s and "byteps_tpu." \
+                                not in s.replace("byteps_tpu_torch", ""), s
+
+
+def test_default_device_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    import byteps_tpu_torch as bps
+    from byteps_tpu_torch.models import mlp
+    from byteps_tpu_torch.models import transformer as tfm
+    cfg = tfm.get_config("tiny")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tfm.init_params(gen, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tfm.synthetic_batch(gen, 2, 64, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tfm.params_from_numpy({}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mlp.init_params(gen)
+    w = torch.zeros(2, requires_grad=True)
+    opt = bps.DistributedOptimizer(torch.optim.SGD([w], lr=0.1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bps.build_train_step(lambda p, b: (p[0] ** 2).sum(), opt)
+    # Asked for explicitly, the CPU works; a step built for CPU refuses
+    # params that live elsewhere only by device type.
+    step = bps.build_train_step(lambda p, b: (p[0] ** 2).sum(), opt,
+                                device="cpu")
+    assert float(step([w], None)) == 0.0
