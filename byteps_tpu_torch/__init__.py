@@ -9,6 +9,11 @@ with its Pallas kernels rewritten by hand for the H100 (``csrc/``):
     step = bps.build_train_step(loss_fn, opt)
     loss = step(params, batch)
 
+Gradient compression per bucket (onebit, topk, randomk, dithering, with
+error feedback and Nesterov momentum) is ``DistributedOptimizer(...,
+inter_compressor=bps.compressor.create({"compressor": "onebit",
+"ef": "vanilla"}))``.
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``.  The
 package imports neither JAX nor ``byteps_tpu``.
 """
@@ -20,13 +25,13 @@ from .common.api import (
 )
 from .common.fusion import get_stats as get_fusion_stats
 from .ops.compression import Compression
-from .ops import collectives
+from .ops import collectives, compressor
 from .parallel.data_parallel import DistributedOptimizer, build_train_step
 
 __all__ = [
     "__version__",
     "init", "shutdown", "rank", "size", "local_rank", "local_size",
     "get_fusion_stats",
-    "Compression", "collectives",
+    "Compression", "collectives", "compressor",
     "DistributedOptimizer", "build_train_step",
 ]

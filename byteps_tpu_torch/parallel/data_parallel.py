@@ -9,6 +9,12 @@ parameter list, the first gradients out of the backward pass.  Build the
 inner optimizer over ``common.tree.tree_leaves(params)`` so the leaf order,
 and with it the bucket plan, is the JAX package's.
 
+With ``inter_compressor`` (an ``ops.compressor`` instance, e.g.
+``ops.compressor.create({"compressor": "onebit", "ef": "vanilla",
+"momentum": "nesterov"})``) the buckets go through
+``compressed_tree_all_reduce`` instead, and the optimizer holds this rank's
+compressor state as ``compression_state``.
+
 PyTorch updates parameters in place, which is what the JAX step's buffer
 donation buys there: ``build_train_step``'s step returns only the loss.
 """
@@ -23,6 +29,8 @@ from ..common.device import DeviceLike, resolve_device
 from ..common.tree import tree_leaves
 from ..ops import collectives
 from ..ops.compression import Compression, Compressor
+from ..ops.compressor import (InterCompressor, compressed_tree_all_reduce,
+                              init_compression_state)
 
 Tree = Any
 
@@ -36,6 +44,14 @@ class DistributedOptimizer:
     scales the reduced gradients by its inverse, for loops that accumulate
     that many backward passes per step.  ``named_parameters`` is accepted
     for API parity and unused.
+
+    ``inter_compressor`` compresses every bucket on its way through the
+    reduce.  Its state (error feedback, momentum, PRNG lanes) is built from
+    the post-``compression`` wire tree of the parameters, lives on their
+    device as ``compression_state``, and is this rank's own, as each
+    worker's is in the reference.  ``world``, when given, must equal the
+    group's size (the JAX package's per-worker state tiling needs it; here
+    it is only checked).
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer,
@@ -46,12 +62,19 @@ class DistributedOptimizer:
                  average: bool = True,
                  partition_bytes: Optional[int] = None,
                  hierarchical: bool = False,
-                 backward_passes_per_step: int = 1):
+                 backward_passes_per_step: int = 1,
+                 world: Optional[int] = None):
         del named_parameters
-        if inter_compressor is not None:
-            raise NotImplementedError(
-                "inter_compressor (onebit/topk/randomk/dithering) is not "
-                "ported yet (ROADMAP.md Queue 1 item 7)")
+        if inter_compressor is not None and not isinstance(
+                inter_compressor, InterCompressor):
+            raise TypeError(
+                f"inter_compressor must be an ops.compressor InterCompressor "
+                f"(e.g. ops.compressor.create(...)), got "
+                f"{type(inter_compressor).__name__}")
+        if world is not None and world != collectives.axis_size(group):
+            raise ValueError(
+                f"world={world} but the process group has "
+                f"{collectives.axis_size(group)} ranks")
         if hierarchical:
             raise NotImplementedError(
                 "hierarchical reduction is not ported yet (ROADMAP.md "
@@ -65,6 +88,15 @@ class DistributedOptimizer:
         self.partition_bytes = partition_bytes
         self.backward_passes_per_step = backward_passes_per_step
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.inter_compressor = inter_compressor
+        self.compression_state = None
+        if inter_compressor is not None:
+            # The bucket plan must be synchronize()'s, which bucketizes the
+            # post-cast wire tree.
+            wire = [self.compression.compress(p.detach())[0]
+                    for p in self.params]
+            self.compression_state = init_compression_state(
+                wire, inter_compressor, partition_bytes)
 
     @property
     def param_groups(self):
@@ -92,6 +124,12 @@ class DistributedOptimizer:
             p.grad = g * scale if scale != 1.0 else g
 
     def _reduce(self, wire):
+        if self.inter_compressor is not None:
+            reduced, self.compression_state = compressed_tree_all_reduce(
+                wire, self.inter_compressor, self.compression_state,
+                group=self.group, average=self.average,
+                partition_bytes=self.partition_bytes)
+            return reduced
         return collectives.bucketed_tree_all_reduce(
             wire, group=self.group, average=self.average,
             partition_bytes=self.partition_bytes)

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from byteps_tpu_torch.ops import flash_attention as fa
+from byteps_tpu_torch.ops.compressor import bitpack as bp
 
 pytestmark = pytest.mark.cuda
 
@@ -112,3 +113,72 @@ def test_tiny_train_step_launches(cuda_device):
     assert loss == loss and abs(loss) < 1e3
     assert fa.launches == {"flash_fwd": 4, "flash_bwd_dq": 2,
                            "flash_bwd_dkv": 2}
+
+
+def _signs_input(n, device):
+    """Normal floats with +-0.0, +-inf and NaNs of both signs mixed in."""
+    gen = torch.Generator(device=device).manual_seed(n)
+    x = torch.randn(n, generator=gen, device=device)
+    specials = torch.tensor([0.0, -0.0, float("inf"), float("-inf"),
+                             float("nan"), -float("nan")], device=device)
+    at = torch.randint(0, n, (min(n, 64),), generator=gen, device=device)
+    x[at] = specials[torch.arange(at.numel(), device=device) % 6]
+    return x
+
+
+@pytest.mark.parametrize("n", [1048576, 845824, 4096 * 33, 5000, 100, 1])
+def test_sign_kernels_match_plain(cuda_device, n):
+    """Pack words and unpacked signs bit-identical to the plain versions,
+    one launch each, on the flagship's bucket sizes and ragged ones."""
+    x = _signs_input(n, cuda_device)
+    before = dict(bp.launches)
+    words = bp.pack_signs(x)
+    signs = bp.unpack_signs(words, n)
+    torch.cuda.synchronize()
+    assert {k: bp.launches[k] - before[k] for k in before} == {
+        "sign_pack": 1, "sign_unpack": 1}
+    assert words.dtype == torch.int32 and words.shape == (bp.words_len(n),)
+    assert torch.equal(words, bp.pack_signs_plain(x))
+    assert torch.equal(signs, bp.unpack_signs_plain(words, n))
+    assert torch.equal(signs, torch.where(x < 0, -1.0, 1.0))
+
+
+def test_sign_unpack_rows_in_one_launch(cuda_device):
+    n = 4096 * 3 + 11
+    words = torch.stack([bp.pack_signs(_signs_input(n + r, cuda_device)[:n])
+                         for r in range(4)])
+    before = bp.launches["sign_unpack"]
+    out = bp.unpack_signs(words, n)
+    torch.cuda.synchronize()
+    assert bp.launches["sign_unpack"] == before + 1
+    assert torch.equal(out, bp.unpack_signs_plain(words, n))
+    with pytest.raises(TypeError, match="int32"):
+        bp.unpack_signs(words.float(), n)
+
+
+def test_tiny_compressed_train_step_launches(cuda_device):
+    """One train step of the tiny transformer with onebit + EF + Nesterov
+    makes 2 packs and 4 unpacks per compressed bucket."""
+    from byteps_tpu_torch import DistributedOptimizer, build_train_step
+    from byteps_tpu_torch.common.tree import tree_leaves
+    from byteps_tpu_torch.models import transformer as tfm
+    from byteps_tpu_torch.ops import compressor as C
+    cfg = tfm.get_config("tiny", attn_impl="flash")
+    gen = torch.Generator().manual_seed(0)
+    params = tfm.init_params(gen, cfg)
+    batch = tfm.synthetic_batch(gen, 2, 128, cfg)
+    comp = C.create({"compressor": "onebit", "ef": "vanilla",
+                     "momentum": "nesterov"})
+    pb = 64 * 1024
+    opt = DistributedOptimizer(
+        torch.optim.AdamW(tree_leaves(params), lr=1e-3, weight_decay=1e-4),
+        inter_compressor=comp, partition_bytes=pb)
+    sizes = C.reduce._bucket_sizes(tree_leaves(params), pb)
+    buckets = sum(comp.payload_bytes(n) < 4 * n for n in sizes)
+    assert buckets > 1
+    step = build_train_step(lambda p, b: tfm.loss_fn(p, b, cfg), opt)
+    bp.reset_launches()
+    loss = float(step(params, batch))
+    assert loss == loss and abs(loss) < 1e3
+    assert bp.launches == {"sign_pack": 2 * buckets,
+                           "sign_unpack": 4 * buckets}

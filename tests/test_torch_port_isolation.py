@@ -34,6 +34,16 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert res["bad"] == []
     for mod in ("byteps_tpu_torch.ops.flash_attention",
                 "byteps_tpu_torch.ops.collectives",
+                "byteps_tpu_torch.ops.compressor",
+                "byteps_tpu_torch.ops.compressor.base",
+                "byteps_tpu_torch.ops.compressor.bitpack",
+                "byteps_tpu_torch.ops.compressor.onebit",
+                "byteps_tpu_torch.ops.compressor.dithering",
+                "byteps_tpu_torch.ops.compressor.topk",
+                "byteps_tpu_torch.ops.compressor.randomk",
+                "byteps_tpu_torch.ops.compressor.decorators",
+                "byteps_tpu_torch.ops.compressor.registry",
+                "byteps_tpu_torch.ops.compressor.reduce",
                 "byteps_tpu_torch.models.transformer",
                 "byteps_tpu_torch.parallel.data_parallel",
                 "byteps_tpu_torch.common.api"):

@@ -88,6 +88,55 @@ def test_adamw_trajectory_matches_jax():
         assert diff <= 1e-5 * np.linalg.norm(want), diff
 
 
+def test_onebit_ef_trajectory_matches_jax():
+    """Three AdamW steps of the tiny transformer (float32, flash) with
+    onebit + error feedback through DistributedOptimizer(inter_compressor)
+    against the JAX package's on a 1-device mesh, from the same params."""
+    jcfg, tcfg = _tiny(attn_impl="flash")
+    params_np = jax.tree.map(np.asarray,
+                             jtfm.init_params(jax.random.key(0), jcfg))
+    toks, tgts = _batch(jcfg.vocab_size, 4, 64, seed=2)
+    kw = {"compressor": "onebit", "ef": "vanilla"}
+
+    mesh = Mesh(np.array(jax.devices()[:1]), ("dp",))
+    jopt = jbps.DistributedOptimizer(optax.adamw(1e-3),
+                                     inter_compressor=jbps.compressor.create(
+                                         kw))
+    jstep = jbps.build_train_step(lambda p, b: jtfm.loss_fn(p, b, jcfg),
+                                  jopt, mesh, donate=True)
+    jparams = jax.tree.map(jnp.array, params_np)
+    jstate = jopt.init(jparams)
+    jbatch = (jnp.asarray(toks, jnp.int32), jnp.asarray(tgts, jnp.int32))
+    jlosses = []
+    for _ in range(3):
+        jparams, jstate, loss = jstep(jparams, jstate, jbatch)
+        jlosses.append(float(loss))
+
+    params = tfm.params_from_numpy(params_np, tcfg, device="cpu")
+    opt = bps.DistributedOptimizer(
+        torch.optim.AdamW(tree_leaves(params), lr=1e-3, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=1e-4),
+        inter_compressor=bps.compressor.create(kw))
+    assert opt.compression_state["worker"][0]["error"].device.type == "cpu"
+    step = _port_step(tcfg, params, opt)
+    batch = (torch.from_numpy(toks).long(), torch.from_numpy(tgts).long())
+    losses = [float(step(params, batch)) for _ in range(3)]
+
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+    assert losses[-1] < losses[0]
+    # The K slice of qkv_b is left out: its gradient is exactly zero, and
+    # onebit turns each framework's rounding noise there into +-scale.
+    H, Dh = tcfg.num_heads, tcfg.head_dim
+    k_cols = np.arange(H * Dh, (H + tcfg.kv_heads) * Dh)
+    paths = jax.tree_util.tree_flatten_with_path(jparams)[0]
+    for (path, want), got in zip(paths, tree_leaves(params)):
+        got, want = got.detach().numpy(), np.asarray(want)
+        if jax.tree_util.keystr(path) == "['layers']['qkv_b']":
+            got, want = np.delete(got, k_cols, 1), np.delete(want, k_cols, 1)
+        diff = np.linalg.norm(got - want)
+        assert diff <= 1e-5 * np.linalg.norm(want), (path, diff)
+
+
 def test_accum_steps_equals_full_batch():
     """accum_steps=2 over two half-batches gives the full batch's gradient
     (read through SGD with lr=1: the update is the gradient)."""
@@ -124,7 +173,9 @@ def test_accum_steps_refuses_backward_passes_per_step():
 
 def test_optimizer_options():
     """backward_passes_per_step scales the reduced gradient; the fp16 cast
-    round-trips it through bf16; what is not ported yet raises."""
+    round-trips it through bf16; an inter_compressor that is not an
+    ops.compressor InterCompressor, or a world that is not the group's,
+    is refused; what is not ported yet raises."""
     w = torch.zeros(3, requires_grad=True)
     g = torch.tensor([1.0, 1.0 / 3.0, -2.5])
     opt = bps.DistributedOptimizer(torch.optim.SGD([w], lr=1.0),
@@ -139,9 +190,13 @@ def test_optimizer_options():
     assert w.grad.dtype == torch.float32
     torch.testing.assert_close(w.grad, g.to(torch.bfloat16).float(),
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(TypeError, match="InterCompressor"):
         bps.DistributedOptimizer(torch.optim.SGD([w], lr=1.0),
                                  inter_compressor=object())
+    with pytest.raises(ValueError, match="world=2"):
+        bps.DistributedOptimizer(torch.optim.SGD([w], lr=1.0),
+                                 inter_compressor=bps.compressor.create(
+                                     {"compressor": "onebit"}), world=2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         bps.DistributedOptimizer(torch.optim.SGD([w], lr=1.0),
                                  hierarchical=True)
