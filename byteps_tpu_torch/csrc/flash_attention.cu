@@ -1,7 +1,8 @@
-// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV.
+// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV, in two
+// families, as in byteps_tpu/ops/flash_attention.py.
 //
-// Three kernels, one per Pallas kernel of the K/V-resident path in
-// byteps_tpu/ops/flash_attention.py:
+// K/V-resident family (the JAX package's choice while 2*S*D fits its VMEM
+// budget), one kernel per Pallas kernel:
 //
 //   flash_fwd      replaces _fwd_kernel_res  (:142-165)
 //   flash_bwd_dq   replaces _dq_kernel_res   (:168-189), plus the
@@ -9,20 +10,51 @@
 //                  leaves to XLA (_bwd, :357-359)
 //   flash_bwd_dkv  replaces _dkv_kernel_res  (:192-215)
 //
+// Streaming family (long S).  The TPU kernels run a 3-D grid with the
+// contraction axis innermost and carry (m, l, acc), dQ or dK/dV in VMEM
+// scratch from one grid step to the next.  Blocks on the GPU run in no
+// order, so the contraction axis is cut into splits of `split` tiles, each
+// split is a grid axis, its float32 partial goes to a workspace, and a
+// second pass merges the partials in a fixed order (no atomics: two calls
+// give identical bits).  The caller picks the split from S (at least 64
+// tiles, at most 8 splits): a CTA walks one split, and each workspace
+// holds at most 8 partials of the output, at any S.
+//
+//   flash_fwd_str      replaces _fwd_kernel_str (:221-247): partial
+//                      (m, l, acc) per (q tile, k split), then a merge
+//                      that rescales by exp(m_j - M) and writes O, LSE
+//   flash_bwd_dq_str   replaces _dq_kernel_str  (:250-272): the delta
+//                      pre-pass once, partial dQ per (q tile, k split),
+//                      then a sum over the splits
+//   flash_bwd_dkv_str  replaces _dkv_kernel_str (:275-302): partial dK
+//                      and dV per (k tile, q split), then sums
+//
+// Under causal masking a (q tile, k split) pair whose first key lies after
+// the tile's last query is dead: its CTA exits at once, writes nothing,
+// and the merge reads only the live splits of each row tile (never the
+// uninitialised workspace).  Splits are whole tiles, so every live row
+// sees the first key of every live split and its partial max is finite.
+//
 // Layout: q, k, v, o, dO are contiguous [BH, S, D] in float32 or bfloat16;
-// lse and delta are contiguous [BH, S] float32.
+// lse and delta are contiguous [BH, S] float32; the workspaces are
+// float32, [splits, BH, S, D] (acc, dQ, dK, dV) or [splits, BH, S] (m, l),
+// indexed in size_t.
 //
 // What bounds them on the H100.  At the flagship shape (BH = 128, S = 512,
-// D = 64, bf16, causal) each kernel moves 34-51 MB, about 10-15 us at
-// 3.35 TB/s, and does 4-9 GFLOP, about 4-9 us at the bf16 tensor-core peak:
-// the bound is the bytes.  These kernels do their products as float32 FMAs
-// on the CUDA cores (67 TFLOP/s at most), so what bounds them in practice is
-// FMA issue and shared-memory bandwidth, not device memory.  The design
-// keeps every intermediate the TPU kernels keep out of HBM out of device
-// memory too: the [S, S] logits and probabilities only ever exist as one
-// 64 x 64 tile in registers and shared memory, and the backward recomputes
-// them from the saved log-sum-exp.  Moving the two products of each step
-// onto the tensor cores (mma.sync, then wgmma with TMA) is the next step.
+// D = 64, bf16, causal) each resident kernel moves 34-51 MB, about 10-15 us
+// at 3.35 TB/s, and does 4-9 GFLOP, about 4-9 us at the bf16 tensor-core
+// peak: the bound is the bytes.  At the long shape (BH = 16, S = 32768)
+// the same functions do 2.2-4.4 TFLOP on 25-38 MB: the bound is the
+// operations, 2.2-4.5 ms.  Every kernel here does its products as float32
+// FMAs on the CUDA cores (67 TFLOP/s at most), so what bounds them in
+// practice is FMA issue and shared-memory bandwidth, not device memory.
+// The design keeps every intermediate the TPU kernels keep out of HBM out
+// of device memory too: the [S, S] logits and probabilities only ever
+// exist as one 64 x 64 tile in registers and shared memory, and the
+// backward recomputes them from the saved log-sum-exp.  The streaming
+// partials add (D + 2) floats per row and split, which is small beside
+// the operations.  Moving the two products of each step onto the tensor
+// cores (mma.sync, then wgmma with TMA) is the next step.
 //
 // Tiling.  The TPU kernels take one q block of up to 512 rows and keep K/V
 // whole in VMEM.  A 512 x 512 float32 logits tile does not fit in 227 KB of
@@ -30,9 +62,11 @@
 // rows, 256 threads, four threads to a row, each thread owning 16 columns
 // of the logits tile and D / 4 columns of the accumulator.  Causal masking
 // skips tiles above the diagonal (the loop bound) and masks inside the
-// diagonal tile, with global positions, as _causal_mask does.
+// diagonal tile, with global positions, as _causal_mask does.  Both
+// families run the same tile loops (fwd_tiles, dq_tiles, dkv_tiles); the
+// resident kernels over the whole range, the streaming ones over a split.
 //
-// Each entry point returns cudaGetLastError() after its launch (or the
+// Each entry point returns cudaGetLastError() after each launch (or the
 // error of the attribute call before it), so a refused launch surfaces in
 // the caller and never passes silently.
 
@@ -87,41 +121,27 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one block per (q tile, bh).  Online softmax over the k tiles,
-// as _online_step: running max m, running sum l, float32 accumulator.
+// Tile loops shared by both families.  `k`, `v`, `q`, `dout` point at one
+// (batch*head)'s [S, D] rows, `lse` and `delta` at its [S] rows.
 // ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int seq, float scale,
-                     int causal) {
-  constexpr int ld = D + 1;
-  extern __shared__ float smem[];
-  float* qs = smem;                 // [kTile][ld], pre-scaled by sm_scale
-  float* ks = qs + kTile * ld;      // [kTile][ld]
-  float* vs = ks + kTile * ld;      // [kTile][ld]
-  float* ps = vs + kTile * ld;      // [kTile][kTileLd] probabilities
 
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
+// Online softmax of the q tile `qt` (in `qs`, pre-scaled by sm_scale) over
+// the k tiles [kt0, kt1), as _online_step: running max m, running sum l,
+// float32 accumulator.
+template <typename T, int D>
+__device__ __forceinline__ void fwd_tiles(const float* qs, float* ks,
+                                          float* vs, float* ps, const T* k,
+                                          const T* v, int qt, int kt0,
+                                          int kt1, int causal, float& m,
+                                          float& l,
+                                          float (&acc)[D / kLanes]) {
+  constexpr int ld = D + 1;
   const int r = threadIdx.x / kLanes;
   const int c = threadIdx.x % kLanes;
-  const size_t base = (size_t)bh * seq * D;
-
-  load_tile<T, D>(qs, q + base + (size_t)qt * kTile * D, scale);
-
-  float m = -INFINITY;
-  float l = 0.f;
-  float acc[D / kLanes];
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) acc[i] = 0.f;
-
-  const int num_kt = causal ? qt + 1 : seq / kTile;
-  for (int kt = 0; kt < num_kt; ++kt) {
+  for (int kt = kt0; kt < kt1; ++kt) {
     __syncthreads();  // every thread is done with the previous K/V tile
-    load_tile<T, D>(ks, k + base + (size_t)kt * kTile * D, 1.f);
-    load_tile<T, D>(vs, v + base + (size_t)kt * kTile * D, 1.f);
+    load_tile<T, D>(ks, k + (size_t)kt * kTile * D, 1.f);
+    load_tile<T, D>(vs, v + (size_t)kt * kTile * D, 1.f);
     __syncthreads();
 
     float s[kCols];
@@ -160,6 +180,145 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < D / kLanes; ++i) acc[i] += p * vs[j * ld + c + kLanes * i];
     }
   }
+}
+
+// dQ of the q tile `qt` (q in `qs`, dO in `dos`) over the k tiles
+// [kt0, kt1): recompute P = exp(scale * Q K^T - lse), dS = P * (dO V^T -
+// delta), acc += dS K (the caller scales by sm_scale).
+template <typename T, int D>
+__device__ __forceinline__ void dq_tiles(const float* qs, const float* dos,
+                                         float* ks, float* vs, float* dss,
+                                         const T* k, const T* v, int qt,
+                                         int kt0, int kt1, int causal,
+                                         float scale, float lse_r, float dl,
+                                         float (&acc)[D / kLanes]) {
+  constexpr int ld = D + 1;
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  for (int kt = kt0; kt < kt1; ++kt) {
+    __syncthreads();
+    load_tile<T, D>(ks, k + (size_t)kt * kTile * D, 1.f);
+    load_tile<T, D>(vs, v + (size_t)kt * kTile * D, 1.f);
+    __syncthreads();
+
+    float s[kCols], dp[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) s[j] = dp[j] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float qv = qs[r * ld + d];
+      const float dv = dos[r * ld + d];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) {
+        const int col = c + kLanes * j;
+        s[j] += qv * ks[col * ld + d];
+        dp[j] += dv * vs[col * ld + d];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int col = c + kLanes * j;
+      const bool masked = causal && kt == qt && col > r;
+      const float p = masked ? 0.f : expf(scale * s[j] - lse_r);
+      dss[r * kTileLd + col] = p * (dp[j] - dl);
+    }
+    __syncwarp();
+    for (int j = 0; j < kTile; ++j) {
+      const float ds = dss[r * kTileLd + j];
+#pragma unroll
+      for (int i = 0; i < D / kLanes; ++i) acc[i] += ds * ks[j * ld + c + kLanes * i];
+    }
+  }
+}
+
+// dK/dV of the k tile `kt` (K in `ks`, V in `vs`) over the q tiles
+// [qt0, qt1): dV += P^T dO, dK += dS^T Q (the caller scales dK).
+template <typename T, int D>
+__device__ __forceinline__ void dkv_tiles(
+    const float* ks, const float* vs, float* qs, float* dos, float* pt,
+    float* dst, float* lses, float* dels, const T* q, const T* dout,
+    const float* lse, const float* delta, int kt, int qt0, int qt1,
+    int causal, float scale, float (&dk_acc)[D / kLanes],
+    float (&dv_acc)[D / kLanes]) {
+  constexpr int ld = D + 1;
+  const int j = threadIdx.x / kLanes;  // this thread's k row in the tile
+  const int c = threadIdx.x % kLanes;
+  for (int qt = qt0; qt < qt1; ++qt) {
+    __syncthreads();
+    load_tile<T, D>(qs, q + (size_t)qt * kTile * D, 1.f);
+    load_tile<T, D>(dos, dout + (size_t)qt * kTile * D, 1.f);
+    if (threadIdx.x < kTile) {
+      const size_t at = (size_t)qt * kTile + threadIdx.x;
+      lses[threadIdx.x] = lse[at];
+      dels[threadIdx.x] = delta[at];
+    }
+    __syncthreads();
+
+    float s[kCols], dp[kCols];
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) s[i] = dp[i] = 0.f;
+    for (int d = 0; d < D; ++d) {
+      const float kv = ks[j * ld + d];
+      const float vv = vs[j * ld + d];
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int qr = c + kLanes * i;
+        s[i] += qs[qr * ld + d] * kv;
+        dp[i] += dos[qr * ld + d] * vv;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int qr = c + kLanes * i;
+      const bool masked = causal && qt == kt && j > qr;
+      const float p = masked ? 0.f : expf(scale * s[i] - lses[qr]);
+      pt[j * kTileLd + qr] = p;
+      dst[j * kTileLd + qr] = p * (dp[i] - dels[qr]);
+    }
+    __syncwarp();
+    for (int qr = 0; qr < kTile; ++qr) {
+      const float p = pt[j * kTileLd + qr];
+      const float ds = dst[j * kTileLd + qr];
+#pragma unroll
+      for (int i = 0; i < D / kLanes; ++i) {
+        const int d = c + kLanes * i;
+        dv_acc[i] += p * dos[qr * ld + d];
+        dk_acc[i] += ds * qs[qr * ld + d];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K/V-resident family: one block per (tile, bh), over the whole range.
+// ---------------------------------------------------------------------------
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int seq, float scale,
+                     int causal) {
+  constexpr int ld = D + 1;
+  extern __shared__ float smem[];
+  float* qs = smem;                 // [kTile][ld], pre-scaled by sm_scale
+  float* ks = qs + kTile * ld;      // [kTile][ld]
+  float* vs = ks + kTile * ld;      // [kTile][ld]
+  float* ps = vs + kTile * ld;      // [kTile][kTileLd] probabilities
+
+  const int qt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const size_t base = (size_t)bh * seq * D;
+
+  load_tile<T, D>(qs, q + base + (size_t)qt * kTile * D, scale);
+
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[D / kLanes];
+#pragma unroll
+  for (int i = 0; i < D / kLanes; ++i) acc[i] = 0.f;
+  fwd_tiles<T, D>(qs, ks, vs, ps, k + base, v + base, qt, 0,
+                  causal ? qt + 1 : seq / kTile, causal, m, l, acc);
 
   const int row = qt * kTile + r;
   T* orow = o + base + (size_t)row * D;
@@ -168,11 +327,8 @@ __global__ void __launch_bounds__(kThreads)
   if (c == 0) lse[(size_t)bh * seq + row] = m + logf(l);
 }
 
-// ---------------------------------------------------------------------------
-// dQ: one block per (q tile, bh).  Preamble: delta for the block's rows,
-// written out for the dK/dV kernel.  Then, per k tile, recompute
-// P = exp(scale * Q K^T - lse), dS = P * (dO V^T - delta), dQ += dS K.
-// ---------------------------------------------------------------------------
+// dQ, with delta for the block's rows computed first and written out for
+// the dK/dV kernel.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -212,52 +368,17 @@ __global__ void __launch_bounds__(kThreads)
   float acc[D / kLanes];
 #pragma unroll
   for (int i = 0; i < D / kLanes; ++i) acc[i] = 0.f;
-
-  const int num_kt = causal ? qt + 1 : seq / kTile;
-  for (int kt = 0; kt < num_kt; ++kt) {
-    __syncthreads();
-    load_tile<T, D>(ks, k + base + (size_t)kt * kTile * D, 1.f);
-    load_tile<T, D>(vs, v + base + (size_t)kt * kTile * D, 1.f);
-    __syncthreads();
-
-    float s[kCols], dp[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) s[j] = dp[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = qs[r * ld + d];
-      const float dv = dos[r * ld + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = c + kLanes * j;
-        s[j] += qv * ks[col * ld + d];
-        dp[j] += dv * vs[col * ld + d];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int col = c + kLanes * j;
-      const bool masked = causal && kt == qt && col > r;
-      const float p = masked ? 0.f : expf(scale * s[j] - lse_r);
-      dss[r * kTileLd + col] = p * (dp[j] - dl);
-    }
-    __syncwarp();
-    for (int j = 0; j < kTile; ++j) {
-      const float ds = dss[r * kTileLd + j];
-#pragma unroll
-      for (int i = 0; i < D / kLanes; ++i) acc[i] += ds * ks[j * ld + c + kLanes * i];
-    }
-  }
+  dq_tiles<T, D>(qs, dos, ks, vs, dss, k + base, v + base, qt, 0,
+                 causal ? qt + 1 : seq / kTile, causal, scale, lse_r, dl,
+                 acc);
 
   T* dqrow = dq + base + (size_t)row * D;
 #pragma unroll
   for (int i = 0; i < D / kLanes; ++i) dqrow[c + kLanes * i] = from_f32<T>(scale * acc[i]);
 }
 
-// ---------------------------------------------------------------------------
-// dK/dV: one block per (k tile, bh).  Loops over the q tiles from the
-// diagonal (causal) or from 0, accumulating dV = P^T dO and
-// dK = scale * dS^T Q in float32 registers.
-// ---------------------------------------------------------------------------
+// dK/dV: one block per (k tile, bh), over the q tiles from the diagonal
+// (causal) or from 0.
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -279,7 +400,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int kt = blockIdx.x;
   const int bh = blockIdx.y;
-  const int j = threadIdx.x / kLanes;  // this thread's k row in the tile
+  const int j = threadIdx.x / kLanes;
   const int c = threadIdx.x % kLanes;
   const size_t base = (size_t)bh * seq * D;
 
@@ -289,52 +410,10 @@ __global__ void __launch_bounds__(kThreads)
   float dk_acc[D / kLanes], dv_acc[D / kLanes];
 #pragma unroll
   for (int i = 0; i < D / kLanes; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-
-  const int num_qt = seq / kTile;
-  for (int qt = causal ? kt : 0; qt < num_qt; ++qt) {
-    __syncthreads();
-    load_tile<T, D>(qs, q + base + (size_t)qt * kTile * D, 1.f);
-    load_tile<T, D>(dos, dout + base + (size_t)qt * kTile * D, 1.f);
-    if (threadIdx.x < kTile) {
-      const size_t at = (size_t)bh * seq + (size_t)qt * kTile + threadIdx.x;
-      lses[threadIdx.x] = lse[at];
-      dels[threadIdx.x] = delta[at];
-    }
-    __syncthreads();
-
-    float s[kCols], dp[kCols];
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) s[i] = dp[i] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kv = ks[j * ld + d];
-      const float vv = vs[j * ld + d];
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        const int qr = c + kLanes * i;
-        s[i] += qs[qr * ld + d] * kv;
-        dp[i] += dos[qr * ld + d] * vv;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) {
-      const int qr = c + kLanes * i;
-      const bool masked = causal && qt == kt && j > qr;
-      const float p = masked ? 0.f : expf(scale * s[i] - lses[qr]);
-      pt[j * kTileLd + qr] = p;
-      dst[j * kTileLd + qr] = p * (dp[i] - dels[qr]);
-    }
-    __syncwarp();
-    for (int qr = 0; qr < kTile; ++qr) {
-      const float p = pt[j * kTileLd + qr];
-      const float ds = dst[j * kTileLd + qr];
-#pragma unroll
-      for (int i = 0; i < D / kLanes; ++i) {
-        const int d = c + kLanes * i;
-        dv_acc[i] += p * dos[qr * ld + d];
-        dk_acc[i] += ds * qs[qr * ld + d];
-      }
-    }
-  }
+  dkv_tiles<T, D>(ks, vs, qs, dos, pt, dst, lses, dels, q + base,
+                  dout + base, lse + (size_t)bh * seq,
+                  delta + (size_t)bh * seq, kt, causal ? kt : 0, seq / kTile,
+                  causal, scale, dk_acc, dv_acc);
 
   const int row = kt * kTile + j;
   T* dkrow = dk + base + (size_t)row * D;
@@ -344,6 +423,259 @@ __global__ void __launch_bounds__(kThreads)
     dkrow[c + kLanes * i] = from_f32<T>(scale * dk_acc[i]);
     dvrow[c + kLanes * i] = from_f32<T>(dv_acc[i]);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Streaming family.  Grid (tiles, splits, BH); `split` is in tiles.  The
+// partials of split j for row `row` of head `bh` sit at index
+// (j * BH + bh) * S + row of the workspace (times D for the vectors).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ size_t ws_row(int split_idx, int bh, int num_bh,
+                                         int seq, int row) {
+  return ((size_t)split_idx * num_bh + bh) * seq + row;
+}
+
+// The k splits [j0, j1) holding the keys that the queries of row tile
+// `qt` see (upper == 0: dQ, the forward), or the q splits holding the
+// queries that see the keys of row tile `qt` (upper == 1: dK/dV).
+__device__ __forceinline__ void live_splits(int qt, int nsplit, int split,
+                                            int causal, int upper, int& j0,
+                                            int& j1) {
+  j0 = 0;
+  j1 = nsplit;
+  if (causal) {
+    if (upper) j0 = qt / split;
+    else j1 = min(nsplit, qt / split + 1);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_str_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, float* __restrict__ m_ws,
+                         float* __restrict__ l_ws,
+                         float* __restrict__ acc_ws, int seq, int split,
+                         float scale, int causal) {
+  const int num_t = seq / kTile;
+  const int qt = num_t - 1 - blockIdx.x;  // causal: the longest rows first
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  const int kt0 = sp * split;
+  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
+  if (kt0 >= kt1) return;  // dead pair: every key after every query
+
+  constexpr int ld = D + 1;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* ks = qs + kTile * ld;
+  float* vs = ks + kTile * ld;
+  float* ps = vs + kTile * ld;
+
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const size_t base = (size_t)bh * seq * D;
+  load_tile<T, D>(qs, q + base + (size_t)qt * kTile * D, scale);
+
+  float m = -INFINITY;
+  float l = 0.f;
+  float acc[D / kLanes];
+#pragma unroll
+  for (int i = 0; i < D / kLanes; ++i) acc[i] = 0.f;
+  fwd_tiles<T, D>(qs, ks, vs, ps, k + base, v + base, qt, kt0, kt1, causal,
+                  m, l, acc);
+
+  const size_t at = ws_row(sp, bh, gridDim.z, seq, qt * kTile + r);
+  float* arow = acc_ws + at * D;
+#pragma unroll
+  for (int i = 0; i < D / kLanes; ++i) arow[c + kLanes * i] = acc[i];
+  if (c == 0) {
+    m_ws[at] = m;
+    l_ws[at] = l;
+  }
+}
+
+// Merge of the forward partials: M = max_j m_j, L = sum_j exp(m_j - M) l_j,
+// O = sum_j exp(m_j - M) acc_j / L, LSE = M + log L, j in increasing order.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_str_merge_kernel(const float* __restrict__ m_ws,
+                               const float* __restrict__ l_ws,
+                               const float* __restrict__ acc_ws,
+                               T* __restrict__ o, float* __restrict__ lse,
+                               int seq, int nsplit, int split, int causal) {
+  const int qt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const int row = qt * kTile + r;
+  int j0, j1;
+  live_splits(qt, nsplit, split, causal, 0, j0, j1);
+
+  float mx = -INFINITY;
+  for (int j = j0; j < j1; ++j)
+    mx = fmaxf(mx, m_ws[ws_row(j, bh, gridDim.y, seq, row)]);
+  float l = 0.f;
+  float acc[D / kLanes];
+#pragma unroll
+  for (int i = 0; i < D / kLanes; ++i) acc[i] = 0.f;
+  for (int j = j0; j < j1; ++j) {
+    const size_t at = ws_row(j, bh, gridDim.y, seq, row);
+    const float w = expf(m_ws[at] - mx);
+    l += w * l_ws[at];
+    const float* arow = acc_ws + at * D;
+#pragma unroll
+    for (int i = 0; i < D / kLanes; ++i) acc[i] += w * arow[c + kLanes * i];
+  }
+  const size_t at0 = (size_t)bh * seq + row;
+  T* orow = o + at0 * D;
+#pragma unroll
+  for (int i = 0; i < D / kLanes; ++i) orow[c + kLanes * i] = from_f32<T>(acc[i] / l);
+  if (c == 0) lse[at0] = mx + logf(l);
+}
+
+// delta = rowsum(dO * O), once per backward pass, for every split.
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                       float* __restrict__ delta, int seq) {
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const size_t at0 = (size_t)blockIdx.y * seq + blockIdx.x * kTile + r;
+  const T* orow = o + at0 * D;
+  const T* drow = dout + at0 * D;
+  float dl = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / kLanes; ++i)
+    dl += to_f32(drow[c + kLanes * i]) * to_f32(orow[c + kLanes * i]);
+  dl = row_sum(dl);
+  if (c == 0) delta[at0] = dl;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_str_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dq_ws, int seq, int split,
+                            float scale, int causal) {
+  const int num_t = seq / kTile;
+  const int qt = num_t - 1 - blockIdx.x;
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  const int kt0 = sp * split;
+  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
+  if (kt0 >= kt1) return;
+
+  constexpr int ld = D + 1;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + kTile * ld;
+  float* ks = dos + kTile * ld;
+  float* vs = ks + kTile * ld;
+  float* dss = vs + kTile * ld;
+
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const size_t base = (size_t)bh * seq * D;
+  const int row = qt * kTile + r;
+  load_tile<T, D>(qs, q + base + (size_t)qt * kTile * D, 1.f);
+  load_tile<T, D>(dos, dout + base + (size_t)qt * kTile * D, 1.f);
+  const float lse_r = lse[(size_t)bh * seq + row];
+  const float dl = delta[(size_t)bh * seq + row];
+
+  float acc[D / kLanes];
+#pragma unroll
+  for (int i = 0; i < D / kLanes; ++i) acc[i] = 0.f;
+  dq_tiles<T, D>(qs, dos, ks, vs, dss, k + base, v + base, qt, kt0, kt1,
+                 causal, scale, lse_r, dl, acc);
+
+  float* arow = dq_ws + ws_row(sp, bh, gridDim.z, seq, row) * D;
+#pragma unroll
+  for (int i = 0; i < D / kLanes; ++i) arow[c + kLanes * i] = acc[i];
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_str_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             float* __restrict__ dk_ws,
+                             float* __restrict__ dv_ws, int seq, int split,
+                             float scale, int causal) {
+  const int num_t = seq / kTile;
+  const int kt = blockIdx.x;
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  int qt0 = sp * split;
+  const int qt1 = min(qt0 + split, num_t);
+  if (causal) qt0 = max(qt0, kt);
+  if (qt0 >= qt1) return;  // dead pair: every query before every key
+
+  constexpr int ld = D + 1;
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + kTile * ld;
+  float* qs = vs + kTile * ld;
+  float* dos = qs + kTile * ld;
+  float* pt = dos + kTile * ld;
+  float* dst = pt + kTile * kTileLd;
+  float* lses = dst + kTile * kTileLd;
+  float* dels = lses + kTile;
+
+  const int j = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const size_t base = (size_t)bh * seq * D;
+  load_tile<T, D>(ks, k + base + (size_t)kt * kTile * D, 1.f);
+  load_tile<T, D>(vs, v + base + (size_t)kt * kTile * D, 1.f);
+
+  float dk_acc[D / kLanes], dv_acc[D / kLanes];
+#pragma unroll
+  for (int i = 0; i < D / kLanes; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  dkv_tiles<T, D>(ks, vs, qs, dos, pt, dst, lses, dels, q + base,
+                  dout + base, lse + (size_t)bh * seq,
+                  delta + (size_t)bh * seq, kt, qt0, qt1, causal, scale,
+                  dk_acc, dv_acc);
+
+  const size_t at = ws_row(sp, bh, gridDim.z, seq, kt * kTile + j);
+  float* dkrow = dk_ws + at * D;
+  float* dvrow = dv_ws + at * D;
+#pragma unroll
+  for (int i = 0; i < D / kLanes; ++i) {
+    dkrow[c + kLanes * i] = dk_acc[i];
+    dvrow[c + kLanes * i] = dv_acc[i];
+  }
+}
+
+// out = scale * (sum of the live splits' partials), splits in increasing
+// order, for dQ (upper == 0) or for dK and dV (upper == 1).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_sum_splits_kernel(const float* __restrict__ ws, T* __restrict__ out,
+                            int seq, int nsplit, int split, float scale,
+                            int causal, int upper) {
+  const int t = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const int row = t * kTile + r;
+  int j0, j1;
+  live_splits(t, nsplit, split, causal, upper, j0, j1);
+  float acc[D / kLanes];
+#pragma unroll
+  for (int i = 0; i < D / kLanes; ++i) acc[i] = 0.f;
+  for (int j = j0; j < j1; ++j) {
+    const float* arow = ws + ws_row(j, bh, gridDim.y, seq, row) * D;
+#pragma unroll
+    for (int i = 0; i < D / kLanes; ++i) acc[i] += arow[c + kLanes * i];
+  }
+  T* orow = out + ((size_t)bh * seq + row) * D;
+#pragma unroll
+  for (int i = 0; i < D / kLanes; ++i) orow[c + kLanes * i] = from_f32<T>(scale * acc[i]);
 }
 
 // ---------------------------------------------------------------------------
@@ -370,13 +702,18 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+#define BPS_RETURN_IF_ERROR(expr)              \
+  do {                                         \
+    const cudaError_t bps_err_ = (expr);       \
+    if (bps_err_ != cudaSuccess) return bps_err_; \
+  } while (0)
+
 template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* lse, int bh, int seq, float scale, int causal,
                        cudaStream_t stream) {
   const size_t smem = fwd_smem<D>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
+  BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_kernel<T, D>, smem));
   flash_fwd_kernel<T, D><<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, scale, causal);
   return cudaGetLastError();
@@ -388,8 +725,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       void* dq, float* delta, int bh, int seq, float scale,
                       int causal, cudaStream_t stream) {
   const size_t smem = dq_smem<D>();
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
+  BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_kernel<T, D>, smem));
   flash_bwd_dq_kernel<T, D><<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse,
       (T*)dq, delta, seq, scale, causal);
@@ -402,16 +738,89 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int bh, int seq, float scale,
                        int causal, cudaStream_t stream) {
   const size_t smem = dkv_smem<D>();
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, D>, smem);
-  if (err != cudaSuccess) return err;
+  BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_kernel<T, D>, smem));
   flash_bwd_dkv_kernel<T, D><<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
       (T*)dk, (T*)dv, seq, scale, causal);
   return cudaGetLastError();
 }
 
+int num_splits(int seq, int split) {
+  return (seq / kTile + split - 1) / split;
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd_str(const void* q, const void* k, const void* v,
+                           void* o, float* lse, float* m_ws, float* l_ws,
+                           float* acc_ws, int bh, int seq, float scale,
+                           int causal, int split, cudaStream_t stream) {
+  const int num_t = seq / kTile;
+  const int nsplit = num_splits(seq, split);
+  const size_t smem = fwd_smem<D>();
+  BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_kernel<T, D>, smem));
+  flash_fwd_str_kernel<T, D>
+      <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq,
+          split, scale, causal);
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  flash_fwd_str_merge_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
+      m_ws, l_ws, acc_ws, (T*)o, lse, seq, nsplit, split, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq_str(const void* q, const void* k, const void* v,
+                          const void* o, const void* dout, const float* lse,
+                          void* dq, float* delta, float* dq_ws, int bh,
+                          int seq, float scale, int causal, int split,
+                          cudaStream_t stream) {
+  const int num_t = seq / kTile;
+  const int nsplit = num_splits(seq, split);
+  flash_delta_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
+      (const T*)o, (const T*)dout, delta, seq);
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  const size_t smem = dq_smem<D>();
+  BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_str_kernel<T, D>, smem));
+  flash_bwd_dq_str_kernel<T, D>
+      <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+          dq_ws, seq, split, scale, causal);
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  flash_sum_splits_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
+      dq_ws, (T*)dq, seq, nsplit, split, scale, causal, 0);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv_str(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dk, void* dv,
+                           float* dk_ws, float* dv_ws, int bh, int seq,
+                           float scale, int causal, int split,
+                           cudaStream_t stream) {
+  const int num_t = seq / kTile;
+  const int nsplit = num_splits(seq, split);
+  const size_t smem = dkv_smem<D>();
+  BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_str_kernel<T, D>, smem));
+  flash_bwd_dkv_str_kernel<T, D>
+      <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+          dk_ws, dv_ws, seq, split, scale, causal);
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  flash_sum_splits_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
+      dk_ws, (T*)dk, seq, nsplit, split, scale, causal, 1);
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  flash_sum_splits_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
+      dv_ws, (T*)dv, seq, nsplit, split, 1.f, causal, 1);
+  return cudaGetLastError();
+}
+
 bool shape_ok(int bh, int seq) {
   return bh >= 1 && bh <= 65535 && seq >= kTile && seq % kTile == 0;
+}
+
+bool split_ok(int seq, int split) {
+  return split >= 1 && num_splits(seq, split) <= 65535;
 }
 
 // Instantiates `launcher<T, D>(args...)` for the supported head dims.
@@ -466,6 +875,48 @@ extern "C" int bps_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (!shape_ok(bh, seq)) return (int)cudaErrorInvalidValue;
   BPS_DISPATCH(launch_dkv, dtype, head_dim, q, k, v, dout, lse, delta, dk,
                dv, bh, seq, scale, causal, (cudaStream_t)stream);
+}
+
+// Streaming family.  `split` is the split length in 64-row tiles; the
+// workspaces hold ceil(S / 64 / split) splits: m_ws and l_ws [n, BH, S],
+// acc_ws, dq_ws, dk_ws and dv_ws [n, BH, S, D], all float32.
+extern "C" int bps_flash_fwd_str(const void* q, const void* k, const void* v,
+                                 void* o, float* lse, float* m_ws,
+                                 float* l_ws, float* acc_ws, int bh, int seq,
+                                 int head_dim, int dtype, float scale,
+                                 int causal, int split, void* stream) {
+  if (!shape_ok(bh, seq) || !split_ok(seq, split))
+    return (int)cudaErrorInvalidValue;
+  BPS_DISPATCH(launch_fwd_str, dtype, head_dim, q, k, v, o, lse, m_ws, l_ws,
+               acc_ws, bh, seq, scale, causal, split, (cudaStream_t)stream);
+}
+
+extern "C" int bps_flash_bwd_dq_str(const void* q, const void* k,
+                                    const void* v, const void* o,
+                                    const void* dout, const float* lse,
+                                    void* dq, float* delta, float* dq_ws,
+                                    int bh, int seq, int head_dim, int dtype,
+                                    float scale, int causal, int split,
+                                    void* stream) {
+  if (!shape_ok(bh, seq) || !split_ok(seq, split))
+    return (int)cudaErrorInvalidValue;
+  BPS_DISPATCH(launch_dq_str, dtype, head_dim, q, k, v, o, dout, lse, dq,
+               delta, dq_ws, bh, seq, scale, causal, split,
+               (cudaStream_t)stream);
+}
+
+extern "C" int bps_flash_bwd_dkv_str(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* delta,
+                                     void* dk, void* dv, float* dk_ws,
+                                     float* dv_ws, int bh, int seq,
+                                     int head_dim, int dtype, float scale,
+                                     int causal, int split, void* stream) {
+  if (!shape_ok(bh, seq) || !split_ok(seq, split))
+    return (int)cudaErrorInvalidValue;
+  BPS_DISPATCH(launch_dkv_str, dtype, head_dim, q, k, v, dout, lse, delta,
+               dk, dv, dk_ws, dv_ws, bh, seq, scale, causal, split,
+               (cudaStream_t)stream);
 }
 
 extern "C" const char* bps_cuda_error_string(int err) {

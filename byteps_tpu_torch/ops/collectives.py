@@ -93,6 +93,83 @@ def reduce_scatter(x: torch.Tensor, group=None,
 
 
 # ---------------------------------------------------------------------------
+# Differentiable collectives of the sequence-parallel plane.  Their backward
+# is the transpose JAX takes: the reverse permutation, the swapped
+# all-to-all.  At one rank both are the identity.
+# ---------------------------------------------------------------------------
+def _global_rank(group, rank: int) -> int:
+    return rank if group is None else dist.get_global_rank(group, rank)
+
+
+def _shift(x: torch.Tensor, shift: int, group) -> torch.Tensor:
+    world = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x,
+                      _global_rank(group, (me + shift) % world), group),
+           dist.P2POp(dist.irecv, out,
+                      _global_rank(group, (me - shift) % world), group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shift, group):
+        ctx.shift, ctx.group = shift, group
+        return _shift(x, shift, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, -ctx.shift, ctx.group), None, None
+
+
+def ppermute(x: torch.Tensor, shift: int = 1, group=None) -> torch.Tensor:
+    """Ring permutation (``lax.ppermute`` with perm i -> i + shift): each
+    rank sends ``x`` to rank + shift and returns what rank - shift sent."""
+    if axis_size(group) == 1:
+        return x
+    return _PPermute.apply(x, shift, group)
+
+
+def _all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
+                group) -> torch.Tensor:
+    world = dist.get_world_size(group)
+    if x.shape[split_axis] % world:
+        raise ValueError(f"dim {split_axis} of size {x.shape[split_axis]} "
+                         f"does not split over {world} ranks")
+    ins = [p.contiguous() for p in x.chunk(world, split_axis)]
+    outs = [torch.empty_like(ins[0]) for _ in range(world)]
+    dist.all_to_all(outs, ins, group=group)
+    return torch.cat(outs, concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis, group):
+        ctx.axes, ctx.group = (split_axis, concat_axis), group
+        return _all_to_all(x, split_axis, concat_axis, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return _all_to_all(g, concat_axis, split_axis, ctx.group), None, \
+            None, None
+
+
+def all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
+               group=None) -> torch.Tensor:
+    """Tiled all-to-all (``lax.all_to_all(..., tiled=True)``): ``x`` is cut
+    into world chunks along ``split_axis``, chunk i goes to rank i, and the
+    chunks received are concatenated along ``concat_axis`` in rank order."""
+    if axis_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, split_axis, concat_axis, group)
+
+
+# ---------------------------------------------------------------------------
 # Bucketing: the partitioner applied to a flattened gradient tree.
 # ---------------------------------------------------------------------------
 class BucketPlan:

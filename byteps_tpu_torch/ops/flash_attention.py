@@ -4,15 +4,24 @@ Counterpart of ``byteps_tpu/ops/flash_attention.py``.  Attention is computed
 blockwise with an online softmax, so no [S, S] logits tensor is ever stored,
 and the backward recomputes the probabilities from the saved log-sum-exp.
 The kernels live in ``csrc/flash_attention.cu`` (see its header for the
-tiling and what bounds each kernel on the H100):
+tiling and what bounds each kernel on the H100), in the JAX package's two
+families:
 
-  - ``flash_fwd``      q, k, v -> O (input dtype), LSE [BH, S] float32
-  - ``flash_bwd_dq``   q, k, v, O, LSE, dO -> dQ, delta = rowsum(dO * O)
-  - ``flash_bwd_dkv``  q, k, v, dO, LSE, delta -> dK, dV
+  - K/V-resident:
+    ``flash_fwd``      q, k, v -> O (input dtype), LSE [BH, S] float32
+    ``flash_bwd_dq``   q, k, v, O, LSE, dO -> dQ, delta = rowsum(dO * O)
+    ``flash_bwd_dkv``  q, k, v, dO, LSE, delta -> dK, dV
+  - streaming (long S), the same three functions with the contraction axis
+    cut into splits (``_split_len``) whose float32 partials are merged in a
+    fixed order:
+    ``flash_fwd_str``, ``flash_bwd_dq_str``, ``flash_bwd_dkv_str``
 
-Each wrapper runs its kernel for CUDA tensors and the plain PyTorch version
-beside it (``*_plain``) for CPU tensors; for a CUDA tensor it launches the
-kernel or raises.  ``launches`` counts kernel launches per wrapper.
+``flash_attention`` picks the family by the JAX package's rule
+(``_use_streaming``).  Each wrapper runs its kernel for CUDA tensors and the
+plain PyTorch version beside it (``*_plain``) for CPU tensors; for a CUDA
+tensor it launches the kernel or raises.  ``launches`` counts calls that
+launched a kernel, per wrapper (a streaming wrapper launches its partial
+kernel and the merge or sum passes behind it in one call).
 
 Layout: q, k, v are [BH, S, D] (batch*heads folded), as in the JAX package.
 The JAX version stores LSE as [BH, 1, S] for TPU tiling; here it is [BH, S].
@@ -33,9 +42,19 @@ TILE = 64                      # the kernels' q and k tile (rows)
 HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernels are instantiated for
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+# The JAX package's selection rule, kept for parity: K+V above this many
+# bytes take the streaming family (there: ~16 MB of VMEM per TPU core).
+# Read at call time, as the JAX package reads its own.
+RESIDENT_VMEM_BUDGET = 6 * 1024 * 1024
+# Splits of the streaming family: at least SPLIT_MIN_KEYS keys (or queries)
+# each, and at most MAX_SPLITS of them (see _split_len).
+SPLIT_MIN_KEYS = 4096
+MAX_SPLITS = 8
+
 # Kernel launches since the last reset_launches(), per wrapper.
 launches: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
-                            "flash_bwd_dkv": 0}
+                            "flash_bwd_dkv": 0, "flash_fwd_str": 0,
+                            "flash_bwd_dq_str": 0, "flash_bwd_dkv_str": 0}
 
 
 def reset_launches() -> None:
@@ -52,6 +71,12 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _F, _I, _P],
     "bps_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _F, _I, _P],
+    "bps_flash_fwd_str": [_P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _F, _I, _I, _P],
+    "bps_flash_bwd_dq_str": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _F, _I, _I, _P],
+    "bps_flash_bwd_dkv_str": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _F, _I, _I, _P],
 }
 
 
@@ -160,6 +185,99 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
 
 
 # ---------------------------------------------------------------------------
+# Plain versions of the streaming family: the kernels' split/merge
+# arithmetic, split by split, so that only one split's [BH, S, split]
+# logits exist at a time.  Under causal masking the rows before a k split
+# (or the keys after a q split) see none of it and are left out, as the
+# kernels skip their dead (tile, split) pairs.
+# ---------------------------------------------------------------------------
+def _split_len(s: int) -> int:
+    """Keys (forward, dQ) or queries (dK/dV) in one split at sequence
+    length s: whole tiles, at least SPLIT_MIN_KEYS, and no more than
+    MAX_SPLITS splits.  A CTA then walks at most max(SPLIT_MIN_KEYS,
+    S / MAX_SPLITS) keys, and each float32 workspace holds at most
+    MAX_SPLITS partials of the output: 8 splits of 4,096 at S = 32,768,
+    8 of 16,384 at S = 131,072."""
+    per_split = -(-s // MAX_SPLITS)
+    return max(SPLIT_MIN_KEYS, -(-per_split // TILE) * TILE)
+
+
+def _mask_after(s: torch.Tensor, row0: int, col0: int) -> torch.Tensor:
+    """Logits [.., R, C] of rows row0.. and keys col0..: key > row -> -inf
+    (in place)."""
+    rows = torch.arange(row0, row0 + s.shape[-2], device=s.device)
+    cols = torch.arange(col0, col0 + s.shape[-1], device=s.device)
+    return s.masked_fill_(cols[None, :] > rows[:, None], float("-inf"))
+
+
+def flash_fwd_str_plain(q, k, v, causal: bool, scale: float):
+    bh, s, d = q.shape
+    split = _split_len(s)
+    qf, kf, vf = q.float() * scale, k.float(), v.float()
+    parts = []                        # (first row, m, l, acc) per k split
+    for j0 in range(0, s, split):
+        r0 = j0 if causal else 0
+        kj, vj = kf[:, j0:j0 + split], vf[:, j0:j0 + split]
+        logits = qf[:, r0:] @ kj.transpose(-1, -2)
+        if causal:
+            _mask_after(logits, r0, j0)
+        m = logits.amax(-1)
+        p = logits.sub_(m[..., None]).exp_()
+        parts.append((r0, m, p.sum(-1), p @ vj))
+        del logits, p
+    mx = torch.full((bh, s), float("-inf"), device=q.device)
+    for r0, m, _, _ in parts:
+        mx[:, r0:] = torch.maximum(mx[:, r0:], m)
+    l = torch.zeros(bh, s, device=q.device)
+    acc = torch.zeros(bh, s, d, device=q.device)
+    for r0, m, lj, aj in parts:
+        w = torch.exp(m - mx[:, r0:])
+        l[:, r0:] += w * lj
+        acc[:, r0:] += w[..., None] * aj
+    return (acc / l[..., None]).to(q.dtype), mx + torch.log(l)
+
+
+def flash_bwd_dq_str_plain(q, k, v, o, lse, do, causal: bool, scale: float):
+    s = q.shape[1]
+    split = _split_len(s)
+    delta = (do.float() * o.float()).sum(-1)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dq = torch.zeros_like(qf)
+    for j0 in range(0, s, split):
+        r0 = j0 if causal else 0
+        kj, vj = kf[:, j0:j0 + split], vf[:, j0:j0 + split]
+        logits = (qf[:, r0:] @ kj.transpose(-1, -2)).mul_(scale)
+        if causal:
+            _mask_after(logits, r0, j0)
+        p = logits.sub_(lse[:, r0:, None]).exp_()
+        ds = (dof[:, r0:] @ vj.transpose(-1, -2)).sub_(delta[:, r0:, None])
+        dq[:, r0:] += ds.mul_(p) @ kj
+        del logits, p, ds
+    return (scale * dq).to(q.dtype), delta
+
+
+def flash_bwd_dkv_str_plain(q, k, v, do, lse, delta, causal: bool,
+                            scale: float):
+    s = q.shape[1]
+    split = _split_len(s)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for i0 in range(0, s, split):
+        c1 = min(i0 + split, s) if causal else s
+        qi, doi = qf[:, i0:i0 + split], dof[:, i0:i0 + split]
+        logits = (qi @ kf[:, :c1].transpose(-1, -2)).mul_(scale)
+        if causal:
+            _mask_after(logits, i0, 0)
+        p = logits.sub_(lse[:, i0:i0 + split, None]).exp_()
+        ds = (doi @ vf[:, :c1].transpose(-1, -2)).sub_(
+            delta[:, i0:i0 + split, None]).mul_(p)
+        dk[:, :c1] += ds.transpose(-1, -2) @ qi
+        dv[:, :c1] += p.transpose(-1, -2) @ doi
+        del logits, p, ds
+    return (scale * dk).to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
 # Wrappers: the kernel for CUDA tensors, the plain version for CPU tensors.
 # ---------------------------------------------------------------------------
 def flash_fwd(q, k, v, causal: bool, scale: float):
@@ -218,25 +336,115 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
     return dk, dv
 
 
+def _split_tiles(s: int) -> Tuple[int, int]:
+    """(split in tiles, number of splits) for a streaming launch."""
+    split = _split_len(s)
+    return split // TILE, -(-s // split)
+
+
+def flash_fwd_str(q, k, v, causal: bool, scale: float):
+    """Streaming forward -> (O in q.dtype, LSE [BH, S] float32)."""
+    if not q.is_cuda:
+        return flash_fwd_str_plain(q, k, v, causal, scale)
+    bh, s, d = _check_cuda("flash_fwd_str", q, k, v)
+    tiles, n = _split_tiles(s)
+    o = torch.empty_like(q)
+    lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
+    m_ws = torch.empty(n, bh, s, dtype=torch.float32, device=q.device)
+    l_ws = torch.empty_like(m_ws)
+    acc_ws = torch.empty(n, bh, s, d, dtype=torch.float32, device=q.device)
+    lib = _lib()
+    err = lib.bps_flash_fwd_str(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                o.data_ptr(), lse.data_ptr(),
+                                m_ws.data_ptr(), l_ws.data_ptr(),
+                                acc_ws.data_ptr(), bh, s, d,
+                                _DTYPE_CODES[q.dtype], scale, int(causal),
+                                tiles, _stream(q))
+    _raise_on(lib, "flash_fwd_str", err)
+    launches["flash_fwd_str"] += 1
+    return o, lse
+
+
+def flash_bwd_dq_str(q, k, v, o, lse, do, causal: bool, scale: float):
+    """Streaming dQ -> (dQ in q.dtype, delta = rowsum(dO * O) [BH, S])."""
+    if not q.is_cuda:
+        return flash_bwd_dq_str_plain(q, k, v, o, lse, do, causal, scale)
+    bh, s, d = _check_cuda("flash_bwd_dq_str", q, k, v, o, do)
+    _check_rows("flash_bwd_dq_str", bh, s, lse)
+    tiles, n = _split_tiles(s)
+    dq = torch.empty_like(q)
+    delta = torch.empty(bh, s, dtype=torch.float32, device=q.device)
+    dq_ws = torch.empty(n, bh, s, d, dtype=torch.float32, device=q.device)
+    lib = _lib()
+    err = lib.bps_flash_bwd_dq_str(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   o.data_ptr(), do.data_ptr(),
+                                   lse.data_ptr(), dq.data_ptr(),
+                                   delta.data_ptr(), dq_ws.data_ptr(), bh, s,
+                                   d, _DTYPE_CODES[q.dtype], scale,
+                                   int(causal), tiles, _stream(q))
+    _raise_on(lib, "flash_bwd_dq_str", err)
+    launches["flash_bwd_dq_str"] += 1
+    return dq, delta
+
+
+def flash_bwd_dkv_str(q, k, v, do, lse, delta, causal: bool, scale: float):
+    """Streaming dK/dV -> (dK, dV) in the input dtype."""
+    if not q.is_cuda:
+        return flash_bwd_dkv_str_plain(q, k, v, do, lse, delta, causal,
+                                       scale)
+    bh, s, d = _check_cuda("flash_bwd_dkv_str", q, k, v, do)
+    _check_rows("flash_bwd_dkv_str", bh, s, lse, delta)
+    tiles, n = _split_tiles(s)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dk_ws = torch.empty(n, bh, s, d, dtype=torch.float32, device=q.device)
+    dv_ws = torch.empty_like(dk_ws)
+    lib = _lib()
+    err = lib.bps_flash_bwd_dkv_str(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    do.data_ptr(), lse.data_ptr(),
+                                    delta.data_ptr(), dk.data_ptr(),
+                                    dv.data_ptr(), dk_ws.data_ptr(),
+                                    dv_ws.data_ptr(), bh, s, d,
+                                    _DTYPE_CODES[q.dtype], scale,
+                                    int(causal), tiles, _stream(q))
+    _raise_on(lib, "flash_bwd_dkv_str", err)
+    launches["flash_bwd_dkv_str"] += 1
+    return dk, dv
+
+
+def _use_streaming(q: torch.Tensor, streaming: Optional[bool]) -> bool:
+    """The JAX package's rule: streaming when K+V (2 * S * D * itemsize)
+    exceed RESIDENT_VMEM_BUDGET, unless ``streaming`` says otherwise."""
+    if streaming is not None:
+        return streaming
+    _bh, s, d = q.shape
+    return 2 * s * d * q.element_size() > RESIDENT_VMEM_BUDGET
+
+
 class _FlashAttention(torch.autograd.Function):
     """The custom_vjp of the JAX version: forward saves (q, k, v, O, LSE),
-    backward runs the dQ kernel (which also yields delta), then dK/dV."""
+    backward runs the dQ kernel (which also yields delta), then dK/dV, of
+    the family the forward ran."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        o, lse = flash_fwd(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal, scale, streaming):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+        fwd = flash_fwd_str if streaming else flash_fwd
+        o, lse = fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.streaming = causal, scale, streaming
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        dq, delta = flash_bwd_dq(q, k, v, o, lse, do, ctx.causal, ctx.scale)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal,
-                               ctx.scale)
-        return dq, dk, dv, None, None
+        bwd_dq, bwd_dkv = ((flash_bwd_dq_str, flash_bwd_dkv_str)
+                           if ctx.streaming
+                           else (flash_bwd_dq, flash_bwd_dkv))
+        dq, delta = bwd_dq(q, k, v, o, lse, do, ctx.causal, ctx.scale)
+        dk, dv = bwd_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -248,11 +456,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     sm_scale defaults to 1/sqrt(D).  block_q/block_k are the JAX version's
     TPU tiling hints: they must divide S, as there, and are otherwise
-    unused — the CUDA kernels pick their own 64-row tiles.  ``interpret``
-    and ``streaming`` are accepted for API parity; the tensors' device alone
-    decides between the kernels (CUDA) and the plain version (CPU).
+    unused — the CUDA kernels pick their own 64-row tiles.
+    streaming=None picks the family as the JAX package does (resident while
+    2*S*D*itemsize fits RESIDENT_VMEM_BUDGET, streaming beyond); True or
+    False forces one.  ``interpret`` is accepted for API parity; the
+    tensors' device alone decides between the kernels (CUDA) and the plain
+    versions (CPU).
     """
-    del interpret, streaming
+    del interpret
     s, d = q.shape[1], q.shape[2]
     if s % block_q or s % block_k:
         raise ValueError(
@@ -260,4 +471,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             " — use models.transformer.flash_attention_fn for the"
             " auto-fallback to dense attention")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    return _FlashAttention.apply(q, k, v, causal, scale)
+    return _FlashAttention.apply(q, k, v, causal, scale,
+                                 _use_streaming(q, streaming))

@@ -51,7 +51,8 @@ def test_kernels_match_plain(cuda_device, causal, d, dtype, tol):
                                         scale)
     torch.cuda.synchronize()
     assert {n: fa.launches[n] - before[n] for n in before} == {
-        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+        "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+        "flash_fwd_str": 0, "flash_bwd_dq_str": 0, "flash_bwd_dkv_str": 0}
     for name, got, ref, t in (("o", o, o_p, tol), ("lse", lse, lse_p, 1e-6),
                               ("dq", dq, dq_p, tol),
                               ("delta", delta, delta_p, 1e-5),
@@ -78,6 +79,21 @@ def test_autograd_block_hints(cuda_device):
     for got, ref in zip(grads, (dq_p, dk_p, dv_p)):
         assert float((got - ref).abs().max()) <= 1e-4 * float(
             ref.abs().max())
+
+
+def test_autograd_op_takes_strided_views(cuda_device):
+    """At batch 1 a model without RoPE folds its [1, S, H, D] -> [1, H, S,
+    D] heads into a non-contiguous [H, S, D] view; the autograd op makes
+    it contiguous before the kernels, which refuse strided tensors."""
+    from byteps_tpu_torch.models.transformer import (dense_attention,
+                                                     flash_attention_fn)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    x = torch.randn(1, 256, 4, 64, generator=gen,
+                    device=cuda_device).transpose(1, 2)
+    assert not x.reshape(4, 256, 64).is_contiguous()
+    out = flash_attention_fn(x, x, x, True)
+    torch.testing.assert_close(out, dense_attention(x, x, x, True),
+                               atol=2e-5, rtol=1e-4)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
@@ -112,7 +128,129 @@ def test_tiny_train_step_launches(cuda_device):
     loss = float(step(params, batch))
     assert loss == loss and abs(loss) < 1e3
     assert fa.launches == {"flash_fwd": 4, "flash_bwd_dq": 2,
-                           "flash_bwd_dkv": 2}
+                           "flash_bwd_dkv": 2, "flash_fwd_str": 0,
+                           "flash_bwd_dq_str": 0, "flash_bwd_dkv_str": 0}
+
+
+def _streaming_vs_plain(q, k, v, do, causal, scale):
+    """Each streaming kernel and its plain version (float32, on the same
+    dtype-rounded inputs): [(name, kernel out, plain out)]."""
+    o, lse = fa.flash_fwd_str(q, k, v, causal, scale)
+    dq, delta = fa.flash_bwd_dq_str(q, k, v, o, lse, do, causal, scale)
+    dk, dv = fa.flash_bwd_dkv_str(q, k, v, do, lse, delta, causal, scale)
+    f = [t.float() for t in (q, k, v, do)]
+    o_p, lse_p = fa.flash_fwd_str_plain(*f[:3], causal, scale)
+    dq_p, delta_p = fa.flash_bwd_dq_str_plain(*f[:3], o.float(), lse, f[3],
+                                              causal, scale)
+    dk_p, dv_p = fa.flash_bwd_dkv_str_plain(*f[:3], f[3], lse, delta,
+                                            causal, scale)
+    torch.cuda.synchronize()
+    return [("o", o, o_p), ("lse", lse, lse_p), ("dq", dq, dq_p),
+            ("delta", delta, delta_p), ("dk", dk, dk_p), ("dv", dv, dv_p)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3)])
+@pytest.mark.parametrize("s,split", [(512, 128), (320, 128), (256, 4096)])
+def test_streaming_kernels_match_plain(cuda_device, monkeypatch, s, split,
+                                       causal, d, dtype, tol):
+    """The streaming kernels against their plain versions, in 4, 3 (the
+    last ragged) and 1 splits; one launch counted per wrapper."""
+    monkeypatch.setattr(fa, "_split_len", lambda s: split)
+    q, k, v, do = _qkvdo(cuda_device, 4, s, d, dtype)
+    before = dict(fa.launches)
+    res = _streaming_vs_plain(q, k, v, do, causal, d ** -0.5)
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+        "flash_fwd_str": 1, "flash_bwd_dq_str": 1, "flash_bwd_dkv_str": 1}
+    tols = {"lse": 1e-6, "delta": 1e-5}
+    for name, got, ref in res:
+        err = float((got.float() - ref).abs().max())
+        top = float(ref.abs().max())
+        assert err <= tols.get(name, tol) * top, \
+            f"{name}: max err {err} vs max {top}"
+
+
+def test_streaming_dead_splits_are_never_read(cuda_device, monkeypatch):
+    """Causal, 8 splits of 64 keys: q tile 0 has 7 dead splits.  The
+    workspaces come from the caching allocator, here from blocks of their
+    sizes just filled with NaN; a merge that read a dead split would
+    spread them (or another call's partials) into the result."""
+    bh, s, d, split = 2, 512, 64, 64
+    monkeypatch.setattr(fa, "_split_len", lambda s: split)
+    q, k, v, do = _qkvdo(cuda_device, bh, s, d, torch.float32)
+    junk = [torch.full((s // split, bh, s, d), float("nan"),
+                       device=cuda_device) for _ in range(3)]
+    junk += [torch.full((s // split, bh, s), float("nan"),
+                        device=cuda_device) for _ in range(2)]
+    del junk
+    for name, got, ref in _streaming_vs_plain(q, k, v, do, True,
+                                              d ** -0.5):
+        assert bool(torch.isfinite(got).all()), name
+        err = float((got - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), (name, err)
+
+
+def test_streaming_repeat_is_bit_identical(cuda_device, monkeypatch):
+    """Fixed-order merges, no atomics: two calls give the same bits."""
+    monkeypatch.setattr(fa, "_split_len", lambda s: 256)
+    q, k, v, do = _qkvdo(cuda_device, 4, 1024, 64, torch.bfloat16)
+    for causal in (False, True):
+        first = _streaming_vs_plain(q, k, v, do, causal, 0.125)
+        second = _streaming_vs_plain(q, k, v, do, causal, 0.125)
+        for (name, a, _), (_, b, _) in zip(first, second):
+            assert torch.equal(a, b), name
+
+
+def test_streaming_autoselect_launches(cuda_device):
+    """Past RESIDENT_VMEM_BUDGET (float32, head_dim 128: S > 6144) the
+    autograd op takes the streaming kernels, forward and backward, and
+    gives the plain gradients."""
+    q, k, v, do = _qkvdo(cuda_device, 1, 6208, 128, torch.float32)
+    for t in (q, k, v):
+        t.requires_grad_()
+    fa.reset_launches()
+    out = fa.flash_attention(q, k, v, True, None, 64, 64)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert fa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0, "flash_fwd_str": 1,
+                           "flash_bwd_dq_str": 1, "flash_bwd_dkv_str": 1}
+    with torch.no_grad():
+        scale = 128 ** -0.5
+        o_p, lse_p = fa.flash_fwd_str_plain(q, k, v, True, scale)
+        dq_p, delta = fa.flash_bwd_dq_str_plain(q, k, v, o_p, lse_p, do,
+                                                True, scale)
+        dk_p, dv_p = fa.flash_bwd_dkv_str_plain(q, k, v, do, lse_p, delta,
+                                                True, scale)
+    torch.testing.assert_close(out, o_p, atol=2e-5, rtol=1e-4)
+    for got, ref in zip(grads, (dq_p, dk_p, dv_p)):
+        assert float((got - ref).abs().max()) <= 1e-4 * float(
+            ref.abs().max())
+
+
+def test_tiny_train_step_streaming_launches(cuda_device, monkeypatch):
+    """With the resident budget at 0, the tiny transformer's step runs the
+    streaming family: 4 forward launches, 2 of each backward kernel."""
+    from byteps_tpu_torch import DistributedOptimizer, build_train_step
+    from byteps_tpu_torch.common.tree import tree_leaves
+    from byteps_tpu_torch.models import transformer as tfm
+    monkeypatch.setattr(fa, "RESIDENT_VMEM_BUDGET", 0)
+    cfg = tfm.get_config("tiny", attn_impl="flash")
+    gen = torch.Generator().manual_seed(0)
+    params = tfm.init_params(gen, cfg)
+    batch = tfm.synthetic_batch(gen, 2, 128, cfg)
+    opt = DistributedOptimizer(torch.optim.AdamW(tree_leaves(params),
+                                                 lr=1e-3, weight_decay=1e-4))
+    step = build_train_step(lambda p, b: tfm.loss_fn(p, b, cfg), opt)
+    fa.reset_launches()
+    loss = float(step(params, batch))
+    assert loss == loss and abs(loss) < 1e3
+    assert fa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                           "flash_bwd_dkv": 0, "flash_fwd_str": 4,
+                           "flash_bwd_dq_str": 2, "flash_bwd_dkv_str": 2}
 
 
 def _signs_input(n, device):

@@ -146,5 +146,8 @@ def test_cpu_path_counts_no_launch():
     q, k, v = (torch.from_numpy(x).requires_grad_()
                for x in _inputs(6, 3, 1, 64, 16))
     fa.flash_attention(q, k, v, True, None, 64, 64).sum().backward()
+    fa.flash_attention(q, k, v, True, None, 64, 64,
+                       streaming=True).sum().backward()
     assert fa.launches == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                           "flash_bwd_dkv": 0}
+                           "flash_bwd_dkv": 0, "flash_fwd_str": 0,
+                           "flash_bwd_dq_str": 0, "flash_bwd_dkv_str": 0}

@@ -34,6 +34,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert res["bad"] == []
     for mod in ("byteps_tpu_torch.ops.flash_attention",
                 "byteps_tpu_torch.ops.collectives",
+                "byteps_tpu_torch.ops.ring_attention",
                 "byteps_tpu_torch.ops.compressor",
                 "byteps_tpu_torch.ops.compressor.base",
                 "byteps_tpu_torch.ops.compressor.bitpack",

@@ -144,6 +144,39 @@ def test_fused_nll_sum_equals_full_logits():
     np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rope_matches_jax_at_long_positions(dtype):
+    """RoPE over S = 32,768 positions (the long-context path's length).
+    XLA and torch round theta ** (-i / half) one float32 ulp apart for a
+    few frequencies, so at position 32,767 the angles differ by up to
+    7.6e-6 rad and the outputs by up to ~1.1e-5 * |x|: the port must stay
+    within 1.5e-5 * max|x| of JAX (bf16: plus one bf16 rounding, 2^-7
+    relative).  Both sit ~4.8e-3 from the float64 rotation, the float32
+    angle's own rounding; the port must be no farther from it than JAX."""
+    jdt, tdt = _DTYPES[dtype]
+    x = np.random.RandomState(0).randn(1, 2, 32768, 64).astype(np.float32)
+    want = np.asarray(jtfm._rope(jnp.asarray(x).astype(jdt), 10000.0),
+                      np.float32)
+    got = tfm._rope(torch.from_numpy(x).to(tdt), 10000.0)
+    assert got.dtype == tdt
+    got = got.float().numpy()
+    tail = slice(-1024, None)
+    atol = 1.5e-5 * float(np.abs(x).max())
+    rtol = 2.0 ** -7 if dtype == "bfloat16" else 0.0
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+    np.testing.assert_allclose(got[..., tail, :], want[..., tail, :],
+                               rtol=rtol, atol=atol)
+    if dtype == "float32":
+        half = 32
+        ang = np.arange(32768.0)[:, None] * 10000.0 ** (
+            -np.arange(half) / half)[None, :]
+        x1, x2 = x[..., :half].astype(np.float64), x[..., half:]
+        truth = np.concatenate([x1 * np.cos(ang) - x2 * np.sin(ang),
+                                x2 * np.cos(ang) + x1 * np.sin(ang)], -1)
+        assert (np.abs(got - truth).max()
+                <= np.abs(want - truth).max() + atol)
+
+
 def test_config_validation_and_remat_policies():
     with pytest.raises(ValueError, match="norm"):
         tfm.get_config("tiny", norm="batchnorm")
