@@ -45,26 +45,51 @@
 // at 3.35 TB/s, and does 4-9 GFLOP, about 4-9 us at the bf16 tensor-core
 // peak: the bound is the bytes.  At the long shape (BH = 16, S = 32768)
 // the same functions do 2.2-4.4 TFLOP on 25-38 MB: the bound is the
-// operations, 2.2-4.5 ms.  Every kernel here does its products as float32
-// FMAs on the CUDA cores (67 TFLOP/s at most), so what bounds them in
-// practice is FMA issue and shared-memory bandwidth, not device memory.
-// The design keeps every intermediate the TPU kernels keep out of HBM out
-// of device memory too: the [S, S] logits and probabilities only ever
-// exist as one 64 x 64 tile in registers and shared memory, and the
-// backward recomputes them from the saved log-sum-exp.  The streaming
-// partials add (D + 2) floats per row and split, which is small beside
-// the operations.  Moving the two products of each step onto the tensor
-// cores (mma.sync, then wgmma with TMA) is the next step.
+// operations, 2.2-4.5 ms.  The design keeps every intermediate the TPU
+// kernels keep out of HBM out of device memory too: the [S, S] logits and
+// probabilities only ever exist as one 64 x 64 tile in registers and
+// shared memory, and the backward recomputes them from the saved
+// log-sum-exp.  The streaming partials add (D + 2) floats per row and
+// split, which is small beside the operations.
+//
+// The bf16 backward (dq_mma_tiles, dkv_mma_tiles) runs its products on the
+// tensor cores: mma.sync m16n8k16, bf16 x bf16 -> float32, four warps of
+// 16 rows each, tiles in padded bf16 shared memory read by ldmatrix, the
+// streamed tiles double-buffered through cp.async.  The first products
+// (Q K^T and dO V^T, or K Q^T and V dO^T in dK/dV) take the bf16 inputs,
+// which the tensor cores multiply exactly.  P and dS are float32 in
+// registers, as the reference keeps them: its Pallas kernels compute in
+// float32 throughout.  Rounded once to bf16 before the second products
+// (dS K, P^T dO, dS^T Q), over a 4,096-key contraction they miss the
+// plain version by up to about 100 bf16 steps.  So each enters as a pair,
+// hi = bf16(x) and lo = bf16(x - hi), two MMAs into one float32
+// accumulator: 16 significant bits, within one bf16 step of the plain
+// version (tests/test_torch_port_flash_tc.py emulates this arithmetic).
+// The pair makes the tensor-core work 20 FLOPs per visible (q, k) pair
+// and head-dim element, against the function's 14.  mma.sync reaches only
+// part of the card's bf16 peak, which wants wgmma.
+//
+// The forward, and the float32 backward, do their products as float32
+// FMAs on the CUDA cores (67 TFLOP/s at most), bound in practice by FMA
+// issue and shared-memory bandwidth.  The float32 backward stays there on
+// purpose: single-pass TF32 keeps 10 mantissa bits, too few for the
+// float32 tests' 1e-5 of the largest element, and the main path is bf16.
 //
 // Tiling.  The TPU kernels take one q block of up to 512 rows and keep K/V
 // whole in VMEM.  A 512 x 512 float32 logits tile does not fit in 227 KB of
 // shared memory, so these kernels pick their own tiles: 64 q rows by 64 k
-// rows, 256 threads, four threads to a row, each thread owning 16 columns
-// of the logits tile and D / 4 columns of the accumulator.  Causal masking
-// skips tiles above the diagonal (the loop bound) and masks inside the
-// diagonal tile, with global positions, as _causal_mask does.  Both
-// families run the same tile loops (fwd_tiles, dq_tiles, dkv_tiles); the
-// resident kernels over the whole range, the streaming ones over a split.
+// rows.  The CUDA-core loops (fwd_tiles, and dq_tiles / dkv_tiles for
+// float32) run 256 threads, four threads to a row, each thread owning 16
+// columns of the logits tile and D / 4 columns of the accumulator.  The
+// tensor-core loops run 128 threads, each warp owning 16 rows and its
+// accumulators in the MMA layout; dK/dV takes the q tile 32 columns at a
+// time at D = 64 and 16 at D = 128, so that its two D-wide accumulators
+// leave room in the registers.  Causal masking skips tiles above the
+// diagonal (the loop bound) and masks inside the diagonal tile, with
+// global positions, as _causal_mask does.  Both families run the same tile
+// loops: the resident kernels over the whole range, the streaming ones
+// over a split.  Within a split the tiles are walked in a fixed order,
+// with no atomics.
 //
 // Each entry point returns cudaGetLastError() after each launch (or the
 // error of the attribute call before it), so a refused launch surfaces in
@@ -74,6 +99,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
+#include <type_traits>
 
 namespace {
 
@@ -679,6 +707,470 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// The bf16 backward on the tensor cores: dQ and dK/dV with
+// mma.sync.m16n8k16 (bf16 x bf16 -> float32).  A CTA of four warps owns a
+// 64-row tile; warp w owns its rows 16w..16w+15 and keeps its products'
+// accumulators in registers in the MMA layout: for n8 block n, element e
+// of lane l sits at row l/4 (+8 for e >= 2), column 8n + 2(l%4) + (e&1).
+// Tiles live in shared memory as bf16 rows of D + 8 (16-byte aligned and
+// free of bank conflicts for ldmatrix); the streamed tiles come in by
+// cp.async, double-buffered, tile t+1 loading while tile t multiplies.
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int kWarps = 4;
+constexpr int kMmaThreads = 32 * kWarps;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait for every group but the newest (the prefetch just issued).
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix
+// i, and lane l receives row l/4, columns 2(l%4), +1 of each (of each
+// transposed matrix with .trans).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a b: a 16x16 (row), b 16x8 (col), c 16x8 float32.
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// x0, x1 (neighbouring columns) as hi = bf16(x), lo = bf16(x - hi): the pair
+// carries 16 significant bits of x where one bf16 carries 8.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const bf16 h0 = __float2bfloat16_rn(x0);
+  const bf16 h1 = __float2bfloat16_rn(x1);
+  hi = pack_bf16(h0, h1);
+  lo = pack_bf16(__float2bfloat16_rn(x0 - __bfloat162float(h0)),
+                 __float2bfloat16_rn(x1 - __bfloat162float(h1)));
+}
+
+// Copy the contiguous [kTile, D] bf16 tile at `src` into shared rows of
+// D + 8, 16 bytes a copy.
+template <int D>
+__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src) {
+  constexpr int kChunks = D / 8;
+  for (int i = threadIdx.x; i < kTile * kChunks; i += kMmaThreads) {
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    cp_async16(dst + r * (D + 8) + c * 8, src + (size_t)r * D + c * 8);
+  }
+}
+// The kTile floats at `src` (a tile's LSE or delta).
+__device__ __forceinline__ void rows_async(float* dst, const float* src) {
+  if (threadIdx.x < kTile / 4)
+    cp_async16(dst + 4 * threadIdx.x, src + 4 * threadIdx.x);
+}
+
+// acc[n] += A B^T over D for the warp: A is 16 rows at `a`, B is 8 * NB
+// rows at `b`, both [rows][D + 8] bf16 (S = Q K^T, dP = dO V^T, and their
+// transposes K Q^T, V dO^T).
+template <int D, int NB>
+__device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const bf16* a,
+                                        const bf16* b, int lane) {
+  constexpr int ld = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    ldsm_x4(af, a + (lane & 15) * ld + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int n2 = 0; n2 < NB / 2; ++n2) {
+      uint32_t bf[4];
+      ldsm_x4(bf, b + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * ld +
+                      kk * 16 + ((lane >> 3) & 1) * 8);
+      mma16816(acc[2 * n2], af, bf[0], bf[1]);
+      mma16816(acc[2 * n2 + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc[n] += X B for the warp: X is 16 x 16KS float32 in accumulator layout
+// (P, dS or their transposes), B is 16KS rows at `b` ([rows][D + 8] bf16,
+// contracted along its rows, read through ldmatrix.trans).  An accumulator
+// block pair 2kk, 2kk+1 is the A fragment of k step kk as it stands in
+// registers; each value enters as its hi/lo bf16 pair, two MMAs into the
+// same float32 accumulator.
+template <int D, int KS>
+__device__ __forceinline__ void mma_xb_split(float (&acc)[D / 8][4],
+                                             const float (&x)[2 * KS][4],
+                                             const bf16* b, int lane) {
+  constexpr int ld = D + 8;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t hi[4], lo[4];
+    split_bf16(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
+    split_bf16(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
+    split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
+    split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
+#pragma unroll
+    for (int n2 = 0; n2 < D / 16; ++n2) {
+      uint32_t bf[4];
+      ldsm_x4_t(bf, b + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                        n2 * 16 + (lane >> 4) * 8);
+      mma16816(acc[2 * n2], hi, bf[0], bf[1]);
+      mma16816(acc[2 * n2], lo, bf[0], bf[1]);
+      mma16816(acc[2 * n2 + 1], hi, bf[2], bf[3]);
+      mma16816(acc[2 * n2 + 1], lo, bf[2], bf[3]);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void zero(float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+}
+
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+// Write the warp's rows of a [kTile, D] tile at `out` (row stride D),
+// times `scale`: bf16 outputs, or float32 partials of a workspace.
+template <int D, typename Out>
+__device__ __forceinline__ void store_rows(Out* out,
+                                           const float (&acc)[D / 8][4],
+                                           float scale) {
+  const int lane = threadIdx.x & 31;
+  const int row = 16 * (threadIdx.x >> 5) + (lane >> 2);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int col = n * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      store2(out + (row + 8 * h) * D + col, scale * acc[n][2 * h],
+             scale * acc[n][2 * h + 1]);
+  }
+}
+
+// Shared memory of both loops: six [kTile][D + 8] bf16 tiles (the fixed q
+// or k tile's two, and two buffers of the two streamed ones), then LSE and
+// delta rows as float32 (one tile's in dQ, two buffers' in dK/dV).
+template <int D>
+constexpr size_t mma_smem() {
+  return 6 * kTile * (D + 8) * sizeof(bf16) + 4 * kTile * sizeof(float);
+}
+template <int D>
+__device__ __forceinline__ float* mma_rows(unsigned char* smem) {
+  return reinterpret_cast<float*>(smem + 6 * kTile * (D + 8) * sizeof(bf16));
+}
+
+// dQ of the q tile `qt` over the k tiles [kt0, kt1) on the tensor cores:
+// S = Q K^T, dP = dO V^T, P = exp(scale S - lse), dS = P (dP - delta) in
+// registers, acc += dS K (the caller scales by sm_scale).  `rows` holds the
+// tile's LSE then delta, written by the caller before the call.
+template <int D>
+__device__ __forceinline__ void dq_mma_tiles(unsigned char* smem,
+                                             const bf16* q, const bf16* k,
+                                             const bf16* v, const bf16* dout,
+                                             int qt, int kt0, int kt1,
+                                             int causal, float scale,
+                                             float (&acc)[D / 8][4]) {
+  constexpr int ld = D + 8;
+  constexpr int tile = kTile * ld;
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + tile;
+  bf16* ks = dos + tile;         // [2][tile]
+  bf16* vs = ks + 2 * tile;      // [2][tile]
+  const float* rows = mma_rows<D>(smem);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  tile_async<D>(qs, q + (size_t)qt * kTile * D);
+  tile_async<D>(dos, dout + (size_t)qt * kTile * D);
+  tile_async<D>(ks, k + (size_t)kt0 * kTile * D);
+  tile_async<D>(vs, v + (size_t)kt0 * kTile * D);
+  cp_async_commit();
+
+  const int r0 = 16 * warp + (lane >> 2);  // this lane's rows r0, r0 + 8
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int buf = (kt - kt0) & 1;
+    if (kt + 1 < kt1) {
+      tile_async<D>(ks + (buf ^ 1) * tile, k + (size_t)(kt + 1) * kTile * D);
+      tile_async<D>(vs + (buf ^ 1) * tile, v + (size_t)(kt + 1) * kTile * D);
+    }
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();  // tile kt (and the q tile, LSE, delta) visible to all
+
+    float s[8][4], dp[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    mma_abt<D, 8>(s, qs + 16 * warp * ld, ks + buf * tile, lane);
+    mma_abt<D, 8>(dp, dos + 16 * warp * ld, vs + buf * tile, lane);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + (e >> 1) * 8;
+        const int row = qt * kTile + r;                              // query
+        const int col = kt * kTile + n * 8 + 2 * (lane & 3) + (e & 1);  // key
+        const float p = causal && col > row
+                            ? 0.f
+                            : expf(scale * s[n][e] - rows[r]);
+        dp[n][e] = p * (dp[n][e] - rows[kTile + r]);
+      }
+    mma_xb_split<D, 4>(acc, dp, ks + buf * tile, lane);
+    __syncthreads();  // every warp is done with buffer `buf` before refill
+  }
+}
+
+// dK/dV of the k tile `kt` over the q tiles [qt0, qt1) on the tensor cores:
+// S^T = K Q^T and dP^T = V dO^T with the k rows as the M dimension, so P^T
+// and dS^T come out as the A fragments of dV += P^T dO and dK += dS^T Q
+// (the caller scales dK).  The q tile is taken NQ columns at a time, one
+// chunk after the other: 32 at D = 64 (134 registers, three CTAs an SM;
+// 64 columns take 176 registers, two CTAs, and 20% more time on an H100),
+// 16 at D = 128 (where the two D-wide accumulators fill most of the
+// registers; 32 columns spill).
+template <int D>
+__device__ __forceinline__ void dkv_mma_tiles(
+    unsigned char* smem, const bf16* q, const bf16* k, const bf16* v,
+    const bf16* dout, const float* lse, const float* delta, int kt, int qt0,
+    int qt1, int causal, float scale, float (&dk)[D / 8][4],
+    float (&dv)[D / 8][4]) {
+  constexpr int ld = D + 8;
+  constexpr int tile = kTile * ld;
+  constexpr int NQ = D > 64 ? 16 : (D == 64 ? 32 : 64);
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = ks + tile;
+  bf16* qs = vs + tile;          // [2][tile]
+  bf16* dos = qs + 2 * tile;     // [2][tile]
+  float* rows = mma_rows<D>(smem);  // [2][lse, delta]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  tile_async<D>(ks, k + (size_t)kt * kTile * D);
+  tile_async<D>(vs, v + (size_t)kt * kTile * D);
+  tile_async<D>(qs, q + (size_t)qt0 * kTile * D);
+  tile_async<D>(dos, dout + (size_t)qt0 * kTile * D);
+  rows_async(rows, lse + (size_t)qt0 * kTile);
+  rows_async(rows + kTile, delta + (size_t)qt0 * kTile);
+  cp_async_commit();
+
+  const int krow = kt * kTile + 16 * warp + (lane >> 2);  // key, +8 for e >= 2
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int buf = (qt - qt0) & 1;
+    if (qt + 1 < qt1) {
+      const size_t next = (size_t)(qt + 1) * kTile;
+      tile_async<D>(qs + (buf ^ 1) * tile, q + next * D);
+      tile_async<D>(dos + (buf ^ 1) * tile, dout + next * D);
+      rows_async(rows + (buf ^ 1) * 2 * kTile, lse + next);
+      rows_async(rows + (buf ^ 1) * 2 * kTile + kTile, delta + next);
+    }
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+
+    const bf16* qb = qs + buf * tile;
+    const bf16* db = dos + buf * tile;
+    const float* lse_b = rows + buf * 2 * kTile;
+#pragma unroll 1
+    for (int c = 0; c < kTile / NQ; ++c) {
+      float st[NQ / 8][4], dpt[NQ / 8][4];
+#pragma unroll
+      for (int n = 0; n < NQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+      mma_abt<D, NQ / 8>(st, ks + 16 * warp * ld, qb + c * NQ * ld, lane);
+      mma_abt<D, NQ / 8>(dpt, vs + 16 * warp * ld, db + c * NQ * ld, lane);
+#pragma unroll
+      for (int n = 0; n < NQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = c * NQ + n * 8 + 2 * (lane & 3) + (e & 1);  // q in tile
+          const int key = krow + (e >> 1) * 8;
+          const float p = causal && key > qt * kTile + j
+                              ? 0.f
+                              : expf(scale * st[n][e] - lse_b[j]);
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - lse_b[kTile + j]);
+        }
+      mma_xb_split<D, NQ / 16>(dv, st, db + c * NQ * ld, lane);
+      mma_xb_split<D, NQ / 16>(dk, dpt, qb + c * NQ * ld, lane);
+    }
+    __syncthreads();
+  }
+}
+
+// Resident dQ (bf16): delta for the tile's rows first, written out for the
+// dK/dV kernel, two threads a row.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v,
+                            const bf16* __restrict__ o,
+                            const bf16* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            bf16* __restrict__ dq, float* __restrict__ delta,
+                            int seq, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  float* rows = mma_rows<D>(mma_smem_buf);
+  const int qt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const size_t base = (size_t)bh * seq * D;
+  {
+    const int r = threadIdx.x >> 1;
+    const int half = threadIdx.x & 1;
+    const size_t at = base + (size_t)(qt * kTile + r) * D + half * (D / 2);
+    float dl = 0.f;
+#pragma unroll 8
+    for (int i = 0; i < D / 2; ++i)
+      dl += __bfloat162float(dout[at + i]) * __bfloat162float(o[at + i]);
+    dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+    if (!half) {
+      const size_t row = (size_t)bh * seq + qt * kTile + r;
+      delta[row] = dl;
+      rows[r] = lse[row];
+      rows[kTile + r] = dl;
+    }
+  }
+  float acc[D / 8][4];
+  zero<D>(acc);
+  dq_mma_tiles<D>(mma_smem_buf, q + base, k + base, v + base, dout + base,
+                  qt, 0, causal ? qt + 1 : seq / kTile, causal, scale, acc);
+  store_rows<D>(dq + base + (size_t)qt * kTile * D, acc, scale);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             const bf16* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             int seq, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  const int kt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const size_t base = (size_t)bh * seq * D;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  zero<D>(dk_acc);
+  zero<D>(dv_acc);
+  dkv_mma_tiles<D>(mma_smem_buf, q + base, k + base, v + base, dout + base,
+                   lse + (size_t)bh * seq, delta + (size_t)bh * seq, kt,
+                   causal ? kt : 0, seq / kTile, causal, scale, dk_acc,
+                   dv_acc);
+  const size_t at = base + (size_t)kt * kTile * D;
+  store_rows<D>(dk + at, dk_acc, scale);
+  store_rows<D>(dv + at, dv_acc, 1.f);
+}
+
+// Streaming dQ (bf16): grid (tiles, splits, BH) as flash_bwd_dq_str_kernel.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dq_str_mma_kernel(const bf16* __restrict__ q,
+                                const bf16* __restrict__ k,
+                                const bf16* __restrict__ v,
+                                const bf16* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                float* __restrict__ dq_ws, int seq, int split,
+                                float scale, int causal) {
+  const int num_t = seq / kTile;
+  const int qt = num_t - 1 - blockIdx.x;
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  const int kt0 = sp * split;
+  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
+  if (kt0 >= kt1) return;
+
+  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  float* rows = mma_rows<D>(mma_smem_buf);
+  const size_t base = (size_t)bh * seq * D;
+  if (threadIdx.x < kTile) {
+    const size_t row = (size_t)bh * seq + qt * kTile + threadIdx.x;
+    rows[threadIdx.x] = lse[row];
+    rows[kTile + threadIdx.x] = delta[row];
+  }
+  float acc[D / 8][4];
+  zero<D>(acc);
+  dq_mma_tiles<D>(mma_smem_buf, q + base, k + base, v + base, dout + base,
+                  qt, kt0, kt1, causal, scale, acc);
+  store_rows<D>(dq_ws + ws_row(sp, bh, gridDim.z, seq, qt * kTile) * D, acc,
+                1.f);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_bwd_dkv_str_mma_kernel(const bf16* __restrict__ q,
+                                 const bf16* __restrict__ k,
+                                 const bf16* __restrict__ v,
+                                 const bf16* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 float* __restrict__ dk_ws,
+                                 float* __restrict__ dv_ws, int seq,
+                                 int split, float scale, int causal) {
+  const int num_t = seq / kTile;
+  const int kt = blockIdx.x;
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  int qt0 = sp * split;
+  const int qt1 = min(qt0 + split, num_t);
+  if (causal) qt0 = max(qt0, kt);
+  if (qt0 >= qt1) return;
+
+  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  const size_t base = (size_t)bh * seq * D;
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  zero<D>(dk_acc);
+  zero<D>(dv_acc);
+  dkv_mma_tiles<D>(mma_smem_buf, q + base, k + base, v + base, dout + base,
+                   lse + (size_t)bh * seq, delta + (size_t)bh * seq, kt, qt0,
+                   qt1, causal, scale, dk_acc, dv_acc);
+  const size_t at = ws_row(sp, bh, gridDim.z, seq, kt * kTile) * D;
+  store_rows<D>(dk_ws + at, dk_acc, 1.f);
+  store_rows<D>(dv_ws + at, dv_acc, 1.f);
+}
+
+// ---------------------------------------------------------------------------
 // Host side: shared-memory sizes, launches, dtype/head-dim dispatch.
 // ---------------------------------------------------------------------------
 template <int D>
@@ -702,6 +1194,11 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
+// bf16 backward kernels run on the tensor cores; float32 ones keep the
+// CUDA-core loops (see the header).
+template <typename T>
+constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+
 #define BPS_RETURN_IF_ERROR(expr)              \
   do {                                         \
     const cudaError_t bps_err_ = (expr);       \
@@ -724,11 +1221,21 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const float* lse,
                       void* dq, float* delta, int bh, int seq, float scale,
                       int causal, cudaStream_t stream) {
-  const size_t smem = dq_smem<D>();
-  BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_kernel<T, D>, smem));
-  flash_bwd_dq_kernel<T, D><<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, lse,
-      (T*)dq, delta, seq, scale, causal);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = mma_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_mma_kernel<D>, smem));
+    flash_bwd_dq_mma_kernel<D>
+        <<<dim3(seq / kTile, bh), kMmaThreads, smem, stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
+            (const bf16*)dout, lse, (bf16*)dq, delta, seq, scale, causal);
+  } else {
+    const size_t smem = dq_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_kernel<T, D>, smem));
+    flash_bwd_dq_kernel<T, D>
+        <<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)o,
+            (const T*)dout, lse, (T*)dq, delta, seq, scale, causal);
+  }
   return cudaGetLastError();
 }
 
@@ -737,11 +1244,22 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse, const float* delta,
                        void* dk, void* dv, int bh, int seq, float scale,
                        int causal, cudaStream_t stream) {
-  const size_t smem = dkv_smem<D>();
-  BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_kernel<T, D>, smem));
-  flash_bwd_dkv_kernel<T, D><<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, seq, scale, causal);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = mma_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_mma_kernel<D>, smem));
+    flash_bwd_dkv_mma_kernel<D>
+        <<<dim3(seq / kTile, bh), kMmaThreads, smem, stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v,
+            (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv, seq, scale,
+            causal);
+  } else {
+    const size_t smem = dkv_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_kernel<T, D>, smem));
+    flash_bwd_dkv_kernel<T, D>
+        <<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
+            delta, (T*)dk, (T*)dv, seq, scale, causal);
+  }
   return cudaGetLastError();
 }
 
@@ -779,12 +1297,21 @@ cudaError_t launch_dq_str(const void* q, const void* k, const void* v,
   flash_delta_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
       (const T*)o, (const T*)dout, delta, seq);
   BPS_RETURN_IF_ERROR(cudaGetLastError());
-  const size_t smem = dq_smem<D>();
-  BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_str_kernel<T, D>, smem));
-  flash_bwd_dq_str_kernel<T, D>
-      <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-          dq_ws, seq, split, scale, causal);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = mma_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_str_mma_kernel<D>, smem));
+    flash_bwd_dq_str_mma_kernel<D>
+        <<<dim3(num_t, nsplit, bh), kMmaThreads, smem, stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+            lse, delta, dq_ws, seq, split, scale, causal);
+  } else {
+    const size_t smem = dq_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_str_kernel<T, D>, smem));
+    flash_bwd_dq_str_kernel<T, D>
+        <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+            dq_ws, seq, split, scale, causal);
+  }
   BPS_RETURN_IF_ERROR(cudaGetLastError());
   flash_sum_splits_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
       dq_ws, (T*)dq, seq, nsplit, split, scale, causal, 0);
@@ -800,12 +1327,21 @@ cudaError_t launch_dkv_str(const void* q, const void* k, const void* v,
                            cudaStream_t stream) {
   const int num_t = seq / kTile;
   const int nsplit = num_splits(seq, split);
-  const size_t smem = dkv_smem<D>();
-  BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_str_kernel<T, D>, smem));
-  flash_bwd_dkv_str_kernel<T, D>
-      <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-          dk_ws, dv_ws, seq, split, scale, causal);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = mma_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_str_mma_kernel<D>, smem));
+    flash_bwd_dkv_str_mma_kernel<D>
+        <<<dim3(num_t, nsplit, bh), kMmaThreads, smem, stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+            lse, delta, dk_ws, dv_ws, seq, split, scale, causal);
+  } else {
+    const size_t smem = dkv_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_str_kernel<T, D>, smem));
+    flash_bwd_dkv_str_kernel<T, D>
+        <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+            dk_ws, dv_ws, seq, split, scale, causal);
+  }
   BPS_RETURN_IF_ERROR(cudaGetLastError());
   flash_sum_splits_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
       dk_ws, (T*)dk, seq, nsplit, split, scale, causal, 1);
@@ -817,6 +1353,15 @@ cudaError_t launch_dkv_str(const void* q, const void* k, const void* v,
 
 bool shape_ok(int bh, int seq) {
   return bh >= 1 && bh <= 65535 && seq >= kTile && seq % kTile == 0;
+}
+
+// The tensor-core kernels copy q, k, v, dO, LSE and delta in 16-byte
+// pieces (cp.async).
+bool aligned16(int dtype, std::initializer_list<const void*> ptrs) {
+  if (dtype != 1) return true;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 bool split_ok(int seq, int split) {
@@ -863,6 +1408,8 @@ extern "C" int bps_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int bh, int seq, int head_dim, int dtype,
                                 float scale, int causal, void* stream) {
   if (!shape_ok(bh, seq)) return (int)cudaErrorInvalidValue;
+  if (!aligned16(dtype, {q, k, v, dout}))
+    return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dq, dtype, head_dim, q, k, v, o, dout, lse, dq, delta,
                bh, seq, scale, causal, (cudaStream_t)stream);
 }
@@ -873,6 +1420,8 @@ extern "C" int bps_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int bh, int seq, int head_dim, int dtype,
                                  float scale, int causal, void* stream) {
   if (!shape_ok(bh, seq)) return (int)cudaErrorInvalidValue;
+  if (!aligned16(dtype, {q, k, v, dout, lse, delta}))
+    return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dkv, dtype, head_dim, q, k, v, dout, lse, delta, dk,
                dv, bh, seq, scale, causal, (cudaStream_t)stream);
 }
@@ -900,6 +1449,8 @@ extern "C" int bps_flash_bwd_dq_str(const void* q, const void* k,
                                     void* stream) {
   if (!shape_ok(bh, seq) || !split_ok(seq, split))
     return (int)cudaErrorInvalidValue;
+  if (!aligned16(dtype, {q, k, v, dout}))
+    return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dq_str, dtype, head_dim, q, k, v, o, dout, lse, dq,
                delta, dq_ws, bh, seq, scale, causal, split,
                (cudaStream_t)stream);
@@ -914,6 +1465,8 @@ extern "C" int bps_flash_bwd_dkv_str(const void* q, const void* k,
                                      int causal, int split, void* stream) {
   if (!shape_ok(bh, seq) || !split_ok(seq, split))
     return (int)cudaErrorInvalidValue;
+  if (!aligned16(dtype, {q, k, v, dout, lse, delta}))
+    return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dkv_str, dtype, head_dim, q, k, v, dout, lse, delta,
                dk, dv, dk_ws, dv_ws, bh, seq, scale, causal, split,
                (cudaStream_t)stream);

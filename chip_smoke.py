@@ -7,13 +7,17 @@ Phases, each of which must pass:
 
 1. Build the package's CUDA kernels from ``byteps_tpu_torch/csrc/`` (one
    nvcc per source, all started together; sm_90a) and print the toolchain
-   and each kernel's ptxas report.
+   and each kernel's ptxas report (no tensor-core kernel may spill).
+   Count the HMMA (tensor-core MMA) instructions of each flash kernel in
+   the library's SASS (cuobjdump): every bf16 instantiation of the four
+   backward kernels must have them, no float32 one may.
 2. Hold each flash kernel against its plain PyTorch version on the card:
    the flagship attention shape [8*16, 512, 64] bf16, causal and not, and
    a small float32 shape through the autograd op with block_q != block_k.
    Time kernel, plain version and, as yardsticks only, PyTorch's
    scaled_dot_product_attention forward and its backward (dQ, dK and dV
-   in one call, set beside the sum of the two backward kernels).  Every
+   in one call, set beside the sum of the two backward kernels, and their
+   ratio); each kernel's TFLOP/s (bound_ms's FLOPs over its time).  Every
    element is held to |kernel - plain| <= rtol |plain| + atol: one bf16
    step (2^-7) for bf16 outputs, 1e-4 for float32 ones, 1e-5 for LSE and
    delta, with an atol three orders below a typical element.
@@ -23,8 +27,9 @@ Phases, each of which must pass:
    compared bit for bit; a non-causal bf16 shape [16, 8192, 64]; and a
    float32 shape [2, 16384, 64] through the autograd op with
    streaming=True, block_q != block_k and 4 splits.  Timed at the long
-   shape: kernel, plain version and, as yardsticks, SDPA forward and
-   backward and the resident kernels forced with streaming=False.  Then
+   shape: kernel (and its TFLOP/s), plain version and, as yardsticks, SDPA
+   forward and backward (and the backward pair's ratio to it) and the
+   resident kernels forced with streaming=False.  Then
    [16, 131072, 64] bf16 causal (8 splits of 16,384): peak memory of the
    three calls against their outputs plus the dK/dV workspaces, and the
    rows that depend only on the first (or last) 8,192 positions against
@@ -211,28 +216,40 @@ class Checks:
             self.failures.append(what)
 
 
-def bound_ms(name, bh, s, d, itemsize, causal):
-    """Least time for the work: each input read and each output written
-    once over HBM bandwidth, or the products' FLOPs over the bf16 peak
-    (counting only the visible logits under causal masking)."""
+def work(name, bh, s, d, itemsize, causal):
+    """(bytes, FLOPs) of one call: each input read and each output written
+    once; the products' FLOPs, counting only the visible logits under
+    causal masking."""
     n = bh * s * d
     rows = bh * s * 4                      # one float32 per row (lse/delta)
     pairs = bh * (s * (s + 1) // 2 if causal else s * s)
     name = name.removesuffix("_str")       # the streaming family: the same
     if name == "flash_fwd":                # q,k,v -> o, lse
-        nbytes, flops = 4 * n * itemsize + rows, 4 * pairs * d
-    elif name == "flash_bwd_dq":           # q,k,v,o,dO,lse -> dq, delta
-        nbytes, flops = 6 * n * itemsize + 2 * rows, 6 * pairs * d
-    else:                                  # q,k,v,dO,lse,delta -> dk, dv
-        nbytes, flops = 6 * n * itemsize + 2 * rows, 8 * pairs * d
+        return 4 * n * itemsize + rows, 4 * pairs * d
+    if name == "flash_bwd_dq":             # q,k,v,o,dO,lse -> dq, delta
+        return 6 * n * itemsize + 2 * rows, 6 * pairs * d
+    return 6 * n * itemsize + 2 * rows, 8 * pairs * d  # -> dk, dv
+
+
+def tflops(name, bh, s, d, causal, ms):
+    """The function's FLOPs (as in bound_ms) over the measured time."""
+    return work(name, bh, s, d, 2, causal)[1] / (ms * 1e-3) / 1e12
+
+
+def bound_ms(name, bh, s, d, itemsize, causal):
+    """Least time for the work: its bytes over HBM bandwidth or its FLOPs
+    over the bf16 peak, the larger."""
+    nbytes, flops = work(name, bh, s, d, itemsize, causal)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
 
-def phase_build(mods, build_mod, torch, gpu):
-    """One nvcc per source, all started together, then load each."""
+def phase_build(mods, build_mod, torch, gpu, check):
+    """One nvcc per source, all started together, then load each; the
+    ptxas reports and the flash library's HMMA census."""
+    import re
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:
@@ -245,10 +262,28 @@ def phase_build(mods, build_mod, torch, gpu):
     print(f"toolchain: torch {torch.__version__} cuda {torch.version.cuda} "
           f"| nvcc: {nvcc[0] if nvcc else '?'} | {release} "
           f"| build {secs:.1f} s | {gpu}")
+    mma = []
     for m in mods:
         for kernel, report in ptxas_reports(build_mod.build_logs.get(
                 m.SOURCE, "")):
             print(f"  ptxas {m.SOURCE} {kernel}: {report}")
+            if "_mma_kernel" in kernel:
+                mma.append(report)
+    if mma:       # no report when the library was built by an earlier run
+        check(len(mma) == 16 and all(re.search(r"\b0 bytes spill stores", r)
+                                     for r in mma),
+              f"ptxas: no spills in the {len(mma)} tensor-core kernels")
+    hmma_census(build_mod, build_mod.build(mods[0].SOURCE), check)
+
+
+def kernel_label(mangled):
+    """'flash_bwd_dq_mma_kernel<bf16,64>' from a mangled kernel name."""
+    import re
+    name = re.search(r"\d+((?:flash|sign)\w*?_kernel)", mangled)
+    dims = re.search(r"Li(\d+)E", mangled)
+    return (name.group(1) if name else mangled) + (
+        f"<{'bf16' if 'bfloat16' in mangled else 'f32'},{dims.group(1)}>"
+        if dims else "")
 
 
 def ptxas_reports(log):
@@ -259,12 +294,7 @@ def ptxas_reports(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            mangled = m.group(1)
-            name = re.search(r"\d+((?:flash|sign)\w*?_kernel)", mangled)
-            dims = re.search(r"Li(\d+)E", mangled)
-            kernel = (name.group(1) if name else mangled) + (
-                f"<{'bf16' if 'bfloat16' in mangled else 'f32'},"
-                f"{dims.group(1)}>" if dims else "")
+            kernel = kernel_label(m.group(1))
             spills = ""
         elif "spill" in line:
             spills = line.split(":", 1)[-1].strip()
@@ -274,6 +304,37 @@ def ptxas_reports(log):
                                 f"registers; {spills}"))
             kernel = None
     return out
+
+
+def hmma_census(build_mod, lib, check):
+    """HMMA (tensor-core MMA) instructions per kernel in the built
+    library's SASS (cuobjdump): every bf16 instantiation of the four
+    backward kernels has them, no float32 one does."""
+    import re
+    cuobjdump = os.path.join(os.path.dirname(build_mod.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, label = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            label = kernel_label(m.group(1))
+            counts[label] = 0
+        elif label and re.search(r"\bHMMA\b", line):
+            counts[label] += 1
+    print("  HMMA per kernel (SASS): " + ", ".join(
+        f"{k} {n}" for k, n in sorted(counts.items()) if "flash" in k))
+    bwd = [k for k in counts if k.startswith(("flash_bwd_dq",
+                                               "flash_bwd_dkv"))]
+    bf16 = [k for k in bwd if "bf16" in k]
+    f32 = [k for k in bwd if "f32" in k]
+    check(len(bf16) == len(f32) == 16
+          and all(counts[k] > 0 for k in bf16)
+          and not any(counts[k] for k in f32),
+          f"SASS: HMMA in all {len(bf16)} bf16 backward instantiations "
+          f"(min {min((counts[k] for k in bf16), default=0)}), none in the "
+          f"{len(f32)} float32 ones")
 
 
 def phase_kernels(fa, torch, check):
@@ -345,8 +406,9 @@ def phase_kernels(fa, torch, check):
                 "bound_by": b_by,
                 "library_ms": time_ms(lib) if lib is not None else None,
             }
-            print(f"  {name}: kernel {out[name]['ms']:.4f} ms, plain "
-                  f"{out[name]['plain_ms']:.4f} ms, library "
+            print(f"  {name}: kernel {out[name]['ms']:.4f} ms "
+                  f"({tflops(name, BH, S, D, True, out[name]['ms']):.2f} "
+                  f"TFLOP/s), plain {out[name]['plain_ms']:.4f} ms, library "
                   f"{out[name]['library_ms']} ms, bound {b_ms:.4f} ms "
                   f"({b_by})")
         # Yardstick for the two backward kernels together: SDPA's backward
@@ -360,9 +422,13 @@ def phase_kernels(fa, torch, check):
                                         retain_graph=True))
         yardsticks["flash_bwd_dq_plus_dkv_ms"] = (
             out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"])
+        yardsticks["bwd_over_sdpa_bwd"] = (
+            yardsticks["flash_bwd_dq_plus_dkv_ms"]
+            / yardsticks["sdpa_backward_ms"])
         print(f"  SDPA backward (dQ+dK+dV, one call) "
               f"{yardsticks['sdpa_backward_ms']:.4f} ms vs flash_bwd_dq + "
-              f"flash_bwd_dkv {yardsticks['flash_bwd_dq_plus_dkv_ms']:.4f} ms")
+              f"flash_bwd_dkv {yardsticks['flash_bwd_dq_plus_dkv_ms']:.4f} ms"
+              f": {yardsticks['bwd_over_sdpa_bwd']:.2f}x SDPA's")
 
     # Small float32 shape through the autograd op, block_q != block_k.
     for causal in (True, False):
@@ -427,10 +493,10 @@ def phase_streaming(fa, torch, check):
         torch.cuda.synchronize()
         gates([("dK", dk_k, dk_p, BF16_GATE), ("dV", dv_k, dv_p, BF16_GATE)],
               check, f"flash_bwd_dkv_str {tag}")
-        # cuBLAS accumulates each output of the plain version's products
-        # in one FMA chain along K, the order of the kernels' tile loops:
-        # dK and dV (given the plain delta) can match bit for bit, dQ
-        # differs where its own delta, a row sum in another order, does.
+        # The bf16 backward kernels sum on the tensor cores, P and dS as
+        # hi/lo pairs, in another order than cuBLAS does the plain
+        # products: dQ, dK and dV differ from the plain version in some
+        # elements, each within the gates above.
         print(f"  elements differing from the plain version of "
               f"{o_p.numel()}: O {int((o_k != o_p).sum())}, dQ "
               f"{int((dq_k != dq_p).sum())}, dK {int((dk_k != dk_p).sum())}"
@@ -479,14 +545,15 @@ def phase_streaming(fa, torch, check):
     out = {}
     for name, (kern, plain, lib) in timings.items():
         b_ms, b_by = bound_ms(name, BH, S, D, 2, True)
-        # About a quarter to half a second a call at this shape: 3 calls.
+        # Up to a few hundred ms a call at this shape: few calls.
         out[name] = {"max_abs_err": errs[name],
-                     "ms": time_ms(kern, reps=1, rounds=2),
+                     "ms": time_ms(kern, reps=2, rounds=3),
                      "plain_ms": time_ms(plain, reps=1, rounds=2),
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": time_ms(lib) if lib is not None else None}
-        print(f"  {name}: kernel {out[name]['ms']:.3f} ms, plain "
-              f"{out[name]['plain_ms']:.3f} ms, library "
+        print(f"  {name}: kernel {out[name]['ms']:.3f} ms "
+              f"({tflops(name, BH, S, D, True, out[name]['ms']):.2f} "
+              f"TFLOP/s), plain {out[name]['plain_ms']:.3f} ms, library "
               f"{out[name]['library_ms']} ms, bound {b_ms:.4f} ms ({b_by})")
     q4g, k4g, v4g = (t.detach().clone().requires_grad_()
                      for t in (q4, k4, v4))
@@ -504,11 +571,12 @@ def phase_streaming(fa, torch, check):
             ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(
                 q, k, v, do, lse_p, delta_p, True, scale))):
         yard[f"long_resident_{name}_ms"] = time_ms(fn, reps=1, rounds=2)
+    pair = out["flash_bwd_dq_str"]["ms"] + out["flash_bwd_dkv_str"]["ms"]
+    ratio = pair / yard["long_sdpa_backward_ms"]
     print("  yardsticks at the long shape: " + ", ".join(
         f"{n} {t:.3f} ms" for n, t in yard.items())
-        + f"; streaming dq + dkv "
-          f"{out['flash_bwd_dq_str']['ms'] + out['flash_bwd_dkv_str']['ms']:.3f}"
-          f" ms")
+        + f"; streaming dq + dkv {pair:.3f} ms: {ratio:.2f}x SDPA's backward")
+    yard["long_bwd_over_sdpa_bwd"] = ratio
     del q, k, v, do, q4, k4, v4, o_p, lse_p, delta_p, timings
     torch.cuda.empty_cache()
 
@@ -1030,7 +1098,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     print("== phase 1: build")
-    phase_build([fa, bp], _build, torch, gpu)
+    phase_build([fa, bp], _build, torch, gpu, check)
     print("== phase 2: flash kernels vs plain versions")
     numbers, yardsticks = phase_kernels(fa, torch, check)
     print("== phase 2s: streaming flash kernels vs plain versions")
@@ -1072,6 +1140,11 @@ def main() -> int:
                for name, (source, replaces) in KERNELS.items()]
     tokens = FLAGSHIP["batch"] * FLAGSHIP["seq"]
     l_tokens = LONG["batch"] * LONG["seq"]
+    shapes = {**{n: FLAGSHIP for n in RESIDENT},
+              **{n: LONG for n in STREAMING}}
+    rates = {n: tflops(n, sh["batch"] * sh["heads"], sh["seq"],
+                       sh["head_dim"], True, numbers[n]["ms"])
+             for n, sh in shapes.items()}
     print(json.dumps({"flagship_step_ms": steady,
                       "flagship_tokens_per_s": tokens / steady * 1e3,
                       "compressed_step_ms": c_steady,
@@ -1079,7 +1152,8 @@ def main() -> int:
                       "compressed_peak_gib": c_peak,
                       "long_step_ms": l_steady,
                       "long_tokens_per_s": l_tokens / l_steady * 1e3,
-                      "long_peak_gib": l_peak, **yardsticks}))
+                      "long_peak_gib": l_peak, "flash_tflops": rates,
+                      **yardsticks}))
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

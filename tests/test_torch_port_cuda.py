@@ -29,7 +29,7 @@ def _qkvdo(device, bh, s, d, dtype):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 8e-3)])
 def test_kernels_match_plain(cuda_device, causal, d, dtype, tol):
@@ -150,7 +150,7 @@ def _streaming_vs_plain(q, k, v, do, causal, scale):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 8e-3)])
 @pytest.mark.parametrize("s,split", [(512, 128), (320, 128), (256, 4096)])
@@ -171,6 +171,67 @@ def test_streaming_kernels_match_plain(cuda_device, monkeypatch, s, split,
         top = float(ref.abs().max())
         assert err <= tols.get(name, tol) * top, \
             f"{name}: max err {err} vs max {top}"
+
+
+# chip_smoke.py's elementwise gates: |kernel - plain| <= rtol |plain| + atol,
+# one bf16 step for bf16 outputs, 1e-5 for delta (float32 in every dtype).
+BF16_GATE = (2 ** -7, 1e-5)
+ROWS_GATE = (1e-5, 1e-6)
+
+
+def _worst(got, want, tol):
+    rtol, atol = tol
+    return float(((got.float() - want.float()).abs()
+                  / (want.float().abs() * rtol + atol)).max())
+
+
+@pytest.mark.parametrize("family,split", [("resident", None),
+                                          ("streaming", 4096),
+                                          ("streaming", 1024)])
+def test_bf16_backward_long_contraction(cuda_device, monkeypatch, family,
+                                        split):
+    """bf16 causal at S = 4096 (64 k tiles in one contraction; one split,
+    four, or the resident kernels), every element of dQ, dK and dV held to
+    one bf16 step of the plain version on the plain forward's O and LSE.
+    A tensor-core kernel that rounds P and dS to bf16 once before the
+    second products fails this by a factor near 100; the hi/lo pair passes.
+    Every diagonal tile is checked elementwise, where the causal mask cuts
+    through the MMA fragments."""
+    if split is not None:
+        monkeypatch.setattr(fa, "_split_len", lambda s: split)
+    bh, s, d = 2, 4096, 64
+    q, k, v, do = _qkvdo(cuda_device, bh, s, d, torch.bfloat16)
+    scale = d ** -0.5
+    str_ = family == "streaming"
+    dq_fn = fa.flash_bwd_dq_str if str_ else fa.flash_bwd_dq
+    dkv_fn = fa.flash_bwd_dkv_str if str_ else fa.flash_bwd_dkv
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, True, scale)
+    dq_p, delta_p = fa.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do, True,
+                                          scale)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta_p, True,
+                                        scale)
+    dq, delta = dq_fn(q, k, v, o_p, lse_p, do, True, scale)
+    dk, dv = dkv_fn(q, k, v, do, lse_p, delta_p, True, scale)
+    torch.cuda.synchronize()
+    worst = {"dq": _worst(dq, dq_p, BF16_GATE),
+             "delta": _worst(delta, delta_p, ROWS_GATE),
+             "dk": _worst(dk, dk_p, BF16_GATE),
+             "dv": _worst(dv, dv_p, BF16_GATE)}
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
+def test_bf16_backward_refuses_misaligned(cuda_device):
+    """The tensor-core kernels copy 16-byte pieces: a contiguous bf16 view
+    that starts 2 bytes into its storage is refused, not read wrongly."""
+    flat = torch.zeros(2 * 128 * 64 + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    q = flat[1:].view(2, 128, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    rows = torch.zeros(2, 128, device=cuda_device)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fa.flash_bwd_dq(q, q, q, q, rows, q, True, 0.125)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fa.flash_bwd_dkv_str(q, q, q, q, rows, rows, True, 0.125)
 
 
 def test_streaming_dead_splits_are_never_read(cuda_device, monkeypatch):
