@@ -52,34 +52,35 @@
 // log-sum-exp.  The streaming partials add (D + 2) floats per row and
 // split, which is small beside the operations.
 //
-// The bf16 backward (dq_mma_tiles, dkv_mma_tiles) runs its products on the
-// tensor cores: mma.sync m16n8k16, bf16 x bf16 -> float32, four warps of
-// 16 rows each, tiles in padded bf16 shared memory read by ldmatrix, the
-// streamed tiles double-buffered through cp.async.  The first products
-// (Q K^T and dO V^T, or K Q^T and V dO^T in dK/dV) take the bf16 inputs,
-// which the tensor cores multiply exactly.  P and dS are float32 in
-// registers, as the reference keeps them: its Pallas kernels compute in
-// float32 throughout.  Rounded once to bf16 before the second products
-// (dS K, P^T dO, dS^T Q), over a 4,096-key contraction they miss the
-// plain version by up to about 100 bf16 steps.  So each enters as a pair,
-// hi = bf16(x) and lo = bf16(x - hi), two MMAs into one float32
-// accumulator: 16 significant bits, within one bf16 step of the plain
-// version (tests/test_torch_port_flash_tc.py emulates this arithmetic).
-// The pair makes the tensor-core work 20 FLOPs per visible (q, k) pair
-// and head-dim element, against the function's 14.  mma.sync reaches only
-// part of the card's bf16 peak, which wants wgmma.
+// In bf16 every kernel (fwd_mma_tiles, dq_mma_tiles, dkv_mma_tiles) runs
+// its products on the tensor cores: mma.sync m16n8k16, bf16 x bf16 ->
+// float32, four warps of 16 rows each, tiles in padded bf16 shared memory
+// read by ldmatrix, the streamed tiles double-buffered through cp.async.
+// The first products (Q K^T, and dO V^T, or K Q^T and V dO^T in dK/dV)
+// take the bf16 inputs, which the tensor cores multiply exactly.  P and dS
+// are float32 in registers, as the reference keeps them: its Pallas
+// kernels compute in float32 throughout.  Rounded once to bf16 before the
+// second products (P V, dS K, P^T dO, dS^T Q), over a 4,096-key
+// contraction they miss the plain version by 14 to about 100 bf16 steps.
+// So each enters as a pair, hi = bf16(x) and lo = bf16(x - hi), two MMAs
+// into one float32 accumulator: 16 significant bits, within one bf16 step
+// of the plain version (tests/test_torch_port_flash_tc.py emulates this
+// arithmetic).  The pair makes the tensor-core work 6 FLOPs per visible
+// (q, k) pair and head-dim element in the forward, against the function's
+// 4, and 20 against 14 in the backward.  mma.sync reaches only part of the
+// card's bf16 peak, which wants wgmma.
 //
-// The forward, and the float32 backward, do their products as float32
-// FMAs on the CUDA cores (67 TFLOP/s at most), bound in practice by FMA
-// issue and shared-memory bandwidth.  The float32 backward stays there on
-// purpose: single-pass TF32 keeps 10 mantissa bits, too few for the
-// float32 tests' 1e-5 of the largest element, and the main path is bf16.
+// The float32 kernels do their products as float32 FMAs on the CUDA cores
+// (67 TFLOP/s at most), bound in practice by FMA issue and shared-memory
+// bandwidth.  They stay there on purpose: single-pass TF32 keeps 10
+// mantissa bits, too few for the float32 tests' 1e-5 of the largest
+// element, and the main path is bf16.
 //
 // Tiling.  The TPU kernels take one q block of up to 512 rows and keep K/V
 // whole in VMEM.  A 512 x 512 float32 logits tile does not fit in 227 KB of
 // shared memory, so these kernels pick their own tiles: 64 q rows by 64 k
-// rows.  The CUDA-core loops (fwd_tiles, and dq_tiles / dkv_tiles for
-// float32) run 256 threads, four threads to a row, each thread owning 16
+// rows.  The CUDA-core loops (fwd_tiles, dq_tiles, dkv_tiles, float32
+// only) run 256 threads, four threads to a row, each thread owning 16
 // columns of the logits tile and D / 4 columns of the accumulator.  The
 // tensor-core loops run 128 threads, each warp owning 16 rows and its
 // accumulators in the MMA layout; dK/dV takes the q tile 32 columns at a
@@ -1171,6 +1172,176 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 // ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores, in the backward's layout: four
+// warps of 16 rows own a 64-row q tile; S = Q K^T and O += P V run on
+// mma.sync, the online softmax of _online_step in registers.
+// ---------------------------------------------------------------------------
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared memory of the forward: the q tile, then two buffers each of the K
+// and V tiles, [kTile][D + 8] bf16.
+template <int D>
+constexpr size_t fwd_mma_smem() {
+  return 5 * kTile * (D + 8) * sizeof(bf16);
+}
+
+// Online softmax of the q tile `qt` over the k tiles [kt0, kt1): S = Q K^T
+// from the bf16 inputs (exact products, float32 sums), times scale in
+// float32; P and the running max m and sum l of the lane's rows r0 and
+// r0 + 8 (lane / 4 of the warp's 16), the max kept in units of log2 so
+// that exp2f takes the exponentials; acc = alpha acc + P V, P entering as
+// its hi/lo pair and V read by ldmatrix.trans, with no shared-memory round
+// trip.  Every row sees the first key of the range (kt0 <= qt), so m is
+// finite after the first tile.
+template <int D>
+__device__ __forceinline__ void fwd_mma_tiles(unsigned char* smem,
+                                              const bf16* q, const bf16* k,
+                                              const bf16* v, int qt, int kt0,
+                                              int kt1, int causal,
+                                              float scale, float (&m2)[2],
+                                              float (&l)[2],
+                                              float (&acc)[D / 8][4]) {
+  constexpr int ld = D + 8;
+  constexpr int tile = kTile * ld;
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + tile;          // [2][tile]
+  bf16* vs = ks + 2 * tile;      // [2][tile]
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float scale2 = scale * kLog2e;
+
+  tile_async<D>(qs, q + (size_t)qt * kTile * D);
+  tile_async<D>(ks, k + (size_t)kt0 * kTile * D);
+  tile_async<D>(vs, v + (size_t)kt0 * kTile * D);
+  cp_async_commit();
+
+  m2[0] = m2[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+  zero<D>(acc);
+  const int r0 = 16 * warp + (lane >> 2);  // this lane's rows r0, r0 + 8
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int buf = (kt - kt0) & 1;
+    if (kt + 1 < kt1) {
+      tile_async<D>(ks + (buf ^ 1) * tile, k + (size_t)(kt + 1) * kTile * D);
+      tile_async<D>(vs + (buf ^ 1) * tile, v + (size_t)(kt + 1) * kTile * D);
+    }
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();  // tile kt (and the q tile) visible to all
+
+    float s[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    mma_abt<D, 8>(s, qs + 16 * warp * ld, ks + buf * tile, lane);
+    const bool diag = causal && kt == qt;
+    float mx[2] = {m2[0], m2[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * (lane & 3) + (e & 1);  // key in tile
+        s[n][e] = diag && col > r0 + 8 * (e >> 1) ? -INFINITY
+                                                  : scale2 * s[n][e];
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = row_max(mx[h]);
+      alpha[h] = exp2f(m2[h] - mx[h]);
+      m2[h] = mx[h];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - mx[e >> 1]);
+        rs[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + row_sum(rs[h]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    mma_xb_split<D, 4>(acc, s, vs + buf * tile, lane);
+    __syncthreads();  // every warp is done with buffer `buf` before refill
+  }
+}
+
+// Resident forward (bf16): O = acc / l, LSE = m + log l.  The longest rows
+// (under causal masking) first.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o,
+                         float* __restrict__ lse, int seq, float scale,
+                         int causal) {
+  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  const int num_t = seq / kTile;
+  const int qt = num_t - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const size_t base = (size_t)bh * seq * D;
+  float m2[2], l[2], acc[D / 8][4];
+  fwd_mma_tiles<D>(mma_smem_buf, q + base, k + base, v + base, qt, 0,
+                   causal ? qt + 1 : num_t, causal, scale, m2, l, acc);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] /= l[e >> 1];
+  store_rows<D>(o + base + (size_t)qt * kTile * D, acc, 1.f);
+  const int lane = threadIdx.x & 31;
+  if ((lane & 3) == 0) {
+    const size_t row = (size_t)bh * seq + qt * kTile + 16 * (threadIdx.x >> 5)
+                       + (lane >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) lse[row + 8 * h] = m2[h] * kLn2 + logf(l[h]);
+  }
+}
+
+// Streaming forward (bf16): grid (tiles, splits, BH) as
+// flash_fwd_str_kernel; the same float32 (m, l, acc) partials, m in
+// natural units, for flash_fwd_str_merge_kernel.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads)
+    flash_fwd_str_mma_kernel(const bf16* __restrict__ q,
+                             const bf16* __restrict__ k,
+                             const bf16* __restrict__ v,
+                             float* __restrict__ m_ws,
+                             float* __restrict__ l_ws,
+                             float* __restrict__ acc_ws, int seq, int split,
+                             float scale, int causal) {
+  const int num_t = seq / kTile;
+  const int qt = num_t - 1 - blockIdx.x;  // causal: the longest rows first
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  const int kt0 = sp * split;
+  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
+  if (kt0 >= kt1) return;  // dead pair: every key after every query
+
+  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  const size_t base = (size_t)bh * seq * D;
+  float m2[2], l[2], acc[D / 8][4];
+  fwd_mma_tiles<D>(mma_smem_buf, q + base, k + base, v + base, qt, kt0, kt1,
+                   causal, scale, m2, l, acc);
+  const size_t at = ws_row(sp, bh, gridDim.z, seq, qt * kTile);
+  store_rows<D>(acc_ws + at * D, acc, 1.f);
+  const int lane = threadIdx.x & 31;
+  if ((lane & 3) == 0) {
+    const size_t row = at + 16 * (threadIdx.x >> 5) + (lane >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_ws[row + 8 * h] = m2[h] * kLn2;
+      l_ws[row + 8 * h] = l[h];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host side: shared-memory sizes, launches, dtype/head-dim dispatch.
 // ---------------------------------------------------------------------------
 template <int D>
@@ -1194,8 +1365,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// bf16 backward kernels run on the tensor cores; float32 ones keep the
-// CUDA-core loops (see the header).
+// bf16 kernels run on the tensor cores; float32 ones keep the CUDA-core
+// loops (see the header).
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
 
@@ -1209,10 +1380,21 @@ template <typename T, int D>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        float* lse, int bh, int seq, float scale, int causal,
                        cudaStream_t stream) {
-  const size_t smem = fwd_smem<D>();
-  BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_kernel<T, D>, smem));
-  flash_fwd_kernel<T, D><<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, scale, causal);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = fwd_mma_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_mma_kernel<D>, smem));
+    flash_fwd_mma_kernel<D>
+        <<<dim3(seq / kTile, bh), kMmaThreads, smem, stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse,
+            seq, scale, causal);
+  } else {
+    const size_t smem = fwd_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_kernel<T, D>, smem));
+    flash_fwd_kernel<T, D>
+        <<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, scale,
+            causal);
+  }
   return cudaGetLastError();
 }
 
@@ -1274,12 +1456,21 @@ cudaError_t launch_fwd_str(const void* q, const void* k, const void* v,
                            int causal, int split, cudaStream_t stream) {
   const int num_t = seq / kTile;
   const int nsplit = num_splits(seq, split);
-  const size_t smem = fwd_smem<D>();
-  BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_kernel<T, D>, smem));
-  flash_fwd_str_kernel<T, D>
-      <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
-          (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq,
-          split, scale, causal);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = fwd_mma_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_mma_kernel<D>, smem));
+    flash_fwd_str_mma_kernel<D>
+        <<<dim3(num_t, nsplit, bh), kMmaThreads, smem, stream>>>(
+            (const bf16*)q, (const bf16*)k, (const bf16*)v, m_ws, l_ws,
+            acc_ws, seq, split, scale, causal);
+  } else {
+    const size_t smem = fwd_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_kernel<T, D>, smem));
+    flash_fwd_str_kernel<T, D>
+        <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq,
+            split, scale, causal);
+  }
   BPS_RETURN_IF_ERROR(cudaGetLastError());
   flash_fwd_str_merge_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
       m_ws, l_ws, acc_ws, (T*)o, lse, seq, nsplit, split, causal);
@@ -1398,6 +1589,7 @@ extern "C" int bps_flash_fwd(const void* q, const void* k, const void* v,
                              int head_dim, int dtype, float scale, int causal,
                              void* stream) {
   if (!shape_ok(bh, seq)) return (int)cudaErrorInvalidValue;
+  if (!aligned16(dtype, {q, k, v})) return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_fwd, dtype, head_dim, q, k, v, o, lse, bh, seq, scale,
                causal, (cudaStream_t)stream);
 }
@@ -1436,6 +1628,7 @@ extern "C" int bps_flash_fwd_str(const void* q, const void* k, const void* v,
                                  int causal, int split, void* stream) {
   if (!shape_ok(bh, seq) || !split_ok(seq, split))
     return (int)cudaErrorInvalidValue;
+  if (!aligned16(dtype, {q, k, v})) return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_fwd_str, dtype, head_dim, q, k, v, o, lse, m_ws, l_ws,
                acc_ws, bh, seq, scale, causal, split, (cudaStream_t)stream);
 }

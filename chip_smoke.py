@@ -9,15 +9,17 @@ Phases, each of which must pass:
    nvcc per source, all started together; sm_90a) and print the toolchain
    and each kernel's ptxas report (no tensor-core kernel may spill).
    Count the HMMA (tensor-core MMA) instructions of each flash kernel in
-   the library's SASS (cuobjdump): every bf16 instantiation of the four
-   backward kernels must have them, no float32 one may.
+   the library's SASS (cuobjdump): every bf16 instantiation of the two
+   forward and four backward kernels must have them, no float32 one may.
 2. Hold each flash kernel against its plain PyTorch version on the card:
    the flagship attention shape [8*16, 512, 64] bf16, causal and not, and
    a small float32 shape through the autograd op with block_q != block_k.
    Time kernel, plain version and, as yardsticks only, PyTorch's
-   scaled_dot_product_attention forward and its backward (dQ, dK and dV
-   in one call, set beside the sum of the two backward kernels, and their
-   ratio); each kernel's TFLOP/s (bound_ms's FLOPs over its time).  Every
+   scaled_dot_product_attention forward (and the forward kernel's ratio
+   to it) and its backward (dQ, dK and dV in one call, set beside the sum
+   of the two backward kernels, and their ratio); each kernel's TFLOP/s
+   (bound_ms's FLOPs over its time), and the forward's TFLOP/s of the
+   tensor-core work it issues (P enters P V as a hi/lo pair).  Every
    element is held to |kernel - plain| <= rtol |plain| + atol: one bf16
    step (2^-7) for bf16 outputs, 1e-4 for float32 ones, 1e-5 for LSE and
    delta, with an atol three orders below a typical element.
@@ -27,8 +29,9 @@ Phases, each of which must pass:
    compared bit for bit; a non-causal bf16 shape [16, 8192, 64]; and a
    float32 shape [2, 16384, 64] through the autograd op with
    streaming=True, block_q != block_k and 4 splits.  Timed at the long
-   shape: kernel (and its TFLOP/s), plain version and, as yardsticks, SDPA
-   forward and backward (and the backward pair's ratio to it) and the
+   shape: kernel (and its TFLOP/s, for the forward also of its MMA work),
+   plain version and, as yardsticks, SDPA forward and backward (and the
+   forward's and the backward pair's ratios to them) and the
    resident kernels forced with streaming=False.  Then
    [16, 131072, 64] bf16 causal (8 splits of 16,384): peak memory of the
    three calls against their outputs plus the dK/dV workspaces, and the
@@ -236,6 +239,25 @@ def tflops(name, bh, s, d, causal, ms):
     return work(name, bh, s, d, 2, causal)[1] / (ms * 1e-3) / 1e12
 
 
+# Tensor-core FLOPs the bf16 forward issues per FLOP of the function: Q K^T
+# once (2 per pair and head-dim element), P V twice, P as its hi/lo pair
+# (4), against the function's 2 + 2.
+FWD_MMA_PER_FLOP = 6 / 4
+
+
+def fwd_report(name, ms, lib_ms, bh, s, d):
+    """The forward kernel's TFLOP/s of the function's work and of the MMA
+    work it issues, and its time over SDPA's forward; printed and
+    returned for the metrics line."""
+    rate = tflops(name, bh, s, d, True, ms)
+    res = {"tflops": rate, "mma_tflops": rate * FWD_MMA_PER_FLOP,
+           "over_sdpa": ms / lib_ms}
+    print(f"  {name}: {res['tflops']:.2f} TFLOP/s of the function's work, "
+          f"{res['mma_tflops']:.2f} of MMA work; {res['over_sdpa']:.2f}x "
+          f"SDPA's forward ({lib_ms:.4f} ms)")
+    return res
+
+
 def bound_ms(name, bh, s, d, itemsize, causal):
     """Least time for the work: its bytes over HBM bandwidth or its FLOPs
     over the bf16 peak, the larger."""
@@ -270,7 +292,7 @@ def phase_build(mods, build_mod, torch, gpu, check):
             if "_mma_kernel" in kernel:
                 mma.append(report)
     if mma:       # no report when the library was built by an earlier run
-        check(len(mma) == 16 and all(re.search(r"\b0 bytes spill stores", r)
+        check(len(mma) == 24 and all(re.search(r"\b0 bytes spill stores", r)
                                      for r in mma),
               f"ptxas: no spills in the {len(mma)} tensor-core kernels")
     hmma_census(build_mod, build_mod.build(mods[0].SOURCE), check)
@@ -308,8 +330,10 @@ def ptxas_reports(log):
 
 def hmma_census(build_mod, lib, check):
     """HMMA (tensor-core MMA) instructions per kernel in the built
-    library's SASS (cuobjdump): every bf16 instantiation of the four
-    backward kernels has them, no float32 one does."""
+    library's SASS (cuobjdump): every bf16 instantiation of the forward
+    (resident, streaming) and backward (dQ, dK/dV of both families)
+    kernels has them, no float32 one does; the merge and sum passes are
+    not counted."""
     import re
     cuobjdump = os.path.join(os.path.dirname(build_mod.nvcc_path()),
                              "cuobjdump")
@@ -325,16 +349,20 @@ def hmma_census(build_mod, lib, check):
             counts[label] += 1
     print("  HMMA per kernel (SASS): " + ", ".join(
         f"{k} {n}" for k, n in sorted(counts.items()) if "flash" in k))
-    bwd = [k for k in counts if k.startswith(("flash_bwd_dq",
-                                               "flash_bwd_dkv"))]
-    bf16 = [k for k in bwd if "bf16" in k]
-    f32 = [k for k in bwd if "f32" in k]
-    check(len(bf16) == len(f32) == 16
-          and all(counts[k] > 0 for k in bf16)
-          and not any(counts[k] for k in f32),
-          f"SASS: HMMA in all {len(bf16)} bf16 backward instantiations "
-          f"(min {min((counts[k] for k in bf16), default=0)}), none in the "
-          f"{len(f32)} float32 ones")
+    for what, prefixes, n in (
+            ("forward", ("flash_fwd_kernel", "flash_fwd_mma_kernel",
+                         "flash_fwd_str_kernel", "flash_fwd_str_mma_kernel"),
+             8),
+            ("backward", ("flash_bwd_dq", "flash_bwd_dkv"), 16)):
+        kernels = [k for k in counts if k.startswith(prefixes)]
+        bf16 = [k for k in kernels if "bf16" in k]
+        f32 = [k for k in kernels if "f32" in k]
+        check(len(bf16) == len(f32) == n
+              and all(counts[k] > 0 for k in bf16)
+              and not any(counts[k] for k in f32),
+              f"SASS: HMMA in all {len(bf16)} bf16 {what} instantiations "
+              f"(min {min((counts[k] for k in bf16), default=0)}), none in "
+              f"the {len(f32)} float32 ones")
 
 
 def phase_kernels(fa, torch, check):
@@ -411,6 +439,9 @@ def phase_kernels(fa, torch, check):
                   f"TFLOP/s), plain {out[name]['plain_ms']:.4f} ms, library "
                   f"{out[name]['library_ms']} ms, bound {b_ms:.4f} ms "
                   f"({b_by})")
+        yardsticks["flash_fwd_rates"] = fwd_report(
+            "flash_fwd", out["flash_fwd"]["ms"],
+            out["flash_fwd"]["library_ms"], BH, S, D)
         # Yardstick for the two backward kernels together: SDPA's backward
         # computes dQ, dK and dV in one call from its own saved forward.
         q4g, k4g, v4g = (t.detach().clone().requires_grad_()
@@ -555,6 +586,8 @@ def phase_streaming(fa, torch, check):
               f"({tflops(name, BH, S, D, True, out[name]['ms']):.2f} "
               f"TFLOP/s), plain {out[name]['plain_ms']:.3f} ms, library "
               f"{out[name]['library_ms']} ms, bound {b_ms:.4f} ms ({b_by})")
+    fwd_rates = fwd_report("flash_fwd_str", out["flash_fwd_str"]["ms"],
+                           out["flash_fwd_str"]["library_ms"], BH, S, D)
     q4g, k4g, v4g = (t.detach().clone().requires_grad_()
                      for t in (q4, k4, v4))
     o4g = F.scaled_dot_product_attention(q4g, k4g, v4g, is_causal=True)
@@ -577,6 +610,7 @@ def phase_streaming(fa, torch, check):
         f"{n} {t:.3f} ms" for n, t in yard.items())
         + f"; streaming dq + dkv {pair:.3f} ms: {ratio:.2f}x SDPA's backward")
     yard["long_bwd_over_sdpa_bwd"] = ratio
+    yard["flash_fwd_str_rates"] = fwd_rates
     del q, k, v, do, q4, k4, v4, o_p, lse_p, delta_p, timings
     torch.cuda.empty_cache()
 
@@ -1030,7 +1064,9 @@ def _leaves(state):
 
 def phase_profile(step, params, batch, torch, steady_ms, bitpack_bound=None):
     """One more flagship step under torch.profiler: device time by kernel
-    group, and the device's idle share of the unprofiled step time."""
+    group and of each flash kernel, and the device's idle share of the
+    unprofiled step time."""
+    import re
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1065,6 +1101,11 @@ def phase_profile(step, params, batch, torch, steady_ms, bitpack_bound=None):
           f"{steady_ms:.3f} ms step {1 - busy / steady_ms:.4f}")
     print("  by group: " + ", ".join(f"{g} {ms:.3f} ms ({ms / busy:.4f})"
                                      for g, ms in groups.items()))
+    flash = sorted(((m[0], ms) for name, ms in kernels
+                    if (m := re.search(r"flash\w*?_kernel(<[^>]*>)?", name))),
+                   key=lambda r: -r[1])
+    print("  flash kernels: " + ", ".join(f"{n} {ms:.3f} ms"
+                                          for n, ms in flash))
     if bitpack_bound is not None:
         print(f"  bitpack kernels {groups['bitpack kernels']:.3f} ms of "
               f"device time vs their {bitpack_bound:.4f} ms byte bound")

@@ -14,6 +14,7 @@ import torch
 
 from byteps_tpu.ops.compressor import bitpack as jbp
 from byteps_tpu_torch.ops.compressor import bitpack as bp
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SIZES = [4096, 4096 * 8, 4096 * 33, 5000, 100, 131072 + 17, 1]
 

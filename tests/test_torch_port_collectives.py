@@ -26,6 +26,7 @@ from byteps_tpu_torch.common import fusion
 from byteps_tpu_torch.common.tree import tree_leaves
 from byteps_tpu_torch.models import transformer as tfm
 from byteps_tpu_torch.ops import collectives
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_port_dist_worker.py")

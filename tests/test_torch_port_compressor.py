@@ -28,6 +28,7 @@ from byteps_tpu.ops import collectives as jcoll
 from byteps_tpu.ops import compressor as jC
 from byteps_tpu_torch.ops import collectives
 from byteps_tpu_torch.ops import compressor as C
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_port_compress_worker.py")

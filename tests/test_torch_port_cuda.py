@@ -234,6 +234,65 @@ def test_bf16_backward_refuses_misaligned(cuda_device):
         fa.flash_bwd_dkv_str(q, q, q, q, rows, rows, True, 0.125)
 
 
+@pytest.mark.parametrize("family,split", [("resident", None),
+                                          ("streaming", 4096),
+                                          ("streaming", 1024)])
+def test_bf16_forward_long_contraction(cuda_device, monkeypatch, family,
+                                       split):
+    """bf16 causal at S = 4096 (64 k tiles in one contraction; the
+    resident kernel, one split or four), every element of O held to one
+    bf16 step of the plain version and every LSE to 1e-5.  A tensor-core
+    forward that rounds P to bf16 once before P V fails the O gate by a
+    factor near 70; the hi/lo pair passes.  Every diagonal tile is checked
+    elementwise, where the causal mask cuts through the MMA fragments."""
+    if split is not None:
+        monkeypatch.setattr(fa, "_split_len", lambda s: split)
+    bh, s, d = 2, 4096, 64
+    q, k, v, _ = _qkvdo(cuda_device, bh, s, d, torch.bfloat16)
+    scale = d ** -0.5
+    fwd = fa.flash_fwd_str if family == "streaming" else fa.flash_fwd
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, True, scale)
+    o, lse = fwd(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    worst = {"o": _worst(o, o_p, BF16_GATE),
+             "lse": _worst(lse, lse_p, ROWS_GATE)}
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
+def test_bf16_forward_refuses_misaligned(cuda_device):
+    """The tensor-core forward copies q, k and v in 16-byte pieces: a
+    contiguous bf16 view that starts 2 bytes into its storage is refused
+    by both families, not read wrongly."""
+    flat = torch.zeros(2 * 128 * 64 + 1, device=cuda_device,
+                       dtype=torch.bfloat16)
+    q = flat[1:].view(2, 128, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    ok = torch.zeros(2, 128, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fa.flash_fwd(q, ok, ok, True, 0.125)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fa.flash_fwd_str(ok, ok, q, False, 0.125)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_bf16_streaming_forward_repeat_is_bit_identical(cuda_device,
+                                                        monkeypatch, d):
+    """The tensor-core streaming forward writes its partials with no
+    atomics and the merge reads them in split order: two calls over 4
+    splits give the same O and LSE bits, causal (with dead pairs) or
+    not, and each call is one launch of the wrapper."""
+    monkeypatch.setattr(fa, "_split_len", lambda s: 512)
+    q, k, v, _ = _qkvdo(cuda_device, 4, 2048, d, torch.bfloat16)
+    for causal in (False, True):
+        before = fa.launches["flash_fwd_str"]
+        first = fa.flash_fwd_str(q, k, v, causal, d ** -0.5)
+        second = fa.flash_fwd_str(q, k, v, causal, d ** -0.5)
+        torch.cuda.synchronize()
+        assert fa.launches["flash_fwd_str"] == before + 2
+        assert torch.equal(first[0], second[0]), ("o", causal)
+        assert torch.equal(first[1], second[1]), ("lse", causal)
+
+
 def test_streaming_dead_splits_are_never_read(cuda_device, monkeypatch):
     """Causal, 8 splits of 64 keys: q tile 0 has 7 dead splits.  The
     workspaces come from the caching allocator, here from blocks of their

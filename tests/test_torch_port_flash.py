@@ -21,6 +21,7 @@ from byteps_tpu.ops.flash_attention import flash_attention as jax_flash
 from byteps_tpu_torch.models.transformer import (dense_attention,
                                                  flash_attention_fn)
 from byteps_tpu_torch.ops import flash_attention as fa
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _inputs(seed, n, *shape):

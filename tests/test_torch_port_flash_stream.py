@@ -22,6 +22,7 @@ from byteps_tpu.ops import flash_attention as jfa
 from byteps_tpu_torch.common.tree import tree_leaves
 from byteps_tpu_torch.models import transformer as tfm
 from byteps_tpu_torch.ops import flash_attention as fa
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _DTYPES = {"float32": (jnp.float32, torch.float32),
            "bfloat16": (jnp.bfloat16, torch.bfloat16)}

@@ -17,6 +17,7 @@ import torch
 from byteps_tpu.models import transformer as jtfm
 from byteps_tpu_torch.common.tree import tree_leaves
 from byteps_tpu_torch.models import transformer as tfm
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 
 _DTYPES = {"float32": (jnp.float32, torch.float32),
            "bfloat16": (jnp.bfloat16, torch.bfloat16)}

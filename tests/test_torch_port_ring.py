@@ -29,6 +29,7 @@ from byteps_tpu.ops import ring_attention as jra
 from byteps_tpu_torch.ops import collectives
 from byteps_tpu_torch.ops import flash_attention as fa
 from byteps_tpu_torch.ops import ring_attention as ra
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(REPO, "tests", "torch_port_ring_worker.py")

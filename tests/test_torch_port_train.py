@@ -20,6 +20,7 @@ from byteps_tpu.models import transformer as jtfm
 from byteps_tpu_torch.common.tree import tree_leaves
 from byteps_tpu_torch.models import mlp
 from byteps_tpu_torch.models import transformer as tfm
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _tiny(**kw):
