@@ -35,10 +35,16 @@
 // uninitialised workspace).  Splits are whole tiles, so every live row
 // sees the first key of every live split and its partial max is finite.
 //
-// Layout: q, k, v, o, dO are contiguous [BH, S, D] in float32 or bfloat16;
-// lse and delta are contiguous [BH, S] float32; the workspaces are
+// Layout: q, k, v, o, dO are contiguous [BH, S, D] in float32, bfloat16 or
+// float16; lse and delta are contiguous [BH, S] float32; the workspaces are
 // float32, [splits, BH, S, D] (acc, dQ, dK, dV) or [splits, BH, S] (m, l),
-// indexed in size_t.
+// indexed in size_t.  BH is at most 65,535 a launch (gridDim.y or z): the
+// Python wrappers cut a larger B*H into contiguous slices, one launch each.
+//
+// Head dims.  The kernels are instantiated at D = 16, 32, 64, 128 and 256.
+// The JAX kernels take any D (their VMEM blocks are whole rows); the caller
+// zero-pads D up to the next instantiated one, which leaves Q K^T unchanged,
+// and slices the outputs back (ops/flash_attention.py::_pad_head_dim).
 //
 // What bounds them on the H100.  At the flagship shape (BH = 128, S = 512,
 // D = 64, bf16, causal) each resident kernel moves 34-51 MB, about 10-15 us
@@ -52,23 +58,44 @@
 // log-sum-exp.  The streaming partials add (D + 2) floats per row and
 // split, which is small beside the operations.
 //
-// In bf16 every kernel (fwd_mma_tiles, dq_mma_tiles, dkv_mma_tiles) runs
-// its products on the tensor cores: mma.sync m16n8k16, bf16 x bf16 ->
-// float32, four warps of 16 rows each, tiles in padded bf16 shared memory
-// read by ldmatrix, the streamed tiles double-buffered through cp.async.
-// The first products (Q K^T, and dO V^T, or K Q^T and V dO^T in dK/dV)
-// take the bf16 inputs, which the tensor cores multiply exactly.  P and dS
-// are float32 in registers, as the reference keeps them: its Pallas
-// kernels compute in float32 throughout.  Rounded once to bf16 before the
-// second products (P V, dS K, P^T dO, dS^T Q), over a 4,096-key
-// contraction they miss the plain version by 14 to about 100 bf16 steps.
-// So each enters as a pair, hi = bf16(x) and lo = bf16(x - hi), two MMAs
-// into one float32 accumulator: 16 significant bits, within one bf16 step
-// of the plain version (tests/test_torch_port_flash_tc.py emulates this
-// arithmetic).  The pair makes the tensor-core work 6 FLOPs per visible
-// (q, k) pair and head-dim element in the forward, against the function's
-// 4, and 20 against 14 in the backward.  mma.sync reaches only part of the
-// card's bf16 peak, which wants wgmma.
+// In bf16 and float16 every kernel (fwd_mma_tiles, dq_mma_tiles,
+// dkv_mma_tiles, templated on the 16-bit type) runs its products on the
+// tensor cores: mma.sync m16n8k16, bf16 x bf16 or f16 x f16 -> float32,
+// four warps of 16 rows each, tiles in padded 16-bit shared memory read by
+// ldmatrix, the streamed tiles double-buffered through cp.async.  The
+// first products (Q K^T, and dO V^T, or K Q^T and V dO^T in dK/dV) take
+// the 16-bit inputs, which the tensor cores multiply exactly.  P and dS are
+// float32 in registers, as the reference keeps them: its Pallas kernels
+// compute in float32 throughout.  Rounded once to bf16 before the second
+// products (P V, dS K, P^T dO, dS^T Q), over a 4,096-key contraction they
+// miss the plain version by 14 to about 100 bf16 steps.  So each enters as
+// a pair, hi = bf16(x) and lo = bf16(x - hi), two MMAs into one float32
+// accumulator: 16 significant bits, within one bf16 step of the plain
+// version (tests/test_torch_port_flash_tc.py emulates this arithmetic).
+// The pair leaves up to 2^-18 |x|, which matters where the backward's
+// elements are large (attention on a few keys: |dS| near 10 at S = 64):
+// there dQ, dK and dV missed the gate by up to 1.3x over 67M elements.  So
+// the bf16 backward adds a third term, lo2 = bf16(x - hi - lo), wherever a
+// warp's block of P^T, dS or dS^T holds a large element (|P| >= 2^-5,
+// |dS| >= 1; one warp vote, then a second product pass in mma_xb_bwd).
+// The thresholds are set from the recipe's emulation so that the unrounded
+// error stays below half the gate (where a rounded output can be off by one
+// step at most) with room, at S = 64 and dO 16 times larger, over seeds
+// (PERF.md).  At long S few blocks hold such elements; the vote and the
+// pass cost the backward a few per cent (PERF.md, §6).
+// float16 rounds 8 times finer but would still miss the gate, so it keeps
+// the pair (22 bits).  Its exponent range is narrow: below 2^-14 its steps
+// are absolute, and the backward's probabilities (about 1/S each) and dS
+// fall there at long S; above 65,504 it overflows.  So the float16
+// backward multiplies each row of P^T, dS and dS^T by a power of two that
+// brings the row's largest element just below 2^15 before the split, and
+// divides it out of the accumulator at the end (scale_rows); at
+// [16, 32768, 64] without it dQ, dK and dV missed the one-step gate by up
+// to 1.3x.  The forward's P is relative to the running max and needs no
+// scale.  The pair makes the tensor-core work 6 FLOPs per visible (q, k)
+// pair and head-dim element in the forward, against the function's 4, and
+// 20 against 14 in the backward.  mma.sync reaches only part of the card's
+// bf16 peak, which wants wgmma.
 //
 // The float32 kernels do their products as float32 FMAs on the CUDA cores
 // (67 TFLOP/s at most), bound in practice by FMA issue and shared-memory
@@ -81,22 +108,30 @@
 // shared memory, so these kernels pick their own tiles: 64 q rows by 64 k
 // rows.  The CUDA-core loops (fwd_tiles, dq_tiles, dkv_tiles, float32
 // only) run 256 threads, four threads to a row, each thread owning 16
-// columns of the logits tile and D / 4 columns of the accumulator.  The
+// columns of the logits tile and D / 4 columns of the accumulator; at
+// D = 256 they take the streamed tile 32 rows at a time (sub_rows), since
+// four 64 x 257 float32 tiles would not fit in shared memory.  The
 // tensor-core loops run 128 threads, each warp owning 16 rows and its
 // accumulators in the MMA layout; dK/dV takes the q tile 32 columns at a
 // time at D = 64 and 16 at D = 128, so that its two D-wide accumulators
-// leave room in the registers.  Causal masking skips tiles above the
-// diagonal (the loop bound) and masks inside the diagonal tile, with
-// global positions, as _causal_mask does.  Both families run the same tile
-// loops: the resident kernels over the whole range, the streaming ones
-// over a split.  Within a split the tiles are walked in a fixed order,
-// with no atomics.
+// leave room in the registers.  At D = 256 one warp's O or dQ accumulator
+// alone would be 128 registers a lane, and dK with dV 256, so every
+// tensor-core kernel runs twice over its tiles, once for each 128-column
+// half of its outputs (out_cols), recomputing the first products and the
+// softmax: 8 tensor-core FLOPs per pair and head-dim element in the
+// forward instead of 6, 28 instead of 20 in the backward.  Causal masking
+// skips tiles above the diagonal (the loop bound) and masks inside the
+// diagonal tile, with global positions, as _causal_mask does.  Both
+// families run the same tile loops: the resident kernels over the whole
+// range, the streaming ones over a split.  Within a split the tiles are
+// walked in a fixed order, with no atomics.
 //
 // Each entry point returns cudaGetLastError() after each launch (or the
 // error of the attribute call before it), so a refused launch surfaces in
 // the caller and never passes silently.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -109,13 +144,12 @@ namespace {
 constexpr int kTile = 64;              // rows of a q tile and of a k tile
 constexpr int kLanes = 4;              // threads that share one tile row
 constexpr int kThreads = kTile * kLanes;
-constexpr int kCols = kTile / kLanes;  // logits columns per thread
-constexpr int kTileLd = kTile + 1;     // padded row of a logits tile
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -124,6 +158,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // Sum (or max) over the four consecutive lanes that share a tile row.
@@ -138,20 +176,31 @@ __device__ __forceinline__ float row_max(float x) {
   return x;
 }
 
-// Copy the contiguous [kTile, D] tile at `src` into shared float32 with a
+// Rows of the streamed tile (K/V, or Q/dO in dK/dV) that a CUDA-core loop
+// takes at a time: the whole 64-row tile up to D = 128, half of it at
+// D = 256, where four 64-row float32 tiles of D + 1 floats (263 KB) would
+// not fit in the 227 KB of shared memory a block can have.
+template <int D>
+__host__ __device__ constexpr int sub_rows() {
+  return D > 128 ? kTile / 2 : kTile;
+}
+
+// Copy the contiguous [R, D] tile at `src` into shared float32 with a
 // padded row of D + 1 floats (so that the four lanes of a row, and the rows
 // of a warp, read different banks), multiplied by `scale`.
-template <typename T, int D>
+template <typename T, int D, int R = kTile>
 __device__ __forceinline__ void load_tile(float* dst, const T* src,
                                           float scale) {
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+  for (int i = threadIdx.x; i < R * D; i += kThreads) {
     dst[(i / D) * (D + 1) + (i % D)] = to_f32(src[i]) * scale;
   }
 }
 
 // ---------------------------------------------------------------------------
 // Tile loops shared by both families.  `k`, `v`, `q`, `dout` point at one
-// (batch*head)'s [S, D] rows, `lse` and `delta` at its [S] rows.
+// (batch*head)'s [S, D] rows, `lse` and `delta` at its [S] rows.  Each
+// 64-row tile of the loop is taken in sub-tiles of KT = sub_rows<D>() rows,
+// and logits and probabilities tiles are [kTile][KT + 1].
 // ---------------------------------------------------------------------------
 
 // Online softmax of the q tile `qt` (in `qs`, pre-scaled by sm_scale) over
@@ -165,48 +214,55 @@ __device__ __forceinline__ void fwd_tiles(const float* qs, float* ks,
                                           float& l,
                                           float (&acc)[D / kLanes]) {
   constexpr int ld = D + 1;
+  constexpr int KT = sub_rows<D>();
+  constexpr int cols = KT / kLanes;  // logits columns per thread
+  constexpr int pld = KT + 1;
   const int r = threadIdx.x / kLanes;
   const int c = threadIdx.x % kLanes;
   for (int kt = kt0; kt < kt1; ++kt) {
-    __syncthreads();  // every thread is done with the previous K/V tile
-    load_tile<T, D>(ks, k + (size_t)kt * kTile * D, 1.f);
-    load_tile<T, D>(vs, v + (size_t)kt * kTile * D, 1.f);
-    __syncthreads();
+    for (int h = 0; h < kTile; h += KT) {
+      __syncthreads();  // every thread is done with the previous K/V tile
+      load_tile<T, D, KT>(ks, k + ((size_t)kt * kTile + h) * D, 1.f);
+      load_tile<T, D, KT>(vs, v + ((size_t)kt * kTile + h) * D, 1.f);
+      __syncthreads();
 
-    float s[kCols];
+      float s[cols];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) s[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = qs[r * ld + d];
+      for (int j = 0; j < cols; ++j) s[j] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        const float qv = qs[r * ld + d];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) s[j] += qv * ks[(c + kLanes * j) * ld + d];
-    }
-    if (causal && kt == qt) {
+        for (int j = 0; j < cols; ++j) s[j] += qv * ks[(c + kLanes * j) * ld + d];
+      }
+      if (causal && kt == qt) {
 #pragma unroll
-      for (int j = 0; j < kCols; ++j)
-        if (c + kLanes * j > r) s[j] = -INFINITY;
-    }
-    float mx = m;
+        for (int j = 0; j < cols; ++j)
+          if (h + c + kLanes * j > r) s[j] = -INFINITY;
+      }
+      // The first sub-tile of the range holds a key every row sees, so m
+      // is finite from then on and a wholly masked sub-tile adds nothing.
+      float mx = m;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) mx = fmaxf(mx, s[j]);
-    mx = row_max(mx);
-    const float alpha = expf(m - mx);
-    float rs = 0.f;
+      for (int j = 0; j < cols; ++j) mx = fmaxf(mx, s[j]);
+      mx = row_max(mx);
+      const float alpha = expf(m - mx);
+      float rs = 0.f;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const float p = expf(s[j] - mx);
-      ps[r * kTileLd + c + kLanes * j] = p;
-      rs += p;
-    }
-    l = l * alpha + row_sum(rs);
-    m = mx;
+      for (int j = 0; j < cols; ++j) {
+        const float p = expf(s[j] - mx);
+        ps[r * pld + c + kLanes * j] = p;
+        rs += p;
+      }
+      l = l * alpha + row_sum(rs);
+      m = mx;
 #pragma unroll
-    for (int i = 0; i < D / kLanes; ++i) acc[i] *= alpha;
-    __syncwarp();  // a row's probabilities are written and read by one warp
-    for (int j = 0; j < kTile; ++j) {
-      const float p = ps[r * kTileLd + j];
+      for (int i = 0; i < D / kLanes; ++i) acc[i] *= alpha;
+      __syncwarp();  // a row's probabilities are written and read by one warp
+      for (int j = 0; j < KT; ++j) {
+        const float p = ps[r * pld + j];
 #pragma unroll
-      for (int i = 0; i < D / kLanes; ++i) acc[i] += p * vs[j * ld + c + kLanes * i];
+        for (int i = 0; i < D / kLanes; ++i) acc[i] += p * vs[j * ld + c + kLanes * i];
+      }
     }
   }
 }
@@ -222,39 +278,44 @@ __device__ __forceinline__ void dq_tiles(const float* qs, const float* dos,
                                          float scale, float lse_r, float dl,
                                          float (&acc)[D / kLanes]) {
   constexpr int ld = D + 1;
+  constexpr int KT = sub_rows<D>();
+  constexpr int cols = KT / kLanes;
+  constexpr int pld = KT + 1;
   const int r = threadIdx.x / kLanes;
   const int c = threadIdx.x % kLanes;
   for (int kt = kt0; kt < kt1; ++kt) {
-    __syncthreads();
-    load_tile<T, D>(ks, k + (size_t)kt * kTile * D, 1.f);
-    load_tile<T, D>(vs, v + (size_t)kt * kTile * D, 1.f);
-    __syncthreads();
+    for (int h = 0; h < kTile; h += KT) {
+      __syncthreads();
+      load_tile<T, D, KT>(ks, k + ((size_t)kt * kTile + h) * D, 1.f);
+      load_tile<T, D, KT>(vs, v + ((size_t)kt * kTile + h) * D, 1.f);
+      __syncthreads();
 
-    float s[kCols], dp[kCols];
+      float s[cols], dp[cols];
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) s[j] = dp[j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qv = qs[r * ld + d];
-      const float dv = dos[r * ld + d];
+      for (int j = 0; j < cols; ++j) s[j] = dp[j] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        const float qv = qs[r * ld + d];
+        const float dv = dos[r * ld + d];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int col = c + kLanes * j;
-        s[j] += qv * ks[col * ld + d];
-        dp[j] += dv * vs[col * ld + d];
+        for (int j = 0; j < cols; ++j) {
+          const int col = c + kLanes * j;
+          s[j] += qv * ks[col * ld + d];
+          dp[j] += dv * vs[col * ld + d];
+        }
       }
-    }
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int col = c + kLanes * j;
-      const bool masked = causal && kt == qt && col > r;
-      const float p = masked ? 0.f : expf(scale * s[j] - lse_r);
-      dss[r * kTileLd + col] = p * (dp[j] - dl);
-    }
-    __syncwarp();
-    for (int j = 0; j < kTile; ++j) {
-      const float ds = dss[r * kTileLd + j];
+      for (int j = 0; j < cols; ++j) {
+        const int col = c + kLanes * j;
+        const bool masked = causal && kt == qt && h + col > r;
+        const float p = masked ? 0.f : expf(scale * s[j] - lse_r);
+        dss[r * pld + col] = p * (dp[j] - dl);
+      }
+      __syncwarp();
+      for (int j = 0; j < KT; ++j) {
+        const float ds = dss[r * pld + j];
 #pragma unroll
-      for (int i = 0; i < D / kLanes; ++i) acc[i] += ds * ks[j * ld + c + kLanes * i];
+        for (int i = 0; i < D / kLanes; ++i) acc[i] += ds * ks[j * ld + c + kLanes * i];
+      }
     }
   }
 }
@@ -269,49 +330,54 @@ __device__ __forceinline__ void dkv_tiles(
     int causal, float scale, float (&dk_acc)[D / kLanes],
     float (&dv_acc)[D / kLanes]) {
   constexpr int ld = D + 1;
+  constexpr int QT = sub_rows<D>();
+  constexpr int cols = QT / kLanes;
+  constexpr int pld = QT + 1;
   const int j = threadIdx.x / kLanes;  // this thread's k row in the tile
   const int c = threadIdx.x % kLanes;
   for (int qt = qt0; qt < qt1; ++qt) {
-    __syncthreads();
-    load_tile<T, D>(qs, q + (size_t)qt * kTile * D, 1.f);
-    load_tile<T, D>(dos, dout + (size_t)qt * kTile * D, 1.f);
-    if (threadIdx.x < kTile) {
-      const size_t at = (size_t)qt * kTile + threadIdx.x;
-      lses[threadIdx.x] = lse[at];
-      dels[threadIdx.x] = delta[at];
-    }
-    __syncthreads();
-
-    float s[kCols], dp[kCols];
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) s[i] = dp[i] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kv = ks[j * ld + d];
-      const float vv = vs[j * ld + d];
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        const int qr = c + kLanes * i;
-        s[i] += qs[qr * ld + d] * kv;
-        dp[i] += dos[qr * ld + d] * vv;
+    for (int h = 0; h < kTile; h += QT) {
+      __syncthreads();
+      load_tile<T, D, QT>(qs, q + ((size_t)qt * kTile + h) * D, 1.f);
+      load_tile<T, D, QT>(dos, dout + ((size_t)qt * kTile + h) * D, 1.f);
+      if (threadIdx.x < QT) {
+        const size_t at = (size_t)qt * kTile + h + threadIdx.x;
+        lses[threadIdx.x] = lse[at];
+        dels[threadIdx.x] = delta[at];
       }
-    }
+      __syncthreads();
+
+      float s[cols], dp[cols];
 #pragma unroll
-    for (int i = 0; i < kCols; ++i) {
-      const int qr = c + kLanes * i;
-      const bool masked = causal && qt == kt && j > qr;
-      const float p = masked ? 0.f : expf(scale * s[i] - lses[qr]);
-      pt[j * kTileLd + qr] = p;
-      dst[j * kTileLd + qr] = p * (dp[i] - dels[qr]);
-    }
-    __syncwarp();
-    for (int qr = 0; qr < kTile; ++qr) {
-      const float p = pt[j * kTileLd + qr];
-      const float ds = dst[j * kTileLd + qr];
+      for (int i = 0; i < cols; ++i) s[i] = dp[i] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        const float kv = ks[j * ld + d];
+        const float vv = vs[j * ld + d];
 #pragma unroll
-      for (int i = 0; i < D / kLanes; ++i) {
-        const int d = c + kLanes * i;
-        dv_acc[i] += p * dos[qr * ld + d];
-        dk_acc[i] += ds * qs[qr * ld + d];
+        for (int i = 0; i < cols; ++i) {
+          const int qr = c + kLanes * i;
+          s[i] += qs[qr * ld + d] * kv;
+          dp[i] += dos[qr * ld + d] * vv;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < cols; ++i) {
+        const int qr = c + kLanes * i;
+        const bool masked = causal && qt == kt && j > h + qr;
+        const float p = masked ? 0.f : expf(scale * s[i] - lses[qr]);
+        pt[j * pld + qr] = p;
+        dst[j * pld + qr] = p * (dp[i] - dels[qr]);
+      }
+      __syncwarp();
+      for (int qr = 0; qr < QT; ++qr) {
+        const float p = pt[j * pld + qr];
+        const float ds = dst[j * pld + qr];
+#pragma unroll
+        for (int i = 0; i < D / kLanes; ++i) {
+          const int d = c + kLanes * i;
+          dv_acc[i] += p * dos[qr * ld + d];
+          dk_acc[i] += ds * qs[qr * ld + d];
+        }
       }
     }
   }
@@ -328,10 +394,11 @@ __global__ void __launch_bounds__(kThreads)
                      int causal) {
   constexpr int ld = D + 1;
   extern __shared__ float smem[];
+  constexpr int KT = sub_rows<D>();  // rows of a streamed sub-tile
   float* qs = smem;                 // [kTile][ld], pre-scaled by sm_scale
-  float* ks = qs + kTile * ld;      // [kTile][ld]
-  float* vs = ks + kTile * ld;      // [kTile][ld]
-  float* ps = vs + kTile * ld;      // [kTile][kTileLd] probabilities
+  float* ks = qs + kTile * ld;      // [KT][ld]
+  float* vs = ks + KT * ld;         // [KT][ld]
+  float* ps = vs + KT * ld;         // [kTile][KT + 1] probabilities
 
   const int qt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -368,11 +435,12 @@ __global__ void __launch_bounds__(kThreads)
                         int causal) {
   constexpr int ld = D + 1;
   extern __shared__ float smem[];
+  constexpr int KT = sub_rows<D>();  // rows of a streamed sub-tile
   float* qs = smem;                 // [kTile][ld]
   float* dos = qs + kTile * ld;     // [kTile][ld]
-  float* ks = dos + kTile * ld;     // [kTile][ld]
-  float* vs = ks + kTile * ld;      // [kTile][ld]
-  float* dss = vs + kTile * ld;     // [kTile][kTileLd] dS tile
+  float* ks = dos + kTile * ld;     // [KT][ld]
+  float* vs = ks + KT * ld;         // [KT][ld]
+  float* dss = vs + KT * ld;        // [kTile][KT + 1] dS tile
 
   const int qt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -418,14 +486,15 @@ __global__ void __launch_bounds__(kThreads)
                          int causal) {
   constexpr int ld = D + 1;
   extern __shared__ float smem[];
+  constexpr int KT = sub_rows<D>();  // rows of a streamed sub-tile
   float* ks = smem;                   // [kTile][ld]
   float* vs = ks + kTile * ld;        // [kTile][ld]
-  float* qs = vs + kTile * ld;        // [kTile][ld]
-  float* dos = qs + kTile * ld;       // [kTile][ld]
-  float* pt = dos + kTile * ld;       // [kTile][kTileLd] P^T tile
-  float* dst = pt + kTile * kTileLd;  // [kTile][kTileLd] dS^T tile
-  float* lses = dst + kTile * kTileLd;  // [kTile]
-  float* dels = lses + kTile;           // [kTile]
+  float* qs = vs + kTile * ld;        // [KT][ld]
+  float* dos = qs + KT * ld;          // [KT][ld]
+  float* pt = dos + KT * ld;          // [kTile][KT + 1] P^T tile
+  float* dst = pt + kTile * (KT + 1); // [kTile][KT + 1] dS^T tile
+  float* lses = dst + kTile * (KT + 1);  // [KT]
+  float* dels = lses + KT;               // [KT]
 
   const int kt = blockIdx.x;
   const int bh = blockIdx.y;
@@ -495,10 +564,11 @@ __global__ void __launch_bounds__(kThreads)
 
   constexpr int ld = D + 1;
   extern __shared__ float smem[];
+  constexpr int KT = sub_rows<D>();  // rows of a streamed sub-tile
   float* qs = smem;
   float* ks = qs + kTile * ld;
-  float* vs = ks + kTile * ld;
-  float* ps = vs + kTile * ld;
+  float* vs = ks + KT * ld;
+  float* ps = vs + KT * ld;
 
   const int r = threadIdx.x / kLanes;
   const int c = threadIdx.x % kLanes;
@@ -599,11 +669,12 @@ __global__ void __launch_bounds__(kThreads)
 
   constexpr int ld = D + 1;
   extern __shared__ float smem[];
+  constexpr int KT = sub_rows<D>();  // rows of a streamed sub-tile
   float* qs = smem;
   float* dos = qs + kTile * ld;
   float* ks = dos + kTile * ld;
-  float* vs = ks + kTile * ld;
-  float* dss = vs + kTile * ld;
+  float* vs = ks + KT * ld;
+  float* dss = vs + KT * ld;
 
   const int r = threadIdx.x / kLanes;
   const int c = threadIdx.x % kLanes;
@@ -647,14 +718,15 @@ __global__ void __launch_bounds__(kThreads)
 
   constexpr int ld = D + 1;
   extern __shared__ float smem[];
+  constexpr int KT = sub_rows<D>();  // rows of a streamed sub-tile
   float* ks = smem;
   float* vs = ks + kTile * ld;
   float* qs = vs + kTile * ld;
-  float* dos = qs + kTile * ld;
-  float* pt = dos + kTile * ld;
-  float* dst = pt + kTile * kTileLd;
-  float* lses = dst + kTile * kTileLd;
-  float* dels = lses + kTile;
+  float* dos = qs + KT * ld;
+  float* pt = dos + KT * ld;
+  float* dst = pt + kTile * (KT + 1);
+  float* lses = dst + kTile * (KT + 1);
+  float* dels = lses + KT;
 
   const int j = threadIdx.x / kLanes;
   const int c = threadIdx.x % kLanes;
@@ -708,18 +780,35 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 backward on the tensor cores: dQ and dK/dV with
-// mma.sync.m16n8k16 (bf16 x bf16 -> float32).  A CTA of four warps owns a
-// 64-row tile; warp w owns its rows 16w..16w+15 and keeps its products'
-// accumulators in registers in the MMA layout: for n8 block n, element e
-// of lane l sits at row l/4 (+8 for e >= 2), column 8n + 2(l%4) + (e&1).
-// Tiles live in shared memory as bf16 rows of D + 8 (16-byte aligned and
-// free of bank conflicts for ldmatrix); the streamed tiles come in by
-// cp.async, double-buffered, tile t+1 loading while tile t multiplies.
+// The 16-bit backward on the tensor cores: dQ and dK/dV with
+// mma.sync.m16n8k16 (bf16 x bf16 or f16 x f16 -> float32), templated on the
+// 16-bit type T16.  A CTA of four warps owns a 64-row tile; warp w owns its
+// rows 16w..16w+15 and keeps its products' accumulators in registers in the
+// MMA layout: for n8 block n, element e of lane l sits at row l/4 (+8 for
+// e >= 2), column 8n + 2(l%4) + (e&1).  Tiles live in shared memory as
+// 16-bit rows of D + 8 (16-byte aligned and free of bank conflicts for
+// ldmatrix); the streamed tiles come in by cp.async, double-buffered, tile
+// t+1 loading while tile t multiplies.
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 constexpr int kWarps = 4;
 constexpr int kMmaThreads = 32 * kWarps;
+
+// CTAs an SM each tensor-core kernel is compiled for (__launch_bounds__'s
+// second argument).  Without it ptxas sometimes spilled a few bytes to
+// reach one more CTA an SM (at 80, 96 or 128 registers); with 1 everywhere
+// it let the D = 64 kernels grow past their occupancy (dQ from 128 to 194
+// registers).  So: at D = 64 (the main paths) the occupancy each kernel
+// reaches without it (4, 4, 3); 2 at D = 128 (3 made the forward spill at
+// its 168-register cap); 1 elsewhere (D <= 32, where occupancy is ample;
+// D = 256, whose shared memory allows one CTA an SM).
+constexpr int kFwdCtas = 0, kDqCtas = 1, kDkvCtas = 2;
+template <int kKernel>
+__host__ __device__ constexpr int mma_ctas(int d) {
+  if (d == 64) return kKernel == kDkvCtas ? 3 : 4;
+  if (d == 128) return 2;
+  return 1;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -742,13 +831,13 @@ __device__ __forceinline__ void cp_async_wait_prev() {
 // Four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix
 // i, and lane l receives row l/4, columns 2(l%4), +1 of each (of each
 // transposed matrix with .trans).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
@@ -756,36 +845,71 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       : "r"(smem_addr(p)));
 }
 
-// c += a b: a 16x16 (row), b 16x8 (col), c 16x8 float32.
+// c += a b: a 16x16 (row), b 16x8 (col), c 16x8 float32, a and b in T16.
+template <typename T16>
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same<T16, bf16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
+        "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, "
+        "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+__device__ __forceinline__ uint32_t bits16(bf16 x) {
+  return __bfloat16_as_ushort(x);
+}
+__device__ __forceinline__ uint32_t bits16(__half x) {
+  return __half_as_ushort(x);
 }
 
-// x0, x1 (neighbouring columns) as hi = bf16(x), lo = bf16(x - hi): the pair
-// carries 16 significant bits of x where one bf16 carries 8.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const bf16 h0 = __float2bfloat16_rn(x0);
-  const bf16 h1 = __float2bfloat16_rn(x1);
-  hi = pack_bf16(h0, h1);
-  lo = pack_bf16(__float2bfloat16_rn(x0 - __bfloat162float(h0)),
-                 __float2bfloat16_rn(x1 - __bfloat162float(h1)));
+template <typename T16>
+__device__ __forceinline__ T16 unbits16(uint32_t b);
+template <>
+__device__ __forceinline__ bf16 unbits16<bf16>(uint32_t b) {
+  return __ushort_as_bfloat16((unsigned short)b);
+}
+template <>
+__device__ __forceinline__ __half unbits16<__half>(uint32_t b) {
+  return __ushort_as_half((unsigned short)b);
 }
 
-// Copy the contiguous [kTile, D] bf16 tile at `src` into shared rows of
+// x0, x1 (neighbouring columns) as hi = T16(x), lo = T16(x - hi), each
+// packed two to a register: the pair carries 16 significant bits of x in
+// bf16 (where one bf16 carries 8), 22 in float16.
+template <typename T16>
+__device__ __forceinline__ void split16(float x0, float x1, uint32_t& hi,
+                                        uint32_t& lo) {
+  const T16 h0 = from_f32<T16>(x0);
+  const T16 h1 = from_f32<T16>(x1);
+  hi = bits16(h0) | (bits16(h1) << 16);
+  lo = bits16(from_f32<T16>(x0 - to_f32(h0))) |
+       (bits16(from_f32<T16>(x1 - to_f32(h1))) << 16);
+}
+
+// The third terms T16(x - hi - lo) of x0, x1, packed as split16 packs.
+template <typename T16>
+__device__ __forceinline__ uint32_t residue16(float x0, float x1,
+                                              uint32_t hi, uint32_t lo) {
+  const float r0 = x0 - to_f32(unbits16<T16>(hi & 0xffffu)) -
+                   to_f32(unbits16<T16>(lo & 0xffffu));
+  const float r1 = x1 - to_f32(unbits16<T16>(hi >> 16)) -
+                   to_f32(unbits16<T16>(lo >> 16));
+  return bits16(from_f32<T16>(r0)) | (bits16(from_f32<T16>(r1)) << 16);
+}
+
+// Copy the contiguous [kTile, D] 16-bit tile at `src` into shared rows of
 // D + 8, 16 bytes a copy.
-template <int D>
-__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src) {
+template <int D, typename T16>
+__device__ __forceinline__ void tile_async(T16* dst, const T16* src) {
   constexpr int kChunks = D / 8;
   for (int i = threadIdx.x; i < kTile * kChunks; i += kMmaThreads) {
     const int r = i / kChunks;
@@ -800,11 +924,11 @@ __device__ __forceinline__ void rows_async(float* dst, const float* src) {
 }
 
 // acc[n] += A B^T over D for the warp: A is 16 rows at `a`, B is 8 * NB
-// rows at `b`, both [rows][D + 8] bf16 (S = Q K^T, dP = dO V^T, and their
+// rows at `b`, both [rows][D + 8] T16 (S = Q K^T, dP = dO V^T, and their
 // transposes K Q^T, V dO^T).
-template <int D, int NB>
-__device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const bf16* a,
-                                        const bf16* b, int lane) {
+template <typename T16, int D, int NB>
+__device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const T16* a,
+                                        const T16* b, int lane) {
   constexpr int ld = D + 8;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -815,47 +939,96 @@ __device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const bf16* a,
       uint32_t bf[4];
       ldsm_x4(bf, b + (n2 * 16 + (lane & 7) + (lane >> 4) * 8) * ld +
                       kk * 16 + ((lane >> 3) & 1) * 8);
-      mma16816(acc[2 * n2], af, bf[0], bf[1]);
-      mma16816(acc[2 * n2 + 1], af, bf[2], bf[3]);
+      mma16816<T16>(acc[2 * n2], af, bf[0], bf[1]);
+      mma16816<T16>(acc[2 * n2 + 1], af, bf[2], bf[3]);
     }
   }
 }
 
+// Elements of a backward A operand from these magnitudes on make the warp
+// take three 16-bit terms (see mma_xb_split): P^T (at most 1, with dO in
+// dV's sum) from 2^-5, dS and dS^T from 1.  Measured in the recipe's
+// emulation (tests/test_torch_port_flash_tc.py), dO 16 times larger: dV's
+// unrounded error reaches 0.62-0.93 of the gate at S = 64 with 2^-3 over
+// five seeds, and 0.60 at S = 4,096 with an attention sink with 2^-4;
+// 2^-5 holds both at or below 0.33.  dQ and dK sit at their float32 floor
+// with dS's threshold anywhere from 2^-4 to 1.
+constexpr float kRefineP = 0.03125f;
+constexpr float kRefineDs = 1.f;
+
 // acc[n] += X B for the warp: X is 16 x 16KS float32 in accumulator layout
-// (P, dS or their transposes), B is 16KS rows at `b` ([rows][D + 8] bf16,
-// contracted along its rows, read through ldmatrix.trans).  An accumulator
-// block pair 2kk, 2kk+1 is the A fragment of k step kk as it stands in
-// registers; each value enters as its hi/lo bf16 pair, two MMAs into the
-// same float32 accumulator.
-template <int D, int KS>
-__device__ __forceinline__ void mma_xb_split(float (&acc)[D / 8][4],
+// (P, dS or their transposes), B is 16KS rows at `b` ([rows][D + 8] T16,
+// contracted along its rows, read through ldmatrix.trans), of which the DC
+// columns from `b` on are taken.  An accumulator block pair 2kk, 2kk+1 is
+// the A fragment of k step kk as it stands in registers; each value enters
+// as its hi/lo pair, two MMAs into the same float32 accumulator (with
+// kResidue, only the third term lo2 = T16(x - hi - lo) instead).  The pair
+// leaves up to 2^-18 |x| in bf16; the three terms 2^-27 |x|.
+template <typename T16, int D, int DC, int KS, bool kResidue = false>
+__device__ __forceinline__ void mma_xb_split(float (&acc)[DC / 8][4],
                                              const float (&x)[2 * KS][4],
-                                             const bf16* b, int lane) {
+                                             const T16* b, int lane) {
   constexpr int ld = D + 8;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     uint32_t hi[4], lo[4];
-    split_bf16(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
-    split_bf16(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
-    split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
-    split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
+    split16<T16>(x[2 * kk][0], x[2 * kk][1], hi[0], lo[0]);
+    split16<T16>(x[2 * kk][2], x[2 * kk][3], hi[1], lo[1]);
+    split16<T16>(x[2 * kk + 1][0], x[2 * kk + 1][1], hi[2], lo[2]);
+    split16<T16>(x[2 * kk + 1][2], x[2 * kk + 1][3], hi[3], lo[3]);
+    if constexpr (kResidue) {
 #pragma unroll
-    for (int n2 = 0; n2 < D / 16; ++n2) {
+      for (int i = 0; i < 4; ++i)
+        hi[i] = residue16<T16>(x[2 * kk + i / 2][2 * (i % 2)],
+                               x[2 * kk + i / 2][2 * (i % 2) + 1], hi[i],
+                               lo[i]);
+    }
+#pragma unroll
+    for (int n2 = 0; n2 < DC / 16; ++n2) {
       uint32_t bf[4];
       ldsm_x4_t(bf, b + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
                         n2 * 16 + (lane >> 4) * 8);
-      mma16816(acc[2 * n2], hi, bf[0], bf[1]);
-      mma16816(acc[2 * n2], lo, bf[0], bf[1]);
-      mma16816(acc[2 * n2 + 1], hi, bf[2], bf[3]);
-      mma16816(acc[2 * n2 + 1], lo, bf[2], bf[3]);
+      mma16816<T16>(acc[2 * n2], hi, bf[0], bf[1]);
+      if constexpr (!kResidue) mma16816<T16>(acc[2 * n2], lo, bf[0], bf[1]);
+      mma16816<T16>(acc[2 * n2 + 1], hi, bf[2], bf[3]);
+      if constexpr (!kResidue)
+        mma16816<T16>(acc[2 * n2 + 1], lo, bf[2], bf[3]);
     }
   }
 }
 
-template <int D>
-__device__ __forceinline__ void zero(float (&acc)[D / 8][4]) {
+// Whether any lane of the warp holds an element of x with |x| >= from.
+template <int NB>
+__device__ __forceinline__ bool warp_any_from(const float (&x)[NB][4],
+                                              float from) {
+  float big = 0.f;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) big = fmaxf(big, fabsf(x[n][e]));
+  return __any_sync(0xffffffffu, big >= from);
+}
+
+// acc += X B as mma_xb_split, X the backward's P^T, dS or dS^T; in bf16,
+// when one element of the warp's X reaches `from` (one vote), a second
+// pass adds the third terms.  The pair's loop is the same code either way,
+// and the pass after it keeps its registers to itself.
+template <typename T16, int D, int DC, int KS>
+__device__ __forceinline__ void mma_xb_bwd(float (&acc)[DC / 8][4],
+                                           const float (&x)[2 * KS][4],
+                                           const T16* b, int lane,
+                                           float from) {
+  mma_xb_split<T16, D, DC, KS>(acc, x, b, lane);
+  if constexpr (std::is_same<T16, bf16>::value) {
+    if (warp_any_from(x, from))
+      mma_xb_split<T16, D, DC, KS, true>(acc, x, b, lane);
+  }
+}
+
+template <int NB>
+__device__ __forceinline__ void zero(float (&acc)[NB][4]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 }
@@ -863,20 +1036,24 @@ __device__ __forceinline__ void zero(float (&acc)[D / 8][4]) {
 __device__ __forceinline__ void store2(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
+__device__ __forceinline__ void store2(__half* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
+}
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// Write the warp's rows of a [kTile, D] tile at `out` (row stride D),
-// times `scale`: bf16 outputs, or float32 partials of a workspace.
-template <int D, typename Out>
+// Write the warp's rows of DC columns of a [kTile, D] tile at `out` (row
+// stride D), times `scale`: 16-bit outputs, or float32 partials of a
+// workspace.
+template <int DC, int D, typename Out>
 __device__ __forceinline__ void store_rows(Out* out,
-                                           const float (&acc)[D / 8][4],
+                                           const float (&acc)[DC / 8][4],
                                            float scale) {
   const int lane = threadIdx.x & 31;
   const int row = 16 * (threadIdx.x >> 5) + (lane >> 2);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DC / 8; ++n) {
     const int col = n * 8 + 2 * (lane & 3);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -885,35 +1062,115 @@ __device__ __forceinline__ void store_rows(Out* out,
   }
 }
 
-// Shared memory of both loops: six [kTile][D + 8] bf16 tiles (the fixed q
-// or k tile's two, and two buffers of the two streamed ones), then LSE and
-// delta rows as float32 (one tile's in dQ, two buffers' in dK/dV).
+// Shared memory of both loops: six [kTile][D + 8] 16-bit tiles (the fixed
+// q or k tile's two, and two buffers of the two streamed ones), then LSE
+// and delta rows as float32 (one tile's in dQ, two buffers' in dK/dV).
 template <int D>
 constexpr size_t mma_smem() {
-  return 6 * kTile * (D + 8) * sizeof(bf16) + 4 * kTile * sizeof(float);
+  return 6 * kTile * (D + 8) * sizeof(uint16_t) + 4 * kTile * sizeof(float);
 }
 template <int D>
 __device__ __forceinline__ float* mma_rows(unsigned char* smem) {
-  return reinterpret_cast<float*>(smem + 6 * kTile * (D + 8) * sizeof(bf16));
+  return reinterpret_cast<float*>(smem +
+                                  6 * kTile * (D + 8) * sizeof(uint16_t));
 }
 
-// dQ of the q tile `qt` over the k tiles [kt0, kt1) on the tensor cores:
-// S = Q K^T, dP = dO V^T, P = exp(scale S - lse), dS = P (dP - delta) in
-// registers, acc += dS K (the caller scales by sm_scale).  `rows` holds the
-// tile's LSE then delta, written by the caller before the call.
+// Output columns a pass of the tensor-core loops computes: all of D up to
+// D = 128.  At D = 256 one warp's O or dQ accumulator alone would be 128
+// registers a lane (dK and dV together 256), so the kernels make two
+// passes over the tiles, one for each 128-column half of the outputs,
+// recomputing the first products (and the softmax) in each.
 template <int D>
+__host__ __device__ constexpr int out_cols() {
+  return D > 128 ? 128 : D;
+}
+
+// float16 only.  The backward's A operands are normalized probabilities
+// (P = exp(s - lse), about 1/S each at long S) and dS = P (dP - delta):
+// most lie below float16's smallest normal number (2^-14), where its steps
+// are absolute (2^-24) and the hi/lo pair keeps only a few bits.  So each
+// row r of x (the warp's 16 rows in accumulator layout) is multiplied by a
+// power of two cs[r] before it is split, as large as keeps the row's
+// largest element below 2^15 (never above 2^24), and the accumulator rows
+// carry the same factor.  cs only falls: when a later tile needs a smaller
+// one, the accumulator rows are rescaled, exactly, like the softmax's
+// running max.  The caller divides cs out at the end.
+constexpr float kRowScaleMax = 16777216.f;   // 2^24
+
+template <int NB, int DC>
+__device__ __forceinline__ void scale_rows(float (&x)[NB][4],
+                                           float (&acc)[DC / 8][4],
+                                           float (&cs)[2]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], fabsf(x[n][e]));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = row_max(mx[h]);
+    if (mx[h] > 0.f) {
+      // mx < 2^ex from its exponent bits (subnormal mx: ex = -126), and
+      // c = 2^min(15 - ex, 24), built from its bits too.
+      const int ex = (int)((__float_as_uint(mx[h]) >> 23) & 0xffu) - 126;
+      const float c = __uint_as_float((uint32_t)(127 + min(15 - ex, 24))
+                                      << 23);
+      if (c < cs[h]) {
+        const float r = c / cs[h];
+#pragma unroll
+        for (int n = 0; n < DC / 8; ++n) {
+          acc[n][2 * h] *= r;
+          acc[n][2 * h + 1] *= r;
+        }
+        cs[h] = c;
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[n][e] *= cs[e >> 1];
+}
+
+// acc rows divided by their row scales cs (exact: powers of two).
+template <int DC>
+__device__ __forceinline__ void unscale_rows(float (&acc)[DC / 8][4],
+                                             const float (&cs)[2]) {
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] /= cs[e >> 1];
+}
+
+template <typename T16>
+__host__ __device__ constexpr bool kScaleRows() {
+  return std::is_same<T16, __half>::value;
+}
+
+// Columns [col0, col0 + DC) of dQ of the q tile `qt` over the k tiles
+// [kt0, kt1) on the tensor cores: S = Q K^T, dP = dO V^T, P = exp(scale S -
+// lse), dS = P (dP - delta) in registers, acc += dS K (the caller scales
+// by sm_scale; in float16 acc comes back unscaled from its row scales).
+// `rows` holds the tile's LSE then delta, written by the caller before the
+// call.
+template <typename T16, int D, int DC>
 __device__ __forceinline__ void dq_mma_tiles(unsigned char* smem,
-                                             const bf16* q, const bf16* k,
-                                             const bf16* v, const bf16* dout,
+                                             const T16* q, const T16* k,
+                                             const T16* v, const T16* dout,
                                              int qt, int kt0, int kt1,
                                              int causal, float scale,
-                                             float (&acc)[D / 8][4]) {
+                                             int col0,
+                                             float (&acc)[DC / 8][4]) {
   constexpr int ld = D + 8;
   constexpr int tile = kTile * ld;
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + tile;
-  bf16* ks = dos + tile;         // [2][tile]
-  bf16* vs = ks + 2 * tile;      // [2][tile]
+  // Keys a step takes: the whole tile, or 32 at D = 256, where two 64-key
+  // S and dP blocks beside the accumulator would crowd the registers.
+  constexpr int NK = D > 128 ? 32 : kTile;
+  float cs[2] = {kRowScaleMax, kRowScaleMax};
+  T16* qs = reinterpret_cast<T16*>(smem);
+  T16* dos = qs + tile;
+  T16* ks = dos + tile;          // [2][tile]
+  T16* vs = ks + 2 * tile;       // [2][tile]
   const float* rows = mma_rows<D>(smem);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -935,51 +1192,62 @@ __device__ __forceinline__ void dq_mma_tiles(unsigned char* smem,
     cp_async_wait_prev();
     __syncthreads();  // tile kt (and the q tile, LSE, delta) visible to all
 
-    float s[8][4], dp[8][4];
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
+    for (int c = 0; c < kTile / NK; ++c) {
+      const T16* kc = ks + buf * tile + c * NK * ld;
+      float s[NK / 8][4], dp[NK / 8][4];
+      zero(s);
+      zero(dp);
+      mma_abt<T16, D, NK / 8>(s, qs + 16 * warp * ld, kc, lane);
+      mma_abt<T16, D, NK / 8>(dp, dos + 16 * warp * ld,
+                              vs + buf * tile + c * NK * ld, lane);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_abt<D, 8>(s, qs + 16 * warp * ld, ks + buf * tile, lane);
-    mma_abt<D, 8>(dp, dos + 16 * warp * ld, vs + buf * tile, lane);
+      for (int n = 0; n < NK / 8; ++n)
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = r0 + (e >> 1) * 8;
-        const int row = qt * kTile + r;                              // query
-        const int col = kt * kTile + n * 8 + 2 * (lane & 3) + (e & 1);  // key
-        const float p = causal && col > row
-                            ? 0.f
-                            : expf(scale * s[n][e] - rows[r]);
-        dp[n][e] = p * (dp[n][e] - rows[kTile + r]);
-      }
-    mma_xb_split<D, 4>(acc, dp, ks + buf * tile, lane);
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + (e >> 1) * 8;
+          const int row = qt * kTile + r;                          // query
+          const int col = kt * kTile + c * NK + n * 8 + 2 * (lane & 3) +
+                          (e & 1);                                 // key
+          const float p = causal && col > row
+                              ? 0.f
+                              : expf(scale * s[n][e] - rows[r]);
+          dp[n][e] = p * (dp[n][e] - rows[kTile + r]);
+        }
+      if constexpr (kScaleRows<T16>()) scale_rows<NK / 8, DC>(dp, acc, cs);
+      mma_xb_bwd<T16, D, DC, NK / 16>(acc, dp, kc + col0, lane, kRefineDs);
+    }
     __syncthreads();  // every warp is done with buffer `buf` before refill
   }
+  if constexpr (kScaleRows<T16>()) unscale_rows<DC>(acc, cs);
 }
 
-// dK/dV of the k tile `kt` over the q tiles [qt0, qt1) on the tensor cores:
-// S^T = K Q^T and dP^T = V dO^T with the k rows as the M dimension, so P^T
-// and dS^T come out as the A fragments of dV += P^T dO and dK += dS^T Q
-// (the caller scales dK).  The q tile is taken NQ columns at a time, one
-// chunk after the other: 32 at D = 64 (134 registers, three CTAs an SM;
-// 64 columns take 176 registers, two CTAs, and 20% more time on an H100),
-// 16 at D = 128 (where the two D-wide accumulators fill most of the
-// registers; 32 columns spill).
-template <int D>
+// Columns [col0, col0 + DC) of dK/dV of the k tile `kt` over the q tiles
+// [qt0, qt1) on the tensor cores: S^T = K Q^T and dP^T = V dO^T with the k
+// rows as the M dimension, so P^T and dS^T come out as the A fragments of
+// dV += P^T dO and dK += dS^T Q (the caller scales dK; float16 scales the
+// rows of P^T and dS^T, see scale_rows).  The q
+// tile is taken NQ columns at a time, one chunk after the other: 32 at
+// D = 64 (134 registers, three CTAs an SM; 64 columns take 176 registers,
+// two CTAs, and 20% more time on an H100), 16 at D = 128 and 256 (where the
+// two DC-wide accumulators fill most of the registers; 32 columns spill)
+// and at D = 16 and 32 (where ptxas settled on 96 or 128 registers and
+// spilled a few bytes with 32 or 64).
+template <typename T16, int D, int DC>
 __device__ __forceinline__ void dkv_mma_tiles(
-    unsigned char* smem, const bf16* q, const bf16* k, const bf16* v,
-    const bf16* dout, const float* lse, const float* delta, int kt, int qt0,
-    int qt1, int causal, float scale, float (&dk)[D / 8][4],
-    float (&dv)[D / 8][4]) {
+    unsigned char* smem, const T16* q, const T16* k, const T16* v,
+    const T16* dout, const float* lse, const float* delta, int kt, int qt0,
+    int qt1, int causal, float scale, int col0, float (&dk)[DC / 8][4],
+    float (&dv)[DC / 8][4]) {
   constexpr int ld = D + 8;
   constexpr int tile = kTile * ld;
-  constexpr int NQ = D > 64 ? 16 : (D == 64 ? 32 : 64);
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + tile;
-  bf16* qs = vs + tile;          // [2][tile]
-  bf16* dos = qs + 2 * tile;     // [2][tile]
+  constexpr int NQ = D == 64 ? 32 : 16;
+  float cs_v[2] = {kRowScaleMax, kRowScaleMax};
+  float cs_k[2] = {kRowScaleMax, kRowScaleMax};
+  T16* ks = reinterpret_cast<T16*>(smem);
+  T16* vs = ks + tile;
+  T16* qs = vs + tile;           // [2][tile]
+  T16* dos = qs + 2 * tile;      // [2][tile]
   float* rows = mma_rows<D>(smem);  // [2][lse, delta]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -1006,18 +1274,18 @@ __device__ __forceinline__ void dkv_mma_tiles(
     cp_async_wait_prev();
     __syncthreads();
 
-    const bf16* qb = qs + buf * tile;
-    const bf16* db = dos + buf * tile;
+    const T16* qb = qs + buf * tile;
+    const T16* db = dos + buf * tile;
     const float* lse_b = rows + buf * 2 * kTile;
 #pragma unroll 1
     for (int c = 0; c < kTile / NQ; ++c) {
       float st[NQ / 8][4], dpt[NQ / 8][4];
-#pragma unroll
-      for (int n = 0; n < NQ / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-      mma_abt<D, NQ / 8>(st, ks + 16 * warp * ld, qb + c * NQ * ld, lane);
-      mma_abt<D, NQ / 8>(dpt, vs + 16 * warp * ld, db + c * NQ * ld, lane);
+      zero(st);
+      zero(dpt);
+      mma_abt<T16, D, NQ / 8>(st, ks + 16 * warp * ld, qb + c * NQ * ld,
+                              lane);
+      mma_abt<T16, D, NQ / 8>(dpt, vs + 16 * warp * ld, db + c * NQ * ld,
+                              lane);
 #pragma unroll
       for (int n = 0; n < NQ / 8; ++n)
 #pragma unroll
@@ -1030,24 +1298,34 @@ __device__ __forceinline__ void dkv_mma_tiles(
           st[n][e] = p;
           dpt[n][e] = p * (dpt[n][e] - lse_b[kTile + j]);
         }
-      mma_xb_split<D, NQ / 16>(dv, st, db + c * NQ * ld, lane);
-      mma_xb_split<D, NQ / 16>(dk, dpt, qb + c * NQ * ld, lane);
+      if constexpr (kScaleRows<T16>()) {
+        scale_rows<NQ / 8, DC>(st, dv, cs_v);
+        scale_rows<NQ / 8, DC>(dpt, dk, cs_k);
+      }
+      mma_xb_bwd<T16, D, DC, NQ / 16>(dv, st, db + c * NQ * ld + col0, lane,
+                                      kRefineP);
+      mma_xb_bwd<T16, D, DC, NQ / 16>(dk, dpt, qb + c * NQ * ld + col0, lane,
+                                      kRefineDs);
     }
     __syncthreads();
   }
+  if constexpr (kScaleRows<T16>()) {
+    unscale_rows<DC>(dv, cs_v);
+    unscale_rows<DC>(dk, cs_k);
+  }
 }
 
-// Resident dQ (bf16): delta for the tile's rows first, written out for the
-// dK/dV kernel, two threads a row.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v,
-                            const bf16* __restrict__ o,
-                            const bf16* __restrict__ dout,
+// Resident dQ: delta for the tile's rows first, written out for the dK/dV
+// kernel, two threads a row.
+template <typename T16, int D>
+__global__ void __launch_bounds__(kMmaThreads, mma_ctas<kDqCtas>(D))
+    flash_bwd_dq_mma_kernel(const T16* __restrict__ q,
+                            const T16* __restrict__ k,
+                            const T16* __restrict__ v,
+                            const T16* __restrict__ o,
+                            const T16* __restrict__ dout,
                             const float* __restrict__ lse,
-                            bf16* __restrict__ dq, float* __restrict__ delta,
+                            T16* __restrict__ dq, float* __restrict__ delta,
                             int seq, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char mma_smem_buf[];
   float* rows = mma_rows<D>(mma_smem_buf);
@@ -1061,7 +1339,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     float dl = 0.f;
 #pragma unroll 8
     for (int i = 0; i < D / 2; ++i)
-      dl += __bfloat162float(dout[at + i]) * __bfloat162float(o[at + i]);
+      dl += to_f32(dout[at + i]) * to_f32(o[at + i]);
     dl += __shfl_xor_sync(0xffffffffu, dl, 1);
     if (!half) {
       const size_t row = (size_t)bh * seq + qt * kTile + r;
@@ -1070,46 +1348,70 @@ __global__ void __launch_bounds__(kMmaThreads)
       rows[kTile + r] = dl;
     }
   }
-  float acc[D / 8][4];
-  zero<D>(acc);
-  dq_mma_tiles<D>(mma_smem_buf, q + base, k + base, v + base, dout + base,
-                  qt, 0, causal ? qt + 1 : seq / kTile, causal, scale, acc);
-  store_rows<D>(dq + base + (size_t)qt * kTile * D, acc, scale);
+  constexpr int DC = out_cols<D>();
+#pragma unroll
+  for (int col0 = 0; col0 < D; col0 += DC) {
+    float acc[DC / 8][4];
+    zero(acc);
+    dq_mma_tiles<T16, D, DC>(mma_smem_buf, q + base, k + base, v + base,
+                             dout + base, qt, 0,
+                             causal ? qt + 1 : seq / kTile, causal, scale,
+                             col0, acc);
+    store_rows<DC, D>(dq + base + (size_t)qt * kTile * D + col0, acc,
+                      scale);
+  }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
-                             const bf16* __restrict__ dout,
+// dK/dV of the k tile over [qt0, qt1), out_cols<D>() columns a pass; each
+// pass's dK and dV columns go to `dk_out`, `dv_out` (row stride D), dK
+// times `dk_scale`.
+template <typename T16, int D, typename Out>
+__device__ __forceinline__ void dkv_passes(
+    unsigned char* smem, const T16* q, const T16* k, const T16* v,
+    const T16* dout, const float* lse, const float* delta, int kt, int qt0,
+    int qt1, int causal, float scale, float dk_scale, Out* dk_out,
+    Out* dv_out) {
+  constexpr int DC = out_cols<D>();
+#pragma unroll
+  for (int col0 = 0; col0 < D; col0 += DC) {
+    float dk_acc[DC / 8][4], dv_acc[DC / 8][4];
+    zero(dk_acc);
+    zero(dv_acc);
+    dkv_mma_tiles<T16, D, DC>(smem, q, k, v, dout, lse, delta, kt, qt0, qt1,
+                              causal, scale, col0, dk_acc, dv_acc);
+    store_rows<DC, D>(dk_out + col0, dk_acc, dk_scale);
+    store_rows<DC, D>(dv_out + col0, dv_acc, 1.f);
+  }
+}
+
+template <typename T16, int D>
+__global__ void __launch_bounds__(kMmaThreads, mma_ctas<kDkvCtas>(D))
+    flash_bwd_dkv_mma_kernel(const T16* __restrict__ q,
+                             const T16* __restrict__ k,
+                             const T16* __restrict__ v,
+                             const T16* __restrict__ dout,
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
-                             bf16* __restrict__ dk, bf16* __restrict__ dv,
+                             T16* __restrict__ dk, T16* __restrict__ dv,
                              int seq, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char mma_smem_buf[];
   const int kt = blockIdx.x;
   const int bh = blockIdx.y;
   const size_t base = (size_t)bh * seq * D;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-  zero<D>(dk_acc);
-  zero<D>(dv_acc);
-  dkv_mma_tiles<D>(mma_smem_buf, q + base, k + base, v + base, dout + base,
-                   lse + (size_t)bh * seq, delta + (size_t)bh * seq, kt,
-                   causal ? kt : 0, seq / kTile, causal, scale, dk_acc,
-                   dv_acc);
   const size_t at = base + (size_t)kt * kTile * D;
-  store_rows<D>(dk + at, dk_acc, scale);
-  store_rows<D>(dv + at, dv_acc, 1.f);
+  dkv_passes<T16, D>(mma_smem_buf, q + base, k + base, v + base, dout + base,
+                     lse + (size_t)bh * seq, delta + (size_t)bh * seq, kt,
+                     causal ? kt : 0, seq / kTile, causal, scale, scale,
+                     dk + at, dv + at);
 }
 
-// Streaming dQ (bf16): grid (tiles, splits, BH) as flash_bwd_dq_str_kernel.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dq_str_mma_kernel(const bf16* __restrict__ q,
-                                const bf16* __restrict__ k,
-                                const bf16* __restrict__ v,
-                                const bf16* __restrict__ dout,
+// Streaming dQ: grid (tiles, splits, BH) as flash_bwd_dq_str_kernel.
+template <typename T16, int D>
+__global__ void __launch_bounds__(kMmaThreads, mma_ctas<kDqCtas>(D))
+    flash_bwd_dq_str_mma_kernel(const T16* __restrict__ q,
+                                const T16* __restrict__ k,
+                                const T16* __restrict__ v,
+                                const T16* __restrict__ dout,
                                 const float* __restrict__ lse,
                                 const float* __restrict__ delta,
                                 float* __restrict__ dq_ws, int seq, int split,
@@ -1130,20 +1432,26 @@ __global__ void __launch_bounds__(kMmaThreads)
     rows[threadIdx.x] = lse[row];
     rows[kTile + threadIdx.x] = delta[row];
   }
-  float acc[D / 8][4];
-  zero<D>(acc);
-  dq_mma_tiles<D>(mma_smem_buf, q + base, k + base, v + base, dout + base,
-                  qt, kt0, kt1, causal, scale, acc);
-  store_rows<D>(dq_ws + ws_row(sp, bh, gridDim.z, seq, qt * kTile) * D, acc,
-                1.f);
+  constexpr int DC = out_cols<D>();
+#pragma unroll
+  for (int col0 = 0; col0 < D; col0 += DC) {
+    float acc[DC / 8][4];
+    zero(acc);
+    dq_mma_tiles<T16, D, DC>(mma_smem_buf, q + base, k + base, v + base,
+                             dout + base, qt, kt0, kt1, causal, scale, col0,
+                             acc);
+    store_rows<DC, D>(
+        dq_ws + ws_row(sp, bh, gridDim.z, seq, qt * kTile) * D + col0, acc,
+        1.f);
+  }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_bwd_dkv_str_mma_kernel(const bf16* __restrict__ q,
-                                 const bf16* __restrict__ k,
-                                 const bf16* __restrict__ v,
-                                 const bf16* __restrict__ dout,
+template <typename T16, int D>
+__global__ void __launch_bounds__(kMmaThreads, mma_ctas<kDkvCtas>(D))
+    flash_bwd_dkv_str_mma_kernel(const T16* __restrict__ q,
+                                 const T16* __restrict__ k,
+                                 const T16* __restrict__ v,
+                                 const T16* __restrict__ dout,
                                  const float* __restrict__ lse,
                                  const float* __restrict__ delta,
                                  float* __restrict__ dk_ws,
@@ -1160,19 +1468,14 @@ __global__ void __launch_bounds__(kMmaThreads)
 
   extern __shared__ __align__(16) unsigned char mma_smem_buf[];
   const size_t base = (size_t)bh * seq * D;
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-  zero<D>(dk_acc);
-  zero<D>(dv_acc);
-  dkv_mma_tiles<D>(mma_smem_buf, q + base, k + base, v + base, dout + base,
-                   lse + (size_t)bh * seq, delta + (size_t)bh * seq, kt, qt0,
-                   qt1, causal, scale, dk_acc, dv_acc);
   const size_t at = ws_row(sp, bh, gridDim.z, seq, kt * kTile) * D;
-  store_rows<D>(dk_ws + at, dk_acc, 1.f);
-  store_rows<D>(dv_ws + at, dv_acc, 1.f);
+  dkv_passes<T16, D>(mma_smem_buf, q + base, k + base, v + base, dout + base,
+                     lse + (size_t)bh * seq, delta + (size_t)bh * seq, kt,
+                     qt0, qt1, causal, scale, 1.f, dk_ws + at, dv_ws + at);
 }
 
 // ---------------------------------------------------------------------------
-// The bf16 forward on the tensor cores, in the backward's layout: four
+// The 16-bit forward on the tensor cores, in the backward's layout: four
 // warps of 16 rows own a 64-row q tile; S = Q K^T and O += P V run on
 // mma.sync, the online softmax of _online_step in registers.
 // ---------------------------------------------------------------------------
@@ -1180,33 +1483,34 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared memory of the forward: the q tile, then two buffers each of the K
-// and V tiles, [kTile][D + 8] bf16.
+// and V tiles, [kTile][D + 8] 16-bit.
 template <int D>
 constexpr size_t fwd_mma_smem() {
-  return 5 * kTile * (D + 8) * sizeof(bf16);
+  return 5 * kTile * (D + 8) * sizeof(uint16_t);
 }
 
 // Online softmax of the q tile `qt` over the k tiles [kt0, kt1): S = Q K^T
-// from the bf16 inputs (exact products, float32 sums), times scale in
+// from the 16-bit inputs (exact products, float32 sums), times scale in
 // float32; P and the running max m and sum l of the lane's rows r0 and
 // r0 + 8 (lane / 4 of the warp's 16), the max kept in units of log2 so
-// that exp2f takes the exponentials; acc = alpha acc + P V, P entering as
-// its hi/lo pair and V read by ldmatrix.trans, with no shared-memory round
-// trip.  Every row sees the first key of the range (kt0 <= qt), so m is
-// finite after the first tile.
-template <int D>
+// that exp2f takes the exponentials; acc = alpha acc + P V[:, col0:col0 +
+// DC], P entering as its hi/lo pair and V read by ldmatrix.trans, with no
+// shared-memory round trip.  Every row sees the first key of the range
+// (kt0 <= qt), so m is finite after the first tile.  Two passes over other
+// columns compute the same m and l.
+template <typename T16, int D, int DC>
 __device__ __forceinline__ void fwd_mma_tiles(unsigned char* smem,
-                                              const bf16* q, const bf16* k,
-                                              const bf16* v, int qt, int kt0,
+                                              const T16* q, const T16* k,
+                                              const T16* v, int qt, int kt0,
                                               int kt1, int causal,
-                                              float scale, float (&m2)[2],
-                                              float (&l)[2],
-                                              float (&acc)[D / 8][4]) {
+                                              float scale, int col0,
+                                              float (&m2)[2], float (&l)[2],
+                                              float (&acc)[DC / 8][4]) {
   constexpr int ld = D + 8;
   constexpr int tile = kTile * ld;
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* ks = qs + tile;          // [2][tile]
-  bf16* vs = ks + 2 * tile;      // [2][tile]
+  T16* qs = reinterpret_cast<T16*>(smem);
+  T16* ks = qs + tile;           // [2][tile]
+  T16* vs = ks + 2 * tile;       // [2][tile]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const float scale2 = scale * kLog2e;
@@ -1218,7 +1522,7 @@ __device__ __forceinline__ void fwd_mma_tiles(unsigned char* smem,
 
   m2[0] = m2[1] = -INFINITY;
   l[0] = l[1] = 0.f;
-  zero<D>(acc);
+  zero(acc);
   const int r0 = 16 * warp + (lane >> 2);  // this lane's rows r0, r0 + 8
   for (int kt = kt0; kt < kt1; ++kt) {
     const int buf = (kt - kt0) & 1;
@@ -1231,11 +1535,8 @@ __device__ __forceinline__ void fwd_mma_tiles(unsigned char* smem,
     __syncthreads();  // tile kt (and the q tile) visible to all
 
     float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    mma_abt<D, 8>(s, qs + 16 * warp * ld, ks + buf * tile, lane);
+    zero(s);
+    mma_abt<T16, D, 8>(s, qs + 16 * warp * ld, ks + buf * tile, lane);
     const bool diag = causal && kt == qt;
     float mx[2] = {m2[0], m2[1]};
 #pragma unroll
@@ -1264,36 +1565,42 @@ __device__ __forceinline__ void fwd_mma_tiles(unsigned char* smem,
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + row_sum(rs[h]);
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DC / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-    mma_xb_split<D, 4>(acc, s, vs + buf * tile, lane);
+    mma_xb_split<T16, D, DC, 4>(acc, s, vs + buf * tile + col0, lane);
     __syncthreads();  // every warp is done with buffer `buf` before refill
   }
 }
 
-// Resident forward (bf16): O = acc / l, LSE = m + log l.  The longest rows
-// (under causal masking) first.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_fwd_mma_kernel(const bf16* __restrict__ q,
-                         const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o,
+// Resident forward: O = acc / l, LSE = m + log l.  The longest rows (under
+// causal masking) first.
+template <typename T16, int D>
+__global__ void __launch_bounds__(kMmaThreads, mma_ctas<kFwdCtas>(D))
+    flash_fwd_mma_kernel(const T16* __restrict__ q,
+                         const T16* __restrict__ k,
+                         const T16* __restrict__ v, T16* __restrict__ o,
                          float* __restrict__ lse, int seq, float scale,
                          int causal) {
   extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  constexpr int DC = out_cols<D>();
   const int num_t = seq / kTile;
   const int qt = num_t - 1 - blockIdx.x;
   const int bh = blockIdx.y;
   const size_t base = (size_t)bh * seq * D;
-  float m2[2], l[2], acc[D / 8][4];
-  fwd_mma_tiles<D>(mma_smem_buf, q + base, k + base, v + base, qt, 0,
-                   causal ? qt + 1 : num_t, causal, scale, m2, l, acc);
+  float m2[2], l[2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int col0 = 0; col0 < D; col0 += DC) {
+    float acc[DC / 8][4];
+    fwd_mma_tiles<T16, D, DC>(mma_smem_buf, q + base, k + base, v + base,
+                              qt, 0, causal ? qt + 1 : num_t, causal, scale,
+                              col0, m2, l, acc);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] /= l[e >> 1];
-  store_rows<D>(o + base + (size_t)qt * kTile * D, acc, 1.f);
+    for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] /= l[e >> 1];
+    store_rows<DC, D>(o + base + (size_t)qt * kTile * D + col0, acc, 1.f);
+  }
   const int lane = threadIdx.x & 31;
   if ((lane & 3) == 0) {
     const size_t row = (size_t)bh * seq + qt * kTile + 16 * (threadIdx.x >> 5)
@@ -1303,14 +1610,14 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// Streaming forward (bf16): grid (tiles, splits, BH) as
-// flash_fwd_str_kernel; the same float32 (m, l, acc) partials, m in
-// natural units, for flash_fwd_str_merge_kernel.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_fwd_str_mma_kernel(const bf16* __restrict__ q,
-                             const bf16* __restrict__ k,
-                             const bf16* __restrict__ v,
+// Streaming forward: grid (tiles, splits, BH) as flash_fwd_str_kernel; the
+// same float32 (m, l, acc) partials, m in natural units, for
+// flash_fwd_str_merge_kernel.
+template <typename T16, int D>
+__global__ void __launch_bounds__(kMmaThreads, mma_ctas<kFwdCtas>(D))
+    flash_fwd_str_mma_kernel(const T16* __restrict__ q,
+                             const T16* __restrict__ k,
+                             const T16* __restrict__ v,
                              float* __restrict__ m_ws,
                              float* __restrict__ l_ws,
                              float* __restrict__ acc_ws, int seq, int split,
@@ -1324,12 +1631,17 @@ __global__ void __launch_bounds__(kMmaThreads)
   if (kt0 >= kt1) return;  // dead pair: every key after every query
 
   extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  constexpr int DC = out_cols<D>();
   const size_t base = (size_t)bh * seq * D;
-  float m2[2], l[2], acc[D / 8][4];
-  fwd_mma_tiles<D>(mma_smem_buf, q + base, k + base, v + base, qt, kt0, kt1,
-                   causal, scale, m2, l, acc);
   const size_t at = ws_row(sp, bh, gridDim.z, seq, qt * kTile);
-  store_rows<D>(acc_ws + at * D, acc, 1.f);
+  float m2[2], l[2];
+#pragma unroll
+  for (int col0 = 0; col0 < D; col0 += DC) {
+    float acc[DC / 8][4];
+    fwd_mma_tiles<T16, D, DC>(mma_smem_buf, q + base, k + base, v + base,
+                              qt, kt0, kt1, causal, scale, col0, m2, l, acc);
+    store_rows<DC, D>(acc_ws + at * D + col0, acc, 1.f);
+  }
   const int lane = threadIdx.x & 31;
   if ((lane & 3) == 0) {
     const size_t row = at + 16 * (threadIdx.x >> 5) + (lane >> 2);
@@ -1344,17 +1656,23 @@ __global__ void __launch_bounds__(kMmaThreads)
 // ---------------------------------------------------------------------------
 // Host side: shared-memory sizes, launches, dtype/head-dim dispatch.
 // ---------------------------------------------------------------------------
+// Shared memory of the CUDA-core kernels: the fixed tiles (kTile rows of
+// D + 1 floats), the streamed sub-tiles (KT rows), the [kTile][KT + 1]
+// logits tiles, and in dK/dV the sub-tile's LSE and delta.
 template <int D>
 constexpr size_t fwd_smem() {
-  return (3 * kTile * (D + 1) + kTile * kTileLd) * sizeof(float);
+  constexpr int KT = sub_rows<D>();
+  return ((kTile + 2 * KT) * (D + 1) + kTile * (KT + 1)) * sizeof(float);
 }
 template <int D>
 constexpr size_t dq_smem() {
-  return (4 * kTile * (D + 1) + kTile * kTileLd) * sizeof(float);
+  constexpr int KT = sub_rows<D>();
+  return ((2 * kTile + 2 * KT) * (D + 1) + kTile * (KT + 1)) * sizeof(float);
 }
 template <int D>
 constexpr size_t dkv_smem() {
-  return (4 * kTile * (D + 1) + 2 * kTile * kTileLd + 2 * kTile) *
+  constexpr int KT = sub_rows<D>();
+  return ((2 * kTile + 2 * KT) * (D + 1) + 2 * kTile * (KT + 1) + 2 * KT) *
          sizeof(float);
 }
 
@@ -1365,10 +1683,11 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// bf16 kernels run on the tensor cores; float32 ones keep the CUDA-core
-// loops (see the header).
+// bf16 and float16 kernels run on the tensor cores; float32 ones keep the
+// CUDA-core loops (see the header).
 template <typename T>
-constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
+constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value ||
+                              std::is_same<T, __half>::value;
 
 #define BPS_RETURN_IF_ERROR(expr)              \
   do {                                         \
@@ -1382,10 +1701,10 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
                        cudaStream_t stream) {
   if constexpr (kTensorCores<T>) {
     const size_t smem = fwd_mma_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_mma_kernel<D>, smem));
-    flash_fwd_mma_kernel<D>
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_mma_kernel<T, D>, smem));
+    flash_fwd_mma_kernel<T, D>
         <<<dim3(seq / kTile, bh), kMmaThreads, smem, stream>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse,
+            (const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
             seq, scale, causal);
   } else {
     const size_t smem = fwd_smem<D>();
@@ -1405,11 +1724,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       int causal, cudaStream_t stream) {
   if constexpr (kTensorCores<T>) {
     const size_t smem = mma_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_mma_kernel<D>, smem));
-    flash_bwd_dq_mma_kernel<D>
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_mma_kernel<T, D>, smem));
+    flash_bwd_dq_mma_kernel<T, D>
         <<<dim3(seq / kTile, bh), kMmaThreads, smem, stream>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o,
-            (const bf16*)dout, lse, (bf16*)dq, delta, seq, scale, causal);
+            (const T*)q, (const T*)k, (const T*)v, (const T*)o,
+            (const T*)dout, lse, (T*)dq, delta, seq, scale, causal);
   } else {
     const size_t smem = dq_smem<D>();
     BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_kernel<T, D>, smem));
@@ -1428,11 +1747,11 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        int causal, cudaStream_t stream) {
   if constexpr (kTensorCores<T>) {
     const size_t smem = mma_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_mma_kernel<D>, smem));
-    flash_bwd_dkv_mma_kernel<D>
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_mma_kernel<T, D>, smem));
+    flash_bwd_dkv_mma_kernel<T, D>
         <<<dim3(seq / kTile, bh), kMmaThreads, smem, stream>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v,
-            (const bf16*)dout, lse, delta, (bf16*)dk, (bf16*)dv, seq, scale,
+            (const T*)q, (const T*)k, (const T*)v,
+            (const T*)dout, lse, delta, (T*)dk, (T*)dv, seq, scale,
             causal);
   } else {
     const size_t smem = dkv_smem<D>();
@@ -1458,10 +1777,10 @@ cudaError_t launch_fwd_str(const void* q, const void* k, const void* v,
   const int nsplit = num_splits(seq, split);
   if constexpr (kTensorCores<T>) {
     const size_t smem = fwd_mma_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_mma_kernel<D>, smem));
-    flash_fwd_str_mma_kernel<D>
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_mma_kernel<T, D>, smem));
+    flash_fwd_str_mma_kernel<T, D>
         <<<dim3(num_t, nsplit, bh), kMmaThreads, smem, stream>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v, m_ws, l_ws,
+            (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws,
             acc_ws, seq, split, scale, causal);
   } else {
     const size_t smem = fwd_smem<D>();
@@ -1490,10 +1809,10 @@ cudaError_t launch_dq_str(const void* q, const void* k, const void* v,
   BPS_RETURN_IF_ERROR(cudaGetLastError());
   if constexpr (kTensorCores<T>) {
     const size_t smem = mma_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_str_mma_kernel<D>, smem));
-    flash_bwd_dq_str_mma_kernel<D>
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_str_mma_kernel<T, D>, smem));
+    flash_bwd_dq_str_mma_kernel<T, D>
         <<<dim3(num_t, nsplit, bh), kMmaThreads, smem, stream>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
             lse, delta, dq_ws, seq, split, scale, causal);
   } else {
     const size_t smem = dq_smem<D>();
@@ -1520,10 +1839,10 @@ cudaError_t launch_dkv_str(const void* q, const void* k, const void* v,
   const int nsplit = num_splits(seq, split);
   if constexpr (kTensorCores<T>) {
     const size_t smem = mma_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_str_mma_kernel<D>, smem));
-    flash_bwd_dkv_str_mma_kernel<D>
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_str_mma_kernel<T, D>, smem));
+    flash_bwd_dkv_str_mma_kernel<T, D>
         <<<dim3(num_t, nsplit, bh), kMmaThreads, smem, stream>>>(
-            (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
             lse, delta, dk_ws, dv_ws, seq, split, scale, causal);
   } else {
     const size_t smem = dkv_smem<D>();
@@ -1546,10 +1865,10 @@ bool shape_ok(int bh, int seq) {
   return bh >= 1 && bh <= 65535 && seq >= kTile && seq % kTile == 0;
 }
 
-// The tensor-core kernels copy q, k, v, dO, LSE and delta in 16-byte
-// pieces (cp.async).
+// The tensor-core kernels (dtype 1 and 2) copy q, k, v, dO, LSE and delta
+// in 16-byte pieces (cp.async).
 bool aligned16(int dtype, std::initializer_list<const void*> ptrs) {
-  if (dtype != 1) return true;
+  if (dtype == 0) return true;
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return false;
   return true;
@@ -1560,29 +1879,30 @@ bool split_ok(int seq, int split) {
 }
 
 // Instantiates `launcher<T, D>(args...)` for the supported head dims.
+#define BPS_HEAD_DIMS(launcher, T, d, ...)                                 \
+  switch (d) {                                                             \
+    case 16: return (int)launcher<T, 16>(__VA_ARGS__);                     \
+    case 32: return (int)launcher<T, 32>(__VA_ARGS__);                     \
+    case 64: return (int)launcher<T, 64>(__VA_ARGS__);                     \
+    case 128: return (int)launcher<T, 128>(__VA_ARGS__);                   \
+    case 256: return (int)launcher<T, 256>(__VA_ARGS__);                   \
+  }
 #define BPS_DISPATCH(launcher, dtype, d, ...)                              \
   do {                                                                     \
     if ((dtype) == 0) {                                                    \
-      switch (d) {                                                         \
-        case 16: return (int)launcher<float, 16>(__VA_ARGS__);             \
-        case 32: return (int)launcher<float, 32>(__VA_ARGS__);             \
-        case 64: return (int)launcher<float, 64>(__VA_ARGS__);             \
-        case 128: return (int)launcher<float, 128>(__VA_ARGS__);           \
-      }                                                                    \
+      BPS_HEAD_DIMS(launcher, float, d, __VA_ARGS__)                       \
     } else if ((dtype) == 1) {                                             \
-      switch (d) {                                                         \
-        case 16: return (int)launcher<__nv_bfloat16, 16>(__VA_ARGS__);     \
-        case 32: return (int)launcher<__nv_bfloat16, 32>(__VA_ARGS__);     \
-        case 64: return (int)launcher<__nv_bfloat16, 64>(__VA_ARGS__);     \
-        case 128: return (int)launcher<__nv_bfloat16, 128>(__VA_ARGS__);   \
-      }                                                                    \
+      BPS_HEAD_DIMS(launcher, __nv_bfloat16, d, __VA_ARGS__)               \
+    } else if ((dtype) == 2) {                                             \
+      BPS_HEAD_DIMS(launcher, __half, d, __VA_ARGS__)                      \
     }                                                                      \
     return (int)cudaErrorInvalidValue;                                     \
   } while (0)
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  head_dim: 16, 32, 64 or 128.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 16, 32, 64,
+// 128 or 256.  bh: at most 65,535.
 // Returns a cudaError_t as int; 0 means the launch was accepted.
 extern "C" int bps_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, float* lse, int bh, int seq,

@@ -292,9 +292,10 @@ def flash_attention_fn(q, k, v, causal: bool, strict: bool = False,
                        block: int = 0, block_k: int = 0):
     """Adapter: [B, H, S, Dh] -> the flash kernels' [BH, S, Dh] layout, with
     a fallback to dense attention when S is not a multiple of 64 or Dh not
-    a multiple of 8; ``strict=True`` raises instead.  A block override that
-    does not divide S or is not a multiple of 64 reverts to the auto choice,
-    never to dense."""
+    a multiple of 8; ``strict=True`` raises instead.  A shape that reaches
+    the kernels with Dh above their MAX_HEAD_DIM (256) raises ValueError in
+    either mode.  A block override that does not divide S or is not a
+    multiple of 64 reverts to the auto choice, never to dense."""
     B, H, S, Dh = q.shape
     if not block or S % block or block % 64:
         block = flash_auto_block(S)

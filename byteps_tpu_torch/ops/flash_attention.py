@@ -17,11 +17,17 @@ families:
     ``flash_fwd_str``, ``flash_bwd_dq_str``, ``flash_bwd_dkv_str``
 
 ``flash_attention`` picks the family by the JAX package's rule
-(``_use_streaming``).  Each wrapper runs its kernel for CUDA tensors and the
-plain PyTorch version beside it (``*_plain``) for CPU tensors; for a CUDA
-tensor it launches the kernel or raises.  ``launches`` counts calls that
-launched a kernel, per wrapper (a streaming wrapper launches its partial
-kernel and the merge or sum passes behind it in one call).
+(``_use_streaming``) on the caller's shape, then zero-pads the head dim up
+to the next one the kernels are instantiated for (``HEAD_DIMS``; up to
+``MAX_HEAD_DIM``) and slices the output back (``_pad_head_dim``).  Each
+wrapper runs its kernel for CUDA tensors and the plain PyTorch version
+beside it (``*_plain``) for CPU tensors; for a CUDA tensor it launches the
+kernel or raises.  A wrapper cuts B*H into contiguous slices of at most
+``MAX_LAUNCH_BH`` rows (the grid's y/z limit), one launch each.
+``launches`` counts launches per wrapper (a streaming launch runs its
+partial kernel and the merge or sum passes behind it), and
+``instance_launches`` the same per instantiation, as
+``"flash_fwd<bf16,64>"``.
 
 Layout: q, k, v are [BH, S, D] (batch*heads folded), as in the JAX package.
 The JAX version stores LSE as [BH, 1, S] for TPU tiling; here it is [BH, S].
@@ -38,9 +44,13 @@ import torch
 from . import _build
 
 SOURCE = "flash_attention.cu"
-TILE = 64                      # the kernels' q and k tile (rows)
-HEAD_DIMS = (16, 32, 64, 128)  # head dims the kernels are instantiated for
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TILE = 64                           # the kernels' q and k tile (rows)
+HEAD_DIMS = (16, 32, 64, 128, 256)  # head dims the kernels are built for
+MAX_HEAD_DIM = HEAD_DIMS[-1]
+MAX_LAUNCH_BH = 65535               # B*H rows of one launch (gridDim.y/z)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float16: "f16"}
 
 # The JAX package's selection rule, kept for parity: K+V above this many
 # bytes take the streaming family (there: ~16 MB of VMEM per TPU core).
@@ -55,11 +65,14 @@ MAX_SPLITS = 8
 launches: Dict[str, int] = {"flash_fwd": 0, "flash_bwd_dq": 0,
                             "flash_bwd_dkv": 0, "flash_fwd_str": 0,
                             "flash_bwd_dq_str": 0, "flash_bwd_dkv_str": 0}
+# The same launches per instantiation: "flash_fwd<bf16,64>" -> count.
+instance_launches: Dict[str, int] = {}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    instance_launches.clear()
 
 
 _P = ctypes.c_void_p
@@ -106,7 +119,7 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> Tuple[int, int, int]:
     bh, s, d = q.shape
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported by the CUDA "
-                        f"kernel (float32, bfloat16)")
+                        f"kernel (float32, bfloat16, float16)")
     if d not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {d} not supported by the CUDA "
                          f"kernel {HEAD_DIMS}")
@@ -134,14 +147,36 @@ def _check_rows(name: str, bh: int, s: int, *rows: torch.Tensor) -> None:
                              f"{t.dtype}")
 
 
-def _raise_on(lib: ctypes.CDLL, name: str, err: int) -> None:
-    if err:
-        msg = lib.bps_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: {msg} ({err})")
+def _bh_slices(bh: int):
+    """Contiguous slices of B*H rows, at most MAX_LAUNCH_BH each."""
+    return [slice(i, min(i + MAX_LAUNCH_BH, bh))
+            for i in range(0, bh, MAX_LAUNCH_BH)]
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _launch(name: str, ins, outs, workspaces, *tail) -> None:
+    """bps_<name>(*ins, *outs, *workspaces, bh, s, d, dtype, *tail, stream)
+    once per B*H slice: ins and outs are offset to the slice's first row,
+    the workspaces (allocated for at most MAX_LAUNCH_BH rows) are reused by
+    each launch.  Pointers are offset as integers: a tensor view per slice
+    would cost more host time than a short kernel runs."""
+    q = ins[0]
+    bh, s, d = q.shape
+    lib = _lib()
+    fn = getattr(lib, f"bps_{name}")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rows = [(t.data_ptr(), t.stride(0) * t.element_size())
+            for t in (*ins, *outs)]
+    ws = [w.data_ptr() for w in workspaces]
+    key = f"{name}<{_DTYPE_NAMES[q.dtype]},{d}>"
+    for sl in _bh_slices(bh):
+        err = fn(*(p + sl.start * row for p, row in rows), *ws,
+                 sl.stop - sl.start, s, d, _DTYPE_CODES[q.dtype], *tail,
+                 stream)
+        if err:
+            msg = lib.bps_cuda_error_string(err).decode()
+            raise RuntimeError(f"{name}: kernel launch failed: {msg} ({err})")
+        launches[name] += 1
+        instance_launches[key] = instance_launches.get(key, 0) + 1
 
 
 def _causal_mask(s: torch.Tensor) -> torch.Tensor:
@@ -287,13 +322,7 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     bh, s, d = _check_cuda("flash_fwd", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
-    lib = _lib()
-    err = lib.bps_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                            o.data_ptr(), lse.data_ptr(), bh, s, d,
-                            _DTYPE_CODES[q.dtype], scale, int(causal),
-                            _stream(q))
-    _raise_on(lib, "flash_fwd", err)
-    launches["flash_fwd"] += 1
+    _launch("flash_fwd", (q, k, v), (o, lse), (), scale, int(causal))
     return o, lse
 
 
@@ -305,14 +334,8 @@ def flash_bwd_dq(q, k, v, o, lse, do, causal: bool, scale: float):
     _check_rows("flash_bwd_dq", bh, s, lse)
     dq = torch.empty_like(q)
     delta = torch.empty(bh, s, dtype=torch.float32, device=q.device)
-    lib = _lib()
-    err = lib.bps_flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                               dq.data_ptr(), delta.data_ptr(), bh, s, d,
-                               _DTYPE_CODES[q.dtype], scale, int(causal),
-                               _stream(q))
-    _raise_on(lib, "flash_bwd_dq", err)
-    launches["flash_bwd_dq"] += 1
+    _launch("flash_bwd_dq", (q, k, v, o, do, lse), (dq, delta), (), scale,
+            int(causal))
     return dq, delta
 
 
@@ -324,15 +347,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
     _check_rows("flash_bwd_dkv", bh, s, lse, delta)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    lib = _lib()
-    err = lib.bps_flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                do.data_ptr(), lse.data_ptr(),
-                                delta.data_ptr(), dk.data_ptr(),
-                                dv.data_ptr(), bh, s, d,
-                                _DTYPE_CODES[q.dtype], scale, int(causal),
-                                _stream(q))
-    _raise_on(lib, "flash_bwd_dkv", err)
-    launches["flash_bwd_dkv"] += 1
+    _launch("flash_bwd_dkv", (q, k, v, do, lse, delta), (dk, dv), (), scale,
+            int(causal))
     return dk, dv
 
 
@@ -340,6 +356,13 @@ def _split_tiles(s: int) -> Tuple[int, int]:
     """(split in tiles, number of splits) for a streaming launch."""
     split = _split_len(s)
     return split // TILE, -(-s // split)
+
+
+def _workspace(n: int, q: torch.Tensor, *tail: int) -> torch.Tensor:
+    """A float32 [n, B*H of one launch, S, *tail] workspace."""
+    bh, s, _ = q.shape
+    return torch.empty(n, min(bh, MAX_LAUNCH_BH), s, *tail,
+                       dtype=torch.float32, device=q.device)
 
 
 def flash_fwd_str(q, k, v, causal: bool, scale: float):
@@ -350,18 +373,10 @@ def flash_fwd_str(q, k, v, causal: bool, scale: float):
     tiles, n = _split_tiles(s)
     o = torch.empty_like(q)
     lse = torch.empty(bh, s, dtype=torch.float32, device=q.device)
-    m_ws = torch.empty(n, bh, s, dtype=torch.float32, device=q.device)
-    l_ws = torch.empty_like(m_ws)
-    acc_ws = torch.empty(n, bh, s, d, dtype=torch.float32, device=q.device)
-    lib = _lib()
-    err = lib.bps_flash_fwd_str(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                o.data_ptr(), lse.data_ptr(),
-                                m_ws.data_ptr(), l_ws.data_ptr(),
-                                acc_ws.data_ptr(), bh, s, d,
-                                _DTYPE_CODES[q.dtype], scale, int(causal),
-                                tiles, _stream(q))
-    _raise_on(lib, "flash_fwd_str", err)
-    launches["flash_fwd_str"] += 1
+    m_ws, l_ws = _workspace(n, q), _workspace(n, q)
+    acc_ws = _workspace(n, q, d)
+    _launch("flash_fwd_str", (q, k, v), (o, lse), (m_ws, l_ws, acc_ws),
+            scale, int(causal), tiles)
     return o, lse
 
 
@@ -374,16 +389,8 @@ def flash_bwd_dq_str(q, k, v, o, lse, do, causal: bool, scale: float):
     tiles, n = _split_tiles(s)
     dq = torch.empty_like(q)
     delta = torch.empty(bh, s, dtype=torch.float32, device=q.device)
-    dq_ws = torch.empty(n, bh, s, d, dtype=torch.float32, device=q.device)
-    lib = _lib()
-    err = lib.bps_flash_bwd_dq_str(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                   o.data_ptr(), do.data_ptr(),
-                                   lse.data_ptr(), dq.data_ptr(),
-                                   delta.data_ptr(), dq_ws.data_ptr(), bh, s,
-                                   d, _DTYPE_CODES[q.dtype], scale,
-                                   int(causal), tiles, _stream(q))
-    _raise_on(lib, "flash_bwd_dq_str", err)
-    launches["flash_bwd_dq_str"] += 1
+    _launch("flash_bwd_dq_str", (q, k, v, o, do, lse), (dq, delta),
+            (_workspace(n, q, d),), scale, int(causal), tiles)
     return dq, delta
 
 
@@ -397,18 +404,9 @@ def flash_bwd_dkv_str(q, k, v, do, lse, delta, causal: bool, scale: float):
     tiles, n = _split_tiles(s)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    dk_ws = torch.empty(n, bh, s, d, dtype=torch.float32, device=q.device)
-    dv_ws = torch.empty_like(dk_ws)
-    lib = _lib()
-    err = lib.bps_flash_bwd_dkv_str(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    do.data_ptr(), lse.data_ptr(),
-                                    delta.data_ptr(), dk.data_ptr(),
-                                    dv.data_ptr(), dk_ws.data_ptr(),
-                                    dv_ws.data_ptr(), bh, s, d,
-                                    _DTYPE_CODES[q.dtype], scale,
-                                    int(causal), tiles, _stream(q))
-    _raise_on(lib, "flash_bwd_dkv_str", err)
-    launches["flash_bwd_dkv_str"] += 1
+    _launch("flash_bwd_dkv_str", (q, k, v, do, lse, delta), (dk, dv),
+            (_workspace(n, q, d), _workspace(n, q, d)), scale, int(causal),
+            tiles)
     return dk, dv
 
 
@@ -447,6 +445,34 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def kernel_head_dim(d: int) -> int:
+    """The head dim the kernels run a caller's ``d`` at: the smallest of
+    HEAD_DIMS not below it.  ValueError above MAX_HEAD_DIM."""
+    for hd in HEAD_DIMS:
+        if d <= hd:
+            return hd
+    raise ValueError(f"flash attention: head_dim {d} is above the kernels' "
+                     f"limit of {MAX_HEAD_DIM}")
+
+
+def _pad_head_dim(attn, q, k, v):
+    """``attn(q, k, v)`` on q, k, v zero-padded on the last axis up to
+    ``kernel_head_dim(D)``, its output sliced back to D.  Zero columns
+    leave Q K^T, and so P, unchanged, and make the padded columns of O
+    zero; autograd slices dQ, dK and dV back through the pad, and their
+    padded columns are zero too.  ``attn`` takes the softmax scale from
+    the caller's D, not the padded one.  CPU tensors above MAX_HEAD_DIM go
+    to ``attn`` as they are: the plain versions take any D."""
+    d = q.shape[-1]
+    if d > MAX_HEAD_DIM and not q.is_cuda:
+        return attn(q, k, v)
+    pad = kernel_head_dim(d) - d
+    if not pad:
+        return attn(q, k, v)
+    q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+    return attn(q, k, v)[..., :d]
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = False, sm_scale: Optional[float] = None,
                     block_q: int = 128, block_k: int = 128,
@@ -458,10 +484,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     TPU tiling hints: they must divide S, as there, and are otherwise
     unused — the CUDA kernels pick their own 64-row tiles.
     streaming=None picks the family as the JAX package does (resident while
-    2*S*D*itemsize fits RESIDENT_VMEM_BUDGET, streaming beyond); True or
-    False forces one.  ``interpret`` is accepted for API parity; the
-    tensors' device alone decides between the kernels (CUDA) and the plain
-    versions (CPU).
+    2*S*D*itemsize fits RESIDENT_VMEM_BUDGET, streaming beyond), on the
+    caller's D; True or False forces one.  D is zero-padded up to the next
+    of HEAD_DIMS (``_pad_head_dim``); on CUDA tensors D above MAX_HEAD_DIM
+    raises ValueError.  ``interpret`` is accepted for API parity; the tensors'
+    device alone decides between the kernels (CUDA) and the plain versions
+    (CPU).
     """
     del interpret
     s, d = q.shape[1], q.shape[2]
@@ -471,5 +499,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             " — use models.transformer.flash_attention_fn for the"
             " auto-fallback to dense attention")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(d)
-    return _FlashAttention.apply(q, k, v, causal, scale,
-                                 _use_streaming(q, streaming))
+    streaming = _use_streaming(q, streaming)
+    return _pad_head_dim(lambda q, k, v: _FlashAttention.apply(
+        q, k, v, causal, scale, streaming), q, k, v)

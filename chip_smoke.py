@@ -9,8 +9,9 @@ Phases, each of which must pass:
    nvcc per source, all started together; sm_90a) and print the toolchain
    and each kernel's ptxas report (no tensor-core kernel may spill).
    Count the HMMA (tensor-core MMA) instructions of each flash kernel in
-   the library's SASS (cuobjdump): every bf16 instantiation of the two
-   forward and four backward kernels must have them, no float32 one may.
+   the library's SASS (cuobjdump): every bf16 and float16 instantiation of
+   the two forward and four backward kernels, at every head dim (16, 32,
+   64, 128, 256), must have them, no float32 one may.
 2. Hold each flash kernel against its plain PyTorch version on the card:
    the flagship attention shape [8*16, 512, 64] bf16, causal and not, and
    a small float32 shape through the autograd op with block_q != block_k.
@@ -40,7 +41,9 @@ Phases, each of which must pass:
 2b. The sign-bit kernels against their plain versions, bit for bit, at
    n = 1,048,576 (the flagship's bucket), 845,824 (its ragged bucket),
    4096*33, 5000, 100 and 1, on inputs with +-0.0, +-inf and NaNs of both
-   signs; timed at n = 1,048,576.
+   signs, sign_unpack on 1 and 2 rows; timed at n = 1,048,576, sign_unpack
+   also on 2 rows, beside the byte bound and two floors: PyTorch's fill_ of
+   the same output and of one float.
 2c. Onebit and dithering (s = 127 and 15) on one flagship-size bucket:
    the CUDA run (kernels) against the same compressor on a CPU copy (plain
    versions) from the same state, two rounds: words and levels
@@ -75,6 +78,25 @@ Phases, each of which must pass:
    backward on [1, 16, 32768, 64] bf16 launches each streaming kernel once
    and no resident kernel, and equals the streaming forward called
    directly, bit for bit.
+7. Coverage (this slice's path): a non-strict flash_attention_fn forward
+   and backward on the card at [8, 16, 512, D] causal for D = 8, 24, 40,
+   48, 56, 80, 96, 112 and 256 (zero-padded to an instantiated head dim),
+   bf16 and float32, in both families (streaming with the resident budget
+   at 0); float16 at D = 64 and 128 there and at [1, 16, 32768, 64]; and
+   B*H = 65,600 at S = 64, D = 16 (two launches of each kernel), with
+   four seeds.  Each case launches its family's kernels, no plain version,
+   and holds O, dQ, dK and dV to the elementwise gates against the plain
+   versions: float16 to its own step (2^-10 |plain| + 1e-5), which a
+   control (the inputs rounded to bf16 through the bf16 kernels) must
+   miss; 16-bit cases also print the most rounding steps apart where the
+   gate's relative term rules.
+8. Three training steps of a 2-layer transformer at bert_base width with
+   8 heads of 96 (padded to 128), seq 512, batch 8, in bf16 and then in
+   float16: finite, falling losses, 4/2/2 resident launches a step.
+9. The new instantiations <bf16, 256> and <f16, 64> of each flash kernel
+   against their plain versions and timed, the resident ones at the
+   flagship shape, the streaming ones at the long shape, beside SDPA's
+   forward and backward there.  Each must have been launched by phases 7-8.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -83,6 +105,7 @@ without that line, when there is no CUDA device or any phase fails.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -120,6 +143,14 @@ BUCKET = 1048576              # elements of the flagship's 4 MiB buckets
 RAGGED_BUCKET = 845824        # its one smaller bucket
 COMPRESSOR = {"compressor": "onebit", "ef": "vanilla", "momentum": "nesterov"}
 FLAGSHIP_BUCKETS = 321
+# Head dims the JAX adapter runs flash at that the kernels pad (all of them
+# multiples of 8 up to 256, 256 itself instantiated).
+COVER_DIMS = (8, 24, 40, 48, 56, 80, 96, 112, 256)
+# bert_base width with 8 heads of 96, cut to 2 layers.
+HD96 = dict(batch=8, seq=512, d_model=768, heads=8, layers=2, d_ff=3072)
+HD96_STEPS = 3
+# New instantiations timed at the flagship and long shapes.
+NEW_INSTANCES = (("bf16", 256), ("f16", 64))
 
 
 def sh(cmd):
@@ -187,8 +218,29 @@ def rel_err(a, b):
 # 2^-7 of its value; atol only covers values near zero, three orders below
 # a typical |O| or gradient element at row 32,768 (about 0.01).
 BF16_GATE = (2 ** -7, 1e-5)
+# float16's own step, 8x finer: a float16 kernel that rounded its inputs or
+# its P/dS pair to bf16 would miss it (phase 7 reads such a control).
+FP16_GATE = (2 ** -10, 1e-5)
 F32_GATE = (1e-4, 1e-5)           # float32 outputs (O, dQ, dK, dV)
 ROWS_GATE = (1e-5, 1e-6)          # LSE and delta, float32 in every dtype
+
+
+def steps_apart(got, want, tol):
+    """The most rounding steps of the output dtype (bf16 or float16, at the
+    plain value's binade) between a kernel's output and the plain
+    version's, over the elements where the gate's relative term is the
+    larger (rtol |plain| >= atol).  Two roundings of nearly equal values
+    one step apart just above a power of two read close to 1 on the gate;
+    2 steps or more would be a fault."""
+    import torch
+    rtol, atol = tol
+    mant = 7 if want.dtype == torch.bfloat16 else 10
+    g, w = got.detach().float(), want.detach().float()
+    big = w.abs() * rtol >= atol
+    if not bool(big.any()):
+        return 0.0
+    step = torch.exp2(torch.floor(torch.log2(w[big].abs())) - mant)
+    return float(((g[big] - w[big]).abs() / step).max())
 
 
 def gate(got, want, tol):
@@ -270,7 +322,8 @@ def bound_ms(name, bh, s, d, itemsize, causal):
 
 def phase_build(mods, build_mod, torch, gpu, check):
     """One nvcc per source, all started together, then load each; the
-    ptxas reports and the flash library's HMMA census."""
+    ptxas reports and the flash library's HMMA census (``mods[0]`` is the
+    flash module)."""
     import re
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
@@ -292,10 +345,13 @@ def phase_build(mods, build_mod, torch, gpu, check):
             if "_mma_kernel" in kernel:
                 mma.append(report)
     if mma:       # no report when the library was built by an earlier run
-        check(len(mma) == 24 and all(re.search(r"\b0 bytes spill stores", r)
-                                     for r in mma),
-              f"ptxas: no spills in the {len(mma)} tensor-core kernels")
-    hmma_census(build_mod, build_mod.build(mods[0].SOURCE), check)
+        want = 6 * len(mods[0].HEAD_DIMS) * 2    # 6 kernels, bf16 and f16
+        check(len(mma) == want and all(
+            re.search(r"\b0 bytes spill stores", r) for r in mma),
+              f"ptxas: no spills in the {len(mma)} tensor-core kernels "
+              f"(want {want})")
+    hmma_census(build_mod, build_mod.build(mods[0].SOURCE),
+                len(mods[0].HEAD_DIMS), check)
 
 
 def kernel_label(mangled):
@@ -303,9 +359,10 @@ def kernel_label(mangled):
     import re
     name = re.search(r"\d+((?:flash|sign)\w*?_kernel)", mangled)
     dims = re.search(r"Li(\d+)E", mangled)
+    dtype = ("bf16" if "bfloat16" in mangled
+             else "f16" if "__half" in mangled else "f32")
     return (name.group(1) if name else mangled) + (
-        f"<{'bf16' if 'bfloat16' in mangled else 'f32'},{dims.group(1)}>"
-        if dims else "")
+        f"<{dtype},{dims.group(1)}>" if dims else "")
 
 
 def ptxas_reports(log):
@@ -328,12 +385,12 @@ def ptxas_reports(log):
     return out
 
 
-def hmma_census(build_mod, lib, check):
+def hmma_census(build_mod, lib, n_dims, check):
     """HMMA (tensor-core MMA) instructions per kernel in the built
-    library's SASS (cuobjdump): every bf16 instantiation of the forward
-    (resident, streaming) and backward (dQ, dK/dV of both families)
-    kernels has them, no float32 one does; the merge and sum passes are
-    not counted."""
+    library's SASS (cuobjdump): every bf16 and float16 instantiation of the
+    forward (resident, streaming) and backward (dQ, dK/dV of both families)
+    kernels, at each of the ``n_dims`` head dims, has them, no float32 one
+    does; the merge and sum passes are not counted."""
     import re
     cuobjdump = os.path.join(os.path.dirname(build_mod.nvcc_path()),
                              "cuobjdump")
@@ -352,17 +409,18 @@ def hmma_census(build_mod, lib, check):
     for what, prefixes, n in (
             ("forward", ("flash_fwd_kernel", "flash_fwd_mma_kernel",
                          "flash_fwd_str_kernel", "flash_fwd_str_mma_kernel"),
-             8),
-            ("backward", ("flash_bwd_dq", "flash_bwd_dkv"), 16)):
+             2 * n_dims),
+            ("backward", ("flash_bwd_dq", "flash_bwd_dkv"), 4 * n_dims)):
         kernels = [k for k in counts if k.startswith(prefixes)]
-        bf16 = [k for k in kernels if "bf16" in k]
+        tc = [k for k in kernels if "bf16" in k or "f16" in k]
         f32 = [k for k in kernels if "f32" in k]
-        check(len(bf16) == len(f32) == n
-              and all(counts[k] > 0 for k in bf16)
+        check(len(tc) == 2 * n and len(f32) == n
+              and all(counts[k] > 0 for k in tc)
               and not any(counts[k] for k in f32),
-              f"SASS: HMMA in all {len(bf16)} bf16 {what} instantiations "
-              f"(min {min((counts[k] for k in bf16), default=0)}), none in "
-              f"the {len(f32)} float32 ones")
+              f"SASS: HMMA in all {len(tc)} bf16 and float16 {what} "
+              f"instantiations (min "
+              f"{min((counts[k] for k in tc), default=0)}), none in the "
+              f"{len(f32)} float32 ones")
 
 
 def phase_kernels(fa, torch, check):
@@ -765,6 +823,29 @@ def phase_bitpack(bp, torch, check):
                   f"{out[name]['plain_ms']:.5f} ms (device, graph replay), "
                   f"bound {b_ms:.5f} ms (bytes), library none; eager call "
                   f"{eager:.5f} ms")
+        floors = unpack_floors(bp, torch, w_k, n)
+    return out, floors
+
+
+def unpack_floors(bp, torch, words, n):
+    """sign_unpack at n on one row and on the 2-row batched shape, device
+    time from graph replay, beside the byte bound and two floors: PyTorch's
+    fill_ of the same float32 output (4n bytes written, nothing read), and
+    of one float (a launch that moves nothing)."""
+    tiny = torch.empty(1, device="cuda")
+    launch_floor = time_graph_ms(lambda: tiny.fill_(1.0))
+    out = {"launch_floor_ms": launch_floor}
+    for rows in (1, 2):
+        w = words if rows == 1 else torch.stack([words, words.flip(0)])
+        b_ms = rows * bitpack_bound_ms(bp, n)
+        fill = torch.empty(tuple(w.shape[:-1]) + (n,), device="cuda")
+        ms = time_graph_ms(lambda: bp.unpack_signs(w, n))
+        floor = time_graph_ms(lambda: fill.fill_(1.0))
+        out[f"{rows}_row"] = {"ms": ms, "bound_ms": b_ms,
+                              "fill_floor_ms": floor}
+        print(f"  sign_unpack {rows} x {n} (graph replay): {ms:.5f} ms, "
+              f"{b_ms / ms:.3f} of the bound {b_ms:.5f} ms; fill_ of the "
+              f"output {floor:.5f} ms; empty launch {launch_floor:.5f} ms")
     return out
 
 
@@ -1119,6 +1200,240 @@ def phase_profile(step, params, batch, torch, steady_ms, bitpack_bound=None):
         print(f"    {ms:9.3f} ms  {name[:100]}")
 
 
+@contextlib.contextmanager
+def plain_calls(fa):
+    """The names of the flash plain versions called while the block runs."""
+    calls = []
+    real = {n: getattr(fa, n) for n in dir(fa) if n.endswith("_plain")}
+    for n, fn in real.items():
+        setattr(fa, n, lambda *a, _f=fn, _n=n: calls.append(_n) or _f(*a))
+    try:
+        yield calls
+    finally:
+        for n, fn in real.items():
+            setattr(fa, n, fn)
+
+
+def cover_case(fa, tfm, torch, check, gen, dtype, shape, force_streaming):
+    """flash_attention_fn forward and backward on the card at [B, H, S, D]
+    causal: each kernel of the family the rule picks (every family with
+    the budget at 0) launched once a B*H slice, the other family and every
+    plain version not at all; O against the plain forward, dQ, dK, dV
+    against the plain backward on the kernels' own O and the plain LSE,
+    elementwise."""
+    B, H, S, D = shape
+    q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_()
+    budget = fa.RESIDENT_VMEM_BUDGET
+    if force_streaming:
+        fa.RESIDENT_VMEM_BUDGET = 0
+    try:
+        streaming = fa._use_streaming(q.detach().reshape(B * H, S, D), None)
+        before = dict(fa.launches)
+        with plain_calls(fa) as calls:
+            out = tfm.flash_attention_fn(q, k, v, True)
+            grads = torch.autograd.grad(out, (q, k, v), do)
+            torch.cuda.synchronize()
+    finally:
+        fa.RESIDENT_VMEM_BUDGET = budget
+    ran = {n: fa.launches[n] - before[n] for n in before}
+    on, off = (STREAMING, RESIDENT) if streaming else (RESIDENT, STREAMING)
+    slices = -(-B * H // fa.MAX_LAUNCH_BH)
+    tag = (f"[{B * H},{S},{D}] {fa._DTYPE_NAMES[dtype]} causal, "
+           f"{'streaming' if streaming else 'resident'}")
+    check(all(ran[n] == slices for n in on) and not any(ran[n] for n in off)
+          and not calls,
+          f"flash_attention_fn {tag}: launches {[ran[n] for n in on]} (want "
+          f"{slices} each), other family {[ran[n] for n in off]}, plain "
+          f"versions run {len(calls)}")
+
+    def fold(t):
+        return t.detach().reshape(B * H, S, D)
+    qf, kf, vf, dof, of = (fold(t) for t in (q, k, v, do, out))
+    fwd_p, dq_p, dkv_p = (getattr(fa, n + "_plain") for n in on)
+    scale = D ** -0.5
+    with torch.no_grad():
+        o_p, lse_p = fwd_p(qf, kf, vf, True, scale)
+        dq_r, delta_r = dq_p(qf, kf, vf, of, lse_p, dof, True, scale)
+        dk_r, dv_r = dkv_p(qf, kf, vf, dof, lse_p, delta_r, True, scale)
+    o_gate, g_gate = {torch.float32: ((1e-4, 2e-5), F32_GATE),
+                      torch.bfloat16: (BF16_GATE, BF16_GATE),
+                      torch.float16: (FP16_GATE, FP16_GATE)}[dtype]
+    got = [("O", of, o_p), ("dQ", fold(grads[0]), dq_r),
+           ("dK", fold(grads[1]), dk_r), ("dV", fold(grads[2]), dv_r)]
+    gates([(n, g, w, o_gate if n == "O" else g_gate) for n, g, w in got],
+          check, f"flash_attention_fn {tag} vs the plain versions")
+    if dtype == torch.float32:
+        return
+    print("    most steps apart: " + ", ".join(
+        f"{n} {steps_apart(g, w, g_gate):.3g}" for n, g, w in got))
+    if dtype != torch.float16:
+        return
+    # Control: the same inputs rounded to bf16 through the bf16 kernels,
+    # the outputs cast to float16, against the same plain outputs.
+    ctl = [t.detach().to(torch.bfloat16).requires_grad_() for t in (q, k, v)]
+    out_c = tfm.flash_attention_fn(*ctl, True)
+    got_c = (out_c, *torch.autograd.grad(out_c, ctl, do.to(torch.bfloat16)))
+    res = {n: gate(fold(x).to(dtype), w, FP16_GATE)[1]
+           for (n, _, w), x in zip(got, got_c)}
+    check(all(r > 1.0 for r in res.values()),
+          f"flash_attention_fn {tag}: the control (inputs rounded to bf16, "
+          f"the bf16 kernels) misses the float16 gate: " + ", ".join(
+              f"{n} {r:.3g}" for n, r in res.items()) + " (> 1)")
+
+
+def phase_coverage(fa, tfm, torch, check):
+    """This slice's path: flash_attention_fn (non-strict) on the kernels at
+    every padded head dim in bf16 and float32, both families, at the
+    flagship's [8, 16, 512, D]; float16 at D = 64 and 128 there and at the
+    long [1, 16, 32768, 64]; and B*H = 65,600.  Returns the launches by
+    instantiation."""
+    B, H, S = (FLAGSHIP[k] for k in ("batch", "heads", "seq"))
+    cases = [(dtype, (B, H, S, d), force)
+             for dtype in (torch.bfloat16, torch.float32)
+             for d in COVER_DIMS for force in (False, True)]
+    cases += [(torch.float16, (B, H, S, 64), False),
+              (torch.float16, (B, H, S, 128), False),
+              (torch.float16, (LONG["batch"], LONG["heads"], LONG["seq"],
+                               LONG["head_dim"]), False),
+              (torch.bfloat16, (4100, 16, 64, 16), False)]
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    for dtype, shape, force in cases:
+        cover_case(fa, tfm, torch, check, gen, dtype, shape, force)
+        torch.cuda.empty_cache()
+    print("  B*H = 65,600 again, three more seeds:")
+    for seed in (1, 2, 3):
+        cover_case(fa, tfm, torch, check,
+                   torch.Generator(device="cuda").manual_seed(seed),
+                   torch.bfloat16, (4100, 16, 64, 16), False)
+    cases += [cases[-1]] * 3
+    launches = dict(fa.instance_launches)
+    print(f"  {len(cases)} cases in {time.perf_counter() - t0:.1f} s; "
+          f"launches by instantiation {launches}")
+    return launches
+
+
+def phase_hd96(bps, tfm, fa, torch, check, gpu):
+    """A transformer at bert_base width with 8 heads of 96 (padded to 128
+    in the kernels), 2 layers, causal, seq 512, batch 8: 3 steps in bf16,
+    then 3 in float16, each with finite, falling losses and 4/2/2 resident
+    launches a step.  Returns the launches by instantiation."""
+    from byteps_tpu_torch.common.tree import tree_leaves
+    launches = {}
+    for dtype in (torch.bfloat16, torch.float16):
+        cfg = tfm.TransformerConfig(
+            num_layers=HD96["layers"], d_model=HD96["d_model"],
+            num_heads=HD96["heads"], d_ff=HD96["d_ff"],
+            max_seq_len=HD96["seq"], causal=True, dtype=dtype,
+            attn_impl="flash", ce_chunk_rows=2048)
+        params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+        batch = tfm.synthetic_batch(torch.Generator().manual_seed(1),
+                                    HD96["batch"], HD96["seq"], cfg)
+        opt = bps.DistributedOptimizer(torch.optim.AdamW(
+            tree_leaves(params), lr=1e-3, weight_decay=1e-4))
+        step = bps.build_train_step(lambda p, b, c=cfg: tfm.loss_fn(p, b, c),
+                                    opt)
+        print(f"  {fa._DTYPE_NAMES[dtype]}: head_dim {cfg.head_dim}, "
+              f"{tfm.num_params(params)} params")
+        want = flash_want(2 * cfg.num_layers, cfg.num_layers,
+                          streaming=False)
+        train(step, params, batch, [fa], torch, check, gpu, want,
+              steps=HD96_STEPS)
+        for key, n in fa.instance_launches.items():
+            launches[key] = launches.get(key, 0) + n
+        check(set(fa.instance_launches) == {
+            f"{n}<{fa._DTYPE_NAMES[dtype]},128>" for n in RESIDENT},
+              f"head dim 96 ran the D = 128 instantiations: "
+              f"{dict(fa.instance_launches)}")
+        del params, batch, opt, step
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_instances(fa, torch, check, tag, d):
+    """The instantiation <tag, d> of each flash kernel against its plain
+    version (the backward ones on the plain forward's O and LSE),
+    elementwise, and timed: the resident family at the flagship shape
+    [128, 512, d], the streaming one at the long [16, 32768, d], beside
+    their bounds and SDPA's forward and backward at the same shapes."""
+    import torch.nn.functional as F
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16}[tag]
+    out, yard = {}, {}
+    for shape, names in ((FLAGSHIP, RESIDENT), (LONG, STREAMING)):
+        B, H, S = (shape[k] for k in ("batch", "heads", "seq"))
+        BH, long = B * H, names is STREAMING
+        gen = torch.Generator(device="cuda").manual_seed(d)
+        q, k, v, do = (torch.randn(BH, S, d, generator=gen, device="cuda")
+                       .to(dtype) for _ in range(4))
+        scale = d ** -0.5
+        kern = [getattr(fa, n) for n in names]
+        plain = [getattr(fa, n + "_plain") for n in names]
+        o_p, lse_p = plain[0](q, k, v, True, scale)
+        dq_p, delta_p = plain[1](q, k, v, o_p, lse_p, do, True, scale)
+        dk_p, dv_p = plain[2](q, k, v, do, lse_p, delta_p, True, scale)
+        o_k, lse_k = kern[0](q, k, v, True, scale)
+        dq_k, delta_k = kern[1](q, k, v, o_p, lse_p, do, True, scale)
+        dk_k, dv_k = kern[2](q, k, v, do, lse_p, delta_p, True, scale)
+        torch.cuda.synchronize()
+        what = f"<{tag},{d}> [{BH},{S},{d}] causal"
+        gates([("O", o_k, o_p, BF16_GATE), ("LSE", lse_k, lse_p, ROWS_GATE),
+               ("dQ", dq_k, dq_p, BF16_GATE),
+               ("delta", delta_k, delta_p, ROWS_GATE),
+               ("dK", dk_k, dk_p, BF16_GATE), ("dV", dv_k, dv_p, BF16_GATE)],
+              check, f"{names[0]} family {what} vs the plain versions")
+        errs = [max(max_err(o_k, o_p), max_err(lse_k, lse_p)),
+                max(max_err(dq_k, dq_p), max_err(delta_k, delta_p)),
+                max(max_err(dk_k, dk_p), max_err(dv_k, dv_p))]
+        del o_k, lse_k, dq_k, delta_k, dk_k, dv_k, dq_p, dk_p, dv_p
+        q4, k4, v4 = (t.view(B, H, S, d) for t in (q, k, v))
+        calls = (
+            (lambda: kern[0](q, k, v, True, scale),
+             lambda: plain[0](q, k, v, True, scale),
+             lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                    is_causal=True)),
+            (lambda: kern[1](q, k, v, o_p, lse_p, do, True, scale),
+             lambda: plain[1](q, k, v, o_p, lse_p, do, True, scale), None),
+            (lambda: kern[2](q, k, v, do, lse_p, delta_p, True, scale),
+             lambda: plain[2](q, k, v, do, lse_p, delta_p, True, scale),
+             None))
+        for name, err, (kfn, pfn, lib) in zip(names, errs, calls):
+            b_ms, b_by = bound_ms(name, BH, S, d, 2, True)
+            key = f"{name}<{tag},{d}>"
+            out[key] = {
+                "max_abs_err": err,
+                "ms": time_ms(kfn, reps=2, rounds=3) if long else time_ms(kfn),
+                "plain_ms": (time_ms(pfn, reps=1, rounds=2) if long
+                             else time_ms(pfn, reps=5)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": time_ms(lib) if lib is not None else None}
+            print(f"  {key} [{BH},{S},{d}]: kernel {out[key]['ms']:.4f} ms "
+                  f"({tflops(name, BH, S, d, True, out[key]['ms']):.2f} "
+                  f"TFLOP/s), plain {out[key]['plain_ms']:.4f} ms, library "
+                  f"{out[key]['library_ms']} ms, bound {b_ms:.4f} ms "
+                  f"({b_by})")
+        q4g, k4g, v4g = (t.detach().clone().requires_grad_()
+                         for t in (q4, k4, v4))
+        o4g = F.scaled_dot_product_attention(q4g, k4g, v4g, is_causal=True)
+        do4 = do.view(B, H, S, d)
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+            o4g, (q4g, k4g, v4g), do4, retain_graph=True),
+            reps=5 if long else 20)
+        pair = out[f"{names[1]}<{tag},{d}>"]["ms"] + out[
+            f"{names[2]}<{tag},{d}>"]["ms"]
+        where = "long" if long else "flagship"
+        yard[f"sdpa_backward_ms<{tag},{d},{where}>"] = sdpa_bwd
+        print(f"  SDPA backward <{tag},{d}> at the {where} shape "
+              f"{sdpa_bwd:.4f} ms vs the backward pair {pair:.4f} ms "
+              f"({pair / sdpa_bwd:.2f}x)")
+        del q, k, v, do, q4, k4, v4, o_p, lse_p, delta_p, q4g, k4g, v4g, o4g
+        torch.cuda.empty_cache()
+    return out, yard
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1147,7 +1462,9 @@ def main() -> int:
     numbers.update(s_numbers)
     yardsticks.update(s_yardsticks)
     print("== phase 2b: sign-bit kernels vs plain versions")
-    numbers.update(phase_bitpack(bp, torch, check))
+    b_numbers, yardsticks["sign_unpack_floors"] = phase_bitpack(bp, torch,
+                                                              check)
+    numbers.update(b_numbers)
     print("== phase 2c: compressors, CUDA vs CPU copy")
     phase_compressors(bps.compressor, torch, check)
     print("== phase 3: tiny transformer, flash vs dense")
@@ -1167,6 +1484,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("== phase 6: Ulysses at world 1, flash inner, seq 32768")
     phase_ulysses(fa, torch, check)
+    torch.cuda.empty_cache()
+    print("== phase 7: flash_attention_fn at every head dim, float16, "
+          "B*H > 65,535 (coverage path)")
+    path = phase_coverage(fa, tfm, torch, check)
+    torch.cuda.empty_cache()
+    print("== phase 8: bert_base width with head dim 96, bf16 and float16 "
+          "(coverage path)")
+    for key, n in phase_hd96(bps, tfm, fa, torch, check, gpu).items():
+        path[key] = path.get(key, 0) + n
+    print("== phase 9: the new instantiations against their plain versions, "
+          "timed")
+    new_kernels = []
+    for tag, d in NEW_INSTANCES:
+        i_numbers, i_yard = phase_instances(fa, torch, check, tag, d)
+        numbers.update(i_numbers)
+        yardsticks.update(i_yard)
+        new_kernels += list(i_numbers)
+    check(all(path.get(key, 0) > 0 for key in new_kernels),
+          f"the coverage path launched every new instantiation: "
+          f"{ {key: path.get(key, 0) for key in new_kernels} }")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     if check.failures:
@@ -1179,6 +1516,10 @@ def main() -> int:
                 "replaces": replaces, "launches": launches[name],
                 **numbers[name]}
                for name, (source, replaces) in KERNELS.items()]
+    kernels += [{"name": key, "route": "cuda", "source": FLASH_SOURCE,
+                 "replaces": KERNELS[key.split("<")[0]][1],
+                 "launches": path[key], **numbers[key]}
+                for key in new_kernels]
     tokens = FLAGSHIP["batch"] * FLAGSHIP["seq"]
     l_tokens = LONG["batch"] * LONG["seq"]
     shapes = {**{n: FLAGSHIP for n in RESIDENT},

@@ -97,7 +97,7 @@ def test_autograd_op_takes_strided_views(cuda_device):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
-    q = torch.zeros(2, 128, 64, device=cuda_device, dtype=torch.float16)
+    q = torch.zeros(2, 128, 64, device=cuda_device, dtype=torch.float64)
     with pytest.raises(TypeError, match="dtype"):
         fa.flash_fwd(q, q, q, True, 0.125)
     q = torch.zeros(2, 128, 48, device=cuda_device)
@@ -440,3 +440,195 @@ def test_tiny_compressed_train_step_launches(cuda_device):
     assert loss == loss and abs(loss) < 1e3
     assert bp.launches == {"sign_pack": 2 * buckets,
                            "sign_unpack": 4 * buckets}
+
+
+# The slice's coverage: every head dim the adapter sends to flash (a
+# multiple of 8 up to 256, zero-padded to the next instantiated one),
+# float16, and more B*H than one launch takes.
+F32_GATE = (1e-4, 1e-5)
+F32_O_GATE = (1e-4, 2e-5)
+FP16_GATE = (2 ** -10, 1e-5)     # float16's own step, 8x the bf16 gate's
+_GATES = {torch.float32: (F32_O_GATE, F32_GATE),
+          torch.bfloat16: (BF16_GATE, BF16_GATE),
+          torch.float16: (FP16_GATE, FP16_GATE)}
+
+
+def _spy_plain(monkeypatch):
+    """Count calls of every plain version: on CUDA tensors none may run."""
+    calls = []
+    for name in [n for n in dir(fa) if n.endswith("_plain")]:
+        real = getattr(fa, name)
+        monkeypatch.setattr(fa, name, lambda *a, _r=real, _n=name:
+                            calls.append(_n) or _r(*a))
+    return calls
+
+
+def _adapter_vs_plain(b, h, s, d, dtype, streaming, monkeypatch,
+                      run_dtype=None):
+    """flash_attention_fn forward and backward on the card against the
+    plain versions: O against the plain forward, dQ, dK, dV against the
+    plain backward on the kernels' own O (and the plain LSE), each
+    element held to its gate.  With ``run_dtype`` (a control) the kernels
+    run on the inputs rounded to it, their outputs cast back to ``dtype``.
+    Returns (worst ratios, launches, plain calls during the kernel run)."""
+    from byteps_tpu_torch.models.transformer import flash_attention_fn
+    if streaming:
+        monkeypatch.setattr(fa, "RESIDENT_VMEM_BUDGET", 0)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    run = [t.to(run_dtype or dtype).requires_grad_() for t in (q, k, v)]
+    calls = _spy_plain(monkeypatch)
+    fa.reset_launches()
+    out = flash_attention_fn(*run, True)
+    grads = torch.autograd.grad(out, run, do.to(run_dtype or dtype))
+    out, grads = out.to(dtype), [g.to(dtype) for g in grads]
+    torch.cuda.synchronize()
+    ran, plain_calls = dict(fa.launches), list(calls)
+    scale = d ** -0.5
+    fold = [t.detach().reshape(b * h, s, d) for t in (q, k, v, do, out)]
+    with torch.no_grad():
+        o_p, lse_p = fa.flash_fwd_plain(*fold[:3], True, scale)
+        dq_p, delta_p = fa.flash_bwd_dq_plain(*fold[:3], fold[4], lse_p,
+                                              fold[3], True, scale)
+        dk_p, dv_p = fa.flash_bwd_dkv_plain(*fold[:3], fold[3], lse_p,
+                                            delta_p, True, scale)
+    o_gate, g_gate = _GATES[dtype]
+    worst = {"o": _worst(fold[4], o_p, o_gate)}
+    for name, got, want in zip(("dq", "dk", "dv"), grads, (dq_p, dk_p, dv_p)):
+        worst[name] = _worst(got.reshape(b * h, s, d), want, g_gate)
+    return worst, ran, plain_calls
+
+
+@pytest.mark.parametrize("family", ["resident", "streaming"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [8, 24, 40, 48, 56, 80, 96, 112, 256])
+def test_adapter_runs_every_head_dim_on_the_kernels(cuda_device,
+                                                     monkeypatch, d, dtype,
+                                                     family):
+    """A non-strict flash_attention_fn takes the kernels, forward and
+    backward, at every head dim the JAX adapter runs flash at (D zero-padded
+    to 16, 32, 64, 128 or 256) and in float32, bf16 and float16; no plain
+    version runs, and every element passes the elementwise gates."""
+    monkeypatch.setattr(fa, "_split_len", lambda s: 128)
+    streaming = family == "streaming"
+    worst, ran, plain = _adapter_vs_plain(2, 2, 256, d, dtype, streaming,
+                                          monkeypatch)
+    on = ("flash_fwd_str", "flash_bwd_dq_str", "flash_bwd_dkv_str")
+    off = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    if not streaming:
+        on, off = off, on
+    assert [ran[n] for n in on] == [1, 1, 1] and not any(ran[n] for n in off)
+    assert plain == []
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
+def test_adapter_takes_more_batch_heads_than_one_launch(cuda_device,
+                                                        monkeypatch):
+    """B*H = 65,600 (above the grid's 65,535): two launches of each
+    kernel, every element within the gates."""
+    worst, ran, plain = _adapter_vs_plain(4100, 16, 64, 16, torch.bfloat16,
+                                          False, monkeypatch)
+    assert ran == {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2,
+                   "flash_fwd_str": 0, "flash_bwd_dq_str": 0,
+                   "flash_bwd_dkv_str": 0}
+    assert plain == []
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
+def test_adapter_refuses_head_dims_above_256(cuda_device):
+    from byteps_tpu_torch.models.transformer import flash_attention_fn
+    x = torch.zeros(1, 2, 128, 264, device=cuda_device,
+                    dtype=torch.bfloat16)
+    for strict in (False, True):
+        with pytest.raises(ValueError, match="limit of 256"):
+            flash_attention_fn(x, x, x, True, strict=strict)
+
+
+@pytest.mark.parametrize("family", ["resident", "streaming"])
+def test_float16_backward_long_contraction(cuda_device, monkeypatch,
+                                           family):
+    """float16 causal at S = 4096 through the kernels (the streaming ones
+    in four splits), dQ, dK, dV and O held to float16's own step; dS
+    enters its products scaled, so no float16 value overflows."""
+    monkeypatch.setattr(fa, "_split_len", lambda s: 1024)
+    worst, ran, plain = _adapter_vs_plain(1, 2, 4096, 64, torch.float16,
+                                          family == "streaming", monkeypatch)
+    assert plain == [] and sum(ran.values()) == 3
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
+def test_float16_holds_its_own_step(cuda_device, monkeypatch):
+    """float16 through the kernels within one float16 step (2^-10 |plain|
+    + 1e-5, 8x the bf16 gate's) at D = 64 and 128, and a control, the same
+    inputs rounded to bf16 through the bf16 kernels with the outputs cast
+    to float16, missing it in every output: the gate tells float16
+    arithmetic from bf16's."""
+    for d in (64, 128):
+        worst = _adapter_vs_plain(2, 2, 256, d, torch.float16, False,
+                                  monkeypatch)[0]
+        ctl = _adapter_vs_plain(2, 2, 256, d, torch.float16, False,
+                                monkeypatch, run_dtype=torch.bfloat16)[0]
+        assert all(w <= 1.0 for w in worst.values()), (d, worst)
+        assert all(w > 1.0 for w in ctl.values()), (d, ctl)
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_batch_head_slices_are_bit_equal_to_one_launch(cuda_device,
+                                                       monkeypatch,
+                                                       streaming):
+    """With MAX_LAUNCH_BH = 3, B*H = 7 runs as launches of 3, 3 and 1
+    rows (offset pointers, one reused streaming workspace): O and the
+    gradients bit-equal to one launch over all seven rows."""
+    monkeypatch.setattr(fa, "_split_len", lambda s: 128)
+    q, k, v, do = _qkvdo(cuda_device, 7, 256, 64, torch.bfloat16)
+
+    def run():
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.reset_launches()
+        out = fa.flash_attention(*ins, True, None, 64, 64,
+                                 streaming=streaming)
+        grads = torch.autograd.grad(out, ins, do)
+        torch.cuda.synchronize()
+        return [out, *grads], dict(fa.launches)
+
+    whole, ran = run()
+    assert sum(ran.values()) == 3
+    monkeypatch.setattr(fa, "MAX_LAUNCH_BH", 3)
+    sliced, ran = run()
+    assert sorted(ran.values()) == [0, 0, 0, 3, 3, 3]
+    for a, b in zip(sliced, whole):
+        assert torch.equal(a, b)
+
+
+def test_entry_point_refuses_head_dims_above_256(cuda_device):
+    q = torch.zeros(2, 128, 264, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="limit of 256"):
+        fa.flash_attention(q, q, q, True, None, 64, 64)
+
+
+_UNPACK_NS = [1, 100, 5000, 4096 * 33, 1048576, 1048576 - 3]
+
+
+@pytest.mark.parametrize("n", _UNPACK_NS)
+def test_sign_unpack_bit_identical(cuda_device, n):
+    """sign_unpack gives the plain version's bits, one launch, at the
+    bucket sizes and ragged ones."""
+    words = bp.pack_signs(_signs_input(n, cuda_device))
+    before = bp.launches["sign_unpack"]
+    out = bp.unpack_signs(words, n)
+    torch.cuda.synchronize()
+    assert bp.launches["sign_unpack"] == before + 1
+    assert torch.equal(out, bp.unpack_signs_plain(words, n))
+
+
+@pytest.mark.parametrize("n", [4096 * 3 + 1, 4096 * 3 + 2, 4096 * 3 + 3])
+def test_sign_unpack_unaligned_rows(cuda_device, n):
+    """Three rows at n % 4 = 1, 2, 3: rows 1 and 2 start off a 16-byte
+    boundary, where the wide stores must give way to scalar ones."""
+    words = torch.stack([bp.pack_signs(_signs_input(n + r, cuda_device)[:n])
+                         for r in range(3)])
+    out = bp.unpack_signs(words, n)
+    torch.cuda.synchronize()
+    assert torch.equal(out, bp.unpack_signs_plain(words, n))
