@@ -2,7 +2,8 @@
 
 Counterpart of ``byteps_tpu/common/config.py``: the same variable names and
 defaults, limited to what the port uses so far — the worker bootstrap
-(``DMLC_*``, ``BYTEPS_LOCAL_*``), the bucket size and the log level.
+(``DMLC_*``, ``BYTEPS_LOCAL_*``), the bucket size, the eager fusion
+threshold, the async switch, the trace window and the log level.
 """
 
 from __future__ import annotations
@@ -17,6 +18,16 @@ def _env_int(name: str, default: int) -> int:
     if v is None or v == "":
         return default
     return int(v)
+
+
+_TRUTHY = ("1", "true", "yes", "on")
+
+
+def _env_bool(name: str, default: bool = False) -> bool:
+    v = os.environ.get(name)
+    if v is None or v == "":
+        return default
+    return v.strip().lower() in _TRUTHY
 
 
 def _env_str(name: str, default: str) -> str:
@@ -35,6 +46,12 @@ class Config:
     local_rank: int = 0                      # BYTEPS_LOCAL_RANK
     local_size: int = 1                      # BYTEPS_LOCAL_SIZE
     partition_bytes: int = 4 * 1024 * 1024   # BYTEPS_PARTITION_BYTES
+    fusion_bytes: int = 1024 * 1024          # BYTEPS_TPU_FUSION_BYTES
+    enable_async: bool = False               # BYTEPS_ENABLE_ASYNC
+    trace_on: bool = False                   # BYTEPS_TRACE_ON
+    trace_start_step: int = 10               # BYTEPS_TRACE_START_STEP
+    trace_end_step: int = 20                 # BYTEPS_TRACE_END_STEP
+    trace_dir: str = "./traces"              # BYTEPS_TRACE_DIR
     log_level: str = "WARNING"               # BYTEPS_LOG_LEVEL
 
     @classmethod
@@ -48,6 +65,12 @@ class Config:
             local_size=_env_int("BYTEPS_LOCAL_SIZE", 1),
             partition_bytes=_env_int("BYTEPS_PARTITION_BYTES",
                                      4 * 1024 * 1024),
+            fusion_bytes=_env_int("BYTEPS_TPU_FUSION_BYTES", 1024 * 1024),
+            enable_async=_env_bool("BYTEPS_ENABLE_ASYNC"),
+            trace_on=_env_bool("BYTEPS_TRACE_ON"),
+            trace_start_step=_env_int("BYTEPS_TRACE_START_STEP", 10),
+            trace_end_step=_env_int("BYTEPS_TRACE_END_STEP", 20),
+            trace_dir=_env_str("BYTEPS_TRACE_DIR", "./traces"),
             log_level=_env_str("BYTEPS_LOG_LEVEL", "WARNING"),
         )
 

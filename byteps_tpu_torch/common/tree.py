@@ -40,3 +40,16 @@ def tree_map(fn: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
     others = [tree_leaves(r) for r in rest]
     return tree_unflatten(tree, [fn(*args) for args in
                                  zip(tree_leaves(tree), *others)])
+
+
+def tree_paths(tree: Tree, prefix: str = "") -> List[str]:
+    """Each leaf's path in tree_leaves order, written as ``jax.tree_util.
+    keystr`` writes it: ``['key']`` for a dict entry, ``[0]`` for a list
+    item."""
+    if isinstance(tree, dict):
+        return [p for key in sorted(tree)
+                for p in tree_paths(tree[key], f"{prefix}[{key!r}]")]
+    if isinstance(tree, list):
+        return [p for i, sub in enumerate(tree)
+                for p in tree_paths(sub, f"{prefix}[{i}]")]
+    return [prefix]

@@ -41,10 +41,12 @@
 // indexed in size_t.  BH is at most 65,535 a launch (gridDim.y or z): the
 // Python wrappers cut a larger B*H into contiguous slices, one launch each.
 //
-// Head dims.  The kernels are instantiated at D = 16, 32, 64, 128 and 256.
-// The JAX kernels take any D (their VMEM blocks are whole rows); the caller
-// zero-pads D up to the next instantiated one, which leaves Q K^T unchanged,
-// and slices the outputs back (ops/flash_attention.py::_pad_head_dim).
+// Head dims.  The kernels are instantiated at D = 16, 32, 64, 128 and 256,
+// and the wide kernels (below) take any multiple of 128 above 256 at run
+// time.  The JAX kernels take any D (their VMEM blocks are whole rows); the
+// caller zero-pads D up to the next head dim the kernels take, which leaves
+// Q K^T unchanged, and slices the outputs back
+// (ops/flash_attention.py::_pad_head_dim).
 //
 // What bounds them on the H100.  At the flagship shape (BH = 128, S = 512,
 // D = 64, bf16, causal) each resident kernel moves 34-51 MB, about 10-15 us
@@ -126,6 +128,13 @@
 // range, the streaming ones over a split.  Within a split the tiles are
 // walked in a fixed order, with no atomics.
 //
+// delta_sum: delta = rowsum(dO * O) is summed in float64 (the products of
+// float32 values are exact there) and rounded once to float32, here and
+// in the plain versions.  The sum cancels: a float32 sum of it misses the
+// float64 value by up to 2.7x the 1e-5 relative gate at D = 1024 (1.1x at
+// D = 384), in the plain version as in the kernels, so two float32 sums in
+// different orders could not be held to that gate against each other.
+//
 // Each entry point returns cudaGetLastError() after each launch (or the
 // error of the attribute call before it), so a refused launch surfaces in
 // the caller and never passes silently.
@@ -166,6 +175,11 @@ __device__ __forceinline__ __half from_f32<__half>(float x) {
 
 // Sum (or max) over the four consecutive lanes that share a tile row.
 __device__ __forceinline__ float row_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  x += __shfl_xor_sync(0xffffffffu, x, 2);
+  return x;
+}
+__device__ __forceinline__ double row_sum(double x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   x += __shfl_xor_sync(0xffffffffu, x, 2);
   return x;
@@ -454,11 +468,12 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   const T* orow = o + base + (size_t)row * D;
-  float dl = 0.f;
+  double dsum = 0.0;   // float64: see delta_sum
 #pragma unroll
   for (int i = 0; i < D / kLanes; ++i)
-    dl += dos[r * ld + c + kLanes * i] * to_f32(orow[c + kLanes * i]);
-  dl = row_sum(dl);
+    dsum += (double)dos[r * ld + c + kLanes * i] *
+            (double)to_f32(orow[c + kLanes * i]);
+  const float dl = (float)row_sum(dsum);
   if (c == 0) delta[(size_t)bh * seq + row] = dl;
   const float lse_r = lse[(size_t)bh * seq + row];
 
@@ -642,11 +657,12 @@ __global__ void __launch_bounds__(kThreads)
   const size_t at0 = (size_t)blockIdx.y * seq + blockIdx.x * kTile + r;
   const T* orow = o + at0 * D;
   const T* drow = dout + at0 * D;
-  float dl = 0.f;
+  double dsum = 0.0;   // float64: see delta_sum
 #pragma unroll
   for (int i = 0; i < D / kLanes; ++i)
-    dl += to_f32(drow[c + kLanes * i]) * to_f32(orow[c + kLanes * i]);
-  dl = row_sum(dl);
+    dsum += (double)to_f32(drow[c + kLanes * i]) *
+            (double)to_f32(orow[c + kLanes * i]);
+  const float dl = (float)row_sum(dsum);
   if (c == 0) delta[at0] = dl;
 }
 
@@ -1043,13 +1059,13 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// Write the warp's rows of DC columns of a [kTile, D] tile at `out` (row
-// stride D), times `scale`: 16-bit outputs, or float32 partials of a
+// Write the warp's rows of DC columns of a [kTile, ld] tile at `out` (row
+// stride ld), times `scale`: 16-bit outputs, or float32 partials of a
 // workspace.
-template <int DC, int D, typename Out>
-__device__ __forceinline__ void store_rows(Out* out,
-                                           const float (&acc)[DC / 8][4],
-                                           float scale) {
+template <int DC, typename Out>
+__device__ __forceinline__ void store_rows_ld(Out* out, int ld,
+                                              const float (&acc)[DC / 8][4],
+                                              float scale) {
   const int lane = threadIdx.x & 31;
   const int row = 16 * (threadIdx.x >> 5) + (lane >> 2);
 #pragma unroll
@@ -1057,9 +1073,16 @@ __device__ __forceinline__ void store_rows(Out* out,
     const int col = n * 8 + 2 * (lane & 3);
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      store2(out + (row + 8 * h) * D + col, scale * acc[n][2 * h],
+      store2(out + (row + 8 * h) * ld + col, scale * acc[n][2 * h],
              scale * acc[n][2 * h + 1]);
   }
+}
+// The same with the row stride D of an instantiated head dim.
+template <int DC, int D, typename Out>
+__device__ __forceinline__ void store_rows(Out* out,
+                                           const float (&acc)[DC / 8][4],
+                                           float scale) {
+  store_rows_ld<DC>(out, D, acc, scale);
 }
 
 // Shared memory of both loops: six [kTile][D + 8] 16-bit tiles (the fixed
@@ -1336,11 +1359,12 @@ __global__ void __launch_bounds__(kMmaThreads, mma_ctas<kDqCtas>(D))
     const int r = threadIdx.x >> 1;
     const int half = threadIdx.x & 1;
     const size_t at = base + (size_t)(qt * kTile + r) * D + half * (D / 2);
-    float dl = 0.f;
+    double dsum = 0.0;   // float64: see delta_sum
 #pragma unroll 8
     for (int i = 0; i < D / 2; ++i)
-      dl += to_f32(dout[at + i]) * to_f32(o[at + i]);
-    dl += __shfl_xor_sync(0xffffffffu, dl, 1);
+      dsum += (double)to_f32(dout[at + i]) * (double)to_f32(o[at + i]);
+    dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
+    const float dl = (float)dsum;
     if (!half) {
       const size_t row = (size_t)bh * seq + qt * kTile + r;
       delta[row] = dl;
@@ -1654,6 +1678,1059 @@ __global__ void __launch_bounds__(kMmaThreads, mma_ctas<kFwdCtas>(D))
 }
 
 // ---------------------------------------------------------------------------
+// Head dims above 256 ("wide" kernels).  The caller zero-pads D to a
+// multiple of kWide = 128 (ops/flash_attention.py::kernel_head_dim), and
+// the kernels take D at run time.  A 64 x D tile of Q (or dO) no longer
+// fits in registers, nor six such tiles in shared memory (6 x 64 x 520
+// bf16 is 399 KB at D = 512).  So each kernel walks D in 128-column
+// chunks twice over:
+//
+//   - the first products (S = Q K^T, and dP = dO V^T in the backward, or
+//     their transposes in dK/dV) accumulate over every chunk of D, one
+//     64 x 128 chunk of each operand staged in shared memory at a time;
+//   - each CTA owns one 128-column slice of its outputs (an output pass):
+//     O or dQ at columns col0..col0+127, and in dK/dV either dV's or dK's
+//     slice (dV needs only P, dK also dP).  The ceil(D / 128) passes of a
+//     tile run as neighbouring CTAs of the grid, each recomputing the first
+//     products and the softmax, as the D = 256 kernels' two passes do in
+//     one CTA.
+//
+// Registers then hold one 128-column accumulator, a 64-key block of S in
+// the forward and 32-key (32-query) blocks of S and dP in the backward,
+// and a zeroed partial for each chunk's products (mma_abt_chunk).  Shared
+// memory holds at most five 64 x 136 16-bit chunks (87 KB), whatever D.
+// The 16-bit kernels keep every piece of the D <= 256 kernels' arithmetic:
+// exact 16-bit first products with float32 sums, P and dS entering the
+// second products as hi/lo pairs, bf16's third term where a warp's block
+// holds |P| >= 2^-5 or |dS| >= 1, float16's per-row power-of-two scale.
+// The float32 kernels keep the CUDA-core loops, 64-column chunks for the
+// first products.  The chunks are loaded and waited for one at a time (no
+// double buffering): a simple kernel first; each chunk of the fixed tile
+// is read again for every streamed tile, from L2.
+// ---------------------------------------------------------------------------
+constexpr int kWide = 128;              // columns of an output pass
+constexpr int kWideLd = kWide + 8;      // shared row of a 16-bit chunk
+constexpr int kWideTile = kTile * kWideLd;
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy the [R, kWide] chunk at `src` (row stride d) into shared rows of
+// kWideLd, 16 bytes a copy.
+template <int R = kTile, typename T16>
+__device__ __forceinline__ void chunk_async(T16* dst, const T16* src, int d) {
+  constexpr int kPieces = kWide / 8;
+  for (int i = threadIdx.x; i < R * kPieces; i += kMmaThreads) {
+    const int r = i / kPieces;
+    const int c = i - r * kPieces;
+    cp_async16(dst + r * kWideLd + c * 8, src + (size_t)r * d + c * 8);
+  }
+}
+
+// Shared memory of a wide tensor-core kernel: `n` chunks, then two rows of
+// kTile floats (LSE and delta).
+__host__ __device__ constexpr size_t wide_mma_smem(int n) {
+  return n * kWideTile * sizeof(uint16_t) + 2 * kTile * sizeof(float);
+}
+__device__ __forceinline__ float* wide_rows(unsigned char* smem, int n) {
+  return reinterpret_cast<float*>(smem + n * kWideTile * sizeof(uint16_t));
+}
+
+// acc[n] += A B^T over one kWide-column chunk, through a zeroed partial:
+// the tensor cores' float32 accumulation truncates, and its error grows
+// with the number of k steps summed into one accumulator (at D = 1024,
+// float16 dQ missed its gate by 1.5x in rows where dP - delta cancels);
+// a chunk's 8 steps go into the partial, and the partials add with
+// float32's round to nearest.
+template <typename T16, int NB>
+__device__ __forceinline__ void mma_abt_chunk(float (&acc)[NB][4],
+                                              const T16* a, const T16* b,
+                                              int lane) {
+  float part[NB][4];
+  zero(part);
+  mma_abt<T16, kWide, NB>(part, a, b, lane);
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+}
+
+// The forward at a wide D: fwd_mma_tiles with S summed over the chunks of
+// D, and P V taken over columns [col0, col0 + kWide) of V only.
+template <typename T16>
+__device__ __forceinline__ void fwd_wide_tiles(
+    unsigned char* smem, const T16* q, const T16* k, const T16* v, int d,
+    int qt, int kt0, int kt1, int causal, float scale, int col0,
+    float (&m2)[2], float (&l)[2], float (&acc)[kWide / 8][4]) {
+  T16* qs = reinterpret_cast<T16*>(smem);
+  T16* ks = qs + kWideTile;
+  T16* vs = ks + kWideTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const float scale2 = scale * kLog2e;
+  const int nch = d / kWide;
+
+  m2[0] = m2[1] = -INFINITY;
+  l[0] = l[1] = 0.f;
+  zero(acc);
+  const int r0 = 16 * warp + (lane >> 2);  // this lane's rows r0, r0 + 8
+  for (int kt = kt0; kt < kt1; ++kt) {
+    float s[8][4];
+    zero(s);
+    for (int c = 0; c < nch; ++c) {
+      __syncthreads();  // every warp is done with the chunks (and V)
+      chunk_async(qs, q + (size_t)qt * kTile * d + c * kWide, d);
+      chunk_async(ks, k + (size_t)kt * kTile * d + c * kWide, d);
+      if (c == nch - 1) chunk_async(vs, v + (size_t)kt * kTile * d + col0, d);
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+      mma_abt_chunk<T16, 8>(s, qs + 16 * warp * kWideLd, ks, lane);
+    }
+    const bool diag = causal && kt == qt;
+    float mx[2] = {m2[0], m2[1]};
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n * 8 + 2 * (lane & 3) + (e & 1);  // key in tile
+        s[n][e] = diag && col > r0 + 8 * (e >> 1) ? -INFINITY
+                                                  : scale2 * s[n][e];
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = row_max(mx[h]);
+      alpha[h] = exp2f(m2[h] - mx[h]);
+      m2[h] = mx[h];
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = exp2f(s[n][e] - mx[e >> 1]);
+        rs[e >> 1] += s[n][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + row_sum(rs[h]);
+#pragma unroll
+    for (int n = 0; n < kWide / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    mma_xb_split<T16, kWide, kWide, 4>(acc, s, vs, lane);
+  }
+}
+
+// rowsum(a * b) over d elements for the calling warp (delta of the wide
+// kernels): each lane sums every 32nd element, then a shuffle tree, in
+// float64 as every delta here (see delta_sum at the top).
+template <typename T>
+__device__ __forceinline__ float warp_row_dot(const T* a, const T* b,
+                                              int d) {
+  double s = 0.0;
+  for (int i = threadIdx.x & 31; i < d; i += 32)
+    s += (double)to_f32(a[i]) * (double)to_f32(b[i]);
+#pragma unroll
+  for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  return (float)s;
+}
+
+// Grid x of a wide launch: the tiles times the passes, a tile's passes
+// side by side.
+__device__ __forceinline__ void wide_block(int npass, int& tile, int& pass) {
+  tile = blockIdx.x / npass;
+  pass = blockIdx.x - tile * npass;
+}
+
+template <typename T16>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    flash_fwd_wide_mma_kernel(const T16* __restrict__ q,
+                              const T16* __restrict__ k,
+                              const T16* __restrict__ v, T16* __restrict__ o,
+                              float* __restrict__ lse, int seq, int d,
+                              float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  const int num_t = seq / kTile;
+  int t, pass;
+  wide_block(d / kWide, t, pass);
+  const int qt = num_t - 1 - t;  // causal: the longest rows first
+  const int col0 = pass * kWide;
+  const int bh = blockIdx.y;
+  const size_t base = (size_t)bh * seq * d;
+  float m2[2], l[2], acc[kWide / 8][4];
+  fwd_wide_tiles<T16>(mma_smem_buf, q + base, k + base, v + base, d, qt, 0,
+                      causal ? qt + 1 : num_t, causal, scale, col0, m2, l,
+                      acc);
+#pragma unroll
+  for (int n = 0; n < kWide / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] /= l[e >> 1];
+  store_rows_ld<kWide>(o + base + (size_t)qt * kTile * d + col0, d, acc,
+                       1.f);
+  const int lane = threadIdx.x & 31;
+  if (pass == 0 && (lane & 3) == 0) {
+    const size_t row = (size_t)bh * seq + qt * kTile +
+                       16 * (threadIdx.x >> 5) + (lane >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) lse[row + 8 * h] = m2[h] * kLn2 + logf(l[h]);
+  }
+}
+
+template <typename T16>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    flash_fwd_str_wide_mma_kernel(const T16* __restrict__ q,
+                                  const T16* __restrict__ k,
+                                  const T16* __restrict__ v,
+                                  float* __restrict__ m_ws,
+                                  float* __restrict__ l_ws,
+                                  float* __restrict__ acc_ws, int seq, int d,
+                                  int split, float scale, int causal) {
+  const int num_t = seq / kTile;
+  int t, pass;
+  wide_block(d / kWide, t, pass);
+  const int qt = num_t - 1 - t;
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  const int kt0 = sp * split;
+  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
+  if (kt0 >= kt1) return;  // dead pair: every key after every query
+
+  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  const int col0 = pass * kWide;
+  const size_t base = (size_t)bh * seq * d;
+  const size_t at = ws_row(sp, bh, gridDim.z, seq, qt * kTile);
+  float m2[2], l[2], acc[kWide / 8][4];
+  fwd_wide_tiles<T16>(mma_smem_buf, q + base, k + base, v + base, d, qt, kt0,
+                      kt1, causal, scale, col0, m2, l, acc);
+  store_rows_ld<kWide>(acc_ws + at * d + col0, d, acc, 1.f);
+  const int lane = threadIdx.x & 31;
+  if (pass == 0 && (lane & 3) == 0) {
+    const size_t row = at + 16 * (threadIdx.x >> 5) + (lane >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m_ws[row + 8 * h] = m2[h] * kLn2;
+      l_ws[row + 8 * h] = l[h];
+    }
+  }
+}
+
+// Columns [col0, col0 + kWide) of dQ at a wide D: dq_mma_tiles with S and
+// dP summed over the chunks of D, each k tile taken in two halves of 32
+// keys (the chunk partials need the registers a 64-key block would);
+// `rows` (LSE, then delta) written by the caller.
+template <typename T16>
+__device__ __forceinline__ void dq_wide_tiles(
+    unsigned char* smem, const T16* q, const T16* k, const T16* v,
+    const T16* dout, int d, int qt, int kt0, int kt1, int causal,
+    float scale, int col0, float (&acc)[kWide / 8][4]) {
+  constexpr int NK = kTile / 2;  // keys a half takes
+  T16* qs = reinterpret_cast<T16*>(smem);
+  T16* dos = qs + kWideTile;
+  T16* ks = dos + kWideTile;     // NK rows
+  T16* vs = ks + kWideTile;      // NK rows
+  T16* ko = vs + kWideTile;      // K's output columns, the whole tile
+  const float* rows = wide_rows(smem, 5);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nch = d / kWide;
+  float cs[2] = {kRowScaleMax, kRowScaleMax};
+  const int r0 = 16 * warp + (lane >> 2);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    for (int h = 0; h < 2; ++h) {
+      float s[NK / 8][4], dp[NK / 8][4];
+      zero(s);
+      zero(dp);
+      for (int c = 0; c < nch; ++c) {
+        __syncthreads();
+        const size_t qo = (size_t)qt * kTile * d + c * kWide;
+        const size_t ko0 = ((size_t)kt * kTile + h * NK) * d + c * kWide;
+        chunk_async(qs, q + qo, d);
+        chunk_async(dos, dout + qo, d);
+        chunk_async<NK>(ks, k + ko0, d);
+        chunk_async<NK>(vs, v + ko0, d);
+        if (h == 0 && c == nch - 1)
+          chunk_async(ko, k + (size_t)kt * kTile * d + col0, d);
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        mma_abt_chunk<T16, NK / 8>(s, qs + 16 * warp * kWideLd, ks, lane);
+        mma_abt_chunk<T16, NK / 8>(dp, dos + 16 * warp * kWideLd, vs, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < NK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = r0 + (e >> 1) * 8;
+          const int row = qt * kTile + r;                            // query
+          const int col = kt * kTile + h * NK + n * 8 + 2 * (lane & 3) +
+                          (e & 1);                                   // key
+          const float p = causal && col > row
+                              ? 0.f
+                              : expf(scale * s[n][e] - rows[r]);
+          dp[n][e] = p * (dp[n][e] - rows[kTile + r]);
+        }
+      if constexpr (kScaleRows<T16>()) scale_rows<NK / 8, kWide>(dp, acc, cs);
+      mma_xb_bwd<T16, kWide, kWide, NK / 16>(acc, dp, ko + h * NK * kWideLd,
+                                             lane, kRefineDs);
+    }
+  }
+  if constexpr (kScaleRows<T16>()) unscale_rows<kWide>(acc, cs);
+}
+
+template <typename T16>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    flash_bwd_dq_wide_mma_kernel(const T16* __restrict__ q,
+                                 const T16* __restrict__ k,
+                                 const T16* __restrict__ v,
+                                 const T16* __restrict__ o,
+                                 const T16* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 T16* __restrict__ dq,
+                                 float* __restrict__ delta, int seq, int d,
+                                 float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  float* rows = wide_rows(mma_smem_buf, 5);
+  int qt, pass;
+  wide_block(d / kWide, qt, pass);
+  const int bh = blockIdx.y;
+  const size_t base = (size_t)bh * seq * d;
+  // delta = rowsum(dO * O) over all of D, a warp a row; every pass
+  // computes it, the first writes it out.
+  for (int r = threadIdx.x >> 5; r < kTile; r += kWarps) {
+    const size_t at = base + (size_t)(qt * kTile + r) * d;
+    const float dl = warp_row_dot(dout + at, o + at, d);
+    if ((threadIdx.x & 31) == 0) {
+      const size_t row = (size_t)bh * seq + qt * kTile + r;
+      if (pass == 0) delta[row] = dl;
+      rows[r] = lse[row];
+      rows[kTile + r] = dl;
+    }
+  }
+  const int col0 = pass * kWide;
+  float acc[kWide / 8][4];
+  zero(acc);
+  dq_wide_tiles<T16>(mma_smem_buf, q + base, k + base, v + base, dout + base,
+                     d, qt, 0, causal ? qt + 1 : seq / kTile, causal, scale,
+                     col0, acc);
+  store_rows_ld<kWide>(dq + base + (size_t)qt * kTile * d + col0, d, acc,
+                       scale);
+}
+
+template <typename T16>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    flash_bwd_dq_str_wide_mma_kernel(const T16* __restrict__ q,
+                                     const T16* __restrict__ k,
+                                     const T16* __restrict__ v,
+                                     const T16* __restrict__ dout,
+                                     const float* __restrict__ lse,
+                                     const float* __restrict__ delta,
+                                     float* __restrict__ dq_ws, int seq,
+                                     int d, int split, float scale,
+                                     int causal) {
+  const int num_t = seq / kTile;
+  int t, pass;
+  wide_block(d / kWide, t, pass);
+  const int qt = num_t - 1 - t;
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  const int kt0 = sp * split;
+  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
+  if (kt0 >= kt1) return;
+
+  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  float* rows = wide_rows(mma_smem_buf, 5);
+  const size_t base = (size_t)bh * seq * d;
+  if (threadIdx.x < kTile) {
+    const size_t row = (size_t)bh * seq + qt * kTile + threadIdx.x;
+    rows[threadIdx.x] = lse[row];
+    rows[kTile + threadIdx.x] = delta[row];
+  }
+  const int col0 = pass * kWide;
+  float acc[kWide / 8][4];
+  zero(acc);
+  dq_wide_tiles<T16>(mma_smem_buf, q + base, k + base, v + base, dout + base,
+                     d, qt, kt0, kt1, causal, scale, col0, acc);
+  store_rows_ld<kWide>(
+      dq_ws + ws_row(sp, bh, gridDim.z, seq, qt * kTile) * d + col0, d, acc,
+      1.f);
+}
+
+// One output pass of dK/dV of the k tile `kt` at a wide D over the q tiles
+// [qt0, qt1): dV's columns [col0, col0 + kWide) from P^T dO, or (dk) dK's
+// from dS^T Q, S^T = K Q^T and dP^T = V dO^T summed over the chunks of D,
+// each q tile in two halves of 32 queries (as dq_wide_tiles halves its
+// keys).  The dV pass needs no dP.
+template <typename T16>
+__device__ __forceinline__ void dkv_wide_tiles(
+    unsigned char* smem, const T16* q, const T16* k, const T16* v,
+    const T16* dout, const float* lse, const float* delta, int d, int kt,
+    int qt0, int qt1, int causal, float scale, bool dk, int col0,
+    float (&acc)[kWide / 8][4]) {
+  constexpr int NQ = kTile / 2;  // queries a half takes
+  T16* ks = reinterpret_cast<T16*>(smem);
+  T16* qs = ks + kWideTile;      // NQ rows
+  T16* vs = qs + kWideTile;
+  T16* dos = vs + kWideTile;     // NQ rows
+  T16* xo = dos + kWideTile;     // NQ rows of Q's (dK) or dO's (dV) columns
+  float* rows = wide_rows(smem, 5);  // the q tile's LSE, then delta
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nch = d / kWide;
+  float cs[2] = {kRowScaleMax, kRowScaleMax};
+  const int krow = kt * kTile + 16 * warp + (lane >> 2);  // key, +8 for e >= 2
+  for (int qt = qt0; qt < qt1; ++qt) {
+    for (int h = 0; h < 2; ++h) {
+      float st[NQ / 8][4], dpt[NQ / 8][4];
+      zero(st);
+      zero(dpt);
+      for (int c = 0; c < nch; ++c) {
+        __syncthreads();
+        const size_t ko0 = (size_t)kt * kTile * d + c * kWide;
+        const size_t qo = ((size_t)qt * kTile + h * NQ) * d;
+        chunk_async(ks, k + ko0, d);
+        chunk_async<NQ>(qs, q + qo + c * kWide, d);
+        if (dk) {
+          chunk_async(vs, v + ko0, d);
+          chunk_async<NQ>(dos, dout + qo + c * kWide, d);
+        }
+        if (c == nch - 1) {
+          chunk_async<NQ>(xo, (dk ? q : dout) + qo + col0, d);
+          if (h == 0) {
+            rows_async(rows, lse + (size_t)qt * kTile);
+            rows_async(rows + kTile, delta + (size_t)qt * kTile);
+          }
+        }
+        cp_async_commit();
+        cp_async_wait_all();
+        __syncthreads();
+        mma_abt_chunk<T16, NQ / 8>(st, ks + 16 * warp * kWideLd, qs, lane);
+        if (dk)
+          mma_abt_chunk<T16, NQ / 8>(dpt, vs + 16 * warp * kWideLd, dos,
+                                     lane);
+      }
+#pragma unroll
+      for (int n = 0; n < NQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int j = h * NQ + n * 8 + 2 * (lane & 3) + (e & 1);  // query
+          const int key = krow + (e >> 1) * 8;
+          const float p = causal && key > qt * kTile + j
+                              ? 0.f
+                              : expf(scale * st[n][e] - rows[j]);
+          st[n][e] = p;
+          dpt[n][e] = p * (dpt[n][e] - rows[kTile + j]);
+        }
+      if (dk) {
+        if constexpr (kScaleRows<T16>())
+          scale_rows<NQ / 8, kWide>(dpt, acc, cs);
+        mma_xb_bwd<T16, kWide, kWide, NQ / 16>(acc, dpt, xo, lane,
+                                               kRefineDs);
+      } else {
+        if constexpr (kScaleRows<T16>())
+          scale_rows<NQ / 8, kWide>(st, acc, cs);
+        mma_xb_bwd<T16, kWide, kWide, NQ / 16>(acc, st, xo, lane, kRefineP);
+      }
+    }
+  }
+  if constexpr (kScaleRows<T16>()) unscale_rows<kWide>(acc, cs);
+}
+
+// dK/dV at a wide D: grid x is the k tiles times 2 * D / kWide passes, the
+// first D / kWide of a tile dV's slices, the rest dK's.
+template <typename T16>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    flash_bwd_dkv_wide_mma_kernel(const T16* __restrict__ q,
+                                  const T16* __restrict__ k,
+                                  const T16* __restrict__ v,
+                                  const T16* __restrict__ dout,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ delta,
+                                  T16* __restrict__ dk, T16* __restrict__ dv,
+                                  int seq, int d, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  const int npass = d / kWide;
+  int kt, pass;
+  wide_block(2 * npass, kt, pass);
+  const bool is_dk = pass >= npass;
+  const int col0 = (is_dk ? pass - npass : pass) * kWide;
+  const int bh = blockIdx.y;
+  const size_t base = (size_t)bh * seq * d;
+  float acc[kWide / 8][4];
+  zero(acc);
+  dkv_wide_tiles<T16>(mma_smem_buf, q + base, k + base, v + base, dout + base,
+                      lse + (size_t)bh * seq, delta + (size_t)bh * seq, d, kt,
+                      causal ? kt : 0, seq / kTile, causal, scale, is_dk,
+                      col0, acc);
+  store_rows_ld<kWide>((is_dk ? dk : dv) + base + (size_t)kt * kTile * d +
+                           col0,
+                       d, acc, is_dk ? scale : 1.f);
+}
+
+template <typename T16>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+    flash_bwd_dkv_str_wide_mma_kernel(const T16* __restrict__ q,
+                                      const T16* __restrict__ k,
+                                      const T16* __restrict__ v,
+                                      const T16* __restrict__ dout,
+                                      const float* __restrict__ lse,
+                                      const float* __restrict__ delta,
+                                      float* __restrict__ dk_ws,
+                                      float* __restrict__ dv_ws, int seq,
+                                      int d, int split, float scale,
+                                      int causal) {
+  const int num_t = seq / kTile;
+  const int npass = d / kWide;
+  int kt, pass;
+  wide_block(2 * npass, kt, pass);
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  int qt0 = sp * split;
+  const int qt1 = min(qt0 + split, num_t);
+  if (causal) qt0 = max(qt0, kt);
+  if (qt0 >= qt1) return;  // dead pair: every query before every key
+
+  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
+  const bool is_dk = pass >= npass;
+  const int col0 = (is_dk ? pass - npass : pass) * kWide;
+  const size_t base = (size_t)bh * seq * d;
+  float acc[kWide / 8][4];
+  zero(acc);
+  dkv_wide_tiles<T16>(mma_smem_buf, q + base, k + base, v + base, dout + base,
+                      lse + (size_t)bh * seq, delta + (size_t)bh * seq, d, kt,
+                      qt0, qt1, causal, scale, is_dk, col0, acc);
+  const size_t at = ws_row(sp, bh, gridDim.z, seq, kt * kTile) * d + col0;
+  store_rows_ld<kWide>((is_dk ? dk_ws : dv_ws) + at, d, acc, 1.f);
+}
+
+// ---- float32 at a wide D, on the CUDA cores -------------------------------
+// 256 threads, four to a row as in fwd_tiles; the first products over
+// 64-column chunks of D (kF32Chunk), each thread's 16 logits columns in
+// registers, and one 128-column output slice: 32 accumulators a thread.
+constexpr int kF32Chunk = 64;
+constexpr int kChunkLd = kF32Chunk + 1;
+static_assert(kChunkLd == kTile + 1, "the logits tile shares the chunk row");
+constexpr int kOutLd = kWide + 1;
+
+// Copy the [kTile, W] chunk at `src` (row stride d) into shared float32
+// rows of W + 1, times `scale`.
+template <typename T, int W>
+__device__ __forceinline__ void load_chunk(float* dst, const T* src, int d,
+                                           float scale) {
+  for (int i = threadIdx.x; i < kTile * W; i += kThreads) {
+    const int r = i / W;
+    const int c = i - r * W;
+    dst[r * (W + 1) + c] = to_f32(src[(size_t)r * d + c]) * scale;
+  }
+}
+
+// Shared memory of the float32 wide kernels: `chunks` [kTile][kChunkLd]
+// chunks (the logits tile counts as one), one [kTile][kOutLd] output-column
+// tile, and in dK/dV the q tile's LSE and delta.
+__host__ __device__ constexpr size_t wide_f32_smem(int chunks, int rows) {
+  return (chunks * kTile * kChunkLd + kTile * kOutLd + rows * kTile) *
+         sizeof(float);
+}
+
+template <typename T>
+__device__ __forceinline__ void fwd_wide_tiles_f32(
+    float* smem, const T* q, const T* k, const T* v, int d, int qt, int kt0,
+    int kt1, int causal, float scale, int col0, float& m, float& l,
+    float (&acc)[kWide / kLanes]) {
+  float* qs = smem;                    // [kTile][kChunkLd], times sm_scale
+  float* ks = qs + kTile * kChunkLd;   // [kTile][kChunkLd]
+  float* ps = ks + kTile * kChunkLd;   // [kTile][kChunkLd] probabilities
+  float* vs = ps + kTile * kChunkLd;   // [kTile][kOutLd]
+  constexpr int cols = kTile / kLanes;
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  for (int kt = kt0; kt < kt1; ++kt) {
+    float s[cols];
+#pragma unroll
+    for (int j = 0; j < cols; ++j) s[j] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kF32Chunk) {
+      __syncthreads();  // every thread is done with the chunks, P and V
+      load_chunk<T, kF32Chunk>(qs, q + (size_t)qt * kTile * d + c0, d, scale);
+      load_chunk<T, kF32Chunk>(ks, k + (size_t)kt * kTile * d + c0, d, 1.f);
+      if (c0 + kF32Chunk >= d)
+        load_chunk<T, kWide>(vs, v + (size_t)kt * kTile * d + col0, d, 1.f);
+      __syncthreads();
+      for (int dd = 0; dd < kF32Chunk; ++dd) {
+        const float qv = qs[r * kChunkLd + dd];
+#pragma unroll
+        for (int j = 0; j < cols; ++j)
+          s[j] += qv * ks[(c + kLanes * j) * kChunkLd + dd];
+      }
+    }
+    if (causal && kt == qt) {
+#pragma unroll
+      for (int j = 0; j < cols; ++j)
+        if (c + kLanes * j > r) s[j] = -INFINITY;
+    }
+    float mx = m;
+#pragma unroll
+    for (int j = 0; j < cols; ++j) mx = fmaxf(mx, s[j]);
+    mx = row_max(mx);
+    const float alpha = expf(m - mx);
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < cols; ++j) {
+      const float p = expf(s[j] - mx);
+      ps[r * kChunkLd + c + kLanes * j] = p;
+      rs += p;
+    }
+    l = l * alpha + row_sum(rs);
+    m = mx;
+#pragma unroll
+    for (int i = 0; i < kWide / kLanes; ++i) acc[i] *= alpha;
+    __syncwarp();  // a row's probabilities are written and read by one warp
+    for (int j = 0; j < kTile; ++j) {
+      const float p = ps[r * kChunkLd + j];
+#pragma unroll
+      for (int i = 0; i < kWide / kLanes; ++i)
+        acc[i] += p * vs[j * kOutLd + c + kLanes * i];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o,
+                          float* __restrict__ lse, int seq, int d,
+                          float scale, int causal) {
+  extern __shared__ float smem[];
+  int qt, pass;
+  wide_block(d / kWide, qt, pass);
+  const int col0 = pass * kWide;
+  const int bh = blockIdx.y;
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const size_t base = (size_t)bh * seq * d;
+  float m = -INFINITY, l = 0.f, acc[kWide / kLanes];
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
+  fwd_wide_tiles_f32<T>(smem, q + base, k + base, v + base, d, qt, 0,
+                        causal ? qt + 1 : seq / kTile, causal, scale, col0, m,
+                        l, acc);
+  const int row = qt * kTile + r;
+  T* orow = o + base + (size_t)row * d + col0;
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i)
+    orow[c + kLanes * i] = from_f32<T>(acc[i] / l);
+  if (pass == 0 && c == 0) lse[(size_t)bh * seq + row] = m + logf(l);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_str_wide_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              float* __restrict__ m_ws,
+                              float* __restrict__ l_ws,
+                              float* __restrict__ acc_ws, int seq, int d,
+                              int split, float scale, int causal) {
+  const int num_t = seq / kTile;
+  int t, pass;
+  wide_block(d / kWide, t, pass);
+  const int qt = num_t - 1 - t;
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  const int kt0 = sp * split;
+  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
+  if (kt0 >= kt1) return;
+
+  extern __shared__ float smem[];
+  const int col0 = pass * kWide;
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const size_t base = (size_t)bh * seq * d;
+  float m = -INFINITY, l = 0.f, acc[kWide / kLanes];
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
+  fwd_wide_tiles_f32<T>(smem, q + base, k + base, v + base, d, qt, kt0, kt1,
+                        causal, scale, col0, m, l, acc);
+  const size_t at = ws_row(sp, bh, gridDim.z, seq, qt * kTile + r);
+  float* arow = acc_ws + at * d + col0;
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i) arow[c + kLanes * i] = acc[i];
+  if (pass == 0 && c == 0) {
+    m_ws[at] = m;
+    l_ws[at] = l;
+  }
+}
+
+// dQ columns [col0, col0 + kWide) at a wide D on the CUDA cores; the caller
+// scales by sm_scale.
+template <typename T>
+__device__ __forceinline__ void dq_wide_tiles_f32(
+    float* smem, const T* q, const T* k, const T* v, const T* dout, int d,
+    int qt, int kt0, int kt1, int causal, float scale, float lse_r, float dl,
+    int col0, float (&acc)[kWide / kLanes]) {
+  float* qs = smem;
+  float* dos = qs + kTile * kChunkLd;
+  float* ks = dos + kTile * kChunkLd;
+  float* vs = ks + kTile * kChunkLd;
+  float* dss = vs + kTile * kChunkLd;  // [kTile][kChunkLd] dS tile
+  float* ko = dss + kTile * kChunkLd;  // [kTile][kOutLd] K's output columns
+  constexpr int cols = kTile / kLanes;
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  for (int kt = kt0; kt < kt1; ++kt) {
+    float s[cols], dp[cols];
+#pragma unroll
+    for (int j = 0; j < cols; ++j) s[j] = dp[j] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kF32Chunk) {
+      __syncthreads();
+      const size_t qo = (size_t)qt * kTile * d + c0;
+      const size_t ko0 = (size_t)kt * kTile * d;
+      load_chunk<T, kF32Chunk>(qs, q + qo, d, 1.f);
+      load_chunk<T, kF32Chunk>(dos, dout + qo, d, 1.f);
+      load_chunk<T, kF32Chunk>(ks, k + ko0 + c0, d, 1.f);
+      load_chunk<T, kF32Chunk>(vs, v + ko0 + c0, d, 1.f);
+      if (c0 + kF32Chunk >= d)
+        load_chunk<T, kWide>(ko, k + ko0 + col0, d, 1.f);
+      __syncthreads();
+      for (int dd = 0; dd < kF32Chunk; ++dd) {
+        const float qv = qs[r * kChunkLd + dd];
+        const float dv = dos[r * kChunkLd + dd];
+#pragma unroll
+        for (int j = 0; j < cols; ++j) {
+          const int col = c + kLanes * j;
+          s[j] += qv * ks[col * kChunkLd + dd];
+          dp[j] += dv * vs[col * kChunkLd + dd];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < cols; ++j) {
+      const int col = c + kLanes * j;
+      const bool masked = causal && kt == qt && col > r;
+      const float p = masked ? 0.f : expf(scale * s[j] - lse_r);
+      dss[r * kChunkLd + col] = p * (dp[j] - dl);
+    }
+    __syncwarp();
+    for (int j = 0; j < kTile; ++j) {
+      const float ds = dss[r * kChunkLd + j];
+#pragma unroll
+      for (int i = 0; i < kWide / kLanes; ++i)
+        acc[i] += ds * ko[j * kOutLd + c + kLanes * i];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ o,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             T* __restrict__ dq, float* __restrict__ delta,
+                             int seq, int d, float scale, int causal) {
+  extern __shared__ float smem[];
+  int qt, pass;
+  wide_block(d / kWide, qt, pass);
+  const int col0 = pass * kWide;
+  const int bh = blockIdx.y;
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const size_t base = (size_t)bh * seq * d;
+  const int row = qt * kTile + r;
+  // delta a warp a row into the dS tile's space (not used before the first
+  // chunk, behind a barrier), then to each row's four threads.
+  float* dls = smem + 4 * kTile * kChunkLd;
+  for (int rr = threadIdx.x >> 5; rr < kTile; rr += kThreads / 32) {
+    const size_t at = base + (size_t)(qt * kTile + rr) * d;
+    const float v = warp_row_dot(dout + at, o + at, d);
+    if ((threadIdx.x & 31) == 0) dls[rr] = v;
+  }
+  __syncthreads();
+  const float dl = dls[r];
+  if (pass == 0 && c == 0) delta[(size_t)bh * seq + row] = dl;
+  const float lse_r = lse[(size_t)bh * seq + row];
+  float acc[kWide / kLanes];
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
+  dq_wide_tiles_f32<T>(smem, q + base, k + base, v + base, dout + base, d, qt,
+                       0, causal ? qt + 1 : seq / kTile, causal, scale, lse_r,
+                       dl, col0, acc);
+  T* dqrow = dq + base + (size_t)row * d + col0;
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i)
+    dqrow[c + kLanes * i] = from_f32<T>(scale * acc[i]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_str_wide_kernel(const T* __restrict__ q,
+                                 const T* __restrict__ k,
+                                 const T* __restrict__ v,
+                                 const T* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 float* __restrict__ dq_ws, int seq, int d,
+                                 int split, float scale, int causal) {
+  const int num_t = seq / kTile;
+  int t, pass;
+  wide_block(d / kWide, t, pass);
+  const int qt = num_t - 1 - t;
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  const int kt0 = sp * split;
+  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
+  if (kt0 >= kt1) return;
+
+  extern __shared__ float smem[];
+  const int col0 = pass * kWide;
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const size_t base = (size_t)bh * seq * d;
+  const int row = qt * kTile + r;
+  const float lse_r = lse[(size_t)bh * seq + row];
+  const float dl = delta[(size_t)bh * seq + row];
+  float acc[kWide / kLanes];
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
+  dq_wide_tiles_f32<T>(smem, q + base, k + base, v + base, dout + base, d, qt,
+                       kt0, kt1, causal, scale, lse_r, dl, col0, acc);
+  float* arow = dq_ws + ws_row(sp, bh, gridDim.z, seq, row) * d + col0;
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i) arow[c + kLanes * i] = acc[i];
+}
+
+// One output pass of dK/dV (dK's columns when `dk`, else dV's) of the k
+// tile `kt` at a wide D on the CUDA cores: thread j / 4 owns key row j and
+// 16 of the q tile's queries.
+template <typename T>
+__device__ __forceinline__ void dkv_wide_tiles_f32(
+    float* smem, const T* q, const T* k, const T* v, const T* dout,
+    const float* lse, const float* delta, int d, int kt, int qt0, int qt1,
+    int causal, float scale, bool dk, int col0,
+    float (&acc)[kWide / kLanes]) {
+  float* ks = smem;
+  float* vs = ks + kTile * kChunkLd;
+  float* qs = vs + kTile * kChunkLd;
+  float* dos = qs + kTile * kChunkLd;
+  float* xt = dos + kTile * kChunkLd;  // [kTile][kChunkLd] P^T or dS^T
+  float* xo = xt + kTile * kChunkLd;   // [kTile][kOutLd] Q's or dO's columns
+  float* lses = xo + kTile * kOutLd;   // [kTile]
+  float* dels = lses + kTile;          // [kTile]
+  constexpr int cols = kTile / kLanes;
+  const int j = threadIdx.x / kLanes;  // this thread's k row in the tile
+  const int c = threadIdx.x % kLanes;
+  for (int qt = qt0; qt < qt1; ++qt) {
+    float s[cols], dp[cols];
+#pragma unroll
+    for (int i = 0; i < cols; ++i) s[i] = dp[i] = 0.f;
+    for (int c0 = 0; c0 < d; c0 += kF32Chunk) {
+      __syncthreads();
+      const size_t ko0 = (size_t)kt * kTile * d + c0;
+      const size_t qo = (size_t)qt * kTile * d;
+      load_chunk<T, kF32Chunk>(ks, k + ko0, d, 1.f);
+      load_chunk<T, kF32Chunk>(qs, q + qo + c0, d, 1.f);
+      if (dk) {
+        load_chunk<T, kF32Chunk>(vs, v + ko0, d, 1.f);
+        load_chunk<T, kF32Chunk>(dos, dout + qo + c0, d, 1.f);
+      }
+      if (c0 + kF32Chunk >= d) {
+        load_chunk<T, kWide>(xo, (dk ? q : dout) + qo + col0, d, 1.f);
+        if (threadIdx.x < kTile) {
+          lses[threadIdx.x] = lse[(size_t)qt * kTile + threadIdx.x];
+          dels[threadIdx.x] = delta[(size_t)qt * kTile + threadIdx.x];
+        }
+      }
+      __syncthreads();
+      for (int dd = 0; dd < kF32Chunk; ++dd) {
+        const float kv = ks[j * kChunkLd + dd];
+#pragma unroll
+        for (int i = 0; i < cols; ++i)
+          s[i] += qs[(c + kLanes * i) * kChunkLd + dd] * kv;
+        if (dk) {
+          const float vv = vs[j * kChunkLd + dd];
+#pragma unroll
+          for (int i = 0; i < cols; ++i)
+            dp[i] += dos[(c + kLanes * i) * kChunkLd + dd] * vv;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < cols; ++i) {
+      const int qr = c + kLanes * i;
+      const bool masked = causal && qt == kt && j > qr;
+      const float p = masked ? 0.f : expf(scale * s[i] - lses[qr]);
+      xt[j * kChunkLd + qr] = dk ? p * (dp[i] - dels[qr]) : p;
+    }
+    __syncwarp();
+    for (int qr = 0; qr < kTile; ++qr) {
+      const float x = xt[j * kChunkLd + qr];
+#pragma unroll
+      for (int i = 0; i < kWide / kLanes; ++i)
+        acc[i] += x * xo[qr * kOutLd + c + kLanes * i];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_wide_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k,
+                              const T* __restrict__ v,
+                              const T* __restrict__ dout,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              T* __restrict__ dk, T* __restrict__ dv, int seq,
+                              int d, float scale, int causal) {
+  extern __shared__ float smem[];
+  const int npass = d / kWide;
+  int kt, pass;
+  wide_block(2 * npass, kt, pass);
+  const bool is_dk = pass >= npass;
+  const int col0 = (is_dk ? pass - npass : pass) * kWide;
+  const int bh = blockIdx.y;
+  const int j = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const size_t base = (size_t)bh * seq * d;
+  float acc[kWide / kLanes];
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
+  dkv_wide_tiles_f32<T>(smem, q + base, k + base, v + base, dout + base,
+                        lse + (size_t)bh * seq, delta + (size_t)bh * seq, d,
+                        kt, causal ? kt : 0, seq / kTile, causal, scale,
+                        is_dk, col0, acc);
+  T* out = (is_dk ? dk : dv) + base + (size_t)(kt * kTile + j) * d + col0;
+  const float sc = is_dk ? scale : 1.f;
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i)
+    out[c + kLanes * i] = from_f32<T>(sc * acc[i]);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_str_wide_kernel(const T* __restrict__ q,
+                                  const T* __restrict__ k,
+                                  const T* __restrict__ v,
+                                  const T* __restrict__ dout,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ delta,
+                                  float* __restrict__ dk_ws,
+                                  float* __restrict__ dv_ws, int seq, int d,
+                                  int split, float scale, int causal) {
+  const int num_t = seq / kTile;
+  const int npass = d / kWide;
+  int kt, pass;
+  wide_block(2 * npass, kt, pass);
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  int qt0 = sp * split;
+  const int qt1 = min(qt0 + split, num_t);
+  if (causal) qt0 = max(qt0, kt);
+  if (qt0 >= qt1) return;
+
+  extern __shared__ float smem[];
+  const bool is_dk = pass >= npass;
+  const int col0 = (is_dk ? pass - npass : pass) * kWide;
+  const int j = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const size_t base = (size_t)bh * seq * d;
+  float acc[kWide / kLanes];
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
+  dkv_wide_tiles_f32<T>(smem, q + base, k + base, v + base, dout + base,
+                        lse + (size_t)bh * seq, delta + (size_t)bh * seq, d,
+                        kt, qt0, qt1, causal, scale, is_dk, col0, acc);
+  float* out = (is_dk ? dk_ws : dv_ws) +
+               ws_row(sp, bh, gridDim.z, seq, kt * kTile + j) * d + col0;
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i) out[c + kLanes * i] = acc[i];
+}
+
+// ---- the streaming passes at a wide D: grid x is the row tiles times the
+// D / kWide output slices ----------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_str_merge_wide_kernel(const float* __restrict__ m_ws,
+                                    const float* __restrict__ l_ws,
+                                    const float* __restrict__ acc_ws,
+                                    T* __restrict__ o,
+                                    float* __restrict__ lse, int seq, int d,
+                                    int nsplit, int split, int causal) {
+  int qt, pass;
+  wide_block(d / kWide, qt, pass);
+  const int col0 = pass * kWide;
+  const int bh = blockIdx.y;
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const int row = qt * kTile + r;
+  int j0, j1;
+  live_splits(qt, nsplit, split, causal, 0, j0, j1);
+  float mx = -INFINITY;
+  for (int j = j0; j < j1; ++j)
+    mx = fmaxf(mx, m_ws[ws_row(j, bh, gridDim.y, seq, row)]);
+  float l = 0.f;
+  float acc[kWide / kLanes];
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
+  for (int j = j0; j < j1; ++j) {
+    const size_t at = ws_row(j, bh, gridDim.y, seq, row);
+    const float w = expf(m_ws[at] - mx);
+    l += w * l_ws[at];
+    const float* arow = acc_ws + at * d + col0;
+#pragma unroll
+    for (int i = 0; i < kWide / kLanes; ++i)
+      acc[i] += w * arow[c + kLanes * i];
+  }
+  const size_t at0 = (size_t)bh * seq + row;
+  T* orow = o + at0 * d + col0;
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i)
+    orow[c + kLanes * i] = from_f32<T>(acc[i] / l);
+  if (pass == 0 && c == 0) lse[at0] = mx + logf(l);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_delta_wide_kernel(const T* __restrict__ o,
+                            const T* __restrict__ dout,
+                            float* __restrict__ delta, int seq, int d) {
+  for (int r = threadIdx.x >> 5; r < kTile; r += kThreads / 32) {
+    const size_t at0 = (size_t)blockIdx.y * seq + blockIdx.x * kTile + r;
+    const float dl = warp_row_dot(dout + at0 * d, o + at0 * d, d);
+    if ((threadIdx.x & 31) == 0) delta[at0] = dl;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_sum_splits_wide_kernel(const float* __restrict__ ws,
+                                 T* __restrict__ out, int seq, int d,
+                                 int nsplit, int split, float scale,
+                                 int causal, int upper) {
+  int t, pass;
+  wide_block(d / kWide, t, pass);
+  const int col0 = pass * kWide;
+  const int bh = blockIdx.y;
+  const int r = threadIdx.x / kLanes;
+  const int c = threadIdx.x % kLanes;
+  const int row = t * kTile + r;
+  int j0, j1;
+  live_splits(t, nsplit, split, causal, upper, j0, j1);
+  float acc[kWide / kLanes];
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
+  for (int j = j0; j < j1; ++j) {
+    const float* arow = ws + ws_row(j, bh, gridDim.y, seq, row) * d + col0;
+#pragma unroll
+    for (int i = 0; i < kWide / kLanes; ++i) acc[i] += arow[c + kLanes * i];
+  }
+  T* orow = out + ((size_t)bh * seq + row) * d + col0;
+#pragma unroll
+  for (int i = 0; i < kWide / kLanes; ++i)
+    orow[c + kLanes * i] = from_f32<T>(scale * acc[i]);
+}
+
+// ---------------------------------------------------------------------------
 // Host side: shared-memory sizes, launches, dtype/head-dim dispatch.
 // ---------------------------------------------------------------------------
 // Shared memory of the CUDA-core kernels: the fixed tiles (kTile rows of
@@ -1861,6 +2938,176 @@ cudaError_t launch_dkv_str(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// Launchers at a wide head dim (above 256, a multiple of kWide): the same
+// work as the launchers above, D a run-time argument, kWide-column output
+// passes in grid x.
+template <typename T>
+cudaError_t launch_fwd_wide(int d, const void* q, const void* k,
+                            const void* v, void* o, float* lse, int bh, int seq,
+                            float scale, int causal, cudaStream_t stream) {
+  const dim3 grid(seq / kTile * (d / kWide), bh);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = wide_mma_smem(3);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_wide_mma_kernel<T>, smem));
+    flash_fwd_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, d, scale,
+        causal);
+  } else {
+    const size_t smem = wide_f32_smem(3, 0);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_wide_kernel<T>, smem));
+    flash_fwd_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, d, scale,
+        causal);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dq_wide(int d, const void* q, const void* k,
+                           const void* v, const void* o, const void* dout, const float* lse,
+                           void* dq, float* delta, int bh, int seq,
+                           float scale, int causal, cudaStream_t stream) {
+  const dim3 grid(seq / kTile * (d / kWide), bh);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = wide_mma_smem(5);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_wide_mma_kernel<T>, smem));
+    flash_bwd_dq_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
+        lse, (T*)dq, delta, seq, d, scale, causal);
+  } else {
+    const size_t smem = wide_f32_smem(5, 0);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_wide_kernel<T>, smem));
+    flash_bwd_dq_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
+        lse, (T*)dq, delta, seq, d, scale, causal);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv_wide(int d, const void* q, const void* k,
+                            const void* v, const void* dout, const float* lse,
+                            const float* delta, void* dk, void* dv, int bh,
+                            int seq, float scale, int causal,
+                            cudaStream_t stream) {
+  const dim3 grid(seq / kTile * 2 * (d / kWide), bh);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = wide_mma_smem(5);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_wide_mma_kernel<T>, smem));
+    flash_bwd_dkv_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+        (T*)dk, (T*)dv, seq, d, scale, causal);
+  } else {
+    const size_t smem = wide_f32_smem(5, 2);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_wide_kernel<T>, smem));
+    flash_bwd_dkv_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+        (T*)dk, (T*)dv, seq, d, scale, causal);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fwd_str_wide(int d, const void* q, const void* k,
+                                const void* v, void* o, float* lse,
+                                float* m_ws, float* l_ws, float* acc_ws,
+                                int bh, int seq, float scale, int causal,
+                                int split, cudaStream_t stream) {
+  const int num_t = seq / kTile;
+  const int npass = d / kWide;
+  const int nsplit = num_splits(seq, split);
+  const dim3 grid(num_t * npass, nsplit, bh);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = wide_mma_smem(3);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_wide_mma_kernel<T>, smem));
+    flash_fwd_str_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq, d,
+        split, scale, causal);
+  } else {
+    const size_t smem = wide_f32_smem(3, 0);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_wide_kernel<T>, smem));
+    flash_fwd_str_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq, d,
+        split, scale, causal);
+  }
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  flash_fwd_str_merge_wide_kernel<T>
+      <<<dim3(num_t * npass, bh), kThreads, 0, stream>>>(
+          m_ws, l_ws, acc_ws, (T*)o, lse, seq, d, nsplit, split, causal);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dq_str_wide(int d, const void* q, const void* k,
+                               const void* v, const void* o, const void* dout,
+                               const float* lse, void* dq, float* delta,
+                               float* dq_ws, int bh, int seq,
+                               float scale, int causal, int split,
+                               cudaStream_t stream) {
+  const int num_t = seq / kTile;
+  const int npass = d / kWide;
+  const int nsplit = num_splits(seq, split);
+  flash_delta_wide_kernel<T><<<dim3(num_t, bh), kThreads, 0, stream>>>(
+      (const T*)o, (const T*)dout, delta, seq, d);
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  const dim3 grid(num_t * npass, nsplit, bh);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = wide_mma_smem(5);
+    BPS_RETURN_IF_ERROR(
+        allow_smem(flash_bwd_dq_str_wide_mma_kernel<T>, smem));
+    flash_bwd_dq_str_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+        dq_ws, seq, d, split, scale, causal);
+  } else {
+    const size_t smem = wide_f32_smem(5, 0);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_str_wide_kernel<T>, smem));
+    flash_bwd_dq_str_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+        dq_ws, seq, d, split, scale, causal);
+  }
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  flash_sum_splits_wide_kernel<T>
+      <<<dim3(num_t * npass, bh), kThreads, 0, stream>>>(
+          dq_ws, (T*)dq, seq, d, nsplit, split, scale, causal, 0);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv_str_wide(int d, const void* q, const void* k,
+                                const void* v, const void* dout,
+                                const float* lse, const float* delta,
+                                void* dk, void* dv, float* dk_ws,
+                                float* dv_ws, int bh, int seq, float scale,
+                                int causal, int split, cudaStream_t stream) {
+  const int num_t = seq / kTile;
+  const int npass = d / kWide;
+  const int nsplit = num_splits(seq, split);
+  const dim3 grid(num_t * 2 * npass, nsplit, bh);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = wide_mma_smem(5);
+    BPS_RETURN_IF_ERROR(
+        allow_smem(flash_bwd_dkv_str_wide_mma_kernel<T>, smem));
+    flash_bwd_dkv_str_wide_mma_kernel<T>
+        <<<grid, kMmaThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
+            delta, dk_ws, dv_ws, seq, d, split, scale, causal);
+  } else {
+    const size_t smem = wide_f32_smem(5, 2);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_str_wide_kernel<T>, smem));
+    flash_bwd_dkv_str_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+        dk_ws, dv_ws, seq, d, split, scale, causal);
+  }
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  const dim3 sum_grid(num_t * npass, bh);
+  flash_sum_splits_wide_kernel<T><<<sum_grid, kThreads, 0, stream>>>(
+      dk_ws, (T*)dk, seq, d, nsplit, split, scale, causal, 1);
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  flash_sum_splits_wide_kernel<T><<<sum_grid, kThreads, 0, stream>>>(
+      dv_ws, (T*)dv, seq, d, nsplit, split, 1.f, causal, 1);
+  return cudaGetLastError();
+}
+
 bool shape_ok(int bh, int seq) {
   return bh >= 1 && bh <= 65535 && seq >= kTile && seq % kTile == 0;
 }
@@ -1887,8 +3134,18 @@ bool split_ok(int seq, int split) {
     case 128: return (int)launcher<T, 128>(__VA_ARGS__);                   \
     case 256: return (int)launcher<T, 256>(__VA_ARGS__);                   \
   }
+// Head dims above 256 (multiples of kWide) go to the wide launchers,
+// `launcher`_wide<T>(...), with D among their arguments.
 #define BPS_DISPATCH(launcher, dtype, d, ...)                              \
   do {                                                                     \
+    if ((d) > 256) {                                                       \
+      if ((d) % kWide) return (int)cudaErrorInvalidValue;                  \
+      if ((dtype) == 0) return (int)launcher##_wide<float>(d, __VA_ARGS__);   \
+      if ((dtype) == 1)                                                    \
+        return (int)launcher##_wide<__nv_bfloat16>(d, __VA_ARGS__);           \
+      if ((dtype) == 2) return (int)launcher##_wide<__half>(d, __VA_ARGS__);  \
+      return (int)cudaErrorInvalidValue;                                   \
+    }                                                                      \
     if ((dtype) == 0) {                                                    \
       BPS_HEAD_DIMS(launcher, float, d, __VA_ARGS__)                       \
     } else if ((dtype) == 1) {                                             \
@@ -1902,7 +3159,8 @@ bool split_ok(int seq, int split) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  head_dim: 16, 32, 64,
-// 128 or 256.  bh: at most 65,535.
+// 128 or 256, or above 256 a multiple of 128 (the wide kernels).  bh: at
+// most 65,535.
 // Returns a cudaError_t as int; 0 means the launch was accepted.
 extern "C" int bps_flash_fwd(const void* q, const void* k, const void* v,
                              void* o, float* lse, int bh, int seq,

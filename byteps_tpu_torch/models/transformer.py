@@ -49,8 +49,9 @@ class TransformerConfig:
     use_bias: bool = True              # llama-class blocks drop biases
     remat: bool = True                 # per-layer rematerialisation
     # "none" recomputes each layer from its input in backward
-    # (torch.utils.checkpoint).  "proj", "dots" and "dots_no_batch" are the
-    # JAX package's XLA save policies; see forward_hidden.
+    # (torch.utils.checkpoint); "proj" keeps qkv, attn_ctx and attn_proj,
+    # "dots" every matmul output, "dots_no_batch" those without batch dims
+    # (the JAX package's policies; see _remat_block).
     remat_policy: str = "none"
     attn_impl: str = "dense"           # "dense" | "flash"
     attn_block: int = 0                # flash block hint (0 = auto)
@@ -292,10 +293,10 @@ def flash_attention_fn(q, k, v, causal: bool, strict: bool = False,
                        block: int = 0, block_k: int = 0):
     """Adapter: [B, H, S, Dh] -> the flash kernels' [BH, S, Dh] layout, with
     a fallback to dense attention when S is not a multiple of 64 or Dh not
-    a multiple of 8; ``strict=True`` raises instead.  A shape that reaches
-    the kernels with Dh above their MAX_HEAD_DIM (256) raises ValueError in
-    either mode.  A block override that does not divide S or is not a
-    multiple of 64 reverts to the auto choice, never to dense."""
+    a multiple of 8; ``strict=True`` raises instead.  Any other Dh runs on
+    the kernels, zero-padded to the next head dim they take.  A block
+    override that does not divide S or is not a multiple of 64 reverts to
+    the auto choice, never to dense."""
     B, H, S, Dh = q.shape
     if not block or S % block or block % 64:
         block = flash_auto_block(S)
@@ -320,22 +321,26 @@ def flash_attention_fn(q, k, v, causal: bool, strict: bool = False,
 _ATTN_IMPLS = {"dense": dense_attention, "flash": flash_attention_fn}
 
 
-def _block(x, lp: Dict[str, torch.Tensor], cfg: TransformerConfig, attn_fn):
-    """One transformer block.  x: [B, S, D]; lp: this layer's params."""
-    dt = cfg.dtype
-    B, S, D = x.shape
+def _bias(lp: Dict[str, torch.Tensor], name: str, dt: torch.dtype):
+    return lp[name].to(dt) if name in lp else None
+
+
+def _add_bias(t, lp, name):
+    b = _bias(lp, name, t.dtype)
+    return t if b is None else t + b
+
+
+# One transformer block in four pieces, cut at the tensors the JAX package
+# names for its "proj" remat policy (qkv, attn_ctx, attn_proj, ffn_out).
+def _qkv(x, lp: Dict[str, torch.Tensor], cfg: TransformerConfig):
+    h = _NORMS[cfg.norm](x, lp["ln1_scale"], _bias(lp, "ln1_bias", cfg.dtype))
+    return _add_bias(h @ lp["qkv_w"].to(cfg.dtype), lp, "qkv_b")
+
+
+def _attend(qkv, cfg: TransformerConfig, attn_fn):
+    """qkv [B, S, (H + 2 Hkv) Dh] -> the attention context [B, S, H Dh]."""
+    B, S, _ = qkv.shape
     H, Hkv, Dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
-    norm = _NORMS[cfg.norm]
-
-    def bias(name):
-        return lp[name].to(dt) if name in lp else None
-
-    def add_bias(t, name):
-        b = bias(name)
-        return t if b is None else t + b
-
-    h = norm(x, lp["ln1_scale"], bias("ln1_bias"))
-    qkv = add_bias(h @ lp["qkv_w"].to(dt), "qkv_b")
     q, k, v = torch.split(qkv, [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
 
     def heads(t):
@@ -348,16 +353,97 @@ def _block(x, lp: Dict[str, torch.Tensor], cfg: TransformerConfig, attn_fn):
         k = torch.repeat_interleave(k, H // Hkv, dim=1)
         v = torch.repeat_interleave(v, H // Hkv, dim=1)
     attn = attn_fn(q, k, v, cfg.causal)
-    attn = attn.transpose(1, 2).reshape(B, S, -1)
-    x = x + add_bias(attn @ lp["attn_out_w"].to(dt), "attn_out_b")
+    return attn.transpose(1, 2).reshape(B, S, -1)
 
-    h = norm(x, lp["ln2_scale"], bias("ln2_bias"))
-    up = add_bias(h @ lp["mlp_in_w"].to(dt), "mlp_in_b")
+
+def _attn_proj(ctx, lp: Dict[str, torch.Tensor], cfg: TransformerConfig):
+    return _add_bias(ctx @ lp["attn_out_w"].to(cfg.dtype), lp, "attn_out_b")
+
+
+def _ffn(r, lp: Dict[str, torch.Tensor], cfg: TransformerConfig):
+    """The MLP's output on the residual stream r."""
+    dt = cfg.dtype
+    h = _NORMS[cfg.norm](r, lp["ln2_scale"], _bias(lp, "ln2_bias", dt))
+    up = _add_bias(h @ lp["mlp_in_w"].to(dt), lp, "mlp_in_b")
     if cfg.act == "swiglu":
         h = F.silu(h @ lp["mlp_gate_w"].to(dt)) * up
     else:
         h = F.gelu(up, approximate="tanh")   # jax.nn.gelu's default
-    return x + add_bias(h @ lp["mlp_out_w"].to(dt), "mlp_out_b")
+    return _add_bias(h @ lp["mlp_out_w"].to(dt), lp, "mlp_out_b")
+
+
+def _residual_ffn(x, proj, lp: Dict[str, torch.Tensor],
+                  cfg: TransformerConfig):
+    """The block's output from its input x and attn_proj."""
+    r = x + proj
+    return r + _ffn(r, lp, cfg)
+
+
+def _block(x, lp: Dict[str, torch.Tensor], cfg: TransformerConfig, attn_fn):
+    """One transformer block.  x: [B, S, D]; lp: this layer's params."""
+    proj = _attn_proj(_attend(_qkv(x, lp, cfg), cfg, attn_fn), lp, cfg)
+    return _residual_ffn(x, proj, lp, cfg)
+
+
+def _block_proj(x, lp, cfg: TransformerConfig, attn_fn):
+    """``_block`` under the "proj" policy: each piece checkpointed, so that
+    the backward keeps the block's input and qkv, attn_ctx and attn_proj,
+    and recomputes the rest (the norms, the attention with its
+    probabilities, the MLP's hidden layer) piece by piece.  ffn_out is
+    named too, but no backward needs it (the residual add), as under the
+    JAX policy, which keeps a named tensor only where the backward needs
+    it."""
+    qkv = checkpoint(_qkv, x, lp, cfg, use_reentrant=False)
+    ctx = checkpoint(_attend, qkv, cfg, attn_fn, use_reentrant=False)
+    proj = checkpoint(_attn_proj, ctx, lp, cfg, use_reentrant=False)
+    return checkpoint(_residual_ffn, x, proj, lp, cfg, use_reentrant=False)
+
+
+# The matrix products of the JAX package's "dots" policies as the
+# dispatcher sees them: torch.matmul of [B, S, D] by [D, E] decomposes to
+# mm (no batch dims), of [B, H, S, Dh] by [B, H, Dh, S] to bmm.
+_DOT_OPS = {
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+             torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default),
+    "dots_no_batch": (torch.ops.aten.mm.default,
+                      torch.ops.aten.addmm.default),
+}
+
+
+class SavePolicy:
+    """A selective-checkpoint policy: keep the outputs of ``ops``,
+    recompute everything else.  The flash kernels launch through ctypes,
+    outside the dispatcher, so no policy sees them: the recompute reruns
+    the flash autograd op whole.  ``log``, when a list, records
+    (is_recompute, op) for every op the policy is asked about, so a test
+    can hold the forward's op sequence against the recompute's."""
+
+    def __init__(self, ops, log: Optional[list] = None):
+        self.ops = frozenset(ops)
+        self.log = log
+
+    def __call__(self, ctx, op, *args, **kwargs):
+        from torch.utils.checkpoint import CheckpointPolicy
+        if self.log is not None:
+            self.log.append((ctx.is_recompute, op))
+        return (CheckpointPolicy.MUST_SAVE if op in self.ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_block(policy: str, log: Optional[list] = None):
+    """The per-layer function of a remat policy: (x, lp, cfg, attn_fn) ->
+    the block's output."""
+    if policy == "none":
+        return lambda x, lp, cfg, attn_fn: checkpoint(
+            _block, x, lp, cfg, attn_fn, use_reentrant=False)
+    if policy == "proj":
+        return _block_proj
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    context = functools.partial(create_selective_checkpoint_contexts,
+                                SavePolicy(_DOT_OPS[policy], log))
+    return lambda x, lp, cfg, attn_fn: checkpoint(
+        _block, x, lp, cfg, attn_fn, use_reentrant=False,
+        context_fn=context)
 
 
 _REMAT_POLICIES = ("none", "dots", "dots_no_batch", "proj")
@@ -381,13 +467,9 @@ def forward_hidden(params: Tree, tokens: torch.Tensor,
         if cfg.remat_policy not in _REMAT_POLICIES:
             raise ValueError(f"remat_policy={cfg.remat_policy!r}; "
                              f"options: {sorted(_REMAT_POLICIES)}")
-        if cfg.remat_policy != "none":
-            # "dots"/"dots_no_batch" name XLA's dot_general save policies,
-            # which have no eager counterpart; "proj" (save the four named
-            # projections) is selective checkpointing, not ported yet.
-            raise NotImplementedError(
-                f"remat_policy={cfg.remat_policy!r} is not supported by the "
-                f"PyTorch port; use 'none' (ROADMAP.md Queue 1 item 2)")
+        layer = _remat_block(cfg.remat_policy)
+    else:
+        layer = _block
     dt = cfg.dtype
     S = tokens.shape[1]
     x = params["embed"].to(dt)[tokens]
@@ -399,11 +481,7 @@ def forward_hidden(params: Tree, tokens: torch.Tensor,
     names = sorted(params["layers"])
     per_layer = zip(*(torch.unbind(params["layers"][n], 0) for n in names))
     for leaves in per_layer:
-        lp = dict(zip(names, leaves))
-        if cfg.remat:
-            x = checkpoint(_block, x, lp, cfg, attn_fn, use_reentrant=False)
-        else:
-            x = _block(x, lp, cfg, attn_fn)
+        x = layer(x, dict(zip(names, leaves)), cfg, attn_fn)
     return _NORMS[cfg.norm](x, params["ln_f_scale"], params.get("ln_f_bias"))
 
 

@@ -18,8 +18,10 @@ families:
 
 ``flash_attention`` picks the family by the JAX package's rule
 (``_use_streaming``) on the caller's shape, then zero-pads the head dim up
-to the next one the kernels are instantiated for (``HEAD_DIMS``; up to
-``MAX_HEAD_DIM``) and slices the output back (``_pad_head_dim``).  Each
+to the next one the kernels take (``kernel_head_dim``: one of
+``HEAD_DIMS`` up to ``MAX_HEAD_DIM``, a multiple of ``WIDE_COLS`` above
+it, where the wide kernels run D / 128 output passes) and slices the
+output back (``_pad_head_dim``).  Each
 wrapper runs its kernel for CUDA tensors and the plain PyTorch version
 beside it (``*_plain``) for CPU tensors; for a CUDA tensor it launches the
 kernel or raises.  A wrapper cuts B*H into contiguous slices of at most
@@ -46,7 +48,8 @@ from . import _build
 SOURCE = "flash_attention.cu"
 TILE = 64                           # the kernels' q and k tile (rows)
 HEAD_DIMS = (16, 32, 64, 128, 256)  # head dims the kernels are built for
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+MAX_HEAD_DIM = HEAD_DIMS[-1]        # above it: the wide kernels
+WIDE_COLS = 128                     # the wide kernels' D is a multiple
 MAX_LAUNCH_BH = 65535               # B*H rows of one launch (gridDim.y/z)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
@@ -120,9 +123,10 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> Tuple[int, int, int]:
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{name}: dtype {q.dtype} not supported by the CUDA "
                         f"kernel (float32, bfloat16, float16)")
-    if d not in HEAD_DIMS:
+    if d not in HEAD_DIMS and (d <= MAX_HEAD_DIM or d % WIDE_COLS):
         raise ValueError(f"{name}: head_dim {d} not supported by the CUDA "
-                         f"kernel {HEAD_DIMS}")
+                         f"kernel {HEAD_DIMS} or a multiple of {WIDE_COLS} "
+                         f"above {MAX_HEAD_DIM}")
     if s % TILE:
         raise ValueError(f"{name}: seq_len {s} must be a multiple of the "
                          f"kernel tile {TILE}")
@@ -197,6 +201,14 @@ def flash_fwd_plain(q, k, v, causal: bool, scale: float):
     return (p @ v.float()).to(q.dtype), lse
 
 
+def _delta(o, do):
+    """rowsum(dO * O), summed in float64 and rounded once to float32: the
+    sum cancels, and a float32 sum's own error reaches the 1e-5 relative
+    gate at D = 384 (csrc/flash_attention.cu, delta_sum;
+    scripts/cpu_precision_checks.py measures it)."""
+    return (do.double() * o.double()).sum(-1).float()
+
+
 def _probs_and_ds(q, k, v, do, lse, delta, causal, scale):
     s = scale * (q.float() @ k.float().transpose(-1, -2))
     if causal:
@@ -207,7 +219,7 @@ def _probs_and_ds(q, k, v, do, lse, delta, causal, scale):
 
 
 def flash_bwd_dq_plain(q, k, v, o, lse, do, causal: bool, scale: float):
-    delta = (do.float() * o.float()).sum(-1)
+    delta = _delta(o, do)
     _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
     return (scale * (ds @ k.float())).to(q.dtype), delta
 
@@ -275,7 +287,7 @@ def flash_fwd_str_plain(q, k, v, causal: bool, scale: float):
 def flash_bwd_dq_str_plain(q, k, v, o, lse, do, causal: bool, scale: float):
     s = q.shape[1]
     split = _split_len(s)
-    delta = (do.float() * o.float()).sum(-1)
+    delta = _delta(o, do)
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     dq = torch.zeros_like(qf)
     for j0 in range(0, s, split):
@@ -447,12 +459,13 @@ class _FlashAttention(torch.autograd.Function):
 
 def kernel_head_dim(d: int) -> int:
     """The head dim the kernels run a caller's ``d`` at: the smallest of
-    HEAD_DIMS not below it.  ValueError above MAX_HEAD_DIM."""
+    HEAD_DIMS not below it, and above MAX_HEAD_DIM the next multiple of
+    WIDE_COLS (264 -> 384, 512 -> 512).  No upper limit: a D the card's
+    memory cannot hold fails in the allocator."""
     for hd in HEAD_DIMS:
         if d <= hd:
             return hd
-    raise ValueError(f"flash attention: head_dim {d} is above the kernels' "
-                     f"limit of {MAX_HEAD_DIM}")
+    return -(-d // WIDE_COLS) * WIDE_COLS
 
 
 def _pad_head_dim(attn, q, k, v):
@@ -461,11 +474,9 @@ def _pad_head_dim(attn, q, k, v):
     leave Q K^T, and so P, unchanged, and make the padded columns of O
     zero; autograd slices dQ, dK and dV back through the pad, and their
     padded columns are zero too.  ``attn`` takes the softmax scale from
-    the caller's D, not the padded one.  CPU tensors above MAX_HEAD_DIM go
-    to ``attn`` as they are: the plain versions take any D."""
+    the caller's D, not the padded one.  CPU tensors take the same
+    padding, so the plain versions see the shapes the kernels would."""
     d = q.shape[-1]
-    if d > MAX_HEAD_DIM and not q.is_cuda:
-        return attn(q, k, v)
     pad = kernel_head_dim(d) - d
     if not pad:
         return attn(q, k, v)
@@ -486,8 +497,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     streaming=None picks the family as the JAX package does (resident while
     2*S*D*itemsize fits RESIDENT_VMEM_BUDGET, streaming beyond), on the
     caller's D; True or False forces one.  D is zero-padded up to the next
-    of HEAD_DIMS (``_pad_head_dim``); on CUDA tensors D above MAX_HEAD_DIM
-    raises ValueError.  ``interpret`` is accepted for API parity; the tensors'
+    head dim the kernels take (``kernel_head_dim``, ``_pad_head_dim``).
+    ``interpret`` is accepted for API parity; the tensors'
     device alone decides between the kernels (CUDA) and the plain versions
     (CPU).
     """

@@ -11,7 +11,8 @@ Phases, each of which must pass:
    Count the HMMA (tensor-core MMA) instructions of each flash kernel in
    the library's SASS (cuobjdump): every bf16 and float16 instantiation of
    the two forward and four backward kernels, at every head dim (16, 32,
-   64, 128, 256), must have them, no float32 one may.
+   64, 128, 256) and of the wide kernels (D above 256), must have them, no
+   float32 one may.
 2. Hold each flash kernel against its plain PyTorch version on the card:
    the flagship attention shape [8*16, 512, 64] bf16, causal and not, and
    a small float32 shape through the autograd op with block_q != block_k.
@@ -97,6 +98,30 @@ Phases, each of which must pass:
    against their plain versions and timed, the resident ones at the
    flagship shape, the streaming ones at the long shape, beside SDPA's
    forward and backward there.  Each must have been launched by phases 7-8.
+10. Head dims above 256 (the wide kernels): flash_attention_fn forward and
+   backward at [8, 16, 512, D] for D = 264, 384 and 512 and at
+   [1, 4, 512, 1024], float32, bf16 and float16, each in both families,
+   held to the plain versions as in phase 7 (float16 with its bf16
+   control); then each kernel at D = 384 and 512 in the three dtypes
+   against its plain version and timed (resident at [128, 512, D],
+   streaming at [16, 8192, D]) beside its bound, its TFLOP/s and SDPA's
+   forward and backward, naming the SDPA backend that ran.  Every timed
+   instantiation must have been launched by the coverage run.
+11. ResNet-50 (224 x 224 x 3, 1000 classes, float32, batch 64, one fixed
+   synthetic batch, cuDNN deterministic, no TF32): 5 steps of SGD (lr 0.1,
+   momentum 0.9) through DistributedOptimizer + build_train_step with
+   cnn_loss_fn (finite, falling losses; step ms, images/s, peak memory; a
+   profiled step), then the same weights through the Horovod face
+   (broadcast_parameters, DistributedOptimizer, broadcast_optimizer_state,
+   zero_grad/backward/step): 161 push_pull_async handles a step, all
+   synchronized before the inner step, and parameters within relative L2
+   1e-5 of the functional path's.
+12. The eager API on CUDA tensors: push_pull, push_pull_async + poll +
+   synchronize, and push_pull_tree over ResNet-50's gradients, its bucket
+   count equal to the fusion planner's plan.
+13. The flagship for 3 steps under each remat policy ("none", "proj",
+   "dots", "dots_no_batch"): flash launches 48/24/24 a step under every
+   policy, losses equal across policies, step ms and peak memory each.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -116,6 +141,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
 FLASH_SOURCE = "byteps_tpu_torch/csrc/flash_attention.cu"
 BITPACK_SOURCE = "byteps_tpu_torch/csrc/bitpack.cu"
@@ -151,6 +177,19 @@ HD96 = dict(batch=8, seq=512, d_model=768, heads=8, layers=2, d_ff=3072)
 HD96_STEPS = 3
 # New instantiations timed at the flagship and long shapes.
 NEW_INSTANCES = (("bf16", 256), ("f16", 64))
+# Head dims above 256 (the wide kernels, D padded to a multiple of 128):
+# covered at the flagship's [8, 16, 512, D], D = 1024 at [1, 4, 512, D];
+# timed at D = 384 and 512, the streaming family at WIDE_LONG.
+WIDE_DIMS = (264, 384, 512)
+WIDE_TIMED = (384, 512)
+WIDE_LONG = dict(batch=1, heads=16, seq=8192)
+# bench.py's CNN row: ResNet-50, 224 x 224 x 3, 1000 classes, float32,
+# batch 64, SGD lr 0.1 momentum 0.9, 5 steps on one fixed batch.
+CNN = dict(name="resnet50", image=224, classes=1000, batch=64, lr=0.1,
+           momentum=0.9, steps=5)
+RESNET50_PARAMS = 161
+REMAT_POLICIES = ("none", "proj", "dots", "dots_no_batch")
+REMAT_STEPS = 3
 
 
 def sh(cmd):
@@ -312,10 +351,12 @@ def fwd_report(name, ms, lib_ms, bh, s, d):
 
 def bound_ms(name, bh, s, d, itemsize, causal):
     """Least time for the work: its bytes over HBM bandwidth or its FLOPs
-    over the bf16 peak, the larger."""
+    over the peak for the inputs' type (bf16/float16 tensor cores, or
+    float32), the larger."""
     nbytes, flops = work(name, bh, s, d, itemsize, causal)
+    peak = F32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -345,7 +386,8 @@ def phase_build(mods, build_mod, torch, gpu, check):
             if "_mma_kernel" in kernel:
                 mma.append(report)
     if mma:       # no report when the library was built by an earlier run
-        want = 6 * len(mods[0].HEAD_DIMS) * 2    # 6 kernels, bf16 and f16
+        # 6 kernels, bf16 and f16, at each head dim and wide
+        want = 6 * (len(mods[0].HEAD_DIMS) + 1) * 2
         check(len(mma) == want and all(
             re.search(r"\b0 bytes spill stores", r) for r in mma),
               f"ptxas: no spills in the {len(mma)} tensor-core kernels "
@@ -361,8 +403,10 @@ def kernel_label(mangled):
     dims = re.search(r"Li(\d+)E", mangled)
     dtype = ("bf16" if "bfloat16" in mangled
              else "f16" if "__half" in mangled else "f32")
-    return (name.group(1) if name else mangled) + (
-        f"<{dtype},{dims.group(1)}>" if dims else "")
+    label = name.group(1) if name else mangled
+    if dims:
+        return label + f"<{dtype},{dims.group(1)}>"
+    return label + (f"<{dtype}>" if "_wide" in label else "")
 
 
 def ptxas_reports(log):
@@ -411,7 +455,8 @@ def hmma_census(build_mod, lib, n_dims, check):
                          "flash_fwd_str_kernel", "flash_fwd_str_mma_kernel"),
              2 * n_dims),
             ("backward", ("flash_bwd_dq", "flash_bwd_dkv"), 4 * n_dims)):
-        kernels = [k for k in counts if k.startswith(prefixes)]
+        kernels = [k for k in counts
+                   if k.startswith(prefixes) and "_wide" not in k]
         tc = [k for k in kernels if "bf16" in k or "f16" in k]
         f32 = [k for k in kernels if "f32" in k]
         check(len(tc) == 2 * n and len(f32) == n
@@ -421,6 +466,16 @@ def hmma_census(build_mod, lib, n_dims, check):
               f"instantiations (min "
               f"{min((counts[k] for k in tc), default=0)}), none in the "
               f"{len(f32)} float32 ones")
+    wide = [k for k in counts if "_wide" in k and not any(
+        s in k for s in ("merge", "delta", "sum_splits"))]
+    tc = [k for k in wide if "bf16" in k or "f16" in k]
+    f32 = [k for k in wide if "f32" in k]
+    check(len(tc) == 12 and len(f32) == 6
+          and all(counts[k] > 0 for k in tc)
+          and not any(counts[k] for k in f32),
+          f"SASS: HMMA in all {len(tc)} bf16 and float16 wide (D > 256) "
+          f"kernels (min {min((counts[k] for k in tc), default=0)}), none "
+          f"in the {len(f32)} float32 ones")
 
 
 def phase_kernels(fa, torch, check):
@@ -923,7 +978,7 @@ def phase_small_model(tfm, torch, check):
           f"max grad err {gerr:.3g}")
 
 
-def flagship(tfm, bps, torch, inter_compressor=None):
+def flagship(tfm, bps, torch, inter_compressor=None, remat_policy="none"):
     """The flagship's config, params, batch, optimizer and step (the
     compressed variant with ``inter_compressor``)."""
     from byteps_tpu_torch.common.tree import tree_leaves
@@ -933,7 +988,8 @@ def flagship(tfm, bps, torch, inter_compressor=None):
     cfg = tfm.get_config("bert_large", causal=True, vocab_size=32768,
                          max_seq_len=S, ce_chunk_rows=2048,
                          attn_impl="flash",
-                         attn_block=tfm.flash_auto_block(S))
+                         attn_block=tfm.flash_auto_block(S),
+                         remat_policy=remat_policy)
     params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
     batch = tfm.synthetic_batch(torch.Generator().manual_seed(1), B, S, cfg)
     opt = bps.DistributedOptimizer(
@@ -944,9 +1000,10 @@ def flagship(tfm, bps, torch, inter_compressor=None):
 
 
 def train(step, params, batch, counters, torch, check, gpu, want,
-          steps=STEPS):
+          steps=STEPS, losses_out=None, key=None):
     """``steps`` steps with every launch counter set to 0 just before and
-    read just after; checks losses and that each step launched ``want``."""
+    read just after; checks losses and that each step launched ``want``
+    (the losses also go to ``losses_out[key]``)."""
     B, S = batch[0].shape
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -966,6 +1023,8 @@ def train(step, params, batch, counters, torch, check, gpu, want,
         after = snapshot()
         per_step.append({n: after[n] - before[n] for n in want})
     launches = snapshot()
+    if losses_out is not None:
+        losses_out[key] = losses
     steady = statistics.median(step_ms[1:])
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  losses {losses}")
@@ -1354,16 +1413,27 @@ def phase_hd96(bps, tfm, fa, torch, check, gpu):
     return launches
 
 
-def phase_instances(fa, torch, check, tag, d):
+def sdpa_backend(torch, q, k, v):
+    """The backend PyTorch's dispatcher picks for SDPA on these [B, H, S, D]
+    inputs, causal (its own choice function)."""
+    from torch.nn.attention import SDPBackend
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
+
+
+def phase_instances(fa, torch, check, tag, d, long_shape=LONG):
     """The instantiation <tag, d> of each flash kernel against its plain
     version (the backward ones on the plain forward's O and LSE),
     elementwise, and timed: the resident family at the flagship shape
-    [128, 512, d], the streaming one at the long [16, 32768, d], beside
-    their bounds and SDPA's forward and backward at the same shapes."""
+    [128, 512, d], the streaming one at ``long_shape`` (the long
+    [16, 32768, d] by default), beside their bounds and SDPA's forward and
+    backward at the same shapes, with the SDPA backend that ran."""
     import torch.nn.functional as F
-    dtype = {"bf16": torch.bfloat16, "f16": torch.float16}[tag]
+    dtype = {"bf16": torch.bfloat16, "f16": torch.float16,
+             "f32": torch.float32}[tag]
+    gate16 = F32_GATE if dtype == torch.float32 else BF16_GATE
+    itemsize = 4 if dtype == torch.float32 else 2
     out, yard = {}, {}
-    for shape, names in ((FLAGSHIP, RESIDENT), (LONG, STREAMING)):
+    for shape, names in ((FLAGSHIP, RESIDENT), (long_shape, STREAMING)):
         B, H, S = (shape[k] for k in ("batch", "heads", "seq"))
         BH, long = B * H, names is STREAMING
         gen = torch.Generator(device="cuda").manual_seed(d)
@@ -1380,10 +1450,10 @@ def phase_instances(fa, torch, check, tag, d):
         dk_k, dv_k = kern[2](q, k, v, do, lse_p, delta_p, True, scale)
         torch.cuda.synchronize()
         what = f"<{tag},{d}> [{BH},{S},{d}] causal"
-        gates([("O", o_k, o_p, BF16_GATE), ("LSE", lse_k, lse_p, ROWS_GATE),
-               ("dQ", dq_k, dq_p, BF16_GATE),
+        gates([("O", o_k, o_p, gate16), ("LSE", lse_k, lse_p, ROWS_GATE),
+               ("dQ", dq_k, dq_p, gate16),
                ("delta", delta_k, delta_p, ROWS_GATE),
-               ("dK", dk_k, dk_p, BF16_GATE), ("dV", dv_k, dv_p, BF16_GATE)],
+               ("dK", dk_k, dk_p, gate16), ("dV", dv_k, dv_p, gate16)],
               check, f"{names[0]} family {what} vs the plain versions")
         errs = [max(max_err(o_k, o_p), max_err(lse_k, lse_p)),
                 max(max_err(dq_k, dq_p), max_err(delta_k, delta_p)),
@@ -1400,8 +1470,9 @@ def phase_instances(fa, torch, check, tag, d):
             (lambda: kern[2](q, k, v, do, lse_p, delta_p, True, scale),
              lambda: plain[2](q, k, v, do, lse_p, delta_p, True, scale),
              None))
+        backend = sdpa_backend(torch, q4, k4, v4)
         for name, err, (kfn, pfn, lib) in zip(names, errs, calls):
-            b_ms, b_by = bound_ms(name, BH, S, d, 2, True)
+            b_ms, b_by = bound_ms(name, BH, S, d, itemsize, True)
             key = f"{name}<{tag},{d}>"
             out[key] = {
                 "max_abs_err": err,
@@ -1413,8 +1484,8 @@ def phase_instances(fa, torch, check, tag, d):
             print(f"  {key} [{BH},{S},{d}]: kernel {out[key]['ms']:.4f} ms "
                   f"({tflops(name, BH, S, d, True, out[key]['ms']):.2f} "
                   f"TFLOP/s), plain {out[key]['plain_ms']:.4f} ms, library "
-                  f"{out[key]['library_ms']} ms, bound {b_ms:.4f} ms "
-                  f"({b_by})")
+                  f"{out[key]['library_ms']} ms (SDPA {backend}), bound "
+                  f"{b_ms:.4f} ms ({b_by})")
         q4g, k4g, v4g = (t.detach().clone().requires_grad_()
                          for t in (q4, k4, v4))
         o4g = F.scaled_dot_product_attention(q4g, k4g, v4g, is_causal=True)
@@ -1426,12 +1497,252 @@ def phase_instances(fa, torch, check, tag, d):
             f"{names[2]}<{tag},{d}>"]["ms"]
         where = "long" if long else "flagship"
         yard[f"sdpa_backward_ms<{tag},{d},{where}>"] = sdpa_bwd
+        yard[f"sdpa_backend<{tag},{d},{where}>"] = backend
         print(f"  SDPA backward <{tag},{d}> at the {where} shape "
               f"{sdpa_bwd:.4f} ms vs the backward pair {pair:.4f} ms "
               f"({pair / sdpa_bwd:.2f}x)")
         del q, k, v, do, q4, k4, v4, o_p, lse_p, delta_p, q4g, k4g, v4g, o4g
         torch.cuda.empty_cache()
     return out, yard
+
+
+def phase_wide(fa, tfm, torch, check):
+    """Part A: flash_attention_fn on the card above D = 256 (the wide
+    kernels): D = 264, 384 and 512 at [8, 16, 512, D], and 1024 at
+    [1, 4, 512, D], in float32, bf16 and float16, resident and streaming,
+    forward and both gradients, each held to the plain versions under the
+    elementwise gates (float16 to its own step, with the bf16 control).
+    Returns the launches by instantiation."""
+    B, H, S = (FLAGSHIP[k] for k in ("batch", "heads", "seq"))
+    cases = [(dtype, (B, H, S, d), force)
+             for dtype in (torch.float32, torch.bfloat16, torch.float16)
+             for d in WIDE_DIMS for force in (False, True)]
+    cases += [(dtype, (1, 4, S, 1024), force)
+              for dtype in (torch.float32, torch.bfloat16, torch.float16)
+              for force in (False, True)]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    for dtype, shape, force in cases:
+        cover_case(fa, tfm, torch, check, gen, dtype, shape, force)
+        torch.cuda.empty_cache()
+    launches = dict(fa.instance_launches)
+    print(f"  {len(cases)} cases in {time.perf_counter() - t0:.1f} s; "
+          f"launches by instantiation {launches}")
+    check(all(n > 256 and n % 128 == 0 for n in
+              (int(k.split(",")[1][:-1]) for k in launches)),
+          "every launch ran a wide instantiation (D a multiple of 128 "
+          "above 256)")
+    return launches
+
+
+def phase_eager(bps, torch, check, grads):
+    """The eager API on CUDA tensors at world 1: push_pull, push_pull_async
+    + poll + synchronize (a used handle refused), and push_pull_tree over
+    ResNet-50's gradients (``grads``, a tree), whose bucket count must be
+    the fusion planner's plan for the same leaves."""
+    from byteps_tpu_torch.common import fusion
+    from byteps_tpu_torch.common.tree import tree_leaves
+    bps.init()
+    x = torch.randn(4096, device="cuda")
+    y = bps.push_pull(x, name="smoke.x")
+    h = bps.push_pull_async(x, name="smoke.xa")
+    while not bps.poll(h):
+        pass
+    z = bps.synchronize(h)
+    try:
+        bps.synchronize(h)
+        refused = False
+    except ValueError:
+        refused = True
+    check(y.is_cuda and torch.equal(y, x) and torch.equal(z, x) and refused,
+          "push_pull and push_pull_async + poll + synchronize on CUDA "
+          "tensors: the identity at world 1, a used handle refused")
+    leaves = tree_leaves(grads)
+    fb = bps.common.config.get_config().fusion_bytes
+    plan = fusion.plan_buckets(tuple(
+        (i, l.numel(), str(l.dtype).removeprefix("torch."),
+         l.element_size()) for i, l in enumerate(leaves)), fb)
+    before = fusion.get_stats()["buckets_built"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = bps.push_pull_tree(grads, name="smoke.resnet50")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    built = fusion.get_stats()["buckets_built"] - before
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(out), leaves))
+    check(same and built == len(plan.buckets) and len(plan.buckets) > 1,
+          f"push_pull_tree over ResNet-50's {len(leaves)} gradients on the "
+          f"card: {built} buckets (the planner's plan: {len(plan.buckets)} "
+          f"buckets, {len(plan.solo)} solo leaves at {fb} bytes), values "
+          f"unchanged at world 1, {ms:.3f} ms")
+    bps.shutdown()
+
+
+def phase_cnn(bps, torch, check, gpu):
+    """Part B's path at full width: ResNet-50, 224 x 224 x 3, 1000 classes,
+    float32, batch 64, one fixed synthetic batch; SGD (lr 0.1, momentum
+    0.9) through DistributedOptimizer + build_train_step with cnn_loss_fn,
+    5 steps (finite, falling losses; step ms, images/s, peak memory; one
+    profiled step); then the same model from the same weights through the
+    Horovod face (broadcast_parameters, DistributedOptimizer,
+    broadcast_optimizer_state, zero_grad/backward/step with the
+    BatchNorms on their running statistics, as cnn_loss_fn runs them):
+    one push_pull_async a parameter and step (161), all synchronized
+    before the inner step, and parameters within relative L2 1e-5 of the
+    functional path's.  cuDNN runs deterministic algorithms and no TF32
+    (stated with the numbers).  Returns ResNet-50's gradients, for the
+    eager phase."""
+    import byteps_tpu_torch.torch as hvd
+    from byteps_tpu_torch.common.tree import tree_leaves
+    from byteps_tpu_torch.models import cnn
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    tf32 = (f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}, "
+            f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
+            f"cudnn.deterministic=True")
+    model = cnn.create_cnn(CNN["name"], num_classes=CNN["classes"],
+                           dtype=torch.float32, seed=0)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    images = torch.rand(CNN["batch"], CNN["image"], CNN["image"], 3,
+                        generator=gen, device="cuda")
+    labels = torch.randint(0, CNN["classes"], (CNN["batch"],),
+                           generator=gen, device="cuda")
+    batch = (images, labels)
+    params = cnn.cnn_variables(model)["params"]
+    n_params = len(tree_leaves(params))
+    check(n_params == RESNET50_PARAMS,
+          f"ResNet-50 has {n_params} parameter tensors")
+    opt = bps.DistributedOptimizer(torch.optim.SGD(
+        tree_leaves(params), lr=CNN["lr"], momentum=CNN["momentum"]))
+    step = bps.build_train_step(cnn.cnn_loss_fn(model), opt)
+    losses, step_ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(CNN["steps"]):
+        t0 = time.perf_counter()
+        losses.append(float(step(params, batch)))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    steady = statistics.median(step_ms[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  functional path: losses {losses}")
+    print(f"  step ms {[round(t, 3) for t in step_ms]}; steady median "
+          f"{steady:.3f} ms = {CNN['batch'] / steady * 1e3:.1f} images/s; "
+          f"peak {peak:.2f} GiB ({tf32}; {gpu})")
+    check(all(math.isfinite(l) for l in losses) and losses[-1] < losses[0],
+          f"ResNet-50 functional path: finite losses, falling "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}")
+    functional = {k: v.detach().clone() for k, v in
+                  model.state_dict().items()}
+    phase_profile(step, params, batch, torch, steady)
+
+    # The Horovod face, from the same weights.
+    hvd.init()
+    model.load_state_dict(start)
+    sgd = torch.optim.SGD(model.parameters(), lr=CNN["lr"],
+                          momentum=CNN["momentum"])
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    hopt = hvd.DistributedOptimizer(
+        sgd, named_parameters=model.named_parameters())
+    hvd.broadcast_optimizer_state(hopt, root_rank=0)
+    launched, synced, pending_at_inner = [], [], []
+    real_async, real_sync = hvd.push_pull_async, hvd.synchronize
+    real_inner = hopt._inner.step
+
+    def count_async(*a, **kw):
+        launched[-1] += 1
+        return real_async(*a, **kw)
+
+    def count_sync(h):
+        synced[-1] += 1
+        return real_sync(h)
+
+    def inner_step(*a, **kw):
+        pending_at_inner.append(len(hopt._pending))
+        return real_inner(*a, **kw)
+    hvd.push_pull_async, hvd.synchronize = count_async, count_sync
+    hopt._inner.step = inner_step
+    h_losses, h_ms = [], []
+    model.eval()
+    try:
+        for _ in range(CNN["steps"]):
+            launched.append(0)
+            synced.append(0)
+            t0 = time.perf_counter()
+            hopt.zero_grad()
+            loss = torch.nn.functional.cross_entropy(model(images), labels)
+            loss.backward()
+            hopt.step()
+            h_losses.append(float(loss.detach()))
+            torch.cuda.synchronize()
+            h_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        hvd.push_pull_async, hvd.synchronize = real_async, real_sync
+        hopt._inner.step = real_inner
+        model.train()
+    h_steady = statistics.median(h_ms[1:])
+    print(f"  Horovod face: losses {h_losses}; step ms "
+          f"{[round(t, 3) for t in h_ms]}; steady median {h_steady:.3f} ms "
+          f"= {CNN['batch'] / h_steady * 1e3:.1f} images/s ({tf32})")
+    check(launched == synced == [RESNET50_PARAMS] * CNN["steps"]
+          and pending_at_inner == [0] * CNN["steps"],
+          f"Horovod face: push_pull_async handles per step {launched}, "
+          f"synchronized {synced}, pending at the inner step "
+          f"{pending_at_inner} (want {RESNET50_PARAMS}, {RESNET50_PARAMS}, "
+          f"0)")
+    num = sum(float((model.state_dict()[k].double() - v.double())
+                    .pow(2).sum()) for k, v in functional.items())
+    den = sum(float(v.double().pow(2).sum()) for v in functional.values())
+    rel = math.sqrt(num / den)
+    check(rel <= 1e-5, f"Horovod face vs functional path after "
+          f"{CNN['steps']} steps: parameters within relative L2 {rel:.3g} "
+          f"(<= 1e-5); losses {h_losses[-1]:.6f} vs {losses[-1]:.6f}")
+    hvd.shutdown()
+    grads = cnn.cnn_variables(model)["params"]
+    grads = _grad_tree(grads)
+    return grads, {"cnn_step_ms": steady,
+                   "cnn_images_per_s": CNN["batch"] / steady * 1e3,
+                   "cnn_peak_gib": peak, "cnn_hvd_step_ms": h_steady,
+                   "cnn_hvd_rel_l2": rel, "cnn_tf32": tf32}
+
+
+def _grad_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _grad_tree(v) for k, v in tree.items()}
+    return tree.grad.detach().clone()
+
+
+def phase_remat(bps, tfm, fa, torch, check, gpu):
+    """The flagship (bert_large geometry, 8 x 512, flash) for 3 steps under
+    each remat policy, from the same weights and batch: the flash launches
+    48/24/24 a step under every policy (the recompute reruns the flash
+    autograd op, which no selective policy sees), the losses of every
+    policy equal to "none"'s (the largest relative difference printed),
+    and step ms and peak memory per policy."""
+    from byteps_tpu_torch.common.tree import tree_leaves
+    res, losses = {}, {}
+    for policy in REMAT_POLICIES:
+        cfg, params, batch, opt, step = flagship(tfm, bps, torch,
+                                                 remat_policy=policy)
+        print(f"  remat_policy={cfg.remat_policy}:")
+        want = flash_want(48, 24, streaming=False)
+        _, ms, peak = train(step, params, batch, [fa], torch, check, gpu,
+                            want, steps=REMAT_STEPS, losses_out=losses,
+                            key=policy)
+        res[policy] = {"step_ms": ms, "peak_gib": peak}
+        del params, batch, opt, step
+        torch.cuda.empty_cache()
+    worst = max(abs(a - b) / abs(b) for p in REMAT_POLICIES[1:]
+                for a, b in zip(losses[p], losses["none"]))
+    check(worst <= 1e-6, f"remat losses equal across policies: largest "
+          f"relative difference from 'none' {worst:.3g} (<= 1e-6); "
+          f"bit-equal: {[losses[p] == losses['none'] for p in REMAT_POLICIES]}")
+    print("  remat: " + ", ".join(
+        f"{p} {r['step_ms']:.3f} ms {r['peak_gib']:.2f} GiB"
+        for p, r in res.items()))
+    return res
 
 
 def main() -> int:
@@ -1504,6 +1815,35 @@ def main() -> int:
     check(all(path.get(key, 0) > 0 for key in new_kernels),
           f"the coverage path launched every new instantiation: "
           f"{ {key: path.get(key, 0) for key in new_kernels} }")
+    torch.cuda.empty_cache()
+    print("== phase 10: flash above D = 256 (the wide kernels), float32, "
+          "bf16, float16, both families")
+    wide = phase_wide(fa, tfm, torch, check)
+    wide_kernels = []
+    for tag in ("bf16", "f16", "f32"):
+        for d in WIDE_TIMED:
+            i_numbers, i_yard = phase_instances(fa, torch, check, tag, d,
+                                                long_shape=WIDE_LONG)
+            numbers.update(i_numbers)
+            yardsticks.update(i_yard)
+            wide_kernels += list(i_numbers)
+            torch.cuda.empty_cache()
+    check(all(wide.get(key, 0) > 0 for key in wide_kernels),
+          f"the wide path launched every timed instantiation: "
+          f"{ {key: wide.get(key, 0) for key in wide_kernels} }")
+    path.update(wide)
+    new_kernels += wide_kernels
+    print("== phase 11: ResNet-50 training through DistributedOptimizer + "
+          "build_train_step and through the Horovod face")
+    grads, cnn_numbers = phase_cnn(bps, torch, check, gpu)
+    yardsticks.update(cnn_numbers)
+    torch.cuda.empty_cache()
+    print("== phase 12: the eager API on CUDA tensors")
+    phase_eager(bps, torch, check, grads)
+    del grads
+    torch.cuda.empty_cache()
+    print("== phase 13: remat policies on the flagship")
+    yardsticks["remat"] = phase_remat(bps, tfm, fa, torch, check, gpu)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     if check.failures:

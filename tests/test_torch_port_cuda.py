@@ -537,13 +537,53 @@ def test_adapter_takes_more_batch_heads_than_one_launch(cuda_device,
     assert all(w <= 1.0 for w in worst.values()), worst
 
 
-def test_adapter_refuses_head_dims_above_256(cuda_device):
+def test_adapter_refuses_head_dims_above_256(cuda_device, monkeypatch):
+    """Head dims above 256 are no longer refused: the adapter at D = 264,
+    strict or not, runs the wide kernels (D padded to 384), forward and
+    backward, within the bf16 gates."""
     from byteps_tpu_torch.models.transformer import flash_attention_fn
     x = torch.zeros(1, 2, 128, 264, device=cuda_device,
                     dtype=torch.bfloat16)
     for strict in (False, True):
-        with pytest.raises(ValueError, match="limit of 256"):
-            flash_attention_fn(x, x, x, True, strict=strict)
+        fa.reset_launches()
+        out = flash_attention_fn(x, x, x, True, strict=strict)
+        torch.cuda.synchronize()
+        assert out.shape == x.shape and fa.launches["flash_fwd"] == 1
+        assert fa.instance_launches == {"flash_fwd<bf16,384>": 1}
+    worst, ran, plain = _adapter_vs_plain(1, 2, 128, 264, torch.bfloat16,
+                                          False, monkeypatch)
+    assert plain == [] and [ran[n] for n in ("flash_fwd", "flash_bwd_dq",
+                                             "flash_bwd_dkv")] == [1, 1, 1]
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
+@pytest.mark.parametrize("family", ["resident", "streaming"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [264, 384, 512, 1024])
+def test_adapter_runs_wide_head_dims_on_the_kernels(cuda_device,
+                                                     monkeypatch, d, dtype,
+                                                     family):
+    """Head dims above 256 (padded to a multiple of 128, the wide kernels'
+    output passes) in float32, bf16 and float16, both families: no plain
+    version runs, one launch of each kernel at the padded head dim, and
+    every element within the elementwise gates."""
+    monkeypatch.setattr(fa, "_split_len", lambda s: 128)
+    streaming = family == "streaming"
+    worst, ran, plain = _adapter_vs_plain(1, 2, 256, d, dtype, streaming,
+                                          monkeypatch)
+    names = STREAMING if streaming else RESIDENT
+    assert [ran[n] for n in names] == [1, 1, 1] and sum(ran.values()) == 3
+    tag = {torch.float32: "f32", torch.bfloat16: "bf16",
+           torch.float16: "f16"}[dtype]
+    assert fa.instance_launches == {
+        f"{n}<{tag},{fa.kernel_head_dim(d)}>": 1 for n in names}
+    assert plain == []
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
+RESIDENT = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+STREAMING = ("flash_fwd_str", "flash_bwd_dq_str", "flash_bwd_dkv_str")
 
 
 @pytest.mark.parametrize("family", ["resident", "streaming"])
@@ -603,9 +643,62 @@ def test_batch_head_slices_are_bit_equal_to_one_launch(cuda_device,
 
 
 def test_entry_point_refuses_head_dims_above_256(cuda_device):
-    q = torch.zeros(2, 128, 264, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="limit of 256"):
-        fa.flash_attention(q, q, q, True, None, 64, 64)
+    """Head dims above 256 are no longer refused: flash_attention at
+    D = 264 and 520 (padded to 384 and 640) runs the wide kernels and
+    gives the plain forward and gradients, float32 to 1e-4 of the max."""
+    for d in (264, 520):
+        q, k, v, do = _qkvdo(cuda_device, 2, 128, d, torch.float32)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        fa.reset_launches()
+        out = fa.flash_attention(*ins, True, None, 64, 64)
+        grads = torch.autograd.grad(out, ins, do)
+        torch.cuda.synchronize()
+        assert fa.launches["flash_fwd"] == 1 and out.shape == q.shape
+        scale = d ** -0.5
+        with torch.no_grad():
+            o_p, lse_p = fa.flash_fwd_plain(q, k, v, True, scale)
+            dq_p, delta = fa.flash_bwd_dq_plain(q, k, v, o_p, lse_p, do,
+                                                True, scale)
+            dk_p, dv_p = fa.flash_bwd_dkv_plain(q, k, v, do, lse_p, delta,
+                                                True, scale)
+        for got, ref in zip((out, *grads), (o_p, dq_p, dk_p, dv_p)):
+            assert float((got - ref).abs().max()) <= 1e-4 * float(
+                ref.abs().max())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 8e-3),
+                                       (torch.float16, 1e-3)])
+def test_wide_kernels_match_plain(cuda_device, monkeypatch, causal, d, dtype,
+                                  tol):
+    """Each wide kernel, resident and streaming (3 splits, the last
+    ragged), against its plain version on the same inputs, as
+    test_kernels_match_plain holds the instantiated head dims."""
+    monkeypatch.setattr(fa, "_split_len", lambda s: 128)
+    q, k, v, do = _qkvdo(cuda_device, 3, 320, d, dtype)
+    f = [t.float() for t in (q, k, v, do)]
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    o_p, lse_p = fa.flash_fwd_plain(*f[:3], causal, scale)
+    dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal, scale)
+    dq_p, delta_p = fa.flash_bwd_dq_plain(*f[:3], o.float(), lse, f[3],
+                                          causal, scale)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(*f[:3], f[3], lse, delta, causal,
+                                        scale)
+    res = [("o", o, o_p), ("lse", lse, lse_p), ("dq", dq, dq_p),
+           ("delta", delta, delta_p), ("dk", dk, dk_p), ("dv", dv, dv_p)]
+    res += [(n + "_str", a, b) for n, a, b in
+            _streaming_vs_plain(q, k, v, do, causal, scale)]
+    torch.cuda.synchronize()
+    tols = {"lse": 1e-6, "delta": 1e-5, "lse_str": 1e-6, "delta_str": 1e-5}
+    for name, got, ref in res:
+        err = float((got.float() - ref).abs().max())
+        top = float(ref.abs().max())
+        assert err <= tols.get(name, tol) * top, \
+            f"{name}: max err {err} vs max {top}"
 
 
 _UNPACK_NS = [1, 100, 5000, 4096 * 33, 1048576, 1048576 - 3]
@@ -632,3 +725,16 @@ def test_sign_unpack_unaligned_rows(cuda_device, n):
     out = bp.unpack_signs(words, n)
     torch.cuda.synchronize()
     assert torch.equal(out, bp.unpack_signs_plain(words, n))
+
+
+def test_prefetch_to_device_on_the_card(cuda_device):
+    """utils.data.prefetch_to_device: batches copied from pinned host
+    memory on a side stream arrive on the card intact, in order."""
+    from byteps_tpu_torch.utils import data
+    batches = [(torch.full((1024,), float(i)), torch.tensor([i]))
+               for i in range(5)]
+    got = list(data.prefetch_to_device(iter(batches), size=2))
+    torch.cuda.synchronize()
+    assert [int(b[1]) for b in got] == list(range(5))
+    for (x, _), (want, _) in zip(got, batches):
+        assert x.is_cuda and torch.equal(x.cpu(), want)

@@ -154,25 +154,46 @@ def test_family_choice_is_made_on_the_callers_head_dim(monkeypatch):
 
 
 def test_head_dims_above_the_limit_are_refused():
-    """The kernels' head-dim rule: D up to 256 runs at the next
-    instantiated head dim, D above it raises ValueError naming the limit
-    (on CUDA tensors, in the entry point and the adapter, strict or not:
-    the card tests); the JAX package has no such limit (ROADMAP Queue 3)."""
+    """The kernels' head-dim rule has no limit any more: D up to 256 runs
+    at the next instantiated head dim, D above it at the next multiple of
+    128 (the wide kernels' output passes), with nothing refused; the
+    card tests run the kernels there.  The JAX package has no limit
+    either."""
     assert [fa.kernel_head_dim(d) for d in (1, 16, 17, 136, 256)] == [
         16, 16, 32, 256, 256]
-    for d in (257, 264, 512):
-        with pytest.raises(ValueError, match="limit of 256"):
-            fa.kernel_head_dim(d)
+    assert [fa.kernel_head_dim(d) for d in (257, 264, 384, 512, 520,
+                                            1024, 4104)] == [
+        384, 384, 384, 512, 640, 1024, 4224]
 
 
 @pytest.mark.parametrize("streaming", [False, True])
 def test_head_dim_above_the_limit_runs_plain_on_cpu(streaming):
-    """On CPU tensors the plain versions take D = 264 unpadded, as the JAX
-    kernels do: forward and gradients against JAX's at the JAX tests'
-    float32 tolerances."""
+    """On CPU tensors the plain versions take D = 264 through the same
+    padding as the kernels (to 384): forward and gradients against JAX's
+    at D = 264 at the JAX tests' float32 tolerances."""
     q, k, v, do = _inputs(264, 4, 1, 64, 264)
     want = _jax_vjp(q, k, v, do, True, streaming)
     got = _port_vjp(q, k, v, do, True, streaming)
+    np.testing.assert_allclose(got[0], want[0], atol=2e-5, rtol=1e-4)
+    for g, w in zip(got[1:], want[1:]):
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(g / scale, w / scale, atol=1e-4)
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [264, 512])
+def test_wide_head_dims_match_jax(monkeypatch, d, causal, streaming):
+    """D = 264 and 512, above the instantiated head dims: the port pads to
+    384 and 512 (the wide kernels' head dims) and matches JAX's kernels at
+    D itself, forward and dQ/dK/dV, at the JAX tests' float32
+    tolerances."""
+    monkeypatch.setattr(fa, "_split_len", lambda s: 64)
+    q, k, v, do = _inputs(d + 1, 4, 2, 128, d)
+    want = _jax_vjp(q, k, v, do, causal, streaming)
+    seen = _spy_head_dims(monkeypatch)
+    got = _port_vjp(q, k, v, do, causal, streaming)
+    assert seen == [fa.kernel_head_dim(d)] and seen[0] % 128 == 0
     np.testing.assert_allclose(got[0], want[0], atol=2e-5, rtol=1e-4)
     for g, w in zip(got[1:], want[1:]):
         scale = float(np.abs(w).max())

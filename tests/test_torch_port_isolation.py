@@ -47,7 +47,16 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
                 "byteps_tpu_torch.ops.compressor.reduce",
                 "byteps_tpu_torch.models.transformer",
                 "byteps_tpu_torch.parallel.data_parallel",
-                "byteps_tpu_torch.common.api"):
+                "byteps_tpu_torch.common.api",
+                "byteps_tpu_torch.core.native",
+                "byteps_tpu_torch.torch",
+                "byteps_tpu_torch.torch.fp16",
+                "byteps_tpu_torch.models.cnn",
+                "byteps_tpu_torch.callbacks",
+                "byteps_tpu_torch.utils.checkpoint",
+                "byteps_tpu_torch.utils.data",
+                "byteps_tpu_torch.launcher.launch",
+                "byteps_tpu_torch.launcher.dist_launcher"):
         assert mod in res["modules"]
 
 
