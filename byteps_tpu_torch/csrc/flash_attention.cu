@@ -101,9 +101,11 @@
 //
 // The float32 kernels do their products as float32 FMAs on the CUDA cores
 // (67 TFLOP/s at most), bound in practice by FMA issue and shared-memory
-// bandwidth.  They stay there on purpose: single-pass TF32 keeps 10
-// mantissa bits, too few for the float32 tests' 1e-5 of the largest
-// element, and the main path is bf16.
+// bandwidth: single-pass TF32 keeps 10 mantissa bits, too few for the
+// float32 tests' 1e-5 of the largest element, and the main path is bf16.
+// The float32 backward above D = 256 is the exception: it runs on the
+// tensor cores with each operand split into two TF32 parts (3xTF32, see
+// its section below).
 //
 // Tiling.  The TPU kernels take one q block of up to 512 rows and keep K/V
 // whole in VMEM.  A 512 x 512 float32 logits tile does not fit in 227 KB of
@@ -1703,10 +1705,12 @@ __global__ void __launch_bounds__(kMmaThreads, mma_ctas<kFwdCtas>(D))
 // exact 16-bit first products with float32 sums, P and dS entering the
 // second products as hi/lo pairs, bf16's third term where a warp's block
 // holds |P| >= 2^-5 or |dS| >= 1, float16's per-row power-of-two scale.
-// The float32 kernels keep the CUDA-core loops, 64-column chunks for the
+// The float32 forward keeps the CUDA-core loops, 64-column chunks for the
 // first products.  The chunks are loaded and waited for one at a time (no
 // double buffering): a simple kernel first; each chunk of the fixed tile
-// is read again for every streamed tile, from L2.
+// is read again for every streamed tile, from L2.  The float32 backward
+// computes S and dP once per tile pair in a cluster of CTAs (its own
+// section below).
 // ---------------------------------------------------------------------------
 constexpr int kWide = 128;              // columns of an output pass
 constexpr int kWideLd = kWide + 8;      // shared row of a 16-bit chunk
@@ -2204,7 +2208,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   store_rows_ld<kWide>((is_dk ? dk_ws : dv_ws) + at, d, acc, 1.f);
 }
 
-// ---- float32 at a wide D, on the CUDA cores -------------------------------
+// ---- the float32 forward at a wide D, on the CUDA cores -------------------
 // 256 threads, four to a row as in fwd_tiles; the first products over
 // 64-column chunks of D (kF32Chunk), each thread's 16 logits columns in
 // registers, and one 128-column output slice: 32 accumulators a thread.
@@ -2225,12 +2229,11 @@ __device__ __forceinline__ void load_chunk(float* dst, const T* src, int d,
   }
 }
 
-// Shared memory of the float32 wide kernels: `chunks` [kTile][kChunkLd]
-// chunks (the logits tile counts as one), one [kTile][kOutLd] output-column
-// tile, and in dK/dV the q tile's LSE and delta.
-__host__ __device__ constexpr size_t wide_f32_smem(int chunks, int rows) {
-  return (chunks * kTile * kChunkLd + kTile * kOutLd + rows * kTile) *
-         sizeof(float);
+// Shared memory of the float32 wide forward: `chunks` [kTile][kChunkLd]
+// chunks (the logits tile counts as one) and one [kTile][kOutLd]
+// output-column tile.
+__host__ __device__ constexpr size_t wide_f32_smem(int chunks) {
+  return (chunks * kTile * kChunkLd + kTile * kOutLd) * sizeof(float);
 }
 
 template <typename T>
@@ -2361,289 +2364,736 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// dQ columns [col0, col0 + kWide) at a wide D on the CUDA cores; the caller
-// scales by sm_scale.
-template <typename T>
+// ---- the float32 backward at a wide D: split-D clusters, 3xTF32 ----------
+// flash_bwd_dq_wide_kernel, flash_bwd_dq_str_wide_kernel,
+// flash_bwd_dkv_wide_kernel and flash_bwd_dkv_str_wide_kernel replace the
+// TPU kernels _dq_kernel_res (:168), _dq_kernel_str (:250), _dkv_kernel_res
+// (:192) and _dkv_kernel_str (:275) of byteps_tpu/ops/flash_attention.py in
+// float32 above D = 256.  What bounds them is the products: 6 (dQ) and 8
+// (dK/dV) FLOPs per visible (q, k) pair and head-dim element, 0.58-0.77 ms
+// at 67 TFLOP/s for [128, 512, 384] causal, against 0.09 ms of bytes.
+//
+// One output slice a CTA, as in the 16-bit wide kernels, would have every
+// slice recompute S = Q K^T and dP = dO V^T over all of D: about 3.9x the
+// function's products at D = 512.  Here the n = D / 128 slices of a tile
+// run as one thread-block cluster of n CTAs (at most 8, the portable size),
+// and each CTA contracts S and dP over its own 128 columns only: a partial.
+// The partials meet in distributed shared memory.  Row r of the 64 x 64
+// tile pair belongs to rank r / R (R = ceil(64 / n)): each CTA pushes its
+// partial rows to their owners, the owner adds the n partials in rank order
+// 0..n-1 (so no row has two sums that differ in the last bit), computes
+// P = exp(scale S - LSE) and dS = P (dP - delta) for its rows, and pushes
+// them to every CTA of the cluster; two cluster barriers a tile pair (where
+// every CTA summing all n partials itself would read n x 32 KB of the
+// others' memory a pair, and compute P and dS n times).  Each
+// CTA then applies dS (and P) to its own 128 columns: dQ += dS K, or
+// dV += P^T dO and dK += dS^T Q in one CTA.  The products issued are the
+// function's, each operand column is read by one CTA, and the exchange
+// moves about (n - 1) / n of 48 KB (dQ) or 64 KB (dK/dV) a CTA and pair.
+// Above 8 slices a CTA takes ceil(n / 8) of them: its partial sums its
+// slices in ascending order, and it runs the tile loop once for each slice
+// it outputs, so there is no limit on D.
+//
+// The products run on the tensor cores at float32 accuracy: each operand x
+// enters mma.sync m16n8k8 (TF32 in, float32 sums) as hi = tf32(x) and
+// lo = tf32(x - hi), rounded to nearest (tf32_rna), and a product takes
+// lo hi + hi lo + hi hi (lo lo dropped): about 22 significant bits, where
+// one TF32 rounding keeps 11 and misses the float32 gates
+// (tests/test_torch_port_flash_f32tc.py emulates both).  The tensor cores
+// truncate their float32 sums, so every 16 elements of a contraction (two
+// k steps, six MMAs) go into a zeroed partial added in float32, where the
+// 16-bit wide kernels take a 128-column chunk: with 48 MMAs into one
+// accumulator the emulation reads up to 0.50 of the float32 gate, against
+// 0.10 with the 16-element partials (D = 512, causal).  The
+// TF32 ceiling is 495 / 3 = 165 TFLOP/s of the function's work.
+//
+// Eight warps; for the first products warp w takes rows 16 (w & 3) of the
+// tile pair and keys 32 (w >> 2), for the second its rows and 64 of the
+// slice's columns.  The four 64 x 128 float32 chunks (the fixed tile's two,
+// the streamed tile's two) sit in shared memory without padding, their
+// columns XOR-swizzled by row (swz) so that the 16-byte loads of the first
+// products and the 4-byte column loads of the second hit 32 banks; the
+// streamed chunks come in by cp.async, each reloaded as soon as its last
+// product is issued (V's during the K products, K's and Q's during the
+// next pair's dP) rather than double-buffered: with the exchange rows and
+// the P/dS tiles the chunks already make 181-200 KB a CTA (one an SM), and
+// a second set of streamed chunks (64 KB) does not fit.
+// ---------------------------------------------------------------------------
+constexpr int kTcThreads = 256;                 // 8 warps
+constexpr int kTcWarps = kTcThreads / 32;
+constexpr int kSplitCtas = 8;                   // portable cluster size
+constexpr int kChunkFloats = kTile * kWide;     // one 64 x 128 chunk
+
+// Exchange rows an owner takes in a cluster of c CTAs.
+__host__ __device__ constexpr int split_rows(int c) {
+  return (kTile + c - 1) / c;
+}
+
+// Shared memory of the float32 wide backward: LSE and delta of the owner's
+// rows, four chunks, S and dP exchange rows (c slots of R rows each), and
+// `tiles` [kTile][kTile] tiles (dS; P).
+__host__ __device__ constexpr size_t wide_tc_smem(int c, int tiles) {
+  return (2 * kTile + 4 * kChunkFloats + 2 * c * split_rows(c) * kTile +
+          tiles * kTile * kTile) * sizeof(float);
+}
+
+// Float offset of (row, col) in a swizzled tile of w columns (w = 128 or
+// 64): bits 3 and 4 of the column flip with rows' bits 1, and 0 ^ 2.  A
+// 16-byte piece (columns 4i..4i+3) stays whole.
+__device__ __forceinline__ int swz(int row, int col, int w) {
+  return row * w +
+         (col ^ ((((row >> 1) & 1) << 3) | ((((row >> 2) ^ row) & 1) << 4)));
+}
+
+// Copy the [kTile, kWide] float32 chunk at `src` (row stride d) into a
+// swizzled chunk, 16 bytes a copy.
+__device__ __forceinline__ void chunk_f32_async(float* dst, const float* src,
+                                                int d) {
+  for (int i = threadIdx.x; i < kTile * kWide / 4; i += kTcThreads) {
+    const int r = i / (kWide / 4);
+    const int c = (i % (kWide / 4)) * 4;
+    cp_async16(dst + swz(r, c, kWide), src + (size_t)r * d + c);
+  }
+}
+
+// x rounded to TF32, to nearest with ties away from zero, as
+// cvt.rna.tf32.f32 rounds a finite x: half a step added to the magnitude's
+// bits, the 13 bits below the mantissa cleared.  Two integer operations;
+// the cvt instruction made the kernels 13-16% slower on an H100
+// (scripts/flash_f32_wide_ab.py, variant "cvt").
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// c += a b: a 16x8 (row), b 8x8 (col), c 16x8, TF32 in, float32 sums.
+__device__ __forceinline__ void mma1688(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32 from the operands' hi/lo parts, the small terms first.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma1688(c, al, bh0, bh1);
+  mma1688(c, ah, bl0, bl1);
+  mma1688(c, ah, bh0, bh1);
+}
+
+template <int NB>
+__device__ __forceinline__ void add_to(float (&acc)[NB][4],
+                                       const float (&part)[NB][4]) {
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+}
+
+// acc[n] += A B^T over columns 16 k16.. of a swizzled chunk: A is the 16
+// rows from `arow` of chunk `a`, B the 8 NB rows from `brow` of chunk `b`.
+// A lane reads four adjacent columns with one 16-byte load, and an MMA k
+// step takes two of them as its k = t and t + 4 (columns 4t and 4t + 1 of
+// 16, then 4t + 2 and 4t + 3): the same sum in another order.  The 16
+// columns' six MMAs go into a zeroed partial added to acc in float32: the
+// tensor cores truncate their float32 sums, and 48 MMAs into one
+// accumulator (a chunk) read five times higher in the emulation.
+template <int NB>
+__device__ __forceinline__ void mma3_abt_step(float (&acc)[NB][4],
+                                              const float* a, int arow,
+                                              const float* b, int brow,
+                                              int k16, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int col = 16 * k16 + 4 * t;
+  const float4 x0 =
+      *reinterpret_cast<const float4*>(a + swz(arow + g, col, kWide));
+  const float4 x8 =
+      *reinterpret_cast<const float4*>(a + swz(arow + g + 8, col, kWide));
+  uint32_t ah[2][4], al[2][4];
+  split_tf32(x0.x, ah[0][0], al[0][0]);
+  split_tf32(x8.x, ah[0][1], al[0][1]);
+  split_tf32(x0.y, ah[0][2], al[0][2]);
+  split_tf32(x8.y, ah[0][3], al[0][3]);
+  split_tf32(x0.z, ah[1][0], al[1][0]);
+  split_tf32(x8.z, ah[1][1], al[1][1]);
+  split_tf32(x0.w, ah[1][2], al[1][2]);
+  split_tf32(x8.w, ah[1][3], al[1][3]);
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    const float4 y = *reinterpret_cast<const float4*>(
+        b + swz(brow + 8 * n + g, col, kWide));
+    uint32_t bh[4], bl[4];
+    split_tf32(y.x, bh[0], bl[0]);
+    split_tf32(y.y, bh[1], bl[1]);
+    split_tf32(y.z, bh[2], bl[2]);
+    split_tf32(y.w, bh[3], bl[3]);
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+    mma3(part, ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+    mma3(part, ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[e];
+  }
+}
+
+// mma3_abt_step over the chunk's 8 groups of 16 columns, unrolled by two
+// (kUnroll; unrolled whole, the kernels spilled) or not.
+template <int NB, bool kUnroll>
+__device__ __forceinline__ void mma3_abt(float (&acc)[NB][4], const float* a,
+                                         int arow, const float* b, int brow,
+                                         int lane) {
+  if constexpr (kUnroll) {
+#pragma unroll 2
+    for (int k16 = 0; k16 < kWide / 16; ++k16)
+      mma3_abt_step(acc, a, arow, b, brow, k16, lane);
+  } else {
+#pragma unroll 1
+    for (int k16 = 0; k16 < kWide / 16; ++k16)
+      mma3_abt_step(acc, a, arow, b, brow, k16, lane);
+  }
+}
+
+// part[n] += X B over the 8 contraction rows of k step kk (see mma3_xb).
+template <bool kT, int NB>
+__device__ __forceinline__ void mma3_xb_step(float (&part)[NB][4],
+                                             const float* x, int xrow,
+                                             const float* b, int col0,
+                                             int kk, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = 8 * kk + 2 * t;
+  float xa[4];
+  if constexpr (kT) {
+    xa[0] = x[swz(k0, xrow + g, kTile)];
+    xa[1] = x[swz(k0, xrow + g + 8, kTile)];
+    xa[2] = x[swz(k0 + 1, xrow + g, kTile)];
+    xa[3] = x[swz(k0 + 1, xrow + g + 8, kTile)];
+  } else {
+    const float2 u =
+        *reinterpret_cast<const float2*>(x + swz(xrow + g, k0, kTile));
+    const float2 w =
+        *reinterpret_cast<const float2*>(x + swz(xrow + g + 8, k0, kTile));
+    xa[0] = u.x;
+    xa[1] = w.x;
+    xa[2] = u.y;
+    xa[3] = w.y;
+  }
+  uint32_t ah[4], al[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(xa[i], ah[i], al[i]);
+#pragma unroll
+  for (int n = 0; n < NB; ++n) {
+    const int col = col0 + 8 * n + g;
+    uint32_t bh0, bl0, bh1, bl1;
+    split_tf32(b[swz(k0, col, kWide)], bh0, bl0);
+    split_tf32(b[swz(k0 + 1, col, kWide)], bh1, bl1);
+    mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
+  }
+}
+
+// acc[n] += X B: X is the 16 rows from `xrow` of a swizzled [kTile][kTile]
+// tile (dS), or with kT its columns from `xrow` as rows (P^T, dS^T); B is
+// the swizzled chunk `b`'s columns col0 + 8n (n < NB), contracted along its
+// 64 rows.  An MMA k step's k = t and t + 4 are rows 8kk + 2t and
+// 8kk + 2t + 1.  Each 16 rows' six MMAs go into a zeroed partial added to
+// acc in float32, as in mma3_abt.
+template <bool kT, int NB>
+__device__ __forceinline__ void mma3_xb(float (&acc)[NB][4], const float* x,
+                                        int xrow, const float* b, int col0,
+                                        int lane) {
+#pragma unroll 1
+  for (int kk = 0; kk < kTile / 8; kk += 2) {
+    float part[NB][4];
+    zero(part);
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      mma3_xb_step<kT, NB>(part, x, xrow, b, col0, kk + u, lane);
+    add_to(acc, part);
+  }
+}
+
+// ---- the cluster: rank, size, barrier, stores into another CTA's memory --
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_size() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(r));
+  return (int)r;
+}
+// Every thread of every CTA of the cluster arrives; shared-memory stores
+// before it (to any CTA) are visible to every thread after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The address of the same shared-memory location in CTA `rank`.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_cluster2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+               "f"(a), "f"(b)
+               : "memory");
+}
+__device__ __forceinline__ void st_cluster4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// The split-D exchange of one tile pair (q tile qt, k tile kt): the
+// warps' partial S and dP blocks (rows 16 (warp & 3), keys 32 (warp >> 2))
+// go to their rows' owners; each owner adds the cluster's partials in rank
+// order and writes P (into `pt`, unless null) and dS (into `dst`), swizzled
+// [kTile][kTile] tiles, into every CTA of the cluster.  `rows` holds the
+// LSE, then (from R on) delta of this CTA's rows.  Ends with every tile
+// complete in every CTA.
+__device__ __forceinline__ void split_exchange(
+    const float (&s)[4][4], const float (&dp)[4][4], float* ex, float* pt,
+    float* dst, const float* rows, int qt, int kt, int causal, float scale,
+    int rank, int c) {
+  const int R = split_rows(c);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* xs = ex;                        // [c * R][kTile], slot-major
+  float* xdp = ex + c * R * kTile;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * (warp & 3) + g + 8 * h;
+    const int owner = row / R;
+    const int slot_row = rank * R + row - owner * R;
+    const uint32_t s_at = cluster_addr(smem_addr(xs), owner);
+    const uint32_t dp_at = cluster_addr(smem_addr(xdp), owner);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const uint32_t off = 4u * (uint32_t)swz(
+          slot_row, 32 * (warp >> 2) + 8 * n + 2 * t, kTile);
+      st_cluster2(s_at + off, s[n][2 * h], s[n][2 * h + 1]);
+      st_cluster2(dp_at + off, dp[n][2 * h], dp[n][2 * h + 1]);
+    }
+  }
+  cluster_sync();  // every partial is at its owner
+  const int own0 = rank * R;
+  const int nown = max(0, min(kTile, own0 + R) - own0);
+  for (int i = threadIdx.x; i < nown * (kTile / 4); i += kTcThreads) {
+    const int lr = i / (kTile / 4);
+    const int col = (i % (kTile / 4)) * 4;
+    const int row = own0 + lr;
+    float sv[4], dv[4];
+    {
+      const float4 a = *reinterpret_cast<const float4*>(
+          xs + swz(lr, col, kTile));
+      const float4 b = *reinterpret_cast<const float4*>(
+          xdp + swz(lr, col, kTile));
+      sv[0] = a.x, sv[1] = a.y, sv[2] = a.z, sv[3] = a.w;
+      dv[0] = b.x, dv[1] = b.y, dv[2] = b.z, dv[3] = b.w;
+    }
+    for (int j = 1; j < c; ++j) {  // rank order
+      const int at = swz(j * R + lr, col, kTile);
+      const float4 a = *reinterpret_cast<const float4*>(xs + at);
+      const float4 b = *reinterpret_cast<const float4*>(xdp + at);
+      sv[0] += a.x, sv[1] += a.y, sv[2] += a.z, sv[3] += a.w;
+      dv[0] += b.x, dv[1] += b.y, dv[2] += b.z, dv[3] += b.w;
+    }
+    const float lse_r = rows[lr];
+    const float del_r = rows[R + lr];
+    const int query = qt * kTile + row;
+    float p[4], ds[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = causal && kt * kTile + col + e > query
+                 ? 0.f
+                 : expf(scale * sv[e] - lse_r);
+      ds[e] = p[e] * (dv[e] - del_r);
+    }
+    const uint32_t at = 4u * (uint32_t)swz(row, col, kTile);
+    const uint32_t ds_at = smem_addr(dst) + at;
+    const uint32_t p_at = pt ? smem_addr(pt) + at : 0u;
+    for (int j = 0; j < c; ++j) {
+      st_cluster4(cluster_addr(ds_at, j),
+                  make_float4(ds[0], ds[1], ds[2], ds[3]));
+      if (pt)
+        st_cluster4(cluster_addr(p_at, j),
+                    make_float4(p[0], p[1], p[2], p[3]));
+    }
+  }
+  cluster_sync();  // P and dS complete in every CTA
+}
+
+// Store the warp's 16 rows from `row0` of 8 NB output columns from `col0`
+// (row stride d), times `scale`.
+template <int NB>
+__device__ __forceinline__ void store_tc_rows(float* out, int d, int row0,
+                                              int col0,
+                                              const float (&acc)[NB][4],
+                                              float scale) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      store2(out + (size_t)(row0 + g + 8 * h) * d + col0 + 8 * n + 2 * t,
+             scale * acc[n][2 * h], scale * acc[n][2 * h + 1]);
+}
+
+__device__ __forceinline__ float* wide_tc_rows(float* smem) { return smem; }
+__device__ __forceinline__ float* wide_tc_chunks(float* smem) {
+  return smem + 2 * kTile;
+}
+
+// dQ of the q tile `qt` over the k tiles [kt0, kt1) at a wide D in
+// float32, this CTA's slices of it (see the section's note), written to
+// `out` (the tile's first row, row stride d) times out_scale.  The caller
+// has put the LSE and delta of the CTA's rows in wide_tc_rows.
 __device__ __forceinline__ void dq_wide_tiles_f32(
-    float* smem, const T* q, const T* k, const T* v, const T* dout, int d,
-    int qt, int kt0, int kt1, int causal, float scale, float lse_r, float dl,
-    int col0, float (&acc)[kWide / kLanes]) {
-  float* qs = smem;
-  float* dos = qs + kTile * kChunkLd;
-  float* ks = dos + kTile * kChunkLd;
-  float* vs = ks + kTile * kChunkLd;
-  float* dss = vs + kTile * kChunkLd;  // [kTile][kChunkLd] dS tile
-  float* ko = dss + kTile * kChunkLd;  // [kTile][kOutLd] K's output columns
-  constexpr int cols = kTile / kLanes;
-  const int r = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
-  for (int kt = kt0; kt < kt1; ++kt) {
-    float s[cols], dp[cols];
-#pragma unroll
-    for (int j = 0; j < cols; ++j) s[j] = dp[j] = 0.f;
-    for (int c0 = 0; c0 < d; c0 += kF32Chunk) {
-      __syncthreads();
-      const size_t qo = (size_t)qt * kTile * d + c0;
-      const size_t ko0 = (size_t)kt * kTile * d;
-      load_chunk<T, kF32Chunk>(qs, q + qo, d, 1.f);
-      load_chunk<T, kF32Chunk>(dos, dout + qo, d, 1.f);
-      load_chunk<T, kF32Chunk>(ks, k + ko0 + c0, d, 1.f);
-      load_chunk<T, kF32Chunk>(vs, v + ko0 + c0, d, 1.f);
-      if (c0 + kF32Chunk >= d)
-        load_chunk<T, kWide>(ko, k + ko0 + col0, d, 1.f);
-      __syncthreads();
-      for (int dd = 0; dd < kF32Chunk; ++dd) {
-        const float qv = qs[r * kChunkLd + dd];
-        const float dv = dos[r * kChunkLd + dd];
-#pragma unroll
-        for (int j = 0; j < cols; ++j) {
-          const int col = c + kLanes * j;
-          s[j] += qv * ks[col * kChunkLd + dd];
-          dp[j] += dv * vs[col * kChunkLd + dd];
+    float* smem, const float* q, const float* k, const float* v,
+    const float* dout, int d, int qt, int kt0, int kt1, int causal,
+    float scale, float out_scale, float* out) {
+  const int c = cluster_size(), rank = cluster_rank();
+  float* qc = wide_tc_chunks(smem);
+  float* doc = qc + kChunkFloats;
+  float* kc = doc + kChunkFloats;
+  float* vc = kc + kChunkFloats;
+  float* ex = vc + kChunkFloats;
+  float* dst = ex + 2 * c * split_rows(c) * kTile;
+  const float* rows = wide_tc_rows(smem);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = 16 * (warp & 3);   // the warp's rows
+  const int kh = 32 * (warp >> 2);  // its keys in the first products
+  const int oh = 64 * (warp >> 2);  // its columns of the output slice
+  const int n = d / kWide;
+  const int spc = (n + c - 1) / c;  // slices a CTA takes
+  const size_t qo = (size_t)qt * kTile * d;
+  for (int pass = 0; pass < spc; ++pass) {
+    const int jo = rank + pass * c;  // the slice this pass outputs (if < n)
+    if (spc == 1) {
+      chunk_f32_async(qc, q + qo + jo * kWide, d);
+      chunk_f32_async(doc, dout + qo + jo * kWide, d);
+      chunk_f32_async(vc, v + (size_t)kt0 * kTile * d + jo * kWide, d);
+      cp_async_commit();
+      chunk_f32_async(kc, k + (size_t)kt0 * kTile * d + jo * kWide, d);
+      cp_async_commit();
+    }
+    cluster_sync();  // the cluster runs before any store reaches a CTA
+    float acc[8][4];
+    zero(acc);
+    for (int kt = kt0; kt < kt1; ++kt) {
+      const size_t ko = (size_t)kt * kTile * d;
+      float s[4][4], dp[4][4];
+      zero(s);
+      zero(dp);
+      if (spc == 1) {
+        cp_async_wait_prev();  // Q, dO and V of tile kt
+        __syncthreads();
+        mma3_abt<4, true>(dp, doc, rw, vc, kh, lane);
+        __syncthreads();  // every warp is done with V
+        if (kt + 1 < kt1)
+          chunk_f32_async(vc, v + ko + kTile * d + jo * kWide, d);
+        cp_async_commit();
+        cp_async_wait_prev();  // K of tile kt
+        __syncthreads();
+        mma3_abt<4, true>(s, qc, rw, kc, kh, lane);
+      } else {
+        int last = -1;
+        for (int j = rank; j < n; j += c) {
+          __syncthreads();
+          chunk_f32_async(qc, q + qo + j * kWide, d);
+          chunk_f32_async(doc, dout + qo + j * kWide, d);
+          chunk_f32_async(kc, k + ko + j * kWide, d);
+          chunk_f32_async(vc, v + ko + j * kWide, d);
+          cp_async_commit();
+          cp_async_wait_all();
+          __syncthreads();
+          mma3_abt<4, true>(dp, doc, rw, vc, kh, lane);
+          mma3_abt<4, true>(s, qc, rw, kc, kh, lane);
+          last = j;
+        }
+        if (jo < n && last != jo) {  // the output slice's K for dS K
+          __syncthreads();
+          chunk_f32_async(kc, k + ko + jo * kWide, d);
+          cp_async_commit();
+          cp_async_wait_all();
+          __syncthreads();
         }
       }
+      split_exchange(s, dp, ex, nullptr, dst, rows, qt, kt, causal, scale,
+                     rank, c);
+      if (jo < n) mma3_xb<false, 8>(acc, dst, rw, kc, oh, lane);
+      if (spc == 1) {
+        __syncthreads();  // every warp is done with K
+        if (kt + 1 < kt1)
+          chunk_f32_async(kc, k + ko + kTile * d + jo * kWide, d);
+        cp_async_commit();
+      }
     }
-#pragma unroll
-    for (int j = 0; j < cols; ++j) {
-      const int col = c + kLanes * j;
-      const bool masked = causal && kt == qt && col > r;
-      const float p = masked ? 0.f : expf(scale * s[j] - lse_r);
-      dss[r * kChunkLd + col] = p * (dp[j] - dl);
-    }
-    __syncwarp();
-    for (int j = 0; j < kTile; ++j) {
-      const float ds = dss[r * kChunkLd + j];
-#pragma unroll
-      for (int i = 0; i < kWide / kLanes; ++i)
-        acc[i] += ds * ko[j * kOutLd + c + kLanes * i];
-    }
+    if (jo < n) store_tc_rows(out, d, rw, jo * kWide + oh, acc, out_scale);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                             const T* __restrict__ v,
-                             const T* __restrict__ o,
-                             const T* __restrict__ dout,
+// Rows of the q tile this CTA owns in the exchange: [own0, own0 + nown).
+__device__ __forceinline__ void owned_rows(int& own0, int& nown) {
+  const int R = split_rows(cluster_size());
+  own0 = cluster_rank() * R;
+  nown = max(0, min(kTile, own0 + R) - own0);
+}
+
+// Resident dQ: grid x is the q tiles (the longest causal rows first) times
+// the cluster's CTAs; each CTA computes delta = rowsum(dO * O) of its
+// owned rows over all of D and writes it out for the dK/dV kernel.
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dq_wide_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ o,
+                             const float* __restrict__ dout,
                              const float* __restrict__ lse,
-                             T* __restrict__ dq, float* __restrict__ delta,
-                             int seq, int d, float scale, int causal) {
-  extern __shared__ float smem[];
-  int qt, pass;
-  wide_block(d / kWide, qt, pass);
-  const int col0 = pass * kWide;
+                             float* __restrict__ dq,
+                             float* __restrict__ delta, int seq, int d,
+                             float scale, int causal) {
+  extern __shared__ __align__(16) float tc_smem[];
+  const int qt = seq / kTile - 1 - (int)blockIdx.x / cluster_size();
   const int bh = blockIdx.y;
-  const int r = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
   const size_t base = (size_t)bh * seq * d;
-  const int row = qt * kTile + r;
-  // delta a warp a row into the dS tile's space (not used before the first
-  // chunk, behind a barrier), then to each row's four threads.
-  float* dls = smem + 4 * kTile * kChunkLd;
-  for (int rr = threadIdx.x >> 5; rr < kTile; rr += kThreads / 32) {
-    const size_t at = base + (size_t)(qt * kTile + rr) * d;
-    const float v = warp_row_dot(dout + at, o + at, d);
-    if ((threadIdx.x & 31) == 0) dls[rr] = v;
+  int own0, nown;
+  owned_rows(own0, nown);
+  const int R = split_rows(cluster_size());
+  float* rows = wide_tc_rows(tc_smem);
+  for (int r = threadIdx.x >> 5; r < nown; r += kTcWarps) {
+    const size_t row = (size_t)bh * seq + qt * kTile + own0 + r;
+    const float dl = warp_row_dot(dout + row * d, o + row * d, d);
+    if ((threadIdx.x & 31) == 0) {
+      rows[r] = lse[row];
+      rows[R + r] = dl;
+      delta[row] = dl;
+    }
   }
-  __syncthreads();
-  const float dl = dls[r];
-  if (pass == 0 && c == 0) delta[(size_t)bh * seq + row] = dl;
-  const float lse_r = lse[(size_t)bh * seq + row];
-  float acc[kWide / kLanes];
-#pragma unroll
-  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
-  dq_wide_tiles_f32<T>(smem, q + base, k + base, v + base, dout + base, d, qt,
-                       0, causal ? qt + 1 : seq / kTile, causal, scale, lse_r,
-                       dl, col0, acc);
-  T* dqrow = dq + base + (size_t)row * d + col0;
-#pragma unroll
-  for (int i = 0; i < kWide / kLanes; ++i)
-    dqrow[c + kLanes * i] = from_f32<T>(scale * acc[i]);
+  dq_wide_tiles_f32(tc_smem, q + base, k + base, v + base, dout + base, d,
+                    qt, 0, causal ? qt + 1 : seq / kTile, causal, scale,
+                    scale, dq + base + (size_t)qt * kTile * d);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_str_wide_kernel(const T* __restrict__ q,
-                                 const T* __restrict__ k,
-                                 const T* __restrict__ v,
-                                 const T* __restrict__ dout,
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dq_str_wide_kernel(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 const float* __restrict__ dout,
                                  const float* __restrict__ lse,
                                  const float* __restrict__ delta,
                                  float* __restrict__ dq_ws, int seq, int d,
                                  int split, float scale, int causal) {
   const int num_t = seq / kTile;
-  int t, pass;
-  wide_block(d / kWide, t, pass);
-  const int qt = num_t - 1 - t;
+  const int qt = num_t - 1 - (int)blockIdx.x / cluster_size();
   const int sp = blockIdx.y;
   const int bh = blockIdx.z;
   const int kt0 = sp * split;
   const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
-  if (kt0 >= kt1) return;
+  if (kt0 >= kt1) return;  // the whole cluster: its CTAs share the tile
 
-  extern __shared__ float smem[];
-  const int col0 = pass * kWide;
-  const int r = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
+  extern __shared__ __align__(16) float tc_smem[];
   const size_t base = (size_t)bh * seq * d;
-  const int row = qt * kTile + r;
-  const float lse_r = lse[(size_t)bh * seq + row];
-  const float dl = delta[(size_t)bh * seq + row];
-  float acc[kWide / kLanes];
-#pragma unroll
-  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
-  dq_wide_tiles_f32<T>(smem, q + base, k + base, v + base, dout + base, d, qt,
-                       kt0, kt1, causal, scale, lse_r, dl, col0, acc);
-  float* arow = dq_ws + ws_row(sp, bh, gridDim.z, seq, row) * d + col0;
-#pragma unroll
-  for (int i = 0; i < kWide / kLanes; ++i) arow[c + kLanes * i] = acc[i];
+  int own0, nown;
+  owned_rows(own0, nown);
+  const int R = split_rows(cluster_size());
+  float* rows = wide_tc_rows(tc_smem);
+  if (threadIdx.x < nown) {
+    const size_t row = (size_t)bh * seq + qt * kTile + own0 + threadIdx.x;
+    rows[threadIdx.x] = lse[row];
+    rows[R + threadIdx.x] = delta[row];
+  }
+  dq_wide_tiles_f32(
+      tc_smem, q + base, k + base, v + base, dout + base, d, qt, kt0, kt1,
+      causal, scale, 1.f,
+      dq_ws + ws_row(sp, bh, gridDim.z, seq, qt * kTile) * d);
 }
 
-// One output pass of dK/dV (dK's columns when `dk`, else dV's) of the k
-// tile `kt` at a wide D on the CUDA cores: thread j / 4 owns key row j and
-// 16 of the q tile's queries.
-template <typename T>
+// dK and dV of the k tile `kt` over the q tiles [qt0, qt1) at a wide D in
+// float32, this CTA's slices of both (see the section's note), written to
+// dk_out and dv_out (the tile's first row, row stride d), dK times dk_scale.
+// `lse` and `delta` point at the (batch*head)'s rows.
 __device__ __forceinline__ void dkv_wide_tiles_f32(
-    float* smem, const T* q, const T* k, const T* v, const T* dout,
-    const float* lse, const float* delta, int d, int kt, int qt0, int qt1,
-    int causal, float scale, bool dk, int col0,
-    float (&acc)[kWide / kLanes]) {
-  float* ks = smem;
-  float* vs = ks + kTile * kChunkLd;
-  float* qs = vs + kTile * kChunkLd;
-  float* dos = qs + kTile * kChunkLd;
-  float* xt = dos + kTile * kChunkLd;  // [kTile][kChunkLd] P^T or dS^T
-  float* xo = xt + kTile * kChunkLd;   // [kTile][kOutLd] Q's or dO's columns
-  float* lses = xo + kTile * kOutLd;   // [kTile]
-  float* dels = lses + kTile;          // [kTile]
-  constexpr int cols = kTile / kLanes;
-  const int j = threadIdx.x / kLanes;  // this thread's k row in the tile
-  const int c = threadIdx.x % kLanes;
-  for (int qt = qt0; qt < qt1; ++qt) {
-    float s[cols], dp[cols];
+    float* smem, const float* q, const float* k, const float* v,
+    const float* dout, const float* lse, const float* delta, int d, int kt,
+    int qt0, int qt1, int causal, float scale, float dk_scale, float* dk_out,
+    float* dv_out) {
+  const int c = cluster_size(), rank = cluster_rank();
+  float* kc = wide_tc_chunks(smem);
+  float* vc = kc + kChunkFloats;
+  float* qc = vc + kChunkFloats;
+  float* doc = qc + kChunkFloats;
+  float* ex = doc + kChunkFloats;
+  float* pt = ex + 2 * c * split_rows(c) * kTile;
+  float* dst = pt + kTile * kTile;
+  float* rows = wide_tc_rows(smem);
+  int own0, nown;
+  owned_rows(own0, nown);
+  const int R = split_rows(c);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = 16 * (warp & 3);   // the warp's q rows, then its keys
+  const int kh = 32 * (warp >> 2);  // its keys in the first products
+  const int oh = 64 * (warp >> 2);  // its columns of the output slices
+  const int n = d / kWide;
+  const int spc = (n + c - 1) / c;
+  const size_t ko = (size_t)kt * kTile * d;
+  // dK and dV take 64 registers a thread beside the products': with the
+  // first products' k steps unrolled by two as well the kernels spilled a
+  // few bytes (scripts/flash_f32_wide_ab.py, variant dkvunroll); rolling
+  // the second products' instead was slower (PERF.md).
+  constexpr bool kAbtUnroll = false;
+  for (int pass = 0; pass < spc; ++pass) {
+    const int jo = rank + pass * c;
+    if (spc == 1) {
+      chunk_f32_async(kc, k + ko + jo * kWide, d);
+      chunk_f32_async(vc, v + ko + jo * kWide, d);
+      chunk_f32_async(doc, dout + (size_t)qt0 * kTile * d + jo * kWide, d);
+      cp_async_commit();
+      chunk_f32_async(qc, q + (size_t)qt0 * kTile * d + jo * kWide, d);
+      cp_async_commit();
+    }
+    cluster_sync();
+    float dk[2][4][4], dv[2][4][4];  // halves of 32 columns
 #pragma unroll
-    for (int i = 0; i < cols; ++i) s[i] = dp[i] = 0.f;
-    for (int c0 = 0; c0 < d; c0 += kF32Chunk) {
-      __syncthreads();
-      const size_t ko0 = (size_t)kt * kTile * d + c0;
+    for (int h = 0; h < 2; ++h) {
+      zero(dk[h]);
+      zero(dv[h]);
+    }
+    for (int qt = qt0; qt < qt1; ++qt) {
       const size_t qo = (size_t)qt * kTile * d;
-      load_chunk<T, kF32Chunk>(ks, k + ko0, d, 1.f);
-      load_chunk<T, kF32Chunk>(qs, q + qo + c0, d, 1.f);
-      if (dk) {
-        load_chunk<T, kF32Chunk>(vs, v + ko0, d, 1.f);
-        load_chunk<T, kF32Chunk>(dos, dout + qo + c0, d, 1.f);
+      if (threadIdx.x < nown) {  // the owned rows' LSE and delta
+        rows[threadIdx.x] = lse[qt * kTile + own0 + threadIdx.x];
+        rows[R + threadIdx.x] = delta[qt * kTile + own0 + threadIdx.x];
       }
-      if (c0 + kF32Chunk >= d) {
-        load_chunk<T, kWide>(xo, (dk ? q : dout) + qo + col0, d, 1.f);
-        if (threadIdx.x < kTile) {
-          lses[threadIdx.x] = lse[(size_t)qt * kTile + threadIdx.x];
-          dels[threadIdx.x] = delta[(size_t)qt * kTile + threadIdx.x];
+      float s[4][4], dp[4][4];
+      zero(s);
+      zero(dp);
+      if (spc == 1) {
+        cp_async_wait_prev();  // K, V and dO of tile qt
+        __syncthreads();
+        mma3_abt<4, kAbtUnroll>(dp, doc, rw, vc, kh, lane);
+        cp_async_wait_all();  // Q of tile qt
+        __syncthreads();
+        mma3_abt<4, kAbtUnroll>(s, qc, rw, kc, kh, lane);
+      } else {
+        int last = -1;
+        for (int j = rank; j < n; j += c) {
+          __syncthreads();
+          chunk_f32_async(kc, k + ko + j * kWide, d);
+          chunk_f32_async(vc, v + ko + j * kWide, d);
+          chunk_f32_async(qc, q + qo + j * kWide, d);
+          chunk_f32_async(doc, dout + qo + j * kWide, d);
+          cp_async_commit();
+          cp_async_wait_all();
+          __syncthreads();
+          mma3_abt<4, kAbtUnroll>(dp, doc, rw, vc, kh, lane);
+          mma3_abt<4, kAbtUnroll>(s, qc, rw, kc, kh, lane);
+          last = j;
+        }
+        if (jo < n && last != jo) {  // the output slice's Q and dO
+          __syncthreads();
+          chunk_f32_async(qc, q + qo + jo * kWide, d);
+          chunk_f32_async(doc, dout + qo + jo * kWide, d);
+          cp_async_commit();
+          cp_async_wait_all();
+          __syncthreads();
         }
       }
-      __syncthreads();
-      for (int dd = 0; dd < kF32Chunk; ++dd) {
-        const float kv = ks[j * kChunkLd + dd];
+      split_exchange(s, dp, ex, pt, dst, rows, qt, kt, causal, scale, rank,
+                     c);
+      if (jo < n) {
 #pragma unroll
-        for (int i = 0; i < cols; ++i)
-          s[i] += qs[(c + kLanes * i) * kChunkLd + dd] * kv;
-        if (dk) {
-          const float vv = vs[j * kChunkLd + dd];
+        for (int h = 0; h < 2; ++h)
+          mma3_xb<true, 4>(dv[h], pt, rw, doc, oh + 32 * h, lane);
+      }
+      if (spc == 1) {
+        __syncthreads();  // every warp is done with dO
+        if (qt + 1 < qt1)
+          chunk_f32_async(doc, dout + qo + kTile * d + jo * kWide, d);
+        cp_async_commit();
+      }
+      if (jo < n) {
 #pragma unroll
-          for (int i = 0; i < cols; ++i)
-            dp[i] += dos[(c + kLanes * i) * kChunkLd + dd] * vv;
-        }
+        for (int h = 0; h < 2; ++h)
+          mma3_xb<true, 4>(dk[h], dst, rw, qc, oh + 32 * h, lane);
+      }
+      if (spc == 1) {
+        __syncthreads();  // every warp is done with Q
+        if (qt + 1 < qt1)
+          chunk_f32_async(qc, q + qo + kTile * d + jo * kWide, d);
+        cp_async_commit();
       }
     }
+    if (jo < n) {
 #pragma unroll
-    for (int i = 0; i < cols; ++i) {
-      const int qr = c + kLanes * i;
-      const bool masked = causal && qt == kt && j > qr;
-      const float p = masked ? 0.f : expf(scale * s[i] - lses[qr]);
-      xt[j * kChunkLd + qr] = dk ? p * (dp[i] - dels[qr]) : p;
-    }
-    __syncwarp();
-    for (int qr = 0; qr < kTile; ++qr) {
-      const float x = xt[j * kChunkLd + qr];
-#pragma unroll
-      for (int i = 0; i < kWide / kLanes; ++i)
-        acc[i] += x * xo[qr * kOutLd + c + kLanes * i];
+      for (int h = 0; h < 2; ++h) {
+        store_tc_rows(dk_out, d, rw, jo * kWide + oh + 32 * h, dk[h],
+                      dk_scale);
+        store_tc_rows(dv_out, d, rw, jo * kWide + oh + 32 * h, dv[h], 1.f);
+      }
     }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_wide_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k,
-                              const T* __restrict__ v,
-                              const T* __restrict__ dout,
+// Resident dK/dV: grid x is the k tiles times the cluster's CTAs.
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dkv_wide_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              const float* __restrict__ dout,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
-                              T* __restrict__ dk, T* __restrict__ dv, int seq,
-                              int d, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int npass = d / kWide;
-  int kt, pass;
-  wide_block(2 * npass, kt, pass);
-  const bool is_dk = pass >= npass;
-  const int col0 = (is_dk ? pass - npass : pass) * kWide;
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              int seq, int d, float scale, int causal) {
+  extern __shared__ __align__(16) float tc_smem[];
+  const int kt = (int)blockIdx.x / cluster_size();
   const int bh = blockIdx.y;
-  const int j = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
   const size_t base = (size_t)bh * seq * d;
-  float acc[kWide / kLanes];
-#pragma unroll
-  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
-  dkv_wide_tiles_f32<T>(smem, q + base, k + base, v + base, dout + base,
-                        lse + (size_t)bh * seq, delta + (size_t)bh * seq, d,
-                        kt, causal ? kt : 0, seq / kTile, causal, scale,
-                        is_dk, col0, acc);
-  T* out = (is_dk ? dk : dv) + base + (size_t)(kt * kTile + j) * d + col0;
-  const float sc = is_dk ? scale : 1.f;
-#pragma unroll
-  for (int i = 0; i < kWide / kLanes; ++i)
-    out[c + kLanes * i] = from_f32<T>(sc * acc[i]);
+  const size_t at = base + (size_t)kt * kTile * d;
+  dkv_wide_tiles_f32(tc_smem, q + base, k + base, v + base, dout + base,
+                     lse + (size_t)bh * seq, delta + (size_t)bh * seq, d, kt,
+                     causal ? kt : 0, seq / kTile, causal, scale, scale,
+                     dk + at, dv + at);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_str_wide_kernel(const T* __restrict__ q,
-                                  const T* __restrict__ k,
-                                  const T* __restrict__ v,
-                                  const T* __restrict__ dout,
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dkv_str_wide_kernel(const float* __restrict__ q,
+                                  const float* __restrict__ k,
+                                  const float* __restrict__ v,
+                                  const float* __restrict__ dout,
                                   const float* __restrict__ lse,
                                   const float* __restrict__ delta,
                                   float* __restrict__ dk_ws,
                                   float* __restrict__ dv_ws, int seq, int d,
                                   int split, float scale, int causal) {
   const int num_t = seq / kTile;
-  const int npass = d / kWide;
-  int kt, pass;
-  wide_block(2 * npass, kt, pass);
+  const int kt = (int)blockIdx.x / cluster_size();
   const int sp = blockIdx.y;
   const int bh = blockIdx.z;
   int qt0 = sp * split;
   const int qt1 = min(qt0 + split, num_t);
   if (causal) qt0 = max(qt0, kt);
-  if (qt0 >= qt1) return;
+  if (qt0 >= qt1) return;  // dead pair, for the whole cluster
 
-  extern __shared__ float smem[];
-  const bool is_dk = pass >= npass;
-  const int col0 = (is_dk ? pass - npass : pass) * kWide;
-  const int j = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
+  extern __shared__ __align__(16) float tc_smem[];
   const size_t base = (size_t)bh * seq * d;
-  float acc[kWide / kLanes];
-#pragma unroll
-  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
-  dkv_wide_tiles_f32<T>(smem, q + base, k + base, v + base, dout + base,
-                        lse + (size_t)bh * seq, delta + (size_t)bh * seq, d,
-                        kt, qt0, qt1, causal, scale, is_dk, col0, acc);
-  float* out = (is_dk ? dk_ws : dv_ws) +
-               ws_row(sp, bh, gridDim.z, seq, kt * kTile + j) * d + col0;
-#pragma unroll
-  for (int i = 0; i < kWide / kLanes; ++i) out[c + kLanes * i] = acc[i];
+  const size_t at = ws_row(sp, bh, gridDim.z, seq, kt * kTile) * d;
+  dkv_wide_tiles_f32(tc_smem, q + base, k + base, v + base, dout + base,
+                     lse + (size_t)bh * seq, delta + (size_t)bh * seq, d, kt,
+                     qt0, qt1, causal, scale, 1.f, dk_ws + at, dv_ws + at);
 }
 
 // ---- the streaming passes at a wide D: grid x is the row tiles times the
@@ -2761,7 +3211,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // bf16 and float16 kernels run on the tensor cores; float32 ones keep the
-// CUDA-core loops (see the header).
+// CUDA-core loops (see the header), but for the wide backward.
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value ||
                               std::is_same<T, __half>::value;
@@ -2938,9 +3388,39 @@ cudaError_t launch_dkv_str(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// CTAs of a float32 wide backward cluster: the D / kWide slices over at
+// most kSplitCtas CTAs, ceil(n / kSplitCtas) slices a CTA.
+int split_ctas(int d) {
+  const int n = d / kWide;
+  const int per = (n + kSplitCtas - 1) / kSplitCtas;
+  return (n + per - 1) / per;
+}
+
+// Launch `kernel` (kTcThreads a CTA) as clusters of `ctas` CTAs along grid
+// x; a cluster the card cannot place is an error of the launch.
+template <typename... Params, typename... Args>
+cudaError_t launch_split(void (*kernel)(Params...), dim3 grid, int ctas,
+                         size_t smem, cudaStream_t stream, Args... args) {
+  BPS_RETURN_IF_ERROR(allow_smem(kernel, smem));
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kTcThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  BPS_RETURN_IF_ERROR(cudaLaunchKernelEx(&cfg, kernel, args...));
+  return cudaGetLastError();
+}
+
 // Launchers at a wide head dim (above 256, a multiple of kWide): the same
 // work as the launchers above, D a run-time argument, kWide-column output
-// passes in grid x.
+// passes in grid x (the float32 backward: the clusters of split_ctas CTAs).
 template <typename T>
 cudaError_t launch_fwd_wide(int d, const void* q, const void* k,
                             const void* v, void* o, float* lse, int bh, int seq,
@@ -2953,7 +3433,7 @@ cudaError_t launch_fwd_wide(int d, const void* q, const void* k,
         (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, d, scale,
         causal);
   } else {
-    const size_t smem = wide_f32_smem(3, 0);
+    const size_t smem = wide_f32_smem(3);
     BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_wide_kernel<T>, smem));
     flash_fwd_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, d, scale,
@@ -2975,11 +3455,13 @@ cudaError_t launch_dq_wide(int d, const void* q, const void* k,
         (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
         lse, (T*)dq, delta, seq, d, scale, causal);
   } else {
-    const size_t smem = wide_f32_smem(5, 0);
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_wide_kernel<T>, smem));
-    flash_bwd_dq_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
-        lse, (T*)dq, delta, seq, d, scale, causal);
+    const int ctas = split_ctas(d);
+    return launch_split(flash_bwd_dq_wide_kernel,
+                        dim3(seq / kTile * ctas, bh), ctas,
+                        wide_tc_smem(ctas, 1), stream, (const float*)q,
+                        (const float*)k, (const float*)v, (const float*)o,
+                        (const float*)dout, lse, (float*)dq, delta, seq, d,
+                        scale, causal);
   }
   return cudaGetLastError();
 }
@@ -2990,19 +3472,21 @@ cudaError_t launch_dkv_wide(int d, const void* q, const void* k,
                             const float* delta, void* dk, void* dv, int bh,
                             int seq, float scale, int causal,
                             cudaStream_t stream) {
-  const dim3 grid(seq / kTile * 2 * (d / kWide), bh);
   if constexpr (kTensorCores<T>) {
+    const dim3 grid(seq / kTile * 2 * (d / kWide), bh);
     const size_t smem = wide_mma_smem(5);
     BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_wide_mma_kernel<T>, smem));
     flash_bwd_dkv_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
         (T*)dk, (T*)dv, seq, d, scale, causal);
   } else {
-    const size_t smem = wide_f32_smem(5, 2);
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_wide_kernel<T>, smem));
-    flash_bwd_dkv_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        (T*)dk, (T*)dv, seq, d, scale, causal);
+    const int ctas = split_ctas(d);
+    return launch_split(flash_bwd_dkv_wide_kernel,
+                        dim3(seq / kTile * ctas, bh), ctas,
+                        wide_tc_smem(ctas, 2), stream, (const float*)q,
+                        (const float*)k, (const float*)v, (const float*)dout,
+                        lse, delta, (float*)dk, (float*)dv, seq, d, scale,
+                        causal);
   }
   return cudaGetLastError();
 }
@@ -3024,7 +3508,7 @@ cudaError_t launch_fwd_str_wide(int d, const void* q, const void* k,
         (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq, d,
         split, scale, causal);
   } else {
-    const size_t smem = wide_f32_smem(3, 0);
+    const size_t smem = wide_f32_smem(3);
     BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_wide_kernel<T>, smem));
     flash_fwd_str_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq, d,
@@ -3050,22 +3534,23 @@ cudaError_t launch_dq_str_wide(int d, const void* q, const void* k,
   flash_delta_wide_kernel<T><<<dim3(num_t, bh), kThreads, 0, stream>>>(
       (const T*)o, (const T*)dout, delta, seq, d);
   BPS_RETURN_IF_ERROR(cudaGetLastError());
-  const dim3 grid(num_t * npass, nsplit, bh);
   if constexpr (kTensorCores<T>) {
+    const dim3 grid(num_t * npass, nsplit, bh);
     const size_t smem = wide_mma_smem(5);
     BPS_RETURN_IF_ERROR(
         allow_smem(flash_bwd_dq_str_wide_mma_kernel<T>, smem));
     flash_bwd_dq_str_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
         dq_ws, seq, d, split, scale, causal);
+    BPS_RETURN_IF_ERROR(cudaGetLastError());
   } else {
-    const size_t smem = wide_f32_smem(5, 0);
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_str_wide_kernel<T>, smem));
-    flash_bwd_dq_str_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        dq_ws, seq, d, split, scale, causal);
+    const int ctas = split_ctas(d);
+    BPS_RETURN_IF_ERROR(launch_split(
+        flash_bwd_dq_str_wide_kernel, dim3(num_t * ctas, nsplit, bh), ctas,
+        wide_tc_smem(ctas, 1), stream, (const float*)q, (const float*)k,
+        (const float*)v, (const float*)dout, lse, (const float*)delta, dq_ws,
+        seq, d, split, scale, causal));
   }
-  BPS_RETURN_IF_ERROR(cudaGetLastError());
   flash_sum_splits_wide_kernel<T>
       <<<dim3(num_t * npass, bh), kThreads, 0, stream>>>(
           dq_ws, (T*)dq, seq, d, nsplit, split, scale, causal, 0);
@@ -3082,8 +3567,8 @@ cudaError_t launch_dkv_str_wide(int d, const void* q, const void* k,
   const int num_t = seq / kTile;
   const int npass = d / kWide;
   const int nsplit = num_splits(seq, split);
-  const dim3 grid(num_t * 2 * npass, nsplit, bh);
   if constexpr (kTensorCores<T>) {
+    const dim3 grid(num_t * 2 * npass, nsplit, bh);
     const size_t smem = wide_mma_smem(5);
     BPS_RETURN_IF_ERROR(
         allow_smem(flash_bwd_dkv_str_wide_mma_kernel<T>, smem));
@@ -3091,14 +3576,15 @@ cudaError_t launch_dkv_str_wide(int d, const void* q, const void* k,
         <<<grid, kMmaThreads, smem, stream>>>(
             (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
             delta, dk_ws, dv_ws, seq, d, split, scale, causal);
+    BPS_RETURN_IF_ERROR(cudaGetLastError());
   } else {
-    const size_t smem = wide_f32_smem(5, 2);
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_str_wide_kernel<T>, smem));
-    flash_bwd_dkv_str_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        dk_ws, dv_ws, seq, d, split, scale, causal);
+    const int ctas = split_ctas(d);
+    BPS_RETURN_IF_ERROR(launch_split(
+        flash_bwd_dkv_str_wide_kernel, dim3(num_t * ctas, nsplit, bh), ctas,
+        wide_tc_smem(ctas, 2), stream, (const float*)q, (const float*)k,
+        (const float*)v, (const float*)dout, lse, delta, dk_ws, dv_ws, seq,
+        d, split, scale, causal));
   }
-  BPS_RETURN_IF_ERROR(cudaGetLastError());
   const dim3 sum_grid(num_t * npass, bh);
   flash_sum_splits_wide_kernel<T><<<sum_grid, kThreads, 0, stream>>>(
       dk_ws, (T*)dk, seq, d, nsplit, split, scale, causal, 1);
@@ -3112,10 +3598,10 @@ bool shape_ok(int bh, int seq) {
   return bh >= 1 && bh <= 65535 && seq >= kTile && seq % kTile == 0;
 }
 
-// The tensor-core kernels (dtype 1 and 2) copy q, k, v, dO, LSE and delta
-// in 16-byte pieces (cp.async).
-bool aligned16(int dtype, std::initializer_list<const void*> ptrs) {
-  if (dtype == 0) return true;
+// The tensor-core kernels (dtype 1 and 2, and float32's wide backward) copy
+// q, k, v, dO, LSE and delta in 16-byte pieces (cp.async).
+bool aligned16(bool copies, std::initializer_list<const void*> ptrs) {
+  if (!copies) return true;
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return false;
   return true;
@@ -3167,7 +3653,8 @@ extern "C" int bps_flash_fwd(const void* q, const void* k, const void* v,
                              int head_dim, int dtype, float scale, int causal,
                              void* stream) {
   if (!shape_ok(bh, seq)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype, {q, k, v})) return (int)cudaErrorMisalignedAddress;
+  if (!aligned16(dtype != 0, {q, k, v}))
+    return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_fwd, dtype, head_dim, q, k, v, o, lse, bh, seq, scale,
                causal, (cudaStream_t)stream);
 }
@@ -3178,7 +3665,7 @@ extern "C" int bps_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int bh, int seq, int head_dim, int dtype,
                                 float scale, int causal, void* stream) {
   if (!shape_ok(bh, seq)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype, {q, k, v, dout}))
+  if (!aligned16(dtype != 0 || head_dim > 256, {q, k, v, dout}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dq, dtype, head_dim, q, k, v, o, dout, lse, dq, delta,
                bh, seq, scale, causal, (cudaStream_t)stream);
@@ -3190,7 +3677,8 @@ extern "C" int bps_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int bh, int seq, int head_dim, int dtype,
                                  float scale, int causal, void* stream) {
   if (!shape_ok(bh, seq)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype, {q, k, v, dout, lse, delta}))
+  if (!aligned16(dtype != 0 || head_dim > 256,
+                 {q, k, v, dout, lse, delta}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dkv, dtype, head_dim, q, k, v, dout, lse, delta, dk,
                dv, bh, seq, scale, causal, (cudaStream_t)stream);
@@ -3206,7 +3694,8 @@ extern "C" int bps_flash_fwd_str(const void* q, const void* k, const void* v,
                                  int causal, int split, void* stream) {
   if (!shape_ok(bh, seq) || !split_ok(seq, split))
     return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype, {q, k, v})) return (int)cudaErrorMisalignedAddress;
+  if (!aligned16(dtype != 0, {q, k, v}))
+    return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_fwd_str, dtype, head_dim, q, k, v, o, lse, m_ws, l_ws,
                acc_ws, bh, seq, scale, causal, split, (cudaStream_t)stream);
 }
@@ -3220,7 +3709,7 @@ extern "C" int bps_flash_bwd_dq_str(const void* q, const void* k,
                                     void* stream) {
   if (!shape_ok(bh, seq) || !split_ok(seq, split))
     return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype, {q, k, v, dout}))
+  if (!aligned16(dtype != 0 || head_dim > 256, {q, k, v, dout}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dq_str, dtype, head_dim, q, k, v, o, dout, lse, dq,
                delta, dq_ws, bh, seq, scale, causal, split,
@@ -3236,11 +3725,18 @@ extern "C" int bps_flash_bwd_dkv_str(const void* q, const void* k,
                                      int causal, int split, void* stream) {
   if (!shape_ok(bh, seq) || !split_ok(seq, split))
     return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype, {q, k, v, dout, lse, delta}))
+  if (!aligned16(dtype != 0 || head_dim > 256,
+                 {q, k, v, dout, lse, delta}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dkv_str, dtype, head_dim, q, k, v, dout, lse, delta,
                dk, dv, dk_ws, dv_ws, bh, seq, scale, causal, split,
                (cudaStream_t)stream);
+}
+
+// CTAs of one cluster of the float32 backward at a wide head dim (0 for a
+// head dim the wide kernels do not take).
+extern "C" int bps_flash_wide_cluster(int head_dim) {
+  return head_dim > 256 && head_dim % kWide == 0 ? split_ctas(head_dim) : 0;
 }
 
 extern "C" const char* bps_cuda_error_string(int err) {

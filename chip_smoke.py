@@ -11,8 +11,11 @@ Phases, each of which must pass:
    Count the HMMA (tensor-core MMA) instructions of each flash kernel in
    the library's SASS (cuobjdump): every bf16 and float16 instantiation of
    the two forward and four backward kernels, at every head dim (16, 32,
-   64, 128, 256) and of the wide kernels (D above 256), must have them, no
-   float32 one may.
+   64, 128, 256) and of the wide kernels (D above 256), must have them, and
+   so must the four float32 wide backward kernels (3xTF32); the two float32
+   wide forward kernels and every float32 instantiation at D <= 256 must
+   not.  The float32 wide backward kernels must spill nothing; their
+   cluster size at each wide head dim of phase 10 is printed.
 2. Hold each flash kernel against its plain PyTorch version on the card:
    the flagship attention shape [8*16, 512, 64] bf16, causal and not, and
    a small float32 shape through the autograd op with block_q != block_k.
@@ -104,9 +107,13 @@ Phases, each of which must pass:
    held to the plain versions as in phase 7 (float16 with its bf16
    control); then each kernel at D = 384 and 512 in the three dtypes
    against its plain version and timed (resident at [128, 512, D],
-   streaming at [16, 8192, D]) beside its bound, its TFLOP/s and SDPA's
+   streaming at [16, 8192, D]) beside its bound (float32's at the 3xTF32
+   ceiling of 165 TFLOP/s, the bound at 67 outside the tensor cores
+   printed beside it), its TFLOP/s and SDPA's
    forward and backward, naming the SDPA backend that ran.  Every timed
-   instantiation must have been launched by the coverage run.
+   instantiation must have been launched by the coverage run.  Then the
+   float32 instantiations <f32,64> and <f32,256> timed the same way, at the
+   flagship shape and at [16, 8192, D], beside SDPA (launched by phase 7).
 11. ResNet-50 (224 x 224 x 3, 1000 classes, float32, batch 64, one fixed
    synthetic batch, cuDNN deterministic, no TF32): 5 steps of SGD (lr 0.1,
    momentum 0.9) through DistributedOptimizer + build_train_step with
@@ -131,6 +138,7 @@ without that line, when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -142,6 +150,9 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# float32-accurate products on the tensor cores: 3xTF32, three TF32 MMAs
+# (495 TFLOP/s dense) for each product, the least a float32 kernel can take
+TF32X3_FLOPS_PER_S = 495e12 / 3
 
 FLASH_SOURCE = "byteps_tpu_torch/csrc/flash_attention.cu"
 BITPACK_SOURCE = "byteps_tpu_torch/csrc/bitpack.cu"
@@ -183,6 +194,13 @@ NEW_INSTANCES = (("bf16", 256), ("f16", 64))
 WIDE_DIMS = (264, 384, 512)
 WIDE_TIMED = (384, 512)
 WIDE_LONG = dict(batch=1, heads=16, seq=8192)
+# The float32 wide backward kernels, on the tensor cores in 3xTF32 (their
+# SASS labels); the float32 instantiations at D <= 256 timed in phase 10.
+F32_WIDE_BWD = ("flash_bwd_dq_wide_kernel<f32>",
+                "flash_bwd_dq_str_wide_kernel<f32>",
+                "flash_bwd_dkv_wide_kernel<f32>",
+                "flash_bwd_dkv_str_wide_kernel<f32>")
+F32_INSTANCES = (64, 256)
 # bench.py's CNN row: ResNet-50, 224 x 224 x 3, 1000 classes, float32,
 # batch 64, SGD lr 0.1 momentum 0.9, 5 steps on one fixed batch.
 CNN = dict(name="resnet50", image=224, classes=1000, batch=64, lr=0.1,
@@ -349,12 +367,15 @@ def fwd_report(name, ms, lib_ms, bh, s, d):
     return res
 
 
-def bound_ms(name, bh, s, d, itemsize, causal):
+def bound_ms(name, bh, s, d, itemsize, causal,
+             f32_peak=TF32X3_FLOPS_PER_S):
     """Least time for the work: its bytes over HBM bandwidth or its FLOPs
-    over the peak for the inputs' type (bf16/float16 tensor cores, or
-    float32), the larger."""
+    over the peak for the inputs' type, the larger: the bf16/float16
+    tensor cores, or for float32 the 3xTF32 ceiling (any float32 product
+    can run so on this card; ``f32_peak=F32_FLOPS_PER_S`` gives the bound
+    outside the tensor cores)."""
     nbytes, flops = work(name, bh, s, d, itemsize, causal)
-    peak = F32_FLOPS_PER_S if itemsize == 4 else BF16_FLOPS_PER_S
+    peak = f32_peak if itemsize == 4 else BF16_FLOPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -392,6 +413,17 @@ def phase_build(mods, build_mod, torch, gpu, check):
             re.search(r"\b0 bytes spill stores", r) for r in mma),
               f"ptxas: no spills in the {len(mma)} tensor-core kernels "
               f"(want {want})")
+        f32 = [(k, r) for k, r in ptxas_reports(build_mod.build_logs.get(
+            mods[0].SOURCE, "")) if k in F32_WIDE_BWD]
+        check(len(f32) == len(F32_WIDE_BWD) and all(
+            re.search(r"\b0 bytes spill stores", r) for _, r in f32),
+              f"ptxas: no spills in the {len(f32)} float32 wide backward "
+              f"kernels: " + "; ".join(f"{k} {r}" for k, r in f32))
+    lib = mods[0]._lib()
+    lib.bps_flash_wide_cluster.argtypes = [ctypes.c_int]
+    print("  float32 wide backward cluster (CTAs) by head dim: " + ", ".join(
+        f"D {d}: {lib.bps_flash_wide_cluster(d)}"
+        for d in (384, 512, 640, 768, 896, 1024, 1152)))
     hmma_census(build_mod, build_mod.build(mods[0].SOURCE),
                 len(mods[0].HEAD_DIMS), check)
 
@@ -469,13 +501,16 @@ def hmma_census(build_mod, lib, n_dims, check):
     wide = [k for k in counts if "_wide" in k and not any(
         s in k for s in ("merge", "delta", "sum_splits"))]
     tc = [k for k in wide if "bf16" in k or "f16" in k]
-    f32 = [k for k in wide if "f32" in k]
-    check(len(tc) == 12 and len(f32) == 6
-          and all(counts[k] > 0 for k in tc)
-          and not any(counts[k] for k in f32),
+    f32_bwd = [k for k in wide if k in F32_WIDE_BWD]
+    f32_fwd = [k for k in wide if "f32" in k and k not in F32_WIDE_BWD]
+    check(len(tc) == 12 and all(counts[k] > 0 for k in tc),
           f"SASS: HMMA in all {len(tc)} bf16 and float16 wide (D > 256) "
-          f"kernels (min {min((counts[k] for k in tc), default=0)}), none "
-          f"in the {len(f32)} float32 ones")
+          f"kernels (min {min((counts[k] for k in tc), default=0)})")
+    check(len(f32_bwd) == 4 and all(counts[k] > 0 for k in f32_bwd)
+          and len(f32_fwd) == 2 and not any(counts[k] for k in f32_fwd),
+          f"SASS: HMMA in the {len(f32_bwd)} float32 wide backward kernels "
+          f"(3xTF32: " + ", ".join(f"{k} {counts[k]}" for k in f32_bwd)
+          + f"), none in the {len(f32_fwd)} float32 wide forward ones")
 
 
 def phase_kernels(fa, torch, check):
@@ -1481,11 +1516,14 @@ def phase_instances(fa, torch, check, tag, d, long_shape=LONG):
                              else time_ms(pfn, reps=5)),
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": time_ms(lib) if lib is not None else None}
+            cores = bound_ms(name, BH, S, d, 4, True, F32_FLOPS_PER_S)[0]
+            cores = (f", {cores:.4f} ms outside the tensor cores"
+                     if itemsize == 4 else "")
             print(f"  {key} [{BH},{S},{d}]: kernel {out[key]['ms']:.4f} ms "
                   f"({tflops(name, BH, S, d, True, out[key]['ms']):.2f} "
                   f"TFLOP/s), plain {out[key]['plain_ms']:.4f} ms, library "
                   f"{out[key]['library_ms']} ms (SDPA {backend}), bound "
-                  f"{b_ms:.4f} ms ({b_by})")
+                  f"{b_ms:.4f} ms ({b_by}{cores})")
         q4g, k4g, v4g = (t.detach().clone().requires_grad_()
                          for t in (q4, k4, v4))
         o4g = F.scaled_dot_product_attention(q4g, k4g, v4g, is_causal=True)
@@ -1833,6 +1871,18 @@ def main() -> int:
           f"{ {key: wide.get(key, 0) for key in wide_kernels} }")
     path.update(wide)
     new_kernels += wide_kernels
+    f32_kernels = []
+    for d in F32_INSTANCES:
+        i_numbers, i_yard = phase_instances(fa, torch, check, "f32", d,
+                                            long_shape=WIDE_LONG)
+        numbers.update(i_numbers)
+        yardsticks.update(i_yard)
+        f32_kernels += list(i_numbers)
+        torch.cuda.empty_cache()
+    check(all(path.get(key, 0) > 0 for key in f32_kernels),
+          f"the coverage path launched every timed float32 instantiation: "
+          f"{ {key: path.get(key, 0) for key in f32_kernels} }")
+    new_kernels += f32_kernels
     print("== phase 11: ResNet-50 training through DistributedOptimizer + "
           "build_train_step and through the Horovod face")
     grads, cnn_numbers = phase_cnn(bps, torch, check, gpu)

@@ -667,7 +667,7 @@ def test_entry_point_refuses_head_dims_above_256(cuda_device):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("d", [384, 512, 768, 896, 1024, 1152])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 8e-3),
                                        (torch.float16, 1e-3)])
@@ -675,7 +675,10 @@ def test_wide_kernels_match_plain(cuda_device, monkeypatch, causal, d, dtype,
                                   tol):
     """Each wide kernel, resident and streaming (3 splits, the last
     ragged), against its plain version on the same inputs, as
-    test_kernels_match_plain holds the instantiated head dims."""
+    test_kernels_match_plain holds the instantiated head dims.  In float32
+    the backward runs as clusters of D / 128 CTAs, 8 at D = 1024 (at 768
+    and 896 the last of 6 or 7 row owners holds a short share of the
+    exchange); at 1152 (9 slices) as 5 CTAs of two slices each."""
     monkeypatch.setattr(fa, "_split_len", lambda s: 128)
     q, k, v, do = _qkvdo(cuda_device, 3, 320, d, dtype)
     f = [t.float() for t in (q, k, v, do)]
@@ -699,6 +702,33 @@ def test_wide_kernels_match_plain(cuda_device, monkeypatch, causal, d, dtype,
         top = float(ref.abs().max())
         assert err <= tols.get(name, tol) * top, \
             f"{name}: max err {err} vs max {top}"
+
+
+@pytest.mark.parametrize("d", [384, 512, 1152])
+def test_wide_f32_backward_repeat_is_bit_identical(cuda_device, monkeypatch,
+                                                   d):
+    """The float32 wide backward sums the cluster's partials in rank order
+    and its splits in split order, with no atomics: two calls of each of
+    its four kernels give the same bits, causal and not."""
+    monkeypatch.setattr(fa, "_split_len", lambda s: 128)
+    q, k, v, do = _qkvdo(cuda_device, 3, 320, d, torch.float32)
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, True, scale)
+
+    def backward(causal):
+        dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        dq_s, delta_s = fa.flash_bwd_dq_str(q, k, v, o, lse, do, causal,
+                                            scale)
+        dk_s, dv_s = fa.flash_bwd_dkv_str(q, k, v, do, lse, delta, causal,
+                                          scale)
+        return dq, delta, dk, dv, dq_s, delta_s, dk_s, dv_s
+
+    for causal in (False, True):
+        first, second = backward(causal), backward(causal)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(first, second)):
+            assert torch.equal(a, b), (causal, i)
 
 
 _UNPACK_NS = [1, 100, 5000, 4096 * 33, 1048576, 1048576 - 3]

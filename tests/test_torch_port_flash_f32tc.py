@@ -1,0 +1,319 @@
+"""The numeric recipe of the float32 flash backward above D = 256.
+
+The CUDA kernels (``dq_wide_tiles_f32`` / ``dkv_wide_tiles_f32`` in
+``byteps_tpu_torch/csrc/flash_attention.cu``) cannot run on the CPU.  This
+file keeps a torch emulation of their arithmetic:
+
+  - every product on the tensor cores in 3xTF32: each operand x split as
+    hi = tf32(x), lo = tf32(x - hi), with tf32 a round to nearest (ties
+    away from zero, as cvt.rna) to a 10-bit mantissa, and a product taken
+    as lo hi + hi lo + hi hi (lo lo dropped);
+  - the tensor cores' sums: one MMA adds the exact sum of 8 products (one
+    k step) to its float32 accumulator and truncates the result toward
+    zero; every 16 elements of a contraction (two k steps, six MMAs) go
+    into a zeroed accumulator that is added to the sum in float32 (round
+    to nearest);
+  - the contraction walked in 64-row tile pairs;
+  - per tile pair, S = Q K^T and dP = dO V^T as the sum of the D / 128
+    slices' partials (each slice's CTA contracts over its own 128 columns),
+    added in rank order 0..n-1; P = exp(scale S - LSE), dS = P (dP -
+    delta); the second products (dS K, P^T dO, dS^T Q) of each tile pair
+    added to the output's accumulator 16 rows at a time;
+  - in the streaming family, one partial a split, summed in split order.
+
+It is held to ``chip_smoke.py``'s float32 gates, |got - plain| <= 1e-4
+|plain| + 1e-5 for dQ, dK and dV and 1e-5 |plain| + 1e-6 for delta,
+against the port's plain versions and the JAX package's backward (Pallas
+interpreter) at D = 384 and 512.  Three controls: one TF32 rounding of each
+operand, the usual recipe, misses the same gate; one truncating
+accumulator for a whole 128-column chunk (and a whole tile pair) reads
+several times higher than the 16-element partials; and partials summed
+in another order for each slice give P that differs between slices, which
+is why the owner of a row sums them once, in rank order.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from byteps_tpu.ops.flash_attention import _flash_fwd as jax_flash_fwd
+from byteps_tpu.ops.flash_attention import flash_attention as jax_flash
+from byteps_tpu_torch.ops import flash_attention as fa
+from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
+
+TILE = 64
+SLICE = 128                       # the kernels' kWide: a CTA's columns
+F32_GATE = (1e-4, 1e-5)           # chip_smoke.py's gate for float32 outputs
+ROWS_GATE = (1e-5, 1e-6)          # ... and for LSE and delta
+
+
+def tf32(x):
+    """x rounded to TF32 (a 10-bit mantissa), to nearest, ties away from
+    zero, as cvt.rna.tf32.f32: add half a step to the magnitude's bits and
+    clear the 13 bits below the mantissa."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def rz32(x):
+    """float64 x rounded to float32 toward zero."""
+    r = x.float()
+    over = r.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+# The order of a chunk's columns in the first products' k steps: a lane's
+# 16-byte load holds columns 4t..4t+3 of 16; one k step takes 4t and
+# 4t + 1, the next 4t + 2 and 4t + 3.
+_CHUNK_ORDER = [16 * j + 4 * t + e for j in range(SLICE // 16)
+                for pair in ((0, 1), (2, 3)) for t in range(4) for e in pair]
+
+
+class Recipe:
+    """The products of the kernels: ``terms`` 3 (3xTF32) or 1 (one TF32
+    rounding), and a zeroed accumulator every ``group`` k steps of 8."""
+
+    def __init__(self, terms=3, group=2):
+        self.terms, self.group = terms, group
+
+    def __call__(self, a, b, chunk=False, acc=None):
+        """acc + a [..., M, K] @ b [K, N] (b may carry a's leading dims);
+        ``chunk``: K is a 128-column chunk in the first products' order."""
+        if chunk:
+            a, b = a[..., _CHUNK_ORDER], b[..., _CHUNK_ORDER, :]
+        ah, bh = tf32(a), tf32(b)
+        parts = [(ah, bh)]
+        if self.terms == 3:
+            al, bl = tf32(a - ah), tf32(b - bh)
+            parts = [(al, bh), (ah, bl), (ah, bh)]
+        k, step = a.shape[-1], 8 * self.group
+        for k0 in range(0, k, step):  # one zeroed accumulator each
+            part = torch.zeros(*a.shape[:-1], b.shape[-1],
+                               dtype=torch.float64)
+            for s0 in range(k0, k0 + step, 8):
+                for x, y in parts:
+                    part = rz32(part + x[..., s0:s0 + 8].double()
+                                @ y[..., s0:s0 + 8, :].double()).double()
+            acc = part.float() if acc is None else acc + part.float()
+        return acc
+
+
+mm3 = Recipe()                     # the kernels
+mm1 = Recipe(terms=1)              # control: one TF32 rounding
+mm3_chunk = Recipe(group=16)       # control: one accumulator a chunk
+
+
+def _tile_pair(qt, kt, dot, vt, q0, k0, lse, delta, causal, scale, mm,
+               order=None):
+    """P and dS of one tile pair from the slices' partials of S = Q K^T and
+    dP = dO V^T, added in rank order (or in ``order``)."""
+    n = qt.shape[-1] // SLICE
+    cols = [slice(j * SLICE, (j + 1) * SLICE) for j in range(n)]
+    order = range(n) if order is None else order
+    s = dp = None
+    for j in order:
+        ps = mm(qt[..., cols[j]], kt[..., cols[j]].transpose(-1, -2), True)
+        pd = mm(dot[..., cols[j]], vt[..., cols[j]].transpose(-1, -2), True)
+        s = ps if s is None else s + ps
+        dp = pd if dp is None else dp + pd
+    p = torch.exp(scale * s - lse[:, q0:q0 + TILE, None])
+    if causal:
+        keys = torch.arange(k0, k0 + TILE)
+        p = p.masked_fill(keys > torch.arange(q0, q0 + TILE)[:, None], 0.0)
+    return p, p * (dp - delta[:, q0:q0 + TILE, None])
+
+
+def _visible(q0, k0, causal):
+    return not causal or k0 <= q0 + TILE - 1
+
+
+def emulate_dq(q, k, v, do, lse, delta, causal, scale, mm=mm3, split=None):
+    """dQ as dq_wide_tiles_f32 computes it: for each q tile, the k tiles in
+    splits of ``split`` tiles (all of them in the resident family), one
+    float32 partial a split, the partials summed in split order."""
+    s_len = q.shape[1]
+    split = split or s_len // TILE
+    dq = torch.zeros_like(q)
+    for q0 in range(0, s_len, TILE):
+        qt, dot = q[:, q0:q0 + TILE], do[:, q0:q0 + TILE]
+        total = None
+        for sp0 in range(0, s_len, split * TILE):
+            acc = None
+            for k0 in range(sp0, min(sp0 + split * TILE, s_len), TILE):
+                if not _visible(q0, k0, causal):
+                    continue
+                kt, vt = k[:, k0:k0 + TILE], v[:, k0:k0 + TILE]
+                _, ds = _tile_pair(qt, kt, dot, vt, q0, k0, lse, delta,
+                                   causal, scale, mm)
+                acc = mm(ds, kt, acc=acc)
+            if acc is not None:
+                total = acc if total is None else total + acc
+        dq[:, q0:q0 + TILE] = scale * total
+    return dq
+
+
+def emulate_dkv(q, k, v, do, lse, delta, causal, scale, mm=mm3, split=None):
+    """dK, dV as dkv_wide_tiles_f32 computes them: the k tile fixed, the q
+    tiles in splits, P^T dO and dS^T Q of each pair added to dV and dK."""
+    s_len = q.shape[1]
+    split = split or s_len // TILE
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for k0 in range(0, s_len, TILE):
+        kt, vt = k[:, k0:k0 + TILE], v[:, k0:k0 + TILE]
+        tot_k = tot_v = None
+        for sp0 in range(0, s_len, split * TILE):
+            acc_k = acc_v = None
+            for q0 in range(sp0, min(sp0 + split * TILE, s_len), TILE):
+                if not _visible(q0, k0, causal):
+                    continue
+                qt, dot = q[:, q0:q0 + TILE], do[:, q0:q0 + TILE]
+                p, ds = _tile_pair(qt, kt, dot, vt, q0, k0, lse, delta,
+                                   causal, scale, mm)
+                acc_v = mm(p.transpose(-1, -2), dot, acc=acc_v)
+                acc_k = mm(ds.transpose(-1, -2), qt, acc=acc_k)
+            if acc_k is not None:
+                tot_k = acc_k if tot_k is None else tot_k + acc_k
+                tot_v = acc_v if tot_v is None else tot_v + acc_v
+        dk[:, k0:k0 + TILE] = scale * tot_k
+        dv[:, k0:k0 + TILE] = tot_v
+    return dk, dv
+
+
+def _worst(got, want, tol):
+    """The worst element's |got - want| over its limit (<= 1 passes)."""
+    rtol, atol = tol
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() / (w.abs() * rtol + atol)).max())
+
+
+@functools.lru_cache(maxsize=None)
+def _case(d, causal, s=256):
+    """float32 [2, s, d] inputs from a seed, the plain forward's O and LSE,
+    delta and the plain backward (dQ, dK, dV)."""
+    rng = np.random.RandomState(d + causal)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, s, d).astype(np.float32))
+                   for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd_plain(q, k, v, causal, scale)
+    dq, delta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, causal, scale)
+    dk, dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
+    return (q, k, v, do, o, lse, delta, scale), (dq, dk, dv)
+
+
+def _gates(got, want):
+    return {n: _worst(g, w, F32_GATE)
+            for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [384, 512])
+def test_recipe_passes_the_f32_gates(d, causal, streaming):
+    """3xTF32 in split-D tile pairs holds dQ, dK and dV to the float32 gate
+    against the plain versions, resident and in splits of two tiles, and
+    delta (float64, rounded once, as the plain version sums it) to the
+    rows gate."""
+    (q, k, v, do, o, lse, delta, scale), plain = _case(d, causal)
+    split = 2 if streaming else None
+    got_delta = (do.double() * o.double()).sum(-1).float()
+    got = (emulate_dq(q, k, v, do, lse, got_delta, causal, scale,
+                      split=split),
+           *emulate_dkv(q, k, v, do, lse, got_delta, causal, scale,
+                        split=split))
+    worst = _gates(got, plain)
+    worst["delta"] = _worst(got_delta, delta, ROWS_GATE)
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_single_tf32_rounding_misses_the_f32_gate(causal):
+    """Recorded so nobody "simplifies" the kernels: each operand rounded to
+    TF32 once (11 significant bits) misses the float32 gate at D = 512,
+    in dQ, dK and dV alike."""
+    (q, k, v, do, _, lse, delta, scale), plain = _case(512, causal)
+    got = (emulate_dq(q, k, v, do, lse, delta, causal, scale, mm=mm1),
+           *emulate_dkv(q, k, v, do, lse, delta, causal, scale, mm=mm1))
+    worst = _gates(got, plain)
+    assert all(w > 1.0 for w in worst.values()), worst
+
+
+def test_one_accumulator_a_chunk_reads_higher():
+    """The tensor cores truncate their float32 sums: summing a 128-column
+    chunk's 48 MMAs (and a tile pair's 24 second-product MMAs) in one
+    accumulator, as the first version of these kernels did, reads more
+    than twice the gate of the 16-element partials at D = 512 causal
+    (measured 0.50 against 0.10, the worst of dQ, dK and dV)."""
+    (q, k, v, do, _, lse, delta, scale), plain = _case(512, True)
+    worst = {}
+    for name, mm in (("partials", mm3), ("chunk", mm3_chunk)):
+        got = (emulate_dq(q, k, v, do, lse, delta, True, scale, mm=mm),
+               *emulate_dkv(q, k, v, do, lse, delta, True, scale, mm=mm))
+        worst[name] = max(_gates(got, plain).values())
+    assert worst["chunk"] > 2 * worst["partials"], worst
+
+
+def test_partials_in_another_order_give_other_probabilities():
+    """Each of a tile pair's n CTAs applies P and dS to its own columns, so
+    all must hold the same bits.  Summed in rank order once by the row's
+    owner they do; had each CTA summed the partials itself starting from
+    its own (rotated order), P and dS would differ between slices."""
+    (q, k, v, do, _, lse, delta, scale), _ = _case(512, False)
+    qt, kt, dot, vt = (t[:, :TILE] for t in (q, k, do, v))
+    n = q.shape[-1] // SLICE
+    rotated = [_tile_pair(qt, kt, dot, vt, 0, 0, lse, delta, False, scale,
+                          mm3, order=[(j + r) % n for j in range(n)])
+               for r in range(n)]
+    assert not all(torch.equal(rotated[0][0], p) for p, _ in rotated[1:])
+    assert not all(torch.equal(rotated[0][1], ds) for _, ds in rotated[1:])
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [384, 512])
+def test_recipe_matches_jax_backward(d, causal, streaming):
+    """At [2, 256, D] float32 the recipe, fed the JAX forward's O and LSE,
+    agrees with jax.vjp of the JAX package's flash attention (Pallas
+    interpreter, the resident or the streaming kernels) within the float32
+    gate."""
+    rng = np.random.RandomState(13 + causal)
+    q, k, v, do = (rng.randn(2, 256, d).astype(np.float32)
+                   for _ in range(4))
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal, None, 64,
+                                               64, True, streaming),
+                     jq, jk, jv)
+    want = [torch.from_numpy(np.array(g)) for g in vjp(jdo)]
+    o, (_, _, _, _, lse) = jax_flash_fwd(jq, jk, jv, causal, None, 64, 64,
+                                         True, streaming)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    to = torch.from_numpy(np.array(o))
+    tlse = torch.from_numpy(np.array(lse))[:, 0, :]
+    delta = (tdo.double() * to.double()).sum(-1).float()
+    scale = d ** -0.5
+    split = 2 if streaming else None
+    got = (emulate_dq(tq, tk, tv, tdo, tlse, delta, causal, scale,
+                      split=split),
+           *emulate_dkv(tq, tk, tv, tdo, tlse, delta, causal, scale,
+                        split=split))
+    worst = _gates(got, want)
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
+if __name__ == "__main__":
+    # The gate readings, for PERF.md: 3xTF32, one TF32 rounding, and 3xTF32
+    # with one truncating accumulator a chunk.
+    for d in (384, 512):
+        for causal in (False, True):
+            (q, k, v, do, _, lse, delta, scale), plain = _case(d, causal)
+            for name, mm in (("3xTF32", mm3), ("1xTF32", mm1),
+                             ("3xTF32, a chunk an accumulator", mm3_chunk)):
+                got = (emulate_dq(q, k, v, do, lse, delta, causal, scale,
+                                  mm=mm),
+                       *emulate_dkv(q, k, v, do, lse, delta, causal, scale,
+                                    mm=mm))
+                print(f"D {d} causal {causal} {name}:",
+                      {n: round(w, 4) for n, w in _gates(got, plain).items()})
