@@ -103,9 +103,9 @@
 // (67 TFLOP/s at most), bound in practice by FMA issue and shared-memory
 // bandwidth: single-pass TF32 keeps 10 mantissa bits, too few for the
 // float32 tests' 1e-5 of the largest element, and the main path is bf16.
-// The float32 backward above D = 256 is the exception: it runs on the
-// tensor cores with each operand split into two TF32 parts (3xTF32, see
-// its section below).
+// Above D = 256 the float32 forward and backward are the exception: they
+// run on the tensor cores with each operand split into two TF32 parts
+// (3xTF32, see their sections below).
 //
 // Tiling.  The TPU kernels take one q block of up to 512 rows and keep K/V
 // whole in VMEM.  A 512 x 512 float32 logits tile does not fit in 227 KB of
@@ -1705,12 +1705,9 @@ __global__ void __launch_bounds__(kMmaThreads, mma_ctas<kFwdCtas>(D))
 // exact 16-bit first products with float32 sums, P and dS entering the
 // second products as hi/lo pairs, bf16's third term where a warp's block
 // holds |P| >= 2^-5 or |dS| >= 1, float16's per-row power-of-two scale.
-// The float32 forward keeps the CUDA-core loops, 64-column chunks for the
-// first products.  The chunks are loaded and waited for one at a time (no
-// double buffering): a simple kernel first; each chunk of the fixed tile
-// is read again for every streamed tile, from L2.  The float32 backward
-// computes S and dP once per tile pair in a cluster of CTAs (its own
-// section below).
+// The float32 forward and backward compute S (and dP) once per tile pair
+// in a cluster of CTAs, on the tensor cores in 3xTF32 (their own sections
+// below).
 // ---------------------------------------------------------------------------
 constexpr int kWide = 128;              // columns of an output pass
 constexpr int kWideLd = kWide + 8;      // shared row of a 16-bit chunk
@@ -2206,162 +2203,6 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
                       qt0, qt1, causal, scale, is_dk, col0, acc);
   const size_t at = ws_row(sp, bh, gridDim.z, seq, kt * kTile) * d + col0;
   store_rows_ld<kWide>((is_dk ? dk_ws : dv_ws) + at, d, acc, 1.f);
-}
-
-// ---- the float32 forward at a wide D, on the CUDA cores -------------------
-// 256 threads, four to a row as in fwd_tiles; the first products over
-// 64-column chunks of D (kF32Chunk), each thread's 16 logits columns in
-// registers, and one 128-column output slice: 32 accumulators a thread.
-constexpr int kF32Chunk = 64;
-constexpr int kChunkLd = kF32Chunk + 1;
-static_assert(kChunkLd == kTile + 1, "the logits tile shares the chunk row");
-constexpr int kOutLd = kWide + 1;
-
-// Copy the [kTile, W] chunk at `src` (row stride d) into shared float32
-// rows of W + 1, times `scale`.
-template <typename T, int W>
-__device__ __forceinline__ void load_chunk(float* dst, const T* src, int d,
-                                           float scale) {
-  for (int i = threadIdx.x; i < kTile * W; i += kThreads) {
-    const int r = i / W;
-    const int c = i - r * W;
-    dst[r * (W + 1) + c] = to_f32(src[(size_t)r * d + c]) * scale;
-  }
-}
-
-// Shared memory of the float32 wide forward: `chunks` [kTile][kChunkLd]
-// chunks (the logits tile counts as one) and one [kTile][kOutLd]
-// output-column tile.
-__host__ __device__ constexpr size_t wide_f32_smem(int chunks) {
-  return (chunks * kTile * kChunkLd + kTile * kOutLd) * sizeof(float);
-}
-
-template <typename T>
-__device__ __forceinline__ void fwd_wide_tiles_f32(
-    float* smem, const T* q, const T* k, const T* v, int d, int qt, int kt0,
-    int kt1, int causal, float scale, int col0, float& m, float& l,
-    float (&acc)[kWide / kLanes]) {
-  float* qs = smem;                    // [kTile][kChunkLd], times sm_scale
-  float* ks = qs + kTile * kChunkLd;   // [kTile][kChunkLd]
-  float* ps = ks + kTile * kChunkLd;   // [kTile][kChunkLd] probabilities
-  float* vs = ps + kTile * kChunkLd;   // [kTile][kOutLd]
-  constexpr int cols = kTile / kLanes;
-  const int r = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
-  for (int kt = kt0; kt < kt1; ++kt) {
-    float s[cols];
-#pragma unroll
-    for (int j = 0; j < cols; ++j) s[j] = 0.f;
-    for (int c0 = 0; c0 < d; c0 += kF32Chunk) {
-      __syncthreads();  // every thread is done with the chunks, P and V
-      load_chunk<T, kF32Chunk>(qs, q + (size_t)qt * kTile * d + c0, d, scale);
-      load_chunk<T, kF32Chunk>(ks, k + (size_t)kt * kTile * d + c0, d, 1.f);
-      if (c0 + kF32Chunk >= d)
-        load_chunk<T, kWide>(vs, v + (size_t)kt * kTile * d + col0, d, 1.f);
-      __syncthreads();
-      for (int dd = 0; dd < kF32Chunk; ++dd) {
-        const float qv = qs[r * kChunkLd + dd];
-#pragma unroll
-        for (int j = 0; j < cols; ++j)
-          s[j] += qv * ks[(c + kLanes * j) * kChunkLd + dd];
-      }
-    }
-    if (causal && kt == qt) {
-#pragma unroll
-      for (int j = 0; j < cols; ++j)
-        if (c + kLanes * j > r) s[j] = -INFINITY;
-    }
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < cols; ++j) mx = fmaxf(mx, s[j]);
-    mx = row_max(mx);
-    const float alpha = expf(m - mx);
-    float rs = 0.f;
-#pragma unroll
-    for (int j = 0; j < cols; ++j) {
-      const float p = expf(s[j] - mx);
-      ps[r * kChunkLd + c + kLanes * j] = p;
-      rs += p;
-    }
-    l = l * alpha + row_sum(rs);
-    m = mx;
-#pragma unroll
-    for (int i = 0; i < kWide / kLanes; ++i) acc[i] *= alpha;
-    __syncwarp();  // a row's probabilities are written and read by one warp
-    for (int j = 0; j < kTile; ++j) {
-      const float p = ps[r * kChunkLd + j];
-#pragma unroll
-      for (int i = 0; i < kWide / kLanes; ++i)
-        acc[i] += p * vs[j * kOutLd + c + kLanes * i];
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, T* __restrict__ o,
-                          float* __restrict__ lse, int seq, int d,
-                          float scale, int causal) {
-  extern __shared__ float smem[];
-  int qt, pass;
-  wide_block(d / kWide, qt, pass);
-  const int col0 = pass * kWide;
-  const int bh = blockIdx.y;
-  const int r = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
-  const size_t base = (size_t)bh * seq * d;
-  float m = -INFINITY, l = 0.f, acc[kWide / kLanes];
-#pragma unroll
-  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
-  fwd_wide_tiles_f32<T>(smem, q + base, k + base, v + base, d, qt, 0,
-                        causal ? qt + 1 : seq / kTile, causal, scale, col0, m,
-                        l, acc);
-  const int row = qt * kTile + r;
-  T* orow = o + base + (size_t)row * d + col0;
-#pragma unroll
-  for (int i = 0; i < kWide / kLanes; ++i)
-    orow[c + kLanes * i] = from_f32<T>(acc[i] / l);
-  if (pass == 0 && c == 0) lse[(size_t)bh * seq + row] = m + logf(l);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_str_wide_kernel(const T* __restrict__ q,
-                              const T* __restrict__ k,
-                              const T* __restrict__ v,
-                              float* __restrict__ m_ws,
-                              float* __restrict__ l_ws,
-                              float* __restrict__ acc_ws, int seq, int d,
-                              int split, float scale, int causal) {
-  const int num_t = seq / kTile;
-  int t, pass;
-  wide_block(d / kWide, t, pass);
-  const int qt = num_t - 1 - t;
-  const int sp = blockIdx.y;
-  const int bh = blockIdx.z;
-  const int kt0 = sp * split;
-  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
-  if (kt0 >= kt1) return;
-
-  extern __shared__ float smem[];
-  const int col0 = pass * kWide;
-  const int r = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
-  const size_t base = (size_t)bh * seq * d;
-  float m = -INFINITY, l = 0.f, acc[kWide / kLanes];
-#pragma unroll
-  for (int i = 0; i < kWide / kLanes; ++i) acc[i] = 0.f;
-  fwd_wide_tiles_f32<T>(smem, q + base, k + base, v + base, d, qt, kt0, kt1,
-                        causal, scale, col0, m, l, acc);
-  const size_t at = ws_row(sp, bh, gridDim.z, seq, qt * kTile + r);
-  float* arow = acc_ws + at * d + col0;
-#pragma unroll
-  for (int i = 0; i < kWide / kLanes; ++i) arow[c + kLanes * i] = acc[i];
-  if (pass == 0 && c == 0) {
-    m_ws[at] = m;
-    l_ws[at] = l;
-  }
 }
 
 // ---- the float32 backward at a wide D: split-D clusters, 3xTF32 ----------
@@ -3096,6 +2937,312 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                      qt0, qt1, causal, scale, 1.f, dk_ws + at, dv_ws + at);
 }
 
+// ---- the float32 forward at a wide D: split-D clusters, 3xTF32 -----------
+// flash_fwd_wide_kernel and flash_fwd_str_wide_kernel replace the TPU
+// kernels _fwd_kernel_res (:142) and _fwd_kernel_str (:221) of
+// byteps_tpu/ops/flash_attention.py in float32 above D = 256.  What bounds
+// them is the products: 4 FLOPs per visible (q, k) pair and head-dim
+// element, 0.16 ms at the 3xTF32 ceiling for [128, 512, 384] causal,
+// against 0.12 ms of bytes.
+//
+// The backward's design (the section above) with S alone: the n = D / 128
+// slices of a q tile run as one cluster of split_ctas(D) CTAs, each CTA
+// contracts S = Q K^T over its own 128 columns, and pushes its partial
+// rows to their owners (row r to rank r / R); the owner adds the partials
+// in rank order, so every CTA applies the same bits, masks, and takes the
+// online-softmax step of its rows: m' = max(m, scale S), alpha =
+// exp(m - m'), P = exp(scale S - m'), l' = alpha l + rowsum(P), with m and
+// l of its rows kept in its own shared memory.  It pushes P, alpha and l'
+// to every CTA of the cluster, and each CTA rescales its O accumulator by
+// alpha and adds P V over its own columns.  P V runs one tile behind, so
+// one cluster barrier a tile pair brings both this tile's partials to
+// their owners and the last tile's P to every CTA (the backward takes
+// two; see fwd_wide_tiles_f32; with two the forward ran 5-7% slower, and
+// one slice a CTA recomputing S over all of D without a cluster
+// 1.65-2.1x slower, PERF.md).  After the last k tile every CTA holds l of
+// every row: the resident kernel writes O / l and the owners LSE =
+// m + log l; the streaming one writes (m, l, acc) to the workspaces, which
+// the merge pass reads as before.  The products are 3xTF32 with a zeroed
+// partial every 16 contraction elements (mma3_abt, mma3_xb); P lies in
+// [0, 1] and still enters as a hi/lo pair, which the float32 gate needs
+// (tests/test_torch_port_flash_f32tc.py emulates the recipe).
+//
+// Eight warps: warp w takes rows 16 (w & 3) of the tile pair and keys
+// 32 (w >> 2) of S, then the same rows and 64 of the slice's columns of O
+// (32 accumulators a thread).  With one slice a CTA (D <= 1024) the Q
+// chunk stays for the whole k loop, and the next K and V come in by
+// cp.async while the exchange and the products run (Q and K 64 KB, two
+// stages of V 64 KB, of P 32 KB and of the exchange rows 32-35 KB:
+// 193.5-196.5 KB, one CTA an SM).  Above 8 slices a CTA takes ceil(n / 8),
+// loads them one at a time and runs the tile loop once for each slice it
+// outputs, as the backward does.
+// ---------------------------------------------------------------------------
+
+// Shared memory of the float32 wide forward in a cluster of c CTAs: two
+// stages of (alpha, l) of every row, m and l of the owned rows, the Q and
+// K chunks, two stages of the V chunk, of the P tile and of the exchange
+// rows (c slots of R rows).
+__host__ __device__ constexpr size_t wide_fwd_smem(int c) {
+  return (6 * kTile + 4 * kChunkFloats + 2 * kTile * kTile +
+          2 * c * split_rows(c) * kTile) * sizeof(float);
+}
+
+// Push the warps' partial S blocks (rows 16 (warp & 3), keys 32 (warp >> 2))
+// to their rows' owners, into slot `rank` of the owners' exchange rows.
+__device__ __forceinline__ void push_partials(const float (&s)[4][4],
+                                              float* ex, int rank, int c) {
+  const int R = split_rows(c);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * (warp & 3) + g + 8 * h;
+    const int owner = row / R;
+    const int slot_row = rank * R + row - owner * R;
+    const uint32_t s_at = cluster_addr(smem_addr(ex), owner);
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      st_cluster2(s_at + 4u * (uint32_t)swz(
+                             slot_row, 32 * (warp >> 2) + 8 * n + 2 * t, kTile),
+                  s[n][2 * h], s[n][2 * h + 1]);
+  }
+}
+
+// The owner's step of one tile pair (q tile qt, k tile kt), the cluster's
+// partials in `ex`: adds them in rank order, masks, takes the
+// online-softmax step of its rows (their m and l in `ml`, pairs by owned
+// row) and writes P (`pt`, a swizzled [kTile][kTile] tile) and (alpha, l)
+// of each row (`al`, pairs by row) into every CTA of the cluster.  A half
+// warp takes a row, 4 keys a lane.
+__device__ __forceinline__ void owner_step(const float* ex, float* pt,
+                                           float* al, float* ml, int qt,
+                                           int kt, int causal, float scale,
+                                           int rank, int c) {
+  const int R = split_rows(c);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int own0 = rank * R;
+  const int nown = max(0, min(kTile, own0 + R) - own0);
+  const int col = 4 * (lane & 15);
+  const bool lead = (lane & 15) == 0;
+  for (int lr0 = 2 * warp; lr0 < nown; lr0 += 2 * kTcWarps) {  // per warp
+    const int lr = lr0 + (lane >> 4);
+    const bool live = lr < nown;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    float m_old = 0.f, l_old = 0.f;
+    if (live) {
+      for (int j = 0; j < c; ++j) {  // rank order
+        const float4 a = *reinterpret_cast<const float4*>(
+            ex + swz(j * R + lr, col, kTile));
+        x[0] += a.x, x[1] += a.y, x[2] += a.z, x[3] += a.w;
+      }
+      m_old = ml[2 * lr];
+      l_old = ml[2 * lr + 1];
+    }
+    const int query = qt * kTile + own0 + lr;
+    float mx = m_old;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[e] = causal && kt * kTile + col + e > query ? -INFINITY
+                                                    : scale * x[e];
+      mx = fmaxf(mx, x[e]);
+    }
+#pragma unroll
+    for (int off = 8; off; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float alpha = expf(m_old - mx);
+    float p[4], rs = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[e] = expf(x[e] - mx);
+      rs += p[e];
+    }
+#pragma unroll
+    for (int off = 8; off; off >>= 1)
+      rs += __shfl_xor_sync(0xffffffffu, rs, off);
+    const float l = l_old * alpha + rs;
+    if (live) {
+      const int row = own0 + lr;
+      if (lead) {
+        ml[2 * lr] = mx;
+        ml[2 * lr + 1] = l;
+      }
+      const uint32_t p_at = smem_addr(pt) + 4u * (uint32_t)swz(row, col,
+                                                               kTile);
+      const uint32_t a_at = smem_addr(al + 2 * row);
+      for (int j = 0; j < c; ++j) {
+        st_cluster4(cluster_addr(p_at, j),
+                    make_float4(p[0], p[1], p[2], p[3]));
+        if (lead) st_cluster2(cluster_addr(a_at, j), alpha, l);
+      }
+    }
+  }
+}
+
+// O of the q tile `qt` over the k tiles [kt0, kt1) at a wide D in float32,
+// this CTA's slices of it (see the section's note).  `out` is the tile's
+// first row (row stride d).  Resident (`lse` set): O / l, and the owners
+// write LSE of their rows to lse; streaming: the unnormalised acc, and the
+// owners m and l to m_out and l_out (the tile's first row each).
+//
+// One cluster barrier a tile pair: step i pushes tile kt0 + i's partials,
+// waits at the barrier, then (the owners) takes that tile's softmax step
+// and applies the previous tile's P: P V runs one tile behind, so the
+// barrier that brings this tile's partials to their owners also brings
+// the previous tile's P, alpha and l to every CTA.  The exchange rows, P,
+// (alpha, l) and V have two stages, by the parity of the tile; K one, as
+// its products are issued before the barrier after which the next K loads.
+__device__ __forceinline__ void fwd_wide_tiles_f32(
+    float* smem, const float* q, const float* k, const float* v, int d,
+    int qt, int kt0, int kt1, int causal, float scale, float* out,
+    float* lse, float* m_out, float* l_out) {
+  const int c = cluster_size(), rank = cluster_rank();
+  float* al = smem;                // (alpha, l) of every row, two stages
+  float* ml = al + 4 * kTile;      // m and l of the owned rows
+  float* qc = ml + 2 * kTile;
+  float* kc = qc + kChunkFloats;
+  float* vc = kc + kChunkFloats;   // two stages
+  float* pt = vc + 2 * kChunkFloats;  // two stages
+  float* ex = pt + 2 * kTile * kTile;  // two stages
+  const int R = split_rows(c);
+  const int ex_stage = c * R * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int rw = 16 * (warp & 3);   // the warp's rows
+  const int kh = 32 * (warp >> 2);  // its keys of S
+  const int oh = 64 * (warp >> 2);  // its columns of the output slice
+  const int n = d / kWide;
+  const int spc = (n + c - 1) / c;  // slices a CTA outputs
+  const int own0 = rank * R;
+  const int nown = max(0, min(kTile, own0 + R) - own0);
+  const int nt = kt1 - kt0;
+  const size_t qo = (size_t)qt * kTile * d;
+  for (int pass = 0; pass < spc; ++pass) {
+    const int jo = rank + pass * c;  // the slice this pass writes (if < n)
+    for (int r = threadIdx.x; r < nown; r += kTcThreads) {
+      ml[2 * r] = -INFINITY;
+      ml[2 * r + 1] = 0.f;
+    }
+    if (n == c) {
+      chunk_f32_async(qc, q + qo + jo * kWide, d);
+      chunk_f32_async(kc, k + (size_t)kt0 * kTile * d + jo * kWide, d);
+      cp_async_commit();
+    }
+    cluster_sync();  // the cluster runs before any store reaches a CTA
+    float acc[8][4];
+    zero(acc);
+    for (int i = 0; i <= nt; ++i) {  // the last step only applies P
+      const int kt = kt0 + i;
+      const size_t ko = (size_t)kt * kTile * d;
+      const int b = i & 1;  // the stage of tile kt
+      cp_async_wait_all();  // K of tile kt, V of tile kt - 1
+      __syncthreads();
+      if (i < nt) {
+        float s[4][4];
+        zero(s);
+        if (n == c) {
+          mma3_abt<4, true>(s, qc, rw, kc, kh, lane);
+        } else {
+          for (int j = rank; j < n; j += c) {
+            __syncthreads();
+            chunk_f32_async(qc, q + qo + j * kWide, d);
+            chunk_f32_async(kc, k + ko + j * kWide, d);
+            cp_async_commit();
+            cp_async_wait_all();
+            __syncthreads();
+            mma3_abt<4, true>(s, qc, rw, kc, kh, lane);
+          }
+        }
+        push_partials(s, ex + b * ex_stage, rank, c);
+      }
+      cluster_sync();  // tile kt's partials at their owners, tile kt - 1's
+                       // P, alpha and l in every CTA
+      if (i < nt) {
+        if (jo < n) chunk_f32_async(vc + b * kChunkFloats, v + ko + jo * kWide,
+                                    d);
+        if (n == c && i + 1 < nt)
+          chunk_f32_async(kc, k + ko + kTile * d + jo * kWide, d);
+        cp_async_commit();
+        owner_step(ex + b * ex_stage, pt + b * kTile * kTile,
+                   al + b * 2 * kTile, ml, qt, kt, causal, scale, rank, c);
+      }
+      if (i > 0 && jo < n) {  // P V of tile kt - 1, stage b ^ 1
+        const float* alp = al + (b ^ 1) * 2 * kTile;
+        const float a0 = alp[2 * (rw + g)], a8 = alp[2 * (rw + g + 8)];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          acc[u][0] *= a0, acc[u][1] *= a0;
+          acc[u][2] *= a8, acc[u][3] *= a8;
+        }
+        mma3_xb<false, 8>(acc, pt + (b ^ 1) * kTile * kTile, rw,
+                          vc + (b ^ 1) * kChunkFloats, oh, lane);
+      }
+    }
+    if (jo < n) {
+      if (lse) {
+        const float* alp = al + ((nt - 1) & 1) * 2 * kTile;
+        const float l0 = alp[2 * (rw + g) + 1], l8 = alp[2 * (rw + g + 8) + 1];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          acc[u][0] /= l0, acc[u][1] /= l0;
+          acc[u][2] /= l8, acc[u][3] /= l8;
+        }
+      }
+      store_tc_rows(out, d, rw, jo * kWide + oh, acc, 1.f);
+    }
+    if (pass == 0 && threadIdx.x < nown) {
+      const int r = own0 + threadIdx.x;
+      const float m = ml[2 * threadIdx.x], l = ml[2 * threadIdx.x + 1];
+      if (lse) {
+        lse[r] = m + logf(l);
+      } else {
+        m_out[r] = m;
+        l_out[r] = l;
+      }
+    }
+  }
+}
+
+// Resident forward: grid x is the q tiles (the longest causal rows first)
+// times the cluster's CTAs.
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_wide_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int seq, int d,
+                          float scale, int causal) {
+  extern __shared__ __align__(16) float tc_smem[];
+  const int qt = seq / kTile - 1 - (int)blockIdx.x / cluster_size();
+  const size_t row0 = (size_t)blockIdx.y * seq + qt * kTile;
+  const size_t base = (size_t)blockIdx.y * seq * d;
+  fwd_wide_tiles_f32(tc_smem, q + base, k + base, v + base, d, qt, 0,
+                     causal ? qt + 1 : seq / kTile, causal, scale,
+                     o + row0 * d, lse + row0, nullptr, nullptr);
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_str_wide_kernel(const float* __restrict__ q,
+                              const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              float* __restrict__ m_ws,
+                              float* __restrict__ l_ws,
+                              float* __restrict__ acc_ws, int seq, int d,
+                              int split, float scale, int causal) {
+  const int num_t = seq / kTile;
+  const int qt = num_t - 1 - (int)blockIdx.x / cluster_size();
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  const int kt0 = sp * split;
+  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
+  if (kt0 >= kt1) return;  // dead pair, for the whole cluster
+
+  extern __shared__ __align__(16) float tc_smem[];
+  const size_t base = (size_t)bh * seq * d;
+  const size_t at = ws_row(sp, bh, gridDim.z, seq, qt * kTile);
+  fwd_wide_tiles_f32(tc_smem, q + base, k + base, v + base, d, qt, kt0, kt1,
+                     causal, scale, acc_ws + at * d, nullptr, m_ws + at,
+                     l_ws + at);
+}
+
 // ---- the streaming passes at a wide D: grid x is the row tiles times the
 // D / kWide output slices ----------------------------------------------------
 template <typename T>
@@ -3211,7 +3358,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 }
 
 // bf16 and float16 kernels run on the tensor cores; float32 ones keep the
-// CUDA-core loops (see the header), but for the wide backward.
+// CUDA-core loops (see the header), but above D = 256 (3xTF32 clusters).
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value ||
                               std::is_same<T, __half>::value;
@@ -3388,8 +3535,8 @@ cudaError_t launch_dkv_str(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// CTAs of a float32 wide backward cluster: the D / kWide slices over at
-// most kSplitCtas CTAs, ceil(n / kSplitCtas) slices a CTA.
+// CTAs of a float32 wide cluster: the D / kWide slices over at most
+// kSplitCtas CTAs, ceil(n / kSplitCtas) slices a CTA.
 int split_ctas(int d) {
   const int n = d / kWide;
   const int per = (n + kSplitCtas - 1) / kSplitCtas;
@@ -3420,24 +3567,24 @@ cudaError_t launch_split(void (*kernel)(Params...), dim3 grid, int ctas,
 
 // Launchers at a wide head dim (above 256, a multiple of kWide): the same
 // work as the launchers above, D a run-time argument, kWide-column output
-// passes in grid x (the float32 backward: the clusters of split_ctas CTAs).
+// passes in grid x (float32: the clusters of split_ctas CTAs).
 template <typename T>
 cudaError_t launch_fwd_wide(int d, const void* q, const void* k,
                             const void* v, void* o, float* lse, int bh, int seq,
                             float scale, int causal, cudaStream_t stream) {
-  const dim3 grid(seq / kTile * (d / kWide), bh);
   if constexpr (kTensorCores<T>) {
+    const dim3 grid(seq / kTile * (d / kWide), bh);
     const size_t smem = wide_mma_smem(3);
     BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_wide_mma_kernel<T>, smem));
     flash_fwd_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, d, scale,
         causal);
   } else {
-    const size_t smem = wide_f32_smem(3);
-    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_wide_kernel<T>, smem));
-    flash_fwd_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, d, scale,
-        causal);
+    const int ctas = split_ctas(d);
+    return launch_split(flash_fwd_wide_kernel, dim3(seq / kTile * ctas, bh),
+                        ctas, wide_fwd_smem(ctas), stream, (const float*)q,
+                        (const float*)k, (const float*)v, (float*)o, lse,
+                        seq, d, scale, causal);
   }
   return cudaGetLastError();
 }
@@ -3500,21 +3647,21 @@ cudaError_t launch_fwd_str_wide(int d, const void* q, const void* k,
   const int num_t = seq / kTile;
   const int npass = d / kWide;
   const int nsplit = num_splits(seq, split);
-  const dim3 grid(num_t * npass, nsplit, bh);
   if constexpr (kTensorCores<T>) {
+    const dim3 grid(num_t * npass, nsplit, bh);
     const size_t smem = wide_mma_smem(3);
     BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_wide_mma_kernel<T>, smem));
     flash_fwd_str_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq, d,
         split, scale, causal);
+    BPS_RETURN_IF_ERROR(cudaGetLastError());
   } else {
-    const size_t smem = wide_f32_smem(3);
-    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_wide_kernel<T>, smem));
-    flash_fwd_str_wide_kernel<T><<<grid, kThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq, d,
-        split, scale, causal);
+    const int ctas = split_ctas(d);
+    BPS_RETURN_IF_ERROR(launch_split(
+        flash_fwd_str_wide_kernel, dim3(num_t * ctas, nsplit, bh), ctas,
+        wide_fwd_smem(ctas), stream, (const float*)q, (const float*)k,
+        (const float*)v, m_ws, l_ws, acc_ws, seq, d, split, scale, causal));
   }
-  BPS_RETURN_IF_ERROR(cudaGetLastError());
   flash_fwd_str_merge_wide_kernel<T>
       <<<dim3(num_t * npass, bh), kThreads, 0, stream>>>(
           m_ws, l_ws, acc_ws, (T*)o, lse, seq, d, nsplit, split, causal);
@@ -3598,7 +3745,7 @@ bool shape_ok(int bh, int seq) {
   return bh >= 1 && bh <= 65535 && seq >= kTile && seq % kTile == 0;
 }
 
-// The tensor-core kernels (dtype 1 and 2, and float32's wide backward) copy
+// The tensor-core kernels (dtype 1 and 2, and float32's wide kernels) copy
 // q, k, v, dO, LSE and delta in 16-byte pieces (cp.async).
 bool aligned16(bool copies, std::initializer_list<const void*> ptrs) {
   if (!copies) return true;
@@ -3653,7 +3800,7 @@ extern "C" int bps_flash_fwd(const void* q, const void* k, const void* v,
                              int head_dim, int dtype, float scale, int causal,
                              void* stream) {
   if (!shape_ok(bh, seq)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype != 0, {q, k, v}))
+  if (!aligned16(dtype != 0 || head_dim > 256, {q, k, v}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_fwd, dtype, head_dim, q, k, v, o, lse, bh, seq, scale,
                causal, (cudaStream_t)stream);
@@ -3694,7 +3841,7 @@ extern "C" int bps_flash_fwd_str(const void* q, const void* k, const void* v,
                                  int causal, int split, void* stream) {
   if (!shape_ok(bh, seq) || !split_ok(seq, split))
     return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype != 0, {q, k, v}))
+  if (!aligned16(dtype != 0 || head_dim > 256, {q, k, v}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_fwd_str, dtype, head_dim, q, k, v, o, lse, m_ws, l_ws,
                acc_ws, bh, seq, scale, causal, split, (cudaStream_t)stream);
@@ -3733,7 +3880,7 @@ extern "C" int bps_flash_bwd_dkv_str(const void* q, const void* k,
                (cudaStream_t)stream);
 }
 
-// CTAs of one cluster of the float32 backward at a wide head dim (0 for a
+// CTAs of one cluster of the float32 kernels at a wide head dim (0 for a
 // head dim the wide kernels do not take).
 extern "C" int bps_flash_wide_cluster(int head_dim) {
   return head_dim > 256 && head_dim % kWide == 0 ? split_ctas(head_dim) : 0;

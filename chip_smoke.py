@@ -12,10 +12,11 @@ Phases, each of which must pass:
    the library's SASS (cuobjdump): every bf16 and float16 instantiation of
    the two forward and four backward kernels, at every head dim (16, 32,
    64, 128, 256) and of the wide kernels (D above 256), must have them, and
-   so must the four float32 wide backward kernels (3xTF32); the two float32
-   wide forward kernels and every float32 instantiation at D <= 256 must
-   not.  The float32 wide backward kernels must spill nothing; their
-   cluster size at each wide head dim of phase 10 is printed.
+   so must the six float32 wide kernels (forward and backward, 3xTF32);
+   no float32 instantiation at D <= 256 may.  The six float32 wide kernels
+   must spill nothing; their ptxas registers and their cluster size at
+   each wide head dim of phase 10 are printed, the forward's beside the
+   backward's.
 2. Hold each flash kernel against its plain PyTorch version on the card:
    the flagship attention shape [8*16, 512, 64] bf16, causal and not, and
    a small float32 shape through the autograd op with block_q != block_k.
@@ -105,7 +106,9 @@ Phases, each of which must pass:
    backward at [8, 16, 512, D] for D = 264, 384 and 512 and at
    [1, 4, 512, 1024], float32, bf16 and float16, each in both families,
    held to the plain versions as in phase 7 (float16 with its bf16
-   control); then each kernel at D = 384 and 512 in the three dtypes
+   control), the float32 forward's launches by instantiation one a case of
+   its family (printed with the cluster size: 3 CTAs at D = 264 and 384, 4
+   at 512, 8 at 1024); then each kernel at D = 384 and 512 in the three dtypes
    against its plain version and timed (resident at [128, 512, D],
    streaming at [16, 8192, D]) beside its bound (float32's at the 3xTF32
    ceiling of 165 TFLOP/s, the bound at 67 outside the tensor cores
@@ -194,12 +197,15 @@ NEW_INSTANCES = (("bf16", 256), ("f16", 64))
 WIDE_DIMS = (264, 384, 512)
 WIDE_TIMED = (384, 512)
 WIDE_LONG = dict(batch=1, heads=16, seq=8192)
-# The float32 wide backward kernels, on the tensor cores in 3xTF32 (their
+# The float32 wide kernels, clusters on the tensor cores in 3xTF32 (their
 # SASS labels); the float32 instantiations at D <= 256 timed in phase 10.
+F32_WIDE_FWD = ("flash_fwd_wide_kernel<f32>",
+                "flash_fwd_str_wide_kernel<f32>")
 F32_WIDE_BWD = ("flash_bwd_dq_wide_kernel<f32>",
                 "flash_bwd_dq_str_wide_kernel<f32>",
                 "flash_bwd_dkv_wide_kernel<f32>",
                 "flash_bwd_dkv_str_wide_kernel<f32>")
+F32_WIDE = F32_WIDE_FWD + F32_WIDE_BWD
 F32_INSTANCES = (64, 256)
 # bench.py's CNN row: ResNet-50, 224 x 224 x 3, 1000 classes, float32,
 # batch 64, SGD lr 0.1 momentum 0.9, 5 steps on one fixed batch.
@@ -413,17 +419,20 @@ def phase_build(mods, build_mod, torch, gpu, check):
             re.search(r"\b0 bytes spill stores", r) for r in mma),
               f"ptxas: no spills in the {len(mma)} tensor-core kernels "
               f"(want {want})")
-        f32 = [(k, r) for k, r in ptxas_reports(build_mod.build_logs.get(
-            mods[0].SOURCE, "")) if k in F32_WIDE_BWD]
-        check(len(f32) == len(F32_WIDE_BWD) and all(
-            re.search(r"\b0 bytes spill stores", r) for _, r in f32),
-              f"ptxas: no spills in the {len(f32)} float32 wide backward "
-              f"kernels: " + "; ".join(f"{k} {r}" for k, r in f32))
+        f32 = dict(ptxas_reports(build_mod.build_logs.get(mods[0].SOURCE,
+                                                          "")))
+        for what, names in (("forward", F32_WIDE_FWD),
+                            ("backward", F32_WIDE_BWD)):
+            check(all(re.search(r"\b0 bytes spill stores", f32.get(k, ""))
+                      for k in names),
+                  f"ptxas: no spills in the {len(names)} float32 wide "
+                  f"{what} kernels: " + "; ".join(
+                      f"{k} {f32.get(k, 'not built')}" for k in names))
     lib = mods[0]._lib()
     lib.bps_flash_wide_cluster.argtypes = [ctypes.c_int]
-    print("  float32 wide backward cluster (CTAs) by head dim: " + ", ".join(
-        f"D {d}: {lib.bps_flash_wide_cluster(d)}"
-        for d in (384, 512, 640, 768, 896, 1024, 1152)))
+    print("  float32 wide forward and backward cluster (CTAs) by head dim: "
+          + ", ".join(f"D {d}: {lib.bps_flash_wide_cluster(d)}"
+                      for d in (384, 512, 640, 768, 896, 1024, 1152)))
     hmma_census(build_mod, build_mod.build(mods[0].SOURCE),
                 len(mods[0].HEAD_DIMS), check)
 
@@ -466,7 +475,8 @@ def hmma_census(build_mod, lib, n_dims, check):
     library's SASS (cuobjdump): every bf16 and float16 instantiation of the
     forward (resident, streaming) and backward (dQ, dK/dV of both families)
     kernels, at each of the ``n_dims`` head dims, has them, no float32 one
-    does; the merge and sum passes are not counted."""
+    does; above D = 256 the float32 kernels have them too (3xTF32); the
+    merge and sum passes are not counted."""
     import re
     cuobjdump = os.path.join(os.path.dirname(build_mod.nvcc_path()),
                              "cuobjdump")
@@ -501,16 +511,14 @@ def hmma_census(build_mod, lib, n_dims, check):
     wide = [k for k in counts if "_wide" in k and not any(
         s in k for s in ("merge", "delta", "sum_splits"))]
     tc = [k for k in wide if "bf16" in k or "f16" in k]
-    f32_bwd = [k for k in wide if k in F32_WIDE_BWD]
-    f32_fwd = [k for k in wide if "f32" in k and k not in F32_WIDE_BWD]
+    f32 = [k for k in wide if "f32" in k]
     check(len(tc) == 12 and all(counts[k] > 0 for k in tc),
           f"SASS: HMMA in all {len(tc)} bf16 and float16 wide (D > 256) "
           f"kernels (min {min((counts[k] for k in tc), default=0)})")
-    check(len(f32_bwd) == 4 and all(counts[k] > 0 for k in f32_bwd)
-          and len(f32_fwd) == 2 and not any(counts[k] for k in f32_fwd),
-          f"SASS: HMMA in the {len(f32_bwd)} float32 wide backward kernels "
-          f"(3xTF32: " + ", ".join(f"{k} {counts[k]}" for k in f32_bwd)
-          + f"), none in the {len(f32_fwd)} float32 wide forward ones")
+    check(sorted(f32) == sorted(F32_WIDE) and all(counts[k] > 0 for k in f32),
+          f"SASS: HMMA in the {len(f32)} float32 wide forward and backward "
+          f"kernels (3xTF32: " + ", ".join(f"{k} {counts[k]}" for k in f32)
+          + ")")
 
 
 def phase_kernels(fa, torch, check):
@@ -1550,7 +1558,10 @@ def phase_wide(fa, tfm, torch, check):
     [1, 4, 512, D], in float32, bf16 and float16, resident and streaming,
     forward and both gradients, each held to the plain versions under the
     elementwise gates (float16 to its own step, with the bf16 control).
-    Returns the launches by instantiation."""
+    The float32 forward's launches by instantiation must be one a case of
+    its family (the library holds no float32 wide forward but the cluster
+    kernels, phase 1), printed with their cluster size.  Returns the
+    launches by instantiation."""
     B, H, S = (FLAGSHIP[k] for k in ("batch", "heads", "seq"))
     cases = [(dtype, (B, H, S, d), force)
              for dtype in (torch.float32, torch.bfloat16, torch.float16)
@@ -1571,6 +1582,20 @@ def phase_wide(fa, tfm, torch, check):
               (int(k.split(",")[1][:-1]) for k in launches)),
           "every launch ran a wide instantiation (D a multiple of 128 "
           "above 256)")
+    want = {}
+    for dtype, shape, force in cases:
+        if dtype == torch.float32:
+            key = (f"{'flash_fwd_str' if force else 'flash_fwd'}<f32,"
+                   f"{fa.kernel_head_dim(shape[3])}>")
+            want[key] = want.get(key, 0) + 1
+    got = {k: n for k, n in launches.items() if k.startswith("flash_fwd")
+           and "<f32," in k}
+    ctas = {k: fa._lib().bps_flash_wide_cluster(int(k.split(",")[1][:-1]))
+            for k in got}
+    check(got == want,
+          "float32 wide forward launches by instantiation " + ", ".join(
+              f"{k} {n} (cluster of {ctas[k]} CTAs)"
+              for k, n in sorted(got.items())) + f" (want {want})")
     return launches
 
 

@@ -1,8 +1,9 @@
-"""The numeric recipe of the float32 flash backward above D = 256.
+"""The numeric recipe of the float32 flash kernels above D = 256.
 
-The CUDA kernels (``dq_wide_tiles_f32`` / ``dkv_wide_tiles_f32`` in
-``byteps_tpu_torch/csrc/flash_attention.cu``) cannot run on the CPU.  This
-file keeps a torch emulation of their arithmetic:
+The CUDA kernels (``fwd_wide_tiles_f32``, ``dq_wide_tiles_f32`` and
+``dkv_wide_tiles_f32`` in ``byteps_tpu_torch/csrc/flash_attention.cu``)
+cannot run on the CPU.  This file keeps a torch emulation of their
+arithmetic:
 
   - every product on the tensor cores in 3xTF32: each operand x split as
     hi = tf32(x), lo = tf32(x - hi), with tf32 a round to nearest (ties
@@ -19,17 +20,24 @@ file keeps a torch emulation of their arithmetic:
     added in rank order 0..n-1; P = exp(scale S - LSE), dS = P (dP -
     delta); the second products (dS K, P^T dO, dS^T Q) of each tile pair
     added to the output's accumulator 16 rows at a time;
-  - in the streaming family, one partial a split, summed in split order.
+  - in the streaming family, one partial a split, summed in split order;
+  - the forward (``emulate_fwd``): per tile pair S from the slices'
+    partials in rank order, the online-softmax step m' = max(m, scale S),
+    alpha = exp(m - m'), P = exp(scale S - m'), l' = alpha l + rowsum(P),
+    and acc' = alpha acc + P V, P V in the same 3xTF32 recipe; each split's
+    (m, l, acc) merged in split order, O = acc / l, LSE = m + log l.
 
 It is held to ``chip_smoke.py``'s float32 gates, |got - plain| <= 1e-4
-|plain| + 1e-5 for dQ, dK and dV and 1e-5 |plain| + 1e-6 for delta,
-against the port's plain versions and the JAX package's backward (Pallas
-interpreter) at D = 384 and 512.  Three controls: one TF32 rounding of each
-operand, the usual recipe, misses the same gate; one truncating
-accumulator for a whole 128-column chunk (and a whole tile pair) reads
-several times higher than the 16-element partials; and partials summed
-in another order for each slice give P that differs between slices, which
-is why the owner of a row sums them once, in rank order.
+|plain| + 1e-5 for dQ, dK and dV (1e-4 |plain| + 2e-5 for O) and
+1e-5 |plain| + 1e-6 for LSE and delta, against the port's plain versions
+and the JAX package's forward and backward (Pallas interpreter) at D = 384
+and 512.  Four controls: one TF32 rounding of each operand, the usual
+recipe, misses the same gates in the backward, and in the forward whether
+it is taken for S or for P V; one truncating accumulator for a whole
+128-column chunk (and a whole tile pair) reads several times higher than
+the 16-element partials; and partials summed in another order for each
+slice give P that differs between slices, which is why the owner of a row
+sums them once, in rank order.
 """
 
 import functools
@@ -48,6 +56,7 @@ from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 TILE = 64
 SLICE = 128                       # the kernels' kWide: a CTA's columns
 F32_GATE = (1e-4, 1e-5)           # chip_smoke.py's gate for float32 outputs
+O_GATE = (1e-4, 2e-5)             # ... for the forward's O
 ROWS_GATE = (1e-5, 1e-6)          # ... and for LSE and delta
 
 
@@ -183,6 +192,65 @@ def emulate_dkv(q, k, v, do, lse, delta, causal, scale, mm=mm3, split=None):
     return dk, dv
 
 
+def emulate_fwd(q, k, v, causal, scale, mm_s=mm3, mm_pv=mm3, split=None):
+    """O and LSE as fwd_wide_tiles_f32 computes them: for each q tile, the
+    k tiles in splits of ``split`` tiles (all of them in the resident
+    family).  Per tile pair, S is the sum of the slices' partials in rank
+    order (``mm_s``), then the online-softmax step and acc = alpha acc +
+    P V (``mm_pv``).  Each split's (m, l, acc) is merged in split order as
+    the merge pass does: weights exp(m_j - M), O = acc / l, LSE = M + log l
+    (one split: weight exp(0), the resident kernel's arithmetic)."""
+    bh, s_len, d = q.shape
+    split = split or s_len // TILE
+    n = d // SLICE
+    o = torch.zeros_like(q)
+    lse = torch.zeros(bh, s_len)
+    for q0 in range(0, s_len, TILE):
+        # [n, BH, TILE, SLICE]: slice j's columns in row j
+        qs = q[:, q0:q0 + TILE].reshape(bh, TILE, n, SLICE).permute(2, 0, 1,
+                                                                   3)
+        parts = []
+        for sp0 in range(0, s_len, split * TILE):
+            m = torch.full((bh, TILE), float("-inf"))
+            l = torch.zeros(bh, TILE)
+            acc = None
+            for k0 in range(sp0, min(sp0 + split * TILE, s_len), TILE):
+                if not _visible(q0, k0, causal):
+                    continue
+                kt, vt = k[:, k0:k0 + TILE], v[:, k0:k0 + TILE]
+                ks = kt.reshape(bh, TILE, n, SLICE).permute(2, 0, 3, 1)
+                partial = mm_s(qs, ks, True)
+                s = partial[0]
+                for j in range(1, n):  # rank order
+                    s = s + partial[j]
+                x = scale * s
+                if causal:
+                    keys = torch.arange(k0, k0 + TILE)
+                    x = x.masked_fill(
+                        keys > torch.arange(q0, q0 + TILE)[:, None],
+                        float("-inf"))
+                m_new = torch.maximum(m, x.amax(-1))
+                alpha = torch.exp(m - m_new)
+                p = torch.exp(x - m_new[..., None])
+                l = l * alpha + p.sum(-1)
+                acc = mm_pv(p, vt, acc=None if acc is None
+                            else acc * alpha[..., None])
+                m = m_new
+            if acc is not None:
+                parts.append((m, l, acc))
+        mx = parts[0][0]
+        for m, _, _ in parts[1:]:
+            mx = torch.maximum(mx, m)
+        tot_l, tot_acc = 0.0, 0.0
+        for m, l, acc in parts:
+            w = torch.exp(m - mx)
+            tot_l = tot_l + w * l
+            tot_acc = tot_acc + w[..., None] * acc
+        o[:, q0:q0 + TILE] = tot_acc / tot_l[..., None]
+        lse[:, q0:q0 + TILE] = mx + torch.log(tot_l)
+    return o, lse
+
+
 def _worst(got, want, tol):
     """The worst element's |got - want| over its limit (<= 1 passes)."""
     rtol, atol = tol
@@ -303,9 +371,63 @@ def test_recipe_matches_jax_backward(d, causal, streaming):
     assert all(w <= 1.0 for w in worst.values()), worst
 
 
+def _fwd_gates(got, want):
+    return {"o": _worst(got[0], want[0], O_GATE),
+            "lse": _worst(got[1], want[1], ROWS_GATE)}
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [384, 512])
+def test_fwd_recipe_passes_the_f32_gates(d, causal, streaming):
+    """The forward's recipe (split-D partials in rank order, 3xTF32 S and
+    P V, the online rescale) holds O to 1e-4 |plain| + 2e-5 and LSE to
+    1e-5 |plain| + 1e-6 against the plain version, resident and in splits
+    of two tiles (merged as the merge pass does)."""
+    (q, k, v, _, o, lse, _, scale), _ = _case(d, causal)
+    got = emulate_fwd(q, k, v, causal, scale, split=2 if streaming else None)
+    worst = _fwd_gates(got, (o, lse))
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
+@pytest.mark.parametrize("product", ["S", "PV"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fwd_single_tf32_rounding_misses_the_f32_gate(causal, product):
+    """One TF32 rounding of each operand of S = Q K^T, or of P V (P in
+    [0, 1] included), misses the forward's gate on O at D = 512: each of
+    the forward's two products needs the hi/lo split (the factors are
+    printed by running this file)."""
+    (q, k, v, _, o, lse, _, scale), _ = _case(512, causal)
+    mms = {"mm_s": mm1} if product == "S" else {"mm_pv": mm1}
+    got = emulate_fwd(q, k, v, causal, scale, **mms)
+    worst = _fwd_gates(got, (o, lse))
+    assert worst["o"] > 1.0, worst
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [384, 512])
+def test_fwd_recipe_matches_jax_forward(d, causal, streaming):
+    """At [2, 256, D] float32 the forward's recipe agrees with the JAX
+    package's flash forward (Pallas interpreter, the resident or the
+    streaming kernel) within the float32 gates on O and LSE."""
+    rng = np.random.RandomState(17 + causal)
+    q, k, v = (rng.randn(2, 256, d).astype(np.float32) for _ in range(3))
+    o, (_, _, _, _, lse) = jax_flash_fwd(
+        *(jnp.asarray(x) for x in (q, k, v)), causal, None, 64, 64, True,
+        streaming)
+    want = (torch.from_numpy(np.array(o)),
+            torch.from_numpy(np.array(lse))[:, 0, :])
+    got = emulate_fwd(*(torch.from_numpy(x) for x in (q, k, v)), causal,
+                      d ** -0.5, split=2 if streaming else None)
+    worst = _fwd_gates(got, want)
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
 if __name__ == "__main__":
     # The gate readings, for PERF.md: 3xTF32, one TF32 rounding, and 3xTF32
-    # with one truncating accumulator a chunk.
+    # with one truncating accumulator a chunk; the forward's in 3xTF32 and
+    # with one TF32 rounding of S or of P V.
     for d in (384, 512):
         for causal in (False, True):
             (q, k, v, do, _, lse, delta, scale), plain = _case(d, causal)
@@ -317,3 +439,10 @@ if __name__ == "__main__":
                                     mm=mm))
                 print(f"D {d} causal {causal} {name}:",
                       {n: round(w, 4) for n, w in _gates(got, plain).items()})
+            (q, k, v, _, o, lse, _, scale), _ = _case(d, causal)
+            for name, mms in (("3xTF32", {}), ("S in 1xTF32", {"mm_s": mm1}),
+                              ("P V in 1xTF32", {"mm_pv": mm1})):
+                got = emulate_fwd(q, k, v, causal, scale, **mms)
+                print(f"D {d} causal {causal} forward, {name}:",
+                      {n: round(w, 4)
+                       for n, w in _fwd_gates(got, (o, lse)).items()})
