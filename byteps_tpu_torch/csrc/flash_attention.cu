@@ -99,22 +99,23 @@
 // 20 against 14 in the backward.  mma.sync reaches only part of the card's
 // bf16 peak, which wants wgmma.
 //
-// The float32 kernels do their products as float32 FMAs on the CUDA cores
-// (67 TFLOP/s at most), bound in practice by FMA issue and shared-memory
-// bandwidth: single-pass TF32 keeps 10 mantissa bits, too few for the
-// float32 tests' 1e-5 of the largest element, and the main path is bf16.
-// Above D = 256 the float32 forward and backward are the exception: they
-// run on the tensor cores with each operand split into two TF32 parts
-// (3xTF32, see their sections below).
+// The float32 backward runs on the tensor cores at every head dim, each
+// operand split into two TF32 parts (3xTF32): single-pass TF32 keeps 10
+// mantissa bits, too few for the float32 tests' 1e-5 of the largest
+// element.  At D <= 128 one CTA holds all of D; at D = 256 and above the
+// D / 128 slices of a tile run as a thread-block cluster (see "the float32
+// backward on the tensor cores" below).  The float32 forward runs so above
+// D = 256 only; at D <= 256 it does its products as float32 FMAs on the
+// CUDA cores (67 TFLOP/s at most), bound in practice by FMA issue and
+// shared-memory bandwidth.
 //
 // Tiling.  The TPU kernels take one q block of up to 512 rows and keep K/V
 // whole in VMEM.  A 512 x 512 float32 logits tile does not fit in 227 KB of
 // shared memory, so these kernels pick their own tiles: 64 q rows by 64 k
-// rows.  The CUDA-core loops (fwd_tiles, dq_tiles, dkv_tiles, float32
-// only) run 256 threads, four threads to a row, each thread owning 16
-// columns of the logits tile and D / 4 columns of the accumulator; at
-// D = 256 they take the streamed tile 32 rows at a time (sub_rows), since
-// four 64 x 257 float32 tiles would not fit in shared memory.  The
+// rows.  The CUDA-core loop (fwd_tiles, the float32 forward at D <= 256)
+// runs 256 threads, four threads to a row, each thread owning 16 columns
+// of the logits tile and D / 4 columns of the accumulator; at D = 256 it
+// takes the streamed tile 32 rows at a time (sub_rows).  The 16-bit
 // tensor-core loops run 128 threads, each warp owning 16 rows and its
 // accumulators in the MMA layout; dK/dV takes the q tile 32 columns at a
 // time at D = 64 and 16 at D = 128, so that its two D-wide accumulators
@@ -192,10 +193,9 @@ __device__ __forceinline__ float row_max(float x) {
   return x;
 }
 
-// Rows of the streamed tile (K/V, or Q/dO in dK/dV) that a CUDA-core loop
-// takes at a time: the whole 64-row tile up to D = 128, half of it at
-// D = 256, where four 64-row float32 tiles of D + 1 floats (263 KB) would
-// not fit in the 227 KB of shared memory a block can have.
+// Rows of the streamed K/V tile that the CUDA-core forward takes at a
+// time: the whole 64-row tile up to D = 128, half of it at D = 256 (74 KB
+// less shared memory a CTA).
 template <int D>
 __host__ __device__ constexpr int sub_rows() {
   return D > 128 ? kTile / 2 : kTile;
@@ -213,10 +213,10 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
 }
 
 // ---------------------------------------------------------------------------
-// Tile loops shared by both families.  `k`, `v`, `q`, `dout` point at one
-// (batch*head)'s [S, D] rows, `lse` and `delta` at its [S] rows.  Each
-// 64-row tile of the loop is taken in sub-tiles of KT = sub_rows<D>() rows,
-// and logits and probabilities tiles are [kTile][KT + 1].
+// The float32 forward's tile loop, shared by both families.  `k` and `v`
+// point at one (batch*head)'s [S, D] rows.  Each 64-row tile of the loop
+// is taken in sub-tiles of KT = sub_rows<D>() rows, and the probabilities
+// tile is [kTile][KT + 1].
 // ---------------------------------------------------------------------------
 
 // Online softmax of the q tile `qt` (in `qs`, pre-scaled by sm_scale) over
@@ -283,122 +283,6 @@ __device__ __forceinline__ void fwd_tiles(const float* qs, float* ks,
   }
 }
 
-// dQ of the q tile `qt` (q in `qs`, dO in `dos`) over the k tiles
-// [kt0, kt1): recompute P = exp(scale * Q K^T - lse), dS = P * (dO V^T -
-// delta), acc += dS K (the caller scales by sm_scale).
-template <typename T, int D>
-__device__ __forceinline__ void dq_tiles(const float* qs, const float* dos,
-                                         float* ks, float* vs, float* dss,
-                                         const T* k, const T* v, int qt,
-                                         int kt0, int kt1, int causal,
-                                         float scale, float lse_r, float dl,
-                                         float (&acc)[D / kLanes]) {
-  constexpr int ld = D + 1;
-  constexpr int KT = sub_rows<D>();
-  constexpr int cols = KT / kLanes;
-  constexpr int pld = KT + 1;
-  const int r = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
-  for (int kt = kt0; kt < kt1; ++kt) {
-    for (int h = 0; h < kTile; h += KT) {
-      __syncthreads();
-      load_tile<T, D, KT>(ks, k + ((size_t)kt * kTile + h) * D, 1.f);
-      load_tile<T, D, KT>(vs, v + ((size_t)kt * kTile + h) * D, 1.f);
-      __syncthreads();
-
-      float s[cols], dp[cols];
-#pragma unroll
-      for (int j = 0; j < cols; ++j) s[j] = dp[j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float qv = qs[r * ld + d];
-        const float dv = dos[r * ld + d];
-#pragma unroll
-        for (int j = 0; j < cols; ++j) {
-          const int col = c + kLanes * j;
-          s[j] += qv * ks[col * ld + d];
-          dp[j] += dv * vs[col * ld + d];
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < cols; ++j) {
-        const int col = c + kLanes * j;
-        const bool masked = causal && kt == qt && h + col > r;
-        const float p = masked ? 0.f : expf(scale * s[j] - lse_r);
-        dss[r * pld + col] = p * (dp[j] - dl);
-      }
-      __syncwarp();
-      for (int j = 0; j < KT; ++j) {
-        const float ds = dss[r * pld + j];
-#pragma unroll
-        for (int i = 0; i < D / kLanes; ++i) acc[i] += ds * ks[j * ld + c + kLanes * i];
-      }
-    }
-  }
-}
-
-// dK/dV of the k tile `kt` (K in `ks`, V in `vs`) over the q tiles
-// [qt0, qt1): dV += P^T dO, dK += dS^T Q (the caller scales dK).
-template <typename T, int D>
-__device__ __forceinline__ void dkv_tiles(
-    const float* ks, const float* vs, float* qs, float* dos, float* pt,
-    float* dst, float* lses, float* dels, const T* q, const T* dout,
-    const float* lse, const float* delta, int kt, int qt0, int qt1,
-    int causal, float scale, float (&dk_acc)[D / kLanes],
-    float (&dv_acc)[D / kLanes]) {
-  constexpr int ld = D + 1;
-  constexpr int QT = sub_rows<D>();
-  constexpr int cols = QT / kLanes;
-  constexpr int pld = QT + 1;
-  const int j = threadIdx.x / kLanes;  // this thread's k row in the tile
-  const int c = threadIdx.x % kLanes;
-  for (int qt = qt0; qt < qt1; ++qt) {
-    for (int h = 0; h < kTile; h += QT) {
-      __syncthreads();
-      load_tile<T, D, QT>(qs, q + ((size_t)qt * kTile + h) * D, 1.f);
-      load_tile<T, D, QT>(dos, dout + ((size_t)qt * kTile + h) * D, 1.f);
-      if (threadIdx.x < QT) {
-        const size_t at = (size_t)qt * kTile + h + threadIdx.x;
-        lses[threadIdx.x] = lse[at];
-        dels[threadIdx.x] = delta[at];
-      }
-      __syncthreads();
-
-      float s[cols], dp[cols];
-#pragma unroll
-      for (int i = 0; i < cols; ++i) s[i] = dp[i] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float kv = ks[j * ld + d];
-        const float vv = vs[j * ld + d];
-#pragma unroll
-        for (int i = 0; i < cols; ++i) {
-          const int qr = c + kLanes * i;
-          s[i] += qs[qr * ld + d] * kv;
-          dp[i] += dos[qr * ld + d] * vv;
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < cols; ++i) {
-        const int qr = c + kLanes * i;
-        const bool masked = causal && qt == kt && j > h + qr;
-        const float p = masked ? 0.f : expf(scale * s[i] - lses[qr]);
-        pt[j * pld + qr] = p;
-        dst[j * pld + qr] = p * (dp[i] - dels[qr]);
-      }
-      __syncwarp();
-      for (int qr = 0; qr < QT; ++qr) {
-        const float p = pt[j * pld + qr];
-        const float ds = dst[j * pld + qr];
-#pragma unroll
-        for (int i = 0; i < D / kLanes; ++i) {
-          const int d = c + kLanes * i;
-          dv_acc[i] += p * dos[qr * ld + d];
-          dk_acc[i] += ds * qs[qr * ld + d];
-        }
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K/V-resident family: one block per (tile, bh), over the whole range.
 // ---------------------------------------------------------------------------
@@ -437,107 +321,6 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int i = 0; i < D / kLanes; ++i) orow[c + kLanes * i] = from_f32<T>(acc[i] / l);
   if (c == 0) lse[(size_t)bh * seq + row] = m + logf(l);
-}
-
-// dQ, with delta for the block's rows computed first and written out for
-// the dK/dV kernel.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const T* __restrict__ o,
-                        const T* __restrict__ dout,
-                        const float* __restrict__ lse, T* __restrict__ dq,
-                        float* __restrict__ delta, int seq, float scale,
-                        int causal) {
-  constexpr int ld = D + 1;
-  extern __shared__ float smem[];
-  constexpr int KT = sub_rows<D>();  // rows of a streamed sub-tile
-  float* qs = smem;                 // [kTile][ld]
-  float* dos = qs + kTile * ld;     // [kTile][ld]
-  float* ks = dos + kTile * ld;     // [KT][ld]
-  float* vs = ks + KT * ld;         // [KT][ld]
-  float* dss = vs + KT * ld;        // [kTile][KT + 1] dS tile
-
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int r = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
-  const size_t base = (size_t)bh * seq * D;
-  const int row = qt * kTile + r;
-
-  load_tile<T, D>(qs, q + base + (size_t)qt * kTile * D, 1.f);
-  load_tile<T, D>(dos, dout + base + (size_t)qt * kTile * D, 1.f);
-  __syncthreads();
-
-  const T* orow = o + base + (size_t)row * D;
-  double dsum = 0.0;   // float64: see delta_sum
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i)
-    dsum += (double)dos[r * ld + c + kLanes * i] *
-            (double)to_f32(orow[c + kLanes * i]);
-  const float dl = (float)row_sum(dsum);
-  if (c == 0) delta[(size_t)bh * seq + row] = dl;
-  const float lse_r = lse[(size_t)bh * seq + row];
-
-  float acc[D / kLanes];
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) acc[i] = 0.f;
-  dq_tiles<T, D>(qs, dos, ks, vs, dss, k + base, v + base, qt, 0,
-                 causal ? qt + 1 : seq / kTile, causal, scale, lse_r, dl,
-                 acc);
-
-  T* dqrow = dq + base + (size_t)row * D;
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) dqrow[c + kLanes * i] = from_f32<T>(scale * acc[i]);
-}
-
-// dK/dV: one block per (k tile, bh), over the q tiles from the diagonal
-// (causal) or from 0.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk,
-                         T* __restrict__ dv, int seq, float scale,
-                         int causal) {
-  constexpr int ld = D + 1;
-  extern __shared__ float smem[];
-  constexpr int KT = sub_rows<D>();  // rows of a streamed sub-tile
-  float* ks = smem;                   // [kTile][ld]
-  float* vs = ks + kTile * ld;        // [kTile][ld]
-  float* qs = vs + kTile * ld;        // [KT][ld]
-  float* dos = qs + KT * ld;          // [KT][ld]
-  float* pt = dos + KT * ld;          // [kTile][KT + 1] P^T tile
-  float* dst = pt + kTile * (KT + 1); // [kTile][KT + 1] dS^T tile
-  float* lses = dst + kTile * (KT + 1);  // [KT]
-  float* dels = lses + KT;               // [KT]
-
-  const int kt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int j = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
-  const size_t base = (size_t)bh * seq * D;
-
-  load_tile<T, D>(ks, k + base + (size_t)kt * kTile * D, 1.f);
-  load_tile<T, D>(vs, v + base + (size_t)kt * kTile * D, 1.f);
-
-  float dk_acc[D / kLanes], dv_acc[D / kLanes];
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-  dkv_tiles<T, D>(ks, vs, qs, dos, pt, dst, lses, dels, q + base,
-                  dout + base, lse + (size_t)bh * seq,
-                  delta + (size_t)bh * seq, kt, causal ? kt : 0, seq / kTile,
-                  causal, scale, dk_acc, dv_acc);
-
-  const int row = kt * kTile + j;
-  T* dkrow = dk + base + (size_t)row * D;
-  T* dvrow = dv + base + (size_t)row * D;
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) {
-    dkrow[c + kLanes * i] = from_f32<T>(scale * dk_acc[i]);
-    dvrow[c + kLanes * i] = from_f32<T>(dv_acc[i]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -666,108 +449,6 @@ __global__ void __launch_bounds__(kThreads)
             (double)to_f32(orow[c + kLanes * i]);
   const float dl = (float)row_sum(dsum);
   if (c == 0) delta[at0] = dl;
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_str_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const T* __restrict__ dout,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            float* __restrict__ dq_ws, int seq, int split,
-                            float scale, int causal) {
-  const int num_t = seq / kTile;
-  const int qt = num_t - 1 - blockIdx.x;
-  const int sp = blockIdx.y;
-  const int bh = blockIdx.z;
-  const int kt0 = sp * split;
-  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
-  if (kt0 >= kt1) return;
-
-  constexpr int ld = D + 1;
-  extern __shared__ float smem[];
-  constexpr int KT = sub_rows<D>();  // rows of a streamed sub-tile
-  float* qs = smem;
-  float* dos = qs + kTile * ld;
-  float* ks = dos + kTile * ld;
-  float* vs = ks + KT * ld;
-  float* dss = vs + KT * ld;
-
-  const int r = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
-  const size_t base = (size_t)bh * seq * D;
-  const int row = qt * kTile + r;
-  load_tile<T, D>(qs, q + base + (size_t)qt * kTile * D, 1.f);
-  load_tile<T, D>(dos, dout + base + (size_t)qt * kTile * D, 1.f);
-  const float lse_r = lse[(size_t)bh * seq + row];
-  const float dl = delta[(size_t)bh * seq + row];
-
-  float acc[D / kLanes];
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) acc[i] = 0.f;
-  dq_tiles<T, D>(qs, dos, ks, vs, dss, k + base, v + base, qt, kt0, kt1,
-                 causal, scale, lse_r, dl, acc);
-
-  float* arow = dq_ws + ws_row(sp, bh, gridDim.z, seq, row) * D;
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) arow[c + kLanes * i] = acc[i];
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_str_kernel(const T* __restrict__ q,
-                             const T* __restrict__ k,
-                             const T* __restrict__ v,
-                             const T* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             float* __restrict__ dk_ws,
-                             float* __restrict__ dv_ws, int seq, int split,
-                             float scale, int causal) {
-  const int num_t = seq / kTile;
-  const int kt = blockIdx.x;
-  const int sp = blockIdx.y;
-  const int bh = blockIdx.z;
-  int qt0 = sp * split;
-  const int qt1 = min(qt0 + split, num_t);
-  if (causal) qt0 = max(qt0, kt);
-  if (qt0 >= qt1) return;  // dead pair: every query before every key
-
-  constexpr int ld = D + 1;
-  extern __shared__ float smem[];
-  constexpr int KT = sub_rows<D>();  // rows of a streamed sub-tile
-  float* ks = smem;
-  float* vs = ks + kTile * ld;
-  float* qs = vs + kTile * ld;
-  float* dos = qs + KT * ld;
-  float* pt = dos + KT * ld;
-  float* dst = pt + kTile * (KT + 1);
-  float* lses = dst + kTile * (KT + 1);
-  float* dels = lses + KT;
-
-  const int j = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
-  const size_t base = (size_t)bh * seq * D;
-  load_tile<T, D>(ks, k + base + (size_t)kt * kTile * D, 1.f);
-  load_tile<T, D>(vs, v + base + (size_t)kt * kTile * D, 1.f);
-
-  float dk_acc[D / kLanes], dv_acc[D / kLanes];
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-  dkv_tiles<T, D>(ks, vs, qs, dos, pt, dst, lses, dels, q + base,
-                  dout + base, lse + (size_t)bh * seq,
-                  delta + (size_t)bh * seq, kt, qt0, qt1, causal, scale,
-                  dk_acc, dv_acc);
-
-  const size_t at = ws_row(sp, bh, gridDim.z, seq, kt * kTile + j);
-  float* dkrow = dk_ws + at * D;
-  float* dvrow = dv_ws + at * D;
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) {
-    dkrow[c + kLanes * i] = dk_acc[i];
-    dvrow[c + kLanes * i] = dv_acc[i];
-  }
 }
 
 // out = scale * (sum of the live splits' partials), splits in increasing
@@ -2205,14 +1886,25 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
   store_rows_ld<kWide>((is_dk ? dk_ws : dv_ws) + at, d, acc, 1.f);
 }
 
-// ---- the float32 backward at a wide D: split-D clusters, 3xTF32 ----------
-// flash_bwd_dq_wide_kernel, flash_bwd_dq_str_wide_kernel,
-// flash_bwd_dkv_wide_kernel and flash_bwd_dkv_str_wide_kernel replace the
-// TPU kernels _dq_kernel_res (:168), _dq_kernel_str (:250), _dkv_kernel_res
-// (:192) and _dkv_kernel_str (:275) of byteps_tpu/ops/flash_attention.py in
-// float32 above D = 256.  What bounds them is the products: 6 (dQ) and 8
-// (dK/dV) FLOPs per visible (q, k) pair and head-dim element, 0.58-0.77 ms
-// at 67 TFLOP/s for [128, 512, 384] causal, against 0.09 ms of bytes.
+// ---- the float32 backward on the tensor cores: 3xTF32 --------------------
+// flash_bwd_dq_tc_kernel<D>, flash_bwd_dq_str_tc_kernel<D>,
+// flash_bwd_dkv_tc_kernel<D> and flash_bwd_dkv_str_tc_kernel<D> (D = 16,
+// 32, 64 and 128) and flash_bwd_dq_wide_kernel, flash_bwd_dq_str_wide_kernel,
+// flash_bwd_dkv_wide_kernel and flash_bwd_dkv_str_wide_kernel (D = 256 and
+// above) replace the TPU kernels _dq_kernel_res (:168), _dq_kernel_str
+// (:250), _dkv_kernel_res (:192) and _dkv_kernel_str (:275) of
+// byteps_tpu/ops/flash_attention.py in float32.  What bounds them is the
+// products: 6 (dQ) and 8 (dK/dV) FLOPs per visible (q, k) pair and
+// head-dim element, 0.039 and 0.052 ms at the 3xTF32 ceiling (below) for
+// [128, 512, 64] causal against about 0.03 ms of bytes, 0.23 and 0.31 ms
+// for [128, 512, 384].
+//
+// Both run the same tile loops (dq_tiles_f32, dkv_tiles_f32), templated on
+// the slice width W, the columns of Q, K, V and dO a CTA holds, and on
+// kCluster.  At D <= 128, W = D and one CTA holds all of D: its own S and
+// dP are the whole sums, and it turns them into P and dS in its registers
+// (tile_pds) with no exchange rows and no cluster.  From D = 256, W = 128
+// and the slices meet in a cluster:
 //
 // One output slice a CTA, as in the 16-bit wide kernels, would have every
 // slice recompute S = Q K^T and dP = dO V^T over all of D: about 3.9x the
@@ -2249,16 +1941,22 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 // TF32 ceiling is 495 / 3 = 165 TFLOP/s of the function's work.
 //
 // Eight warps; for the first products warp w takes rows 16 (w & 3) of the
-// tile pair and keys 32 (w >> 2), for the second its rows and 64 of the
-// slice's columns.  The four 64 x 128 float32 chunks (the fixed tile's two,
-// the streamed tile's two) sit in shared memory without padding, their
-// columns XOR-swizzled by row (swz) so that the 16-byte loads of the first
-// products and the 4-byte column loads of the second hit 32 banks; the
-// streamed chunks come in by cp.async, each reloaded as soon as its last
-// product is issued (V's during the K products, K's and Q's during the
-// next pair's dP) rather than double-buffered: with the exchange rows and
-// the P/dS tiles the chunks already make 181-200 KB a CTA (one an SM), and
-// a second set of streamed chunks (64 KB) does not fit.
+// tile pair and keys 32 (w >> 2), for the second its rows and W / 2 of the
+// slice's columns (one n8 block at W = 16).  The four 64 x W float32 chunks
+// (the fixed tile's two, the streamed tile's two) sit in shared memory
+// without padding, their columns XOR-swizzled by row (swz_w) so that the
+// 16-byte loads of the first products and the 4-byte column loads of the
+// second hit 32 banks; the streamed chunks come in by cp.async, each
+// reloaded as soon as its last product is issued (V's during the K
+// products, K's and Q's during the next pair's dP) rather than
+// double-buffered: in a cluster the exchange rows and the P/dS tiles with
+// the chunks make 181-200 KB a CTA (one an SM), and a second set of
+// streamed chunks (64 KB) does not fit.  Without a cluster a CTA takes
+// 80.5 KB (dQ) or 96.5 KB (dK/dV) at W = 64, two an SM, and 144.5 or
+// 160.5 KB at W = 128.  There a second stage of the streamed chunks fits,
+// but measured no faster in dQ and at W = 128, and 17% slower in dK/dV at
+// W = 64, whose 128.5 KB leave one CTA an SM (scripts/flash_f32_bwd_ab.py,
+// variant dbuf); one CTA an SM at W = 64 (ctas1) was 5-17% slower too.
 // ---------------------------------------------------------------------------
 constexpr int kTcThreads = 256;                 // 8 warps
 constexpr int kTcWarps = kTcThreads / 32;
@@ -2270,30 +1968,53 @@ __host__ __device__ constexpr int split_rows(int c) {
   return (kTile + c - 1) / c;
 }
 
-// Shared memory of the float32 wide backward: LSE and delta of the owner's
-// rows, four chunks, S and dP exchange rows (c slots of R rows each), and
-// `tiles` [kTile][kTile] tiles (dS; P).
-__host__ __device__ constexpr size_t wide_tc_smem(int c, int tiles) {
-  return (2 * kTile + 4 * kChunkFloats + 2 * c * split_rows(c) * kTile +
+// Shared memory of the float32 backward at slice width W: LSE and delta of
+// the CTA's rows, four 64 x W chunks, in a cluster of c CTAs the S and dP
+// exchange rows (c slots of R rows each), and `tiles` [kTile][kTile] tiles
+// (dS; P).
+template <int W, bool kCluster>
+__host__ __device__ constexpr size_t f32_bwd_smem(int c, int tiles) {
+  return (2 * kTile + 4 * kTile * W +
+          (kCluster ? 2 * c * split_rows(c) * kTile : 0) +
           tiles * kTile * kTile) * sizeof(float);
 }
 
-// Float offset of (row, col) in a swizzled tile of w columns (w = 128 or
-// 64): bits 3 and 4 of the column flip with rows' bits 1, and 0 ^ 2.  A
+// CTAs an SM the float32 backward without a cluster is compiled for
+// (__launch_bounds__): two up to W = 64, one at W = 128.
+__host__ __device__ constexpr int f32_bwd_ctas(int w) {
+  return w <= 64 ? 2 : 1;
+}
+
+// Float offset of (row, col) in a swizzled tile of w columns (w a multiple
+// of 32): bits 3 and 4 of the column flip with rows' bits 1, and 0 ^ 2.  A
 // 16-byte piece (columns 4i..4i+3) stays whole.
 __device__ __forceinline__ int swz(int row, int col, int w) {
   return row * w +
          (col ^ ((((row >> 1) & 1) << 3) | ((((row >> 2) ^ row) & 1) << 4)));
 }
 
-// Copy the [kTile, kWide] float32 chunk at `src` (row stride d) into a
+// The same in a 64 x W chunk.  A row of W = 16 floats covers 16 banks, and
+// the rows 8kk + 2t that one load of the second products reads would all
+// start in bank 0: there rows 2i and 2i + 1 are swizzled as row i of a
+// 32-column tile, the odd row in its columns 16..31.
+template <int W>
+__device__ __forceinline__ int swz_w(int row, int col) {
+  static_assert(W == 16 || W == 32 || W == 64 || W == 128, "slice width");
+  if constexpr (W == 16)
+    return swz(row >> 1, col | (row & 1) << 4, 32);
+  else
+    return swz(row, col, W);
+}
+
+// Copy the [kTile, W] float32 chunk at `src` (row stride d) into a
 // swizzled chunk, 16 bytes a copy.
+template <int W>
 __device__ __forceinline__ void chunk_f32_async(float* dst, const float* src,
                                                 int d) {
-  for (int i = threadIdx.x; i < kTile * kWide / 4; i += kTcThreads) {
-    const int r = i / (kWide / 4);
-    const int c = (i % (kWide / 4)) * 4;
-    cp_async16(dst + swz(r, c, kWide), src + (size_t)r * d + c);
+  for (int i = threadIdx.x; i < kTile * W / 4; i += kTcThreads) {
+    const int r = i / (W / 4);
+    const int c = (i % (W / 4)) * 4;
+    cp_async16(dst + swz_w<W>(r, c), src + (size_t)r * d + c);
   }
 }
 
@@ -2347,7 +2068,7 @@ __device__ __forceinline__ void add_to(float (&acc)[NB][4],
 // columns' six MMAs go into a zeroed partial added to acc in float32: the
 // tensor cores truncate their float32 sums, and 48 MMAs into one
 // accumulator (a chunk) read five times higher in the emulation.
-template <int NB>
+template <int W, int NB>
 __device__ __forceinline__ void mma3_abt_step(float (&acc)[NB][4],
                                               const float* a, int arow,
                                               const float* b, int brow,
@@ -2355,9 +2076,9 @@ __device__ __forceinline__ void mma3_abt_step(float (&acc)[NB][4],
   const int g = lane >> 2, t = lane & 3;
   const int col = 16 * k16 + 4 * t;
   const float4 x0 =
-      *reinterpret_cast<const float4*>(a + swz(arow + g, col, kWide));
+      *reinterpret_cast<const float4*>(a + swz_w<W>(arow + g, col));
   const float4 x8 =
-      *reinterpret_cast<const float4*>(a + swz(arow + g + 8, col, kWide));
+      *reinterpret_cast<const float4*>(a + swz_w<W>(arow + g + 8, col));
   uint32_t ah[2][4], al[2][4];
   split_tf32(x0.x, ah[0][0], al[0][0]);
   split_tf32(x8.x, ah[0][1], al[0][1]);
@@ -2370,7 +2091,7 @@ __device__ __forceinline__ void mma3_abt_step(float (&acc)[NB][4],
 #pragma unroll
   for (int n = 0; n < NB; ++n) {
     const float4 y = *reinterpret_cast<const float4*>(
-        b + swz(brow + 8 * n + g, col, kWide));
+        b + swz_w<W>(brow + 8 * n + g, col));
     uint32_t bh[4], bl[4];
     split_tf32(y.x, bh[0], bl[0]);
     split_tf32(y.y, bh[1], bl[1]);
@@ -2384,25 +2105,25 @@ __device__ __forceinline__ void mma3_abt_step(float (&acc)[NB][4],
   }
 }
 
-// mma3_abt_step over the chunk's 8 groups of 16 columns, unrolled by two
-// (kUnroll; unrolled whole, the kernels spilled) or not.
-template <int NB, bool kUnroll>
+// mma3_abt_step over the chunk's W / 16 groups of 16 columns, unrolled by
+// two (kUnroll; unrolled whole at W = 128, the kernels spilled) or not.
+template <int W, int NB, bool kUnroll>
 __device__ __forceinline__ void mma3_abt(float (&acc)[NB][4], const float* a,
                                          int arow, const float* b, int brow,
                                          int lane) {
   if constexpr (kUnroll) {
 #pragma unroll 2
-    for (int k16 = 0; k16 < kWide / 16; ++k16)
-      mma3_abt_step(acc, a, arow, b, brow, k16, lane);
+    for (int k16 = 0; k16 < W / 16; ++k16)
+      mma3_abt_step<W>(acc, a, arow, b, brow, k16, lane);
   } else {
 #pragma unroll 1
-    for (int k16 = 0; k16 < kWide / 16; ++k16)
-      mma3_abt_step(acc, a, arow, b, brow, k16, lane);
+    for (int k16 = 0; k16 < W / 16; ++k16)
+      mma3_abt_step<W>(acc, a, arow, b, brow, k16, lane);
   }
 }
 
 // part[n] += X B over the 8 contraction rows of k step kk (see mma3_xb).
-template <bool kT, int NB>
+template <int W, bool kT, int NB>
 __device__ __forceinline__ void mma3_xb_step(float (&part)[NB][4],
                                              const float* x, int xrow,
                                              const float* b, int col0,
@@ -2432,8 +2153,8 @@ __device__ __forceinline__ void mma3_xb_step(float (&part)[NB][4],
   for (int n = 0; n < NB; ++n) {
     const int col = col0 + 8 * n + g;
     uint32_t bh0, bl0, bh1, bl1;
-    split_tf32(b[swz(k0, col, kWide)], bh0, bl0);
-    split_tf32(b[swz(k0 + 1, col, kWide)], bh1, bl1);
+    split_tf32(b[swz_w<W>(k0, col)], bh0, bl0);
+    split_tf32(b[swz_w<W>(k0 + 1, col)], bh1, bl1);
     mma3(part[n], ah, al, bh0, bh1, bl0, bl1);
   }
 }
@@ -2444,7 +2165,7 @@ __device__ __forceinline__ void mma3_xb_step(float (&part)[NB][4],
 // 64 rows.  An MMA k step's k = t and t + 4 are rows 8kk + 2t and
 // 8kk + 2t + 1.  Each 16 rows' six MMAs go into a zeroed partial added to
 // acc in float32, as in mma3_abt.
-template <bool kT, int NB>
+template <int W, bool kT, int NB>
 __device__ __forceinline__ void mma3_xb(float (&acc)[NB][4], const float* x,
                                         int xrow, const float* b, int col0,
                                         int lane) {
@@ -2454,7 +2175,7 @@ __device__ __forceinline__ void mma3_xb(float (&acc)[NB][4], const float* x,
     zero(part);
 #pragma unroll
     for (int u = 0; u < 2; ++u)
-      mma3_xb_step<kT, NB>(part, x, xrow, b, col0, kk + u, lane);
+      mma3_xb_step<W, kT, NB>(part, x, xrow, b, col0, kk + u, lane);
     add_to(acc, part);
   }
 }
@@ -2593,46 +2314,108 @@ __device__ __forceinline__ void store_tc_rows(float* out, int d, int row0,
              scale * acc[n][2 * h], scale * acc[n][2 * h + 1]);
 }
 
-__device__ __forceinline__ float* wide_tc_rows(float* smem) { return smem; }
-__device__ __forceinline__ float* wide_tc_chunks(float* smem) {
+__device__ __forceinline__ float* tc_rows(float* smem) { return smem; }
+__device__ __forceinline__ float* tc_chunks(float* smem) {
   return smem + 2 * kTile;
 }
 
-// dQ of the q tile `qt` over the k tiles [kt0, kt1) at a wide D in
-// float32, this CTA's slices of it (see the section's note), written to
+// Size of the CTA's cluster and its rank there; 1 and 0 without one.
+template <bool kCluster>
+__device__ __forceinline__ int ctas() {
+  if constexpr (kCluster) return cluster_size();
+  else return 1;
+}
+template <bool kCluster>
+__device__ __forceinline__ int cta_rank() {
+  if constexpr (kCluster) return cluster_rank();
+  else return 0;
+}
+
+// Rows of the q tile this CTA owns in the exchange: [own0, own0 + nown)
+// (all 64 without a cluster).
+template <bool kCluster>
+__device__ __forceinline__ void owned_rows(int& own0, int& nown) {
+  const int R = split_rows(ctas<kCluster>());
+  own0 = cta_rank<kCluster>() * R;
+  nown = max(0, min(kTile, own0 + R) - own0);
+}
+
+// P (into `pt`, unless null) and dS (into `dst`), swizzled [kTile][kTile]
+// tiles, of one tile pair (q tile qt, k tile kt) without a cluster: the
+// CTA holds all of D, so its warps' S and dP blocks (rows 16 (warp & 3),
+// keys 32 (warp >> 2)) are the whole sums.  `rows` holds the tile's LSE,
+// then (from kTile on) delta.  split_exchange's arithmetic, from the
+// registers; ends with both tiles complete.
+__device__ __forceinline__ void tile_pds(const float (&s)[4][4],
+                                         const float (&dp)[4][4], float* pt,
+                                         float* dst, const float* rows,
+                                         int qt, int kt, int causal,
+                                         float scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = 16 * (warp & 3) + g + 8 * h;
+    const float lse_r = rows[row];
+    const float del_r = rows[kTile + row];
+    const int query = qt * kTile + row;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int col = 32 * (warp >> 2) + 8 * n + 2 * t;
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[e] = causal && kt * kTile + col + e > query
+                   ? 0.f
+                   : expf(scale * s[n][2 * h + e] - lse_r);
+        ds[e] = p[e] * (dp[n][2 * h + e] - del_r);
+      }
+      const int at = swz(row, col, kTile);
+      store2(dst + at, ds[0], ds[1]);
+      if (pt) store2(pt + at, p[0], p[1]);
+    }
+  }
+  __syncthreads();
+}
+
+// dQ of the q tile `qt` over the k tiles [kt0, kt1) in float32 at slice
+// width W, this CTA's slices of it (see the section's note), written to
 // `out` (the tile's first row, row stride d) times out_scale.  The caller
-// has put the LSE and delta of the CTA's rows in wide_tc_rows.
-__device__ __forceinline__ void dq_wide_tiles_f32(
+// has put the LSE and delta of the CTA's rows in tc_rows.
+template <int W, bool kCluster>
+__device__ __forceinline__ void dq_tiles_f32(
     float* smem, const float* q, const float* k, const float* v,
     const float* dout, int d, int qt, int kt0, int kt1, int causal,
     float scale, float out_scale, float* out) {
-  const int c = cluster_size(), rank = cluster_rank();
-  float* qc = wide_tc_chunks(smem);
-  float* doc = qc + kChunkFloats;
-  float* kc = doc + kChunkFloats;
-  float* vc = kc + kChunkFloats;
-  float* ex = vc + kChunkFloats;
-  float* dst = ex + 2 * c * split_rows(c) * kTile;
-  const float* rows = wide_tc_rows(smem);
+  constexpr int kChunk = kTile * W;
+  const int c = ctas<kCluster>(), rank = cta_rank<kCluster>();
+  float* qc = tc_chunks(smem);
+  float* doc = qc + kChunk;
+  float* kc = doc + kChunk;
+  float* vc = kc + kChunk;
+  float* ex = vc + kChunk;          // the exchange rows, in a cluster
+  float* dst = ex + (kCluster ? 2 * c * split_rows(c) * kTile : 0);
+  const float* rows = tc_rows(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rw = 16 * (warp & 3);   // the warp's rows
-  const int kh = 32 * (warp >> 2);  // its keys in the first products
-  const int oh = 64 * (warp >> 2);  // its columns of the output slice
-  const int n = d / kWide;
-  const int spc = (n + c - 1) / c;  // slices a CTA takes
+  const int rw = 16 * (warp & 3);      // the warp's rows
+  const int kh = 32 * (warp >> 2);     // its keys in the first products
+  const int oh = W / 2 * (warp >> 2);  // its columns of the output slice
+  const int n = d / W;
+  const int spc = kCluster ? (n + c - 1) / c : 1;  // slices a CTA takes
   const size_t qo = (size_t)qt * kTile * d;
   for (int pass = 0; pass < spc; ++pass) {
     const int jo = rank + pass * c;  // the slice this pass outputs (if < n)
     if (spc == 1) {
-      chunk_f32_async(qc, q + qo + jo * kWide, d);
-      chunk_f32_async(doc, dout + qo + jo * kWide, d);
-      chunk_f32_async(vc, v + (size_t)kt0 * kTile * d + jo * kWide, d);
+      chunk_f32_async<W>(qc, q + qo + jo * W, d);
+      chunk_f32_async<W>(doc, dout + qo + jo * W, d);
+      chunk_f32_async<W>(vc, v + (size_t)kt0 * kTile * d + jo * W, d);
       cp_async_commit();
-      chunk_f32_async(kc, k + (size_t)kt0 * kTile * d + jo * kWide, d);
+      chunk_f32_async<W>(kc, k + (size_t)kt0 * kTile * d + jo * W, d);
       cp_async_commit();
     }
-    cluster_sync();  // the cluster runs before any store reaches a CTA
-    float acc[8][4];
+    // the cluster runs before any store reaches a CTA
+    if constexpr (kCluster) cluster_sync();
+    float acc[W / 16][4];
     zero(acc);
     for (int kt = kt0; kt < kt1; ++kt) {
       const size_t ko = (size_t)kt * kTile * d;
@@ -2642,79 +2425,69 @@ __device__ __forceinline__ void dq_wide_tiles_f32(
       if (spc == 1) {
         cp_async_wait_prev();  // Q, dO and V of tile kt
         __syncthreads();
-        mma3_abt<4, true>(dp, doc, rw, vc, kh, lane);
+        mma3_abt<W, 4, true>(dp, doc, rw, vc, kh, lane);
         __syncthreads();  // every warp is done with V
         if (kt + 1 < kt1)
-          chunk_f32_async(vc, v + ko + kTile * d + jo * kWide, d);
+          chunk_f32_async<W>(vc, v + ko + kTile * d + jo * W, d);
         cp_async_commit();
         cp_async_wait_prev();  // K of tile kt
         __syncthreads();
-        mma3_abt<4, true>(s, qc, rw, kc, kh, lane);
+        mma3_abt<W, 4, true>(s, qc, rw, kc, kh, lane);
       } else {
         int last = -1;
         for (int j = rank; j < n; j += c) {
           __syncthreads();
-          chunk_f32_async(qc, q + qo + j * kWide, d);
-          chunk_f32_async(doc, dout + qo + j * kWide, d);
-          chunk_f32_async(kc, k + ko + j * kWide, d);
-          chunk_f32_async(vc, v + ko + j * kWide, d);
+          chunk_f32_async<W>(qc, q + qo + j * W, d);
+          chunk_f32_async<W>(doc, dout + qo + j * W, d);
+          chunk_f32_async<W>(kc, k + ko + j * W, d);
+          chunk_f32_async<W>(vc, v + ko + j * W, d);
           cp_async_commit();
           cp_async_wait_all();
           __syncthreads();
-          mma3_abt<4, true>(dp, doc, rw, vc, kh, lane);
-          mma3_abt<4, true>(s, qc, rw, kc, kh, lane);
+          mma3_abt<W, 4, true>(dp, doc, rw, vc, kh, lane);
+          mma3_abt<W, 4, true>(s, qc, rw, kc, kh, lane);
           last = j;
         }
         if (jo < n && last != jo) {  // the output slice's K for dS K
           __syncthreads();
-          chunk_f32_async(kc, k + ko + jo * kWide, d);
+          chunk_f32_async<W>(kc, k + ko + jo * W, d);
           cp_async_commit();
           cp_async_wait_all();
           __syncthreads();
         }
       }
-      split_exchange(s, dp, ex, nullptr, dst, rows, qt, kt, causal, scale,
-                     rank, c);
-      if (jo < n) mma3_xb<false, 8>(acc, dst, rw, kc, oh, lane);
+      if constexpr (kCluster)
+        split_exchange(s, dp, ex, nullptr, dst, rows, qt, kt, causal, scale,
+                       rank, c);
+      else
+        tile_pds(s, dp, nullptr, dst, rows, qt, kt, causal, scale);
+      if (jo < n) mma3_xb<W, false, W / 16>(acc, dst, rw, kc, oh, lane);
       if (spc == 1) {
         __syncthreads();  // every warp is done with K
         if (kt + 1 < kt1)
-          chunk_f32_async(kc, k + ko + kTile * d + jo * kWide, d);
+          chunk_f32_async<W>(kc, k + ko + kTile * d + jo * W, d);
         cp_async_commit();
       }
     }
-    if (jo < n) store_tc_rows(out, d, rw, jo * kWide + oh, acc, out_scale);
+    if (jo < n) store_tc_rows(out, d, rw, jo * W + oh, acc, out_scale);
   }
 }
 
-// Rows of the q tile this CTA owns in the exchange: [own0, own0 + nown).
-__device__ __forceinline__ void owned_rows(int& own0, int& nown) {
-  const int R = split_rows(cluster_size());
-  own0 = cluster_rank() * R;
-  nown = max(0, min(kTile, own0 + R) - own0);
-}
-
-// Resident dQ: grid x is the q tiles (the longest causal rows first) times
-// the cluster's CTAs; each CTA computes delta = rowsum(dO * O) of its
+// Resident dQ: grid x is the q tiles (the longest causal rows first)
+// times the cluster's CTAs; each CTA computes delta = rowsum(dO * O) of its
 // owned rows over all of D and writes it out for the dK/dV kernel.
-__global__ void __launch_bounds__(kTcThreads, 1)
-    flash_bwd_dq_wide_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
-                             const float* __restrict__ o,
-                             const float* __restrict__ dout,
-                             const float* __restrict__ lse,
-                             float* __restrict__ dq,
-                             float* __restrict__ delta, int seq, int d,
-                             float scale, int causal) {
-  extern __shared__ __align__(16) float tc_smem[];
-  const int qt = seq / kTile - 1 - (int)blockIdx.x / cluster_size();
+template <int W, bool kCluster>
+__device__ __forceinline__ void bwd_dq_f32(
+    float* smem, const float* q, const float* k, const float* v,
+    const float* o, const float* dout, const float* lse, float* dq,
+    float* delta, int seq, int d, float scale, int causal) {
+  const int qt = seq / kTile - 1 - (int)blockIdx.x / ctas<kCluster>();
   const int bh = blockIdx.y;
   const size_t base = (size_t)bh * seq * d;
   int own0, nown;
-  owned_rows(own0, nown);
-  const int R = split_rows(cluster_size());
-  float* rows = wide_tc_rows(tc_smem);
+  owned_rows<kCluster>(own0, nown);
+  const int R = split_rows(ctas<kCluster>());
+  float* rows = tc_rows(smem);
   for (int r = threadIdx.x >> 5; r < nown; r += kTcWarps) {
     const size_t row = (size_t)bh * seq + qt * kTile + own0 + r;
     const float dl = warp_row_dot(dout + row * d, o + row * d, d);
@@ -2724,92 +2497,92 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       delta[row] = dl;
     }
   }
-  dq_wide_tiles_f32(tc_smem, q + base, k + base, v + base, dout + base, d,
-                    qt, 0, causal ? qt + 1 : seq / kTile, causal, scale,
-                    scale, dq + base + (size_t)qt * kTile * d);
+  dq_tiles_f32<W, kCluster>(smem, q + base, k + base, v + base, dout + base,
+                            d, qt, 0, causal ? qt + 1 : seq / kTile, causal,
+                            scale, scale, dq + base + (size_t)qt * kTile * d);
 }
 
-__global__ void __launch_bounds__(kTcThreads, 1)
-    flash_bwd_dq_str_wide_kernel(const float* __restrict__ q,
-                                 const float* __restrict__ k,
-                                 const float* __restrict__ v,
-                                 const float* __restrict__ dout,
-                                 const float* __restrict__ lse,
-                                 const float* __restrict__ delta,
-                                 float* __restrict__ dq_ws, int seq, int d,
-                                 int split, float scale, int causal) {
+template <int W, bool kCluster>
+__device__ __forceinline__ void bwd_dq_str_f32(
+    float* smem, const float* q, const float* k, const float* v,
+    const float* dout, const float* lse, const float* delta, float* dq_ws,
+    int seq, int d, int split, float scale, int causal) {
   const int num_t = seq / kTile;
-  const int qt = num_t - 1 - (int)blockIdx.x / cluster_size();
+  const int qt = num_t - 1 - (int)blockIdx.x / ctas<kCluster>();
   const int sp = blockIdx.y;
   const int bh = blockIdx.z;
   const int kt0 = sp * split;
   const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
   if (kt0 >= kt1) return;  // the whole cluster: its CTAs share the tile
 
-  extern __shared__ __align__(16) float tc_smem[];
   const size_t base = (size_t)bh * seq * d;
   int own0, nown;
-  owned_rows(own0, nown);
-  const int R = split_rows(cluster_size());
-  float* rows = wide_tc_rows(tc_smem);
+  owned_rows<kCluster>(own0, nown);
+  const int R = split_rows(ctas<kCluster>());
+  float* rows = tc_rows(smem);
   if (threadIdx.x < nown) {
     const size_t row = (size_t)bh * seq + qt * kTile + own0 + threadIdx.x;
     rows[threadIdx.x] = lse[row];
     rows[R + threadIdx.x] = delta[row];
   }
-  dq_wide_tiles_f32(
-      tc_smem, q + base, k + base, v + base, dout + base, d, qt, kt0, kt1,
+  dq_tiles_f32<W, kCluster>(
+      smem, q + base, k + base, v + base, dout + base, d, qt, kt0, kt1,
       causal, scale, 1.f,
       dq_ws + ws_row(sp, bh, gridDim.z, seq, qt * kTile) * d);
 }
 
-// dK and dV of the k tile `kt` over the q tiles [qt0, qt1) at a wide D in
-// float32, this CTA's slices of both (see the section's note), written to
-// dk_out and dv_out (the tile's first row, row stride d), dK times dk_scale.
-// `lse` and `delta` point at the (batch*head)'s rows.
-__device__ __forceinline__ void dkv_wide_tiles_f32(
+// dK and dV of the k tile `kt` over the q tiles [qt0, qt1) in float32 at
+// slice width W, this CTA's slices of both (see the section's note),
+// written to dk_out and dv_out (the tile's first row, row stride d), dK
+// times dk_scale.  `lse` and `delta` point at the (batch*head)'s rows.
+template <int W, bool kCluster>
+__device__ __forceinline__ void dkv_tiles_f32(
     float* smem, const float* q, const float* k, const float* v,
     const float* dout, const float* lse, const float* delta, int d, int kt,
     int qt0, int qt1, int causal, float scale, float dk_scale, float* dk_out,
     float* dv_out) {
-  const int c = cluster_size(), rank = cluster_rank();
-  float* kc = wide_tc_chunks(smem);
-  float* vc = kc + kChunkFloats;
-  float* qc = vc + kChunkFloats;
-  float* doc = qc + kChunkFloats;
-  float* ex = doc + kChunkFloats;
-  float* pt = ex + 2 * c * split_rows(c) * kTile;
+  constexpr int kChunk = kTile * W;
+  // A warp's W / 2 columns of dK and of dV, in halves of 32 at W = 128.
+  constexpr int kHalves = W == 128 ? 2 : 1;
+  constexpr int kHB = W / 16 / kHalves;  // n8 blocks a half
+  const int c = ctas<kCluster>(), rank = cta_rank<kCluster>();
+  float* kc = tc_chunks(smem);
+  float* vc = kc + kChunk;
+  float* qc = vc + kChunk;
+  float* doc = qc + kChunk;
+  float* ex = doc + kChunk;  // the exchange rows, in a cluster
+  float* pt = ex + (kCluster ? 2 * c * split_rows(c) * kTile : 0);
   float* dst = pt + kTile * kTile;
-  float* rows = wide_tc_rows(smem);
+  float* rows = tc_rows(smem);
   int own0, nown;
-  owned_rows(own0, nown);
+  owned_rows<kCluster>(own0, nown);
   const int R = split_rows(c);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int rw = 16 * (warp & 3);   // the warp's q rows, then its keys
-  const int kh = 32 * (warp >> 2);  // its keys in the first products
-  const int oh = 64 * (warp >> 2);  // its columns of the output slices
-  const int n = d / kWide;
-  const int spc = (n + c - 1) / c;
+  const int rw = 16 * (warp & 3);      // the warp's q rows, then its keys
+  const int kh = 32 * (warp >> 2);     // its keys in the first products
+  const int oh = W / 2 * (warp >> 2);  // its columns of the output slices
+  const int n = d / W;
+  const int spc = kCluster ? (n + c - 1) / c : 1;
   const size_t ko = (size_t)kt * kTile * d;
-  // dK and dV take 64 registers a thread beside the products': with the
-  // first products' k steps unrolled by two as well the kernels spilled a
-  // few bytes (scripts/flash_f32_wide_ab.py, variant dkvunroll); rolling
-  // the second products' instead was slower (PERF.md).
+  // dK and dV take 64 registers a thread beside the products' at W = 128:
+  // with the first products' k steps unrolled by two as well the kernels
+  // spilled a few bytes (scripts/flash_f32_wide_ab.py, variant dkvunroll);
+  // rolling the second products' instead was slower (PERF.md).
   constexpr bool kAbtUnroll = false;
   for (int pass = 0; pass < spc; ++pass) {
     const int jo = rank + pass * c;
     if (spc == 1) {
-      chunk_f32_async(kc, k + ko + jo * kWide, d);
-      chunk_f32_async(vc, v + ko + jo * kWide, d);
-      chunk_f32_async(doc, dout + (size_t)qt0 * kTile * d + jo * kWide, d);
+      chunk_f32_async<W>(kc, k + ko + jo * W, d);
+      chunk_f32_async<W>(vc, v + ko + jo * W, d);
+      chunk_f32_async<W>(doc, dout + (size_t)qt0 * kTile * d + jo * W, d);
       cp_async_commit();
-      chunk_f32_async(qc, q + (size_t)qt0 * kTile * d + jo * kWide, d);
+      chunk_f32_async<W>(qc, q + (size_t)qt0 * kTile * d + jo * W, d);
       cp_async_commit();
     }
-    cluster_sync();
-    float dk[2][4][4], dv[2][4][4];  // halves of 32 columns
+    if constexpr (kCluster) cluster_sync();
+    float dk[kHalves][kHB][4], dv[kHalves][kHB][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < kHalves; ++h) {
       zero(dk[h]);
       zero(dv[h]);
     }
@@ -2825,71 +2598,172 @@ __device__ __forceinline__ void dkv_wide_tiles_f32(
       if (spc == 1) {
         cp_async_wait_prev();  // K, V and dO of tile qt
         __syncthreads();
-        mma3_abt<4, kAbtUnroll>(dp, doc, rw, vc, kh, lane);
+        mma3_abt<W, 4, kAbtUnroll>(dp, doc, rw, vc, kh, lane);
         cp_async_wait_all();  // Q of tile qt
         __syncthreads();
-        mma3_abt<4, kAbtUnroll>(s, qc, rw, kc, kh, lane);
+        mma3_abt<W, 4, kAbtUnroll>(s, qc, rw, kc, kh, lane);
       } else {
         int last = -1;
         for (int j = rank; j < n; j += c) {
           __syncthreads();
-          chunk_f32_async(kc, k + ko + j * kWide, d);
-          chunk_f32_async(vc, v + ko + j * kWide, d);
-          chunk_f32_async(qc, q + qo + j * kWide, d);
-          chunk_f32_async(doc, dout + qo + j * kWide, d);
+          chunk_f32_async<W>(kc, k + ko + j * W, d);
+          chunk_f32_async<W>(vc, v + ko + j * W, d);
+          chunk_f32_async<W>(qc, q + qo + j * W, d);
+          chunk_f32_async<W>(doc, dout + qo + j * W, d);
           cp_async_commit();
           cp_async_wait_all();
           __syncthreads();
-          mma3_abt<4, kAbtUnroll>(dp, doc, rw, vc, kh, lane);
-          mma3_abt<4, kAbtUnroll>(s, qc, rw, kc, kh, lane);
+          mma3_abt<W, 4, kAbtUnroll>(dp, doc, rw, vc, kh, lane);
+          mma3_abt<W, 4, kAbtUnroll>(s, qc, rw, kc, kh, lane);
           last = j;
         }
         if (jo < n && last != jo) {  // the output slice's Q and dO
           __syncthreads();
-          chunk_f32_async(qc, q + qo + jo * kWide, d);
-          chunk_f32_async(doc, dout + qo + jo * kWide, d);
+          chunk_f32_async<W>(qc, q + qo + jo * W, d);
+          chunk_f32_async<W>(doc, dout + qo + jo * W, d);
           cp_async_commit();
           cp_async_wait_all();
           __syncthreads();
         }
       }
-      split_exchange(s, dp, ex, pt, dst, rows, qt, kt, causal, scale, rank,
-                     c);
+      if constexpr (kCluster)
+        split_exchange(s, dp, ex, pt, dst, rows, qt, kt, causal, scale, rank,
+                       c);
+      else
+        tile_pds(s, dp, pt, dst, rows, qt, kt, causal, scale);
       if (jo < n) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          mma3_xb<true, 4>(dv[h], pt, rw, doc, oh + 32 * h, lane);
+        for (int h = 0; h < kHalves; ++h)
+          mma3_xb<W, true, kHB>(dv[h], pt, rw, doc, oh + 8 * kHB * h, lane);
       }
       if (spc == 1) {
         __syncthreads();  // every warp is done with dO
         if (qt + 1 < qt1)
-          chunk_f32_async(doc, dout + qo + kTile * d + jo * kWide, d);
+          chunk_f32_async<W>(doc, dout + qo + kTile * d + jo * W, d);
         cp_async_commit();
       }
       if (jo < n) {
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
-          mma3_xb<true, 4>(dk[h], dst, rw, qc, oh + 32 * h, lane);
+        for (int h = 0; h < kHalves; ++h)
+          mma3_xb<W, true, kHB>(dk[h], dst, rw, qc, oh + 8 * kHB * h, lane);
       }
       if (spc == 1) {
         __syncthreads();  // every warp is done with Q
         if (qt + 1 < qt1)
-          chunk_f32_async(qc, q + qo + kTile * d + jo * kWide, d);
+          chunk_f32_async<W>(qc, q + qo + kTile * d + jo * W, d);
         cp_async_commit();
       }
     }
     if (jo < n) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        store_tc_rows(dk_out, d, rw, jo * kWide + oh + 32 * h, dk[h],
+      for (int h = 0; h < kHalves; ++h) {
+        store_tc_rows(dk_out, d, rw, jo * W + oh + 8 * kHB * h, dk[h],
                       dk_scale);
-        store_tc_rows(dv_out, d, rw, jo * kWide + oh + 32 * h, dv[h], 1.f);
+        store_tc_rows(dv_out, d, rw, jo * W + oh + 8 * kHB * h, dv[h], 1.f);
       }
     }
   }
 }
 
 // Resident dK/dV: grid x is the k tiles times the cluster's CTAs.
+template <int W, bool kCluster>
+__device__ __forceinline__ void bwd_dkv_f32(
+    float* smem, const float* q, const float* k, const float* v,
+    const float* dout, const float* lse, const float* delta, float* dk,
+    float* dv, int seq, int d, float scale, int causal) {
+  const int kt = (int)blockIdx.x / ctas<kCluster>();
+  const int bh = blockIdx.y;
+  const size_t base = (size_t)bh * seq * d;
+  const size_t at = base + (size_t)kt * kTile * d;
+  dkv_tiles_f32<W, kCluster>(smem, q + base, k + base, v + base, dout + base,
+                             lse + (size_t)bh * seq, delta + (size_t)bh * seq,
+                             d, kt, causal ? kt : 0, seq / kTile, causal,
+                             scale, scale, dk + at, dv + at);
+}
+
+template <int W, bool kCluster>
+__device__ __forceinline__ void bwd_dkv_str_f32(
+    float* smem, const float* q, const float* k, const float* v,
+    const float* dout, const float* lse, const float* delta, float* dk_ws,
+    float* dv_ws, int seq, int d, int split, float scale, int causal) {
+  const int num_t = seq / kTile;
+  const int kt = (int)blockIdx.x / ctas<kCluster>();
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  int qt0 = sp * split;
+  const int qt1 = min(qt0 + split, num_t);
+  if (causal) qt0 = max(qt0, kt);
+  if (qt0 >= qt1) return;  // dead pair, for the whole cluster
+
+  const size_t base = (size_t)bh * seq * d;
+  const size_t at = ws_row(sp, bh, gridDim.z, seq, kt * kTile) * d;
+  dkv_tiles_f32<W, kCluster>(smem, q + base, k + base, v + base, dout + base,
+                             lse + (size_t)bh * seq, delta + (size_t)bh * seq,
+                             d, kt, qt0, qt1, causal, scale, 1.f, dk_ws + at,
+                             dv_ws + at);
+}
+
+// The kernels: at a wide D (256 and above, D at run time) the clusters of
+// split_ctas(D) CTAs, W = 128; at D <= 128 one CTA a tile, W = D.
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dq_wide_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ o,
+                             const float* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             float* __restrict__ dq,
+                             float* __restrict__ delta, int seq, int d,
+                             float scale, int causal) {
+  extern __shared__ __align__(16) float tc_smem[];
+  bwd_dq_f32<kWide, true>(tc_smem, q, k, v, o, dout, lse, dq, delta, seq, d,
+                          scale, causal);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, f32_bwd_ctas(D))
+    flash_bwd_dq_tc_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ o,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           float* __restrict__ dq, float* __restrict__ delta,
+                           int seq, float scale, int causal) {
+  extern __shared__ __align__(16) float tc_smem[];
+  bwd_dq_f32<D, false>(tc_smem, q, k, v, o, dout, lse, dq, delta, seq, D,
+                       scale, causal);
+}
+
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dq_str_wide_kernel(const float* __restrict__ q,
+                                 const float* __restrict__ k,
+                                 const float* __restrict__ v,
+                                 const float* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 float* __restrict__ dq_ws, int seq, int d,
+                                 int split, float scale, int causal) {
+  extern __shared__ __align__(16) float tc_smem[];
+  bwd_dq_str_f32<kWide, true>(tc_smem, q, k, v, dout, lse, delta, dq_ws, seq,
+                              d, split, scale, causal);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, f32_bwd_ctas(D))
+    flash_bwd_dq_str_tc_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               float* __restrict__ dq_ws, int seq, int split,
+                               float scale, int causal) {
+  extern __shared__ __align__(16) float tc_smem[];
+  bwd_dq_str_f32<D, false>(tc_smem, q, k, v, dout, lse, delta, dq_ws, seq, D,
+                           split, scale, causal);
+}
+
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_bwd_dkv_wide_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
@@ -2900,14 +2774,23 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                               float* __restrict__ dk, float* __restrict__ dv,
                               int seq, int d, float scale, int causal) {
   extern __shared__ __align__(16) float tc_smem[];
-  const int kt = (int)blockIdx.x / cluster_size();
-  const int bh = blockIdx.y;
-  const size_t base = (size_t)bh * seq * d;
-  const size_t at = base + (size_t)kt * kTile * d;
-  dkv_wide_tiles_f32(tc_smem, q + base, k + base, v + base, dout + base,
-                     lse + (size_t)bh * seq, delta + (size_t)bh * seq, d, kt,
-                     causal ? kt : 0, seq / kTile, causal, scale, scale,
-                     dk + at, dv + at);
+  bwd_dkv_f32<kWide, true>(tc_smem, q, k, v, dout, lse, delta, dk, dv, seq, d,
+                           scale, causal);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, f32_bwd_ctas(D))
+    flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int seq, float scale, int causal) {
+  extern __shared__ __align__(16) float tc_smem[];
+  bwd_dkv_f32<D, false>(tc_smem, q, k, v, dout, lse, delta, dk, dv, seq, D,
+                        scale, causal);
 }
 
 __global__ void __launch_bounds__(kTcThreads, 1)
@@ -2920,21 +2803,25 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                                   float* __restrict__ dk_ws,
                                   float* __restrict__ dv_ws, int seq, int d,
                                   int split, float scale, int causal) {
-  const int num_t = seq / kTile;
-  const int kt = (int)blockIdx.x / cluster_size();
-  const int sp = blockIdx.y;
-  const int bh = blockIdx.z;
-  int qt0 = sp * split;
-  const int qt1 = min(qt0 + split, num_t);
-  if (causal) qt0 = max(qt0, kt);
-  if (qt0 >= qt1) return;  // dead pair, for the whole cluster
-
   extern __shared__ __align__(16) float tc_smem[];
-  const size_t base = (size_t)bh * seq * d;
-  const size_t at = ws_row(sp, bh, gridDim.z, seq, kt * kTile) * d;
-  dkv_wide_tiles_f32(tc_smem, q + base, k + base, v + base, dout + base,
-                     lse + (size_t)bh * seq, delta + (size_t)bh * seq, d, kt,
-                     qt0, qt1, causal, scale, 1.f, dk_ws + at, dv_ws + at);
+  bwd_dkv_str_f32<kWide, true>(tc_smem, q, k, v, dout, lse, delta, dk_ws,
+                               dv_ws, seq, d, split, scale, causal);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, f32_bwd_ctas(D))
+    flash_bwd_dkv_str_tc_kernel(const float* __restrict__ q,
+                                const float* __restrict__ k,
+                                const float* __restrict__ v,
+                                const float* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                float* __restrict__ dk_ws,
+                                float* __restrict__ dv_ws, int seq,
+                                int split, float scale, int causal) {
+  extern __shared__ __align__(16) float tc_smem[];
+  bwd_dkv_str_f32<D, false>(tc_smem, q, k, v, dout, lse, delta, dk_ws, dv_ws,
+                            seq, D, split, scale, causal);
 }
 
 // ---- the float32 forward at a wide D: split-D clusters, 3xTF32 -----------
@@ -3123,8 +3010,8 @@ __device__ __forceinline__ void fwd_wide_tiles_f32(
       ml[2 * r + 1] = 0.f;
     }
     if (n == c) {
-      chunk_f32_async(qc, q + qo + jo * kWide, d);
-      chunk_f32_async(kc, k + (size_t)kt0 * kTile * d + jo * kWide, d);
+      chunk_f32_async<kWide>(qc, q + qo + jo * kWide, d);
+      chunk_f32_async<kWide>(kc, k + (size_t)kt0 * kTile * d + jo * kWide, d);
       cp_async_commit();
     }
     cluster_sync();  // the cluster runs before any store reaches a CTA
@@ -3140,16 +3027,16 @@ __device__ __forceinline__ void fwd_wide_tiles_f32(
         float s[4][4];
         zero(s);
         if (n == c) {
-          mma3_abt<4, true>(s, qc, rw, kc, kh, lane);
+          mma3_abt<kWide, 4, true>(s, qc, rw, kc, kh, lane);
         } else {
           for (int j = rank; j < n; j += c) {
             __syncthreads();
-            chunk_f32_async(qc, q + qo + j * kWide, d);
-            chunk_f32_async(kc, k + ko + j * kWide, d);
+            chunk_f32_async<kWide>(qc, q + qo + j * kWide, d);
+            chunk_f32_async<kWide>(kc, k + ko + j * kWide, d);
             cp_async_commit();
             cp_async_wait_all();
             __syncthreads();
-            mma3_abt<4, true>(s, qc, rw, kc, kh, lane);
+            mma3_abt<kWide, 4, true>(s, qc, rw, kc, kh, lane);
           }
         }
         push_partials(s, ex + b * ex_stage, rank, c);
@@ -3157,10 +3044,11 @@ __device__ __forceinline__ void fwd_wide_tiles_f32(
       cluster_sync();  // tile kt's partials at their owners, tile kt - 1's
                        // P, alpha and l in every CTA
       if (i < nt) {
-        if (jo < n) chunk_f32_async(vc + b * kChunkFloats, v + ko + jo * kWide,
-                                    d);
+        if (jo < n)
+          chunk_f32_async<kWide>(vc + b * kChunkFloats, v + ko + jo * kWide,
+                                 d);
         if (n == c && i + 1 < nt)
-          chunk_f32_async(kc, k + ko + kTile * d + jo * kWide, d);
+          chunk_f32_async<kWide>(kc, k + ko + kTile * d + jo * kWide, d);
         cp_async_commit();
         owner_step(ex + b * ex_stage, pt + b * kTile * kTile,
                    al + b * 2 * kTile, ml, qt, kt, causal, scale, rank, c);
@@ -3173,7 +3061,7 @@ __device__ __forceinline__ void fwd_wide_tiles_f32(
           acc[u][0] *= a0, acc[u][1] *= a0;
           acc[u][2] *= a8, acc[u][3] *= a8;
         }
-        mma3_xb<false, 8>(acc, pt + (b ^ 1) * kTile * kTile, rw,
+        mma3_xb<kWide, false, 8>(acc, pt + (b ^ 1) * kTile * kTile, rw,
                           vc + (b ^ 1) * kChunkFloats, oh, lane);
       }
     }
@@ -3330,24 +3218,13 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // Host side: shared-memory sizes, launches, dtype/head-dim dispatch.
 // ---------------------------------------------------------------------------
-// Shared memory of the CUDA-core kernels: the fixed tiles (kTile rows of
-// D + 1 floats), the streamed sub-tiles (KT rows), the [kTile][KT + 1]
-// logits tiles, and in dK/dV the sub-tile's LSE and delta.
+// Shared memory of the CUDA-core forward: the q tile (kTile rows of D + 1
+// floats), the streamed K/V sub-tiles (KT rows) and the [kTile][KT + 1]
+// probabilities tile.
 template <int D>
 constexpr size_t fwd_smem() {
   constexpr int KT = sub_rows<D>();
   return ((kTile + 2 * KT) * (D + 1) + kTile * (KT + 1)) * sizeof(float);
-}
-template <int D>
-constexpr size_t dq_smem() {
-  constexpr int KT = sub_rows<D>();
-  return ((2 * kTile + 2 * KT) * (D + 1) + kTile * (KT + 1)) * sizeof(float);
-}
-template <int D>
-constexpr size_t dkv_smem() {
-  constexpr int KT = sub_rows<D>();
-  return ((2 * kTile + 2 * KT) * (D + 1) + 2 * kTile * (KT + 1) + 2 * KT) *
-         sizeof(float);
 }
 
 template <typename Kernel>
@@ -3357,8 +3234,9 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// bf16 and float16 kernels run on the tensor cores; float32 ones keep the
-// CUDA-core loops (see the header), but above D = 256 (3xTF32 clusters).
+// bf16 and float16 kernels run on the tensor cores; float32 ones in 3xTF32
+// (the backward at every D, the forward above D = 256), the float32
+// forward at D <= 256 on the CUDA cores (see the header).
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value ||
                               std::is_same<T, __half>::value;
@@ -3369,174 +3247,12 @@ constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value ||
     if (bps_err_ != cudaSuccess) return bps_err_; \
   } while (0)
 
-template <typename T, int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       float* lse, int bh, int seq, float scale, int causal,
-                       cudaStream_t stream) {
-  if constexpr (kTensorCores<T>) {
-    const size_t smem = fwd_mma_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_mma_kernel<T, D>, smem));
-    flash_fwd_mma_kernel<T, D>
-        <<<dim3(seq / kTile, bh), kMmaThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
-            seq, scale, causal);
-  } else {
-    const size_t smem = fwd_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_kernel<T, D>, smem));
-    flash_fwd_kernel<T, D>
-        <<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, scale,
-            causal);
-  }
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* o, const void* dout, const float* lse,
-                      void* dq, float* delta, int bh, int seq, float scale,
-                      int causal, cudaStream_t stream) {
-  if constexpr (kTensorCores<T>) {
-    const size_t smem = mma_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_mma_kernel<T, D>, smem));
-    flash_bwd_dq_mma_kernel<T, D>
-        <<<dim3(seq / kTile, bh), kMmaThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)o,
-            (const T*)dout, lse, (T*)dq, delta, seq, scale, causal);
-  } else {
-    const size_t smem = dq_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_kernel<T, D>, smem));
-    flash_bwd_dq_kernel<T, D>
-        <<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)o,
-            (const T*)dout, lse, (T*)dq, delta, seq, scale, causal);
-  }
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse, const float* delta,
-                       void* dk, void* dv, int bh, int seq, float scale,
-                       int causal, cudaStream_t stream) {
-  if constexpr (kTensorCores<T>) {
-    const size_t smem = mma_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_mma_kernel<T, D>, smem));
-    flash_bwd_dkv_mma_kernel<T, D>
-        <<<dim3(seq / kTile, bh), kMmaThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v,
-            (const T*)dout, lse, delta, (T*)dk, (T*)dv, seq, scale,
-            causal);
-  } else {
-    const size_t smem = dkv_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_kernel<T, D>, smem));
-    flash_bwd_dkv_kernel<T, D>
-        <<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
-            delta, (T*)dk, (T*)dv, seq, scale, causal);
-  }
-  return cudaGetLastError();
-}
-
 int num_splits(int seq, int split) {
   return (seq / kTile + split - 1) / split;
 }
 
-template <typename T, int D>
-cudaError_t launch_fwd_str(const void* q, const void* k, const void* v,
-                           void* o, float* lse, float* m_ws, float* l_ws,
-                           float* acc_ws, int bh, int seq, float scale,
-                           int causal, int split, cudaStream_t stream) {
-  const int num_t = seq / kTile;
-  const int nsplit = num_splits(seq, split);
-  if constexpr (kTensorCores<T>) {
-    const size_t smem = fwd_mma_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_mma_kernel<T, D>, smem));
-    flash_fwd_str_mma_kernel<T, D>
-        <<<dim3(num_t, nsplit, bh), kMmaThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws,
-            acc_ws, seq, split, scale, causal);
-  } else {
-    const size_t smem = fwd_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_kernel<T, D>, smem));
-    flash_fwd_str_kernel<T, D>
-        <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq,
-            split, scale, causal);
-  }
-  BPS_RETURN_IF_ERROR(cudaGetLastError());
-  flash_fwd_str_merge_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
-      m_ws, l_ws, acc_ws, (T*)o, lse, seq, nsplit, split, causal);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dq_str(const void* q, const void* k, const void* v,
-                          const void* o, const void* dout, const float* lse,
-                          void* dq, float* delta, float* dq_ws, int bh,
-                          int seq, float scale, int causal, int split,
-                          cudaStream_t stream) {
-  const int num_t = seq / kTile;
-  const int nsplit = num_splits(seq, split);
-  flash_delta_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
-      (const T*)o, (const T*)dout, delta, seq);
-  BPS_RETURN_IF_ERROR(cudaGetLastError());
-  if constexpr (kTensorCores<T>) {
-    const size_t smem = mma_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_str_mma_kernel<T, D>, smem));
-    flash_bwd_dq_str_mma_kernel<T, D>
-        <<<dim3(num_t, nsplit, bh), kMmaThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-            lse, delta, dq_ws, seq, split, scale, causal);
-  } else {
-    const size_t smem = dq_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_str_kernel<T, D>, smem));
-    flash_bwd_dq_str_kernel<T, D>
-        <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-            dq_ws, seq, split, scale, causal);
-  }
-  BPS_RETURN_IF_ERROR(cudaGetLastError());
-  flash_sum_splits_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
-      dq_ws, (T*)dq, seq, nsplit, split, scale, causal, 0);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dkv_str(const void* q, const void* k, const void* v,
-                           const void* dout, const float* lse,
-                           const float* delta, void* dk, void* dv,
-                           float* dk_ws, float* dv_ws, int bh, int seq,
-                           float scale, int causal, int split,
-                           cudaStream_t stream) {
-  const int num_t = seq / kTile;
-  const int nsplit = num_splits(seq, split);
-  if constexpr (kTensorCores<T>) {
-    const size_t smem = mma_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_str_mma_kernel<T, D>, smem));
-    flash_bwd_dkv_str_mma_kernel<T, D>
-        <<<dim3(num_t, nsplit, bh), kMmaThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-            lse, delta, dk_ws, dv_ws, seq, split, scale, causal);
-  } else {
-    const size_t smem = dkv_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_str_kernel<T, D>, smem));
-    flash_bwd_dkv_str_kernel<T, D>
-        <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-            dk_ws, dv_ws, seq, split, scale, causal);
-  }
-  BPS_RETURN_IF_ERROR(cudaGetLastError());
-  flash_sum_splits_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
-      dk_ws, (T*)dk, seq, nsplit, split, scale, causal, 1);
-  BPS_RETURN_IF_ERROR(cudaGetLastError());
-  flash_sum_splits_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
-      dv_ws, (T*)dv, seq, nsplit, split, 1.f, causal, 1);
-  return cudaGetLastError();
-}
-
-// CTAs of a float32 wide cluster: the D / kWide slices over at most
-// kSplitCtas CTAs, ceil(n / kSplitCtas) slices a CTA.
+// CTAs of a float32 cluster: the D / kWide slices over at most kSplitCtas
+// CTAs, ceil(n / kSplitCtas) slices a CTA.
 int split_ctas(int d) {
   const int n = d / kWide;
   const int per = (n + kSplitCtas - 1) / kSplitCtas;
@@ -3565,9 +3281,10 @@ cudaError_t launch_split(void (*kernel)(Params...), dim3 grid, int ctas,
   return cudaGetLastError();
 }
 
-// Launchers at a wide head dim (above 256, a multiple of kWide): the same
-// work as the launchers above, D a run-time argument, kWide-column output
-// passes in grid x (float32: the clusters of split_ctas CTAs).
+// Launchers at a wide head dim (above 256, a multiple of kWide; and the
+// float32 backward at D = 256): the same work as the launchers below, D a
+// run-time argument, kWide-column output passes in grid x (float32: the
+// clusters of split_ctas CTAs).
 template <typename T>
 cudaError_t launch_fwd_wide(int d, const void* q, const void* k,
                             const void* v, void* o, float* lse, int bh, int seq,
@@ -3605,8 +3322,9 @@ cudaError_t launch_dq_wide(int d, const void* q, const void* k,
     const int ctas = split_ctas(d);
     return launch_split(flash_bwd_dq_wide_kernel,
                         dim3(seq / kTile * ctas, bh), ctas,
-                        wide_tc_smem(ctas, 1), stream, (const float*)q,
-                        (const float*)k, (const float*)v, (const float*)o,
+                        f32_bwd_smem<kWide, true>(ctas, 1), stream,
+                        (const float*)q, (const float*)k, (const float*)v,
+                        (const float*)o,
                         (const float*)dout, lse, (float*)dq, delta, seq, d,
                         scale, causal);
   }
@@ -3630,8 +3348,9 @@ cudaError_t launch_dkv_wide(int d, const void* q, const void* k,
     const int ctas = split_ctas(d);
     return launch_split(flash_bwd_dkv_wide_kernel,
                         dim3(seq / kTile * ctas, bh), ctas,
-                        wide_tc_smem(ctas, 2), stream, (const float*)q,
-                        (const float*)k, (const float*)v, (const float*)dout,
+                        f32_bwd_smem<kWide, true>(ctas, 2), stream,
+                        (const float*)q, (const float*)k, (const float*)v,
+                        (const float*)dout,
                         lse, delta, (float*)dk, (float*)dv, seq, d, scale,
                         causal);
   }
@@ -3694,8 +3413,8 @@ cudaError_t launch_dq_str_wide(int d, const void* q, const void* k,
     const int ctas = split_ctas(d);
     BPS_RETURN_IF_ERROR(launch_split(
         flash_bwd_dq_str_wide_kernel, dim3(num_t * ctas, nsplit, bh), ctas,
-        wide_tc_smem(ctas, 1), stream, (const float*)q, (const float*)k,
-        (const float*)v, (const float*)dout, lse, (const float*)delta, dq_ws,
+        f32_bwd_smem<kWide, true>(ctas, 1), stream, (const float*)q,
+        (const float*)k, (const float*)v, (const float*)dout, lse, (const float*)delta, dq_ws,
         seq, d, split, scale, causal));
   }
   flash_sum_splits_wide_kernel<T>
@@ -3728,8 +3447,8 @@ cudaError_t launch_dkv_str_wide(int d, const void* q, const void* k,
     const int ctas = split_ctas(d);
     BPS_RETURN_IF_ERROR(launch_split(
         flash_bwd_dkv_str_wide_kernel, dim3(num_t * ctas, nsplit, bh), ctas,
-        wide_tc_smem(ctas, 2), stream, (const float*)q, (const float*)k,
-        (const float*)v, (const float*)dout, lse, delta, dk_ws, dv_ws, seq,
+        f32_bwd_smem<kWide, true>(ctas, 2), stream, (const float*)q,
+        (const float*)k, (const float*)v, (const float*)dout, lse, delta, dk_ws, dv_ws, seq,
         d, split, scale, causal));
   }
   const dim3 sum_grid(num_t * npass, bh);
@@ -3741,12 +3460,203 @@ cudaError_t launch_dkv_str_wide(int d, const void* q, const void* k,
   return cudaGetLastError();
 }
 
+// The smallest head dim whose float32 backward runs as clusters of
+// split_ctas(D) CTAs (the wide kernels, W = kWide); below it one CTA holds
+// all of D (the *_tc_kernel<D> instances, W = D).
+constexpr int kF32ClusterMin = 256;
+
+template <typename T, int D>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
+                       float* lse, int bh, int seq, float scale, int causal,
+                       cudaStream_t stream) {
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = fwd_mma_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_mma_kernel<T, D>, smem));
+    flash_fwd_mma_kernel<T, D>
+        <<<dim3(seq / kTile, bh), kMmaThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
+            seq, scale, causal);
+  } else {
+    const size_t smem = fwd_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_kernel<T, D>, smem));
+    flash_fwd_kernel<T, D>
+        <<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, scale,
+            causal);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* o, const void* dout, const float* lse,
+                      void* dq, float* delta, int bh, int seq, float scale,
+                      int causal, cudaStream_t stream) {
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = mma_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_mma_kernel<T, D>, smem));
+    flash_bwd_dq_mma_kernel<T, D>
+        <<<dim3(seq / kTile, bh), kMmaThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)o,
+            (const T*)dout, lse, (T*)dq, delta, seq, scale, causal);
+  } else if constexpr (D >= kF32ClusterMin) {
+    return launch_dq_wide<float>(D, q, k, v, o, dout, lse, dq, delta, bh, seq,
+                                 scale, causal, stream);
+  } else {
+    const size_t smem = f32_bwd_smem<D, false>(1, 1);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_tc_kernel<D>, smem));
+    flash_bwd_dq_tc_kernel<D>
+        <<<dim3(seq / kTile, bh), kTcThreads, smem, stream>>>(
+            (const float*)q, (const float*)k, (const float*)v,
+            (const float*)o, (const float*)dout, lse, (float*)dq, delta, seq,
+            scale, causal);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse, const float* delta,
+                       void* dk, void* dv, int bh, int seq, float scale,
+                       int causal, cudaStream_t stream) {
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = mma_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_mma_kernel<T, D>, smem));
+    flash_bwd_dkv_mma_kernel<T, D>
+        <<<dim3(seq / kTile, bh), kMmaThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v,
+            (const T*)dout, lse, delta, (T*)dk, (T*)dv, seq, scale,
+            causal);
+  } else if constexpr (D >= kF32ClusterMin) {
+    return launch_dkv_wide<float>(D, q, k, v, dout, lse, delta, dk, dv, bh,
+                                  seq, scale, causal, stream);
+  } else {
+    const size_t smem = f32_bwd_smem<D, false>(1, 2);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_tc_kernel<D>, smem));
+    flash_bwd_dkv_tc_kernel<D>
+        <<<dim3(seq / kTile, bh), kTcThreads, smem, stream>>>(
+            (const float*)q, (const float*)k, (const float*)v,
+            (const float*)dout, lse, delta, (float*)dk, (float*)dv, seq,
+            scale, causal);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd_str(const void* q, const void* k, const void* v,
+                           void* o, float* lse, float* m_ws, float* l_ws,
+                           float* acc_ws, int bh, int seq, float scale,
+                           int causal, int split, cudaStream_t stream) {
+  const int num_t = seq / kTile;
+  const int nsplit = num_splits(seq, split);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = fwd_mma_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_mma_kernel<T, D>, smem));
+    flash_fwd_str_mma_kernel<T, D>
+        <<<dim3(num_t, nsplit, bh), kMmaThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws,
+            acc_ws, seq, split, scale, causal);
+  } else {
+    const size_t smem = fwd_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_kernel<T, D>, smem));
+    flash_fwd_str_kernel<T, D>
+        <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq,
+            split, scale, causal);
+  }
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  flash_fwd_str_merge_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
+      m_ws, l_ws, acc_ws, (T*)o, lse, seq, nsplit, split, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dq_str(const void* q, const void* k, const void* v,
+                          const void* o, const void* dout, const float* lse,
+                          void* dq, float* delta, float* dq_ws, int bh,
+                          int seq, float scale, int causal, int split,
+                          cudaStream_t stream) {
+  const int num_t = seq / kTile;
+  const int nsplit = num_splits(seq, split);
+  if constexpr (kTensorCores<T>) {
+    flash_delta_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
+        (const T*)o, (const T*)dout, delta, seq);
+    BPS_RETURN_IF_ERROR(cudaGetLastError());
+    const size_t smem = mma_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_str_mma_kernel<T, D>, smem));
+    flash_bwd_dq_str_mma_kernel<T, D>
+        <<<dim3(num_t, nsplit, bh), kMmaThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+            lse, delta, dq_ws, seq, split, scale, causal);
+  } else if constexpr (D >= kF32ClusterMin) {
+    return launch_dq_str_wide<float>(D, q, k, v, o, dout, lse, dq, delta,
+                                     dq_ws, bh, seq, scale, causal, split,
+                                     stream);
+  } else {
+    // delta summed as the resident kernel sums it (warp_row_dot), so that
+    // one split gives the resident kernel's bits
+    flash_delta_wide_kernel<float><<<dim3(num_t, bh), kThreads, 0, stream>>>(
+        (const float*)o, (const float*)dout, delta, seq, D);
+    BPS_RETURN_IF_ERROR(cudaGetLastError());
+    const size_t smem = f32_bwd_smem<D, false>(1, 1);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_str_tc_kernel<D>, smem));
+    flash_bwd_dq_str_tc_kernel<D>
+        <<<dim3(num_t, nsplit, bh), kTcThreads, smem, stream>>>(
+            (const float*)q, (const float*)k, (const float*)v,
+            (const float*)dout, lse, delta, dq_ws, seq, split, scale,
+            causal);
+  }
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  flash_sum_splits_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
+      dq_ws, (T*)dq, seq, nsplit, split, scale, causal, 0);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv_str(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, void* dk, void* dv,
+                           float* dk_ws, float* dv_ws, int bh, int seq,
+                           float scale, int causal, int split,
+                           cudaStream_t stream) {
+  const int num_t = seq / kTile;
+  const int nsplit = num_splits(seq, split);
+  if constexpr (kTensorCores<T>) {
+    const size_t smem = mma_smem<D>();
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_str_mma_kernel<T, D>, smem));
+    flash_bwd_dkv_str_mma_kernel<T, D>
+        <<<dim3(num_t, nsplit, bh), kMmaThreads, smem, stream>>>(
+            (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+            lse, delta, dk_ws, dv_ws, seq, split, scale, causal);
+  } else if constexpr (D >= kF32ClusterMin) {
+    return launch_dkv_str_wide<float>(D, q, k, v, dout, lse, delta, dk, dv,
+                                      dk_ws, dv_ws, bh, seq, scale, causal,
+                                      split, stream);
+  } else {
+    const size_t smem = f32_bwd_smem<D, false>(1, 2);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_str_tc_kernel<D>, smem));
+    flash_bwd_dkv_str_tc_kernel<D>
+        <<<dim3(num_t, nsplit, bh), kTcThreads, smem, stream>>>(
+            (const float*)q, (const float*)k, (const float*)v,
+            (const float*)dout, lse, delta, dk_ws, dv_ws, seq, split, scale,
+            causal);
+  }
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  flash_sum_splits_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
+      dk_ws, (T*)dk, seq, nsplit, split, scale, causal, 1);
+  BPS_RETURN_IF_ERROR(cudaGetLastError());
+  flash_sum_splits_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
+      dv_ws, (T*)dv, seq, nsplit, split, 1.f, causal, 1);
+  return cudaGetLastError();
+}
+
 bool shape_ok(int bh, int seq) {
   return bh >= 1 && bh <= 65535 && seq >= kTile && seq % kTile == 0;
 }
 
-// The tensor-core kernels (dtype 1 and 2, and float32's wide kernels) copy
-// q, k, v, dO, LSE and delta in 16-byte pieces (cp.async).
+// The tensor-core kernels (dtype 1 and 2, the float32 backward at every D
+// and the float32 forward above D = 256) copy q, k, v, dO, LSE and delta in
+// 16-byte pieces (cp.async).
 bool aligned16(bool copies, std::initializer_list<const void*> ptrs) {
   if (!copies) return true;
   for (const void* p : ptrs)
@@ -3812,7 +3722,7 @@ extern "C" int bps_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int bh, int seq, int head_dim, int dtype,
                                 float scale, int causal, void* stream) {
   if (!shape_ok(bh, seq)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype != 0 || head_dim > 256, {q, k, v, dout}))
+  if (!aligned16(true, {q, k, v, dout}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dq, dtype, head_dim, q, k, v, o, dout, lse, dq, delta,
                bh, seq, scale, causal, (cudaStream_t)stream);
@@ -3824,7 +3734,7 @@ extern "C" int bps_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int bh, int seq, int head_dim, int dtype,
                                  float scale, int causal, void* stream) {
   if (!shape_ok(bh, seq)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype != 0 || head_dim > 256,
+  if (!aligned16(true,
                  {q, k, v, dout, lse, delta}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dkv, dtype, head_dim, q, k, v, dout, lse, delta, dk,
@@ -3856,7 +3766,7 @@ extern "C" int bps_flash_bwd_dq_str(const void* q, const void* k,
                                     void* stream) {
   if (!shape_ok(bh, seq) || !split_ok(seq, split))
     return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype != 0 || head_dim > 256, {q, k, v, dout}))
+  if (!aligned16(true, {q, k, v, dout}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dq_str, dtype, head_dim, q, k, v, o, dout, lse, dq,
                delta, dq_ws, bh, seq, scale, causal, split,
@@ -3872,7 +3782,7 @@ extern "C" int bps_flash_bwd_dkv_str(const void* q, const void* k,
                                      int causal, int split, void* stream) {
   if (!shape_ok(bh, seq) || !split_ok(seq, split))
     return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype != 0 || head_dim > 256,
+  if (!aligned16(true,
                  {q, k, v, dout, lse, delta}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dkv_str, dtype, head_dim, q, k, v, dout, lse, delta,
@@ -3880,10 +3790,17 @@ extern "C" int bps_flash_bwd_dkv_str(const void* q, const void* k,
                (cudaStream_t)stream);
 }
 
-// CTAs of one cluster of the float32 kernels at a wide head dim (0 for a
-// head dim the wide kernels do not take).
-extern "C" int bps_flash_wide_cluster(int head_dim) {
-  return head_dim > 256 && head_dim % kWide == 0 ? split_ctas(head_dim) : 0;
+// CTAs of one cluster of the float32 backward at `head_dim`: 1 below
+// kF32ClusterMin, where one CTA holds all of D and no cluster is launched,
+// else split_ctas(D), as for the float32 forward above D = 256; 0 for a head
+// dim the kernels do not take.
+extern "C" int bps_flash_f32_bwd_cluster(int head_dim) {
+  if (head_dim < kF32ClusterMin)
+    return head_dim == 16 || head_dim == 32 || head_dim == 64 ||
+                   head_dim == 128
+               ? 1
+               : 0;
+  return head_dim % kWide == 0 ? split_ctas(head_dim) : 0;
 }
 
 extern "C" const char* bps_cuda_error_string(int err) {

@@ -12,11 +12,12 @@ Phases, each of which must pass:
    the library's SASS (cuobjdump): every bf16 and float16 instantiation of
    the two forward and four backward kernels, at every head dim (16, 32,
    64, 128, 256) and of the wide kernels (D above 256), must have them, and
-   so must the six float32 wide kernels (forward and backward, 3xTF32);
-   no float32 instantiation at D <= 256 may.  The six float32 wide kernels
-   must spill nothing; their ptxas registers and their cluster size at
-   each wide head dim of phase 10 are printed, the forward's beside the
-   backward's.
+   so must every float32 backward kernel (3xTF32: the 16 instantiations at
+   D = 16-128, one CTA a tile, and the four wide kernels, clusters, which
+   also run D = 256) and the two float32 wide forward kernels; no float32
+   forward instantiation at D <= 256 may (the CUDA cores).  The float32
+   tensor-core kernels must spill nothing; their ptxas registers and the
+   cluster size at each head dim are printed.
 2. Hold each flash kernel against its plain PyTorch version on the card:
    the flagship attention shape [8*16, 512, 64] bf16, causal and not, and
    a small float32 shape through the autograd op with block_q != block_k.
@@ -116,7 +117,13 @@ Phases, each of which must pass:
    forward and backward, naming the SDPA backend that ran.  Every timed
    instantiation must have been launched by the coverage run.  Then the
    float32 instantiations <f32,64> and <f32,256> timed the same way, at the
-   flagship shape and at [16, 8192, D], beside SDPA (launched by phase 7).
+   flagship shape and at [16, 8192, D], beside SDPA (launched by phase 7),
+   with the float32 backward's cluster size, each of its kernels' ptxas
+   registers, spills and HMMA count at those two head dims: no spills,
+   HMMA in each, a cluster of 1 CTA at D = 64 and 2 at 256, and every
+   float32 backward launch of phase 7 at those head dims counted by
+   instantiation (phase 1's census leaves the library no other float32
+   backward kernel for them to reach).
 11. ResNet-50 (224 x 224 x 3, 1000 classes, float32, batch 64, one fixed
    synthetic batch, cuDNN deterministic, no TF32): 5 steps of SGD (lr 0.1,
    momentum 0.9) through DistributedOptimizer + build_train_step with
@@ -206,6 +213,11 @@ F32_WIDE_BWD = ("flash_bwd_dq_wide_kernel<f32>",
                 "flash_bwd_dkv_wide_kernel<f32>",
                 "flash_bwd_dkv_str_wide_kernel<f32>")
 F32_WIDE = F32_WIDE_FWD + F32_WIDE_BWD
+# The float32 backward at D <= 128: one CTA a tile, 3xTF32.
+F32_TC_DIMS = (16, 32, 64, 128)
+F32_TC_BWD = tuple(f"flash_bwd_{k}_tc_kernel<f32,{d}>"
+                   for k in ("dq", "dq_str", "dkv", "dkv_str")
+                   for d in F32_TC_DIMS)
 F32_INSTANCES = (64, 256)
 # bench.py's CNN row: ResNet-50, 224 x 224 x 3, 1000 classes, float32,
 # batch 64, SGD lr 0.1 momentum 0.9, 5 steps on one fixed batch.
@@ -391,7 +403,8 @@ def bound_ms(name, bh, s, d, itemsize, causal,
 def phase_build(mods, build_mod, torch, gpu, check):
     """One nvcc per source, all started together, then load each; the
     ptxas reports and the flash library's HMMA census (``mods[0]`` is the
-    flash module)."""
+    flash module).  Returns the flash library's ptxas reports by kernel
+    (empty when an earlier run built it) and its HMMA counts."""
     import re
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
@@ -406,6 +419,7 @@ def phase_build(mods, build_mod, torch, gpu, check):
           f"| nvcc: {nvcc[0] if nvcc else '?'} | {release} "
           f"| build {secs:.1f} s | {gpu}")
     mma = []
+    f32 = dict(ptxas_reports(build_mod.build_logs.get(mods[0].SOURCE, "")))
     for m in mods:
         for kernel, report in ptxas_reports(build_mod.build_logs.get(
                 m.SOURCE, "")):
@@ -419,22 +433,24 @@ def phase_build(mods, build_mod, torch, gpu, check):
             re.search(r"\b0 bytes spill stores", r) for r in mma),
               f"ptxas: no spills in the {len(mma)} tensor-core kernels "
               f"(want {want})")
-        f32 = dict(ptxas_reports(build_mod.build_logs.get(mods[0].SOURCE,
-                                                          "")))
-        for what, names in (("forward", F32_WIDE_FWD),
-                            ("backward", F32_WIDE_BWD)):
+        for what, names in (("wide forward", F32_WIDE_FWD),
+                            ("wide backward", F32_WIDE_BWD),
+                            ("backward (D <= 128)", F32_TC_BWD)):
             check(all(re.search(r"\b0 bytes spill stores", f32.get(k, ""))
                       for k in names),
-                  f"ptxas: no spills in the {len(names)} float32 wide "
-                  f"{what} kernels: " + "; ".join(
+                  f"ptxas: no spills in the {len(names)} float32 {what} "
+                  f"kernels: " + "; ".join(
                       f"{k} {f32.get(k, 'not built')}" for k in names))
     lib = mods[0]._lib()
-    lib.bps_flash_wide_cluster.argtypes = [ctypes.c_int]
-    print("  float32 wide forward and backward cluster (CTAs) by head dim: "
-          + ", ".join(f"D {d}: {lib.bps_flash_wide_cluster(d)}"
-                      for d in (384, 512, 640, 768, 896, 1024, 1152)))
-    hmma_census(build_mod, build_mod.build(mods[0].SOURCE),
-                len(mods[0].HEAD_DIMS), check)
+    lib.bps_flash_f32_bwd_cluster.argtypes = [ctypes.c_int]
+    print("  float32 backward cluster (CTAs) by head dim (the wide "
+          "forward's above 256): " + ", ".join(
+              f"D {d}: {lib.bps_flash_f32_bwd_cluster(d)}"
+              for d in (16, 32, 64, 128, 256, 384, 512, 640, 768, 896, 1024,
+                        1152)))
+    counts = hmma_census(build_mod, build_mod.build(mods[0].SOURCE),
+                         len(mods[0].HEAD_DIMS), check)
+    return f32, counts
 
 
 def kernel_label(mangled):
@@ -474,9 +490,12 @@ def hmma_census(build_mod, lib, n_dims, check):
     """HMMA (tensor-core MMA) instructions per kernel in the built
     library's SASS (cuobjdump): every bf16 and float16 instantiation of the
     forward (resident, streaming) and backward (dQ, dK/dV of both families)
-    kernels, at each of the ``n_dims`` head dims, has them, no float32 one
-    does; above D = 256 the float32 kernels have them too (3xTF32); the
-    merge and sum passes are not counted."""
+    kernels, at each of the ``n_dims`` head dims, has them; so does every
+    float32 backward kernel (3xTF32; the instantiations at D <= 128 are all
+    the float32 backward ones, D = 256 runs the wide kernels), and no
+    float32 forward one at D <= 256 does; above D = 256 the float32
+    forward has them too; the merge and sum passes are not counted.
+    Returns the counts by kernel."""
     import re
     cuobjdump = os.path.join(os.path.dirname(build_mod.nvcc_path()),
                              "cuobjdump")
@@ -501,13 +520,21 @@ def hmma_census(build_mod, lib, n_dims, check):
                    if k.startswith(prefixes) and "_wide" not in k]
         tc = [k for k in kernels if "bf16" in k or "f16" in k]
         f32 = [k for k in kernels if "f32" in k]
-        check(len(tc) == 2 * n and len(f32) == n
-              and all(counts[k] > 0 for k in tc)
-              and not any(counts[k] for k in f32),
+        check(len(tc) == 2 * n and all(counts[k] > 0 for k in tc),
               f"SASS: HMMA in all {len(tc)} bf16 and float16 {what} "
               f"instantiations (min "
-              f"{min((counts[k] for k in tc), default=0)}), none in the "
-              f"{len(f32)} float32 ones")
+              f"{min((counts[k] for k in tc), default=0)}; want {2 * n})")
+        if what == "forward":
+            check(len(f32) == n and not any(counts[k] for k in f32),
+                  f"SASS: no HMMA in the {len(f32)} float32 forward "
+                  f"instantiations at D <= 256 (want {n}: the CUDA cores)")
+        else:
+            check(sorted(f32) == sorted(F32_TC_BWD)
+                  and all(counts[k] > 0 for k in f32),
+                  f"SASS: HMMA in every float32 backward instantiation, "
+                  f"all of them the 3xTF32 kernels at D <= 128 ("
+                  + ", ".join(f"{k} {counts[k]}" for k in sorted(f32))
+                  + ")")
     wide = [k for k in counts if "_wide" in k and not any(
         s in k for s in ("merge", "delta", "sum_splits"))]
     tc = [k for k in wide if "bf16" in k or "f16" in k]
@@ -519,6 +546,7 @@ def hmma_census(build_mod, lib, n_dims, check):
           f"SASS: HMMA in the {len(f32)} float32 wide forward and backward "
           f"kernels (3xTF32: " + ", ".join(f"{k} {counts[k]}" for k in f32)
           + ")")
+    return counts
 
 
 def phase_kernels(fa, torch, check):
@@ -1590,13 +1618,49 @@ def phase_wide(fa, tfm, torch, check):
             want[key] = want.get(key, 0) + 1
     got = {k: n for k, n in launches.items() if k.startswith("flash_fwd")
            and "<f32," in k}
-    ctas = {k: fa._lib().bps_flash_wide_cluster(int(k.split(",")[1][:-1]))
-            for k in got}
+    ctas = {k: fa._lib().bps_flash_f32_bwd_cluster(
+        int(k.split(",")[1][:-1])) for k in got}
     check(got == want,
           "float32 wide forward launches by instantiation " + ", ".join(
               f"{k} {n} (cluster of {ctas[k]} CTAs)"
               for k, n in sorted(got.items())) + f" (want {want})")
     return launches
+
+
+def f32_bwd_kernels(d):
+    """The float32 backward kernels (SASS labels) that run at head dim d."""
+    if d in F32_TC_DIMS:
+        return [k for k in F32_TC_BWD if k.endswith(f",{d}>")]
+    return list(F32_WIDE_BWD)
+
+
+def f32_backward_report(fa, path, ptxas, hmma, check):
+    """At each of F32_INSTANCES: the float32 backward's cluster size, the
+    ptxas registers, spills and HMMA count of each kernel that runs there,
+    and the coverage path's float32 backward launches by instantiation.
+    Checks a cluster of 1 CTA up to D = 128 and 2 at 256, no spills (when
+    this run built the library), HMMA in each kernel and every launch
+    counted."""
+    import re
+    lib = fa._lib()
+    for d in F32_INSTANCES:
+        ctas = lib.bps_flash_f32_bwd_cluster(d)
+        kernels = f32_bwd_kernels(d)
+        launched = {f"{n}<f32,{d}>": path.get(f"{n}<f32,{d}>", 0)
+                    for n in RESIDENT[1:] + STREAMING[1:]}
+        print(f"  float32 backward at D {d}: cluster of {ctas} CTA(s); "
+              f"launches {launched}; " + "; ".join(
+                  f"{k} {ptxas.get(k, 'no ptxas report')}, HMMA "
+                  f"{hmma.get(k, 0)}" for k in kernels))
+        check(ctas == (1 if d <= 128 else 2)
+              and all(n > 0 for n in launched.values())
+              and all(hmma.get(k, 0) > 0 for k in kernels)
+              and (not ptxas or all(
+                  re.search(r"\b0 bytes spill stores", ptxas.get(k, ""))
+                  for k in kernels)),
+              f"float32 backward at D {d}: {ctas} CTA(s) a cluster, "
+              f"launches {launched}, kernels {kernels} with HMMA and no "
+              f"spills")
 
 
 def phase_eager(bps, torch, check, grads):
@@ -1828,7 +1892,7 @@ def main() -> int:
     t_start = time.perf_counter()
 
     print("== phase 1: build")
-    phase_build([fa, bp], _build, torch, gpu, check)
+    f32_ptxas, hmma = phase_build([fa, bp], _build, torch, gpu, check)
     print("== phase 2: flash kernels vs plain versions")
     numbers, yardsticks = phase_kernels(fa, torch, check)
     print("== phase 2s: streaming flash kernels vs plain versions")
@@ -1907,6 +1971,7 @@ def main() -> int:
     check(all(path.get(key, 0) > 0 for key in f32_kernels),
           f"the coverage path launched every timed float32 instantiation: "
           f"{ {key: path.get(key, 0) for key in f32_kernels} }")
+    f32_backward_report(fa, path, f32_ptxas, hmma, check)
     new_kernels += f32_kernels
     print("== phase 11: ResNet-50 training through DistributedOptimizer + "
           "build_train_step and through the Horovod face")

@@ -29,14 +29,18 @@ def _qkvdo(device, bh, s, d, dtype):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 8e-3)])
 def test_kernels_match_plain(cuda_device, causal, d, dtype, tol):
     """Each kernel against its plain version run in float32 on the same
-    (dtype-rounded) inputs.  Tolerance relative to the reference's max: a
-    float32 kernel differs only by summation order; a bf16 output also
-    rounds once at 2^-8 relative."""
+    (dtype-rounded) inputs; the float32 backward runs one CTA a tile up to
+    D = 128 and clusters of two at 256.  Tolerance relative to the
+    reference's max: the float32 forward differs only by summation order,
+    the float32 backward also by its 3xTF32 products (about 22 significant
+    bits; the recipe's CPU emulation reads at most 0.22 of this tolerance
+    at these shapes, tests/test_torch_port_flash_f32tc.py); a bf16 output
+    also rounds once at 2^-8 relative."""
     q, k, v, do = _qkvdo(cuda_device, 4, 256, d, dtype)
     f = [t.float() for t in (q, k, v, do)]
     scale = d ** -0.5
@@ -60,6 +64,59 @@ def test_kernels_match_plain(cuda_device, causal, d, dtype, tol):
         err = float((got.float() - ref).abs().max())
         top = float(ref.abs().max())
         assert err <= t * top, f"{name}: max err {err} vs max {top}"
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_f32_backward_repeat_is_bit_identical(cuda_device, monkeypatch, d):
+    """The float32 backward at D = 64 (one CTA a tile) and 256 (clusters of
+    two) takes its sums in a fixed order with no atomics: two calls of each
+    of its four kernels give the same bits, causal and not (3 splits, the
+    last ragged).  With one split the streaming pair gives the resident
+    pair's bits: delta is summed in the same order, and the one partial
+    of each output is added to zero and scaled as the resident kernels
+    scale it."""
+    q, k, v, do = _qkvdo(cuda_device, 3, 320, d, torch.float32)
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, True, scale)
+
+    def backward(causal, streaming):
+        dq_fn, dkv_fn = ((fa.flash_bwd_dq_str, fa.flash_bwd_dkv_str)
+                         if streaming else (fa.flash_bwd_dq, fa.flash_bwd_dkv))
+        dq, delta = dq_fn(q, k, v, o, lse, do, causal, scale)
+        return (dq, delta, *dkv_fn(q, k, v, do, lse, delta, causal, scale))
+
+    for causal in (False, True):
+        monkeypatch.setattr(fa, "_split_len", lambda s: 128)
+        runs = [(*backward(causal, False), *backward(causal, True))
+                for _ in range(2)]
+        monkeypatch.setattr(fa, "_split_len", lambda s: s)
+        one, resident = backward(causal, True), runs[0][:4]
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(*runs)):
+            assert torch.equal(a, b), (causal, i)
+        for i, (a, b) in enumerate(zip(one, resident)):
+            assert torch.equal(a, b), (causal, "one split", i)
+
+
+def test_f32_backward_refuses_misaligned(cuda_device):
+    """The float32 backward copies q, k, v and dO in 16-byte pieces at every
+    head dim: a contiguous view that starts 4 bytes into its storage is
+    refused by both families (D = 64, one CTA, and 256, a cluster), not
+    read wrongly."""
+    for d in (64, 256):
+        flat = torch.zeros(2 * 128 * d + 1, device=cuda_device)
+        q = flat[1:].view(2, 128, d)
+        assert q.is_contiguous() and q.data_ptr() % 16
+        ok = torch.zeros(2, 128, d, device=cuda_device)
+        rows = torch.zeros(2, 128, device=cuda_device)
+        with pytest.raises(RuntimeError, match="misaligned"):
+            fa.flash_bwd_dq(q, ok, ok, ok, rows, ok, True, 0.125)
+        with pytest.raises(RuntimeError, match="misaligned"):
+            fa.flash_bwd_dkv(ok, ok, ok, q, rows, rows, True, 0.125)
+        with pytest.raises(RuntimeError, match="misaligned"):
+            fa.flash_bwd_dq_str(ok, ok, q, ok, rows, ok, False, 0.125)
+        with pytest.raises(RuntimeError, match="misaligned"):
+            fa.flash_bwd_dkv_str(ok, q, ok, ok, rows, rows, False, 0.125)
 
 
 def test_autograd_block_hints(cuda_device):
@@ -150,7 +207,7 @@ def _streaming_vs_plain(q, k, v, do, causal, scale):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 8e-3)])
 @pytest.mark.parametrize("s,split", [(512, 128), (320, 128), (256, 4096)])

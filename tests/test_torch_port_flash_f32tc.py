@@ -1,9 +1,9 @@
-"""The numeric recipe of the float32 flash kernels above D = 256.
+"""The numeric recipe of the float32 flash kernels on the tensor cores.
 
-The CUDA kernels (``fwd_wide_tiles_f32``, ``dq_wide_tiles_f32`` and
-``dkv_wide_tiles_f32`` in ``byteps_tpu_torch/csrc/flash_attention.cu``)
-cannot run on the CPU.  This file keeps a torch emulation of their
-arithmetic:
+The CUDA kernels (``dq_tiles_f32`` and ``dkv_tiles_f32``, the float32
+backward at every head dim, and ``fwd_wide_tiles_f32``, the forward above
+D = 256, in ``byteps_tpu_torch/csrc/flash_attention.cu``) cannot run on the
+CPU.  This file keeps a torch emulation of their arithmetic:
 
   - every product on the tensor cores in 3xTF32: each operand x split as
     hi = tf32(x), lo = tf32(x - hi), with tf32 a round to nearest (ties
@@ -15,9 +15,10 @@ arithmetic:
     into a zeroed accumulator that is added to the sum in float32 (round
     to nearest);
   - the contraction walked in 64-row tile pairs;
-  - per tile pair, S = Q K^T and dP = dO V^T as the sum of the D / 128
-    slices' partials (each slice's CTA contracts over its own 128 columns),
-    added in rank order 0..n-1; P = exp(scale S - LSE), dS = P (dP -
+  - per tile pair, S = Q K^T and dP = dO V^T as the sum of the D / W
+    slices' partials (each slice's CTA contracts over its own W columns,
+    W = min(D, 128): one slice, one CTA, at D <= 128), added in rank
+    order 0..n-1; P = exp(scale S - LSE), dS = P (dP -
     delta); the second products (dS K, P^T dO, dS^T Q) of each tile pair
     added to the output's accumulator 16 rows at a time;
   - in the streaming family, one partial a split, summed in split order;
@@ -30,8 +31,10 @@ arithmetic:
 It is held to ``chip_smoke.py``'s float32 gates, |got - plain| <= 1e-4
 |plain| + 1e-5 for dQ, dK and dV (1e-4 |plain| + 2e-5 for O) and
 1e-5 |plain| + 1e-6 for LSE and delta, against the port's plain versions
-and the JAX package's forward and backward (Pallas interpreter) at D = 384
-and 512.  Four controls: one TF32 rounding of each operand, the usual
+(the backward at D = 16 to 512, and also to the card tests' 1e-5 of the
+largest element at D = 16 to 256) and the JAX package's forward and
+backward (Pallas interpreter; the backward at D = 64 to 512, the forward at
+384 and 512).  Four controls: one TF32 rounding of each operand, the usual
 recipe, misses the same gates in the backward, and in the forward whether
 it is taken for S or for P V; one truncating accumulator for a whole
 128-column chunk (and a whole tile pair) reads several times higher than
@@ -75,11 +78,18 @@ def rz32(x):
     return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
 
 
-# The order of a chunk's columns in the first products' k steps: a lane's
-# 16-byte load holds columns 4t..4t+3 of 16; one k step takes 4t and
-# 4t + 1, the next 4t + 2 and 4t + 3.
-_CHUNK_ORDER = [16 * j + 4 * t + e for j in range(SLICE // 16)
-                for pair in ((0, 1), (2, 3)) for t in range(4) for e in pair]
+def slice_width(d):
+    """W, the columns of a tile a CTA holds at head dim d: all of D up to
+    SLICE (one CTA, no cluster), SLICE above."""
+    return min(d, SLICE)
+
+
+def _chunk_order(w):
+    """The order of a W-column chunk's columns in the first products' k
+    steps: a lane's 16-byte load holds columns 4t..4t+3 of 16; one k step
+    takes 4t and 4t + 1, the next 4t + 2 and 4t + 3."""
+    return [16 * j + 4 * t + e for j in range(w // 16)
+            for pair in ((0, 1), (2, 3)) for t in range(4) for e in pair]
 
 
 class Recipe:
@@ -91,9 +101,10 @@ class Recipe:
 
     def __call__(self, a, b, chunk=False, acc=None):
         """acc + a [..., M, K] @ b [K, N] (b may carry a's leading dims);
-        ``chunk``: K is a 128-column chunk in the first products' order."""
+        ``chunk``: K is a W-column chunk in the first products' order."""
         if chunk:
-            a, b = a[..., _CHUNK_ORDER], b[..., _CHUNK_ORDER, :]
+            order = _chunk_order(a.shape[-1])
+            a, b = a[..., order], b[..., order, :]
         ah, bh = tf32(a), tf32(b)
         parts = [(ah, bh)]
         if self.terms == 3:
@@ -120,8 +131,9 @@ def _tile_pair(qt, kt, dot, vt, q0, k0, lse, delta, causal, scale, mm,
                order=None):
     """P and dS of one tile pair from the slices' partials of S = Q K^T and
     dP = dO V^T, added in rank order (or in ``order``)."""
-    n = qt.shape[-1] // SLICE
-    cols = [slice(j * SLICE, (j + 1) * SLICE) for j in range(n)]
+    w = slice_width(qt.shape[-1])
+    n = qt.shape[-1] // w
+    cols = [slice(j * w, (j + 1) * w) for j in range(n)]
     order = range(n) if order is None else order
     s = dp = None
     for j in order:
@@ -141,7 +153,7 @@ def _visible(q0, k0, causal):
 
 
 def emulate_dq(q, k, v, do, lse, delta, causal, scale, mm=mm3, split=None):
-    """dQ as dq_wide_tiles_f32 computes it: for each q tile, the k tiles in
+    """dQ as dq_tiles_f32 computes it: for each q tile, the k tiles in
     splits of ``split`` tiles (all of them in the resident family), one
     float32 partial a split, the partials summed in split order."""
     s_len = q.shape[1]
@@ -166,7 +178,7 @@ def emulate_dq(q, k, v, do, lse, delta, causal, scale, mm=mm3, split=None):
 
 
 def emulate_dkv(q, k, v, do, lse, delta, causal, scale, mm=mm3, split=None):
-    """dK, dV as dkv_wide_tiles_f32 computes them: the k tile fixed, the q
+    """dK, dV as dkv_tiles_f32 computes them: the k tile fixed, the q
     tiles in splits, P^T dO and dS^T Q of each pair added to dV and dK."""
     s_len = q.shape[1]
     split = split or s_len // TILE
@@ -202,12 +214,13 @@ def emulate_fwd(q, k, v, causal, scale, mm_s=mm3, mm_pv=mm3, split=None):
     (one split: weight exp(0), the resident kernel's arithmetic)."""
     bh, s_len, d = q.shape
     split = split or s_len // TILE
-    n = d // SLICE
+    width = slice_width(d)
+    n = d // width
     o = torch.zeros_like(q)
     lse = torch.zeros(bh, s_len)
     for q0 in range(0, s_len, TILE):
-        # [n, BH, TILE, SLICE]: slice j's columns in row j
-        qs = q[:, q0:q0 + TILE].reshape(bh, TILE, n, SLICE).permute(2, 0, 1,
+        # [n, BH, TILE, W]: slice j's columns in row j
+        qs = q[:, q0:q0 + TILE].reshape(bh, TILE, n, width).permute(2, 0, 1,
                                                                    3)
         parts = []
         for sp0 in range(0, s_len, split * TILE):
@@ -218,7 +231,7 @@ def emulate_fwd(q, k, v, causal, scale, mm_s=mm3, mm_pv=mm3, split=None):
                 if not _visible(q0, k0, causal):
                     continue
                 kt, vt = k[:, k0:k0 + TILE], v[:, k0:k0 + TILE]
-                ks = kt.reshape(bh, TILE, n, SLICE).permute(2, 0, 3, 1)
+                ks = kt.reshape(bh, TILE, n, width).permute(2, 0, 3, 1)
                 partial = mm_s(qs, ks, True)
                 s = partial[0]
                 for j in range(1, n):  # rank order
@@ -259,11 +272,11 @@ def _worst(got, want, tol):
 
 
 @functools.lru_cache(maxsize=None)
-def _case(d, causal, s=256):
-    """float32 [2, s, d] inputs from a seed, the plain forward's O and LSE,
-    delta and the plain backward (dQ, dK, dV)."""
+def _case(d, causal, s=256, bh=2):
+    """float32 [bh, s, d] inputs from a seed, the plain forward's O and
+    LSE, delta and the plain backward (dQ, dK, dV)."""
     rng = np.random.RandomState(d + causal)
-    q, k, v, do = (torch.from_numpy(rng.randn(2, s, d).astype(np.float32))
+    q, k, v, do = (torch.from_numpy(rng.randn(bh, s, d).astype(np.float32))
                    for _ in range(4))
     scale = d ** -0.5
     o, lse = fa.flash_fwd_plain(q, k, v, causal, scale)
@@ -279,12 +292,12 @@ def _gates(got, want):
 
 @pytest.mark.parametrize("streaming", [False, True])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("d", [16, 64, 128, 256, 384, 512])
 def test_recipe_passes_the_f32_gates(d, causal, streaming):
-    """3xTF32 in split-D tile pairs holds dQ, dK and dV to the float32 gate
-    against the plain versions, resident and in splits of two tiles, and
-    delta (float64, rounded once, as the plain version sums it) to the
-    rows gate."""
+    """3xTF32 in tile pairs (one CTA at D <= 128, split-D clusters above)
+    holds dQ, dK and dV to the float32 gate against the plain versions,
+    resident and in splits of two tiles, and delta (float64, rounded once,
+    as the plain version sums it) to the rows gate."""
     (q, k, v, do, o, lse, delta, scale), plain = _case(d, causal)
     split = 2 if streaming else None
     got_delta = (do.double() * o.double()).sum(-1).float()
@@ -294,6 +307,25 @@ def test_recipe_passes_the_f32_gates(d, causal, streaming):
                         split=split))
     worst = _gates(got, plain)
     worst["delta"] = _worst(got_delta, delta, ROWS_GATE)
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_recipe_holds_the_card_tests_tolerance(d, causal, streaming):
+    """At the card tests' shape [4, 256, D] (test_kernels_match_plain and
+    test_streaming_kernels_match_plain, which hold float32 dQ, dK and dV to
+    1e-5 of the plain version's largest element) the recipe stays within
+    that tolerance, resident and in splits of two tiles: the evidence that
+    the kernels can keep it."""
+    (q, k, v, do, _, lse, delta, scale), plain = _case(d, causal, bh=4)
+    split = 2 if streaming else None
+    got = (emulate_dq(q, k, v, do, lse, delta, causal, scale, split=split),
+           *emulate_dkv(q, k, v, do, lse, delta, causal, scale,
+                        split=split))
+    worst = {n: float((g - w).abs().max() / (1e-5 * w.abs().max()))
+             for n, g, w in zip(("dq", "dk", "dv"), got, plain)}
     assert all(w <= 1.0 for w in worst.values()), worst
 
 
@@ -331,7 +363,7 @@ def test_partials_in_another_order_give_other_probabilities():
     its own (rotated order), P and dS would differ between slices."""
     (q, k, v, do, _, lse, delta, scale), _ = _case(512, False)
     qt, kt, dot, vt = (t[:, :TILE] for t in (q, k, do, v))
-    n = q.shape[-1] // SLICE
+    n = q.shape[-1] // slice_width(q.shape[-1])
     rotated = [_tile_pair(qt, kt, dot, vt, 0, 0, lse, delta, False, scale,
                           mm3, order=[(j + r) % n for j in range(n)])
                for r in range(n)]
@@ -341,7 +373,7 @@ def test_partials_in_another_order_give_other_probabilities():
 
 @pytest.mark.parametrize("streaming", [False, True])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("d", [64, 256, 384, 512])
 def test_recipe_matches_jax_backward(d, causal, streaming):
     """At [2, 256, D] float32 the recipe, fed the JAX forward's O and LSE,
     agrees with jax.vjp of the JAX package's flash attention (Pallas
@@ -425,9 +457,32 @@ def test_fwd_recipe_matches_jax_forward(d, causal, streaming):
 
 
 if __name__ == "__main__":
-    # The gate readings, for PERF.md: 3xTF32, one TF32 rounding, and 3xTF32
+    # The gate readings, for PERF.md: the backward at D <= 256 against the
+    # float32 gate and, at [4, 256, D], the card tests' 1e-5 of the largest
+    # element; at D = 384 and 512 3xTF32, one TF32 rounding, and 3xTF32
     # with one truncating accumulator a chunk; the forward's in 3xTF32 and
     # with one TF32 rounding of S or of P V.
+    for d in (16, 32, 64, 128, 256):
+        for causal in (False, True):
+            for split in (None, 2):
+                (q, k, v, do, _, lse, delta, scale), plain = _case(d, causal)
+                got = (emulate_dq(q, k, v, do, lse, delta, causal, scale,
+                                  split=split),
+                       *emulate_dkv(q, k, v, do, lse, delta, causal, scale,
+                                    split=split))
+                gate = _gates(got, plain)
+                (q, k, v, do, _, lse, delta, scale), plain = _case(
+                    d, causal, bh=4)
+                got = (emulate_dq(q, k, v, do, lse, delta, causal, scale,
+                                  split=split),
+                       *emulate_dkv(q, k, v, do, lse, delta, causal, scale,
+                                    split=split))
+                card = {n: float((g - w).abs().max() / (1e-5 * w.abs().max()))
+                        for n, g, w in zip(("dq", "dk", "dv"), got, plain)}
+                print(f"D {d} causal {causal} split {split}: gate",
+                      {n: round(x, 4) for n, x in gate.items()},
+                      "card tolerance",
+                      {n: round(x, 4) for n, x in card.items()})
     for d in (384, 512):
         for causal in (False, True):
             (q, k, v, do, _, lse, delta, scale), plain = _case(d, causal)
