@@ -43,7 +43,7 @@ from .common.api import (
 )
 from .common.fusion import get_stats as get_fusion_stats
 from .ops.compression import Compression
-from .ops import collectives, compressor
+from .ops import collectives, compressor, ring_attention
 from .parallel.data_parallel import DistributedOptimizer, build_train_step
 
 
@@ -74,7 +74,7 @@ __all__ = [
     "get_tuner", "get_hierarchy", "get_autoscaler", "get_fleet",
     "get_device_profile",
     "mark_step", "current_step",
-    "Compression", "collectives", "compressor",
+    "Compression", "collectives", "compressor", "ring_attention",
     "DistributedOptimizer", "build_train_step",
     "models", "callbacks", "utils",
 ]

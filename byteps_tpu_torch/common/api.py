@@ -99,7 +99,7 @@ def init() -> None:
     _state.initialized = True
     get_core().trace_enable(cfg.trace_on and cfg.trace_start_step
                             <= _state.step <= cfg.trace_end_step)
-    set_rank(rank() if size() > 1 else None)
+    set_rank(process_rank() if size() > 1 else None)
     get_logger().info("byteps_tpu_torch initialized: rank=%d/%d "
                       "local_rank=%d", rank(), size(), local_rank())
 
@@ -138,8 +138,18 @@ def resume(num_workers: int, num_servers: int = 0) -> None:
             core.declare_tensor(n)
 
 
-def rank() -> int:
+def process_rank() -> int:
+    """This process's rank in the process group (0 without one)."""
     return dist.get_rank() if is_distributed() else 0
+
+
+def rank() -> int:
+    """The worker's rank: the ``BYTEPS_GLOBAL_RANK`` override first, as in
+    the JAX package, else the process group's rank."""
+    cfg = _state.config or get_config()
+    if cfg.global_rank is not None:
+        return cfg.global_rank
+    return process_rank()
 
 
 def size() -> int:
@@ -201,7 +211,11 @@ def push_pull_async(tensor: torch.Tensor, name: Optional[str] = None,
     t0 = core.trace_now_us()
     wire, ctx = compression.compress(tensor.detach())
     work = None
-    if size() > 1:
+    cfg = _state.config or get_config()
+    if size() > 1 or (cfg.force_distributed and is_distributed()):
+        # BYTEPS_FORCE_DISTRIBUTED takes the real reduce at world 1 too,
+        # the JAX package's test hook; without a process group there is
+        # nothing to reduce over and the tensor stays as it is.
         wire = wire.clone()
         work = dist.all_reduce(wire, async_op=True)
     core.telemetry_record(tensor.numel() * tensor.element_size())

@@ -2,8 +2,9 @@
 
 Counterpart of ``byteps_tpu/common/config.py``: the same variable names and
 defaults, limited to what the port uses so far — the worker bootstrap
-(``DMLC_*``, ``BYTEPS_LOCAL_*``), the bucket size, the eager fusion
-threshold, the async switch, the trace window and the log level.
+(``DMLC_*``, ``BYTEPS_LOCAL_*``), the global-rank override and the
+forced-distributed switch, the bucket size, the eager fusion threshold,
+the async switch, the trace window and the log level.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import os
 from typing import Optional
 
 
-def _env_int(name: str, default: int) -> int:
+def _env_int(name: str, default: Optional[int]) -> Optional[int]:
     v = os.environ.get(name)
     if v is None or v == "":
         return default
@@ -45,6 +46,8 @@ class Config:
     scheduler_port: int = 9000               # DMLC_PS_ROOT_PORT
     local_rank: int = 0                      # BYTEPS_LOCAL_RANK
     local_size: int = 1                      # BYTEPS_LOCAL_SIZE
+    global_rank: Optional[int] = None        # BYTEPS_GLOBAL_RANK override
+    force_distributed: bool = False          # BYTEPS_FORCE_DISTRIBUTED
     partition_bytes: int = 4 * 1024 * 1024   # BYTEPS_PARTITION_BYTES
     fusion_bytes: int = 1024 * 1024          # BYTEPS_TPU_FUSION_BYTES
     enable_async: bool = False               # BYTEPS_ENABLE_ASYNC
@@ -63,6 +66,8 @@ class Config:
             scheduler_port=_env_int("DMLC_PS_ROOT_PORT", 9000),
             local_rank=_env_int("BYTEPS_LOCAL_RANK", 0),
             local_size=_env_int("BYTEPS_LOCAL_SIZE", 1),
+            global_rank=_env_int("BYTEPS_GLOBAL_RANK", None),
+            force_distributed=_env_bool("BYTEPS_FORCE_DISTRIBUTED"),
             partition_bytes=_env_int("BYTEPS_PARTITION_BYTES",
                                      4 * 1024 * 1024),
             fusion_bytes=_env_int("BYTEPS_TPU_FUSION_BYTES", 1024 * 1024),

@@ -99,31 +99,26 @@
 // 20 against 14 in the backward.  mma.sync reaches only part of the card's
 // bf16 peak, which wants wgmma.
 //
-// The float32 backward runs on the tensor cores at every head dim, each
-// operand split into two TF32 parts (3xTF32): single-pass TF32 keeps 10
-// mantissa bits, too few for the float32 tests' 1e-5 of the largest
-// element.  At D <= 128 one CTA holds all of D; at D = 256 and above the
-// D / 128 slices of a tile run as a thread-block cluster (see "the float32
-// backward on the tensor cores" below).  The float32 forward runs so above
-// D = 256 only; at D <= 256 it does its products as float32 FMAs on the
-// CUDA cores (67 TFLOP/s at most), bound in practice by FMA issue and
-// shared-memory bandwidth.
+// The float32 kernels, forward and backward, run on the tensor cores at
+// every head dim, each operand split into two TF32 parts (3xTF32):
+// single-pass TF32 keeps 10 mantissa bits, too few for the float32 tests'
+// 1e-5 of the largest element.  At D <= 128 one CTA holds all of D; at
+// D = 256 and above the D / 128 slices of a tile run as a thread-block
+// cluster (see "the float32 backward on the tensor cores" and "the float32
+// forward on the tensor cores" below).
 //
 // Tiling.  The TPU kernels take one q block of up to 512 rows and keep K/V
 // whole in VMEM.  A 512 x 512 float32 logits tile does not fit in 227 KB of
 // shared memory, so these kernels pick their own tiles: 64 q rows by 64 k
-// rows.  The CUDA-core loop (fwd_tiles, the float32 forward at D <= 256)
-// runs 256 threads, four threads to a row, each thread owning 16 columns
-// of the logits tile and D / 4 columns of the accumulator; at D = 256 it
-// takes the streamed tile 32 rows at a time (sub_rows).  The 16-bit
-// tensor-core loops run 128 threads, each warp owning 16 rows and its
-// accumulators in the MMA layout; dK/dV takes the q tile 32 columns at a
-// time at D = 64 and 16 at D = 128, so that its two D-wide accumulators
-// leave room in the registers.  At D = 256 one warp's O or dQ accumulator
-// alone would be 128 registers a lane, and dK with dV 256, so every
-// tensor-core kernel runs twice over its tiles, once for each 128-column
-// half of its outputs (out_cols), recomputing the first products and the
-// softmax: 8 tensor-core FLOPs per pair and head-dim element in the
+// rows.  The float32 tile loops run 256 threads, eight warps (see their
+// sections).  The 16-bit tensor-core loops run 128 threads, each warp
+// owning 16 rows and its accumulators in the MMA layout; dK/dV takes the q
+// tile 32 columns at a time at D = 64 and 16 at D = 128, so that its two
+// D-wide accumulators leave room in the registers.  At D = 256 one warp's
+// O or dQ accumulator alone would be 128 registers a lane, and dK with dV
+// 256, so every 16-bit kernel runs twice over its tiles, once for each
+// 128-column half of its outputs (out_cols), recomputing the first
+// products and the softmax: 8 tensor-core FLOPs per pair and head-dim element in the
 // forward instead of 6, 28 instead of 20 in the backward.  Causal masking
 // skips tiles above the diagonal (the loop bound) and masks inside the
 // diagonal tile, with global positions, as _causal_mask does.  Both
@@ -193,136 +188,6 @@ __device__ __forceinline__ float row_max(float x) {
   return x;
 }
 
-// Rows of the streamed K/V tile that the CUDA-core forward takes at a
-// time: the whole 64-row tile up to D = 128, half of it at D = 256 (74 KB
-// less shared memory a CTA).
-template <int D>
-__host__ __device__ constexpr int sub_rows() {
-  return D > 128 ? kTile / 2 : kTile;
-}
-
-// Copy the contiguous [R, D] tile at `src` into shared float32 with a
-// padded row of D + 1 floats (so that the four lanes of a row, and the rows
-// of a warp, read different banks), multiplied by `scale`.
-template <typename T, int D, int R = kTile>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          float scale) {
-  for (int i = threadIdx.x; i < R * D; i += kThreads) {
-    dst[(i / D) * (D + 1) + (i % D)] = to_f32(src[i]) * scale;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The float32 forward's tile loop, shared by both families.  `k` and `v`
-// point at one (batch*head)'s [S, D] rows.  Each 64-row tile of the loop
-// is taken in sub-tiles of KT = sub_rows<D>() rows, and the probabilities
-// tile is [kTile][KT + 1].
-// ---------------------------------------------------------------------------
-
-// Online softmax of the q tile `qt` (in `qs`, pre-scaled by sm_scale) over
-// the k tiles [kt0, kt1), as _online_step: running max m, running sum l,
-// float32 accumulator.
-template <typename T, int D>
-__device__ __forceinline__ void fwd_tiles(const float* qs, float* ks,
-                                          float* vs, float* ps, const T* k,
-                                          const T* v, int qt, int kt0,
-                                          int kt1, int causal, float& m,
-                                          float& l,
-                                          float (&acc)[D / kLanes]) {
-  constexpr int ld = D + 1;
-  constexpr int KT = sub_rows<D>();
-  constexpr int cols = KT / kLanes;  // logits columns per thread
-  constexpr int pld = KT + 1;
-  const int r = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
-  for (int kt = kt0; kt < kt1; ++kt) {
-    for (int h = 0; h < kTile; h += KT) {
-      __syncthreads();  // every thread is done with the previous K/V tile
-      load_tile<T, D, KT>(ks, k + ((size_t)kt * kTile + h) * D, 1.f);
-      load_tile<T, D, KT>(vs, v + ((size_t)kt * kTile + h) * D, 1.f);
-      __syncthreads();
-
-      float s[cols];
-#pragma unroll
-      for (int j = 0; j < cols; ++j) s[j] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float qv = qs[r * ld + d];
-#pragma unroll
-        for (int j = 0; j < cols; ++j) s[j] += qv * ks[(c + kLanes * j) * ld + d];
-      }
-      if (causal && kt == qt) {
-#pragma unroll
-        for (int j = 0; j < cols; ++j)
-          if (h + c + kLanes * j > r) s[j] = -INFINITY;
-      }
-      // The first sub-tile of the range holds a key every row sees, so m
-      // is finite from then on and a wholly masked sub-tile adds nothing.
-      float mx = m;
-#pragma unroll
-      for (int j = 0; j < cols; ++j) mx = fmaxf(mx, s[j]);
-      mx = row_max(mx);
-      const float alpha = expf(m - mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < cols; ++j) {
-        const float p = expf(s[j] - mx);
-        ps[r * pld + c + kLanes * j] = p;
-        rs += p;
-      }
-      l = l * alpha + row_sum(rs);
-      m = mx;
-#pragma unroll
-      for (int i = 0; i < D / kLanes; ++i) acc[i] *= alpha;
-      __syncwarp();  // a row's probabilities are written and read by one warp
-      for (int j = 0; j < KT; ++j) {
-        const float p = ps[r * pld + j];
-#pragma unroll
-        for (int i = 0; i < D / kLanes; ++i) acc[i] += p * vs[j * ld + c + kLanes * i];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K/V-resident family: one block per (tile, bh), over the whole range.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int seq, float scale,
-                     int causal) {
-  constexpr int ld = D + 1;
-  extern __shared__ float smem[];
-  constexpr int KT = sub_rows<D>();  // rows of a streamed sub-tile
-  float* qs = smem;                 // [kTile][ld], pre-scaled by sm_scale
-  float* ks = qs + kTile * ld;      // [KT][ld]
-  float* vs = ks + KT * ld;         // [KT][ld]
-  float* ps = vs + KT * ld;         // [kTile][KT + 1] probabilities
-
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int r = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
-  const size_t base = (size_t)bh * seq * D;
-
-  load_tile<T, D>(qs, q + base + (size_t)qt * kTile * D, scale);
-
-  float m = -INFINITY;
-  float l = 0.f;
-  float acc[D / kLanes];
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) acc[i] = 0.f;
-  fwd_tiles<T, D>(qs, ks, vs, ps, k + base, v + base, qt, 0,
-                  causal ? qt + 1 : seq / kTile, causal, m, l, acc);
-
-  const int row = qt * kTile + r;
-  T* orow = o + base + (size_t)row * D;
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) orow[c + kLanes * i] = from_f32<T>(acc[i] / l);
-  if (c == 0) lse[(size_t)bh * seq + row] = m + logf(l);
-}
-
 // ---------------------------------------------------------------------------
 // Streaming family.  Grid (tiles, splits, BH); `split` is in tiles.  The
 // partials of split j for row `row` of head `bh` sit at index
@@ -344,52 +209,6 @@ __device__ __forceinline__ void live_splits(int qt, int nsplit, int split,
   if (causal) {
     if (upper) j0 = qt / split;
     else j1 = min(nsplit, qt / split + 1);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_str_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, float* __restrict__ m_ws,
-                         float* __restrict__ l_ws,
-                         float* __restrict__ acc_ws, int seq, int split,
-                         float scale, int causal) {
-  const int num_t = seq / kTile;
-  const int qt = num_t - 1 - blockIdx.x;  // causal: the longest rows first
-  const int sp = blockIdx.y;
-  const int bh = blockIdx.z;
-  const int kt0 = sp * split;
-  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
-  if (kt0 >= kt1) return;  // dead pair: every key after every query
-
-  constexpr int ld = D + 1;
-  extern __shared__ float smem[];
-  constexpr int KT = sub_rows<D>();  // rows of a streamed sub-tile
-  float* qs = smem;
-  float* ks = qs + kTile * ld;
-  float* vs = ks + KT * ld;
-  float* ps = vs + KT * ld;
-
-  const int r = threadIdx.x / kLanes;
-  const int c = threadIdx.x % kLanes;
-  const size_t base = (size_t)bh * seq * D;
-  load_tile<T, D>(qs, q + base + (size_t)qt * kTile * D, scale);
-
-  float m = -INFINITY;
-  float l = 0.f;
-  float acc[D / kLanes];
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) acc[i] = 0.f;
-  fwd_tiles<T, D>(qs, ks, vs, ps, k + base, v + base, qt, kt0, kt1, causal,
-                  m, l, acc);
-
-  const size_t at = ws_row(sp, bh, gridDim.z, seq, qt * kTile + r);
-  float* arow = acc_ws + at * D;
-#pragma unroll
-  for (int i = 0; i < D / kLanes; ++i) arow[c + kLanes * i] = acc[i];
-  if (c == 0) {
-    m_ws[at] = m;
-    l_ws[at] = l;
   }
 }
 
@@ -1317,7 +1136,7 @@ __global__ void __launch_bounds__(kMmaThreads, mma_ctas<kFwdCtas>(D))
   }
 }
 
-// Streaming forward: grid (tiles, splits, BH) as flash_fwd_str_kernel; the
+// Streaming forward: grid (tiles, splits, BH), one split a CTA; the
 // same float32 (m, l, acc) partials, m in natural units, for
 // flash_fwd_str_merge_kernel.
 template <typename T16, int D>
@@ -1961,7 +1780,6 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 constexpr int kTcThreads = 256;                 // 8 warps
 constexpr int kTcWarps = kTcThreads / 32;
 constexpr int kSplitCtas = 8;                   // portable cluster size
-constexpr int kChunkFloats = kTile * kWide;     // one 64 x 128 chunk
 
 // Exchange rows an owner takes in a cluster of c CTAs.
 __host__ __device__ constexpr int split_rows(int c) {
@@ -1979,9 +1797,10 @@ __host__ __device__ constexpr size_t f32_bwd_smem(int c, int tiles) {
           tiles * kTile * kTile) * sizeof(float);
 }
 
-// CTAs an SM the float32 backward without a cluster is compiled for
-// (__launch_bounds__): two up to W = 64, one at W = 128.
-__host__ __device__ constexpr int f32_bwd_ctas(int w) {
+// CTAs an SM the float32 kernels without a cluster (the forward and the
+// backward at D <= 128) are compiled for (__launch_bounds__): two up to
+// W = 64, one at W = 128.
+__host__ __device__ constexpr int f32_tc_ctas(int w) {
   return w <= 64 ? 2 : 1;
 }
 
@@ -2721,7 +2540,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads, f32_bwd_ctas(D))
+__global__ void __launch_bounds__(kTcThreads, f32_tc_ctas(D))
     flash_bwd_dq_tc_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
@@ -2750,7 +2569,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads, f32_bwd_ctas(D))
+__global__ void __launch_bounds__(kTcThreads, f32_tc_ctas(D))
     flash_bwd_dq_str_tc_kernel(const float* __restrict__ q,
                                const float* __restrict__ k,
                                const float* __restrict__ v,
@@ -2779,7 +2598,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads, f32_bwd_ctas(D))
+__global__ void __launch_bounds__(kTcThreads, f32_tc_ctas(D))
     flash_bwd_dkv_tc_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
@@ -2809,7 +2628,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 }
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads, f32_bwd_ctas(D))
+__global__ void __launch_bounds__(kTcThreads, f32_tc_ctas(D))
     flash_bwd_dkv_str_tc_kernel(const float* __restrict__ q,
                                 const float* __restrict__ k,
                                 const float* __restrict__ v,
@@ -2824,58 +2643,86 @@ __global__ void __launch_bounds__(kTcThreads, f32_bwd_ctas(D))
                             seq, D, split, scale, causal);
 }
 
-// ---- the float32 forward at a wide D: split-D clusters, 3xTF32 -----------
-// flash_fwd_wide_kernel and flash_fwd_str_wide_kernel replace the TPU
-// kernels _fwd_kernel_res (:142) and _fwd_kernel_str (:221) of
-// byteps_tpu/ops/flash_attention.py in float32 above D = 256.  What bounds
-// them is the products: 4 FLOPs per visible (q, k) pair and head-dim
-// element, 0.16 ms at the 3xTF32 ceiling for [128, 512, 384] causal,
-// against 0.12 ms of bytes.
+// ---- the float32 forward on the tensor cores: 3xTF32 ----------------------
+// flash_fwd_tc_kernel<D> and flash_fwd_str_tc_kernel<D> (D = 16, 32, 64 and
+// 128) and flash_fwd_wide_kernel and flash_fwd_str_wide_kernel (D = 256 and
+// above) replace the TPU kernels _fwd_kernel_res (:142) and _fwd_kernel_str
+// (:221) of byteps_tpu/ops/flash_attention.py in float32.  What bounds them
+// is the products: 4 FLOPs per visible (q, k) pair and head-dim element,
+// 0.026 ms at the 3xTF32 ceiling for [128, 512, 64] causal and 0.16 ms for
+// [128, 512, 384], against 0.020 and 0.12 ms of bytes.
 //
-// The backward's design (the section above) with S alone: the n = D / 128
-// slices of a q tile run as one cluster of split_ctas(D) CTAs, each CTA
-// contracts S = Q K^T over its own 128 columns, and pushes its partial
-// rows to their owners (row r to rank r / R); the owner adds the partials
-// in rank order, so every CTA applies the same bits, masks, and takes the
-// online-softmax step of its rows: m' = max(m, scale S), alpha =
-// exp(m - m'), P = exp(scale S - m'), l' = alpha l + rowsum(P), with m and
-// l of its rows kept in its own shared memory.  It pushes P, alpha and l'
-// to every CTA of the cluster, and each CTA rescales its O accumulator by
-// alpha and adds P V over its own columns.  P V runs one tile behind, so
-// one cluster barrier a tile pair brings both this tile's partials to
-// their owners and the last tile's P to every CTA (the backward takes
-// two; see fwd_wide_tiles_f32; with two the forward ran 5-7% slower, and
-// one slice a CTA recomputing S over all of D without a cluster
-// 1.65-2.1x slower, PERF.md).  After the last k tile every CTA holds l of
-// every row: the resident kernel writes O / l and the owners LSE =
-// m + log l; the streaming one writes (m, l, acc) to the workspaces, which
-// the merge pass reads as before.  The products are 3xTF32 with a zeroed
-// partial every 16 contraction elements (mma3_abt, mma3_xb); P lies in
-// [0, 1] and still enters as a hi/lo pair, which the float32 gate needs
-// (tests/test_torch_port_flash_f32tc.py emulates the recipe).
+// The backward's design (the section above) with S alone, one tile loop
+// for every width (fwd_tiles_f32, templated on the slice width W and on
+// kCluster).  From D = 256, W = 128 and the n = D / 128 slices of a q tile
+// run as one cluster of split_ctas(D) CTAs: each CTA contracts S = Q K^T
+// over its own 128 columns and pushes its partial rows to their owners
+// (row r to rank r / R); the owner adds the partials in rank order, so
+// every CTA applies the same bits, masks, and takes the online-softmax
+// step of its rows: m' = max(m, scale S), alpha = exp(m - m'),
+// P = exp(scale S - m'), l' = alpha l + rowsum(P), with m and l of its rows
+// kept in its own shared memory.  It pushes P, alpha and l' to every CTA of
+// the cluster, and each CTA rescales its O accumulator by alpha and adds
+// P V over its own columns.  At D <= 128, W = D and one CTA a q tile holds
+// all of D: its warps' S blocks are the whole sums, it stores them to a
+// swizzled 64 x 64 tile of its own shared memory, and takes the step of
+// every row itself (owner_step with one CTA), turning S into P in place.
+//
+// P V runs one tile behind, so one barrier a tile pair (the cluster's, or
+// without one the CTA's) brings both this tile's S to the rows' owners and
+// the last tile's P, alpha and l to every warp (the backward takes two;
+// see fwd_tiles_f32; with two cluster barriers the wide forward ran 5-7%
+// slower, and one slice a CTA recomputing S over all of D without a
+// cluster 1.65-2.1x slower, PERF.md).  A CTA barrier after the streamed
+// chunks land comes on top.  Without a cluster one barrier a pair would
+// need a third stage of the S/P tile and a second of K, 129.5 KB at
+// W = 64: one CTA an SM, which with two barriers measured 1.16-1.17x
+// slower at D = 64 (scripts/flash_f32_fwd_ab.py, variant ctas1).  After
+// the last k tile every CTA holds l of every row: the resident kernel
+// writes O / l and the owners LSE = m + log l; the streaming one writes
+// (m, l, acc) to the workspaces, which the merge pass reads.  The
+// products are 3xTF32 with a zeroed partial every 16 contraction elements
+// (mma3_abt, mma3_xb); P lies in [0, 1] and still enters as a hi/lo pair,
+// which the float32 gate needs (tests/test_torch_port_flash_f32tc.py
+// emulates the recipe).
 //
 // Eight warps: warp w takes rows 16 (w & 3) of the tile pair and keys
-// 32 (w >> 2) of S, then the same rows and 64 of the slice's columns of O
-// (32 accumulators a thread).  With one slice a CTA (D <= 1024) the Q
-// chunk stays for the whole k loop, and the next K and V come in by
-// cp.async while the exchange and the products run (Q and K 64 KB, two
-// stages of V 64 KB, of P 32 KB and of the exchange rows 32-35 KB:
-// 193.5-196.5 KB, one CTA an SM).  Above 8 slices a CTA takes ceil(n / 8),
-// loads them one at a time and runs the tile loop once for each slice it
+// 32 (w >> 2) of S, then the same rows and W / 2 of the slice's columns of
+// O (W / 4 accumulators a thread, 32 at W = 128).  With one slice a CTA the
+// Q chunk stays for the whole k loop, and the next K and V come in by
+// cp.async while the exchange and the products run: Q and K, two stages of
+// V and of P, in a cluster two stages of the exchange rows (193.5-196.5 KB
+// at W = 128, one CTA an SM); without one, 97.5 KB at W = 64 and 161.5 KB
+// at W = 128, two CTAs an SM up to W = 64 (f32_tc_ctas); D = 128 as a
+// cluster of one CTA, with exchange rows of its own, ran 1.10x slower
+// (variant cluster128).  Above 8 slices a CTA takes ceil(n / 8), loads
+// them one at a time and runs the tile loop once for each slice it
 // outputs, as the backward does.
 // ---------------------------------------------------------------------------
 
-// Shared memory of the float32 wide forward in a cluster of c CTAs: two
-// stages of (alpha, l) of every row, m and l of the owned rows, the Q and
-// K chunks, two stages of the V chunk, of the P tile and of the exchange
-// rows (c slots of R rows).
-__host__ __device__ constexpr size_t wide_fwd_smem(int c) {
-  return (6 * kTile + 4 * kChunkFloats + 2 * kTile * kTile +
-          2 * c * split_rows(c) * kTile) * sizeof(float);
+// Shared memory of the float32 forward at slice width W: two stages of
+// (alpha, l) of every row, m and l of the owned rows, the Q and K chunks,
+// two stages of the V chunk and of the P tile, and in a cluster of c CTAs
+// two stages of the exchange rows (c slots of R rows).  Without a cluster
+// S is stored into the P tile's stage and turned into P there.
+template <int W, bool kCluster>
+__host__ __device__ constexpr size_t f32_fwd_smem(int c) {
+  return (6 * kTile + 4 * kTile * W + 2 * kTile * kTile +
+          (kCluster ? 2 * c * split_rows(c) * kTile : 0)) * sizeof(float);
 }
 
-// Push the warps' partial S blocks (rows 16 (warp & 3), keys 32 (warp >> 2))
-// to their rows' owners, into slot `rank` of the owners' exchange rows.
+// The barrier of a tile pair's exchange: the cluster's, or the CTA's.
+template <bool kCluster>
+__device__ __forceinline__ void exchange_sync() {
+  if constexpr (kCluster) cluster_sync();
+  else __syncthreads();
+}
+
+// Put the warps' partial S blocks (rows 16 (warp & 3), keys 32 (warp >> 2))
+// into slot `rank` of their rows' owners' exchange rows: in a cluster by
+// distributed shared memory, without one into the CTA's own S tile (one
+// slot of all 64 rows).
+template <bool kCluster>
 __device__ __forceinline__ void push_partials(const float (&s)[4][4],
                                               float* ex, int rank, int c) {
   const int R = split_rows(c);
@@ -2886,21 +2733,26 @@ __device__ __forceinline__ void push_partials(const float (&s)[4][4],
     const int row = 16 * (warp & 3) + g + 8 * h;
     const int owner = row / R;
     const int slot_row = rank * R + row - owner * R;
-    const uint32_t s_at = cluster_addr(smem_addr(ex), owner);
 #pragma unroll
-    for (int n = 0; n < 4; ++n)
-      st_cluster2(s_at + 4u * (uint32_t)swz(
-                             slot_row, 32 * (warp >> 2) + 8 * n + 2 * t, kTile),
-                  s[n][2 * h], s[n][2 * h + 1]);
+    for (int n = 0; n < 4; ++n) {
+      const int at = swz(slot_row, 32 * (warp >> 2) + 8 * n + 2 * t, kTile);
+      if constexpr (kCluster)
+        st_cluster2(cluster_addr(smem_addr(ex), owner) + 4u * (uint32_t)at,
+                    s[n][2 * h], s[n][2 * h + 1]);
+      else
+        store2(ex + at, s[n][2 * h], s[n][2 * h + 1]);
+    }
   }
 }
 
-// The owner's step of one tile pair (q tile qt, k tile kt), the cluster's
-// partials in `ex`: adds them in rank order, masks, takes the
-// online-softmax step of its rows (their m and l in `ml`, pairs by owned
-// row) and writes P (`pt`, a swizzled [kTile][kTile] tile) and (alpha, l)
-// of each row (`al`, pairs by row) into every CTA of the cluster.  A half
-// warp takes a row, 4 keys a lane.
+// The owner's step of one tile pair (q tile qt, k tile kt), the partials
+// in `ex`: adds them in rank order, masks, takes the online-softmax step of
+// its rows (their m and l in `ml`, pairs by owned row) and writes P (`pt`,
+// a swizzled [kTile][kTile] tile) and (alpha, l) of each row (`al`, pairs
+// by row) into every CTA of the cluster, or without one into its own
+// memory (there `ex` may be `pt`: each lane overwrites the S it read).  A
+// half warp takes a row, 4 keys a lane.
+template <bool kCluster>
 __device__ __forceinline__ void owner_step(const float* ex, float* pt,
                                            float* al, float* ml, int qt,
                                            int kt, int causal, float scale,
@@ -2953,52 +2805,68 @@ __device__ __forceinline__ void owner_step(const float* ex, float* pt,
         ml[2 * lr] = mx;
         ml[2 * lr + 1] = l;
       }
-      const uint32_t p_at = smem_addr(pt) + 4u * (uint32_t)swz(row, col,
-                                                               kTile);
-      const uint32_t a_at = smem_addr(al + 2 * row);
-      for (int j = 0; j < c; ++j) {
-        st_cluster4(cluster_addr(p_at, j),
-                    make_float4(p[0], p[1], p[2], p[3]));
-        if (lead) st_cluster2(cluster_addr(a_at, j), alpha, l);
+      const int p_at = swz(row, col, kTile);
+      if constexpr (kCluster) {
+        for (int j = 0; j < c; ++j) {
+          st_cluster4(cluster_addr(smem_addr(pt) + 4u * (uint32_t)p_at, j),
+                      make_float4(p[0], p[1], p[2], p[3]));
+          if (lead)
+            st_cluster2(cluster_addr(smem_addr(al + 2 * row), j), alpha, l);
+        }
+      } else {
+        *reinterpret_cast<float4*>(pt + p_at) =
+            make_float4(p[0], p[1], p[2], p[3]);
+        if (lead) {
+          al[2 * row] = alpha;
+          al[2 * row + 1] = l;
+        }
       }
     }
   }
 }
 
-// O of the q tile `qt` over the k tiles [kt0, kt1) at a wide D in float32,
-// this CTA's slices of it (see the section's note).  `out` is the tile's
-// first row (row stride d).  Resident (`lse` set): O / l, and the owners
-// write LSE of their rows to lse; streaming: the unnormalised acc, and the
-// owners m and l to m_out and l_out (the tile's first row each).
+// O of the q tile `qt` over the k tiles [kt0, kt1) in float32 at slice
+// width W, this CTA's slices of it (see the section's note).  `out` is the
+// tile's first row (row stride d).  Resident (`lse` set): O / l, and the
+// owners write LSE of their rows to lse; streaming: the unnormalised acc,
+// and the owners m and l to m_out and l_out (the tile's first row each).
 //
-// One cluster barrier a tile pair: step i pushes tile kt0 + i's partials,
+// One exchange barrier a tile pair: step i puts tile kt0 + i's partials,
 // waits at the barrier, then (the owners) takes that tile's softmax step
 // and applies the previous tile's P: P V runs one tile behind, so the
 // barrier that brings this tile's partials to their owners also brings
-// the previous tile's P, alpha and l to every CTA.  The exchange rows, P,
-// (alpha, l) and V have two stages, by the parity of the tile; K one, as
-// its products are issued before the barrier after which the next K loads.
-__device__ __forceinline__ void fwd_wide_tiles_f32(
+// the previous tile's P, alpha and l to every warp.  P, (alpha, l), V and
+// in a cluster the exchange rows have two stages, by the parity of the
+// tile; K one, as its products are issued before the barrier after which
+// the next K loads.  Without a cluster S lies in P's stage: the CTA
+// barrier after the chunks land keeps tile i's S from the warps still
+// applying tile i - 2's P there, where the cluster's exchange rows need
+// their own stages (another CTA's partials can arrive while this CTA still
+// reads the last ones).
+template <int W, bool kCluster>
+__device__ __forceinline__ void fwd_tiles_f32(
     float* smem, const float* q, const float* k, const float* v, int d,
     int qt, int kt0, int kt1, int causal, float scale, float* out,
     float* lse, float* m_out, float* l_out) {
-  const int c = cluster_size(), rank = cluster_rank();
+  constexpr int kChunk = kTile * W;
+  constexpr int NB = W / 16;       // n8 blocks of the warp's O columns
+  const int c = ctas<kCluster>(), rank = cta_rank<kCluster>();
   float* al = smem;                // (alpha, l) of every row, two stages
   float* ml = al + 4 * kTile;      // m and l of the owned rows
   float* qc = ml + 2 * kTile;
-  float* kc = qc + kChunkFloats;
-  float* vc = kc + kChunkFloats;   // two stages
-  float* pt = vc + 2 * kChunkFloats;  // two stages
-  float* ex = pt + 2 * kTile * kTile;  // two stages
+  float* kc = qc + kChunk;
+  float* vc = kc + kChunk;         // two stages
+  float* pt = vc + 2 * kChunk;     // two stages
   const int R = split_rows(c);
-  const int ex_stage = c * R * kTile;
+  float* ex = kCluster ? pt + 2 * kTile * kTile : pt;  // two stages
+  const int ex_stage = kCluster ? c * R * kTile : kTile * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2;
-  const int rw = 16 * (warp & 3);   // the warp's rows
-  const int kh = 32 * (warp >> 2);  // its keys of S
-  const int oh = 64 * (warp >> 2);  // its columns of the output slice
-  const int n = d / kWide;
-  const int spc = (n + c - 1) / c;  // slices a CTA outputs
+  const int rw = 16 * (warp & 3);      // the warp's rows
+  const int kh = 32 * (warp >> 2);     // its keys of S
+  const int oh = W / 2 * (warp >> 2);  // its columns of the output slice
+  const int n = d / W;
+  const int spc = kCluster ? (n + c - 1) / c : 1;  // slices a CTA outputs
   const int own0 = rank * R;
   const int nown = max(0, min(kTile, own0 + R) - own0);
   const int nt = kt1 - kt0;
@@ -3010,12 +2878,13 @@ __device__ __forceinline__ void fwd_wide_tiles_f32(
       ml[2 * r + 1] = 0.f;
     }
     if (n == c) {
-      chunk_f32_async<kWide>(qc, q + qo + jo * kWide, d);
-      chunk_f32_async<kWide>(kc, k + (size_t)kt0 * kTile * d + jo * kWide, d);
+      chunk_f32_async<W>(qc, q + qo + jo * W, d);
+      chunk_f32_async<W>(kc, k + (size_t)kt0 * kTile * d + jo * W, d);
       cp_async_commit();
     }
-    cluster_sync();  // the cluster runs before any store reaches a CTA
-    float acc[8][4];
+    // the cluster runs before any store reaches a CTA
+    if constexpr (kCluster) cluster_sync();
+    float acc[NB][4];
     zero(acc);
     for (int i = 0; i <= nt; ++i) {  // the last step only applies P
       const int kt = kt0 + i;
@@ -3027,42 +2896,42 @@ __device__ __forceinline__ void fwd_wide_tiles_f32(
         float s[4][4];
         zero(s);
         if (n == c) {
-          mma3_abt<kWide, 4, true>(s, qc, rw, kc, kh, lane);
+          mma3_abt<W, 4, true>(s, qc, rw, kc, kh, lane);
         } else {
           for (int j = rank; j < n; j += c) {
             __syncthreads();
-            chunk_f32_async<kWide>(qc, q + qo + j * kWide, d);
-            chunk_f32_async<kWide>(kc, k + ko + j * kWide, d);
+            chunk_f32_async<W>(qc, q + qo + j * W, d);
+            chunk_f32_async<W>(kc, k + ko + j * W, d);
             cp_async_commit();
             cp_async_wait_all();
             __syncthreads();
-            mma3_abt<kWide, 4, true>(s, qc, rw, kc, kh, lane);
+            mma3_abt<W, 4, true>(s, qc, rw, kc, kh, lane);
           }
         }
-        push_partials(s, ex + b * ex_stage, rank, c);
+        push_partials<kCluster>(s, ex + b * ex_stage, rank, c);
       }
-      cluster_sync();  // tile kt's partials at their owners, tile kt - 1's
-                       // P, alpha and l in every CTA
+      exchange_sync<kCluster>();  // tile kt's S at its owners, tile
+                                  // kt - 1's P, alpha and l at every warp
       if (i < nt) {
         if (jo < n)
-          chunk_f32_async<kWide>(vc + b * kChunkFloats, v + ko + jo * kWide,
-                                 d);
+          chunk_f32_async<W>(vc + b * kChunk, v + ko + jo * W, d);
         if (n == c && i + 1 < nt)
-          chunk_f32_async<kWide>(kc, k + ko + kTile * d + jo * kWide, d);
+          chunk_f32_async<W>(kc, k + ko + kTile * d + jo * W, d);
         cp_async_commit();
-        owner_step(ex + b * ex_stage, pt + b * kTile * kTile,
-                   al + b * 2 * kTile, ml, qt, kt, causal, scale, rank, c);
+        owner_step<kCluster>(ex + b * ex_stage, pt + b * kTile * kTile,
+                             al + b * 2 * kTile, ml, qt, kt, causal, scale,
+                             rank, c);
       }
       if (i > 0 && jo < n) {  // P V of tile kt - 1, stage b ^ 1
         const float* alp = al + (b ^ 1) * 2 * kTile;
         const float a0 = alp[2 * (rw + g)], a8 = alp[2 * (rw + g + 8)];
 #pragma unroll
-        for (int u = 0; u < 8; ++u) {
+        for (int u = 0; u < NB; ++u) {
           acc[u][0] *= a0, acc[u][1] *= a0;
           acc[u][2] *= a8, acc[u][3] *= a8;
         }
-        mma3_xb<kWide, false, 8>(acc, pt + (b ^ 1) * kTile * kTile, rw,
-                          vc + (b ^ 1) * kChunkFloats, oh, lane);
+        mma3_xb<W, false, NB>(acc, pt + (b ^ 1) * kTile * kTile, rw,
+                              vc + (b ^ 1) * kChunk, oh, lane);
       }
     }
     if (jo < n) {
@@ -3070,12 +2939,12 @@ __device__ __forceinline__ void fwd_wide_tiles_f32(
         const float* alp = al + ((nt - 1) & 1) * 2 * kTile;
         const float l0 = alp[2 * (rw + g) + 1], l8 = alp[2 * (rw + g + 8) + 1];
 #pragma unroll
-        for (int u = 0; u < 8; ++u) {
+        for (int u = 0; u < NB; ++u) {
           acc[u][0] /= l0, acc[u][1] /= l0;
           acc[u][2] /= l8, acc[u][3] /= l8;
         }
       }
-      store_tc_rows(out, d, rw, jo * kWide + oh, acc, 1.f);
+      store_tc_rows(out, d, rw, jo * W + oh, acc, 1.f);
     }
     if (pass == 0 && threadIdx.x < nown) {
       const int r = own0 + threadIdx.x;
@@ -3092,6 +2961,43 @@ __device__ __forceinline__ void fwd_wide_tiles_f32(
 
 // Resident forward: grid x is the q tiles (the longest causal rows first)
 // times the cluster's CTAs.
+template <int W, bool kCluster>
+__device__ __forceinline__ void fwd_f32(float* smem, const float* q,
+                                        const float* k, const float* v,
+                                        float* o, float* lse, int seq, int d,
+                                        float scale, int causal) {
+  const int qt = seq / kTile - 1 - (int)blockIdx.x / ctas<kCluster>();
+  const size_t row0 = (size_t)blockIdx.y * seq + qt * kTile;
+  const size_t base = (size_t)blockIdx.y * seq * d;
+  fwd_tiles_f32<W, kCluster>(smem, q + base, k + base, v + base, d, qt, 0,
+                             causal ? qt + 1 : seq / kTile, causal, scale,
+                             o + row0 * d, lse + row0, nullptr, nullptr);
+}
+
+template <int W, bool kCluster>
+__device__ __forceinline__ void fwd_str_f32(float* smem, const float* q,
+                                            const float* k, const float* v,
+                                            float* m_ws, float* l_ws,
+                                            float* acc_ws, int seq, int d,
+                                            int split, float scale,
+                                            int causal) {
+  const int num_t = seq / kTile;
+  const int qt = num_t - 1 - (int)blockIdx.x / ctas<kCluster>();
+  const int sp = blockIdx.y;
+  const int bh = blockIdx.z;
+  const int kt0 = sp * split;
+  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
+  if (kt0 >= kt1) return;  // dead pair, for the whole cluster
+
+  const size_t base = (size_t)bh * seq * d;
+  const size_t at = ws_row(sp, bh, gridDim.z, seq, qt * kTile);
+  fwd_tiles_f32<W, kCluster>(smem, q + base, k + base, v + base, d, qt, kt0,
+                             kt1, causal, scale, acc_ws + at * d, nullptr,
+                             m_ws + at, l_ws + at);
+}
+
+// The kernels: at a wide D (256 and above, D at run time) the clusters of
+// split_ctas(D) CTAs, W = 128; at D <= 128 one CTA a tile, W = D.
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_fwd_wide_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -3099,12 +3005,18 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                           float* __restrict__ lse, int seq, int d,
                           float scale, int causal) {
   extern __shared__ __align__(16) float tc_smem[];
-  const int qt = seq / kTile - 1 - (int)blockIdx.x / cluster_size();
-  const size_t row0 = (size_t)blockIdx.y * seq + qt * kTile;
-  const size_t base = (size_t)blockIdx.y * seq * d;
-  fwd_wide_tiles_f32(tc_smem, q + base, k + base, v + base, d, qt, 0,
-                     causal ? qt + 1 : seq / kTile, causal, scale,
-                     o + row0 * d, lse + row0, nullptr, nullptr);
+  fwd_f32<kWide, true>(tc_smem, q, k, v, o, lse, seq, d, scale, causal);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, f32_tc_ctas(D))
+    flash_fwd_tc_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int seq, float scale,
+                        int causal) {
+  extern __shared__ __align__(16) float tc_smem[];
+  fwd_f32<D, false>(tc_smem, q, k, v, o, lse, seq, D, scale, causal);
 }
 
 __global__ void __launch_bounds__(kTcThreads, 1)
@@ -3115,20 +3027,23 @@ __global__ void __launch_bounds__(kTcThreads, 1)
                               float* __restrict__ l_ws,
                               float* __restrict__ acc_ws, int seq, int d,
                               int split, float scale, int causal) {
-  const int num_t = seq / kTile;
-  const int qt = num_t - 1 - (int)blockIdx.x / cluster_size();
-  const int sp = blockIdx.y;
-  const int bh = blockIdx.z;
-  const int kt0 = sp * split;
-  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
-  if (kt0 >= kt1) return;  // dead pair, for the whole cluster
-
   extern __shared__ __align__(16) float tc_smem[];
-  const size_t base = (size_t)bh * seq * d;
-  const size_t at = ws_row(sp, bh, gridDim.z, seq, qt * kTile);
-  fwd_wide_tiles_f32(tc_smem, q + base, k + base, v + base, d, qt, kt0, kt1,
-                     causal, scale, acc_ws + at * d, nullptr, m_ws + at,
-                     l_ws + at);
+  fwd_str_f32<kWide, true>(tc_smem, q, k, v, m_ws, l_ws, acc_ws, seq, d,
+                           split, scale, causal);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, f32_tc_ctas(D))
+    flash_fwd_str_tc_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            float* __restrict__ m_ws,
+                            float* __restrict__ l_ws,
+                            float* __restrict__ acc_ws, int seq, int split,
+                            float scale, int causal) {
+  extern __shared__ __align__(16) float tc_smem[];
+  fwd_str_f32<D, false>(tc_smem, q, k, v, m_ws, l_ws, acc_ws, seq, D, split,
+                        scale, causal);
 }
 
 // ---- the streaming passes at a wide D: grid x is the row tiles times the
@@ -3218,15 +3133,6 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // Host side: shared-memory sizes, launches, dtype/head-dim dispatch.
 // ---------------------------------------------------------------------------
-// Shared memory of the CUDA-core forward: the q tile (kTile rows of D + 1
-// floats), the streamed K/V sub-tiles (KT rows) and the [kTile][KT + 1]
-// probabilities tile.
-template <int D>
-constexpr size_t fwd_smem() {
-  constexpr int KT = sub_rows<D>();
-  return ((kTile + 2 * KT) * (D + 1) + kTile * (KT + 1)) * sizeof(float);
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
@@ -3234,9 +3140,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// bf16 and float16 kernels run on the tensor cores; float32 ones in 3xTF32
-// (the backward at every D, the forward above D = 256), the float32
-// forward at D <= 256 on the CUDA cores (see the header).
+// bf16 and float16 kernels run on the tensor cores in 16-bit; float32 ones
+// in 3xTF32 (see the header).
 template <typename T>
 constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value ||
                               std::is_same<T, __half>::value;
@@ -3281,8 +3186,8 @@ cudaError_t launch_split(void (*kernel)(Params...), dim3 grid, int ctas,
   return cudaGetLastError();
 }
 
-// Launchers at a wide head dim (above 256, a multiple of kWide; and the
-// float32 backward at D = 256): the same work as the launchers below, D a
+// Launchers at a wide head dim (above 256, a multiple of kWide; and
+// float32 at D = 256): the same work as the launchers below, D a
 // run-time argument, kWide-column output passes in grid x (float32: the
 // clusters of split_ctas CTAs).
 template <typename T>
@@ -3299,9 +3204,9 @@ cudaError_t launch_fwd_wide(int d, const void* q, const void* k,
   } else {
     const int ctas = split_ctas(d);
     return launch_split(flash_fwd_wide_kernel, dim3(seq / kTile * ctas, bh),
-                        ctas, wide_fwd_smem(ctas), stream, (const float*)q,
-                        (const float*)k, (const float*)v, (float*)o, lse,
-                        seq, d, scale, causal);
+                        ctas, f32_fwd_smem<kWide, true>(ctas), stream,
+                        (const float*)q, (const float*)k, (const float*)v,
+                        (float*)o, lse, seq, d, scale, causal);
   }
   return cudaGetLastError();
 }
@@ -3378,8 +3283,9 @@ cudaError_t launch_fwd_str_wide(int d, const void* q, const void* k,
     const int ctas = split_ctas(d);
     BPS_RETURN_IF_ERROR(launch_split(
         flash_fwd_str_wide_kernel, dim3(num_t * ctas, nsplit, bh), ctas,
-        wide_fwd_smem(ctas), stream, (const float*)q, (const float*)k,
-        (const float*)v, m_ws, l_ws, acc_ws, seq, d, split, scale, causal));
+        f32_fwd_smem<kWide, true>(ctas), stream, (const float*)q,
+        (const float*)k, (const float*)v, m_ws, l_ws, acc_ws, seq, d, split,
+        scale, causal));
   }
   flash_fwd_str_merge_wide_kernel<T>
       <<<dim3(num_t * npass, bh), kThreads, 0, stream>>>(
@@ -3460,9 +3366,9 @@ cudaError_t launch_dkv_str_wide(int d, const void* q, const void* k,
   return cudaGetLastError();
 }
 
-// The smallest head dim whose float32 backward runs as clusters of
-// split_ctas(D) CTAs (the wide kernels, W = kWide); below it one CTA holds
-// all of D (the *_tc_kernel<D> instances, W = D).
+// The smallest head dim whose float32 kernels (forward and backward) run
+// as clusters of split_ctas(D) CTAs (the wide kernels, W = kWide); below it
+// one CTA holds all of D (the *_tc_kernel<D> instances, W = D).
 constexpr int kF32ClusterMin = 256;
 
 template <typename T, int D>
@@ -3476,13 +3382,16 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
         <<<dim3(seq / kTile, bh), kMmaThreads, smem, stream>>>(
             (const T*)q, (const T*)k, (const T*)v, (T*)o, lse,
             seq, scale, causal);
+  } else if constexpr (D >= kF32ClusterMin) {
+    return launch_fwd_wide<float>(D, q, k, v, o, lse, bh, seq, scale, causal,
+                                  stream);
   } else {
-    const size_t smem = fwd_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_kernel<T, D>, smem));
-    flash_fwd_kernel<T, D>
-        <<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, scale,
-            causal);
+    const size_t smem = f32_fwd_smem<D, false>(1);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_tc_kernel<D>, smem));
+    flash_fwd_tc_kernel<D>
+        <<<dim3(seq / kTile, bh), kTcThreads, smem, stream>>>(
+            (const float*)q, (const float*)k, (const float*)v, (float*)o,
+            lse, seq, scale, causal);
   }
   return cudaGetLastError();
 }
@@ -3556,13 +3465,16 @@ cudaError_t launch_fwd_str(const void* q, const void* k, const void* v,
         <<<dim3(num_t, nsplit, bh), kMmaThreads, smem, stream>>>(
             (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws,
             acc_ws, seq, split, scale, causal);
+  } else if constexpr (D >= kF32ClusterMin) {
+    return launch_fwd_str_wide<float>(D, q, k, v, o, lse, m_ws, l_ws, acc_ws,
+                                      bh, seq, scale, causal, split, stream);
   } else {
-    const size_t smem = fwd_smem<D>();
-    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_kernel<T, D>, smem));
-    flash_fwd_str_kernel<T, D>
-        <<<dim3(num_t, nsplit, bh), kThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq,
-            split, scale, causal);
+    const size_t smem = f32_fwd_smem<D, false>(1);
+    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_tc_kernel<D>, smem));
+    flash_fwd_str_tc_kernel<D>
+        <<<dim3(num_t, nsplit, bh), kTcThreads, smem, stream>>>(
+            (const float*)q, (const float*)k, (const float*)v, m_ws, l_ws,
+            acc_ws, seq, split, scale, causal);
   }
   BPS_RETURN_IF_ERROR(cudaGetLastError());
   flash_fwd_str_merge_kernel<T, D><<<dim3(num_t, bh), kThreads, 0, stream>>>(
@@ -3654,11 +3566,9 @@ bool shape_ok(int bh, int seq) {
   return bh >= 1 && bh <= 65535 && seq >= kTile && seq % kTile == 0;
 }
 
-// The tensor-core kernels (dtype 1 and 2, the float32 backward at every D
-// and the float32 forward above D = 256) copy q, k, v, dO, LSE and delta in
-// 16-byte pieces (cp.async).
-bool aligned16(bool copies, std::initializer_list<const void*> ptrs) {
-  if (!copies) return true;
+// Every kernel that reads q, k, v and dO (every dtype and head dim) copies
+// them, and dK/dV also LSE and delta, in 16-byte pieces (cp.async).
+bool aligned16(std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return false;
   return true;
@@ -3710,7 +3620,7 @@ extern "C" int bps_flash_fwd(const void* q, const void* k, const void* v,
                              int head_dim, int dtype, float scale, int causal,
                              void* stream) {
   if (!shape_ok(bh, seq)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype != 0 || head_dim > 256, {q, k, v}))
+  if (!aligned16({q, k, v}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_fwd, dtype, head_dim, q, k, v, o, lse, bh, seq, scale,
                causal, (cudaStream_t)stream);
@@ -3722,7 +3632,7 @@ extern "C" int bps_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int bh, int seq, int head_dim, int dtype,
                                 float scale, int causal, void* stream) {
   if (!shape_ok(bh, seq)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(true, {q, k, v, dout}))
+  if (!aligned16({q, k, v, dout}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dq, dtype, head_dim, q, k, v, o, dout, lse, dq, delta,
                bh, seq, scale, causal, (cudaStream_t)stream);
@@ -3734,8 +3644,7 @@ extern "C" int bps_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int bh, int seq, int head_dim, int dtype,
                                  float scale, int causal, void* stream) {
   if (!shape_ok(bh, seq)) return (int)cudaErrorInvalidValue;
-  if (!aligned16(true,
-                 {q, k, v, dout, lse, delta}))
+  if (!aligned16({q, k, v, dout, lse, delta}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dkv, dtype, head_dim, q, k, v, dout, lse, delta, dk,
                dv, bh, seq, scale, causal, (cudaStream_t)stream);
@@ -3751,7 +3660,7 @@ extern "C" int bps_flash_fwd_str(const void* q, const void* k, const void* v,
                                  int causal, int split, void* stream) {
   if (!shape_ok(bh, seq) || !split_ok(seq, split))
     return (int)cudaErrorInvalidValue;
-  if (!aligned16(dtype != 0 || head_dim > 256, {q, k, v}))
+  if (!aligned16({q, k, v}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_fwd_str, dtype, head_dim, q, k, v, o, lse, m_ws, l_ws,
                acc_ws, bh, seq, scale, causal, split, (cudaStream_t)stream);
@@ -3766,7 +3675,7 @@ extern "C" int bps_flash_bwd_dq_str(const void* q, const void* k,
                                     void* stream) {
   if (!shape_ok(bh, seq) || !split_ok(seq, split))
     return (int)cudaErrorInvalidValue;
-  if (!aligned16(true, {q, k, v, dout}))
+  if (!aligned16({q, k, v, dout}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dq_str, dtype, head_dim, q, k, v, o, dout, lse, dq,
                delta, dq_ws, bh, seq, scale, causal, split,
@@ -3782,19 +3691,18 @@ extern "C" int bps_flash_bwd_dkv_str(const void* q, const void* k,
                                      int causal, int split, void* stream) {
   if (!shape_ok(bh, seq) || !split_ok(seq, split))
     return (int)cudaErrorInvalidValue;
-  if (!aligned16(true,
-                 {q, k, v, dout, lse, delta}))
+  if (!aligned16({q, k, v, dout, lse, delta}))
     return (int)cudaErrorMisalignedAddress;
   BPS_DISPATCH(launch_dkv_str, dtype, head_dim, q, k, v, dout, lse, delta,
                dk, dv, dk_ws, dv_ws, bh, seq, scale, causal, split,
                (cudaStream_t)stream);
 }
 
-// CTAs of one cluster of the float32 backward at `head_dim`: 1 below
-// kF32ClusterMin, where one CTA holds all of D and no cluster is launched,
-// else split_ctas(D), as for the float32 forward above D = 256; 0 for a head
-// dim the kernels do not take.
-extern "C" int bps_flash_f32_bwd_cluster(int head_dim) {
+// CTAs of one cluster of the float32 kernels (forward and backward) at
+// `head_dim`: 1 below kF32ClusterMin, where one CTA holds all of D and no
+// cluster is launched, else split_ctas(D); 0 for a head dim the kernels do
+// not take.
+extern "C" int bps_flash_f32_cluster(int head_dim) {
   if (head_dim < kF32ClusterMin)
     return head_dim == 16 || head_dim == 32 || head_dim == 64 ||
                    head_dim == 128

@@ -38,8 +38,11 @@ def _map(fn, tree: Tree) -> Tree:
 
 
 def _world(rank: Optional[int], size: Optional[int]):
-    from ..common.api import rank as _rank, size as _size
-    return (_rank() if rank is None else rank,
+    # The process group's rank, not ``rank()``: the BYTEPS_GLOBAL_RANK
+    # override can diverge from it, and global_batch_from_local assembles
+    # in process-group order, as the JAX package slices by process index.
+    from ..common.api import process_rank, size as _size
+    return (process_rank() if rank is None else rank,
             _size() if size is None else size)
 
 

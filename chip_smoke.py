@@ -12,10 +12,10 @@ Phases, each of which must pass:
    the library's SASS (cuobjdump): every bf16 and float16 instantiation of
    the two forward and four backward kernels, at every head dim (16, 32,
    64, 128, 256) and of the wide kernels (D above 256), must have them, and
-   so must every float32 backward kernel (3xTF32: the 16 instantiations at
-   D = 16-128, one CTA a tile, and the four wide kernels, clusters, which
-   also run D = 256) and the two float32 wide forward kernels; no float32
-   forward instantiation at D <= 256 may (the CUDA cores).  The float32
+   so must every float32 kernel, 3xTF32: the 8 forward and 16 backward
+   instantiations at D = 16-128 (one CTA a tile), the only float32
+   instantiations the library holds, and the two wide forward and four
+   wide backward kernels (clusters), which also run D = 256.  The float32
    tensor-core kernels must spill nothing; their ptxas registers and the
    cluster size at each head dim are printed.
 2. Hold each flash kernel against its plain PyTorch version on the card:
@@ -94,8 +94,8 @@ Phases, each of which must pass:
    and holds O, dQ, dK and dV to the elementwise gates against the plain
    versions: float16 to its own step (2^-10 |plain| + 1e-5), which a
    control (the inputs rounded to bf16 through the bf16 kernels) must
-   miss; 16-bit cases also print the most rounding steps apart where the
-   gate's relative term rules.
+   miss; float32 to 1e-4 |plain| + 1e-5; 16-bit cases also print the most
+   rounding steps apart where the gate's relative term rules.
 8. Three training steps of a 2-layer transformer at bert_base width with
    8 heads of 96 (padded to 128), seq 512, batch 8, in bf16 and then in
    float16: finite, falling losses, 4/2/2 resident launches a step.
@@ -116,14 +116,15 @@ Phases, each of which must pass:
    printed beside it), its TFLOP/s and SDPA's
    forward and backward, naming the SDPA backend that ran.  Every timed
    instantiation must have been launched by the coverage run.  Then the
-   float32 instantiations <f32,64> and <f32,256> timed the same way, at the
-   flagship shape and at [16, 8192, D], beside SDPA (launched by phase 7),
-   with the float32 backward's cluster size, each of its kernels' ptxas
-   registers, spills and HMMA count at those two head dims: no spills,
-   HMMA in each, a cluster of 1 CTA at D = 64 and 2 at 256, and every
-   float32 backward launch of phase 7 at those head dims counted by
+   float32 instantiations <f32,64>, <f32,128> and <f32,256> timed the same
+   way, at the flagship shape and at [16, 8192, D], beside SDPA (launched
+   by phase 7), with the float32 forward's and backward's cluster size,
+   each of their kernels' ptxas registers, spills and HMMA count at those
+   head dims, and the forward's times beside its bound and SDPA's: no
+   spills, HMMA in each, a cluster of 1 CTA up to D = 128 and 2 at 256, and
+   every float32 launch of phase 7 at those head dims counted by
    instantiation (phase 1's census leaves the library no other float32
-   backward kernel for them to reach).
+   kernel for them to reach).
 11. ResNet-50 (224 x 224 x 3, 1000 classes, float32, batch 64, one fixed
    synthetic batch, cuDNN deterministic, no TF32): 5 steps of SGD (lr 0.1,
    momentum 0.9) through DistributedOptimizer + build_train_step with
@@ -213,12 +214,14 @@ F32_WIDE_BWD = ("flash_bwd_dq_wide_kernel<f32>",
                 "flash_bwd_dkv_wide_kernel<f32>",
                 "flash_bwd_dkv_str_wide_kernel<f32>")
 F32_WIDE = F32_WIDE_FWD + F32_WIDE_BWD
-# The float32 backward at D <= 128: one CTA a tile, 3xTF32.
+# The float32 forward and backward at D <= 128: one CTA a tile, 3xTF32.
 F32_TC_DIMS = (16, 32, 64, 128)
+F32_TC_FWD = tuple(f"flash_fwd{k}_tc_kernel<f32,{d}>"
+                   for k in ("", "_str") for d in F32_TC_DIMS)
 F32_TC_BWD = tuple(f"flash_bwd_{k}_tc_kernel<f32,{d}>"
                    for k in ("dq", "dq_str", "dkv", "dkv_str")
                    for d in F32_TC_DIMS)
-F32_INSTANCES = (64, 256)
+F32_INSTANCES = (64, 128, 256)
 # bench.py's CNN row: ResNet-50, 224 x 224 x 3, 1000 classes, float32,
 # batch 64, SGD lr 0.1 momentum 0.9, 5 steps on one fixed batch.
 CNN = dict(name="resnet50", image=224, classes=1000, batch=64, lr=0.1,
@@ -435,6 +438,7 @@ def phase_build(mods, build_mod, torch, gpu, check):
               f"(want {want})")
         for what, names in (("wide forward", F32_WIDE_FWD),
                             ("wide backward", F32_WIDE_BWD),
+                            ("forward (D <= 128)", F32_TC_FWD),
                             ("backward (D <= 128)", F32_TC_BWD)):
             check(all(re.search(r"\b0 bytes spill stores", f32.get(k, ""))
                       for k in names),
@@ -442,10 +446,10 @@ def phase_build(mods, build_mod, torch, gpu, check):
                   f"kernels: " + "; ".join(
                       f"{k} {f32.get(k, 'not built')}" for k in names))
     lib = mods[0]._lib()
-    lib.bps_flash_f32_bwd_cluster.argtypes = [ctypes.c_int]
-    print("  float32 backward cluster (CTAs) by head dim (the wide "
-          "forward's above 256): " + ", ".join(
-              f"D {d}: {lib.bps_flash_f32_bwd_cluster(d)}"
+    lib.bps_flash_f32_cluster.argtypes = [ctypes.c_int]
+    print("  float32 cluster (CTAs, forward and backward) by head dim: "
+          + ", ".join(
+              f"D {d}: {lib.bps_flash_f32_cluster(d)}"
               for d in (16, 32, 64, 128, 256, 384, 512, 640, 768, 896, 1024,
                         1152)))
     counts = hmma_census(build_mod, build_mod.build(mods[0].SOURCE),
@@ -491,10 +495,9 @@ def hmma_census(build_mod, lib, n_dims, check):
     library's SASS (cuobjdump): every bf16 and float16 instantiation of the
     forward (resident, streaming) and backward (dQ, dK/dV of both families)
     kernels, at each of the ``n_dims`` head dims, has them; so does every
-    float32 backward kernel (3xTF32; the instantiations at D <= 128 are all
-    the float32 backward ones, D = 256 runs the wide kernels), and no
-    float32 forward one at D <= 256 does; above D = 256 the float32
-    forward has them too; the merge and sum passes are not counted.
+    float32 forward and backward kernel (3xTF32; the instantiations at
+    D <= 128 are all the float32 ones, D = 256 runs the wide kernels, as
+    every D above it does); the merge and sum passes are not counted.
     Returns the counts by kernel."""
     import re
     cuobjdump = os.path.join(os.path.dirname(build_mod.nvcc_path()),
@@ -511,11 +514,12 @@ def hmma_census(build_mod, lib, n_dims, check):
             counts[label] += 1
     print("  HMMA per kernel (SASS): " + ", ".join(
         f"{k} {n}" for k, n in sorted(counts.items()) if "flash" in k))
-    for what, prefixes, n in (
-            ("forward", ("flash_fwd_kernel", "flash_fwd_mma_kernel",
-                         "flash_fwd_str_kernel", "flash_fwd_str_mma_kernel"),
-             2 * n_dims),
-            ("backward", ("flash_bwd_dq", "flash_bwd_dkv"), 4 * n_dims)):
+    for what, prefixes, n, f32_want in (
+            ("forward", ("flash_fwd_mma_kernel", "flash_fwd_str_mma_kernel",
+                         "flash_fwd_tc_kernel", "flash_fwd_str_tc_kernel"),
+             2 * n_dims, F32_TC_FWD),
+            ("backward", ("flash_bwd_dq", "flash_bwd_dkv"), 4 * n_dims,
+             F32_TC_BWD)):
         kernels = [k for k in counts
                    if k.startswith(prefixes) and "_wide" not in k]
         tc = [k for k in kernels if "bf16" in k or "f16" in k]
@@ -524,17 +528,11 @@ def hmma_census(build_mod, lib, n_dims, check):
               f"SASS: HMMA in all {len(tc)} bf16 and float16 {what} "
               f"instantiations (min "
               f"{min((counts[k] for k in tc), default=0)}; want {2 * n})")
-        if what == "forward":
-            check(len(f32) == n and not any(counts[k] for k in f32),
-                  f"SASS: no HMMA in the {len(f32)} float32 forward "
-                  f"instantiations at D <= 256 (want {n}: the CUDA cores)")
-        else:
-            check(sorted(f32) == sorted(F32_TC_BWD)
-                  and all(counts[k] > 0 for k in f32),
-                  f"SASS: HMMA in every float32 backward instantiation, "
-                  f"all of them the 3xTF32 kernels at D <= 128 ("
-                  + ", ".join(f"{k} {counts[k]}" for k in sorted(f32))
-                  + ")")
+        check(sorted(f32) == sorted(f32_want)
+              and all(counts[k] > 0 for k in f32),
+              f"SASS: HMMA in every float32 {what} instantiation, all of "
+              f"them the 3xTF32 kernels at D <= 128 ("
+              + ", ".join(f"{k} {counts[k]}" for k in sorted(f32)) + ")")
     wide = [k for k in counts if "_wide" in k and not any(
         s in k for s in ("merge", "delta", "sum_splits"))]
     tc = [k for k in wide if "bf16" in k or "f16" in k]
@@ -1388,7 +1386,7 @@ def cover_case(fa, tfm, torch, check, gen, dtype, shape, force_streaming):
         o_p, lse_p = fwd_p(qf, kf, vf, True, scale)
         dq_r, delta_r = dq_p(qf, kf, vf, of, lse_p, dof, True, scale)
         dk_r, dv_r = dkv_p(qf, kf, vf, dof, lse_p, delta_r, True, scale)
-    o_gate, g_gate = {torch.float32: ((1e-4, 2e-5), F32_GATE),
+    o_gate, g_gate = {torch.float32: (F32_GATE, F32_GATE),
                       torch.bfloat16: (BF16_GATE, BF16_GATE),
                       torch.float16: (FP16_GATE, FP16_GATE)}[dtype]
     got = [("O", of, o_p), ("dQ", fold(grads[0]), dq_r),
@@ -1618,7 +1616,7 @@ def phase_wide(fa, tfm, torch, check):
             want[key] = want.get(key, 0) + 1
     got = {k: n for k, n in launches.items() if k.startswith("flash_fwd")
            and "<f32," in k}
-    ctas = {k: fa._lib().bps_flash_f32_bwd_cluster(
+    ctas = {k: fa._lib().bps_flash_f32_cluster(
         int(k.split(",")[1][:-1])) for k in got}
     check(got == want,
           "float32 wide forward launches by instantiation " + ", ".join(
@@ -1627,40 +1625,63 @@ def phase_wide(fa, tfm, torch, check):
     return launches
 
 
-def f32_bwd_kernels(d):
-    """The float32 backward kernels (SASS labels) that run at head dim d."""
+def f32_kernels(d, direction):
+    """The float32 forward or backward kernels (SASS labels) that run at
+    head dim d."""
     if d in F32_TC_DIMS:
-        return [k for k in F32_TC_BWD if k.endswith(f",{d}>")]
-    return list(F32_WIDE_BWD)
+        names = F32_TC_FWD if direction == "forward" else F32_TC_BWD
+        return [k for k in names if k.endswith(f",{d}>")]
+    return list(F32_WIDE_FWD if direction == "forward" else F32_WIDE_BWD)
 
 
-def f32_backward_report(fa, path, ptxas, hmma, check):
-    """At each of F32_INSTANCES: the float32 backward's cluster size, the
-    ptxas registers, spills and HMMA count of each kernel that runs there,
-    and the coverage path's float32 backward launches by instantiation.
-    Checks a cluster of 1 CTA up to D = 128 and 2 at 256, no spills (when
-    this run built the library), HMMA in each kernel and every launch
-    counted."""
+def f32_report(fa, path, ptxas, hmma, numbers, yard, check):
+    """At each of F32_INSTANCES, for the float32 forward and backward: the
+    cluster size, the ptxas registers, spills and HMMA count of each
+    kernel that runs there, and the coverage path's launches by
+    instantiation; the forward's times (phase 10's ``numbers``) beside its
+    bound and SDPA's forward, the backward pair's beside SDPA's backward
+    (``yard``).  Checks a cluster of 1 CTA up to D = 128 and 2 at 256, no
+    spills (when this run built the library), HMMA in each kernel and
+    every launch counted."""
     import re
     lib = fa._lib()
     for d in F32_INSTANCES:
-        ctas = lib.bps_flash_f32_bwd_cluster(d)
-        kernels = f32_bwd_kernels(d)
-        launched = {f"{n}<f32,{d}>": path.get(f"{n}<f32,{d}>", 0)
-                    for n in RESIDENT[1:] + STREAMING[1:]}
-        print(f"  float32 backward at D {d}: cluster of {ctas} CTA(s); "
-              f"launches {launched}; " + "; ".join(
-                  f"{k} {ptxas.get(k, 'no ptxas report')}, HMMA "
-                  f"{hmma.get(k, 0)}" for k in kernels))
-        check(ctas == (1 if d <= 128 else 2)
-              and all(n > 0 for n in launched.values())
-              and all(hmma.get(k, 0) > 0 for k in kernels)
-              and (not ptxas or all(
-                  re.search(r"\b0 bytes spill stores", ptxas.get(k, ""))
-                  for k in kernels)),
-              f"float32 backward at D {d}: {ctas} CTA(s) a cluster, "
-              f"launches {launched}, kernels {kernels} with HMMA and no "
-              f"spills")
+        ctas = lib.bps_flash_f32_cluster(d)
+        for direction, names in (("forward", (RESIDENT[0], STREAMING[0])),
+                                 ("backward", RESIDENT[1:] + STREAMING[1:])):
+            kernels = f32_kernels(d, direction)
+            launched = {f"{n}<f32,{d}>": path.get(f"{n}<f32,{d}>", 0)
+                        for n in names}
+            print(f"  float32 {direction} at D {d}: cluster of {ctas} "
+                  f"CTA(s); launches {launched}; " + "; ".join(
+                      f"{k} {ptxas.get(k, 'no ptxas report')}, HMMA "
+                      f"{hmma.get(k, 0)}" for k in kernels))
+            check(ctas == (1 if d <= 128 else 2)
+                  and all(n > 0 for n in launched.values())
+                  and all(hmma.get(k, 0) > 0 for k in kernels)
+                  and (not ptxas or all(
+                      re.search(r"\b0 bytes spill stores", ptxas.get(k, ""))
+                      for k in kernels)),
+                  f"float32 {direction} at D {d}: {ctas} CTA(s) a cluster, "
+                  f"launches {launched}, kernels {kernels} with HMMA and no "
+                  f"spills")
+        for name, shape in ((RESIDENT[0], FLAGSHIP),
+                            (STREAMING[0], WIDE_LONG)):
+            got = numbers[f"{name}<f32,{d}>"]
+            bh, s = shape["batch"] * shape["heads"], shape["seq"]
+            print(f"  float32 forward {name}<f32,{d}> [{bh},{s},{d}] "
+                  f"causal: {got['ms']:.4f} ms "
+                  f"({tflops(name, bh, s, d, True, got['ms']):.2f} TFLOP/s), "
+                  f"bound {got['bound_ms']:.4f} ms "
+                  f"({got['ms'] / got['bound_ms']:.1f}x), SDPA forward "
+                  f"{got['library_ms']:.4f} ms "
+                  f"({got['ms'] / got['library_ms']:.2f}x)")
+        for names, where in ((RESIDENT, "flagship"), (STREAMING, "long")):
+            pair = sum(numbers[f"{n}<f32,{d}>"]["ms"] for n in names[1:])
+            sdpa = yard[f"sdpa_backward_ms<f32,{d},{where}>"]
+            print(f"  float32 backward pair {names[1]} + {names[2]} "
+                  f"<f32,{d}>: {pair:.4f} ms, SDPA backward {sdpa:.4f} ms "
+                  f"({pair / sdpa:.2f}x)")
 
 
 def phase_eager(bps, torch, check, grads):
@@ -1971,7 +1992,7 @@ def main() -> int:
     check(all(path.get(key, 0) > 0 for key in f32_kernels),
           f"the coverage path launched every timed float32 instantiation: "
           f"{ {key: path.get(key, 0) for key in f32_kernels} }")
-    f32_backward_report(fa, path, f32_ptxas, hmma, check)
+    f32_report(fa, path, f32_ptxas, hmma, numbers, yardsticks, check)
     new_kernels += f32_kernels
     print("== phase 11: ResNet-50 training through DistributedOptimizer + "
           "build_train_step and through the Horovod face")

@@ -40,40 +40,46 @@ VARIANTS = {
     # each CTA contracts S over all of D itself (D / 128 times the shipped
     # S products) and owns all 64 rows of its softmax
     "recompute": [
-        ("  const int c = cluster_size(), rank = cluster_rank();\n"
+        ("  const int c = ctas<kCluster>(), rank = cta_rank<kCluster>();\n"
          "  float* al = smem;",
          "  const int c = 1, rank = 0;\n  float* al = smem;"),
-        ("  const int spc = (n + c - 1) / c;  // slices a CTA outputs",
+        ("  const int spc = kCluster ? (n + c - 1) / c : 1;  // slices a CTA "
+         "outputs",
          "  const int spc = 1;"),
         ("    const int jo = rank + pass * c;  // the slice this pass "
          "writes (if < n)",
          "    const int jo = (int)blockIdx.x % n;"),
-        ("(int)blockIdx.x / cluster_size();\n  const size_t row0",
-         "(int)blockIdx.x / (d / kWide);\n  const size_t row0"),
-        ("(int)blockIdx.x / cluster_size();\n  const int sp = blockIdx.y;\n"
+        ("(int)blockIdx.x / ctas<kCluster>();\n  const size_t row0",
+         "(int)blockIdx.x / (d / W);\n  const size_t row0"),
+        ("(int)blockIdx.x / ctas<kCluster>();\n  const int sp = blockIdx.y;\n"
          "  const int bh = blockIdx.z;\n  const int kt0 = sp * split;\n"
          "  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);\n"
-         "  if (kt0 >= kt1) return;  // dead pair, for the whole cluster",
-         "(int)blockIdx.x / (d / kWide);\n  const int sp = blockIdx.y;\n"
+         "  if (kt0 >= kt1) return;  // dead pair, for the whole cluster\n\n"
+         "  const size_t base = (size_t)bh * seq * d;\n"
+         "  const size_t at = ws_row(",
+         "(int)blockIdx.x / (d / W);\n  const int sp = blockIdx.y;\n"
          "  const int bh = blockIdx.z;\n  const int kt0 = sp * split;\n"
          "  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);\n"
-         "  if (kt0 >= kt1) return;"),
+         "  if (kt0 >= kt1) return;\n\n"
+         "  const size_t base = (size_t)bh * seq * d;\n"
+         "  const size_t at = ws_row("),
         ("launch_split(flash_fwd_wide_kernel, dim3(seq / kTile * ctas, bh),\n"
-         "                        ctas, wide_fwd_smem(ctas),",
+         "                        ctas, f32_fwd_smem<kWide, true>(ctas),",
          "launch_split(flash_fwd_wide_kernel,\n"
          "                        dim3(seq / kTile * (d / kWide), bh),\n"
-         "                        1, wide_fwd_smem(1),"),
+         "                        1, f32_fwd_smem<kWide, true>(1),"),
         ("flash_fwd_str_wide_kernel, dim3(num_t * ctas, nsplit, bh), ctas,\n"
-         "        wide_fwd_smem(ctas),",
+         "        f32_fwd_smem<kWide, true>(ctas),",
          "flash_fwd_str_wide_kernel, dim3(num_t * npass, nsplit, bh), 1,\n"
-         "        wide_fwd_smem(1),")],
+         "        f32_fwd_smem<kWide, true>(1),")],
     # a timing probe, wrong results: the exchange without its cluster
     # barrier (one cluster barrier before a CTA's stores and exit)
     "nobar": [
-        ("      cluster_sync();  // tile kt's partials at their owners",
+        ("      exchange_sync<kCluster>();  // tile kt's S at its owners",
          "      __syncthreads();  //"),
         ("    if (jo < n) {\n      if (lse) {",
-         "    cluster_sync();\n    if (jo < n) {\n      if (lse) {")],
+         "    if constexpr (kCluster) cluster_sync();\n"
+         "    if (jo < n) {\n      if (lse) {")],
 }
 
 

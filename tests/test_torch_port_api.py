@@ -267,6 +267,80 @@ def _free_port():
         return s.getsockname()[1]
 
 
+def test_global_rank_override_leaves_data_slicing_on_the_process(
+        monkeypatch):
+    """BYTEPS_GLOBAL_RANK overrides rank() in both packages; the data
+    helpers still slice by the process's own rank (0 here), as the
+    reference slices by process index, and without the variable rank()
+    is the process's again."""
+    from byteps_tpu.utils import data as jdata
+    from byteps_tpu_torch.utils import data as tdata
+    x = np.arange(16, dtype=np.float32).reshape(8, 2)
+    monkeypatch.setenv("BYTEPS_GLOBAL_RANK", "3")
+    jbps.init()
+    bps.init()
+    try:
+        assert bps.rank() == jbps.rank() == 3
+        want = np.asarray(jdata.host_shard(jnp.asarray(x), size=4))
+        got = tdata.host_shard(torch.from_numpy(x), size=4)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(want, x[:2])
+    finally:
+        bps.shutdown()
+        jbps.shutdown()
+    monkeypatch.delenv("BYTEPS_GLOBAL_RANK")
+    jbps.init()
+    bps.init()
+    try:
+        assert bps.rank() == jbps.rank() == 0
+    finally:
+        bps.shutdown()
+        jbps.shutdown()
+
+
+def test_force_distributed_reduces_at_world_one(monkeypatch):
+    """BYTEPS_FORCE_DISTRIBUTED=1 at world 1: with a process group (a
+    world-1 gloo group here) push_pull goes through dist.all_reduce and
+    gives the reference's forced push_pull result, averaged and summed;
+    without a group the tensor stays as it is and nothing is reduced."""
+    import torch.distributed as dist
+    monkeypatch.setenv("BYTEPS_FORCE_DISTRIBUTED", "1")
+    x = np.random.RandomState(5).randn(4, 3).astype(np.float32)
+    jbps.init()
+    try:
+        want = {avg: np.asarray(jbps.push_pull(jnp.asarray(x), name="f",
+                                               average=avg))
+                for avg in (True, False)}
+    finally:
+        jbps.shutdown()
+    calls = []
+    real = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(dist, "all_reduce", counted)
+    bps.init()
+    try:
+        got = bps.push_pull(torch.from_numpy(x), name="f")
+        np.testing.assert_array_equal(got.numpy(), x)
+        assert calls == []
+        dist.init_process_group("gloo",
+                                init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                world_size=1, rank=0)
+        try:
+            for avg in (True, False):
+                got = bps.push_pull(torch.from_numpy(x), name="f",
+                                    average=avg)
+                np.testing.assert_array_equal(got.numpy(), want[avg])
+            assert len(calls) == 2
+        finally:
+            dist.destroy_process_group()
+    finally:
+        bps.shutdown()
+
+
 def run_world(world, prefix):
     """Run the worker in ``world`` processes; the per-rank npz files."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")

@@ -34,13 +34,13 @@ def _qkvdo(device, bh, s, d, dtype):
                                        (torch.bfloat16, 8e-3)])
 def test_kernels_match_plain(cuda_device, causal, d, dtype, tol):
     """Each kernel against its plain version run in float32 on the same
-    (dtype-rounded) inputs; the float32 backward runs one CTA a tile up to
+    (dtype-rounded) inputs; the float32 kernels run one CTA a tile up to
     D = 128 and clusters of two at 256.  Tolerance relative to the
-    reference's max: the float32 forward differs only by summation order,
-    the float32 backward also by its 3xTF32 products (about 22 significant
-    bits; the recipe's CPU emulation reads at most 0.22 of this tolerance
-    at these shapes, tests/test_torch_port_flash_f32tc.py); a bf16 output
-    also rounds once at 2^-8 relative."""
+    reference's max: the float32 kernels differ by summation order and
+    their 3xTF32 products (about 22 significant bits; the recipe's CPU
+    emulation reads at most 0.22 of this tolerance at these shapes,
+    tests/test_torch_port_flash_f32tc.py); a bf16 output also rounds once
+    at 2^-8 relative."""
     q, k, v, do = _qkvdo(cuda_device, 4, 256, d, dtype)
     f = [t.float() for t in (q, k, v, do)]
     scale = d ** -0.5
@@ -117,6 +117,69 @@ def test_f32_backward_refuses_misaligned(cuda_device):
             fa.flash_bwd_dq_str(ok, ok, q, ok, rows, ok, False, 0.125)
         with pytest.raises(RuntimeError, match="misaligned"):
             fa.flash_bwd_dkv_str(ok, q, ok, ok, rows, rows, False, 0.125)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_f32_forward_holds_the_gates(cuda_device, monkeypatch, causal, d):
+    """The float32 forward on the tensor cores (one CTA a tile up to
+    D = 128, a cluster of two at 256) against the plain versions,
+    elementwise under chip_smoke.py's float32 gates: O within 1e-4 |plain|
+    + 1e-5, LSE within 1e-5 |plain| + 1e-6, resident and streaming (3
+    splits, the last ragged), one launch counted a call."""
+    monkeypatch.setattr(fa, "_split_len", lambda s: 128)
+    q, k, v, _ = _qkvdo(cuda_device, 4, 320, d, torch.float32)
+    scale = d ** -0.5
+    for fwd, plain, name in ((fa.flash_fwd, fa.flash_fwd_plain, "flash_fwd"),
+                             (fa.flash_fwd_str, fa.flash_fwd_str_plain,
+                              "flash_fwd_str")):
+        before = fa.launches[name]
+        o, lse = fwd(q, k, v, causal, scale)
+        o_p, lse_p = plain(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        assert fa.launches[name] - before == 1
+        worst = {"o": _worst(o, o_p, (1e-4, 1e-5)),
+                 "lse": _worst(lse, lse_p, ROWS_GATE)}
+        assert all(w <= 1.0 for w in worst.values()), (name, worst)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_f32_forward_repeat_is_bit_identical(cuda_device, monkeypatch, d):
+    """The float32 forward takes its sums in a fixed order with no atomics:
+    two calls of each family give the same bits, causal and not (3 splits,
+    the last ragged).  With one split the streaming kernel gives the
+    resident kernel's bits (the merge weighs the one partial by exp(0))."""
+    q, k, v, _ = _qkvdo(cuda_device, 3, 320, d, torch.float32)
+    scale = d ** -0.5
+    for causal in (False, True):
+        monkeypatch.setattr(fa, "_split_len", lambda s: 128)
+        runs = [(*fa.flash_fwd(q, k, v, causal, scale),
+                 *fa.flash_fwd_str(q, k, v, causal, scale))
+                for _ in range(2)]
+        monkeypatch.setattr(fa, "_split_len", lambda s: s)
+        one = fa.flash_fwd_str(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(*runs)):
+            assert torch.equal(a, b), (causal, i)
+        assert torch.equal(one[0], runs[0][0]), causal
+        assert torch.equal(one[1], runs[0][1]), causal
+
+
+def test_f32_forward_refuses_misaligned(cuda_device):
+    """The float32 forward copies q, k and v in 16-byte pieces at every
+    head dim: a contiguous view that starts 4 bytes into its storage is
+    refused by both families (D = 64, one CTA, and 256, a cluster), not
+    read wrongly."""
+    for d in (64, 256):
+        flat = torch.zeros(2 * 128 * d + 1, device=cuda_device)
+        q = flat[1:].view(2, 128, d)
+        assert q.is_contiguous() and q.data_ptr() % 16
+        ok = torch.zeros(2, 128, d, device=cuda_device)
+        for args in ((q, ok, ok), (ok, q, ok), (ok, ok, q)):
+            with pytest.raises(RuntimeError, match="misaligned"):
+                fa.flash_fwd(*args, True, 0.125)
+            with pytest.raises(RuntimeError, match="misaligned"):
+                fa.flash_fwd_str(*args, False, 0.125)
 
 
 def test_autograd_block_hints(cuda_device):

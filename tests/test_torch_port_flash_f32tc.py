@@ -1,9 +1,9 @@
 """The numeric recipe of the float32 flash kernels on the tensor cores.
 
-The CUDA kernels (``dq_tiles_f32`` and ``dkv_tiles_f32``, the float32
-backward at every head dim, and ``fwd_wide_tiles_f32``, the forward above
-D = 256, in ``byteps_tpu_torch/csrc/flash_attention.cu``) cannot run on the
-CPU.  This file keeps a torch emulation of their arithmetic:
+The CUDA kernels (``dq_tiles_f32``, ``dkv_tiles_f32`` and
+``fwd_tiles_f32``, the float32 backward and forward at every head dim, in
+``byteps_tpu_torch/csrc/flash_attention.cu``) cannot run on the CPU.
+This file keeps a torch emulation of their arithmetic:
 
   - every product on the tensor cores in 3xTF32: each operand x split as
     hi = tf32(x), lo = tf32(x - hi), with tf32 a round to nearest (ties
@@ -23,7 +23,8 @@ CPU.  This file keeps a torch emulation of their arithmetic:
     added to the output's accumulator 16 rows at a time;
   - in the streaming family, one partial a split, summed in split order;
   - the forward (``emulate_fwd``): per tile pair S from the slices'
-    partials in rank order, the online-softmax step m' = max(m, scale S),
+    partials in rank order (one slice, one CTA, at D <= 128; a cluster of
+    two at D = 256), the online-softmax step m' = max(m, scale S),
     alpha = exp(m - m'), P = exp(scale S - m'), l' = alpha l + rowsum(P),
     and acc' = alpha acc + P V, P V in the same 3xTF32 recipe; each split's
     (m, l, acc) merged in split order, O = acc / l, LSE = m + log l.
@@ -31,9 +32,9 @@ CPU.  This file keeps a torch emulation of their arithmetic:
 It is held to ``chip_smoke.py``'s float32 gates, |got - plain| <= 1e-4
 |plain| + 1e-5 for dQ, dK and dV (1e-4 |plain| + 2e-5 for O) and
 1e-5 |plain| + 1e-6 for LSE and delta, against the port's plain versions
-(the backward at D = 16 to 512, and also to the card tests' 1e-5 of the
-largest element at D = 16 to 256) and the JAX package's forward and
-backward (Pallas interpreter; the backward at D = 64 to 512, the forward at
+(the backward and the forward at D = 16 to 512, the backward also to the
+card tests' 1e-5 of the largest element at D = 16 to 256) and the JAX
+package's forward and backward (Pallas interpreter; both at D = 64, 256,
 384 and 512).  Four controls: one TF32 rounding of each operand, the usual
 recipe, misses the same gates in the backward, and in the forward whether
 it is taken for S or for P V; one truncating accumulator for a whole
@@ -205,7 +206,7 @@ def emulate_dkv(q, k, v, do, lse, delta, causal, scale, mm=mm3, split=None):
 
 
 def emulate_fwd(q, k, v, causal, scale, mm_s=mm3, mm_pv=mm3, split=None):
-    """O and LSE as fwd_wide_tiles_f32 computes them: for each q tile, the
+    """O and LSE as fwd_tiles_f32 computes them: for each q tile, the
     k tiles in splits of ``split`` tiles (all of them in the resident
     family).  Per tile pair, S is the sum of the slices' partials in rank
     order (``mm_s``), then the online-softmax step and acc = alpha acc +
@@ -410,15 +411,32 @@ def _fwd_gates(got, want):
 
 @pytest.mark.parametrize("streaming", [False, True])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 384, 512])
 def test_fwd_recipe_passes_the_f32_gates(d, causal, streaming):
-    """The forward's recipe (split-D partials in rank order, 3xTF32 S and
-    P V, the online rescale) holds O to 1e-4 |plain| + 2e-5 and LSE to
-    1e-5 |plain| + 1e-6 against the plain version, resident and in splits
-    of two tiles (merged as the merge pass does)."""
+    """The forward's recipe (one CTA holding all of D up to D = 128,
+    split-D partials in rank order from 256, 3xTF32 S and P V, the online
+    rescale) holds O to 1e-4 |plain| + 2e-5 and LSE to 1e-5 |plain| + 1e-6
+    against the plain version, resident and in splits of two tiles (merged
+    as the merge pass does)."""
     (q, k, v, _, o, lse, _, scale), _ = _case(d, causal)
     got = emulate_fwd(q, k, v, causal, scale, split=2 if streaming else None)
     worst = _fwd_gates(got, (o, lse))
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_fwd_recipe_holds_the_card_tests_tolerance(d, causal, streaming):
+    """At the card tests' shape [4, 256, D] (test_kernels_match_plain and
+    test_streaming_kernels_match_plain hold float32 O to 1e-5 and LSE to
+    1e-6 of the plain version's largest element) the forward's recipe
+    stays within both, resident and in splits of two tiles."""
+    (q, k, v, _, o, lse, _, scale), _ = _case(d, causal, bh=4)
+    got = emulate_fwd(q, k, v, causal, scale, split=2 if streaming else None)
+    worst = {n: float((g - w).abs().max() / (t * w.abs().max()))
+             for n, g, w, t in (("o", got[0], o, 1e-5),
+                                ("lse", got[1], lse, 1e-6))}
     assert all(w <= 1.0 for w in worst.values()), worst
 
 
@@ -438,7 +456,7 @@ def test_fwd_single_tf32_rounding_misses_the_f32_gate(causal, product):
 
 @pytest.mark.parametrize("streaming", [False, True])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("d", [64, 256, 384, 512])
 def test_fwd_recipe_matches_jax_forward(d, causal, streaming):
     """At [2, 256, D] float32 the forward's recipe agrees with the JAX
     package's flash forward (Pallas interpreter, the resident or the
@@ -460,8 +478,8 @@ if __name__ == "__main__":
     # The gate readings, for PERF.md: the backward at D <= 256 against the
     # float32 gate and, at [4, 256, D], the card tests' 1e-5 of the largest
     # element; at D = 384 and 512 3xTF32, one TF32 rounding, and 3xTF32
-    # with one truncating accumulator a chunk; the forward's in 3xTF32 and
-    # with one TF32 rounding of S or of P V.
+    # with one truncating accumulator a chunk; the forward's in 3xTF32 at
+    # every D and, at 384 and 512, with one TF32 rounding of S or of P V.
     for d in (16, 32, 64, 128, 256):
         for causal in (False, True):
             for split in (None, 2):
@@ -483,6 +501,14 @@ if __name__ == "__main__":
                       {n: round(x, 4) for n, x in gate.items()},
                       "card tolerance",
                       {n: round(x, 4) for n, x in card.items()})
+    for d in (16, 32, 64, 128, 256):
+        for causal in (False, True):
+            for split in (None, 2):
+                (q, k, v, _, o, lse, _, scale), _ = _case(d, causal)
+                got = emulate_fwd(q, k, v, causal, scale, split=split)
+                print(f"D {d} causal {causal} split {split} forward:",
+                      {n: round(w, 4)
+                       for n, w in _fwd_gates(got, (o, lse)).items()})
     for d in (384, 512):
         for causal in (False, True):
             (q, k, v, do, _, lse, delta, scale), plain = _case(d, causal)

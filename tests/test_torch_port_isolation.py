@@ -98,3 +98,29 @@ def test_default_device_entry_points_raise_without_cuda():
     step = bps.build_train_step(lambda p, b: (p[0] ** 2).sum(), opt,
                                 device="cpu")
     assert float(step([w], None)) == 0.0
+
+
+_EXPORT_PROBE = """
+import json, sys
+import byteps_tpu_torch as bps
+from byteps_tpu_torch.ops import _build, ring_attention
+print(json.dumps({"same": bps.ring_attention is ring_attention,
+                  "listed": "ring_attention" in bps.__all__,
+                  "attention": callable(
+                      bps.ring_attention.ring_attention_shard),
+                  "triton": "triton" in sys.modules,
+                  "built": sorted(_build._libs)}))
+"""
+
+
+def test_top_level_exports_ring_attention():
+    """``byteps_tpu_torch.ring_attention`` resolves to the ops module, as
+    ``byteps_tpu.ring_attention`` does, and importing the package still
+    imports no Triton and builds no kernel."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _EXPORT_PROBE], env=env,
+                         cwd=REPO, capture_output=True, text=True, timeout=50)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"same": True, "listed": True, "attention": True,
+                   "triton": False, "built": []}
