@@ -110,8 +110,9 @@
 // Tiling.  The TPU kernels take one q block of up to 512 rows and keep K/V
 // whole in VMEM.  A 512 x 512 float32 logits tile does not fit in 227 KB of
 // shared memory, so these kernels pick their own tiles: 64 q rows by 64 k
-// rows.  The float32 tile loops run 256 threads, eight warps (see their
-// sections).  The 16-bit tensor-core loops run 128 threads, each warp
+// rows.  The float32 tile loops and the 16-bit forward above D = 256 run
+// 256 threads, eight warps (see their sections).  The other 16-bit
+// tensor-core loops run 128 threads, each warp
 // owning 16 rows and its accumulators in the MMA layout; dK/dV takes the q
 // tile 32 columns at a time at D = 64 and 16 at D = 128, so that its two
 // D-wide accumulators leave room in the registers.  At D = 256 one warp's
@@ -1184,30 +1185,28 @@ __global__ void __launch_bounds__(kMmaThreads, mma_ctas<kFwdCtas>(D))
 // multiple of kWide = 128 (ops/flash_attention.py::kernel_head_dim), and
 // the kernels take D at run time.  A 64 x D tile of Q (or dO) no longer
 // fits in registers, nor six such tiles in shared memory (6 x 64 x 520
-// bf16 is 399 KB at D = 512).  So each kernel walks D in 128-column
-// chunks twice over:
+// bf16 is 399 KB at D = 512).  So each 16-bit backward kernel walks D in
+// 128-column chunks twice over:
 //
-//   - the first products (S = Q K^T, and dP = dO V^T in the backward, or
-//     their transposes in dK/dV) accumulate over every chunk of D, one
-//     64 x 128 chunk of each operand staged in shared memory at a time;
+//   - the first products (S = Q K^T and dP = dO V^T, or their transposes
+//     in dK/dV) accumulate over every chunk of D, one 64 x 128 chunk of
+//     each operand staged in shared memory at a time;
 //   - each CTA owns one 128-column slice of its outputs (an output pass):
-//     O or dQ at columns col0..col0+127, and in dK/dV either dV's or dK's
-//     slice (dV needs only P, dK also dP).  The ceil(D / 128) passes of a
-//     tile run as neighbouring CTAs of the grid, each recomputing the first
-//     products and the softmax, as the D = 256 kernels' two passes do in
-//     one CTA.
+//     dQ at columns col0..col0+127, or in dK/dV either dV's or dK's slice
+//     (dV needs only P, dK also dP).  The ceil(D / 128) passes of a tile
+//     run as neighbouring CTAs of the grid, each recomputing the first
+//     products and P, as the D = 256 kernels' two passes do in one CTA.
 //
-// Registers then hold one 128-column accumulator, a 64-key block of S in
-// the forward and 32-key (32-query) blocks of S and dP in the backward,
-// and a zeroed partial for each chunk's products (mma_abt_chunk).  Shared
-// memory holds at most five 64 x 136 16-bit chunks (87 KB), whatever D.
-// The 16-bit kernels keep every piece of the D <= 256 kernels' arithmetic:
-// exact 16-bit first products with float32 sums, P and dS entering the
-// second products as hi/lo pairs, bf16's third term where a warp's block
-// holds |P| >= 2^-5 or |dS| >= 1, float16's per-row power-of-two scale.
-// The float32 forward and backward compute S (and dP) once per tile pair
-// in a cluster of CTAs, on the tensor cores in 3xTF32 (their own sections
-// below).
+// Registers then hold one 128-column accumulator, 32-key (32-query)
+// blocks of S and dP, and a zeroed partial for each chunk's products
+// (mma_abt_chunk).  Shared memory holds at most five 64 x 136 16-bit
+// chunks (87 KB), whatever D.  The 16-bit kernels keep every piece of the
+// D <= 256 kernels' arithmetic: exact 16-bit first products with float32
+// sums, P and dS entering the second products as hi/lo pairs, bf16's third
+// term where a warp's block holds |P| >= 2^-5 or |dS| >= 1, float16's
+// per-row power-of-two scale.  The 16-bit forward, and the float32 forward
+// and backward (in 3xTF32), compute S (and dP) once per tile pair in a
+// cluster of CTAs (their own sections below).
 // ---------------------------------------------------------------------------
 constexpr int kWide = 128;              // columns of an output pass
 constexpr int kWideLd = kWide + 8;      // shared row of a 16-bit chunk
@@ -1218,11 +1217,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Copy the [R, kWide] chunk at `src` (row stride d) into shared rows of
-// kWideLd, 16 bytes a copy.
-template <int R = kTile, typename T16>
+// kWideLd, 16 bytes a copy, by the NT threads of the CTA.
+template <int R = kTile, int NT = kMmaThreads, typename T16>
 __device__ __forceinline__ void chunk_async(T16* dst, const T16* src, int d) {
   constexpr int kPieces = kWide / 8;
-  for (int i = threadIdx.x; i < R * kPieces; i += kMmaThreads) {
+  for (int i = threadIdx.x; i < R * kPieces; i += NT) {
     const int r = i / kPieces;
     const int c = i - r * kPieces;
     cp_async16(dst + r * kWideLd + c * 8, src + (size_t)r * d + c * 8);
@@ -1257,73 +1256,6 @@ __device__ __forceinline__ void mma_abt_chunk(float (&acc)[NB][4],
     for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
 }
 
-// The forward at a wide D: fwd_mma_tiles with S summed over the chunks of
-// D, and P V taken over columns [col0, col0 + kWide) of V only.
-template <typename T16>
-__device__ __forceinline__ void fwd_wide_tiles(
-    unsigned char* smem, const T16* q, const T16* k, const T16* v, int d,
-    int qt, int kt0, int kt1, int causal, float scale, int col0,
-    float (&m2)[2], float (&l)[2], float (&acc)[kWide / 8][4]) {
-  T16* qs = reinterpret_cast<T16*>(smem);
-  T16* ks = qs + kWideTile;
-  T16* vs = ks + kWideTile;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const float scale2 = scale * kLog2e;
-  const int nch = d / kWide;
-
-  m2[0] = m2[1] = -INFINITY;
-  l[0] = l[1] = 0.f;
-  zero(acc);
-  const int r0 = 16 * warp + (lane >> 2);  // this lane's rows r0, r0 + 8
-  for (int kt = kt0; kt < kt1; ++kt) {
-    float s[8][4];
-    zero(s);
-    for (int c = 0; c < nch; ++c) {
-      __syncthreads();  // every warp is done with the chunks (and V)
-      chunk_async(qs, q + (size_t)qt * kTile * d + c * kWide, d);
-      chunk_async(ks, k + (size_t)kt * kTile * d + c * kWide, d);
-      if (c == nch - 1) chunk_async(vs, v + (size_t)kt * kTile * d + col0, d);
-      cp_async_commit();
-      cp_async_wait_all();
-      __syncthreads();
-      mma_abt_chunk<T16, 8>(s, qs + 16 * warp * kWideLd, ks, lane);
-    }
-    const bool diag = causal && kt == qt;
-    float mx[2] = {m2[0], m2[1]};
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = n * 8 + 2 * (lane & 3) + (e & 1);  // key in tile
-        s[n][e] = diag && col > r0 + 8 * (e >> 1) ? -INFINITY
-                                                  : scale2 * s[n][e];
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = row_max(mx[h]);
-      alpha[h] = exp2f(m2[h] - mx[h]);
-      m2[h] = mx[h];
-    }
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = exp2f(s[n][e] - mx[e >> 1]);
-        rs[e >> 1] += s[n][e];
-      }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + row_sum(rs[h]);
-#pragma unroll
-    for (int n = 0; n < kWide / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
-    mma_xb_split<T16, kWide, kWide, 4>(acc, s, vs, lane);
-  }
-}
-
 // rowsum(a * b) over d elements for the calling warp (delta of the wide
 // kernels): each lane sums every 32nd element, then a shuffle tree, in
 // float64 as every delta here (see delta_sum at the top).
@@ -1343,78 +1275,6 @@ __device__ __forceinline__ float warp_row_dot(const T* a, const T* b,
 __device__ __forceinline__ void wide_block(int npass, int& tile, int& pass) {
   tile = blockIdx.x / npass;
   pass = blockIdx.x - tile * npass;
-}
-
-template <typename T16>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-    flash_fwd_wide_mma_kernel(const T16* __restrict__ q,
-                              const T16* __restrict__ k,
-                              const T16* __restrict__ v, T16* __restrict__ o,
-                              float* __restrict__ lse, int seq, int d,
-                              float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
-  const int num_t = seq / kTile;
-  int t, pass;
-  wide_block(d / kWide, t, pass);
-  const int qt = num_t - 1 - t;  // causal: the longest rows first
-  const int col0 = pass * kWide;
-  const int bh = blockIdx.y;
-  const size_t base = (size_t)bh * seq * d;
-  float m2[2], l[2], acc[kWide / 8][4];
-  fwd_wide_tiles<T16>(mma_smem_buf, q + base, k + base, v + base, d, qt, 0,
-                      causal ? qt + 1 : num_t, causal, scale, col0, m2, l,
-                      acc);
-#pragma unroll
-  for (int n = 0; n < kWide / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] /= l[e >> 1];
-  store_rows_ld<kWide>(o + base + (size_t)qt * kTile * d + col0, d, acc,
-                       1.f);
-  const int lane = threadIdx.x & 31;
-  if (pass == 0 && (lane & 3) == 0) {
-    const size_t row = (size_t)bh * seq + qt * kTile +
-                       16 * (threadIdx.x >> 5) + (lane >> 2);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) lse[row + 8 * h] = m2[h] * kLn2 + logf(l[h]);
-  }
-}
-
-template <typename T16>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-    flash_fwd_str_wide_mma_kernel(const T16* __restrict__ q,
-                                  const T16* __restrict__ k,
-                                  const T16* __restrict__ v,
-                                  float* __restrict__ m_ws,
-                                  float* __restrict__ l_ws,
-                                  float* __restrict__ acc_ws, int seq, int d,
-                                  int split, float scale, int causal) {
-  const int num_t = seq / kTile;
-  int t, pass;
-  wide_block(d / kWide, t, pass);
-  const int qt = num_t - 1 - t;
-  const int sp = blockIdx.y;
-  const int bh = blockIdx.z;
-  const int kt0 = sp * split;
-  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
-  if (kt0 >= kt1) return;  // dead pair: every key after every query
-
-  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
-  const int col0 = pass * kWide;
-  const size_t base = (size_t)bh * seq * d;
-  const size_t at = ws_row(sp, bh, gridDim.z, seq, qt * kTile);
-  float m2[2], l[2], acc[kWide / 8][4];
-  fwd_wide_tiles<T16>(mma_smem_buf, q + base, k + base, v + base, d, qt, kt0,
-                      kt1, causal, scale, col0, m2, l, acc);
-  store_rows_ld<kWide>(acc_ws + at * d + col0, d, acc, 1.f);
-  const int lane = threadIdx.x & 31;
-  if (pass == 0 && (lane & 3) == 0) {
-    const size_t row = at + 16 * (threadIdx.x >> 5) + (lane >> 2);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m_ws[row + 8 * h] = m2[h] * kLn2;
-      l_ws[row + 8 * h] = l[h];
-    }
-  }
 }
 
 // Columns [col0, col0 + kWide) of dQ at a wide D: dq_mma_tiles with S and
@@ -1725,7 +1585,7 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 // (tile_pds) with no exchange rows and no cluster.  From D = 256, W = 128
 // and the slices meet in a cluster:
 //
-// One output slice a CTA, as in the 16-bit wide kernels, would have every
+// One output slice a CTA, as in the 16-bit wide backward, would have every
 // slice recompute S = Q K^T and dP = dO V^T over all of D: about 3.9x the
 // function's products at D = 512.  Here the n = D / 128 slices of a tile
 // run as one thread-block cluster of n CTAs (at most 8, the portable size),
@@ -2117,9 +1977,9 @@ __device__ __forceinline__ void split_exchange(
 }
 
 // Store the warp's 16 rows from `row0` of 8 NB output columns from `col0`
-// (row stride d), times `scale`.
-template <int NB>
-__device__ __forceinline__ void store_tc_rows(float* out, int d, int row0,
+// (row stride d), times `scale`: float32, or the 16-bit forward's O.
+template <int NB, typename Out>
+__device__ __forceinline__ void store_tc_rows(Out* out, int d, int row0,
                                               int col0,
                                               const float (&acc)[NB][4],
                                               float scale) {
@@ -2751,28 +2611,43 @@ __device__ __forceinline__ void push_partials(const float (&s)[4][4],
 // a swizzled [kTile][kTile] tile) and (alpha, l) of each row (`al`, pairs
 // by row) into every CTA of the cluster, or without one into its own
 // memory (there `ex` may be `pt`: each lane overwrites the S it read).  A
-// half warp takes a row, 4 keys a lane.
-template <bool kCluster>
+// half warp takes a row, 4 keys a lane.  k16 is the 16-bit wide
+// forward's owner (fwd_tiles16, kCluster false): `scale` includes log2(e),
+// m is kept in units of log2 and the exponentials are exp2f's, as in
+// fwd_mma_tiles (else expf's); the slots of `ex` hold the senders' rows as
+// they lie in their P tiles, swizzled by the tile's row; (alpha, l) fills 4
+// floats a row; and a quarter warp takes a row, 8 keys a lane (one pass
+// over the 22 rows an owner holds at 3 CTAs).
+template <bool kCluster, bool k16 = false>
 __device__ __forceinline__ void owner_step(const float* ex, float* pt,
                                            float* al, float* ml, int qt,
                                            int kt, int causal, float scale,
                                            int rank, int c) {
+  constexpr int kL = k16 ? 8 : 16;  // lanes a row
+  constexpr int kK = kTile / kL;     // keys a lane
   const int R = split_rows(c);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int own0 = rank * R;
   const int nown = max(0, min(kTile, own0 + R) - own0);
-  const int col = 4 * (lane & 15);
-  const bool lead = (lane & 15) == 0;
-  for (int lr0 = 2 * warp; lr0 < nown; lr0 += 2 * kTcWarps) {  // per warp
-    const int lr = lr0 + (lane >> 4);
+  const int col = kK * (lane % kL);
+  const bool lead = lane % kL == 0;
+  for (int lr0 = 32 / kL * warp; lr0 < nown; lr0 += 32 / kL * kTcWarps) {
+    const int lr = lr0 + lane / kL;
     const bool live = lr < nown;
-    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    float x[kK];
+#pragma unroll
+    for (int e = 0; e < kK; ++e) x[e] = 0.f;
     float m_old = 0.f, l_old = 0.f;
     if (live) {
       for (int j = 0; j < c; ++j) {  // rank order
-        const float4 a = *reinterpret_cast<const float4*>(
-            ex + swz(j * R + lr, col, kTile));
-        x[0] += a.x, x[1] += a.y, x[2] += a.z, x[3] += a.w;
+#pragma unroll
+        for (int u = 0; u < kK; u += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(
+              ex + (k16 ? swz(own0 + lr, col + u, kTile) +
+                                (j * R - own0) * kTile
+                          : swz(j * R + lr, col + u, kTile)));
+          x[u] += a.x, x[u + 1] += a.y, x[u + 2] += a.z, x[u + 3] += a.w;
+        }
       }
       m_old = ml[2 * lr];
       l_old = ml[2 * lr + 1];
@@ -2780,23 +2655,23 @@ __device__ __forceinline__ void owner_step(const float* ex, float* pt,
     const int query = qt * kTile + own0 + lr;
     float mx = m_old;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < kK; ++e) {
       x[e] = causal && kt * kTile + col + e > query ? -INFINITY
                                                     : scale * x[e];
       mx = fmaxf(mx, x[e]);
     }
 #pragma unroll
-    for (int off = 8; off; off >>= 1)
+    for (int off = kL / 2; off; off >>= 1)
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float alpha = expf(m_old - mx);
-    float p[4], rs = 0.f;
+    const float alpha = k16 ? exp2f(m_old - mx) : expf(m_old - mx);
+    float p[kK], rs = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      p[e] = expf(x[e] - mx);
+    for (int e = 0; e < kK; ++e) {
+      p[e] = k16 ? exp2f(x[e] - mx) : expf(x[e] - mx);
       rs += p[e];
     }
 #pragma unroll
-    for (int off = 8; off; off >>= 1)
+    for (int off = kL / 2; off; off >>= 1)
       rs += __shfl_xor_sync(0xffffffffu, rs, off);
     const float l = l_old * alpha + rs;
     if (live) {
@@ -2805,20 +2680,25 @@ __device__ __forceinline__ void owner_step(const float* ex, float* pt,
         ml[2 * lr] = mx;
         ml[2 * lr + 1] = l;
       }
-      const int p_at = swz(row, col, kTile);
-      if constexpr (kCluster) {
-        for (int j = 0; j < c; ++j) {
-          st_cluster4(cluster_addr(smem_addr(pt) + 4u * (uint32_t)p_at, j),
-                      make_float4(p[0], p[1], p[2], p[3]));
-          if (lead)
-            st_cluster2(cluster_addr(smem_addr(al + 2 * row), j), alpha, l);
+#pragma unroll
+      for (int u = 0; u < kK; u += 4) {
+        const int p_at = swz(row, col + u, kTile);
+        const float4 pv = make_float4(p[u], p[u + 1], p[u + 2], p[u + 3]);
+        if constexpr (kCluster) {
+          for (int j = 0; j < c; ++j)
+            st_cluster4(cluster_addr(smem_addr(pt) + 4u * (uint32_t)p_at, j),
+                        pv);
+        } else {
+          *reinterpret_cast<float4*>(pt + p_at) = pv;
         }
-      } else {
-        *reinterpret_cast<float4*>(pt + p_at) =
-            make_float4(p[0], p[1], p[2], p[3]);
-        if (lead) {
-          al[2 * row] = alpha;
-          al[2 * row + 1] = l;
+      }
+      if (lead) {
+        if constexpr (kCluster) {
+          for (int j = 0; j < c; ++j)
+            st_cluster2(cluster_addr(smem_addr(al + 2 * row), j), alpha, l);
+        } else {
+          al[(k16 ? 4 : 2) * row] = alpha;
+          al[(k16 ? 4 : 2) * row + 1] = l;
         }
       }
     }
@@ -3046,6 +2926,396 @@ __global__ void __launch_bounds__(kTcThreads, f32_tc_ctas(D))
                         scale, causal);
 }
 
+// ---- the 16-bit forward at a wide D: split-D clusters ---------------------
+// flash_fwd_wide16_kernel<T16> and flash_fwd_str_wide16_kernel<T16> (bf16
+// and float16, D above 256) replace the TPU kernels _fwd_kernel_res (:142)
+// and _fwd_kernel_str (:221) of byteps_tpu/ops/flash_attention.py there.
+// What bounds them: at [128, 512, 512] causal the bytes, 0.080 ms (the
+// products, 4 FLOPs per visible (q, k) pair and head-dim element, take
+// 0.035 ms at the bf16 tensor-core peak); at [16, 8192, 512] the
+// products, 1.11 ms.
+//
+// One 128-column output slice a CTA, each CTA contracting S = Q K^T over
+// all of D itself, issued 2 (D / 128) + 4 tensor-core FLOPs a pair and
+// head-dim element (3x the function's at D = 512) and ran at 50-60
+// TFLOP/s of the function's work.  Here the n = D / 128 slices of a q
+// tile run as one cluster of split_ctas(D) CTAs, as in the float32
+// forward (fwd_tiles_f32): each CTA keeps its 128-column chunk of Q in
+// shared memory for the whole k loop and contracts its partial S over
+// those columns into a zeroed float32 partial (exact 16-bit products,
+// float32 sums, as mma_abt_chunk takes a chunk); the owner of a row
+// (rank r / R, R = split_rows) adds the partials in rank order from zero,
+// as the one-slice kernels added their chunks, so S keeps their bits;
+// masks on the diagonal tile with global positions and takes the
+// online-softmax step of its rows in units of log2 with exp2f
+// (owner_step<false, true>, m leaving in natural units for the merge);
+// and every CTA rescales its O accumulator by alpha and adds P V over its
+// own 128 columns of V, P entering as its hi/lo pair
+// (mma_xb_split, as in every 16-bit forward; float16 needs no row scale:
+// P is relative to the running max).  The products issued are 6 FLOPs a
+// pair and head-dim element whatever D.  Above 8 slices a CTA takes
+// ceil(n / 8): its partial sums its slices in ascending order, and it
+// runs the tile loop once for each slice it outputs.
+//
+// The exchange.  The float32 forward's (per-thread stores into the other
+// CTAs' memory, one cluster barrier a tile pair) cost this kernel half
+// its time at one CTA an SM: 0.73 ms at [128, 512, 512] against 0.39
+// without it (scripts/flash_wide16_fwd_ab.py probes, PERF.md).  Here each
+// CTA stores its partial S into its own P tile, and one thread per owner
+// sends the owner's rows (R rows of 256 bytes) with one bulk copy
+// (cp.async.bulk shared::cta -> shared::cluster), which completes on the
+// owner's mbarrier; the owner's step writes P and (alpha, l) of its rows
+// over the same rows of its own tile, and bulk copies send them to the
+// same rows of every other CTA, completing on their mbarriers.  A P row
+// lands only where the partial it replaces has been delivered (the owner
+// has it), so S and P share one tile; a CTA sends its next partials only
+// after every owner's P of this tile has come in and its P V is done, so
+// one stage of each buffer serves.  No cluster barrier runs inside the
+// tile loop.  The chunks of Q, K, two stages of V, the P tile and the
+// exchange rows make 101.5-103 KB: two CTAs an SM (kFwd16Ctas; one ran
+// 1.3-1.5x slower), 128 registers a thread.  To stay within them without
+// spilling, every shared-memory offset but the exchange rows' is a
+// constant and the kernel's pointers are offset where they are used.
+//
+// Eight warps: warp w takes rows 16 (w & 3) and keys 32 (w >> 2) of S,
+// then the same rows and 64 of the slice's 128 columns of O, its 64 keys
+// of P read from the P tile into mma_xb_split's fragment layout, 16 at a
+// time.
+constexpr int kFwd16Ctas = 2;   // CTAs an SM (__launch_bounds__)
+
+// mbarrier and bulk-copy primitives (sm_90).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+// One arrival on `bar`, and `bytes` more for its phase to wait for.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "{\n .reg .b64 st;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// Copy `bytes` (a multiple of 16) from `src` in this CTA's shared memory
+// to `dst`'s offset in CTA `rank`'s, completing on `bar`'s offset there.
+__device__ __forceinline__ void bulk_to(void* dst, int rank, const void* src,
+                                        uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::"
+      "bytes [%0], [%1], %2, [%3];\n" ::"r"(cluster_addr(smem_addr(dst), rank)),
+      "r"(smem_addr(src)), "r"(bytes),
+      "r"(cluster_addr(smem_addr(bar), rank))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until this thread's bulk copies have read their sources.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// This thread's shared-memory stores, seen by the bulk copies after it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Shared memory of the 16-bit wide forward in a cluster of c CTAs: the
+// two mbarriers (padded to 16 bytes), (alpha, l) of every row (4 floats
+// a row), m and l of the owned rows and the P tile, float32; the Q and K
+// chunks and two stages of the V chunk, 16-bit; then the exchange rows (c
+// slots of R rows), float32, last, so that every other offset is a
+// constant.
+constexpr size_t kFwd16Fixed =
+    16 + (4 * kTile + 2 * kTile + kTile * kTile) * sizeof(float) +
+    4 * kWideTile * sizeof(uint16_t);
+__host__ __device__ constexpr size_t fwd16_smem(int c) {
+  return kFwd16Fixed + c * split_rows(c) * kTile * sizeof(float);
+}
+
+// The warp's 16 rows from `row0` of a swizzled [kTile][kTile] float32
+// tile (P), columns 16 kk..16 kk + 15, in the accumulator layout
+// mma_xb_split takes: x[n][e] at row row0 + g + 8 (e >> 1), column
+// 16 kk + 8n + 2t + (e & 1).
+__device__ __forceinline__ void tile_rows_acc(float (&x)[2][4],
+                                              const float* tile, int row0,
+                                              int kk) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 u = *reinterpret_cast<const float2*>(
+          tile + swz(row0 + g + 8 * h, 16 * kk + 8 * n + 2 * t, kTile));
+      x[n][2 * h] = u.x;
+      x[n][2 * h + 1] = u.y;
+    }
+}
+
+// O of the q tile `qt` over the k tiles [kt0, kt1), this CTA's slices of
+// it (see the section's note); `scale2` is scale log2(e).  The pointers
+// are the kernel's parameters, offset where they are used (head bh from
+// blockIdx: registers are what limits two CTAs an SM).  Resident: O / l
+// into o, and the owners write LSE = m ln 2 + log l of their rows;
+// streaming (kStr): the unnormalised float32 acc, and the owners m
+// (natural units) and l, into split blockIdx.y's workspaces.  A tile
+// pair: S's partial into the P tile, the owners' rows sent; the owner's
+// step once its partials are in; its P and (alpha, l) sent; P V once
+// every owner's rows are in.  V's chunk of tile kt0 + u lands in stage
+// u & 1 (loading while tile kt0 + u - 1's pair runs), K has one stage (the
+// next K loads once the CTA's S products are done).  Every CTA of the
+// cluster runs the same tiles and passes; the mbarriers count phases
+// across the passes.
+template <typename T16, bool kStr>
+__device__ __forceinline__ void fwd_tiles16(
+    unsigned char* smem, const T16* q, const T16* k, const T16* v, T16* o,
+    float* lse, float* m_ws, float* l_ws, float* acc_ws, int seq, int d,
+    int qt, int kt0, int kt1, int causal, float scale2) {
+  constexpr int NB = kWide / 16;   // n8 blocks of the warp's 64 O columns
+  const int c = cluster_size(), rank = cluster_rank();
+  const int R = split_rows(c);
+  uint64_t* bar_ex = reinterpret_cast<uint64_t*>(smem);  // partials in
+  uint64_t* bar_p = bar_ex + 1;                          // P rows in
+  float* al = reinterpret_cast<float*>(smem + 16);  // (alpha, l, -, -)
+  float* ml = al + 4 * kTile;      // m and l of the owned rows
+  float* pt = ml + 2 * kTile;      // S's partial, then P
+  T16* qc = reinterpret_cast<T16*>(pt + kTile * kTile);
+  T16* kc = qc + kWideTile;
+  T16* vc = kc + kWideTile;        // two stages
+  float* ex = reinterpret_cast<float*>(smem + kFwd16Fixed);  // c slots
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rw = 16 * (warp & 3);          // the warp's rows
+  const int kh = 32 * (warp >> 2);         // its keys of S
+  const int oh = kWide / 2 * (warp >> 2);  // its columns of the slice
+  const int n = d / kWide;
+  const int spc = (n + c - 1) / c;         // slices a CTA outputs
+  const int own0 = rank * R;
+  const int nown = max(0, min(kTile, own0 + R) - own0);
+  const int nt = kt1 - kt0;
+  // the element offset of row `row` of this head in q, k, v and o
+  auto at = [&](int row) {
+    return ((size_t)(kStr ? blockIdx.z : blockIdx.y) * seq + row) * d;
+  };
+  // Rows of owner j.
+  auto rows_of = [&](int j) { return max(0, min(kTile, j * R + R) - j * R); };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_ex, 1);
+    mbar_init(bar_p, 1);
+    fence_mbar_init();
+  }
+  for (int pass = 0; pass < spc; ++pass) {
+    const int jo = rank + pass * c;  // the slice this pass writes (if < n)
+    // V's chunk of tile kt0 + u, into stage u & 1
+    auto load_v = [&](int u) {
+      if (jo < n && u < nt)
+        chunk_async<kTile, kTcThreads>(vc + (u & 1) * kWideTile,
+                                       v + at((kt0 + u) * kTile) + jo * kWide,
+                                       d);
+    };
+    for (int r = threadIdx.x; r < nown; r += kTcThreads) {
+      ml[2 * r] = -INFINITY;
+      ml[2 * r + 1] = 0.f;
+    }
+    if (n == c) {
+      chunk_async<kTile, kTcThreads>(qc, q + at(qt * kTile) + jo * kWide, d);
+      chunk_async<kTile, kTcThreads>(kc, k + at(kt0 * kTile) + jo * kWide, d);
+    }
+    load_v(0);
+    cp_async_commit();
+    // the cluster runs, its mbarriers set, before any copy reaches a CTA
+    if (pass == 0) cluster_sync();
+    float acc[NB][4];
+    zero(acc);
+    for (int i = 0; i < nt; ++i) {
+      const int kt = kt0 + i;
+      // the phase of both mbarriers: they complete once a tile pair
+      const uint32_t phase = (pass * nt + i) & 1;
+      if (threadIdx.x == 0) {
+        // the bytes a tile pair brings: the c partials of the owned rows,
+        // and the P and (alpha, l) rows of every other owner
+        mbar_expect(bar_ex, c * nown * kTile * sizeof(float));
+        mbar_expect(bar_p, (kTile - nown) * (kTile + 4) * sizeof(float));
+      }
+      if (threadIdx.x < c) bulk_wait_read();  // the last tile's sends
+      cp_async_wait_all();  // K and V of tile kt
+      __syncthreads();      // ... and every warp done with the P tile
+      // V of the next tile into the stage the last P V read (with more
+      // slices than CTAs after S, whose chunk loads wait for every group)
+      if (n == c) load_v(i + 1);
+      float s[4][4];
+      zero(s);
+      if (n == c) {
+        mma_abt<T16, kWide, 4>(s, qc + rw * kWideLd, kc + kh * kWideLd,
+                               lane);
+      } else {
+        for (int j = rank; j < n; j += c) {
+          __syncthreads();
+          chunk_async<kTile, kTcThreads>(qc, q + at(qt * kTile) + j * kWide,
+                                         d);
+          chunk_async<kTile, kTcThreads>(kc, k + at(kt * kTile) + j * kWide,
+                                         d);
+          cp_async_commit();
+          cp_async_wait_all();
+          __syncthreads();
+          mma_abt_chunk<T16, 4>(s, qc + rw * kWideLd, kc + kh * kWideLd,
+                                lane);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          store2(pt + swz(rw + g + 8 * h, kh + 8 * w + 2 * t, kTile),
+                 s[w][2 * h], s[w][2 * h + 1]);
+      fence_proxy_async();
+      __syncthreads();  // the partial whole, the K chunk free
+      if (threadIdx.x < c) {  // owner j's rows to slot `rank` of its ex
+        const int j = threadIdx.x;
+        bulk_to(ex + rank * R * kTile, j, pt + j * R * kTile,
+                rows_of(j) * kTile * sizeof(float), bar_ex);
+        bulk_commit();
+      }
+      if (n != c) load_v(i + 1);
+      if (n == c && i + 1 < nt)
+        chunk_async<kTile, kTcThreads>(kc, k + at((kt + 1) * kTile) +
+                                               jo * kWide, d);
+      cp_async_commit();
+      mbar_wait(bar_ex, phase);  // every partial of the owned rows
+      owner_step<false, true>(ex, pt, al, ml, qt, kt, causal, scale2, rank,
+                              c);
+      fence_proxy_async();
+      __syncthreads();  // the owned rows of P and (alpha, l) written
+      if (threadIdx.x < c && threadIdx.x != rank) {
+        const int j = threadIdx.x;
+        bulk_to(pt + own0 * kTile, j, pt + own0 * kTile,
+                nown * kTile * sizeof(float), bar_p);
+        bulk_to(al + 4 * own0, j, al + 4 * own0, nown * 4 * sizeof(float),
+                bar_p);
+        bulk_commit();
+      }
+      mbar_wait(bar_p, phase);  // every other owner's rows
+      if (jo < n) {
+        const float a0 = al[4 * (rw + g)], a8 = al[4 * (rw + g + 8)];
+#pragma unroll
+        for (int w = 0; w < NB; ++w) {
+          acc[w][0] *= a0, acc[w][1] *= a0;
+          acc[w][2] *= a8, acc[w][3] *= a8;
+        }
+        // one k step (16 keys) of P at a time: the order of mma_xb_split
+        // over all 64, in fewer registers
+        auto pv = [&](int kk) {
+          float x[2][4];
+          tile_rows_acc(x, pt, rw, kk);
+          mma_xb_split<T16, kWide, kWide / 2, 1>(
+              acc, x, vc + (i & 1) * kWideTile + 16 * kk * kWideLd + oh,
+              lane);
+        };
+        if constexpr (kStr) {  // unrolled whole, the streaming kernel spilled
+#pragma unroll 2
+          for (int kk = 0; kk < kTile / 16; ++kk) pv(kk);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < kTile / 16; ++kk) pv(kk);
+        }
+      }
+    }
+    // the workspaces' row of the tile's first row (streaming)
+    const size_t ws =
+        kStr ? ws_row(blockIdx.y, blockIdx.z, gridDim.z, seq, qt * kTile) : 0;
+    if (jo < n) {
+      if constexpr (kStr) {
+        store_tc_rows(acc_ws + ws * d, d, rw, jo * kWide + oh, acc, 1.f);
+      } else {
+        const float l0 = al[4 * (rw + g) + 1], l8 = al[4 * (rw + g + 8) + 1];
+#pragma unroll
+        for (int w = 0; w < NB; ++w) {
+          acc[w][0] /= l0, acc[w][1] /= l0;
+          acc[w][2] /= l8, acc[w][3] /= l8;
+        }
+        store_tc_rows(o + at(qt * kTile), d, rw, jo * kWide + oh, acc, 1.f);
+      }
+    }
+    if (pass == 0 && threadIdx.x < nown) {
+      // m rounded to natural units before the sum (never one FMA), as the
+      // merge pass adds it: one split gives the resident kernel's bits
+      const int r = own0 + threadIdx.x;
+      const float m = __fmul_rn(ml[2 * threadIdx.x], kLn2);
+      const float l = ml[2 * threadIdx.x + 1];
+      if constexpr (kStr) {
+        m_ws[ws + r] = m;
+        l_ws[ws + r] = l;
+      } else {
+        lse[(size_t)blockIdx.y * seq + qt * kTile + r] = m + logf(l);
+      }
+    }
+    // A CTA leaves, or reloads its chunks, once its own copies are read;
+    // every copy into it has arrived (its mbarriers).
+    if (threadIdx.x < c) bulk_wait_read();
+    __syncthreads();
+  }
+}
+
+// Resident: grid x is the q tiles (the longest causal rows first) times
+// the cluster's CTAs.
+template <typename T16>
+__global__ void __launch_bounds__(kTcThreads, kFwd16Ctas)
+    flash_fwd_wide16_kernel(const T16* __restrict__ q,
+                            const T16* __restrict__ k,
+                            const T16* __restrict__ v, T16* __restrict__ o,
+                            float* __restrict__ lse, int seq, int d,
+                            float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char wide16_smem[];
+  const int qt = seq / kTile - 1 - (int)blockIdx.x / cluster_size();
+  fwd_tiles16<T16, false>(wide16_smem, q, k, v, o, lse, nullptr, nullptr,
+                          nullptr, seq, d, qt, 0,
+                          causal ? qt + 1 : seq / kTile, causal,
+                          scale * kLog2e);
+}
+
+// Streaming: grid (q tiles times the cluster's CTAs, splits, BH); every CTA
+// of a cluster shares qt and the split, so a dead pair exits for the
+// whole cluster before its first barrier.
+template <typename T16>
+__global__ void __launch_bounds__(kTcThreads, kFwd16Ctas)
+    flash_fwd_str_wide16_kernel(const T16* __restrict__ q,
+                                const T16* __restrict__ k,
+                                const T16* __restrict__ v,
+                                float* __restrict__ m_ws,
+                                float* __restrict__ l_ws,
+                                float* __restrict__ acc_ws, int seq, int d,
+                                int split, float scale, int causal) {
+  const int num_t = seq / kTile;
+  const int qt = num_t - 1 - (int)blockIdx.x / cluster_size();
+  const int kt0 = blockIdx.y * split;
+  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
+  if (kt0 >= kt1) return;  // dead pair, for the whole cluster
+
+  extern __shared__ __align__(16) unsigned char wide16_smem[];
+  fwd_tiles16<T16, true>(wide16_smem, q, k, v, nullptr, nullptr, m_ws, l_ws,
+                         acc_ws, seq, d, qt, kt0, kt1, causal,
+                         scale * kLog2e);
+}
+
 // ---- the streaming passes at a wide D: grid x is the row tiles times the
 // D / kWide output slices ----------------------------------------------------
 template <typename T>
@@ -3156,59 +3426,78 @@ int num_splits(int seq, int split) {
   return (seq / kTile + split - 1) / split;
 }
 
-// CTAs of a float32 cluster: the D / kWide slices over at most kSplitCtas
-// CTAs, ceil(n / kSplitCtas) slices a CTA.
+// CTAs of a split-D cluster (the float32 kernels from D = 256, the 16-bit
+// forward above it): the D / kWide slices over at most kSplitCtas CTAs,
+// ceil(n / kSplitCtas) slices a CTA.
 int split_ctas(int d) {
   const int n = d / kWide;
   const int per = (n + kSplitCtas - 1) / kSplitCtas;
   return (n + per - 1) / per;
 }
 
-// Launch `kernel` (kTcThreads a CTA) as clusters of `ctas` CTAs along grid
-// x; a cluster the card cannot place is an error of the launch.
+// The launch of clusters of `ctas` CTAs along grid x, kTcThreads a CTA.
+struct SplitLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = {};
+  SplitLaunch(dim3 grid, int ctas, size_t smem, cudaStream_t stream) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = ctas;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kTcThreads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  SplitLaunch(const SplitLaunch&) = delete;
+};
+
+// Launch `kernel` as clusters of `ctas` CTAs along grid x; a cluster the
+// card cannot place is an error of the launch.
 template <typename... Params, typename... Args>
 cudaError_t launch_split(void (*kernel)(Params...), dim3 grid, int ctas,
                          size_t smem, cudaStream_t stream, Args... args) {
   BPS_RETURN_IF_ERROR(allow_smem(kernel, smem));
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = ctas;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kTcThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  BPS_RETURN_IF_ERROR(cudaLaunchKernelEx(&cfg, kernel, args...));
+  const SplitLaunch launch(grid, ctas, smem, stream);
+  BPS_RETURN_IF_ERROR(cudaLaunchKernelEx(&launch.cfg, kernel, args...));
   return cudaGetLastError();
+}
+
+// Clusters of `ctas` CTAs of `kernel` the card holds at once
+// (cudaOccupancyMaxActiveClusters), or -1 on an error.
+template <typename... Params>
+int max_clusters(void (*kernel)(Params...), int ctas, size_t smem) {
+  if (allow_smem(kernel, smem) != cudaSuccess) return -1;
+  const SplitLaunch launch(dim3(ctas), ctas, smem, nullptr);
+  int n = 0;
+  return cudaOccupancyMaxActiveClusters(&n, kernel, &launch.cfg) ==
+                 cudaSuccess
+             ? n
+             : -1;
 }
 
 // Launchers at a wide head dim (above 256, a multiple of kWide; and
 // float32 at D = 256): the same work as the launchers below, D a
-// run-time argument, kWide-column output passes in grid x (float32: the
-// clusters of split_ctas CTAs).
+// run-time argument; the forward and the float32 backward as clusters of
+// split_ctas CTAs, the 16-bit backward as kWide-column output passes in
+// grid x.
 template <typename T>
 cudaError_t launch_fwd_wide(int d, const void* q, const void* k,
                             const void* v, void* o, float* lse, int bh, int seq,
                             float scale, int causal, cudaStream_t stream) {
-  if constexpr (kTensorCores<T>) {
-    const dim3 grid(seq / kTile * (d / kWide), bh);
-    const size_t smem = wide_mma_smem(3);
-    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_wide_mma_kernel<T>, smem));
-    flash_fwd_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, seq, d, scale,
-        causal);
-  } else {
-    const int ctas = split_ctas(d);
-    return launch_split(flash_fwd_wide_kernel, dim3(seq / kTile * ctas, bh),
-                        ctas, f32_fwd_smem<kWide, true>(ctas), stream,
+  const int ctas = split_ctas(d);
+  const dim3 grid(seq / kTile * ctas, bh);
+  if constexpr (kTensorCores<T>)
+    return launch_split(flash_fwd_wide16_kernel<T>, grid, ctas,
+                        fwd16_smem(ctas), stream, (const T*)q, (const T*)k,
+                        (const T*)v, (T*)o, lse, seq, d, scale, causal);
+  else
+    return launch_split(flash_fwd_wide_kernel, grid, ctas,
+                        f32_fwd_smem<kWide, true>(ctas), stream,
                         (const float*)q, (const float*)k, (const float*)v,
                         (float*)o, lse, seq, d, scale, causal);
-  }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -3271,22 +3560,19 @@ cudaError_t launch_fwd_str_wide(int d, const void* q, const void* k,
   const int num_t = seq / kTile;
   const int npass = d / kWide;
   const int nsplit = num_splits(seq, split);
-  if constexpr (kTensorCores<T>) {
-    const dim3 grid(num_t * npass, nsplit, bh);
-    const size_t smem = wide_mma_smem(3);
-    BPS_RETURN_IF_ERROR(allow_smem(flash_fwd_str_wide_mma_kernel<T>, smem));
-    flash_fwd_str_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq, d,
-        split, scale, causal);
-    BPS_RETURN_IF_ERROR(cudaGetLastError());
-  } else {
-    const int ctas = split_ctas(d);
+  const int ctas = split_ctas(d);
+  const dim3 grid(num_t * ctas, nsplit, bh);
+  if constexpr (kTensorCores<T>)
     BPS_RETURN_IF_ERROR(launch_split(
-        flash_fwd_str_wide_kernel, dim3(num_t * ctas, nsplit, bh), ctas,
+        flash_fwd_str_wide16_kernel<T>, grid, ctas, fwd16_smem(ctas), stream,
+        (const T*)q, (const T*)k, (const T*)v, m_ws, l_ws, acc_ws, seq, d,
+        split, scale, causal));
+  else
+    BPS_RETURN_IF_ERROR(launch_split(
+        flash_fwd_str_wide_kernel, grid, ctas,
         f32_fwd_smem<kWide, true>(ctas), stream, (const float*)q,
         (const float*)k, (const float*)v, m_ws, l_ws, acc_ws, seq, d, split,
         scale, causal));
-  }
   flash_fwd_str_merge_wide_kernel<T>
       <<<dim3(num_t * npass, bh), kThreads, 0, stream>>>(
           m_ws, l_ws, acc_ws, (T*)o, lse, seq, d, nsplit, split, causal);
@@ -3709,6 +3995,34 @@ extern "C" int bps_flash_f32_cluster(int head_dim) {
                ? 1
                : 0;
   return head_dim % kWide == 0 ? split_ctas(head_dim) : 0;
+}
+
+// CTAs of one cluster of the 16-bit (bf16, float16) forward at
+// `head_dim`: split_ctas(D) above 256, where it runs as clusters; 1 at the
+// instantiated head dims, one CTA a tile; 0 for a head dim it does not
+// take.
+extern "C" int bps_flash_fwd16_cluster(int head_dim) {
+  if (head_dim <= 256)
+    return head_dim == 16 || head_dim == 32 || head_dim == 64 ||
+                   head_dim == 128 || head_dim == 256
+               ? 1
+               : 0;
+  return head_dim % kWide == 0 ? split_ctas(head_dim) : 0;
+}
+
+// Clusters of the resident 16-bit wide forward (dtype 1 = bfloat16,
+// 2 = float16) at `head_dim` (above 256) that the card holds at once;
+// -1 on an error or for what the kernel does not take.
+extern "C" int bps_flash_fwd16_max_clusters(int head_dim, int dtype) {
+  if (head_dim <= 256 || head_dim % kWide) return -1;
+  const int ctas = split_ctas(head_dim);
+  if (dtype == 1)
+    return max_clusters(flash_fwd_wide16_kernel<__nv_bfloat16>, ctas,
+                        fwd16_smem(ctas));
+  if (dtype == 2)
+    return max_clusters(flash_fwd_wide16_kernel<__half>, ctas,
+                        fwd16_smem(ctas));
+  return -1;
 }
 
 extern "C" const char* bps_cuda_error_string(int err) {

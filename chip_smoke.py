@@ -15,9 +15,11 @@ Phases, each of which must pass:
    so must every float32 kernel, 3xTF32: the 8 forward and 16 backward
    instantiations at D = 16-128 (one CTA a tile), the only float32
    instantiations the library holds, and the two wide forward and four
-   wide backward kernels (clusters), which also run D = 256.  The float32
-   tensor-core kernels must spill nothing; their ptxas registers and the
-   cluster size at each head dim are printed.
+   wide backward kernels (clusters), which also run D = 256.  The bf16
+   and float16 forward above D = 256 runs as split-D clusters too
+   (flash_fwd{,_str}_wide16_kernel<bf16|f16>).  The float32 tensor-core
+   kernels and the 16-bit wide forward must spill nothing; their ptxas
+   registers and the cluster size at each head dim are printed.
 2. Hold each flash kernel against its plain PyTorch version on the card:
    the flagship attention shape [8*16, 512, 64] bf16, causal and not, and
    a small float32 shape through the autograd op with block_q != block_k.
@@ -109,7 +111,12 @@ Phases, each of which must pass:
    held to the plain versions as in phase 7 (float16 with its bf16
    control), the float32 forward's launches by instantiation one a case of
    its family (printed with the cluster size: 3 CTAs at D = 264 and 384, 4
-   at 512, 8 at 1024); then each kernel at D = 384 and 512 in the three dtypes
+   at 512, 8 at 1024), and so must the bf16 and float16 forward's (the
+   split-D cluster kernels, the library's only 16-bit forward above
+   D = 256), printed with their cluster size (3, 4 and 8 CTAs at
+   D = 384, 512 and 1024), ptxas registers and spills, HMMA count and the
+   clusters the card holds at once (cudaOccupancyMaxActiveClusters); then
+   each kernel at D = 384 and 512 in the three dtypes
    against its plain version and timed (resident at [128, 512, D],
    streaming at [16, 8192, D]) beside its bound (float32's at the 3xTF32
    ceiling of 165 TFLOP/s, the bound at 67 outside the tensor cores
@@ -149,7 +156,6 @@ without that line, when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import json
 import math
 import os
@@ -214,6 +220,11 @@ F32_WIDE_BWD = ("flash_bwd_dq_wide_kernel<f32>",
                 "flash_bwd_dkv_wide_kernel<f32>",
                 "flash_bwd_dkv_str_wide_kernel<f32>")
 F32_WIDE = F32_WIDE_FWD + F32_WIDE_BWD
+# The bf16 and float16 forward above D = 256: split-D clusters of
+# split_ctas(D) CTAs (their SASS labels), and that size at some D.
+WIDE16_FWD = tuple(f"flash_fwd{k}_wide16_kernel<{t}>"
+                   for k in ("", "_str") for t in ("bf16", "f16"))
+WIDE16_CLUSTER = {384: 3, 512: 4, 1024: 8}
 # The float32 forward and backward at D <= 128: one CTA a tile, 3xTF32.
 F32_TC_DIMS = (16, 32, 64, 128)
 F32_TC_FWD = tuple(f"flash_fwd{k}_tc_kernel<f32,{d}>"
@@ -430,28 +441,30 @@ def phase_build(mods, build_mod, torch, gpu, check):
             if "_mma_kernel" in kernel:
                 mma.append(report)
     if mma:       # no report when the library was built by an earlier run
-        # 6 kernels, bf16 and f16, at each head dim and wide
-        want = 6 * (len(mods[0].HEAD_DIMS) + 1) * 2
+        # 6 kernels, bf16 and f16, at each head dim; the wide backward's 4
+        want = (6 * len(mods[0].HEAD_DIMS) + 4) * 2
         check(len(mma) == want and all(
             re.search(r"\b0 bytes spill stores", r) for r in mma),
               f"ptxas: no spills in the {len(mma)} tensor-core kernels "
               f"(want {want})")
-        for what, names in (("wide forward", F32_WIDE_FWD),
-                            ("wide backward", F32_WIDE_BWD),
-                            ("forward (D <= 128)", F32_TC_FWD),
-                            ("backward (D <= 128)", F32_TC_BWD)):
+        for what, names in (("float32 wide forward", F32_WIDE_FWD),
+                            ("float32 wide backward", F32_WIDE_BWD),
+                            ("float32 forward (D <= 128)", F32_TC_FWD),
+                            ("float32 backward (D <= 128)", F32_TC_BWD),
+                            ("bf16 and float16 wide forward", WIDE16_FWD)):
             check(all(re.search(r"\b0 bytes spill stores", f32.get(k, ""))
                       for k in names),
-                  f"ptxas: no spills in the {len(names)} float32 {what} "
+                  f"ptxas: no spills in the {len(names)} {what} "
                   f"kernels: " + "; ".join(
                       f"{k} {f32.get(k, 'not built')}" for k in names))
     lib = mods[0]._lib()
-    lib.bps_flash_f32_cluster.argtypes = [ctypes.c_int]
+    dims = (16, 32, 64, 128, 256, 384, 512, 640, 768, 896, 1024, 1152)
     print("  float32 cluster (CTAs, forward and backward) by head dim: "
-          + ", ".join(
-              f"D {d}: {lib.bps_flash_f32_cluster(d)}"
-              for d in (16, 32, 64, 128, 256, 384, 512, 640, 768, 896, 1024,
-                        1152)))
+          + ", ".join(f"D {d}: {lib.bps_flash_f32_cluster(d)}"
+                      for d in dims))
+    print("  bf16 and float16 forward cluster (CTAs) by head dim: "
+          + ", ".join(f"D {d}: {lib.bps_flash_fwd16_cluster(d)}"
+                      for d in dims))
     counts = hmma_census(build_mod, build_mod.build(mods[0].SOURCE),
                          len(mods[0].HEAD_DIMS), check)
     return f32, counts
@@ -537,9 +550,12 @@ def hmma_census(build_mod, lib, n_dims, check):
         s in k for s in ("merge", "delta", "sum_splits"))]
     tc = [k for k in wide if "bf16" in k or "f16" in k]
     f32 = [k for k in wide if "f32" in k]
-    check(len(tc) == 12 and all(counts[k] > 0 for k in tc),
+    check(len(tc) == 12 and all(counts[k] > 0 for k in tc)
+          and set(WIDE16_FWD) <= set(tc),
           f"SASS: HMMA in all {len(tc)} bf16 and float16 wide (D > 256) "
-          f"kernels (min {min((counts[k] for k in tc), default=0)})")
+          f"kernels (min {min((counts[k] for k in tc), default=0)}), the "
+          f"forward's split-D clusters among them: " + ", ".join(
+              f"{k} {counts.get(k, 0)}" for k in WIDE16_FWD))
     check(sorted(f32) == sorted(F32_WIDE) and all(counts[k] > 0 for k in f32),
           f"SASS: HMMA in the {len(f32)} float32 wide forward and backward "
           f"kernels (3xTF32: " + ", ".join(f"{k} {counts[k]}" for k in f32)
@@ -1578,16 +1594,21 @@ def phase_instances(fa, torch, check, tag, d, long_shape=LONG):
     return out, yard
 
 
-def phase_wide(fa, tfm, torch, check):
+def phase_wide(fa, tfm, torch, check, ptxas, hmma):
     """Part A: flash_attention_fn on the card above D = 256 (the wide
     kernels): D = 264, 384 and 512 at [8, 16, 512, D], and 1024 at
     [1, 4, 512, D], in float32, bf16 and float16, resident and streaming,
     forward and both gradients, each held to the plain versions under the
     elementwise gates (float16 to its own step, with the bf16 control).
-    The float32 forward's launches by instantiation must be one a case of
-    its family (the library holds no float32 wide forward but the cluster
-    kernels, phase 1), printed with their cluster size.  Returns the
+    The forward's launches by instantiation must be one a case of its
+    family in each dtype, and in bf16 one more resident launch for each
+    float16 case's control (the library holds no wide forward but the
+    cluster kernels, phase 1), printed with their cluster size; the bf16
+    and float16 forward's cluster kernels with their ptxas registers and
+    spills (``ptxas``, when this run built the library), HMMA count
+    (``hmma``) and the clusters the card holds at once.  Returns the
     launches by instantiation."""
+    import re
     B, H, S = (FLAGSHIP[k] for k in ("batch", "heads", "seq"))
     cases = [(dtype, (B, H, S, d), force)
              for dtype in (torch.float32, torch.bfloat16, torch.float16)
@@ -1608,20 +1629,44 @@ def phase_wide(fa, tfm, torch, check):
               (int(k.split(",")[1][:-1]) for k in launches)),
           "every launch ran a wide instantiation (D a multiple of 128 "
           "above 256)")
-    want = {}
-    for dtype, shape, force in cases:
-        if dtype == torch.float32:
-            key = (f"{'flash_fwd_str' if force else 'flash_fwd'}<f32,"
-                   f"{fa.kernel_head_dim(shape[3])}>")
-            want[key] = want.get(key, 0) + 1
-    got = {k: n for k, n in launches.items() if k.startswith("flash_fwd")
-           and "<f32," in k}
-    ctas = {k: fa._lib().bps_flash_f32_cluster(
-        int(k.split(",")[1][:-1])) for k in got}
-    check(got == want,
-          "float32 wide forward launches by instantiation " + ", ".join(
-              f"{k} {n} (cluster of {ctas[k]} CTAs)"
-              for k, n in sorted(got.items())) + f" (want {want})")
+    lib = fa._lib()
+    for dtype, tag, cluster in (
+            (torch.float32, "f32", lib.bps_flash_f32_cluster),
+            (torch.bfloat16, "bf16", lib.bps_flash_fwd16_cluster),
+            (torch.float16, "f16", lib.bps_flash_fwd16_cluster)):
+        want = {}
+        for dt, shape, force in cases:
+            d = fa.kernel_head_dim(shape[3])
+            if dt == dtype:
+                key = (f"{'flash_fwd_str' if force else 'flash_fwd'}<{tag},"
+                       f"{d}>")
+                want[key] = want.get(key, 0) + 1
+            if dt == torch.float16 and dtype == torch.bfloat16:
+                # each float16 case's control: the bf16 kernels, resident
+                want[f"flash_fwd<bf16,{d}>"] = want.get(
+                    f"flash_fwd<bf16,{d}>", 0) + 1
+        got = {k: n for k, n in launches.items()
+               if k.startswith("flash_fwd") and f"<{tag}," in k}
+        ctas = {k: cluster(int(k.split(",")[1][:-1])) for k in got}
+        check(got == want,
+              f"{fa._DTYPE_NAMES[dtype]} wide forward launches by "
+              f"instantiation " + ", ".join(
+                  f"{k} {n} (cluster of {ctas[k]} CTAs)"
+                  for k, n in sorted(got.items())) + f" (want {want})")
+    for d, want_ctas in WIDE16_CLUSTER.items():
+        ctas = lib.bps_flash_fwd16_cluster(d)
+        held = {t: lib.bps_flash_fwd16_max_clusters(d, code)
+                for t, code in (("bf16", 1), ("f16", 2))}
+        check(ctas == want_ctas and all(n > 0 for n in held.values()),
+              f"bf16 and float16 wide forward at D {d}: a cluster of {ctas} "
+              f"CTAs (want {want_ctas}); clusters the card holds at once "
+              f"(cudaOccupancyMaxActiveClusters, resident) {held}")
+    check(all(hmma.get(k, 0) > 0 for k in WIDE16_FWD) and (not ptxas or all(
+        re.search(r"\b0 bytes spill stores", ptxas.get(k, ""))
+        for k in WIDE16_FWD)),
+          "bf16 and float16 wide forward kernels: " + "; ".join(
+              f"{k} {ptxas.get(k, 'no ptxas report')}, HMMA "
+              f"{hmma.get(k, 0)}" for k in WIDE16_FWD))
     return launches
 
 
@@ -1966,7 +2011,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("== phase 10: flash above D = 256 (the wide kernels), float32, "
           "bf16, float16, both families")
-    wide = phase_wide(fa, tfm, torch, check)
+    wide = phase_wide(fa, tfm, torch, check, f32_ptxas, hmma)
     wide_kernels = []
     for tag in ("bf16", "f16", "f32"):
         for d in WIDE_TIMED:

@@ -891,7 +891,8 @@ def test_wide_f32_forward_refuses_misaligned(cuda_device):
 
 def _wide_owners(d, s):
     """The owner (cluster rank) of each of s rows in the float32 wide
-    kernels at head dim d: split_ctas CTAs, R = ceil(64 / CTAs) rows each."""
+    kernels and the 16-bit wide forward at head dim d: split_ctas CTAs,
+    R = ceil(64 / CTAs) rows each."""
     n = d // fa.WIDE_COLS
     per = -(-n // 8)
     ctas = -(-n // per)
@@ -917,6 +918,75 @@ def test_wide_f32_forward_lse_on_every_owner(cuda_device, monkeypatch, causal,
         worst = {r: float(ratio[owners.to(ratio.device) == r].max())
                  for r in range(ctas)}
         assert all(w <= 1.0 for w in worst.values()), (fwd.__name__, worst)
+
+
+
+_WIDE16 = [torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("dtype", _WIDE16)
+@pytest.mark.parametrize("d", [384, 512, 1152])
+def test_wide16_forward_repeat_is_bit_identical(cuda_device, monkeypatch, d,
+                                                dtype):
+    """The bf16 and float16 wide forward (clusters of 3 and 4 CTAs at
+    D = 384 and 512, 5 CTAs of two slices each at 1152) sums the cluster's
+    partials in rank order and its splits in split order, with no atomics:
+    two calls of each family give the same bits, causal and not.  With one
+    split the streaming kernel gives the resident kernel's bits (the merge
+    weighs the one partial by exp(0) and divides by the same l)."""
+    q, k, v, _ = _qkvdo(cuda_device, 3, 320, d, dtype)
+    scale = d ** -0.5
+    for causal in (False, True):
+        monkeypatch.setattr(fa, "_split_len", lambda s: 128)
+        runs = [(*fa.flash_fwd(q, k, v, causal, scale),
+                 *fa.flash_fwd_str(q, k, v, causal, scale))
+                for _ in range(2)]
+        monkeypatch.setattr(fa, "_split_len", lambda s: s)
+        one = fa.flash_fwd_str(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(*runs)):
+            assert torch.equal(a, b), (causal, i)
+        assert torch.equal(one[0], runs[0][0]), causal
+        assert torch.equal(one[1], runs[0][1]), causal
+
+
+@pytest.mark.parametrize("dtype", _WIDE16)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [384, 768, 1152])
+def test_wide16_forward_lse_on_every_owner(cuda_device, monkeypatch, causal,
+                                           d, dtype):
+    """The owners of a tile's rows write its LSE (and, streaming, m and l),
+    in the bf16 and float16 wide forward as in float32's: on the rows of
+    every owner (3, 6 and 5 CTAs at D = 384, 768 and 1152), resident and
+    streaming (3 splits, the last ragged), LSE is within
+    1e-5 |plain| + 1e-6 of the plain version on the same inputs."""
+    monkeypatch.setattr(fa, "_split_len", lambda s: 128)
+    q, k, v, _ = _qkvdo(cuda_device, 3, 320, d, dtype)
+    scale = d ** -0.5
+    _, want = fa.flash_fwd_plain(q.float(), k.float(), v.float(), causal,
+                                 scale)
+    owners, ctas = _wide_owners(d, q.shape[1])
+    for fwd in (fa.flash_fwd, fa.flash_fwd_str):
+        _, lse = fwd(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        ratio = ((lse - want).abs() / (want.abs() * 1e-5 + 1e-6)).amax(0)
+        worst = {r: float(ratio[owners.to(ratio.device) == r].max())
+                 for r in range(ctas)}
+        assert all(w <= 1.0 for w in worst.values()), (fwd.__name__, worst)
+
+
+@pytest.mark.parametrize("dtype", _WIDE16)
+def test_wide16_forward_refuses_misaligned(cuda_device, dtype):
+    """The bf16 and float16 wide forward copies q, k and v in 16-byte
+    pieces: a contiguous view that starts 2 bytes into its storage is
+    refused by both families, not read wrongly."""
+    flat = torch.zeros(2 * 128 * 384 + 1, device=cuda_device, dtype=dtype)
+    q = flat[1:].view(2, 128, 384)
+    ok = torch.zeros(2, 128, 384, device=cuda_device, dtype=dtype)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fa.flash_fwd(q, ok, ok, True, 0.05)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        fa.flash_fwd_str(ok, q, ok, False, 0.05)
 
 
 _UNPACK_NS = [1, 100, 5000, 4096 * 33, 1048576, 1048576 - 3]
