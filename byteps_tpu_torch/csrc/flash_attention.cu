@@ -623,15 +623,12 @@ __host__ __device__ constexpr int out_cols() {
 // running max.  The caller divides cs out at the end.
 constexpr float kRowScaleMax = 16777216.f;   // 2^24
 
-template <int NB, int DC>
-__device__ __forceinline__ void scale_rows(float (&x)[NB][4],
-                                           float (&acc)[DC / 8][4],
-                                           float (&cs)[2]) {
-  float mx[2] = {0.f, 0.f};
-#pragma unroll
-  for (int n = 0; n < NB; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], fabsf(x[n][e]));
+// cs lowered from mx, each row's largest magnitude in this lane's share
+// of the block (scale_rows without the product).
+template <int DC>
+__device__ __forceinline__ void lower_row_scales(float (&mx)[2],
+                                                 float (&acc)[DC / 8][4],
+                                                 float (&cs)[2]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     mx[h] = row_max(mx[h]);
@@ -652,6 +649,18 @@ __device__ __forceinline__ void scale_rows(float (&x)[NB][4],
       }
     }
   }
+}
+
+template <int NB, int DC>
+__device__ __forceinline__ void scale_rows(float (&x)[NB][4],
+                                           float (&acc)[DC / 8][4],
+                                           float (&cs)[2]) {
+  float mx[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], fabsf(x[n][e]));
+  lower_row_scales<DC>(mx, acc, cs);
 #pragma unroll
   for (int n = 0; n < NB; ++n)
 #pragma unroll
@@ -1185,28 +1194,14 @@ __global__ void __launch_bounds__(kMmaThreads, mma_ctas<kFwdCtas>(D))
 // multiple of kWide = 128 (ops/flash_attention.py::kernel_head_dim), and
 // the kernels take D at run time.  A 64 x D tile of Q (or dO) no longer
 // fits in registers, nor six such tiles in shared memory (6 x 64 x 520
-// bf16 is 399 KB at D = 512).  So each 16-bit backward kernel walks D in
-// 128-column chunks twice over:
-//
-//   - the first products (S = Q K^T and dP = dO V^T, or their transposes
-//     in dK/dV) accumulate over every chunk of D, one 64 x 128 chunk of
-//     each operand staged in shared memory at a time;
-//   - each CTA owns one 128-column slice of its outputs (an output pass):
-//     dQ at columns col0..col0+127, or in dK/dV either dV's or dK's slice
-//     (dV needs only P, dK also dP).  The ceil(D / 128) passes of a tile
-//     run as neighbouring CTAs of the grid, each recomputing the first
-//     products and P, as the D = 256 kernels' two passes do in one CTA.
-//
-// Registers then hold one 128-column accumulator, 32-key (32-query)
-// blocks of S and dP, and a zeroed partial for each chunk's products
-// (mma_abt_chunk).  Shared memory holds at most five 64 x 136 16-bit
-// chunks (87 KB), whatever D.  The 16-bit kernels keep every piece of the
-// D <= 256 kernels' arithmetic: exact 16-bit first products with float32
-// sums, P and dS entering the second products as hi/lo pairs, bf16's third
-// term where a warp's block holds |P| >= 2^-5 or |dS| >= 1, float16's
-// per-row power-of-two scale.  The 16-bit forward, and the float32 forward
-// and backward (in 3xTF32), compute S (and dP) once per tile pair in a
-// cluster of CTAs (their own sections below).
+// bf16 is 399 KB at D = 512).  So every wide kernel holds D in 128-column
+// chunks and runs the n = D / 128 slices of a tile as one thread-block
+// cluster: each CTA contracts the first products (S = Q K^T, and dP =
+// dO V^T in the backward) over its own chunks, the partials meet at the
+// rows' owners in distributed shared memory, and each CTA applies P (or
+// dS) to its own 128 columns of the second products (the float32 kernels
+// in 3xTF32, the 16-bit forward and backward on 16-bit tensor cores:
+// their own sections below).  The helpers here are the 16-bit kernels'.
 // ---------------------------------------------------------------------------
 constexpr int kWide = 128;              // columns of an output pass
 constexpr int kWideLd = kWide + 8;      // shared row of a 16-bit chunk
@@ -1226,15 +1221,6 @@ __device__ __forceinline__ void chunk_async(T16* dst, const T16* src, int d) {
     const int c = i - r * kPieces;
     cp_async16(dst + r * kWideLd + c * 8, src + (size_t)r * d + c * 8);
   }
-}
-
-// Shared memory of a wide tensor-core kernel: `n` chunks, then two rows of
-// kTile floats (LSE and delta).
-__host__ __device__ constexpr size_t wide_mma_smem(int n) {
-  return n * kWideTile * sizeof(uint16_t) + 2 * kTile * sizeof(float);
-}
-__device__ __forceinline__ float* wide_rows(unsigned char* smem, int n) {
-  return reinterpret_cast<float*>(smem + n * kWideTile * sizeof(uint16_t));
 }
 
 // acc[n] += A B^T over one kWide-column chunk, through a zeroed partial:
@@ -1277,294 +1263,6 @@ __device__ __forceinline__ void wide_block(int npass, int& tile, int& pass) {
   pass = blockIdx.x - tile * npass;
 }
 
-// Columns [col0, col0 + kWide) of dQ at a wide D: dq_mma_tiles with S and
-// dP summed over the chunks of D, each k tile taken in two halves of 32
-// keys (the chunk partials need the registers a 64-key block would);
-// `rows` (LSE, then delta) written by the caller.
-template <typename T16>
-__device__ __forceinline__ void dq_wide_tiles(
-    unsigned char* smem, const T16* q, const T16* k, const T16* v,
-    const T16* dout, int d, int qt, int kt0, int kt1, int causal,
-    float scale, int col0, float (&acc)[kWide / 8][4]) {
-  constexpr int NK = kTile / 2;  // keys a half takes
-  T16* qs = reinterpret_cast<T16*>(smem);
-  T16* dos = qs + kWideTile;
-  T16* ks = dos + kWideTile;     // NK rows
-  T16* vs = ks + kWideTile;      // NK rows
-  T16* ko = vs + kWideTile;      // K's output columns, the whole tile
-  const float* rows = wide_rows(smem, 5);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nch = d / kWide;
-  float cs[2] = {kRowScaleMax, kRowScaleMax};
-  const int r0 = 16 * warp + (lane >> 2);
-  for (int kt = kt0; kt < kt1; ++kt) {
-    for (int h = 0; h < 2; ++h) {
-      float s[NK / 8][4], dp[NK / 8][4];
-      zero(s);
-      zero(dp);
-      for (int c = 0; c < nch; ++c) {
-        __syncthreads();
-        const size_t qo = (size_t)qt * kTile * d + c * kWide;
-        const size_t ko0 = ((size_t)kt * kTile + h * NK) * d + c * kWide;
-        chunk_async(qs, q + qo, d);
-        chunk_async(dos, dout + qo, d);
-        chunk_async<NK>(ks, k + ko0, d);
-        chunk_async<NK>(vs, v + ko0, d);
-        if (h == 0 && c == nch - 1)
-          chunk_async(ko, k + (size_t)kt * kTile * d + col0, d);
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-        mma_abt_chunk<T16, NK / 8>(s, qs + 16 * warp * kWideLd, ks, lane);
-        mma_abt_chunk<T16, NK / 8>(dp, dos + 16 * warp * kWideLd, vs, lane);
-      }
-#pragma unroll
-      for (int n = 0; n < NK / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = r0 + (e >> 1) * 8;
-          const int row = qt * kTile + r;                            // query
-          const int col = kt * kTile + h * NK + n * 8 + 2 * (lane & 3) +
-                          (e & 1);                                   // key
-          const float p = causal && col > row
-                              ? 0.f
-                              : expf(scale * s[n][e] - rows[r]);
-          dp[n][e] = p * (dp[n][e] - rows[kTile + r]);
-        }
-      if constexpr (kScaleRows<T16>()) scale_rows<NK / 8, kWide>(dp, acc, cs);
-      mma_xb_bwd<T16, kWide, kWide, NK / 16>(acc, dp, ko + h * NK * kWideLd,
-                                             lane, kRefineDs);
-    }
-  }
-  if constexpr (kScaleRows<T16>()) unscale_rows<kWide>(acc, cs);
-}
-
-template <typename T16>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-    flash_bwd_dq_wide_mma_kernel(const T16* __restrict__ q,
-                                 const T16* __restrict__ k,
-                                 const T16* __restrict__ v,
-                                 const T16* __restrict__ o,
-                                 const T16* __restrict__ dout,
-                                 const float* __restrict__ lse,
-                                 T16* __restrict__ dq,
-                                 float* __restrict__ delta, int seq, int d,
-                                 float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
-  float* rows = wide_rows(mma_smem_buf, 5);
-  int qt, pass;
-  wide_block(d / kWide, qt, pass);
-  const int bh = blockIdx.y;
-  const size_t base = (size_t)bh * seq * d;
-  // delta = rowsum(dO * O) over all of D, a warp a row; every pass
-  // computes it, the first writes it out.
-  for (int r = threadIdx.x >> 5; r < kTile; r += kWarps) {
-    const size_t at = base + (size_t)(qt * kTile + r) * d;
-    const float dl = warp_row_dot(dout + at, o + at, d);
-    if ((threadIdx.x & 31) == 0) {
-      const size_t row = (size_t)bh * seq + qt * kTile + r;
-      if (pass == 0) delta[row] = dl;
-      rows[r] = lse[row];
-      rows[kTile + r] = dl;
-    }
-  }
-  const int col0 = pass * kWide;
-  float acc[kWide / 8][4];
-  zero(acc);
-  dq_wide_tiles<T16>(mma_smem_buf, q + base, k + base, v + base, dout + base,
-                     d, qt, 0, causal ? qt + 1 : seq / kTile, causal, scale,
-                     col0, acc);
-  store_rows_ld<kWide>(dq + base + (size_t)qt * kTile * d + col0, d, acc,
-                       scale);
-}
-
-template <typename T16>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-    flash_bwd_dq_str_wide_mma_kernel(const T16* __restrict__ q,
-                                     const T16* __restrict__ k,
-                                     const T16* __restrict__ v,
-                                     const T16* __restrict__ dout,
-                                     const float* __restrict__ lse,
-                                     const float* __restrict__ delta,
-                                     float* __restrict__ dq_ws, int seq,
-                                     int d, int split, float scale,
-                                     int causal) {
-  const int num_t = seq / kTile;
-  int t, pass;
-  wide_block(d / kWide, t, pass);
-  const int qt = num_t - 1 - t;
-  const int sp = blockIdx.y;
-  const int bh = blockIdx.z;
-  const int kt0 = sp * split;
-  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
-  if (kt0 >= kt1) return;
-
-  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
-  float* rows = wide_rows(mma_smem_buf, 5);
-  const size_t base = (size_t)bh * seq * d;
-  if (threadIdx.x < kTile) {
-    const size_t row = (size_t)bh * seq + qt * kTile + threadIdx.x;
-    rows[threadIdx.x] = lse[row];
-    rows[kTile + threadIdx.x] = delta[row];
-  }
-  const int col0 = pass * kWide;
-  float acc[kWide / 8][4];
-  zero(acc);
-  dq_wide_tiles<T16>(mma_smem_buf, q + base, k + base, v + base, dout + base,
-                     d, qt, kt0, kt1, causal, scale, col0, acc);
-  store_rows_ld<kWide>(
-      dq_ws + ws_row(sp, bh, gridDim.z, seq, qt * kTile) * d + col0, d, acc,
-      1.f);
-}
-
-// One output pass of dK/dV of the k tile `kt` at a wide D over the q tiles
-// [qt0, qt1): dV's columns [col0, col0 + kWide) from P^T dO, or (dk) dK's
-// from dS^T Q, S^T = K Q^T and dP^T = V dO^T summed over the chunks of D,
-// each q tile in two halves of 32 queries (as dq_wide_tiles halves its
-// keys).  The dV pass needs no dP.
-template <typename T16>
-__device__ __forceinline__ void dkv_wide_tiles(
-    unsigned char* smem, const T16* q, const T16* k, const T16* v,
-    const T16* dout, const float* lse, const float* delta, int d, int kt,
-    int qt0, int qt1, int causal, float scale, bool dk, int col0,
-    float (&acc)[kWide / 8][4]) {
-  constexpr int NQ = kTile / 2;  // queries a half takes
-  T16* ks = reinterpret_cast<T16*>(smem);
-  T16* qs = ks + kWideTile;      // NQ rows
-  T16* vs = qs + kWideTile;
-  T16* dos = vs + kWideTile;     // NQ rows
-  T16* xo = dos + kWideTile;     // NQ rows of Q's (dK) or dO's (dV) columns
-  float* rows = wide_rows(smem, 5);  // the q tile's LSE, then delta
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nch = d / kWide;
-  float cs[2] = {kRowScaleMax, kRowScaleMax};
-  const int krow = kt * kTile + 16 * warp + (lane >> 2);  // key, +8 for e >= 2
-  for (int qt = qt0; qt < qt1; ++qt) {
-    for (int h = 0; h < 2; ++h) {
-      float st[NQ / 8][4], dpt[NQ / 8][4];
-      zero(st);
-      zero(dpt);
-      for (int c = 0; c < nch; ++c) {
-        __syncthreads();
-        const size_t ko0 = (size_t)kt * kTile * d + c * kWide;
-        const size_t qo = ((size_t)qt * kTile + h * NQ) * d;
-        chunk_async(ks, k + ko0, d);
-        chunk_async<NQ>(qs, q + qo + c * kWide, d);
-        if (dk) {
-          chunk_async(vs, v + ko0, d);
-          chunk_async<NQ>(dos, dout + qo + c * kWide, d);
-        }
-        if (c == nch - 1) {
-          chunk_async<NQ>(xo, (dk ? q : dout) + qo + col0, d);
-          if (h == 0) {
-            rows_async(rows, lse + (size_t)qt * kTile);
-            rows_async(rows + kTile, delta + (size_t)qt * kTile);
-          }
-        }
-        cp_async_commit();
-        cp_async_wait_all();
-        __syncthreads();
-        mma_abt_chunk<T16, NQ / 8>(st, ks + 16 * warp * kWideLd, qs, lane);
-        if (dk)
-          mma_abt_chunk<T16, NQ / 8>(dpt, vs + 16 * warp * kWideLd, dos,
-                                     lane);
-      }
-#pragma unroll
-      for (int n = 0; n < NQ / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = h * NQ + n * 8 + 2 * (lane & 3) + (e & 1);  // query
-          const int key = krow + (e >> 1) * 8;
-          const float p = causal && key > qt * kTile + j
-                              ? 0.f
-                              : expf(scale * st[n][e] - rows[j]);
-          st[n][e] = p;
-          dpt[n][e] = p * (dpt[n][e] - rows[kTile + j]);
-        }
-      if (dk) {
-        if constexpr (kScaleRows<T16>())
-          scale_rows<NQ / 8, kWide>(dpt, acc, cs);
-        mma_xb_bwd<T16, kWide, kWide, NQ / 16>(acc, dpt, xo, lane,
-                                               kRefineDs);
-      } else {
-        if constexpr (kScaleRows<T16>())
-          scale_rows<NQ / 8, kWide>(st, acc, cs);
-        mma_xb_bwd<T16, kWide, kWide, NQ / 16>(acc, st, xo, lane, kRefineP);
-      }
-    }
-  }
-  if constexpr (kScaleRows<T16>()) unscale_rows<kWide>(acc, cs);
-}
-
-// dK/dV at a wide D: grid x is the k tiles times 2 * D / kWide passes, the
-// first D / kWide of a tile dV's slices, the rest dK's.
-template <typename T16>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-    flash_bwd_dkv_wide_mma_kernel(const T16* __restrict__ q,
-                                  const T16* __restrict__ k,
-                                  const T16* __restrict__ v,
-                                  const T16* __restrict__ dout,
-                                  const float* __restrict__ lse,
-                                  const float* __restrict__ delta,
-                                  T16* __restrict__ dk, T16* __restrict__ dv,
-                                  int seq, int d, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
-  const int npass = d / kWide;
-  int kt, pass;
-  wide_block(2 * npass, kt, pass);
-  const bool is_dk = pass >= npass;
-  const int col0 = (is_dk ? pass - npass : pass) * kWide;
-  const int bh = blockIdx.y;
-  const size_t base = (size_t)bh * seq * d;
-  float acc[kWide / 8][4];
-  zero(acc);
-  dkv_wide_tiles<T16>(mma_smem_buf, q + base, k + base, v + base, dout + base,
-                      lse + (size_t)bh * seq, delta + (size_t)bh * seq, d, kt,
-                      causal ? kt : 0, seq / kTile, causal, scale, is_dk,
-                      col0, acc);
-  store_rows_ld<kWide>((is_dk ? dk : dv) + base + (size_t)kt * kTile * d +
-                           col0,
-                       d, acc, is_dk ? scale : 1.f);
-}
-
-template <typename T16>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-    flash_bwd_dkv_str_wide_mma_kernel(const T16* __restrict__ q,
-                                      const T16* __restrict__ k,
-                                      const T16* __restrict__ v,
-                                      const T16* __restrict__ dout,
-                                      const float* __restrict__ lse,
-                                      const float* __restrict__ delta,
-                                      float* __restrict__ dk_ws,
-                                      float* __restrict__ dv_ws, int seq,
-                                      int d, int split, float scale,
-                                      int causal) {
-  const int num_t = seq / kTile;
-  const int npass = d / kWide;
-  int kt, pass;
-  wide_block(2 * npass, kt, pass);
-  const int sp = blockIdx.y;
-  const int bh = blockIdx.z;
-  int qt0 = sp * split;
-  const int qt1 = min(qt0 + split, num_t);
-  if (causal) qt0 = max(qt0, kt);
-  if (qt0 >= qt1) return;  // dead pair: every query before every key
-
-  extern __shared__ __align__(16) unsigned char mma_smem_buf[];
-  const bool is_dk = pass >= npass;
-  const int col0 = (is_dk ? pass - npass : pass) * kWide;
-  const size_t base = (size_t)bh * seq * d;
-  float acc[kWide / 8][4];
-  zero(acc);
-  dkv_wide_tiles<T16>(mma_smem_buf, q + base, k + base, v + base, dout + base,
-                      lse + (size_t)bh * seq, delta + (size_t)bh * seq, d, kt,
-                      qt0, qt1, causal, scale, is_dk, col0, acc);
-  const size_t at = ws_row(sp, bh, gridDim.z, seq, kt * kTile) * d + col0;
-  store_rows_ld<kWide>((is_dk ? dk_ws : dv_ws) + at, d, acc, 1.f);
-}
-
 // ---- the float32 backward on the tensor cores: 3xTF32 --------------------
 // flash_bwd_dq_tc_kernel<D>, flash_bwd_dq_str_tc_kernel<D>,
 // flash_bwd_dkv_tc_kernel<D> and flash_bwd_dkv_str_tc_kernel<D> (D = 16,
@@ -1585,9 +1283,9 @@ __global__ void __launch_bounds__(kMmaThreads, 2)
 // (tile_pds) with no exchange rows and no cluster.  From D = 256, W = 128
 // and the slices meet in a cluster:
 //
-// One output slice a CTA, as in the 16-bit wide backward, would have every
-// slice recompute S = Q K^T and dP = dO V^T over all of D: about 3.9x the
-// function's products at D = 512.  Here the n = D / 128 slices of a tile
+// One output slice a CTA, each slice recomputing S = Q K^T and dP = dO V^T
+// over all of D, would issue about 3.9x the function's products at
+// D = 512.  Here the n = D / 128 slices of a tile
 // run as one thread-block cluster of n CTAs (at most 8, the portable size),
 // and each CTA contracts S and dP over its own 128 columns only: a partial.
 // The partials meet in distributed shared memory.  Row r of the 64 x 64
@@ -3316,6 +3014,749 @@ __global__ void __launch_bounds__(kTcThreads, kFwd16Ctas)
                          scale * kLog2e);
 }
 
+// ---- the 16-bit backward at a wide D: split-D clusters --------------------
+// flash_bwd_dq_wide16_kernel<T16>, flash_bwd_dq_str_wide16_kernel<T16>,
+// flash_bwd_dkv_wide16_kernel<T16> and flash_bwd_dkv_str_wide16_kernel<T16>
+// (bf16 and float16, D above 256) replace the TPU kernels _dq_kernel_res
+// (:168), _dq_kernel_str (:250), _dkv_kernel_res (:192) and
+// _dkv_kernel_str (:275) of byteps_tpu/ops/flash_attention.py there.  What
+// bounds them: at [128, 512, 512] causal the bytes, 0.12 ms each (the
+// products, 6 (dQ) and 8 (dK/dV) FLOPs per visible (q, k) pair and
+// head-dim element, take 0.05 and 0.07 ms at the bf16 tensor-core peak);
+// at [16, 8192, 512] the products, 1.67 and 2.22 ms.
+//
+// One 128-column output slice a CTA, each CTA contracting S = Q K^T and
+// dP = dO V^T over all of D itself, issues 4n + 4 (dQ) and 6n + 8 (dK/dV)
+// tensor-core FLOPs a pair and head-dim element, n = D / 128.  Here, as in
+// the float32 backward (dq_tiles_f32, dkv_tiles_f32) and the 16-bit
+// forward (fwd_tiles16), the n slices of a tile run as one cluster of
+// split_ctas(D) CTAs.  Each CTA keeps its 128-column chunks of the tile's
+// fixed operands in shared memory for the whole loop (Q and dO in dQ, K
+// and V in dK/dV) and contracts its partial S and dP over those columns
+// into zeroed float32 partials (S^T = K Q^T and dP^T = V dO^T in dK/dV:
+// the keys are the rows, so the owners own keys and P^T and dS^T come back
+// in tile_rows_acc's layout).  The owner of a row (rank r / R,
+// R = split_rows) adds the partials in rank order from zero, as the
+// one-slice kernels added their chunks, so S and dP keep their bits; it
+// masks on the diagonal with global positions and computes
+// P = exp(scale S - LSE) and dS = P (dP - delta) of its rows as they did,
+// so P and dS keep theirs too.  Every CTA then adds dS K (dQ), or P^T dO
+// and dS^T Q (dK/dV), over its own 128 columns with the 16-bit recipe of
+// every backward kernel: P and dS enter as hi/lo pairs (mma_xb_split),
+// bf16 adds the third term where the warp's block holds |P| >= 2^-5 or
+// |dS| >= 1 (mma_xb_bwd's vote, on the 16 x 16 block of one k step),
+// float16 scales each row (queries in dQ, keys in dK/dV) by a power of two
+// (scale_rows, on the warp's 16 x 64 block; tile_xb16).  The products
+// issued are 8 (dQ) and 12 (dK/dV) FLOPs a pair and head-dim element,
+// whatever D.  Above 8 slices a CTA takes ceil(n / 8): its partials sum
+// its slices in ascending order, it reloads its chunks every tile pair,
+// and it runs the tile loop once for each slice it outputs.  That case
+// is the kernels' kMulti instance, compiled for one CTA an SM: in one
+// kernel with the one-slice loop, the pair spilled 28-328 bytes at 128
+// registers, and apart the one-slice loops take 115-128 with no spill.
+//
+// The exchange is fwd_tiles16's: each CTA stores its partials into float32
+// tiles of its own, and one thread per owner sends the owner's rows with
+// one bulk copy (cp.async.bulk shared::cta -> shared::cluster) into the
+// sender's slot of the owner's exchange rows, completing on the owner's
+// mbarrier; an owner reads its own partial from its own tile (no slot, no
+// copy).  The owner writes its rows of dS (dQ), or P^T and dS^T (dK/dV),
+// over the same rows of its own tiles, and bulk copies send them to the
+// same rows of every other CTA: a row lands only where the partial it
+// replaces has been delivered, so a partial and its result share a tile.
+// No cluster barrier runs inside the tile loop.
+//
+// dQ sends S and dP in one round, each into its own slots.  dP's partial
+// is stored into V's chunk, free once dP's products are issued; the next
+// V loads once those rows' sends are read and the owner step is done, the
+// next K once dS K is done (K is the B operand of both S and dS K), so a
+// tile pair takes dP's products before S's.  The barriers, LSE and delta
+// of the owned rows, the S/dS tile, the Q, dO, K and V chunks and the
+// slots make 100.5-112.5 KB at 2-8 CTAs a cluster: two CTAs an SM (one at
+// 7 CTAs, 114.5 KB).
+//
+// dK/dV sends in two rounds through one set of slots: S^T first; the
+// owners' P^T coming back says that every owner is done with its slots,
+// so dP^T goes next, while every CTA adds P^T dO; then dS^T comes back and
+// dK adds dS^T Q.  The next dO loads once dV's products are done, the next
+// Q (with the q tile's LSE and delta) once dK's are, so a tile pair takes
+// dP^T's products before S^T's.  The barriers, LSE and delta of the q
+// tile, the S^T/P^T and dP^T/dS^T tiles, the K, V, Q and dO chunks and the
+// slots make 108.5-112.5 KB at 2-4 CTAs a cluster: two CTAs an SM (one
+// above 4).
+//
+// Eight warps: warp w takes rows 16 (w & 3) and keys (in dK/dV queries)
+// 32 (w >> 2) of the first products, then the same rows and 64 of the
+// slice's 128 output columns (dQ's 32 accumulators a thread, dK's and dV's
+// 64), 128 registers a thread.
+constexpr int kDq16Ctas = 2;    // CTAs an SM (__launch_bounds__), dQ
+constexpr int kDkv16Ctas = 2;   // ... and dK/dV (one-slice instances)
+
+// Shared memory of the 16-bit wide dQ in a cluster of c CTAs: the two
+// mbarriers (16 bytes), LSE and delta of the owned rows and the S/dS
+// tile, float32; the Q, dO, K and V chunks, 16-bit; then the S and the dP
+// slots ((c - 1) R rows each), float32, last, so that every other offset
+// is a constant.
+constexpr size_t kDq16Fixed = 16 + (2 * kTile + kTile * kTile) * sizeof(float) +
+                              4 * kWideTile * sizeof(uint16_t);
+__host__ __device__ constexpr size_t dq16_smem(int c) {
+  return kDq16Fixed + 2 * (c - 1) * split_rows(c) * kTile * sizeof(float);
+}
+// ... and of dK/dV: three mbarriers (32 bytes), LSE and delta of the q
+// tile, the S^T/P^T and dP^T/dS^T tiles; the K, V, Q and dO chunks; one
+// set of slots.
+constexpr size_t kDkv16Fixed =
+    32 + (2 * kTile + 2 * kTile * kTile) * sizeof(float) +
+    4 * kWideTile * sizeof(uint16_t);
+__host__ __device__ constexpr size_t dkv16_smem(int c) {
+  return kDkv16Fixed + (c - 1) * split_rows(c) * kTile * sizeof(float);
+}
+
+// Rows of a tile that owner j holds in a cluster with R rows an owner.
+__device__ __forceinline__ int owned_by(int j, int R) {
+  return max(0, min(kTile, j * R + R) - j * R);
+}
+
+// This CTA's rows of the swizzled tile `tile` that each other CTA owns,
+// sent by one thread per owner into this CTA's slot of the owner's
+// `slots` (ranks below the owner's in slots 0.., the rest one lower),
+// completing on the owner's `bar`.
+__device__ __forceinline__ void send_partials(float* slots, const float* tile,
+                                              uint64_t* bar, int rank, int c,
+                                              int R) {
+  const int j = threadIdx.x;
+  if (j < c && j != rank) {
+    bulk_to(slots + (rank < j ? rank : rank - 1) * R * kTile, j,
+            tile + j * R * kTile, owned_by(j, R) * kTile * sizeof(float),
+            bar);
+    bulk_commit();
+  }
+}
+
+// This CTA's owned rows of `tile`, sent to the same rows of every other
+// CTA's, completing on their `bar`.
+__device__ __forceinline__ void send_owned(float* tile, uint64_t* bar,
+                                           int rank, int c, int R) {
+  const int j = threadIdx.x;
+  if (j < c && j != rank) {
+    bulk_to(tile + rank * R * kTile, j, tile + rank * R * kTile,
+            owned_by(rank, R) * kTile * sizeof(float), bar);
+    bulk_commit();
+  }
+}
+
+// The sum, in rank order from zero, of the cluster's partials of the
+// owned row `row` at the 4 columns from `col`: this CTA's from its own
+// swizzled tile `own`, the others' from their slots of `slots` (a slot
+// holds the sender's rows byte for byte, swizzled by the tile's row).
+__device__ __forceinline__ float4 sum_partials(const float* own,
+                                               const float* slots, int row,
+                                               int col, int rank, int c,
+                                               int R) {
+  const int at = swz(row, col, kTile);  // 4 columns stay together
+  float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < c; ++i) {
+    const float4 a = *reinterpret_cast<const float4*>(
+        i == rank ? own + at
+                  : slots + at +
+                        ((i < rank ? i : i - 1) * R - rank * R) * kTile);
+    x.x += a.x, x.y += a.y, x.z += a.z, x.w += a.w;
+  }
+  return x;
+}
+
+// The warp's 16 x 32 block of a first product (rows from rw, columns from
+// ch, accumulator layout) into the swizzled tile, or with `add` added to
+// what the tile holds there.
+__device__ __forceinline__ void store_block(float* tile, const float (&x)[4][4],
+                                            int rw, int ch, bool add = false) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      float2* p = reinterpret_cast<float2*>(
+          tile + swz(rw + g + 8 * h, ch + 8 * w + 2 * t, kTile));
+      float2 u = make_float2(x[w][2 * h], x[w][2 * h + 1]);
+      if (add) u = make_float2(p->x + u.x, p->y + u.y);
+      *p = u;
+    }
+}
+
+// The owner steps take a quarter warp a row, 8 columns a lane in two
+// pieces of 4: calls f(lr, row, col) for each owned row lr (tile row
+// `row`) and piece (first column `col`).
+template <typename F>
+__device__ __forceinline__ void owned_pieces(int rank, int c, F f) {
+  const int R = split_rows(c);
+  const int nown = owned_by(rank, R);
+  const int lane = threadIdx.x & 31;
+  for (int lr = 4 * (threadIdx.x >> 5) + (lane >> 3); lr < nown;
+       lr += 4 * kTcWarps)
+#pragma unroll
+    for (int u = 0; u < 8; u += 4) f(lr, rank * R + lr, 8 * (lane & 7) + u);
+}
+
+// dQ's owner step of the tile pair (qt, kt): dS = P (dP - delta) of the
+// owned rows, S and dP summed from this CTA's partials (`st`, `dpt`) and
+// the others' (`slots`, `dp_slots`), written over the owned rows of `st`.
+// `rows` holds LSE, then (from R) delta of the owned rows.
+__device__ __forceinline__ void dq16_owner(float* st, const float* dpt,
+                                           const float* slots,
+                                           const float* dp_slots,
+                                           const float* rows, int qt, int kt,
+                                           int causal, float scale, int rank,
+                                           int c) {
+  const int R = split_rows(c);
+  owned_pieces(rank, c, [&](int lr, int row, int col) {
+    const float4 s4 = sum_partials(st, slots, row, col, rank, c, R);
+    const float4 dp4 = sum_partials(dpt, dp_slots, row, col, rank, c, R);
+    const float s[4] = {s4.x, s4.y, s4.z, s4.w};
+    float dp[4] = {dp4.x, dp4.y, dp4.z, dp4.w};
+    const int query = qt * kTile + row;
+    const int key = kt * kTile + col;
+    const float lse_r = rows[lr], del_r = rows[R + lr];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p =
+          causal && key + e > query ? 0.f : expf(scale * s[e] - lse_r);
+      dp[e] = p * (dp[e] - del_r);
+    }
+    *reinterpret_cast<float4*>(st + swz(row, col, kTile)) =
+        make_float4(dp[0], dp[1], dp[2], dp[3]);
+  });
+}
+
+// dK/dV's owner steps of the tile pair (qt, kt), the owned rows being
+// keys: P^T (kDs false) from S^T's partials (this CTA's in `pt`, the
+// others' in `slots`), written over the owned rows of `pt`; or dS^T =
+// P^T (dP^T - delta) from dP^T's (this CTA's in `dst`) and P^T's owned
+// rows, over the owned rows of `dst`.  `rows` holds the q tile's LSE, then
+// (from kTile) its delta.
+template <bool kDs>
+__device__ __forceinline__ void dkv16_owner(float* pt, float* dst,
+                                            const float* slots,
+                                            const float* rows, int qt, int kt,
+                                            int causal, float scale, int rank,
+                                            int c) {
+  const int R = split_rows(c);
+  owned_pieces(rank, c, [&](int, int row, int col) {
+    const int at = swz(row, col, kTile);
+    const float4 x4 = sum_partials(kDs ? dst : pt, slots, row, col, rank, c,
+                                   R);
+    float x[4] = {x4.x, x4.y, x4.z, x4.w};
+    if constexpr (!kDs) {
+      const int key = kt * kTile + row;
+      const int query = qt * kTile + col;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[e] = causal && key > query + e ? 0.f
+                                         : expf(scale * x[e] - rows[col + e]);
+    } else {
+      const float4 p = *reinterpret_cast<const float4*>(pt + at);
+      const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = pv[e] * (x[e] - rows[kTile + col + e]);
+    }
+    *reinterpret_cast<float4*>((kDs ? dst : pt) + at) =
+        make_float4(x[0], x[1], x[2], x[3]);
+  });
+}
+
+// acc += X B for the warp: X its 16 rows from rw of a swizzled float32
+// tile (dS, P^T or dS^T; the tile's 64 columns the contraction), B the 64
+// chunk rows from `b` (the chunk's row stride, the warp's 64 columns).
+// One k step (16 columns) at a time, in mma_xb_split's order over all 64:
+// bf16's third-term vote (from `from` on) takes the 16 x 16 block of the
+// step; float16's row scale (cs) the warp's 16 x 64 block, as in the
+// kernels at D <= 256, from a first pass over the tile's rows (the scale
+// on each 16 x 16 block ran the float16 pair 7-10% slower than bf16's,
+// its scalar work beside the step's 16 MMAs).  Unrolled whole (kUnroll)
+// or not.
+template <typename T16, bool kUnroll>
+__device__ __forceinline__ void tile_xb16(float (&acc)[kWide / 16][4],
+                                          float (&cs)[2], const float* tile,
+                                          int rw, const T16* b, int lane,
+                                          float from) {
+  if constexpr (kScaleRows<T16>()) {
+    float mx[2] = {0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      float x[2][4];
+      tile_rows_acc(x, tile, rw, kk);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], fabsf(x[n][e]));
+    }
+    lower_row_scales<kWide / 2>(mx, acc, cs);
+  }
+  auto step = [&](int kk) {
+    float x[2][4];
+    tile_rows_acc(x, tile, rw, kk);
+    if constexpr (kScaleRows<T16>()) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[n][e] *= cs[e >> 1];
+    }
+    mma_xb_bwd<T16, kWide, kWide / 2, 1>(acc, x, b + 16 * kk * kWideLd, lane,
+                                         from);
+  };
+  if constexpr (kUnroll) {
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) step(kk);
+  } else {
+#pragma unroll 1
+    for (int kk = 0; kk < kTile / 16; ++kk) step(kk);
+  }
+}
+
+// dQ of the q tile `qt` over the k tiles [kt0, kt1), this CTA's slices of
+// it (see the section's note).  The pointers are the kernel's parameters,
+// offset where they are used (head bh from blockIdx), as in fwd_tiles16.
+// Resident: scale dQ into dq; streaming (kStr): the float32 partial into
+// split blockIdx.y's workspace.  The caller has put LSE and delta of the
+// owned rows after the mbarriers.  A tile pair: dP's then S's partial
+// (into V's chunk and the S tile), the owners' rows of both sent; the
+// owner step once its partials are in; its rows of dS sent; dS K once
+// every owner's rows are in.  Every CTA of the cluster runs the same tiles
+// and passes; the mbarriers count phases across the passes.
+template <typename T16, bool kStr, bool kMulti>
+__device__ __forceinline__ void dq_tiles16(unsigned char* smem, const T16* q,
+                                           const T16* k, const T16* v,
+                                           const T16* dout, T16* dq,
+                                           float* dq_ws, int seq, int d,
+                                           int qt, int kt0, int kt1,
+                                           int causal, float scale) {
+  constexpr int NB = kWide / 16;   // n8 blocks of the warp's 64 dQ columns
+  const int c = cluster_size(), rank = cluster_rank();
+  const int R = split_rows(c);
+  uint64_t* bar_ex = reinterpret_cast<uint64_t*>(smem);  // partials in
+  uint64_t* bar_ds = bar_ex + 1;                         // dS rows in
+  const float* rows = reinterpret_cast<const float*>(smem + 16);
+  float* st = reinterpret_cast<float*>(smem + 16) + 2 * kTile;  // S, dS
+  T16* qc = reinterpret_cast<T16*>(st + kTile * kTile);
+  T16* dc = qc + kWideTile;        // dO
+  T16* kc = dc + kWideTile;
+  T16* vc = kc + kWideTile;        // V, then dP's partial
+  float* dpt = reinterpret_cast<float*>(vc);
+  float* slots = reinterpret_cast<float*>(smem + kDq16Fixed);  // S's, dP's
+  float* dp_slots = slots + (c - 1) * R * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = 16 * (warp & 3);          // the warp's rows
+  const int kh = 32 * (warp >> 2);         // its keys of S and dP
+  const int oh = kWide / 2 * (warp >> 2);  // its columns of the slice
+  const int n = d / kWide;
+  const int spc = kMulti ? (n + c - 1) / c : 1;  // slices a CTA outputs
+  const int nown = owned_by(rank, R);
+  const int nt = kt1 - kt0;
+  // the element offset of row `row` of this head in q, k, v, dO and dQ
+  auto at = [&](int row) {
+    return ((size_t)(kStr ? blockIdx.z : blockIdx.y) * seq + row) * d;
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_ex, 1);
+    mbar_init(bar_ds, 1);
+    fence_mbar_init();
+  }
+  for (int pass = 0; pass < spc; ++pass) {
+    const int jo = rank + pass * c;  // the slice this pass writes (if < n)
+    if constexpr (!kMulti) {
+      chunk_async<kTile, kTcThreads>(qc, q + at(qt * kTile) + jo * kWide, d);
+      chunk_async<kTile, kTcThreads>(dc, dout + at(qt * kTile) + jo * kWide,
+                                     d);
+      chunk_async<kTile, kTcThreads>(vc, v + at(kt0 * kTile) + jo * kWide, d);
+      cp_async_commit();
+      chunk_async<kTile, kTcThreads>(kc, k + at(kt0 * kTile) + jo * kWide, d);
+      cp_async_commit();
+    }
+    // the cluster runs, its mbarriers set, before any copy reaches a CTA
+    if (pass == 0) cluster_sync();
+    float acc[NB][4];
+    zero(acc);
+    float cs[2] = {kRowScaleMax, kRowScaleMax};
+    for (int i = 0; i < nt; ++i) {
+      const int kt = kt0 + i;
+      // the phase of both mbarriers: they complete once a tile pair
+      const uint32_t phase = (pass * nt + i) & 1;
+      if (threadIdx.x == 0) {
+        // the bytes a tile pair brings: the other CTAs' S and dP partials
+        // of the owned rows, and every other owner's rows of dS
+        mbar_expect(bar_ex, 2 * (c - 1) * nown * kTile * sizeof(float));
+        mbar_expect(bar_ds, (kTile - nown) * kTile * sizeof(float));
+      }
+      float x[4][4];
+      zero(x);
+      if constexpr (!kMulti) {
+        cp_async_wait_prev();  // V of tile kt (and Q, dO)
+        __syncthreads();
+        mma_abt<T16, kWide, 4>(x, dc + rw * kWideLd, vc + kh * kWideLd, lane);
+        cp_async_wait_all();   // K of tile kt
+        __syncthreads();       // ... and every warp done with V
+        store_block(dpt, x, rw, kh);
+        zero(x);
+        mma_abt<T16, kWide, 4>(x, qc + rw * kWideLd, kc + kh * kWideLd, lane);
+        store_block(st, x, rw, kh);
+      } else {
+        // S's, then dP's partial over this CTA's slices, summed in their
+        // tiles in ascending order (qc and kc stage S's chunks, dc and kc
+        // dP's); then the output slice's K
+#pragma unroll 1
+        for (int u = 0; u < 2; ++u) {
+          for (int j = rank; j < n; j += c) {
+            __syncthreads();
+            chunk_async<kTile, kTcThreads>(
+                u ? dc : qc, (u ? dout : q) + at(qt * kTile) + j * kWide, d);
+            chunk_async<kTile, kTcThreads>(
+                kc, (u ? v : k) + at(kt * kTile) + j * kWide, d);
+            cp_async_commit();
+            cp_async_wait_all();
+            __syncthreads();
+            zero(x);
+            mma_abt<T16, kWide, 4>(x, (u ? dc : qc) + rw * kWideLd,
+                                   kc + kh * kWideLd, lane);
+            store_block(u ? dpt : st, x, rw, kh, j != rank);
+          }
+        }
+        __syncthreads();
+        if (jo < n) {  // the output slice's K for dS K
+          chunk_async<kTile, kTcThreads>(kc, k + at(kt * kTile) + jo * kWide,
+                                         d);
+          cp_async_commit();
+          cp_async_wait_all();  // whole after the barrier below
+        }
+      }
+      fence_proxy_async();
+      __syncthreads();  // both partials whole
+      send_partials(slots, st, bar_ex, rank, c, R);
+      send_partials(dp_slots, dpt, bar_ex, rank, c, R);
+      mbar_wait(bar_ex, phase);  // the other CTAs' partials of the owned rows
+      dq16_owner(st, dpt, slots, dp_slots, rows, qt, kt, causal, scale, rank,
+                 c);
+      fence_proxy_async();
+      if (threadIdx.x < c) bulk_wait_read();  // the partials' sends read
+      __syncthreads();  // the owned rows of dS written; V's chunk free
+      send_owned(st, bar_ds, rank, c, R);
+      if (!kMulti && i + 1 < nt)
+        chunk_async<kTile, kTcThreads>(
+            vc, v + at((kt + 1) * kTile) + jo * kWide, d);
+      cp_async_commit();
+      mbar_wait(bar_ds, phase);  // every other owner's rows of dS
+      if (!kMulti || jo < n)
+        tile_xb16<T16, true>(acc, cs, st, rw, kc + oh, lane, kRefineDs);
+      if (threadIdx.x < c) bulk_wait_read();  // dS's sends read
+      __syncthreads();  // every warp done with K and the dS tile
+      if (!kMulti && i + 1 < nt)
+        chunk_async<kTile, kTcThreads>(
+            kc, k + at((kt + 1) * kTile) + jo * kWide, d);
+      cp_async_commit();
+    }
+    if (!kMulti || jo < n) {
+      if constexpr (kScaleRows<T16>()) unscale_rows<kWide / 2>(acc, cs);
+      if constexpr (kStr)
+        store_tc_rows(dq_ws + ws_row(blockIdx.y, blockIdx.z, gridDim.z, seq,
+                                     qt * kTile) * d,
+                      d, rw, jo * kWide + oh, acc, 1.f);
+      else
+        store_tc_rows(dq + at(qt * kTile), d, rw, jo * kWide + oh, acc,
+                      scale);
+    }
+  }
+}
+
+// dK and dV of the k tile `kt` over the q tiles [qt0, qt1), this CTA's
+// slices of them (see the section's note): resident, dK times scale and
+// dV into dk and dv; streaming (kStr), the float32 partials into split
+// blockIdx.y's workspaces.  A tile pair: dP^T's then S^T's partial; S^T's
+// owned rows sent (round 1); the owner's P^T once its partials are in,
+// sent; once every owner's P^T is in, dP^T's rows sent (round 2) and P^T
+// dO added; the owner's dS^T once those partials are in, sent; dS^T Q
+// once every owner's rows are in.
+template <typename T16, bool kStr, bool kMulti>
+__device__ __forceinline__ void dkv_tiles16(
+    unsigned char* smem, const T16* q, const T16* k, const T16* v,
+    const T16* dout, const float* lse, const float* delta, T16* dk, T16* dv,
+    float* dk_ws, float* dv_ws, int seq, int d, int kt, int qt0, int qt1,
+    int causal, float scale) {
+  constexpr int NB = kWide / 16;   // n8 blocks of the warp's 64 columns
+  const int c = cluster_size(), rank = cluster_rank();
+  const int R = split_rows(c);
+  uint64_t* bar_ex = reinterpret_cast<uint64_t*>(smem);  // partials in
+  uint64_t* bar_p = bar_ex + 1;                          // P^T rows in
+  uint64_t* bar_ds = bar_ex + 2;                         // dS^T rows in
+  float* rows = reinterpret_cast<float*>(smem + 32);  // LSE, delta of qt
+  float* pt = rows + 2 * kTile;       // S^T's partial, then P^T
+  float* dst = pt + kTile * kTile;    // dP^T's partial, then dS^T
+  T16* kc = reinterpret_cast<T16*>(dst + kTile * kTile);
+  T16* vc = kc + kWideTile;
+  T16* qc = vc + kWideTile;
+  T16* dc = qc + kWideTile;           // dO
+  float* slots = reinterpret_cast<float*>(smem + kDkv16Fixed);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rw = 16 * (warp & 3);          // the warp's keys
+  const int qh = 32 * (warp >> 2);         // its queries of S^T and dP^T
+  const int oh = kWide / 2 * (warp >> 2);  // its columns of the slices
+  const int n = d / kWide;
+  const int spc = kMulti ? (n + c - 1) / c : 1;
+  const int nown = owned_by(rank, R);
+  const int nt = qt1 - qt0;
+  const size_t bh = kStr ? blockIdx.z : blockIdx.y;
+  auto at = [&](int row) { return (bh * seq + row) * d; };
+  // LSE and delta of the q tile qt
+  auto load_rows = [&](int qt) {
+    rows_async(rows, lse + bh * seq + qt * kTile);
+    rows_async(rows + kTile, delta + bh * seq + qt * kTile);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_ex, 1);
+    mbar_init(bar_p, 1);
+    mbar_init(bar_ds, 1);
+    fence_mbar_init();
+  }
+  for (int pass = 0; pass < spc; ++pass) {
+    const int jo = rank + pass * c;
+    if constexpr (!kMulti) {
+      chunk_async<kTile, kTcThreads>(kc, k + at(kt * kTile) + jo * kWide, d);
+      chunk_async<kTile, kTcThreads>(vc, v + at(kt * kTile) + jo * kWide, d);
+      chunk_async<kTile, kTcThreads>(dc, dout + at(qt0 * kTile) + jo * kWide,
+                                     d);
+      cp_async_commit();
+      chunk_async<kTile, kTcThreads>(qc, q + at(qt0 * kTile) + jo * kWide, d);
+      load_rows(qt0);
+      cp_async_commit();
+    }
+    if (pass == 0) cluster_sync();
+    float dka[NB][4], dva[NB][4];
+    zero(dka);
+    zero(dva);
+    float csk[2] = {kRowScaleMax, kRowScaleMax};
+    float csv[2] = {kRowScaleMax, kRowScaleMax};
+    for (int i = 0; i < nt; ++i) {
+      const int qt = qt0 + i;
+      const uint32_t phase = (pass * nt + i) & 1;  // of bar_p and bar_ds
+      if (threadIdx.x == 0) {
+        // round 1's bytes: the other CTAs' S^T partials of the owned rows
+        mbar_expect(bar_ex, (c - 1) * nown * kTile * sizeof(float));
+        mbar_expect(bar_p, (kTile - nown) * kTile * sizeof(float));
+        mbar_expect(bar_ds, (kTile - nown) * kTile * sizeof(float));
+      }
+      float x[4][4];
+      zero(x);
+      if constexpr (!kMulti) {
+        cp_async_wait_prev();  // dO of tile qt (and K, V)
+        __syncthreads();
+        mma_abt<T16, kWide, 4>(x, vc + rw * kWideLd, dc + qh * kWideLd, lane);
+        store_block(dst, x, rw, qh);
+        zero(x);
+        cp_async_wait_all();   // Q, LSE and delta of tile qt
+        __syncthreads();
+        mma_abt<T16, kWide, 4>(x, kc + rw * kWideLd, qc + qh * kWideLd, lane);
+        store_block(pt, x, rw, qh);
+      } else {
+        // dP^T's, then S^T's partial over this CTA's slices, summed in
+        // their tiles in ascending order (kc and qc stage both products'
+        // chunks); then the output slice's Q and dO
+#pragma unroll 1
+        for (int u = 0; u < 2; ++u) {
+          for (int j = rank; j < n; j += c) {
+            __syncthreads();
+            chunk_async<kTile, kTcThreads>(
+                kc, (u ? k : v) + at(kt * kTile) + j * kWide, d);
+            chunk_async<kTile, kTcThreads>(
+                qc, (u ? q : dout) + at(qt * kTile) + j * kWide, d);
+            if (u == 0 && j == rank) load_rows(qt);
+            cp_async_commit();
+            cp_async_wait_all();
+            __syncthreads();
+            zero(x);
+            mma_abt<T16, kWide, 4>(x, kc + rw * kWideLd, qc + qh * kWideLd,
+                                   lane);
+            store_block(u ? pt : dst, x, rw, qh, j != rank);
+          }
+        }
+        __syncthreads();
+        if (jo < n) {
+          chunk_async<kTile, kTcThreads>(qc, q + at(qt * kTile) + jo * kWide,
+                                         d);
+          chunk_async<kTile, kTcThreads>(
+              dc, dout + at(qt * kTile) + jo * kWide, d);
+          cp_async_commit();
+          cp_async_wait_all();  // whole after the barrier below
+        }
+      }
+      fence_proxy_async();
+      __syncthreads();  // both partials whole
+      send_partials(slots, pt, bar_ex, rank, c, R);  // round 1: S^T
+      mbar_wait(bar_ex, 0);
+      dkv16_owner<false>(pt, dst, slots, rows, qt, kt, causal, scale, rank, c);
+      fence_proxy_async();
+      __syncthreads();  // the owned rows of P^T written
+      if (threadIdx.x == 0)  // round 2's bytes: the dP^T partials
+        mbar_expect(bar_ex, (c - 1) * nown * kTile * sizeof(float));
+      send_owned(pt, bar_p, rank, c, R);
+      mbar_wait(bar_p, phase);  // every owner's P^T: its slots are free
+      send_partials(slots, dst, bar_ex, rank, c, R);  // round 2: dP^T
+      if (!kMulti || jo < n)
+        tile_xb16<T16, false>(dva, csv, pt, rw, dc + oh, lane, kRefineP);
+      __syncthreads();  // every warp done with dO
+      if (!kMulti && i + 1 < nt)
+        chunk_async<kTile, kTcThreads>(
+            dc, dout + at((qt + 1) * kTile) + jo * kWide, d);
+      cp_async_commit();
+      mbar_wait(bar_ex, 1);
+      dkv16_owner<true>(pt, dst, slots, rows, qt, kt, causal, scale, rank, c);
+      fence_proxy_async();
+      __syncthreads();  // the owned rows of dS^T written
+      send_owned(dst, bar_ds, rank, c, R);
+      mbar_wait(bar_ds, phase);  // every other owner's rows of dS^T
+      if (!kMulti || jo < n)
+        tile_xb16<T16, false>(dka, csk, dst, rw, qc + oh, lane, kRefineDs);
+      if (threadIdx.x < c) bulk_wait_read();  // every send of the pair read
+      __syncthreads();  // every warp done with Q, the tiles and the rows
+      if (!kMulti && i + 1 < nt) {
+        chunk_async<kTile, kTcThreads>(
+            qc, q + at((qt + 1) * kTile) + jo * kWide, d);
+        load_rows(qt + 1);
+      }
+      cp_async_commit();
+    }
+    if (!kMulti || jo < n) {
+      if constexpr (kScaleRows<T16>()) {
+        unscale_rows<kWide / 2>(dka, csk);
+        unscale_rows<kWide / 2>(dva, csv);
+      }
+      if constexpr (kStr) {
+        const size_t ws =
+            ws_row(blockIdx.y, blockIdx.z, gridDim.z, seq, kt * kTile) * d;
+        store_tc_rows(dk_ws + ws, d, rw, jo * kWide + oh, dka, 1.f);
+        store_tc_rows(dv_ws + ws, d, rw, jo * kWide + oh, dva, 1.f);
+      } else {
+        store_tc_rows(dk + at(kt * kTile), d, rw, jo * kWide + oh, dka,
+                      scale);
+        store_tc_rows(dv + at(kt * kTile), d, rw, jo * kWide + oh, dva, 1.f);
+      }
+    }
+  }
+}
+
+// Resident dQ: grid x is the q tiles (the longest causal rows first) times
+// the cluster's CTAs; each CTA computes delta = rowsum(dO * O) of its
+// owned rows over all of D and writes it out for the dK/dV kernel.
+template <typename T16, bool kMulti>
+__global__ void __launch_bounds__(kTcThreads, kMulti ? 1 : kDq16Ctas)
+    flash_bwd_dq_wide16_kernel(const T16* __restrict__ q,
+                               const T16* __restrict__ k,
+                               const T16* __restrict__ v,
+                               const T16* __restrict__ o,
+                               const T16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               T16* __restrict__ dq,
+                               float* __restrict__ delta, int seq, int d,
+                               float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char wide16_smem[];
+  const int c = cluster_size();
+  const int qt = seq / kTile - 1 - (int)blockIdx.x / c;
+  const int R = split_rows(c);
+  const int own0 = cluster_rank() * R;
+  const int nown = owned_by(cluster_rank(), R);
+  float* rows = reinterpret_cast<float*>(wide16_smem + 16);
+  for (int r = threadIdx.x >> 5; r < nown; r += kTcWarps) {
+    const size_t row = (size_t)blockIdx.y * seq + qt * kTile + own0 + r;
+    const float dl = warp_row_dot(dout + row * d, o + row * d, d);
+    if ((threadIdx.x & 31) == 0) {
+      rows[r] = lse[row];
+      rows[R + r] = dl;
+      delta[row] = dl;
+    }
+  }
+  dq_tiles16<T16, false, kMulti>(wide16_smem, q, k, v, dout, dq, nullptr,
+                                 seq, d, qt, 0,
+                                 causal ? qt + 1 : seq / kTile, causal,
+                                 scale);
+}
+
+// Streaming dQ: grid (q tiles times the cluster's CTAs, splits, BH); a
+// dead pair exits for the whole cluster before its first barrier.
+template <typename T16, bool kMulti>
+__global__ void __launch_bounds__(kTcThreads, kMulti ? 1 : kDq16Ctas)
+    flash_bwd_dq_str_wide16_kernel(const T16* __restrict__ q,
+                                   const T16* __restrict__ k,
+                                   const T16* __restrict__ v,
+                                   const T16* __restrict__ dout,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta,
+                                   float* __restrict__ dq_ws, int seq, int d,
+                                   int split, float scale, int causal) {
+  const int num_t = seq / kTile;
+  const int c = cluster_size();
+  const int qt = num_t - 1 - (int)blockIdx.x / c;
+  const int kt0 = blockIdx.y * split;
+  const int kt1 = min(kt0 + split, causal ? qt + 1 : num_t);
+  if (kt0 >= kt1) return;  // dead pair, for the whole cluster
+
+  extern __shared__ __align__(16) unsigned char wide16_smem[];
+  const int R = split_rows(c);
+  const int own0 = cluster_rank() * R;
+  float* rows = reinterpret_cast<float*>(wide16_smem + 16);
+  if (threadIdx.x < owned_by(cluster_rank(), R)) {
+    const size_t row = (size_t)blockIdx.z * seq + qt * kTile + own0 +
+                       threadIdx.x;
+    rows[threadIdx.x] = lse[row];
+    rows[R + threadIdx.x] = delta[row];
+  }
+  dq_tiles16<T16, true, kMulti>(wide16_smem, q, k, v, dout, nullptr, dq_ws,
+                                seq, d, qt, kt0, kt1, causal, scale);
+}
+
+// Resident dK/dV: grid x is the k tiles (those with the most live q tiles
+// first) times the cluster's CTAs.
+template <typename T16, bool kMulti>
+__global__ void __launch_bounds__(kTcThreads, kMulti ? 1 : kDkv16Ctas)
+    flash_bwd_dkv_wide16_kernel(const T16* __restrict__ q,
+                                const T16* __restrict__ k,
+                                const T16* __restrict__ v,
+                                const T16* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                T16* __restrict__ dk, T16* __restrict__ dv,
+                                int seq, int d, float scale, int causal) {
+  extern __shared__ __align__(16) unsigned char wide16_smem[];
+  const int kt = (int)blockIdx.x / cluster_size();
+  dkv_tiles16<T16, false, kMulti>(wide16_smem, q, k, v, dout, lse, delta,
+                                  dk, dv, nullptr, nullptr, seq, d, kt,
+                                  causal ? kt : 0, seq / kTile, causal,
+                                  scale);
+}
+
+// Streaming dK/dV: grid (k tiles times the cluster's CTAs, splits, BH).
+template <typename T16, bool kMulti>
+__global__ void __launch_bounds__(kTcThreads, kMulti ? 1 : kDkv16Ctas)
+    flash_bwd_dkv_str_wide16_kernel(const T16* __restrict__ q,
+                                    const T16* __restrict__ k,
+                                    const T16* __restrict__ v,
+                                    const T16* __restrict__ dout,
+                                    const float* __restrict__ lse,
+                                    const float* __restrict__ delta,
+                                    float* __restrict__ dk_ws,
+                                    float* __restrict__ dv_ws, int seq,
+                                    int d, int split, float scale,
+                                    int causal) {
+  const int num_t = seq / kTile;
+  const int kt = (int)blockIdx.x / cluster_size();
+  int qt0 = blockIdx.y * split;
+  const int qt1 = min(qt0 + split, num_t);
+  if (causal) qt0 = max(qt0, kt);
+  if (qt0 >= qt1) return;  // dead pair, for the whole cluster
+
+  extern __shared__ __align__(16) unsigned char wide16_smem[];
+  dkv_tiles16<T16, true, kMulti>(wide16_smem, q, k, v, dout, lse, delta,
+                                 nullptr, nullptr, dk_ws, dv_ws, seq, d, kt,
+                                 qt0, qt1, causal, scale);
+}
+
 // ---- the streaming passes at a wide D: grid x is the row tiles times the
 // D / kWide output slices ----------------------------------------------------
 template <typename T>
@@ -3480,9 +3921,8 @@ int max_clusters(void (*kernel)(Params...), int ctas, size_t smem) {
 
 // Launchers at a wide head dim (above 256, a multiple of kWide; and
 // float32 at D = 256): the same work as the launchers below, D a
-// run-time argument; the forward and the float32 backward as clusters of
-// split_ctas CTAs, the 16-bit backward as kWide-column output passes in
-// grid x.
+// run-time argument; every one as clusters of split_ctas CTAs along grid
+// x.
 template <typename T>
 cudaError_t launch_fwd_wide(int d, const void* q, const void* k,
                             const void* v, void* o, float* lse, int bh, int seq,
@@ -3505,24 +3945,23 @@ cudaError_t launch_dq_wide(int d, const void* q, const void* k,
                            const void* v, const void* o, const void* dout, const float* lse,
                            void* dq, float* delta, int bh, int seq,
                            float scale, int causal, cudaStream_t stream) {
-  const dim3 grid(seq / kTile * (d / kWide), bh);
-  if constexpr (kTensorCores<T>) {
-    const size_t smem = wide_mma_smem(5);
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dq_wide_mma_kernel<T>, smem));
-    flash_bwd_dq_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout,
-        lse, (T*)dq, delta, seq, d, scale, causal);
-  } else {
-    const int ctas = split_ctas(d);
-    return launch_split(flash_bwd_dq_wide_kernel,
-                        dim3(seq / kTile * ctas, bh), ctas,
+  const int ctas = split_ctas(d);
+  const dim3 grid(seq / kTile * ctas, bh);
+  if constexpr (kTensorCores<T>)
+    return launch_split(d == kWide * ctas
+                            ? flash_bwd_dq_wide16_kernel<T, false>
+                            : flash_bwd_dq_wide16_kernel<T, true>,
+                        grid, ctas, dq16_smem(ctas), stream, (const T*)q,
+                        (const T*)k, (const T*)v, (const T*)o,
+                        (const T*)dout, lse, (T*)dq, delta, seq, d, scale,
+                        causal);
+  else
+    return launch_split(flash_bwd_dq_wide_kernel, grid, ctas,
                         f32_bwd_smem<kWide, true>(ctas, 1), stream,
                         (const float*)q, (const float*)k, (const float*)v,
                         (const float*)o,
                         (const float*)dout, lse, (float*)dq, delta, seq, d,
                         scale, causal);
-  }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -3531,24 +3970,22 @@ cudaError_t launch_dkv_wide(int d, const void* q, const void* k,
                             const float* delta, void* dk, void* dv, int bh,
                             int seq, float scale, int causal,
                             cudaStream_t stream) {
-  if constexpr (kTensorCores<T>) {
-    const dim3 grid(seq / kTile * 2 * (d / kWide), bh);
-    const size_t smem = wide_mma_smem(5);
-    BPS_RETURN_IF_ERROR(allow_smem(flash_bwd_dkv_wide_mma_kernel<T>, smem));
-    flash_bwd_dkv_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        (T*)dk, (T*)dv, seq, d, scale, causal);
-  } else {
-    const int ctas = split_ctas(d);
-    return launch_split(flash_bwd_dkv_wide_kernel,
-                        dim3(seq / kTile * ctas, bh), ctas,
+  const int ctas = split_ctas(d);
+  const dim3 grid(seq / kTile * ctas, bh);
+  if constexpr (kTensorCores<T>)
+    return launch_split(d == kWide * ctas
+                            ? flash_bwd_dkv_wide16_kernel<T, false>
+                            : flash_bwd_dkv_wide16_kernel<T, true>,
+                        grid, ctas, dkv16_smem(ctas), stream, (const T*)q,
+                        (const T*)k, (const T*)v, (const T*)dout, lse, delta,
+                        (T*)dk, (T*)dv, seq, d, scale, causal);
+  else
+    return launch_split(flash_bwd_dkv_wide_kernel, grid, ctas,
                         f32_bwd_smem<kWide, true>(ctas, 2), stream,
                         (const float*)q, (const float*)k, (const float*)v,
                         (const float*)dout,
                         lse, delta, (float*)dk, (float*)dv, seq, d, scale,
                         causal);
-  }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -3592,23 +4029,21 @@ cudaError_t launch_dq_str_wide(int d, const void* q, const void* k,
   flash_delta_wide_kernel<T><<<dim3(num_t, bh), kThreads, 0, stream>>>(
       (const T*)o, (const T*)dout, delta, seq, d);
   BPS_RETURN_IF_ERROR(cudaGetLastError());
-  if constexpr (kTensorCores<T>) {
-    const dim3 grid(num_t * npass, nsplit, bh);
-    const size_t smem = wide_mma_smem(5);
-    BPS_RETURN_IF_ERROR(
-        allow_smem(flash_bwd_dq_str_wide_mma_kernel<T>, smem));
-    flash_bwd_dq_str_wide_mma_kernel<T><<<grid, kMmaThreads, smem, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-        dq_ws, seq, d, split, scale, causal);
-    BPS_RETURN_IF_ERROR(cudaGetLastError());
-  } else {
-    const int ctas = split_ctas(d);
+  const int ctas = split_ctas(d);
+  const dim3 grid(num_t * ctas, nsplit, bh);
+  if constexpr (kTensorCores<T>)
     BPS_RETURN_IF_ERROR(launch_split(
-        flash_bwd_dq_str_wide_kernel, dim3(num_t * ctas, nsplit, bh), ctas,
+        d == kWide * ctas ? flash_bwd_dq_str_wide16_kernel<T, false>
+                          : flash_bwd_dq_str_wide16_kernel<T, true>,
+        grid, ctas, dq16_smem(ctas), stream, (const T*)q, (const T*)k,
+        (const T*)v, (const T*)dout, lse, (const float*)delta, dq_ws, seq, d,
+        split, scale, causal));
+  else
+    BPS_RETURN_IF_ERROR(launch_split(
+        flash_bwd_dq_str_wide_kernel, grid, ctas,
         f32_bwd_smem<kWide, true>(ctas, 1), stream, (const float*)q,
         (const float*)k, (const float*)v, (const float*)dout, lse, (const float*)delta, dq_ws,
         seq, d, split, scale, causal));
-  }
   flash_sum_splits_wide_kernel<T>
       <<<dim3(num_t * npass, bh), kThreads, 0, stream>>>(
           dq_ws, (T*)dq, seq, d, nsplit, split, scale, causal, 0);
@@ -3625,24 +4060,21 @@ cudaError_t launch_dkv_str_wide(int d, const void* q, const void* k,
   const int num_t = seq / kTile;
   const int npass = d / kWide;
   const int nsplit = num_splits(seq, split);
-  if constexpr (kTensorCores<T>) {
-    const dim3 grid(num_t * 2 * npass, nsplit, bh);
-    const size_t smem = wide_mma_smem(5);
-    BPS_RETURN_IF_ERROR(
-        allow_smem(flash_bwd_dkv_str_wide_mma_kernel<T>, smem));
-    flash_bwd_dkv_str_wide_mma_kernel<T>
-        <<<grid, kMmaThreads, smem, stream>>>(
-            (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse,
-            delta, dk_ws, dv_ws, seq, d, split, scale, causal);
-    BPS_RETURN_IF_ERROR(cudaGetLastError());
-  } else {
-    const int ctas = split_ctas(d);
+  const int ctas = split_ctas(d);
+  const dim3 grid(num_t * ctas, nsplit, bh);
+  if constexpr (kTensorCores<T>)
     BPS_RETURN_IF_ERROR(launch_split(
-        flash_bwd_dkv_str_wide_kernel, dim3(num_t * ctas, nsplit, bh), ctas,
+        d == kWide * ctas ? flash_bwd_dkv_str_wide16_kernel<T, false>
+                          : flash_bwd_dkv_str_wide16_kernel<T, true>,
+        grid, ctas, dkv16_smem(ctas), stream, (const T*)q, (const T*)k,
+        (const T*)v, (const T*)dout, lse, delta, dk_ws, dv_ws, seq, d, split,
+        scale, causal));
+  else
+    BPS_RETURN_IF_ERROR(launch_split(
+        flash_bwd_dkv_str_wide_kernel, grid, ctas,
         f32_bwd_smem<kWide, true>(ctas, 2), stream, (const float*)q,
         (const float*)k, (const float*)v, (const float*)dout, lse, delta, dk_ws, dv_ws, seq,
         d, split, scale, causal));
-  }
   const dim3 sum_grid(num_t * npass, bh);
   flash_sum_splits_wide_kernel<T><<<sum_grid, kThreads, 0, stream>>>(
       dk_ws, (T*)dk, seq, d, nsplit, split, scale, causal, 1);
@@ -4022,6 +4454,38 @@ extern "C" int bps_flash_fwd16_max_clusters(int head_dim, int dtype) {
   if (dtype == 2)
     return max_clusters(flash_fwd_wide16_kernel<__half>, ctas,
                         fwd16_smem(ctas));
+  return -1;
+}
+
+// CTAs of one cluster of the 16-bit (bf16, float16) backward, dQ and
+// dK/dV, at `head_dim`: as bps_flash_fwd16_cluster.
+extern "C" int bps_flash_bwd16_cluster(int head_dim) {
+  return bps_flash_fwd16_cluster(head_dim);
+}
+
+// Clusters of the resident 16-bit wide backward (dtype 1 = bfloat16,
+// 2 = float16; kernel 0 = dQ, 1 = dK/dV) at `head_dim` (above 256) that
+// the card holds at once; -1 on an error or for what it does not take.
+template <typename T16, bool kMulti>
+int bwd16_max_clusters(int ctas, int kernel) {
+  return kernel == 0 ? max_clusters(flash_bwd_dq_wide16_kernel<T16, kMulti>,
+                                    ctas, dq16_smem(ctas))
+                     : max_clusters(flash_bwd_dkv_wide16_kernel<T16, kMulti>,
+                                    ctas, dkv16_smem(ctas));
+}
+
+extern "C" int bps_flash_bwd16_max_clusters(int head_dim, int dtype,
+                                            int kernel) {
+  if (head_dim <= 256 || head_dim % kWide || kernel < 0 || kernel > 1)
+    return -1;
+  const int ctas = split_ctas(head_dim);
+  const bool multi = head_dim != kWide * ctas;
+  if (dtype == 1)
+    return multi ? bwd16_max_clusters<__nv_bfloat16, true>(ctas, kernel)
+                 : bwd16_max_clusters<__nv_bfloat16, false>(ctas, kernel);
+  if (dtype == 2)
+    return multi ? bwd16_max_clusters<__half, true>(ctas, kernel)
+                 : bwd16_max_clusters<__half, false>(ctas, kernel);
   return -1;
 }
 

@@ -20,9 +20,9 @@ families:
 (``_use_streaming``) on the caller's shape, then zero-pads the head dim up
 to the next one the kernels take (``kernel_head_dim``: one of
 ``HEAD_DIMS`` up to ``MAX_HEAD_DIM``, a multiple of ``WIDE_COLS`` above
-it, where the wide kernels run D / 128 output passes) and slices the
-output back (``_pad_head_dim``).  Each
-wrapper runs its kernel for CUDA tensors and the plain PyTorch version
+it, where the wide kernels run the D / 128 column slices of a tile as one
+cluster) and slices the output back (``_pad_head_dim``).  Each wrapper
+runs its kernel for CUDA tensors and the plain PyTorch version
 beside it (``*_plain``) for CPU tensors; for a CUDA tensor it launches the
 kernel or raises.  A wrapper cuts B*H into contiguous slices of at most
 ``MAX_LAUNCH_BH`` rows (the grid's y/z limit), one launch each.

@@ -16,10 +16,13 @@ Phases, each of which must pass:
    instantiations at D = 16-128 (one CTA a tile), the only float32
    instantiations the library holds, and the two wide forward and four
    wide backward kernels (clusters), which also run D = 256.  The bf16
-   and float16 forward above D = 256 runs as split-D clusters too
-   (flash_fwd{,_str}_wide16_kernel<bf16|f16>).  The float32 tensor-core
-   kernels and the 16-bit wide forward must spill nothing; their ptxas
-   registers and the cluster size at each head dim are printed.
+   and float16 forward and backward above D = 256 run as split-D clusters
+   too (flash_fwd{,_str}_wide16_kernel<bf16|f16> and
+   flash_bwd_{dq,dkv}{,_str}_wide16_kernel<bf16|f16>, with the backward's
+   <bf16|f16,multi> instances for more slices than CTAs).  The float32
+   tensor-core kernels and the 16-bit wide forward and backward must spill
+   nothing; their ptxas registers and the cluster sizes at each head dim
+   are printed.
 2. Hold each flash kernel against its plain PyTorch version on the card:
    the flagship attention shape [8*16, 512, 64] bf16, causal and not, and
    a small float32 shape through the autograd op with block_q != block_k.
@@ -107,7 +110,9 @@ Phases, each of which must pass:
    forward and backward there.  Each must have been launched by phases 7-8.
 10. Head dims above 256 (the wide kernels): flash_attention_fn forward and
    backward at [8, 16, 512, D] for D = 264, 384 and 512 and at
-   [1, 4, 512, 1024], float32, bf16 and float16, each in both families,
+   [1, 4, 512, D] for D = 1024 and 1152 (9 slices: 5 CTAs of two, the
+   backward's multi-slice instances), float32, bf16 and float16, each in
+   both families,
    held to the plain versions as in phase 7 (float16 with its bf16
    control), the float32 forward's launches by instantiation one a case of
    its family (printed with the cluster size: 3 CTAs at D = 264 and 384, 4
@@ -115,7 +120,11 @@ Phases, each of which must pass:
    split-D cluster kernels, the library's only 16-bit forward above
    D = 256), printed with their cluster size (3, 4 and 8 CTAs at
    D = 384, 512 and 1024), ptxas registers and spills, HMMA count and the
-   clusters the card holds at once (cudaOccupancyMaxActiveClusters); then
+   clusters the card holds at once (cudaOccupancyMaxActiveClusters); the
+   same for the bf16 and float16 backward's (dQ and dK/dV, resident and
+   streaming: the split-D cluster kernels, their launches by
+   instantiation one a case of their family, and the clusters of dQ and
+   of dK/dV held at once); then
    each kernel at D = 384 and 512 in the three dtypes
    against its plain version and timed (resident at [128, 512, D],
    streaming at [16, 8192, D]) beside its bound (float32's at the 3xTF32
@@ -148,7 +157,8 @@ Phases, each of which must pass:
    "dots", "dots_no_batch"): flash launches 48/24/24 a step under every
    policy, losses equal across policies, step ms and peak memory each.
 
-Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
+Prints a ``{"kernels": [...]}`` line (each entry also naming the CUDA
+kernels it launches, ``cuda_kernels``), the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
 without that line, when there is no CUDA device or any phase fails.
 """
@@ -206,8 +216,9 @@ HD96_STEPS = 3
 # New instantiations timed at the flagship and long shapes.
 NEW_INSTANCES = (("bf16", 256), ("f16", 64))
 # Head dims above 256 (the wide kernels, D padded to a multiple of 128):
-# covered at the flagship's [8, 16, 512, D], D = 1024 at [1, 4, 512, D];
-# timed at D = 384 and 512, the streaming family at WIDE_LONG.
+# covered at the flagship's [8, 16, 512, D], D = 1024 and 1152 at
+# [1, 4, 512, D]; timed at D = 384 and 512, the streaming family at
+# WIDE_LONG.
 WIDE_DIMS = (264, 384, 512)
 WIDE_TIMED = (384, 512)
 WIDE_LONG = dict(batch=1, heads=16, seq=8192)
@@ -220,10 +231,15 @@ F32_WIDE_BWD = ("flash_bwd_dq_wide_kernel<f32>",
                 "flash_bwd_dkv_wide_kernel<f32>",
                 "flash_bwd_dkv_str_wide_kernel<f32>")
 F32_WIDE = F32_WIDE_FWD + F32_WIDE_BWD
-# The bf16 and float16 forward above D = 256: split-D clusters of
-# split_ctas(D) CTAs (their SASS labels), and that size at some D.
+# The bf16 and float16 forward and backward above D = 256: split-D
+# clusters of split_ctas(D) CTAs (their SASS labels; the backward's
+# ",multi" instances run D above 1024, more slices than CTAs), and that
+# size at some D.
 WIDE16_FWD = tuple(f"flash_fwd{k}_wide16_kernel<{t}>"
                    for k in ("", "_str") for t in ("bf16", "f16"))
+WIDE16_BWD = tuple(f"flash_bwd_{f}{k}_wide16_kernel<{t}{m}>"
+                   for f in ("dq", "dkv") for k in ("", "_str")
+                   for t in ("bf16", "f16") for m in ("", ",multi"))
 WIDE16_CLUSTER = {384: 3, 512: 4, 1024: 8}
 # The float32 forward and backward at D <= 128: one CTA a tile, 3xTF32.
 F32_TC_DIMS = (16, 32, 64, 128)
@@ -441,8 +457,8 @@ def phase_build(mods, build_mod, torch, gpu, check):
             if "_mma_kernel" in kernel:
                 mma.append(report)
     if mma:       # no report when the library was built by an earlier run
-        # 6 kernels, bf16 and f16, at each head dim; the wide backward's 4
-        want = (6 * len(mods[0].HEAD_DIMS) + 4) * 2
+        # 6 kernels, bf16 and f16, at each head dim
+        want = 6 * len(mods[0].HEAD_DIMS) * 2
         check(len(mma) == want and all(
             re.search(r"\b0 bytes spill stores", r) for r in mma),
               f"ptxas: no spills in the {len(mma)} tensor-core kernels "
@@ -451,7 +467,8 @@ def phase_build(mods, build_mod, torch, gpu, check):
                             ("float32 wide backward", F32_WIDE_BWD),
                             ("float32 forward (D <= 128)", F32_TC_FWD),
                             ("float32 backward (D <= 128)", F32_TC_BWD),
-                            ("bf16 and float16 wide forward", WIDE16_FWD)):
+                            ("bf16 and float16 wide forward", WIDE16_FWD),
+                            ("bf16 and float16 wide backward", WIDE16_BWD)):
             check(all(re.search(r"\b0 bytes spill stores", f32.get(k, ""))
                       for k in names),
                   f"ptxas: no spills in the {len(names)} {what} "
@@ -465,6 +482,9 @@ def phase_build(mods, build_mod, torch, gpu, check):
     print("  bf16 and float16 forward cluster (CTAs) by head dim: "
           + ", ".join(f"D {d}: {lib.bps_flash_fwd16_cluster(d)}"
                       for d in dims))
+    print("  bf16 and float16 backward cluster (CTAs, dQ and dK/dV) by head "
+          "dim: " + ", ".join(f"D {d}: {lib.bps_flash_bwd16_cluster(d)}"
+                              for d in dims))
     counts = hmma_census(build_mod, build_mod.build(mods[0].SOURCE),
                          len(mods[0].HEAD_DIMS), check)
     return f32, counts
@@ -480,6 +500,8 @@ def kernel_label(mangled):
     label = name.group(1) if name else mangled
     if dims:
         return label + f"<{dtype},{dims.group(1)}>"
+    if "Lb1E" in mangled:  # a kMulti instance (more slices than CTAs)
+        return label + f"<{dtype},multi>"
     return label + (f"<{dtype}>" if "_wide" in label else "")
 
 
@@ -550,17 +572,38 @@ def hmma_census(build_mod, lib, n_dims, check):
         s in k for s in ("merge", "delta", "sum_splits"))]
     tc = [k for k in wide if "bf16" in k or "f16" in k]
     f32 = [k for k in wide if "f32" in k]
-    check(len(tc) == 12 and all(counts[k] > 0 for k in tc)
-          and set(WIDE16_FWD) <= set(tc),
+    check(sorted(tc) == sorted(WIDE16_FWD + WIDE16_BWD)
+          and all(counts[k] > 0 for k in tc),
           f"SASS: HMMA in all {len(tc)} bf16 and float16 wide (D > 256) "
-          f"kernels (min {min((counts[k] for k in tc), default=0)}), the "
-          f"forward's split-D clusters among them: " + ", ".join(
-              f"{k} {counts.get(k, 0)}" for k in WIDE16_FWD))
+          f"kernels, the forward's and the backward's split-D clusters: "
+          + ", ".join(f"{k} {counts.get(k, 0)}"
+                      for k in WIDE16_FWD + WIDE16_BWD))
     check(sorted(f32) == sorted(F32_WIDE) and all(counts[k] > 0 for k in f32),
           f"SASS: HMMA in the {len(f32)} float32 wide forward and backward "
           f"kernels (3xTF32: " + ", ".join(f"{k} {counts[k]}" for k in f32)
           + ")")
     return counts
+
+
+def cuda_kernels(key):
+    """The CUDA kernel(s) (SASS labels) behind an entry of the kernels
+    line: a flash function at <dtype, D> ("flash_fwd" alone is the
+    flagship's <bf16,64>), or a sign kernel; the merge, delta and sum
+    passes of the streaming family are left out."""
+    name, _, inst = key.partition("<")
+    if name.startswith("sign_"):
+        return [f"{name}_kernel"]
+    tag, d = (inst[:-1].split(",") if inst else ("bf16", "64"))
+    d = int(d)
+    if tag != "f32":
+        if d > 256:
+            multi = ",multi" if name.startswith("flash_bwd") and d > 1024 \
+                else ""
+            return [f"{name}_wide16_kernel<{tag}{multi}>"]
+        return [f"{name}_mma_kernel<{tag},{d}>"]
+    if d in F32_TC_DIMS:
+        return [f"{name}_tc_kernel<f32,{d}>"]
+    return [f"{name}_wide_kernel<f32>"]
 
 
 def phase_kernels(fa, torch, check):
@@ -1596,26 +1639,26 @@ def phase_instances(fa, torch, check, tag, d, long_shape=LONG):
 
 def phase_wide(fa, tfm, torch, check, ptxas, hmma):
     """Part A: flash_attention_fn on the card above D = 256 (the wide
-    kernels): D = 264, 384 and 512 at [8, 16, 512, D], and 1024 at
-    [1, 4, 512, D], in float32, bf16 and float16, resident and streaming,
+    kernels): D = 264, 384 and 512 at [8, 16, 512, D], and 1024 and 1152
+    at [1, 4, 512, D], in float32, bf16 and float16, resident and streaming,
     forward and both gradients, each held to the plain versions under the
     elementwise gates (float16 to its own step, with the bf16 control).
-    The forward's launches by instantiation must be one a case of its
-    family in each dtype, and in bf16 one more resident launch for each
-    float16 case's control (the library holds no wide forward but the
-    cluster kernels, phase 1), printed with their cluster size; the bf16
-    and float16 forward's cluster kernels with their ptxas registers and
-    spills (``ptxas``, when this run built the library), HMMA count
-    (``hmma``) and the clusters the card holds at once.  Returns the
-    launches by instantiation."""
+    The launches by instantiation of the forward and of the backward pair
+    must be one a case of their family in each dtype, and in bf16 one more
+    resident launch for each float16 case's control (the library holds no
+    wide kernel but the cluster kernels, phase 1), printed with their
+    cluster size; the bf16 and float16 forward's and backward's cluster
+    kernels with their ptxas registers and spills (``ptxas``, when this
+    run built the library), HMMA count (``hmma``) and the clusters the
+    card holds at once.  Returns the launches by instantiation."""
     import re
     B, H, S = (FLAGSHIP[k] for k in ("batch", "heads", "seq"))
     cases = [(dtype, (B, H, S, d), force)
              for dtype in (torch.float32, torch.bfloat16, torch.float16)
              for d in WIDE_DIMS for force in (False, True)]
-    cases += [(dtype, (1, 4, S, 1024), force)
+    cases += [(dtype, (1, 4, S, d), force)
               for dtype in (torch.float32, torch.bfloat16, torch.float16)
-              for force in (False, True)]
+              for d in (1024, 1152) for force in (False, True)]
     gen = torch.Generator(device="cuda").manual_seed(7)
     fa.reset_launches()
     t0 = time.perf_counter()
@@ -1630,29 +1673,37 @@ def phase_wide(fa, tfm, torch, check, ptxas, hmma):
           "every launch ran a wide instantiation (D a multiple of 128 "
           "above 256)")
     lib = fa._lib()
-    for dtype, tag, cluster in (
-            (torch.float32, "f32", lib.bps_flash_f32_cluster),
-            (torch.bfloat16, "bf16", lib.bps_flash_fwd16_cluster),
-            (torch.float16, "f16", lib.bps_flash_fwd16_cluster)):
-        want = {}
-        for dt, shape, force in cases:
-            d = fa.kernel_head_dim(shape[3])
-            if dt == dtype:
-                key = (f"{'flash_fwd_str' if force else 'flash_fwd'}<{tag},"
-                       f"{d}>")
-                want[key] = want.get(key, 0) + 1
-            if dt == torch.float16 and dtype == torch.bfloat16:
-                # each float16 case's control: the bf16 kernels, resident
-                want[f"flash_fwd<bf16,{d}>"] = want.get(
-                    f"flash_fwd<bf16,{d}>", 0) + 1
-        got = {k: n for k, n in launches.items()
-               if k.startswith("flash_fwd") and f"<{tag}," in k}
-        ctas = {k: cluster(int(k.split(",")[1][:-1])) for k in got}
-        check(got == want,
-              f"{fa._DTYPE_NAMES[dtype]} wide forward launches by "
-              f"instantiation " + ", ".join(
-                  f"{k} {n} (cluster of {ctas[k]} CTAs)"
-                  for k, n in sorted(got.items())) + f" (want {want})")
+    for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"),
+                       (torch.float16, "f16")):
+        for fam, cluster in (
+                ((RESIDENT[0], STREAMING[0]), lib.bps_flash_fwd16_cluster),
+                (RESIDENT[1:] + STREAMING[1:], lib.bps_flash_bwd16_cluster)):
+            if dtype == torch.float32:
+                cluster = lib.bps_flash_f32_cluster
+            want = {}
+            for dt, shape, force in cases:
+                d = fa.kernel_head_dim(shape[3])
+                names = STREAMING if force else RESIDENT
+                if dt == dtype:
+                    for n in names:
+                        if n in fam:
+                            want[f"{n}<{tag},{d}>"] = want.get(
+                                f"{n}<{tag},{d}>", 0) + 1
+                if dt == torch.float16 and dtype == torch.bfloat16:
+                    # each float16 case's control: the bf16 kernels, resident
+                    for n in RESIDENT:
+                        if n in fam:
+                            want[f"{n}<bf16,{d}>"] = want.get(
+                                f"{n}<bf16,{d}>", 0) + 1
+            got = {k: n for k, n in launches.items()
+                   if k.split("<")[0] in fam and f"<{tag}," in k}
+            ctas = {k: cluster(int(k.split(",")[1][:-1])) for k in got}
+            what = "forward" if fam[0] == RESIDENT[0] else "backward"
+            check(got == want,
+                  f"{fa._DTYPE_NAMES[dtype]} wide {what} launches by "
+                  f"instantiation " + ", ".join(
+                      f"{k} {n} (cluster of {ctas[k]} CTAs)"
+                      for k, n in sorted(got.items())) + f" (want {want})")
     for d, want_ctas in WIDE16_CLUSTER.items():
         ctas = lib.bps_flash_fwd16_cluster(d)
         held = {t: lib.bps_flash_fwd16_max_clusters(d, code)
@@ -1661,12 +1712,21 @@ def phase_wide(fa, tfm, torch, check, ptxas, hmma):
               f"bf16 and float16 wide forward at D {d}: a cluster of {ctas} "
               f"CTAs (want {want_ctas}); clusters the card holds at once "
               f"(cudaOccupancyMaxActiveClusters, resident) {held}")
-    check(all(hmma.get(k, 0) > 0 for k in WIDE16_FWD) and (not ptxas or all(
-        re.search(r"\b0 bytes spill stores", ptxas.get(k, ""))
-        for k in WIDE16_FWD)),
-          "bf16 and float16 wide forward kernels: " + "; ".join(
-              f"{k} {ptxas.get(k, 'no ptxas report')}, HMMA "
-              f"{hmma.get(k, 0)}" for k in WIDE16_FWD))
+        ctas = lib.bps_flash_bwd16_cluster(d)
+        held = {f"{kern}<{t}>": lib.bps_flash_bwd16_max_clusters(d, code, i)
+                for t, code in (("bf16", 1), ("f16", 2))
+                for i, kern in enumerate(("dQ", "dK/dV"))}
+        check(ctas == want_ctas and all(n > 0 for n in held.values()),
+              f"bf16 and float16 wide backward at D {d}: a cluster of {ctas} "
+              f"CTAs (want {want_ctas}); clusters the card holds at once "
+              f"(cudaOccupancyMaxActiveClusters, resident) {held}")
+    for what, names in (("forward", WIDE16_FWD), ("backward", WIDE16_BWD)):
+        check(all(hmma.get(k, 0) > 0 for k in names) and (not ptxas or all(
+            re.search(r"\b0 bytes spill stores", ptxas.get(k, ""))
+            for k in names)),
+              f"bf16 and float16 wide {what} kernels: " + "; ".join(
+                  f"{k} {ptxas.get(k, 'no ptxas report')}, HMMA "
+                  f"{hmma.get(k, 0)}" for k in names))
     return launches
 
 
@@ -2060,11 +2120,12 @@ def main() -> int:
         return 1
     kernels = [{"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
-                **numbers[name]}
+                **numbers[name], "cuda_kernels": cuda_kernels(name)}
                for name, (source, replaces) in KERNELS.items()]
     kernels += [{"name": key, "route": "cuda", "source": FLASH_SOURCE,
                  "replaces": KERNELS[key.split("<")[0]][1],
-                 "launches": path[key], **numbers[key]}
+                 "launches": path[key], **numbers[key],
+                 "cuda_kernels": cuda_kernels(key)}
                 for key in new_kernels]
     tokens = FLAGSHIP["batch"] * FLAGSHIP["seq"]
     l_tokens = LONG["batch"] * LONG["seq"]

@@ -5,8 +5,8 @@
 
 ``byteps_tpu_torch/csrc/flash_attention.cu`` runs D = 256 on kernels
 templated on D (two 128-column output passes inside one CTA) and every D
-above 256 on the wide kernels (D at run time, one 128-column output slice a
-CTA).  The wide kernels could take D = 256 too.  This builds a variant of
+above 256 on the wide kernels (D at run time, the 128-column slices of a
+tile as one cluster of CTAs).  The wide kernels could take D = 256 too.  This builds a variant of
 the source whose dispatch sends D = 256 to the wide launchers, and times
 the six flash functions of each library at [128, 512, 256] (resident) and
 [16, 8192, 256] (streaming), causal, in bf16, float16 and float32, in turns

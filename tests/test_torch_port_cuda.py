@@ -685,7 +685,7 @@ def test_adapter_runs_wide_head_dims_on_the_kernels(cuda_device,
                                                      monkeypatch, d, dtype,
                                                      family):
     """Head dims above 256 (padded to a multiple of 128, the wide kernels'
-    output passes) in float32, bf16 and float16, both families: no plain
+    column slices) in float32, bf16 and float16, both families: no plain
     version runs, one launch of each kernel at the padded head dim, and
     every element within the elementwise gates."""
     monkeypatch.setattr(fa, "_split_len", lambda s: 128)
@@ -987,6 +987,90 @@ def test_wide16_forward_refuses_misaligned(cuda_device, dtype):
         fa.flash_fwd(q, ok, ok, True, 0.05)
     with pytest.raises(RuntimeError, match="misaligned"):
         fa.flash_fwd_str(ok, q, ok, False, 0.05)
+
+
+@pytest.mark.parametrize("dtype", _WIDE16)
+@pytest.mark.parametrize("d", [384, 512, 1152])
+def test_wide16_backward_repeat_is_bit_identical(cuda_device, monkeypatch, d,
+                                                 dtype):
+    """The bf16 and float16 wide backward (clusters of 3 and 4 CTAs at
+    D = 384 and 512, 5 CTAs of two slices each at 1152) sums the cluster's
+    partials in rank order and its splits in split order, with no atomics:
+    two calls of each of its four kernels give the same bits, causal and
+    not.  With one split the streaming kernels give the resident kernels'
+    dQ, dK and dV bits (the sum passes add the one partial to zero and
+    scale it as the resident kernels do)."""
+    q, k, v, do = _qkvdo(cuda_device, 3, 320, d, dtype)
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, True, scale)
+
+    def backward(causal):
+        dq, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+        dq_s, delta_s = fa.flash_bwd_dq_str(q, k, v, o, lse, do, causal,
+                                            scale)
+        dk_s, dv_s = fa.flash_bwd_dkv_str(q, k, v, do, lse, delta, causal,
+                                          scale)
+        return dq, delta, dk, dv, dq_s, delta_s, dk_s, dv_s
+
+    for causal in (False, True):
+        monkeypatch.setattr(fa, "_split_len", lambda s: 128)
+        first, second = backward(causal), backward(causal)
+        monkeypatch.setattr(fa, "_split_len", lambda s: s)
+        one = backward(causal)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(first, second)):
+            assert torch.equal(a, b), (causal, i)
+        for i in (0, 2, 3):  # dQ, dK, dV of one split against the resident
+            assert torch.equal(one[4 + i], first[i]), (causal, i)
+
+
+@pytest.mark.parametrize("dtype", _WIDE16)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [384, 768, 1152])
+def test_wide16_backward_delta_on_every_owner(cuda_device, causal, d, dtype):
+    """The resident 16-bit wide dQ writes delta = rowsum(dO * O) of each
+    tile's rows from the rows' owners (3, 6 and 5 CTAs at D = 384, 768 and
+    1152): on the rows of every owner it is within 1e-5 |plain| + 1e-6 of
+    the plain version and equal, bit for bit, to the streaming family's
+    delta pass (the same float64 sum)."""
+    q, k, v, do = _qkvdo(cuda_device, 3, 320, d, dtype)
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    _, want = fa.flash_bwd_dq_plain(q.float(), k.float(), v.float(),
+                                    o.float(), lse, do.float(), causal,
+                                    scale)
+    _, delta = fa.flash_bwd_dq(q, k, v, o, lse, do, causal, scale)
+    _, delta_s = fa.flash_bwd_dq_str(q, k, v, o, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    owners, ctas = _wide_owners(d, q.shape[1])
+    ratio = ((delta - want).abs() / (want.abs() * 1e-5 + 1e-6)).amax(0)
+    worst = {r: float(ratio[owners.to(ratio.device) == r].max())
+             for r in range(ctas)}
+    assert all(w <= 1.0 for w in worst.values()), worst
+    assert torch.equal(delta, delta_s)
+
+
+@pytest.mark.parametrize("dtype", _WIDE16)
+def test_wide16_backward_refuses_misaligned(cuda_device, dtype):
+    """The bf16 and float16 wide backward copies q, k, v and dO (and in
+    dK/dV LSE and delta) in 16-byte pieces: a contiguous view that starts
+    2 bytes (LSE: 4 bytes) into its storage is refused by each of the four
+    kernels, not read wrongly."""
+    flat = torch.zeros(2 * 128 * 384 + 1, device=cuda_device, dtype=dtype)
+    bad = flat[1:].view(2, 128, 384)
+    ok = torch.zeros(2, 128, 384, device=cuda_device, dtype=dtype)
+    rows = torch.zeros(2, 128, device=cuda_device)
+    bad_rows = torch.zeros(2 * 128 + 1, device=cuda_device)[1:].view(2, 128)
+    calls = (
+        lambda: fa.flash_bwd_dq(bad, ok, ok, ok, rows, ok, True, 0.05),
+        lambda: fa.flash_bwd_dq_str(ok, ok, ok, ok, rows, bad, True, 0.05),
+        lambda: fa.flash_bwd_dkv(ok, bad, ok, ok, rows, rows, True, 0.05),
+        lambda: fa.flash_bwd_dkv_str(ok, ok, ok, ok, bad_rows, rows, False,
+                                     0.05))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="misaligned"):
+            call()
 
 
 _UNPACK_NS = [1, 100, 5000, 4096 * 33, 1048576, 1048576 - 3]

@@ -156,7 +156,7 @@ def test_family_choice_is_made_on_the_callers_head_dim(monkeypatch):
 def test_head_dims_above_the_limit_are_refused():
     """The kernels' head-dim rule has no limit any more: D up to 256 runs
     at the next instantiated head dim, D above it at the next multiple of
-    128 (the wide kernels' output passes), with nothing refused; the
+    128 (the wide kernels' column slices), with nothing refused; the
     card tests run the kernels there.  The JAX package has no limit
     either."""
     assert [fa.kernel_head_dim(d) for d in (1, 16, 17, 136, 256)] == [

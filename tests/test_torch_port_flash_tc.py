@@ -17,9 +17,12 @@ else:
     contraction columns (what one warp's vote covers) that holds an
     element of magnitude 2^-5 or more (P^T) or 1 or more (dS, dS^T);
   - outputs rounded to the input dtype (LSE stays float32);
-  - above D = 256 (the forward's split-D clusters), S = Q K^T as the sum,
-    in rank order from zero, of float32 partials over 128-column chunks of
-    D, each CTA's share; float16 takes its own hi/lo pair.
+  - above D = 256 (the split-D clusters), S = Q K^T (and dP = dO V^T) as
+    the sum, in rank order from zero, of float32 partials over 128-column
+    chunks of D, each CTA's share; float16 takes its own hi/lo pair, in the
+    backward with each row scaled by a power of two (scale_rows, on a
+    tile's 64 columns); the backward's third-term vote takes blocks of
+    16 x 16.
 
 It is held to ``chip_smoke.py``'s elementwise gates, |got - plain| <=
 2^-7 |plain| + 1e-5 (one bf16 step) for bf16 outputs and 1e-5 |plain| +
@@ -59,12 +62,12 @@ REFINE_P = 0.03125                # the kernels' kRefineP
 REFINE_DS = 1.0                   # ... and kRefineDs
 
 
-def _parts(x, pair, refine=None, dtype=torch.bfloat16):
+def _parts(x, pair, refine=None, dtype=torch.bfloat16, block=None):
     """x as it enters a tensor-core product: the hi/lo pair, or one bf16;
     with ``refine`` (a magnitude), the pair plus the third term of every
-    block of 16 rows (by all of the tile's contraction columns) holding an
-    element that large.  ``dtype``: the 16-bit type of the parts (bf16;
-    float16 in its forward)."""
+    block of 16 rows by ``block`` contraction columns (all of x's by
+    default) holding an element that large.  ``dtype``: the 16-bit type of
+    the parts (bf16; float16 in its forward and wide backward)."""
     hi = x.to(dtype).float()
     if not pair:
         return (hi,)
@@ -72,10 +75,11 @@ def _parts(x, pair, refine=None, dtype=torch.bfloat16):
     if refine is None:
         return hi, lo
     *lead, rows, cols = x.shape
-    blocks = x.abs().reshape(*lead, rows // 16, 16, cols)
-    big = (blocks.amax((-2, -1)) >= refine)[..., :, None, None]
-    return hi, lo, _bf16(x - hi - lo) * big.expand(blocks.shape).reshape(
-        x.shape)
+    block = block or cols
+    blocks = x.abs().reshape(*lead, rows // 16, 16, cols // block, block)
+    big = (blocks.amax((-3, -1), keepdim=True) >= refine).expand(
+        blocks.shape).reshape(x.shape)
+    return hi, lo, _bf16(x - hi - lo) * big
 
 
 def _scores(qf, kf, chunk):
@@ -149,44 +153,111 @@ def emulate_fwd(q, k, v, causal, scale, pair=True, chunk=None, split=None):
     return (out / big_l[..., None]).to(q.dtype), big_m + torch.log(big_l)
 
 
+def _row_scales(cs, x, block):
+    """float16's scale_rows over the blocks of ``block`` columns of x in
+    order: each row's power of two c = 2^min(15 - ex, 24), mx < 2^ex its
+    largest magnitude in the block, taken when it is below the row's
+    running cs.  Returns the last cs and each column's cs (its block's)."""
+    per = []
+    for c0 in range(0, x.shape[-1], block):
+        mx = x[..., c0:c0 + block].abs().amax(-1)
+        c = torch.exp2(torch.clamp(15 - torch.frexp(mx).exponent,
+                                   max=24).float())
+        cs = torch.where((mx > 0) & (c < cs), c, cs)
+        per.append(cs)
+    return cs, torch.stack(per, -1).repeat_interleave(block, -1)
+
+
+def _apply(acc, cs, x, b, pair, refine, dtype, block):
+    """acc += X B as the backward's second products take it: X (P^T, dS or
+    dS^T, the contraction along its last axis: a tile's 64 columns)
+    entering as _parts in ``dtype``, the third term's vote on blocks of 16
+    rows by ``block`` columns (all of them by default); with ``cs``
+    (float16's running row scales) the rows scaled by powers of two over
+    all of X's columns before the split and the scale divided out of the
+    products (exact: the kernels' accumulator carries it and divides it out
+    at the end).  Returns acc and cs."""
+    block = block or x.shape[-1]
+    sc = None
+    if cs is not None:
+        cs, sc = _row_scales(cs, x, x.shape[-1])
+        x = x * sc
+    for part in _parts(x, pair, refine, dtype, block):
+        acc = acc + (part if sc is None else part / sc) @ b
+    return acc, cs
+
+
+def _bwd_recipe(x, refine, pair):
+    """The 16-bit type of the second products' parts, the third term's
+    threshold (bf16 only) and whether rows are scaled (float16)."""
+    f16 = x.dtype == torch.float16
+    return (torch.float16 if f16 else torch.bfloat16,
+            None if f16 or not refine else refine, f16 and pair)
+
+
 def emulate_dq(q, k, v, do, lse, delta, causal, scale, pair=True,
-               refine=False):
-    """dQ as dq_mma_tiles computes it, one 64-key tile at a time."""
+               refine=False, chunk=None, split=None, block=None):
+    """dQ as dq_mma_tiles computes it, one 64-key tile at a time.  With
+    ``chunk`` (the wide kernels' 128), S and dP are the sums in rank order,
+    from zero, of the float32 partials over each ``chunk`` columns of D, as
+    a cluster's owner adds them; ``block`` (16 there) is the columns of the
+    third term's vote and of float16's row scale (the tile's 64 by
+    default).  float16 inputs take float16's pair, rows scaled by powers of
+    two over each tile's columns (scale_rows), and no third term.  With
+    ``split`` (keys a split, streaming), each split's dQ from zero (its own
+    row scales), the splits summed in order from zero, as the sum pass adds
+    the workspaces."""
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     s = q.shape[1]
-    acc = torch.zeros_like(qf)
+    dtype, third, scaled = _bwd_recipe(q, REFINE_DS if refine else None, pair)
     queries = torch.arange(s)[:, None]
-    for k0 in range(0, s, TILE):
-        kt, vt = kf[:, k0:k0 + TILE], vf[:, k0:k0 + TILE]
-        p = torch.exp(scale * (qf @ kt.transpose(-1, -2)) - lse[..., None])
-        if causal:
-            p = p.masked_fill(torch.arange(k0, k0 + TILE) > queries, 0.0)
-        ds = p * (dof @ vt.transpose(-1, -2) - delta[..., None])
-        for part in _parts(ds, pair, REFINE_DS if refine else None):
-            acc = acc + part @ kt
-    return (scale * acc).to(q.dtype)
+    s_all, dp_all = _scores(qf, kf, chunk), _scores(dof, vf, chunk)
+    total = torch.zeros_like(qf)
+    step = split or s
+    for j0 in range(0, s, step):
+        acc = torch.zeros_like(qf)
+        cs = torch.full(qf.shape[:2], 2.0 ** 24) if scaled else None
+        for k0 in range(j0, min(j0 + step, s), TILE):
+            kt = kf[:, k0:k0 + TILE]
+            p = torch.exp(scale * s_all[..., k0:k0 + TILE] - lse[..., None])
+            if causal:
+                p = p.masked_fill(torch.arange(k0, k0 + TILE) > queries, 0.0)
+            ds = p * (dp_all[..., k0:k0 + TILE] - delta[..., None])
+            acc, cs = _apply(acc, cs, ds, kt, pair, third, dtype, block)
+        total = total + acc
+    return (scale * total).to(q.dtype)
 
 
 def emulate_dkv(q, k, v, do, lse, delta, causal, scale, pair=True,
-                refine=False):
+                refine=False, chunk=None, split=None, block=None):
     """dK, dV as dkv_mma_tiles computes them: S^T = K Q^T with the keys as
-    rows, one 64-query tile at a time."""
+    rows, one 64-query tile at a time; ``chunk``, ``block``, float16 and
+    ``split`` (queries a split) as in emulate_dq, the row scales by key."""
     qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
     s = q.shape[1]
-    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    dtype, third_p, scaled = _bwd_recipe(q, REFINE_P if refine else None,
+                                         pair)
+    third_ds = _bwd_recipe(q, REFINE_DS if refine else None, pair)[1]
     keys = torch.arange(s)[:, None]
-    for q0 in range(0, s, TILE):
-        qt, dot = qf[:, q0:q0 + TILE], dof[:, q0:q0 + TILE]
-        pt = torch.exp(scale * (kf @ qt.transpose(-1, -2))
-                       - lse[:, None, q0:q0 + TILE])
-        if causal:
-            pt = pt.masked_fill(keys > torch.arange(q0, q0 + TILE), 0.0)
-        dst = pt * (vf @ dot.transpose(-1, -2) - delta[:, None, q0:q0 + TILE])
-        for part in _parts(pt, pair, REFINE_P if refine else None):
-            dv = dv + part @ dot
-        for part in _parts(dst, pair, REFINE_DS if refine else None):
-            dk = dk + part @ qt
-    return (scale * dk).to(k.dtype), dv.to(v.dtype)
+    st_all, dpt_all = _scores(kf, qf, chunk), _scores(vf, dof, chunk)
+    dk_t, dv_t = torch.zeros_like(kf), torch.zeros_like(vf)
+    step = split or s
+    for j0 in range(0, s, step):
+        dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+        csk = torch.full(kf.shape[:2], 2.0 ** 24) if scaled else None
+        csv = torch.full(kf.shape[:2], 2.0 ** 24) if scaled else None
+        for q0 in range(j0, min(j0 + step, s), TILE):
+            qt, dot = qf[:, q0:q0 + TILE], dof[:, q0:q0 + TILE]
+            pt = torch.exp(scale * st_all[..., q0:q0 + TILE]
+                           - lse[:, None, q0:q0 + TILE])
+            if causal:
+                pt = pt.masked_fill(keys > torch.arange(q0, q0 + TILE), 0.0)
+            dst = pt * (dpt_all[..., q0:q0 + TILE]
+                        - delta[:, None, q0:q0 + TILE])
+            dv, csv = _apply(dv, csv, pt, dot, pair, third_p, dtype, block)
+            dk, csk = _apply(dk, csk, dst, qt, pair, third_ds, dtype, block)
+        dk_t, dv_t = dk_t + dk, dv_t + dv
+    return (scale * dk_t).to(k.dtype), dv_t.to(v.dtype)
 
 
 def _worst(got, want, tol=BF16_GATE):
@@ -465,6 +536,80 @@ def test_wide_fwd_recipe_matches_jax_forward(causal, streaming):
     worst = {"o": _worst(got_o, want_o),
              "lse": _worst(got_lse, want_lse, ROWS_GATE)}
     assert all(w <= 1.0 for w in worst.values()), worst
+
+@functools.lru_cache(maxsize=None)
+def _wide_bwd_case(dtype, d, causal):
+    """[2, 1024, d] q, k, v (as _wide_case draws them) and dO in ``dtype``,
+    the plain forward's LSE, and the plain backward (dQ, delta, dK, dV)."""
+    (q, k, v, scale), (o, lse) = _wide_case(dtype, d, causal)
+    rng = np.random.RandomState(d + causal + 1)
+    do = torch.from_numpy(rng.randn(2, 1024, d).astype(np.float32)).to(
+        _WIDE_DTYPES[dtype][0])
+    dq, delta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, causal, scale)
+    dk, dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
+    return (q, k, v, do, lse, delta, scale), (dq, dk, dv)
+
+
+def _emulate_wide(args, causal, split):
+    """dQ, dK, dV by the 16-bit wide backward's recipe."""
+    q, k, v, do, lse, delta, scale = args
+    kw = dict(refine=True, chunk=WIDE, split=split, block=16)
+    dq = emulate_dq(q, k, v, do, lse, delta, causal, scale, **kw)
+    return (dq, *emulate_dkv(q, k, v, do, lse, delta, causal, scale, **kw))
+
+
+@pytest.mark.parametrize("split", [None, 512])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [384, 512])
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+def test_wide_bwd_recipe_passes_the_gates(dtype, d, causal, split):
+    """The 16-bit wide backward's recipe (S and dP the rank-order sums of
+    the 128-column chunks' float32 partials; P and dS as hi/lo pairs in
+    the inputs' type; bf16's third term on 16 x 16 blocks and float16's
+    row scale on 16 x 64) holds dQ, dK and dV within the output's step of
+    the plain backward, 2^-7 |plain| + 1e-5 in bf16 and 2^-10 |plain| + 1e-5 in
+    float16, at [2, 1024, D], resident and in two splits of 512 (measured
+    0.961-0.987 of the gate in bf16 and 0.850-0.979 in float16, readings
+    near 1 being outputs one rounding step apart)."""
+    args, plain = _wide_bwd_case(dtype, d, causal)
+    got = _emulate_wide(args, causal, split)
+    tol = _WIDE_DTYPES[dtype][1]
+    worst = {n: _worst(g, w, tol) for n, g, w in zip(("dq", "dk", "dv"), got,
+                                                      plain)}
+    assert all(w <= 1.0 for w in worst.values()), worst
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wide_bwd_recipe_matches_jax_backward(causal, streaming):
+    """At [2, 128, 384] bf16 the wide backward's recipe (resident, or in
+    two splits of 64), fed the JAX forward's O and LSE, agrees with jax.vjp
+    of the JAX package's flash attention (Pallas interpreter, the resident
+    or the streaming kernels) within one bf16 step of every element
+    (measured 0.83-0.97 of the gate)."""
+    rng = np.random.RandomState(17 + causal)
+    q, k, v, do = (rng.randn(2, 128, 384).astype(np.float32)
+                   for _ in range(4))
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16)
+                       for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal, None, 64,
+                                               64, True, streaming),
+                     jq, jk, jv)
+    want = [torch.from_numpy(np.array(g.astype(jnp.float32)))
+            for g in vjp(jdo)]
+    o, (_, _, _, _, lse) = jax_flash_fwd(jq, jk, jv, causal, None, 64, 64,
+                                         True, streaming)
+    tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
+                       for x in (q, k, v, do))
+    to = torch.from_numpy(np.array(o.astype(jnp.float32)))
+    tlse = torch.from_numpy(np.array(lse))[:, 0, :]
+    delta = (tdo.double() * to.double()).sum(-1).float()
+    got = _emulate_wide((tq, tk, tv, tdo, tlse, delta, 384 ** -0.5), causal,
+                        64 if streaming else None)
+    worst = {n: _worst(g, w) for n, g, w in zip(("dq", "dk", "dv"), got,
+                                                 want)}
+    assert all(w <= 1.0 for w in worst.values()), worst
+
 
 if __name__ == "__main__":
     # The margin of the third term's threshold, for PERF.md: the worst
