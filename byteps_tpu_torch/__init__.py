@@ -9,6 +9,12 @@ with its Pallas kernels rewritten by hand for the H100 (``csrc/``):
     step = bps.build_train_step(loss_fn, opt)
     loss = step(params, batch)
 
+Two-level data parallelism (reduce-scatter within a node, all-reduce of the
+shard across nodes, all-gather within the node) is
+``DistributedOptimizer(..., hierarchical=True,
+mesh=bps.make_hierarchical_mesh(ici_size))``; ``CrossBarrierDriver`` runs
+such a step without host barriers between steps.
+
 Gradient compression per bucket (onebit, topk, randomk, dithering, with
 error feedback and Nesterov momentum) is ``DistributedOptimizer(...,
 inter_compressor=bps.compressor.create({"compressor": "onebit",
@@ -45,7 +51,11 @@ from .common.fusion import get_stats as get_fusion_stats
 from .ops.compression import Compression
 from .ops import collectives, compressor, ring_attention
 from .parallel.data_parallel import DistributedOptimizer, build_train_step
-
+from .parallel.mesh import (
+    make_mesh, make_hierarchical_mesh, make_slice_mesh, get_mesh,
+    set_mesh, reset_mesh,
+)
+from .parallel.cross_barrier import CrossBarrierDriver, run_cross_barrier
 
 
 def __getattr__(name):
@@ -76,5 +86,8 @@ __all__ = [
     "mark_step", "current_step",
     "Compression", "collectives", "compressor", "ring_attention",
     "DistributedOptimizer", "build_train_step",
+    "make_mesh", "make_hierarchical_mesh", "make_slice_mesh",
+    "get_mesh", "set_mesh", "reset_mesh",
+    "CrossBarrierDriver", "run_cross_barrier",
     "models", "callbacks", "utils",
 ]

@@ -4,7 +4,8 @@ Counterpart of ``byteps_tpu/common/config.py``: the same variable names and
 defaults, limited to what the port uses so far — the worker bootstrap
 (``DMLC_*``, ``BYTEPS_LOCAL_*``), the global-rank override and the
 forced-distributed switch, the bucket size, the eager fusion threshold,
-the async switch, the trace window and the log level.
+the async switch, the trace window, the log level and the mesh axis
+sizes (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -56,6 +57,14 @@ class Config:
     trace_end_step: int = 20                 # BYTEPS_TRACE_END_STEP
     trace_dir: str = "./traces"              # BYTEPS_TRACE_DIR
     log_level: str = "WARNING"               # BYTEPS_LOG_LEVEL
+    # Mesh axis sizes; mesh_dp 0 means "the rest of the world".
+    mesh_dp: int = 0                         # BYTEPS_TPU_MESH_DP
+    mesh_tp: int = 1                         # BYTEPS_TPU_MESH_TP
+    mesh_sp: int = 1                         # BYTEPS_TPU_MESH_SP
+    mesh_pp: int = 1                         # BYTEPS_TPU_MESH_PP
+    mesh_ep: int = 1                         # BYTEPS_TPU_MESH_EP
+    # Hierarchical reduce: ranks per intra-node island (0 = one island).
+    ici_size: int = 0                        # BYTEPS_TPU_ICI_SIZE
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -77,6 +86,12 @@ class Config:
             trace_end_step=_env_int("BYTEPS_TRACE_END_STEP", 20),
             trace_dir=_env_str("BYTEPS_TRACE_DIR", "./traces"),
             log_level=_env_str("BYTEPS_LOG_LEVEL", "WARNING"),
+            mesh_dp=_env_int("BYTEPS_TPU_MESH_DP", 0),
+            mesh_tp=_env_int("BYTEPS_TPU_MESH_TP", 1),
+            mesh_sp=_env_int("BYTEPS_TPU_MESH_SP", 1),
+            mesh_pp=_env_int("BYTEPS_TPU_MESH_PP", 1),
+            mesh_ep=_env_int("BYTEPS_TPU_MESH_EP", 1),
+            ici_size=_env_int("BYTEPS_TPU_ICI_SIZE", 0),
         )
 
 

@@ -86,6 +86,13 @@ def reduce_scatter(x: torch.Tensor, group=None,
         # gloo has no reduce-scatter: reduce everything, keep the slice.
         full = all_reduce(x.clone(), group)
         return full.chunk(world, axis)[dist.get_rank(group)].contiguous()
+    if axis == 0:
+        # NCCL's reduce_scatter_tensor: equal splits of one contiguous
+        # buffer, no per-rank copies.
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] // world,) + tuple(x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+        return out
     parts = [p.contiguous() for p in x.chunk(world, axis)]
     out = torch.empty_like(parts[0])
     dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=group)
@@ -274,13 +281,75 @@ def tree_all_reduce(tree: Tree, group=None, average: bool = True) -> Tree:
     return tree_map(f, tree)
 
 
-def hierarchical_all_reduce(*args, **kwargs):
-    raise NotImplementedError(
-        "hierarchical_all_reduce is not ported yet (ROADMAP.md Queue 1 "
-        "item 4: the two-level reduce over an intra/inter-node mesh)")
+# ---------------------------------------------------------------------------
+# Hierarchical reduction over ('dcn_dp', 'ici_dp') — the two-level analog of
+# the reference's NCCL-reduce-scatter -> ps-push/pull -> NCCL-all-gather.
+# The groups are the axes of a two-level DeviceMesh
+# (parallel/mesh.py::make_hierarchical_mesh), get_mesh() by default.
+# ---------------------------------------------------------------------------
+def _two_level_groups(mesh, ici_axis: str, dcn_axis: str):
+    if mesh is None:
+        from ..parallel.mesh import get_mesh
+        mesh = get_mesh()
+    names = tuple(mesh.mesh_dim_names or ())
+    if ici_axis not in names or dcn_axis not in names:
+        raise ValueError(
+            f"the hierarchical reduce needs a mesh with axes "
+            f"({dcn_axis!r}, {ici_axis!r}), got {names}: pass "
+            f"make_hierarchical_mesh() or set_mesh() it")
+    return mesh.get_group(ici_axis), mesh.get_group(dcn_axis)
 
 
-def hierarchical_tree_all_reduce(*args, **kwargs):
-    raise NotImplementedError(
-        "hierarchical_tree_all_reduce is not ported yet (ROADMAP.md Queue 1 "
-        "item 4: the two-level reduce over an intra/inter-node mesh)")
+def hierarchical_all_reduce(x: torch.Tensor, mesh=None,
+                            ici_axis: str = "ici_dp",
+                            dcn_axis: str = "dcn_dp",
+                            average: bool = False) -> torch.Tensor:
+    """Reduce-scatter on the ICI (intra-node) group, all-reduce the shard
+    over the DCN group, all-gather on the ICI group.
+
+    Requires x's leading dim divisible by the ICI group's size (callers pad
+    flat buckets).  Cross-node traffic is 1/ici_size of the flat
+    all-reduce's.  Under ``local_mode()`` the result is ``x``.
+    """
+    if is_local():
+        return x
+    ici, dcn = _two_level_groups(mesh, ici_axis, dcn_axis)
+    shard = reduce_scatter(x, ici, axis=0)
+    shard = all_reduce(shard, dcn)
+    out = all_gather(shard, ici, axis=0, tiled=True)
+    if average:
+        out = out / (dist.get_world_size(ici) * dist.get_world_size(dcn))
+    return out
+
+
+def hierarchical_tree_all_reduce(tree: Tree, mesh=None,
+                                 ici_axis: str = "ici_dp",
+                                 dcn_axis: str = "dcn_dp",
+                                 average: bool = True,
+                                 partition_bytes: Optional[int] = None
+                                 ) -> Tree:
+    """Bucketed hierarchical all-reduce of a gradient tree: the buckets of
+    ``bucketed_tree_all_reduce``, each zero-padded to a multiple of the ICI
+    size (NCCL's reduce-scatter takes equal splits) and reduced by
+    ``hierarchical_all_reduce``; the average divides once at the end.
+    Under ``local_mode()`` the result is the tree."""
+    if is_local():
+        return tree
+    ici_group, dcn_group = _two_level_groups(mesh, ici_axis, dcn_axis)
+    ici = dist.get_world_size(ici_group)
+
+    def transform(buf: torch.Tensor, bi: int) -> torch.Tensor:
+        del bi
+        pad = (-buf.numel()) % ici
+        if pad:
+            buf = torch.cat([buf, buf.new_zeros(pad)])
+        out = hierarchical_all_reduce(buf, mesh, ici_axis, dcn_axis)
+        return out[:out.numel() - pad] if pad else out
+
+    out = bucketed_tree_all_reduce(tree, group=ici_group, average=False,
+                                   partition_bytes=partition_bytes,
+                                   bucket_transform=transform)
+    if average:
+        n = ici * dist.get_world_size(dcn_group)
+        out = tree_map(lambda l: l / n, out)
+    return out

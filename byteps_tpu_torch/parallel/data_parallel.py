@@ -13,7 +13,10 @@ With ``inter_compressor`` (an ``ops.compressor`` instance, e.g.
 ``ops.compressor.create({"compressor": "onebit", "ef": "vanilla",
 "momentum": "nesterov"})``) the buckets go through
 ``compressed_tree_all_reduce`` instead, and the optimizer holds this rank's
-compressor state as ``compression_state``.
+compressor state as ``compression_state``.  With ``hierarchical=True`` they
+go through ``hierarchical_tree_all_reduce`` over a two-level mesh
+(``parallel/mesh.py::make_hierarchical_mesh``): reduce-scatter within a
+node, all-reduce of the shard across nodes, all-gather within the node.
 
 PyTorch updates parameters in place, which is what the JAX step's buffer
 donation buys there: ``build_train_step``'s step returns only the loss.
@@ -52,6 +55,13 @@ class DistributedOptimizer:
     worker's is in the reference.  ``world``, when given, must equal the
     group's size (the JAX package's per-worker state tiling needs it; here
     it is only checked).
+
+    ``hierarchical=True`` reduces over the two-level mesh ``mesh`` (default:
+    ``make_hierarchical_mesh()`` over the world, BYTEPS_TPU_ICI_SIZE ranks
+    an island, on the parameters' device type, built here: every rank
+    constructs the optimizer).  It uses the mesh's groups at any size, a
+    world of one included; ``inter_compressor``, when also given, takes
+    precedence, as in the reference.
     """
 
     def __init__(self, optimizer: torch.optim.Optimizer,
@@ -63,7 +73,8 @@ class DistributedOptimizer:
                  partition_bytes: Optional[int] = None,
                  hierarchical: bool = False,
                  backward_passes_per_step: int = 1,
-                 world: Optional[int] = None):
+                 world: Optional[int] = None,
+                 mesh=None):
         del named_parameters
         if inter_compressor is not None and not isinstance(
                 inter_compressor, InterCompressor):
@@ -75,10 +86,6 @@ class DistributedOptimizer:
             raise ValueError(
                 f"world={world} but the process group has "
                 f"{collectives.axis_size(group)} ranks")
-        if hierarchical:
-            raise NotImplementedError(
-                "hierarchical reduction is not ported yet (ROADMAP.md "
-                "Queue 1 item 4)")
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
         self.optimizer = optimizer
@@ -88,6 +95,12 @@ class DistributedOptimizer:
         self.partition_bytes = partition_bytes
         self.backward_passes_per_step = backward_passes_per_step
         self.params = [p for g in optimizer.param_groups for p in g["params"]]
+        self.hierarchical = hierarchical and inter_compressor is None
+        self.mesh = None
+        if self.hierarchical:
+            from .mesh import make_hierarchical_mesh
+            self.mesh = mesh if mesh is not None else make_hierarchical_mesh(
+                device_type=self.params[0].device.type)
         self.inter_compressor = inter_compressor
         self.compression_state = None
         if inter_compressor is not None:
@@ -113,7 +126,7 @@ class DistributedOptimizer:
                  for p in self.params]
         packed = [self.compression.compress(g) for g in grads]
         wire = [w for w, _ in packed]
-        if collectives.axis_size(self.group) == 1:
+        if collectives.axis_size(self.group) == 1 and not self.hierarchical:
             with collectives.local_mode():
                 reduced = self._reduce(wire)
         else:
@@ -130,6 +143,10 @@ class DistributedOptimizer:
                 group=self.group, average=self.average,
                 partition_bytes=self.partition_bytes)
             return reduced
+        if self.hierarchical:
+            return collectives.hierarchical_tree_all_reduce(
+                wire, self.mesh, average=self.average,
+                partition_bytes=self.partition_bytes)
         return collectives.bucketed_tree_all_reduce(
             wire, group=self.group, average=self.average,
             partition_bytes=self.partition_bytes)
@@ -152,8 +169,11 @@ def build_train_step(loss_fn: Callable[..., torch.Tensor],
     microbatches and averages their gradients in float32 before the one
     reduce of the step; it refuses a DistributedOptimizer with
     ``backward_passes_per_step > 1``, the other form of the same average.
-    A world of one runs under ``collectives.local_mode()``: no collective.
-    ``device`` (default CUDA) is where the params must live.
+    A world of one runs under ``collectives.local_mode()``: no collective,
+    unless the optimizer is hierarchical: then the step reduces over its
+    mesh's groups at any size, and the loss returned is the mean over both
+    of its levels.  ``device`` (default CUDA) is where the params must
+    live.
     """
     dev = resolve_device(device)
     if accum_steps < 1:
@@ -206,6 +226,15 @@ def build_train_step(loss_fn: Callable[..., torch.Tensor],
         if leaves[0].device.type != dev.type:
             raise ValueError(f"params live on {leaves[0].device}, the step "
                              f"was built for {dev}")
+        mesh = getattr(optimizer, "mesh", None)
+        if getattr(optimizer, "hierarchical", False) and \
+                not collectives.is_local():
+            loss = _value_and_grad(leaves, params, batch)
+            optimizer.step()
+            total = loss.clone()
+            for axis in mesh.mesh_dim_names:
+                collectives.all_reduce(total, mesh.get_group(axis))
+            return total / mesh.size()
         group = getattr(optimizer, "group", None)
         world = collectives.axis_size(group)
         if world == 1:

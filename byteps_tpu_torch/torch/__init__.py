@@ -20,11 +20,13 @@ eager API of ``common.api`` (``torch.distributed`` collectives):
     tensorized), ``DistributedDataParallel`` (gradient sync from an
     end-of-backward engine callback, buffers re-broadcast each forward);
   - ``HalfPrecisionDistributedOptimizer`` and ``broadcast_fp16_parameters``
-    (``fp16.py``).
+    (``fp16.py``);
+  - ``CrossBarrier`` (``cross_barrier.py``): per-parameter updates applied
+    by a poller thread as each gradient's push_pull completes, the next
+    forward waiting per layer.
 
 ``enable_async=True`` (``BYTEPS_ENABLE_ASYNC``) needs the PS tier and
-raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 6); the
-cross-barrier scheduler is Queue 1 item 5.
+raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -291,15 +293,7 @@ class DistributedDataParallel(torch.nn.Module):
                     p.grad.copy_(out[key])
 
 
-class CrossBarrier:
-    """Not ported yet: ROADMAP.md Queue 1 item 5."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "CrossBarrier is not ported to byteps_tpu_torch yet (ROADMAP.md "
-            "Queue 1 item 5)")
-
-
-# Imported last: fp16.py imports this module's push_pull surface.
+# Imported last: these modules import this module's push_pull surface.
+from .cross_barrier import CrossBarrier  # noqa: E402
 from .fp16 import (  # noqa: E402
     HalfPrecisionDistributedOptimizer, broadcast_fp16_parameters)

@@ -2,8 +2,9 @@
 
 Counterpart of ``byteps_tpu/utils/data.py``.  The JAX package shards over a
 device mesh; here a worker is one process and one card, so the batch is
-sliced over the workers' rank and world (the mesh comes with ROADMAP.md
-Queue 1 item 4):
+sliced over the workers' rank and world (a two-level mesh,
+``parallel/mesh.py``, lays its ranks out row-major, so rank r holds shard
+r there too):
 
   - ``host_shard`` / ``shard_batch``: this rank's contiguous rows of a
     global batch;

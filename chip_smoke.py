@@ -156,6 +156,25 @@ Phases, each of which must pass:
 13. The flagship for 3 steps under each remat policy ("none", "proj",
    "dots", "dots_no_batch"): flash launches 48/24/24 a step under every
    policy, losses equal across policies, step ms and peak memory each.
+14. The two-level mesh and the cross-barrier drivers on the card.
+   14b: CrossBarrierDriver around phase 4's flagship step, max_in_flight
+   1 and 2, 8 steps each after a warm-up step from the same weights: the
+   losses within 1e-6 relative of a plain loop's (bit-equality printed),
+   flash launches 48/24/24 a step, step ms and the device's idle share of
+   each setting (no claim).  14c: the native examples
+   (byteps_tpu_torch.examples) on the card: train_mnist's accuracy above
+   chance, train_mnist_fp16's falling loss under
+   HalfPrecisionDistributedOptimizer, benchmark_cross_barrier's two rates
+   and its CrossBarrier and DistributedOptimizer params within 1e-5
+   relative.  14a, last, so that no earlier phase sees a process group: a
+   world-of-one NCCL group (file:// rendezvous in a temporary directory),
+   make_hierarchical_mesh(1) on CUDA, the flagship's gradient tree through
+   hierarchical_tree_all_reduce over NCCL (NCCL kernels counted), equal
+   bit for bit to bucketed_tree_all_reduce under local_mode() and in as
+   many buckets as the plan; then 5 flagship steps under
+   DistributedOptimizer(hierarchical=True) outside local_mode(): finite,
+   falling losses, flash launches 48/24/24 a step, step ms and idle share
+   beside phase 4's; the group destroyed at the end.
 
 Prints a ``{"kernels": [...]}`` line (each entry also naming the CUDA
 kernels it launches, ``cuda_kernels``), the card's name and power limit, and
@@ -256,6 +275,7 @@ CNN = dict(name="resnet50", image=224, classes=1000, batch=64, lr=0.1,
 RESNET50_PARAMS = 161
 REMAT_POLICIES = ("none", "proj", "dots", "dots_no_batch")
 REMAT_STEPS = 3
+DRIVER_STEPS = 8
 
 
 def sh(cmd):
@@ -1185,8 +1205,8 @@ def phase_flagship(bps, tfm, fa, torch, check, gpu):
     want = flash_want(48, 24, streaming=False)
     launches, steady, _ = train(step, params, batch, [fa], torch, check, gpu,
                                 want)
-    phase_profile(step, params, batch, torch, steady)
-    return launches, steady
+    busy = phase_profile(step, params, batch, torch, steady)
+    return launches, steady, busy
 
 
 def phase_long(bps, tfm, fa, torch, check, gpu):
@@ -1351,7 +1371,7 @@ def phase_profile(step, params, batch, torch, steady_ms, bitpack_bound=None):
     busy = sum(ms for _, ms in kernels)
     if not kernels:
         print("  profile: no device time recorded (not measured)")
-        return
+        return None
     groups = {"flash kernels": 0.0, "bitpack kernels": 0.0, "matmul": 0.0,
               "other": 0.0}
     for name, ms in kernels:
@@ -1385,6 +1405,7 @@ def phase_profile(step, params, batch, torch, steady_ms, bitpack_bound=None):
             for e in host))
     for name, ms in sorted(kernels, key=lambda r: -r[1])[:8]:
         print(f"    {ms:9.3f} ms  {name[:100]}")
+    return busy
 
 
 @contextlib.contextmanager
@@ -1998,6 +2019,155 @@ def phase_remat(bps, tfm, fa, torch, check, gpu):
     return res
 
 
+def idle(busy, step_ms):
+    return None if busy is None else 1 - busy / step_ms
+
+
+def phase_driver(bps, tfm, fa, torch, check, gpu):
+    """CrossBarrierDriver (max_in_flight 1 and 2) around the flagship step
+    against a plain loop, each from the same weights and batch after one
+    warm-up step; the device's idle share from one profiled plain step's
+    busy time."""
+    res = {}
+    losses = {}
+    want = flash_want(48, 24, streaming=False)
+    for setting in ("plain", 1, 2):
+        cfg, params, batch, opt, step = flagship(tfm, bps, torch)
+        step(params, batch)                       # warm-up
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        if setting == "plain":
+            losses[setting] = [float(step(params, batch))
+                               for _ in range(DRIVER_STEPS)]
+        else:
+            drv = bps.CrossBarrierDriver(step, params, max_in_flight=setting)
+            for _ in range(DRIVER_STEPS):
+                drv.submit(batch)
+            check(drv.finish() is params, f"max_in_flight={setting}: "
+                  f"finish() returns the params")
+            losses[setting] = drv.losses()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / DRIVER_STEPS
+        got = {n: fa.launches[n] for n in want}
+        check(got == {n: w * DRIVER_STEPS for n, w in want.items()},
+              f"{setting}: flash launches {got} over {DRIVER_STEPS} steps")
+        if setting == "plain":
+            busy = phase_profile(step, params, batch, torch, ms)
+        res[str(setting)] = {"step_ms": ms, "idle_share": idle(busy, ms)}
+        print(f"  {setting}: {ms:.3f} ms a step, device idle share "
+              f"{res[str(setting)]['idle_share']} ({gpu})")
+        del params, batch, opt, step
+        torch.cuda.empty_cache()
+    for setting in (1, 2):
+        worst = max(abs(a - b) / abs(b)
+                    for a, b in zip(losses[setting], losses["plain"]))
+        check(len(losses[setting]) == DRIVER_STEPS and worst <= 1e-6,
+              f"max_in_flight={setting}: losses within {worst:.3g} relative "
+              f"of the plain loop's (<= 1e-6); bit-equal: "
+              f"{losses[setting] == losses['plain']}")
+    print(f"  plain losses {losses['plain']}")
+    return res
+
+
+def phase_examples(torch, check, gpu):
+    """The native examples with small arguments, on CUDA (their default)."""
+    from byteps_tpu_torch.examples import (benchmark_cross_barrier,
+                                           train_mnist, train_mnist_fp16)
+    mnist = train_mnist.main(["--epochs", "1", "--batch-size", "512"])
+    check(mnist["acc"] > 0.5, f"train_mnist: acc={mnist['acc']:.3f} above "
+          f"chance (0.1)")
+    fp16 = train_mnist_fp16.main(["--steps", "30"])
+    check(fp16["last_loss"] < fp16["first_loss"],
+          f"train_mnist_fp16: loss {fp16['first_loss']:.4f} -> "
+          f"{fp16['last_loss']:.4f}")
+    bench = benchmark_cross_barrier.main(["--steps", "30"])
+    check(bench["params_rel_diff"] <= 1e-5,
+          f"benchmark_cross_barrier: CrossBarrier vs DistributedOptimizer "
+          f"params within {bench['params_rel_diff']:.3g} relative (<= 1e-5)")
+    print(f"  benchmark_cross_barrier: baseline "
+          f"{bench['baseline_steps_per_s']:.1f} steps/s, cross-barrier "
+          f"{bench['cross_barrier_steps_per_s']:.1f} steps/s ({gpu})")
+    return {"mnist": mnist, "fp16": fp16, "cross_barrier": bench}
+
+
+def phase_hierarchical(bps, tfm, fa, torch, check, gpu, flagship_ms,
+                       flagship_busy):
+    """A world-of-one NCCL group and a (1, 1) two-level mesh: the
+    flagship's gradient tree through the hierarchical reduce, then 5
+    flagship steps under DistributedOptimizer(hierarchical=True)."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.common.tree import tree_leaves
+    from byteps_tpu_torch.ops import collectives
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rdzv",
+                                world_size=1, rank=0)
+        try:
+            mesh = bps.make_hierarchical_mesh(1)
+            check(mesh.mesh_dim_names == ("dcn_dp", "ici_dp")
+                  and tuple(mesh.shape) == (1, 1)
+                  and mesh.device_type == "cuda",
+                  f"make_hierarchical_mesh(1): {mesh}")
+            cfg, params, batch, opt, step = flagship(tfm, bps, torch)
+            tfm.loss_fn(params, batch, cfg).backward()
+            grads = [p.grad.detach().clone() for p in tree_leaves(params)]
+            del opt, step
+            for p in tree_leaves(params):
+                p.grad = None
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = collectives.hierarchical_tree_all_reduce(grads, mesh)
+                torch.cuda.synchronize()
+            events = prof.key_averages()
+            # each bucket's range, by name (the profiler also lists its
+            # annotation on the device)
+            buckets = len({e.key for e in events
+                           if e.key.startswith("byteps.bucket")})
+            nccl = {f"{e.key[:60]} ({e.device_type.name})": e.count
+                    for e in events if "nccl" in e.key.lower()}
+            with collectives.local_mode():
+                ref = collectives.bucketed_tree_all_reduce(grads)
+            plan = collectives._plan_cache(
+                tuple(g.numel() for g in grads),
+                get_config().partition_bytes, 4, True).num_buckets()
+            check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                  "hierarchical_tree_all_reduce over NCCL equals "
+                  "bucketed_tree_all_reduce under local_mode() bit for bit")
+            backends = {dist.get_backend(mesh.get_group(a))
+                        for a in mesh.mesh_dim_names}
+            check(buckets == plan and backends == {"nccl"},
+                  f"{buckets} buckets == the plan's {plan}, over groups of "
+                  f"backend {backends}; NCCL events {nccl}")
+            del grads, out, ref
+            opt = bps.DistributedOptimizer(
+                torch.optim.AdamW(tree_leaves(params), lr=1e-4,
+                                  weight_decay=1e-4),
+                hierarchical=True, mesh=mesh)
+            step = bps.build_train_step(lambda p, b: tfm.loss_fn(p, b, cfg),
+                                        opt)
+            check(not collectives.is_local() and opt.hierarchical,
+                  "the hierarchical steps run outside local_mode()")
+            want = flash_want(48, 24, streaming=False)
+            _, steady, _ = train(step, params, batch, [fa], torch, check,
+                                 gpu, want)
+            busy = phase_profile(step, params, batch, torch, steady)
+            res = {"buckets": buckets, "nccl_events": nccl,
+                   "step_ms": steady, "idle_share": idle(busy, steady),
+                   "flagship_step_ms": flagship_ms,
+                   "flagship_idle_share": idle(flagship_busy, flagship_ms)}
+            print(f"  hierarchical step {steady:.3f} ms, idle share "
+                  f"{res['idle_share']} beside phase 4's {flagship_ms:.3f} "
+                  f"ms, idle share {res['flagship_idle_share']} ({gpu})")
+            del params, batch, opt, step
+        finally:
+            dist.destroy_process_group()
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2034,7 +2204,8 @@ def main() -> int:
     print("== phase 3: tiny transformer, flash vs dense")
     phase_small_model(tfm, torch, check)
     print("== phase 4: flagship training (main path)")
-    launches, steady = phase_flagship(bps, tfm, fa, torch, check, gpu)
+    launches, steady, busy = phase_flagship(bps, tfm, fa, torch, check,
+                                            gpu)
     torch.cuda.empty_cache()
     print("== phase 4b: compressed flagship training (main path)")
     c_launches, c_steady, c_peak = phase_flagship_compressed(
@@ -2110,6 +2281,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("== phase 13: remat policies on the flagship")
     yardsticks["remat"] = phase_remat(bps, tfm, fa, torch, check, gpu)
+    torch.cuda.empty_cache()
+    print("== phase 14b: CrossBarrierDriver around the flagship step")
+    yardsticks["cross_barrier_driver"] = phase_driver(bps, tfm, fa, torch,
+                                                      check, gpu)
+    torch.cuda.empty_cache()
+    print("== phase 14c: the native examples on the card")
+    yardsticks["examples"] = phase_examples(torch, check, gpu)
+    torch.cuda.empty_cache()
+    print("== phase 14a: hierarchical reduce over a world-of-one NCCL "
+          "group, the flagship under DistributedOptimizer(hierarchical=True)")
+    yardsticks["hierarchical"] = phase_hierarchical(
+        bps, tfm, fa, torch, check, gpu, steady, busy)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     if check.failures:

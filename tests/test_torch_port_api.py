@@ -341,15 +341,18 @@ def test_force_distributed_reduces_at_world_one(monkeypatch):
         bps.shutdown()
 
 
-def run_world(world, prefix):
-    """Run the worker in ``world`` processes; the per-rank npz files."""
+def run_worlds(*worlds):
+    """Run the worker in each ``(world, prefix)``'s processes, all worlds
+    at once; for each world, the per-rank npz files."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    port = _free_port()
-    procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(world),
-                               str(port), str(prefix)], env=env,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
+    procs = []
+    for world, prefix in worlds:
+        port = _free_port()
+        procs += [subprocess.Popen([sys.executable, WORKER, str(r),
+                                    str(world), str(port), str(prefix)],
+                                   env=env, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)
+                  for r in range(world)]
     try:
         logs = [p.communicate(timeout=90)[0] for p in procs]
     finally:
@@ -359,13 +362,15 @@ def run_world(world, prefix):
                 p.wait()
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log
-    return [dict(np.load(f"{prefix}.{r}.npz")) for r in range(world)]
+    return [[dict(np.load(f"{prefix}.{r}.npz")) for r in range(world)]
+            for world, prefix in worlds]
 
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
     d = tmp_path_factory.mktemp("api")
-    return run_world(2, d / "dist"), run_world(1, d / "single")[0]
+    dist, single = run_worlds((2, d / "dist"), (1, d / "single"))
+    return dist, single[0]
 
 
 def test_two_ranks_average_sum_and_tree(two_ranks):

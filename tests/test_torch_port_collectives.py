@@ -129,11 +129,22 @@ def test_bucketed_all_reduce_keeps_dtypes_and_names_buckets():
     assert {"byteps.bucket0", "byteps.bucket1"} <= names
 
 
-def test_unported_collectives_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        collectives.hierarchical_tree_all_reduce({})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        collectives.hierarchical_all_reduce(torch.ones(2))
+def test_hierarchical_reduce_in_local_mode_and_its_mesh_check():
+    """Under local_mode() the hierarchical reduce returns its input as it
+    is; outside it, a mesh without the two levels is refused (the gloo and
+    JAX parity is tests/test_torch_port_mesh.py)."""
+    tree = {"a": torch.randn(5), "b": torch.randn(3, 7, dtype=torch.bfloat16)}
+    x = torch.randn(6)
+    with collectives.local_mode():
+        assert collectives.hierarchical_tree_all_reduce(tree) is tree
+        assert collectives.hierarchical_all_reduce(x, average=True) is x
+
+    class FlatMesh:
+        mesh_dim_names = ("pp", "dp", "ep", "sp", "tp")
+    with pytest.raises(ValueError, match="dcn_dp"):
+        collectives.hierarchical_all_reduce(x, FlatMesh())
+    with pytest.raises(ValueError, match="ici_dp"):
+        collectives.hierarchical_tree_all_reduce(tree, FlatMesh())
 
 
 def _free_port():
@@ -142,14 +153,17 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _run_world(world, out):
+def _run_worlds(*worlds):
+    """Each ``(world, out)``'s ranks, all worlds at once; the npz files."""
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    port = _free_port()
-    procs = [subprocess.Popen([sys.executable, WORKER, str(r), str(world),
-                               str(port), str(out)], env=env,
-                              stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for r in range(world)]
+    procs = []
+    for world, out in worlds:
+        port = _free_port()
+        procs += [subprocess.Popen([sys.executable, WORKER, str(r),
+                                    str(world), str(port), str(out)],
+                                   env=env, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)
+                  for r in range(world)]
     try:
         logs = [p.communicate(timeout=50)[0] for p in procs]
     finally:
@@ -159,14 +173,14 @@ def _run_world(world, out):
                 p.wait()
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log
-    return np.load(out)
+    return [np.load(out) for _, out in worlds]
 
 
 def test_two_rank_gloo_step_equals_single_process(tmp_path):
     """Two gloo ranks, each on half the global batch, reduce gradients in
     buckets and end where one process on the whole batch ends."""
-    dist = _run_world(2, tmp_path / "dist.npz")
-    single = _run_world(1, tmp_path / "single.npz")
+    dist, single = _run_worlds((2, tmp_path / "dist.npz"),
+                               (1, tmp_path / "single.npz"))
     np.testing.assert_allclose(dist["losses"], single["losses"], rtol=1e-5)
     keys = [k for k in single.files if k.startswith("p")]
     assert keys and set(keys) == {k for k in dist.files if k.startswith("p")}

@@ -9,6 +9,7 @@ compressed reduction: at world 1 against JAX under ``local_mode``, and on a
 2-rank gloo world against JAX on a 2-device CPU mesh.
 """
 
+import functools
 import json
 import os
 import socket
@@ -227,9 +228,10 @@ def _to_torch(tree):
     return torch.from_numpy(np.array(tree, np.float32))
 
 
+@functools.lru_cache(maxsize=None)
 def _tiny_grads(seeds):
     """Gradients of the tiny transformer (float32) at its init, on one
-    batch per seed, as numpy trees."""
+    batch per seed, as numpy trees (once per process; callers copy)."""
     cfg = jtfm.get_config("tiny", dtype=jnp.float32)
     params = jtfm.init_params(jax.random.key(0), cfg)
     grad = jax.jit(jax.grad(lambda p, b: jtfm.loss_fn(p, b, cfg)))

@@ -71,8 +71,8 @@ def test_gradient_parity(causal, streaming):
         out = jax_flash(q, k, v, causal, None, 64, 128, True, streaming)
         return jnp.sum((out - jnp.asarray(tgt)) ** 2)
 
-    want = jax.grad(jloss, (0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
-                                      jnp.asarray(v))
+    want = jax.jit(jax.grad(jloss, (0, 1, 2)))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     out = fa.flash_attention(tq, tk, tv, causal, None, 64, 128,
                              streaming=streaming)

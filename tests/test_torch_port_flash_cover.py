@@ -25,6 +25,7 @@ from byteps_tpu.ops import flash_attention as jfa
 from byteps_tpu_torch.common.tree import tree_leaves
 from byteps_tpu_torch.models import transformer as tfm
 from byteps_tpu_torch.ops import flash_attention as fa
+import torch_port_jax_flash as jax_ref
 from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 
 FP16_STEP = 2.0 ** -10
@@ -37,10 +38,10 @@ def _inputs(seed, n, *shape):
 
 def _jax_vjp(q, k, v, do, causal, streaming, dtype=jnp.float32):
     """JAX flash forward and its vjp with ``do``, on numpy inputs."""
-    jq, jk, jv, jdo = (jnp.asarray(x).astype(dtype) for x in (q, k, v, do))
-    out, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention(
-        q, k, v, causal, None, 64, 64, True, streaming), jq, jk, jv)
-    return [np.asarray(x, np.float32) for x in (out, *vjp(jdo))]
+    out, grads, _ = jax_ref.vjp(
+        *(jnp.asarray(x).astype(dtype) for x in (q, k, v, do)), causal, 64,
+        64, streaming)
+    return [np.asarray(x, np.float32) for x in (out, *grads)]
 
 
 def _port_vjp(q, k, v, do, causal, streaming, dtype=torch.float32):

@@ -46,15 +46,13 @@ sums them once, in rank order.
 
 import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from byteps_tpu.ops.flash_attention import _flash_fwd as jax_flash_fwd
-from byteps_tpu.ops.flash_attention import flash_attention as jax_flash
 from byteps_tpu_torch.ops import flash_attention as fa
+import torch_port_jax_flash as jax_ref
 from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TILE = 64
@@ -77,6 +75,54 @@ def rz32(x):
     r = x.float()
     over = r.double().abs() > x.abs()
     return torch.where(over, torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def cut23(x):
+    """float64 x with its mantissa cut to float32's 23 bits: rz32(x) held
+    in float64 wherever the cut value is a float32 (no float32 lies between
+    it and x), which fails only among float32's subnormals and beyond its
+    range."""
+    return (x.view(torch.int64) & -(1 << 29)).view(torch.float64)
+
+
+def rz64(x):
+    """rz32(x) held in float64: cut23, or rz32 where a cut value is not a
+    float32."""
+    cut = cut23(x)
+    if bool((cut.float().double() != cut).any()):
+        return rz32(x).double()
+    return cut
+
+
+def _log2_range(t):
+    """floor(log2 |x|) of t's smallest and largest nonzero magnitudes
+    (None for an all-zero t)."""
+    a = t.abs()
+    big = a.max()
+    if not big > 0:
+        return None
+    small = torch.where(a > 0, a, big).min()
+    return (int(torch.frexp(small).exponent) - 1,
+            int(torch.frexp(big).exponent) - 1)
+
+
+def cut_is_rz32(parts, k):
+    """Whether cut23 is rz32 for every partial sum of the products of
+    ``parts`` (tf32 operand pairs) over a contraction of k: a nonzero tf32
+    x is a multiple of 2^(floor(log2 |x|) - 10), so every product, every
+    float64 sum of them and every float32 truncation of such a sum is a
+    multiple of the least product of two such steps; at 2^-126 or more no
+    nonzero sum lies among float32's subnormals, and with the products
+    below 2^120 / k none leaves its range.  Checked once for a call's
+    operands in place of rz64's check at every step."""
+    lo, hi = 10 ** 6, -10 ** 6
+    for x, y in parts:
+        rx, ry = _log2_range(x), _log2_range(y)
+        if rx is None or ry is None:
+            continue
+        lo = min(lo, rx[0] + ry[0] - 20)
+        hi = max(hi, rx[1] + ry[1] + 2)
+    return lo >= -126 and 2.0 ** hi * k < 2.0 ** 120
 
 
 def slice_width(d):
@@ -112,13 +158,15 @@ class Recipe:
             al, bl = tf32(a - ah), tf32(b - bh)
             parts = [(al, bh), (ah, bl), (ah, bh)]
         k, step = a.shape[-1], 8 * self.group
+        rz = cut23 if cut_is_rz32(parts, k) else rz64
+        parts = [(x.double(), y.double()) for x, y in parts]
         for k0 in range(0, k, step):  # one zeroed accumulator each
             part = torch.zeros(*a.shape[:-1], b.shape[-1],
                                dtype=torch.float64)
             for s0 in range(k0, k0 + step, 8):
                 for x, y in parts:
-                    part = rz32(part + x[..., s0:s0 + 8].double()
-                                @ y[..., s0:s0 + 8, :].double()).double()
+                    part = rz(part + x[..., s0:s0 + 8]
+                                @ y[..., s0:s0 + 8, :])
             acc = part.float() if acc is None else acc + part.float()
         return acc
 
@@ -383,16 +431,12 @@ def test_recipe_matches_jax_backward(d, causal, streaming):
     rng = np.random.RandomState(13 + causal)
     q, k, v, do = (rng.randn(2, 256, d).astype(np.float32)
                    for _ in range(4))
-    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
-    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal, None, 64,
-                                               64, True, streaming),
-                     jq, jk, jv)
-    want = [torch.from_numpy(np.array(g)) for g in vjp(jdo)]
-    o, (_, _, _, _, lse) = jax_flash_fwd(jq, jk, jv, causal, None, 64, 64,
-                                         True, streaming)
+    o, grads, lse = jax_ref.vjp(*(jnp.asarray(x) for x in (q, k, v, do)),
+                                causal, 64, 64, streaming)
+    want = [torch.from_numpy(np.array(g)) for g in grads]
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
     to = torch.from_numpy(np.array(o))
-    tlse = torch.from_numpy(np.array(lse))[:, 0, :]
+    tlse = torch.from_numpy(np.array(lse))
     delta = (tdo.double() * to.double()).sum(-1).float()
     scale = d ** -0.5
     split = 2 if streaming else None
@@ -463,11 +507,9 @@ def test_fwd_recipe_matches_jax_forward(d, causal, streaming):
     streaming kernel) within the float32 gates on O and LSE."""
     rng = np.random.RandomState(17 + causal)
     q, k, v = (rng.randn(2, 256, d).astype(np.float32) for _ in range(3))
-    o, (_, _, _, _, lse) = jax_flash_fwd(
-        *(jnp.asarray(x) for x in (q, k, v)), causal, None, 64, 64, True,
-        streaming)
-    want = (torch.from_numpy(np.array(o)),
-            torch.from_numpy(np.array(lse))[:, 0, :])
+    o, lse = jax_ref.forward(*(jnp.asarray(x) for x in (q, k, v)), causal,
+                             64, 64, streaming)
+    want = (torch.from_numpy(np.array(o)), torch.from_numpy(np.array(lse)))
     got = emulate_fwd(*(torch.from_numpy(x) for x in (q, k, v)), causal,
                       d ** -0.5, split=2 if streaming else None)
     worst = _fwd_gates(got, want)

@@ -36,15 +36,13 @@ what the gate needs.
 import functools
 import math
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from byteps_tpu.ops.flash_attention import _flash_fwd as jax_flash_fwd
-from byteps_tpu.ops.flash_attention import flash_attention as jax_flash
 from byteps_tpu_torch.ops import flash_attention as fa
+import torch_port_jax_flash as jax_ref
 from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TILE = 64
@@ -343,14 +341,9 @@ def test_third_term_holds_the_gate_where_ds_is_large(s):
     assert all(w <= 1.0 for w in worst.values()), worst
 
 
-def _unrounded_margin(seed, refine_p=REFINE_P, sink=False,
-                      pair_only=False):
-    """Worst element of the recipe's dQ, dK, dV before the final rounding
-    against the plain versions in float32, over the bf16 gate, with dO 16x
-    larger: inputs drawn in bf16 and held in float32 tensors, so neither
-    side rounds its output.  At [4096, 64, 16] causal, or with ``sink`` at
-    [2, 4096, 64] causal with an attention sink (key 0 along a direction
-    every query leans to, ~0.8 of each row's probability)."""
+@functools.lru_cache(maxsize=None)
+def _margin_case(seed, sink):
+    """The inputs of _unrounded_margin and the plain versions' outputs."""
     rng = np.random.RandomState(seed)
     shape = (2, 4096, 64) if sink else (4096, 64, 16)
     q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
@@ -365,15 +358,26 @@ def _unrounded_margin(seed, refine_p=REFINE_P, sink=False,
     o, lse = fa.flash_fwd_plain(q, k, v, True, scale)
     dq, delta = fa.flash_bwd_dq_plain(q, k, v, o, lse, do, True, scale)
     dk, dv = fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, True, scale)
+    return (q, k, v, do, lse, delta, scale), (dq, dk, dv)
+
+
+def _unrounded_margin(seed, refine_p=REFINE_P, sink=False,
+                      pair_only=False):
+    """Worst element of the recipe's dQ, dK, dV before the final rounding
+    against the plain versions in float32, over the bf16 gate, with dO 16x
+    larger: inputs drawn in bf16 and held in float32 tensors, so neither
+    side rounds its output.  At [4096, 64, 16] causal, or with ``sink`` at
+    [2, 4096, 64] causal with an attention sink (key 0 along a direction
+    every query leans to, ~0.8 of each row's probability)."""
+    args, plain = _margin_case(seed, sink)
     global REFINE_P
     kept, REFINE_P = REFINE_P, refine_p
     try:
-        got = _emulate((q, k, v, do, lse, delta, scale), True, pair=True,
-                       refine=not pair_only)
+        got = _emulate(args, True, pair=True, refine=not pair_only)
     finally:
         REFINE_P = kept
     return {n: _worst(g, w) for n, g, w in zip(("dq", "dk", "dv"), got,
-                                               (dq, dk, dv))}
+                                               plain)}
 
 
 def test_third_term_holds_a_long_contraction_with_a_sink():
@@ -411,17 +415,13 @@ def test_pair_matches_jax_backward(causal, streaming):
                    for _ in range(4))
     jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16)
                        for x in (q, k, v, do))
-    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal, None, 64,
-                                               64, True, streaming),
-                     jq, jk, jv)
+    o, grads, lse = jax_ref.vjp(jq, jk, jv, jdo, causal, 64, 64, streaming)
     want = [torch.from_numpy(np.array(g.astype(jnp.float32)))
-            for g in vjp(jdo)]
-    o, (_, _, _, _, lse) = jax_flash_fwd(jq, jk, jv, causal, None, 64, 64,
-                                         True, streaming)
+            for g in grads]
     tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
                        for x in (q, k, v, do))
     to = torch.from_numpy(np.array(o.astype(jnp.float32)))
-    tlse = torch.from_numpy(np.array(lse))[:, 0, :]
+    tlse = torch.from_numpy(np.array(lse))
     delta = (tdo.float() * to).sum(-1)
     got = _emulate((tq, tk, tv, tdo, tlse, delta, 64 ** -0.5), causal,
                    pair=True)
@@ -469,10 +469,9 @@ def test_fwd_pair_matches_jax_forward(causal, streaming):
     rng = np.random.RandomState(11 + causal)
     q, k, v = (rng.randn(2, 256, 64).astype(np.float32) for _ in range(3))
     jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
-    o, (_, _, _, _, lse) = jax_flash_fwd(jq, jk, jv, causal, None, 64, 64,
-                                         True, streaming)
+    o, lse = jax_ref.forward(jq, jk, jv, causal, 64, 64, streaming)
     want_o = torch.from_numpy(np.array(o.astype(jnp.float32)))
-    want_lse = torch.from_numpy(np.array(lse))[:, 0, :]
+    want_lse = torch.from_numpy(np.array(lse))
     tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
     got_o, got_lse = emulate_fwd(tq, tk, tv, causal, 64 ** -0.5)
     worst = {"o": _worst(got_o, want_o),
@@ -526,10 +525,9 @@ def test_wide_fwd_recipe_matches_jax_forward(causal, streaming):
     rng = np.random.RandomState(13 + causal)
     q, k, v = (rng.randn(2, 128, 384).astype(np.float32) for _ in range(3))
     jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
-    o, (_, _, _, _, lse) = jax_flash_fwd(jq, jk, jv, causal, None, 64, 64,
-                                         True, streaming)
+    o, lse = jax_ref.forward(jq, jk, jv, causal, 64, 64, streaming)
     want_o = torch.from_numpy(np.array(o.astype(jnp.float32)))
-    want_lse = torch.from_numpy(np.array(lse))[:, 0, :]
+    want_lse = torch.from_numpy(np.array(lse))
     tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
     got_o, got_lse = emulate_fwd(tq, tk, tv, causal, 384 ** -0.5,
                                  chunk=WIDE, split=64 if streaming else None)
@@ -592,17 +590,13 @@ def test_wide_bwd_recipe_matches_jax_backward(causal, streaming):
                    for _ in range(4))
     jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16)
                        for x in (q, k, v, do))
-    _, vjp = jax.vjp(lambda a, b, c: jax_flash(a, b, c, causal, None, 64,
-                                               64, True, streaming),
-                     jq, jk, jv)
+    o, grads, lse = jax_ref.vjp(jq, jk, jv, jdo, causal, 64, 64, streaming)
     want = [torch.from_numpy(np.array(g.astype(jnp.float32)))
-            for g in vjp(jdo)]
-    o, (_, _, _, _, lse) = jax_flash_fwd(jq, jk, jv, causal, None, 64, 64,
-                                         True, streaming)
+            for g in grads]
     tq, tk, tv, tdo = (torch.from_numpy(x).to(torch.bfloat16)
                        for x in (q, k, v, do))
     to = torch.from_numpy(np.array(o.astype(jnp.float32)))
-    tlse = torch.from_numpy(np.array(lse))[:, 0, :]
+    tlse = torch.from_numpy(np.array(lse))
     delta = (tdo.double() * to.double()).sum(-1).float()
     got = _emulate_wide((tq, tk, tv, tdo, tlse, delta, 384 ** -0.5), causal,
                         64 if streaming else None)

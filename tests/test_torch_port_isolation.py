@@ -14,14 +14,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROBE = """
 import importlib, json, pkgutil, sys
 import byteps_tpu_torch
+from byteps_tpu_torch.ops import _build
 mods = [m.name for m in pkgutil.walk_packages(byteps_tpu_torch.__path__,
                                                "byteps_tpu_torch.")]
 for m in mods:
     importlib.import_module(m)
+from byteps_tpu_torch.torch import CrossBarrier
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "byteps_tpu", "optax",
                                     "flax"))
-print(json.dumps({"modules": mods, "bad": bad}))
+print(json.dumps({"modules": mods, "bad": bad, "built": sorted(_build._libs),
+                  "triton": "triton" in sys.modules}))
 """
 
 
@@ -32,6 +35,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
+    assert res["built"] == [] and not res["triton"]   # no kernel built
     for mod in ("byteps_tpu_torch.ops.flash_attention",
                 "byteps_tpu_torch.ops.collectives",
                 "byteps_tpu_torch.ops.ring_attention",
@@ -56,7 +60,13 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
                 "byteps_tpu_torch.utils.checkpoint",
                 "byteps_tpu_torch.utils.data",
                 "byteps_tpu_torch.launcher.launch",
-                "byteps_tpu_torch.launcher.dist_launcher"):
+                "byteps_tpu_torch.launcher.dist_launcher",
+                "byteps_tpu_torch.parallel.mesh",
+                "byteps_tpu_torch.parallel.cross_barrier",
+                "byteps_tpu_torch.torch.cross_barrier",
+                "byteps_tpu_torch.examples.train_mnist",
+                "byteps_tpu_torch.examples.train_mnist_fp16",
+                "byteps_tpu_torch.examples.benchmark_cross_barrier"):
         assert mod in res["modules"]
 
 

@@ -8,6 +8,8 @@ points (the loss to 1e-2; gradients against the float32 truth, see
 test_loss_and_grads_match_jax).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -48,6 +50,17 @@ def _jax_loss_grads(jcfg, params, batch):
                          for g in jax.tree.leaves(grads)]
 
 
+@functools.lru_cache(maxsize=None)
+def _case(name, dtype, attn):
+    """The JAX params, batch, loss and gradients of a parity case, once per
+    process: a bf16 case's float32 truth is the float32 case's (the params
+    do not depend on the activation dtype)."""
+    jcfg, tcfg = _pair(name, dtype, attn_impl=attn)
+    params = _jax_params(jcfg)
+    batch = _batch(tcfg)
+    return params, batch, _jax_loss_grads(jcfg, params, batch)
+
+
 def _port_loss_grads(tcfg, params_np, batch):
     params = tfm.params_from_numpy(params_np, tcfg, device="cpu")
     tb = tuple(torch.from_numpy(x).long() for x in batch)
@@ -83,10 +96,8 @@ def test_params_from_numpy_round_trip(name):
 @pytest.mark.parametrize("attn", ["dense", "flash"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_loss_and_grads_match_jax(name, attn, dtype):
-    jcfg, tcfg = _pair(name, dtype, attn_impl=attn)
-    params = _jax_params(jcfg)
-    batch = _batch(tcfg)
-    jl, jg = _jax_loss_grads(jcfg, params, batch)
+    _, tcfg = _pair(name, dtype, attn_impl=attn)
+    params, batch, (jl, jg) = _case(name, dtype, attn)
     tl, tg = _port_loss_grads(tcfg, params, batch)
     if dtype == "float32":
         assert abs(tl - jl) <= 1e-5 * abs(jl), (tl, jl)
@@ -102,8 +113,7 @@ def test_loss_and_grads_match_jax(name, attn, dtype):
     # which averages that noise (measured <= 1.8e-2 port vs JAX), and the
     # port must be no farther from the float32 truth than 1.5x JAX's bf16
     # (measured <= 1.16x).
-    _, fg = _jax_loss_grads(_pair(name, "float32", attn_impl=attn)[0],
-                            params, batch)
+    _, _, (_, fg) = _case(name, "float32", attn)
 
     def rel(x, ref):
         return float(np.linalg.norm(x - ref) / np.linalg.norm(ref))

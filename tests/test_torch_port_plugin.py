@@ -16,7 +16,7 @@ import torch
 import byteps_tpu.torch as jhvd
 import byteps_tpu_torch.torch as hvd
 from torch_port_threads import one_torch_thread  # noqa: F401  (autouse)
-from test_torch_port_api import run_world
+from test_torch_port_api import run_worlds
 
 
 @pytest.fixture
@@ -226,17 +226,39 @@ def test_fp16_dynamic_loss_scale_skips_overflow(both):
     hvd.broadcast_fp16_parameters(opt)
 
 
-def test_cross_barrier_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        hvd.CrossBarrier()
+def test_cross_barrier_is_the_ported_scheduler(both):
+    """``byteps_tpu_torch.torch.CrossBarrier`` is the port's scheduler
+    (torch/cross_barrier.py; its cases are
+    tests/test_torch_port_cross_barrier.py): one step of it equals one of
+    the plain optimizer."""
+    from byteps_tpu_torch.torch import cross_barrier
+    assert hvd.CrossBarrier is cross_barrier.CrossBarrier
+    torch.manual_seed(0)
+    a, b = torch.nn.Linear(4, 2), torch.nn.Linear(4, 2)
+    b.load_state_dict(a.state_dict())
+    x = torch.randn(8, 4)
+    plain = torch.optim.SGD(a.parameters(), lr=0.1)
+    a(x).square().mean().backward()
+    plain.step()
+    cb = hvd.CrossBarrier(b, torch.optim.SGD(b.parameters(), lr=0.1),
+                          named_parameters=b.named_parameters())
+    try:
+        b(x).square().mean().backward()
+        cb.step()
+        cb.synchronize()
+    finally:
+        cb.close()
+    for p, q in zip(a.parameters(), b.parameters()):
+        assert torch.equal(p, q)
 
 
 def test_two_rank_gloo_run_equals_one_process(tmp_path):
     """Two gloo ranks, each on half the global batch, after the broadcasts
     (rank 1 starts from other weights): DistributedOptimizer and DDP end
     where one process on the whole batch ends, every rank alike."""
-    ranks = run_world(2, tmp_path / "dist")
-    single = run_world(1, tmp_path / "single")[0]
+    ranks, single = run_worlds((2, tmp_path / "dist"),
+                               (1, tmp_path / "single"))
+    single = single[0]
     keys = [k for k in single if k.startswith(("opt_p", "ddp_p"))]
     assert len(keys) == 8
     for out in ranks:

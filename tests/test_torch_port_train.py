@@ -176,7 +176,8 @@ def test_optimizer_options():
     """backward_passes_per_step scales the reduced gradient; the fp16 cast
     round-trips it through bf16; an inter_compressor that is not an
     ops.compressor InterCompressor, or a world that is not the group's,
-    is refused; what is not ported yet raises."""
+    is refused; the hierarchical reduce needs a process group for its
+    mesh, and no mesh is built when a compressor takes precedence."""
     w = torch.zeros(3, requires_grad=True)
     g = torch.tensor([1.0, 1.0 / 3.0, -2.5])
     opt = bps.DistributedOptimizer(torch.optim.SGD([w], lr=1.0),
@@ -198,9 +199,14 @@ def test_optimizer_options():
         bps.DistributedOptimizer(torch.optim.SGD([w], lr=1.0),
                                  inter_compressor=bps.compressor.create(
                                      {"compressor": "onebit"}), world=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    with pytest.raises(RuntimeError, match="process group"):
         bps.DistributedOptimizer(torch.optim.SGD([w], lr=1.0),
                                  hierarchical=True)
+    opt = bps.DistributedOptimizer(torch.optim.SGD([w], lr=1.0),
+                                   hierarchical=True,
+                                   inter_compressor=bps.compressor.create(
+                                       {"compressor": "onebit"}))
+    assert not opt.hierarchical and opt.mesh is None
 
 
 def test_mlp_smoke():

@@ -152,15 +152,23 @@ def test_launch_worker_role_runs_command(tmp_path):
     out = tmp_path / "out.txt"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, DMLC_ROLE="worker", PYTHONPATH=repo)
-    rc = subprocess.call(
+    # the worker and the (refused) server role side by side
+    worker = subprocess.Popen(
         [sys.executable, "-m", "byteps_tpu_torch.launcher.launch",
          sys.executable, "-c", f"open(r'{out}', 'w').write('ran')"],
-        env=env, timeout=60)
-    assert rc == 0 and out.read_text() == "ran"
-    env["DMLC_ROLE"] = "server"
-    assert subprocess.call([sys.executable, "-m",
-                            "byteps_tpu_torch.launcher.launch"], env=env,
-                           stderr=subprocess.DEVNULL, timeout=60) != 0
+        env=env)
+    server = subprocess.Popen([sys.executable, "-m",
+                               "byteps_tpu_torch.launcher.launch"],
+                              env=dict(env, DMLC_ROLE="server"),
+                              stderr=subprocess.DEVNULL)
+    try:
+        assert worker.wait(timeout=60) == 0 and out.read_text() == "ran"
+        assert server.wait(timeout=60) != 0
+    finally:
+        for p in (worker, server):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
 
 
 def test_dist_launcher_dry_run_matches_jax(tmp_path):
