@@ -15,6 +15,26 @@ shard across nodes, all-gather within the node) is
 mesh=bps.make_hierarchical_mesh(ici_size))``; ``CrossBarrierDriver`` runs
 such a step without host barriers between steps.
 
+Parallelism beyond DP, on the same meshes (``make_mesh(dp=, tp=, sp=, pp=,
+ep=)``):
+
+    specs = models.transformer.param_specs(cfg)          # Megatron TP
+    params = bps.shard_params(params, mesh, specs)       # DTensor leaves
+    opt = torch.optim.AdamW(tree_leaves(params), lr=1e-4)
+    step = bps.build_sharded_train_step(loss_fn, opt, mesh, specs)
+    loss = step(params, batch)      # global batch on every rank, in place
+
+ZeRO-1 is ``opt = bps.zero1_init(make_optimizer, params, mesh, specs)``
+with ``build_sharded_train_step(..., zero1=True, params=params)``; FSDP is
+``fspecs = bps.fsdp_param_specs(params, mesh, base_specs=specs)``, params
+placed by ``shard_params(params, mesh, fspecs)`` and
+``bps.fsdp_init(make_optimizer, params, mesh, fspecs)``
+(``make_optimizer(leaves) -> torch.optim.Optimizer`` stands for optax's
+``init``).  The five-axis hybrid transformer (Megatron TP, GPipe,
+Switch-MoE, ring SP over the mesh's process groups) is
+``byteps_tpu_torch.models.hybrid.build_hybrid_train_step(cfg,
+make_optimizer, mesh, num_microbatches) -> (step, init_fn)``.
+
 Gradient compression per bucket (onebit, topk, randomk, dithering, with
 error feedback and Nesterov momentum) is ``DistributedOptimizer(...,
 inter_compressor=bps.compressor.create({"compressor": "onebit",
@@ -56,6 +76,10 @@ from .parallel.mesh import (
     set_mesh, reset_mesh,
 )
 from .parallel.cross_barrier import CrossBarrierDriver, run_cross_barrier
+from .parallel.sharded import (
+    build_sharded_train_step, shard_params, init_sharded,
+    zero1_opt_specs, zero1_init, fsdp_param_specs, fsdp_init,
+)
 
 
 def __getattr__(name):
@@ -89,5 +113,7 @@ __all__ = [
     "make_mesh", "make_hierarchical_mesh", "make_slice_mesh",
     "get_mesh", "set_mesh", "reset_mesh",
     "CrossBarrierDriver", "run_cross_barrier",
+    "build_sharded_train_step", "shard_params", "init_sharded",
+    "zero1_opt_specs", "zero1_init", "fsdp_param_specs", "fsdp_init",
     "models", "callbacks", "utils",
 ]

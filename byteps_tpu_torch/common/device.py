@@ -18,3 +18,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "byteps_tpu_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run on the CPU explicitly")
     return dev
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed`` DTensor (a leaf or an
+    activation of the sharded step, ``parallel/sharded.py``)."""
+    if not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)

@@ -10,6 +10,10 @@ streamed LM-head cross-entropy, and per-layer rematerialisation.
 Parameters are a plain tree (nested dicts of leaf tensors with
 ``requires_grad``); ``common.tree.tree_leaves`` lists them in the JAX
 package's order, which is the order optimizers and the bucket plan use.
+Under the sharded step (``parallel/sharded.py``) the leaves are DTensors
+placed by ``param_specs`` (Megatron TP); the attention and the streamed
+LM head then run per rank on plain tensors through ``local_map``
+(``_attend_sharded``, ``_sharded_nll_sum``), the rest on DTensor's rules.
 """
 
 from __future__ import annotations
@@ -24,8 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..common.device import DeviceLike, resolve_device
+from ..common.device import DeviceLike, is_dtensor, resolve_device
 from ..common.tree import tree_leaves
+from ..parallel.sharded import PartitionSpec as P
 
 Tree = Any
 
@@ -222,6 +227,49 @@ def params_from_numpy(tree: Tree, cfg: TransformerConfig,
     return convert(tree, shapes)
 
 
+def param_specs(cfg: TransformerConfig, tp_axis: str = "tp",
+                pp_axis: Optional[str] = None) -> Tree:
+    """PartitionSpec tree for Megatron-style TP (column/row split) with the
+    stacked layer axis optionally sharded over the pipeline axis.
+
+    Mirrors init_params' conditional keys (GQA/SwiGLU/no-bias/rope).  The
+    GQA qkv layout ([q | k | v] flat columns) does not fall on head
+    boundaries: under the sharded step the attention gathers qkv's columns
+    before it splits heads (``_attend_sharded``), where the JAX package
+    leaves the resharding to XLA.
+    """
+    pp = pp_axis  # leading stacked-layer dim
+    layers = {
+        "qkv_w": P(pp, None, tp_axis),
+        "attn_out_w": P(pp, tp_axis, None),
+        "mlp_in_w": P(pp, None, tp_axis),
+        "mlp_out_w": P(pp, tp_axis, None),
+        "ln1_scale": P(pp, None),
+        "ln2_scale": P(pp, None),
+    }
+    if cfg.act == "swiglu":
+        layers["mlp_gate_w"] = P(pp, None, tp_axis)
+    if cfg.use_bias:
+        layers.update({
+            "ln1_bias": P(pp, None),
+            "ln2_bias": P(pp, None),
+            "qkv_b": P(pp, tp_axis),
+            "attn_out_b": P(pp, None),
+            "mlp_in_b": P(pp, tp_axis),
+            "mlp_out_b": P(pp, None),
+        })
+    out = {
+        "embed": P(None, None),
+        "layers": layers,
+        "ln_f_scale": P(None),
+    }
+    if cfg.pos == "learned":
+        out["pos_embed"] = P(None, None)
+    if cfg.use_bias:
+        out["ln_f_bias"] = P(None)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Forward pass.
 # ---------------------------------------------------------------------------
@@ -296,7 +344,12 @@ def flash_attention_fn(q, k, v, causal: bool, strict: bool = False,
     a multiple of 8; ``strict=True`` raises instead.  Any other Dh runs on
     the kernels, zero-padded to the next head dim they take.  A block
     override that does not divide S or is not a multiple of 64 reverts to
-    the auto choice, never to dense."""
+    the auto choice, never to dense.  DTensor q, k, v run the same on each
+    rank's block (``_local_attention``)."""
+    if is_dtensor(q):
+        return _local_attention(
+            functools.partial(flash_attention_fn, strict=strict, block=block,
+                              block_k=block_k), q, k, v, causal)
     B, H, S, Dh = q.shape
     if not block or S % block or block % 64:
         block = flash_auto_block(S)
@@ -316,6 +369,21 @@ def flash_attention_fn(q, k, v, causal: bool, strict: bool = False,
     out = flash_attention(fold(q), fold(k), fold(v), causal, None,
                           block, block_k)
     return out.reshape(B, H, S, Dh)
+
+
+def _local_attention(attn, q, k, v, causal: bool):
+    """``attn(q, k, v, causal)`` on DTensors [B, H, S, Dh], each rank on
+    its block through ``local_map``: a split batch or split heads stay as
+    they are, any other placement (a split sequence or head dim, a pending
+    sum) is gathered first; k and v take q's placements."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    pl = [p if p.is_shard(0) or p.is_shard(1) else Replicate()
+          for p in q.placements]
+    q, k, v = (t.redistribute(placements=pl) for t in (q, k, v))
+    return local_map(functools.partial(attn, causal=causal),
+                     out_placements=pl, in_placements=(pl, pl, pl),
+                     device_mesh=q.device_mesh)(q, k, v)
 
 
 _ATTN_IMPLS = {"dense": dense_attention, "flash": flash_attention_fn}
@@ -339,21 +407,77 @@ def _qkv(x, lp: Dict[str, torch.Tensor], cfg: TransformerConfig):
 
 def _attend(qkv, cfg: TransformerConfig, attn_fn):
     """qkv [B, S, (H + 2 Hkv) Dh] -> the attention context [B, S, H Dh]."""
-    B, S, _ = qkv.shape
+    if is_dtensor(qkv):
+        return _attend_sharded(qkv, cfg, attn_fn)
     H, Hkv, Dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
     q, k, v = torch.split(qkv, [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
+    return _attend_heads(q, k, v, cfg, attn_fn)
+
+
+def _attend_heads(q, k, v, cfg: TransformerConfig, attn_fn):
+    """q [B, S, h Dh], k and v [B, S, hkv Dh] (h a multiple of hkv) ->
+    the context of those h heads, [B, S, h Dh]."""
+    B, S, _ = q.shape
+    Dh = cfg.head_dim
 
     def heads(t):
         return t.reshape(B, S, -1, Dh).transpose(1, 2)
     q, k, v = heads(q), heads(k), heads(v)
     if cfg.pos == "rope":
         q, k = _rope(q, cfg.rope_theta), _rope(k, cfg.rope_theta)
-    if Hkv != H:
+    if k.shape[1] != q.shape[1]:
         # GQA: each query-head group shares one kv head (jnp.repeat order).
-        k = torch.repeat_interleave(k, H // Hkv, dim=1)
-        v = torch.repeat_interleave(v, H // Hkv, dim=1)
+        k = torch.repeat_interleave(k, q.shape[1] // k.shape[1], dim=1)
+        v = torch.repeat_interleave(v, q.shape[1] // v.shape[1], dim=1)
     attn = attn_fn(q, k, v, cfg.causal)
     return attn.transpose(1, 2).reshape(B, S, -1)
+
+
+def _attend_sharded(qkv, cfg: TransformerConfig, attn_fn):
+    """``_attend`` on a DTensor qkv (the sharded step): each rank attends
+    over its own block of plain tensors through ``local_map``, so the
+    flash kernels launch on local memory.
+
+    The batch keeps its split.  A mesh dim that splits qkv's columns
+    (column-parallel ``qkv_w``) is gathered here, an explicit redistribute:
+    the flat [q | k | v] columns do not fall on head boundaries.  The heads
+    are then split over those mesh dims when H and Hkv divide by their
+    product, each rank attending over its own heads (the context comes out
+    split by columns, ready for the row-parallel ``attn_out_w``, and qkv's
+    gradient is a sum over them); otherwise every rank attends over all
+    heads.  Any other placement (a split sequence, a pending sum) is made
+    whole first.  Heads, rope and GQA's repeat run inside, on local
+    tensors."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = qkv.device_mesh
+    last = qkv.ndim - 1
+    H, Hkv, Dh = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    batch = [p.is_shard(0) for p in qkv.placements]
+    col = [p.is_shard(last) for p in qkv.placements]
+    n = math.prod(mesh.size(i) for i, c in enumerate(col) if c)
+    split = n > 1 and H % n == 0 and Hkv % n == 0
+    whole = [Shard(0) if b else Replicate() for b in batch]
+    qkv = qkv.redistribute(placements=whole)
+    idx = 0
+    if split:
+        coord = mesh.get_coordinate()
+        for i, c in enumerate(col):
+            if c:
+                idx = idx * mesh.size(i) + coord[i]
+    h, hkv = (H // n, Hkv // n) if split else (H, Hkv)
+
+    def local(t):
+        q, k, v = torch.split(t, [H * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
+        return _attend_heads(q[..., idx * h * Dh:(idx + 1) * h * Dh],
+                             k[..., idx * hkv * Dh:(idx + 1) * hkv * Dh],
+                             v[..., idx * hkv * Dh:(idx + 1) * hkv * Dh],
+                             cfg, attn_fn)
+
+    out = [Shard(last) if c and split else w for c, w in zip(col, whole)]
+    grad = [Partial() if c and split else w for c, w in zip(col, whole)]
+    return local_map(local, out_placements=out, in_placements=(whole,),
+                     in_grad_placements=(grad,), device_mesh=mesh)(qkv)
 
 
 def _attn_proj(ctx, lp: Dict[str, torch.Tensor], cfg: TransformerConfig):
@@ -520,6 +644,8 @@ def fused_nll_sum(x: torch.Tensor, embed: torch.Tensor,
     ``chunk_rows``; each chunk is checkpointed, so backward recomputes its
     logits instead of saving them.  The last chunk may be shorter (the JAX
     version pads it with zero-weight rows; the sum is the same)."""
+    if is_dtensor(x):
+        return _sharded_nll_sum(x, embed, targets, chunk_rows)
     B, S, D = x.shape
     N = B * S
     C = min(chunk_rows, N)
@@ -532,6 +658,30 @@ def fused_nll_sum(x: torch.Tensor, embed: torch.Tensor,
                                    ts[start:start + C], emb,
                                    use_reentrant=False)
     return total
+
+
+def _sharded_nll_sum(x, embed, targets, chunk_rows: int):
+    """``fused_nll_sum`` on DTensors: each rank streams its own rows
+    through ``local_map`` (slicing a split batch into chunks would gather
+    it, and the running sum starts from a plain zero), and the sum is
+    pending (Partial) over the mesh dims that split the batch, as is the
+    gradient of ``embed``, which every rank holds whole (gathered here when
+    it is split).  Any placement of x other than a split batch is made
+    whole first; targets take x's."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    batch = [p.is_shard(0) for p in x.placements]
+    rows = [Shard(0) if b else Replicate() for b in batch]
+    whole = [Replicate()] * len(batch)
+    summed = [Partial() if b else Replicate() for b in batch]
+    x = x.redistribute(placements=rows)
+    targets = targets.redistribute(placements=rows)
+    embed = embed.redistribute(placements=whole)
+    return local_map(
+        functools.partial(fused_nll_sum, chunk_rows=chunk_rows),
+        out_placements=summed, in_placements=(rows, whole, rows),
+        in_grad_placements=(rows, summed, rows),
+        device_mesh=x.device_mesh)(x, embed, targets)
 
 
 def loss_fn(params: Tree, batch: Tuple[torch.Tensor, torch.Tensor],

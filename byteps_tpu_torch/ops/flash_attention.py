@@ -43,6 +43,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..common.device import is_dtensor
 from . import _build
 
 SOURCE = "flash_attention.cu"
@@ -503,6 +504,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (CPU).
     """
     del interpret
+    if any(is_dtensor(t) for t in (q, k, v)):
+        # The kernels take raw pointers to one rank's memory: a DTensor
+        # would hand them its local block under its global shape.
+        raise TypeError(
+            "flash_attention takes plain tensors; for DTensors call "
+            "models.transformer.flash_attention_fn, which runs the kernels "
+            "on each rank's block through local_map")
     s, d = q.shape[1], q.shape[2]
     if s % block_q or s % block_k:
         raise ValueError(

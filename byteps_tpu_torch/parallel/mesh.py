@@ -161,6 +161,34 @@ def reset_mesh() -> None:
     _mesh = None
 
 
+_AXES_GROUPS = {}
+
+
+def axes_group(mesh, axes: Sequence[str]):
+    """The process group of a reduction over several axes of ``mesh`` at
+    once (``lax.psum(x, ("dp", "ep"))``): the ranks that share this rank's
+    coordinates on every other axis.  Over at most one axis larger than
+    one it is that axis's own group (a group of one when all are 1).
+    Otherwise the groups are made on the first request for ``axes``, by
+    every rank of the world (``new_group`` is collective), so every rank
+    must ask for the same tuples in the same order; they are kept for the
+    mesh's lifetime."""
+    names = tuple(mesh.mesh_dim_names or ())
+    axes = tuple(a for a in names if a in axes)
+    big = [a for a in axes if mesh.size(names.index(a)) > 1]
+    if len(big) <= 1:
+        return mesh.get_group(big[0] if big else axes[0])
+    key = (id(mesh), tuple(big))
+    if key not in _AXES_GROUPS:
+        dims = [names.index(a) for a in big]
+        rest = [i for i in range(len(names)) if i not in dims]
+        ranks = mesh.mesh.permute(*rest, *dims).reshape(
+            -1, math.prod(mesh.size(i) for i in dims))
+        mine, _ = dist.new_subgroups_by_enumeration(ranks.tolist())
+        _AXES_GROUPS[key] = (mesh, mine)
+    return _AXES_GROUPS[key][1]
+
+
 def dp_axis_size(mesh=None) -> int:
     m = mesh if mesh is not None else get_mesh()
     names = tuple(m.mesh_dim_names or ())

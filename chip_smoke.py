@@ -175,6 +175,25 @@ Phases, each of which must pass:
    DistributedOptimizer(hierarchical=True) outside local_mode(): finite,
    falling losses, flash launches 48/24/24 a step, step ms and idle share
    beside phase 4's; the group destroyed at the end.
+15. Parallelism beyond DP, after 14a, on a world-of-one group (NCCL for
+   CUDA tensors, gloo for CPU ones; file:// rendezvous): every mesh axis
+   is 1 on one card, so gpipe_spmd, the all-to-alls and the TP
+   collectives are identities here and their parity across ranks is the
+   CPU tests'.  15a: the flagship of phase 4 (its params and batch)
+   through build_sharded_train_step on make_mesh() three ways (the
+   Megatron param_specs, zero1=True, fsdp_param_specs over them), 5
+   AdamW steps each: losses within 1e-3 relative of phase 4's (the
+   largest gap and bit-equality printed), flash launches 48/24/24 a step
+   (the kernels under DTensor, through local_map), step ms, idle share
+   and peak memory beside phase 4's.  15b: the hybrid transformer at the
+   flagship's width (24 layers, d_model 1024, 16 heads, d_ff 4096, vocab
+   32768, seq 512, float32, batch 8), 3 AdamW steps (finite, falling
+   losses; step ms, idle share, peak), then a 2-layer cut at batch 1, one
+   step on the card and on the CPU from the same params and tokens: loss
+   within 1e-4 relative, each gradient within 1e-4 relative L2, TF32 off.
+   15c: Switch-MoE at the same width, 4 layers, 8 experts, capacity
+   factor 2, aux weight 0.01, 3 steps: finite, falling losses, a nonzero
+   gate_w gradient, the tokens dropped past capacity and the step ms.
 
 Prints a ``{"kernels": [...]}`` line (each entry also naming the CUDA
 kernels it launches, ``cuda_kernels``), the card's name and power limit, and
@@ -1196,15 +1215,18 @@ def flash_want(fwd, bwd, streaming):
     return {on[0]: fwd, on[1]: bwd, on[2]: bwd, **{n: 0 for n in off}}
 
 
-def phase_flagship(bps, tfm, fa, torch, check, gpu):
+def phase_flagship(bps, tfm, fa, torch, check, gpu, record=None):
+    """Phase 4; ``record`` (a dict) gets its losses and peak GiB."""
     cfg, params, batch, opt, step = flagship(tfm, bps, torch)
     print(f"  flagship: {tfm.num_params(params)} params, batch "
           f"{FLAGSHIP['batch']} x seq {FLAGSHIP['seq']}, remat={cfg.remat}/"
           f"{cfg.remat_policy}, ce_chunk_rows={cfg.ce_chunk_rows}, attn="
           f"{cfg.attn_impl}/{cfg.attn_block}")
     want = flash_want(48, 24, streaming=False)
-    launches, steady, _ = train(step, params, batch, [fa], torch, check, gpu,
-                                want)
+    record = {} if record is None else record
+    launches, steady, record["peak"] = train(
+        step, params, batch, [fa], torch, check, gpu, want,
+        losses_out=record, key="losses")
     busy = phase_profile(step, params, batch, torch, steady)
     return launches, steady, busy
 
@@ -2168,6 +2190,192 @@ def phase_hierarchical(bps, tfm, fa, torch, check, gpu, flagship_ms,
     return res
 
 
+@contextlib.contextmanager
+def world_of_one(torch):
+    """A world-of-one process group, NCCL for CUDA tensors and gloo for CPU
+    ones (file:// rendezvous in a temporary directory, gloo on loopback),
+    destroyed on the way out."""
+    import tempfile
+    import torch.distributed as dist
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("cpu:gloo,cuda:nccl",
+                                init_method=f"file://{tmp}/rdzv",
+                                world_size=1, rank=0)
+        try:
+            yield dist
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_sharded(bps, tfm, fa, torch, check, gpu, flag4, flagship_ms,
+                  flagship_busy):
+    """15a: the flagship through build_sharded_train_step on make_mesh()
+    (every axis 1), three ways, each 5 AdamW steps from phase 4's params
+    and batch, held to phase 4's losses."""
+    from byteps_tpu_torch.common.tree import tree_leaves
+    mesh = bps.make_mesh()
+    check(mesh.device_type == "cuda" and set(mesh.shape) == {1}
+          and mesh.mesh_dim_names == ("pp", "dp", "ep", "sp", "tp"),
+          f"make_mesh(): {mesh} (every axis 1 on one card)")
+    want = flash_want(48, 24, streaming=False)
+
+    def make(leaves):
+        return torch.optim.AdamW(leaves, lr=1e-4, weight_decay=1e-4)
+    res = {"flagship": {"step_ms": flagship_ms,
+                        "idle_share": idle(flagship_busy, flagship_ms),
+                        "peak_gib": flag4["peak"]}}
+    for way in ("param_specs", "zero1", "fsdp"):
+        cfg, params, batch, opt, step = flagship(tfm, bps, torch)
+        del opt, step
+        specs = tfm.param_specs(cfg)
+        if way == "fsdp":
+            specs = bps.fsdp_param_specs(params, mesh, base_specs=specs)
+        params = bps.shard_params(params, mesh, specs)
+        if way == "zero1":
+            opt = bps.zero1_init(make, params, mesh, specs)
+        elif way == "fsdp":
+            opt = bps.fsdp_init(make, params, mesh, specs)
+        else:
+            opt = make(tree_leaves(params))
+        step = bps.build_sharded_train_step(
+            lambda p, b: tfm.loss_fn(p, b, cfg), opt, mesh, specs,
+            zero1=way == "zero1", params=params)
+        print(f"  {way}: {len(tree_leaves(params))} DTensor leaves on "
+              f"{tree_leaves(params)[0].device_mesh}")
+        losses = {}
+        _, steady, peak = train(step, params, batch, [fa], torch, check, gpu,
+                                want, losses_out=losses, key=way)
+        busy = phase_profile(step, params, batch, torch, steady)
+        gap = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses[way], flag4["losses"]))
+        check(gap <= 1e-3, f"{way}: losses within {gap:.3g} relative of "
+              f"phase 4's (<= 1e-3); bit-equal: "
+              f"{losses[way] == flag4['losses']}")
+        res[way] = {"step_ms": steady, "idle_share": idle(busy, steady),
+                    "peak_gib": peak, "max_rel_gap": gap,
+                    "bit_equal": losses[way] == flag4["losses"]}
+        print(f"  {way}: {steady:.3f} ms a step, idle share "
+              f"{res[way]['idle_share']}, peak {peak:.2f} GiB beside phase "
+              f"4's {flagship_ms:.3f} ms, idle share "
+              f"{res['flagship']['idle_share']}, peak {flag4['peak']:.2f} "
+              f"GiB ({gpu})")
+        del params, batch, opt, step
+        torch.cuda.empty_cache()
+    return res
+
+
+def hybrid_flagship(hybrid, **over):
+    """The hybrid config at the flagship's width (bert_large geometry,
+    vocab 32768, seq 512, the streamed LM head), float32."""
+    import dataclasses
+    cfg = hybrid.HybridConfig(vocab_size=32768, num_layers=24, d_model=1024,
+                              num_heads=16, d_ff=4096, max_seq_len=512,
+                              ce_chunk_rows=2048)
+    return dataclasses.replace(cfg, **over)
+
+
+def hybrid_batch(torch, cfg, batch, seed=1):
+    toks = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len + 1),
+                         generator=torch.Generator().manual_seed(seed))
+    return toks[:, :-1], toks[:, 1:]
+
+
+def phase_hybrid(bps, torch, check, gpu):
+    """15b: the hybrid step at the flagship's width on make_mesh(), 3
+    AdamW steps; then a 2-layer cut, one step at batch 1, on the card and
+    on the CPU from the same params and tokens."""
+    from byteps_tpu_torch.common.tree import tree_leaves, tree_paths
+    from byteps_tpu_torch.models import hybrid
+
+    def make(leaves):
+        return torch.optim.AdamW(leaves, lr=1e-4, weight_decay=1e-4)
+    cfg = hybrid_flagship(hybrid)
+    mesh = bps.make_mesh()
+    step, init_fn = hybrid.build_hybrid_train_step(cfg, make, mesh)
+    params = init_fn(torch.Generator(mesh.device_type).manual_seed(0))
+    n = sum(p.numel() for p in tree_leaves(params))
+    print(f"  hybrid: {n} params, {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, batch 8 x seq {cfg.max_seq_len}, float32, ring "
+          f"attention over sp=1, ce_chunk_rows={cfg.ce_chunk_rows}")
+    batch = hybrid_batch(torch, cfg, 8)
+    _, steady, peak = train(step, params, batch, [], torch, check, gpu, {},
+                            steps=3)
+    busy = phase_profile(step, params, batch, torch, steady)
+    res = {"params": n, "step_ms": steady, "peak_gib": peak,
+           "idle_share": idle(busy, steady)}
+    del params, step
+    torch.cuda.empty_cache()
+
+    cut = hybrid_flagship(hybrid, num_layers=2)
+    whole = hybrid.init_params(torch.Generator().manual_seed(2), cut,
+                               device="cpu")
+    batch = hybrid_batch(torch, cut, 1, seed=3)
+    runs = {}
+    for dev in (mesh.device_type, "cpu"):
+        m = bps.make_mesh(device_type=dev)
+        st, ini = hybrid.build_hybrid_train_step(cut, make, m)
+        p = ini(whole)
+        loss = float(st(p, batch))
+        runs[dev] = (loss, [q.grad.detach().cpu() for q in tree_leaves(p)])
+    (lc, gc), (lh, gh) = runs[mesh.device_type], runs["cpu"]
+    rel = abs(lc - lh) / abs(lh)
+    worst = max(((float((a - b).norm() / b.norm()), path) for a, b, path in
+                 zip(gc, gh, tree_paths(whole))), key=lambda r: r[0])
+    check(torch.backends.cuda.matmul.allow_tf32 is False and rel <= 1e-4
+          and worst[0] <= 1e-4,
+          f"2-layer cut, batch 1, one step, card vs CPU (TF32 off): loss "
+          f"{lc:.6f} vs {lh:.6f} ({rel:.3g} relative), worst gradient "
+          f"{worst[0]:.3g} relative L2 at {worst[1]} (<= 1e-4)")
+    res.update({"cut_loss_rel": rel, "cut_grad_rel_l2": worst[0]})
+    print(f"  hybrid step {steady:.3f} ms, idle share {res['idle_share']}, "
+          f"peak {peak:.2f} GiB ({gpu})")
+    return res
+
+
+def phase_moe(bps, torch, check, gpu):
+    """15c: Switch-MoE (8 experts, capacity factor 2, aux weight 0.01) at
+    the flagship's width, 4 layers, 3 AdamW steps; the router's tokens
+    past capacity counted."""
+    from byteps_tpu_torch.models import hybrid
+    from byteps_tpu_torch.parallel import expert
+
+    def make(leaves):
+        return torch.optim.AdamW(leaves, lr=1e-4, weight_decay=1e-4)
+    cfg = hybrid_flagship(hybrid, num_layers=4, num_experts=8,
+                          capacity_factor=2.0, aux_loss_weight=0.01)
+    mesh = bps.make_mesh()
+    step, init_fn = hybrid.build_hybrid_train_step(cfg, make, mesh)
+    params = init_fn(torch.Generator(mesh.device_type).manual_seed(0))
+    routed = []
+    real = expert._dispatch_masks
+
+    def counted(logits, e, c):
+        out = real(logits, e, c)
+        routed.append((logits.shape[0], out[0].sum()))
+        return out
+    batch = hybrid_batch(torch, cfg, 8)
+    expert._dispatch_masks = counted
+    try:
+        _, steady, peak = train(step, params, batch, [], torch, check, gpu,
+                                {}, steps=3)
+    finally:
+        expert._dispatch_masks = real
+    busy = phase_profile(step, params, batch, torch, steady)
+    tokens = sum(t for t, _ in routed)
+    kept = int(sum(float(k) for _, k in routed))
+    gate = float(params["layers"]["gate_w"].grad.abs().sum())
+    check(gate > 0 and math.isfinite(gate),
+          f"gate_w gradient |g|_1 = {gate:.4g} (nonzero, finite)")
+    print(f"  MoE: {tokens - kept} of {tokens} tokens routed in 3 steps "
+          f"({len(routed)} routings) dropped past capacity; step "
+          f"{steady:.3f} ms, idle share {idle(busy, steady)}, peak "
+          f"{peak:.2f} GiB ({gpu})")
+    return {"dropped": tokens - kept, "routed": tokens, "step_ms": steady,
+            "idle_share": idle(busy, steady), "peak_gib": peak,
+            "gate_grad_l1": gate}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2204,8 +2412,9 @@ def main() -> int:
     print("== phase 3: tiny transformer, flash vs dense")
     phase_small_model(tfm, torch, check)
     print("== phase 4: flagship training (main path)")
+    flag4 = {}
     launches, steady, busy = phase_flagship(bps, tfm, fa, torch, check,
-                                            gpu)
+                                            gpu, flag4)
     torch.cuda.empty_cache()
     print("== phase 4b: compressed flagship training (main path)")
     c_launches, c_steady, c_peak = phase_flagship_compressed(
@@ -2293,6 +2502,21 @@ def main() -> int:
           "group, the flagship under DistributedOptimizer(hierarchical=True)")
     yardsticks["hierarchical"] = phase_hierarchical(
         bps, tfm, fa, torch, check, gpu, steady, busy)
+    torch.cuda.empty_cache()
+    print("== phase 15: parallelism beyond DP on a world-of-one group "
+          "(every mesh axis 1 on one card: gpipe_spmd, the all-to-alls and "
+          "the TP collectives are identities here; their parity across "
+          "ranks is the CPU tests')")
+    with world_of_one(torch):
+        print("== phase 15a: the sharded step (DTensor) on the flagship")
+        yardsticks["sharded"] = phase_sharded(bps, tfm, fa, torch, check,
+                                              gpu, flag4, steady, busy)
+        torch.cuda.empty_cache()
+        print("== phase 15b: the hybrid step at the flagship's width")
+        yardsticks["hybrid"] = phase_hybrid(bps, torch, check, gpu)
+        torch.cuda.empty_cache()
+        print("== phase 15c: Switch-MoE at the flagship's width")
+        yardsticks["moe"] = phase_moe(bps, torch, check, gpu)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     if check.failures:

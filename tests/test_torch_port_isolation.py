@@ -66,7 +66,12 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
                 "byteps_tpu_torch.torch.cross_barrier",
                 "byteps_tpu_torch.examples.train_mnist",
                 "byteps_tpu_torch.examples.train_mnist_fp16",
-                "byteps_tpu_torch.examples.benchmark_cross_barrier"):
+                "byteps_tpu_torch.examples.benchmark_cross_barrier",
+                "byteps_tpu_torch.parallel.sharded",
+                "byteps_tpu_torch.parallel.tensor_parallel",
+                "byteps_tpu_torch.parallel.pipeline",
+                "byteps_tpu_torch.parallel.expert",
+                "byteps_tpu_torch.models.hybrid"):
         assert mod in res["modules"]
 
 
@@ -99,6 +104,12 @@ def test_default_device_entry_points_raise_without_cuda():
         tfm.params_from_numpy({}, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mlp.init_params(gen)
+    from byteps_tpu_torch.models import hybrid
+    from byteps_tpu_torch.parallel import expert
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hybrid.init_params(gen, hybrid.HybridConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        expert.init_moe_params(gen, 4, 8, 16)
     w = torch.zeros(2, requires_grad=True)
     opt = bps.DistributedOptimizer(torch.optim.SGD([w], lr=0.1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -114,7 +125,14 @@ _EXPORT_PROBE = """
 import json, sys
 import byteps_tpu_torch as bps
 from byteps_tpu_torch.ops import _build, ring_attention
+from byteps_tpu_torch.parallel import sharded
+names = ["build_sharded_train_step", "shard_params", "init_sharded",
+         "zero1_opt_specs", "zero1_init", "fsdp_param_specs", "fsdp_init"]
+import byteps_tpu_torch.models.hybrid as hybrid
 print(json.dumps({"same": bps.ring_attention is ring_attention,
+                  "sharded": all(getattr(bps, n) is getattr(sharded, n)
+                                 and n in bps.__all__ for n in names),
+                  "hybrid": bps.models.hybrid is hybrid,
                   "listed": "ring_attention" in bps.__all__,
                   "attention": callable(
                       bps.ring_attention.ring_attention_shard),
@@ -125,12 +143,15 @@ print(json.dumps({"same": bps.ring_attention is ring_attention,
 
 def test_top_level_exports_ring_attention():
     """``byteps_tpu_torch.ring_attention`` resolves to the ops module, as
-    ``byteps_tpu.ring_attention`` does, and importing the package still
-    imports no Triton and builds no kernel."""
+    ``byteps_tpu.ring_attention`` does, the seven sharded-step names of
+    ``byteps_tpu/__init__.py`` are exported from ``parallel.sharded``,
+    ``models.hybrid`` is reachable as in the reference, and importing the
+    package still imports no Triton and builds no kernel."""
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", _EXPORT_PROBE], env=env,
                          cwd=REPO, capture_output=True, text=True, timeout=50)
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert res == {"same": True, "listed": True, "attention": True,
-                   "triton": False, "built": []}
+    assert res == {"same": True, "sharded": True, "hybrid": True,
+                   "listed": True, "attention": True, "triton": False,
+                   "built": []}
