@@ -18,6 +18,9 @@ priority order as concurrent async all-reduces.  Tensors stay on their
 device.  ``priority`` orders the dispatch of a tree's units; the process
 group runs collectives in issue order.
 
+``BYTEPS_DEBUG_SAMPLE_TENSOR`` writes a sample of every eager tensor whose
+name contains it to stderr, at push entry and after synchronize.
+
 The PS tier (``BYTEPS_ENABLE_ASYNC``, ``push_pull_sparse``, membership,
 server drain) and the signal and telemetry getters are not ported: they
 raise ``NotImplementedError`` naming their ROADMAP.md item.
@@ -28,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, Optional
@@ -193,6 +197,25 @@ def get_ps_session():
 # ---------------------------------------------------------------------------
 # Eager push_pull
 # ---------------------------------------------------------------------------
+def _debug_sample(stage: str, name: str, tensor: torch.Tensor) -> None:
+    """BYTEPS_DEBUG_SAMPLE_TENSOR: write a sample of the named tensor to
+    stderr at the eager path's host stages, push entry and after
+    synchronize, for names that contain the setting.  Setting it is the
+    opt-in, whatever BYTEPS_LOG_LEVEL says.  The tensor is copied to the
+    host only when its name matches."""
+    pat = (_state.config or get_config()).debug_sample_tensor
+    if not pat or pat not in name:
+        return
+    arr = tensor.detach().reshape(-1).to("cpu", torch.float32)
+    head = ", ".join(f"{v:.6g}" for v in arr[:4].tolist())
+    sys.stderr.write(
+        f"[byteps_tpu DEBUG_SAMPLE] {stage} name={name} "
+        f"shape={tuple(tensor.shape)} dtype={_dtype_name(tensor.dtype)} "
+        f"norm2={float(arr.norm()):.6g} sum={float(arr.sum()):.6g} "
+        f"first=[{head}]\n")
+    sys.stderr.flush()
+
+
 def push_pull_async(tensor: torch.Tensor, name: Optional[str] = None,
                     average: bool = True, priority: int = 0,
                     compression=None) -> int:
@@ -206,6 +229,7 @@ def push_pull_async(tensor: torch.Tensor, name: Optional[str] = None,
     core = get_core()
     if name is None:
         name = f"byteps_tpu.tensor_{core.num_declared()}"
+    _debug_sample("push", name, tensor)
     declare(name)
     handle = core.handle_allocate()
     t0 = core.trace_now_us()
@@ -239,6 +263,7 @@ def synchronize(handle: int) -> torch.Tensor:
     out = compression.decompress(wire, ctx)
     if average:
         out = out / size()
+    _debug_sample("pull", name, out)
     core = get_core()
     core.handle_mark_done(handle)
     core.trace_record(name, "PUSH_PULL", t0, core.trace_now_us() - t0)

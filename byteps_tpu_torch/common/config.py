@@ -4,8 +4,8 @@ Counterpart of ``byteps_tpu/common/config.py``: the same variable names and
 defaults, limited to what the port uses so far — the worker bootstrap
 (``DMLC_*``, ``BYTEPS_LOCAL_*``), the global-rank override and the
 forced-distributed switch, the bucket size, the eager fusion threshold,
-the async switch, the trace window, the log level and the mesh axis
-sizes (``parallel/mesh.py``).
+the async switch, the trace window, the log level, the debug sampling
+of eager tensors and the mesh axis sizes (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -57,6 +57,9 @@ class Config:
     trace_end_step: int = 20                 # BYTEPS_TRACE_END_STEP
     trace_dir: str = "./traces"              # BYTEPS_TRACE_DIR
     log_level: str = "WARNING"               # BYTEPS_LOG_LEVEL
+    # Log a sample of every eager push_pull tensor whose name contains
+    # this substring, at push entry and after synchronize ("" = off).
+    debug_sample_tensor: str = ""            # BYTEPS_DEBUG_SAMPLE_TENSOR
     # Mesh axis sizes; mesh_dp 0 means "the rest of the world".
     mesh_dp: int = 0                         # BYTEPS_TPU_MESH_DP
     mesh_tp: int = 1                         # BYTEPS_TPU_MESH_TP
@@ -86,6 +89,7 @@ class Config:
             trace_end_step=_env_int("BYTEPS_TRACE_END_STEP", 20),
             trace_dir=_env_str("BYTEPS_TRACE_DIR", "./traces"),
             log_level=_env_str("BYTEPS_LOG_LEVEL", "WARNING"),
+            debug_sample_tensor=_env_str("BYTEPS_DEBUG_SAMPLE_TENSOR", ""),
             mesh_dp=_env_int("BYTEPS_TPU_MESH_DP", 0),
             mesh_tp=_env_int("BYTEPS_TPU_MESH_TP", 1),
             mesh_sp=_env_int("BYTEPS_TPU_MESH_SP", 1),

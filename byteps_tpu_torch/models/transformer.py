@@ -296,14 +296,15 @@ def _rms_norm(x, scale, bias, eps=1e-6):
 _NORMS = {"layernorm": _layer_norm, "rmsnorm": _rms_norm}
 
 
-def _rope(x, theta: float):
-    """Rotary position embedding on [B, H, S, Dh] (half-split layout), in
-    float32, cast back to the compute dtype after rotating."""
+def _rope(x, theta: float, offset: int = 0):
+    """Rotary position embedding on [B, H, S, Dh] (half-split layout) at
+    positions offset .. offset + S - 1, in float32, cast back to the
+    compute dtype after rotating."""
     B, H, S, Dh = x.shape
     half = Dh // 2
     freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
                                     device=x.device) / half)
-    angles = torch.arange(S, dtype=torch.float32,
+    angles = torch.arange(offset, offset + S, dtype=torch.float32,
                           device=x.device)[:, None] * freqs[None, :]
     cos, sin = torch.cos(angles), torch.sin(angles)
     x32 = x.float()
@@ -414,6 +415,13 @@ def _attend(qkv, cfg: TransformerConfig, attn_fn):
     return _attend_heads(q, k, v, cfg, attn_fn)
 
 
+def seq_offset(attn_fn, S: int) -> int:
+    """The position of this rank's first token: ``sp_index * S`` under an
+    adaptor over blocks of a split sequence (``ops.ring_attention``), 0
+    for attention over the whole sequence."""
+    return getattr(attn_fn, "sp_index", 0) * S
+
+
 def _attend_heads(q, k, v, cfg: TransformerConfig, attn_fn):
     """q [B, S, h Dh], k and v [B, S, hkv Dh] (h a multiple of hkv) ->
     the context of those h heads, [B, S, h Dh]."""
@@ -424,7 +432,9 @@ def _attend_heads(q, k, v, cfg: TransformerConfig, attn_fn):
         return t.reshape(B, S, -1, Dh).transpose(1, 2)
     q, k, v = heads(q), heads(k), heads(v)
     if cfg.pos == "rope":
-        q, k = _rope(q, cfg.rope_theta), _rope(k, cfg.rope_theta)
+        off = seq_offset(attn_fn, S)
+        q, k = (_rope(q, cfg.rope_theta, off),
+                _rope(k, cfg.rope_theta, off))
     if k.shape[1] != q.shape[1]:
         # GQA: each query-head group shares one kv head (jnp.repeat order).
         k = torch.repeat_interleave(k, q.shape[1] // k.shape[1], dim=1)
@@ -575,7 +585,11 @@ _REMAT_POLICIES = ("none", "dots", "dots_no_batch", "proj")
 
 def forward_hidden(params: Tree, tokens: torch.Tensor,
                    cfg: TransformerConfig, attn_fn=None) -> torch.Tensor:
-    """tokens [B, S] int -> final hidden states [B, S, D] (post ln_f)."""
+    """tokens [B, S] int -> final hidden states [B, S, D] (post ln_f).
+
+    Under a sequence-parallel ``attn_fn`` (``ops.ring_attention``'s
+    adaptors) ``tokens`` is this rank's block of the sequence and its
+    positions start at ``seq_offset(attn_fn, S)``."""
     if attn_fn is None:
         if cfg.attn_impl not in _ATTN_IMPLS:
             raise ValueError(
@@ -598,7 +612,12 @@ def forward_hidden(params: Tree, tokens: torch.Tensor,
     S = tokens.shape[1]
     x = params["embed"].to(dt)[tokens]
     if cfg.pos == "learned":
-        x = x + params["pos_embed"].to(dt)[:S]
+        off = seq_offset(attn_fn, S)
+        if off + S > cfg.max_seq_len:
+            raise ValueError(
+                f"positions {off}..{off + S - 1} run past max_seq_len="
+                f"{cfg.max_seq_len} (learned positions)")
+        x = x + params["pos_embed"].to(dt)[off:off + S]
     # One unbind per stacked leaf and forward, outside the checkpointed
     # blocks: indexing the [L, ...] leaf once per layer would make autograd
     # build a full-size zero gradient per layer.

@@ -6,6 +6,12 @@ process ``group`` (None: the default group) holds its block of the sequence,
 ``shard_map`` over a mesh ``axis_name``.  Under ``collectives.local_mode()``,
 or in a world of one, the permutations and all-to-alls are the identity.
 
+The adaptors (``make_ring_attn_fn``, ``make_ulysses_attn_fn``) know which
+block their rank holds (``SeqBlockAttn.sp_index``), so that
+``models.transformer.forward(params, local_tokens, cfg, attn_fn=...)``
+numbers the block's positions globally, as the JAX adaptors' callers do on
+the whole sequence.
+
   - Ring: Q stays put, K/V blocks travel around the ring
     (``collectives.ppermute``) while each rank merges its queries' attention
     over every block with an online softmax.
@@ -48,6 +54,12 @@ def _block_attn(q, k, v, mask):
     return o.float(), m_safe, l
 
 
+def block_index(group=None) -> int:
+    """The index of this rank's sequence block in ``group``: its rank
+    there, 0 in local mode or a world of one."""
+    return dist.get_rank(group) if collectives.axis_size(group) > 1 else 0
+
+
 def ring_attention_shard(q, k, v, causal: bool, group=None):
     """Ring attention over this rank's sequence block.
 
@@ -55,7 +67,7 @@ def ring_attention_shard(q, k, v, causal: bool, group=None):
     ``axis_size(group)`` ranks.  Returns [B, H, S_local, D].
     """
     n = collectives.axis_size(group)
-    my = dist.get_rank(group) if n > 1 else 0
+    my = block_index(group)
     B, H, S, D = q.shape
     q_pos = my * S + torch.arange(S, device=q.device)
     o = torch.zeros(B, H, S, D, dtype=torch.float32, device=q.device)
@@ -81,10 +93,36 @@ def ring_attention_shard(q, k, v, causal: bool, group=None):
     return (o / torch.clamp(l, min=1e-30)).to(q.dtype)
 
 
-def make_ring_attn_fn(group=None):
+class SeqBlockAttn:
+    """An ``attn_fn(q, k, v, causal)`` over this rank's block of a sequence
+    split across ``group``, which knows the block: ``sp_index`` and
+    ``sp_size`` are the block's index and the number of blocks.
+    ``models.transformer`` reads ``sp_index`` to number the block's
+    positions from ``sp_index * S_local`` (learned positions and rope)."""
+
+    def __init__(self, shard_fn, group=None, **kwargs):
+        self._fn = functools.partial(shard_fn, group=group, **kwargs)
+        self.group = group
+
+    def __call__(self, q, k, v, causal: bool):
+        return self._fn(q, k, v, causal)
+
+    @property
+    def sp_index(self) -> int:
+        return block_index(self.group)
+
+    @property
+    def sp_size(self) -> int:
+        return collectives.axis_size(self.group)
+
+
+def make_ring_attn_fn(group=None) -> SeqBlockAttn:
     """An ``attn_fn(q, k, v, causal)`` for ``models.transformer.forward``
-    running ring attention over this rank's sequence block."""
-    return functools.partial(ring_attention_shard, group=group)
+    running ring attention over this rank's sequence block.  The model
+    takes this rank's tokens, [B, S_local], and numbers their positions
+    globally through the adaptor's ``sp_index``, so its output is this
+    rank's block of the unsharded forward."""
+    return SeqBlockAttn(ring_attention_shard, group)
 
 
 def ulysses_attention_shard(q, k, v, causal: bool, group=None, attn=None):
@@ -109,8 +147,10 @@ def ulysses_attention_shard(q, k, v, causal: bool, group=None, attn=None):
     return collectives.all_to_all(out, 2, 1, group)
 
 
-def make_ulysses_attn_fn(group=None, attn="dense"):
-    """Ulysses counterpart of make_ring_attn_fn.
+def make_ulysses_attn_fn(group=None, attn="dense") -> SeqBlockAttn:
+    """Ulysses counterpart of make_ring_attn_fn: the model on this rank's
+    tokens, positions numbered globally, gives this rank's block of the
+    unsharded forward.
 
     ``attn`` picks the attention over the gathered sequence: "dense",
     "flash" (the flash kernels: Ulysses hands each rank the whole sequence
@@ -126,5 +166,4 @@ def make_ulysses_attn_fn(group=None, attn="dense"):
         inner = functools.partial(_tfm.flash_attention_fn, strict=True)
     else:
         inner = _tfm._ATTN_IMPLS[attn]
-    return functools.partial(ulysses_attention_shard, group=group,
-                             attn=inner)
+    return SeqBlockAttn(ulysses_attention_shard, group, attn=inner)

@@ -25,6 +25,8 @@ eager API of ``common.api`` (``torch.distributed`` collectives):
     by a poller thread as each gradient's push_pull completes, the next
     forward waiting per layer.
 
+``BYTEPS_DEBUG_SAMPLE_TENSOR`` samples here as in the eager API, whose
+``push_pull_async`` and ``synchronize`` every push_pull passes through.
 ``enable_async=True`` (``BYTEPS_ENABLE_ASYNC``) needs the PS tier and
 raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 6).
 """

@@ -194,6 +194,25 @@ Phases, each of which must pass:
    15c: Switch-MoE at the same width, 4 layers, 8 experts, capacity
    factor 2, aux weight 0.01, 3 steps: finite, falling losses, a nonzero
    gate_w gradient, the tokens dropped past capacity and the step ms.
+16. Sequence parallelism and the example/jax/* counterparts.  16a, on
+   the world-of-one group of phase 15: llama_300m at seq 32,768, batch 1,
+   bf16 (phase 5's config, params and batch from the same seeds), one
+   forward and backward through make_ulysses_attn_fn(the mesh's sp group,
+   attn="flash"), the adaptor's block 0 of 1: loss within 1e-6 and every
+   gradient within 1e-5 relative L2 of the unsharded forward and
+   backward (bit-equality printed), exactly 48/24/24 streaming launches,
+   both passes' ms and peak memory; then ring over the same group at seq
+   4,096 in float32, the final hidden states within 1e-4 relative L2 of
+   the unsharded forward with flash and with dense attention.  16b: the
+   seven native counterparts of example/jax/* through main() with the
+   JAX scripts' defaults, except train_llama at llama_300m width
+   (--attn flash --seq-len 512 --batch-size 8 --steps 3, then also
+   --fsdp) and train_long_context's ring over sp = 1 (and its flash
+   branch); each one's lines, seconds and launches (counters set to 0
+   just before each and read just after): train_llama's must include
+   rows 1-3, train_compressed's (onebit) rows 7-8; losses finite and
+   falling, the benchmark's rates positive, elastic_benchmark's keys 0
+   and 1 after resume.
 
 Prints a ``{"kernels": [...]}`` line (each entry also naming the CUDA
 kernels it launches, ``cuda_kernels``), the card's name and power limit, and
@@ -2376,6 +2395,162 @@ def phase_moe(bps, torch, check, gpu):
             "gate_grad_l1": gate}
 
 
+def rel_l2(a, b):
+    """|a - b| / |b| in float64 over all elements."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+
+
+def phase_sp(bps, tfm, fa, torch, check, gpu):
+    """16a: llama_300m at seq 32,768 (phase 5's config, params and batch
+    from the same seeds) through make_ulysses_attn_fn(sp group,
+    attn="flash") on make_mesh() of a world of one: one forward and
+    backward, its loss and gradients against the unsharded ones (the
+    forward and backward of phase 5's step), its streaming launches, ms
+    and peak; then ring at seq 4,096 against the unsharded forward."""
+    from byteps_tpu_torch.common.tree import tree_leaves, tree_paths
+    from byteps_tpu_torch.ops import ring_attention as ra
+    B, S = LONG["batch"], LONG["seq"]
+    cfg = tfm.get_config("llama_300m", causal=True, max_seq_len=S,
+                         ce_chunk_rows=2048, attn_impl="flash",
+                         attn_block=tfm.flash_auto_block(S))
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = tfm.synthetic_batch(torch.Generator().manual_seed(1), B, S, cfg)
+    leaves = tree_leaves(params)
+    group = bps.make_mesh().get_group("sp")
+    uly = ra.make_ulysses_attn_fn(group, attn="flash")
+    check(uly.sp_index == 0 and uly.sp_size == 1,
+          f"the Ulysses adaptor on the sp group: block {uly.sp_index} of "
+          f"{uly.sp_size}")
+
+    def loss_and_grads(attn_fn):
+        for p in leaves:
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        loss = tfm.loss_fn(params, batch, cfg, attn_fn=attn_fn)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return (float(loss.detach()), [p.grad.detach().clone()
+                                       for p in leaves], ms,
+                dict(fa.launches),
+                torch.cuda.max_memory_allocated() / 2**30)
+    lw, gw, ms_w, _, peak_w = loss_and_grads(None)
+    lu, gu, ms_u, ran, peak_u = loss_and_grads(uly)
+    bit = lu == lw and all(torch.equal(a, b) for a, b in zip(gu, gw))
+    worst = max((rel_l2(a, b), path) for a, b, path in
+                zip(gu, gw, tree_paths(params)))
+    want = flash_want(2 * cfg.num_layers, cfg.num_layers, streaming=True)
+    check({n: ran[n] for n in want} == want,
+          f"Ulysses + flash, llama_300m [{B}, {S}] bf16, forward and "
+          f"backward: launches {ran} (phase 5's a step: {want})")
+    check(math.isfinite(lu) and abs(lu - lw) <= 1e-6 * abs(lw)
+          and worst[0] <= 1e-5,
+          f"Ulysses step vs the unsharded one: loss {lu!r} vs {lw!r}, "
+          f"largest gradient relative L2 {worst[0]:.3g} at {worst[1]} "
+          f"(<= 1e-5); bit-equal: {bit}")
+    print(f"  Ulysses forward+backward {ms_u:.3f} ms, peak {peak_u:.2f} "
+          f"GiB; unsharded {ms_w:.3f} ms, peak {peak_w:.2f} GiB ({gpu})")
+    res = {"bit_equal": bit, "max_grad_rel_l2": worst[0],
+           "launches": {n: ran[n] for n in want}, "ulysses_ms": ms_u,
+           "unsharded_ms": ms_w, "ulysses_peak_gib": peak_u,
+           "unsharded_peak_gib": peak_w}
+    del gw, gu
+    for p in leaves:
+        p.grad = None
+    torch.cuda.empty_cache()
+
+    # Ring's blocks are dense: at S = 32,768 one layer's logits alone would
+    # be 64 GiB.  In float32, so that bf16's rounding hides no fault.
+    S2 = 4096
+    cfg32 = tfm.get_config("llama_300m", causal=True, max_seq_len=S,
+                           ce_chunk_rows=2048, attn_impl="flash",
+                           dtype=torch.float32)
+    toks = batch[0][:, :S2]
+    ring = ra.make_ring_attn_fn(group)
+    with torch.no_grad():
+        hid = {name: tfm.forward_hidden(params, toks, cfg32, attn_fn=fn)
+               for name, fn in (("ring", ring), ("flash", None),
+                                ("dense", tfm.dense_attention))}
+    to_dense = rel_l2(hid["ring"], hid["dense"])
+    to_flash = rel_l2(hid["ring"], hid["flash"])
+    flash_dense = rel_l2(hid["flash"], hid["dense"])
+    check(all(bool(torch.isfinite(h).all()) for h in hid.values())
+          and to_dense <= 1e-4 and to_flash <= 1e-4,
+          f"ring (sp group of one), llama_300m [{B}, {S2}] float32, final "
+          f"hidden states vs the unsharded forward: relative L2 "
+          f"{to_flash:.3g} to flash, {to_dense:.3g} to dense attention "
+          f"(flash to dense {flash_dense:.3g}; <= 1e-4)")
+    res.update({"ring_vs_flash_rel_l2": to_flash,
+                "ring_vs_dense_rel_l2": to_dense,
+                "flash_vs_dense_rel_l2": flash_dense})
+    del params, batch, hid
+    return res
+
+
+def phase_jax_examples(fa, bp, torch, check, gpu):
+    """16b: the native counterparts of example/jax/* on the card, each
+    main() with the JAX script's defaults except where one card needs
+    otherwise: train_llama at llama_300m width (and again with --fsdp),
+    train_long_context's ring over sp = 1 (the default 8 needs 8 ranks).
+    The launch counters are set to 0 just before each and read just
+    after."""
+    from byteps_tpu_torch.core import native
+    from byteps_tpu_torch.examples import (
+        benchmark, elastic_benchmark, train_compressed,
+        train_hybrid_parallel, train_imagenet_resnet, train_llama,
+        train_long_context)
+    llama = ["--model", "llama_300m", "--attn", "flash", "--seq-len", "512",
+             "--batch-size", "8", "--steps", "3"]
+    runs = [
+        ("train_llama", train_llama, llama, RESIDENT),
+        ("train_llama --fsdp", train_llama, llama + ["--fsdp"], RESIDENT),
+        ("train_hybrid_parallel", train_hybrid_parallel, [], ()),
+        ("train_long_context --sp 1", train_long_context, ["--sp", "1"], ()),
+        ("train_long_context --attn flash", train_long_context,
+         ["--attn", "flash"], ()),
+        ("train_compressed", train_compressed, ["--compressor", "onebit"],
+         ("sign_pack", "sign_unpack")),
+        ("train_imagenet_resnet", train_imagenet_resnet, [], ()),
+        ("benchmark", benchmark, [], ()),
+        ("elastic_benchmark", elastic_benchmark, [], ()),
+    ]
+    res = {}
+    for name, mod, args, needs in runs:
+        if mod is elastic_benchmark:
+            # its keys are a fresh process's: a fresh name registry
+            native._core = None
+        print(f"  -- {name}: main({args})")
+        fa.reset_launches()
+        bp.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mod.main(args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {n: v for n, v in {**fa.launches, **bp.launches}.items()
+                    if v}
+        if mod is benchmark:
+            values, what = out["rates"], "rates finite and positive"
+            ok = min(values) > 0
+        elif mod is elastic_benchmark:
+            values = [out["phase1_loss"], out["phase2_loss"]]
+            what = "losses finite, falling across the resume"
+            ok = values[1] < values[0]
+        else:
+            values, what = out["losses"], "losses finite, falling"
+            ok = values[-1] < values[0]
+        check(ok and all(math.isfinite(v) for v in values)
+              and all(launches.get(n, 0) > 0 for n in needs),
+              f"{name}: {secs:.3f} s, {what}; launches {launches}")
+        res[name] = {"seconds": secs, "launches": launches}
+    print(f"  examples on {gpu}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2517,6 +2692,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         print("== phase 15c: Switch-MoE at the flagship's width")
         yardsticks["moe"] = phase_moe(bps, torch, check, gpu)
+        torch.cuda.empty_cache()
+        print("== phase 16a: sequence parallelism at llama_300m width "
+              "(Ulysses + flash at seq 32768, ring at seq 4096)")
+        yardsticks["sp"] = phase_sp(bps, tfm, fa, torch, check, gpu)
+    torch.cuda.empty_cache()
+    print("== phase 16b: the native counterparts of example/jax/*")
+    yardsticks["jax_examples"] = phase_jax_examples(fa, bp, torch, check,
+                                                    gpu)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     if check.failures:

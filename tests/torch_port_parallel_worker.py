@@ -3,10 +3,11 @@
     python tests/torch_port_parallel_worker.py MODE RANK WORLD PORT IN.npz OUT
 
 MODE is ``sharded`` (tests/test_torch_port_sharded.py), ``parallel``
-(tests/test_torch_port_parallel.py) or ``hybrid``
-(tests/test_torch_port_hybrid.py); each runs every case of its test file in
-this one world and writes OUT/rank<RANK>.npz (numpy arrays; specs and
-error texts as JSON strings).  The inputs, JAX's parameters among them,
+(tests/test_torch_port_parallel.py), ``hybrid``
+(tests/test_torch_port_hybrid.py) or ``sp`` (tests/test_torch_port_sp_model.py,
+a world of 2); each runs every case of its test file in this one world and
+writes OUT/rank<RANK>.npz (numpy arrays; specs, error texts and printed
+lines as JSON strings).  The inputs, JAX's parameters among them,
 come from IN.npz, made from a seed by the test.  ``spawn`` starts the world
 and returns every rank's results.
 """
@@ -335,6 +336,47 @@ def run_hybrid(rank, world, data, res):
     run("zero1_dp4", "d", dict(dp=4), opt=adam, zero1=True)
 
 
+def run_sp(rank, world, data, res):
+    """The transformer on this rank's block of the sequence through the
+    ring and Ulysses adaptors (forward, and the ring's gradients of the
+    mean loss averaged over the ranks), then train_long_context's ring
+    branch over sp = world, which ends the process group."""
+    import contextlib
+    import io
+    import torch
+    from byteps_tpu_torch.common.tree import tree_leaves, tree_paths
+    from byteps_tpu_torch.examples import train_long_context
+    from byteps_tpu_torch.models import transformer as tfm
+    from byteps_tpu_torch.ops import collectives
+    from byteps_tpu_torch.ops import ring_attention as ra
+    toks = torch.from_numpy(data["toks"]).long()
+    tgts = torch.from_numpy(data["tgts"]).long()
+    S = toks.shape[1] // world
+    blk = slice(rank * S, (rank + 1) * S)
+    fns = {"ring": ra.make_ring_attn_fn(), "ulysses": ra.make_ulysses_attn_fn()}
+    res["sp_index"] = np.array([fn.sp_index for fn in fns.values()])
+    for name in ("tiny", "llama_tiny"):
+        cfg = tfm.get_config(name, dtype=torch.float32, remat=False)
+        params = tfm.params_from_numpy(nest(data, f"{name}/"), cfg,
+                                       device="cpu")
+        for key, fn in fns.items():
+            with torch.no_grad():
+                res[f"fwd/{name}/{key}"] = tfm.forward(
+                    params, toks[:, blk], cfg, attn_fn=fn).numpy()
+        tfm.loss_fn(params, (toks[:, blk], tgts[:, blk]), cfg,
+                    attn_fn=fns["ring"]).backward()
+        for path, p in zip(tree_paths(params), tree_leaves(params)):
+            res[f"grad/{name}/{path}"] = (collectives.all_reduce(
+                p.grad, None) / world).numpy()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got = train_long_context.main(
+            ["--attn", "ring", "--sp", str(world), "--seq-len", "64",
+             "--steps", "3", "--device", "cpu"])
+    res["example/lines"] = json.dumps(out.getvalue().splitlines())
+    res["example/losses"] = np.array(got["losses"])
+
+
 def main(mode, rank, world, port, inp, out_dir):
     import torch
     import torch.distributed as dist
@@ -344,9 +386,10 @@ def main(mode, rank, world, port, inp, out_dir):
     data = dict(np.load(inp))
     res = {}
     {"sharded": run_sharded, "parallel": run_parallel,
-     "hybrid": run_hybrid}[mode](rank, world, data, res)
+     "hybrid": run_hybrid, "sp": run_sp}[mode](rank, world, data, res)
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **res)
-    dist.destroy_process_group()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":
