@@ -21,15 +21,28 @@ group runs collectives in issue order.
 ``BYTEPS_DEBUG_SAMPLE_TENSOR`` writes a sample of every eager tensor whose
 name contains it to stderr, at push entry and after synchronize.
 
+``init()`` arms the worker-local observability planes as the JAX
+package's does: the flight recorder (postmortem bundles with
+``BYTEPS_TPU_POSTMORTEM_DIR``), the device plane (``BYTEPS_TPU_DEVPROF``),
+the signal plane and doctor (``BYTEPS_TPU_SIGNAL_WINDOW_S`` > 0) and the
+metrics exporter (``BYTEPS_TPU_METRICS_PORT``, ``BYTEPS_TPU_METRICS_LOG``,
+serving ``/metrics``, ``/signals``, ``/diagnosis`` and ``/device``);
+``shutdown()`` closes the last window, stops the exporter, dumps the
+trace with its device lane and disarms.  ``get_metrics``,
+``get_key_signals``, ``get_diagnosis`` and ``get_device_profile`` read
+them.
+
 The PS tier (``BYTEPS_ENABLE_ASYNC``, ``push_pull_sparse``, membership,
-server drain) and the signal and telemetry getters are not ported: they
-raise ``NotImplementedError`` naming their ROADMAP.md item.
+server drain, the server, codec, transport, health, audit and hierarchy
+getters) and the fleet-level planes (fleet, tuner, autoscaler) are not
+ported: they raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 import os
 import sys
 import threading
@@ -40,6 +53,8 @@ import torch
 import torch.distributed as dist
 
 from ..core.native import get_core
+from . import devprof, flightrec, signals, telemetry, trace_analysis
+from . import doctor as doctor_mod
 from .config import Config, get_config
 from .logging import get_logger, set_level, set_rank
 from .tree import tree_leaves, tree_paths, tree_unflatten
@@ -57,6 +72,14 @@ class _State:
     #            name, t0)
     handles: Dict[int, Any] = dataclasses.field(default_factory=dict)
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+    exporter: Optional[Any] = None    # TelemetryExporter, when enabled
+    # Windowed key-signal plane + doctor (BYTEPS_TPU_SIGNAL_WINDOW_S > 0):
+    # the final verdict is emitted exactly once (shutdown or the atexit
+    # guard, whichever runs first).
+    signal_plane: Optional[Any] = None
+    doctor: Optional[Any] = None
+    doctor_verdict_done: bool = False
+    doctor_atexit: bool = False
 
 
 _state = _State()
@@ -104,14 +127,81 @@ def init() -> None:
     get_core().trace_enable(cfg.trace_on and cfg.trace_start_step
                             <= _state.step <= cfg.trace_end_step)
     set_rank(process_rank() if size() > 1 else None)
+    _arm_planes(cfg)
     get_logger().info("byteps_tpu_torch initialized: rank=%d/%d "
                       "local_rank=%d", rank(), size(), local_rank())
 
 
+def _arm_planes(cfg: Config) -> None:
+    """The worker-local observability planes, armed as the JAX package's
+    ``init()`` arms them outside PS mode."""
+    # Black-box flight recorder: lifecycle events always record (bounded
+    # in-memory ring, no I/O); postmortem bundles + the faulthandler
+    # crash file arm only when BYTEPS_TPU_POSTMORTEM_DIR is set.
+    flightrec.set_extra_provider(_postmortem_extra)
+    flightrec.record("init", role="worker", rank=rank(), size=size())
+    if cfg.postmortem_dir:
+        flightrec.arm_postmortem(cfg.postmortem_dir)
+    _register_builtin_collectors()
+    if cfg.devprof:
+        # Device plane: arm the profiler, run the init-time sentinel
+        # probe (the re-probe rides every window roll), and hand the
+        # flight recorder its `device` bundle section.  Off (default):
+        # none of this exists — zero gauges, the trainer hooks a None
+        # check.
+        prof = devprof.arm(intended_platform=cfg.device_platform,
+                           worker=rank(), telemetry_on=cfg.telemetry_on)
+        probe = prof.probe()
+        if probe.get("fallback"):
+            get_logger().error(
+                "device sentinel convicted a fallback at init: %s",
+                probe.get("reason"))
+        flightrec.set_extra_provider(prof.flight_section, name="device")
+    # One knob, one meaning: the plane arms iff SIGNAL_WINDOW_S > 0.
+    if cfg.signal_window_s > 0:
+        _start_signal_plane(cfg)
+    if _state.exporter is not None:       # init() again without shutdown()
+        _state.exporter.stop()
+        _state.exporter = None
+    if cfg.metrics_port > 0 or cfg.metrics_log:
+        try:
+            _state.exporter = telemetry.TelemetryExporter(
+                telemetry.get_registry(), port=cfg.metrics_port,
+                jsonl_path=cfg.metrics_log,
+                max_log_mb=cfg.metrics_log_mb,
+                routes=_signal_routes()).start()
+        except OSError as e:
+            # A taken port / unwritable log path must not kill training —
+            # the metrics plane is an observer, never a dependency.
+            get_logger().error(
+                "metrics exporter failed to start "
+                "(BYTEPS_TPU_METRICS_PORT=%d, BYTEPS_TPU_METRICS_LOG=%r): "
+                "%s — continuing without it", cfg.metrics_port,
+                cfg.metrics_log, e)
+            _state.exporter = None
+
+
 def shutdown() -> None:
     """Leave the process group; the declared-name registry stays, so keys
-    are the same after ``resume``."""
+    are the same after ``resume``.  Closes the signal plane's last window
+    and logs the doctor's verdict, stops the exporter, dumps the trace
+    (with its device lane: a run that never reached its trace end step
+    still gets one) and disarms the device plane, its bundle section
+    frozen to the final snapshot."""
+    if _state.initialized:
+        flightrec.record("shutdown", step=_state.step)
+    _stop_signal_plane()
+    if _state.exporter is not None:
+        _state.exporter.stop()
+        _state.exporter = None
     _maybe_dump_trace()
+    prof = devprof.active()
+    if prof is not None:
+        # Bundles dumped after shutdown (the atexit one) still answer
+        # "was it on-chip?".
+        snap = prof.flight_section()
+        flightrec.set_extra_provider(lambda: snap, name="device")
+        devprof.disarm()
     if is_distributed():
         dist.destroy_process_group()
     set_rank(None)
@@ -242,7 +332,8 @@ def push_pull_async(tensor: torch.Tensor, name: Optional[str] = None,
         # nothing to reduce over and the tensor stays as it is.
         wire = wire.clone()
         work = dist.all_reduce(wire, async_op=True)
-    core.telemetry_record(tensor.numel() * tensor.element_size())
+    if cfg.telemetry_on:
+        telemetry.record_pushpull(tensor.numel() * tensor.element_size())
     with _state.lock:
         _state.handles[handle] = (wire, work, compression, ctx, average,
                                   name, t0)
@@ -425,8 +516,11 @@ def broadcast_optimizer_state(opt_state: Tree, root_rank: int = 0) -> Tree:
 # ---------------------------------------------------------------------------
 def get_pushpull_speed() -> tuple:
     """(timestamp, MB/s): the bytes every push_pull of the last 10 seconds
-    handed in, over 10 seconds (the JAX package's window)."""
-    return (time.time(), get_core().telemetry_speed_mbps())
+    handed in, over 10 seconds (the JAX package's window).  Served from
+    the telemetry registry's window, which every push_pull feeds with
+    ``telemetry.record_pushpull`` beside ``bps_pushpull_bytes_total``, so
+    the getter and the endpoint cannot disagree."""
+    return (time.time(), telemetry.pushpull_speed_mbps())
 
 
 def mark_step() -> None:
@@ -442,6 +536,14 @@ def mark_step() -> None:
             and cfg.trace_start_step <= _state.step <= cfg.trace_end_step:
         core.trace_record(f"step_{_state.step}", "STEP",
                           _state.step_start_us, now - _state.step_start_us)
+    if cfg.telemetry_on and _state.step_start_us is not None:
+        # Per-step wall time: the trace keeps it only inside its window;
+        # the registry keeps the full-run distribution live.
+        telemetry.get_registry().histogram(
+            "bps_step_time_seconds",
+            bounds=telemetry.STEP_TIME_BUCKETS,
+            help="wall time between consecutive mark_step() calls"
+        ).observe((now - _state.step_start_us) / 1e6)
     _state.step += 1
     _state.step_start_us = now
     if cfg.trace_on:
@@ -462,7 +564,202 @@ def _maybe_dump_trace() -> None:
         return
     d = os.path.join(cfg.trace_dir, str(local_rank()))
     os.makedirs(d, exist_ok=True)
-    core.trace_dump(os.path.join(d, "comm.json"), rank())
+    path = os.path.join(d, "comm.json")
+    core.trace_dump(path, rank())
+    _merge_device_trace(path)
+
+
+def _merge_device_trace(path: str) -> None:
+    """Fold the device lane into the freshly dumped worker trace.
+
+    The result is one Chrome/Perfetto JSON with a process lane per
+    source: this worker's spans on pid = rank, the device plane's step
+    spans on pid = DEVICE_PID_BASE + rank (on the same monotonic-µs
+    timebase, so with no offset).  The file then goes through the
+    critical-path analyzer, which feeds the ``bps_step_critical_path_*``
+    gauges.  Server lanes come with the PS tier."""
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+        events = doc.get("traceEvents", [])
+        meta = [{"name": "process_name", "ph": "M", "pid": rank(),
+                 "tid": 0, "args": {"name": f"worker{rank()}"}}]
+        prof = devprof.active()
+        if prof is not None:
+            dev_events = prof.trace_events(rank())
+            if dev_events:
+                events.extend(dev_events)
+                meta.append({
+                    "name": "process_name", "ph": "M",
+                    "pid": trace_analysis.DEVICE_PID_BASE + rank(),
+                    "tid": 0,
+                    "args": {"name": f"device{rank()} "
+                             f"({prof.probe()['platform']})"}})
+        doc["traceEvents"] = meta + events
+        with open(path, "w") as f:
+            json.dump(doc, f)
+    except (OSError, ValueError):
+        get_logger().exception("merged trace export failed")
+        return
+    result = trace_analysis.analyze(doc["traceEvents"], worker=rank())
+    trace_analysis.update_critical_path_gauges(result)
+
+
+# ---------------------------------------------------------------------------
+# Observability getters, collectors and the signal plane
+# ---------------------------------------------------------------------------
+def _register_builtin_collectors() -> None:
+    """Attach the stats accessors the port has to the registry as
+    collectors: ``bps_fusion_*`` values equal ``get_fusion_stats()`` by
+    construction.  The codec and transport collectors come with the PS
+    tier.  Idempotent (re-registering replaces the same name)."""
+    from .fusion import get_stats as get_fusion_stats
+    telemetry.get_registry().register_collector("fusion", get_fusion_stats)
+
+
+_register_builtin_collectors()
+
+
+def get_metrics() -> dict:
+    """One isolated snapshot of the unified metrics registry: every
+    registered counter/gauge/histogram (push_pull bytes, step time, the
+    device plane's gauges, doctor findings) plus the collector-backed
+    ``bps_fusion_*`` values.  Purely local."""
+    return telemetry.get_registry().snapshot()
+
+
+def _postmortem_extra() -> dict:
+    """Bundle sections the flight recorder collects at dump time —
+    strictly local state."""
+    return {"step": _state.step}
+
+
+def _start_signal_plane(cfg: Config) -> None:
+    """Arm the windowed key-signal plane + doctor engine
+    (``BYTEPS_TPU_SIGNAL_WINDOW_S`` > 0).  In data-parallel mode its only
+    provider is the device plane's ``window_roll`` (when armed): it
+    re-probes the sentinel, drains the step accumulators and updates the
+    MFU / fallback gauges, and the section it returns rides the summary
+    for the ``device_fallback`` / ``mfu_regression`` rules.  The doctor's
+    findings ride the log, the flight recorder,
+    ``bps_doctor_findings_total`` and ``bps.get_diagnosis()``; bundles
+    gain a ``diagnosis`` section and the window history."""
+    eng = doctor_mod.DoctorEngine()
+    providers = {}
+    prof = devprof.active()
+    if prof is not None:
+        providers["device"] = prof.window_roll
+    plane = signals.arm(window_s=cfg.signal_window_s,
+                        history=cfg.signal_history,
+                        providers=providers, on_window=eng.observe)
+    _state.signal_plane = plane
+    _state.doctor = eng
+    _state.doctor_verdict_done = False
+    flightrec.set_extra_provider(
+        lambda: {"diagnosis": eng.diagnosis(),
+                 "signals": plane.history()},
+        name="doctor")
+    if not _state.doctor_atexit:
+        # Crash guard: a run that never reaches shutdown() still logs
+        # its one-line verdict.
+        import atexit
+        atexit.register(_emit_doctor_verdict)
+        _state.doctor_atexit = True
+
+
+def _emit_doctor_verdict() -> None:
+    """Log the final doctor verdict exactly once per plane lifetime."""
+    eng = _state.doctor
+    if eng is None or _state.doctor_verdict_done:
+        return
+    _state.doctor_verdict_done = True
+    if eng.diagnosis().get("healthy"):
+        get_logger().info(eng.verdict_line())
+    else:
+        get_logger().warning(eng.verdict_line())
+
+
+def _stop_signal_plane() -> None:
+    if _state.signal_plane is None:
+        return
+    _state.signal_plane.stop(final_roll=True)   # close the last window
+    _emit_doctor_verdict()
+    # Freeze the final diagnosis + window history into a static provider:
+    # the atexit bundle (flightrec's own exit hook runs AFTER shutdown)
+    # must still carry the run's verdict.
+    final = {"diagnosis": _state.doctor.diagnosis(),
+             "signals": _state.signal_plane.history()}
+    flightrec.set_extra_provider(lambda: final, name="doctor")
+    signals.disarm()
+    _state.signal_plane = None
+    _state.doctor = None
+
+
+def _signal_routes() -> dict:
+    """JSON routes for the metrics endpoint: ``/signals`` (the window
+    history — what tools/bps_doctor.py polls in live mode),
+    ``/diagnosis`` (the doctor's verdict — what bps_top's panel shows)
+    and ``/device`` (the device plane's profile, when armed).  Empty when
+    the plane is off: the endpoint then 404s the paths, which the
+    consumers treat as "not armed"."""
+    if _state.signal_plane is None:
+        return {}
+    plane, eng = _state.signal_plane, _state.doctor
+
+    def _signals_payload():
+        hist = plane.history()
+        return {"schema": signals.SCHEMA,
+                "window_s": plane.window_s,
+                "window": (hist[-1].get("window") if hist else -1),
+                "windows": hist}
+
+    routes = {"/signals": _signals_payload,
+              "/diagnosis": lambda: eng.diagnosis()}
+    if devprof.active() is not None:
+        routes["/device"] = get_device_profile
+    return routes
+
+
+def get_key_signals() -> dict:
+    """The signal plane's last closed window: per-key ``KeySignal``
+    records and their ``wire_bound | compute_bound | straggler_bound |
+    tiny | unhealthy`` classification (no keys in data-parallel mode: the
+    PS client feeds them).  The empty shape when the plane is off
+    (``BYTEPS_TPU_SIGNAL_WINDOW_S=0``)."""
+    if _state.signal_plane is None:
+        return {"schema": signals.SCHEMA, "armed": False, "window": -1,
+                "keys": {}}
+    out = _state.signal_plane.key_signals()
+    out["armed"] = True
+    return out
+
+
+def get_diagnosis() -> dict:
+    """The doctor's current verdict: open findings (severity-ranked,
+    each with rule id, subject, evidence, and a playbook anchor into
+    docs/troubleshooting.md), plus the recent finding history.
+    ``{"armed": False, "healthy": True, ...}`` when the plane is off."""
+    if _state.doctor is None:
+        return {"armed": False, "healthy": True, "open": [],
+                "findings_total": 0}
+    return _state.doctor.diagnosis()
+
+
+def get_device_profile() -> dict:
+    """The device plane's live profile (``BYTEPS_TPU_DEVPROF=1``): the
+    last sentinel probe (actual vs intended platform, fallback
+    conviction), lifetime and recent per-step device times (dispatch →
+    stream synchronize), the last window's MFU, and the FLOP-count cache
+    (``cost_cache``: ``misses`` steps ran under the counter and are not
+    timed, ``hits`` timed steps read its count, ``flops`` the counts).
+    Served on the metrics endpoint as ``/device``.  ``{"armed": False,
+    ...}`` when the plane is off."""
+    prof = devprof.active()
+    if prof is None:
+        return {"armed": False, "platform": None, "mfu": None,
+                "steps_total": 0, "device_s_total": 0.0,
+                "mean_step_ms": None}
+    return prof.profile()
 
 
 # ---------------------------------------------------------------------------
@@ -474,16 +771,12 @@ leave = _not_ported("leave", "6")
 get_membership = _not_ported("get_membership", "6")
 on_membership_change = _not_ported("on_membership_change", "6")
 get_ring = _not_ported("get_ring", "6")
-get_codec_stats = _not_ported("get_codec_stats", "7")
-get_transport_stats = _not_ported("get_transport_stats", "7")
-get_metrics = _not_ported("get_metrics", "7")
-get_server_stats = _not_ported("get_server_stats", "7")
-get_health = _not_ported("get_health", "7")
-get_audit = _not_ported("get_audit", "7")
-get_key_signals = _not_ported("get_key_signals", "7")
-get_diagnosis = _not_ported("get_diagnosis", "7")
-get_tuner = _not_ported("get_tuner", "7")
-get_hierarchy = _not_ported("get_hierarchy", "7")
-get_autoscaler = _not_ported("get_autoscaler", "7")
-get_fleet = _not_ported("get_fleet", "7")
-get_device_profile = _not_ported("get_device_profile", "7")
+get_codec_stats = _not_ported("get_codec_stats", "6")
+get_transport_stats = _not_ported("get_transport_stats", "6")
+get_server_stats = _not_ported("get_server_stats", "6")
+get_health = _not_ported("get_health", "6")
+get_audit = _not_ported("get_audit", "6")
+get_hierarchy = _not_ported("get_hierarchy", "6")
+get_tuner = _not_ported("get_tuner", "7b")
+get_autoscaler = _not_ported("get_autoscaler", "7b")
+get_fleet = _not_ported("get_fleet", "7b")

@@ -5,7 +5,9 @@ defaults, limited to what the port uses so far — the worker bootstrap
 (``DMLC_*``, ``BYTEPS_LOCAL_*``), the global-rank override and the
 forced-distributed switch, the bucket size, the eager fusion threshold,
 the async switch, the trace window, the log level, the debug sampling
-of eager tensors and the mesh axis sizes (``parallel/mesh.py``).
+of eager tensors, the mesh axis sizes (``parallel/mesh.py``) and the
+observability planes' knobs (telemetry, metrics endpoint and log, flight
+recorder, signal window, device plane).
 """
 
 from __future__ import annotations
@@ -68,6 +70,18 @@ class Config:
     mesh_ep: int = 1                         # BYTEPS_TPU_MESH_EP
     # Hierarchical reduce: ranks per intra-node island (0 = one island).
     ici_size: int = 0                        # BYTEPS_TPU_ICI_SIZE
+    # Observability planes (common/telemetry.py, flightrec.py, signals.py,
+    # doctor.py, devprof.py).
+    telemetry_on: bool = True                # BYTEPS_TELEMETRY_ON
+    metrics_port: int = 0                    # BYTEPS_TPU_METRICS_PORT
+    metrics_log: str = ""                    # BYTEPS_TPU_METRICS_LOG
+    metrics_log_mb: int = 64                 # BYTEPS_TPU_METRICS_LOG_MB
+    flightrec_events: int = 4096             # BYTEPS_TPU_FLIGHTREC_EVENTS
+    postmortem_dir: str = ""                 # BYTEPS_TPU_POSTMORTEM_DIR
+    signal_window_s: float = 10.0            # BYTEPS_TPU_SIGNAL_WINDOW_S
+    signal_history: int = 32                 # BYTEPS_TPU_SIGNAL_HISTORY
+    devprof: bool = False                    # BYTEPS_TPU_DEVPROF
+    device_platform: str = ""                # BYTEPS_TPU_DEVICE_PLATFORM
 
     @classmethod
     def from_env(cls) -> "Config":
@@ -96,6 +110,17 @@ class Config:
             mesh_pp=_env_int("BYTEPS_TPU_MESH_PP", 1),
             mesh_ep=_env_int("BYTEPS_TPU_MESH_EP", 1),
             ici_size=_env_int("BYTEPS_TPU_ICI_SIZE", 0),
+            telemetry_on=_env_bool("BYTEPS_TELEMETRY_ON", True),
+            metrics_port=_env_int("BYTEPS_TPU_METRICS_PORT", 0),
+            metrics_log=_env_str("BYTEPS_TPU_METRICS_LOG", ""),
+            metrics_log_mb=_env_int("BYTEPS_TPU_METRICS_LOG_MB", 64),
+            flightrec_events=_env_int("BYTEPS_TPU_FLIGHTREC_EVENTS", 4096),
+            postmortem_dir=_env_str("BYTEPS_TPU_POSTMORTEM_DIR", ""),
+            signal_window_s=float(
+                os.environ.get("BYTEPS_TPU_SIGNAL_WINDOW_S") or 10.0),
+            signal_history=_env_int("BYTEPS_TPU_SIGNAL_HISTORY", 32),
+            devprof=_env_bool("BYTEPS_TPU_DEVPROF"),
+            device_platform=_env_str("BYTEPS_TPU_DEVICE_PLATFORM", ""),
         )
 
 

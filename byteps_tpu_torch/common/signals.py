@@ -1,0 +1,499 @@
+"""Windowed per-key signal plane: the substrate `bps doctor` runs on.
+
+Counterpart of ``byteps_tpu/common/signals.py``, the same aggregator.
+It folds, once per window (``BYTEPS_TPU_SIGNAL_WINDOW_S``),
+
+  - **wire-domain** worker-side timers per partition (queue wait, push
+    RTT, serve wait = push-ack → pull-data, codec encode/decode), fed
+    through ``note_part`` / ``note_codec`` by the PS client,
+  - **the metrics registry** snapshot (scalars only), and
+  - the **provider sections** (in data-parallel mode the device plane's
+    ``window_roll``: the sentinel probe, step timers and MFU),
+
+into one window summary with a ``KeySignal`` record per key, each
+carrying a classification::
+
+    wire_bound | compute_bound | straggler_bound | tiny | unhealthy
+
+exposed as ``bps.get_key_signals()``, and the stream
+``common/doctor.py`` evaluates its rules over.  The port runs no PS
+client yet, so in data-parallel mode the windows carry no keys; the
+device section and the metrics are what the doctor reads there.
+
+Cost model: ``BYTEPS_TPU_SIGNAL_WINDOW_S=0`` (off) arms nothing — the
+hot-path feeds are a module-global None check.  Armed, the per-part
+feed is a dict update under a short lock (~µs-class, once per partition
+round trip) and the window roll is one registry snapshot + O(keys)
+arithmetic per window.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional
+
+from .logging import get_logger
+
+SCHEMA = "bps-signal-window-v1"
+
+# The classification vocabulary — stable: the adaptive-compression tuner
+# and the doctor rules key off these strings.
+CLASSES = ("wire_bound", "compute_bound", "straggler_bound", "tiny",
+           "unhealthy")
+
+# A key whose mean pushed partition payload is below this is "tiny":
+# per-message overhead dominates its cost and neither compressing harder
+# nor blaming the wire makes sense — the fusion layer is its remedy.
+TINY_BYTES = 64 * 1024
+
+# Distinct keys tracked per window before new ones aggregate under
+# "_other" — bounds the window memory on pathological declare churn.
+MAX_KEYS = 512
+
+DEFAULT_WINDOW_S = 10.0
+DEFAULT_HISTORY = 32
+
+# Gauge families that are only as fresh as the last successful
+# CMD_STATS refresh — dropped from a window whose refresh failed, so
+# the doctor never diagnoses off frozen pre-outage values.
+STALE_SERVER_GAUGES = ("bps_worker_round_lag", "bps_keys_owned",
+                       "bps_server_alive", "bps_server_migrations",
+                       "bps_ring_epoch", "bps_membership_epoch",
+                       "bps_workers_alive", "bps_worker_alive")
+
+
+class _KeyAcc:
+    """One key's in-window accumulator (hot-path side)."""
+
+    __slots__ = ("pushes", "push_bytes", "pull_bytes", "wire_bytes",
+                 "queue_s", "rtt_s", "serve_s", "encode_s", "decode_s")
+
+    def __init__(self):
+        self.pushes = 0
+        self.push_bytes = 0     # logical tensor bytes (pre-codec)
+        self.pull_bytes = 0
+        self.wire_bytes = 0     # encoded push-leg bytes actually sent
+        self.queue_s = 0.0
+        self.rtt_s = 0.0
+        self.serve_s = 0.0
+        self.encode_s = 0.0
+        self.decode_s = 0.0
+
+
+def classify(rec: dict, tiny_bytes: int = TINY_BYTES) -> str:
+    """Classify one KeySignal record (pure — shared by the live plane,
+    the doctor's tests, and any offline consumer).
+
+    Order matters: value-domain damage trumps everything (a NaN-storming
+    key must never be tuned as merely "wire bound"), tininess trumps the
+    share comparison (a 2 KiB bias's timings are all overhead).  The
+    remaining three pick the dominant critical-path component:
+
+      - ``wire_bound``: queue wait + push RTT dominate — the key's bytes
+        are what the dispatcher and the wire are busy with (compress
+        harder / raise WIRE_CONNS / fuse less).
+      - ``compute_bound``: codec encode+decode dominate (compress less /
+        more COMPRESS_THREADS).
+      - ``straggler_bound``: serve wait dominates — the span from push
+        ack to pull data, which is the server's merge wait on *other*
+        workers' pushes (plus the pull wire); the per-worker round-lag
+        gauges name which peer.
+
+    Boundary law: ``compute`` here is CODEC compute only —
+    encode + decode, the seconds the tuner can actually trade against
+    the wire by switching codecs.  Measured DEVICE compute (the
+    ``device`` section the devprof plane contributes) is deliberately
+    excluded: a model
+    whose matmuls dominate the step must never read as
+    ``compute_bound`` and trick the tuner into compressing less — that
+    knob cannot buy device FLOPs back.
+    """
+    health = rec.get("health") or {}
+    if health.get("nonfinite") or rec.get("audit_bad"):
+        return "unhealthy"
+    pushes = rec.get("pushes", 0)
+    if pushes and rec.get("push_bytes", 0) / pushes < tiny_bytes:
+        return "tiny"
+    comps = rec.get("components") or {}
+    wire = comps.get("queue", 0.0) + comps.get("push_wire", 0.0)
+    compute = comps.get("encode", 0.0) + comps.get("decode", 0.0)
+    straggler = comps.get("serve", 0.0)
+    best = max(wire, compute, straggler)
+    if best <= 0.0:
+        return "tiny" if pushes == 0 else "wire_bound"
+    if best == straggler:
+        return "straggler_bound"
+    if best == compute:
+        return "compute_bound"
+    return "wire_bound"
+
+
+class SignalPlane:
+    """The windowed aggregator.
+
+    ``note_part``/``note_codec`` are the hot-path feeds (called by the
+    PS session per partition round trip / codec job).  ``roll()`` closes
+    the current window: swaps the accumulators, snapshots the metrics
+    registry (scalars only), collects the provider sections
+    (transport/health/audit — local state) and the refresh result
+    (server stats — the one wire poll, best-effort), classifies every
+    key, and appends the finished **window summary** to a bounded
+    history.  ``on_window`` (the doctor engine) sees each summary as it
+    closes.
+
+    A background thread calls ``roll()`` every ``window_s``; tests call
+    it synchronously instead.
+    """
+
+    def __init__(self, window_s: float = DEFAULT_WINDOW_S,
+                 history: int = DEFAULT_HISTORY,
+                 refresh: Optional[Callable[[], Optional[dict]]] = None,
+                 providers: Optional[Dict[str, Callable[[], dict]]] = None,
+                 on_window: Optional[Callable[[dict], None]] = None):
+        self.window_s = max(0.05, float(window_s))
+        self._lock = threading.Lock()
+        self._acc: Dict[str, _KeyAcc] = {}
+        self._refresh = refresh
+        self._providers = dict(providers or {})
+        self._on_window = on_window
+        self._history: deque = deque(maxlen=max(1, int(history)))
+        self._window_idx = 0
+        self._last_roll_mono = time.monotonic()
+        self._last_event_mono = self._last_roll_mono
+        # Audit verdicts already seen: the session's `last` verdict is
+        # sticky for its lifetime, but a key is "unhealthy" only in the
+        # window its verdict actually LANDED — one transient mismatch
+        # must not brand a key forever.
+        self._audit_seen = 0
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    # -- hot-path feeds -----------------------------------------------------
+    @staticmethod
+    def _base(label: str) -> str:
+        # Partition labels are "<tensor>.partN"; signals aggregate per
+        # tensor key.
+        return label.rsplit(".part", 1)[0] if ".part" in label else label
+
+    def _get_acc(self, label: str) -> _KeyAcc:
+        acc = self._acc.get(label)
+        if acc is None:
+            if len(self._acc) >= MAX_KEYS:
+                label = "_other"
+                acc = self._acc.get(label)
+                if acc is not None:
+                    return acc
+            acc = self._acc[label] = _KeyAcc()
+        return acc
+
+    def note_part(self, label: str, push_bytes: int, pull_bytes: int,
+                  queue_s: float = 0.0, rtt_s: float = 0.0,
+                  serve_s: float = 0.0,
+                  wire_bytes: Optional[int] = None) -> None:
+        """One completed partition round trip's timers.
+
+        ``push_bytes``/``pull_bytes`` are LOGICAL tensor bytes — the
+        tininess classification and the tuner must see the key's real
+        size, not its post-codec blob (a 1 MiB key onebit-compressed to
+        32 KiB is a compressed medium key, not a "tiny" one).
+        ``wire_bytes`` is the encoded push payload actually sent (same
+        as push_bytes for raw parts)."""
+        base = self._base(label)
+        with self._lock:
+            acc = self._get_acc(base)
+            acc.pushes += 1
+            acc.push_bytes += int(push_bytes)
+            acc.pull_bytes += int(pull_bytes)
+            acc.wire_bytes += int(push_bytes if wire_bytes is None
+                                  else wire_bytes)
+            if queue_s > 0:
+                acc.queue_s += queue_s
+            if rtt_s > 0:
+                acc.rtt_s += rtt_s
+            if serve_s > 0:
+                acc.serve_s += serve_s
+
+    def note_codec(self, label: str, stage: str, dur_us: float) -> None:
+        """One codec job's latency (stage = "encode" | "decode")."""
+        base = self._base(label)
+        s = max(0.0, float(dur_us)) / 1e6
+        with self._lock:
+            acc = self._get_acc(base)
+            if stage == "encode":
+                acc.encode_s += s
+            else:
+                acc.decode_s += s
+
+    # -- window roll --------------------------------------------------------
+    def _collect_metrics(self) -> dict:
+        """Scalar slice of the registry snapshot — what the doctor rules
+        consume.  Histogram dicts are dropped: counter/gauge series carry
+        every rule input, and scalars keep window summaries JSON-light
+        (they ride postmortem bundles and the /signals route)."""
+        try:
+            from . import telemetry
+            snap = telemetry.get_registry().snapshot()
+            return {k: v for k, v in snap.items()
+                    if isinstance(v, (int, float))}
+        except Exception:
+            get_logger().debug("signal metrics snapshot failed",
+                               exc_info=True)
+            return {}
+
+    def _collect_events(self, lo: float, upto: float) -> Dict[str, int]:
+        """Flight-recorder event-kind counts for (``lo``, ``upto``] —
+        the barrier/stall pattern input.  The upper bound matters: the
+        roll itself can take a while (the CMD_STATS refresh is a wire
+        poll), and an event recorded DURING it must land in exactly one
+        window, the next one."""
+        try:
+            from . import flightrec
+            counts: Dict[str, int] = {}
+            for ev in flightrec.get_recorder().events():
+                if lo < ev.get("mono", 0.0) <= upto:
+                    k = ev.get("kind", "?")
+                    counts[k] = counts.get(k, 0) + 1
+            return counts
+        except Exception:
+            return {}
+
+    def roll(self, now: Optional[float] = None) -> dict:
+        """Close the current window and return its summary."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            # ALL window bookkeeping swaps under the one lock: roll() is
+            # public (tests, bench) and may race the background thread —
+            # each event interval and accumulator batch must belong to
+            # exactly one window.
+            acc, self._acc = self._acc, {}
+            idx = self._window_idx
+            self._window_idx += 1
+            prev_roll = self._last_roll_mono
+            self._last_roll_mono = now
+            ev_lo = self._last_event_mono
+            self._last_event_mono = now
+        dur = max(1e-6, now - prev_roll)
+
+        server = None
+        if self._refresh is not None:
+            try:
+                server = self._refresh()
+            except Exception as e:
+                get_logger().debug("signal window refresh failed: %s", e)
+            if server:
+                # Keep the rows the rules read (per-server ownership +
+                # bytes) and the scalar totals; drop the per-key map and
+                # per-worker tables — a thousand-key model would
+                # otherwise ship its whole CMD_STATS payload in every
+                # retained window, bundle, and /signals response.
+                # EXCEPTION: server-resident-optimizer rows (opt_mode
+                # != 0) survive as a minimal `opt_keys` slice — the
+                # param_version_stall rule needs completed_round vs
+                # param_version per armed key, and armed keys are the
+                # model's few declared tensors, not the key space.
+                opt_keys = {
+                    str(k): {"completed_round":
+                                 int(row.get("completed_round", 0)),
+                             "param_version":
+                                 int(row.get("param_version", 0)),
+                             "opt_mode": int(row.get("opt_mode", 0))}
+                    for k, row in (server.get("keys") or {}).items()
+                    if isinstance(row, dict)
+                    and int(row.get("opt_mode", 0))}
+                server = {k: v for k, v in server.items()
+                          if k not in ("keys", "workers", "members")}
+                if opt_keys:
+                    server["opt_keys"] = opt_keys
+        sections: Dict[str, dict] = {}
+        for name, fn in self._providers.items():
+            try:
+                sections[name] = fn() or {}
+            except Exception:
+                pass
+        metrics = self._collect_metrics()
+        events = self._collect_events(lo=ev_lo, upto=now)
+
+        if self._refresh is not None and server is None:
+            # The per-window CMD_STATS refresh failed (or there is no
+            # session): the registry's server-derived gauges are frozen
+            # pre-outage values — evaluating lag/ownership rules over
+            # them would e.g. name a "persistent straggler" whose real
+            # story is a dead server.  Strip them; the counter/event
+            # rules (stall, audit, pool) still see this window.
+            metrics = {k: v for k, v in metrics.items()
+                       if not k.startswith(STALE_SERVER_GAUGES)}
+
+        health_keys = (sections.get("health") or {}).get("keys") or {}
+        audit_sec = sections.get("audit") or {}
+        audit_events = (int(audit_sec.get("mismatches", 0) or 0)
+                        + int(audit_sec.get("round_skew", 0) or 0))
+        audit_bad_key = None
+        if audit_events > self._audit_seen:
+            last = audit_sec.get("last") or {}
+            bad = last.get("label") or last.get("key")
+            # Verdicts carry PARTITION labels ("tensor.part3");
+            # accumulator keys are base labels — strip or the compare
+            # below can never match and 'unhealthy' never fires.
+            audit_bad_key = self._base(str(bad)) if bad else None
+        self._audit_seen = max(self._audit_seen, audit_events)
+
+        keys: Dict[str, dict] = {}
+        for label, a in acc.items():
+            rec = {
+                "key": label,
+                "pushes": a.pushes,
+                "push_bytes": a.push_bytes,
+                "pull_bytes": a.pull_bytes,
+                "wire_bytes": a.wire_bytes,
+                "wire_mbps": (a.wire_bytes + a.pull_bytes) / 1e6 / dur,
+                "components": {
+                    "queue": a.queue_s, "push_wire": a.rtt_s,
+                    "serve": a.serve_s, "encode": a.encode_s,
+                    "decode": a.decode_s,
+                },
+                "rtt_mean_s": (a.rtt_s / a.pushes) if a.pushes else 0.0,
+            }
+            total = sum(rec["components"].values())
+            rec["shares"] = {k: (v / total if total > 0 else 0.0)
+                             for k, v in rec["components"].items()}
+            h = health_keys.get(label)
+            if h:
+                rec["health"] = {"norm": h.get("norm"),
+                                 "absmax": h.get("absmax"),
+                                 "nonfinite": h.get("nonfinite", 0)}
+            if audit_bad_key == label:
+                rec["audit_bad"] = True
+            rec["class"] = classify(rec)
+            keys[label] = rec
+
+        # Same-instant wall/mono anchor pair: "ts" (wall) and "mono"
+        # are sampled at DIFFERENT instants (mono at roll start, wall
+        # here, with the whole summary build in between), which is fine
+        # for humans but not for cross-worker alignment — the fleet
+        # merge maps one worker's monotonic durations onto another's
+        # wall timeline through this pair, so both clocks must be read
+        # back-to-back (the flightrec bundle "clock" law).
+        anchor_wall, anchor_mono = time.time(), time.monotonic()
+        summary = {
+            "schema": SCHEMA,
+            "window": idx,
+            "ts": anchor_wall,
+            "mono": now,
+            "anchor": {"wall": anchor_wall, "mono": anchor_mono},
+            "dur_s": dur,
+            "keys": keys,
+            "metrics": metrics,
+            "events": events,
+        }
+        if server:
+            summary["server"] = server
+        for name in ("transport", "health", "audit", "device"):
+            if sections.get(name):
+                summary[name] = sections[name]
+        self._history.append(summary)
+        if self._on_window is not None:
+            try:
+                self._on_window(summary)
+            except Exception:
+                get_logger().exception("signal window consumer failed")
+        return summary
+
+    # -- read surfaces ------------------------------------------------------
+    def history(self) -> List[dict]:
+        return list(self._history)
+
+    def key_signals(self) -> dict:
+        """The last closed window's per-key records — the
+        ``bps.get_key_signals()`` payload (and the adaptive-compression
+        tuner's input)."""
+        if not self._history:
+            return {"schema": SCHEMA, "window": -1, "window_s":
+                    self.window_s, "keys": {}}
+        last = self._history[-1]
+        return {"schema": SCHEMA, "window": last["window"],
+                "window_s": self.window_s, "ts": last["ts"],
+                "keys": last["keys"]}
+
+    # -- lifecycle ----------------------------------------------------------
+    def start(self) -> "SignalPlane":
+        if self._thread is None:
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._loop, daemon=True, name="bps-signal-window")
+            self._thread.start()
+        return self
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.window_s):
+            try:
+                self.roll()
+            except Exception:
+                get_logger().exception("signal window roll failed")
+
+    def stop(self, final_roll: bool = True) -> None:
+        self._stop.set()
+        t, self._thread = self._thread, None
+        if t is not None:
+            t.join(timeout=5)
+        if final_roll:
+            try:
+                self.roll()   # short runs still close one window
+            except Exception:
+                pass
+
+
+# ---------------------------------------------------------------------------
+# Module singleton: the hot-path feeds go through these so an unarmed
+# process (BYTEPS_TPU_SIGNAL_WINDOW_S=0, or no init) pays one global
+# read + None check per call site.
+# ---------------------------------------------------------------------------
+_plane: Optional[SignalPlane] = None
+_plane_lock = threading.Lock()
+
+
+def plane() -> Optional[SignalPlane]:
+    return _plane
+
+
+def arm(window_s: float = DEFAULT_WINDOW_S, history: int = DEFAULT_HISTORY,
+        refresh=None, providers=None, on_window=None,
+        start_thread: bool = True) -> SignalPlane:
+    """Install (and optionally start) the process-wide signal plane.
+    Idempotent per process: re-arming replaces the previous plane (after
+    stopping its thread)."""
+    global _plane
+    with _plane_lock:
+        if _plane is not None:
+            _plane.stop(final_roll=False)
+        _plane = SignalPlane(window_s=window_s, history=history,
+                             refresh=refresh, providers=providers,
+                             on_window=on_window)
+        if start_thread:
+            _plane.start()
+        return _plane
+
+
+def disarm(final_roll: bool = False) -> None:
+    global _plane
+    with _plane_lock:
+        if _plane is not None:
+            _plane.stop(final_roll=final_roll)
+            _plane = None
+
+
+def note_part(label: str, push_bytes: int, pull_bytes: int,
+              queue_s: float = 0.0, rtt_s: float = 0.0,
+              serve_s: float = 0.0,
+              wire_bytes: Optional[int] = None) -> None:
+    p = _plane
+    if p is not None:
+        p.note_part(label, push_bytes, pull_bytes, queue_s=queue_s,
+                    rtt_s=rtt_s, serve_s=serve_s, wire_bytes=wire_bytes)
+
+
+def note_codec(label: str, stage: str, dur_us: float) -> None:
+    p = _plane
+    if p is not None:
+        p.note_codec(label, stage, dur_us)

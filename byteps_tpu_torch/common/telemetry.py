@@ -1,0 +1,590 @@
+"""Process-wide metrics plane: registry, exporters, push_pull rate.
+
+Counterpart of ``byteps_tpu/common/telemetry.py``, with the same metric
+names, labels, buckets and text format, so that ``tools/bps_top.py``
+reads the port's endpoint as it reads the JAX package's.  One
+thread-safe registry holds the counters, gauges and histograms of every
+plane (push_pull bytes, step time, the device plane's MFU and step
+timers, the doctor's findings) plus *collectors* that read other
+surfaces at snapshot time, exported two ways:
+
+  - a Prometheus text-format HTTP endpoint (``BYTEPS_TPU_METRICS_PORT``,
+    0 = off), which also serves the JSON routes the signal plane, the
+    doctor and the device plane hand it, and
+  - periodic JSONL snapshots (``BYTEPS_TPU_METRICS_LOG``), rotated at
+    ``BYTEPS_TPU_METRICS_LOG_MB``.
+
+Design constraints, in order:
+
+1. **The counter fast path takes no locks.**  Counters and histograms
+   stripe their state per-thread: each thread mutates only its own cell
+   (a dict entry keyed by thread id), which is race-free under the GIL
+   because no two threads ever write the same key.  Readers sum the
+   cells.  An ``inc()`` is a dict get + int add.
+2. **Snapshots are isolated.**  ``snapshot()`` materialises plain dicts
+   of plain numbers; later increments never mutate a snapshot a caller
+   is holding.
+3. **Accessors cannot drift.**  A surface with its own counters (the
+   fusion planner's ``get_fusion_stats``) stays their source of truth;
+   the registry pulls it through a registered collector at snapshot
+   time, so the endpoint's values equal the accessor's by construction.
+
+The parameter-server feeds of the JAX module (hierarchy, membership,
+ring, server optimizer, replication, fleet, embedding and round-lag
+gauges) come with the port's PS tier.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from bisect import bisect_left
+from collections import deque
+from threading import get_ident
+from typing import Callable, Dict, List, Optional, Tuple
+
+from .logging import get_logger
+
+# ---------------------------------------------------------------------------
+# Metric primitives (thread-striped, lock-free mutation)
+# ---------------------------------------------------------------------------
+
+# Default histogram bounds for latencies in SECONDS: 100µs .. 10s, log-ish.
+LATENCY_BUCKETS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01,
+                   0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
+# Step-time bounds: 1ms .. 1h.  Real steps routinely exceed the wire
+# buckets' 10s cap (the first step includes the kernels' build, large-model
+# steps run minutes); capping there would collapse them all into +Inf
+# and report a flat, false quantile.
+STEP_TIME_BUCKETS = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+                     0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 150.0, 300.0,
+                     600.0, 1800.0, 3600.0)
+
+
+def _num_str(v) -> str:
+    """Exact exposition rendering: ints verbatim (a %g-style format
+    would round a byte counter to 6 significant digits), floats via
+    repr (shortest round-trip form)."""
+    if isinstance(v, int):
+        return str(v)
+    f = float(v)
+    return str(int(f)) if f.is_integer() else repr(f)
+
+
+def _esc_label(v) -> str:
+    """Prometheus exposition label-value escaping: backslash, double
+    quote, and newline must be escaped or a value containing them (a
+    tensor name with a quote, a multi-line error string) silently
+    corrupts every series after it on the scrape."""
+    return (str(v).replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _label_str(labels: Optional[Dict[str, str]]) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{k}="{_esc_label(v)}"'
+                     for k, v in sorted(labels.items()))
+    return "{" + inner + "}"
+
+
+class Counter:
+    """Monotonic counter.  ``inc`` is lock-free: each thread owns one
+    cell keyed by its thread id — only the owner writes it, so there is
+    no write-write race to lock against; ``value()`` sums the cells
+    (``list(dict.values())`` of ints runs at C level without re-entering
+    Python, so it cannot observe a torn dict)."""
+
+    __slots__ = ("name", "help", "labels", "_cells")
+
+    def __init__(self, name: str, help: str = "",
+                 labels: Optional[Dict[str, str]] = None):
+        self.name = name
+        self.help = help
+        self.labels = dict(labels) if labels else None
+        self._cells: Dict[int, int] = {}
+
+    def inc(self, n: int = 1) -> None:
+        cells = self._cells
+        tid = get_ident()
+        cells[tid] = cells.get(tid, 0) + n
+
+    def value(self) -> int:
+        return sum(list(self._cells.values()))
+
+
+class Gauge:
+    """Last-write-wins instantaneous value (a single attribute store —
+    atomic under the GIL).  May also carry a callable source, sampled at
+    snapshot time (for depths the owner already tracks)."""
+
+    __slots__ = ("name", "help", "labels", "_value", "_fn")
+
+    def __init__(self, name: str, help: str = "",
+                 labels: Optional[Dict[str, str]] = None,
+                 fn: Optional[Callable[[], float]] = None):
+        self.name = name
+        self.help = help
+        self.labels = dict(labels) if labels else None
+        self._value = 0.0
+        self._fn = fn
+
+    def set(self, v: float) -> None:
+        self._value = v
+
+    def set_fn(self, fn: Optional[Callable[[], float]]) -> None:
+        self._fn = fn
+
+    def value(self) -> float:
+        if self._fn is not None:
+            try:
+                return float(self._fn())
+            except Exception:
+                return self._value
+        return self._value
+
+
+class Histogram:
+    """Fixed-bucket histogram with Prometheus ``le`` (inclusive upper
+    bound) semantics.  ``observe`` is lock-free via the same per-thread
+    cell striping as Counter: a cell is ``[bucket_0..bucket_n, +Inf,
+    sum, count]`` and only its owning thread mutates it."""
+
+    __slots__ = ("name", "help", "labels", "bounds", "_cells")
+
+    def __init__(self, name: str, bounds: Tuple[float, ...] = LATENCY_BUCKETS,
+                 help: str = "", labels: Optional[Dict[str, str]] = None):
+        self.name = name
+        self.help = help
+        self.labels = dict(labels) if labels else None
+        self.bounds = tuple(sorted(float(b) for b in bounds))
+        self._cells: Dict[int, list] = {}
+
+    def observe(self, v: float) -> None:
+        cells = self._cells
+        tid = get_ident()
+        cell = cells.get(tid)
+        if cell is None:
+            cell = cells[tid] = [0] * (len(self.bounds) + 1) + [0.0, 0]
+        # bisect_left: v lands in the first bucket whose bound >= v,
+        # i.e. Prometheus's inclusive `le` edge (v == bound counts in).
+        cell[bisect_left(self.bounds, v)] += 1
+        cell[-2] += v
+        cell[-1] += 1
+
+    def value(self) -> dict:
+        """{"buckets": [(le, cumulative_count), ...], "sum", "count"}."""
+        nb = len(self.bounds) + 1
+        totals = [0] * nb
+        s, c = 0.0, 0
+        for cell in list(self._cells.values()):
+            snap = list(cell)   # C-level copy: a mid-observe cell is fine
+            for i in range(nb):
+                totals[i] += snap[i]
+            s += snap[-2]
+            c += snap[-1]
+        cum, buckets = 0, []
+        for i, b in enumerate(self.bounds):
+            cum += totals[i]
+            buckets.append((b, cum))
+        buckets.append((float("inf"), cum + totals[-1]))
+        return {"buckets": buckets, "sum": s, "count": c}
+
+
+class MovingRate:
+    """Windowed byte-rate tracker (the core's push_pull speed window, on
+    the registry's clock): events append lock-free (deque.append is atomic in CPython), readers prune
+    and sum under a small reader-side lock."""
+
+    def __init__(self, window_s: float = 10.0):
+        self.window_s = float(window_s)
+        self._events: deque = deque()
+        self._read_lock = threading.Lock()
+
+    def record(self, nbytes: int) -> None:
+        self._events.append((time.monotonic(), nbytes))
+
+    def mbps(self) -> float:
+        now = time.monotonic()
+        cutoff = now - self.window_s
+        with self._read_lock:
+            ev = self._events
+            while ev and ev[0][0] < cutoff:
+                ev.popleft()
+            total = sum(b for _, b in list(ev))
+        return (total / 1e6) / self.window_s
+
+    def reset(self) -> None:
+        with self._read_lock:
+            self._events.clear()
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+class MetricsRegistry:
+    """Process-wide named-metric table + collector hooks.
+
+    Creation (`counter`/`gauge`/`histogram`) takes a lock and is
+    idempotent — callers cache the returned object and mutate it
+    lock-free from then on.  ``snapshot()`` renders everything, plus the
+    output of every registered collector (a callable returning a flat
+    ``{name: number}`` dict, e.g. the legacy ``get_codec_stats``), into
+    isolated plain dicts.
+    """
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._metrics: Dict[str, object] = {}   # full_name -> metric
+        self._collectors: Dict[str, Callable[[], Dict[str, float]]] = {}
+
+    # -- creation ----------------------------------------------------------
+    def _get_or_make(self, cls, name, labels, factory):
+        full = name + _label_str(labels)
+        with self._lock:
+            m = self._metrics.get(full)
+            if m is None:
+                m = self._metrics[full] = factory()
+            elif not isinstance(m, cls):
+                raise TypeError(f"metric {full!r} already registered as "
+                                f"{type(m).__name__}")
+            return m
+
+    def counter(self, name: str, help: str = "",
+                labels: Optional[Dict[str, str]] = None) -> Counter:
+        return self._get_or_make(Counter, name, labels,
+                                 lambda: Counter(name, help, labels))
+
+    def gauge(self, name: str, help: str = "",
+              labels: Optional[Dict[str, str]] = None,
+              fn: Optional[Callable[[], float]] = None) -> Gauge:
+        g = self._get_or_make(Gauge, name, labels,
+                              lambda: Gauge(name, help, labels, fn))
+        if fn is not None:
+            g.set_fn(fn)
+        return g
+
+    def histogram(self, name: str,
+                  bounds: Tuple[float, ...] = LATENCY_BUCKETS,
+                  help: str = "",
+                  labels: Optional[Dict[str, str]] = None) -> Histogram:
+        h = self._get_or_make(Histogram, name, labels,
+                              lambda: Histogram(name, bounds, help, labels))
+        if h.bounds != tuple(sorted(float(b) for b in bounds)):
+            raise ValueError(f"histogram {name!r} already registered with "
+                             f"different buckets")
+        return h
+
+    def unregister(self, name: str,
+                   labels: Optional[Dict[str, str]] = None) -> None:
+        with self._lock:
+            self._metrics.pop(name + _label_str(labels), None)
+
+    # -- collectors --------------------------------------------------------
+    def register_collector(self, name: str,
+                           fn: Callable[[], Dict[str, float]]) -> None:
+        """`fn()` -> flat {metric_suffix: number}; exported as gauges named
+        ``bps_<name>_<suffix>``.  The stats accessors ride this, so the
+        endpoint can never drift from `bps.get_*_stats()`."""
+        with self._lock:
+            self._collectors[name] = fn
+
+    def unregister_collector(self, name: str) -> None:
+        with self._lock:
+            self._collectors.pop(name, None)
+
+    def _collect(self) -> Dict[str, float]:
+        with self._lock:
+            collectors = list(self._collectors.items())
+        out: Dict[str, float] = {}
+        for cname, fn in collectors:
+            try:
+                for k, v in fn().items():
+                    if isinstance(v, (int, float)):
+                        out[f"bps_{cname}_{k}"] = v
+            except Exception:
+                get_logger().exception("telemetry collector %r failed", cname)
+        return out
+
+    # -- export ------------------------------------------------------------
+    def snapshot(self) -> dict:
+        """Isolated plain-dict snapshot of every metric + collector."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        out: dict = {}
+        for m in metrics:
+            key = m.name + _label_str(m.labels)
+            out[key] = m.value()
+        out.update(self._collect())
+        return out
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition format 0.0.4."""
+        with self._lock:
+            metrics = list(self._metrics.values())
+        by_name: Dict[str, list] = {}
+        for m in metrics:
+            by_name.setdefault(m.name, []).append(m)
+        lines: List[str] = []
+        for name in sorted(by_name):
+            group = by_name[name]
+            first = group[0]
+            if first.help:
+                lines.append(f"# HELP {name} {first.help}")
+            kind = ("counter" if isinstance(first, Counter)
+                    else "histogram" if isinstance(first, Histogram)
+                    else "gauge")
+            lines.append(f"# TYPE {name} {kind}")
+            for m in group:
+                ls = _label_str(m.labels)
+                if isinstance(m, Histogram):
+                    v = m.value()
+                    for le, cum in v["buckets"]:
+                        le_s = "+Inf" if le == float("inf") else f"{le:g}"
+                        merged = dict(m.labels or {})
+                        merged["le"] = le_s
+                        lines.append(
+                            f"{name}_bucket{_label_str(merged)} {cum}")
+                    lines.append(f"{name}_sum{ls} {_num_str(v['sum'])}")
+                    lines.append(f"{name}_count{ls} {v['count']}")
+                else:
+                    lines.append(f"{name}{ls} {_num_str(m.value())}")
+        collected = self._collect()
+        for k in sorted(collected):
+            lines.append(f"# TYPE {k} gauge")
+            lines.append(f"{k} {_num_str(collected[k])}")
+        return "\n".join(lines) + "\n"
+
+
+_registry: Optional[MetricsRegistry] = None
+_registry_lock = threading.Lock()
+
+# Push-pull byte-rate window (bps.get_pushpull_speed's backing store).
+_pushpull_rate = MovingRate(window_s=10.0)
+
+
+def get_registry() -> MetricsRegistry:
+    global _registry
+    with _registry_lock:
+        if _registry is None:
+            _registry = MetricsRegistry()
+        return _registry
+
+
+def reset_registry() -> None:
+    """Testing hook: drop every metric and collector (a fresh registry)."""
+    global _registry
+    with _registry_lock:
+        _registry = MetricsRegistry()
+    _pushpull_rate.reset()
+
+
+def record_pushpull(nbytes: int) -> None:
+    """Count one push_pull's logical bytes: feeds BOTH the cumulative
+    ``bps_pushpull_bytes_total`` counter and the 10s moving-average
+    window behind ``bps.get_pushpull_speed()``."""
+    get_registry().counter(
+        "bps_pushpull_bytes_total",
+        help="logical tensor bytes pushed through push_pull").inc(nbytes)
+    _pushpull_rate.record(nbytes)
+
+
+def pushpull_speed_mbps() -> float:
+    return _pushpull_rate.mbps()
+
+
+# ---------------------------------------------------------------------------
+# Exporters: Prometheus HTTP endpoint + JSONL snapshot writer
+# ---------------------------------------------------------------------------
+
+# JSONL snapshot cadence; module-level so tests can shrink it.
+JSONL_INTERVAL_S = 10.0
+
+
+def json_safe(obj):
+    """Strict-JSON sanitation: non-finite floats become strings (a bare
+    ``Infinity`` would make the payload unparseable by the tools that
+    exist to parse it).  The ONE copy of this walk — the JSON routes
+    here and flightrec's postmortem bundles both ride it, so the two
+    surfaces can never diverge on how the same value encodes."""
+    if isinstance(obj, dict):
+        return {str(k): json_safe(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [json_safe(v) for v in obj]
+    if isinstance(obj, float) and (obj != obj or obj in
+                                   (float("inf"), float("-inf"))):
+        return str(obj)
+    return obj
+
+
+class TelemetryExporter:
+    """Background export plane.
+
+    - ``port > 0``: an HTTP thread serves ``GET /metrics`` (Prometheus
+      text format) and the JSON ``routes``; anything else 404s.  Each
+      scrape first runs ``refresh`` when one is given (the PS tier's
+      stats poll, once the port has one).
+    - ``jsonl_path``: a writer thread appends one JSON snapshot line
+      every ``JSONL_INTERVAL_S`` (and once at stop, so short runs still
+      record something).  The file is size-capped: past ``max_log_mb``
+      MiB (``BYTEPS_TPU_METRICS_LOG_MB``, default 64) it rotates to
+      ``<path>.1`` (the previous ``.1`` becoming ``.2``, older dropped)
+      — a week-long job's snapshot log stays bounded at ~3x the cap
+      instead of growing without limit.
+    """
+
+    # Rotated generations kept beyond the live file (<path>.1, <path>.2).
+    KEEP_GENERATIONS = 2
+
+    def __init__(self, registry: MetricsRegistry, port: int = 0,
+                 jsonl_path: str = "",
+                 refresh: Optional[Callable[[], None]] = None,
+                 max_log_mb: int = 64,
+                 routes: Optional[Dict[str, Callable[[], object]]] = None):
+        self.registry = registry
+        self.jsonl_path = jsonl_path
+        self.max_log_mb = max(1, int(max_log_mb))
+        self.refresh = refresh
+        # Extra JSON routes ({"/signals": fn, "/diagnosis": fn}): each
+        # GET renders fn()'s return value as sanitized JSON — the signal
+        # plane and doctor ride the SAME endpoint the Prometheus scrape
+        # uses, so one open port serves all three.
+        self.routes = dict(routes or {})
+        self.port = 0
+        self._want_port = int(port)
+        self._httpd = None
+        self._http_thread: Optional[threading.Thread] = None
+        self._jsonl_stop = threading.Event()
+        self._jsonl_thread: Optional[threading.Thread] = None
+
+    def _do_refresh(self) -> None:
+        if self.refresh is not None:
+            try:
+                self.refresh()
+            except Exception:
+                get_logger().debug("telemetry refresh failed", exc_info=True)
+
+    def start(self) -> "TelemetryExporter":
+        if self._want_port > 0:
+            import http.server
+
+            exporter = self
+
+            class Handler(http.server.BaseHTTPRequestHandler):
+                def do_GET(self):        # noqa: N802 (stdlib API)
+                    path = self.path.split("?")[0]
+                    route = exporter.routes.get(path)
+                    if route is not None:
+                        try:
+                            body = json.dumps(
+                                json_safe(route()), default=str).encode()
+                        except Exception:
+                            get_logger().exception(
+                                "metrics route %s failed", path)
+                            self.send_error(500)
+                            return
+                        self.send_response(200)
+                        self.send_header("Content-Type",
+                                         "application/json")
+                        self.send_header("Content-Length",
+                                         str(len(body)))
+                        self.end_headers()
+                        self.wfile.write(body)
+                        return
+                    if path not in ("/metrics", "/"):
+                        self.send_error(404)
+                        return
+                    exporter._do_refresh()
+                    body = exporter.registry.render_prometheus().encode()
+                    self.send_response(200)
+                    self.send_header(
+                        "Content-Type",
+                        "text/plain; version=0.0.4; charset=utf-8")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+
+                def log_message(self, *a):  # scrapes are not log events
+                    pass
+
+            self._httpd = http.server.ThreadingHTTPServer(
+                ("", self._want_port), Handler)
+            self._httpd.daemon_threads = True
+            self.port = self._httpd.server_address[1]
+            self._http_thread = threading.Thread(
+                target=self._httpd.serve_forever, daemon=True,
+                name="bps-metrics-http")
+            self._http_thread.start()
+            get_logger().info("metrics endpoint on :%d/metrics", self.port)
+        if self.jsonl_path:
+            self._jsonl_thread = threading.Thread(
+                target=self._jsonl_loop, daemon=True,
+                name="bps-metrics-jsonl")
+            self._jsonl_thread.start()
+        return self
+
+    def _maybe_rotate(self) -> None:
+        """Rotate the JSONL once it crosses the size cap.  Checked
+        before each append so a single write can overshoot by at most
+        one snapshot line — and a reader tailing the live path sees a
+        truncate-to-fresh-file, the standard logrotate contract."""
+        import os
+        p = self.jsonl_path
+        try:
+            if os.path.getsize(p) < self.max_log_mb * (1 << 20):
+                return
+        except OSError:
+            return          # no file yet (first write) — nothing to cap
+        try:
+            for gen in range(self.KEEP_GENERATIONS, 1, -1):
+                src = f"{p}.{gen - 1}"
+                if os.path.exists(src):
+                    os.replace(src, f"{p}.{gen}")
+            os.replace(p, f"{p}.1")
+            get_logger().info(
+                "metrics JSONL rotated at %d MiB: %s -> %s.1 "
+                "(keeping %d generations)", self.max_log_mb, p, p,
+                self.KEEP_GENERATIONS)
+        except OSError:
+            get_logger().warning("metrics JSONL rotation failed",
+                                 exc_info=True)
+
+    def write_snapshot(self) -> None:
+        """Append one JSONL snapshot line now (also used by the loop)."""
+        self._do_refresh()
+        self._maybe_rotate()
+        snap = self.registry.snapshot()
+        for v in snap.values():
+            if isinstance(v, dict) and "buckets" in v:
+                # +Inf as a string: json.dumps would emit bare `Infinity`,
+                # which is not valid JSON (strict parsers reject the line).
+                v["buckets"] = [["+Inf" if le == float("inf") else le, c]
+                                for le, c in v["buckets"]]
+        line = json.dumps({"ts": time.time(), "metrics": snap},
+                          default=str)
+        with open(self.jsonl_path, "a") as f:
+            f.write(line + "\n")
+
+    def _jsonl_loop(self) -> None:
+        while not self._jsonl_stop.wait(JSONL_INTERVAL_S):
+            try:
+                self.write_snapshot()
+            except Exception:
+                get_logger().exception("metrics JSONL snapshot failed")
+
+    def stop(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        if self._jsonl_thread is not None:
+            self._jsonl_stop.set()
+            self._jsonl_thread.join(timeout=5)
+            self._jsonl_thread = None
+            try:
+                self.write_snapshot()   # final line: short runs record too
+            except Exception:
+                get_logger().debug("final metrics snapshot failed",
+                                   exc_info=True)

@@ -1,0 +1,291 @@
+"""Critical-path analysis of the merged distributed trace.
+
+Counterpart of ``byteps_tpu/common/trace_analysis.py``, the same code.
+Input: Chrome ``traceEvents`` from the merged ``comm.json`` — worker spans
+(pid = rank; tid = QUEUE/ENCODE/PUSH/PULL/DECODE plus the STEP envelopes),
+device lanes (pid = DEVICE_PID_BASE + rank) and, once the port has a PS
+tier, server spans (pid = SERVER_PID_BASE + server index; tid = RECV/SUM/
+MERGE_WAIT/PUBLISH/PULL_SEND, offset-corrected onto the worker's clock).
+
+For each STEP envelope the analyzer finds the step's communication
+critical path — the partition chain whose pull lands last — and splits the
+step's wall time into attributable components:
+
+  queue        partition sat in the dispatcher's priority queue
+  encode       worker-side wire compression (codec pool / inline)
+  server_recv  push frame sat in the server's engine queue
+  server_sum   server decompress + merge work for our push
+  merge_wait   round held open waiting for the other workers (stragglers)
+  push_wire    push dispatch -> server ack, minus the server residency
+  pull_wire    pull issue -> data, minus our merge wait
+  decode       worker-side decode of a recompressed pull payload
+  other        everything the communication chain does not explain
+               (compute, framework overhead)
+
+The components are defined to PARTITION the step: ``other`` absorbs the
+remainder, and if measured chain components ever exceed the step envelope
+(overlapping rounds inside one step) they are scaled down proportionally —
+so ``sum(breakdown) == step duration`` always holds exactly.
+
+``update_critical_path_gauges`` feeds the per-component means into the
+telemetry registry as ``bps_step_critical_path_seconds{component=…}``
+(plus ``bps_step_straggler_wait_seconds{worker=…}``), so ``tools/bps_top``
+and the Prometheus endpoint surface the breakdown live;
+``tools/trace_analyze.py`` is the offline CLI over the same code.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+# Server lanes start here in the merged file; worker lanes are the ranks.
+SERVER_PID_BASE = 10000
+# Device lanes (common/devprof.py step spans + parsed profiler events) start
+# here — ABOVE the server band, so the lane bands are rank < 10000 <=
+# server < 20000 <= device and `_is_server` must be bounded on both
+# sides (an unbounded `pid >= SERVER_PID_BASE` would walk device spans
+# as server work and corrupt the critical path).
+DEVICE_PID_BASE = 20000
+
+WORKER_STAGES = ("QUEUE", "ENCODE", "PUSH", "PULL", "DECODE")
+SERVER_STAGES = ("RECV", "SUM", "MERGE_WAIT", "PUBLISH", "PULL_SEND")
+COMPONENTS = ("queue", "encode", "server_recv", "server_sum", "merge_wait",
+              "push_wire", "pull_wire", "decode", "other")
+
+
+def _is_server(e: dict) -> bool:
+    pid = e.get("pid")
+    return isinstance(pid, int) and SERVER_PID_BASE <= pid < DEVICE_PID_BASE
+
+
+def _overlaps(e: dict, t0: int, t1: int) -> bool:
+    return e["ts"] < t1 and e["ts"] + e.get("dur", 0) > t0
+
+
+def _tensor_name(span_name: str) -> str:
+    """Strip the ``.part<i>`` suffix: spans aggregate per tensor/bucket."""
+    base, dot, tail = span_name.rpartition(".")
+    if dot and tail.startswith("part") and tail[4:].isdigit():
+        return base
+    return span_name
+
+
+def analyze(events: List[dict], worker: int = 0, top_k: int = 5) -> dict:
+    """Analyze merged trace events; see the module docstring.
+
+    ``worker`` selects whose chain is walked (server MERGE_WAIT/SUM spans
+    are matched on ``args.worker``).  Returns a plain-dict report::
+
+        {"steps": [{"name", "ts_us", "dur_us", "critical", "normalized",
+                    "breakdown_us": {component: us}}],
+         "mean_breakdown_us": {component: us},
+         "top_blocking": [{"name", "total_us", "members"}],
+         "straggler_wait_us": {worker_id: us}}
+    """
+    xs = [e for e in events if e.get("ph") == "X"]
+    # Worker-side spans and STEP envelopes are filtered to the selected
+    # worker's pid: the CLI merges every worker's file, and without the
+    # filter another worker's spans would overwrite this worker's chain
+    # (and every worker's STEP envelopes would each produce a row).
+    # Server spans stay un-filtered — all lanes serve all workers.
+    steps = sorted((e for e in xs
+                    if e.get("tid") == "STEP" and e.get("pid") == worker),
+                   key=lambda e: e["ts"])
+    wspans = [e for e in xs
+              if e.get("pid") == worker and e.get("tid") in WORKER_STAGES
+              and "args" in e]
+    sspans = [e for e in xs if _is_server(e)]
+
+    blocking: Dict[str, dict] = {}
+    step_rows = []
+    for st in steps:
+        t0, t1 = st["ts"], st["ts"] + st.get("dur", 0)
+        in_win = [e for e in wspans if _overlaps(e, t0, t1)]
+        if not in_win:
+            bd = {c: 0 for c in COMPONENTS}
+            bd["other"] = t1 - t0
+            step_rows.append({"name": st.get("name", "step"), "ts_us": t0,
+                              "dur_us": t1 - t0, "critical": None,
+                              "normalized": False, "breakdown_us": bd})
+            continue
+        # Group the window's worker spans by partition key; one stage may
+        # repeat (several rounds of a key per step) — keep the LAST span,
+        # which belongs to the chain that decides the step's tail.
+        by_key: Dict[int, Dict[str, dict]] = {}
+        for e in in_win:
+            k = e["args"].get("key")
+            if k is None:
+                continue
+            by_key.setdefault(k, {})[e["tid"]] = e
+        if not by_key:
+            continue
+
+        def chain_end(stages: Dict[str, dict]) -> int:
+            return max(e["ts"] + e.get("dur", 0) for e in stages.values())
+
+        crit_key = max(by_key, key=lambda k: chain_end(by_key[k]))
+        crit = by_key[crit_key]
+
+        def wdur(stage: str) -> int:
+            e = crit.get(stage)
+            return int(e.get("dur", 0)) if e else 0
+
+        def sdur(stage: str) -> int:
+            # The matching server span: same key, inside the window,
+            # attributed to our worker (MERGE_WAIT/SUM are per-pusher).
+            best = 0
+            for e in sspans:
+                a = e.get("args") or {}
+                if (e.get("tid") == stage and a.get("key") == crit_key
+                        and a.get("worker") == worker
+                        and _overlaps(e, t0, t1)):
+                    best = max(best, int(e.get("dur", 0)))
+            return best
+
+        comp = {
+            "queue": wdur("QUEUE"),
+            "encode": wdur("ENCODE"),
+            "server_recv": sdur("RECV"),
+            "server_sum": sdur("SUM"),
+            "merge_wait": sdur("MERGE_WAIT"),
+            "decode": wdur("DECODE"),
+        }
+        # Wire components: worker-observed round trips minus the server
+        # residency they contain.  PUSH ends at the server's merge ack
+        # (RECV + SUM happen inside it); the straggler wait shows up in
+        # PULL (the pull pends server-side until the round publishes).
+        comp["push_wire"] = max(
+            0, wdur("PUSH") - comp["server_recv"] - comp["server_sum"])
+        comp["pull_wire"] = max(0, wdur("PULL") - comp["merge_wait"])
+        step_dur = t1 - t0
+        total = sum(comp.values())
+        normalized = total > step_dur
+        if normalized and total > 0:
+            # Overlapping rounds inflated the chain past the envelope:
+            # scale so the breakdown still partitions the step exactly.
+            comp = {k: int(v * step_dur / total) for k, v in comp.items()}
+            total = sum(comp.values())
+        comp["other"] = step_dur - total
+        crit_name = next((e.get("name") for s in ("PULL", "PUSH", "QUEUE")
+                          for e in [crit.get(s)] if e), None)
+        step_rows.append({"name": st.get("name", "step"), "ts_us": t0,
+                          "dur_us": step_dur, "critical": crit_name,
+                          "normalized": normalized, "breakdown_us": comp})
+
+        # Blocking totals: how long each tensor's chain occupied the step
+        # tail candidates (chain extent), plus fused-member attribution.
+        for k, stages in by_key.items():
+            ext = (chain_end(stages)
+                   - min(e["ts"] for e in stages.values()))
+            any_span = next(iter(stages.values()))
+            nm = _tensor_name(any_span.get("name", f"key_{k}"))
+            row = blocking.setdefault(nm, {"name": nm, "total_us": 0,
+                                           "members": None})
+            row["total_us"] += int(ext)
+            members = (any_span.get("args") or {}).get("members")
+            if members:
+                row["members"] = list(members)
+
+    # Straggler attribution from MERGE_WAIT: within one (key, round) the
+    # LAST-merging worker (minimum wait) held the round open — every other
+    # worker's wait is attributed to it.
+    waits: Dict[tuple, List[dict]] = {}
+    for e in sspans:
+        if e.get("tid") != "MERGE_WAIT":
+            continue
+        a = e.get("args") or {}
+        waits.setdefault((e.get("pid"), a.get("key"), a.get("round")),
+                         []).append(e)
+    straggler: Dict[int, int] = {}
+    for group in waits.values():
+        if len(group) < 2:
+            continue
+        last = min(group, key=lambda e: e.get("dur", 0))
+        lw = (last.get("args") or {}).get("worker")
+        attributed = sum(int(e.get("dur", 0)) for e in group
+                         if e is not last)
+        straggler[lw] = straggler.get(lw, 0) + attributed
+
+    n = max(1, len(step_rows))
+    mean = {c: sum(r["breakdown_us"][c] for r in step_rows) // n
+            for c in COMPONENTS}
+    top = sorted(blocking.values(), key=lambda r: -r["total_us"])[:top_k]
+    return {"steps": step_rows, "mean_breakdown_us": mean,
+            "top_blocking": top, "straggler_wait_us": straggler}
+
+
+# Worker labels set by the previous update, per registry: the straggler
+# label set varies window to window, and a gauge for a worker that has
+# stopped straggling must drop to 0 rather than keep blaming it with the
+# stale value ("the last analyzed trace window" means exactly that).
+_prev_straggler_workers: "weakref.WeakKeyDictionary" = None  # built lazily
+
+
+def update_critical_path_gauges(result: dict, registry=None) -> None:
+    """Feed an ``analyze()`` result into the telemetry registry:
+    ``bps_step_critical_path_seconds{component=…}`` (per-step mean) and
+    ``bps_step_straggler_wait_seconds{worker=…}`` — live on the
+    Prometheus endpoint and in ``tools/bps_top.py``."""
+    global _prev_straggler_workers
+    import weakref
+    from . import telemetry
+    if _prev_straggler_workers is None:
+        _prev_straggler_workers = weakref.WeakKeyDictionary()
+    reg = registry or telemetry.get_registry()
+    for comp, us in result.get("mean_breakdown_us", {}).items():
+        reg.gauge("bps_step_critical_path_seconds",
+                  help="per-step mean critical-path time by component "
+                       "(from the last analyzed trace window)",
+                  labels={"component": comp}).set(us / 1e6)
+    waits = {str(w): us for w, us in
+             result.get("straggler_wait_us", {}).items()}
+    stale = _prev_straggler_workers.get(reg, set()) - set(waits)
+    for w in stale:
+        waits[w] = 0
+    for w, us in waits.items():
+        reg.gauge("bps_step_straggler_wait_seconds",
+                  help="merge-wait time other workers spent waiting on "
+                       "this worker in the last analyzed trace window",
+                  labels={"worker": w}).set(us / 1e6)
+    _prev_straggler_workers[reg] = set(waits) - stale
+
+
+def _fmt_us(us: float) -> str:
+    if us >= 1e6:
+        return f"{us / 1e6:8.2f}s "
+    if us >= 1e3:
+        return f"{us / 1e3:8.2f}ms"
+    return f"{us:8.0f}us"
+
+
+def format_report(result: dict) -> str:
+    """Human-readable report (what ``tools/trace_analyze.py`` prints)."""
+    lines = ["step critical path (per-step breakdown; sums to step time)"]
+    for r in result.get("steps", []):
+        bd = r["breakdown_us"]
+        lines.append(f"  {r['name']:<12} {_fmt_us(r['dur_us'])} total"
+                     + (f"   critical: {r['critical']}"
+                        if r.get("critical") else "")
+                     + ("   [normalized]" if r.get("normalized") else ""))
+        for c in COMPONENTS:
+            if bd.get(c):
+                pct = 100.0 * bd[c] / max(1, r["dur_us"])
+                lines.append(f"      {c:<12}{_fmt_us(bd[c])}  {pct:5.1f}%")
+    mean = result.get("mean_breakdown_us", {})
+    if mean:
+        lines.append("mean per-step breakdown")
+        for c in COMPONENTS:
+            lines.append(f"      {c:<12}{_fmt_us(mean.get(c, 0))}")
+    top = result.get("top_blocking", [])
+    if top:
+        lines.append("top blocking tensors (chain extent, all steps)")
+        for row in top:
+            lines.append(f"  {_fmt_us(row['total_us'])}  {row['name']}")
+            if row.get("members"):
+                lines.append("      members: " + ", ".join(row["members"]))
+    stragglers = result.get("straggler_wait_us", {})
+    if stragglers:
+        lines.append("straggler attribution (merge-wait caused, by worker)")
+        for w, us in sorted(stragglers.items(), key=lambda kv: -kv[1]):
+            lines.append(f"  worker {w}: {_fmt_us(us)} of peer wait")
+    return "\n".join(lines)

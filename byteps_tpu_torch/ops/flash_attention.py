@@ -42,9 +42,15 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils import flop_counter
+from torch.utils.flop_counter import register_flop_formula
 
 from ..common.device import is_dtensor
 from . import _build
+
+# The dispatch mode a FlopCounterMode pushes (itself in older torch).
+_COUNTER_MODES = (getattr(flop_counter, "_FlopCounterMode",
+                          flop_counter.FlopCounterMode),)
 
 SOURCE = "flash_attention.cu"
 TILE = 64                           # the kernels' q and k tile (rows)
@@ -432,6 +438,76 @@ def _use_streaming(q: torch.Tensor, streaming: Optional[bool]) -> bool:
     return 2 * s * d * q.element_size() > RESIDENT_VMEM_BUDGET
 
 
+def _attend_fwd(q, k, v, causal: bool, scale: float, streaming: bool):
+    fwd = flash_fwd_str if streaming else flash_fwd
+    return fwd(q, k, v, causal, scale)
+
+
+def _attend_bwd(q, k, v, o, lse, do, causal: bool, scale: float,
+                streaming: bool):
+    bwd_dq, bwd_dkv = ((flash_bwd_dq_str, flash_bwd_dkv_str) if streaming
+                       else (flash_bwd_dq, flash_bwd_dkv))
+    dq, delta = bwd_dq(q, k, v, o, lse, do, causal, scale)
+    dk, dv = bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# What a FLOP counter (torch.utils.flop_counter.FlopCounterMode, the device
+# plane's MFU) reads.  The kernels launch through ctypes, outside the
+# dispatcher, so the counter would see none of their work on the card, and
+# on the CPU the plain versions' dense products, masked half included.
+# Under a counter the forward and the backward therefore run as one custom
+# op each, whose FLOP formula counts the visible query-key pairs as the
+# kernels' bound does: 4 FLOPs per pair and head-dim element for the
+# forward, 6 for dQ and 8 for dK/dV, whichever family or version runs.  The
+# counter leaves its mode while an op it counts runs, so the plain versions'
+# products inside are not counted again.  Without a counter the ops are not
+# called: the dispatcher's cost stays off the hot path.
+# ---------------------------------------------------------------------------
+@torch.library.custom_op("byteps_tpu_torch::flash_attn_fwd", mutates_args=())
+def _counted_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, scale: float, streaming: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _attend_fwd(q, k, v, causal, scale, streaming)
+
+
+@torch.library.custom_op("byteps_tpu_torch::flash_attn_bwd", mutates_args=())
+def _counted_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                 causal: bool, scale: float, streaming: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _attend_bwd(q, k, v, o, lse, do, causal, scale, streaming)
+
+
+def _visible_pairs(bh: int, s: int, causal: bool) -> int:
+    """Query-key pairs the softmax keeps: S (S + 1) / 2 a row of B*H
+    under causal masking, S^2 without."""
+    return bh * (s * (s + 1) // 2 if causal else s * s)
+
+
+@register_flop_formula(torch.ops.byteps_tpu_torch.flash_attn_fwd)
+def _fwd_flops(q_shape, k_shape, v_shape, causal, *args, **kwargs) -> int:
+    bh, s, d = q_shape
+    return 4 * _visible_pairs(bh, s, causal) * d
+
+
+@register_flop_formula(torch.ops.byteps_tpu_torch.flash_attn_bwd)
+def _bwd_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape,
+               causal, *args, **kwargs) -> int:
+    bh, s, d = q_shape
+    return (6 + 8) * _visible_pairs(bh, s, causal) * d
+
+
+def _counting() -> bool:
+    """Whether a FLOP counter is active on this thread."""
+    if not torch._C._len_torch_dispatch_stack():
+        return False
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    return any(isinstance(m, _COUNTER_MODES)
+               for m in _get_current_dispatch_mode_stack())
+
+
 class _FlashAttention(torch.autograd.Function):
     """The custom_vjp of the JAX version: forward saves (q, k, v, O, LSE),
     backward runs the dQ kernel (which also yields delta), then dK/dV, of
@@ -440,8 +516,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, streaming):
         q, k, v = (t.contiguous() for t in (q, k, v))
-        fwd = flash_fwd_str if streaming else flash_fwd
-        o, lse = fwd(q, k, v, causal, scale)
+        fwd = _counted_fwd if _counting() else _attend_fwd
+        o, lse = fwd(q, k, v, causal, scale, streaming)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale, ctx.streaming = causal, scale, streaming
         return o
@@ -449,12 +525,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
-        bwd_dq, bwd_dkv = ((flash_bwd_dq_str, flash_bwd_dkv_str)
-                           if ctx.streaming
-                           else (flash_bwd_dq, flash_bwd_dkv))
-        dq, delta = bwd_dq(q, k, v, o, lse, do, ctx.causal, ctx.scale)
-        dk, dv = bwd_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        bwd = _counted_bwd if _counting() else _attend_bwd
+        dq, dk, dv = bwd(q, k, v, o, lse, do.contiguous(), ctx.causal,
+                         ctx.scale, ctx.streaming)
         return dq, dk, dv, None, None, None
 
 

@@ -213,6 +213,24 @@ Phases, each of which must pass:
    rows 1-3, train_compressed's (onebit) rows 7-8; losses finite and
    falling, the benchmark's rates positive, elastic_benchmark's keys 0
    and 1 after resume.
+17. The worker-local observability planes on phase 4's flagship.  17a:
+   BYTEPS_TPU_DEVPROF=1 with BYTEPS_TPU_DEVICE_PLATFORM=gpu, a 0.5 s
+   signal window, the metrics endpoint on a free port and its JSONL log,
+   a two-step trace window and postmortem bundles, all in a temporary
+   directory; at least 6 steps (until two windows have closed and the
+   last carries an MFU), counters set to 0 just before: the device
+   profile says gpu, no fallback, every step run either timed or counted
+   (the first, under the FLOP counter), an MFU in (0, 1), the counted
+   FLOPs within 10% of the model's analytic count (flagship_flops); a
+   scrape of /metrics carries bps_mfu and bps_device_step_ms, /diagnosis
+   has no open device_fallback, comm.json has device-lane events (pid
+   >= 20000), a capture() of one more step names the three flash
+   kernels, 48/24/24 launches every step; then the same steps unarmed
+   from the same seeds: losses and parameters bit-equal; step ms armed
+   and unarmed, the idle share (the capture's device time) and the MFU
+   printed.  17b: BYTEPS_TPU_DEVICE_PLATFORM=tpu, one window roll opens a
+   CRITICAL device_fallback, and a bundle dumped then carries the device
+   and diagnosis sections.
 
 Prints a ``{"kernels": [...]}`` line (each entry also naming the CUDA
 kernels it launches, ``cuda_kernels``), the card's name and power limit, and
@@ -314,6 +332,11 @@ RESNET50_PARAMS = 161
 REMAT_POLICIES = ("none", "proj", "dots", "dots_no_batch")
 REMAT_STEPS = 3
 DRIVER_STEPS = 8
+# Phase 17: a signal window short enough that several close during the
+# armed flagship steps (150-330 ms each), and the step count's range.
+OBS_WINDOW_S = 0.5
+OBS_MIN_STEPS = 6
+OBS_MAX_STEPS = 40
 
 
 def sh(cmd):
@@ -2551,6 +2574,214 @@ def phase_jax_examples(fa, bp, torch, check, gpu):
     return res
 
 
+def flagship_flops(cfg, batch, seq):
+    """The flagship step's FLOPs, from the model: every matrix product
+    forward, again in the recompute of each checkpointed block (torch's
+    early stop leaves out the block's last product, mlp_out, whose output
+    no backward needs), and twice in backward (the input's and the
+    weight's gradient); the attention by its visible pairs (causal),
+    4 · pairs · D forward (twice: forward and recompute), 6 for dQ and 8
+    for dK/dV; the streamed LM head [N, D] x [D, V] forward, in its
+    chunks' recompute and twice in backward."""
+    n = batch * seq
+    d, f, dh = cfg.d_model, cfg.d_ff, cfg.head_dim
+    qkv = 2 * n * d * (cfg.num_heads + 2 * cfg.kv_heads) * dh
+    proj = 2 * n * cfg.num_heads * dh * d
+    up = 2 * n * d * f
+    down = 2 * n * f * d
+    fwd = qkv + proj + up + down
+    matmuls = cfg.num_layers * (fwd + (fwd - down) + 2 * fwd)
+    pairs = batch * cfg.num_heads * seq * (seq + 1) // 2
+    attn = cfg.num_layers * (2 * 4 + 6 + 8) * pairs * dh
+    head = 4 * 2 * n * d * cfg.vocab_size
+    return {"matmuls": matmuls, "attention": attn, "lm_head": head,
+            "total": matmuls + attn + head}
+
+
+@contextlib.contextmanager
+def env_vars(**values):
+    """``os.environ`` with ``values`` set, restored on the way out."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_get(port, route):
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                timeout=10) as r:
+        return r.read().decode()
+
+
+def phase_observability(bps, tfm, fa, torch, check, gpu):
+    """17a: the flagship of phase 4 under every worker-local plane
+    (device plane, signal plane + doctor, metrics endpoint and log, a
+    two-step trace window, postmortem bundles), then the same steps
+    unarmed from the same seeds; 17b: the sentinel's negative control."""
+    import tempfile
+    from byteps_tpu_torch.common import devprof, flightrec, signals
+    from byteps_tpu_torch.common.tree import tree_leaves
+    B, S = FLAGSHIP["batch"], FLAGSHIP["seq"]
+    want = flash_want(48, 24, streaming=False)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        s0 = bps.current_step()
+        with env_vars(BYTEPS_TPU_DEVPROF=1, BYTEPS_TPU_DEVICE_PLATFORM="gpu",
+                      BYTEPS_TPU_SIGNAL_WINDOW_S=OBS_WINDOW_S,
+                      BYTEPS_TPU_METRICS_PORT=port,
+                      BYTEPS_TPU_METRICS_LOG=f"{tmp}/metrics.jsonl",
+                      BYTEPS_TRACE_ON=1, BYTEPS_TRACE_START_STEP=s0 + 2,
+                      BYTEPS_TRACE_END_STEP=s0 + 3,
+                      BYTEPS_TRACE_DIR=f"{tmp}/trace",
+                      BYTEPS_TPU_POSTMORTEM_DIR=f"{tmp}/pm"):
+            cfg, params, batch, opt, step = flagship(tfm, bps, torch)
+            analytic = flagship_flops(cfg, B, S)
+            bps.init()
+            fa.reset_launches()
+            losses, step_ms, per_step = [], [], []
+            windows = []
+            while len(losses) < OBS_MAX_STEPS:
+                before = dict(fa.launches)
+                t0 = time.perf_counter()
+                loss = float(step(params, batch))
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                bps.mark_step()
+                losses.append(loss)
+                per_step.append({n: fa.launches[n] - before[n] for n in want})
+                prof = bps.get_device_profile()
+                last = prof["last_window"] or {}
+                if len(losses) == 1:
+                    first = bps.get_key_signals()["window"]
+                windows = bps.get_key_signals()["window"] - first
+                if len(losses) >= OBS_MIN_STEPS and windows >= 2 \
+                        and last.get("mfu") is not None:
+                    break
+            armed = [p.detach().clone() for p in tree_leaves(params)]
+            n = len(losses)
+            prof = bps.get_device_profile()
+            mfu = prof["mfu"]
+            cache = prof["cost_cache"]
+            counted = cache["flops"][0] if cache["flops"] else None
+            metrics = http_get(port, "/metrics")
+            diag = json.loads(http_get(port, "/diagnosis"))
+            dev_route = json.loads(http_get(port, "/device"))
+            # One more step under torch.profiler, not part of the
+            # comparison below.
+            cap = devprof.active().capture(fn=lambda: step(params, batch))
+            bps.shutdown()
+            flightrec.disarm_postmortem()
+            with open(f"{tmp}/trace/0/comm.json") as f:
+                lanes = [e for e in json.load(f)["traceEvents"]
+                         if e.get("ph") == "X" and e["pid"] >= 20000]
+        steady_armed = statistics.median(step_ms[1:])
+        ratio = counted / analytic["total"] if counted else float("nan")
+        print(f"  armed: {n} steps, losses {losses}; windows closed "
+              f"{windows}; step ms {[round(t, 3) for t in step_ms]}")
+        print(f"  FLOPs a step: counted {counted}, analytic "
+              f"{analytic['total']} (matmuls {analytic['matmuls']}, "
+              f"attention {analytic['attention']}, LM head "
+              f"{analytic['lm_head']}); counted/analytic {ratio:.6f}")
+        check(prof["platform"] == "gpu"
+              and not (prof["probe"] or {}).get("fallback")
+              and prof["steps_total"] + cache["misses"] == n
+              and cache["misses"] == 1 and cache["hits"] == n - 1,
+              f"device profile: platform {prof['platform']} "
+              f"({(prof['probe'] or {}).get('kind')}), fallback "
+              f"{(prof['probe'] or {}).get('fallback')}, {prof['steps_total']}"
+              f" timed steps + {cache['misses']} counted = {n} run")
+        check(mfu is not None and 0.0 < mfu < 1.0,
+              f"MFU {mfu} in (0, 1) on {gpu} (peak {prof['peak_flops']})")
+        check(counted is not None and abs(ratio - 1.0) <= 0.10,
+              f"counted FLOPs within 10% of the analytic count "
+              f"({ratio:.6f})")
+        check("bps_mfu{" in metrics and "bps_device_step_ms{" in metrics
+              and dev_route.get("armed") is True,
+              "/metrics carries bps_mfu and bps_device_step_ms; /device "
+              "serves the profile")
+        check(not any(f["rule"] == "device_fallback"
+                      for f in diag.get("open", [])),
+              f"/diagnosis: no open device_fallback (open: "
+              f"{[f['rule'] for f in diag.get('open', [])]})")
+        check(len(lanes) > 0, f"comm.json: {len(lanes)} device-lane events "
+                              f"(pid >= 20000)")
+        names = [e["name"] for e in cap["events"]]
+        flash = {k: sum(k in nm for nm in names)
+                 for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        check(cap["ok"] and all(flash.values()),
+              f"capture of one step: {len(names)} device events, flash "
+              f"kernels {flash} ({cap['note'] or 'ok'})")
+        check(all(p == want for p in per_step),
+              f"launches per step {per_step[-1]} == {want} in every armed "
+              f"step")
+        busy = sum(e["dur_us"] for e in cap["events"]) / 1e3
+        # The same steps unarmed, from the same seeds.
+        del params, opt, step
+        torch.cuda.empty_cache()
+        cfg, params, batch, opt, step = flagship(tfm, bps, torch)
+        plain = {}
+        _, steady_plain, _ = train(step, params, batch, [fa], torch, check,
+                                   gpu, want, steps=n, losses_out=plain,
+                                   key="losses")
+        same_params = all(torch.equal(a, b)
+                          for a, b in zip(armed, tree_leaves(params)))
+        check(plain["losses"] == losses and same_params,
+              f"armed vs unarmed: losses bit-equal "
+              f"{plain['losses'] == losses}, parameters bit-equal "
+              f"{same_params}")
+        print(f"  step ms armed {steady_armed:.3f} vs unarmed "
+              f"{steady_plain:.3f} ({steady_armed / steady_plain - 1:+.2%});"
+              f" device busy {busy:.3f} ms in the captured step, idle share"
+              f" of the armed step {1 - busy / steady_armed:.4f}")
+        print(f"  MFU {mfu} on {gpu}")
+        res.update(steps=n, armed_ms=steady_armed, unarmed_ms=steady_plain,
+                   busy_ms=busy, idle_share=1 - busy / steady_armed, mfu=mfu,
+                   flops_counted=counted, flops_analytic=analytic["total"],
+                   flops_ratio=ratio, device_lane_events=len(lanes))
+        del params, opt, step, armed
+        torch.cuda.empty_cache()
+
+        print("== phase 17b: the sentinel's negative control")
+        with env_vars(BYTEPS_TPU_DEVPROF=1, BYTEPS_TPU_DEVICE_PLATFORM="tpu",
+                      BYTEPS_TPU_SIGNAL_WINDOW_S=3600,
+                      BYTEPS_TPU_POSTMORTEM_DIR=f"{tmp}/pm2"):
+            bps.init()
+            signals.plane().roll()
+            diag = bps.get_diagnosis()
+            path = flightrec.dump_bundle("negative_control")
+            bps.shutdown()
+            flightrec.disarm_postmortem()
+            with open(path) as f:
+                extra = json.load(f)["extra"]
+        crit = [f for f in diag["open"] if f["rule"] == "device_fallback"
+                and f["severity"] == "critical"]
+        check(len(crit) == 1, f"intended tpu on {gpu}: CRITICAL "
+                              f"device_fallback ({crit[0]['summary'][:90]}"
+                              f"...)" if crit else "no device_fallback")
+        bundle_open = [f["rule"] for f in
+                       (extra.get("diagnosis") or {}).get("open", [])]
+        check(((extra.get("device") or {}).get("probe") or {}).get("fallback")
+              is True and "device_fallback" in bundle_open,
+              f"bundle carries the device section (fallback convicted) and "
+              f"the diagnosis (open {bundle_open})")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2700,6 +2931,10 @@ def main() -> int:
     print("== phase 16b: the native counterparts of example/jax/*")
     yardsticks["jax_examples"] = phase_jax_examples(fa, bp, torch, check,
                                                     gpu)
+    torch.cuda.empty_cache()
+    print("== phase 17a: the observability planes armed on the flagship")
+    yardsticks["observability"] = phase_observability(bps, tfm, fa, torch,
+                                                      check, gpu)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     if check.failures:

@@ -253,8 +253,8 @@ def test_speed_suspend_resume_and_unported_entry_points(both):
     assert bps.declared_key("keep.me") == k
     with pytest.raises(NotImplementedError, match="item 6"):
         bps.push_pull_sparse("emb", None, None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        bps.get_metrics()
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        bps.get_fleet()
     assert bps.get_ps_session() is None
 
 

@@ -71,7 +71,13 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
                 "byteps_tpu_torch.parallel.tensor_parallel",
                 "byteps_tpu_torch.parallel.pipeline",
                 "byteps_tpu_torch.parallel.expert",
-                "byteps_tpu_torch.models.hybrid"):
+                "byteps_tpu_torch.models.hybrid",
+                "byteps_tpu_torch.common.telemetry",
+                "byteps_tpu_torch.common.flightrec",
+                "byteps_tpu_torch.common.trace_analysis",
+                "byteps_tpu_torch.common.devprof",
+                "byteps_tpu_torch.common.signals",
+                "byteps_tpu_torch.common.doctor"):
         assert mod in res["modules"]
 
 
