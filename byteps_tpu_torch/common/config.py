@@ -4,7 +4,9 @@ Counterpart of ``byteps_tpu/common/config.py``: the same variable names and
 defaults, limited to what the port uses so far — the worker bootstrap
 (``DMLC_*``, ``BYTEPS_LOCAL_*``), the global-rank override and the
 forced-distributed switch, the bucket size, the eager fusion threshold,
-the async switch, the trace window, the log level, the debug sampling
+the async switch, the streaming fusion buffer's deadline, the PS
+server's engine threads and schedule switch, the consistent-hash ring,
+the trace window, the log level, the debug sampling
 of eager tensors, the mesh axis sizes (``parallel/mesh.py``) and the
 observability planes' knobs (telemetry, metrics endpoint and log, flight
 recorder, signal window, device plane).
@@ -53,7 +55,17 @@ class Config:
     force_distributed: bool = False          # BYTEPS_FORCE_DISTRIBUTED
     partition_bytes: int = 4 * 1024 * 1024   # BYTEPS_PARTITION_BYTES
     fusion_bytes: int = 1024 * 1024          # BYTEPS_TPU_FUSION_BYTES
+    # Streaming fusion buffer: an open bucket flushes this long after it
+    # opened, full or not (0 = only when full or drained).
+    fusion_flush_ms: float = 5.0             # BYTEPS_TPU_FUSION_FLUSH_MS
     enable_async: bool = False               # BYTEPS_ENABLE_ASYNC
+    # PS server (server/__init__.py serve).
+    server_engine_threads: int = 4           # BYTEPS_SERVER_ENGINE_THREAD
+    server_enable_schedule: bool = False     # BYTEPS_SERVER_ENABLE_SCHEDULE
+    # Consistent-hash ring over the PS servers (common/ring.py); unarmed,
+    # keys are placed by the fixed hash.
+    ring: bool = False                       # BYTEPS_TPU_RING
+    ring_vnodes: int = 64                    # BYTEPS_TPU_RING_VNODES
     trace_on: bool = False                   # BYTEPS_TRACE_ON
     trace_start_step: int = 10               # BYTEPS_TRACE_START_STEP
     trace_end_step: int = 20                 # BYTEPS_TRACE_END_STEP
@@ -97,7 +109,13 @@ class Config:
             partition_bytes=_env_int("BYTEPS_PARTITION_BYTES",
                                      4 * 1024 * 1024),
             fusion_bytes=_env_int("BYTEPS_TPU_FUSION_BYTES", 1024 * 1024),
+            fusion_flush_ms=float(
+                os.environ.get("BYTEPS_TPU_FUSION_FLUSH_MS") or 5.0),
             enable_async=_env_bool("BYTEPS_ENABLE_ASYNC"),
+            server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
+            server_enable_schedule=_env_bool("BYTEPS_SERVER_ENABLE_SCHEDULE"),
+            ring=_env_bool("BYTEPS_TPU_RING"),
+            ring_vnodes=_env_int("BYTEPS_TPU_RING_VNODES", 64),
             trace_on=_env_bool("BYTEPS_TRACE_ON"),
             trace_start_step=_env_int("BYTEPS_TRACE_START_STEP", 10),
             trace_end_step=_env_int("BYTEPS_TRACE_END_STEP", 20),

@@ -1,0 +1,6608 @@
+// Native PS server tier: TCP KV server with engine threads.
+//
+// TPU-parity re-design of the reference server (reference:
+// byteps/server/server.cc, byteps/server/queue.h — see SURVEY §2.3): a
+// KVServer request handler feeding N engine threads through per-thread
+// priority queues, summing pushed gradient partitions across workers and
+// answering pulls from the merged buffer once every worker contributed.
+// The ps-lite/ZMQ transport is replaced by a plain length-prefixed TCP
+// protocol (the TPU data plane is XLA collectives; this tier exists for
+// PS-mode parity: CPU-host-assisted aggregation, async training, elastic
+// scenarios), and CUDA/NUMA specifics are dropped.
+//
+// Request : u8 cmd | u8 dtype | u16 flags | u32 req_id | u32 worker_id
+//           | u64 key | u64 len | payload[len]
+// Response: u8 status | u32 req_id | u64 key | u64 len | payload[len]
+// cmds: 0 HELLO, 1 INIT, 2 PUSH, 3 PULL, 4 BARRIER, 5 SHUTDOWN, 6 PING,
+//       7 LR_SCALE, 8 STATS, 9 TRACE, 10 LEAVE, 11 MEMBERS, 12 RING,
+//       13 RING_SET, 14 DRAIN, 15 MIGRATE, 16 AUDIT
+//
+// req_id is client-chosen and echoed back, so one connection multiplexes
+// many outstanding requests — the redesign of ps-lite's ZPush/ZPull
+// completion callbacks (reference: core_loops.cc:536-616) that lets a
+// worker pipeline per-partition pushes/pulls concurrently.
+//
+// INIT payload: u64 declared_len | u32 kwargs_len | kwargs_utf8.  The
+// kwargs string registers a server-side compressor for the key — the
+// analog of the reference's kCompressedPushPull init push
+// (reference: operations.cc:396-408, server.cc:232-261).  The INIT
+// response returns u64 completed_round so a reconnecting worker (crash
+// restart / elastic rejoin) seeds its round counter from server state
+// instead of 0 and cannot be served a stale previous-round pull.
+//
+// Threading model (mirrors the reference):
+//   - acceptor thread + one reader thread per connection (parse & enqueue)
+//   - kEngineThreads engine threads, each owning a PriorityQueue; a key is
+//     assigned to the engine with the least accumulated bytes (reference:
+//     server.h:149-173), so per-key state is single-threaded
+//   - priority = per-key push count when scheduling is enabled — keys
+//     closest to round completion run first (reference: queue.h:31-105)
+
+#include <arpa/inet.h>
+#if defined(__GLIBC__)
+#include <malloc.h>
+#endif
+#include <netinet/in.h>
+#include <netinet/tcp.h>
+#include <sys/socket.h>
+#include <sys/uio.h>
+#include <sys/un.h>
+#include <unistd.h>
+
+#include <algorithm>
+#include <atomic>
+#include <cerrno>
+#include <chrono>
+#include <cmath>
+#include <cstdio>
+#include <cstdlib>
+#include <condition_variable>
+#include <cstdint>
+#include <cstring>
+#include <deque>
+#include <map>
+#include <mutex>
+#include <queue>
+#include <set>
+#include <string>
+#include <thread>
+#include <unordered_map>
+#include <vector>
+
+namespace bps_server {
+
+enum Cmd : uint8_t {
+  kHello = 0, kInit = 1, kPush = 2, kPull = 3, kBarrier = 4,
+  kShutdown = 5, kPing = 6,
+  kLrScale = 7,  // f32 payload: one-shot rescale of the server-side EF
+                 // error on every key (the reference's lr.s mechanism for
+                 // the server-side VanillaErrorFeedback; rank 0 sends it
+                 // once per LR change)
+  kStats = 8,    // server-side telemetry (CMD_STATS): responds with a JSON
+                 // snapshot of per-key merge counts / completed rounds /
+                 // pending-pull depth, per-worker push counts and round
+                 // position (the straggler-lag signal), and total wire
+                 // bytes in/out.  Handled on the reader thread so stats
+                 // never queue behind a wedged engine; an OLD server that
+                 // predates this command routes it to an engine whose
+                 // default arm responds kError — clients turn that into a
+                 // "server too old" error, never a hang.
+  kTrace = 9,    // server-side span tracer (CMD_TRACE): drains the bounded
+                 // span ring (RECV / MERGE_WAIT / SUM / PUBLISH /
+                 // PULL_SEND per traced key+round) as JSON, plus the
+                 // server's monotonic clock for offset sanity.  Reader
+                 // thread, same rationale and same old-server error path
+                 // as kStats.  Spans are recorded ONLY for frames whose
+                 // header flags carry kFlagTraced — the worker's trace
+                 // window — so an untraced run records (and pays) nothing.
+  kLeave = 10,   // graceful worker departure (CMD_LEAVE): the sender is
+                 // removed from the membership at the next epoch boundary
+                 // and open rounds re-finalize against the survivor set.
+                 // Reader thread (a leave must land even past a wedged
+                 // engine); old servers answer kError via the engine's
+                 // default arm — clients surface "server too old".
+  kMembers = 11, // membership snapshot (CMD_MEMBERS): epoch id, per-worker
+                 // alive flag + last-seen age, and the worker ids arrived
+                 // at each pending barrier generation, as JSON.  Reader
+                 // thread, same old-server error path as kStats.
+  kRing = 12,    // ring-table read (CMD_RING): the epoch-versioned
+                 // consistent-hash server ring — epoch, vnodes, member
+                 // (id, host, port) rows, draining flag, keys_owned — as
+                 // JSON (flags bit0 = binary instead, the joiner's
+                 // C++-side read).  Reader thread; an OLD server answers
+                 // kError via the engine default arm, which clients turn
+                 // into "server too old".
+  kRingSet = 13, // ring-table write (CMD_RING_SET): binary next-epoch
+                 // ring (common/ring.py RingTable.to_wire).  Applied only
+                 // when the proposed epoch is NEWER than the local one
+                 // (idempotent under racing proposers — every worker that
+                 // observed the same server death proposes the same
+                 // transition); the response is the resulting ring JSON
+                 // either way, so a stale proposer converges on the
+                 // authoritative table.  Applying fans a reshard task to
+                 // every engine: keys whose new owner is another live
+                 // server stream their state there (CMD_MIGRATE) and
+                 // retire locally.
+  kDrain = 14,   // graceful scale-down (CMD_DRAIN): CMD_RING_SET whose
+                 // member set excludes THIS server, plus the draining
+                 // mark.  From then on every owned key is migrated to its
+                 // new owner (synchronously, state-before-redirect) and
+                 // the frame that found it answered kMoved — "stop
+                 // accepting new rounds, hand the state over, retire".
+  kMigrate = 15, // server->server state handoff (CMD_MIGRATE): one key's
+                 // full merge state — declared meta, merge store, the
+                 // published `out` buffer, completed_round, seen /
+                 // round_members (the pending open round), EF error —
+                 // installed atomically on the receiving key's engine
+                 // thread.  Sent with worker_id 0xFFFFFFFF so a migration
+                 // can never touch worker leases.
+  kAudit = 16,   // value-domain consistency auditor (CMD_AUDIT): the
+                 // server's last-K (key -> [round, digest, epoch,
+                 // contributors]) publish-digest window as JSON, so any
+                 // worker can cross-check the digests of the rounds it
+                 // pulled against what the server actually published —
+                 // catching divergent sums, double-counts, and
+                 // failover-lost rounds.  Reader thread (audit must
+                 // answer past a wedged engine — a wedge is exactly when
+                 // it is read); recorded only when BYTEPS_TPU_AUDIT=1
+                 // arms the server, and an unarmed server answers
+                 // {"armed":0} so a probing client downgrades cleanly.
+                 // An OLD server routes the unknown command to an engine
+                 // whose default arm answers kError — "server too old".
+  kCodec = 17,   // per-key codec table (CMD_CODEC): epoch-versioned wire
+                 // compressor renegotiation, the adaptive-compression
+                 // tuner's control op.  flags bit0 = SET (payload:
+                 // u32 epoch | u64 effective_round | u32 klen | kwargs;
+                 // "" = raw): applied only when the proposed epoch is
+                 // NEWER than the key's current one — the CMD_RING_SET
+                 // idempotency law, so racing proposers converge — and
+                 // the new codec takes effect at the first round boundary
+                 // with completed_round >= effective_round, so no round
+                 // ever mixes wire formats.  GET (bit0 clear) and SET
+                 // both answer the authoritative codec JSON.  Engine
+                 // thread (the table is per-key engine-owned state, like
+                 // the round it gates).  Old servers answer kError via
+                 // the engine default arm — "server too old".
+  kOpt = 18,     // server-resident optimizer plane (CMD_OPT): per-key
+                 // epoch-versioned optimizer declaration, modeled on the
+                 // CMD_CODEC renegotiation law.  flags bit0 = SET
+                 // (payload: u32 epoch | u64 effective_round | u32 klen |
+                 // kwargs, e.g. "opt=adam,lr=0.001,..."; "" = off):
+                 // applied only when the proposed epoch is NEWER than the
+                 // key's current one (racing proposers converge), taking
+                 // effect at the first round boundary with
+                 // completed_round >= effective_round — no round ever
+                 // mixes update modes (a round publishes EITHER the sum
+                 // OR the post-update parameters, decided atomically at
+                 // its publish).  flags bit1 = PARAM SEED (payload: raw
+                 // f32 initial parameters): applied only while the key
+                 // holds no params — idempotent across racing workers
+                 // shipping the same broadcast weights, and harmless
+                 // after a migration installed state.  GET (no flag bits)
+                 // and both writes answer the authoritative opt JSON doc
+                 // (epoch/pending/param_version/slots_crc...).  Engine
+                 // thread (the table and the slots are per-key
+                 // engine-owned state, exactly like the codec table).
+                 // Old servers answer kError via the engine default arm —
+                 // "server too old".
+  kKnob = 19,    // GLOBAL knob plane (CMD_KNOB): the CMD_CODEC epoch law
+                 // generalized from one key's wire format to the job's
+                 // global performance knobs (fusion_bytes /
+                 // compress_threads / wire_conns).  ONE epoch-versioned
+                 // table per server, not per key.  flags bit0 = SET
+                 // (payload: u32 epoch | u64 effective_round | u32 klen |
+                 // kwargs "k=v,k=v"): applied only when the proposed
+                 // epoch is NEWER than the current one (the CMD_RING_SET
+                 // idempotency law — racing proposers converge), taking
+                 // effect at the first round boundary with
+                 // completed_round >= effective_round, so no round ever
+                 // mixes fusion layouts, pool sizes, or lane sets.
+                 // flags bit1 = ACK (payload: u32 epoch): the sending
+                 // worker reports it has ADOPTED that epoch — the
+                 // per-worker acked map is what the push-path backstop
+                 // checks (kKnobStale below).  GET (no flag bits), SET
+                 // and ACK all answer the authoritative knob JSON doc.
+                 // Reader thread, like kStats: the table is global
+                 // control-plane state, never engine-owned, and a SET
+                 // must land even when an engine is wedged mid-round.
+                 // Old servers answer kError via the engine default arm —
+                 // "server too old".
+  kRepl = 20,    // Chain replication (CMD_REPL): after every publish the
+                 // ring owner streams the key's FULL serialized state —
+                 // the CMD_MIGRATE blob verbatim (published out +
+                 // completed_round + CMD_OPT slots + embed rows), so the
+                 // format stays version-tolerant by construction — to
+                 // its ring successor over the peer transport.  The
+                 // receiver stores the blob only-if-newer (first 8 bytes
+                 // = completed_round, the CMD_RING_SET idempotency law)
+                 // and installs NOTHING until a failover re-homes the
+                 // key onto it (MaybeAdoptReplica).  Reader thread, like
+                 // kStats: a replica must land even when the receiver's
+                 // engines are wedged, and the blob never touches
+                 // engine-owned state while parked.  Unarmed
+                 // (BYTEPS_TPU_REPL=0, the default) the command is
+                 // rejected and no peer byte is ever sent — the wire is
+                 // byte-identical to the pre-replication server.
+  kWindow = 21,  // Fleet window publish (CMD_WINDOW): at each signal-
+                 // window roll an armed worker ships its compact JSON
+                 // window summary (key = window index, payload = the
+                 // summary doc) to its rank-0 server, which parks it in
+                 // a bounded per-worker ring (BYTEPS_TPU_FLEET_WINDOWS,
+                 // default 32).  Reader thread, like kStats/kRepl: the
+                 // ring is control-plane state and a publish must land
+                 // even when every engine is wedged mid-round.  The
+                 // payload is stored verbatim — the server never parses
+                 // worker JSON.  Re-publish of an already-held window
+                 // index replaces in place (idempotent retries).
+                 // Unarmed (BYTEPS_TPU_FLEET=0, the default) the command
+                 // answers kError and an armed client downgrades loudly
+                 // at bootstrap (the kAudit probe law) — the unarmed
+                 // wire is byte-identical to the pre-fleet server.
+  kFleet = 22,   // Fleet view read (CMD_FLEET): answers the merged
+                 // per-worker window rings as one JSON doc
+                 // ({"armed":1,"cap":N,"server_id":S,
+                 //   "workers":{"<wid>":[<summary>,...],...}} — worker
+                 // blobs spliced raw, ordered by window index), so any
+                 // single endpoint answers for the whole job.  Also the
+                 // client's bootstrap probe: unarmed servers answer
+                 // {"armed":0} (kOk — probing must not look like a
+                 // wire error), old servers answer kError via the
+                 // engine default arm, and either response downgrades
+                 // the session's fleet plane before any CMD_WINDOW
+                 // frame is ever sent.
+};
+
+// Request `dtype` marker on PULL frames: the worker asks for the 24-byte
+// audit trailer (AuditTrailer below) appended to the pull payload.  Sent
+// ONLY by an audit-armed client that probed an audit-armed server via
+// CMD_AUDIT at session bootstrap, so the unarmed wire never carries it —
+// byte-identical to the pre-audit protocol.  Deliberately far outside
+// WireDtype's value range (pull frames historically always carry dtype
+// 0, and an unarmed/old server ignores the pull dtype entirely, so a
+// mixed deployment degrades to "no trailer", never to corruption).
+enum : uint8_t { kAuditPullMark = 0xAD };
+
+// Engine-internal task (never on the wire, far above any Cmd value): a
+// membership transition fanned out to every engine so per-key round state
+// — which is engine-owned — is mutated only on its owning thread.  The
+// payload snapshots the transition (see MembershipTransition), so the
+// handler never reads the live membership table.
+enum : uint8_t { kMembershipTask = 200 };
+// Engine-internal ring-reshard task (never on the wire): fanned to every
+// engine when a new ring epoch lands, so each engine migrates the keys IT
+// owns whose new ring owner is another server — per-key state mutates
+// only on its owning thread, exactly like kMembershipTask.
+enum : uint8_t { kRingTask = 201 };
+// Engine-internal replication-ack flush (never on the wire): fanned to a
+// key's engine when its ring successor acks a replica, so the pulls the
+// zero-loss gate parked (ReplBlocked) are served on the thread that owns
+// the key's round state — same single-writer law as the other tasks.
+enum : uint8_t { kReplFlushTask = 202 };
+// kMoved: this server is not (or no longer) the ring owner of the frame's
+// key.  The response payload is the CURRENT ring table as JSON, so the
+// client re-plans and re-routes without an extra round trip.  Emitted
+// only once the ring epoch has advanced past 0 — a fixed-topology job
+// (and any pre-ring client) never sees status 2.
+// kCodecStale: a push's wire format does not match the key's codec-table
+// entry for the round currently merging (the sender missed — or jumped
+// ahead of — a CMD_CODEC renegotiation).  The response payload is the
+// authoritative codec JSON; the client re-encodes the SAME gradient with
+// the right codec and replays, so no round ever mixes wire formats and
+// no contribution is lost.  Emitted only for keys whose codec epoch has
+// advanced past 0 — a job that never renegotiates (and any pre-codec
+// client) never sees status 3.
+// kKnobStale: a sync-round push arrived from a worker that has not acked
+// the CURRENT global knob epoch while the key's round is already at/past
+// the switch's effective round — the sender missed a CMD_KNOB
+// renegotiation and its staged work may ride a stale fusion layout, pool
+// size, or lane set.  The response payload is the authoritative knob
+// JSON; the worker adopts the table, re-applies its half of the switch,
+// ACKs the epoch, and replays (re-planning its fusion buckets when the
+// layout changed), so no round mixes knob configurations and no
+// contribution is lost.  Emitted only once the knob epoch has advanced
+// past 0 — a job that never renegotiates (and any pre-knob client) never
+// sees status 4.
+enum Status : uint8_t { kOk = 0, kError = 1, kMoved = 2, kCodecStale = 3,
+                        kKnobStale = 4 };
+
+// Header `flags` bit 15: this frame is inside the sending worker's trace
+// window.  PUSH/PULL frames carry their round in the LOW 15 BITS always;
+// bit 15 belongs exclusively to the marker — if untraced frames kept the
+// full 16-bit round, a key's round counter reaching 32768 would bleed
+// into the bit and make the server record (and pay for) spans across
+// 32768 consecutive untraced rounds.  A run with tracing off is
+// byte-identical to the pre-trace wire through round 32767 per key.
+// A traced PING additionally asks for the server's clock in the response
+// (the NTP-style offset estimation leg).  The round-aliasing distance
+// drops from 65536 to 32768 stale rounds — equally unreachable by
+// protocol (see HandlePull's invariant comment).
+enum : uint16_t { kFlagTraced = 0x8000, kRoundMask = 0x7FFF };
+
+// True when a frame's u16 round flags refer to `round`.  The ONE
+// comparison for the push stale-round guard, the pull round check, and
+// pending-pull flushes — worker round counters and server
+// completed_round advance in lockstep, so both sides mask identically.
+inline bool RoundMatch(uint16_t flags, uint64_t round) {
+  return (flags & kRoundMask) == (round & kRoundMask);
+}
+enum WireDtype : uint8_t {
+  kF32 = 0,        // summed across workers
+  kRaw = 1,        // last-write-wins bytes
+  kCompressed = 2, // decompress-sum (recompress on pull if bidirectional)
+  kSeed = 3,       // raw write applied ONLY if the key has never been
+                   // pushed — idempotent store seeding that cannot reset a
+                   // live training run when a worker joins late / rejoins
+  kSparseRows = 4, // row-sparse embedding traffic: push carries
+                   // (index stream, dense rows), pull carries an index
+                   // stream and is round-gated exactly like a dense pull
+  kSparseRead = 5, // ungated sparse row read: served immediately from the
+                   // current table (inference / pull-only sessions) —
+                   // never parks, never touches round state
+};
+
+// Row-sparse block header, little-endian, 16 bytes.  Shared by push
+// payloads (header | index stream | nrows*width f32 rows) and pull
+// requests (header | index stream).  codec 0 = raw u32 LE indices,
+// codec 1 = elias-delta over gaps of the sorted unique index list
+// (first code = idx[0]+1, then idx[i]-idx[i-1], every code >= 1).
+// Pull/read responses are `u64 param_version | nrows*width f32 rows`
+// in request order.
+struct SparseHdr {
+  uint32_t nrows;
+  uint32_t width;
+  uint8_t codec;
+  uint8_t pad0;
+  uint16_t pad1;
+  uint32_t idx_bytes;
+};
+static_assert(sizeof(SparseHdr) == 16, "sparse header layout");
+
+// Decode a sparse index stream (see SparseHdr) into `out`.  Returns
+// false on any malformed stream: truncated bytes, zero elias gaps, or
+// an index walking past the u32 range.  Codec 1 yields sorted unique
+// indices by construction (gaps >= 1); codec 0 preserves wire order.
+// The bit-loop decoder is fine here — index streams are a few KB next
+// to the row payload they describe, unlike the dithering codec's
+// full-gradient elias streams.
+static bool DecodeSparseIndices(const unsigned char* p, size_t nbytes,
+                                uint32_t nrows, uint8_t codec,
+                                std::vector<uint32_t>* out) {
+  out->clear();
+  out->reserve(nrows);
+  if (codec == 0) {
+    if (nbytes < static_cast<size_t>(nrows) * 4) return false;
+    for (uint32_t i = 0; i < nrows; ++i) {
+      uint32_t v;
+      std::memcpy(&v, p + static_cast<size_t>(i) * 4, 4);
+      out->push_back(v);
+    }
+    return true;
+  }
+  if (codec != 1) return false;
+  size_t nbits = nbytes * 8, pos = 0;
+  auto take = [&]() -> int {
+    int b = (p[pos >> 3] >> (pos & 7)) & 1;
+    ++pos;
+    return b;
+  };
+  // Elias-delta, bit-matched to server/wire.py: bits LSB-first within
+  // bytes, each code MSB-first (LL-1 zeros | L in LL bits | low L-1
+  // bits of v).
+  auto elias = [&](uint64_t* v) -> bool {
+    int zeros = 0;
+    bool one = false;
+    while (pos < nbits) {
+      if (take() == 1) { one = true; break; }
+      ++zeros;
+    }
+    if (!one || zeros > 6) return false;
+    if (zeros == 0) { *v = 1; return true; }
+    if (pos + static_cast<size_t>(zeros) > nbits) return false;
+    uint64_t L = 1;
+    for (int i = 0; i < zeros; ++i) L = (L << 1) | take();
+    if (L < 1 || L > 40 || pos + (L - 1) > nbits) return false;
+    uint64_t x = 1;
+    for (uint64_t i = 1; i < L; ++i) x = (x << 1) | take();
+    *v = x;
+    return true;
+  };
+  uint64_t idx = 0;
+  for (uint32_t i = 0; i < nrows; ++i) {
+    uint64_t gap = 0;
+    if (!elias(&gap) || gap == 0) return false;
+    idx = (i == 0) ? gap - 1 : idx + gap;
+    if (idx > 0xFFFFFFFFULL) return false;
+    out->push_back(static_cast<uint32_t>(idx));
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// Compressed-payload codec — the server side of the reference's
+// decompress-sum-recompress engine (reference: server/server.cc:86-207,
+// compressor/impl/*).  Wire layout (little-endian), chosen to match the
+// worker-side numpy/JAX compressors bit-for-bit:
+//   u8 comp_id | u32 n_elems | body
+//   onebit(1):    f32 scale | u8 bits[ceil(n/8)]        (LSB-first, 1 = neg)
+//   topk(2):      u32 k | i32 idx[k] | f32 val[k]
+//   randomk(3):   u32 k | i32 idx[k] | f32 val[k]
+//   dithering(4): u8 flags(bit0=natural, bit1=elias) | u8 s | f32 norm |...
+//     dense (bit1=0): level bitstream [ceil(n*b/8)] | u8 signs[ceil(n/8)]
+//                 (b = ceil(log2(s+1)); levels packed LSB-first at b bits —
+//                 fixed-width so decode stays a flat loop)
+//     elias (bit1=1): u32 nbits | stream — per NONZERO level,
+//                 EliasDelta(index gap, prev=-1) | sign bit |
+//                 EliasDelta(level); bits LSB-first within bytes, each
+//                 code MSB-first (the reference's sparse entropy coding,
+//                 compressor/impl/dithering.cc:51-120; bit-matched to
+//                 server/wire.py _emit_bitstream)
+// ---------------------------------------------------------------------------
+namespace codec {
+
+enum CompId : uint8_t {
+  kNone = 0, kOnebit = 1, kTopk = 2, kRandomk = 3, kDithering = 4,
+  // EQuARX-flavored blockwise integer quantization (arXiv 2506.17615):
+  //   qblock(5): u8 bits(4|8) | u16 block | f32 scale[nblocks] | ints
+  // Per `block` elements one f32 scale = absmax/qmax, then each element
+  // quantizes to round-half-even(x/scale) in [-qmax, qmax] (qmax =
+  // 2^(bits-1)-1); bits=4 packs two two's-complement nibbles per byte,
+  // low nibble first.  Dense layout, flat decode loop, deterministic
+  // (no PRNG) — the aggressive end of the adaptive-compression dial,
+  // with EF supported on both the worker leg and the server recompress
+  // leg under the same law as onebit.
+  kQblock = 5
+};
+
+struct Reader {
+  const char* p;
+  size_t left;
+  bool Take(void* dst, size_t n) {
+    if (n > left) return false;
+    std::memcpy(dst, p, n);
+    p += n;
+    left -= n;
+    return true;
+  }
+};
+
+// Byte bit-reversal table, shared by the elias encoder (reversed-chunk
+// appends) and decoder (MSB-first group reads from the LSB-first window).
+const unsigned char kRev8[256] = {
+#define R2(x) (x), (x) + 128, (x) + 64, (x) + 192
+#define R4(x) R2(x), R2((x) + 32), R2((x) + 16), R2((x) + 48)
+#define R6(x) R4(x), R4((x) + 8), R4((x) + 4), R4((x) + 12)
+    R6(0), R6(2), R6(1), R6(3)
+#undef R6
+#undef R4
+#undef R2
+};
+
+inline uint64_t RevBits(uint64_t v, int k) {
+  // Reverse the low k bits of v (k <= 64): byte-table chunks.
+  uint64_t r = 0;
+  for (int sh = 0; sh < k; sh += 8)
+    r = (r << 8) | kRev8[(v >> sh) & 0xFF];
+  return r >> ((8 - (k & 7)) & 7);
+}
+
+// Decode a full wire blob into `dst` (caller-provided, n f32 slots;
+// zeroed here).  Returns false on a malformed payload (bad sizes /
+// out-of-range indices) or when the blob's element count differs from
+// `n`.  Shared by the server engine (via Decompress below) and the
+// worker-side ctypes binding bps_wire_decode — one decoder, one set of
+// hostile-input checks.
+inline bool DecompressTo(const char* data, size_t size, float* dst,
+                         uint32_t n, bool zero_dst = true) {
+  Reader r{data, size};
+  uint8_t comp = 0;
+  uint32_t wn = 0;
+  if (!r.Take(&comp, 1) || !r.Take(&wn, 4)) return false;
+  if (wn != n) return false;
+  // Sparse formats (topk/randomk/elias) only scatter into dst, so it
+  // must start zeroed — but the server path hands in a buffer its
+  // vector::assign already zero-filled; zero_dst=false skips the
+  // second full-buffer pass there (4MB per partition per round).
+  if (zero_dst) std::memset(dst, 0, static_cast<size_t>(n) * 4);
+  switch (comp) {
+    case kOnebit: {
+      float scale = 0;
+      if (!r.Take(&scale, 4)) return false;
+      size_t nbytes = (n + 7) / 8;
+      if (r.left < nbytes) return false;
+      const unsigned char* bits =
+          reinterpret_cast<const unsigned char*>(r.p);
+      // Scale-folded byte LUT: one 32-byte copy per input byte instead
+      // of 8 shift-and-select ops per element.  The 8KB table build is
+      // 2048 stores, so the fast path engages at n >= 2048 (one store
+      // per element amortized); below that, the direct loop.
+      if (n >= 2048) {
+        float lut[256][8];
+        for (unsigned v = 0; v < 256; ++v)
+          for (int t = 0; t < 8; ++t)
+            lut[v][t] = (v >> t) & 1 ? -scale : scale;
+        uint32_t nfull = n / 8;
+        for (uint32_t byte = 0; byte < nfull; ++byte)
+          std::memcpy(dst + static_cast<size_t>(byte) * 8,
+                      lut[bits[byte]], 32);
+        for (uint32_t i = nfull * 8; i < n; ++i)
+          dst[i] = (bits[i >> 3] >> (i & 7)) & 1 ? -scale : scale;
+        return true;
+      }
+      for (uint32_t i = 0; i < n; ++i)
+        dst[i] = (bits[i >> 3] >> (i & 7)) & 1 ? -scale : scale;
+      return true;
+    }
+    case kTopk:
+    case kRandomk: {
+      uint32_t k = 0;
+      if (!r.Take(&k, 4)) return false;
+      if (r.left < static_cast<size_t>(k) * 8) return false;
+      // The payload starts at an odd header offset; memcpy keeps the
+      // 4-byte loads aligned (UB otherwise, same pattern as Reader::Take).
+      std::vector<int32_t> idx(k);
+      std::vector<float> val(k);
+      std::memcpy(idx.data(), r.p, static_cast<size_t>(k) * 4);
+      std::memcpy(val.data(), r.p + static_cast<size_t>(k) * 4,
+                  static_cast<size_t>(k) * 4);
+      for (uint32_t i = 0; i < k; ++i) {
+        if (idx[i] < 0 || static_cast<uint32_t>(idx[i]) >= n) return false;
+        dst[idx[i]] += val[i];  // scatter-add (randomk may collide)
+      }
+      return true;
+    }
+    case kDithering: {
+      uint8_t flags = 0, s = 0;
+      float norm = 0;
+      if (!r.Take(&flags, 1) || !r.Take(&s, 1) || !r.Take(&norm, 4))
+        return false;
+      if (s == 0) return false;
+      bool natural_p = (flags & 1) != 0;
+      if (flags & 2) {
+        // Sparse elias stream (see layout comment above).
+        uint32_t nbits = 0;
+        if (!r.Take(&nbits, 4)) return false;
+        size_t nbytes = (static_cast<size_t>(nbits) + 7) / 8;
+        if (r.left < nbytes) return false;
+        const unsigned char* stream =
+            reinterpret_cast<const unsigned char*>(r.p);
+        size_t pos = 0;
+        // Windowed reads: bits buffer in a register word refilled a byte
+        // at a time (a per-bit memory load costs ~3 ns/bit; this is the
+        // difference between a 0.06 and a 0.4 GB/s elias decoder).  The
+        // refill never reads past `nbytes`, so a truncated payload still
+        // fails cleanly via the pos/nbits bound checks.
+        uint64_t window = 0;
+        int wbits = 0;
+        size_t bytepos = 0;
+        auto refill = [&]() {
+          while (wbits <= 56 && bytepos < nbytes) {
+            window |= static_cast<uint64_t>(stream[bytepos++]) << wbits;
+            wbits += 8;
+          }
+        };
+        auto take = [&]() -> int {
+          if (wbits == 0) {
+            refill();
+            if (wbits == 0) { ++pos; return 0; }  // past end; bounds
+          }                                        // checks reject later
+          int b = static_cast<int>(window & 1);
+          window >>= 1;
+          --wbits;
+          ++pos;
+          return b;
+        };
+        // MSB-first k-bit group read from the LSB-first stream window:
+        // the next k stream bits, assembled high-to-low (what take_int
+        // did bit-by-bit), is the bit-reversal of the window's low k
+        // (RevBits — the same table the encoder appends through).
+        auto rev = [](uint64_t v, int k) -> uint64_t {
+          return RevBits(v, k);
+        };
+        auto elias = [&](uint64_t* out) -> bool {
+          if (pos >= nbits) return false;
+          refill();
+          // Fast path: whole code resolved from the register window via
+          // count-trailing-zeros (the prefix) + one reversed group read.
+          // Valid streams from our encoders always land here (gap < 2^32
+          // => L <= 32 => code <= 42 bits); anything longer or truncated
+          // falls through to the bit-loop below, which preserves the
+          // original malformed-stream semantics exactly.
+          if (window != 0 && wbits >= 48) {
+            int zeros = __builtin_ctzll(window);
+            if (zeros <= 6 && pos + zeros < nbits) {
+              if (zeros == 0) {
+                window >>= 1; --wbits; ++pos;
+                *out = 1;
+                return true;
+              }
+              uint64_t L = (1ULL << zeros)
+                  | rev((window >> (zeros + 1))
+                            & ((1ULL << zeros) - 1), zeros);
+              if (L <= 33 && pos + 2 * zeros + 1 + (L - 1) <= nbits
+                  && static_cast<uint64_t>(wbits)
+                         >= 2 * static_cast<uint64_t>(zeros) + L) {
+                int used = 2 * zeros + 1;
+                uint64_t low = rev((window >> used)
+                                       & ((1ULL << (L - 1)) - 1),
+                                   static_cast<int>(L) - 1);
+                used += static_cast<int>(L) - 1;
+                window >>= used;
+                wbits -= used;
+                pos += static_cast<size_t>(used);
+                *out = (1ULL << (L - 1)) | low;
+                return true;
+              }
+            }
+          }
+          int zeros = 0;
+          bool saw_one = false;
+          while (pos < nbits) {
+            if (take() == 1) { saw_one = true; break; }
+            ++zeros;
+          }
+          if (!saw_one) return false;   // stream ended inside the prefix
+          if (zeros == 0) { *out = 1; return true; }
+          // Valid streams have zeros = LL-1 <= 5 (L <= 63 => LL <= 6); a
+          // longer prefix is malformed, and letting it through would wrap
+          // the 64-bit L reconstruction below past the L<=63 check.
+          if (zeros > 6) return false;
+          if (pos + zeros > nbits) return false;
+          uint64_t L = 1;
+          for (int i = 0; i < zeros; ++i) L = (L << 1) | take();
+          if (L < 1 || L > 63 || pos + (L - 1) > nbits) return false;
+          uint64_t v = 1;
+          for (uint64_t i = 1; i < L; ++i) v = (v << 1) | take();
+          *out = v;
+          return true;
+        };
+        int64_t idx = -1;
+        while (pos < nbits) {
+          uint64_t gap = 0, lvl = 0;
+          if (!elias(&gap)) return false;
+          idx += static_cast<int64_t>(gap);
+          if (idx < 0 || idx >= static_cast<int64_t>(n)) return false;
+          if (pos >= nbits) return false;
+          int sgn = take();
+          if (!elias(&lvl) || lvl > s) return false;
+          float mag;
+          if (natural_p)
+            mag = std::pow(2.0f, static_cast<float>(static_cast<int>(lvl)
+                                                    - static_cast<int>(s)));
+          else
+            mag = static_cast<float>(lvl) / static_cast<float>(s);
+          dst[idx] = (sgn ? -1.0f : 1.0f) * mag * norm;
+        }
+        return true;
+      }
+      // Levels ride an LSB-first bitstream at b = ceil(log2(s+1)) bits per
+      // element (bit-matched to server/wire.py _pack_levels).
+      int b = 0;
+      for (unsigned v = s; v; v >>= 1) ++b;
+      size_t lvlbytes = (static_cast<size_t>(n) * b + 7) / 8;
+      size_t signbytes = (n + 7) / 8;
+      if (r.left < lvlbytes + signbytes) return false;
+      const unsigned char* stream =
+          reinterpret_cast<const unsigned char*>(r.p);
+      const unsigned char* signs = stream + lvlbytes;
+      bool natural = (flags & 1) != 0;
+      // Dequantized magnitude per level, hoisted out of the loop
+      // (s <= 255); the level read is a single windowed 16-bit load
+      // (b <= 8 so a level spans at most 2 bytes) instead of b
+      // bit-extracts.
+      float magtab[256];
+      for (unsigned j = 0; j < 256; ++j)   // all 2^b patterns (b <= 8):
+        magtab[j] = natural                // out-of-range levels in a
+            ? (j == 0 ? 0.0f               // corrupt payload dequantize
+                      : std::pow(2.0f, static_cast<float>(  // the same way
+                            static_cast<int>(j) - static_cast<int>(s))))
+            : static_cast<float>(j) / static_cast<float>(s);
+      const unsigned mask = (1u << b) - 1u;
+      for (uint32_t i = 0; i < n; ++i) {
+        size_t pos = static_cast<size_t>(i) * b;
+        size_t byte = pos >> 3;
+        unsigned w = stream[byte];
+        if (byte + 1 < lvlbytes + signbytes)  // signs follow contiguously
+          w |= static_cast<unsigned>(stream[byte + 1]) << 8;
+        unsigned j = (w >> (pos & 7)) & mask;
+        int bit = (signs[i >> 3] >> (i & 7)) & 1;
+        dst[i] = (bit ? -1.0f : 1.0f) * magtab[j] * norm;
+      }
+      return true;
+    }
+    case kQblock: {
+      uint8_t bits = 0;
+      uint16_t block = 0;
+      if (!r.Take(&bits, 1) || !r.Take(&block, 2)) return false;
+      if ((bits != 4 && bits != 8) || block == 0) return false;
+      uint64_t nblocks = (static_cast<uint64_t>(n) + block - 1) / block;
+      size_t qbytes = bits == 8 ? n : (static_cast<size_t>(n) + 1) / 2;
+      if (r.left < nblocks * 4 + qbytes) return false;
+      const char* scales = r.p;
+      const unsigned char* q =
+          reinterpret_cast<const unsigned char*>(r.p) + nblocks * 4;
+      for (uint64_t b = 0; b < nblocks; ++b) {
+        float scale = 0;
+        std::memcpy(&scale, scales + b * 4, 4);
+        uint32_t lo = static_cast<uint32_t>(b * block);
+        uint32_t hi = lo + block < n ? lo + block : n;
+        if (bits == 8) {
+          const signed char* qq = reinterpret_cast<const signed char*>(q);
+          for (uint32_t i = lo; i < hi; ++i)
+            dst[i] = static_cast<float>(qq[i]) * scale;
+        } else {
+          for (uint32_t i = lo; i < hi; ++i) {
+            int v = (i & 1) ? (q[i >> 1] >> 4) : (q[i >> 1] & 0xF);
+            v = (v ^ 8) - 8;   // sign-extend the two's-complement nibble
+            dst[i] = static_cast<float>(v) * scale;
+          }
+        }
+      }
+      return true;
+    }
+    default:
+      return false;
+  }
+}
+
+// Server-engine entry: validates the CLAIMED decompressed size before
+// the buffer is allocated — n comes off the wire, so a crafted 5-byte
+// payload could otherwise demand a 16 GB allocation (bad_alloc in the
+// engine thread), the same hostile-frame class as the reader's length
+// cap.
+inline bool Decompress(const std::vector<char>& payload,
+                       std::vector<char>* out,
+                       size_t max_out = (1ULL << 30)) {
+  if (payload.size() < 5) return false;
+  uint32_t n = 0;
+  std::memcpy(&n, payload.data() + 1, 4);
+  if (static_cast<size_t>(n) * 4 > max_out) return false;
+  out->assign(static_cast<size_t>(n) * 4, 0);
+  return DecompressTo(payload.data(), payload.size(),
+                      reinterpret_cast<float*>(out->data()), n,
+                      /*zero_dst=*/false);
+}
+
+// Sign bits of x[n] into bits[(n+7)/8], LSB-first, 1 = negative.  The
+// ONE packing loop for both the server recompress leg and the worker's
+// ctypes pack — branchless byte-register accumulation (a conditional
+// store on ~random gradient signs mispredicts half the time, ~5 ns/elem).
+// The tail ORs, so the final partial byte must arrive zeroed.
+inline void PackSigns(const float* x, size_t n, unsigned char* bits) {
+  size_t nfull = n / 8;
+  for (size_t byte = 0; byte < nfull; ++byte) {
+    const float* xi = x + byte * 8;
+    unsigned b = 0;
+    for (int t = 0; t < 8; ++t)
+      b |= static_cast<unsigned>(xi[t] < 0.0f) << t;
+    bits[byte] = static_cast<unsigned char>(b);
+  }
+  for (size_t i = nfull * 8; i < n; ++i)
+    bits[i >> 3] |= static_cast<unsigned char>(
+        static_cast<unsigned>(x[i] < 0.0f) << (i & 7));
+}
+
+// Re-compress the merged f32 buffer with onebit — the bidirectional pull
+// leg (reference: impl/onebit.cc:34-66; server re-compresses merged grads).
+inline void CompressOnebit(const std::vector<char>& store, bool scaled,
+                           std::vector<char>* out) {
+  size_t n = store.size() / 4;
+  const float* x = reinterpret_cast<const float*>(store.data());
+  size_t nbytes = (n + 7) / 8;
+  out->assign(1 + 4 + 4 + nbytes, 0);
+  char* p = out->data();
+  p[0] = static_cast<char>(kOnebit);
+  uint32_t n32 = static_cast<uint32_t>(n);
+  std::memcpy(p + 1, &n32, 4);
+  float scale = 1.0f;
+  if (scaled && n > 0) {
+    double acc = 0;
+    for (size_t i = 0; i < n; ++i) acc += std::fabs(x[i]);
+    scale = static_cast<float>(acc / static_cast<double>(n));
+  }
+  std::memcpy(p + 5, &scale, 4);
+  PackSigns(x, n, reinterpret_cast<unsigned char*>(p + 9));
+}
+
+// Blockwise integer quantization encode (kQblock) — shared by the
+// worker's ctypes export (bps_wire_encode_qblock) and the server's
+// bidirectional recompress leg (CompressQblock), so both sides emit
+// bit-identical payloads.  Per-element float ops match the numpy
+// reference in server/wire.py exactly (true f32 division by the scale —
+// NOT multiply-by-inverse, whose ULP drift would flip round-half-even
+// boundaries — then rintf, both round-half-to-even like np.rint), so a
+// C-encoded blob is indistinguishable from a numpy-encoded one.  When
+// `recon` is non-null the dequantized reconstruction is written there
+// (the EF leg).  Returns bytes written, -1 on bad args / short cap.
+inline int64_t EncodeQblock(const float* x, uint32_t n, int bits,
+                            uint32_t block, float* recon,
+                            unsigned char* out, uint64_t cap) {
+  if ((bits != 4 && bits != 8) || block == 0 || block > 0xFFFF) return -1;
+  const uint64_t nblocks = (static_cast<uint64_t>(n) + block - 1) / block;
+  const size_t qbytes = bits == 8 ? n : (static_cast<size_t>(n) + 1) / 2;
+  const size_t need = 8 + static_cast<size_t>(nblocks) * 4 + qbytes;
+  if (cap < need) return -1;
+  out[0] = static_cast<unsigned char>(kQblock);
+  std::memcpy(out + 1, &n, 4);
+  out[5] = static_cast<unsigned char>(bits);
+  uint16_t blk16 = static_cast<uint16_t>(block);
+  std::memcpy(out + 6, &blk16, 2);
+  unsigned char* sp = out + 8;
+  unsigned char* qp = out + 8 + nblocks * 4;
+  const int qmax = (1 << (bits - 1)) - 1;
+  if (bits == 4) std::memset(qp, 0, qbytes);   // nibble ORs need zeros
+  for (uint64_t b = 0; b < nblocks; ++b) {
+    const uint32_t lo = static_cast<uint32_t>(b * block);
+    const uint32_t hi = lo + block < n ? lo + block : n;
+    float amax = 0.0f;
+    for (uint32_t i = lo; i < hi; ++i) {
+      float a = std::fabs(x[i]);
+      if (a > amax) amax = a;
+    }
+    const float scale = amax > 0.0f
+        ? amax / static_cast<float>(qmax) : 0.0f;
+    std::memcpy(sp + b * 4, &scale, 4);
+    for (uint32_t i = lo; i < hi; ++i) {
+      int qi = 0;
+      if (scale > 0.0f) {
+        qi = static_cast<int>(std::lrintf(x[i] / scale));
+        if (qi > qmax) qi = qmax;
+        if (qi < -qmax) qi = -qmax;
+      }
+      if (bits == 8)
+        reinterpret_cast<signed char*>(qp)[i] =
+            static_cast<signed char>(qi);
+      else
+        qp[i >> 1] |= static_cast<unsigned char>(
+            (qi & 0xF) << ((i & 1) * 4));
+      if (recon) recon[i] = static_cast<float>(qi) * scale;
+    }
+  }
+  return static_cast<int64_t>(need);
+}
+
+// Re-compress the merged f32 buffer with qblock — the bidirectional pull
+// leg for a key whose codec table selected the quantized-block format.
+// When `ef_err` is non-null, vanilla EF runs under the same law as the
+// onebit leg: the caller already folded last round's error into `store`;
+// here the requantization error store[i] - recon[i] is written back.
+inline void CompressQblock(const std::vector<char>& store, int bits,
+                           uint32_t block, std::vector<char>* out,
+                           std::vector<float>* ef_err) {
+  const size_t n = store.size() / 4;
+  const float* x = reinterpret_cast<const float*>(store.data());
+  const uint64_t nblocks =
+      block ? (static_cast<uint64_t>(n) + block - 1) / block : 0;
+  const size_t qbytes = bits == 8 ? n : (n + 1) / 2;
+  out->assign(8 + static_cast<size_t>(nblocks) * 4 + qbytes, 0);
+  if (ef_err) ef_err->resize(n);
+  EncodeQblock(x, static_cast<uint32_t>(n), bits, block,
+               ef_err ? ef_err->data() : nullptr,
+               reinterpret_cast<unsigned char*>(out->data()),
+               out->size());
+  if (ef_err) {
+    float* e = ef_err->data();
+    for (size_t i = 0; i < n; ++i) e[i] = x[i] - e[i];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Worker-side dithering encoder (ctypes: bps_wire_encode_dithering).
+// Bit-exact with the numpy reference in server/wire.py — same float32
+// quantization arithmetic, same xorshift32 lane PRNG, same dense/elias
+// bit layouts — so a C-encoded blob is indistinguishable from a
+// numpy-encoded one (asserted by tests/test_ps_compression.py).  The
+// numpy encode path is ~0.02 GB/s (dense) / ~0.002 GB/s (elias) per
+// core; this loop is the reason the compressed wire stops being
+// numpy-bound (round-4 review weak #4).
+// ---------------------------------------------------------------------------
+
+struct BitWriter {
+  // Register-accumulated LSB-first-per-byte bit stream: bits collect in
+  // `acc` and flush 8 bytes at a time (a per-bit RMW into memory costs
+  // ~3 ns/bit in store-forwarding stalls — the difference between a
+  // 0.03 and a 0.3 GB/s elias encoder).  The buffer needs 8 bytes of
+  // slack past the final byte for the word flush.
+  unsigned char* buf;
+  uint64_t acc = 0;
+  int nacc = 0;      // bits pending in acc (< 64)
+  size_t nbytes = 0; // bytes flushed so far
+  size_t pos = 0;    // total bits appended
+  void Flush() {
+    std::memcpy(buf + nbytes, &acc, 8);    // little-endian == LSB-first
+    nbytes += 8;
+    acc = 0;
+    nacc = 0;
+  }
+  void Put(int bit) {
+    acc |= static_cast<uint64_t>(bit) << nacc;
+    ++pos;
+    if (++nacc == 64) Flush();
+  }
+  // Emit `len` bits of `code`, MSB-of-code-first (matches
+  // wire.py _emit_bitstream).  Appending MSB-first into an LSB-first
+  // stream == appending the bit-reversed code as one chunk — ~8 table
+  // ops per code instead of `len` shift/or round trips.
+  void PutCode(uint64_t code, int len) {
+    if (len == 0) return;
+    uint64_t rev = RevBits(code, len);
+    pos += static_cast<size_t>(len);
+    acc |= rev << nacc;
+    int spill = nacc + len - 64;
+    if (spill >= 0) {
+      int taken = len - spill;
+      nacc = 64;
+      Flush();
+      if (spill > 0)
+        acc = (taken >= 64) ? 0 : rev >> taken;
+      nacc = spill;
+    } else {
+      nacc += len;
+    }
+  }
+  void Finish() {   // flush the partial word (zero-padded final byte)
+    int left = nacc;
+    while (left > 0) {
+      buf[nbytes++] = static_cast<unsigned char>(acc & 0xFF);
+      acc >>= 8;
+      left -= 8;
+    }
+    nacc = 0;
+  }
+};
+
+inline int BitLen(uint64_t v) {
+  int l = 0;
+  while (v) { ++l; v >>= 1; }
+  return l;
+}
+
+inline void PutElias(BitWriter* w, uint64_t v) {
+  // Elias-delta: LL-1 zeros, L in LL bits (MSB first), v's low L-1 bits.
+  int L = BitLen(v);
+  int LL = BitLen(static_cast<uint64_t>(L));
+  int len = 2 * LL + L - 2;
+  uint64_t low_mask = (L > 1) ? ((1ULL << (L - 1)) - 1) : 0;
+  uint64_t code = (static_cast<uint64_t>(L) << (L - 1)) | (v & low_mask);
+  w->PutCode(code, len);
+}
+
+// Encode f32 x[n] as a dithering wire blob into out[cap].  `rng` is the
+// n-lane xorshift32 state (updated in place, same update as wire.py
+// _xorshift32); `recon`, when non-null, receives the dequantized
+// reconstruction (the worker-side EF term).  `norm` is computed by the
+// caller (numpy's pairwise float32 sum is the parity reference for l2).
+// Returns bytes written, or -1 when cap is too small / s invalid.
+inline int64_t EncodeDithering(const float* x, uint32_t n, uint32_t s,
+                               int natural, int elias, float norm,
+                               uint32_t* rng, float* recon,
+                               unsigned char* out, uint64_t cap) {
+  if (s == 0 || s > 255) return -1;
+  // Quantization levels, float32-identical to wire.py _levels().
+  float levels[257];
+  if (natural) {
+    levels[0] = 0.0f;
+    for (uint32_t i = 0; i < s; ++i)
+      levels[i + 1] = std::pow(2.0f, static_cast<float>(
+          static_cast<int>(i) - static_cast<int>(s) + 1));
+  } else {
+    for (uint32_t i = 0; i <= s; ++i)
+      levels[i] = static_cast<float>(i) / static_cast<float>(s);
+  }
+  const float fnorm = norm;
+  const uint64_t head = 1 + 4 + 1 + 1 + 4;  // comp|n|flags|s|norm
+  const int b = BitLen(s);
+  uint64_t need_dense = head + (static_cast<uint64_t>(n) * b + 7) / 8
+      + (n + 7) / 8;
+  // Dense writes RMW into zeroed bytes; elias flushes whole words (and
+  // needs 8 bytes of slack past the stream for the word flush).
+  if (elias) {
+    if (cap < head + 4 + 16) return -1;
+    std::memset(out, 0, head + 4);
+  } else {
+    if (cap < need_dense) return -1;
+    std::memset(out, 0, need_dense);
+  }
+  out[0] = static_cast<unsigned char>(kDithering);
+  std::memcpy(out + 1, &n, 4);
+  out[5] = static_cast<unsigned char>((natural ? 1 : 0) | (elias ? 2 : 0));
+  out[6] = static_cast<unsigned char>(s);
+  std::memcpy(out + 7, &fnorm, 4);
+
+  const uint64_t lvlbytes = (static_cast<uint64_t>(n) * b + 7) / 8;
+  unsigned char* signbytes = out + head + lvlbytes;
+  BitWriter ew{out + head + 4};          // elias: stream after u32 nbits
+  int64_t prev = -1;
+  const int si = static_cast<int>(s);
+  for (uint32_t i = 0; i < n; ++i) {
+    float mag = std::fabs(x[i]) / fnorm;
+    // j = searchsorted(levels, mag, right) - 1, clipped to [0, s-1].
+    int j;
+    if (!natural) {
+      // Linear levels are i/s: start from floor(mag*s) and fix up the
+      // float-rounding edge (at most one step each way) — ~5x faster
+      // than the binary search and bit-identical to it.
+      if (!(mag == mag)) {
+        j = si - 1;               // NaN sorts past every level in numpy
+      } else if (mag >= 1.0f) {
+        j = si - 1;               // levels[s] = 1.0 <= mag, then clipped
+      } else {
+        j = static_cast<int>(mag * static_cast<float>(si));
+        if (j > si - 1) j = si - 1;
+        while (j < si - 1 && levels[j + 1] <= mag) ++j;
+        while (j > 0 && levels[j] > mag) --j;
+      }
+    } else if (!(mag == mag)) {
+      j = si - 1;   // NaN sorts past every level in numpy searchsorted
+    } else {
+      uint32_t lo_i = 0, hi_i = s + 1;
+      while (lo_i < hi_i) {               // first idx with levels[idx] > mag
+        uint32_t mid = (lo_i + hi_i) / 2;
+        if (levels[mid] <= mag) lo_i = mid + 1; else hi_i = mid;
+      }
+      j = static_cast<int>(lo_i) - 1;
+      if (j < 0) j = 0;
+      if (j > si - 1) j = si - 1;
+    }
+    float lo = levels[j], hi = levels[j + 1];
+    float denom = hi - lo;
+    if (denom < 1e-30f) denom = 1e-30f;
+    float p_up = (hi > lo) ? (mag - lo) / denom : 0.0f;
+    uint32_t r = rng[i];
+    r ^= r << 13; r ^= r >> 17; r ^= r << 5;
+    rng[i] = r;
+    float u = static_cast<float>(r >> 8) / static_cast<float>(1 << 24);
+    uint32_t level = static_cast<uint32_t>(j) + (u < p_up ? 1u : 0u);
+    int sign = x[i] < 0.0f ? 1 : 0;
+    if (recon) {
+      float m2;
+      if (natural)
+        m2 = level == 0 ? 0.0f
+             : std::pow(2.0f, static_cast<float>(
+                   static_cast<int>(level) - static_cast<int>(s)));
+      else
+        m2 = static_cast<float>(level) / static_cast<float>(s);
+      recon[i] = ((1.0f - 2.0f * static_cast<float>(sign)) * m2) * fnorm;
+    }
+    if (elias) {
+      if (level != 0) {
+        // Worst case per nonzero ~67 bits; stop before overrunning cap
+        // (the 8-byte slack for the word flush included).
+        if (head + 4 + ew.nbytes + 32 > cap) return -1;
+        uint64_t gap = static_cast<uint64_t>(
+            static_cast<int64_t>(i) - prev);
+        prev = static_cast<int64_t>(i);
+        PutElias(&ew, gap);
+        ew.Put(sign);
+        PutElias(&ew, level);
+      }
+    } else {
+      // levels ride LSB-first within the stream: bit t of the level at
+      // stream position i*b + t (matches _pack_levels).  b <= 8, so a
+      // level spans at most one byte boundary: one windowed RMW.
+      uint64_t pos = static_cast<uint64_t>(i) * b;
+      unsigned w = level << (pos & 7);
+      out[head + (pos >> 3)] |= static_cast<unsigned char>(w & 0xFF);
+      if (w >> 8)
+        out[head + (pos >> 3) + 1] |= static_cast<unsigned char>(w >> 8);
+      if (sign)
+        signbytes[i >> 3] |= static_cast<unsigned char>(1u << (i & 7));
+    }
+  }
+  if (elias) {
+    ew.Finish();
+    uint32_t nbits = static_cast<uint32_t>(ew.pos);
+    std::memcpy(out + head, &nbits, 4);
+    return static_cast<int64_t>(head + 4 + (nbits + 7) / 8);
+  }
+  return static_cast<int64_t>(need_dense);
+}
+
+}  // namespace codec
+
+// ---------------------------------------------------------------------------
+// Server-side span tracer (CMD_TRACE) — the server half of the distributed
+// timeline (worker half: core.cc g_tracer; reference: the per-stage server
+// profiling the reference exposes via BYTEPS_SERVER_DEBUG, made structured).
+// Engine threads record spans for traced frames only (header kFlagTraced,
+// i.e. inside the worker's BYTEPS_TRACE_START/END_STEP window) into a
+// bounded ring; the reader thread drains it as JSON on CMD_TRACE.  All
+// timestamps are this host's steady_clock µs — the worker aligns them onto
+// its own clock via CMD_PING offset estimation (client.py
+// estimate_clock_offset), so cross-host spans land on one timeline.
+// ---------------------------------------------------------------------------
+inline int64_t NowUs() {
+  return std::chrono::duration_cast<std::chrono::microseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+
+// ---------------------------------------------------------------------------
+// Consistent-hash ring — the server half of the ONE placement law shared
+// with the workers (common/ring.py; parity asserted by
+// tests/test_server_elastic.py through bps_ring_owner).  A key is owned
+// by the server whose first virtual-node point is at-or-after the key's
+// point on a 64-bit ring (wrapping).  Removing a server moves only ITS
+// keys; adding one moves ~1/N of the keys, all TO the joiner — which is
+// what makes state handoff a one-directional stream.
+// ---------------------------------------------------------------------------
+namespace ring {
+
+inline uint64_t Mix64(uint64_t x) {
+  // splitmix64 — bit-identical to common/ring.py splitmix64().
+  x += 0x9E3779B97F4A7C15ULL;
+  x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9ULL;
+  x = (x ^ (x >> 27)) * 0x94D049BB133111EBULL;
+  return x ^ (x >> 31);
+}
+
+inline uint64_t VnodePoint(uint32_t id, uint32_t v) {
+  return Mix64(((static_cast<uint64_t>(id) + 1) << 32) | v);
+}
+
+inline uint64_t KeyPoint(uint64_t key) { return Mix64(key); }
+
+// Owner of `key` among sorted (point, id) rows: first point >= the key's
+// point, wrapping to the smallest.
+inline uint32_t Owner(uint64_t key,
+                      const std::vector<std::pair<uint64_t, uint32_t>>&
+                          points) {
+  uint64_t kp = KeyPoint(key);
+  auto it = std::lower_bound(points.begin(), points.end(),
+                             std::make_pair(kp, uint32_t{0}));
+  if (it == points.end()) it = points.begin();
+  return it->second;
+}
+
+}  // namespace ring
+
+// ---------------------------------------------------------------------------
+// Value-domain consistency auditor (BYTEPS_TPU_AUDIT=1) — the cheap
+// order-independent digest of a published round's bytes.  Per 4 KiB chunk
+// a standard CRC-32 (the zlib polynomial, so the worker side can use
+// Python's C-accelerated zlib.crc32), summed mod 2^32 across chunks:
+// chunkwise so it can be computed incrementally/in parallel and so a
+// worker can digest a streamed receive without buffering, sum-combined per
+// the ISSUE's order-independent shape.  Detects single-bit wire/memory
+// corruption, a divergent published sum, and (via the round id carried
+// next to it) failover-lost rounds.  Bit-identical to the worker's
+// client.py audit_digest — parity asserted through bps_audit_digest.
+// ---------------------------------------------------------------------------
+namespace audit {
+
+// Slice-by-8 tables: a byte-at-a-time CRC runs ~0.3 GB/s, which would
+// put ~10 ms of digest on every 4 MB publish — measurably widening the
+// round.  Eight derived tables let the loop fold 8 bytes per iteration
+// (~2-3 GB/s), keeping the armed publish cost near a single memory
+// pass.  Built inside a function-local static's constructor: C++11
+// magic statics make the one-time build race-free when several engine
+// threads publish their first armed round concurrently (a DIY
+// flag-guarded build would be a TSAN-visible data race even though the
+// values are idempotent).
+struct Crc32TableSet {
+  uint32_t t[8][256];
+  Crc32TableSet() {
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k)
+        c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : (c >> 1);
+      t[0][i] = c;
+    }
+    for (int d = 1; d < 8; ++d)
+      for (uint32_t i = 0; i < 256; ++i)
+        t[d][i] = (t[d - 1][i] >> 8) ^ t[0][t[d - 1][i] & 0xFF];
+  }
+};
+
+inline const uint32_t (*Crc32Tables())[256] {
+  static const Crc32TableSet tables;
+  return tables.t;
+}
+
+inline uint32_t Crc32(const char* p, size_t n) {
+  const uint32_t (*t)[256] = Crc32Tables();
+  const unsigned char* u = reinterpret_cast<const unsigned char*>(p);
+  uint32_t c = 0xFFFFFFFFu;
+  // 8-byte folds assume little-endian lane order (every deployment
+  // target); the tail loop is the bitwise-identical reference.
+  while (n >= 8) {
+    uint32_t lo, hi;
+    std::memcpy(&lo, u, 4);
+    std::memcpy(&hi, u + 4, 4);
+    lo ^= c;
+    c = t[7][lo & 0xFF] ^ t[6][(lo >> 8) & 0xFF]
+        ^ t[5][(lo >> 16) & 0xFF] ^ t[4][lo >> 24]
+        ^ t[3][hi & 0xFF] ^ t[2][(hi >> 8) & 0xFF]
+        ^ t[1][(hi >> 16) & 0xFF] ^ t[0][hi >> 24];
+    u += 8;
+    n -= 8;
+  }
+  while (n--) c = t[0][(c ^ *u++) & 0xFF] ^ (c >> 8);
+  return c ^ 0xFFFFFFFFu;
+}
+
+// 64 KiB chunks: still fine-grained enough to localize a corruption to
+// a chunk when debugging by hand, while keeping the worker's Python
+// fallback (one zlib.crc32 call per chunk) at full C speed — 4 KiB
+// chunks cost a Python-level loop iteration per 4 KiB, halving it.
+enum : size_t { kChunk = 65536 };
+
+inline uint32_t Digest(const char* p, size_t n) {
+  uint32_t sum = 0;
+  for (size_t off = 0; off < n; off += kChunk)
+    sum += Crc32(p + off, n - off < kChunk ? n - off : kChunk);
+  return sum;
+}
+
+}  // namespace audit
+
+struct TraceSpan {
+  const char* stage = "";  // static strings only ("RECV", "SUM", ...)
+  uint64_t key = 0;
+  uint64_t round = 0;
+  uint32_t worker = 0;
+  int64_t ts_us = 0;
+  int64_t dur_us = 0;
+  uint64_t bytes = 0;
+};
+
+class ServerTracer {
+ public:
+  ServerTracer() {
+    // Ring capacity (spans): BYTEPS_SERVER_TRACE_EVENTS, strict-parsed
+    // like BYTEPS_SERVER_MAX_MSG_BYTES.  65536 spans ≈ 5 MB of JSON and
+    // thousands of traced rounds between fetches; overflow drops the
+    // OLDEST spans and reports the count so the client can warn.
+    const char* cap = std::getenv("BYTEPS_SERVER_TRACE_EVENTS");
+    if (cap && cap[0]) {
+      char* end = nullptr;
+      uint64_t v = std::strtoull(cap, &end, 10);
+      if (end && *end == '\0' && v > 0) cap_ = static_cast<size_t>(v);
+    }
+    ring_.resize(cap_);
+  }
+
+  void Record(const char* stage, uint64_t key, uint64_t round,
+              uint32_t worker, int64_t ts_us, int64_t dur_us,
+              uint64_t bytes) {
+    std::lock_guard<std::mutex> lk(mu_);
+    ring_[head_] = TraceSpan{stage, key, round, worker, ts_us, dur_us,
+                             bytes};
+    head_ = (head_ + 1) % cap_;
+    if (count_ < cap_) ++count_;
+    else ++dropped_;
+  }
+
+  // Fetch-and-clear: each span is returned to exactly one fetcher (in a
+  // multi-worker run the fetching workers partition the stream — the
+  // offline analyzer merges files, tools/trace_analyze.py).  The ring is
+  // SWAPPED out under the mutex (O(1) + one pre-built allocation) and
+  // serialized outside it: formatting up to 65536 spans takes
+  // milliseconds, and holding mu_ for that would stall every engine
+  // thread's Record() mid-merge — an observability fetch must never
+  // inject a cross-engine pause into live rounds.
+  std::string DrainJson() {
+    std::vector<TraceSpan> taken(cap_);   // allocated outside the lock
+    size_t head, count;
+    uint64_t dropped;
+    {
+      std::lock_guard<std::mutex> lk(mu_);
+      std::swap(ring_, taken);
+      head = head_;
+      count = count_;
+      dropped = dropped_;
+      head_ = count_ = 0;
+      dropped_ = 0;
+    }
+    std::string js;
+    js.reserve(96 + count * 112);
+    char buf[224];
+    std::snprintf(buf, sizeof(buf),
+                  "{\"now_us\":%lld,\"dropped\":%llu,\"spans\":[",
+                  static_cast<long long>(NowUs()),
+                  static_cast<unsigned long long>(dropped));
+    js += buf;
+    size_t start = (head + cap_ - count) % cap_;
+    for (size_t i = 0; i < count; ++i) {
+      const TraceSpan& s = taken[(start + i) % cap_];
+      std::snprintf(buf, sizeof(buf),
+                    "%s{\"st\":\"%s\",\"k\":%llu,\"r\":%llu,\"w\":%u,"
+                    "\"ts\":%lld,\"d\":%lld,\"b\":%llu}",
+                    i ? "," : "", s.stage,
+                    static_cast<unsigned long long>(s.key),
+                    static_cast<unsigned long long>(s.round), s.worker,
+                    static_cast<long long>(s.ts_us),
+                    static_cast<long long>(s.dur_us),
+                    static_cast<unsigned long long>(s.bytes));
+      js += buf;
+    }
+    js += "]}";
+    return js;
+  }
+
+ private:
+  std::mutex mu_;
+  std::vector<TraceSpan> ring_;
+  size_t cap_ = 65536;
+  size_t head_ = 0, count_ = 0;
+  uint64_t dropped_ = 0;
+};
+
+#pragma pack(push, 1)
+struct ReqHeader {
+  uint8_t cmd;
+  uint8_t dtype;   // 0 = f32 (summed); 1 = raw bytes (last-write-wins);
+                   // 2 = compressed (decompress-sum, recompress on pull)
+  uint16_t flags;
+  uint32_t req_id;
+  uint32_t worker_id;
+  uint64_t key;
+  uint64_t len;
+};
+struct RespHeader {
+  uint8_t status;
+  uint32_t req_id;
+  uint64_t key;
+  uint64_t len;
+};
+// 24-byte audit trailer appended to the payload of an audited pull
+// response (request dtype == kAuditPullMark on an audit-armed server):
+// the digest the server recorded when it PUBLISHED the buffer it is now
+// serving, plus the round id, the membership epoch at publish, and the
+// contributor count.  n == 0 means "no digest recorded" (pre-first
+// publish, or state that migrated in without its audit history) — the
+// client skips verification for that pull instead of flagging it.
+struct AuditTrailer {
+  uint32_t digest;
+  uint64_t round;
+  uint64_t epoch;
+  uint32_t n;
+};
+#pragma pack(pop)
+
+struct Conn {
+  int fd = -1;
+  std::mutex write_mu;
+  // Outstanding holders that may still Respond on this fd after the
+  // reader exits: queued engine tasks, deferred pulls, barrier waiters.
+  // Each holder AddRef/ReleaseRef's; once the reader has exited AND the
+  // count drains to zero the fd is closed (advisor r4: a one-way
+  // `referenced` bool meant one valid engine-bound frame pinned the fd
+  // until server shutdown, so the connect-and-send-one-frame fd
+  // exhaustion was still reachable).
+  std::atomic<int> refs{0};
+  std::atomic<bool> reader_done{false};
+  // Per-connection receive-buffer freelist: payload buffers cycle
+  // reader -> engine -> back here instead of a fresh (value-initialized!)
+  // vector per frame — `std::vector<char> payload(h.len)` was a hidden
+  // 4MB memset per partition per round on top of the malloc churn.
+  // Bounded small: steady-state one worker conn has ~engine-queue-depth
+  // buffers in flight.
+  std::mutex pool_mu;
+  std::vector<std::vector<char>> bufpool;
+};
+
+struct PendingPull {
+  Conn* conn;
+  uint32_t req_id = 0;
+  uint64_t key;
+  uint16_t want_round = 0;  // raw round flags the worker sent (traced
+                            // frames carry kFlagTraced + round mod 2^15,
+                            // untraced the round mod 2^16 — RoundMatch)
+  uint32_t worker = 0;      // for the PULL_SEND trace span
+  bool traced = false;      // record a span when the pull finally serves
+  bool audited = false;     // append the AuditTrailer when it serves
+  bool ungated = false;     // a kSparseRead parked ONLY by the
+                            // replication gate (ReplBlocked): it ignores
+                            // the round match and serves as soon as the
+                            // successor's ack lands
+  // Row-sparse pulls (dtype kSparseRows) park their request payload
+  // (SparseHdr + index stream) here; empty for dense pulls.  Served by
+  // FlushPulls via RespondSparse when the wanted round publishes.
+  std::vector<char> sparse;
+};
+
+// Per-key merge state — the reference's BytePSArray + update buffers
+// (reference: server.h "UpdateBuf", server.cc:48-84).
+struct KeyState {
+  std::vector<char> store;     // in-progress merge buffer (f32 elements)
+  std::vector<char> out;       // last completed round (served to pulls) —
+                               // the reference's store_/update_buf split
+                               // (reference: server.cc:48-84) that keeps a
+                               // straggler's round-r pull valid while
+                               // round r+1 is already merging
+  std::set<uint32_t> seen;     // worker ids seen this round (dedup,
+                               // reference: server.cc:150-177 seen_sender)
+  // The OPEN round's contributor set under elastic membership.  EMPTY in
+  // a fixed-membership run (epoch 0): round completion then falls back to
+  // the historical seen.size() >= num_workers_ count, so a job that never
+  // resizes behaves (and talks) exactly as before.  Once the epoch has
+  // ever advanced, every round's first push snapshots the live worker set
+  // here, and the round publishes only when ALL of them have contributed
+  // — membership changes land between rounds, never inside one.  A
+  // transition's fan-out task pins still-open epoch-0 rounds to the
+  // pre-transition set and erases departed workers (the re-finalize leg).
+  std::set<uint32_t> round_members;
+  uint64_t completed_round = 0;
+  uint8_t dtype = 0;
+  std::string kwargs;          // compressor registration (INIT payload)
+  bool bidirectional = false;  // recompress merged buffer on the pull leg
+  bool onebit_scaled = true;
+  bool round_compressed = false;  // any push this round arrived compressed
+  bool server_ef = false;      // vanilla error feedback on the recompress
+                               // leg — carried across rounds (reference:
+                               // the server registry layers EF too,
+                               // skipping only momentum,
+                               // compressor_registry.cc:39-56)
+  std::vector<float> ef_err;   // requantization error, one slot per elem
+  std::vector<PendingPull> pending;
+  // Traced merges of the OPEN round: (worker, merge-complete ts).  On
+  // publish each entry becomes a MERGE_WAIT span — the time that worker's
+  // contribution sat waiting for the round's remaining workers, i.e. the
+  // straggler signal.  Only traced pushes append, so an untraced run
+  // never allocates here.  Cleared wherever `seen` resets.
+  std::vector<std::pair<uint32_t, int64_t>> merge_ts;
+  std::atomic<uint64_t> push_count{0};  // total pushes (schedule priority);
+                                        // atomic: written by engine, read
+                                        // by reader threads
+  // --- scatter-receive state (reader-visible) ---------------------------
+  // declared_len mirrors the store size the engine last established
+  // (INIT / size-change reset) so a READER thread can decide — without
+  // touching engine-owned state — whether an incoming raw-f32 push can
+  // be received straight into this key's scatter buffer.
+  std::atomic<uint64_t> declared_len{0};
+  // One frame at a time may hold the scatter lease (acquire via
+  // exchange); the holder's reader fills scatter_buf off the socket, the
+  // engine consumes it when the task runs (adopting it into the store by
+  // swap on the round's first push, summing from it otherwise) and
+  // releases the lease.  Losers of the CAS take the buffered path — the
+  // scatter is an allocation/copy optimization, never a semantic change.
+  std::atomic<bool> scatter_leased{false};
+  std::vector<char> scatter_buf;
+  // Live state marker for the elastic ring: set by INIT/push/migrate-in,
+  // cleared by migrate-out.  Drives the keys_owned gauge and tells the
+  // kMoved path whether there is state to hand over before redirecting.
+  // Atomic because the reader-thread stats path counts it while engines
+  // flip it.
+  std::atomic<bool> active{false};
+  // Chain replication (CMD_REPL): the newest completed_round the ring
+  // successor has ACKED holding a replica of.  The zero-loss pull gate
+  // (ReplBlocked) parks pulls while completed_round runs ahead of this
+  // by more than the lag window, so no worker can consume a round that
+  // would be lost if this server died right now.  Atomic: written by
+  // the replication thread on ack, read by the key's engine.
+  std::atomic<uint64_t> repl_acked_round{0};
+  // --- audit state (engine-owned, like the round state) -----------------
+  // Digest of the LAST published `out` buffer + the round/epoch/
+  // contributor-count recorded with it — what an audited pull's trailer
+  // carries.  Written only in PublishRound when BYTEPS_TPU_AUDIT=1;
+  // audit_n == 0 until the first armed publish (clients skip those).
+  // NOT part of the CMD_MIGRATE wire format on purpose: a migrated key's
+  // new owner starts with an empty digest (n=0 trailers) and re-records
+  // at its next publish, so mixed-version servers stay compatible.
+  uint64_t audit_round = 0;
+  uint32_t audit_digest = 0;
+  uint64_t audit_epoch = 0;
+  uint32_t audit_n = 0;
+  // --- per-key codec table (engine-owned; CMD_CODEC) --------------------
+  // Epoch-versioned wire-compressor renegotiation: `codec_epoch` is the
+  // newest accepted proposal (0 = launch config — INIT kwargs govern and
+  // nothing below is ever consulted, keeping the pre-codec wire
+  // byte-identical); while `codec_pending`, `codec_next` holds the
+  // proposed kwargs ("" = raw) that take effect at the FIRST round
+  // boundary with completed_round >= codec_effective
+  // (ApplyPendingCodec).  Once the epoch has advanced, every push's wire
+  // format is checked against the active codec and mismatches draw
+  // kCodecStale — no round ever mixes formats.  Rides CMD_MIGRATE so a
+  // migrated key keeps its *current* codec epoch, not its launch config.
+  uint32_t codec_epoch = 0;
+  uint32_t codec_applied_epoch = 0;
+  bool codec_pending = false;
+  uint64_t codec_effective = 0;
+  std::string codec_next;
+  // A switch away from a server-EF codec must never silently drop the
+  // accumulated requantization error: this flag folds ef_err into the
+  // next published sum exactly once (PublishRound), then clears it.
+  bool ef_fold_pending = false;
+  // Bidirectional recompress codec + qblock params (from kwargs).
+  uint8_t pull_comp = 1;        // codec::kOnebit
+  uint8_t qblock_bits = 8;
+  uint16_t qblock_block = 256;
+  // --- server-resident optimizer plane (CMD_OPT; engine-owned) ----------
+  // Epoch-versioned like the codec table above: `opt_epoch` 0 = the
+  // plane is unarmed and NOTHING below is consulted — an undeclared run
+  // publishes sums and stays wire byte-identical.  While `opt_pending`,
+  // `opt_next` holds the proposed kwargs ("" = off) that take effect at
+  // the first round boundary with completed_round >= opt_effective, so
+  // no round ever mixes update modes.  Once a mode is ACTIVE, every
+  // publish runs merge -> optimizer step -> publish *parameters*
+  // (OptUpdateStage): the optimizer consumes exactly the bytes a
+  // sum-mode pull would have served (codec/EF law untouched), updates
+  // the server-owned slots below, and replaces `out` with the updated
+  // params.  param_version increments exactly once per update — the
+  // exactly-one-update proof replays and migrations are audited against.
+  uint32_t opt_epoch = 0;
+  uint32_t opt_applied_epoch = 0;
+  bool opt_pending = false;
+  uint64_t opt_effective = 0;
+  std::string opt_next;         // pending kwargs
+  std::string opt_kwargs;       // active kwargs ("" = off)
+  uint8_t opt_kind = 0;         // 0 off, 1 sgd, 2 momentum, 3 adam,
+                                // 4 adagrad (opt_v = sum-of-squares)
+  // Hyperparams kept as the DOUBLES the kwargs decimals parse to (the
+  // same f64 the worker-local optax baseline holds); every update-stage
+  // constant derives from them with optax's exact rounding, e.g.
+  // (float)(1.0 - b1) — f32-parity depends on this.
+  double opt_lr = 0.01, opt_mu = 0.9, opt_b1 = 0.9, opt_b2 = 0.999,
+         opt_eps = 1e-8, opt_gscale = 1.0, opt_acc0 = 0.1;
+  std::vector<float> params;    // the authoritative weights
+  std::vector<float> opt_m;     // momentum trace / Adam first moment
+  std::vector<float> opt_v;     // Adam second moment
+  uint64_t opt_step = 0;        // optimizer step count (Adam bias corr,
+                                // mirrors optax safe_int32_increment)
+  uint64_t param_version = 0;   // ++ per published optimizer update
+  uint64_t opt_slot_acc = 0;    // bytes last accounted to opt_slot_bytes_
+  bool opt_warned = false;      // one unseeded-params warning per key
+  // Update-stage gradient scratch, reused round to round (a fresh
+  // zero-filled vector per publish would put an alloc + full-buffer
+  // memset on the engine's critical path).  Transient — never rides
+  // CMD_MIGRATE.
+  std::vector<float> opt_scratch;
+
+  // --- row-sparse embedding plane (dtype kSparseRows) -------------------
+  // A key becomes an embedding key at INIT time via kwargs
+  // `embed_rows=N,embed_width=D` with declared length 0: the dense store
+  // stays empty and all round state lives row-wise in the maps below.
+  // The dense and sparse planes are mutually exclusive per key.
+  uint64_t embed_rows = 0;   // declared table rows (0 = not an embed key)
+  uint32_t embed_width = 0;  // f32 elements per row
+  // Open-round merge: row -> accumulated gradient row.  First touch of a
+  // row COPIES the pushed payload (the dense plane's COPY_FIRST law —
+  // zero-init plus += would turn a pushed -0.0 into +0.0 and break
+  // dense/sparse bit-identity); later touches element-wise += in
+  // arrival order.
+  std::unordered_map<uint64_t, std::vector<float>> embed_merge;
+  // Published round: swapped in from embed_merge at publish.  What
+  // unarmed round-gated pulls serve; rows absent here read as zeros —
+  // sum semantics, exactly what a dense pull over an untouched slice
+  // yields.  When the key is armed (opt_kind != 0) pulls serve `params`
+  // rows instead and this map only tracks which rows the round touched.
+  std::unordered_map<uint64_t, std::vector<float>> embed_out;
+  // Per-row update counts for lazy bias correction (Adam) — only rows a
+  // publish actually touched step, mirroring a worker-local optax
+  // baseline that masks untouched rows out of the update.  Sized
+  // embed_rows lazily when the key arms; params/opt_m/opt_v above are
+  // reused at embed_rows*embed_width.
+  std::vector<uint32_t> embed_row_step;
+};
+
+struct Task {
+  uint8_t cmd;
+  uint8_t dtype;
+  uint16_t flags;
+  uint32_t req_id;
+  uint32_t worker_id;
+  uint64_t key;
+  std::vector<char> payload;
+  Conn* conn;
+  uint64_t priority;  // higher = sooner when scheduling enabled
+  uint64_t seq;       // FIFO tiebreak
+  int64_t recv_us = 0;  // frame-read timestamp, set only for traced
+                        // frames: engine-start minus this is the RECV
+                        // span (server-side queue wait)
+  bool scattered = false;  // payload was scatter-received into the key's
+                           // scatter_buf (payload itself is empty); the
+                           // engine owns releasing the scatter lease
+};
+
+struct TaskCmp {
+  bool operator()(const Task& a, const Task& b) const {
+    if (a.priority != b.priority) return a.priority < b.priority;
+    return a.seq > b.seq;  // earlier first
+  }
+};
+
+// Per-engine priority queue (reference: queue.h:31-105).
+class EngineQueue {
+ public:
+  void Push(Task&& t) {
+    std::lock_guard<std::mutex> lk(mu_);
+    q_.push(std::move(t));
+    cv_.notify_one();
+  }
+  bool Pop(Task* out) {
+    std::unique_lock<std::mutex> lk(mu_);
+    cv_.wait(lk, [&] { return !q_.empty() || stopped_; });
+    if (q_.empty()) return false;
+    // priority_queue has no non-const top-move; const_cast is the standard
+    // workaround for move-only payloads.
+    *out = std::move(const_cast<Task&>(q_.top()));
+    q_.pop();
+    return true;
+  }
+  void Stop() {
+    std::lock_guard<std::mutex> lk(mu_);
+    stopped_ = true;
+    cv_.notify_all();
+  }
+
+ private:
+  std::priority_queue<Task, std::vector<Task>, TaskCmp> q_;
+  std::mutex mu_;
+  std::condition_variable cv_;
+  bool stopped_ = false;
+};
+
+class Server {
+ public:
+  Server(int port, int num_workers, int engine_threads, bool schedule,
+         bool async_mode)
+      : port_(port), num_workers_(num_workers),
+        engine_threads_(engine_threads < 1 ? 1 : engine_threads),
+        schedule_(schedule), async_(async_mode),
+        queues_(engine_threads_), engine_load_(engine_threads_, 0) {
+#if defined(__GLIBC__)
+    // Partition payloads (4MB default) sit above glibc's default mmap
+    // threshold, so the reader's per-push buffer would be a fresh
+    // mmap/munmap each time — page faults + TLB shootdowns on every
+    // partition of every round.  Raise the threshold so those buffers
+    // recycle through the heap (the zero-copy discipline the reference
+    // gets from ps-lite's pinned SArray pools).
+    mallopt(M_MMAP_THRESHOLD, 64 * 1024 * 1024);
+    mallopt(M_TRIM_THRESHOLD, 128 * 1024 * 1024);
+#endif
+    // Server value tracing (reference: BYTEPS_SERVER_DEBUG(_KEY),
+    // server.cc:124-201): log each push merge and round publish with the
+    // f32 sum of the buffer, optionally filtered to one key.
+    const char* dbg = std::getenv("BYTEPS_SERVER_DEBUG");
+    debug_ = dbg && dbg[0] && !(dbg[0] == '0' && dbg[1] == '\0');
+    const char* dk = std::getenv("BYTEPS_SERVER_DEBUG_KEY");
+    debug_key_ = dk && dk[0] ? std::strtoull(dk, nullptr, 10) : ~0ULL;
+    // Frame-size cap: h.len comes off the wire, so a corrupted client (or
+    // a stray non-protocol connection) could otherwise drive a multi-GB
+    // vector allocation -> bad_alloc -> the whole PS tier dies.  Partition
+    // payloads are bounded by BYTEPS_PARTITION_BYTES (4MB default), so
+    // 1GB default headroom is generous; oversize frames drop the one
+    // connection, never the server.
+    const char* mx = std::getenv("BYTEPS_SERVER_MAX_MSG_BYTES");
+    if (mx && mx[0]) {
+      // Strict parse: a human-style value ("4MB", "1e9") would otherwise
+      // silently yield a tiny cap and the server would drop every
+      // connection while looking healthy.
+      char* end = nullptr;
+      uint64_t v = std::strtoull(mx, &end, 10);
+      if (end && *end == '\0' && v > 0) {
+        max_msg_ = v;
+      } else {
+        std::fprintf(stderr,
+                     "[byteps server] ignoring invalid "
+                     "BYTEPS_SERVER_MAX_MSG_BYTES=%s (want a positive "
+                     "integer byte count); using %llu\n",
+                     mx, static_cast<unsigned long long>(max_msg_));
+      }
+    }
+    // Colocated-server UDS fast path (BYTEPS_TPU_SERVER_UDS): also listen
+    // on AF_UNIX at "<base>.<port>" — same framing, bit-identical
+    // protocol, lower per-frame cost than loopback TCP.  The ".<port>"
+    // suffix keys the path per server so one env var covers a multi-
+    // server host (client.py _dial derives the same name).
+    const char* uds = std::getenv("BYTEPS_TPU_SERVER_UDS");
+    if (uds && uds[0]) uds_base_ = uds;
+    // Socket buffer tuning (BYTEPS_TPU_SOCK_BUF_KB): SO_SNDBUF/SO_RCVBUF
+    // on every accepted connection; 0 = kernel default (auto-tuning).
+    // Strict-parse like max_msg_.
+    const char* sb = std::getenv("BYTEPS_TPU_SOCK_BUF_KB");
+    if (sb && sb[0]) {
+      char* end = nullptr;
+      uint64_t v = std::strtoull(sb, &end, 10);
+      if (end && *end == '\0')
+        sock_buf_bytes_ = static_cast<int>(v * 1024);
+      else
+        std::fprintf(stderr,
+                     "[byteps server] ignoring invalid "
+                     "BYTEPS_TPU_SOCK_BUF_KB=%s (want a KiB count)\n", sb);
+    }
+    // Elastic membership: the launch-time worker set is epoch 0 — dense
+    // ids 0..num_workers-1, the DMLC_WORKER_ID convention — each with a
+    // lease refreshed by any frame it sends (traffic or CMD_PING).
+    // BYTEPS_TPU_EVICT_TIMEOUT_S > 0 arms the lease scanner: a worker
+    // silent for that long is evicted at an epoch boundary and open
+    // rounds re-finalize against the survivors.  0 (default) keeps the
+    // historical semantics — a dead worker wedges rounds until the
+    // worker-side stall watchdog/barrier timeout fails them loudly.
+    const char* ev = std::getenv("BYTEPS_TPU_EVICT_TIMEOUT_S");
+    if (ev && ev[0]) {
+      char* end = nullptr;
+      double v = std::strtod(ev, &end);
+      if (end && *end == '\0' && v >= 0.0)
+        evict_timeout_s_ = v;
+      else
+        std::fprintf(stderr,
+                     "[byteps server] ignoring invalid "
+                     "BYTEPS_TPU_EVICT_TIMEOUT_S=%s (want seconds)\n", ev);
+    }
+    const int64_t now = NowUs();
+    for (int i = 0; i < num_workers_; ++i)
+      members_[static_cast<uint32_t>(i)] = MemberRec{now, true};
+    // Hierarchical reduction (BYTEPS_TPU_SLICE_SIZE, parallel/
+    // hierarchy.py): workers are grouped into slices of this many
+    // contiguous ids, only one leader per slice pushes/pulls, and
+    // RoundComplete counts SLICES covered, not chips — a slice whose
+    // every member departed stops being expected through the same
+    // epoch/round_members machinery elastic membership already uses.
+    // 1 (default) keeps the historical per-worker completion exactly.
+    const char* ss = std::getenv("BYTEPS_TPU_SLICE_SIZE");
+    if (ss && ss[0]) {
+      char* end = nullptr;
+      uint64_t v = std::strtoull(ss, &end, 10);
+      if (end && *end == '\0' && v >= 1)
+        slice_size_ = static_cast<int>(v);
+      else
+        std::fprintf(stderr,
+                     "[byteps server] ignoring invalid "
+                     "BYTEPS_TPU_SLICE_SIZE=%s (want >= 1)\n", ss);
+    }
+    // Elastic PS tier (consistent-hash ring).  BYTEPS_TPU_RING=1 arms
+    // ring placement + ownership enforcement; BYTEPS_TPU_RING_JOIN=1
+    // additionally makes this a JOINING server (it announces itself to
+    // the launch peers at startup and the ring re-shards ~1/N of the
+    // keys onto it).  Unarmed (default), no ring state exists, status
+    // kMoved is never emitted, and the wire is byte-identical to the
+    // pre-ring server.
+    auto truthy = [](const char* v) {
+      return v && v[0] && !(v[0] == '0' && v[1] == '\0');
+    };
+    // Value-domain consistency auditor (BYTEPS_TPU_AUDIT=1): record a
+    // chunked-CRC digest of every published round (PublishRound), serve
+    // the last-K window over CMD_AUDIT, and append the trailer to pulls
+    // that ask for it (dtype kAuditPullMark).  Unarmed (default): no
+    // digest is ever computed, no trailer ever appended, CMD_AUDIT
+    // answers {"armed":0} — the wire is byte-identical to pre-audit.
+    audit_armed_ = truthy(std::getenv("BYTEPS_TPU_AUDIT"));
+    const char* aw = std::getenv("BYTEPS_TPU_AUDIT_WINDOW");
+    if (aw && aw[0]) {
+      char* end = nullptr;
+      uint64_t v = std::strtoull(aw, &end, 10);
+      if (end && *end == '\0' && v > 0 && v <= 4096)
+        audit_window_ = static_cast<int>(v);
+      else
+        std::fprintf(stderr,
+                     "[byteps server] ignoring invalid "
+                     "BYTEPS_TPU_AUDIT_WINDOW=%s (want 1..4096)\n", aw);
+    }
+    // Test-only single-bit fault injection ("key:round:bit"): the FIRST
+    // audited pull serving that key+round gets one bit of its payload
+    // flipped (in a copy — the store is never corrupted), simulating
+    // wire/memory corruption downstream of the publish.  The digest in
+    // the trailer is the honest pre-corruption one, so the client's
+    // re-digest must flag the mismatch — the end-to-end detection test.
+    const char* af = std::getenv("BYTEPS_TPU_AUDIT_FAULT");
+    if (af && af[0]) {
+      unsigned long long k = 0, r = 0, b = 0;
+      if (std::sscanf(af, "%llu:%llu:%llu", &k, &r, &b) == 3) {
+        fault_armed_ = true;
+        fault_key_ = k;
+        fault_round_ = r;
+        fault_bit_ = b;
+      } else {
+        std::fprintf(stderr,
+                     "[byteps server] ignoring invalid "
+                     "BYTEPS_TPU_AUDIT_FAULT=%s (want key:round:bit)\n",
+                     af);
+      }
+    }
+    ring_join_ = truthy(std::getenv("BYTEPS_TPU_RING_JOIN"));
+    ring_armed_ = ring_join_ || truthy(std::getenv("BYTEPS_TPU_RING"));
+    // Chain replication (BYTEPS_TPU_REPL=1): every publish streams the
+    // key's serialized state to its ring successor, and the zero-loss
+    // gate parks pulls until the successor acks within
+    // BYTEPS_TPU_REPL_LAG rounds (default 0: a round is pullable only
+    // once it can survive this server's death).  Unarmed (default): no
+    // replication thread, no peer traffic, no gate — wire and timing
+    // byte-identical to the pre-replication server.
+    repl_armed_ = truthy(std::getenv("BYTEPS_TPU_REPL"));
+    const char* rlag = std::getenv("BYTEPS_TPU_REPL_LAG");
+    if (rlag && rlag[0]) {
+      char* end = nullptr;
+      uint64_t v = std::strtoull(rlag, &end, 10);
+      if (end && *end == '\0')
+        repl_lag_window_ = v;
+      else
+        std::fprintf(stderr,
+                     "[byteps server] ignoring invalid "
+                     "BYTEPS_TPU_REPL_LAG=%s (want a round count)\n",
+                     rlag);
+    }
+    // Fleet observability plane (BYTEPS_TPU_FLEET=1): retain a bounded
+    // per-worker ring of published window summaries (CMD_WINDOW) and
+    // serve the merged view (CMD_FLEET).  Unarmed (default): no ring
+    // exists, both commands answer their downgrade shapes, the migrate
+    // blob carries no fleet trailer — wire byte-identical to pre-fleet.
+    fleet_armed_ = truthy(std::getenv("BYTEPS_TPU_FLEET"));
+    const char* fwn = std::getenv("BYTEPS_TPU_FLEET_WINDOWS");
+    if (fwn && fwn[0]) {
+      char* end = nullptr;
+      uint64_t v = std::strtoull(fwn, &end, 10);
+      if (end && *end == '\0' && v > 0 && v <= 4096)
+        fleet_windows_ = static_cast<int>(v);
+      else
+        std::fprintf(stderr,
+                     "[byteps server] ignoring invalid "
+                     "BYTEPS_TPU_FLEET_WINDOWS=%s (want 1..4096)\n", fwn);
+    }
+    const char* sid = std::getenv("DMLC_SERVER_ID");
+    if (sid && sid[0])
+      my_server_id_ = static_cast<uint32_t>(std::strtoul(sid, nullptr, 10));
+    const char* vn = std::getenv("BYTEPS_TPU_RING_VNODES");
+    if (vn && vn[0]) {
+      char* end = nullptr;
+      uint64_t v = std::strtoull(vn, &end, 10);
+      if (end && *end == '\0' && v > 0 && v <= 4096)
+        ring_vnodes_ = static_cast<int>(v);
+      else
+        std::fprintf(stderr,
+                     "[byteps server] ignoring invalid "
+                     "BYTEPS_TPU_RING_VNODES=%s (want 1..4096)\n", vn);
+    }
+    if (ring_armed_) {
+      // Peer address book: BYTEPS_TPU_RING_PEERS="host:port,host:port"
+      // (index = server id), else the single-host convention the workers
+      // use — 127.0.0.1:(DMLC_PS_ROOT_PORT + 1 + id) for the
+      // DMLC_NUM_SERVER launch servers.  First-seen addresses are
+      // sticky: a worker-proposed RING_SET can never redirect
+      // server-to-server migrations through a worker-side chaos proxy.
+      const char* root = std::getenv("DMLC_PS_ROOT_PORT");
+      int root_port = root && root[0] ? std::atoi(root) : 9000;
+      const char* ns = std::getenv("DMLC_NUM_SERVER");
+      int num_server = ns && ns[0] ? std::atoi(ns) : 1;
+      const char* peers = std::getenv("BYTEPS_TPU_RING_PEERS");
+      if (peers && peers[0]) {
+        std::string s(peers);
+        size_t pos = 0;
+        uint32_t id = 0;
+        while (pos <= s.size()) {
+          size_t comma = s.find(',', pos);
+          std::string one = s.substr(
+              pos, comma == std::string::npos ? std::string::npos
+                                              : comma - pos);
+          size_t colon = one.rfind(':');
+          if (colon != std::string::npos)
+            peer_book_[id++] = {one.substr(0, colon),
+                                std::atoi(one.c_str() + colon + 1)};
+          if (comma == std::string::npos) break;
+          pos = comma + 1;
+        }
+      } else {
+        for (int i = 0; i < num_server; ++i)
+          peer_book_[static_cast<uint32_t>(i)] =
+              {"127.0.0.1", root_port + 1 + i};
+      }
+      // Advertised address for migrations TO this server (the joiner
+      // announces it in its RING_SET).
+      advertise_host_ = "127.0.0.1";
+      advertise_port_ = port_;
+      const char* adv = std::getenv("BYTEPS_TPU_RING_ADVERTISE");
+      if (adv && adv[0]) {
+        std::string a(adv);
+        size_t colon = a.rfind(':');
+        if (colon != std::string::npos) {
+          advertise_host_ = a.substr(0, colon);
+          advertise_port_ = std::atoi(a.c_str() + colon + 1);
+        }
+      }
+      if (!ring_join_) {
+        // Launch ring, epoch 0: the DMLC_NUM_SERVER launch set.  The
+        // epoch mirror stays 0, so ownership is NOT enforced yet —
+        // workers armed with the same law already place by this ring,
+        // and enforcement only matters once a transition can strand a
+        // frame on a stale owner.
+        for (auto& kv : peer_book_)
+          ring_members_.push_back(
+              RingServer{kv.first, kv.second.first, kv.second.second});
+        RebuildRingPointsLocked();
+      }
+    }
+  }
+
+  int Run() {
+    listen_fd_ = socket(AF_INET, SOCK_STREAM, 0);
+    if (listen_fd_ < 0) return 1;
+    int one = 1;
+    setsockopt(listen_fd_, SOL_SOCKET, SO_REUSEADDR, &one, sizeof(one));
+    sockaddr_in addr{};
+    addr.sin_family = AF_INET;
+    addr.sin_addr.s_addr = htonl(INADDR_ANY);
+    addr.sin_port = htons(static_cast<uint16_t>(port_));
+    if (bind(listen_fd_, reinterpret_cast<sockaddr*>(&addr),
+             sizeof(addr)) != 0)
+      return 2;
+    if (listen(listen_fd_, 64) != 0) return 3;
+
+    for (int i = 0; i < engine_threads_; ++i)
+      engines_.emplace_back(&Server::EngineLoop, this, i);
+
+    // Lease scanner (elastic eviction), armed only by the env knob — a
+    // fixed-membership server runs zero extra threads.
+    std::thread lease_thread;
+    if (evict_timeout_s_ > 0.0)
+      lease_thread = std::thread(&Server::LeaseLoop, this);
+
+    // Optional AF_UNIX listener for colocated workers (see ctor): its
+    // acceptor runs on a side thread feeding the same ReaderLoop — a UDS
+    // conn is indistinguishable from a TCP one past accept().
+    std::thread uds_acceptor;
+    if (!uds_base_.empty()) {
+      uds_path_ = uds_base_ + "." + std::to_string(port_);
+      sockaddr_un ua{};
+      if (uds_path_.size() < sizeof(ua.sun_path)) {
+        uds_listen_fd_ = socket(AF_UNIX, SOCK_STREAM, 0);
+        if (uds_listen_fd_ >= 0) {
+          ua.sun_family = AF_UNIX;
+          std::strncpy(ua.sun_path, uds_path_.c_str(),
+                       sizeof(ua.sun_path) - 1);
+          ::unlink(uds_path_.c_str());   // stale file from a dead server
+          if (bind(uds_listen_fd_, reinterpret_cast<sockaddr*>(&ua),
+                   sizeof(ua)) == 0 &&
+              listen(uds_listen_fd_, 64) == 0) {
+            uds_acceptor = std::thread(
+                &Server::AcceptLoop, this, uds_listen_fd_, false);
+          } else {
+            std::fprintf(stderr,
+                         "[byteps server] UDS listen at %s failed "
+                         "(errno=%d); serving TCP only\n",
+                         uds_path_.c_str(), errno);
+            close(uds_listen_fd_);
+            uds_listen_fd_ = -1;
+          }
+        }
+      } else {
+        std::fprintf(stderr,
+                     "[byteps server] BYTEPS_TPU_SERVER_UDS path too long "
+                     "(%zu chars); serving TCP only\n", uds_path_.size());
+      }
+    }
+
+    // Joining server: announce once the listeners are up, so migrations
+    // streaming back land on a live acceptor.
+    std::thread join_thread;
+    if (ring_join_) join_thread = std::thread(&Server::JoinLoop, this);
+
+    // Chain-replication sender (BYTEPS_TPU_REPL): drains the per-key
+    // newest-blob queue to each key's ring successor off the publish
+    // critical path.  Unarmed runs start zero extra threads.
+    std::thread repl_thread;
+    if (repl_armed_) repl_thread = std::thread(&Server::ReplLoop, this);
+
+    AcceptLoop(listen_fd_, true);
+    if (join_thread.joinable()) join_thread.join();
+    if (repl_thread.joinable()) {
+      // Joined BEFORE the engine queues stop: the replication thread
+      // fans kReplFlushTask into them on every ack.
+      { std::lock_guard<std::mutex> lk(repl_mu_); }
+      repl_cv_.notify_all();
+      repl_thread.join();
+    }
+    if (lease_thread.joinable()) lease_thread.join();
+    if (uds_acceptor.joinable()) uds_acceptor.join();
+    if (uds_listen_fd_ >= 0) {
+      close(uds_listen_fd_);
+      ::unlink(uds_path_.c_str());
+    }
+    for (auto& q : queues_) q.Stop();
+    for (auto& t : engines_) t.join();
+    {
+      // Readers may be blocked in recv() on idle-but-open worker sockets;
+      // a half-close unblocks them so the active count can drain.
+      std::lock_guard<std::mutex> lk(conns_mu_);
+      for (auto* c : conns_)
+        if (c->fd >= 0) ::shutdown(c->fd, SHUT_RDWR);
+    }
+    {
+      std::unique_lock<std::mutex> lk(readers_mu_);
+      readers_cv_.wait(lk, [&] { return active_readers_ == 0; });
+    }
+    {
+      std::lock_guard<std::mutex> lk(conns_mu_);
+      for (auto* c : conns_) {
+        if (c->fd >= 0) close(c->fd);
+        delete c;
+      }
+      conns_.clear();
+    }
+    {
+      std::lock_guard<std::mutex> lk(peer_mu_);
+      for (auto& kv : peer_fds_) close(kv.second);
+      peer_fds_.clear();
+    }
+    close(listen_fd_);
+    return 0;
+  }
+
+ private:
+  // Accept loop shared by the TCP and UDS listeners: accept, tune, hand
+  // the conn to a detached counted reader.  `is_tcp` gates TCP_NODELAY
+  // (meaningless on AF_UNIX).
+  void AcceptLoop(int lfd, bool is_tcp) {
+    int one = 1;
+    while (!shutdown_.load()) {
+      int fd = accept(lfd, nullptr, nullptr);
+      if (fd < 0) {
+        // Transient accept failures (fd pressure, aborted handshakes,
+        // signals) must not tear down the tier — existing sessions keep
+        // training and new connections retry.  Anything else (EBADF from
+        // the shutdown path closing the listener) ends the loop.
+        if (errno == EINTR || errno == ECONNABORTED || errno == EMFILE ||
+            errno == ENFILE || errno == ENOBUFS || errno == ENOMEM) {
+          std::this_thread::sleep_for(std::chrono::milliseconds(20));
+          continue;
+        }
+        break;
+      }
+      if (is_tcp)
+        setsockopt(fd, IPPROTO_TCP, TCP_NODELAY, &one, sizeof(one));
+      if (sock_buf_bytes_ > 0) {
+        // Best-effort: the kernel clamps (and doubles) as it pleases.
+        setsockopt(fd, SOL_SOCKET, SO_SNDBUF, &sock_buf_bytes_,
+                   sizeof(sock_buf_bytes_));
+        setsockopt(fd, SOL_SOCKET, SO_RCVBUF, &sock_buf_bytes_,
+                   sizeof(sock_buf_bytes_));
+      }
+      auto* conn = new Conn();
+      conn->fd = fd;
+      {
+        std::lock_guard<std::mutex> lk(conns_mu_);
+        conns_.push_back(conn);
+      }
+      // Detached, counted: a joinable-but-terminated thread retains its
+      // stack until join, so tracking readers in a vector let a rogue
+      // connect loop accumulate a zombie stack per attempt (advisor r4).
+      // Shutdown synchronizes on the active count instead of join().
+      {
+        std::lock_guard<std::mutex> lk(readers_mu_);
+        ++active_readers_;
+      }
+      std::thread(&Server::ReaderLoop, this, conn).detach();
+    }
+  }
+
+  static bool ReadFull(int fd, void* buf, size_t n) {
+    char* p = static_cast<char*>(buf);
+    while (n > 0) {
+      ssize_t r = recv(fd, p, n, 0);
+      if (r <= 0) return false;
+      p += r;
+      n -= static_cast<size_t>(r);
+    }
+    return true;
+  }
+
+  static bool WriteFull(int fd, const void* buf, size_t n) {
+    const char* p = static_cast<const char*>(buf);
+    while (n > 0) {
+      ssize_t r = send(fd, p, n, MSG_NOSIGNAL);
+      if (r <= 0) return false;
+      p += r;
+      n -= static_cast<size_t>(r);
+    }
+    return true;
+  }
+
+  void Respond(Conn* c, uint8_t status, uint32_t req_id, uint64_t key,
+               const char* data, uint64_t len) {
+    RespondT(c, status, req_id, key, data, len, nullptr, 0);
+  }
+
+  // Respond with an optional trailer gathered after the payload (the
+  // audited-pull path: payload + 24-byte AuditTrailer ride the one
+  // response frame, h.len covering both, with no payload-sized copy).
+  void RespondT(Conn* c, uint8_t status, uint32_t req_id, uint64_t key,
+                const char* data, uint64_t len, const void* trailer,
+                uint64_t tlen) {
+    // Member (not static) for the wire-bytes-out stat: counted at frame
+    // build time — close enough for an operator-facing gauge, and the
+    // alternative (counting the sendmsg return) would misreport dropped
+    // peers anyway.
+    bytes_out_.fetch_add(sizeof(RespHeader) + len + tlen,
+                         std::memory_order_relaxed);
+    std::lock_guard<std::mutex> lk(c->write_mu);
+    RespHeader h{status, req_id, key, len + tlen};
+    // One sendmsg for header+payload(+trailer): separate send() calls
+    // under TCP_NODELAY put the 21-byte header on the wire as its own
+    // packet (extra syscall + packet + reader wakeup per response on the
+    // pull-heavy path).
+    iovec iov[3] = {{&h, sizeof(h)}, {nullptr, 0}, {nullptr, 0}};
+    int iovcnt = 1;
+    if (len)
+      iov[iovcnt++] = {const_cast<char*>(data), static_cast<size_t>(len)};
+    if (tlen)
+      iov[iovcnt++] = {const_cast<void*>(trailer),
+                       static_cast<size_t>(tlen)};
+    msghdr msg{};
+    msg.msg_iov = iov;
+    msg.msg_iovlen = iovcnt;
+    while (true) {
+      ssize_t r = sendmsg(c->fd, &msg, MSG_NOSIGNAL);
+      if (r < 0 && errno == EINTR) continue;  // signal mid-frame: resume,
+                                              // or the stream desyncs
+      if (r <= 0) return;   // peer gone: reader/engine paths tolerate
+      size_t done = static_cast<size_t>(r);
+      while (msg.msg_iovlen > 0 && done >= msg.msg_iov[0].iov_len) {
+        done -= msg.msg_iov[0].iov_len;
+        ++msg.msg_iov;
+        --msg.msg_iovlen;
+      }
+      if (msg.msg_iovlen == 0) return;
+      msg.msg_iov[0].iov_base =
+          static_cast<char*>(msg.msg_iov[0].iov_base) + done;
+      msg.msg_iov[0].iov_len -= done;
+    }
+  }
+
+  // --- conn reference counting (fd lifetime) -------------------------
+  // A holder is anything that may Respond on the conn after its reader
+  // exits.  Take the ref BEFORE handing the conn to the holder; release
+  // AFTER the holder's last write.  The fd closes when the reader has
+  // exited and the count drains to zero — no holder remains, so a
+  // recycled fd number can never be misdirected.
+  static void AddRef(Conn* c) {
+    c->refs.fetch_add(1, std::memory_order_relaxed);
+  }
+  void ReleaseRef(Conn* c) {
+    if (c->refs.fetch_sub(1, std::memory_order_acq_rel) == 1 &&
+        c->reader_done.load(std::memory_order_acquire))
+      MaybeCloseFd(c);
+  }
+  void MaybeCloseFd(Conn* c) {
+    std::lock_guard<std::mutex> lk(conns_mu_);
+    if (c->fd >= 0 && c->reader_done.load(std::memory_order_acquire) &&
+        c->refs.load(std::memory_order_acquire) == 0) {
+      ::close(c->fd);
+      c->fd = -1;
+    }
+  }
+
+  // Key -> engine by least accumulated load (reference: server.h:149-173).
+  int EngineFor(uint64_t key, uint64_t bytes) {
+    std::lock_guard<std::mutex> lk(assign_mu_);
+    auto it = key_engine_.find(key);
+    if (it != key_engine_.end()) return it->second;
+    int best = 0;
+    for (int i = 1; i < engine_threads_; ++i)
+      if (engine_load_[i] < engine_load_[best]) best = i;
+    engine_load_[best] += bytes;
+    key_engine_[key] = best;
+    return best;
+  }
+
+  // --- CMD_STATS telemetry -------------------------------------------
+  // Engine threads fold per-key / per-worker deltas in under stats_mu_
+  // (a few int stores per push — noise next to the 4MB f32 merge the
+  // same task just did); the reader thread serializes the whole table
+  // to JSON under the same mutex.  Kept separate from KeyState on
+  // purpose: KeyState is engine-owned and reading it from a reader
+  // thread would race the merge loop.
+  struct KeyStat {
+    uint64_t pushes = 0;          // frames accepted (incl. dups/stale acks)
+    uint64_t merges = 0;          // frames actually merged into a round
+    uint64_t completed_round = 0; // rounds published
+    uint64_t round_pushes = 0;    // workers merged into the OPEN round —
+                                  // pending-push depth = num_workers minus
+                                  // this (how many pushes the round still
+                                  // waits on)
+    uint64_t pending_pulls = 0;   // pulls parked for an unpublished round
+    uint64_t bytes = 0;           // wire payload bytes pushed
+    uint64_t param_version = 0;   // server-opt: published update count
+    uint8_t opt_mode = 0;         // server-opt: active optimizer (0=off)
+  };
+  struct WorkerStat {
+    uint64_t pushes = 0;  // accepted merges from this worker
+    uint64_t round = 0;   // round position: sync = the round index this
+                          // worker is pushing INTO + 1 (so equal workers
+                          // report equal numbers); async = push count
+  };
+
+  void StatPush(uint64_t key, uint32_t worker, uint64_t wire_bytes,
+                bool merged, uint64_t round_pos, uint64_t round_pushes = 0) {
+    std::lock_guard<std::mutex> lk(stats_mu_);
+    KeyStat& ks = key_stats_[key];
+    ks.pushes++;
+    if (merged) {
+      ks.merges++;
+      ks.bytes += wire_bytes;
+      ks.round_pushes = round_pushes;
+      WorkerStat& ws = worker_stats_[worker];
+      ws.pushes++;
+      // round_pos = 0 means "no sync round" (async / seed): a worker's
+      // progress signal degrades to its accepted-push count there.
+      uint64_t rp = round_pos ? round_pos : ws.pushes;
+      if (rp > ws.round) ws.round = rp;
+    }
+  }
+
+  void StatPublish(uint64_t key, uint64_t completed_round) {
+    std::lock_guard<std::mutex> lk(stats_mu_);
+    KeyStat& ks = key_stats_[key];
+    ks.completed_round = completed_round;
+    ks.round_pushes = 0;   // fresh round: no one has pushed into it yet
+  }
+
+  void StatOpt(uint64_t key, uint64_t param_version, uint8_t opt_mode) {
+    std::lock_guard<std::mutex> lk(stats_mu_);
+    KeyStat& ks = key_stats_[key];
+    ks.param_version = param_version;
+    ks.opt_mode = opt_mode;
+  }
+
+  void StatPendingPulls(uint64_t key, int64_t delta) {
+    std::lock_guard<std::mutex> lk(stats_mu_);
+    uint64_t& p = key_stats_[key].pending_pulls;
+    p = (delta < 0 && p < static_cast<uint64_t>(-delta))
+            ? 0 : p + delta;
+  }
+
+  std::string StatsJson() {
+    // Worst-case row: the header now carries ~30 numeric fields at up
+    // to 20 digits + ~450 chars of labels — keep comfortable headroom
+    // (snprintf truncation would silently corrupt the JSON).
+    char buf[2048];
+    std::string js;
+    js.reserve(4096);
+    const uint64_t keys_owned = ring_armed_ ? KeysOwned() : 0;
+    // Chain-replication gauges: replicas parked for OTHER servers'
+    // keys, and the owner-side lag (newest published round minus the
+    // successor's acked round, max over keys) — what the doctor's
+    // replication_lag rule and bps_repl_lag_rounds watch.
+    uint64_t replicas_held = 0, repl_lag = 0;
+    if (repl_armed_) {
+      std::lock_guard<std::mutex> lk(repl_mu_);
+      replicas_held = replicas_.size();
+      for (auto& kv : repl_pub_) {
+        auto it = repl_ack_.find(kv.first);
+        const uint64_t acked = it == repl_ack_.end() ? 0 : it->second;
+        if (kv.second > acked && kv.second - acked > repl_lag)
+          repl_lag = kv.second - acked;
+      }
+    }
+    // Fleet-plane gauges: worker rings held and total window blobs
+    // parked — what bps_top's fleet panel and the elastic-edge tests
+    // watch to confirm publishes landed and eviction expired a ring.
+    uint64_t fleet_workers = 0, fleet_held = 0;
+    if (fleet_armed_) {
+      std::lock_guard<std::mutex> lk(fleet_mu_);
+      fleet_workers = fleet_rings_.size();
+      for (auto& kv : fleet_rings_) fleet_held += kv.second.size();
+    }
+    std::snprintf(buf, sizeof(buf),
+                  "{\"bytes_in\":%llu,\"bytes_out\":%llu,\"async\":%d,"
+                  "\"num_workers\":%d,\"scatter_frames\":%llu,"
+                  "\"epoch\":%llu,\"deferred_joins\":%llu,"
+                  "\"server_id\":%u,\"ring_armed\":%d,\"ring_epoch\":%llu,"
+                  "\"draining\":%d,\"keys_owned\":%llu,"
+                  "\"migrations_in\":%llu,\"migrations_out\":%llu,"
+                  "\"moved_frames\":%llu,\"codec_sets\":%llu,"
+                  "\"codec_stale_frames\":%llu,\"opt_sets\":%llu,"
+                  "\"opt_updates\":%llu,\"opt_slot_bytes\":%llu,"
+                  "\"knob_epoch\":%llu,\"knob_sets\":%llu,"
+                  "\"knob_stale_frames\":%llu,"
+                  "\"embed_rows_served\":%llu,"
+                  "\"embed_table_bytes\":%llu,"
+                  "\"repl_armed\":%d,\"repl_rounds_out\":%llu,"
+                  "\"repl_bytes_out\":%llu,\"repl_rounds_in\":%llu,"
+                  "\"repl_bytes_in\":%llu,\"repl_replicas_held\":%llu,"
+                  "\"repl_promotions\":%llu,\"repl_lag_rounds\":%llu,"
+                  "\"fleet_armed\":%d,\"fleet_workers\":%llu,"
+                  "\"fleet_windows_held\":%llu,\"fleet_publishes\":%llu,"
+                  "\"slice_size\":%d,\"keys\":{",
+                  static_cast<unsigned long long>(
+                      bytes_in_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      bytes_out_.load(std::memory_order_relaxed)),
+                  async_ ? 1 : 0, num_workers_,
+                  static_cast<unsigned long long>(
+                      scatter_frames_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      epoch_atomic_.load(std::memory_order_acquire)),
+                  static_cast<unsigned long long>(
+                      deferred_joins_.load(std::memory_order_relaxed)),
+                  my_server_id_, ring_armed_ ? 1 : 0,
+                  static_cast<unsigned long long>(
+                      ring_epoch_atomic_.load(std::memory_order_acquire)),
+                  draining_ ? 1 : 0,
+                  static_cast<unsigned long long>(keys_owned),
+                  static_cast<unsigned long long>(
+                      migrations_in_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      migrations_out_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      moved_frames_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      codec_sets_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      codec_stale_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      opt_sets_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      opt_updates_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      opt_slot_bytes_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      knob_epoch_atomic_.load(std::memory_order_acquire)),
+                  static_cast<unsigned long long>(
+                      knob_sets_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      knob_stale_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      embed_rows_served_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      embed_table_bytes_.load(std::memory_order_relaxed)),
+                  repl_armed_ ? 1 : 0,
+                  static_cast<unsigned long long>(
+                      repl_rounds_out_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      repl_bytes_out_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      repl_rounds_in_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      repl_bytes_in_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(replicas_held),
+                  static_cast<unsigned long long>(
+                      repl_promotions_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(repl_lag),
+                  fleet_armed_ ? 1 : 0,
+                  static_cast<unsigned long long>(fleet_workers),
+                  static_cast<unsigned long long>(fleet_held),
+                  static_cast<unsigned long long>(
+                      fleet_publishes_.load(std::memory_order_relaxed)),
+                  slice_size_);
+    js += buf;
+    std::lock_guard<std::mutex> lk(stats_mu_);
+    bool first = true;
+    for (auto& kv : key_stats_) {
+      std::snprintf(buf, sizeof(buf),
+                    "%s\"%llu\":{\"pushes\":%llu,\"merges\":%llu,"
+                    "\"completed_round\":%llu,\"round_pushes\":%llu,"
+                    "\"pending_pulls\":%llu,\"bytes\":%llu,"
+                    "\"param_version\":%llu,\"opt_mode\":%u}",
+                    first ? "" : ",",
+                    static_cast<unsigned long long>(kv.first),
+                    static_cast<unsigned long long>(kv.second.pushes),
+                    static_cast<unsigned long long>(kv.second.merges),
+                    static_cast<unsigned long long>(
+                        kv.second.completed_round),
+                    static_cast<unsigned long long>(
+                        kv.second.round_pushes),
+                    static_cast<unsigned long long>(
+                        kv.second.pending_pulls),
+                    static_cast<unsigned long long>(kv.second.bytes),
+                    static_cast<unsigned long long>(
+                        kv.second.param_version),
+                    static_cast<unsigned>(kv.second.opt_mode));
+      js += buf;
+      first = false;
+    }
+    js += "},\"workers\":{";
+    first = true;
+    for (auto& kv : worker_stats_) {
+      std::snprintf(buf, sizeof(buf),
+                    "%s\"%u\":{\"pushes\":%llu,\"round\":%llu}",
+                    first ? "" : ",", kv.first,
+                    static_cast<unsigned long long>(kv.second.pushes),
+                    static_cast<unsigned long long>(kv.second.round));
+      js += buf;
+      first = false;
+    }
+    // Membership view (epoch-versioned worker set + lease ages) so one
+    // CMD_STATS poll carries the whole liveness story.  member_mu_ nests
+    // inside stats_mu_ here and nowhere takes them in the other order.
+    js += "},\"members\":{";
+    {
+      const int64_t now = NowUs();
+      std::lock_guard<std::mutex> mlk(member_mu_);
+      first = true;
+      for (auto& kv : members_) {
+        std::snprintf(buf, sizeof(buf),
+                      "%s\"%u\":{\"alive\":%d,\"age_ms\":%lld}",
+                      first ? "" : ",", kv.first,
+                      kv.second.alive ? 1 : 0,
+                      static_cast<long long>(
+                          (now - kv.second.last_seen_us) / 1000));
+        js += buf;
+        first = false;
+      }
+    }
+    js += "}}";
+    return js;
+  }
+
+  // --- CMD_AUDIT: publish-digest window ------------------------------
+  // The last-K (round, digest, epoch, contributors) records per key,
+  // appended by PublishRound under audit_mu_ (a handful of ints + the
+  // contributor ids per publish — noise next to the digest pass itself),
+  // serialized by the reader thread here.  Shape:
+  //   {"armed":1,"window":K,"epoch":E,"ring_epoch":R,
+  //    "keys":{"<key>":[{"r":round,"d":digest,"e":epoch,"w":[ids]},...]}}
+  std::string AuditJson() {
+    char buf[256];
+    std::string js;
+    js.reserve(2048);
+    std::snprintf(buf, sizeof(buf),
+                  "{\"armed\":%d,\"window\":%d,\"epoch\":%llu,"
+                  "\"ring_epoch\":%llu,\"keys\":{",
+                  audit_armed_ ? 1 : 0, audit_window_,
+                  static_cast<unsigned long long>(
+                      epoch_atomic_.load(std::memory_order_acquire)),
+                  static_cast<unsigned long long>(
+                      ring_epoch_atomic_.load(std::memory_order_acquire)));
+    js += buf;
+    std::lock_guard<std::mutex> lk(audit_mu_);
+    bool first_key = true;
+    for (auto& kv : audit_log_) {
+      std::snprintf(buf, sizeof(buf), "%s\"%llu\":[",
+                    first_key ? "" : ",",
+                    static_cast<unsigned long long>(kv.first));
+      js += buf;
+      first_key = false;
+      bool first_rec = true;
+      for (auto& rec : kv.second) {
+        std::snprintf(buf, sizeof(buf),
+                      "%s{\"r\":%llu,\"d\":%llu,\"e\":%llu,\"w\":[",
+                      first_rec ? "" : ",",
+                      static_cast<unsigned long long>(rec.round),
+                      static_cast<unsigned long long>(rec.digest),
+                      static_cast<unsigned long long>(rec.epoch));
+        js += buf;
+        first_rec = false;
+        bool first_w = true;
+        for (uint32_t w : rec.who) {
+          std::snprintf(buf, sizeof(buf), "%s%u", first_w ? "" : ",", w);
+          js += buf;
+          first_w = false;
+        }
+        js += "]}";
+      }
+      js += "]";
+    }
+    js += "}}";
+    return js;
+  }
+
+  // Merged fleet view (CMD_FLEET): per-worker rings as JSON arrays of
+  // the raw worker-published window summaries, ordered by window index.
+  // The server splices blobs verbatim — it never parses worker JSON —
+  // so a malformed publish can corrupt only its own row, which the
+  // Python merge side skips (the same trust boundary as CMD_STATS keys).
+  std::string FleetJson() {
+    if (!fleet_armed_) return "{\"armed\":0}";
+    char buf[128];
+    std::string js;
+    js.reserve(4096);
+    std::snprintf(buf, sizeof(buf),
+                  "{\"armed\":1,\"cap\":%d,\"server_id\":%u,"
+                  "\"workers\":{", fleet_windows_, my_server_id_);
+    js += buf;
+    std::lock_guard<std::mutex> lk(fleet_mu_);
+    bool first_w = true;
+    for (auto& kv : fleet_rings_) {
+      std::snprintf(buf, sizeof(buf), "%s\"%u\":[",
+                    first_w ? "" : ",", kv.first);
+      js += buf;
+      first_w = false;
+      bool first_e = true;
+      for (auto& e : kv.second) {
+        if (!first_e) js += ",";
+        js += e.second;
+        first_e = false;
+      }
+      js += "]";
+    }
+    js += "}}";
+    return js;
+  }
+
+  // --- elastic membership --------------------------------------------
+  // The worker set is epoch-versioned: every join (HELLO from a non-live
+  // id), graceful leave (CMD_LEAVE) and lease eviction bumps `epoch_` and
+  // fans a snapshot task out to every engine (per-key round state is
+  // engine-owned).  Fixed-membership runs never transition, epoch stays
+  // 0, and every data-path check short-circuits on the atomic mirror —
+  // the wire and the merge math are untouched.
+  struct MemberRec {
+    int64_t last_seen_us = 0;
+    bool alive = false;
+  };
+
+  // Lease refresh: any frame from a live member renews it.  Non-members
+  // are ignored — only HELLO admits (a stray frame from a rogue id must
+  // not silently grow the world).
+  void TouchWorker(uint32_t worker) {
+    // Fixed-mode fast path: with eviction unarmed and the epoch never
+    // advanced, nothing consumes leases — skip the clock read and the
+    // lock so the per-frame hot path is exactly as cheap as before this
+    // feature (CMD_STATS ages then read as time-since-launch, which is
+    // documented and has no liveness consumer at epoch 0).
+    if (evict_timeout_s_ <= 0.0 &&
+        epoch_atomic_.load(std::memory_order_relaxed) == 0)
+      return;
+    std::lock_guard<std::mutex> lk(member_mu_);
+    auto it = members_.find(worker);
+    if (it != members_.end() && it->second.alive)
+      it->second.last_seen_us = NowUs();
+  }
+
+  // HELLO admission: a non-live id joins the membership at the next
+  // epoch boundary (each key's next round snapshots the new set).  A
+  // live member's HELLO — every fixed-mode session start, and every
+  // reconnect handshake — is a lease touch, nothing more.
+  void AdmitWorker(uint32_t worker) {
+    std::vector<uint32_t> old_live, removed;
+    {
+      std::lock_guard<std::mutex> lk(member_mu_);
+      MemberRec& m = members_[worker];
+      m.last_seen_us = NowUs();
+      if (m.alive) return;
+      for (auto& kv : members_)
+        if (kv.second.alive) old_live.push_back(kv.first);
+      m.alive = true;
+      ++epoch_;
+      epoch_atomic_.store(epoch_, std::memory_order_release);
+      std::fprintf(stderr,
+                   "[byteps server] worker %u joined; membership epoch %llu"
+                   " (%zu live)\n", worker,
+                   static_cast<unsigned long long>(epoch_),
+                   old_live.size() + 1);
+    }
+    FanOutMembership(old_live, removed, /*refinalize=*/false);
+    RecheckBarriers();
+  }
+
+  // Leave/evict: remove a live member at an epoch boundary and
+  // re-finalize open rounds against the survivors.  The last live worker
+  // is never removed — evicting the whole world helps no one, and a
+  // paused single-worker job must stay resumable.
+  void RemoveWorker(uint32_t worker, const char* why) {
+    std::vector<uint32_t> old_live, removed;
+    {
+      std::lock_guard<std::mutex> lk(member_mu_);
+      auto it = members_.find(worker);
+      if (it == members_.end() || !it->second.alive) return;
+      int live = 0;
+      for (auto& kv : members_)
+        if (kv.second.alive) {
+          ++live;
+          old_live.push_back(kv.first);
+        }
+      if (live <= 1) {
+        std::fprintf(stderr,
+                     "[byteps server] not removing worker %u (%s): it is "
+                     "the last live member\n", worker, why);
+        return;
+      }
+      it->second.alive = false;
+      removed.push_back(worker);
+      ++epoch_;
+      epoch_atomic_.store(epoch_, std::memory_order_release);
+      std::fprintf(stderr,
+                   "[byteps server] worker %u removed (%s); membership "
+                   "epoch %llu (%d live)\n", worker, why,
+                   static_cast<unsigned long long>(epoch_), live - 1);
+    }
+    FanOutMembership(old_live, removed, /*refinalize=*/true);
+    RecheckBarriers();
+    // Expire the evicted worker's fleet ring: a departed worker must
+    // drop out of the merged CMD_FLEET view (its stale windows would
+    // otherwise pin fleet rules on a ghost forever).  fleet_mu_ is a
+    // leaf lock — never taken while holding member_mu_.
+    if (fleet_armed_ && !removed.empty()) {
+      std::lock_guard<std::mutex> lk(fleet_mu_);
+      for (uint32_t w : removed) fleet_rings_.erase(w);
+    }
+  }
+
+  int LiveCount() {
+    std::lock_guard<std::mutex> lk(member_mu_);
+    int n = 0;
+    for (auto& kv : members_)
+      if (kv.second.alive) ++n;
+    return n;
+  }
+
+  std::vector<uint32_t> LiveWorkers() {
+    std::lock_guard<std::mutex> lk(member_mu_);
+    std::vector<uint32_t> out;
+    for (auto& kv : members_)
+      if (kv.second.alive) out.push_back(kv.first);
+    return out;
+  }
+
+  // Identity-based barrier completion: a generation releases when every
+  // LIVE worker has arrived.  Arrival COUNT is not enough under
+  // elasticity — an evicted worker's stale arrival would otherwise fill
+  // the shrunken bar and release the group while a live worker is still
+  // on its way, stranding it in a fresh group forever.
+  static bool BarrierGroupComplete(const std::vector<PendingPull>& group,
+                                   const std::vector<uint32_t>& live) {
+    std::set<uint32_t> arrived;
+    for (const auto& w : group) arrived.insert(w.worker);
+    for (uint32_t w : live)
+      if (!arrived.count(w)) return false;
+    return true;
+  }
+
+  // Snapshot the live set into a key's round_members — the per-round
+  // epoch boundary.  Called at each round's first push once the epoch
+  // has ever advanced (epoch 0 keeps the legacy count-based completion).
+  void AdoptRoundMembers(KeyState& ks) {
+    std::lock_guard<std::mutex> lk(member_mu_);
+    ks.round_members.clear();
+    for (auto& kv : members_)
+      if (kv.second.alive) ks.round_members.insert(kv.first);
+  }
+
+  // One transition task per engine, payload self-contained:
+  //   u8 refinalize | u32 n_old | u32 old_ids[] | u32 n_rm | u32 rm_ids[]
+  // old_ids = the live set BEFORE the transition (pins still-open
+  // epoch-0 rounds to the set they opened under); rm_ids = departures to
+  // erase from every open round's contributor set.
+  void FanOutMembership(const std::vector<uint32_t>& old_live,
+                        const std::vector<uint32_t>& removed,
+                        bool refinalize) {
+    std::vector<char> payload(1 + 4 + old_live.size() * 4 +
+                              4 + removed.size() * 4);
+    char* p = payload.data();
+    p[0] = refinalize ? 1 : 0;
+    uint32_t n = static_cast<uint32_t>(old_live.size());
+    std::memcpy(p + 1, &n, 4);
+    std::memcpy(p + 5, old_live.data(), old_live.size() * 4);
+    uint32_t m = static_cast<uint32_t>(removed.size());
+    std::memcpy(p + 5 + old_live.size() * 4, &m, 4);
+    std::memcpy(p + 9 + old_live.size() * 4, removed.data(),
+                removed.size() * 4);
+    for (int i = 0; i < engine_threads_; ++i) {
+      Task t;
+      t.cmd = kMembershipTask;
+      t.dtype = 0;
+      t.flags = 0;
+      t.req_id = 0;
+      t.worker_id = 0;
+      t.key = 0;
+      t.payload = payload;   // copy per engine
+      t.conn = nullptr;
+      t.seq = seq_.fetch_add(1);
+      t.priority = UINT64_MAX;   // jump queued pushes, like kLrScale
+      queues_[i].Push(std::move(t));
+    }
+  }
+
+  // A shrink can complete a barrier the departed worker would never
+  // reach; a grow raises the bar for groups still filling.  Like
+  // HandleBarrier, the live set is read inside barrier_mu_ so the check
+  // and the release are atomic against further transitions.
+  void RecheckBarriers() {
+    std::vector<PendingPull> to_release;
+    {
+      std::lock_guard<std::mutex> lk(barrier_mu_);
+      const std::vector<uint32_t> live = LiveWorkers();
+      for (auto it = barrier_waiters_.begin();
+           it != barrier_waiters_.end();) {
+        if (BarrierGroupComplete(it->second, live)) {
+          for (auto& w : it->second) to_release.push_back(w);
+          released_gens_.insert(it->first);
+          it = barrier_waiters_.erase(it);
+        } else {
+          ++it;
+        }
+      }
+    }
+    for (auto& w : to_release) {
+      Respond(w.conn, kOk, w.req_id, w.key, nullptr, 0);
+      ReleaseRef(w.conn);
+    }
+  }
+
+  // CMD_MEMBERS JSON: epoch, per-worker alive + last-seen age, and which
+  // ids have arrived at each pending barrier generation (the "who is the
+  // barrier waiting on" half of the diagnostic).
+  std::string MembersJson() {
+    char buf[160];
+    std::string js;
+    js.reserve(512);
+    const int64_t now = NowUs();
+    {
+      std::lock_guard<std::mutex> lk(member_mu_);
+      std::snprintf(buf, sizeof(buf),
+                    "{\"epoch\":%llu,\"members\":{",
+                    static_cast<unsigned long long>(epoch_));
+      js += buf;
+      bool first = true;
+      for (auto& kv : members_) {
+        std::snprintf(buf, sizeof(buf),
+                      "%s\"%u\":{\"alive\":%d,\"age_ms\":%lld}",
+                      first ? "" : ",", kv.first,
+                      kv.second.alive ? 1 : 0,
+                      static_cast<long long>(
+                          (now - kv.second.last_seen_us) / 1000));
+        js += buf;
+        first = false;
+      }
+    }
+    js += "},\"barrier\":{";
+    {
+      std::lock_guard<std::mutex> lk(barrier_mu_);
+      bool first = true;
+      for (auto& kv : barrier_waiters_) {
+        std::snprintf(buf, sizeof(buf), "%s\"%llu\":[",
+                      first ? "" : ",",
+                      static_cast<unsigned long long>(kv.first));
+        js += buf;
+        for (size_t i = 0; i < kv.second.size(); ++i) {
+          std::snprintf(buf, sizeof(buf), "%s%u", i ? "," : "",
+                        kv.second[i].worker);
+          js += buf;
+        }
+        js += "]";
+        first = false;
+      }
+    }
+    js += "}}";
+    return js;
+  }
+
+  // Lease scanner (armed only when BYTEPS_TPU_EVICT_TIMEOUT_S > 0): a
+  // live member silent past the timeout is evicted.  Workers keep the
+  // lease warm with data traffic, or — when idle — the client-side
+  // heartbeat PING the same knob arms (client.py _lease_loop).
+  void LeaseLoop() {
+    const int64_t timeout_us =
+        static_cast<int64_t>(evict_timeout_s_ * 1e6);
+    const int64_t scan_us =
+        std::max<int64_t>(20000, std::min<int64_t>(timeout_us / 4,
+                                                   1000000));
+    while (!shutdown_.load()) {
+      std::this_thread::sleep_for(std::chrono::microseconds(scan_us));
+      const int64_t now = NowUs();
+      std::vector<std::pair<int64_t, uint32_t>> expired;  // (last_seen, id)
+      {
+        std::lock_guard<std::mutex> lk(member_mu_);
+        for (auto& kv : members_)
+          if (kv.second.alive &&
+              now - kv.second.last_seen_us > timeout_us)
+            expired.emplace_back(kv.second.last_seen_us, kv.first);
+      }
+      // Most-stale first: when several leases lapse in one scan (e.g. a
+      // heartbeat hiccup), the worker silent the LONGEST is the dead one
+      // — and the last-live guard then protects the rest.
+      std::sort(expired.begin(), expired.end());
+      for (auto& e : expired)
+        RemoveWorker(e.second, "lease expired");  // last-live guard inside
+    }
+  }
+
+  // --- elastic PS ring ------------------------------------------------
+  // The server tier's own membership: an epoch-versioned consistent-hash
+  // ring (see the `ring` namespace for the shared law).  Transitions are
+  // CMD_RING_SET/CMD_DRAIN writes carrying the full next-epoch table;
+  // applied tables fan a reshard task per engine so owned-but-no-longer-
+  // mine keys stream their state to the new owner (CMD_MIGRATE) before
+  // any redirect is issued — state-before-redirect is what makes drain
+  // and scale-up exact.  ring_epoch_atomic_ mirrors the epoch for the
+  // lock-free fixed-mode short-circuit on the data path.
+  struct RingServer {
+    uint32_t id;
+    std::string host;
+    int port;
+  };
+
+  void RebuildRingPointsLocked() {
+    auto pts = std::make_shared<
+        std::vector<std::pair<uint64_t, uint32_t>>>();
+    for (auto& m : ring_members_)
+      for (int v = 0; v < ring_vnodes_; ++v)
+        pts->emplace_back(
+            ring::VnodePoint(m.id, static_cast<uint32_t>(v)), m.id);
+    std::sort(pts->begin(), pts->end());
+    // Published via atomic shared_ptr so the PER-FRAME ownership check
+    // never takes ring_mu_: after the first transition every
+    // INIT/PUSH/PULL consults the table, and serializing all engines
+    // through one mutex for the rest of the run would undo the epoch-0
+    // fast path's whole point.
+    std::shared_ptr<const std::vector<std::pair<uint64_t, uint32_t>>>
+        cpts = std::move(pts);
+    std::atomic_store_explicit(&ring_points_, std::move(cpts),
+                               std::memory_order_release);
+    // Successor table for chain replication: the same point set MINUS
+    // this server's own vnodes, so Owner(key, repl_points) is the next
+    // distinct server clockwise of the key — exactly who inherits the
+    // key if this owner dies.  Published the same lock-free way; empty
+    // on a single-member ring (ReplEnqueue then self-acks).
+    auto rpts = std::make_shared<
+        std::vector<std::pair<uint64_t, uint32_t>>>();
+    for (auto& m : ring_members_) {
+      if (m.id == my_server_id_) continue;
+      for (int v = 0; v < ring_vnodes_; ++v)
+        rpts->emplace_back(
+            ring::VnodePoint(m.id, static_cast<uint32_t>(v)), m.id);
+    }
+    std::sort(rpts->begin(), rpts->end());
+    std::shared_ptr<const std::vector<std::pair<uint64_t, uint32_t>>>
+        crpts = std::move(rpts);
+    std::atomic_store_explicit(&repl_points_, std::move(crpts),
+                               std::memory_order_release);
+  }
+
+  std::shared_ptr<const std::vector<std::pair<uint64_t, uint32_t>>>
+  RingPoints() {
+    return std::atomic_load_explicit(&ring_points_,
+                                     std::memory_order_acquire);
+  }
+
+  std::shared_ptr<const std::vector<std::pair<uint64_t, uint32_t>>>
+  ReplPoints() {
+    return std::atomic_load_explicit(&repl_points_,
+                                     std::memory_order_acquire);
+  }
+
+  // True when this server must NOT process frames for `key` (the ring
+  // has advanced and another server owns it — or this server is
+  // draining, in which case it is no longer a member at all).  The data
+  // path pays one atomic load until the first transition, and a
+  // lock-free point-table read plus one binary search after it.
+  bool RingMisplaced(uint64_t key) {
+    if (!ring_armed_) return false;
+    if (ring_epoch_atomic_.load(std::memory_order_acquire) == 0)
+      return false;
+    auto pts = RingPoints();
+    if (!pts || pts->empty()) return false;
+    return ring::Owner(key, *pts) != my_server_id_;
+  }
+
+  uint64_t KeysOwned() {
+    std::lock_guard<std::mutex> lk(store_mu_);
+    uint64_t n = 0;
+    for (auto& kv : store_)
+      if (kv.second.active.load(std::memory_order_relaxed)) ++n;
+    return n;
+  }
+
+  // Ring table as JSON (CMD_RING response and every kMoved payload).
+  // `include_owned=false` skips the full-store KeysOwned() scan — the
+  // kMoved path emits this per redirected frame, and clients never read
+  // keys_owned from a MOVED payload (only CMD_RING polls do).
+  std::string RingJson(bool include_owned = true) {
+    const uint64_t owned = include_owned ? KeysOwned() : 0;
+    char buf[512];                        // store_mu_ released before
+    //                                       ring_mu_ — never nested.
+    // 512 covers the worst-case row (a 255-byte host + labels) and the
+    // worst-case header; snprintf truncation would silently corrupt the
+    // JSON every worker redirect depends on.
+    std::string js;
+    js.reserve(256);
+    std::lock_guard<std::mutex> lk(ring_mu_);
+    std::snprintf(buf, sizeof(buf),
+                  "{\"epoch\":%llu,\"vnodes\":%d,\"armed\":%d,"
+                  "\"draining\":%d,\"server_id\":%u,\"keys_owned\":%llu,"
+                  "\"migrations_in\":%llu,\"migrations_out\":%llu,"
+                  "\"servers\":[",
+                  static_cast<unsigned long long>(ring_epoch_),
+                  ring_vnodes_, ring_armed_ ? 1 : 0, draining_ ? 1 : 0,
+                  my_server_id_, static_cast<unsigned long long>(owned),
+                  static_cast<unsigned long long>(
+                      migrations_in_.load(std::memory_order_relaxed)),
+                  static_cast<unsigned long long>(
+                      migrations_out_.load(std::memory_order_relaxed)));
+    js += buf;
+    bool first = true;
+    for (auto& m : ring_members_) {
+      std::snprintf(buf, sizeof(buf),
+                    "%s{\"id\":%u,\"host\":\"%s\",\"port\":%d}",
+                    first ? "" : ",", m.id, m.host.c_str(), m.port);
+      js += buf;
+      first = false;
+    }
+    js += "]}";
+    return js;
+  }
+
+  // Binary ring table (the CMD_RING_SET payload format,
+  // common/ring.py RingTable.to_wire): u64 epoch | u32 vnodes | u32 n |
+  // n x (u32 id | u16 port | u8 host_len | host).  Shared by the
+  // joiner's peer read (CMD_RING flags bit0) and the write parse.
+  std::string RingWire() {
+    std::lock_guard<std::mutex> lk(ring_mu_);
+    std::string out;
+    char hdr[16];
+    uint64_t ep = ring_epoch_;
+    uint32_t vn = static_cast<uint32_t>(ring_vnodes_);
+    uint32_t n = static_cast<uint32_t>(ring_members_.size());
+    std::memcpy(hdr, &ep, 8);
+    std::memcpy(hdr + 8, &vn, 4);
+    std::memcpy(hdr + 12, &n, 4);
+    out.append(hdr, 16);
+    for (auto& m : ring_members_) {
+      char row[7];
+      uint16_t p16 = static_cast<uint16_t>(m.port);
+      uint8_t hl = static_cast<uint8_t>(
+          std::min<size_t>(m.host.size(), 255));
+      std::memcpy(row, &m.id, 4);
+      std::memcpy(row + 4, &p16, 2);
+      row[6] = static_cast<char>(hl);
+      out.append(row, 7);
+      out.append(m.host.data(), hl);
+    }
+    return out;
+  }
+
+  bool ParseRingWire(const std::vector<char>& p, uint64_t* epoch,
+                     uint32_t* vnodes, std::vector<RingServer>* out) {
+    if (p.size() < 16) return false;
+    uint32_t n = 0;
+    std::memcpy(epoch, p.data(), 8);
+    std::memcpy(vnodes, p.data() + 8, 4);
+    std::memcpy(&n, p.data() + 12, 4);
+    if (n == 0 || n > 4096 || *vnodes == 0 || *vnodes > 4096) return false;
+    size_t pos = 16;
+    for (uint32_t i = 0; i < n; ++i) {
+      if (pos + 7 > p.size()) return false;
+      RingServer s;
+      uint16_t p16 = 0;
+      std::memcpy(&s.id, p.data() + pos, 4);
+      std::memcpy(&p16, p.data() + pos + 4, 2);
+      uint8_t hl = static_cast<uint8_t>(p[pos + 6]);
+      pos += 7;
+      if (pos + hl > p.size()) return false;
+      s.host.assign(p.data() + pos, hl);
+      s.port = p16;
+      pos += hl;
+      out->push_back(std::move(s));
+    }
+    return true;
+  }
+
+  // Apply a proposed ring table.  Only a NEWER epoch lands (racing
+  // proposers of the same transition are idempotent; a stale proposer
+  // reads the authoritative table back from the response).  Known
+  // server ids keep their first-seen (peer-book) address — proposals
+  // travel through workers, whose dial addresses may be test proxies —
+  // and unknown ids (the joiner) are adopted into the book.  Applying
+  // fans a reshard task to every engine.
+  bool ApplyRing(uint64_t epoch, uint32_t vnodes,
+                 std::vector<RingServer> servers, bool make_draining) {
+    {
+      std::lock_guard<std::mutex> lk(ring_mu_);
+      if (epoch <= ring_epoch_) return false;
+      for (auto& s : servers) {
+        auto it = peer_book_.find(s.id);
+        if (it != peer_book_.end()) {
+          s.host = it->second.first;
+          s.port = it->second.second;
+        } else {
+          peer_book_[s.id] = {s.host, s.port};
+        }
+      }
+      ring_epoch_ = epoch;
+      ring_vnodes_ = static_cast<int>(vnodes);
+      ring_members_ = std::move(servers);
+      if (make_draining) draining_.store(true, std::memory_order_relaxed);
+      RebuildRingPointsLocked();
+      if (repl_armed_) ReplSweepLocked();
+      ring_epoch_atomic_.store(ring_epoch_, std::memory_order_release);
+      bool member = false;
+      for (auto& m : ring_members_)
+        if (m.id == my_server_id_) member = true;
+      std::fprintf(stderr,
+                   "[byteps server] ring epoch %llu applied: %zu member(s)"
+                   "%s%s\n",
+                   static_cast<unsigned long long>(ring_epoch_),
+                   ring_members_.size(),
+                   member ? "" : " (this server excluded)",
+                   draining_.load() ? " [draining]" : "");
+    }
+    // Reshard fan-out: each engine migrates ITS keys that now belong to
+    // another live server — max priority so the handoff jumps queued
+    // pushes (which would be kMoved-redirected anyway).
+    for (int i = 0; i < engine_threads_; ++i) {
+      Task t;
+      t.cmd = kRingTask;
+      t.dtype = 0;
+      t.flags = 0;
+      t.req_id = 0;
+      t.worker_id = 0;
+      t.key = 0;
+      t.conn = nullptr;
+      t.seq = seq_.fetch_add(1);
+      t.priority = UINT64_MAX;
+      queues_[i].Push(std::move(t));
+    }
+    return true;
+  }
+
+  // --- server->server peer transport (migrations) ---------------------
+  // One cached blocking connection per peer, serialized by peer_mu_ —
+  // migrations are rare (ring transitions only) and strictly ordered,
+  // so a single in-flight request at a time is plenty and keeps the
+  // path free of multiplexing machinery.
+  int DialPeer(const std::string& host, int port) {
+    int fd = socket(AF_INET, SOCK_STREAM, 0);
+    if (fd < 0) return -1;
+    timeval tv{30, 0};
+    setsockopt(fd, SOL_SOCKET, SO_RCVTIMEO, &tv, sizeof(tv));
+    setsockopt(fd, SOL_SOCKET, SO_SNDTIMEO, &tv, sizeof(tv));
+    sockaddr_in addr{};
+    addr.sin_family = AF_INET;
+    addr.sin_port = htons(static_cast<uint16_t>(port));
+    if (inet_pton(AF_INET, host.c_str(), &addr.sin_addr) != 1) {
+      close(fd);
+      return -1;
+    }
+    int one = 1;
+    setsockopt(fd, IPPROTO_TCP, TCP_NODELAY, &one, sizeof(one));
+    if (connect(fd, reinterpret_cast<sockaddr*>(&addr),
+                sizeof(addr)) != 0) {
+      close(fd);
+      return -1;
+    }
+    return fd;
+  }
+
+  // Blocking request/response to a peer server.  worker_id 0xFFFFFFFF:
+  // never a member id, so peer traffic cannot refresh worker leases.
+  // `resp` (optional) receives the response payload.  One retry on a
+  // stale cached fd (peer restarted between migrations).
+  bool PeerRequest(uint32_t id, const std::string& host, int port,
+                   uint8_t cmd, uint16_t flags, uint64_t key,
+                   const char* payload, uint64_t len,
+                   std::vector<char>* resp = nullptr) {
+    std::lock_guard<std::mutex> lk(peer_mu_);
+    // Negative cache: a peer that just failed (dead joiner, partition)
+    // is not re-dialed for 2s — without this, EVERY misplaced frame for
+    // its keys would block its engine thread in connect() for up to the
+    // socket timeout, head-of-line-stalling healthy keys on the same
+    // engine.  Callers treat the fast false as "migration failed" and
+    // answer kError (exact-or-loud).
+    {
+      auto it = peer_down_until_us_.find(id);
+      if (it != peer_down_until_us_.end()) {
+        if (NowUs() < it->second) return false;
+        peer_down_until_us_.erase(it);
+      }
+    }
+    for (int attempt = 0; attempt < 2; ++attempt) {
+      int fd = -1;
+      auto it = peer_fds_.find(id);
+      if (it != peer_fds_.end()) fd = it->second;
+      bool fresh = fd < 0;
+      if (fd < 0) {
+        fd = DialPeer(host, port);
+        if (fd < 0) {
+          peer_down_until_us_[id] = NowUs() + 2000000;
+          return false;
+        }
+        peer_fds_[id] = fd;
+      }
+      ReqHeader h{cmd, 0, flags, 0, 0xFFFFFFFFu, key, len};
+      bool ok = WriteFull(fd, &h, sizeof(h)) &&
+                (len == 0 || WriteFull(fd, payload, len));
+      RespHeader rh{};
+      ok = ok && ReadFull(fd, &rh, sizeof(rh));
+      if (ok && rh.len > 0) {
+        if (rh.len > max_msg_) ok = false;
+        else {
+          std::vector<char> body(rh.len);
+          ok = ReadFull(fd, body.data(), rh.len);
+          if (ok && resp) *resp = std::move(body);
+        }
+      }
+      if (ok) return rh.status == kOk;
+      close(fd);
+      peer_fds_.erase(id);
+      if (fresh) {               // a brand-new dial failing won't heal
+        peer_down_until_us_[id] = NowUs() + 2000000;
+        return false;
+      }
+    }
+    peer_down_until_us_[id] = NowUs() + 2000000;
+    return false;
+  }
+
+  // Serialize one key's full merge state for CMD_MIGRATE.  Runs on the
+  // key's engine thread, so every field is stable.
+  std::vector<char> SerializeKeyState(const KeyState& ks,
+                                      bool with_fleet = false) {
+    std::vector<char> out;
+    auto put = [&](const void* p, size_t n) {
+      out.insert(out.end(), static_cast<const char*>(p),
+                 static_cast<const char*>(p) + n);
+    };
+    uint64_t completed = ks.completed_round;
+    uint64_t declared = ks.declared_len.load(std::memory_order_relaxed);
+    uint64_t pushes = ks.push_count.load(std::memory_order_relaxed);
+    uint8_t dtype = ks.dtype;
+    uint8_t flags = (ks.bidirectional ? 1 : 0) |
+                    (ks.onebit_scaled ? 2 : 0) | (ks.server_ef ? 4 : 0) |
+                    (ks.round_compressed ? 8 : 0);
+    put(&completed, 8);
+    put(&declared, 8);
+    put(&pushes, 8);
+    put(&dtype, 1);
+    put(&flags, 1);
+    uint32_t klen = static_cast<uint32_t>(ks.kwargs.size());
+    put(&klen, 4);
+    put(ks.kwargs.data(), klen);
+    uint64_t n = ks.store.size();
+    put(&n, 8);
+    put(ks.store.data(), n);
+    n = ks.out.size();
+    put(&n, 8);
+    put(ks.out.data(), n);
+    n = ks.ef_err.size();
+    put(&n, 8);
+    put(ks.ef_err.data(), n * 4);
+    uint32_t cnt = static_cast<uint32_t>(ks.seen.size());
+    put(&cnt, 4);
+    for (uint32_t w : ks.seen) put(&w, 4);
+    cnt = static_cast<uint32_t>(ks.round_members.size());
+    put(&cnt, 4);
+    for (uint32_t w : ks.round_members) put(&w, 4);
+    // Codec-table trailer (appended so pre-codec receivers, which parse
+    // positionally and ignore trailing bytes, stay compatible): a
+    // migrated key must carry its CURRENT codec epoch — active kwargs
+    // already rode above; this adds the epoch/pending half so a
+    // renegotiated key keeps renegotiating where it lands instead of
+    // snapping back to its launch config.
+    put(&ks.codec_epoch, 4);
+    put(&ks.codec_applied_epoch, 4);
+    uint8_t pend = ks.codec_pending ? 1 : 0;
+    put(&pend, 1);
+    put(&ks.codec_effective, 8);
+    uint32_t nklen = static_cast<uint32_t>(ks.codec_next.size());
+    put(&nklen, 4);
+    put(ks.codec_next.data(), nklen);
+    uint8_t fold = ks.ef_fold_pending ? 1 : 0;
+    put(&fold, 1);
+    // Optimizer-plane trailer (appended AFTER the codec trailer, same
+    // version-tolerance law: pre-subsystem receivers parse positionally
+    // and ignore trailing bytes; pre-subsystem SENDERS simply omit it
+    // and the receiver's remaining()-based parse leaves every opt field
+    // at its reset default).  A migrated key's new owner continues the
+    // exact optimizer trajectory: table epoch, hyperparams, params and
+    // m/v slots, step count, and param_version all ride along —
+    // byte-equal, which the chaos tests assert through slots_crc.
+    put(&ks.opt_epoch, 4);
+    put(&ks.opt_applied_epoch, 4);
+    uint8_t opend = ks.opt_pending ? 1 : 0;
+    put(&opend, 1);
+    put(&ks.opt_effective, 8);
+    uint32_t oklen = static_cast<uint32_t>(ks.opt_kwargs.size());
+    put(&oklen, 4);
+    put(ks.opt_kwargs.data(), oklen);
+    uint32_t onlen = static_cast<uint32_t>(ks.opt_next.size());
+    put(&onlen, 4);
+    put(ks.opt_next.data(), onlen);
+    put(&ks.param_version, 8);
+    put(&ks.opt_step, 8);
+    uint64_t fn = ks.params.size();
+    put(&fn, 8);
+    put(ks.params.data(), fn * 4);
+    fn = ks.opt_m.size();
+    put(&fn, 8);
+    put(ks.opt_m.data(), fn * 4);
+    fn = ks.opt_v.size();
+    put(&fn, 8);
+    put(ks.opt_v.data(), fn * 4);
+    // Global knob-table trailer (the CMD_MIGRATE-adjacent seam of the
+    // knob plane): the table is SERVER-global, but a ring drain hands
+    // keys to a peer that may predate the switch — so every migrated
+    // key carries the sender's table and the receiver adopts it IF
+    // NEWER, idempotent across the N keys of a drain exactly like a
+    // racing CMD_KNOB SET.  The acked map deliberately does NOT ride:
+    // workers re-ack the new owner via the kKnobStale backstop (one
+    // adopt-and-replay round trip, self-healing).  Absent from pre-knob
+    // senders — the receiver's remaining()-based parse then leaves its
+    // table untouched, version-tolerant like the codec/opt trailers.
+    {
+      std::lock_guard<std::mutex> lk(knob_mu_);
+      put(&knob_epoch_, 4);
+      put(&knob_applied_, 4);
+      uint8_t kpend = knob_pending_ ? 1 : 0;
+      put(&kpend, 1);
+      put(&knob_effective_, 8);
+      uint32_t kl = static_cast<uint32_t>(knob_kwargs_.size());
+      put(&kl, 4);
+      put(knob_kwargs_.data(), kl);
+      kl = static_cast<uint32_t>(knob_next_.size());
+      put(&kl, 4);
+      put(knob_next_.data(), kl);
+    }
+    // Row-sparse embedding trailer (appended AFTER the knob trailer,
+    // same version-tolerance law: absent from pre-sparse senders, and a
+    // pre-sparse receiver's positional parse ignores it).  Carries the
+    // declared table shape, the PUBLISHED round's rows, the OPEN
+    // round's partial merge, and the per-row step counts — params/m/v
+    // already rode the optimizer trailer above, so a drained embedding
+    // key's new owner continues the exact row-wise trajectory.
+    {
+      put(&ks.embed_rows, 8);
+      put(&ks.embed_width, 4);
+      auto put_rows =
+          [&](const std::unordered_map<uint64_t, std::vector<float>>& m) {
+            uint64_t cnt = 0;
+            for (auto& kv : m)
+              if (kv.second.size() == ks.embed_width) ++cnt;
+            put(&cnt, 8);
+            for (auto& kv : m)
+              if (kv.second.size() == ks.embed_width) {
+                put(&kv.first, 8);
+                put(kv.second.data(), kv.second.size() * 4);
+              }
+          };
+      put_rows(ks.embed_out);
+      put_rows(ks.embed_merge);
+      uint64_t nz = 0;
+      for (uint32_t s : ks.embed_row_step)
+        if (s) ++nz;
+      put(&nz, 8);
+      for (uint64_t r = 0; r < ks.embed_row_step.size(); ++r)
+        if (ks.embed_row_step[r]) {
+          put(&r, 8);
+          put(&ks.embed_row_step[r], 4);
+        }
+    }
+    // Fleet-ring trailer (appended AFTER the embed trailer, same
+    // version-tolerance law).  MIGRATE blobs only (with_fleet is false
+    // on the per-publish replication path — rings are server-global, so
+    // re-serializing them per publish would tax every round for state
+    // one drain-time copy preserves).  Written only when fleet-armed:
+    // an unarmed server's blob stays byte-identical to pre-fleet, which
+    // the elastic byte-equality tests pin.  Like the knob trailer this
+    // is GLOBAL state riding a per-key blob; the receiver adopts each
+    // (worker, window) only-if-absent, so a drain's N key blobs install
+    // idempotently.
+    if (fleet_armed_ && with_fleet) {
+      std::lock_guard<std::mutex> lk(fleet_mu_);
+      uint32_t nw = static_cast<uint32_t>(fleet_rings_.size());
+      put(&nw, 4);
+      for (auto& kv : fleet_rings_) {
+        put(&kv.first, 4);
+        uint32_t nwin = static_cast<uint32_t>(kv.second.size());
+        put(&nwin, 4);
+        for (auto& e : kv.second) {
+          put(&e.first, 8);
+          uint32_t bl = static_cast<uint32_t>(e.second.size());
+          put(&bl, 4);
+          put(e.second.data(), bl);
+        }
+      }
+    }
+    return out;
+  }
+
+  // Stream one key's state to its new ring owner and retire it locally.
+  // Engine thread (owns the key).  Returns false — state kept — when the
+  // new owner is unreachable; the caller then answers kError instead of
+  // kMoved, so a worker can never be redirected AHEAD of the state (the
+  // exactness contract: state-before-redirect).
+  bool MigrateKeyOut(uint64_t key, KeyState& ks) {
+    uint32_t owner = 0;
+    std::string host;
+    int port = 0;
+    {
+      std::lock_guard<std::mutex> lk(ring_mu_);
+      auto pts = RingPoints();
+      if (!pts || pts->empty()) return false;
+      owner = ring::Owner(key, *pts);
+      if (owner == my_server_id_) return true;   // raced a newer ring
+      for (auto& m : ring_members_)
+        if (m.id == owner) {
+          host = m.host;
+          port = m.port;
+        }
+    }
+    if (host.empty()) return false;
+    std::vector<char> blob = SerializeKeyState(ks, /*with_fleet=*/true);
+    if (!PeerRequest(owner, host, port, kMigrate, 0, key, blob.data(),
+                     blob.size())) {
+      std::fprintf(stderr,
+                   "[byteps server] migration of key %llu to server %u "
+                   "(%s:%d) failed; state kept\n",
+                   static_cast<unsigned long long>(key), owner,
+                   host.c_str(), port);
+      return false;
+    }
+    migrations_out_.fetch_add(1, std::memory_order_relaxed);
+    // Waiting pulls re-route to the new owner (which now holds `out`).
+    if (!ks.pending.empty()) {
+      std::string js = RingJson(/*include_owned=*/false);
+      int64_t flushed = 0;
+      for (auto& p : ks.pending) {
+        Respond(p.conn, kMoved, p.req_id, key, js.data(), js.size());
+        ReleaseRef(p.conn);
+        ++flushed;
+      }
+      ks.pending.clear();
+      StatPendingPulls(key, -flushed);
+    }
+    // Retire: the KeyState object stays (readers may hold pointers into
+    // the store_ map — entries are never erased, same as the rest of the
+    // server) but all payload memory is released and the scatter door
+    // closed.  declared_len 0 first, so no new scatter lease can start;
+    // an ALREADY-queued scattered task still holds the lease, in which
+    // case the buffer is left for its (kMoved-bound) task to release.
+    ks.declared_len.store(0, std::memory_order_release);
+    if (!ks.scatter_leased.exchange(true, std::memory_order_acquire)) {
+      ks.scatter_buf.clear();
+      ks.scatter_buf.shrink_to_fit();
+      ks.scatter_leased.store(false, std::memory_order_release);
+    }
+    ks.store.clear();
+    ks.store.shrink_to_fit();
+    ks.out.clear();
+    ks.out.shrink_to_fit();
+    ks.seen.clear();
+    ks.round_members.clear();
+    ks.merge_ts.clear();
+    ks.ef_err.clear();
+    ks.ef_err.shrink_to_fit();
+    ks.kwargs.clear();
+    ks.round_compressed = false;
+    // Codec table rode the migration blob; the retired copy resets so a
+    // later ownership return re-seeds from INIT/CMD_CODEC, not a stale
+    // epoch.
+    ks.codec_epoch = 0;
+    ks.codec_applied_epoch = 0;
+    ks.codec_pending = false;
+    ks.codec_effective = 0;
+    ks.codec_next.clear();
+    ks.ef_fold_pending = false;
+    ks.pull_comp = codec::kOnebit;
+    ks.qblock_bits = 8;
+    ks.qblock_block = 256;
+    // Optimizer plane rode the migration blob (table, params, slots,
+    // param_version); the retired copy resets like the codec table so a
+    // later ownership return re-seeds from CMD_OPT, never a stale epoch
+    // — and releases the slot memory it was accounting.
+    ks.opt_epoch = 0;
+    ks.opt_applied_epoch = 0;
+    ks.opt_pending = false;
+    ks.opt_effective = 0;
+    ks.opt_next.clear();
+    ks.opt_kwargs.clear();
+    ks.opt_kind = 0;
+    ks.params.clear();
+    ks.params.shrink_to_fit();
+    ks.opt_m.clear();
+    ks.opt_m.shrink_to_fit();
+    ks.opt_v.clear();
+    ks.opt_v.shrink_to_fit();
+    ks.opt_scratch.clear();
+    ks.opt_scratch.shrink_to_fit();
+    ks.opt_step = 0;
+    ks.param_version = 0;
+    ks.opt_warned = false;
+    // Embedding plane rode the trailer; retire it like the rest and
+    // release the declared-footprint gauge bytes.
+    embed_table_bytes_.fetch_add(
+        0 - ks.embed_rows * ks.embed_width * 4, std::memory_order_relaxed);
+    ks.embed_rows = 0;
+    ks.embed_width = 0;
+    ks.embed_merge.clear();
+    ks.embed_out.clear();
+    ks.embed_row_step.clear();
+    ks.embed_row_step.shrink_to_fit();
+    OptSlotAccount(ks);
+    StatOpt(key, 0, 0);
+    // Chain-replication bookkeeping leaves with the key: the new owner
+    // replicates to ITS successor from its next publish, and a stale
+    // pending blob from here must never resurrect the old trajectory.
+    if (repl_armed_) {
+      std::lock_guard<std::mutex> lk(repl_mu_);
+      repl_pending_.erase(key);
+      repl_pub_.erase(key);
+      repl_ack_.erase(key);
+    }
+    ks.repl_acked_round.store(0, std::memory_order_relaxed);
+    ks.active.store(false, std::memory_order_relaxed);
+    // Drop the migrated key's digest window too: the new owner records
+    // fresh digests from its next publish, and a stale window here
+    // would make two servers answer CMD_AUDIT for the same key (the
+    // worker-side merge handles overlap, but the ex-owner's rows would
+    // go stale-forever, shadowing nothing useful).
+    if (audit_armed_) {
+      std::lock_guard<std::mutex> alk(audit_mu_);
+      audit_log_.erase(key);
+      ks.audit_round = 0;
+      ks.audit_digest = 0;
+      ks.audit_epoch = 0;
+      ks.audit_n = 0;
+    }
+    return true;
+  }
+
+  // The one kMoved answer: hand state over first (if any), then redirect
+  // with the current ring so the client re-plans without another RTT.
+  void RespondMoved(Task& t, KeyState* ks) {
+    moved_frames_.fetch_add(1, std::memory_order_relaxed);
+    if (ks != nullptr && ks->active.load(std::memory_order_relaxed)) {
+      if (!MigrateKeyOut(t.key, *ks)) {
+        Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+        return;
+      }
+    }
+    std::string js = RingJson(/*include_owned=*/false);
+    Respond(t.conn, kMoved, t.req_id, t.key, js.data(), js.size());
+  }
+
+  // Reshard (kRingTask, engine side): migrate every key this engine owns
+  // whose new ring owner is another server — proactively, so pull-side
+  // state (published rounds, EF errors) reaches the new owner without
+  // waiting for worker traffic to bounce off a kMoved.
+  void HandleReshard(int idx) {
+    if (!ring_armed_) return;
+    std::vector<uint64_t> keys;
+    {
+      std::lock_guard<std::mutex> lk(assign_mu_);
+      for (auto& kv : key_engine_)
+        if (kv.second == idx) keys.push_back(kv.first);
+    }
+    for (uint64_t key : keys) {
+      if (!RingMisplaced(key)) continue;
+      KeyState* ks = FindState(key);
+      if (ks != nullptr && ks->active.load(std::memory_order_relaxed))
+        MigrateKeyOut(key, *ks);   // failure logged inside; state kept —
+      //                              the next frame retries via kMoved
+    }
+  }
+
+  // Parse a serialized key-state blob (SerializeKeyState's format) and
+  // install it into `ks` — the shared install leg of CMD_MIGRATE and
+  // the CMD_REPL failover adoption (MaybeAdoptReplica).  Returns false
+  // with `ks` untouched when the mandatory header/buffer section is
+  // malformed, so a corrupt blob is discarded WHOLE, never
+  // half-installed; the version-tolerant trailers (codec/opt/knob/
+  // embed) keep their reset defaults when absent, exactly as a
+  // pre-subsystem sender's blob always behaved.  Engine thread.
+  bool InstallKeyStateBlob(uint64_t key, KeyState& ks,
+                           const std::vector<char>& p) {
+    size_t pos = 0;
+    auto take = [&](void* dst, size_t n) {
+      if (pos + n > p.size()) return false;
+      std::memcpy(dst, p.data() + pos, n);
+      pos += n;
+      return true;
+    };
+    // Overflow-safe bounds: every length is compared against the bytes
+    // REMAINING (p.size() - pos), never via `pos + n` — the length
+    // fields come off the wire, and a crafted store_n near 2^64 (or an
+    // ef_n whose *4 wraps) would otherwise pass a wrapped addition and
+    // drive an out-of-bounds read or an uncaught engine bad_alloc.
+    auto remaining = [&]() -> uint64_t { return p.size() - pos; };
+    uint64_t completed = 0, declared = 0, pushes = 0;
+    uint8_t dtype = 0, flags = 0;
+    uint32_t klen = 0;
+    if (!take(&completed, 8) || !take(&declared, 8) ||
+        !take(&pushes, 8) || !take(&dtype, 1) || !take(&flags, 1) ||
+        !take(&klen, 4) || klen > remaining()) {
+      return false;
+    }
+    std::string kwargs(p.data() + pos, klen);
+    pos += klen;
+    uint64_t store_n = 0, out_n = 0, ef_n = 0;
+    if (!take(&store_n, 8) || store_n > remaining()) {
+      return false;
+    }
+    size_t store_at = pos;
+    pos += static_cast<size_t>(store_n);
+    if (!take(&out_n, 8) || out_n > remaining()) {
+      return false;
+    }
+    size_t out_at = pos;
+    pos += static_cast<size_t>(out_n);
+    if (!take(&ef_n, 8) || ef_n > remaining() / 4) {
+      return false;
+    }
+    size_t ef_at = pos;
+    pos += static_cast<size_t>(ef_n) * 4;
+    uint32_t n_seen = 0;
+    if (!take(&n_seen, 4) || n_seen > remaining() / 4) {
+      return false;
+    }
+    size_t seen_at = pos;
+    pos += static_cast<size_t>(n_seen) * 4;
+    uint32_t n_members = 0;
+    if (!take(&n_members, 4) || n_members > remaining() / 4) {
+      return false;
+    }
+    size_t members_at = pos;
+    ks.completed_round = completed;
+    ks.dtype = dtype;
+    ks.kwargs = std::move(kwargs);
+    ks.bidirectional = (flags & 1) != 0;
+    ks.onebit_scaled = (flags & 2) != 0;
+    ks.server_ef = (flags & 4) != 0;
+    ks.round_compressed = (flags & 8) != 0;
+    ks.store.assign(p.data() + store_at, p.data() + store_at + store_n);
+    ks.out.assign(p.data() + out_at, p.data() + out_at + out_n);
+    ks.ef_err.resize(ef_n);
+    if (ef_n)
+      std::memcpy(ks.ef_err.data(), p.data() + ef_at,
+                  static_cast<size_t>(ef_n) * 4);
+    ks.seen.clear();
+    for (uint32_t i = 0; i < n_seen; ++i) {
+      uint32_t w = 0;
+      std::memcpy(&w, p.data() + seen_at + i * 4ull, 4);
+      ks.seen.insert(w);
+    }
+    ks.round_members.clear();
+    for (uint32_t i = 0; i < n_members; ++i) {
+      uint32_t w = 0;
+      std::memcpy(&w, p.data() + members_at + i * 4ull, 4);
+      ks.round_members.insert(w);
+    }
+    pos = members_at + static_cast<size_t>(n_members) * 4;
+    // Codec-table trailer (absent from pre-codec senders: every field
+    // then keeps its reset default and the key behaves exactly as a
+    // launch-config key — version-tolerant by the remaining()-based
+    // parse).  Re-derive the kwargs-dependent flags through the ONE
+    // parse (ApplyCodecKwargs) so pull_comp/qblock params can never
+    // drift from the kwargs that rode the legacy fields above; the
+    // explicit flag bits above still win for bidirectional/scaled/EF
+    // (they are what the old owner actually ran).
+    ks.codec_epoch = 0;
+    ks.codec_applied_epoch = 0;
+    ks.codec_pending = false;
+    ks.codec_effective = 0;
+    ks.codec_next.clear();
+    ks.ef_fold_pending = false;
+    ks.pull_comp = codec::kOnebit;
+    ks.qblock_bits = 8;
+    ks.qblock_block = 256;
+    {
+      const std::string kw_now = ks.kwargs;
+      ApplyCodecKwargs(ks, kw_now);
+      ks.bidirectional = (flags & 1) != 0;
+      ks.onebit_scaled = (flags & 2) != 0;
+      ks.server_ef = (flags & 4) != 0;
+      ks.ef_fold_pending = false;   // trailer (or default) decides below
+    }
+    uint32_t cep = 0, caep = 0, nklen = 0;
+    uint8_t pend = 0, fold = 0;
+    uint64_t ceff = 0;
+    if (take(&cep, 4) && take(&caep, 4) && take(&pend, 1) &&
+        take(&ceff, 8) && take(&nklen, 4) && nklen <= remaining()) {
+      ks.codec_epoch = cep;
+      ks.codec_applied_epoch = caep;
+      ks.codec_pending = pend != 0;
+      ks.codec_effective = ceff;
+      ks.codec_next.assign(p.data() + pos, nklen);
+      pos += nklen;
+      if (take(&fold, 1)) ks.ef_fold_pending = fold != 0;
+    }
+    // Optimizer-plane trailer (absent from pre-subsystem senders: the
+    // reset defaults below then hold and the key behaves exactly as a
+    // sum-only key — version-tolerant by the same remaining()-based
+    // parse as the codec trailer above).
+    ks.opt_epoch = 0;
+    ks.opt_applied_epoch = 0;
+    ks.opt_pending = false;
+    ks.opt_effective = 0;
+    ks.opt_next.clear();
+    ks.opt_kwargs.clear();
+    ks.opt_kind = 0;
+    ks.params.clear();
+    ks.opt_m.clear();
+    ks.opt_v.clear();
+    ks.opt_step = 0;
+    ks.param_version = 0;
+    ks.opt_warned = false;
+    {
+      uint32_t oep = 0, oaep = 0, oklen = 0;
+      uint8_t opend = 0;
+      uint64_t oeff = 0;
+      if (take(&oep, 4) && take(&oaep, 4) && take(&opend, 1) &&
+          take(&oeff, 8) && take(&oklen, 4) && oklen <= remaining()) {
+        std::string okw(p.data() + pos, oklen);
+        pos += oklen;
+        uint32_t onlen = 0;
+        uint64_t pv = 0, ostep = 0, pn = 0, mn = 0, vn = 0;
+        if (take(&onlen, 4) && onlen <= remaining()) {
+          std::string onext(p.data() + pos, onlen);
+          pos += onlen;
+          if (take(&pv, 8) && take(&ostep, 8) &&
+              take(&pn, 8) && pn <= remaining() / 4) {
+            size_t pn_at = pos;
+            pos += static_cast<size_t>(pn) * 4;
+            if (take(&mn, 8) && mn <= remaining() / 4) {
+              size_t mn_at = pos;
+              pos += static_cast<size_t>(mn) * 4;
+              if (take(&vn, 8) && vn <= remaining() / 4) {
+                ks.opt_epoch = oep;
+                ks.opt_applied_epoch = oaep;
+                ks.opt_pending = opend != 0;
+                ks.opt_effective = oeff;
+                ks.opt_next = std::move(onext);
+                ApplyOptKwargs(ks, okw);   // sets kind + hyperparams
+                ks.param_version = pv;
+                ks.opt_step = ostep;
+                ks.params.resize(pn);
+                if (pn)
+                  std::memcpy(ks.params.data(), p.data() + pn_at,
+                              static_cast<size_t>(pn) * 4);
+                ks.opt_m.resize(mn);
+                if (mn)
+                  std::memcpy(ks.opt_m.data(), p.data() + mn_at,
+                              static_cast<size_t>(mn) * 4);
+                ks.opt_v.resize(vn);
+                if (vn)
+                  std::memcpy(ks.opt_v.data(), p.data() + pos,
+                              static_cast<size_t>(vn) * 4);
+                pos += static_cast<size_t>(vn) * 4;
+              }
+            }
+          }
+        }
+      }
+    }
+    // Global knob-table trailer (absent from pre-knob senders: the
+    // remaining()-based parse then leaves the local table untouched).
+    // Adopted IF NEWER under the same idempotency law as a racing
+    // CMD_KNOB SET, so the N per-key migrations of a drain converge on
+    // the sender's table and a post-switch drain CARRIES the knob epoch
+    // to the surviving owner.  The acked map intentionally resets:
+    // workers re-introduce themselves via the kKnobStale backstop.
+    {
+      uint32_t kep = 0, kaep = 0, kwl = 0, knl = 0;
+      uint8_t kpend = 0;
+      uint64_t keff = 0;
+      if (take(&kep, 4) && take(&kaep, 4) && take(&kpend, 1) &&
+          take(&keff, 8) && take(&kwl, 4) && kwl <= remaining()) {
+        std::string kkw(p.data() + pos, kwl);
+        pos += kwl;
+        if (take(&knl, 4) && knl <= remaining()) {
+          std::string knext(p.data() + pos, knl);
+          pos += knl;
+          std::lock_guard<std::mutex> lk(knob_mu_);
+          if (kep > knob_epoch_) {
+            knob_epoch_ = kep;
+            knob_applied_ = kaep;
+            knob_pending_ = kpend != 0;
+            knob_effective_ = keff;
+            knob_kwargs_ = std::move(kkw);
+            knob_next_ = std::move(knext);
+            knob_epoch_atomic_.store(kep, std::memory_order_release);
+          }
+        }
+      }
+    }
+    // Row-sparse embedding trailer (absent from pre-sparse senders: the
+    // reset defaults below then hold and the key stays dense —
+    // version-tolerant by the same remaining()-based parse).  The shape
+    // is bounded like every other wire length: total table elements
+    // must fit the migration frame cap, so a crafted header can never
+    // drive a giant allocation.
+    embed_table_bytes_.fetch_add(
+        0 - ks.embed_rows * ks.embed_width * 4, std::memory_order_relaxed);
+    ks.embed_rows = 0;
+    ks.embed_width = 0;
+    ks.embed_merge.clear();
+    ks.embed_out.clear();
+    ks.embed_row_step.clear();
+    {
+      uint64_t er = 0;
+      uint32_t ew = 0;
+      if (take(&er, 8) && take(&ew, 4)) {
+        auto take_rows =
+            [&](std::unordered_map<uint64_t, std::vector<float>>* m) {
+              uint64_t cnt = 0;
+              if (!take(&cnt, 8)) return false;
+              const uint64_t rb = 8ull + static_cast<uint64_t>(ew) * 4;
+              if (cnt > remaining() / rb) return false;
+              for (uint64_t i = 0; i < cnt; ++i) {
+                uint64_t row = 0;
+                if (!take(&row, 8)) return false;
+                std::vector<float> v(ew);
+                if (!take(v.data(), static_cast<size_t>(ew) * 4))
+                  return false;
+                (*m)[row] = std::move(v);
+              }
+              return true;
+            };
+        std::unordered_map<uint64_t, std::vector<float>> eo, em;
+        uint64_t nz = 0;
+        // The sender writes the (empty) rows/step sections even for a
+        // dense key, so they must be CONSUMED even when er/ew say
+        // "no table" — short-circuiting on the shape here would leave
+        // the cursor 24 bytes behind and misalign every trailer that
+        // follows (the fleet rings would silently parse as absent).
+        bool eok = (ew == 0 || er <= (max_msg_ / 4) / ew) &&
+                   take_rows(&eo) && take_rows(&em) && take(&nz, 8) &&
+                   nz <= remaining() / 12;
+        if (eok) {
+          std::vector<uint32_t> steps(static_cast<size_t>(er), 0);
+          for (uint64_t i = 0; i < nz && eok; ++i) {
+            uint64_t row = 0;
+            uint32_t s = 0;
+            eok = take(&row, 8) && take(&s, 4) && row < er;
+            if (eok) steps[static_cast<size_t>(row)] = s;
+          }
+          if (eok && er != 0 && ew != 0) {
+            ks.embed_rows = er;
+            ks.embed_width = ew;
+            ks.embed_out = std::move(eo);
+            ks.embed_merge = std::move(em);
+            ks.embed_row_step = std::move(steps);
+            embed_table_bytes_.fetch_add(er * ew * 4,
+                                         std::memory_order_relaxed);
+          }
+        }
+      }
+    }
+    // Fleet-ring trailer: global state riding a per-key blob (the knob
+    // law).  Adopt each (worker, window) ONLY-IF-ABSENT — a drain sends
+    // one copy per migrated key and the install must be idempotent —
+    // then trim to this server's cap.  Absent from pre-fleet and
+    // unarmed senders (and from repl blobs): the first take() fails on
+    // an exhausted buffer and the rings stay untouched.  Every length
+    // is bounds-checked against remaining() before use; a '{' sniff
+    // rejects blobs that can't be a published summary.
+    if (fleet_armed_) {
+      uint32_t fnw = 0;
+      if (take(&fnw, 4) && fnw <= 4096) {
+        std::lock_guard<std::mutex> lk(fleet_mu_);
+        bool fok = true;
+        for (uint32_t i = 0; i < fnw && fok; ++i) {
+          uint32_t wid = 0, nwin = 0;
+          fok = take(&wid, 4) && take(&nwin, 4) && nwin <= 4096;
+          for (uint32_t j = 0; j < nwin && fok; ++j) {
+            uint64_t widx = 0;
+            uint32_t bl = 0;
+            fok = take(&widx, 8) && take(&bl, 4) && bl <= remaining();
+            if (!fok) break;
+            const char* blob = p.data() + pos;
+            pos += bl;
+            if (bl == 0 || blob[0] != '{') continue;
+            auto& ring = fleet_rings_[wid];
+            bool have = false;
+            for (auto& e : ring)
+              if (e.first == widx) {
+                have = true;
+                break;
+              }
+            if (!have) {
+              auto it = ring.begin();
+              while (it != ring.end() && it->first < widx) ++it;
+              ring.insert(it, {widx, std::string(blob, bl)});
+              while (static_cast<int>(ring.size()) > fleet_windows_)
+                ring.pop_front();
+            }
+          }
+        }
+      }
+    }
+    OptSlotAccount(ks);
+    StatOpt(key, ks.param_version, ks.opt_kind);
+    ks.merge_ts.clear();
+    ks.push_count.store(pushes, std::memory_order_relaxed);
+    ks.declared_len.store(declared, std::memory_order_release);
+    ks.active.store(true, std::memory_order_relaxed);
+    return true;
+  }
+
+  // Install a migrated key (CMD_MIGRATE, engine side).
+  void HandleMigrate(Task& t) {
+    KeyState& ks = StateFor(t.key);
+    if (ks.active.load(std::memory_order_relaxed) &&
+        ks.push_count.load(std::memory_order_relaxed) > 0) {
+      // The local key already carries LIVE pushes: either workers
+      // rebased onto this server before a straggling migration landed
+      // (local rounds are ahead), or a worker that adopted the new ring
+      // early fresh-INITed and pushed here while the old owner's
+      // reshard stream was still in flight (local round 0, migrated
+      // round r).  Installing over either would silently destroy
+      // merged gradients and desync round counters across the fleet —
+      // refuse loudly instead: the sender keeps its copy, its next
+      // frame answers kError, and the job fails EXACT-OR-LOUD rather
+      // than diverging.
+      uint64_t completed = 0;
+      if (t.payload.size() >= 8)
+        std::memcpy(&completed, t.payload.data(), 8);
+      std::fprintf(stderr,
+                   "[byteps server] refusing migration of key %llu: local "
+                   "state has live pushes at round %llu (migrated round "
+                   "%llu)\n",
+                   static_cast<unsigned long long>(t.key),
+                   static_cast<unsigned long long>(ks.completed_round),
+                   static_cast<unsigned long long>(completed));
+      Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+      return;
+    }
+    if (!InstallKeyStateBlob(t.key, ks, t.payload)) {
+      Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+      return;
+    }
+    // A chain replica parked here for this key is superseded by the
+    // richer migration blob (it carries the OPEN round too) — drop it,
+    // and re-replicate the adopted state to THIS server's successor so
+    // the drain handoff is never the one unprotected copy.
+    if (repl_armed_) {
+      {
+        std::lock_guard<std::mutex> lk(repl_mu_);
+        replicas_.erase(t.key);
+      }
+      ReplEnqueue(ks, t.key);
+    }
+    migrations_in_.fetch_add(1, std::memory_order_relaxed);
+    StatPublish(t.key, ks.completed_round);
+    Respond(t.conn, kOk, t.req_id, t.key, nullptr, 0);
+    // A pull parked here BEFORE the migration landed (a worker that
+    // adopted the new ring early) may be satisfiable by the migrated
+    // published round — serve it now, not at some unrelated later
+    // publish.
+    FlushPulls(ks, t.key);
+  }
+
+  // --- chain replication (CMD_REPL) -----------------------------------
+  // Zero-loss failover: after every publish the owner hands the key's
+  // serialized state to ReplLoop, which streams it to the key's ring
+  // successor; pulls for the new round park (ReplBlocked) until the
+  // successor's ack proves a second copy exists, so a SIGKILLed owner
+  // can never take an already-consumed round with it.  On failover the
+  // fresh owner adopts the replica (MaybeAdoptReplica) instead of
+  // rebasing workers to round 0 — zero lost rounds, zero optimizer
+  // resets, with slots_crc + the audit digest as the proof surface.
+
+  // True while the key's newest published round has not been acked by
+  // the ring successor within the lag window — the pull gate.  Engine
+  // thread (completed_round is engine-owned); unarmed runs answer
+  // false on one boolean test.
+  bool ReplBlocked(const KeyState& ks) {
+    if (!repl_armed_) return false;
+    return ks.completed_round >
+           ks.repl_acked_round.load(std::memory_order_acquire) +
+               repl_lag_window_;
+  }
+
+  // Hand the just-published (or just-installed) state to the
+  // replication thread: newest blob per key wins, so a slow successor
+  // coalesces rounds instead of queueing them.  Engine thread — the
+  // serialize runs while the key's state is stable, and the peer I/O
+  // never sits on the publish critical path.
+  void ReplEnqueue(KeyState& ks, uint64_t key) {
+    if (!repl_armed_) return;
+    auto rpts = ReplPoints();
+    if (!ring_armed_ || draining_.load(std::memory_order_relaxed) ||
+        !rpts || rpts->empty()) {
+      // No successor to wait for (single-member ring, ring unarmed, or
+      // this server is draining — its keys are leaving anyway): the
+      // gate must never park pulls forever.
+      ks.repl_acked_round.store(ks.completed_round,
+                                std::memory_order_release);
+      return;
+    }
+    std::vector<char> blob = SerializeKeyState(ks);
+    {
+      std::lock_guard<std::mutex> lk(repl_mu_);
+      repl_pending_[key] = std::move(blob);
+      repl_pub_[key] = ks.completed_round;
+    }
+    repl_cv_.notify_one();
+  }
+
+  // Ack bookkeeping shared by the success and no-successor legs: lift
+  // the key's acked round (only-if-newer — acks can arrive out of
+  // order around a coalesced re-send), then wake the key's engine so
+  // the gated pulls flush on the thread that owns the round state.
+  void ReplAck(uint64_t key, uint64_t round) {
+    KeyState* ks = FindState(key);
+    if (ks != nullptr) {
+      uint64_t prev = ks->repl_acked_round.load(std::memory_order_relaxed);
+      while (prev < round &&
+             !ks->repl_acked_round.compare_exchange_weak(
+                 prev, round, std::memory_order_release,
+                 std::memory_order_relaxed)) {
+      }
+    }
+    {
+      std::lock_guard<std::mutex> lk(repl_mu_);
+      auto& acked = repl_ack_[key];
+      if (round > acked) acked = round;
+    }
+    Task t;
+    t.cmd = kReplFlushTask;
+    t.dtype = 0;
+    t.flags = 0;
+    t.req_id = 0;
+    t.worker_id = 0;
+    t.key = key;
+    t.conn = nullptr;
+    t.seq = seq_.fetch_add(1);
+    t.priority = UINT64_MAX;
+    queues_[EngineFor(key, 0)].Push(std::move(t));
+  }
+
+  // Replication sender thread (Run starts it only when armed): drains
+  // the newest-blob queue to each key's ring successor.  A failed send
+  // re-queues the blob and backs off — PeerRequest's 2s negative cache
+  // makes the retry a fast false while the successor is down, and a
+  // ring transition re-homes the key's successor via ReplPoints.
+  void ReplLoop() {
+    for (;;) {
+      uint64_t key = 0;
+      std::vector<char> blob;
+      {
+        std::unique_lock<std::mutex> lk(repl_mu_);
+        repl_cv_.wait(lk, [&] {
+          return shutdown_.load() || !repl_pending_.empty();
+        });
+        if (shutdown_.load()) return;
+        auto it = repl_pending_.begin();
+        key = it->first;
+        blob = std::move(it->second);
+        repl_pending_.erase(it);
+      }
+      uint64_t round = 0;
+      if (blob.size() >= 8) std::memcpy(&round, blob.data(), 8);
+      uint32_t target = 0;
+      std::string host;
+      int port = 0;
+      {
+        auto rpts = ReplPoints();
+        if (rpts && !rpts->empty()) {
+          target = ring::Owner(key, *rpts);
+          std::lock_guard<std::mutex> lk(ring_mu_);
+          auto it = peer_book_.find(target);
+          if (it != peer_book_.end()) {
+            host = it->second.first;
+            port = it->second.second;
+          }
+        }
+      }
+      if (host.empty()) {
+        // Successor vanished mid-flight (scale-down to one server):
+        // nothing to replicate to — self-ack so the gate opens.
+        ReplAck(key, round);
+        continue;
+      }
+      if (PeerRequest(target, host, port, kRepl, 0, key, blob.data(),
+                      blob.size())) {
+        repl_rounds_out_.fetch_add(1, std::memory_order_relaxed);
+        repl_bytes_out_.fetch_add(blob.size(), std::memory_order_relaxed);
+        ReplAck(key, round);
+      } else {
+        {
+          std::lock_guard<std::mutex> lk(repl_mu_);
+          // Newest wins: only re-queue when no fresher publish landed.
+          if (repl_pending_.find(key) == repl_pending_.end())
+            repl_pending_[key] = std::move(blob);
+        }
+        // Throttle the retry loop; the negative cache already makes
+        // each failed attempt cheap.
+        std::this_thread::sleep_for(std::chrono::milliseconds(100));
+        if (shutdown_.load()) return;
+      }
+    }
+  }
+
+  // Failover adoption: the FIRST frame touching a key this server now
+  // owns but holds no live state for consumes the parked chain replica
+  // — the fresh owner resumes from the replicated published round +
+  // optimizer slots instead of rebasing workers to round 0.  Engine
+  // thread.  A malformed replica is discarded whole and the legacy
+  // rebase path takes over (adopt-whole-or-discard).  Gated on an
+  // advanced ring epoch: at epoch 0 ownership is not enforced and a
+  // misrouted frame must not install a replica under a live owner.
+  void MaybeAdoptReplica(uint64_t key, KeyState& ks) {
+    if (!repl_armed_) return;
+    if (ks.active.load(std::memory_order_relaxed) ||
+        ks.push_count.load(std::memory_order_relaxed) != 0)
+      return;
+    if (ring_epoch_atomic_.load(std::memory_order_acquire) == 0 ||
+        RingMisplaced(key))
+      return;
+    std::vector<char> blob;
+    {
+      std::lock_guard<std::mutex> lk(repl_mu_);
+      auto it = replicas_.find(key);
+      if (it == replicas_.end()) return;
+      blob = std::move(it->second.second);
+      replicas_.erase(it);
+    }
+    if (!InstallKeyStateBlob(key, ks, blob)) {
+      std::fprintf(stderr,
+                   "[byteps server] discarding malformed replica for key "
+                   "%llu (%zu bytes)\n",
+                   static_cast<unsigned long long>(key), blob.size());
+      return;
+    }
+    repl_promotions_.fetch_add(1, std::memory_order_relaxed);
+    std::fprintf(stderr,
+                 "[byteps server] adopted replica for key %llu at round "
+                 "%llu (param_version %llu)\n",
+                 static_cast<unsigned long long>(key),
+                 static_cast<unsigned long long>(ks.completed_round),
+                 static_cast<unsigned long long>(ks.param_version));
+    StatPublish(key, ks.completed_round);
+    // Re-protect immediately: the adopted round is the only copy until
+    // THIS server's successor acks it (the gate stays closed exactly
+    // that long), so a second failure still loses nothing.
+    ReplEnqueue(ks, key);
+    FlushPulls(ks, key);
+  }
+
+  // Replica GC on a ring transition (under ring_mu_): keep a parked
+  // replica only while this server is the key's owner (a promotion
+  // candidate) or its current successor; anything else — e.g. a
+  // scale-up moved the successor role — is dropped, and the live owner
+  // re-protects at its next publish.
+  void ReplSweepLocked() {
+    auto pts = RingPoints();
+    if (!pts || pts->empty()) return;
+    std::lock_guard<std::mutex> lk(repl_mu_);
+    for (auto it = replicas_.begin(); it != replicas_.end();) {
+      const uint64_t key = it->first;
+      const uint32_t owner = ring::Owner(key, *pts);
+      bool keep = owner == my_server_id_;
+      if (!keep) {
+        std::vector<std::pair<uint64_t, uint32_t>> minus;
+        minus.reserve(pts->size());
+        for (auto& pt : *pts)
+          if (pt.second != owner) minus.push_back(pt);
+        keep = !minus.empty() &&
+               ring::Owner(key, minus) == my_server_id_;
+      }
+      if (keep)
+        ++it;
+      else
+        it = replicas_.erase(it);
+    }
+  }
+
+  // Joining server: read the current ring from a launch peer (binary
+  // CMD_RING), compose next-epoch = current + self, apply locally (so
+  // migrations streaming in are accepted), then announce to every
+  // member.  Runs on its own thread once the listeners are up.
+  void JoinLoop() {
+    // Snapshot the launch peer book under ring_mu_: ApplyRing mutates
+    // peer_book_ from reader threads (a concurrent worker proposal),
+    // and an unlocked map iteration racing that insert is UB.
+    std::map<uint32_t, std::pair<std::string, int>> launch_peers;
+    {
+      std::lock_guard<std::mutex> lk(ring_mu_);
+      launch_peers = peer_book_;
+    }
+    std::vector<char> bin;
+    bool got = false;
+    for (int attempt = 0; attempt < 120 && !shutdown_.load(); ++attempt) {
+      for (auto& kv : launch_peers) {
+        if (kv.first == my_server_id_) continue;
+        if (PeerRequest(kv.first, kv.second.first, kv.second.second,
+                        kRing, /*flags=*/1, 0, nullptr, 0, &bin)) {
+          got = true;
+          break;
+        }
+      }
+      if (got) break;
+      std::this_thread::sleep_for(std::chrono::milliseconds(500));
+    }
+    if (!got) {
+      std::fprintf(stderr,
+                   "[byteps server] ring join failed: no peer answered "
+                   "CMD_RING; serving without joining\n");
+      return;
+    }
+    // Compose-announce-CONFIRM, retried: peers reject a RING_SET whose
+    // epoch collides with a concurrent transition (e.g. a worker
+    // failover proposal that claimed the same epoch+1) yet still answer
+    // kOk with their authoritative table — so membership must be
+    // verified by re-reading the ring, never assumed from the acks.
+    for (int round = 0; round < 5 && !shutdown_.load(); ++round) {
+      uint64_t epoch = 0;
+      uint32_t vnodes = static_cast<uint32_t>(ring_vnodes_);
+      std::vector<RingServer> servers;
+      if (!ParseRingWire(bin, &epoch, &vnodes, &servers)) {
+        std::fprintf(stderr,
+                     "[byteps server] ring join failed: unparseable peer "
+                     "ring; serving without joining\n");
+        return;
+      }
+      bool already_member = false;
+      for (auto& s : servers)
+        if (s.id == my_server_id_) already_member = true;
+      if (already_member) {
+        ApplyRing(epoch, vnodes, servers, /*make_draining=*/false);
+        std::fprintf(stderr,
+                     "[byteps server] joined the ring as server %u "
+                     "(epoch %llu)\n", my_server_id_,
+                     static_cast<unsigned long long>(epoch));
+        return;
+      }
+      std::vector<RingServer> next;
+      for (auto& s : servers) next.push_back(s);
+      next.push_back(
+          RingServer{my_server_id_, advertise_host_, advertise_port_});
+      ApplyRing(epoch + 1, vnodes, next, /*make_draining=*/false);
+      std::string wire = RingWire();
+      for (auto& s : next) {
+        if (s.id == my_server_id_) continue;
+        auto it = launch_peers.find(s.id);
+        auto addr = it != launch_peers.end()
+                        ? it->second : std::make_pair(s.host, s.port);
+        if (!PeerRequest(s.id, addr.first, addr.second, kRingSet, 0, 0,
+                         wire.data(), wire.size()))
+          std::fprintf(stderr,
+                       "[byteps server] ring join announce to server %u "
+                       "failed (it will learn via a worker proposal)\n",
+                       s.id);
+      }
+      // Confirm against a peer's view; on a collision, re-compose from
+      // the fresher table next round.
+      std::this_thread::sleep_for(std::chrono::milliseconds(200));
+      got = false;
+      for (auto& kv : launch_peers) {
+        if (kv.first == my_server_id_) continue;
+        if (PeerRequest(kv.first, kv.second.first, kv.second.second,
+                        kRing, /*flags=*/1, 0, nullptr, 0, &bin)) {
+          got = true;
+          break;
+        }
+      }
+      if (!got) {
+        std::fprintf(stderr,
+                     "[byteps server] ring join: peers unreachable after "
+                     "announce; assuming epoch %llu stands\n",
+                     static_cast<unsigned long long>(
+                         ring_epoch_atomic_.load(
+                             std::memory_order_acquire)));
+        return;
+      }
+    }
+    std::fprintf(stderr,
+                 "[byteps server] ring join did not converge after 5 "
+                 "rounds; serving with the last announced table\n");
+  }
+
+  void ReaderLoop(Conn* conn) {
+    ReaderBody(conn);
+    // Reader exit (peer hung up, we rejected an oversize frame, or a
+    // shutdown command): half-close so the peer sees EOF immediately
+    // instead of a silently dead socket.  Engine responses racing on
+    // this conn fail with EPIPE, which Respond already tolerates
+    // (crashed-worker path).  The fd itself closes as soon as the last
+    // outstanding holder (queued task / deferred pull / barrier waiter)
+    // releases — immediately, for the rejected-rogue-frame case.
+    {
+      std::lock_guard<std::mutex> lk(conns_mu_);
+      if (conn->fd >= 0) ::shutdown(conn->fd, SHUT_RDWR);
+    }
+    conn->reader_done.store(true, std::memory_order_release);
+    {
+      // Drop the conn's recycled receive buffers: the Conn object itself
+      // lives until server shutdown (conns_ is never pruned), so a
+      // reconnect-churning fleet would otherwise pin ~4 payload-sized
+      // buffers per dead connection forever.
+      std::lock_guard<std::mutex> lk(conn->pool_mu);
+      conn->bufpool.clear();
+      conn->bufpool.shrink_to_fit();
+    }
+    MaybeCloseFd(conn);
+    {
+      // notify while HOLDING the mutex: with a notify after release,
+      // another reader's notify can wake Run()'s predicated wait first,
+      // the Server (stack-allocated in bps_ps_server_run) is destroyed,
+      // and this thread's pending notify_all() touches a freed cv.
+      std::lock_guard<std::mutex> lk(readers_mu_);
+      --active_readers_;
+      readers_cv_.notify_all();
+    }
+  }
+
+  // Pop a recycled receive buffer off the conn's freelist (resize only
+  // value-initializes GROWTH, and partition payloads are uniform, so the
+  // steady state is a no-op resize) / return one after the engine is done
+  // with it.  The conn outlives every holder (deleted only at server
+  // shutdown), so the engine-side return can't use-after-free.
+  static std::vector<char> PopBuf(Conn* c, size_t n) {
+    std::vector<char> b;
+    if (n >= 4096) {   // PushBuf's retention floor: a control frame must
+      //                  not evict (and then destroy) a pooled 4MB data
+      //                  buffer it will never refill
+      std::lock_guard<std::mutex> lk(c->pool_mu);
+      if (!c->bufpool.empty()) {
+        b = std::move(c->bufpool.back());
+        c->bufpool.pop_back();
+      }
+    }
+    b.resize(n);
+    return b;
+  }
+  static void PushBuf(Conn* c, std::vector<char>&& b) {
+    if (b.capacity() < 4096) return;   // tiny frames: not worth pooling
+    // A dead reader never pops again — returning a buffer after its
+    // exit-time pool purge would re-pin payload memory on a Conn that
+    // lives (unpooled) until server shutdown.
+    if (c->reader_done.load(std::memory_order_acquire)) return;
+    std::lock_guard<std::mutex> lk(c->pool_mu);
+    if (c->bufpool.size() < 4) c->bufpool.push_back(std::move(b));
+  }
+
+  KeyState* FindState(uint64_t key) {
+    std::lock_guard<std::mutex> lk(store_mu_);
+    auto it = store_.find(key);
+    return it == store_.end() ? nullptr : &it->second;
+  }
+
+  void ReaderBody(Conn* conn) {
+    ReqHeader h;
+    while (!shutdown_.load()) {
+      if (!ReadFull(conn->fd, &h, sizeof(h))) break;
+      if (h.len > max_msg_) break;  // corrupt/hostile frame: drop the conn
+      // Scatter receive: a sync raw-f32 push for an already-declared key
+      // (reader-visible via the declared_len mirror) whose scatter lease
+      // is free reads its payload straight off the socket into the key's
+      // persistent scatter buffer — no per-push allocation, no memset,
+      // and on the round's first push the engine ADOPTS the buffer into
+      // the merge store by swap (HandlePush), so the payload's bytes are
+      // written exactly once end to end.  Lease losers / undeclared keys
+      // / compressed frames take the pooled buffered path below, with
+      // identical merge semantics (regression-tested).
+      bool scattered = false;
+      const uint64_t key = h.key;   // aligned copy (h is packed)
+      std::vector<char> payload;
+      if (h.cmd == kPush && h.dtype == kF32 && !async_ && h.len > 0) {
+        KeyState* ks = FindState(key);
+        if (ks &&
+            ks->declared_len.load(std::memory_order_acquire) == h.len &&
+            !ks->scatter_leased.exchange(true,
+                                         std::memory_order_acquire)) {
+          if (ks->scatter_buf.size() != h.len)
+            ks->scatter_buf.resize(h.len);
+          if (!ReadFull(conn->fd, ks->scatter_buf.data(), h.len)) {
+            // Conn died mid-payload: the lease must not leak.  The
+            // half-filled scatter_buf is harmless — the next holder
+            // overwrites it entirely before the engine ever reads it.
+            ks->scatter_leased.store(false, std::memory_order_release);
+            break;
+          }
+          scattered = true;
+          scatter_frames_.fetch_add(1, std::memory_order_relaxed);
+        }
+      }
+      if (!scattered) {
+        payload = PopBuf(conn, h.len);
+        if (h.len && !ReadFull(conn->fd, payload.data(), h.len)) break;
+      }
+      bytes_in_.fetch_add(sizeof(h) + h.len, std::memory_order_relaxed);
+      // Lease refresh: any frame from a live member renews its lease
+      // (the "refreshed by traffic/CMD_PING" contract) — one uncontended
+      // lock per frame, noise next to the per-frame EngineFor lookup.
+      TouchWorker(h.worker_id);
+      switch (h.cmd) {
+        case kHello: {
+          // HELLO advertises server mode: u8 async | u8 schedule.  Lets
+          // clients fail fast on mode mismatches (e.g. weight-delta async
+          // training against a sync server would silently train on deltas).
+          // It is also the elastic join/rejoin door: a HELLO from an id
+          // that is not currently live admits it at the next epoch
+          // boundary (a live member's HELLO — every fixed-mode session
+          // start — changes nothing, keeping the fixed wire identical).
+          // flags bit 0 = OBSERVER: a pull-only session introducing
+          // itself without joining the worker set — it must never be
+          // admitted into elastic membership (it would stall every
+          // round it never pushes into).  TouchWorker already ignores
+          // non-members, so an observer stays invisible to rounds in
+          // both fixed and elastic modes.
+          if (!(h.flags & 1)) AdmitWorker(h.worker_id);
+          char mode[2] = {static_cast<char>(async_ ? 1 : 0),
+                          static_cast<char>(schedule_ ? 1 : 0)};
+          Respond(conn, kOk, h.req_id, h.key, mode, 2);
+          break;
+        }
+        case kLeave:
+          // Graceful departure: the client drained its in-flight rounds
+          // first (client.py leave()), so open rounds either already
+          // carry its push or re-finalize without it.
+          RemoveWorker(h.worker_id, "graceful leave");
+          Respond(conn, kOk, h.req_id, h.key, nullptr, 0);
+          break;
+        case kMembers: {
+          std::string js = MembersJson();
+          Respond(conn, kOk, h.req_id, h.key, js.data(), js.size());
+          break;
+        }
+        case kRing: {
+          // Ring read: JSON for workers, binary (flags bit0) for a
+          // joining server's C++-side parse.  Reader thread so the ring
+          // can still be read past a wedged engine — the failover path
+          // depends on it.
+          if (h.flags & 1) {
+            std::string b = RingWire();
+            Respond(conn, kOk, h.req_id, h.key, b.data(), b.size());
+          } else {
+            std::string js = RingJson();
+            Respond(conn, kOk, h.req_id, h.key, js.data(), js.size());
+          }
+          break;
+        }
+        case kRingSet:
+        case kDrain: {
+          // Ring write / graceful drain.  Both carry a full binary
+          // next-epoch table; drain additionally marks this server
+          // draining (its member set excludes it, so every owned key
+          // migrates out and subsequent frames are kMoved-redirected).
+          uint64_t ep = 0;
+          uint32_t vn = 0;
+          std::vector<RingServer> srvs;
+          if (!ring_armed_ ||
+              !ParseRingWire(payload, &ep, &vn, &srvs)) {
+            Respond(conn, kError, h.req_id, h.key, nullptr, 0);
+            break;
+          }
+          ApplyRing(ep, vn, std::move(srvs), h.cmd == kDrain);
+          std::string js = RingJson();
+          Respond(conn, kOk, h.req_id, h.key, js.data(), js.size());
+          break;
+        }
+        case kPing:
+          if (h.flags & kFlagTraced) {
+            // Traced ping: answer with this host's monotonic clock so
+            // the worker can estimate the cross-host offset (NTP-style
+            // midpoint, client.py estimate_clock_offset).  Untraced
+            // pings keep the historical empty response byte-for-byte.
+            int64_t now = NowUs();
+            Respond(conn, kOk, h.req_id, h.key,
+                    reinterpret_cast<const char*>(&now), sizeof(now));
+          } else {
+            Respond(conn, kOk, h.req_id, h.key, nullptr, 0);
+          }
+          break;
+        case kTrace: {
+          // Reader-thread drain, like kStats: a trace fetch must answer
+          // even when an engine is wedged mid-round — that wedge is
+          // exactly what the spans exist to diagnose.
+          std::string js = tracer_.DrainJson();
+          Respond(conn, kOk, h.req_id, h.key, js.data(), js.size());
+          break;
+        }
+        case kStats: {
+          // Reader-thread stats snapshot: never queues behind a busy (or
+          // wedged) engine, so an operator can still scrape a server
+          // that stopped making round progress — the exact situation
+          // stats exist for.
+          std::string js = StatsJson();
+          Respond(conn, kOk, h.req_id, h.key, js.data(), js.size());
+          break;
+        }
+        case kKnob:
+          // Reader-thread knob plane, like kStats: the table is global
+          // control-plane state and a SET/GET must answer even when an
+          // engine is wedged mid-round.
+          HandleKnobFrame(conn, h.req_id, key, h.flags, h.worker_id,
+                          payload);
+          break;
+        case kRepl: {
+          // Chain-replica install (peer traffic): park the serialized
+          // key-state blob only-if-newer — the first 8 bytes are the
+          // sender's completed_round, and a replayed or reordered blob
+          // can never regress the parked copy (the CMD_RING_SET
+          // idempotency law).  NOTHING is installed here: the blob
+          // waits, whole, for a failover to re-home the key
+          // (MaybeAdoptReplica) — a torn transfer never reaches this
+          // point at all because the frame header's length prefix makes
+          // delivery all-or-nothing (adopt-whole-or-discard).  Reader
+          // thread, like kStats: a replica must land even when this
+          // server's engines are wedged mid-round.
+          uint64_t r = 0;
+          if (!repl_armed_ || payload.size() < 30) {
+            Respond(conn, kError, h.req_id, h.key, nullptr, 0);
+            break;
+          }
+          std::memcpy(&r, payload.data(), 8);
+          {
+            std::lock_guard<std::mutex> lk(repl_mu_);
+            auto& slot = replicas_[key];
+            if (slot.second.empty() || r > slot.first) {
+              slot.first = r;
+              slot.second = std::move(payload);
+            }
+          }
+          repl_rounds_in_.fetch_add(1, std::memory_order_relaxed);
+          repl_bytes_in_.fetch_add(h.len, std::memory_order_relaxed);
+          Respond(conn, kOk, h.req_id, h.key,
+                  reinterpret_cast<const char*>(&r), 8);
+          break;
+        }
+        case kAudit: {
+          // Reader-thread digest-window read, same rationale as kStats:
+          // the auditor's cross-check must answer even when an engine is
+          // wedged mid-round — a silent wedge is one of the failure
+          // modes it exists to name.  An unarmed server answers
+          // {"armed":0} so a probing client downgrades instead of
+          // sending audit markers nothing will honor.
+          std::string js = AuditJson();
+          Respond(conn, kOk, h.req_id, h.key, js.data(), js.size());
+          break;
+        }
+        case kWindow: {
+          // Fleet window publish: park the worker's JSON summary in its
+          // bounded ring, keyed by window index (the frame's key field).
+          // Reader thread, like kStats/kRepl — a publish is control-
+          // plane state and must land even when every engine is wedged.
+          // Re-publishing a held index replaces in place (idempotent
+          // retries); a fresh index appends in order and the ring trims
+          // from the oldest end.  The blob is stored verbatim, never
+          // parsed — only a shape sniff (leading '{') rejects garbage.
+          if (!fleet_armed_ || payload.empty() || payload[0] != '{') {
+            Respond(conn, kError, h.req_id, h.key, nullptr, 0);
+            break;
+          }
+          {
+            std::lock_guard<std::mutex> lk(fleet_mu_);
+            auto& ring = fleet_rings_[h.worker_id];
+            bool replaced = false;
+            for (auto& e : ring)
+              if (e.first == key) {
+                e.second.assign(payload.begin(), payload.end());
+                replaced = true;
+                break;
+              }
+            if (!replaced) {
+              auto it = ring.begin();
+              while (it != ring.end() && it->first < key) ++it;
+              ring.insert(it, {key, std::string(payload.begin(),
+                                                payload.end())});
+              while (static_cast<int>(ring.size()) > fleet_windows_)
+                ring.pop_front();
+            }
+          }
+          fleet_publishes_.fetch_add(1, std::memory_order_relaxed);
+          Respond(conn, kOk, h.req_id, h.key, nullptr, 0);
+          break;
+        }
+        case kFleet: {
+          // Merged fleet view, and the client's bootstrap probe: an
+          // unarmed server answers {"armed":0} (kOk) so a probing
+          // client downgrades instead of publishing windows nothing
+          // retains — the kAudit probe law.
+          std::string js = FleetJson();
+          Respond(conn, kOk, h.req_id, h.key, js.data(), js.size());
+          break;
+        }
+        case kLrScale: {
+          // Fan out to every engine: per-key state is engine-owned, so
+          // each engine rescales the ef_err of the keys assigned to it.
+          // Highest priority so (under scheduling) the rescale runs ahead
+          // of queued pushes; callers apply LR changes between steps.
+          for (int i = 0; i < engine_threads_; ++i) {
+            Task t;
+            t.cmd = h.cmd;
+            t.dtype = 0;
+            t.flags = 0;
+            t.req_id = h.req_id;
+            t.worker_id = h.worker_id;
+            t.key = 0;
+            t.payload = payload;  // copy per engine
+            t.conn = nullptr;     // the reader already acks
+            t.seq = seq_.fetch_add(1);
+            t.priority = UINT64_MAX;
+            queues_[i].Push(std::move(t));
+          }
+          Respond(conn, kOk, h.req_id, h.key, nullptr, 0);
+          break;
+        }
+        case kBarrier:
+          AddRef(conn);   // barrier waiters outlive the reader
+          HandleBarrier(conn, h.req_id, h.key, h.worker_id);
+          break;
+        case kShutdown:
+          Respond(conn, kOk, h.req_id, h.key, nullptr, 0);
+          shutdown_.store(true);
+          // Unblock accept() on both listeners.
+          { int s = socket(AF_INET, SOCK_STREAM, 0);
+            sockaddr_in a{};
+            a.sin_family = AF_INET;
+            a.sin_addr.s_addr = htonl(INADDR_LOOPBACK);
+            a.sin_port = htons(static_cast<uint16_t>(port_));
+            connect(s, reinterpret_cast<sockaddr*>(&a), sizeof(a));
+            close(s); }
+          if (uds_listen_fd_ >= 0) {
+            int s = socket(AF_UNIX, SOCK_STREAM, 0);
+            sockaddr_un a{};
+            a.sun_family = AF_UNIX;
+            std::strncpy(a.sun_path, uds_path_.c_str(),
+                         sizeof(a.sun_path) - 1);
+            connect(s, reinterpret_cast<sockaddr*>(&a), sizeof(a));
+            close(s);
+          }
+          return;
+        default: {
+          Task t;
+          t.cmd = h.cmd;
+          t.dtype = h.dtype;
+          t.flags = h.flags;
+          t.req_id = h.req_id;
+          t.worker_id = h.worker_id;
+          t.key = h.key;
+          t.payload = std::move(payload);
+          t.conn = conn;
+          t.scattered = scattered;
+          t.seq = seq_.fetch_add(1);
+          t.priority = 0;
+          // Clock read only for traced frames: the untraced hot path
+          // stays exactly as cheap as before.
+          t.recv_us = (h.flags & kFlagTraced) ? NowUs() : 0;
+          // `key` is the loop's aligned copy of h.key: h is
+          // #pragma pack(1), so binding unordered_map::operator[]'s
+          // `const key_type&` directly to h.key is UB (misaligned 8-byte
+          // reference — UBSan catches it under the 4x2 soak).
+          int idx = EngineFor(key, h.len);
+          if (schedule_) {
+            std::lock_guard<std::mutex> lk(store_mu_);
+            t.priority = store_[key].push_count.load(
+                std::memory_order_relaxed);  // closest-to-done first
+          }
+          AddRef(conn);   // the queued task holds the conn
+          queues_[idx].Push(std::move(t));
+        }
+      }
+    }
+  }
+
+  void HandleBarrier(Conn* conn, uint32_t req_id, uint64_t gen,
+                     uint32_t worker) {
+    // Waiters are grouped by generation so overlapping barriers (or a late
+    // worker from generation g arriving amid generation g+1 waiters) can
+    // never release a mixed group early.  Release is IDENTITY-based:
+    // every LIVE member must have arrived (== the historical
+    // distinct-count bar for a fixed dense world, but immune to a dead
+    // worker's stale arrival under-filling or over-filling the group).
+    // The live set is read INSIDE barrier_mu_ (member_mu_ nests inside
+    // it; nothing takes them in the other order while holding
+    // member_mu_), so an admit/evict between the read and the insert
+    // cannot release against a stale world.
+    //
+    // A RELEASED generation stays an open door: a worker arriving at a
+    // generation that already released — the elastic-join case, a
+    // replacement worker's init() hitting the gen-0 startup rendezvous
+    // the incumbents passed long ago — is answered immediately instead
+    // of waiting for arrivals that will never come.  Generations are
+    // therefore one-shot (monotonically increasing per job), which is
+    // how every caller already uses them.
+    std::vector<PendingPull> to_release;
+    bool already_released = false;
+    {
+      std::lock_guard<std::mutex> lk(barrier_mu_);
+      if (released_gens_.count(gen)) {
+        already_released = true;
+      } else {
+        auto& group = barrier_waiters_[gen];
+        group.push_back({conn, req_id, gen, 0, worker});
+        if (BarrierGroupComplete(group, LiveWorkers())) {
+          to_release.swap(group);
+          barrier_waiters_.erase(gen);
+          released_gens_.insert(gen);
+        }
+      }
+    }
+    if (already_released) {
+      Respond(conn, kOk, req_id, gen, nullptr, 0);
+      ReleaseRef(conn);
+      return;
+    }
+    for (auto& w : to_release) {
+      Respond(w.conn, kOk, w.req_id, w.key, nullptr, 0);
+      ReleaseRef(w.conn);
+    }
+  }
+
+  void EngineLoop(int idx) {
+    Task t;
+    while (queues_[idx].Pop(&t)) {
+      switch (t.cmd) {
+        case kInit: HandleInit(t); break;
+        case kPush: HandlePush(t); break;
+        case kPull: HandlePull(t); break;
+        case kLrScale: HandleLrScale(t, idx); break;
+        case kMembershipTask:
+          // Internal fan-outs carry no conn; a WIRE frame claiming this
+          // cmd is a protocol violator (or a probing client) and gets
+          // the unknown-command error — never a membership mutation.
+          if (t.conn == nullptr) HandleMembership(t, idx);
+          else Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+          break;
+        case kRingTask:
+          // Same wire-rejection rule as kMembershipTask.
+          if (t.conn == nullptr) HandleReshard(idx);
+          else Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+          break;
+        case kReplFlushTask:
+          // Successor ack landed (ReplAck): serve the pulls the
+          // zero-loss gate parked.  Same wire-rejection rule as the
+          // other internal tasks.
+          if (t.conn == nullptr) {
+            KeyState* ks = FindState(t.key);
+            if (ks != nullptr) FlushPulls(*ks, t.key);
+          } else {
+            Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+          }
+          break;
+        case kMigrate: HandleMigrate(t); break;
+        case kCodec: HandleCodec(t); break;
+        case kOpt: HandleOpt(t); break;
+        default: Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+      }
+      // The task's hold ends here (a deferred pull took its OWN ref in
+      // HandlePull before this release, so the count can't dip to zero
+      // in between).  kLrScale tasks carry no conn.  The payload buffer
+      // recycles back to the conn's freelist — for a COPY_FIRST push
+      // this is the PREVIOUS round's store (HandlePush swaps rather than
+      // moves), so the same few buffers cycle socket -> store -> socket.
+      if (t.conn) {
+        PushBuf(t.conn, std::move(t.payload));
+        ReleaseRef(t.conn);
+      }
+      t.conn = nullptr;
+    }
+  }
+
+  void HandleLrScale(Task& t, int idx) {
+    if (t.payload.size() < 4) return;
+    float scale = 1.0f;
+    std::memcpy(&scale, t.payload.data(), 4);
+    std::vector<uint64_t> keys;
+    {
+      std::lock_guard<std::mutex> lk(assign_mu_);
+      for (auto& kv : key_engine_)
+        if (kv.second == idx) keys.push_back(kv.first);
+    }
+    for (uint64_t k : keys) {
+      KeyState& ks = StateFor(k);
+      for (auto& e : ks.ef_err) e *= scale;
+    }
+  }
+
+  KeyState& StateFor(uint64_t key) {
+    std::lock_guard<std::mutex> lk(store_mu_);
+    return store_[key];
+  }
+
+  // The one round-completion predicate.  Empty round_members = fixed
+  // membership (epoch never advanced): the historical distinct-sender
+  // count.  Otherwise the round publishes exactly when every member of
+  // ITS contributor set has merged — departed workers were erased from
+  // the set by the transition fan-out, so a survivor-complete round
+  // re-finalizes instead of waiting on the dead.
+  bool RoundComplete(const KeyState& ks) const {
+    if (slice_size_ <= 1) {
+      if (ks.round_members.empty())
+        return static_cast<int>(ks.seen.size()) >= num_workers_;
+      for (uint32_t w : ks.round_members)
+        if (!ks.seen.count(w)) return false;
+      return true;
+    }
+    // Hierarchical mode: completion counts SLICES, not chips.  The
+    // expected set is the slices the round's contributor set spans
+    // (round_members, or the dense launch world at epoch 0); a slice
+    // is covered once ANY of its members merged — normally its leader,
+    // or the follower that took leadership over mid-round.  A slice
+    // whose members were all erased by a membership transition simply
+    // stops being expected — "a slice leaving = that many chips
+    // leaving", expressed through the same round_members machinery.
+    std::set<uint32_t> want;
+    if (ks.round_members.empty()) {
+      for (int w = 0; w < num_workers_; ++w)
+        want.insert(static_cast<uint32_t>(w) /
+                    static_cast<uint32_t>(slice_size_));
+    } else {
+      for (uint32_t w : ks.round_members)
+        want.insert(w / static_cast<uint32_t>(slice_size_));
+    }
+    for (uint32_t w : ks.seen)
+      want.erase(w / static_cast<uint32_t>(slice_size_));
+    return want.empty();
+  }
+
+  // Membership transition, engine side (see FanOutMembership for the
+  // payload).  Runs on the thread that owns each key, so no lock beyond
+  // the assignment map is needed.
+  void HandleMembership(Task& t, int idx) {
+    const char* p = t.payload.data();
+    size_t left = t.payload.size();
+    if (left < 5) return;
+    const bool refinalize = p[0] != 0;
+    uint32_t n_old = 0;
+    std::memcpy(&n_old, p + 1, 4);
+    if (left < 9 + static_cast<size_t>(n_old) * 4) return;
+    std::set<uint32_t> old_live;
+    for (uint32_t i = 0; i < n_old; ++i) {
+      uint32_t w = 0;
+      std::memcpy(&w, p + 5 + i * 4, 4);
+      old_live.insert(w);
+    }
+    uint32_t n_rm = 0;
+    std::memcpy(&n_rm, p + 5 + static_cast<size_t>(n_old) * 4, 4);
+    if (left < 9 + (static_cast<size_t>(n_old) + n_rm) * 4) return;
+    std::set<uint32_t> removed;
+    for (uint32_t i = 0; i < n_rm; ++i) {
+      uint32_t w = 0;
+      std::memcpy(&w, p + 9 + (static_cast<size_t>(n_old) + i) * 4, 4);
+      removed.insert(w);
+    }
+    if (async_) return;   // no rounds to pin or re-finalize
+    std::vector<uint64_t> keys;
+    {
+      std::lock_guard<std::mutex> lk(assign_mu_);
+      for (auto& kv : key_engine_)
+        if (kv.second == idx) keys.push_back(kv.first);
+    }
+    for (uint64_t key : keys) {
+      KeyState& ks = StateFor(key);
+      // Pin a still-open epoch-0 round to the set it opened under: from
+      // this transition on, a joiner must never be able to complete (or
+      // pollute) a round that predates its admission.
+      if (!ks.seen.empty() && ks.round_members.empty())
+        ks.round_members = old_live;
+      // Erase departures — the surviving members become the round's
+      // whole requirement (the re-finalize contract).
+      if (!ks.round_members.empty())
+        for (uint32_t w : removed) ks.round_members.erase(w);
+      if (!refinalize || ks.seen.empty()) continue;
+      // Publish if the survivors are all in.  A round whose pinned set
+      // emptied entirely (every contributor departed) publishes what was
+      // merged: the departed workers DID contribute, and holding the
+      // round open would wedge every joiner's first pull.
+      if (ks.round_members.empty() || RoundComplete(ks))
+        PublishRound(ks, key, t.worker_id);
+    }
+  }
+
+  // -- per-key codec table (CMD_CODEC) ------------------------------------
+  // Small "k=v,k=v" integer lookup (the kwargs strings are the same ones
+  // the worker registry ships at INIT).
+  static int KwInt(const std::string& kw, const char* name, int dflt) {
+    std::string pat = std::string(name) + "=";
+    size_t at = kw.find(pat);
+    // Must start a pair ("bits=" must not match "qbits=").
+    while (at != std::string::npos && at != 0 && kw[at - 1] != ',')
+      at = kw.find(pat, at + 1);
+    if (at == std::string::npos) return dflt;
+    return std::atoi(kw.c_str() + at + pat.size());
+  }
+
+  // The wire comp id the active kwargs imply for pushes of this key —
+  // what the format-enforcement check compares against (0 = raw).
+  static uint8_t ExpectedComp(const std::string& kw) {
+    if (kw.find("compressor=onebit") != std::string::npos)
+      return codec::kOnebit;
+    if (kw.find("compressor=topk") != std::string::npos)
+      return codec::kTopk;
+    if (kw.find("compressor=randomk") != std::string::npos)
+      return codec::kRandomk;
+    if (kw.find("compressor=dithering") != std::string::npos)
+      return codec::kDithering;
+    if (kw.find("compressor=qblock") != std::string::npos)
+      return codec::kQblock;
+    return codec::kNone;
+  }
+
+  // Install one kwargs string as a key's ACTIVE codec: the single parse
+  // shared by INIT (epoch 0 only), ApplyPendingCodec, and migrate
+  // install, so the derived flags can never drift between paths.  A
+  // switch away from an in-use server-EF leg arms the publish-time
+  // residual fold (ef_fold_pending) instead of dropping the error.
+  void ApplyCodecKwargs(KeyState& ks, const std::string& kw) {
+    const bool ef_was_live = ks.server_ef && ks.bidirectional;
+    ks.kwargs = kw;
+    const bool onebit = kw.find("compressor=onebit") != std::string::npos;
+    const bool qblock = kw.find("compressor=qblock") != std::string::npos;
+    ks.bidirectional = onebit || qblock;
+    ks.pull_comp = qblock ? codec::kQblock : codec::kOnebit;
+    ks.onebit_scaled =
+        kw.find("onebit_scaling=0") == std::string::npos;
+    ks.server_ef = kw.find("ef=vanilla") != std::string::npos;
+    int bits = KwInt(kw, "bits", 8);
+    ks.qblock_bits = (bits == 4) ? 4 : 8;
+    int block = KwInt(kw, "block", 256);
+    if (block < 1) block = 1;
+    if (block > 0xFFFF) block = 0xFFFF;
+    ks.qblock_block = static_cast<uint16_t>(block);
+    if (ef_was_live && !(ks.server_ef && ks.bidirectional) &&
+        !ks.ef_err.empty())
+      ks.ef_fold_pending = true;
+  }
+
+  void ApplyPendingCodec(KeyState& ks) {
+    if (!ks.codec_pending) return;
+    ApplyCodecKwargs(ks, ks.codec_next);
+    ks.codec_applied_epoch = ks.codec_epoch;
+    ks.codec_pending = false;
+    ks.codec_next.clear();
+  }
+
+  static void JsonEscapeInto(std::string* out, const std::string& s) {
+    for (char c : s) {
+      if (c == '"' || c == '\\') out->push_back('\\');
+      if (static_cast<unsigned char>(c) < 0x20) { out->push_back('?');
+                                                  continue; }
+      out->push_back(c);
+    }
+  }
+
+  // The authoritative codec doc for one key — the SET/GET response and
+  // the kCodecStale payload.  `kwargs` is always the ACTIVE codec (what
+  // the round currently merging requires); `kwargs_next`/`effective_
+  // round` describe the pending switch while one is staged.
+  std::string CodecJson(uint64_t key, const KeyState& ks) {
+    std::string js = "{\"key\":" + std::to_string(key) +
+        ",\"epoch\":" + std::to_string(ks.codec_epoch) +
+        ",\"applied_epoch\":" + std::to_string(ks.codec_applied_epoch) +
+        ",\"pending\":" + (ks.codec_pending ? "1" : "0") +
+        ",\"effective_round\":" + std::to_string(ks.codec_effective) +
+        ",\"completed_round\":" + std::to_string(ks.completed_round) +
+        ",\"kwargs\":\"";
+    JsonEscapeInto(&js, ks.kwargs);
+    js += "\",\"kwargs_next\":\"";
+    JsonEscapeInto(&js, ks.codec_next);
+    js += "\"}";
+    return js;
+  }
+
+  void RespondCodecStale(Task& t, KeyState& ks) {
+    codec_stale_.fetch_add(1, std::memory_order_relaxed);
+    std::string js = CodecJson(t.key, ks);
+    Respond(t.conn, kCodecStale, t.req_id, t.key, js.data(), js.size());
+  }
+
+  void HandleCodec(Task& t) {
+    // Ring gate first, like every per-key op: a codec entry written on a
+    // non-owner would be lost to the fleet (the owner's table is the one
+    // CMD_MIGRATE carries and pushes are checked against).
+    if (RingMisplaced(t.key)) {
+      RespondMoved(t, FindState(t.key));
+      return;
+    }
+    KeyState& ks = StateFor(t.key);
+    if (t.flags & 1) {   // SET: u32 epoch | u64 effective | u32 klen | kw
+      if (t.payload.size() < 16) {
+        Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+        return;
+      }
+      uint32_t epoch = 0, klen = 0;
+      uint64_t eff = 0;
+      std::memcpy(&epoch, t.payload.data(), 4);
+      std::memcpy(&eff, t.payload.data() + 4, 8);
+      std::memcpy(&klen, t.payload.data() + 12, 4);
+      if (t.payload.size() < 16ull + klen) {
+        Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+        return;
+      }
+      // Applied only if newer — racing proposers are idempotent, and a
+      // losing proposer reads the winner's doc from the response.
+      if (epoch > ks.codec_epoch) {
+        ks.codec_epoch = epoch;
+        ks.codec_next.assign(t.payload.data() + 16, klen);
+        ks.codec_effective = eff;
+        ks.codec_pending = true;
+        codec_sets_.fetch_add(1, std::memory_order_relaxed);
+        // Async mode has no rounds to hold the boundary for: the table
+        // applies immediately (pushes are independent deltas anyway).
+        if (async_) ApplyPendingCodec(ks);
+      }
+    }
+    std::string js = CodecJson(t.key, ks);
+    Respond(t.conn, kOk, t.req_id, t.key, js.data(), js.size());
+  }
+
+  // -- global knob plane (CMD_KNOB) ---------------------------------------
+  // The authoritative knob doc — the SET/GET/ACK response and the
+  // kKnobStale payload.  `kwargs` is always the ACTIVE table (what the
+  // rounds currently merging were planned under); `kwargs_next` /
+  // `effective_round` describe the staged switch while one is pending.
+  // The acked map is included so a proposer can observe fleet adoption.
+  std::string KnobJsonLocked() {
+    std::string js = "{\"epoch\":" + std::to_string(knob_epoch_) +
+        ",\"applied_epoch\":" + std::to_string(knob_applied_) +
+        ",\"pending\":" + (knob_pending_ ? "1" : "0") +
+        ",\"effective_round\":" + std::to_string(knob_effective_) +
+        ",\"kwargs\":\"";
+    JsonEscapeInto(&js, knob_kwargs_);
+    js += "\",\"kwargs_next\":\"";
+    JsonEscapeInto(&js, knob_next_);
+    js += "\",\"acked\":{";
+    bool first = true;
+    for (auto& kv : knob_acked_) {
+      js += (first ? "\"" : ",\"") + std::to_string(kv.first) + "\":" +
+            std::to_string(kv.second);
+      first = false;
+    }
+    js += "}}";
+    return js;
+  }
+
+  // The server half of the boundary apply: flip the staged table to
+  // ACTIVE once any key's completed_round reaches the effective round.
+  // Observational only (the enforcement is the per-push acked check) —
+  // but it keeps the doc's `kwargs` field truthful for GET/stale
+  // replies.  Caller holds knob_mu_.
+  void MaybeApplyKnobLocked(uint64_t completed_round) {
+    if (knob_pending_ && completed_round >= knob_effective_) {
+      knob_kwargs_ = knob_next_;
+      knob_applied_ = knob_epoch_;
+      knob_pending_ = false;
+      knob_next_.clear();
+    }
+  }
+
+  // Reader-thread CMD_KNOB handler (kStats rationale: global
+  // control-plane state, must answer even when an engine is wedged).
+  // flags bit0 = SET, bit1 = ACK, neither = GET; every path answers the
+  // authoritative doc so racing proposers and pollers all converge.
+  void HandleKnobFrame(Conn* conn, uint32_t req_id, uint64_t key,
+                       uint16_t flags, uint32_t worker_id,
+                       const std::vector<char>& payload) {
+    std::unique_lock<std::mutex> lk(knob_mu_);
+    if (flags & 1) {   // SET: u32 epoch | u64 effective | u32 klen | kw
+      if (payload.size() < 16) {
+        lk.unlock();
+        Respond(conn, kError, req_id, key, nullptr, 0);
+        return;
+      }
+      uint32_t epoch = 0, klen = 0;
+      uint64_t eff = 0;
+      std::memcpy(&epoch, payload.data(), 4);
+      std::memcpy(&eff, payload.data() + 4, 8);
+      std::memcpy(&klen, payload.data() + 12, 4);
+      if (payload.size() < 16ull + klen) {
+        lk.unlock();
+        Respond(conn, kError, req_id, key, nullptr, 0);
+        return;
+      }
+      // Applied only if newer — racing proposers are idempotent, and a
+      // losing proposer reads the winner's doc from the response.
+      if (epoch > knob_epoch_) {
+        knob_epoch_ = epoch;
+        knob_next_.assign(payload.data() + 16, klen);
+        knob_effective_ = eff;
+        knob_pending_ = true;
+        knob_sets_.fetch_add(1, std::memory_order_relaxed);
+        knob_epoch_atomic_.store(epoch, std::memory_order_release);
+        // Async mode has no rounds to hold the boundary for: the table
+        // applies immediately, exactly like the codec law's async arm.
+        if (async_) MaybeApplyKnobLocked(eff);
+        // The proposer adopted what it proposed — its SET doubles as
+        // its ACK, so a 1-worker job never needs the stale backstop.
+        uint32_t& acked = knob_acked_[worker_id];
+        if (epoch > acked) acked = epoch;
+      }
+    } else if (flags & 2) {   // ACK: u32 epoch this worker has adopted
+      if (payload.size() >= 4) {
+        uint32_t epoch = 0;
+        std::memcpy(&epoch, payload.data(), 4);
+        uint32_t& acked = knob_acked_[worker_id];
+        if (epoch > acked) acked = epoch;
+      }
+    }
+    std::string js = KnobJsonLocked();
+    lk.unlock();
+    Respond(conn, kOk, req_id, key, js.data(), js.size());
+  }
+
+  // Engine-thread push-path backstop (called only once the fast atomic
+  // gate saw a nonzero epoch): a current-round push from a worker that
+  // has not acked the newest knob epoch, for a key already at/past the
+  // switch boundary, is rejected with the doc — its staged work may ride
+  // a stale fusion layout / pool size / lane set.  Returns true when the
+  // push was answered (caller returns without mutating state).
+  bool KnobStaleCheck(Task& t, KeyState& ks) {
+    std::unique_lock<std::mutex> lk(knob_mu_);
+    MaybeApplyKnobLocked(ks.completed_round);
+    auto it = knob_acked_.find(t.worker_id);
+    const uint32_t acked = it == knob_acked_.end() ? 0 : it->second;
+    if (acked >= knob_epoch_ || ks.completed_round < knob_effective_)
+      return false;
+    knob_stale_.fetch_add(1, std::memory_order_relaxed);
+    std::string js = KnobJsonLocked();
+    lk.unlock();
+    Respond(t.conn, kKnobStale, t.req_id, t.key, js.data(), js.size());
+    return true;
+  }
+
+  // -- server-resident optimizer plane (CMD_OPT) --------------------------
+  // "k=v" double lookup, the float sibling of KwInt: strtod yields the
+  // SAME f64 the worker-local optax baseline holds for the hyperparam
+  // (Python repr round-trips through strtod exactly), so every f32
+  // constant the update stage derives matches optax's rounding.
+  static double KwFloat(const std::string& kw, const char* name,
+                        double dflt) {
+    std::string pat = std::string(name) + "=";
+    size_t at = kw.find(pat);
+    while (at != std::string::npos && at != 0 && kw[at - 1] != ',')
+      at = kw.find(pat, at + 1);
+    if (at == std::string::npos) return dflt;
+    return std::strtod(kw.c_str() + at + pat.size(), nullptr);
+  }
+
+  // f32 integer power by square-and-multiply, op-for-op identical to
+  // jax.lax.integer_pow's unrolling — which is what the worker-local
+  // optax baseline computes for the Adam bias correction `decay**count`
+  // when the count is concrete (eager/disable_jit execution) — with f32
+  // rounding at every multiply.  NOT std::pow: libm's powf and XLA's
+  // traced pow both round differently, and the equivalence law is
+  // bitwise.
+  static float IntPowF32(float x, uint64_t y) {
+    if (y == 0) return 1.0f;
+    float acc = 0.0f;
+    bool have = false;
+    while (y > 0) {
+      if (y & 1) {
+        acc = have ? acc * x : x;
+        have = true;
+      }
+      y >>= 1;
+      if (y > 0) x = x * x;
+    }
+    return acc;
+  }
+
+  // Install one kwargs string as a key's ACTIVE optimizer ("" = off) —
+  // the single parse shared by ApplyPendingOpt and migrate install, the
+  // ApplyCodecKwargs discipline.
+  void ApplyOptKwargs(KeyState& ks, const std::string& kw) {
+    ks.opt_kwargs = kw;
+    uint8_t kind = 0;
+    if (kw.find("opt=sgd") != std::string::npos) kind = 1;
+    else if (kw.find("opt=momentum") != std::string::npos) kind = 2;
+    else if (kw.find("opt=adam") != std::string::npos) kind = 3;
+    else if (kw.find("opt=adagrad") != std::string::npos) kind = 4;
+    ks.opt_kind = kind;
+    ks.opt_lr = KwFloat(kw, "lr", 0.01);
+    ks.opt_mu = KwFloat(kw, "mu", 0.9);
+    ks.opt_b1 = KwFloat(kw, "b1", 0.9);
+    ks.opt_b2 = KwFloat(kw, "b2", 0.999);
+    // optax.adagrad defaults eps=1e-7 and seeds the sum-of-squares
+    // accumulator at initial_accumulator_value=0.1 (scale_by_rss);
+    // the other optimizers keep their optax defaults.
+    ks.opt_eps = KwFloat(kw, "eps", kind == 4 ? 1e-7 : 1e-8);
+    ks.opt_acc0 = KwFloat(kw, "acc0", 0.1);
+    ks.opt_gscale = KwFloat(kw, "gscale", 1.0);
+  }
+
+  void ApplyPendingOpt(KeyState& ks) {
+    if (!ks.opt_pending) return;
+    ApplyOptKwargs(ks, ks.opt_next);
+    ks.opt_applied_epoch = ks.opt_epoch;
+    ks.opt_pending = false;
+    ks.opt_next.clear();
+  }
+
+  // Keep the server-level optimizer-slot-bytes gauge in step with this
+  // key's params/m/v allocations (engine thread; the atomic absorbs the
+  // signed delta through unsigned wraparound).
+  void OptSlotAccount(KeyState& ks) {
+    const uint64_t now =
+        (ks.params.size() + ks.opt_m.size() + ks.opt_v.size()) * 4;
+    opt_slot_bytes_.fetch_add(now - ks.opt_slot_acc,
+                              std::memory_order_relaxed);
+    ks.opt_slot_acc = now;
+  }
+
+  // The authoritative opt doc for one key — the CMD_OPT response.
+  // slots_crc is the chunk-summed CRC over params|m|v (audit::Digest,
+  // summed per buffer): the byte-equality proof surface the migration
+  // chaos tests compare across an ownership handoff.  Computed only on
+  // this control path, never on the data plane.
+  std::string OptJson(uint64_t key, const KeyState& ks) {
+    uint32_t crc = 0;
+    if (!ks.params.empty())
+      crc += audit::Digest(
+          reinterpret_cast<const char*>(ks.params.data()),
+          ks.params.size() * 4);
+    if (!ks.opt_m.empty())
+      crc += audit::Digest(
+          reinterpret_cast<const char*>(ks.opt_m.data()),
+          ks.opt_m.size() * 4);
+    if (!ks.opt_v.empty())
+      crc += audit::Digest(
+          reinterpret_cast<const char*>(ks.opt_v.data()),
+          ks.opt_v.size() * 4);
+    std::string js = "{\"key\":" + std::to_string(key) +
+        ",\"epoch\":" + std::to_string(ks.opt_epoch) +
+        ",\"applied_epoch\":" + std::to_string(ks.opt_applied_epoch) +
+        ",\"pending\":" + (ks.opt_pending ? "1" : "0") +
+        ",\"effective_round\":" + std::to_string(ks.opt_effective) +
+        ",\"completed_round\":" + std::to_string(ks.completed_round) +
+        ",\"param_version\":" + std::to_string(ks.param_version) +
+        ",\"opt_step\":" + std::to_string(ks.opt_step) +
+        ",\"opt_mode\":" + std::to_string(ks.opt_kind) +
+        ",\"params_n\":" + std::to_string(ks.params.size()) +
+        ",\"slot_bytes\":" + std::to_string(
+            (ks.params.size() + ks.opt_m.size() + ks.opt_v.size()) * 4) +
+        ",\"slots_crc\":" + std::to_string(crc) +
+        ",\"kwargs\":\"";
+    JsonEscapeInto(&js, ks.opt_kwargs);
+    js += "\",\"kwargs_next\":\"";
+    JsonEscapeInto(&js, ks.opt_next);
+    js += "\"}";
+    return js;
+  }
+
+  void HandleOpt(Task& t) {
+    // Ring gate first, like every per-key op: the owner's table/slots
+    // are what CMD_MIGRATE carries and publishes run against.
+    if (RingMisplaced(t.key)) {
+      RespondMoved(t, FindState(t.key));
+      return;
+    }
+    if (async_ && (t.flags & 3)) {
+      // Async mode has no rounds: there is no merge boundary for a
+      // server-side update stage to run at.  Writes fail loudly.
+      Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+      return;
+    }
+    KeyState& ks = StateFor(t.key);
+    // Failover: a client probing/reseeding the optimizer plane after a
+    // server death must see the REPLICATED slots, not an empty key —
+    // the adopted param_version/params_n are what lets it skip the
+    // reseed entirely (zero optimizer resets).
+    MaybeAdoptReplica(t.key, ks);
+    if (t.flags & 2) {
+      // PARAM SEED: raw f32 initial parameters, applied only while the
+      // key holds none — idempotent across racing workers (they all
+      // ship the same broadcast weights), and a no-op after a migration
+      // installed the authoritative copy (a replayed seed can never
+      // reset live training, the kSeed/INIT idempotency discipline).
+      if (!t.payload.empty() && t.payload.size() % 4 == 0 &&
+          ks.params.empty()) {
+        const float* f = reinterpret_cast<const float*>(t.payload.data());
+        ks.params.assign(f, f + t.payload.size() / 4);
+        ks.active.store(true, std::memory_order_relaxed);
+        OptSlotAccount(ks);
+        opt_seeds_.fetch_add(1, std::memory_order_relaxed);
+        StatOpt(t.key, ks.param_version, ks.opt_kind);
+      }
+    } else if (t.flags & 1) {
+      // SET: u32 epoch | u64 effective_round | u32 klen | kwargs.
+      if (t.payload.size() < 16) {
+        Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+        return;
+      }
+      uint32_t epoch = 0, klen = 0;
+      uint64_t eff = 0;
+      std::memcpy(&epoch, t.payload.data(), 4);
+      std::memcpy(&eff, t.payload.data() + 4, 8);
+      std::memcpy(&klen, t.payload.data() + 12, 4);
+      if (t.payload.size() < 16ull + klen) {
+        Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+        return;
+      }
+      // Applied only if newer — the CMD_CODEC/CMD_RING_SET idempotency
+      // law: racing proposers converge, a replayed declaration cannot
+      // regress the table, and the losers adopt the winner's doc from
+      // the response.
+      if (epoch > ks.opt_epoch) {
+        ks.opt_epoch = epoch;
+        ks.opt_next.assign(t.payload.data() + 16, klen);
+        ks.opt_effective = eff;
+        ks.opt_pending = true;
+        opt_sets_.fetch_add(1, std::memory_order_relaxed);
+      }
+    }
+    std::string js = OptJson(t.key, ks);
+    Respond(t.conn, kOk, t.req_id, t.key, js.data(), js.size());
+  }
+
+  // The update stage: merge -> optimizer step -> publish *parameters*.
+  // Runs inside PublishRound AFTER the codec/EF publish leg produced
+  // `out`, and consumes EXACTLY the bytes a sum-mode pull would have
+  // served — the decode of the recompressed blob for bidirectional
+  // codecs (so compression + server EF behave identically to the
+  // worker-local baseline, where every worker's optax step consumed
+  // that same decode), the raw f32 sum otherwise.  `out` is then
+  // replaced by the updated parameters: pulls adopt params, and
+  // param_version increments exactly once — the stale-round push guard
+  // upstream is what makes a replayed push unable to re-enter here.
+  // Every f32 operation matches the optax eager op sequence
+  // (docs/server-optimizer.md "Equivalence").
+  void OptUpdateStage(KeyState& ks, uint64_t key, bool served_compressed) {
+    const size_t ne = ks.params.size();
+    if (ne == 0) {
+      if (!ks.opt_warned) {
+        ks.opt_warned = true;
+        std::fprintf(stderr,
+                     "[byteps server] server-opt key %llu has an active "
+                     "optimizer but no seeded parameters; publishing "
+                     "sums until CMD_OPT seeds them (param_version "
+                     "stalls — doctor rule param_version_stall)\n",
+                     static_cast<unsigned long long>(key));
+      }
+      return;
+    }
+    // Reusable scratch: the raw path overwrites it whole (memcpy) and
+    // the compressed path lets DecompressTo zero it exactly when the
+    // codec's scatter semantics need zeros — no per-round allocation,
+    // no unconditional memset.
+    std::vector<float>& g = ks.opt_scratch;
+    if (g.size() != ne) g.resize(ne);
+    if (served_compressed) {
+      uint32_t n32 = 0;
+      if (ks.out.size() >= 5)
+        std::memcpy(&n32, ks.out.data() + 1, 4);
+      if (n32 != ne ||
+          !codec::DecompressTo(ks.out.data(), ks.out.size(), g.data(),
+                               n32, /*zero_dst=*/true)) {
+        std::fprintf(stderr,
+                     "[byteps server] server-opt key %llu: published "
+                     "blob failed to decode (n=%u, params=%zu); update "
+                     "skipped\n",
+                     static_cast<unsigned long long>(key), n32, ne);
+        return;
+      }
+    } else {
+      if (ks.out.size() != ne * 4) {
+        if (!ks.opt_warned) {
+          ks.opt_warned = true;
+          std::fprintf(stderr,
+                       "[byteps server] server-opt key %llu: published "
+                       "sum is %zu bytes but params hold %zu elements; "
+                       "update skipped (param_version stalls)\n",
+                       static_cast<unsigned long long>(key),
+                       ks.out.size(), ne);
+        }
+        return;
+      }
+      std::memcpy(g.data(), ks.out.data(), ne * 4);
+    }
+    if (ks.opt_gscale != 1.0) {
+      // The baseline scales the pulled sum before its optax step
+      // (grad = gscale * sum, one weak-f32 scalar multiply) — and only
+      // when the scale is not exactly 1, so the unscaled path stays
+      // op-identical on both sides.
+      const float gs = static_cast<float>(ks.opt_gscale);
+      for (size_t i = 0; i < ne; ++i) g[i] = gs * g[i];
+    }
+    float* p = ks.params.data();
+    // optax scale_by_learning_rate: step_size = -1 * lr in f64, rounded
+    // weak-f32 at the multiply.
+    const float nlr = static_cast<float>(-1.0 * ks.opt_lr);
+    switch (ks.opt_kind) {
+      case 1: {  // sgd: u = -lr * g; p = p + u
+        for (size_t i = 0; i < ne; ++i) p[i] = p[i] + nlr * g[i];
+        break;
+      }
+      case 2: {  // sgd+momentum (optax trace): t = g + mu*t; u = -lr*t
+        if (ks.opt_m.size() != ne) ks.opt_m.assign(ne, 0.0f);
+        const float mu = static_cast<float>(ks.opt_mu);
+        for (size_t i = 0; i < ne; ++i) {
+          const float m = g[i] + mu * ks.opt_m[i];
+          ks.opt_m[i] = m;
+          p[i] = p[i] + nlr * m;
+        }
+        break;
+      }
+      case 3: {  // adam (optax scale_by_adam, eps_root=0)
+        if (ks.opt_m.size() != ne) ks.opt_m.assign(ne, 0.0f);
+        if (ks.opt_v.size() != ne) ks.opt_v.assign(ne, 0.0f);
+        const float b1f = static_cast<float>(ks.opt_b1);
+        const float b2f = static_cast<float>(ks.opt_b2);
+        const float onemb1 = static_cast<float>(1.0 - ks.opt_b1);
+        const float onemb2 = static_cast<float>(1.0 - ks.opt_b2);
+        const float epsf = static_cast<float>(ks.opt_eps);
+        // safe_int32_increment: the count saturates at INT32_MAX.
+        const uint64_t step = ks.opt_step >= 2147483647ULL
+                                  ? 2147483647ULL : ks.opt_step + 1;
+        const float bc1 = 1.0f - IntPowF32(b1f, step);
+        const float bc2 = 1.0f - IntPowF32(b2f, step);
+        for (size_t i = 0; i < ne; ++i) {
+          const float gi = g[i];
+          const float mi = onemb1 * gi + b1f * ks.opt_m[i];
+          const float vi = onemb2 * (gi * gi) + b2f * ks.opt_v[i];
+          ks.opt_m[i] = mi;
+          ks.opt_v[i] = vi;
+          const float mh = mi / bc1;
+          const float vh = vi / bc2;
+          const float u = nlr * (mh / (std::sqrt(vh) + epsf));
+          p[i] = p[i] + u;
+        }
+        break;
+      }
+      case 4: {  // adagrad (optax scale_by_rss): s += g*g;
+                 // u = g * (s > 0 ? 1/sqrt(s+eps) : 0); p += -lr*u
+        if (ks.opt_v.size() != ne)
+          ks.opt_v.assign(ne, static_cast<float>(ks.opt_acc0));
+        const float epsf = static_cast<float>(ks.opt_eps);
+        for (size_t i = 0; i < ne; ++i) {
+          const float gi = g[i];
+          const float s = ks.opt_v[i] + gi * gi;
+          ks.opt_v[i] = s;
+          const float scale =
+              s > 0.0f ? 1.0f / std::sqrt(s + epsf) : 0.0f;
+          p[i] = p[i] + nlr * (scale * gi);
+        }
+        break;
+      }
+      default:
+        return;
+    }
+    if (ks.opt_step < 2147483647ULL) ks.opt_step++;
+    ks.param_version++;
+    ks.out.assign(reinterpret_cast<const char*>(p),
+                  reinterpret_cast<const char*>(p) + ne * 4);
+    OptSlotAccount(ks);
+    opt_updates_.fetch_add(1, std::memory_order_relaxed);
+    StatOpt(key, ks.param_version, ks.opt_kind);
+    DebugLog("opt_update", key, 0, ks.completed_round, ks.out);
+  }
+
+  // Row-wise update stage for embedding keys: runs inside PublishRound
+  // after embed_out adopted the round's merged rows.  Only touched rows
+  // step — per-row step counts drive Adam's bias correction (lazy
+  // Adam) and the Adagrad accumulator, matching a worker-local optax
+  // baseline that gathers the touched rows, steps them, and scatters
+  // the result back.  param_version increments exactly once per
+  // publish, the same exactly-one-update law as the dense stage.
+  // Every f32 op mirrors the dense arms above element-for-element.
+  void EmbedUpdateStage(KeyState& ks, uint64_t key) {
+    const size_t w = ks.embed_width;
+    const size_t total = static_cast<size_t>(ks.embed_rows) * w;
+    if (total == 0) return;
+    // Zero-init unless CMD_OPT seeded the full table (a wrong-size seed
+    // is discarded — the dense stage's size guard, row-wise).
+    if (ks.params.size() != total) ks.params.assign(total, 0.0f);
+    if (ks.embed_row_step.size() != ks.embed_rows)
+      ks.embed_row_step.assign(ks.embed_rows, 0);
+    if ((ks.opt_kind == 2 || ks.opt_kind == 3) && ks.opt_m.size() != total)
+      ks.opt_m.assign(total, 0.0f);
+    if (ks.opt_kind == 3 && ks.opt_v.size() != total)
+      ks.opt_v.assign(total, 0.0f);
+    if (ks.opt_kind == 4 && ks.opt_v.size() != total)
+      ks.opt_v.assign(total, static_cast<float>(ks.opt_acc0));
+    const float nlr = static_cast<float>(-1.0 * ks.opt_lr);
+    const float gs = static_cast<float>(ks.opt_gscale);
+    const bool scaled = ks.opt_gscale != 1.0;
+    const float muf = static_cast<float>(ks.opt_mu);
+    const float b1f = static_cast<float>(ks.opt_b1);
+    const float b2f = static_cast<float>(ks.opt_b2);
+    const float onemb1 = static_cast<float>(1.0 - ks.opt_b1);
+    const float onemb2 = static_cast<float>(1.0 - ks.opt_b2);
+    const float epsf = static_cast<float>(ks.opt_eps);
+    for (auto& kv : ks.embed_out) {
+      const uint64_t r = kv.first;
+      if (r >= ks.embed_rows || kv.second.size() != w) continue;
+      float* g = kv.second.data();
+      if (scaled)
+        for (size_t i = 0; i < w; ++i) g[i] = gs * g[i];
+      float* p = ks.params.data() + r * w;
+      switch (ks.opt_kind) {
+        case 1: {  // sgd
+          for (size_t i = 0; i < w; ++i) p[i] = p[i] + nlr * g[i];
+          break;
+        }
+        case 2: {  // momentum (optax trace — no step count needed)
+          float* m = ks.opt_m.data() + r * w;
+          for (size_t i = 0; i < w; ++i) {
+            const float mi = g[i] + muf * m[i];
+            m[i] = mi;
+            p[i] = p[i] + nlr * mi;
+          }
+          break;
+        }
+        case 3: {  // adam, bias-corrected by THIS ROW's update count
+          const uint32_t rs = ks.embed_row_step[r];
+          const uint64_t step =
+              rs >= 2147483647u ? 2147483647ULL : rs + 1ULL;
+          const float bc1 = 1.0f - IntPowF32(b1f, step);
+          const float bc2 = 1.0f - IntPowF32(b2f, step);
+          float* m = ks.opt_m.data() + r * w;
+          float* v = ks.opt_v.data() + r * w;
+          for (size_t i = 0; i < w; ++i) {
+            const float gi = g[i];
+            const float mi = onemb1 * gi + b1f * m[i];
+            const float vi = onemb2 * (gi * gi) + b2f * v[i];
+            m[i] = mi;
+            v[i] = vi;
+            const float u = nlr * ((mi / bc1) / (std::sqrt(vi / bc2) + epsf));
+            p[i] = p[i] + u;
+          }
+          break;
+        }
+        case 4: {  // adagrad (optax scale_by_rss)
+          float* v = ks.opt_v.data() + r * w;
+          for (size_t i = 0; i < w; ++i) {
+            const float gi = g[i];
+            const float s = v[i] + gi * gi;
+            v[i] = s;
+            const float scale =
+                s > 0.0f ? 1.0f / std::sqrt(s + epsf) : 0.0f;
+            p[i] = p[i] + nlr * (scale * gi);
+          }
+          break;
+        }
+        default:
+          return;
+      }
+      if (ks.embed_row_step[r] < 2147483647u) ks.embed_row_step[r]++;
+    }
+    if (ks.opt_step < 2147483647ULL) ks.opt_step++;
+    ks.param_version++;
+    OptSlotAccount(ks);
+    opt_updates_.fetch_add(1, std::memory_order_relaxed);
+    StatOpt(key, ks.param_version, ks.opt_kind);
+  }
+
+  void HandleInit(Task& t) {
+    // Init allocates the merged store; like the reference's init push it is
+    // idempotent and sized by the declared length (reference:
+    // server.cc:270-298).  Payload: u64 declared_len | u32 kwargs_len |
+    // kwargs (compressor registration, reference: server.cc:232-261).
+    // Responds with u64 completed_round so reconnecting workers re-seed
+    // their round counters from server state.
+    //
+    // Ring ownership gate: once the ring epoch has advanced, an INIT
+    // for a key this server no longer owns must NOT recreate state here
+    // — hand over any remaining state, then redirect (kMoved carries
+    // the ring table).  Checked before StateFor so a redirected key
+    // never even allocates.
+    if (RingMisplaced(t.key)) {
+      RespondMoved(t, FindState(t.key));
+      return;
+    }
+    KeyState& ks = StateFor(t.key);
+    // Failover: adopt the chain replica BEFORE the size check below —
+    // the adopted store matches the declared size, so a reconnecting
+    // worker's re-INIT resumes at the replicated round instead of
+    // resetting to a fresh store.
+    MaybeAdoptReplica(t.key, ks);
+    ks.active.store(true, std::memory_order_relaxed);
+    uint64_t n = 0;
+    if (t.payload.size() >= 8)
+      std::memcpy(&n, t.payload.data(), 8);
+    if (t.payload.size() >= 12) {
+      uint32_t klen = 0;
+      std::memcpy(&klen, t.payload.data() + 8, 4);
+      if (t.payload.size() >= 12 + klen) {
+        // "k=v,k=v" kwargs, same strings the reference ships in its
+        // kCompressedPushPull init (reference: server.cc:232-261).
+        // Once the key's codec epoch has advanced, the TABLE governs:
+        // a reconnecting worker's re-declare (or a replayed launch
+        // config) must not reset a renegotiated codec mid-round — the
+        // worker learns the live codec from CMD_CODEC / kCodecStale.
+        if (ks.codec_epoch == 0)
+          ApplyCodecKwargs(ks, std::string(t.payload.data() + 12, klen));
+        // Row-sparse embedding declaration: `embed_rows=N,embed_width=D`
+        // with declared length 0 turns the key into an embedding key —
+        // the dense store stays empty, round state lives row-wise.
+        // Idempotent like the size path below: a re-declare with the
+        // same shape touches nothing; a shape CHANGE resets the sparse
+        // round state (the dense size-change reset, row-wise).
+        const std::string kw(t.payload.data() + 12, klen);
+        const int er = KwInt(kw, "embed_rows", 0);
+        const int ew = KwInt(kw, "embed_width", 0);
+        if (er > 0 && ew > 0 && n == 0) {
+          const uint64_t nr = static_cast<uint64_t>(er);
+          const uint32_t nw = static_cast<uint32_t>(ew);
+          if (ks.embed_rows != nr || ks.embed_width != nw) {
+            // Declared-footprint gauge: signed delta via unsigned
+            // wraparound, the OptSlotAccount discipline.
+            embed_table_bytes_.fetch_add(
+                nr * nw * 4 - ks.embed_rows * ks.embed_width * 4,
+                std::memory_order_relaxed);
+            ks.embed_rows = nr;
+            ks.embed_width = nw;
+            ks.embed_merge.clear();
+            ks.embed_out.clear();
+            ks.embed_row_step.clear();
+            ks.seen.clear();
+            ks.merge_ts.clear();
+          }
+        }
+      }
+    }
+    if (ks.store.size() != n) {
+      ks.store.assign(n, 0);
+      ks.seen.clear();
+      ks.merge_ts.clear();
+    }
+    // Publish the declared size for the reader threads' scatter check
+    // (release pairs with the reader's acquire load).
+    ks.declared_len.store(n, std::memory_order_release);
+    ks.dtype = t.dtype;
+    uint64_t round = ks.completed_round;
+    Respond(t.conn, kOk, t.req_id, t.key,
+            reinterpret_cast<const char*>(&round), sizeof(round));
+  }
+
+  void HandlePush(Task& t) {
+    KeyState& ks = StateFor(t.key);
+    // Failover: a re-pushed open round adopts the chain replica first,
+    // so the merge lands on the replicated published state (and the
+    // replica's `seen` set dedups contributions the dead owner already
+    // merged — the exactly-once law).
+    MaybeAdoptReplica(t.key, ks);
+    // A scattered frame's payload lives in ks.scatter_buf (reader-filled
+    // under the scatter lease); this engine task owns releasing the
+    // lease — RAII, so every validation early-return below releases it.
+    struct LeaseGuard {
+      std::atomic<bool>* lease;
+      ~LeaseGuard() {
+        if (lease) lease->store(false, std::memory_order_release);
+      }
+    } lease_guard{t.scattered ? &ks.scatter_leased : nullptr};
+    const std::vector<char>* data =
+        t.scattered ? &ks.scatter_buf : &t.payload;
+    // Captured before the COPY_FIRST swap below can gut the source.
+    const uint64_t wire_len = data->size();
+    // Ring ownership gate (after the lease guard is armed, so a
+    // scattered frame's lease always releases): a push for a key this
+    // server no longer owns hands its state over, then redirects — the
+    // worker replays the SAME gradient to the new owner, so no round is
+    // lost and nothing merges twice (state-before-redirect).
+    if (RingMisplaced(t.key)) {
+      RespondMoved(t, &ks);
+      return;
+    }
+    ks.active.store(true, std::memory_order_relaxed);
+    if (t.dtype == kSeed) {
+      // Store seeding for async weight-delta training: applied only if the
+      // key has never been pushed, so a late-joining/rejoining worker
+      // adopts the live global weights instead of resetting them.
+      // Meaningless under sync rounds — reject there (fail fast beats a
+      // silent round-counter desync).
+      if (!async_) {
+        Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+        return;
+      }
+      bool first = ks.push_count.load(std::memory_order_relaxed) == 0;
+      ks.push_count.fetch_add(1, std::memory_order_relaxed);
+      if (first) {
+        ks.store = t.payload;
+        ks.dtype = kF32;
+      }
+      ks.out = ks.store;
+      StatPush(t.key, t.worker_id, wire_len, true, 0);
+      Respond(t.conn, kOk, t.req_id, t.key, nullptr, 0);
+      FlushPulls(ks, t.key);
+      return;
+    }
+    if (t.dtype == kSparseRows) {
+      // Row-sparse embedding push: SparseHdr | index stream | dense f32
+      // rows.  A dedicated branch — the dense guards below reason about
+      // store.size(), which embed keys keep at zero.  The guard order
+      // mirrors the dense path exactly: stale-round ack-and-drop,
+      // in-round dedup, elastic membership, pending-opt arm at the
+      // round boundary.  Async mode has no round boundary for the
+      // row-wise update stage to run at — reject, like CMD_OPT writes.
+      // Knob/codec staleness does not apply: sparse frames carry their
+      // own codec in the header and never ride fusion buckets.
+      if (async_ || ks.embed_rows == 0 || ks.embed_width == 0) {
+        Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+        return;
+      }
+      if (!RoundMatch(t.flags, ks.completed_round)) {
+        StatPush(t.key, t.worker_id, wire_len, false, 0);
+        Respond(t.conn, kOk, t.req_id, t.key, nullptr, 0);
+        return;
+      }
+      if (ks.seen.count(t.worker_id)) {
+        ks.push_count.fetch_add(1, std::memory_order_relaxed);
+        StatPush(t.key, t.worker_id, wire_len, false, 0);
+        Respond(t.conn, kOk, t.req_id, t.key, nullptr, 0);
+        return;
+      }
+      if (epoch_atomic_.load(std::memory_order_acquire) != 0) {
+        if (ks.seen.empty()) AdoptRoundMembers(ks);
+        if (!ks.round_members.empty() &&
+            !ks.round_members.count(t.worker_id)) {
+          deferred_joins_.fetch_add(1, std::memory_order_relaxed);
+          StatPush(t.key, t.worker_id, wire_len, false, 0);
+          Respond(t.conn, kOk, t.req_id, t.key, nullptr, 0);
+          return;
+        }
+      }
+      if (ks.opt_epoch != 0 && ks.opt_pending && ks.seen.empty() &&
+          ks.completed_round >= ks.opt_effective)
+        ApplyPendingOpt(ks);
+      // Validate the whole frame BEFORE any state mutates (the dense
+      // path's ordering invariant): a malformed frame must leave the
+      // open merge exactly as it found it.
+      SparseHdr h;
+      const size_t w = ks.embed_width;
+      std::vector<uint32_t> idx;
+      bool ok = data->size() >= sizeof(h);
+      if (ok) {
+        std::memcpy(&h, data->data(), sizeof(h));
+        ok = h.width == w &&
+             data->size() >= sizeof(h) +
+                 static_cast<uint64_t>(h.idx_bytes) +
+                 static_cast<uint64_t>(h.nrows) * w * 4 &&
+             DecodeSparseIndices(
+                 reinterpret_cast<const unsigned char*>(data->data()) +
+                     sizeof(h),
+                 h.idx_bytes, h.nrows, h.codec, &idx);
+      }
+      if (ok)
+        for (uint32_t i = 0; i < h.nrows; ++i)
+          if (idx[i] >= ks.embed_rows) { ok = false; break; }
+      if (!ok) {
+        Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+        return;
+      }
+      const char* rows = data->data() + sizeof(h) + h.idx_bytes;
+      std::vector<float> tmp(w);
+      for (uint32_t i = 0; i < h.nrows; ++i) {
+        std::memcpy(tmp.data(), rows + static_cast<size_t>(i) * w * 4,
+                    w * 4);
+        auto it = ks.embed_merge.find(idx[i]);
+        if (it == ks.embed_merge.end()) {
+          // COPY_FIRST, row-wise: the row's first touch adopts the
+          // pushed bytes verbatim (zero-init plus += would fold a
+          // pushed -0.0 into +0.0 and break dense/sparse bit-identity).
+          ks.embed_merge.emplace(idx[i], tmp);
+        } else {
+          float* dst = it->second.data();
+          for (size_t j = 0; j < w; ++j) dst[j] += tmp[j];
+        }
+      }
+      ks.dtype = kSparseRows;
+      ks.push_count.fetch_add(1, std::memory_order_relaxed);
+      ks.seen.insert(t.worker_id);
+      StatPush(t.key, t.worker_id, wire_len, true, ks.completed_round + 1,
+               ks.seen.size());
+      Respond(t.conn, kOk, t.req_id, t.key, nullptr, 0);
+      if (RoundComplete(ks))
+        PublishRound(ks, t.key, t.worker_id);
+      return;
+    }
+    // Compressed pushes are expanded to f32 before the merge — the
+    // reference server's decompress-sum engine (server.cc:86-207).
+    //
+    // ORDERING INVARIANT: nothing that could stall a live round
+    // (store wipe, seen.clear, dtype/round_compressed/push_count) is
+    // mutated until the frame is fully validated — a corrupt payload
+    // with a plausible header must leave the in-progress merge exactly
+    // as it found it (already-acked workers never re-push, so a wiped
+    // `seen` could otherwise never refill and every pull would hang).
+    std::vector<char> scratch;
+    uint32_t comp_n = 0;
+    uint64_t want = wire_len;           // merged (f32) size this push implies
+    if (t.dtype == kCompressed) {
+      if (t.payload.size() < 5) {
+        Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+        return;
+      }
+      std::memcpy(&comp_n, t.payload.data() + 1, 4);
+      want = static_cast<uint64_t>(comp_n) * 4;
+      if (want > max_msg_) {   // claimed-size cap, as in Decompress
+        Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+        return;
+      }
+    }
+    const bool traced = (t.flags & kFlagTraced) != 0;
+    if (traced && t.recv_us) {
+      // RECV: frame fully read -> engine picked it up (server-side queue
+      // wait — an engine backed up behind other keys shows here).
+      tracer_.Record("RECV", t.key, ks.completed_round, t.worker_id,
+                     t.recv_us, NowUs() - t.recv_us, wire_len);
+    }
+    if (!async_ && !RoundMatch(t.flags, ks.completed_round)) {
+      // Stale-round replay guard: a push's u16 flags carry the round the
+      // worker staged it for; one that is not the round currently merging
+      // belongs to an already-PUBLISHED round — a reconnecting worker
+      // replaying a push whose ack (or whose round's completion) raced the
+      // connection drop (client.py _replay_part).  Its contribution was
+      // already counted, so ack-and-drop: merging it into the current
+      // round would double-count this worker.  Correct clients always
+      // push flags == completed_round (round counters are seeded from the
+      // INIT response and advance only after the round publishes), so
+      // only replays and protocol violators can land here.
+      StatPush(t.key, t.worker_id, wire_len, false, 0);
+      Respond(t.conn, kOk, t.req_id, t.key, nullptr, 0);
+      return;
+    }
+    if (!async_ && ks.seen.count(t.worker_id) &&
+        ks.store.size() == static_cast<size_t>(want)) {
+      // Duplicate within a round — ignore merge, still ack (reference dedups
+      // by seen_sender, server.cc:150-177).  Checked before the decompress:
+      // a dup's payload is never expanded (or value-logged) at all.
+      // The size guard keeps the dedup SUBORDINATE to the size-change
+      // reset below: a worker already in `seen` that re-pushes with a NEW
+      // implied size (re-declared tensor mid-round) must fall through to
+      // the reset — acking-and-dropping it would leave the restarted
+      // merge permanently one push short once the reset clears `seen`
+      // (already-acked workers never re-push), wedging every pull.
+      ks.push_count.fetch_add(1, std::memory_order_relaxed);
+      StatPush(t.key, t.worker_id, wire_len, false, 0);
+      Respond(t.conn, kOk, t.req_id, t.key, nullptr, 0);
+      return;
+    }
+    if (!async_ && epoch_atomic_.load(std::memory_order_acquire) != 0) {
+      // Elastic membership engaged (the epoch has advanced at least
+      // once).  A round's FIRST push is its epoch boundary: snapshot the
+      // live set as this round's contributor requirement.  Fixed-mode
+      // runs never reach here — zero overhead, identical behavior.
+      if (ks.seen.empty())
+        AdoptRoundMembers(ks);
+      if (!ks.round_members.empty() &&
+          !ks.round_members.count(t.worker_id)) {
+        // A worker that joined AFTER this round opened (its set was
+        // pinned by the transition fan-out): admitted at the next round
+        // boundary.  Ack-and-drop, exactly like a stale replay — its
+        // pull still serves this round's published sum, so its weights
+        // stay in lockstep with the incumbents, and its next push lands
+        // in a round whose set includes it.
+        deferred_joins_.fetch_add(1, std::memory_order_relaxed);
+        StatPush(t.key, t.worker_id, wire_len, false, 0);
+        Respond(t.conn, kOk, t.req_id, t.key, nullptr, 0);
+        return;
+      }
+    }
+    // Per-key codec table: a pending renegotiation takes effect at the
+    // FIRST round boundary at/after its declared effective round — never
+    // mid-round — and once the epoch has advanced every push's wire
+    // format must match the active codec.  A mismatch (the sender missed
+    // — or jumped ahead of — the switch) draws kCodecStale carrying the
+    // authoritative doc BEFORE any state mutates: the worker re-encodes
+    // the same gradient and replays, so the round stays format-uniform
+    // and no contribution is lost.  Epoch 0 (no renegotiation ever) pays
+    // one integer compare and behaves exactly as before.
+    // Pending optimizer-mode switch (CMD_OPT) lands at the same round
+    // boundary law as the codec table below: the round's FIRST push,
+    // once completed_round reached the declared effective round — so no
+    // round ever mixes update modes.  Epoch 0 pays one integer compare.
+    // Global knob plane (CMD_KNOB): once the knob epoch has advanced, a
+    // current-round push from a worker that has not acked the newest
+    // epoch — for a key already at/past the switch's effective round —
+    // draws kKnobStale carrying the authoritative table BEFORE any state
+    // mutates: the worker adopts, re-applies its half of the switch
+    // (re-planning fusion buckets when the layout changed), ACKs, and
+    // replays.  Epoch 0 (no knob switch ever) pays one atomic load and
+    // behaves exactly as before — wire byte-identical.
+    if (!async_ &&
+        knob_epoch_atomic_.load(std::memory_order_acquire) != 0 &&
+        KnobStaleCheck(t, ks))
+      return;
+    if (!async_ && ks.opt_epoch != 0 && ks.opt_pending &&
+        ks.seen.empty() && ks.completed_round >= ks.opt_effective)
+      ApplyPendingOpt(ks);
+    if (!async_ && ks.codec_epoch != 0) {
+      if (ks.codec_pending && ks.seen.empty() &&
+          ks.completed_round >= ks.codec_effective)
+        ApplyPendingCodec(ks);
+      if (t.dtype == kF32 || t.dtype == kCompressed) {
+        const uint8_t got =
+            (t.dtype == kCompressed && !t.payload.empty())
+                ? static_cast<uint8_t>(t.payload[0]) : codec::kNone;
+        if (got != ExpectedComp(ks.kwargs)) {
+          RespondCodecStale(t, ks);
+          return;
+        }
+      }
+    }
+    // SUM span start: everything from here to the merge landing
+    // (decompress + validate + sum/copy-first) is this push's share of
+    // engine work.
+    const int64_t sum_t0 = traced ? NowUs() : 0;
+    if (t.dtype == kCompressed) {
+      if (!async_ && ks.seen.empty()) {
+        // COPY_FIRST for compressed pushes: decompress straight into
+        // the store — skips both the scratch allocation and the copy
+        // pass (the uncompressed analog of the buffer move below).
+        // Safe before full validation ONLY because seen is empty: a
+        // mid-parse failure leaves garbage in `store` but no merge
+        // existed, and the next valid first push overwrites it all.
+        // Scatter formats need the zeroed destination; the dense ones
+        // (onebit, fixed-width dithering) store every element, so
+        // skipping their memset saves a full-buffer pass per round.
+        if (ks.store.size() != want) ks.store.assign(want, 0);
+        bool need_zero = true;
+        uint8_t comp = static_cast<uint8_t>(t.payload[0]);
+        if (comp == codec::kOnebit) need_zero = false;
+        if (comp == codec::kQblock) need_zero = false;
+        if (comp == codec::kDithering && t.payload.size() > 5
+            && !(static_cast<uint8_t>(t.payload[5]) & 2))
+          need_zero = false;
+        if (!codec::DecompressTo(
+                t.payload.data(), t.payload.size(),
+                reinterpret_cast<float*>(ks.store.data()), comp_n,
+                need_zero)) {
+          Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+          return;
+        }
+        data = &ks.store;
+      } else {
+        // Mid-round (or async): validate into scratch BEFORE touching
+        // any round state.
+        if (!codec::Decompress(t.payload, &scratch, max_msg_)) {
+          Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+          return;
+        }
+        data = &scratch;
+      }
+      ks.round_compressed = true;
+    }
+    // Frame fully validated from here on.
+    if (ks.store.size() != want) {
+      // Size changed mid-stream (re-declared tensor / missing INIT): restart
+      // the merge consistently — clearing `seen` too, so earlier workers'
+      // contributions are never silently discarded while the round counter
+      // still advances on a wrong sum.
+      ks.store.assign(want, 0);
+      ks.seen.clear();
+      ks.merge_ts.clear();   // the discarded merges' waits died with it
+      // The restarted merge is a fresh round boundary: re-snapshot its
+      // contributor set under elastic membership (empty = legacy count).
+      ks.round_members.clear();
+      if (epoch_atomic_.load(std::memory_order_acquire) != 0)
+        AdoptRoundMembers(ks);
+      // Keep the readers' scatter check in step with the new store size.
+      ks.declared_len.store(want, std::memory_order_release);
+    }
+    ks.dtype = t.dtype == kCompressed ? kF32 : t.dtype;
+    ks.push_count.fetch_add(1, std::memory_order_relaxed);
+    const bool first = !async_ && ks.seen.empty();
+    DebugLog("push_recv", t.key, t.worker_id, ks.completed_round, *data);
+    if (async_) {
+      // Async PS mode: store += payload immediately, no round tracking
+      // (reference: server.cc:319-323, BYTEPS_ENABLE_ASYNC).
+      SumInto(ks, *data);
+      ks.out = ks.store;
+      DebugLog("async_merge", t.key, t.worker_id, ks.completed_round,
+               ks.store);
+      if (traced)
+        tracer_.Record("SUM", t.key, 0, t.worker_id, sum_t0,
+                       NowUs() - sum_t0, wire_len);
+      StatPush(t.key, t.worker_id, wire_len, true, 0);
+      Respond(t.conn, kOk, t.req_id, t.key, nullptr, 0);
+      FlushPulls(ks, t.key);
+      return;
+    }
+    if (first) {
+      // COPY_FIRST (reference: server.cc:299-379) — by SWAP when the
+      // payload arrived uncompressed: adopting the reader's buffer
+      // saves a full per-partition memory pass on the serve path, and
+      // the stale same-size ex-store buffer rides back for reuse (to
+      // the conn's freelist via t.payload, or as the key's next scatter
+      // target) instead of freeing — steady state, the same few buffers
+      // cycle socket -> store -> socket with zero allocation.
+      // A compressed first push normally landed in the store above;
+      // the exception is a size-change reset that PROMOTED a
+      // scratch-validated push to first — copy it over.
+      if (t.scattered) {
+        std::swap(ks.store, ks.scatter_buf);
+        data = &ks.store;
+      } else if (data == &t.payload) {
+        std::swap(ks.store, t.payload);
+        data = &ks.store;   // t.payload now holds the stale ex-store
+      } else if (data == &scratch) {
+        std::memcpy(ks.store.data(), scratch.data(), scratch.size());
+        data = &ks.store;
+      }
+    } else {
+      SumInto(ks, *data);  // SUM_RECV
+    }
+    ks.seen.insert(t.worker_id);
+    if (traced) {
+      const int64_t merged_us = NowUs();
+      tracer_.Record("SUM", t.key, ks.completed_round, t.worker_id,
+                     sum_t0, merged_us - sum_t0, wire_len);
+      // Merge landed: the clock on this worker's MERGE_WAIT starts now
+      // and stops when the round publishes (below) — the span IS the
+      // time this push sat waiting for the round's remaining workers.
+      ks.merge_ts.emplace_back(t.worker_id, merged_us);
+    }
+    // round_pos = completed_round + 1: "this worker has contributed
+    // through round completed_round" — equal across workers when they
+    // are in step, and the lead-minus-lagger delta IS the straggler lag.
+    StatPush(t.key, t.worker_id, wire_len, true, ks.completed_round + 1,
+             ks.seen.size());
+    Respond(t.conn, kOk, t.req_id, t.key, nullptr, 0);
+    if (RoundComplete(ks))
+      PublishRound(ks, t.key, t.worker_id);
+  }
+
+  // ALL_RECV: publish the completed round and start a fresh merge.
+  // Bidirectional compressors re-compress the merged buffer for the
+  // pull leg (reference: impl/onebit bidirectional, server engine).
+  // Extracted from HandlePush's tail so the membership re-finalize path
+  // (HandleMembership) publishes through the identical code — EF fold,
+  // trace spans, pending-pull flush and all.
+  void PublishRound(KeyState& ks, uint64_t key, uint32_t worker_id) {
+    const uint64_t pub_round = ks.completed_round;
+    const int64_t pub_t0 = ks.merge_ts.empty() ? 0 : NowUs();
+    // Contributor snapshot for the audit record, captured before the
+    // publish clears `seen` — who actually merged into this round is
+    // exactly the attribution a digest mismatch needs.
+    std::vector<uint32_t> audit_who;
+    if (audit_armed_)
+      audit_who.assign(ks.seen.begin(), ks.seen.end());
+    if (ks.ef_fold_pending) {
+      // A codec switch retired the server-EF recompress leg while a
+      // requantization residual was still carried: fold it into this
+      // publish exactly once — a renegotiation must never silently drop
+      // accumulated error (the EF-across-switch law; the worker side
+      // applies the same law in _apply_codec_local).
+      size_t ne = ks.store.size() / 4;
+      if (ne && ks.ef_err.size() == ne) {
+        float* s = reinterpret_cast<float*>(ks.store.data());
+        for (size_t i = 0; i < ne; ++i) s[i] += ks.ef_err[i];
+      }
+      ks.ef_err.clear();
+      ks.ef_err.shrink_to_fit();
+      ks.ef_fold_pending = false;
+    }
+    // Captured before the flags reset below: did this round's publish
+    // leg produce a recompressed blob (what the opt stage must decode)
+    // or the raw f32 sum?
+    const bool served_compressed = ks.round_compressed && ks.bidirectional;
+    if (ks.round_compressed && ks.bidirectional) {
+      size_t ne = ks.store.size() / 4;
+      float* s = reinterpret_cast<float*>(ks.store.data());
+      if (ks.pull_comp == codec::kQblock) {
+        // Quantized-block recompress leg, same EF law as onebit below.
+        if (ks.server_ef) {
+          if (ks.ef_err.size() != ne) ks.ef_err.assign(ne, 0.0f);
+          for (size_t i = 0; i < ne; ++i) s[i] += ks.ef_err[i];
+          codec::CompressQblock(ks.store, ks.qblock_bits,
+                                ks.qblock_block, &ks.out, &ks.ef_err);
+        } else {
+          codec::CompressQblock(ks.store, ks.qblock_bits,
+                                ks.qblock_block, &ks.out, nullptr);
+        }
+      } else {
+        if (ks.server_ef) {
+          // Vanilla EF on the requantization: fold last round's error
+          // into the merged gradient before compressing (the store is a
+          // fresh COPY_FIRST merge every round, so the in-place add is
+          // safe).
+          if (ks.ef_err.size() != ne) ks.ef_err.assign(ne, 0.0f);
+          for (size_t i = 0; i < ne; ++i) s[i] += ks.ef_err[i];
+        }
+        codec::CompressOnebit(ks.store, ks.onebit_scaled, &ks.out);
+        if (ks.server_ef) {
+          // The decoded onebit value is just +-scale with the sign bit
+          // taken from the corrected gradient — compute the error inline
+          // instead of a full decompress round-trip + allocation.
+          float scale = 1.0f;
+          std::memcpy(&scale, ks.out.data() + 5, 4);
+          for (size_t i = 0; i < ne; ++i)
+            ks.ef_err[i] = s[i] - (s[i] < 0.0f ? -scale : scale);
+        }
+      }
+      // Log BEFORE the increment so all_recv and its contributing
+      // push_recv lines carry the same round number (the compressed
+      // branch logs after the EF fold — the store it publishes).
+      DebugLog("all_recv", key, worker_id, ks.completed_round, ks.store);
+    } else {
+      DebugLog("all_recv", key, worker_id, ks.completed_round, ks.store);
+      // Publish by swap, not copy: `out` takes the merged round (what
+      // pulls serve) and `store` inherits a stale same-size buffer that
+      // the next round's COPY_FIRST fully overwrites — saving a
+      // full-buffer memcpy per partition per round on the serve path.
+      std::swap(ks.out, ks.store);
+    }
+    // --- server-resident optimizer update stage (CMD_OPT) ---------------
+    // Merge -> update -> publish *parameters*: with an active optimizer
+    // mode, the round's served bytes become the post-step params instead
+    // of the sum.  Unarmed keys (opt_kind 0 — every pre-subsystem run)
+    // skip on one compare; raw last-write-wins keys are not gradient
+    // streams and never update.
+    if (!async_ && ks.opt_kind != 0 && ks.dtype == kF32)
+      OptUpdateStage(ks, key, served_compressed);
+    // --- row-sparse embedding publish -----------------------------------
+    // The round's merged rows become the published set (swap, like the
+    // dense out/store swap above — both maps recycle their node pools
+    // round to round), then the row-wise update stage steps exactly the
+    // touched rows when the key is armed.  The audit digest below covers
+    // ks.out, which embed keys keep empty — sparse rounds are outside
+    // the audit plane (docs/sparse-embedding.md).
+    if (ks.embed_rows != 0) {
+      ks.embed_out.swap(ks.embed_merge);
+      ks.embed_merge.clear();
+      if (!async_ && ks.opt_kind != 0) {
+        EmbedUpdateStage(ks, key);
+      } else {
+        // Unarmed publishes change the served rows too (the swap above)
+        // — param_version identifies PUBLISHED TABLE STATE, so it must
+        // advance either way or worker hot-row caches could serve a
+        // superseded round as current (docs/sparse-embedding.md).
+        ks.param_version++;
+      }
+    }
+    ks.completed_round++;
+    ks.seen.clear();
+    ks.round_compressed = false;
+    if (pub_t0) {
+      // One MERGE_WAIT span per traced contributor: merge-complete ->
+      // publish.  The LAST arriver's wait is ~0; every other worker's
+      // wait is exactly how long the straggler(s) held the round open
+      // — the signal the critical-path analyzer attributes.
+      for (const auto& wt : ks.merge_ts)
+        tracer_.Record("MERGE_WAIT", key, pub_round, wt.first,
+                       wt.second, pub_t0 - wt.second, 0);
+      tracer_.Record("PUBLISH", key, pub_round, worker_id, pub_t0,
+                     NowUs() - pub_t0, ks.out.size());
+    }
+    ks.merge_ts.clear();
+    if (audit_armed_) {
+      // Digest the bytes pulls will SERVE (`out` — for bidirectional
+      // compressors that is the recompressed blob, exactly what rides
+      // the wire), and record it BEFORE the pending-pull flush below so
+      // the pulls this publish releases carry this round's trailer.
+      ks.audit_round = pub_round;
+      ks.audit_digest = audit::Digest(ks.out.data(), ks.out.size());
+      ks.audit_epoch = epoch_atomic_.load(std::memory_order_acquire);
+      ks.audit_n = static_cast<uint32_t>(audit_who.size());
+      std::lock_guard<std::mutex> lk(audit_mu_);
+      auto& dq = audit_log_[key];
+      dq.push_back(AuditRec{pub_round, ks.audit_digest, ks.audit_epoch,
+                            std::move(audit_who)});
+      while (dq.size() > static_cast<size_t>(audit_window_))
+        dq.pop_front();
+    }
+    StatPublish(key, ks.completed_round);
+    // Chain replication: enqueue the published state for the successor
+    // BEFORE the flush below — when armed, the flush is gated on the
+    // successor's ack (ReplBlocked), so this round's pulls serve only
+    // once a second copy exists.  Unarmed: one boolean test, the flush
+    // behaves exactly as before.
+    ReplEnqueue(ks, key);
+    FlushPulls(ks, key);
+  }
+
+  // Serve one audited pull: payload + 24-byte trailer carrying the
+  // digest recorded at the served round's publish.  The test-only fault
+  // injector (BYTEPS_TPU_AUDIT_FAULT) flips one bit in a COPY of the
+  // payload here — downstream of the recorded digest, so the client's
+  // re-digest must catch it; the store itself is never touched.
+  void RespondAudited(Conn* c, uint32_t req_id, uint64_t key,
+                      KeyState& ks) {
+    AuditTrailer tr{ks.audit_digest, ks.audit_round, ks.audit_epoch,
+                    ks.audit_n};
+    if (fault_armed_ && key == fault_key_ && ks.audit_round == fault_round_
+        && !ks.out.empty()
+        && !fault_done_.exchange(true, std::memory_order_acq_rel)) {
+      std::vector<char> bad(ks.out);
+      const uint64_t bit = fault_bit_ % (bad.size() * 8ULL);
+      bad[bit / 8] = static_cast<char>(
+          static_cast<unsigned char>(bad[bit / 8]) ^ (1u << (bit & 7)));
+      std::fprintf(stderr,
+                   "[byteps server] AUDIT FAULT INJECTED: key=%llu "
+                   "round=%llu bit=%llu\n",
+                   static_cast<unsigned long long>(key),
+                   static_cast<unsigned long long>(ks.audit_round),
+                   static_cast<unsigned long long>(bit));
+      RespondT(c, kOk, req_id, key, bad.data(), bad.size(), &tr,
+               sizeof(tr));
+      return;
+    }
+    RespondT(c, kOk, req_id, key, ks.out.data(), ks.out.size(), &tr,
+             sizeof(tr));
+  }
+
+  void DebugLog(const char* stage, uint64_t key, uint32_t worker,
+                uint64_t round, const std::vector<char>& buf) {
+    if (!debug_ || (debug_key_ != ~0ULL && key != debug_key_)) return;
+    // f32 sum + first value — the reference's per-stage sample shape
+    // (sum_of_buffer; reference server.cc:124-201).
+    double sum = 0.0;
+    float first = 0.0f;
+    size_t n = buf.size() / sizeof(float);
+    const float* f = reinterpret_cast<const float*>(buf.data());
+    if (n > 0) {
+      first = f[0];
+      for (size_t i = 0; i < n; ++i) sum += f[i];
+    }
+    std::fprintf(stderr,
+                 "[byteps_tpu.server DEBUG] %s key=%llu worker=%u round=%llu"
+                 " len=%zu f32_sum=%.6g first=%.6g\n",
+                 stage, static_cast<unsigned long long>(key), worker,
+                 static_cast<unsigned long long>(round), buf.size(), sum,
+                 first);
+  }
+
+  void SumInto(KeyState& ks, const std::vector<char>& payload) {
+    if (ks.dtype == kF32) {
+      auto* dst = reinterpret_cast<float*>(ks.store.data());
+      auto* src = reinterpret_cast<const float*>(payload.data());
+      size_t n = payload.size() / sizeof(float);
+      #pragma omp simd
+      for (size_t i = 0; i < n; ++i) dst[i] += src[i];
+    } else {
+      std::memcpy(ks.store.data(), payload.data(), payload.size());
+    }
+  }
+
+  // Serve one batched sparse row pull: parse SparseHdr + index stream
+  // out of `req` and respond `u64 param_version | rows` in request
+  // order.  Armed keys serve the authoritative params table (the table
+  // CMD_OPT seeded / the update stage maintains); unarmed keys serve
+  // the published round's merged rows, absent rows reading as zeros —
+  // sum semantics, what a dense pull of an untouched slice yields.
+  void RespondSparse(Conn* c, uint32_t req_id, uint64_t key, KeyState& ks,
+                     const char* req, size_t req_len) {
+    SparseHdr h;
+    const size_t w = ks.embed_width;
+    std::vector<uint32_t> idx;
+    bool ok = ks.embed_rows != 0 && w != 0 && req_len >= sizeof(h);
+    if (ok) {
+      std::memcpy(&h, req, sizeof(h));
+      ok = h.width == w && req_len >= sizeof(h) + h.idx_bytes &&
+           DecodeSparseIndices(
+               reinterpret_cast<const unsigned char*>(req) + sizeof(h),
+               h.idx_bytes, h.nrows, h.codec, &idx);
+    }
+    if (ok)
+      for (uint32_t i = 0; i < h.nrows; ++i)
+        if (idx[i] >= ks.embed_rows) { ok = false; break; }
+    if (!ok) {
+      Respond(c, kError, req_id, key, nullptr, 0);
+      return;
+    }
+    std::vector<char> resp(8 + static_cast<size_t>(h.nrows) * w * 4);
+    std::memcpy(resp.data(), &ks.param_version, 8);
+    char* dst = resp.data() + 8;
+    // Serving law: a full-size params table IS the live table (seeded
+    // via CMD_OPT or optimizer-stepped) and wins regardless of whether
+    // the pending optimizer config has reached its round boundary yet —
+    // a freshly seeded table must serve its seed before round 1.
+    // Without params (unarmed), serve the last published per-round rows
+    // (absent row = zeros, the dense sum semantics).
+    const bool armed =
+        ks.params.size() == static_cast<size_t>(ks.embed_rows) * w;
+    for (uint32_t i = 0; i < h.nrows; ++i) {
+      const uint64_t r = idx[i];
+      if (armed) {
+        std::memcpy(dst, ks.params.data() + r * w, w * 4);
+      } else {
+        auto it = ks.embed_out.find(r);
+        if (it != ks.embed_out.end() && it->second.size() == w)
+          std::memcpy(dst, it->second.data(), w * 4);
+        else
+          std::memset(dst, 0, w * 4);
+      }
+      dst += w * 4;
+    }
+    embed_rows_served_.fetch_add(h.nrows, std::memory_order_relaxed);
+    Respond(c, kOk, req_id, key, resp.data(), resp.size());
+  }
+
+  void HandlePull(Task& t) {
+    // Ring ownership gate: a pull for a moved key redirects like a push
+    // — the published `out` buffer migrated with the state, so the new
+    // owner serves the identical bytes.
+    if (RingMisplaced(t.key)) {
+      RespondMoved(t, FindState(t.key));
+      return;
+    }
+    KeyState& ks = StateFor(t.key);
+    MaybeAdoptReplica(t.key, ks);
+    if (t.dtype == kSparseRead) {
+      // Ungated inference read: serves whatever the table holds RIGHT
+      // NOW — no round gate, no parking, no round-state mutation at
+      // all, so a pull-only session can never stall (or be stalled by)
+      // round completion.  Readers order themselves by the returned
+      // param_version, which is monotone per key.  The one exception is
+      // the zero-loss gate: while the newest publish awaits its
+      // successor ack, the read parks (`ungated`) so an observer can
+      // never consume table state that a failover would roll back —
+      // param_version stays monotone ACROSS a SIGKILL because nothing
+      // unreplicated is ever served.
+      if (ReplBlocked(ks)) {
+        AddRef(t.conn);
+        ks.pending.push_back({t.conn, t.req_id, t.key, t.flags,
+                              t.worker_id, false, false});
+        ks.pending.back().ungated = true;
+        ks.pending.back().sparse = std::move(t.payload);
+        StatPendingPulls(t.key, 1);
+        return;
+      }
+      RespondSparse(t.conn, t.req_id, t.key, ks, t.payload.data(),
+                    t.payload.size());
+      return;
+    }
+    // t.flags = the round (mod 2^15, low bits of the u16; bit 15 is the
+    // trace marker) the worker just pushed; its result is ready once that
+    // round has been published.  The 15-bit compare aliases only if a
+    // worker's pull were exactly 32,768 rounds stale — unreachable by
+    // protocol: the client's
+    // sequential-use guard (client.py _stage_parts) serializes rounds per
+    // key, so a pull's round is always completed_round or
+    // completed_round - 1.  Asserted rather than assumed: a client that
+    // violated the invariant would otherwise silently wait or read a
+    // whole-epoch-stale buffer.
+    const bool traced = (t.flags & kFlagTraced) != 0;
+    // Audited pull (dtype marker from an audit-armed client): serve with
+    // the 24-byte digest trailer.  Gated on audit_armed_ too, so a rogue
+    // dtype against an unarmed server changes nothing.
+    const bool audited = audit_armed_ && t.dtype == kAuditPullMark;
+    if (!async_ && !RoundMatch(t.flags, ks.completed_round) &&
+        !RoundMatch(t.flags, ks.completed_round - 1)) {
+      Respond(t.conn, kError, t.req_id, t.key, nullptr, 0);
+      return;
+    }
+    // The zero-loss gate joins the round check: a pull whose round is
+    // ready but whose publish has not been replicated yet parks until
+    // the successor acks (kReplFlushTask serves it) — unarmed runs pay
+    // one boolean test.
+    bool ready = (async_ || !RoundMatch(t.flags, ks.completed_round)) &&
+                 !ReplBlocked(ks);
+    if (ready) {
+      const int64_t t0 = traced ? NowUs() : 0;
+      if (t.dtype == kSparseRows)
+        RespondSparse(t.conn, t.req_id, t.key, ks, t.payload.data(),
+                      t.payload.size());
+      else if (audited)
+        RespondAudited(t.conn, t.req_id, t.key, ks);
+      else
+        Respond(t.conn, kOk, t.req_id, t.key, ks.out.data(),
+                ks.out.size());
+      if (traced)
+        tracer_.Record("PULL_SEND", t.key, ks.completed_round,
+                       t.worker_id, t0, NowUs() - t0, ks.out.size());
+    } else {
+      AddRef(t.conn);   // the stash outlives the task's own hold
+      ks.pending.push_back({t.conn, t.req_id, t.key, t.flags,
+                            t.worker_id, traced, audited});
+      if (t.dtype == kSparseRows)
+        // Round-gated sparse pull: park the request (header + index
+        // stream) so FlushPulls can serve the rows once the wanted
+        // round publishes.
+        ks.pending.back().sparse = std::move(t.payload);
+      StatPendingPulls(t.key, 1);
+    }
+  }
+
+  void FlushPulls(KeyState& ks, uint64_t key) {
+    // Zero-loss gate: while the newest publish awaits its successor
+    // ack, NOTHING serves (the parked pulls are exactly the ones the
+    // gate exists for); kReplFlushTask re-runs this the moment the ack
+    // lands.  `ungated` entries (kSparseRead reads parked only by the
+    // gate) ignore the round match once the gate opens.
+    const bool blocked = ReplBlocked(ks);
+    std::vector<PendingPull> still;
+    int64_t flushed = 0;
+    for (auto& p : ks.pending) {
+      if (!blocked &&
+          (p.ungated || async_ ||
+           !RoundMatch(p.want_round, ks.completed_round))) {
+        const int64_t t0 = p.traced ? NowUs() : 0;
+        if (!p.sparse.empty())
+          RespondSparse(p.conn, p.req_id, key, ks, p.sparse.data(),
+                        p.sparse.size());
+        else if (p.audited)
+          RespondAudited(p.conn, p.req_id, key, ks);
+        else
+          Respond(p.conn, kOk, p.req_id, key, ks.out.data(),
+                  ks.out.size());
+        if (p.traced)
+          tracer_.Record("PULL_SEND", key, ks.completed_round, p.worker,
+                         t0, NowUs() - t0, ks.out.size());
+        ReleaseRef(p.conn);
+        ++flushed;
+      } else {
+        still.push_back(p);
+      }
+    }
+    ks.pending.swap(still);
+    if (flushed) StatPendingPulls(key, -flushed);
+  }
+
+  int port_;
+  int num_workers_;
+  // Hierarchical reduction (BYTEPS_TPU_SLICE_SIZE): chips per slice;
+  // RoundComplete counts slice coverage when > 1.  1 = flat (exact
+  // historical per-worker completion).
+  int slice_size_ = 1;
+  int engine_threads_;
+  bool schedule_;
+  bool async_;
+  bool debug_ = false;
+  uint64_t debug_key_ = ~0ULL;   // ~0 = all keys
+  uint64_t max_msg_ = 1ULL << 30;  // wire frame cap (see ctor)
+  int listen_fd_ = -1;
+  // UDS fast path + socket tuning (see ctor).
+  std::string uds_base_;
+  std::string uds_path_;
+  int uds_listen_fd_ = -1;
+  int sock_buf_bytes_ = 0;
+  // Scatter-receive telemetry: frames that took the zero-intermediate
+  // reader->store path (CMD_STATS "scatter_frames").
+  std::atomic<uint64_t> scatter_frames_{0};
+
+  std::vector<EngineQueue> queues_;
+  std::vector<std::thread> engines_;
+
+  // Readers run detached (see Run); shutdown waits for this count.
+  std::mutex readers_mu_;
+  std::condition_variable readers_cv_;
+  int active_readers_ = 0;
+
+  std::mutex assign_mu_;
+  std::unordered_map<uint64_t, int> key_engine_;
+  std::vector<uint64_t> engine_load_;
+
+  std::mutex store_mu_;
+  std::map<uint64_t, KeyState> store_;
+
+  std::mutex barrier_mu_;
+  std::map<uint64_t, std::vector<PendingPull>> barrier_waiters_;
+  // Generations that already released: late arrivals (elastic joiners
+  // catching up to the startup rendezvous) pass straight through.
+  // Generations are one-shot by contract, so this only ever holds as
+  // many entries as distinct barrier calls the job makes.
+  std::set<uint64_t> released_gens_;
+
+  // Elastic membership (see the "elastic membership" section above).
+  // epoch_atomic_ mirrors epoch_ for the lock-free fixed-mode
+  // short-circuit on the push hot path.
+  std::mutex member_mu_;
+  uint64_t epoch_ = 0;
+  std::map<uint32_t, MemberRec> members_;
+  std::atomic<uint64_t> epoch_atomic_{0};
+  double evict_timeout_s_ = 0.0;
+  std::atomic<uint64_t> deferred_joins_{0};
+
+  // Elastic PS ring (see the "elastic PS ring" section above).
+  // ring_epoch_atomic_ mirrors ring_epoch_ for the lock-free data-path
+  // short-circuit; everything else under ring_mu_.
+  bool ring_armed_ = false;
+  bool ring_join_ = false;
+  std::atomic<bool> draining_{false};
+  uint32_t my_server_id_ = 0;
+  int ring_vnodes_ = 64;
+  std::string advertise_host_;
+  int advertise_port_ = 0;
+  std::mutex ring_mu_;
+  uint64_t ring_epoch_ = 0;
+  std::vector<RingServer> ring_members_;
+  // Atomically-swapped sorted point table (see RebuildRingPointsLocked):
+  // readers are lock-free; the pointer is rebuilt whole per transition.
+  std::shared_ptr<const std::vector<std::pair<uint64_t, uint32_t>>>
+      ring_points_;
+  std::map<uint32_t, std::pair<std::string, int>> peer_book_;
+  std::atomic<uint64_t> ring_epoch_atomic_{0};
+  std::atomic<uint64_t> migrations_in_{0};
+  std::atomic<uint64_t> migrations_out_{0};
+  std::atomic<uint64_t> moved_frames_{0};
+  // CMD_CODEC accepted proposals / format-mismatch rejections (the
+  // renegotiation race backstop firing) — CMD_STATS observability.
+  std::atomic<uint64_t> codec_sets_{0};
+  std::atomic<uint64_t> codec_stale_{0};
+  // CMD_KNOB global knob plane: ONE epoch-versioned kwargs table per
+  // server ("fusion_bytes=..,compress_threads=..,wire_conns=..") plus
+  // the per-worker acked-epoch map the push-path backstop consults.
+  // Guarded by knob_mu_ (reader threads write it, engine threads read it
+  // on the push path); knob_epoch_atomic_ mirrors knob_epoch_ so an
+  // unarmed run's pushes pay ONE relaxed load and never take the mutex —
+  // wire behavior byte-identical until the first SET.
+  std::mutex knob_mu_;
+  uint32_t knob_epoch_ = 0;          // newest accepted epoch (0 = launch)
+  uint32_t knob_applied_ = 0;        // epoch of the ACTIVE kwargs
+  bool knob_pending_ = false;        // a staged switch awaits its boundary
+  uint64_t knob_effective_ = 0;      // round boundary of the newest SET
+  std::string knob_kwargs_;          // ACTIVE table ("" = launch config)
+  std::string knob_next_;            // staged table while pending
+  std::map<uint32_t, uint32_t> knob_acked_;  // worker -> last acked epoch
+  std::atomic<uint32_t> knob_epoch_atomic_{0};
+  std::atomic<uint64_t> knob_sets_{0};
+  std::atomic<uint64_t> knob_stale_{0};
+  // Server-resident optimizer plane (CMD_OPT) — CMD_STATS observability:
+  // accepted declarations, idempotent param seeds, published optimizer
+  // updates, and the live bytes held in server-owned optimizer slots
+  // (params + m + v across keys; the bench's "per-worker optimizer-state
+  // bytes ~0" claim is this gauge living HERE instead of N times on the
+  // workers).
+  std::atomic<uint64_t> opt_sets_{0};
+  std::atomic<uint64_t> opt_seeds_{0};
+  std::atomic<uint64_t> opt_updates_{0};
+  std::atomic<uint64_t> opt_slot_bytes_{0};
+  // Row-sparse embedding plane: total rows served by sparse pulls/reads
+  // and the summed DECLARED table footprint (rows * width * 4) across
+  // this server's embed keys — the CMD_STATS "embed_rows_served" /
+  // "embed_table_bytes" fields feeding bps_embed_* telemetry.
+  std::atomic<uint64_t> embed_rows_served_{0};
+  std::atomic<uint64_t> embed_table_bytes_{0};
+  std::mutex peer_mu_;
+  std::map<uint32_t, int> peer_fds_;
+  std::map<uint32_t, int64_t> peer_down_until_us_;  // negative cache
+
+  // Chain replication (CMD_REPL; see the "chain replication" section).
+  // repl_points_ is the ring point table minus this server's vnodes —
+  // Owner(key, repl_points_) is the key's successor — published
+  // lock-free like ring_points_.  Everything else under repl_mu_:
+  // the newest-blob send queue + owner-side published/acked rounds
+  // (engine + repl threads), and the replicas parked FOR other owners'
+  // keys (reader threads in, engine threads out at adoption).
+  bool repl_armed_ = false;          // BYTEPS_TPU_REPL
+  uint64_t repl_lag_window_ = 0;     // BYTEPS_TPU_REPL_LAG (rounds the
+                                     // publish may run ahead of the ack)
+  std::shared_ptr<const std::vector<std::pair<uint64_t, uint32_t>>>
+      repl_points_;
+  std::mutex repl_mu_;
+  std::condition_variable repl_cv_;
+  std::map<uint64_t, std::vector<char>> repl_pending_;
+  std::map<uint64_t, uint64_t> repl_pub_;
+  std::map<uint64_t, uint64_t> repl_ack_;
+  std::map<uint64_t, std::pair<uint64_t, std::vector<char>>> replicas_;
+  std::atomic<uint64_t> repl_rounds_out_{0};
+  std::atomic<uint64_t> repl_bytes_out_{0};
+  std::atomic<uint64_t> repl_rounds_in_{0};
+  std::atomic<uint64_t> repl_bytes_in_{0};
+  std::atomic<uint64_t> repl_promotions_{0};
+
+  // CMD_AUDIT publish-digest window (see AuditJson / PublishRound).
+  struct AuditRec {
+    uint64_t round;
+    uint32_t digest;
+    uint64_t epoch;
+    std::vector<uint32_t> who;   // contributor ids at publish
+  };
+  bool audit_armed_ = false;     // BYTEPS_TPU_AUDIT
+  int audit_window_ = 16;        // BYTEPS_TPU_AUDIT_WINDOW (last K rounds)
+  std::mutex audit_mu_;
+  std::map<uint64_t, std::deque<AuditRec>> audit_log_;
+  // Test-only fault injection (BYTEPS_TPU_AUDIT_FAULT="key:round:bit").
+  bool fault_armed_ = false;
+  uint64_t fault_key_ = 0;
+  uint64_t fault_round_ = 0;
+  uint64_t fault_bit_ = 0;
+  std::atomic<bool> fault_done_{false};
+
+  // Fleet observability plane (CMD_WINDOW / CMD_FLEET): per-worker
+  // rings of published window summaries, ordered by window index and
+  // bounded by fleet_windows_.  fleet_mu_ is a LEAF lock: taken only
+  // around ring reads/writes, never while holding (or before taking)
+  // member_mu_ / stats_mu_ / repl_mu_.
+  bool fleet_armed_ = false;     // BYTEPS_TPU_FLEET
+  int fleet_windows_ = 32;       // BYTEPS_TPU_FLEET_WINDOWS (per worker)
+  std::mutex fleet_mu_;
+  std::map<uint32_t,
+           std::deque<std::pair<uint64_t, std::string>>> fleet_rings_;
+  std::atomic<uint64_t> fleet_publishes_{0};
+
+  // CMD_TRACE span ring (see ServerTracer).
+  ServerTracer tracer_;
+
+  // CMD_STATS telemetry (see StatsJson).
+  std::mutex stats_mu_;
+  std::map<uint64_t, KeyStat> key_stats_;
+  std::map<uint32_t, WorkerStat> worker_stats_;
+  std::atomic<uint64_t> bytes_in_{0};
+  std::atomic<uint64_t> bytes_out_{0};
+
+  std::mutex conns_mu_;
+  std::vector<Conn*> conns_;
+
+  std::atomic<bool> shutdown_{false};
+  std::atomic<uint64_t> seq_{0};
+};
+
+}  // namespace bps_server
+
+extern "C" {
+
+// Blocking server entry, the analog of `byteps_server()`
+// (reference: server.h:186, server/__init__.py:21-27).
+__attribute__((visibility("default")))
+int bps_ps_server_run(int port, int num_workers, int engine_threads,
+                      int enable_schedule, int enable_async) {
+  bps_server::Server s(port, num_workers, engine_threads,
+                       enable_schedule != 0, enable_async != 0);
+  return s.Run();
+}
+
+// Ring-placement parity hook (ctypes from tests and common/ring.py
+// consumers): the owner of `key` among `ids[n]` with `vnodes` virtual
+// nodes per server, computed by the SAME code the server's ownership
+// gate runs.  Returns the owning server id, or -1 on bad args.  Test
+// surface only — the worker's hot path uses the pure-Python mirror.
+__attribute__((visibility("default")))
+int64_t bps_ring_owner(uint64_t key, const uint32_t* ids, int32_t n,
+                       int32_t vnodes) {
+  if (ids == nullptr || n <= 0 || vnodes <= 0 || vnodes > 4096) return -1;
+  std::vector<std::pair<uint64_t, uint32_t>> points;
+  points.reserve(static_cast<size_t>(n) * vnodes);
+  for (int32_t i = 0; i < n; ++i)
+    for (int32_t v = 0; v < vnodes; ++v)
+      points.emplace_back(
+          bps_server::ring::VnodePoint(ids[i], static_cast<uint32_t>(v)),
+          ids[i]);
+  std::sort(points.begin(), points.end());
+  return static_cast<int64_t>(bps_server::ring::Owner(key, points));
+}
+
+// Audit-digest parity hook (ctypes from tests and the worker's digest
+// fallback check): the chunked-CRC publish digest computed by the SAME
+// code PublishRound runs, so the Python mirror (client.py audit_digest)
+// can be asserted bit-identical.
+__attribute__((visibility("default")))
+uint32_t bps_audit_digest(const char* data, uint64_t n) {
+  return bps_server::audit::Digest(data, static_cast<size_t>(n));
+}
+
+// Worker-side codec acceleration (ctypes from server/wire.py).  Same
+// decoder the server engine runs — one implementation, one set of
+// hostile-input checks.  Returns 0 on success, -1 on malformed payload
+// or element-count mismatch.
+__attribute__((visibility("default")))
+int bps_wire_decode(const char* payload, uint64_t len, float* out,
+                    uint64_t n) {
+  if (n > 0xFFFFFFFFULL) return -1;
+  return bps_server::codec::DecompressTo(
+             payload, static_cast<size_t>(len), out,
+             static_cast<uint32_t>(n)) ? 0 : -1;
+}
+
+// Onebit worker-side fused passes (ctypes from server/wire.py).  The
+// numpy chain (momentum -> EF add -> sign pack -> reconstruction ->
+// error store) is 7+ full-buffer passes with fresh allocations; these
+// two single-pass routines replace all but the scale reduction (which
+// stays in numpy — its pairwise float32 sum is the parity reference).
+// All per-element float ops match the numpy expressions exactly, so
+// C-path and numpy-path workers stay byte- and state-identical.
+
+// Pass A: in-place Nesterov momentum + error-feedback correction.
+//   if mom:  m = mu*m + x;  x += mu*m   (m updated in place)
+//   if err:  x += err
+__attribute__((visibility("default")))
+void bps_wire_onebit_correct(float* x, uint64_t n, float* mom, float mu,
+                             const float* err) {
+  if (mom) {
+    for (uint64_t i = 0; i < n; ++i) {
+      float m = mu * mom[i] + x[i];
+      mom[i] = m;
+      x[i] = x[i] + mu * m;
+    }
+  }
+  if (err)
+    for (uint64_t i = 0; i < n; ++i) x[i] += err[i];
+}
+
+// Pass B: pack sign bits (LSB-first, 1 = negative) and, when err_out
+// is non-null, store the EF error x - (sign ? -scale : +scale).
+// `bits` must be zeroed ((n+7)/8 bytes).
+__attribute__((visibility("default")))
+void bps_wire_onebit_pack(const float* x, uint64_t n, float scale,
+                          unsigned char* bits, float* err_out) {
+  bps_server::codec::PackSigns(x, n, bits);
+  if (err_out)
+    for (uint64_t i = 0; i < n; ++i) {
+      float q = x[i] < 0.0f ? -scale : scale;   // compiles to a blend
+      err_out[i] = x[i] - q;
+    }
+}
+
+// Quantized-block encode (see codec::EncodeQblock) — the worker-side
+// qblock fast path, the exact routine the server's recompress leg runs
+// (CompressQblock), so C-path and numpy-path workers stay byte- and
+// EF-state-identical.  `recon`, when non-null, receives the dequantized
+// reconstruction (the worker EF leg).  Returns bytes written, -1 on bad
+// args / insufficient cap.
+__attribute__((visibility("default")))
+int64_t bps_wire_encode_qblock(const float* x, uint64_t n, int bits,
+                               uint32_t block, float* recon,
+                               unsigned char* out, uint64_t cap) {
+  if (n > 0xFFFFFFFFULL) return -1;
+  return bps_server::codec::EncodeQblock(
+      x, static_cast<uint32_t>(n), bits, block, recon, out, cap);
+}
+
+// Dithering encode (see codec::EncodeDithering).  Returns bytes
+// written, -1 on bad args / insufficient cap.
+__attribute__((visibility("default")))
+int64_t bps_wire_encode_dithering(const float* x, uint64_t n, uint32_t s,
+                                  int natural, int elias, float norm,
+                                  uint32_t* rng, float* recon,
+                                  unsigned char* out, uint64_t cap) {
+  if (n > 0xFFFFFFFFULL) return -1;
+  return bps_server::codec::EncodeDithering(
+      x, static_cast<uint32_t>(n), s, natural, elias, norm, rng, recon,
+      out, cap);
+}
+
+}  // extern "C"
+
+#ifdef BPS_SERVER_MAIN
+// Standalone executable entry (used for sanitizer builds, where the TSAN
+// runtime must be loaded at process start and cannot be dlopen'd into an
+// interpreter).  argv: port num_workers engine_threads schedule async
+int main(int argc, char** argv) {
+  if (argc != 6) return 64;
+  return bps_ps_server_run(atoi(argv[1]), atoi(argv[2]), atoi(argv[3]),
+                           atoi(argv[4]), atoi(argv[5]));
+}
+#endif

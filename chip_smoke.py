@@ -231,6 +231,37 @@ Phases, each of which must pass:
    printed.  17b: BYTEPS_TPU_DEVICE_PLATFORM=tpu, one window roll opens a
    CRITICAL device_fallback, and a bundle dumped then carries the device
    and diagnosis sections.
+18. The base of the PS worker plane (host code; no kernel).  18a: the
+   native host core, built with the machine's g++ from
+   byteps_tpu_torch/core/{core,server}.cc (byte-identical copies of the
+   JAX package's) in a thread started before phase 1, beside the CUDA
+   builds: the g++ version, the build's seconds and the library's path,
+   and get_native_core() a _CCore.  The flagship's parameter names in
+   phase 4's order, then its 321 gradient buckets, declared on the native
+   core and on the Python Core: equal keys, partition bounds of each
+   bucket at 4 MiB, key_to_server under djb2, sdbm, mixed and naive at 1,
+   2, 4 and 8 servers, and the order a ScheduledQueue with a credit of 4
+   partitions gives out every bucket partition at its bucket's priority.
+   18b: every partition key on a 4-server ring of 64 virtual nodes:
+   RingTable.owner equal to the library's bps_ring_owner; a fifth server
+   moves keys only to itself.  18c: one forward and backward of phase 4's
+   flagship at full width and depth; its float32 gradient buckets as
+   phase 4b forms them (321, 1.3 GB) copied to the host once (ms printed);
+   then, for onebit (scaled, EF, momentum 0.9; two rounds), topk and
+   randomk (1% of each bucket), dithering s = 15 dense and elias, and
+   qblock 8 and 4 bits in blocks of 256, every bucket encoded and then
+   decoded through a CompressionPool of 4 threads (queued in a shuffled
+   order while its threads are held; the order it takes them must be
+   priority desc, key asc) and copied back to the card: the C codec in
+   use, every payload within wire_cap_bytes, onebit's decodes +-scale and
+   its EF residuals exactly the corrected input less the decode, the
+   numpy codec's bytes, EF and momentum state and decode equal the C
+   codec's on three buckets (a full one, the ragged one, the middle one),
+   and a truncated payload raising ValueError; encode, decode and
+   copy-back ms a step's gradients and wire/raw bytes printed with the
+   card's name and power limit.  18d: python -m byteps_tpu_torch.server
+   on a free port accepts a TCP connection within 30 s and maps the
+   port's library; then it is terminated.
 
 Prints a ``{"kernels": [...]}`` line (each entry also naming the CUDA
 kernels it launches, ``cuda_kernels``), the card's name and power limit, and
@@ -337,6 +368,28 @@ DRIVER_STEPS = 8
 OBS_WINDOW_S = 0.5
 OBS_MIN_STEPS = 6
 OBS_MAX_STEPS = 40
+# Phase 18: the PS wire configurations (name, kwargs, rounds: the stateful
+# one runs two, so that EF and momentum carry over; topk and randomk keep
+# 1% of each bucket), the codec pool's threads, the sampled buckets the
+# numpy codec is held to, the placement hashes and server counts, the ring
+# and the queue's credit (4 partitions of 4 MiB).
+PS_WIRE_CONFIGS = (
+    ("onebit", {"compressor": "onebit", "ef": "vanilla",
+                "momentum": "nesterov", "momentum_mu": "0.9"}, 2),
+    ("topk", {"compressor": "topk"}, 1),
+    ("randomk", {"compressor": "randomk"}, 1),
+    ("dithering", {"compressor": "dithering", "k": "15"}, 1),
+    ("dithering_elias", {"compressor": "dithering", "k": "15",
+                         "coding": "elias"}, 1),
+    ("qblock8", {"compressor": "qblock", "bits": "8", "block": "256"}, 1),
+    ("qblock4", {"compressor": "qblock", "bits": "4", "block": "256"}, 1),
+)
+PS_POOL_THREADS = 4
+PS_SAMPLED = 3
+PS_HASHES = ("djb2", "sdbm", "mixed", "naive")
+PS_SERVERS = (1, 2, 4, 8)
+PS_RING = dict(servers=4, vnodes=64)
+PS_QUEUE_CREDIT = 4 * 4 * 1024 * 1024
 
 
 def sh(cmd):
@@ -2782,6 +2835,481 @@ def phase_observability(bps, tfm, fa, torch, check, gpu):
     return res
 
 
+def start_native_build():
+    """Start the native host core's g++ build (phase 18a) in a thread
+    beside the CUDA builds; returns a dict the thread fills with the
+    library's path, its seconds and any error."""
+    import threading
+    from byteps_tpu_torch.core import build
+    res = {}
+
+    def run():
+        t0 = time.perf_counter()
+        try:
+            res["path"] = build.build()
+        except Exception as e:          # reported by phase 18a
+            res["error"] = e
+        res["seconds"] = time.perf_counter() - t0
+    res["thread"] = threading.Thread(target=run, name="native-core-build")
+    res["thread"].start()
+    return res
+
+
+def phase_ps_build(ps_build, check):
+    """18a, first part: the native library of the port's copy of the C++
+    sources, and the process's native core on it."""
+    from byteps_tpu_torch.core import build, native
+    ps_build["thread"].join()
+    print(f"  {sh(['g++', '--version']).splitlines()[0]}; "
+          f"flags {' '.join(build.CXX_FLAGS + build.LIB_FLAGS)}")
+    err = ps_build.get("error")
+    check(err is None and ps_build.get("path") == build.lib_path()
+          and os.path.isfile(build.lib_path()),
+          f"native core built from byteps_tpu_torch/core/{{core,server}}.cc "
+          f"in {ps_build['seconds']:.1f} s (compile "
+          f"{build.last_build_seconds} s, beside the CUDA builds) -> "
+          f"{ps_build.get('path')}" + (f": {err}" if err else ""))
+    if err is not None:
+        return None
+    core = native.get_native_core()
+    check(isinstance(core, native._CCore) and native.is_native(),
+          f"get_native_core() is {type(core).__name__}")
+    return core
+
+
+def flagship_buckets(bps, tfm, fa, torch, check):
+    """One forward and backward of phase 4's flagship; its float32
+    gradient buckets as phase 4b's compressed reduce forms them (the
+    bucketed reduce's buffers, captured by its bucket transform), each
+    with its priority (the highest leaf index among its members: the
+    last leaves, which the backward pass gives first, go first)."""
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.common.tree import tree_leaves, tree_paths
+    from byteps_tpu_torch.ops import collectives
+    cfg, params, batch, _, _ = flagship(tfm, bps, torch)
+    names = tree_paths(params)
+    leaves = tree_leaves(params)
+    fa.reset_launches()
+    loss = tfm.loss_fn(params, batch, cfg)
+    grads = list(torch.autograd.grad(loss, leaves))
+    launches = {n: fa.launches[n] for n in RESIDENT}
+    bufs = []
+
+    def capture(buf, bi):
+        bufs.append(buf)
+        return buf
+    with collectives.local_mode():
+        collectives.bucketed_tree_all_reduce(grads, bucket_transform=capture)
+    sizes = [b.numel() for b in bufs]
+    plan = collectives._plan_cache(tuple(g.numel() for g in grads),
+                                   get_config().partition_bytes, 4, True)
+    prios = [max(li for li, _, _ in b) for b in plan.buckets]
+    print(f"  flagship forward and backward: loss {float(loss.detach()):.5f}, "
+          f"{len(leaves)} leaves, flash launches {launches}; "
+          f"{len(bufs)} float32 buckets, "
+          f"{sum(sizes) * 4 / 2**30:.3f} GiB")
+    check(len(bufs) == FLAGSHIP_BUCKETS and sizes == bps.compressor.reduce
+          ._bucket_sizes(leaves, None) and all(b.dtype == torch.float32
+                                               for b in bufs)
+          and RAGGED_BUCKET in sizes and len(prios) == len(bufs),
+          f"{FLAGSHIP_BUCKETS} float32 buckets as phase 4b forms them, the "
+          f"ragged one ({RAGGED_BUCKET}) among them")
+    check(all(launches[n] > 0 for n in RESIDENT)
+          and math.isfinite(float(loss.detach())),
+          "the gradients came through the flash kernels, loss finite")
+    del loss, grads, params
+    return names, [tuple(l.shape) for l in leaves], bufs, prios
+
+
+def ps_partition_keys(core, names, shapes, sizes):
+    """Declare the flagship's parameter names (phase 4's order), then its
+    buckets; every 4 MiB partition of each becomes a partition key.
+    Returns (declared keys, param partition keys, bucket partition keys
+    as (key, bytes, bucket index), the buckets' partition bounds)."""
+    part = 4 * 1024 * 1024
+    core.reset_registry()
+    declared = [core.declare_tensor(n) for n in names]
+    declared += [core.declare_tensor(f"flagship.bucket{i}")
+                 for i in range(len(sizes))]
+    pkeys = []
+    for k, shp in zip(declared, shapes):
+        nbytes = 4 * math.prod(shp)
+        pkeys += [core.encode_key(k, p) for p, _ in
+                  enumerate(core.partition_bounds(nbytes, part))]
+    bounds = [core.partition_bounds(4 * n, part) for n in sizes]
+    bkeys = [(core.encode_key(declared[len(names) + i], p), ln, i)
+             for i, bs in enumerate(bounds) for p, (_, ln) in enumerate(bs)]
+    return declared, pkeys, bkeys, bounds
+
+
+def drain_queue(core, bkeys, prios, credit):
+    """The order a ScheduledQueue with ``credit`` bytes gives out the
+    bucket partitions ``bkeys`` (at their bucket's priority), each
+    partition finishing in the order it went out."""
+    import collections
+    q = core.queue_create(credit_bytes=credit)
+    for key, nbytes, i in bkeys:
+        q.add(key, prios[i], nbytes)
+    order, inflight = [], collections.deque()
+    while True:
+        t = q.get()
+        if t is None:
+            if not inflight:
+                return order
+            q.report_finish(inflight.popleft())
+            continue
+        order.append(t[0])
+        inflight.append(t[2])
+
+
+def phase_ps_core(ccore, names, shapes, sizes, prios, check):
+    """18a, second part: the native core and the Python core on the
+    flagship's names and buckets.  18b: the ring on every partition key."""
+    from byteps_tpu_torch.common import ring
+    from byteps_tpu_torch.core import native
+    pcore = native.Core()
+    got = {}
+    for label, core in (("native", ccore), ("python", pcore)):
+        t0 = time.perf_counter()
+        declared, pkeys, bkeys, bounds = ps_partition_keys(
+            core, names, shapes, sizes)
+        keys = pkeys + [k for k, _, _ in bkeys]
+        hashes = {(h, n): [core.key_to_server(k, n, h) for k in keys]
+                  for h in PS_HASHES for n in PS_SERVERS}
+        order = drain_queue(core, bkeys, prios, PS_QUEUE_CREDIT)
+        got[label] = (declared, keys, bounds, hashes, order, bkeys)
+        print(f"  {label} core: {len(declared)} declared, {len(keys)} "
+              f"partition keys, queue of {len(bkeys)} at a credit of "
+              f"{PS_QUEUE_CREDIT >> 20} MiB ({time.perf_counter() - t0:.2f} "
+              f"s)")
+    n, p = got["native"], got["python"]
+    for i, what in enumerate(("declared keys", "partition keys",
+                              "the buckets' partition bounds at 4 MiB",
+                              "key_to_server (djb2, sdbm, mixed, naive at "
+                              "1, 2, 4, 8 servers)",
+                              "the queue's order (credit of 4 partitions)")):
+        check(n[i] == p[i], f"native core == Python core: {what}")
+    keys, order = n[1], n[4]
+    spread = {h: [n[3][(h, 4)].count(s) for s in range(4)]
+              for h in PS_HASHES}
+    print(f"  keys per server at 4 servers: {spread}")
+    check(sorted(order) == sorted(k for k, _, _ in n[5]),
+          f"the queue gave out every bucket partition once ({len(order)})")
+
+    members = list(range(PS_RING["servers"]))
+    table = ring.RingTable([(i, "127.0.0.1", 0) for i in members],
+                           PS_RING["vnodes"])
+    owners = [table.owner(k) for k in keys]
+    check(owners == [ccore.ring_owner(k, members, PS_RING["vnodes"])
+                     for k in keys],
+          f"18b: RingTable.owner == bps_ring_owner for all {len(keys)} "
+          f"partition keys ({PS_RING['servers']} servers, "
+          f"{PS_RING['vnodes']} vnodes; keys per server "
+          f"{[owners.count(s) for s in members]})")
+    grown = table.with_server(len(members), "127.0.0.1", 0)
+    moved = [k for k, o in zip(keys, owners) if grown.owner(k) != o]
+    check(moved and all(grown.owner(k) == len(members) for k in moved),
+          f"18b: a fifth server takes {len(moved)} keys "
+          f"({len(moved) / len(keys):.3f} of them), every one of them moved "
+          f"to the joiner")
+    return keys
+
+
+def ps_wire_kwargs(kwargs, n):
+    """A config's kwargs for an n-element bucket (topk and randomk keep
+    1% of it)."""
+    if kwargs["compressor"] in ("topk", "randomk"):
+        return {**kwargs, "k": str(max(1, n // 100))}
+    return dict(kwargs)
+
+
+class PopRecorder:
+    """Stands in for ``heapq`` in the codec pool's module: records the
+    (priority, key) of each job the pool takes off its heap, under the
+    pool's lock, so the record is the order the jobs start in."""
+
+    def __init__(self, log):
+        import heapq
+        self.log = log
+        self._heapq = heapq
+        self.heappush = heapq.heappush
+
+    def heappop(self, heap):
+        item = self._heapq.heappop(heap)
+        if item[1] >= 0:                  # not a gate job
+            self.log.append((-item[0], item[1]))
+        return item
+
+
+def run_pool(pool, jobs, order_out):
+    """Run ``jobs`` ((priority, key, fn)) on ``pool``: its threads are held
+    by gate jobs while every job is queued (in the given order), then
+    released; returns the seconds from the release to the last job's end,
+    and appends each job's (priority, key) to ``order_out`` as the pool
+    takes it."""
+    import threading
+    from byteps_tpu_torch.server import codec_pool
+    gate, held = threading.Event(), threading.Semaphore(0)
+    done = threading.Semaphore(0)
+
+    def gate_job():
+        held.release()
+        gate.wait(60)
+
+    def wrap(fn):
+        def run():
+            try:
+                fn()
+            finally:
+                done.release()
+        return run
+    for _ in range(pool.num_threads):
+        pool.submit(1 << 30, -1, gate_job)
+    for _ in range(pool.num_threads):
+        held.acquire()
+    for prio, key, fn in jobs:
+        pool.submit(prio, key, wrap(fn))
+    recorder = PopRecorder(order_out)
+    codec_pool.heapq = recorder
+    try:
+        t0 = time.perf_counter()
+        gate.set()
+        for _ in jobs:
+            done.acquire()
+        secs = time.perf_counter() - t0
+    finally:
+        codec_pool.heapq = recorder._heapq
+    return secs
+
+
+def phase_ps_wire(torch, check, gpu, bufs, prios):
+    """18c: each wire configuration on the flagship's gradient buckets,
+    encoded and decoded through a CompressionPool, against the numpy
+    codec on sampled buckets."""
+    import random
+    import struct
+    import numpy as np
+    from byteps_tpu_torch.core import native
+    from byteps_tpu_torch.server import wire
+    from byteps_tpu_torch.server.codec_pool import CompressionPool
+    wire._CWIRE = False
+    lib = wire._c_wire()
+    check(wire.native_codec() and lib is native.get_native_core()._lib,
+          "the wire runs the C codec of the port's library")
+    if lib is None:
+        return {}
+    sizes = [b.numel() for b in bufs]
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + n)
+    flat = torch.cat(bufs)
+    cuda = flat.is_cuda
+    host = torch.empty(flat.numel(), dtype=torch.float32, pin_memory=cuda)
+    out_host = torch.empty_like(host, pin_memory=cuda)
+    back = torch.empty_like(flat)
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host.copy_(flat, non_blocking=cuda)
+    if cuda:
+        torch.cuda.synchronize()
+    d2h_ms = (time.perf_counter() - t0) * 1e3
+    raw = flat.numel() * 4
+    print(f"  {len(bufs)} buckets, {raw / 1e9:.3f} GB to the host in "
+          f"{d2h_ms:.3f} ms ({raw / d2h_ms / 1e6:.1f} GB/s) ({gpu})")
+    xs = [host.numpy()[offs[i]:offs[i + 1]] for i in range(len(sizes))]
+    outs = [out_host.numpy()[offs[i]:offs[i + 1]] for i in range(len(sizes))]
+    ragged = sizes.index(RAGGED_BUCKET)
+    sampled = sorted({0, ragged, len(sizes) // 2})
+    check(len(sampled) >= PS_SAMPLED and BUCKET in [sizes[i] for i in sampled],
+          f"sampled buckets {sampled} (sizes {[sizes[i] for i in sampled]})")
+    shuffled = list(range(len(sizes)))
+    random.Random(0).shuffle(shuffled)
+    want_order = sorted(((prios[i], i) for i in range(len(sizes))),
+                        key=lambda pk: (-pk[0], pk[1]))
+    pool = CompressionPool(PS_POOL_THREADS)
+    res = {"d2h_ms": d2h_ms, "gb": raw / 1e9}
+    try:
+        for name, kwargs, rounds in PS_WIRE_CONFIGS:
+            comps = [wire.WireCompressor(ps_wire_kwargs(kwargs, n))
+                     for n in sizes]
+            blobs = [None] * len(sizes)
+            kept = {i: [] for i in sampled}
+            enc_s, dec_s, h2d_s = [], [], []
+            prev_err, orders, cap_ok, pm_ok, ef_ok = {}, [], True, True, True
+            for r in range(rounds):
+                prev_err = {i: c._err.get(i) for i, c in enumerate(comps)}
+
+                def enc(i):
+                    def run():
+                        t = time.perf_counter()
+                        blobs[i] = comps[i].encode(i, xs[i])
+                        pool.record("ENCODE", int((time.perf_counter() - t)
+                                                  * 1e6))
+                    return run
+
+                def dec(i):
+                    def run():
+                        t = time.perf_counter()
+                        wire.decode(blobs[i], sizes[i], out=outs[i])
+                        pool.record("DECODE", int((time.perf_counter() - t)
+                                                  * 1e6))
+                    return run
+                order = []
+                enc_s.append(run_pool(pool, [(prios[i], i, enc(i))
+                                             for i in shuffled], order))
+                orders.append(order)
+                dec_s.append(run_pool(pool, [(prios[i], i, dec(i))
+                                             for i in shuffled], []))
+                t = time.perf_counter()
+                back.copy_(out_host, non_blocking=cuda)
+                if cuda:
+                    torch.cuda.synchronize()
+                h2d_s.append(time.perf_counter() - t)
+                for i in sampled:
+                    kept[i].append(blobs[i])
+                cap_ok &= all(len(b) <= c.wire_cap_bytes(n) for b, c, n in
+                              zip(blobs, comps, sizes))
+                if kwargs["compressor"] == "onebit":
+                    mu = np.float32(comps[0].momentum_mu)
+                    for i, (b, d) in enumerate(zip(blobs, outs)):
+                        (scale,) = struct.unpack_from("<f", b, 5)
+                        pm_ok &= bool(np.all(np.abs(d) == np.float32(scale)))
+                        corr = xs[i] + mu * comps[i]._mom[i]
+                        if prev_err[i] is not None:
+                            corr = corr + prev_err[i]
+                        ef_ok &= bool(np.array_equal(comps[i]._err[i],
+                                                     corr - d))
+            wire_bytes = sum(len(b) for b in blobs)
+            for k, order in enumerate(orders):
+                check(order == want_order,
+                      f"{name} round {k + 1}: the pool ({PS_POOL_THREADS} "
+                      f"threads) took all {len(order)} encodes, queued in a "
+                      f"shuffled order, by (priority desc, key asc)")
+            check(cap_ok, f"{name}: every payload within wire_cap_bytes")
+            check(torch.equal(back.cpu() if cuda else back,
+                              out_host), f"{name}: decodes back on the card")
+            if kwargs["compressor"] == "onebit":
+                check(pm_ok, f"{name}: every decode is +-scale elementwise")
+                check(ef_ok, f"{name}: every EF residual is exactly the "
+                             f"corrected input (x + mu m + e) - decode, "
+                             f"{rounds} rounds")
+            # The numpy codec against the C codec on the sampled buckets.
+            parity = True
+            for i in sampled:
+                kw = ps_wire_kwargs(kwargs, sizes[i])
+                wire._CWIRE = None
+                try:
+                    c_np = wire.WireCompressor(kw)
+                    blobs_np = [c_np.encode(i, xs[i]) for _ in range(rounds)]
+                    dec_np = wire._decode_py(kept[i][-1], sizes[i])
+                finally:
+                    wire._CWIRE = lib
+                dec_c = wire.decode(kept[i][-1], sizes[i])
+                same = blobs_np == kept[i] and np.array_equal(
+                    dec_np, dec_c, equal_nan=True)
+                for st_np, st_c in ((c_np._err, comps[i]._err),
+                                    (c_np._mom, comps[i]._mom)):
+                    same &= sorted(st_np) == sorted(st_c) and all(
+                        np.array_equal(st_np[k], st_c[k]) for k in st_np)
+                parity &= same
+            check(parity, f"{name}: numpy codec == C codec on buckets "
+                          f"{sampled}: bytes of {rounds} round(s), EF and "
+                          f"momentum state, decode, bit for bit")
+            try:
+                wire.decode(blobs[0][:len(blobs[0]) // 2], sizes[0])
+                truncated = False
+            except ValueError:
+                truncated = True
+            check(truncated, f"{name}: a truncated payload makes decode "
+                             f"raise ValueError")
+            enc_ms = statistics.median(enc_s) * 1e3
+            dec_ms = statistics.median(dec_s) * 1e3
+            h2d_ms = statistics.median(h2d_s) * 1e3
+            ratio = wire_bytes / raw
+            median = f"median of {rounds} rounds; " if rounds > 1 else ""
+            print(f"  {name}: encode {enc_ms:.3f} ms, decode {dec_ms:.3f} "
+                  f"ms, back to the card {h2d_ms:.3f} ms a step's gradients "
+                  f"({PS_POOL_THREADS} pool threads; {median}"
+                  f"rounds {[round(s * 1e3, 3) for s in enc_s]} / "
+                  f"{[round(s * 1e3, 3) for s in dec_s]}); wire/raw "
+                  f"{ratio:.6f} ({wire_bytes} of {raw} bytes) ({gpu})")
+            res[name] = {"encode_ms": enc_ms, "decode_ms": dec_ms,
+                         "h2d_ms": h2d_ms, "wire_over_raw": ratio}
+        stats = pool.stats()
+        print(f"  pool stats {stats}")
+    finally:
+        pool.close()
+    return res
+
+
+def phase_ps_server(check):
+    """18d: ``python -m byteps_tpu_torch.server`` on a free port accepts a
+    connection and runs the port's library."""
+    import socket
+    from byteps_tpu_torch.core import build
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, DMLC_PS_ROOT_PORT=str(port - 1),
+               DMLC_SERVER_ID="0", DMLC_NUM_WORKER="1",
+               PYTHONPATH=os.pathsep.join(
+                   [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "byteps_tpu_torch.server"],
+                            env=env, cwd=root, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE)
+    try:
+        ok = False
+        while time.perf_counter() - t0 < 30 and proc.poll() is None:
+            try:
+                socket.create_connection(("127.0.0.1", port), 1).close()
+                ok = True
+                break
+            except OSError:
+                time.sleep(0.1)
+        secs = time.perf_counter() - t0
+        with open(f"/proc/{proc.pid}/maps") as f:
+            libs = sorted({line.split()[-1] for line in f
+                           if "libbyteps_core" in line})
+        check(ok, f"18d: the port's server accepted a connection on port "
+                  f"{port} after {secs:.2f} s")
+        check(libs == [build.lib_path()],
+              f"18d: the server runs the port's library {libs}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(10)
+    err = proc.stderr.read().decode(errors="replace").strip()
+    proc.stderr.close()
+    if err:
+        print(f"  server stderr: {err[-500:]}")
+
+
+def phase_ps(bps, tfm, fa, torch, check, gpu, ps_build):
+    """Phase 18: the base of the PS worker plane on the card machine."""
+    t0 = time.perf_counter()
+    print("== phase 18a: native core build; native == Python core on the "
+          "flagship's names and buckets")
+    ccore = phase_ps_build(ps_build, check)
+    if ccore is None:
+        return {}
+    names, shapes, bufs, prios = flagship_buckets(bps, tfm, fa, torch,
+                                                  check)
+    sizes = [b.numel() for b in bufs]
+    phase_ps_core(ccore, names, shapes, sizes, prios, check)
+    print("== phase 18c: the PS wire on the flagship's gradients")
+    res = phase_ps_wire(torch, check, gpu, bufs, prios)
+    del bufs
+    print("== phase 18d: the PS server entry")
+    phase_ps_server(check)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"  phase 18 in {res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2800,6 +3328,7 @@ def main() -> int:
               "--format=csv,noheader"]).splitlines()[0]
     check = Checks()
     t_start = time.perf_counter()
+    ps_build = start_native_build()
 
     print("== phase 1: build")
     f32_ptxas, hmma = phase_build([fa, bp], _build, torch, gpu, check)
@@ -2935,6 +3464,8 @@ def main() -> int:
     print("== phase 17a: the observability planes armed on the flagship")
     yardsticks["observability"] = phase_observability(bps, tfm, fa, torch,
                                                       check, gpu)
+    torch.cuda.empty_cache()
+    yardsticks["ps"] = phase_ps(bps, tfm, fa, torch, check, gpu, ps_build)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     if check.failures:

@@ -1,5 +1,6 @@
 """byteps_tpu_torch stands alone: it imports neither JAX nor byteps_tpu,
-and its entry points refuse to run on the CPU unless asked to."""
+importing it builds no CUDA kernel and no C++ core, and its entry points
+refuse to run on the CPU unless asked to."""
 
 import json
 import os
@@ -20,11 +21,15 @@ mods = [m.name for m in pkgutil.walk_packages(byteps_tpu_torch.__path__,
 for m in mods:
     importlib.import_module(m)
 from byteps_tpu_torch.torch import CrossBarrier
+from byteps_tpu_torch.core import build, native
+from byteps_tpu_torch.server import wire
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "byteps_tpu", "optax",
                                     "flax"))
 print(json.dumps({"modules": mods, "bad": bad, "built": sorted(_build._libs),
-                  "triton": "triton" in sys.modules}))
+                  "triton": "triton" in sys.modules,
+                  "native": [native.is_native(), build.last_build_seconds,
+                             wire._CWIRE]}))
 """
 
 
@@ -36,6 +41,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     assert res["built"] == [] and not res["triton"]   # no kernel built
+    assert res["native"] == [False, None, False]      # no C++ core built
     for mod in ("byteps_tpu_torch.ops.flash_attention",
                 "byteps_tpu_torch.ops.collectives",
                 "byteps_tpu_torch.ops.ring_attention",
@@ -77,7 +83,14 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
                 "byteps_tpu_torch.common.trace_analysis",
                 "byteps_tpu_torch.common.devprof",
                 "byteps_tpu_torch.common.signals",
-                "byteps_tpu_torch.common.doctor"):
+                "byteps_tpu_torch.common.doctor",
+                "byteps_tpu_torch.common.ring",
+                "byteps_tpu_torch.common.fusion",
+                "byteps_tpu_torch.core.build",
+                "byteps_tpu_torch.server",
+                "byteps_tpu_torch.server.__main__",
+                "byteps_tpu_torch.server.wire",
+                "byteps_tpu_torch.server.codec_pool"):
         assert mod in res["modules"]
 
 
