@@ -64,7 +64,7 @@ from .common.api import (
     get_transport_stats, get_metrics, get_server_stats,
     get_health, get_audit, get_key_signals, get_diagnosis,
     get_tuner, get_hierarchy, get_autoscaler, get_fleet,
-    get_device_profile,
+    get_device_profile, get_staging_stats,
     mark_step, current_step,
 )
 from .common.fusion import get_stats as get_fusion_stats
@@ -106,7 +106,7 @@ __all__ = [
     "get_transport_stats", "get_metrics", "get_server_stats",
     "get_health", "get_audit", "get_key_signals", "get_diagnosis",
     "get_tuner", "get_hierarchy", "get_autoscaler", "get_fleet",
-    "get_device_profile",
+    "get_device_profile", "get_staging_stats",
     "mark_step", "current_step",
     "Compression", "collectives", "compressor", "ring_attention",
     "DistributedOptimizer", "build_train_step",

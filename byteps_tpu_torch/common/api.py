@@ -18,6 +18,19 @@ priority order as concurrent async all-reduces.  Tensors stay on their
 device.  ``priority`` orders the dispatch of a tree's units; the process
 group runs collectives in issue order.
 
+PS mode (``BYTEPS_TPU_PS_MODE=1``) reduces through the PS servers
+instead, as the JAX package's does: ``init()`` opens a
+``server.client.PSSession`` from the configuration and meets the other
+workers at its barrier, and opens no process group.  The eager path then
+stages each tensor into a float32 host buffer (pinned for a CUDA tensor,
+one set per declared key, reused once its round has completed) and hands
+the session that buffer; the pulled float32 sum is averaged on the
+tensor's device and cast back to its dtype.  ``rank()`` is
+``DMLC_WORKER_ID`` and ``size()`` follows the membership epoch.  In PS
+mode the API runs on the native core, the session's own (its keys, trace
+switch and spans); elsewhere on the Python twin.  There is no fallback:
+an unreachable server or a library that does not build raises.
+
 ``BYTEPS_DEBUG_SAMPLE_TENSOR`` writes a sample of every eager tensor whose
 name contains it to stderr, at push entry and after synchronize.
 
@@ -32,10 +45,11 @@ trace with its device lane and disarms.  ``get_metrics``,
 ``get_key_signals``, ``get_diagnosis`` and ``get_device_profile`` read
 them.
 
-The PS tier (``BYTEPS_ENABLE_ASYNC``, ``push_pull_sparse``, membership,
-server drain, the server, codec, transport, health, audit and hierarchy
-getters) and the fleet-level planes (fleet, tuner, autoscaler) are not
-ported: they raise ``NotImplementedError`` naming their ROADMAP.md item.
+Asynchronous PS training (``BYTEPS_ENABLE_ASYNC``), ``push_pull_sparse``,
+the hierarchical reduction (``BYTEPS_TPU_HIERARCHY`` in PS mode,
+``get_hierarchy``) and the fleet-level planes (fleet, tuner, autoscaler)
+are not ported: they raise ``NotImplementedError`` naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -52,7 +66,9 @@ from typing import Any, Dict, Optional
 import torch
 import torch.distributed as dist
 
-from ..core.native import get_core
+import numpy as np
+
+from ..core.native import get_core, get_native_core
 from . import devprof, flightrec, signals, telemetry, trace_analysis
 from . import doctor as doctor_mod
 from .config import Config, get_config
@@ -80,7 +96,23 @@ class _State:
     doctor: Optional[Any] = None
     doctor_verdict_done: bool = False
     doctor_atexit: bool = False
+    ps_session: Optional[Any] = None  # PS-mode client session, when enabled
+    # Elastic membership: the last fetched view (size() reads it), the
+    # registered callback and the poller plumbing.
+    membership: Optional[dict] = None
+    membership_cb: Optional[Any] = None
+    membership_poll_stop: Optional[Any] = None
+    membership_poll_thread: Optional[Any] = None
+    membership_poll_interval: float = 2.0
+    # PS staging: declared key -> free float32 host buffers (pinned for
+    # CUDA tensors).  A buffer leaves the list while a round reads it.
+    stage_free: Dict[int, list] = dataclasses.field(default_factory=dict)
+    staging: Dict[str, float] = dataclasses.field(
+        default_factory=lambda: dict(_STAGING_ZERO))
 
+
+_STAGING_ZERO = {"to_host_ms": 0.0, "to_device_ms": 0.0,
+                 "to_host_bytes": 0, "to_device_bytes": 0, "copies": 0}
 
 _state = _State()
 
@@ -108,28 +140,90 @@ def is_distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
+def _core():
+    """The core the API runs on: the native one in PS mode (the
+    session's own, so that the keys, the trace switch the traced-round
+    wire flag follows and the spans are one), the Python twin
+    otherwise."""
+    return get_native_core() if _state.ps_session is not None \
+        else get_core()
+
+
 def init() -> None:
+    """Initialize: join the process group (``DMLC_NUM_WORKER`` > 1) or,
+    with ``BYTEPS_TPU_PS_MODE=1``, open the PS session and meet the other
+    workers at its barrier."""
+    if _state.initialized and _state.ps_session is not None:
+        return
     cfg = get_config(refresh=True)
     if cfg.enable_async:
         raise NotImplementedError(
-            "BYTEPS_ENABLE_ASYNC needs the PS tier, which is not ported to "
-            "byteps_tpu_torch yet (ROADMAP.md Queue 1 item 6)")
+            "BYTEPS_ENABLE_ASYNC (asynchronous PS training) is not ported "
+            "to byteps_tpu_torch yet (ROADMAP.md Queue 1 item 6c)")
+    if cfg.hierarchy and cfg.ps_mode:
+        raise NotImplementedError(
+            "BYTEPS_TPU_HIERARCHY (hierarchical reduction over the PS tier) "
+            "is not ported to byteps_tpu_torch yet (ROADMAP.md Queue 1 "
+            "item 6c)")
+    if cfg.hierarchy:
+        get_logger().warning(
+            "BYTEPS_TPU_HIERARCHY=1 outside PS mode is a no-op: the knob "
+            "arms the PS tier's leader-aware push_pull only")
     set_level(cfg.log_level)
-    if cfg.num_worker > 1 and not is_distributed():
+    _state.config = cfg
+    if cfg.ps_mode and cfg.role == "worker":
+        _open_ps_session(cfg)
+    elif cfg.num_worker > 1 and not is_distributed():
         if torch.cuda.is_available():
             torch.cuda.set_device(cfg.local_rank)
         dist.init_process_group(
             backend="nccl" if torch.cuda.is_available() else "gloo",
             init_method=f"tcp://{cfg.scheduler_uri}:{cfg.scheduler_port}",
             world_size=cfg.num_worker, rank=cfg.worker_id)
-    _state.config = cfg
     _state.initialized = True
-    get_core().trace_enable(cfg.trace_on and cfg.trace_start_step
-                            <= _state.step <= cfg.trace_end_step)
-    set_rank(process_rank() if size() > 1 else None)
+    _core().trace_enable(cfg.trace_on and cfg.trace_start_step
+                         <= _state.step <= cfg.trace_end_step)
+    set_rank(rank() if size() > 1 else None)
     _arm_planes(cfg)
     get_logger().info("byteps_tpu_torch initialized: rank=%d/%d "
-                      "local_rank=%d", rank(), size(), local_rank())
+                      "local_rank=%d ps_mode=%s", rank(), size(),
+                      local_rank(), _state.ps_session is not None)
+
+
+def _open_ps_session(cfg: Config) -> None:
+    """PS mode: the native core (built here at first use; raises where it
+    cannot build), the Python twin's names replayed into it in order so
+    that keys declared before init() keep their values, then the session,
+    its startup barrier, the membership poller
+    (``BYTEPS_TPU_EVICT_TIMEOUT_S`` > 0) and, when tracing, the servers'
+    clock sync."""
+    from ..server.client import PSSession
+    core = get_native_core()
+    _state.staging = dict(_STAGING_ZERO)
+    twin = get_core()
+    for i in range(twin.num_declared()):
+        name = twin.declared_name(i)
+        if name is not None:
+            core.declare_tensor(name)
+    sess = PSSession.from_config(cfg)
+    try:
+        sess.barrier()
+    except BaseException:
+        sess.close()
+        raise
+    _state.ps_session = sess
+    if cfg.evict_timeout_s > 0:
+        # size() and the averages must follow an eviction even when the
+        # application registers no callback.
+        _start_membership_poller(cfg.membership_poll_s)
+    if cfg.trace_on:
+        try:
+            sess.sync_clocks()
+            sess.start_clock_sync()
+        except Exception as e:
+            get_logger().warning(
+                "server clock sync unavailable (%s); trace will carry "
+                "worker spans only", e)
 
 
 def _arm_planes(cfg: Config) -> None:
@@ -139,7 +233,7 @@ def _arm_planes(cfg: Config) -> None:
     # in-memory ring, no I/O); postmortem bundles + the faulthandler
     # crash file arm only when BYTEPS_TPU_POSTMORTEM_DIR is set.
     flightrec.set_extra_provider(_postmortem_extra)
-    flightrec.record("init", role="worker", rank=rank(), size=size())
+    flightrec.record("init", role=cfg.role, rank=rank(), size=size())
     if cfg.postmortem_dir:
         flightrec.arm_postmortem(cfg.postmortem_dir)
     _register_builtin_collectors()
@@ -169,6 +263,7 @@ def _arm_planes(cfg: Config) -> None:
                 telemetry.get_registry(), port=cfg.metrics_port,
                 jsonl_path=cfg.metrics_log,
                 max_log_mb=cfg.metrics_log_mb,
+                refresh=_refresh_server_metrics,
                 routes=_signal_routes()).start()
         except OSError as e:
             # A taken port / unwritable log path must not kill training —
@@ -182,14 +277,21 @@ def _arm_planes(cfg: Config) -> None:
 
 
 def shutdown() -> None:
-    """Leave the process group; the declared-name registry stays, so keys
-    are the same after ``resume``.  Closes the signal plane's last window
-    and logs the doctor's verdict, stops the exporter, dumps the trace
-    (with its device lane: a run that never reached its trace end step
-    still gets one) and disarms the device plane, its bundle section
-    frozen to the final snapshot."""
+    """Leave the process group or close the PS session; the declared-name
+    registry stays, so keys are the same after ``resume``.  Closes the
+    signal plane's last window and logs the doctor's verdict, stops the
+    exporter, dumps the trace (with its device lane and the servers'
+    spans: a run that never reached its trace end step still gets one)
+    and disarms the device plane, its bundle section frozen to the final
+    snapshot."""
     if _state.initialized:
         flightrec.record("shutdown", step=_state.step)
+    if _state.membership_poll_stop is not None:
+        _state.membership_poll_stop.set()
+    _state.membership_poll_stop = None
+    _state.membership_poll_thread = None
+    _state.membership_cb = None
+    _state.membership = None
     _stop_signal_plane()
     if _state.exporter is not None:
         _state.exporter.stop()
@@ -202,11 +304,15 @@ def shutdown() -> None:
         snap = prof.flight_section()
         flightrec.set_extra_provider(lambda: snap, name="device")
         devprof.disarm()
-    if is_distributed():
+    if _state.ps_session is not None:
+        _state.ps_session.close()
+        _state.ps_session = None
+    elif is_distributed():
         dist.destroy_process_group()
     set_rank(None)
     with _state.lock:
         _state.handles.clear()
+        _state.stage_free.clear()
     _state.initialized = False
 
 
@@ -224,12 +330,12 @@ def resume(num_workers: int, num_servers: int = 0) -> None:
         suspend()
     os.environ["DMLC_NUM_WORKER"] = str(num_workers)
     os.environ["DMLC_NUM_SERVER"] = str(num_servers)
-    core = get_core()
+    core = _core()
     names = [core.declared_name(i) for i in range(core.num_declared())]
     init()
     for n in names:
         if n is not None:
-            core.declare_tensor(n)
+            declare(n)
 
 
 def process_rank() -> int:
@@ -239,14 +345,25 @@ def process_rank() -> int:
 
 def rank() -> int:
     """The worker's rank: the ``BYTEPS_GLOBAL_RANK`` override first, as in
-    the JAX package, else the process group's rank."""
+    the JAX package, then ``DMLC_WORKER_ID`` in PS mode, else the process
+    group's rank."""
     cfg = _state.config or get_config()
     if cfg.global_rank is not None:
         return cfg.global_rank
+    if _state.ps_session is not None:
+        return cfg.worker_id
     return process_rank()
 
 
 def size() -> int:
+    """The number of workers.  In PS mode, once the membership epoch has
+    ever advanced, the live worker set of the cached view (refreshed by
+    ``get_membership()`` and the poller); until then the launch count."""
+    if _state.ps_session is not None:
+        m = _state.membership
+        if m is not None and int(m.get("epoch", 0)) > 0:
+            return max(1, len(m.get("alive", ())))
+        return (_state.config or get_config()).num_worker
     return dist.get_world_size() if is_distributed() else 1
 
 
@@ -262,26 +379,231 @@ def local_size() -> int:
 # Declaration and keys
 # ---------------------------------------------------------------------------
 def declare(name: str) -> int:
-    """Assign (or look up) the deterministic key of a named tensor."""
+    """Assign (or look up) the deterministic key of a named tensor.  In
+    PS mode the native core assigns it and the Python twin follows, so
+    that the two registries stay one."""
+    if _state.ps_session is not None:
+        key = get_native_core().declare_tensor(name)
+        get_core().declare_tensor(name)
+        return key
     return get_core().declare_tensor(name)
 
 
 def declared_key(name: str) -> int:
-    return get_core().get_declared_key(name)
+    return _core().get_declared_key(name)
 
 
 def register_compressor(name: str, kwargs: dict) -> int:
-    """The declared key of ``name``.  PS-wire compression is a PS-tier
-    feature; outside it, as in the JAX package, this only declares (the
-    collective plane compresses through ``DistributedOptimizer``)."""
-    del kwargs
+    """Register PS-wire compression for a named tensor: the kwargs use the
+    reference registry's strings (``{"compressor": "onebit", ...}``) and
+    ride the tensor's INIT, so the server decompresses, sums and
+    recompresses.  Returns the declared key.  Outside PS mode, as in the
+    JAX package, this only declares (the collective plane compresses
+    through ``DistributedOptimizer``)."""
     _require_init()
-    return declare(name)
+    dk = declare(name)
+    if _state.ps_session is not None:
+        _state.ps_session.register_compressor(dk, kwargs)
+    return dk
 
 
 def get_ps_session():
-    """None: the port runs no PS session (ROADMAP.md Queue 1 item 6)."""
-    return None
+    """The live PS-mode session, or None (collective mode)."""
+    return _state.ps_session
+
+
+# ---------------------------------------------------------------------------
+# Elastic membership and the server ring (PS mode)
+# ---------------------------------------------------------------------------
+def leave(drain_timeout_s: float = 60.0) -> None:
+    """Gracefully exit the worker membership (PS mode): drain this
+    worker's in-flight rounds, then leave every server's membership at
+    the next epoch boundary; the survivors' open rounds re-finalize
+    without it.  A no-op with a warning outside PS mode."""
+    _require_init()
+    if _state.ps_session is None:
+        get_logger().warning(
+            "bps.leave() outside PS mode is a no-op: collective-plane "
+            "resizes go through suspend()/resume()")
+        return
+    _state.ps_session.leave(drain_timeout_s)
+
+
+def get_ring() -> dict:
+    """The elastic PS server ring (CMD_RING): epoch, vnodes, member rows,
+    per-server keys owned and draining flags.  A fixed single-epoch view
+    without the armed ring (``BYTEPS_TPU_RING=1``) or outside PS mode."""
+    _require_init()
+    sess = _state.ps_session
+    if sess is None or not getattr(sess, "ring_armed", False):
+        cfg = _state.config or get_config()
+        n = max(1, cfg.num_server) if sess is not None else 0
+        return {"epoch": 0, "armed": 0, "vnodes": cfg.ring_vnodes,
+                "servers": [{"id": i} for i in range(n)]}
+    return sess.get_ring()
+
+
+def drain_ps_server(server_id: int, timeout_s: float = 120.0,
+                    shutdown: bool = False) -> dict:
+    """Scale the PS tier down by one server (CMD_DRAIN): its keys' state
+    streams to their new ring owners, sums exact across the boundary.
+    Blocks until the target owns no key; ``shutdown=True`` also retires
+    the process.  PS mode with the ring armed, from one worker."""
+    _require_init()
+    if _state.ps_session is None:
+        raise RuntimeError(
+            "bps.drain_ps_server() requires PS mode (BYTEPS_TPU_PS_MODE=1)")
+    return _state.ps_session.drain_server(server_id, timeout_s=timeout_s,
+                                          shutdown=shutdown)
+
+
+def get_membership(refresh: bool = True) -> dict:
+    """The worker membership: ``{"epoch", "workers": {id: {"alive",
+    "age_ms"}}, "alive": [ids], "barrier": {...}}``, fetched from the
+    servers in PS mode (``refresh=False``: the cached view), else the
+    fixed launch world.  Fetches feed the membership gauges."""
+    _require_init()
+    if _state.ps_session is not None and refresh:
+        m = _state.ps_session.membership()
+        _state.membership = m
+        telemetry.update_membership(m)
+        return m
+    if _state.membership is not None:
+        return _state.membership
+    n = size()
+    return {"epoch": 0,
+            "workers": {i: {"alive": True, "age_ms": 0.0}
+                        for i in range(n)},
+            "alive": list(range(n)), "barrier": {}}
+
+
+def _start_membership_poller(interval: float) -> None:
+    """Idempotently start the CMD_MEMBERS poller: refresh the cached view
+    (what size() reads) and the gauges every ``interval`` seconds, and
+    fire the registered callback on each epoch change.  A later call
+    retunes the live poller's interval."""
+    _state.membership_poll_interval = max(0.05, float(interval))
+    if _state.membership_poll_thread is not None:
+        return
+    stop = threading.Event()
+    _state.membership_poll_stop = stop
+
+    def _poll():
+        last_epoch = (int(_state.membership.get("epoch", 0))
+                      if _state.membership else 0)
+        while not stop.wait(_state.membership_poll_interval):
+            sess = _state.ps_session
+            if sess is None:
+                return
+            try:
+                m = sess.membership(timeout=5.0)
+            except Exception as e:
+                get_logger().debug("membership poll failed: %s", e)
+                continue
+            _state.membership = m       # size() follows before the cb runs
+            telemetry.update_membership(m)
+            if int(m.get("epoch", 0)) != last_epoch:
+                last_epoch = int(m.get("epoch", 0))
+                flightrec.record("membership_epoch", epoch=last_epoch,
+                                 alive=list(m.get("alive", ())))
+                cb = _state.membership_cb
+                if cb is not None:
+                    try:
+                        cb(m)
+                    except Exception:
+                        get_logger().exception(
+                            "membership-change callback failed")
+
+    t = threading.Thread(target=_poll, daemon=True,
+                         name="bps-membership-poll")
+    _state.membership_poll_thread = t
+    t.start()
+
+
+def on_membership_change(callback, poll_s: Optional[float] = None) -> None:
+    """Register ``callback(membership)`` to fire when the membership epoch
+    changes (join, leave, eviction); size() and rank() already follow the
+    new epoch when it runs.  A poller re-fetches the view every ``poll_s``
+    seconds (default ``BYTEPS_TPU_MEMBERSHIP_POLL_S``) while a callback is
+    registered or elasticity is armed.  ``None`` unregisters.  PS mode
+    only."""
+    _require_init()
+    cfg = _state.config or get_config()
+    if callback is None:
+        _state.membership_cb = None
+        if cfg.evict_timeout_s <= 0 and _state.membership_poll_stop \
+                is not None:
+            _state.membership_poll_stop.set()
+            _state.membership_poll_stop = None
+            _state.membership_poll_thread = None
+        return
+    if _state.ps_session is None:
+        raise RuntimeError(
+            "bps.on_membership_change() requires PS mode "
+            "(BYTEPS_TPU_PS_MODE=1); the collective plane resizes "
+            "through suspend()/resume()")
+    _state.membership_cb = callback
+    _start_membership_poller(poll_s if poll_s is not None
+                             else cfg.membership_poll_s)
+
+
+# ---------------------------------------------------------------------------
+# PS staging: device tensors to float32 host buffers and back
+# ---------------------------------------------------------------------------
+def _stage_out(dk: int, t: torch.Tensor) -> torch.Tensor:
+    """A float32 host copy of ``t`` in a buffer of key ``dk`` (pinned for
+    a CUDA tensor), the copy finished before it returns: the session
+    sends views of this memory and may replay them after a reconnect, so
+    the buffer belongs to the round until ``_stage_release``."""
+    n = t.numel()
+    pinned = t.is_cuda
+    buf = None
+    with _state.lock:
+        free = _state.stage_free.get(dk)
+        while free:
+            cand = free.pop()
+            if cand.numel() == n and cand.is_pinned() == pinned:
+                buf = cand
+                break
+    if buf is None:
+        buf = torch.empty(n, dtype=torch.float32, pin_memory=pinned)
+    t0 = time.perf_counter()
+    buf.copy_(t.detach().reshape(-1))
+    st = _state.staging
+    st["to_host_ms"] += (time.perf_counter() - t0) * 1e3
+    st["to_host_bytes"] += n * 4
+    st["copies"] += 1
+    return buf
+
+
+def _stage_release(dk: int, buf: torch.Tensor) -> None:
+    """Return a staging buffer once its round has completed."""
+    with _state.lock:
+        _state.stage_free.setdefault(dk, []).append(buf)
+
+
+def _stage_in(out: np.ndarray, like: torch.Tensor, average: bool
+              ) -> torch.Tensor:
+    """The pulled float32 sum on ``like``'s device, averaged there, in
+    ``like``'s dtype and shape."""
+    t0 = time.perf_counter()
+    res = torch.from_numpy(np.ascontiguousarray(out, np.float32).ravel()
+                           ).to(like.device)
+    if like.is_cuda:
+        torch.cuda.current_stream(like.device).synchronize()
+    st = _state.staging
+    st["to_device_ms"] += (time.perf_counter() - t0) * 1e3
+    st["to_device_bytes"] += res.numel() * 4
+    if average:
+        res = res / size()
+    return res.reshape(like.shape).to(like.dtype)
+
+
+def get_staging_stats() -> dict:
+    """PS mode's host staging since init: milliseconds and bytes copied
+    to the host (push) and back to the tensors' devices (pull), and the
+    copies made.  All zero outside PS mode."""
+    return dict(_state.staging)
 
 
 # ---------------------------------------------------------------------------
@@ -306,27 +628,49 @@ def _debug_sample(stage: str, name: str, tensor: torch.Tensor) -> None:
     sys.stderr.flush()
 
 
+class _PSWork:
+    """One PS round of a staged buffer, the ``work`` of a handle in PS
+    mode: ``wait()`` gives the pulled float32 sum and hands the buffer
+    back for reuse (a failed round keeps it: late partitions may still
+    read it)."""
+
+    def __init__(self, handle, dk: int, buf: torch.Tensor):
+        self.handle, self.dk, self.buf = handle, dk, buf
+
+    def is_completed(self) -> bool:
+        return self.handle.done()
+
+    def wait(self) -> np.ndarray:
+        out = self.handle.wait()
+        _stage_release(self.dk, self.buf)
+        return out
+
+
 def push_pull_async(tensor: torch.Tensor, name: Optional[str] = None,
                     average: bool = True, priority: int = 0,
                     compression=None) -> int:
     """Start a sum (or average) of ``tensor`` over the workers; returns a
     handle for ``synchronize``/``poll``.  The caller's tensor is not
-    modified.  ``priority`` is accepted for API parity."""
-    del priority
+    modified.  ``priority`` orders the PS dispatcher's partitions
+    (higher first); the process group runs collectives in issue order."""
     _require_init()
     from ..ops.compression import Compression
     compression = compression or Compression.none
-    core = get_core()
+    core = _core()
     if name is None:
         name = f"byteps_tpu.tensor_{core.num_declared()}"
     _debug_sample("push", name, tensor)
-    declare(name)
+    dk = declare(name)
     handle = core.handle_allocate()
     t0 = core.trace_now_us()
     wire, ctx = compression.compress(tensor.detach())
     work = None
     cfg = _state.config or get_config()
-    if size() > 1 or (cfg.force_distributed and is_distributed()):
+    if _state.ps_session is not None:
+        buf = _stage_out(dk, wire)
+        work = _PSWork(_state.ps_session.push_pull_async(
+            dk, buf.numpy(), priority=priority), dk, buf)
+    elif size() > 1 or (cfg.force_distributed and is_distributed()):
         # BYTEPS_FORCE_DISTRIBUTED takes the real reduce at world 1 too,
         # the JAX package's test hook; without a process group there is
         # nothing to reduce over and the tensor stays as it is.
@@ -349,13 +693,19 @@ def synchronize(handle: int) -> torch.Tensor:
                 f"unknown or already-synchronized handle {handle}")
         wire, work, compression, ctx, average, name, t0 = \
             _state.handles.pop(handle)
-    if work is not None:
-        work.wait()
-    out = compression.decompress(wire, ctx)
-    if average:
-        out = out / size()
+    if isinstance(work, _PSWork):
+        # The float32 sum, averaged on the tensor's device, then in the
+        # wire's dtype for the decompressor.
+        out = compression.decompress(_stage_in(work.wait(), wire, average),
+                                     ctx)
+    else:
+        if work is not None:
+            work.wait()
+        out = compression.decompress(wire, ctx)
+        if average:
+            out = out / size()
     _debug_sample("pull", name, out)
-    core = get_core()
+    core = _core()
     core.handle_mark_done(handle)
     core.trace_record(name, "PUSH_PULL", t0, core.trace_now_us() - t0)
     core.handle_release(handle)
@@ -368,7 +718,7 @@ def poll(handle: int) -> bool:
     with _state.lock:
         entry = _state.handles.get(handle)
     if entry is None:
-        if get_core().handle_poll(handle) == -1:
+        if _core().handle_poll(handle) == -1:
             raise ValueError(
                 f"unknown or already-synchronized handle {handle}")
         return True
@@ -391,6 +741,15 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
+def _tree_name(prefix: str, paths, metas) -> str:
+    """A tree's batch name from its structure and leaf signature, so that
+    every worker maps the same tree to the same keys."""
+    sig = hashlib.md5("|".join(
+        f"{p}:{tuple(s)}:{_dtype_name(d)}"
+        for p, (s, d, _) in zip(paths, metas)).encode()).hexdigest()[:12]
+    return f"{prefix}.{sig}"
+
+
 def push_pull_tree(tree: Tree, name: Optional[str] = None,
                    average: bool = True, compression=None,
                    leaf_names=None, fusion_bytes: Optional[int] = None
@@ -404,9 +763,17 @@ def push_pull_tree(tree: Tree, name: Optional[str] = None,
     push_pull each at the max priority of its members; larger leaves go
     solo, and the units are dispatched by descending priority.  With it
     off, the floating leaves travel as one float32 vector.  Non-floating
-    leaves always travel alone and exact.  ``leaf_names`` aligns with the
-    flattened leaf order; unnamed leaves are named by the batch name and
-    their path in the tree (``['key'][0]``), as in the JAX package.
+    leaves always travel alone and exact, and so, in PS mode, does a leaf
+    whose ``leaf_names`` entry has a wire compressor registered
+    (``register_compressor``): its compression is the key's own.
+    ``leaf_names`` aligns with the flattened leaf order; unnamed leaves are
+    named by the batch name and their path in the tree (``['key'][0]``),
+    as in the JAX package.
+
+    In PS mode the fused units ride one ``PSSession.push_pull_group``, so
+    the session's scheduler sees them all before the first dispatch, and
+    an actuated ``FUSION_BYTES`` (the session's ``live_fusion_bytes()``)
+    takes the place of the configured threshold.
     """
     _require_init()
     leaves = tree_leaves(tree)
@@ -415,15 +782,26 @@ def push_pull_tree(tree: Tree, name: Optional[str] = None,
     paths = tree_paths(tree)
     metas = [(l.shape, l.dtype, l.numel()) for l in leaves]
     cfg = _state.config or get_config()
-    fb = cfg.fusion_bytes if fusion_bytes is None else int(fusion_bytes)
-    sep_idx = [i for i, l in enumerate(leaves) if not l.is_floating_point()]
+    sess = _state.ps_session
+    if fusion_bytes is not None:
+        fb = int(fusion_bytes)
+    else:
+        fb = sess.live_fusion_bytes() if sess is not None else None
+        if fb is None:
+            fb = cfg.fusion_bytes
+    compressed = set(sess._compressors) if sess is not None else set()
+
+    def separate(i: int) -> bool:
+        if not leaves[i].is_floating_point():
+            return True
+        return bool(compressed) and leaf_names is not None and \
+            _core().get_declared_key(str(leaf_names[i])) in compressed
+
+    sep_idx = [i for i in range(len(leaves)) if separate(i)]
     sep = set(sep_idx)
     batch_idx = [i for i in range(len(leaves)) if i not in sep]
     if name is None:
-        sig = hashlib.md5("|".join(
-            f"{p}:{tuple(s)}:{_dtype_name(d)}"
-            for p, (s, d, _) in zip(paths, metas)).encode()).hexdigest()[:12]
-        name = f"byteps_tpu.tree.{sig}"
+        name = _tree_name("byteps_tpu.tree", paths, metas)
 
     def leaf_name(i: int) -> str:
         return str(leaf_names[i]) if leaf_names is not None \
@@ -454,9 +832,15 @@ def push_pull_tree(tree: Tree, name: Optional[str] = None,
             units.append((leaf_name(li), leaves[li].detach().reshape(-1),
                           prio, compression, [(li, metas[li][2])]))
         for i in sep_idx:
+            comp = compression if leaves[i].is_floating_point() else None
             units.append((leaf_name(i), leaves[i].detach().reshape(-1), i,
-                          None, [(i, metas[i][2])]))
+                          comp, [(i, metas[i][2])]))
         units.sort(key=lambda u: -u[2])
+        if sess is not None:
+            plan_units = ({f"{name}.{b.tag}" for b in plan.buckets}
+                          | {leaf_name(li) for li, _ in plan.solo})
+            _ps_group(units, plan_units, average, scatter, leaf_name)
+            return tree_unflatten(tree, outs)
         handles = [push_pull_async(payload, name=nm, average=average,
                                    priority=prio, compression=comp)
                    for nm, payload, prio, comp, _ in units]
@@ -475,16 +859,75 @@ def push_pull_tree(tree: Tree, name: Optional[str] = None,
     return tree_unflatten(tree, outs)
 
 
+def _ps_group(units, plan_units, average, scatter, leaf_name) -> None:
+    """PS mode: stage every unit (compressed on its device first), hand
+    them to the session as one group, then bring each pulled sum back and
+    scatter it.  ``plan_units`` names the units whose key comes from the
+    fusion plan: the session withdraws them (``KnobReplan``, raised here;
+    the re-plan comes with the knob plane's tuner) rather than replaying
+    them when an actuated ``FUSION_BYTES`` changes mid-flight."""
+    from ..ops.compression import Compression
+    sess = _state.ps_session
+    items, held, fusion_dks = [], [], []
+    unit_bytes = 0
+    for nm, payload, prio, comp, members in units:
+        _debug_sample("push", nm, payload)
+        comp = comp or Compression.none
+        wire, ctx = comp.compress(payload)
+        dk = declare(nm)
+        if nm in plan_units:
+            fusion_dks.append(dk)
+        if len(members) > 1 and _core().trace_on:
+            # Trace spans of a fused bucket name its member leaves.
+            sess.set_trace_members(dk, [leaf_name(li) for li, _ in members])
+        buf = _stage_out(dk, wire)
+        items.append((dk, buf.numpy(), prio))
+        held.append((comp, ctx, wire, dk, buf))
+        unit_bytes += payload.numel() * payload.element_size()
+    if fusion_dks:
+        sess.note_fusion_keys(fusion_dks)
+    handles = sess.push_pull_group(items)
+    for (nm, _, _, _, members), h, (comp, ctx, wire, dk, buf) in zip(
+            units, handles, held):
+        got = h.wait()
+        _stage_release(dk, buf)
+        out = comp.decompress(_stage_in(got, wire, average), ctx)
+        scatter(members, out.reshape(-1))
+        _debug_sample("pull", nm, out)
+    if (_state.config or get_config()).telemetry_on:
+        telemetry.record_pushpull(unit_bytes)
+
+
 # ---------------------------------------------------------------------------
 # Broadcast
 # ---------------------------------------------------------------------------
 def broadcast_parameters(params: Tree, root_rank: int = 0) -> Tree:
     """``params`` with root_rank's values on every worker: a new tree of
     the same structure.  Tensor leaves travel as they are; number leaves
-    as float64 tensors, given back as their type."""
+    as float64 tensors, given back as their type.
+
+    In PS mode, as in the reference BytePS, every worker but the root
+    zeroes its leaves and the tree is summed through the servers, so the
+    values travel as float32, the PS wire's type: exact for float32 and
+    16-bit floats and for integers below 2^24."""
     _require_init()
     if size() == 1:
         return params
+    if _state.ps_session is not None:
+        leaves = tree_leaves(params)
+        keep = rank() == root_rank
+        sent = []
+        for leaf in leaves:
+            t = leaf.detach() if torch.is_tensor(leaf) \
+                else torch.tensor(float(leaf), dtype=torch.float64)
+            sent.append(t if keep else torch.zeros_like(t))
+        name = _tree_name("byteps_tpu.broadcast", tree_paths(params),
+                          [(t.shape, t.dtype, t.numel()) for t in sent])
+        got = tree_leaves(push_pull_tree(
+            tree_unflatten(params, sent), name=name, average=False))
+        return tree_unflatten(params, [
+            g if torch.is_tensor(l) else type(l)(g.item())
+            for l, g in zip(leaves, got)])
     leaves = tree_leaves(params)
     # NCCL moves CUDA tensors only: other leaves cross on the current card.
     dev = (torch.device("cuda", torch.cuda.current_device())
@@ -530,7 +973,7 @@ def mark_step() -> None:
     step after the window writes ``<BYTEPS_TRACE_DIR>/<local_rank>/
     comm.json``."""
     cfg = _state.config or get_config()
-    core = get_core()
+    core = _core()
     now = core.trace_now_us()
     if cfg.trace_on and _state.step_start_us is not None \
             and cfg.trace_start_step <= _state.step <= cfg.trace_end_step:
@@ -559,31 +1002,70 @@ def current_step() -> int:
 
 def _maybe_dump_trace() -> None:
     cfg = _state.config or get_config()
-    core = get_core()
+    core = _core()
     if not cfg.trace_on or core.trace_count() == 0:
         return
     d = os.path.join(cfg.trace_dir, str(local_rank()))
     os.makedirs(d, exist_ok=True)
     path = os.path.join(d, "comm.json")
     core.trace_dump(path, rank())
-    _merge_device_trace(path)
+    _merge_trace(path)
 
 
-def _merge_device_trace(path: str) -> None:
-    """Fold the device lane into the freshly dumped worker trace.
+def _server_trace_events(core, events: list, meta: list) -> None:
+    """PS mode: each server's spans, offset onto this worker's clock, on
+    pid = SERVER_PID_BASE + server (named by process_name metadata);
+    fused buckets' spans gain ``args.members``.  A server that cannot be
+    reached leaves the worker's half alone."""
+    sess = _state.ps_session
+    try:
+        spans = sess.fetch_server_trace(timeout=5.0, ping_timeout=2.0,
+                                        ping_samples=3)
+    except Exception as e:
+        get_logger().warning("server trace unavailable: %s", e)
+        spans = []
+    seen = set()
+    for s in spans:
+        dk, pidx = s["key"] >> 16, s["key"] & 0xFFFF
+        nm = core.declared_name(dk) or f"key_{dk}"
+        seen.add(s["server"])
+        events.append({
+            "name": f"{nm}.part{pidx}", "cat": "comm", "ph": "X",
+            "ts": s["ts_us"], "dur": s["dur_us"],
+            "pid": trace_analysis.SERVER_PID_BASE + s["server"],
+            "tid": s["stage"],
+            "args": {"key": s["key"], "round": s["round"],
+                     "worker": s["worker"], "bytes": s["bytes"]}})
+    for i in sorted(seen):
+        meta.append({"name": "process_name", "ph": "M",
+                     "pid": trace_analysis.SERVER_PID_BASE + i,
+                     "tid": 0, "args": {"name": f"server{i}"}})
+    members = sess.trace_members()
+    if members:
+        for e in events:
+            k = (e.get("args") or {}).get("key")
+            if k is not None and (k >> 16) in members:
+                e["args"]["members"] = members[k >> 16]
+
+
+def _merge_trace(path: str) -> None:
+    """Fold the device lane and, in PS mode, the servers' lanes into the
+    freshly dumped worker trace.
 
     The result is one Chrome/Perfetto JSON with a process lane per
-    source: this worker's spans on pid = rank, the device plane's step
-    spans on pid = DEVICE_PID_BASE + rank (on the same monotonic-µs
-    timebase, so with no offset).  The file then goes through the
-    critical-path analyzer, which feeds the ``bps_step_critical_path_*``
-    gauges.  Server lanes come with the PS tier."""
+    source: this worker's spans on pid = rank, each server's on
+    SERVER_PID_BASE + its index, the device plane's step spans on pid =
+    DEVICE_PID_BASE + rank (on the same monotonic-µs timebase, so with
+    no offset).  The file then goes through the critical-path analyzer,
+    which feeds the ``bps_step_critical_path_*`` gauges."""
     try:
         with open(path) as f:
             doc = json.load(f)
         events = doc.get("traceEvents", [])
         meta = [{"name": "process_name", "ph": "M", "pid": rank(),
                  "tid": 0, "args": {"name": f"worker{rank()}"}}]
+        if _state.ps_session is not None:
+            _server_trace_events(_core(), events, meta)
         prof = devprof.active()
         if prof is not None:
             dev_events = prof.trace_events(rank())
@@ -609,12 +1091,16 @@ def _merge_device_trace(path: str) -> None:
 # Observability getters, collectors and the signal plane
 # ---------------------------------------------------------------------------
 def _register_builtin_collectors() -> None:
-    """Attach the stats accessors the port has to the registry as
-    collectors: ``bps_fusion_*`` values equal ``get_fusion_stats()`` by
-    construction.  The codec and transport collectors come with the PS
-    tier.  Idempotent (re-registering replaces the same name)."""
+    """Attach the stats accessors to the registry as collectors:
+    ``bps_codec_*``, ``bps_transport_*`` and ``bps_fusion_*`` values equal
+    ``get_codec_stats()``, ``get_transport_stats()`` and
+    ``get_fusion_stats()`` by construction.  Idempotent (re-registering
+    replaces the same name)."""
     from .fusion import get_stats as get_fusion_stats
-    telemetry.get_registry().register_collector("fusion", get_fusion_stats)
+    reg = telemetry.get_registry()
+    reg.register_collector("codec", lambda: get_codec_stats())
+    reg.register_collector("transport", lambda: get_transport_stats())
+    reg.register_collector("fusion", get_fusion_stats)
 
 
 _register_builtin_collectors()
@@ -623,15 +1109,106 @@ _register_builtin_collectors()
 def get_metrics() -> dict:
     """One isolated snapshot of the unified metrics registry: every
     registered counter/gauge/histogram (push_pull bytes, step time, the
-    device plane's gauges, doctor findings) plus the collector-backed
-    ``bps_fusion_*`` values.  Purely local."""
+    device plane's gauges, doctor findings, the PS feeds) plus the
+    collector-backed ``bps_codec_*``, ``bps_transport_*`` and
+    ``bps_fusion_*`` values.  Purely local: ``get_server_stats()`` polls
+    the servers."""
     return telemetry.get_registry().snapshot()
+
+
+def _refresh_server_metrics() -> None:
+    """Exporter refresh hook: fold a fresh CMD_STATS poll into the
+    registry, so that every scrape carries the servers' state.  Quiet
+    outside PS mode and while the servers cannot be reached."""
+    if _state.ps_session is None:
+        return
+    try:
+        get_server_stats()
+    except Exception as e:
+        get_logger().debug("CMD_STATS poll failed: %s", e)
+
+
+def get_server_stats() -> dict:
+    """Live server-side stats (CMD_STATS), merged across servers: per-key
+    merge counts, completed rounds, pending pulls and pushed bytes,
+    per-worker push counts and round position, server wire bytes.  Folds
+    the per-worker round lag into ``bps_worker_round_lag`` (a straggler
+    warning past ``BYTEPS_TPU_STRAGGLER_ROUNDS``) and the membership,
+    ring, server-optimizer, embedding, replication and fleet sections
+    into their gauges.  The all-zero shape outside PS mode."""
+    if _state.ps_session is None:
+        return {"bytes_in": 0, "bytes_out": 0, "async": False,
+                "num_workers": 0, "keys": {}, "workers": {},
+                "round_lag": {}}
+    cfg = _state.config or get_config()
+    stats = _state.ps_session.server_stats()
+    stats["round_lag"] = telemetry.update_round_lag(
+        stats, cfg.straggler_rounds)
+    if "members" in stats:
+        telemetry.update_membership(
+            {"epoch": stats.get("epoch", 0), "workers": stats["members"]})
+    if stats.get("servers"):
+        telemetry.update_ring(stats)
+    telemetry.update_server_opt(stats)
+    telemetry.update_embed(stats)
+    telemetry.update_repl(stats)
+    telemetry.update_fleet(stats)
+    return stats
+
+
+def get_health() -> dict:
+    """The gradient-health monitor's last per-key samples
+    (``BYTEPS_TPU_HEALTH_SAMPLE_ROUNDS`` > 0, PS mode): norm, absmax,
+    non-finite counts and EF residual per key, the ``bps_grad_*`` gauges'
+    values.  The empty shape outside PS mode or with the monitor off."""
+    empty = {"sample_rounds": 0, "nonfinite_total": 0, "keys": {}}
+    if _state.ps_session is None:
+        return empty
+    return _state.ps_session.health_snapshot() or empty
+
+
+def get_audit(cross_check: bool = False) -> dict:
+    """The consistency auditor (``BYTEPS_TPU_AUDIT=1``, PS mode): the
+    local counters (audited pulls, digest mismatches, lost or skewed
+    rounds, the last verdict), or with ``cross_check=True`` this worker's
+    last pulled digests against every server's CMD_AUDIT window."""
+    if _state.ps_session is None:
+        return {"armed": False, "checked": 0, "mismatches": 0,
+                "round_skew": 0, "unverified": 0, "last": None}
+    if cross_check:
+        return _state.ps_session.audit_check()
+    return _state.ps_session.audit_stats()
+
+
+def get_codec_stats() -> Dict[str, int]:
+    """The PS codec pipeline's counters (``BYTEPS_TPU_COMPRESS_THREADS``):
+    parts encoded and decoded off the caller's and receiver's threads,
+    bytes raw and on the wire, and the pool's busy time.  All zero
+    outside PS mode."""
+    if _state.ps_session is not None:
+        return _state.ps_session.codec_stats()
+    from ..server.codec_pool import CompressionPool
+    return dict(CompressionPool.ZERO_STATS)
+
+
+def get_transport_stats() -> Dict[str, int]:
+    """The PS transport's counters: reconnects, replays, parked
+    partitions, watchdog trips, ring redirects, the receive pool, and the
+    lanes' bytes (``lanes``: one row per server and lane).  All zero
+    outside PS mode."""
+    if _state.ps_session is not None:
+        return _state.ps_session.transport_stats()
+    from ..server.client import PSSession
+    return {**PSSession.TRANSPORT_ZERO_STATS, "lanes": []}
 
 
 def _postmortem_extra() -> dict:
     """Bundle sections the flight recorder collects at dump time —
-    strictly local state."""
-    return {"step": _state.step}
+    strictly local state (the step counter, the cached membership)."""
+    out: dict = {"step": _state.step}
+    if _state.membership is not None:
+        out["membership"] = _state.membership
+    return out
 
 
 def _start_signal_plane(cfg: Config) -> None:
@@ -645,12 +1222,28 @@ def _start_signal_plane(cfg: Config) -> None:
     ``bps_doctor_findings_total`` and ``bps.get_diagnosis()``; bundles
     gain a ``diagnosis`` section and the window history."""
     eng = doctor_mod.DoctorEngine()
+    sess = _state.ps_session
     providers = {}
+    refresh = None
+    if sess is not None:
+        providers = {"transport": sess.transport_stats,
+                     "health": sess.health_snapshot,
+                     "audit": sess.audit_stats}
+
+        def refresh():
+            if _state.ps_session is None:
+                return None
+            try:
+                return get_server_stats()
+            except Exception as e:
+                get_logger().debug(
+                    "signal window CMD_STATS poll failed: %s", e)
+                return None
     prof = devprof.active()
     if prof is not None:
         providers["device"] = prof.window_roll
     plane = signals.arm(window_s=cfg.signal_window_s,
-                        history=cfg.signal_history,
+                        history=cfg.signal_history, refresh=refresh,
                         providers=providers, on_window=eng.observe)
     _state.signal_plane = plane
     _state.doctor = eng
@@ -765,18 +1358,8 @@ def get_device_profile() -> dict:
 # ---------------------------------------------------------------------------
 # Not ported yet
 # ---------------------------------------------------------------------------
-push_pull_sparse = _not_ported("push_pull_sparse", "6")
-drain_ps_server = _not_ported("drain_ps_server", "6")
-leave = _not_ported("leave", "6")
-get_membership = _not_ported("get_membership", "6")
-on_membership_change = _not_ported("on_membership_change", "6")
-get_ring = _not_ported("get_ring", "6")
-get_codec_stats = _not_ported("get_codec_stats", "6")
-get_transport_stats = _not_ported("get_transport_stats", "6")
-get_server_stats = _not_ported("get_server_stats", "6")
-get_health = _not_ported("get_health", "6")
-get_audit = _not_ported("get_audit", "6")
-get_hierarchy = _not_ported("get_hierarchy", "6")
+push_pull_sparse = _not_ported("push_pull_sparse", "6c")
+get_hierarchy = _not_ported("get_hierarchy", "6c")
 get_tuner = _not_ported("get_tuner", "7b")
 get_autoscaler = _not_ported("get_autoscaler", "7b")
 get_fleet = _not_ported("get_fleet", "7b")

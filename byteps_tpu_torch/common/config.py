@@ -6,7 +6,12 @@ defaults, limited to what the port uses so far — the worker bootstrap
 forced-distributed switch, the bucket size, the eager fusion threshold,
 the async switch, the streaming fusion buffer's deadline, the PS
 server's engine threads and schedule switch, the consistent-hash ring,
-the trace window, the log level, the debug sampling
+the PS mode and every knob its client (``server/client.py``) and the
+API's PS branches read (role, servers, compression threshold, lanes,
+UDS, socket buffers, codec threads, credit, reconnect, watchdog,
+barrier, leases and membership, server failover, auditor, health
+monitor, key hash, clock sync, straggler warning, fleet, hierarchy and
+slice size), the trace window, the log level, the debug sampling
 of eager tensors, the mesh axis sizes (``parallel/mesh.py``) and the
 observability planes' knobs (telemetry, metrics endpoint and log, flight
 recorder, signal window, device plane).
@@ -45,8 +50,10 @@ def _env_str(name: str, default: str) -> str:
 class Config:
     """Snapshot of the knobs, built by ``Config.from_env()``."""
 
+    role: str = "worker"                     # DMLC_ROLE
     worker_id: int = 0                       # DMLC_WORKER_ID
     num_worker: int = 1                      # DMLC_NUM_WORKER
+    num_server: int = 0                      # DMLC_NUM_SERVER
     scheduler_uri: str = "127.0.0.1"         # DMLC_PS_ROOT_URI
     scheduler_port: int = 9000               # DMLC_PS_ROOT_PORT
     local_rank: int = 0                      # BYTEPS_LOCAL_RANK
@@ -59,6 +66,35 @@ class Config:
     # opened, full or not (0 = only when full or drained).
     fusion_flush_ms: float = 5.0             # BYTEPS_TPU_FUSION_FLUSH_MS
     enable_async: bool = False               # BYTEPS_ENABLE_ASYNC
+    # PS mode: the eager path and DistributedOptimizer reduce through the
+    # PS servers (server/client.py) instead of torch.distributed.
+    ps_mode: bool = False                    # BYTEPS_TPU_PS_MODE
+    min_compress_bytes: int = 65536          # BYTEPS_MIN_COMPRESS_BYTES
+    wire_conns: int = 4                      # BYTEPS_TPU_WIRE_CONNS
+    server_uds: str = ""                     # BYTEPS_TPU_SERVER_UDS
+    sock_buf_kb: int = 0                     # BYTEPS_TPU_SOCK_BUF_KB
+    compress_threads: int = 2                # BYTEPS_TPU_COMPRESS_THREADS
+    scheduling_credit: int = 0               # BYTEPS_SCHEDULING_CREDIT
+    reconnect_attempts: int = 0              # BYTEPS_TPU_RECONNECT_ATTEMPTS
+    reconnect_backoff_ms: float = 100.0      # BYTEPS_TPU_RECONNECT_BACKOFF_MS
+    stall_timeout_s: float = 0.0             # BYTEPS_TPU_STALL_TIMEOUT_S
+    barrier_timeout_s: float = 0.0           # BYTEPS_TPU_BARRIER_TIMEOUT_S
+    evict_timeout_s: float = 0.0             # BYTEPS_TPU_EVICT_TIMEOUT_S
+    membership_poll_s: float = 2.0           # BYTEPS_TPU_MEMBERSHIP_POLL_S
+    server_evict_timeout_s: float = 0.0      # BYTEPS_TPU_SERVER_EVICT_TIMEOUT_S
+    audit: bool = False                      # BYTEPS_TPU_AUDIT
+    audit_window: int = 16                   # BYTEPS_TPU_AUDIT_WINDOW
+    health_sample_rounds: int = 0            # BYTEPS_TPU_HEALTH_SAMPLE_ROUNDS
+    key_hash_fn: str = "djb2"                # BYTEPS_KEY_HASH_FN
+    clock_sync_s: float = 30.0               # BYTEPS_TPU_CLOCK_SYNC_S
+    straggler_rounds: int = 10               # BYTEPS_TPU_STRAGGLER_ROUNDS
+    fleet: bool = False                      # BYTEPS_TPU_FLEET
+    fleet_windows: int = 32                  # BYTEPS_TPU_FLEET_WINDOWS
+    # Hierarchical reduction over the PS tier (ROADMAP.md Queue 1 item
+    # 6c; raises in PS mode until then) and its slice size, which the
+    # client's leader election reads.
+    hierarchy: bool = False                  # BYTEPS_TPU_HIERARCHY
+    slice_size: int = 1                      # BYTEPS_TPU_SLICE_SIZE
     # PS server (server/__init__.py serve).
     server_engine_threads: int = 4           # BYTEPS_SERVER_ENGINE_THREAD
     server_enable_schedule: bool = False     # BYTEPS_SERVER_ENABLE_SCHEDULE
@@ -98,8 +134,10 @@ class Config:
     @classmethod
     def from_env(cls) -> "Config":
         return cls(
+            role=_env_str("DMLC_ROLE", "worker"),
             worker_id=_env_int("DMLC_WORKER_ID", 0),
             num_worker=_env_int("DMLC_NUM_WORKER", 1),
+            num_server=_env_int("DMLC_NUM_SERVER", 0),
             scheduler_uri=_env_str("DMLC_PS_ROOT_URI", "127.0.0.1"),
             scheduler_port=_env_int("DMLC_PS_ROOT_PORT", 9000),
             local_rank=_env_int("BYTEPS_LOCAL_RANK", 0),
@@ -112,6 +150,38 @@ class Config:
             fusion_flush_ms=float(
                 os.environ.get("BYTEPS_TPU_FUSION_FLUSH_MS") or 5.0),
             enable_async=_env_bool("BYTEPS_ENABLE_ASYNC"),
+            ps_mode=_env_bool("BYTEPS_TPU_PS_MODE"),
+            min_compress_bytes=_env_int("BYTEPS_MIN_COMPRESS_BYTES", 65536),
+            wire_conns=_env_int("BYTEPS_TPU_WIRE_CONNS", 4),
+            server_uds=_env_str("BYTEPS_TPU_SERVER_UDS", ""),
+            sock_buf_kb=_env_int("BYTEPS_TPU_SOCK_BUF_KB", 0),
+            compress_threads=_env_int("BYTEPS_TPU_COMPRESS_THREADS", 2),
+            scheduling_credit=_env_int("BYTEPS_SCHEDULING_CREDIT", 0),
+            reconnect_attempts=_env_int("BYTEPS_TPU_RECONNECT_ATTEMPTS", 0),
+            reconnect_backoff_ms=float(
+                os.environ.get("BYTEPS_TPU_RECONNECT_BACKOFF_MS") or 100.0),
+            stall_timeout_s=float(
+                os.environ.get("BYTEPS_TPU_STALL_TIMEOUT_S") or 0.0),
+            barrier_timeout_s=float(
+                os.environ.get("BYTEPS_TPU_BARRIER_TIMEOUT_S") or 0.0),
+            evict_timeout_s=float(
+                os.environ.get("BYTEPS_TPU_EVICT_TIMEOUT_S") or 0.0),
+            membership_poll_s=float(
+                os.environ.get("BYTEPS_TPU_MEMBERSHIP_POLL_S") or 2.0),
+            server_evict_timeout_s=float(
+                os.environ.get("BYTEPS_TPU_SERVER_EVICT_TIMEOUT_S") or 0.0),
+            audit=_env_bool("BYTEPS_TPU_AUDIT"),
+            audit_window=_env_int("BYTEPS_TPU_AUDIT_WINDOW", 16),
+            health_sample_rounds=_env_int(
+                "BYTEPS_TPU_HEALTH_SAMPLE_ROUNDS", 0),
+            key_hash_fn=_env_str("BYTEPS_KEY_HASH_FN", "djb2"),
+            clock_sync_s=float(
+                os.environ.get("BYTEPS_TPU_CLOCK_SYNC_S") or 30.0),
+            straggler_rounds=_env_int("BYTEPS_TPU_STRAGGLER_ROUNDS", 10),
+            fleet=_env_bool("BYTEPS_TPU_FLEET"),
+            fleet_windows=_env_int("BYTEPS_TPU_FLEET_WINDOWS", 32),
+            hierarchy=_env_bool("BYTEPS_TPU_HIERARCHY"),
+            slice_size=max(1, _env_int("BYTEPS_TPU_SLICE_SIZE", 1)),
             server_engine_threads=_env_int("BYTEPS_SERVER_ENGINE_THREAD", 4),
             server_enable_schedule=_env_bool("BYTEPS_SERVER_ENABLE_SCHEDULE"),
             ring=_env_bool("BYTEPS_TPU_RING"),

@@ -29,9 +29,9 @@ Design constraints, in order:
    the registry pulls it through a registered collector at snapshot
    time, so the endpoint's values equal the accessor's by construction.
 
-The parameter-server feeds of the JAX module (hierarchy, membership,
-ring, server optimizer, replication, fleet, embedding and round-lag
-gauges) come with the port's PS tier.
+The parameter-server feeds (membership, ring, server optimizer,
+replication, fleet, embedding and round-lag gauges) are the JAX
+module's; its hierarchy feeds come with ROADMAP.md Queue 1 item 6c.
 """
 
 from __future__ import annotations
@@ -393,6 +393,239 @@ def record_pushpull(nbytes: int) -> None:
 
 def pushpull_speed_mbps() -> float:
     return _pushpull_rate.mbps()
+
+
+# ---------------------------------------------------------------------------
+# PS-tier feeds: membership, ring, server optimizer, replication, fleet,
+# embedding and round-lag gauges, folded from CMD_MEMBERS / CMD_STATS
+# (get_server_stats() in common/api.py).
+# ---------------------------------------------------------------------------
+def update_membership(membership: dict, registry: Optional[MetricsRegistry]
+                      = None) -> None:
+    """Fold an elastic-membership view into the registry gauges.
+
+    ``membership`` is the merged CMD_MEMBERS shape ({"epoch", "workers":
+    {id: {"alive", ...}}, ...}).  Exports ``bps_membership_epoch`` (the
+    current epoch id), ``bps_workers_alive`` (live member count) and a
+    per-worker ``bps_worker_alive`` 0/1 gauge — the signal bps_top and
+    alerting use to tell an evicted/left worker from a merely slow one.
+    A fixed-membership job exports epoch 0 and all-alive, matching its
+    launch world.
+    """
+    reg = registry or get_registry()
+    workers = membership.get("workers") or {}
+    alive = membership.get("alive")
+    if alive is None:
+        alive = [w for w, r in workers.items() if r.get("alive")]
+    reg.gauge("bps_membership_epoch",
+              help="elastic membership epoch id (0 = launch set, never "
+                   "resized)").set(int(membership.get("epoch", 0)))
+    reg.gauge("bps_workers_alive",
+              help="live workers in the current membership epoch"
+              ).set(len(alive))
+    for w, rec in workers.items():
+        reg.gauge("bps_worker_alive",
+                  help="1 = member of the current epoch, 0 = left/evicted",
+                  labels={"worker": str(w)}
+                  ).set(1 if rec.get("alive") else 0)
+
+
+def update_ring(server_stats: dict, registry: Optional[MetricsRegistry]
+                = None) -> None:
+    """Fold the elastic PS-ring view from a merged CMD_STATS payload
+    into the registry gauges.
+
+    Exports ``bps_ring_epoch`` (the server-ring epoch; 0 = launch set,
+    never re-sharded), ``bps_server_alive{server=}`` (1 = reachable ring
+    member) and ``bps_keys_owned{server=}`` (keys whose live state the
+    server holds — during a drain this runs to zero on the leaver and
+    climbs on its inheritors, the migration-progress signal), plus
+    ``bps_server_migrations{server=,direction=}`` counters-as-gauges for
+    the in/out handoff totals.  A fixed-topology job exports epoch 0 and
+    whatever its launch servers report.
+    """
+    reg = registry or get_registry()
+    reg.gauge("bps_ring_epoch",
+              help="elastic PS ring epoch (0 = launch placement, never "
+                   "re-sharded)").set(int(server_stats.get("ring_epoch",
+                                                           0)))
+    for sid, rec in (server_stats.get("servers") or {}).items():
+        lbl = {"server": str(sid)}
+        reg.gauge("bps_server_alive",
+                  help="1 = reachable PS ring member, 0 = dead/retired",
+                  labels=lbl).set(1 if rec.get("alive") else 0)
+        reg.gauge("bps_keys_owned",
+                  help="keys whose live merge state this server holds",
+                  labels=lbl).set(int(rec.get("keys_owned", 0)))
+        for direction in ("in", "out"):
+            reg.gauge("bps_server_migrations",
+                      help="keys migrated across ring transitions",
+                      labels={"server": str(sid), "direction": direction}
+                      ).set(int(rec.get(f"migrations_{direction}", 0)))
+
+
+def update_server_opt(server_stats: dict,
+                      registry: Optional[MetricsRegistry] = None) -> None:
+    """Fold the server-resident optimizer plane from a merged CMD_STATS
+    payload into the registry gauges.
+
+    Exports ``bps_param_version{key=}`` (published optimizer updates per
+    key — a key whose completed_round grows while this stalls has a
+    wedged or misconfigured update stage, doctor rule
+    ``param_version_stall``) and ``bps_opt_slot_bytes{server=}`` (bytes
+    of server-owned optimizer slots: params + m + v — the state that no
+    longer lives N times on the workers).  Quiet for sum-only runs: no
+    key carries an opt mode, so no gauge is registered and the snapshot
+    is unchanged."""
+    reg = registry or get_registry()
+    for k, row in (server_stats.get("keys") or {}).items():
+        if not isinstance(row, dict) or not int(row.get("opt_mode", 0)):
+            continue
+        reg.gauge("bps_param_version",
+                  help="server-resident optimizer updates published for "
+                       "this key (exactly one per completed round)",
+                  labels={"key": str(k)}).set(
+                      int(row.get("param_version", 0)))
+    for sid, rec in (server_stats.get("servers") or {}).items():
+        if not isinstance(rec, dict) or "opt_slot_bytes" not in rec:
+            continue
+        if int(rec.get("opt_slot_bytes", 0)) == 0 \
+                and not int(server_stats.get("opt_updates", 0)):
+            continue
+        reg.gauge("bps_opt_slot_bytes",
+                  help="bytes of server-owned optimizer slots "
+                       "(params + m + v) held by this server",
+                  labels={"server": str(sid)}).set(
+                      int(rec.get("opt_slot_bytes", 0)))
+
+
+def update_repl(server_stats: dict,
+                registry: Optional[MetricsRegistry] = None) -> None:
+    """Fold the chain-replication plane (CMD_REPL) from a merged
+    CMD_STATS payload into the registry.
+
+    Exports ``bps_repl_lag_rounds{server=}`` (how many published rounds
+    the server's ring successor has not yet acked — the width of the
+    would-be loss window a failover closes, and what the doctor's
+    ``replication_lag`` rule watches) and ``bps_repl_bytes_total``
+    (replica bytes shipped tier-wide).  Quiet when replication is
+    unarmed (BYTEPS_TPU_REPL unset): no gauge is registered and the
+    snapshot is unchanged — the zero-overhead-when-off law every plane
+    here follows."""
+    reg = registry or get_registry()
+    if not server_stats.get("repl_armed"):
+        return
+    reg.gauge("bps_repl_bytes_total",
+              help="replica bytes shipped to ring successors "
+                   "(CMD_REPL), tier-wide").set(
+                  int(server_stats.get("repl_bytes_total", 0)))
+    for sid, rec in (server_stats.get("servers") or {}).items():
+        if not isinstance(rec, dict) or "repl_lag_rounds" not in rec:
+            continue
+        reg.gauge("bps_repl_lag_rounds",
+                  help="published rounds this server's ring successor "
+                       "has not yet acked (0 = every published round "
+                       "survives an owner SIGKILL)",
+                  labels={"server": str(sid)}).set(
+                      int(rec.get("repl_lag_rounds", 0)))
+
+
+def update_fleet(server_stats: dict,
+                 registry: Optional[MetricsRegistry] = None) -> None:
+    """Fold the fleet observability plane (CMD_WINDOW rings) from a
+    merged CMD_STATS payload into the registry.
+
+    Exports ``bps_fleet_windows_held{server=}`` (window summaries
+    parked per server — the elastic tests watch a drained server's
+    ring re-appear on the survivor) and ``bps_fleet_publishes_total``
+    (CMD_WINDOW frames accepted tier-wide).  Quiet when the fleet
+    plane is unarmed (BYTEPS_TPU_FLEET unset): no gauge is registered
+    and the snapshot is unchanged — the zero-overhead-when-off law
+    every plane here follows."""
+    reg = registry or get_registry()
+    if not server_stats.get("fleet_armed"):
+        return
+    reg.gauge("bps_fleet_publishes_total",
+              help="worker window summaries accepted by the server "
+                   "tier (CMD_WINDOW), tier-wide").set(
+                  int(server_stats.get("fleet_publishes", 0)))
+    for sid, rec in (server_stats.get("servers") or {}).items():
+        if not isinstance(rec, dict) or "fleet_windows_held" not in rec:
+            continue
+        reg.gauge("bps_fleet_windows_held",
+                  help="worker window summaries parked in this "
+                       "server's per-worker fleet rings",
+                  labels={"server": str(sid)}).set(
+                      int(rec.get("fleet_windows_held", 0)))
+
+
+def update_embed(server_stats: dict,
+                 registry: Optional[MetricsRegistry] = None) -> None:
+    """Fold the row-sparse embedding plane from a merged CMD_STATS
+    payload into the registry.
+
+    Exports ``bps_embed_rows_served_total`` (rows the server tier has
+    answered over the sparse pull/read planes) and
+    ``bps_embed_table_bytes{server=}`` (declared embedding-table bytes
+    resident per server — the recommendation-scale state that never fits
+    a worker).  Quiet until some key actually declares an embedding
+    (both numbers zero): no gauge is registered and the snapshot is
+    unchanged — a dense job's metrics surface is untouched."""
+    reg = registry or get_registry()
+    served = int(server_stats.get("embed_rows_served", 0))
+    if served or int(server_stats.get("embed_table_bytes", 0)):
+        reg.gauge("bps_embed_rows_served_total",
+                  help="embedding rows served by the PS tier over the "
+                       "row-sparse pull/read planes").set(served)
+    for sid, rec in (server_stats.get("servers") or {}).items():
+        if not isinstance(rec, dict) or "embed_table_bytes" not in rec:
+            continue
+        if int(rec.get("embed_table_bytes", 0)) == 0 and not served:
+            continue
+        reg.gauge("bps_embed_table_bytes",
+                  help="declared embedding-table bytes resident on this "
+                       "server (rows x width x 4)",
+                  labels={"server": str(sid)}).set(
+                      int(rec.get("embed_table_bytes", 0)))
+
+
+def update_round_lag(server_stats: dict, straggler_rounds: int,
+                     registry: Optional[MetricsRegistry] = None
+                     ) -> Dict[int, int]:
+    """Fold a merged CMD_STATS payload into per-worker round-lag gauges.
+
+    lag(w) = max over workers of round(w') - round(w): how many sync
+    rounds worker w trails the most advanced worker by.  Logs a straggler
+    warning for any worker trailing by more than `straggler_rounds`
+    (``BYTEPS_TPU_STRAGGLER_ROUNDS``; 0 disables the warning).
+    Returns {worker_id: lag}.
+
+    In ASYNC mode the per-worker "round" degrades to a cumulative push
+    count across all keys (there are no sync rounds), so the gauges still
+    export — the spread is a real progress signal — but the warning is
+    suppressed: nothing gates on a trailing worker there, and a
+    many-key model would trip the threshold spuriously.
+    """
+    reg = registry or get_registry()
+    workers = server_stats.get("workers") or {}
+    is_async = bool(server_stats.get("async"))
+    rounds = {int(w): int(s.get("round", 0)) for w, s in workers.items()}
+    if not rounds:
+        return {}
+    lead = max(rounds.values())
+    lags: Dict[int, int] = {}
+    for w, r in rounds.items():
+        lag = lead - r
+        lags[w] = lag
+        reg.gauge("bps_worker_round_lag",
+                  help="sync rounds this worker trails the lead worker by",
+                  labels={"worker": str(w)}).set(lag)
+        if straggler_rounds > 0 and lag > straggler_rounds and not is_async:
+            get_logger().warning(
+                "straggler: worker %d trails the lead worker by %d rounds "
+                "(> BYTEPS_TPU_STRAGGLER_ROUNDS=%d); its pushes gate every "
+                "sync round's publish", w, lag, straggler_rounds)
+    return lags
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
 """SSH fan-out launcher for multi-host runs of the port.
 
 Counterpart of ``byteps_tpu/launcher/dist_launcher.py``: read the worker
-hostfile, ssh to every host with the right ``DMLC_*`` environment, and
-stream each log to ``sshlog/``.  Workers run
-``python -m byteps_tpu_torch.launcher.launch <command>``; worker 0's host
-is the rendezvous (``--scheduler-host``, default the first worker), so no
-scheduler process is started.  Servers (``--num-servers`` > 0) need the PS
-tier, which is not ported: NotImplementedError (ROADMAP.md Queue 1 item 6).
+and server hostfiles, ssh to every host with the right ``DMLC_*``
+environment, and stream each log to ``sshlog/``.  Workers run
+``python -m byteps_tpu_torch.launcher.launch <command>``.  Without servers,
+worker 0's host is the rendezvous (``--scheduler-host``, default the first
+worker) and no scheduler process is started.  With ``--num-servers`` > 0
+the job runs in PS mode, as the JAX package's does: a scheduler on the
+first server host (or ``--scheduler-host``), one server on each of the
+first ``--num-servers`` server hosts, and workers with
+``BYTEPS_TPU_PS_MODE=1``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ def role_env(role: str, rank: int, args) -> Dict[str, str]:
     }
     if role == "worker":
         env["DMLC_WORKER_ID"] = str(rank)
+        if args.num_servers:
+            env["BYTEPS_TPU_PS_MODE"] = "1"
     if role == "server":
         env["DMLC_SERVER_ID"] = str(rank)
     return env
@@ -57,16 +62,20 @@ def _stream(proc: subprocess.Popen, logfile: str) -> None:
 def launch(args, dry_run: bool = False) -> List[List[str]]:
     """Builds (and unless dry_run, starts) every ssh command.
     Returns the command list for inspection/testing."""
-    if args.num_servers:
-        raise NotImplementedError(
-            "servers start the PS tier, which is not ported to "
-            "byteps_tpu_torch yet (ROADMAP.md Queue 1 item 6)")
     workers = read_hostfile(args.worker_hostfile)[:args.num_workers]
+    servers = read_hostfile(args.server_hostfile)[:args.num_servers] \
+        if args.num_servers else []
     if not args.scheduler_host:
-        args.scheduler_host = workers[0]
+        args.scheduler_host = (servers or workers)[0]
 
     cmds = []
     plans = []
+    if servers:
+        plans.append(("scheduler", 0, args.scheduler_host,
+                      "python -m byteps_tpu_torch.launcher.launch"))
+    for i, h in enumerate(servers):
+        plans.append(("server", i, h,
+                      "python -m byteps_tpu_torch.launcher.launch"))
     for i, h in enumerate(workers):
         plans.append(("worker", i, h, "python -m "
                       f"byteps_tpu_torch.launcher.launch {args.command}"))

@@ -1,0 +1,6062 @@
+"""PS client session: the worker side of PS-parity mode.
+
+The reference worker talks to servers through ps-lite ZPush/ZPull with
+per-partition keys spread over servers by hash
+(reference: core_loops.cc:536-616, global.cc:643-692).  This is the
+host redesign of that data path:
+
+  - every tensor is split into <= BYTEPS_PARTITION_BYTES partitions with
+    per-partition keys `declared_key << 16 | part_idx`
+    (reference: operations.cc:140-180, 301-311),
+  - each partition key is placed on a server by the configured hash with
+    accumulated-load logging (reference: global.cc:643-692),
+  - partition pushes are issued by a dispatcher thread in
+    (priority desc, key asc) order through the native priority
+    ScheduledQueue, gated by a credit of
+    BYTEPS_SCHEDULING_CREDIT x BYTEPS_PARTITION_BYTES bytes in flight;
+    completions return credit (reference: scheduled_queue.cc:26-46,136-139),
+  - each connection multiplexes outstanding requests by req_id, the
+    redesign of ps-lite's completion callbacks (core_loops.cc:536-616),
+    so per-partition pushes/pulls to one server pipeline instead of
+    serializing on a blocking round-trip,
+  - codec work rides a CompressionPool (BYTEPS_TPU_COMPRESS_THREADS,
+    the redesign of the reference's COMPRESS/DECOMPRESS pipeline loop
+    threads, core_loops.cc): partitions are encoded ahead of the
+    dispatcher in the same (priority desc, key asc) order, so the wire
+    send of partition k overlaps the encode of k+1, and compressed pull
+    payloads are decoded off the receiver thread, so one slow decode
+    never stalls other partitions' responses on the same socket,
+  - the transport is fault-tolerant when BYTEPS_TPU_RECONNECT_ATTEMPTS > 0
+    (default 0 = fail-fast): a dropped connection parks its in-flight
+    partitions, re-dials under bounded exponential backoff with jitter,
+    re-runs the HELLO mode check and the idempotent CMD_INIT re-declare
+    (re-seeding rounds from server `completed_round` state so a replayed
+    push can never double-count and a pull can never return a stale
+    round), then replays parked pushes through the dispatcher and
+    re-issues parked pull legs, in (priority desc, key asc) order.  A
+    round-stall watchdog (BYTEPS_TPU_STALL_TIMEOUT_S) dumps a diagnostic
+    snapshot and fails stuck handles loudly — the worker-side analog of
+    server.cc's ORDERING INVARIANT guard.  bps.get_transport_stats()
+    exposes the counters,
+  - the receive path is pooled and zero-copy: raw pull payloads land
+    directly in the handle's output buffer (the per-request sink),
+    everything else rides a size-classed pooled-buffer ring
+    (_RecvBufPool) instead of a fresh allocation per frame, and
+    compressed pulls decode straight from the pooled view into the
+    output buffer,
+  - partitions spread over BYTEPS_TPU_WIRE_CONNS data lanes per server
+    by BYTE CREDIT at dispatch time (least-outstanding-bytes wins, ties
+    to least-used) — the multi-lane analog of ps-lite's per-connection
+    threads, minus the head-of-line blocking a fixed stripe invites,
+  - a colocated server is reached over AF_UNIX when
+    BYTEPS_TPU_SERVER_UDS is set ("<path>.<port>", bit-identical
+    protocol, transparent TCP fallback), and BYTEPS_TPU_SOCK_BUF_KB
+    sizes both directions' socket buffers.
+
+Counterpart of ``byteps_tpu/server/client.py``, kept whole and in its
+structure: numpy and sockets on the host, byte-identical client->server
+frames (``tests/test_torch_port_ps_client.py`` records both).  Keys,
+the ScheduledQueue, the trace switch and the trace spans live on the
+port's native core (``core.native.get_native_core()``, built from the
+port's own copy of the C++ sources; there is no Python fallback), which
+the API runs on in PS mode.  The server-optimizer, embedding, knob and
+fleet methods come along in the copy; their callers are ported with
+ROADMAP.md Queue 1 items 6c and 7b.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import socket
+import struct
+import threading
+import time
+from collections import OrderedDict, deque
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..common import flightrec as _flightrec
+from ..common import signals as _signals
+from ..common.config import Config
+from ..common.logging import get_logger
+from ..common.ring import DEFAULT_VNODES, RingTable
+from ..core.native import get_native_core
+from .codec_pool import CompressionPool
+
+_REQ = struct.Struct("<BBHIIQQ")   # cmd dtype flags req_id worker_id key len
+_RESP = struct.Struct("<BIQQ")     # status req_id key len
+
+CMD_HELLO, CMD_INIT, CMD_PUSH, CMD_PULL, CMD_BARRIER, CMD_SHUTDOWN, \
+    CMD_PING, CMD_LR_SCALE, CMD_STATS, CMD_TRACE, CMD_LEAVE, \
+    CMD_MEMBERS, CMD_RING, CMD_RING_SET, CMD_DRAIN, CMD_MIGRATE, \
+    CMD_AUDIT, CMD_CODEC, CMD_OPT, CMD_KNOB = range(20)
+
+# Fleet observability plane (server.cc kWindow / kFleet).  Deliberately
+# NOT part of the range(20) enum above: wire value 20 is kRepl, the
+# peer-only chain-replication command no client ever sends — skipping it
+# keeps the client constants exactly aligned with the server's Cmd
+# values.  CMD_WINDOW publishes one worker's window summary (key =
+# window index); CMD_FLEET reads the merged per-worker rings and doubles
+# as the bootstrap probe (the CMD_AUDIT downgrade law).
+CMD_WINDOW, CMD_FLEET = 21, 22
+
+# Response status bytes (server.cc Status).  MOVED carries the server's
+# current ring table as JSON: the addressed server is not (or no longer)
+# the consistent-hash owner of the frame's key — re-plan and re-route.
+# Emitted only once the ring epoch has advanced, so a fixed-topology job
+# never sees it.  CODEC_STALE carries the key's authoritative codec doc:
+# this push's wire format does not match the codec-table entry for the
+# round currently merging (the sender missed — or jumped ahead of — a
+# CMD_CODEC renegotiation); the session re-encodes the SAME gradient
+# with the right codec and replays.  Emitted only once the key's codec
+# epoch has advanced, so a job that never renegotiates never sees it.
+# KNOB_STALE carries the server's GLOBAL knob doc (the CMD_KNOB table):
+# this push came from a worker that has not acked the newest knob epoch
+# while the key's round is already at/past the switch boundary — the
+# session adopts the table, re-applies its half of the switch (fusion
+# re-plan / pool resize / lane resize), ACKs, and replays.  Emitted only
+# once the knob epoch has advanced, so a job that never renegotiates a
+# knob never sees it.
+STATUS_OK, STATUS_ERROR, STATUS_MOVED, STATUS_CODEC_STALE, \
+    STATUS_KNOB_STALE = 0, 1, 2, 3, 4
+
+# dtype byte on the wire (server.cc WireDtype)
+DT_F32, DT_RAW, DT_COMPRESSED, DT_SEED = 0, 1, 2, 3
+# Row-sparse embedding plane (server.cc kSparseRows / kSparseRead):
+# DT_SPARSE rides the round plane — a push merges (indices, rows) into
+# the key's embed_merge and counts toward round completion; a pull with
+# it parks until the round publishes.  DT_SPARSE_READ is the ungated
+# inference read: served immediately from the last published table,
+# never touching round state — what pull-only sessions use.
+DT_SPARSE, DT_SPARSE_READ = 4, 5
+
+# HELLO flags bit 0 (server.cc kHello observer gate): a pull-only
+# session introduces itself WITHOUT being admitted to the worker
+# membership, so a reader can never stall round completion.
+HELLO_FLAG_OBSERVER = 1
+
+# Request dtype marker on PULL frames (server.cc kAuditPullMark): "append
+# the 24-byte audit trailer to the response payload".  Sent ONLY once the
+# session has probed an audit-armed server over CMD_AUDIT (see
+# _audit_bootstrap) — an unarmed run's wire never carries it, and an
+# unarmed/old server ignores the pull dtype entirely, so a mixed
+# deployment degrades to "no trailer", never to corruption.
+DT_AUDIT_PULL = 0xAD
+
+# Audited-pull trailer (server.cc AuditTrailer, little-endian):
+# u32 digest | u64 published round | u64 membership epoch at publish |
+# u32 contributor count (0 = no digest recorded, skip verification).
+_AUDIT_TRAILER = struct.Struct("<IQQI")
+
+# Digest chunk size — must match server.cc audit::kChunk.
+_AUDIT_CHUNK = 65536
+
+_AUDIT_C = False    # False = untried, None = unavailable, else the fn
+
+
+def _audit_c_digest():
+    """ctypes handle to the C digest in libbyteps_core.so (the exact
+    routine the server's PublishRound runs), or None — the zlib
+    fallback below is bit-identical, just ~2x slower."""
+    global _AUDIT_C
+    if _AUDIT_C is False:
+        try:
+            import ctypes
+
+            from ..core import native
+            lib = getattr(native.get_native_core(), "_lib", None)
+            if lib is None:
+                _AUDIT_C = None
+            else:
+                lib.bps_audit_digest.argtypes = [ctypes.c_char_p,
+                                                 ctypes.c_uint64]
+                lib.bps_audit_digest.restype = ctypes.c_uint32
+                _AUDIT_C = lib.bps_audit_digest
+        except Exception:   # pragma: no cover - defensive
+            _AUDIT_C = None
+    return _AUDIT_C
+
+
+def audit_digest(buf) -> int:
+    """Order-independent digest of a published buffer: CRC-32 (the zlib
+    polynomial) per 64 KiB chunk, summed mod 2^32 across chunks.
+    Bit-identical on both sides — the server's ``audit::Digest``
+    (core/server.cc) is the C implementation, reachable here through
+    the ``bps_audit_digest`` ctypes export (with a pure
+    ``zlib.crc32``-chunked fallback for toolchain-less installs; parity
+    asserted by tests/test_audit.py) — so a worker re-digesting the
+    bytes it pulled is directly comparable against what the server
+    recorded at publish: the single-bit-corruption / divergent-sum
+    detector."""
+    fn = _audit_c_digest()
+    if fn is not None:
+        from .wire import _c_buf
+        return int(fn(_c_buf(buf), len(buf)))
+    import zlib
+    mv = memoryview(buf)
+    s = 0
+    for off in range(0, len(mv), _AUDIT_CHUNK):
+        s = (s + zlib.crc32(mv[off:off + _AUDIT_CHUNK])) & 0xFFFFFFFF
+    return s
+
+# Header `flags` bit 15 (server.cc kFlagTraced): this frame is inside the
+# worker's trace window.  PUSH/PULL frames now carry their round in the
+# LOW 15 BITS always — bit 15 belongs exclusively to the marker, traced
+# or not, so an untraced long run can never have a round counter bleed
+# into it (which would make the server record spans for 32768 consecutive
+# rounds).  A run with tracing off is byte-identical to the pre-trace
+# wire through round 32767 per key (beyond that the old 16-bit round
+# differed anyway each 65536 rounds; the guard-aliasing distance is
+# 32768 — see server.cc RoundMatch).  A traced PING asks the server for
+# its clock (the offset-estimation leg).
+FLAG_TRACED = 0x8000
+ROUND_MASK = 0x7FFF
+
+_CMD_NAMES = {0: "HELLO", 1: "INIT", 2: "PUSH", 3: "PULL", 4: "BARRIER",
+              5: "SHUTDOWN", 6: "PING", 7: "LR_SCALE", 8: "STATS",
+              9: "TRACE", 10: "LEAVE", 11: "MEMBERS", 12: "RING",
+              13: "RING_SET", 14: "DRAIN", 15: "MIGRATE", 16: "AUDIT",
+              17: "CODEC", 18: "OPT", 19: "KNOB", 21: "WINDOW",
+              22: "FLEET"}
+
+
+def _round_flags(rnd: int, traced: bool) -> int:
+    """The u16 round flags for one PUSH/PULL frame: the round mod 2^15,
+    plus — inside a trace window — the marker bit the server records
+    spans for.  Bit 15 is never round data (see FLAG_TRACED)."""
+    return (rnd & ROUND_MASK) | (FLAG_TRACED if traced else 0)
+
+
+def estimate_clock_offset(samples) -> Tuple[float, float]:
+    """NTP-style offset of a server's clock relative to this worker's.
+
+    ``samples`` is a list of ``(t0_us, server_ts_us, t1_us)`` tuples from
+    timestamped pings: the worker read its clock at t0, the server stamped
+    server_ts somewhere inside the round trip, the worker read t1 on the
+    response.  Assuming a symmetric path, server_ts corresponds to the
+    midpoint (t0+t1)/2, so ``offset = server_ts - (t0+t1)/2`` with error
+    bounded by rtt/2 — the minimum-RTT sample is therefore the tightest
+    estimate and wins (classic NTP peer filtering).  Returns
+    ``(offset_us, rtt_us)`` of that best sample; ``server_ts - offset``
+    maps a server timestamp onto the worker's timeline.
+    """
+    if not samples:
+        raise ValueError("estimate_clock_offset: no samples")
+    t0, ts, t1 = min(samples, key=lambda s: s[2] - s[0])
+    return ts - (t0 + t1) / 2.0, float(t1 - t0)
+
+def _merge_member_rec(workers: dict, worker: int, rec: dict) -> None:
+    """Fold one server's view of one worker into a merged workers map:
+    alive only if EVERY server agrees (one server evicting it means its
+    rounds there re-finalize without it — the operative fact), lease age
+    takes the max (staleness anywhere is the honest signal).  The ONE
+    merge law, shared by merge_membership (CMD_MEMBERS) and
+    server_stats (CMD_STATS) so the two surfaces can never disagree."""
+    alive = bool(rec.get("alive"))
+    age = float(rec.get("age_ms", 0.0))
+    prev = workers.get(worker)
+    if prev is None:
+        workers[worker] = {"alive": alive, "age_ms": age}
+    else:
+        prev["alive"] = prev["alive"] and alive
+        prev["age_ms"] = max(prev["age_ms"], age)
+
+
+def merge_membership(views: list) -> dict:
+    """Merge per-server CMD_MEMBERS snapshots into one worker-set view.
+
+    Epoch takes the max across servers (each server versions its own
+    table; transitions reach every server through the same worker
+    actions, so the max is the freshest view).  A worker counts as alive
+    only if EVERY server that knows it says so — one server evicting it
+    means its rounds there will re-finalize without it, which is the
+    operative fact for the training loop.  Lease ages take the max
+    (staleness anywhere is the honest signal) and barrier arrivals
+    union (in practice barriers live on server 0 only).
+
+    Returns ``{"epoch", "workers": {id: {"alive", "age_ms"}}, "alive":
+    [ids], "barrier": {gen: [ids]}}``.
+    """
+    merged: dict = {"epoch": 0, "workers": {}, "barrier": {}}
+    for st in views:
+        merged["epoch"] = max(merged["epoch"], int(st.get("epoch", 0)))
+        for w, rec in (st.get("members") or {}).items():
+            _merge_member_rec(merged["workers"], int(w), rec)
+        for g, ids in (st.get("barrier") or {}).items():
+            g = int(g)
+            merged["barrier"][g] = sorted(
+                set(merged["barrier"].get(g, ())) | {int(i) for i in ids})
+    merged["alive"] = sorted(w for w, r in merged["workers"].items()
+                             if r["alive"])
+    return merged
+
+
+# How often the barrier wait logs a "still waiting" warning; module-level so
+# tests can shrink it (bps.barrier legitimately blocks on peers for a long
+# time — silence is the failure mode being fixed, not the waiting itself).
+BARRIER_WARN_INTERVAL_S = 10.0
+
+
+class _KeyMoved(Exception):
+    """A request drew status MOVED: the addressed server is not the ring
+    owner of the key.  ``doc`` is the server's current ring table (the
+    MOVED payload) — the session adopts it, re-plans, and replays the
+    partition against the new owner (state already migrated there:
+    the server's contract is state-before-redirect)."""
+
+    def __init__(self, key: int, doc: dict):
+        super().__init__(f"key {key} moved (ring epoch "
+                         f"{doc.get('epoch', '?')})")
+        self.key = key
+        self.doc = doc
+
+
+class _CodecStale(Exception):
+    """A push drew status CODEC_STALE: its wire format does not match
+    the key's codec-table entry for the round being merged.  ``doc`` is
+    the server's authoritative codec doc (the CODEC_STALE payload) —
+    the session adopts it, re-encodes the partition from its staged
+    gradient with the right codec (EF residual carried, never dropped),
+    and replays the push — so no round ever mixes wire formats and no
+    contribution is lost."""
+
+    def __init__(self, key: int, doc: dict):
+        super().__init__(f"key {key} codec stale (epoch "
+                         f"{doc.get('epoch', '?')})")
+        self.key = key
+        self.doc = doc
+
+
+class _KnobStale(Exception):
+    """A push drew status KNOB_STALE: this session has not acked the
+    server's newest GLOBAL knob epoch and the key's round is already
+    at/past the switch boundary.  ``doc`` is the authoritative knob doc
+    (the KNOB_STALE payload) — the session adopts the table, applies its
+    half of the switch, ACKs the epoch, and either replays the partition
+    in place (pool/lane knobs, payload unchanged) or fails its handle
+    with :class:`KnobReplan` (the fusion layout changed, so the staged
+    bucket keys no longer exist fleet-wide and the caller must re-plan)."""
+
+    def __init__(self, key: int, doc: dict):
+        super().__init__(f"key {key} knob stale (epoch "
+                         f"{doc.get('epoch', '?')})")
+        self.key = key
+        self.doc = doc
+
+
+class KnobReplan(RuntimeError):
+    """A staged push was withdrawn because a FUSION_BYTES knob switch
+    re-partitioned the tree under it: the bucket keys it was planned
+    against are no longer what the fleet pushes from the effective round
+    on.  Raised out of the affected handles' ``wait()``; the fusion
+    dispatch layer (common/api.py) catches it, re-plans the tree under
+    the live fusion_bytes, and re-dispatches exactly the failed units —
+    idempotent against the server's seen-dedup and stale-round guards,
+    so nothing double-merges.  ``doc`` is the knob doc that triggered
+    the withdrawal (None when the switch was applied locally)."""
+
+    def __init__(self, msg: str, doc: Optional[dict] = None):
+        super().__init__(msg)
+        self.doc = doc
+
+
+class _ConnLost(ConnectionError):
+    """The connection dropped with a request outstanding.
+
+    ``will_reconnect`` distinguishes a drop the transport is actively
+    recovering from (BYTEPS_TPU_RECONNECT_ATTEMPTS > 0: the owner may PARK
+    the request and replay it after the re-dial) from a terminal loss,
+    which must fail the request exactly like the pre-reconnect transport.
+    """
+
+    def __init__(self, msg: str, will_reconnect: bool = False):
+        super().__init__(msg)
+        self.will_reconnect = will_reconnect
+
+
+class _PooledBuf:
+    """One checked-out receive buffer: an exact-length view of a pooled
+    bytearray plus the ticket to return it.
+
+    The receiver fills ``mv`` straight off the socket and hands the whole
+    object down the pull-completion path; exactly ONE consumer calls
+    ``release()`` after the payload's bytes have been consumed (copied
+    into the handle's output buffer or decoded out of it).  release() is
+    idempotent so error paths can call it defensively.
+    """
+
+    __slots__ = ("mv", "_pool", "_cls", "_buf")
+
+    def __init__(self, pool: "_RecvBufPool", cls: int, buf: bytearray,
+                 n: int):
+        self._pool, self._cls, self._buf = pool, cls, buf
+        self.mv = memoryview(buf)[:n]
+
+    def __len__(self) -> int:
+        return len(self.mv)
+
+    def release(self) -> None:
+        buf, self._buf = self._buf, None
+        if buf is not None:
+            self.mv.release()
+            self._pool._put(self._cls, buf)
+
+
+class _RecvBufPool:
+    """Size-classed pooled receive buffers for the payload hot path.
+
+    The pre-pool receiver allocated (and the allocator zero-filled) a
+    fresh bytearray per frame — a 4MB partition pull paid a 4MB
+    allocation + page-touch every round.  Here buffers recycle through
+    power-of-two size classes (4 KiB .. 16 MiB; larger payloads fall back
+    to a one-shot allocation): steady-state training traffic re-uses the
+    same few buffers round after round, so the per-frame cost drops to a
+    freelist pop.  Shared by every connection of a session — the classes
+    are locked, but acquire/release is two list ops per frame.
+
+    No-aliasing invariant: a buffer is EITHER on a freelist OR owned by
+    exactly one _PooledBuf (the receiver thread hands each checkout to a
+    single consumer, and release() nulls the ticket), so two concurrent
+    pulls can never scribble on the same backing storage — asserted by
+    tests/test_transport_speed.py.
+    """
+
+    MIN_CLASS = 12                       # 4 KiB — below this, pooling is
+    #                                      churn for no measurable win
+    MAX_CLASS = 24                       # 16 MiB
+    PER_CLASS = 8                        # buffers retained per class
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._free: Dict[int, list] = {}
+        self.hits = 0
+        self.misses = 0
+
+    def _class_for(self, n: int) -> Optional[int]:
+        if n <= 0 or n > (1 << self.MAX_CLASS):
+            return None
+        return max(self.MIN_CLASS, (n - 1).bit_length())
+
+    def acquire(self, n: int) -> _PooledBuf:
+        cls = self._class_for(n)
+        buf = None
+        if cls is not None:
+            with self._lock:
+                lst = self._free.get(cls)
+                if lst:
+                    buf = lst.pop()
+                    self.hits += 1
+                else:
+                    self.misses += 1
+        if buf is None:
+            buf = bytearray(1 << cls) if cls is not None else bytearray(n)
+        return _PooledBuf(self, cls, buf, n)
+
+    def _put(self, cls: Optional[int], buf: bytearray) -> None:
+        if cls is None:
+            return
+        with self._lock:
+            lst = self._free.setdefault(cls, [])
+            if len(lst) < self.PER_CLASS:
+                lst.append(buf)
+
+    def stats(self) -> Tuple[int, int, int]:
+        """(hits, misses, buffers currently held on freelists)."""
+        with self._lock:
+            held = sum(len(v) for v in self._free.values())
+            return self.hits, self.misses, held
+
+
+class _Future:
+    """Completion slot for one outstanding request."""
+
+    __slots__ = ("event", "data", "error", "callback", "sink", "sink_live",
+                 "pool_ok", "cmd", "key", "req_id", "t0")
+
+    def __init__(self, callback: Optional[Callable] = None,
+                 sink: Optional[memoryview] = None,
+                 sink_live: Optional[Callable[[], bool]] = None,
+                 pool_ok: bool = False):
+        self.event = None if callback else threading.Event()
+        self.data: bytes = b""
+        self.error: Optional[Exception] = None
+        self.callback = callback
+        # Optional preallocated destination: a response whose payload length
+        # matches len(sink) is received straight into it (no intermediate
+        # buffer — the ZPull-into-shm stance, reference core_loops.cc:582-616).
+        self.sink = sink
+        # Guard consulted just before the receiver commits to the sink: a
+        # False return (e.g. the owning handle timed out and the caller may
+        # be reusing the buffer) diverts the payload to a scratch buffer.
+        self.sink_live = sink_live
+        # True when the response payload may land in a pooled buffer (the
+        # pull data leg, whose completion path has a single well-defined
+        # consumer that releases it); control responses keep the private
+        # allocation so wait() callers can hold the bytes indefinitely.
+        self.pool_ok = pool_ok
+        # Request context for diagnosable timeouts (filled in by send()).
+        self.cmd = -1
+        self.key = 0
+        self.req_id = 0
+        self.t0 = time.monotonic()
+
+    def resolve(self, data: bytes, error: Optional[Exception]) -> None:
+        self.data, self.error = data, error
+        if self.callback is not None:
+            self.callback(data, error)
+        else:
+            self.event.set()
+
+    def wait(self, timeout: Optional[float] = None) -> bytes:
+        if not self.event.wait(timeout):
+            raise TimeoutError(
+                f"PS request timed out: cmd={_CMD_NAMES.get(self.cmd, self.cmd)}"
+                f" key={self.key} req_id={self.req_id}"
+                f" elapsed={time.monotonic() - self.t0:.1f}s"
+                f" (timeout={timeout}s)")
+        if self.error is not None:
+            raise self.error
+        return self.data
+
+
+class _ServerConn:
+    """One multiplexed connection to a PS server.
+
+    Any thread may `send`; a dedicated receiver thread matches responses to
+    futures by req_id and runs completion callbacks (the ZPush/ZPull
+    callback model, reference: core_loops.cc:564-616).
+
+    With ``reconnect_attempts > 0`` the connection survives transport
+    faults: on a drop the receiver resolves every pending future with a
+    `_ConnLost(will_reconnect=True)` (the session parks its partitions for
+    replay), re-dials ``host:port`` under bounded exponential backoff with
+    jitter, then runs ``on_reconnect`` (the session's handshake + replay)
+    on a fresh thread while the receiver resumes on the new socket.  With
+    the default 0, a drop fails all pending requests permanently — the
+    pre-reconnect fail-fast contract, unchanged.
+    """
+
+    def __init__(self, host: str, port: int, timeout: float = 60.0,
+                 reconnect_attempts: int = 0,
+                 reconnect_backoff_ms: float = 100.0,
+                 on_reconnect: Optional[Callable] = None,
+                 on_give_up: Optional[Callable] = None,
+                 uds_path: str = "",
+                 sock_buf_kb: int = 0,
+                 recv_pool: Optional[_RecvBufPool] = None):
+        self.host, self.port = host, port
+        self.timeout = timeout
+        self.reconnect_attempts = max(0, int(reconnect_attempts))
+        self.reconnect_backoff_ms = max(1.0, float(reconnect_backoff_ms))
+        self.on_reconnect = on_reconnect
+        self.on_give_up = on_give_up
+        self.reconnects = 0          # successful re-dials, for stats
+        # UDS fast path (BYTEPS_TPU_SERVER_UDS): dial AF_UNIX at
+        # "<uds_path>.<port>" first — same framing, bit-identical
+        # protocol, measurably lower per-frame cost for a colocated
+        # server — with transparent TCP fallback (including on re-dials,
+        # so a replacement server without the socket file still recovers).
+        self.uds_path = uds_path
+        self.sock_buf_kb = max(0, int(sock_buf_kb))
+        self.transport = "tcp"       # what _dial actually connected over
+        self._recv_pool = recv_pool
+        # Byte-credit lane accounting (the per-lane scheduling signal):
+        # outstanding_bytes is the wire payload in flight on this conn
+        # (charged at push dispatch / pull issue, returned on completion);
+        # lane_bytes_total / lane_sends are lifetime counters for stats.
+        self._lane_lock = threading.Lock()
+        self.outstanding_bytes = 0
+        self.lane_bytes_total = 0
+        self.lane_sends = 0
+        # WIRE_CONNS knob: a retiring lane takes no NEW dispatches
+        # (excluded from _pick_lane) while its outstanding bytes drain;
+        # the resize worker closes it once quiet (_resize_lanes).
+        self.retiring = False
+        self.sock = self._dial()
+        self.lock = threading.Lock()          # send serialization
+        self.replay_lock = threading.Lock()   # serializes on_reconnect runs
+        self._pending: Dict[int, _Future] = {}
+        self._pending_lock = threading.Lock()
+        self._req_counter = 0
+        self._closed = False
+        self._down = False           # dropped, re-dial in progress
+        self.down_since = 0.0        # monotonic ts of the current outage
+        #                              (0 = up) — the server-failover
+        #                              scanner's lease signal
+        self._recv_thread = threading.Thread(
+            target=self._recv_loop, daemon=True, name="bps-ps-recv")
+        self._recv_thread.start()
+
+    def _dial(self) -> socket.socket:
+        if self.uds_path:
+            # AF_UNIX first: "<base>.<port>" is the server's convention
+            # (core/server.cc UDS listener), so one env var covers a
+            # multi-server host.  Any failure (no socket file, refused,
+            # AF_UNSUPPORTED) falls back to TCP — the UDS path is an
+            # optimization, never a new failure mode.
+            sock = None
+            try:
+                sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+                sock.settimeout(self.timeout)
+                sock.connect(f"{self.uds_path}.{self.port}")
+                sock.settimeout(None)
+                self.transport = "uds"
+                self._tune(sock)
+                return sock
+            except OSError as e:
+                if sock is not None:
+                    try:
+                        sock.close()
+                    except OSError:
+                        pass
+                get_logger().debug(
+                    "UDS dial to %s.%d failed (%s); falling back to TCP",
+                    self.uds_path, self.port, e)
+        sock = socket.create_connection((self.host, self.port),
+                                        timeout=self.timeout)
+        sock.settimeout(None)  # receiver blocks until data or close
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.transport = "tcp"
+        self._tune(sock)
+        return sock
+
+    def _tune(self, sock: socket.socket) -> None:
+        """Apply BYTEPS_TPU_SOCK_BUF_KB (0 = kernel default) to both
+        directions; best-effort — the kernel clamps/doubles as it sees
+        fit, and an EPERM on an exotic transport must not kill a dial."""
+        if self.sock_buf_kb <= 0:
+            return
+        nbytes = self.sock_buf_kb * 1024
+        for opt in (socket.SO_SNDBUF, socket.SO_RCVBUF):
+            try:
+                sock.setsockopt(socket.SOL_SOCKET, opt, nbytes)
+            except OSError:
+                pass
+
+    # -- byte-credit lane accounting ------------------------------------
+    def lane_charge(self, nbytes: int) -> None:
+        with self._lane_lock:
+            self.outstanding_bytes += nbytes
+            self.lane_bytes_total += nbytes
+            self.lane_sends += 1
+
+    def lane_return(self, nbytes: int) -> None:
+        with self._lane_lock:
+            self.outstanding_bytes = max(0, self.outstanding_bytes - nbytes)
+
+    def state(self) -> str:
+        """'up' | 'reconnecting' | 'closed' — for watchdog dumps/stats."""
+        with self._pending_lock:
+            if self._closed:
+                return "closed"
+            return "reconnecting" if self._down else "up"
+
+    def _lost_exc(self, msg: str) -> _ConnLost:
+        """A connection-lost error tagged with whether this conn will try
+        to recover (so the session knows to park instead of fail)."""
+        return _ConnLost(msg, will_reconnect=self.reconnect_attempts > 0
+                         and not self._closed)
+
+    def send(self, cmd: int, key: int = 0, payload: bytes = b"",
+             worker_id: int = 0, dtype: int = 0, flags: int = 0,
+             callback: Optional[Callable] = None,
+             sink: Optional[memoryview] = None,
+             sink_live: Optional[Callable[[], bool]] = None,
+             pool_ok: bool = False) -> _Future:
+        fut = _Future(callback, sink, sink_live, pool_ok)
+        with self._pending_lock:
+            if self._closed:
+                raise ConnectionError("PS connection closed")
+            if self._down:
+                # Mid-reconnect: nothing can go on the wire right now.  The
+                # tagged error lets the dispatcher park the partition for
+                # replay instead of failing the handle.
+                raise self._lost_exc(
+                    f"PS connection to {self.host}:{self.port} is "
+                    f"reconnecting")
+            self._req_counter = (self._req_counter + 1) & 0xFFFFFFFF
+            req_id = self._req_counter
+            fut.cmd, fut.key, fut.req_id = cmd, key, req_id
+            self._pending[req_id] = fut
+        hdr = _REQ.pack(cmd, dtype, flags & 0xFFFF, req_id, worker_id, key,
+                        len(payload))
+        sock = self.sock   # the socket this send commits to (see except arm)
+        try:
+            with self.lock:
+                if len(payload) >= 65536:
+                    # Zero-copy gather send for data partitions: the
+                    # memoryview goes straight to the socket (the
+                    # reference's ZPush zero-copy SArray stance,
+                    # core_loops.cc:564-569) and header+payload ride ONE
+                    # sendmsg — under TCP_NODELAY a separate header
+                    # sendall is its own packet + syscall + server-reader
+                    # wakeup per partition (mirror of the server-side
+                    # Respond coalescing).
+                    self._send_gather(sock, hdr, payload)
+                else:
+                    sock.sendall(hdr + bytes(payload))
+        except OSError as e:
+            # Wake the receiver so IT drives the reconnect (single owner):
+            # shut down the exact socket this send wrote to — if a re-dial
+            # already swapped in a healthy one, this is a no-op on a dead fd.
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            with self._pending_lock:
+                popped = self._pending.pop(req_id, None)
+            if popped is None:
+                # The drop handler already took (and resolved/parked) this
+                # future — it owns the error path; raising here too would
+                # double-handle it (e.g. return scheduler credit twice).
+                return fut
+            raise self._lost_exc(f"PS send failed: {e}") from e
+        return fut
+
+    def _send_gather(self, sock: socket.socket, hdr: bytes, payload) -> None:
+        """header+payload in one gather syscall, with the partial-write
+        loop sendmsg needs (unlike sendall it returns after one write)."""
+        mv_h, mv_p = memoryview(hdr), memoryview(payload)
+        total = len(mv_h) + len(mv_p)
+        sent = sock.sendmsg([mv_h, mv_p])
+        while sent < total:
+            if sent < len(mv_h):
+                sent += sock.sendmsg([mv_h[sent:], mv_p])
+            else:
+                sock.sendall(mv_p[sent - len(mv_h):])
+                sent = total
+
+    def request(self, cmd: int, key: int = 0, payload: bytes = b"",
+                worker_id: int = 0, dtype: int = 0, flags: int = 0,
+                timeout: Optional[float] = 60.0,
+                barrier_diag: Optional[Callable[[], str]] = None) -> bytes:
+        """Blocking request/response (INIT, BARRIER, control commands).
+
+        BARRIER legitimately blocks on peers, so its default deadline is
+        infinite (`timeout=None`; `BYTEPS_TPU_BARRIER_TIMEOUT_S` routes a
+        finite one through PSSession.barrier) — but it logs a periodic
+        "still waiting" warning so a dead peer is never silent.  Everything
+        else fails loudly after `timeout` instead of hanging a training job
+        on a wedged server.  ``barrier_diag``, when given, is called on
+        each warning/timeout to append the live membership picture (which
+        ranks the barrier is actually waiting on).
+        """
+        fut = self.send(cmd, key, payload, worker_id, dtype, flags)
+        if cmd == CMD_BARRIER:
+            return self._wait_barrier(fut, key, timeout, barrier_diag)
+        return fut.wait(timeout)
+
+    def _wait_barrier(self, fut: _Future, gen: int,
+                      timeout: Optional[float],
+                      diag: Optional[Callable[[], str]] = None) -> bytes:
+        """Barrier wait with periodic progress warnings and an optional
+        overall deadline (0/None = wait forever, the historical default).
+
+        The warning/timeout text reports the live epoch membership and the
+        ranks the barrier is actually waiting on (via ``diag``, wired by
+        PSSession.barrier to a CMD_MEMBERS fetch) — a dead-or-evicted peer
+        is named, instead of the old blanket "DMLC_NUM_WORKER over-counts
+        the world" guess."""
+        if not timeout or timeout <= 0:
+            timeout = None
+        deadline = None if timeout is None else time.monotonic() + timeout
+
+        def diag_text() -> str:
+            if diag is None:
+                return "a peer is down, slow, or not yet started"
+            try:
+                return diag()
+            except Exception as e:   # old server / mid-outage: degrade
+                return (f"a peer is down, slow, or not yet started "
+                        f"(membership unavailable: {e})")
+
+        t0 = time.monotonic()
+        while True:
+            chunk = BARRIER_WARN_INTERVAL_S
+            if deadline is not None:
+                chunk = min(chunk, max(0.0, deadline - time.monotonic()))
+            if fut.event.wait(chunk):
+                break
+            elapsed = time.monotonic() - t0
+            if deadline is not None and time.monotonic() >= deadline:
+                _flightrec.record("barrier_timeout", gen=gen,
+                                  elapsed_s=round(elapsed, 1))
+                raise TimeoutError(
+                    f"PS barrier timed out: gen={gen} elapsed={elapsed:.1f}s"
+                    f" (BYTEPS_TPU_BARRIER_TIMEOUT_S={timeout});"
+                    f" {diag_text()}")
+            get_logger().warning(
+                "still waiting on barrier gen=%d after %.1fs (server %s:%d;"
+                " %s)", gen, elapsed, self.host, self.port, diag_text())
+            _flightrec.record("barrier_wait", gen=gen,
+                              elapsed_s=round(elapsed, 1))
+        if fut.error is not None:
+            raise fut.error
+        return fut.data
+
+    def _recv_loop(self) -> None:
+        while True:
+            try:
+                self._recv_pump()
+                return      # unreachable: _recv_pump only exits by raising
+            except (ConnectionError, OSError) as e:
+                if not self._begin_reconnect(e):
+                    self._fail_pending(e)
+                    return
+
+    def _recv_pump(self) -> None:
+        # One persistent header buffer per pump: 21-byte RESP headers
+        # arrive once per response, so a fresh bytearray each time was
+        # pure allocator churn on the hot path.
+        hdr = bytearray(_RESP.size)
+        hdr_mv = memoryview(hdr)
+        while True:
+            self._recv_into(hdr_mv)
+            status, req_id, rkey, length = _RESP.unpack(hdr)
+            # Pop BEFORE the payload read: this thread owns the future
+            # (and its sink buffer) exclusively, so a concurrent
+            # _fail_pending can neither resolve it mid-write nor race a
+            # retry into the same sink.  The except arm below resolves
+            # it if the connection dies mid-payload — no orphaning.
+            with self._pending_lock:
+                fut = self._pending.pop(req_id, None)
+            pooled = None
+            try:
+                if (fut is not None and fut.sink is not None
+                        and status == 0 and length == len(fut.sink)
+                        and (fut.sink_live is None or fut.sink_live())):
+                    # Matched sink: payload lands in the caller's buffer.
+                    self._recv_into(fut.sink)
+                    data = fut.sink
+                elif (fut is not None and fut.pool_ok and status == 0
+                        and length and self._recv_pool is not None):
+                    # Pull data leg with no sink match (compressed pull,
+                    # or a failed handle's diverted payload): land it in
+                    # a pooled buffer — the completion path consumes the
+                    # bytes and releases it (see _complete_pull).
+                    pooled = self._recv_pool.acquire(length)
+                    self._recv_into(pooled.mv)
+                    data = pooled
+                else:
+                    data = self._recv_exact(length) if length else b""
+            except (ConnectionError, OSError) as e:
+                if pooled is not None:
+                    pooled.release()
+                if fut is not None:
+                    try:
+                        fut.resolve(
+                            b"", self._lost_exc(f"PS connection lost "
+                                                f"mid-payload: {e}"))
+                    except Exception:
+                        get_logger().exception(
+                            "PS completion callback failed")
+                raise
+            if fut is None:
+                continue  # response for a cancelled request
+            err = None
+            if status == STATUS_MOVED:
+                # The key's ring owner changed: the payload is the
+                # server's current ring table.  Parsed here (it is tiny)
+                # so every completion path gets a structured error.
+                import json as _json
+                try:
+                    doc = _json.loads(bytes(data).decode())
+                except Exception:
+                    doc = {}
+                err = _KeyMoved(rkey, doc)
+            elif status == STATUS_CODEC_STALE:
+                # Codec renegotiation race: the payload is the key's
+                # authoritative codec doc — tiny, parsed here like MOVED.
+                import json as _json
+                try:
+                    doc = _json.loads(bytes(data).decode())
+                except Exception:
+                    doc = {}
+                err = _CodecStale(rkey, doc)
+            elif status == STATUS_KNOB_STALE:
+                # Global knob renegotiation race: the payload is the
+                # server's authoritative knob doc — tiny, parsed like
+                # MOVED/CODEC_STALE above.
+                import json as _json
+                try:
+                    doc = _json.loads(bytes(data).decode())
+                except Exception:
+                    doc = {}
+                err = _KnobStale(rkey, doc)
+            elif status != 0:
+                err = RuntimeError(f"PS server error for key {rkey}")
+            try:
+                fut.resolve(data, err)
+            except Exception:
+                get_logger().exception("PS completion callback failed")
+
+    def _begin_reconnect(self, exc: Exception) -> bool:
+        """Runs on the receiver thread after a transport fault.  Returns
+        True once a new socket is live (the receive loop resumes on it);
+        False when reconnect is disabled/exhausted or the conn was closed
+        deliberately — the caller then fails pending requests for good."""
+        if self.reconnect_attempts <= 0:
+            return False
+        with self._pending_lock:
+            if self._closed:
+                return False
+            self._down = True
+            if not self.down_since:
+                self.down_since = time.monotonic()
+            dropped, self._pending = self._pending, {}
+        # Park-don't-fail: pending futures resolve with a reconnect-tagged
+        # loss so the session can stash their partitions for replay.
+        lost = _ConnLost(f"PS connection to {self.host}:{self.port} "
+                         f"dropped: {exc}", will_reconnect=True)
+        for fut in dropped.values():
+            try:
+                fut.resolve(b"", lost)
+            except Exception:
+                get_logger().exception("PS completion callback failed")
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+        get_logger().warning(
+            "PS connection to %s:%d dropped (%s); reconnecting "
+            "(attempts=%d, backoff=%.0fms, %d requests parked/failed)",
+            self.host, self.port, exc, self.reconnect_attempts,
+            self.reconnect_backoff_ms, len(dropped))
+        _flightrec.record("conn_drop", host=self.host, port=self.port,
+                          pending=len(dropped), error=str(exc))
+        for attempt in range(1, self.reconnect_attempts + 1):
+            # Bounded exponential backoff with jitter (0.5x-1.5x), capped
+            # at 10s per attempt, so a worker fleet never re-dials a
+            # restarting server in lockstep.
+            backoff = min(10.0, self.reconnect_backoff_ms / 1000.0
+                          * (2.0 ** (attempt - 1)))
+            time.sleep(backoff * (0.5 + random.random()))
+            with self._pending_lock:
+                if self._closed:
+                    return False
+            try:
+                sock = self._dial()
+            except OSError as e:
+                get_logger().warning(
+                    "PS reconnect to %s:%d attempt %d/%d failed: %s",
+                    self.host, self.port, attempt,
+                    self.reconnect_attempts, e)
+                continue
+            self.sock = sock
+            with self._pending_lock:
+                if self._closed:        # closed while dialing
+                    try:
+                        sock.close()
+                    except OSError:
+                        pass
+                    return False
+                self._down = False
+                self.down_since = 0.0
+            self.reconnects += 1
+            get_logger().warning(
+                "PS connection to %s:%d re-established (attempt %d/%d)",
+                self.host, self.port, attempt, self.reconnect_attempts)
+            if self.on_reconnect is not None:
+                # The handshake/replay sends requests over THIS conn and
+                # waits on their futures — which needs the receive loop
+                # running — so it rides its own thread.
+                threading.Thread(
+                    target=self._run_on_reconnect, daemon=True,
+                    name="bps-ps-replay").start()
+            return True
+        with self._pending_lock:
+            self._closed = True
+        get_logger().error(
+            "PS reconnect to %s:%d gave up after %d attempts",
+            self.host, self.port, self.reconnect_attempts)
+        if self.on_give_up is not None:
+            try:
+                self.on_give_up(self, exc)
+            except Exception:
+                get_logger().exception("PS reconnect give-up hook failed")
+        return False
+
+    def _run_on_reconnect(self) -> None:
+        with self.replay_lock:    # serialize overlapping reconnect cycles
+            try:
+                self.on_reconnect(self)
+            except Exception:
+                get_logger().exception(
+                    "PS post-reconnect handshake/replay failed")
+
+    def _fail_pending(self, exc: Exception) -> None:
+        with self._pending_lock:
+            self._closed = True
+            pending, self._pending = self._pending, {}
+        for fut in pending.values():
+            try:
+                fut.resolve(b"", ConnectionError(f"PS connection lost: {exc}"))
+            except Exception:
+                pass
+
+    def _recv_exact(self, n: int):
+        # recv_into a single preallocated buffer: no per-chunk allocation
+        # and no join copy (a 4MB partition pull is one buffer, filled in
+        # place).  Callers treat the result as a read-only byte buffer.
+        buf = bytearray(n)
+        self._recv_into(memoryview(buf))
+        return buf
+
+    def _recv_into(self, view: memoryview) -> None:
+        n = len(view)
+        got = 0
+        while got < n:
+            r = self.sock.recv_into(view[got:], n - got)
+            if r == 0:
+                raise ConnectionError("PS server closed connection")
+            got += r
+
+    def close(self):
+        with self._pending_lock:
+            self._closed = True   # stops any in-progress re-dial loop
+        try:
+            self.sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+        self._fail_pending(ConnectionError("closed"))
+
+
+class PSHandle:
+    """Async push_pull completion handle (the torch-plugin handle analog,
+    reference: handle_manager.h:33-46)."""
+
+    def __init__(self, shape, dtype, num_parts: int, out: np.ndarray):
+        self.shape = shape
+        self.dtype = dtype
+        self.out = out                      # flat f32 result buffer
+        self._remaining = num_parts
+        self._lock = threading.Lock()
+        self._event = threading.Event()
+        self._error: Optional[Exception] = None
+        self._outstanding: set = set()      # pkeys not yet completed
+        self._timed_out = False             # wait() gave up: discard late
+
+    def _register_part(self, pkey: int) -> None:
+        with self._lock:
+            self._outstanding.add(pkey)
+
+    def _part_done(self, error: Optional[Exception] = None,
+                   pkey: Optional[int] = None) -> None:
+        with self._lock:
+            if pkey is not None:
+                self._outstanding.discard(pkey)
+            if error is not None and self._error is None:
+                self._error = error
+            self._remaining -= 1
+            done = self._remaining <= 0
+        if done or error is not None:
+            self._event.set()
+
+    def _store_result(self, off_f32: int, got: np.ndarray) -> bool:
+        """Land one partition's pulled values in `out` — unless the handle
+        already failed (wait() timed out, or another partition errored /
+        was failed by the watchdog), in which case the result is dead and
+        a late write could corrupt a buffer the owner stopped tracking.
+        The check-and-write runs under the handle lock so a concurrent
+        timeout can't interleave with it.  (The zero-copy sink path checks
+        `failed()` before committing to the in-place receive instead; a
+        failure arriving DURING that receive can still land bytes in
+        `out`, which is safe because `out` is session-allocated and wait()
+        never returns it after a failure.)"""
+        with self._lock:
+            if self.failed():
+                return False
+            self.out[off_f32:off_f32 + got.size] = got
+            return True
+
+    def failed(self) -> bool:
+        """True once the handle can no longer succeed (wait() timeout, a
+        partition error, or a watchdog/give-up failure): late resolutions
+        must be discarded."""
+        return self._timed_out or self._error is not None
+
+    def done(self) -> bool:
+        return self._event.is_set()
+
+    def wait(self, timeout: Optional[float] = 300.0) -> np.ndarray:
+        with self._lock:
+            if self._timed_out:
+                # A handle that timed out once stays failed: a later wait()
+                # must not hand out a buffer that late partitions may have
+                # partially filled.
+                raise TimeoutError(
+                    "PS push_pull handle already timed out")
+        if not self._event.wait(timeout):
+            with self._lock:
+                self._timed_out = True
+                stuck = sorted(self._outstanding)
+            shown = ", ".join(str(k) for k in stuck[:16])
+            if len(stuck) > 16:
+                shown += f", ... ({len(stuck)} total)"
+            raise TimeoutError(
+                f"PS push_pull timed out after {timeout}s; outstanding "
+                f"partition keys: [{shown}]")
+        if self._error is not None:
+            raise self._error
+        return self.out.reshape(self.shape).astype(self.dtype, copy=False)
+
+
+class _PartTask:
+    """One in-flight partition (the reference's TensorTableEntry partition,
+    common.h:221-264)."""
+
+    __slots__ = ("pkey", "payload", "off", "ln", "round", "srv", "conn",
+                 "handle", "dtype", "done_evt", "wire_ln", "bidirectional",
+                 "label", "priority", "enq_ts", "push_ts", "pull_ts",
+                 "ready", "enc_err", "credit_ln", "phase", "parked",
+                 "enq_mono", "send_mono", "ack_mono", "lane_debt",
+                 "audit", "seg", "stale_retries", "knob_gen")
+
+    def __init__(self, pkey, payload, off, ln, rnd, srv, handle,
+                 dtype=DT_F32, bidirectional=False, label=""):
+        self.pkey = pkey
+        self.payload = payload        # wire bytes (raw f32 or compressed);
+        #                               None while a pipelined encode runs
+        self.off = off                # raw byte offset in the tensor
+        self.ln = ln                  # raw byte length of the partition
+        self.wire_ln = len(payload) if payload is not None else ln
+        self.round = rnd
+        # Server placement is fixed by the plan; the LANE (self.conn) is
+        # picked per dispatch by byte credit (_pick_lane) and charged
+        # lane_debt bytes until the round trip settles.
+        self.srv = srv
+        self.conn = None
+        self.lane_debt = 0
+        self.handle = handle
+        self.dtype = dtype
+        self.bidirectional = bidirectional  # pull leg may arrive compressed
+        self.done_evt = threading.Event()  # this partition left _inflight
+        # Per-partition trace spans (reference closes one span per partition
+        # per stage, global.cc:463-579): QUEUE = enq->dispatch,
+        # PUSH = dispatch->ack, PULL = issue->data.
+        self.label = label
+        self.priority = 0
+        self.enq_ts = 0
+        self.push_ts = 0
+        self.pull_ts = 0
+        # Codec pipeline state: `ready` is set once the pool has produced
+        # (or failed to produce) this partition's wire payload; None means
+        # the payload was ready at staging time (raw parts, inline mode).
+        self.ready = None
+        self.enc_err = None
+        # Scheduling-credit charge: actual wire bytes when known, else
+        # the codec's worst-case bound (set by _stage_parts for pipelined
+        # encodes, whose true size doesn't exist at enqueue time).
+        self.credit_ln = self.wire_ln
+        # Fault-tolerance state: `phase` records how far this partition got
+        # ("push" = the push must (still/again) be issued, "pull" = the push
+        # was acked and only the pull leg is outstanding); `parked` marks a
+        # partition stashed for replay while its connection reconnects.
+        self.phase = "push"
+        self.parked = False
+        # Telemetry timestamps (time.monotonic; always set, unlike the
+        # trace-gated *_ts fields): enqueue -> dispatch feeds the queue-wait
+        # histogram, dispatch -> ack the push-RTT histogram, and ack ->
+        # pull-data (`ack_mono`) the signal plane's per-key serve-wait
+        # component (the cheap always-on straggler-wait stand-in for the
+        # trace plane's MERGE_WAIT spans).
+        self.enq_mono = 0.0
+        self.send_mono = 0.0
+        self.ack_mono = 0.0
+        # Auditor: this pull leg was sent with the trailer marker, so its
+        # response carries 24 trailing digest bytes to strip+verify.
+        # Recorded per pull at its issue time (not read globally at
+        # completion) so a mid-flight audit downgrade can never make the
+        # completion path mis-split a trailerless payload.
+        self.audit = False
+        # Knob plane: the session's fusion-layout generation this part was
+        # staged under (_stage stamps it).  A FUSION_BYTES switch bumps
+        # the generation; stale-generation parts at/past the switch round
+        # are withdrawn with KnobReplan instead of pushed/replayed — their
+        # bucket keys no longer exist fleet-wide.
+        self.knob_gen = 0
+        # The staged f32 view this partition was encoded from (None for
+        # raw parts, whose payload IS the f32 bytes).  Held so a
+        # CODEC_STALE rejection can re-encode the same gradient with the
+        # renegotiated codec — a reference into memory the zero-copy
+        # contract already keeps alive until the handle completes.
+        self.seg = None
+        # CODEC_STALE replays of THIS partition: the retry loop is
+        # bounded (a persistent format mismatch — e.g. per-worker
+        # MIN_COMPRESS_BYTES disagreement — must fail loudly, never
+        # spin the push hot forever while the round wedges silently).
+        self.stale_retries = 0
+
+
+class PSSession:
+    """One worker's sessions to all PS servers.
+
+    push_pull partitions the tensor, spreads partitions across servers, and
+    drives them through the priority-scheduled, credit-gated dispatcher —
+    the eager analog of the reference's PUSH/PULL loops
+    (reference: core_loops.cc:536-616, operations.cc:429-485).
+    """
+
+    # Canonical transport-stats schema — the all-zero shape returned by
+    # bps.get_transport_stats() outside PS mode, mirroring
+    # CompressionPool.ZERO_STATS so the surfaces can never drift apart.
+    TRANSPORT_ZERO_STATS = {
+        "reconnects": 0,          # successful re-dials across all conns
+        "reconnects_failed": 0,   # conns whose backoff budget ran out
+        "replayed_pushes": 0,     # partitions re-pushed after a reconnect
+        "replayed_pulls": 0,      # pull legs re-issued after a reconnect
+        "parked_parts": 0,        # partitions currently parked for replay
+        "parked_total": 0,        # partitions ever parked
+        "watchdog_trips": 0,      # stall-watchdog dumps fired
+        "ring_redirects": 0,      # partitions re-routed by status MOVED
+        "codec_switches": 0,      # per-key codec renegotiations applied
+        "codec_stale_retries": 0,  # pushes re-encoded after CODEC_STALE
+        "knob_switches": 0,       # global knob-table applications
+        "knob_stale_retries": 0,  # pushes replayed/withdrawn, KNOB_STALE
+        "opt_reseeds": 0,         # server-opt configs+params re-seeded
+        #                           onto a fresh owner during a rebase
+        "server_failovers": 0,    # dead servers this worker failed over
+        "pool_hits": 0,           # recv buffers served from the pool
+        "pool_misses": 0,         # recv buffers freshly allocated
+        "pool_buffers_held": 0,   # buffers currently on pool freelists
+        "lane_bytes_total": 0,    # lifetime payload bytes across lanes
+        "lane_outstanding_bytes": 0,  # payload bytes in flight right now
+        "lanes": [],              # per-lane rows: {server, lane,
+        #                           transport, bytes_total,
+        #                           outstanding_bytes, sends}
+    }
+
+    def __init__(self, hosts: List[str], ports: List[int], worker_id: int,
+                 num_servers: int, hash_fn: str = "djb2",
+                 partition_bytes: int = 4 * 1024 * 1024,
+                 scheduling_credit: int = 0,
+                 min_compress_bytes: int = 65536,
+                 wire_conns: int = 4,
+                 compress_threads: int = 2,
+                 reconnect_attempts: int = 0,
+                 reconnect_backoff_ms: float = 100.0,
+                 stall_timeout_s: float = 0.0,
+                 barrier_timeout_s: float = 0.0,
+                 clock_sync_s: float = 30.0,
+                 uds_path: str = "",
+                 sock_buf_kb: int = 0,
+                 evict_timeout_s: float = 0.0,
+                 ring: bool = False,
+                 ring_vnodes: int = DEFAULT_VNODES,
+                 server_evict_timeout_s: float = 0.0,
+                 audit: bool = False,
+                 audit_window: int = 16,
+                 fleet: bool = False,
+                 fleet_windows: int = 32,
+                 health_sample_rounds: int = 0,
+                 slice_size: int = 1,
+                 pull_only: bool = False):
+        self.worker_id = worker_id
+        self.num_servers = max(1, num_servers)
+        # Pull-only "inference" session (docs/sparse-embedding.md): the
+        # HELLO carries the observer flag, so the servers never admit
+        # this worker_id to the round membership — a reader that never
+        # pushes cannot stall round completion, and its embedding reads
+        # ride the ungated DT_SPARSE_READ plane.  Pushes from a
+        # pull-only session are a caller bug and raise locally.
+        self.pull_only = bool(pull_only)
+        # Hierarchical reduction (parallel/hierarchy.py;
+        # BYTEPS_TPU_SLICE_SIZE): chips per slice for leader election.
+        # 1 (default) = flat mode — every worker is its own slice and
+        # always its own leader; nothing else in the session changes.
+        self.slice_size = max(1, int(slice_size))
+        self.hash_fn = hash_fn
+        self.partition_bytes = max(1, partition_bytes)
+        # Partitions below this size skip compression — the
+        # BYTEPS_MIN_COMPRESS_BYTES floor (reference: global.cc:43,
+        # operations.cc:362-364).
+        self.min_compress_bytes = min_compress_bytes
+        # Codec pipeline width (BYTEPS_TPU_COMPRESS_THREADS).  0 = inline
+        # fallback: encode on the caller thread, decode on the receiver
+        # thread, exactly the pre-pipeline data path.
+        self.compress_threads = max(0, compress_threads)
+        # Fault tolerance (BYTEPS_TPU_RECONNECT_* / _STALL_ / _BARRIER_):
+        # 0 attempts = fail-fast on a drop, the pre-reconnect behavior.
+        self.reconnect_attempts = max(0, int(reconnect_attempts))
+        self.reconnect_backoff_ms = float(reconnect_backoff_ms)
+        self.stall_timeout_s = max(0.0, float(stall_timeout_s))
+        self.barrier_timeout_s = max(0.0, float(barrier_timeout_s))
+        # Cross-host clock-sync cadence (BYTEPS_TPU_CLOCK_SYNC_S): how
+        # often the background thread re-estimates server clock offsets
+        # while tracing is on, bounding drift across a long trace window.
+        self.clock_sync_s = max(1.0, float(clock_sync_s))
+        # UDS fast path + socket buffer tuning (BYTEPS_TPU_SERVER_UDS /
+        # BYTEPS_TPU_SOCK_BUF_KB).  The UDS dial only applies to servers
+        # this worker is actually colocated with (loopback hosts) — a
+        # remote server's conns keep dialing TCP.
+        self.uds_path = str(uds_path or "")
+        self.sock_buf_kb = max(0, int(sock_buf_kb))
+        # Elastic membership (BYTEPS_TPU_EVICT_TIMEOUT_S): when eviction
+        # is armed, this worker must keep its server-side lease warm even
+        # while idle (blocked on a pull, between steps) — a lease is
+        # refreshed by any traffic, and the heartbeat PING below is the
+        # idle-time traffic.  0 (default) = no heartbeat thread, no extra
+        # wire bytes: a fixed-membership job's traffic is untouched.
+        self.evict_timeout_s = max(0.0, float(evict_timeout_s))
+        # Elastic PS tier (docs/elasticity.md "The server half").
+        # `ring` arms consistent-hash placement (the shared law in
+        # common/ring.py) — required for drain/scale-up/failover;
+        # `server_evict_timeout_s` > 0 additionally arms the worker-side
+        # server-lease scanner: a server whose every lane has been down
+        # that long is declared dead, the survivors adopt the next ring
+        # epoch, and this worker re-declares + re-pushes the open round
+        # from gradient state.  Both default off: placement is then the
+        # legacy fixed hash and the wire is byte-identical to pre-ring.
+        self.server_evict_timeout_s = max(0.0,
+                                          float(server_evict_timeout_s))
+        self.ring_armed = bool(ring) or self.server_evict_timeout_s > 0
+        self.ring_vnodes = max(1, int(ring_vnodes))
+        # Value-domain consistency auditor (BYTEPS_TPU_AUDIT=1,
+        # docs/monitoring.md "Auditing & postmortem"): every pull carries
+        # the server's publish digest and this session re-digests the
+        # received bytes, keeping a last-K (round, digest) window per key
+        # for the CMD_AUDIT cross-check.  Off (default): the wire is
+        # byte-identical to pre-audit and nothing is digested.
+        self.audit = bool(audit)
+        self.audit_window = max(1, int(audit_window))
+        # Fleet observability plane (BYTEPS_TPU_FLEET=1): each signal-
+        # window roll publishes this worker's compact summary to its
+        # rank-0 server (CMD_WINDOW) and any endpoint answers the merged
+        # per-worker view (CMD_FLEET).  Armed only after the bootstrap
+        # probe confirms the server tier retains windows — otherwise it
+        # downgrades loudly and the wire stays byte-identical.
+        self.fleet = bool(fleet)
+        self.fleet_windows = max(1, int(fleet_windows))
+        # Chain replication armed on the server tier (BYTEPS_TPU_REPL=1,
+        # docs/elasticity.md "zero-loss law"): a SIGKILLed owner's fresh
+        # replacement adopts the ring successor's replica at the last
+        # publish boundary — with an EMPTY open round.  Reconcile must
+        # then re-push a round whose pushes died with the old owner even
+        # from a partition already parked in its pull phase (the server's
+        # per-worker `seen` dedup absorbs the duplicate whenever the push
+        # DID survive, so the replay is always safe).
+        self._repl_armed = os.environ.get(
+            "BYTEPS_TPU_REPL", "").strip().lower() not in (
+                "", "0", "false", "no", "off")
+        # Gradient-health monitor (BYTEPS_TPU_HEALTH_SAMPLE_ROUNDS > 0):
+        # per-key norm/max/NaN/Inf/EF-residual sampling on the push path.
+        self.health_sample_rounds = max(0, int(health_sample_rounds))
+        # Any failure before __init__ returns (a connect, the dispatcher,
+        # the HELLO mode check) must tear down every socket and receiver
+        # thread already created — the caller gets an exception, not a
+        # session, so nothing else can ever close them.
+        self.conns: List[_ServerConn] = []
+        self._data_conns: List[List[_ServerConn]] = []
+        self._session_ready = False
+        try:
+            self._init_connections(hosts, ports, max(1, wire_conns))
+            self._init_state(scheduling_credit)
+            self._hello_mode_check(worker_id)
+            if self.ring_armed:
+                self._ring_bootstrap()
+            if self.audit:
+                self._audit_bootstrap()
+            if self.fleet:
+                self._fleet_bootstrap()
+        except Exception:
+            self._abort_init()
+            raise
+        self._session_ready = True
+
+    _LOOPBACK_HOSTS = ("127.0.0.1", "localhost", "::1")
+
+    def _init_connections(self, hosts, ports, wire_conns: int) -> None:
+        """Primary conn per server + optional extra data lanes.
+
+        Partitions spread across a server's lane pool by byte credit
+        (least-outstanding-bytes wins, picked at DISPATCH time — see
+        _pick_lane), splitting the send-lock and receive-thread work over
+        more sockets (the reference gets the same effect from ps-lite's
+        per-connection threads).  Control traffic (barrier/hello/
+        shutdown) stays on the primary."""
+        self._recv_pool = _RecvBufPool()
+        self._wire_conns = wire_conns
+        self._hosts, self._ports = list(hosts), list(ports)
+
+        for h, p in zip(hosts, ports):
+            c = self._make_conn(h, p)
+            self.conns.append(c)
+            self._data_conns.append([c])
+        for pool, (h, p) in zip(self._data_conns, zip(hosts, ports)):
+            for _ in range(wire_conns - 1):
+                pool.append(self._make_conn(h, p))
+        for i, c in enumerate(self.conns):
+            if c.transport != "tcp":
+                get_logger().info(
+                    "PS server %d (%s:%d) connected over %s fast path",
+                    i, c.host, c.port, c.transport)
+
+    def _make_conn(self, h: str, p: int) -> "_ServerConn":
+        # With server failover armed, a drop must PARK partitions (and
+        # keep re-dialing under backoff) rather than fail-fast: the
+        # scanner decides whether the server is dead — at which point the
+        # ring transitions and the parked parts replay on the new owner —
+        # or merely rebooting, in which case the re-dial heals it.  The
+        # effectively-unbounded budget is cut short by conn.close() when
+        # the dead server is retired from the ring.
+        attempts = self.reconnect_attempts
+        if self.server_evict_timeout_s > 0:
+            attempts = max(attempts, 1 << 30)
+        return _ServerConn(
+            h, p,
+            reconnect_attempts=attempts,
+            reconnect_backoff_ms=self.reconnect_backoff_ms,
+            on_reconnect=self._on_conn_reconnected,
+            on_give_up=self._on_conn_gave_up,
+            uds_path=(self.uds_path
+                      if h in self._LOOPBACK_HOSTS else ""),
+            sock_buf_kb=self.sock_buf_kb,
+            recv_pool=self._recv_pool)
+
+    def _abort_init(self) -> None:
+        _flightrec.remove_extra_provider("session", owner=self)
+        if getattr(self, "_watchdog_stop", None) is not None:
+            self._watchdog_stop.set()
+        if getattr(self, "_srvdown_stop", None) is not None:
+            self._srvdown_stop.set()
+        if getattr(self, "_lease_stop", None) is not None:
+            self._lease_stop.set()
+        if getattr(self, "_clock_sync_stop", None) is not None:
+            self._clock_sync_stop.set()
+        if getattr(self, "_dispatcher", None) is not None:
+            with self._cv:
+                self._closed = True
+                self._cv.notify_all()
+            self._dispatcher.join(timeout=5)
+            self._warn_if_wedged(self._dispatcher)
+        if getattr(self, "_codec_pool", None) is not None:
+            self._codec_pool.close()
+        for pool in self._data_conns:
+            for c in pool:
+                c.close()
+
+    def _init_state(self, scheduling_credit: int) -> None:
+        self._inited: Dict[int, tuple] = {}     # pkey -> (length, kwargs)
+        self._round: Dict[int, int] = {}        # pkey -> next round index
+        self._compressors: Dict[int, object] = {}  # declared_key -> codec
+        # Per-key codec renegotiation table (CMD_CODEC; the adaptive-
+        # compression tuner's actuation surface).  All keyed by DECLARED
+        # key: `_codec_epoch` = newest epoch this session has seen
+        # accepted (0 = launch config, the unarmed state — none of this
+        # machinery touches the wire until a proposal is made),
+        # `_codec_applied` = the epoch of the compressor currently
+        # installed, `_codec_next` = a pending switch {"epoch",
+        # "effective_round", "kwargs_str"} applied at stage time once the
+        # key's round counter reaches effective_round — the same round
+        # the server applies its half, so no round mixes wire formats
+        # (the CODEC_STALE replay is the race backstop).  `_ef_fold`
+        # holds per-PARTITION EF residuals detached by a switch to a
+        # codec that cannot carry them (raw / no EF): each is folded
+        # into that partition's next push exactly once — a switch never
+        # silently drops accumulated error.
+        self._codec_lock = threading.Lock()
+        self._codec_epoch: Dict[int, int] = {}
+        self._codec_applied: Dict[int, int] = {}
+        self._codec_next: Dict[int, dict] = {}
+        self._ef_fold: Dict[int, np.ndarray] = {}
+        self._codec_retry_queue: List[tuple] = []
+        self._codec_retry_thread: Optional[threading.Thread] = None
+        # Global knob plane (CMD_KNOB): the session half of the
+        # epoch-versioned GLOBAL knob table — the CMD_CODEC law lifted
+        # from one key's wire format to the job's performance knobs.
+        # `_knob_live` holds the actuated values (fusion_bytes /
+        # compress_threads / wire_conns; a missing knob means launch
+        # config rules), `_knob_next` a staged switch applied at stage
+        # time once any key's round reaches effective_round — the same
+        # boundary the server applies its half, so no round mixes fusion
+        # layouts, pool sizes, or lane sets (KNOB_STALE is the race
+        # backstop).  `_knob_gen` is the fusion-LAYOUT generation: a
+        # FUSION_BYTES value change bumps it, and parts staged under an
+        # older generation at/past `_knob_fusion_eff` are withdrawn with
+        # KnobReplan instead of pushed (their bucket keys no longer exist
+        # fleet-wide).  All empty/zero until a proposal — an unarmed
+        # session never emits a CMD_KNOB frame and the wire stays
+        # byte-identical.
+        self._knob_lock = threading.Lock()
+        self._knob_epoch = 0          # newest epoch seen accepted
+        self._knob_applied = 0        # epoch of the values in _knob_live
+        self._knob_next: Optional[dict] = None
+        self._knob_live: Dict[str, int] = {}
+        self._knob_gen = 0            # fusion-layout generation
+        self._knob_fusion_eff = 0     # boundary of the last fusion bump
+        self._knob_acked = 0          # newest epoch ACKed to the servers
+        # ACK deferral: after a fusion-layout switch the ACK is held until
+        # every stale-generation push has left the wire — once the server
+        # sees the ACK it stops rejecting this worker, so a still-in-
+        # flight old-layout push could otherwise merge into an orphaned
+        # bucket key (see _knob_retry_loop).
+        self._knob_ack_due: Optional[int] = None
+        self._knob_history: List[dict] = []
+        self._knob_retry_queue: List[tuple] = []
+        self._knob_retry_thread: Optional[threading.Thread] = None
+        # Declared keys whose identity depends on the fusion plan (bucket
+        # and solo-leaf units registered by the fusion dispatch layer via
+        # note_fusion_keys) — the only keys a FUSION_BYTES switch may
+        # withdraw with KnobReplan.  Caller-owned keys (plain
+        # push_pull_async) are layout-independent and always replay in
+        # place.
+        self._fusion_keys: set = set()
+        # Server-resident optimizer plane (CMD_OPT): per declared key the
+        # armed config {"epoch", "kwargs_str", "params_fn", "nbytes"} —
+        # params_fn is the rebase re-seed source after a failover hands
+        # the key's range to a fresh owner.  Empty until arm_server_opt()
+        # — an unarmed session never emits a CMD_OPT frame and the wire
+        # stays byte-identical (shares _codec_lock: both tables are tiny
+        # control-plane state touched off the hot path).
+        self._opt_armed: Dict[int, dict] = {}
+        self._server_load = [0] * len(self.conns)
+        self._plans: Dict[Tuple[int, int], list] = {}
+        # _plan's read-modify-write of _plans/_server_load must be atomic:
+        # two threads planning concurrently would double-count server
+        # load and cache divergent plans.
+        self._plan_lock = threading.Lock()
+        self._trace_labels: Dict[int, str] = {}
+
+        # Dispatcher: native priority ScheduledQueue + credit flow control
+        # (reference: scheduled_queue.cc:26-46,136-139).  credit = 0 means
+        # unlimited in-flight bytes, matching the reference default.
+        credit_bytes = scheduling_credit * self.partition_bytes
+        if credit_bytes > 0:
+            credit_bytes = max(credit_bytes, self.partition_bytes)
+        self._queue = get_native_core().queue_create(credit_bytes)
+        # Codec pipeline engine (the reference's COMPRESS/DECOMPRESS loop
+        # threads, core_loops.cc): encodes run ahead of the dispatcher in
+        # the same (priority desc, key asc) order, decodes run off the
+        # receiver thread.  NOTE: with the pipeline on, a compressed
+        # partition's credit is charged at the codec's worst-case wire
+        # size (WireCompressor.wire_cap_bytes, clamped to raw size) —
+        # the true encoded size is not known at enqueue time.
+        self._codec_pool = (CompressionPool(self.compress_threads)
+                            if self.compress_threads > 0 else None)
+        self._inflight: Dict[int, _PartTask] = {}
+        self._inflight_lock = threading.Lock()
+        self._cv = threading.Condition()
+        self._closed = False
+        self._paused = False
+        # Dispatch-order recording is off by default: the list is unbounded
+        # and only priority-order tests/tracing read it.
+        self.record_push_order = False
+        self.push_order: List[int] = []
+        # Fault-tolerance bookkeeping: wire-key -> server index (for
+        # re-declare invalidation after a reconnect — a key's lane is
+        # picked per dispatch, but its SERVER is fixed by the hash) and
+        # the transport counter surface (bps.get_transport_stats, the
+        # codec/fusion-stats analog).
+        self._pkey_srv: Dict[int, int] = {}
+        self._transport_lock = threading.Lock()
+        # Int counters only: the template's "lanes" list is mutable and
+        # must never be shared (transport_stats() builds lanes fresh from
+        # the live conns anyway).
+        self._tstats = {k: v for k, v in self.TRANSPORT_ZERO_STATS.items()
+                        if isinstance(v, int)}
+        # Round-stall watchdog (BYTEPS_TPU_STALL_TIMEOUT_S > 0): the
+        # worker-side analog of server.cc's ORDERING INVARIANT guard — no
+        # partition completing for the window with work outstanding dumps
+        # a diagnostic snapshot, then fails the stuck handles loudly.
+        self._last_progress = time.monotonic()
+        self._watchdog_stop = threading.Event()
+        self._watchdog: Optional[threading.Thread] = None
+        # Distributed-trace state: per-server clock-offset HISTORY
+        # (NTP-style midpoint over timestamped CMD_PINGs; each entry is
+        # (server_clock_at_sync_us, offset_us)), fusion-bucket member
+        # names for span annotation, and the periodic re-sync thread
+        # (started lazily by sync_clocks, active only while tracing).
+        # fetch_server_trace corrects each span with the history entry
+        # nearest the span's own timestamp, so the periodic samples are
+        # what bounds clock drift across a long trace window.
+        self._clock_offsets: Dict[int, list] = {}
+        self._clock_lock = threading.Lock()
+        self._clock_sync_stop = threading.Event()
+        self._clock_sync_thread: Optional[threading.Thread] = None
+        self._trace_members: Dict[int, list] = {}    # declared_key -> names
+        # Metrics-registry feeds (common/telemetry.py).  The objects are
+        # resolved once here; the per-partition hot path then pays only a
+        # lock-free observe()/set() per event.  The queue-depth gauge
+        # samples the scheduler lazily at snapshot time (detached again in
+        # close() so a dead session can't pin itself via the registry).
+        from ..common import telemetry as _tm
+        reg = _tm.get_registry()
+        self._m_push_rtt = reg.histogram(
+            "bps_push_rtt_seconds",
+            help="per-partition push dispatch -> server ack round trip")
+        self._m_queue_wait = reg.histogram(
+            "bps_dispatch_queue_wait_seconds",
+            help="per-partition time from enqueue to dispatcher pick")
+        self._queue_depth_fn = lambda: self._queue.pending()
+        self._m_queue_depth = reg.gauge(
+            "bps_dispatch_queue_depth",
+            help="partitions waiting in the priority scheduler",
+            fn=self._queue_depth_fn)
+        # Row-sparse embedding plane (docs/sparse-embedding.md): per
+        # declared key the (rows, width) shape, the accumulating-round
+        # counter, and the param_version-keyed hot-row LRU cache.  A
+        # cached row serves WITHOUT a wire frame iff the key's last-seen
+        # param_version is still fresh (refreshed by any embed response
+        # within BYTEPS_TPU_SPARSE_CACHE_TTL_MS) — a version advance
+        # invalidates the whole key's cache, never serves stale rows.
+        self._embed_lock = threading.Lock()
+        self._embed_meta: Dict[int, Tuple[int, int]] = {}
+        self._embed_cache: Dict[int, OrderedDict] = {}
+        self._embed_ver: Dict[int, int] = {}
+        self._embed_ver_ts: Dict[int, float] = {}
+        self._embed_cache_rows = max(
+            0, int(os.environ.get("BYTEPS_TPU_SPARSE_CACHE_ROWS",
+                                  "65536")))
+        self._embed_cache_ttl = max(
+            0.0, float(os.environ.get("BYTEPS_TPU_SPARSE_CACHE_TTL_MS",
+                                      "50"))) / 1000.0
+        self._m_embed_hits = reg.counter(
+            "bps_embed_cache_hits",
+            help="embedding rows served from the hot-row cache (no wire)")
+        self._m_embed_misses = reg.counter(
+            "bps_embed_cache_misses",
+            help="embedding rows that had to be pulled over the wire")
+        self._m_embed_pull_bytes = reg.counter(
+            "bps_embed_pull_bytes_total",
+            help="wire bytes moved by embedding row pulls (both legs)")
+        # Auditor state: this worker's last-K (round, digest, epoch, n)
+        # window per partition key — what audit_check() compares against
+        # the server's CMD_AUDIT window — plus the armed-wire flag (set
+        # only once the bootstrap probe confirmed the server records
+        # digests) and the verdict counters.  bps_audit_* export through
+        # the registry so a mismatch is scrapeable, not just logged.
+        self._audit_lock = threading.Lock()
+        self._audit_window_log: Dict[int, object] = {}   # pkey -> deque
+        self._audit_wire = False
+        self._audit_stats = {"checked": 0, "mismatches": 0,
+                             "round_skew": 0, "unverified": 0}
+        # Fleet-plane state: armed-wire flag (set only once the
+        # bootstrap probe confirmed every server retains windows),
+        # publish accounting, and the cached clock-offset estimate that
+        # rides each published summary (refreshed off the plane thread,
+        # never on a round's critical path).
+        self._fleet_wire = False
+        self._fleet_publishes = 0
+        self._fleet_publish_errors = 0
+        self._fleet_clock: Optional[Tuple[float, float]] = None
+        self._audit_last: Optional[dict] = None   # last verdict detail
+        self._m_audit_checked = reg.counter(
+            "bps_audit_checked_total",
+            help="audited pulls whose digest was re-verified")
+        self._m_audit_mismatch = reg.counter(
+            "bps_audit_mismatch_total",
+            help="audited pulls whose re-digest differed from the "
+                 "server's publish digest (corruption/divergence)")
+        self._m_audit_skew = reg.counter(
+            "bps_audit_round_skew_total",
+            help="audited pulls served a different round than staged "
+                 "(lost/skewed round, e.g. the failover lost-round "
+                 "window)")
+        # Gradient-health monitor (BYTEPS_TPU_HEALTH_SAMPLE_ROUNDS > 0):
+        # push-path value sampling, computed on the codec pool when one
+        # exists so the caller thread never pays the norm pass.
+        # Last membership epoch this session OBSERVED (CMD_MEMBERS
+        # fetches and audit trailers both update it) — attribution
+        # context for health/audit verdicts without a wire fetch.
+        self._last_epoch = 0
+        # Last merged CMD_MEMBERS view — what slice_leader() elects
+        # from, so leadership rides the same epoch rounds are pinned
+        # to.  None until the first fetch (launch set semantics).
+        self._members_cache: Optional[dict] = None
+        # Postmortem bundles dumped anywhere in this process carry this
+        # session's local sections (transport/audit/ring/health) via the
+        # provider registry — computed once per dump, unregistered at
+        # close() so a dead session can't pin itself.
+        _flightrec.set_extra_provider(self._bundle_extra, name="session")
+        if self.health_sample_rounds > 0:
+            from .codec_pool import HealthMonitor
+            self._health: Optional[object] = HealthMonitor(
+                self.health_sample_rounds,
+                context=lambda: {
+                    "worker": self.worker_id,
+                    "epoch": self._last_epoch,
+                    "ring_epoch": (self._ring.epoch
+                                   if self._ring is not None else 0)})
+        else:
+            self._health = None
+        self._join_timeout_s = 10.0   # close()'s thread-join budget
+        # Lease heartbeat (elastic eviction armed): periodic untraced
+        # CMD_PINGs keep this worker's lease warm while it is idle, so
+        # only a worker that is actually GONE ever expires.  `_left` stops
+        # the heartbeat after a graceful leave — a departed worker must
+        # not keep renewing the lease it just gave up.
+        self._left = False
+        self._lease_stop = threading.Event()
+        self._lease_thread: Optional[threading.Thread] = None
+        # Elastic PS ring (ring_armed): the worker's copy of the
+        # epoch-versioned server ring (common/ring.py — same law the
+        # server enforces), the server-id -> conn-slot map (slots are
+        # stable for the session; a joiner appends one, a dead/drained
+        # server's slot is retired but never reused), and the remap
+        # queue: partitions whose key moved (status MOVED or a failover
+        # transition) wait here for the remap worker to re-declare and
+        # replay them against the new owner.
+        self._ring_lock = threading.Lock()
+        self._ring: Optional[RingTable] = None
+        self._srv_slot: Dict[int, int] = {}
+        self._slot_srv: Dict[int, int] = {}
+        self._dead_slots: set = set()
+        if self.ring_armed:
+            self._ring = RingTable(
+                [(i, self._hosts[i], self._ports[i])
+                 for i in range(len(self.conns))],
+                self.ring_vnodes, epoch=0)
+            self._srv_slot = {i: i for i in range(len(self.conns))}
+            self._slot_srv = {i: i for i in range(len(self.conns))}
+        self._remap_lock = threading.Lock()
+        self._remap_queue: List[int] = []
+        self._remap_thread: Optional[threading.Thread] = None
+        self._srvdown_stop = threading.Event()
+        self._srvdown_thread: Optional[threading.Thread] = None
+        self._dispatcher = threading.Thread(
+            target=self._dispatch_loop, daemon=True, name="bps-ps-dispatch")
+        self._dispatcher.start()
+        if self.stall_timeout_s > 0:
+            self._watchdog = threading.Thread(
+                target=self._watchdog_loop, daemon=True,
+                name="bps-ps-watchdog")
+            self._watchdog.start()
+        if self.evict_timeout_s > 0:
+            self._lease_thread = threading.Thread(
+                target=self._lease_loop, daemon=True, name="bps-ps-lease")
+            self._lease_thread.start()
+        if self.server_evict_timeout_s > 0:
+            self._srvdown_thread = threading.Thread(
+                target=self._server_lease_loop, daemon=True,
+                name="bps-ps-srvlease")
+            self._srvdown_thread.start()
+
+    def _hello_mode_check(self, worker_id: int) -> None:
+        # HELLO returns the server's mode flags (u8 async | u8 schedule).
+        # All servers must agree — a mixed fleet silently corrupts training
+        # (partitions on a sync server would round-SUM async deltas).
+        modes = []
+        hello_flags = HELLO_FLAG_OBSERVER if self.pull_only else 0
+        for c in self.conns:
+            mode = c.request(CMD_HELLO, worker_id=worker_id,
+                             flags=hello_flags)
+            modes.append((bool(mode[0]), bool(mode[1]))
+                         if len(mode) >= 2 else (False, False))
+        if len(set(modes)) > 1:
+            raise RuntimeError(
+                f"PS servers report mixed modes (async, schedule): {modes}; "
+                "all servers must share BYTEPS_ENABLE_ASYNC / "
+                "BYTEPS_SERVER_ENABLE_SCHEDULE settings")
+        self.server_async, self.server_schedule = modes[0]
+
+    @classmethod
+    def from_config(cls, cfg: Config) -> "PSSession":
+        n = max(1, cfg.num_server)
+        # Single-host convention: servers at scheduler_port+1+i.  Multi-host
+        # deployments list hosts via BYTEPS_TPU_PS_HOSTS=host:port,host:port.
+        import os
+        spec = os.environ.get("BYTEPS_TPU_PS_HOSTS", "")
+        if spec:
+            pairs = [s.rsplit(":", 1) for s in spec.split(",") if s]
+            hosts = [p[0] for p in pairs]
+            ports = [int(p[1]) for p in pairs]
+        else:
+            hosts = [cfg.scheduler_uri] * n
+            ports = [cfg.scheduler_port + 1 + i for i in range(n)]
+        return cls(hosts, ports, cfg.worker_id, n, cfg.key_hash_fn,
+                   partition_bytes=cfg.partition_bytes,
+                   scheduling_credit=cfg.scheduling_credit,
+                   min_compress_bytes=cfg.min_compress_bytes,
+                   wire_conns=cfg.wire_conns,
+                   compress_threads=cfg.compress_threads,
+                   reconnect_attempts=cfg.reconnect_attempts,
+                   reconnect_backoff_ms=cfg.reconnect_backoff_ms,
+                   stall_timeout_s=cfg.stall_timeout_s,
+                   barrier_timeout_s=cfg.barrier_timeout_s,
+                   clock_sync_s=cfg.clock_sync_s,
+                   uds_path=cfg.server_uds,
+                   sock_buf_kb=cfg.sock_buf_kb,
+                   evict_timeout_s=cfg.evict_timeout_s,
+                   ring=cfg.ring,
+                   ring_vnodes=cfg.ring_vnodes,
+                   server_evict_timeout_s=cfg.server_evict_timeout_s,
+                   audit=cfg.audit,
+                   audit_window=cfg.audit_window,
+                   fleet=cfg.fleet,
+                   fleet_windows=cfg.fleet_windows,
+                   health_sample_rounds=cfg.health_sample_rounds,
+                   slice_size=cfg.slice_size)
+
+    def set_lr_scale(self, scale: float) -> None:
+        """One-shot EF-error rescale after a learning-rate change;
+        `scale` = prev_lr / new_lr (reference `lr.s` mechanism; see
+        WireCompressor.set_lr_scale).
+
+        Covers BOTH EF legs: the local worker-side errors, and — from
+        worker 0 only, so N workers don't compound the rescale N times —
+        the servers' recompress-leg errors via CMD_LR_SCALE.  Call between
+        steps on every worker (each owns its local errors).
+        """
+        for comp in self._compressors.values():
+            comp.set_lr_scale(scale)
+        if self.worker_id == 0:
+            payload = struct.pack("<f", float(scale))
+            for c in self.conns:
+                c.request(CMD_LR_SCALE, 0, payload,
+                          worker_id=self.worker_id)
+
+    def register_compressor(self, declared_key: int, kwargs: dict) -> None:
+        """Register an inter-node compressor for a tensor's PS traffic.
+
+        Must be called before the tensor's first push_pull: the kwargs are
+        shipped to the server in each partition's INIT (the
+        kCompressedPushPull analog, reference: operations.cc:396-408,
+        server.cc:232-261), and the server builds its decompress-sum(-
+        recompress) path from them.
+        """
+        from .wire import WireCompressor
+        self._compressors[declared_key] = WireCompressor(
+            {str(k): str(v) for k, v in kwargs.items()})
+
+    # -- per-key codec renegotiation (CMD_CODEC) ----------------------------
+    @staticmethod
+    def _kwargs_to_str(kwargs: Optional[dict]) -> str:
+        """Canonical kwargs string for a codec proposal ("" = raw) —
+        normalized through WireCompressor so every worker proposing the
+        same config emits the same bytes (the server compares strings)."""
+        if not kwargs:
+            return ""
+        from .wire import WireCompressor
+        return WireCompressor(
+            {str(k): str(v) for k, v in kwargs.items()}).kwargs_string()
+
+    @staticmethod
+    def _kwargs_from_str(kwstr: str) -> Optional[dict]:
+        if not kwstr:
+            return None
+        return dict(kv.split("=", 1) for kv in kwstr.split(",") if "=" in kv)
+
+    def _codec_pkeys(self, declared_key: int) -> list:
+        """This key's already-declared partition keys that actually ride
+        the codec (>= the MIN_COMPRESS_BYTES floor — smaller partitions
+        always go raw, so renegotiating them would only manufacture
+        CODEC_STALE noise)."""
+        return sorted(
+            pk for pk, (ln, _) in self._inited.items()
+            if pk >> 16 == declared_key and ln >= self.min_compress_bytes)
+
+    def propose_codec(self, declared_key: int, kwargs: Optional[dict],
+                      margin_rounds: int = 2,
+                      effective_round: Optional[int] = None) -> dict:
+        """Propose switching ``declared_key``'s wire codec (None = raw),
+        atomically at a future round boundary.
+
+        Sends an epoch-versioned CMD_CODEC SET for each of the key's
+        codec-eligible partitions to its owner server ("applied only if
+        newer", the CMD_RING_SET idempotency law — racing proposers
+        converge on one winner, and the losers adopt the winner's doc
+        from the response).  The switch takes effect at the first round
+        boundary at/after ``effective_round`` (default: the key's current
+        round + ``margin_rounds``); workers that miss the memo are caught
+        by the server's format check and replay via CODEC_STALE, so no
+        round ever mixes wire formats.  Returns {"accepted", "epoch",
+        "effective_round", "doc"}."""
+        import json as _json
+        kwstr = self._kwargs_to_str(kwargs)
+        pkeys = self._codec_pkeys(declared_key)
+        if not pkeys:
+            # Never pushed (or every partition below the compress floor):
+            # there is no wire state to renegotiate — install locally so
+            # the first INIT ships the new config.
+            with self._codec_lock:
+                self._apply_codec_locked(declared_key, kwstr, epoch=0)
+            return {"accepted": True, "epoch": 0, "effective_round": 0,
+                    "doc": None}
+        with self._codec_lock:
+            epoch = self._codec_epoch.get(declared_key, 0) + 1
+        eff = (int(effective_round) if effective_round is not None
+               else max(self._round.get(pk, 0) for pk in pkeys)
+               + max(1, int(margin_rounds)))
+        kb = kwstr.encode()
+        payload = struct.pack("<IQI", epoch, eff, len(kb)) + kb
+        best: Optional[dict] = None
+        for pk in pkeys:
+            srv = self._pkey_srv.get(pk, 0)
+            for attempt in range(3):
+                conn = self.conns[srv]
+                try:
+                    resp = conn.request(CMD_CODEC, pk, payload,
+                                        worker_id=self.worker_id,
+                                        flags=1, timeout=30.0)
+                except _KeyMoved as e:
+                    # Ring transition mid-proposal: adopt, re-aim at the
+                    # new owner, retry (bounded — a healthy ring settles
+                    # in one hop).
+                    self._safe_adopt_ring(e.doc)
+                    srv = self._pkey_srv.get(pk, srv)
+                    continue
+                except RuntimeError as e:
+                    raise RuntimeError(
+                        "CMD_CODEC failed — server too old for codec "
+                        "renegotiation (rebuild libbyteps_core.so)"
+                    ) from e
+                doc = _json.loads(bytes(resp).decode())
+                if best is None or int(doc.get("epoch", 0)) > int(
+                        best.get("epoch", 0)):
+                    best = doc
+                break
+        accepted = bool(best) and int(best.get("epoch", -1)) == epoch and (
+            (int(best.get("pending", 0)) == 1
+             and best.get("kwargs_next", "") == kwstr)
+            or (int(best.get("pending", 0)) == 0
+                and best.get("kwargs", "") == kwstr))
+        if best is not None:
+            self._adopt_codec_doc(declared_key, best)
+        get_logger().info(
+            "codec proposal for key %d (%s): %s -> %r at round >= %d "
+            "(epoch %d)", declared_key, self._label(declared_key),
+            "accepted" if accepted else "superseded", kwstr or "raw",
+            eff, epoch)
+        return {"accepted": accepted, "epoch": epoch,
+                "effective_round": eff, "doc": best}
+
+    def poll_codec(self) -> None:
+        """Refresh this session's view of every renegotiated key's codec
+        doc (CMD_CODEC GET on the key's first eligible partition) — how a
+        non-proposing worker learns of pending switches BEFORE its round
+        counter crosses the boundary; the CODEC_STALE replay remains the
+        correctness backstop either way.  Keys this session has never
+        seen renegotiated are not polled (nothing to refresh, no wire
+        noise) — they discover switches through CODEC_STALE."""
+        import json as _json
+        with self._codec_lock:
+            dks = list(self._codec_epoch)
+        for dk in dks:
+            pkeys = self._codec_pkeys(dk)
+            if not pkeys:
+                continue
+            pk = pkeys[0]
+            try:
+                resp = self.conns[self._pkey_srv.get(pk, 0)].request(
+                    CMD_CODEC, pk, b"", worker_id=self.worker_id,
+                    timeout=10.0)
+                self._adopt_codec_doc(dk, _json.loads(bytes(resp).decode()))
+            except Exception as e:
+                get_logger().debug("codec poll for key %d failed: %s",
+                                   dk, e)
+
+    def _adopt_codec_doc(self, declared_key: int, doc: dict) -> None:
+        """Fold one authoritative codec doc into the local table: apply
+        anything the server already applied (epoch-gated), stage anything
+        still pending for the stage-time boundary check."""
+        with self._codec_lock:
+            epoch = int(doc.get("epoch", 0))
+            applied = int(doc.get("applied_epoch", 0))
+            if applied > self._codec_applied.get(declared_key, 0):
+                self._apply_codec_locked(declared_key,
+                                         str(doc.get("kwargs", "")),
+                                         applied)
+            if (int(doc.get("pending", 0))
+                    and epoch > self._codec_applied.get(declared_key, 0)):
+                self._codec_next[declared_key] = {
+                    "epoch": epoch,
+                    "effective_round": int(doc.get("effective_round", 0)),
+                    "kwargs_str": str(doc.get("kwargs_next", "")),
+                }
+            if epoch > self._codec_epoch.get(declared_key, 0):
+                self._codec_epoch[declared_key] = epoch
+
+    def _apply_codec_locked(self, declared_key: int, kwstr: str,
+                            epoch: int) -> None:
+        """Install ``kwstr`` ("" = raw) as the key's active codec (caller
+        holds _codec_lock).  The EF-across-switch law: residuals carried
+        by the outgoing compressor transfer to the new one when both run
+        vanilla EF, and otherwise stage per-partition folds that the next
+        push adds in — accumulated error is never dropped."""
+        from .wire import WireCompressor
+        old = self._compressors.get(declared_key)
+        kw = self._kwargs_from_str(kwstr)
+        new = WireCompressor(kw) if kw else None
+        if old is not None and getattr(old, "ef", False):
+            err = old.take_ef_state()
+            if new is not None and new.ef:
+                new.adopt_ef_state(err)
+            else:
+                for pk, e in err.items():
+                    prev = self._ef_fold.get(pk)
+                    self._ef_fold[pk] = (e if prev is None
+                                         or prev.size != e.size
+                                         else prev + e)
+        if old is not None and new is not None \
+                and getattr(old, "momentum_mu", 0.0) \
+                and new.momentum_mu == old.momentum_mu:
+            # Same momentum law on both sides: carry the velocity too.
+            with old._state_lock:
+                mom, old._mom = old._mom, {}
+            with new._state_lock:
+                new._mom.update(mom)
+        if new is not None:
+            self._compressors[declared_key] = new
+        else:
+            self._compressors.pop(declared_key, None)
+        self._codec_applied[declared_key] = epoch
+        self._codec_epoch[declared_key] = max(
+            self._codec_epoch.get(declared_key, 0), epoch)
+        pend = self._codec_next.get(declared_key)
+        if pend is not None and pend["epoch"] <= epoch:
+            self._codec_next.pop(declared_key, None)
+        if epoch > 0:
+            with self._transport_lock:
+                self._tstats["codec_switches"] += 1
+            label = self._label(declared_key)
+            comp_id = new.comp_id if new is not None else 0
+            try:
+                from ..common import telemetry as _tm
+                _tm.get_registry().gauge(
+                    "bps_codec_active", labels={"key": label},
+                    help="active wire codec per key (0=raw 1=onebit "
+                         "2=topk 3=randomk 4=dithering 5=qblock)"
+                ).set(comp_id)
+            except Exception:
+                pass
+            _flightrec.record("codec_switch", key=label, epoch=epoch,
+                              kwargs=kwstr, comp_id=comp_id,
+                              worker=self.worker_id)
+            get_logger().info(
+                "codec switch applied: key %s -> %s (epoch %d)",
+                label, kwstr or "raw", epoch)
+
+    def _current_compressor(self, declared_key: int, plan) -> object:
+        """The compressor to stage this push with, applying any pending
+        renegotiation whose effective round the key has reached — the
+        worker half of the atomic switch (the server applies its half at
+        the same round's first push).  Safe here: the sequential-use
+        guard means the previous round's encodes fully completed before
+        this round stages, so no encoder still holds the old state."""
+        pend = self._codec_next.get(declared_key)
+        if pend is not None:
+            rnd = max((self._round.get(pk, 0) for pk, _, _, _ in plan),
+                      default=0)
+            if rnd >= pend["effective_round"]:
+                with self._codec_lock:
+                    pend = self._codec_next.get(declared_key)
+                    if pend is not None and rnd >= pend["effective_round"]:
+                        self._apply_codec_locked(
+                            declared_key, pend["kwargs_str"],
+                            pend["epoch"])
+        return self._compressors.get(declared_key)
+
+    def codec_table(self) -> dict:
+        """Per-key codec state for tooling (bps.get_tuner / bps_top):
+        {label: {"epoch", "applied_epoch", "name", "pending",
+        "effective_round"}} for every key whose codec epoch advanced."""
+        out = {}
+        with self._codec_lock:
+            for dk, ep in self._codec_epoch.items():
+                comp = self._compressors.get(dk)
+                pend = self._codec_next.get(dk)
+                out[self._label(dk)] = {
+                    "declared_key": dk,
+                    "epoch": ep,
+                    "applied_epoch": self._codec_applied.get(dk, 0),
+                    "name": getattr(comp, "name", None) or "raw",
+                    "pending": (dict(pend) if pend else None),
+                }
+        return out
+
+    # -- CODEC_STALE replay (the renegotiation race backstop) ---------------
+    def _on_codec_stale(self, pkey: int, phase: str,
+                        err: "_CodecStale") -> None:
+        """A push was rejected for carrying the wrong wire format: park
+        the partition and hand it — with the authoritative codec doc —
+        to the retry worker, which adopts the doc, re-encodes the SAME
+        staged gradient with the right codec, and replays.  Runs on a
+        receiver-callback thread, so it must never block."""
+        claimed = self._park_for_remap(pkey, phase)
+        with self._transport_lock:
+            self._tstats["codec_stale_retries"] += 1
+        with self._codec_lock:
+            self._codec_retry_queue.append((pkey if claimed else None,
+                                            err.doc))
+            if self._codec_retry_thread is None:
+                self._codec_retry_thread = threading.Thread(
+                    target=self._codec_retry_loop, daemon=True,
+                    name="bps-ps-codec-retry")
+                self._codec_retry_thread.start()
+
+    def _codec_retry_loop(self) -> None:
+        while True:
+            with self._codec_lock:
+                if not self._codec_retry_queue:
+                    self._codec_retry_thread = None
+                    return
+                pkey, doc = self._codec_retry_queue.pop(0)
+            try:
+                if doc:
+                    self._adopt_codec_doc((pkey if pkey is not None
+                                           else int(doc.get("key", 0)))
+                                          >> 16, doc)
+            except Exception:
+                get_logger().exception("codec doc adoption failed")
+            if pkey is None:
+                continue
+            with self._inflight_lock:
+                part = self._inflight.get(pkey)
+            if part is None or not self._unpark(part):
+                continue
+            part.stale_retries += 1
+            if part.stale_retries > 4:
+                # Bounded like every other replay path (_KeyMoved is
+                # bounded by ring settlement): a mismatch that survives
+                # several authoritative-doc adoptions is a config
+                # disagreement (e.g. this worker's MIN_COMPRESS_BYTES
+                # floor excludes a partition the proposer renegotiated)
+                # — fail the handle loudly instead of replaying the
+                # same rejected push forever while the round wedges.
+                self._finish_part(pkey, RuntimeError(
+                    f"push for key {pkey} was rejected CODEC_STALE "
+                    f"{part.stale_retries} times in a row despite "
+                    f"adopting the server's codec doc each time — the "
+                    f"re-encoded format still mismatches the table "
+                    f"(check that BYTEPS_MIN_COMPRESS_BYTES and codec "
+                    f"config agree across workers)"))
+                continue
+            try:
+                self._reencode_part(part)
+            except Exception as e:
+                self._finish_part(pkey, e)
+                continue
+            with self._transport_lock:
+                self._tstats["replayed_pushes"] += 1
+            with self._cv:
+                self._queue.add(part.pkey, part.priority, part.credit_ln)
+                self._cv.notify_all()
+
+    def _reencode_part(self, part: "_PartTask") -> None:
+        """Re-produce one rejected partition's wire payload under the
+        key's CURRENT codec.  The input is what the rejected payload
+        would have delivered (its decode) — so for an EF codec whose
+        residual already moved to the new compressor at switch time, the
+        conservation law holds exactly: decode(old) + carried residual
+        == gradient + pre-switch residual."""
+        from .wire import decode as wire_decode
+        n = part.ln // 4
+        if part.dtype == DT_COMPRESSED and part.payload is not None:
+            x = wire_decode(bytes(part.payload), n)
+        elif part.seg is not None:
+            x = np.ascontiguousarray(part.seg, np.float32)
+        else:
+            x = np.frombuffer(bytes(part.payload), np.float32).copy()
+        dk = part.pkey >> 16
+        comp = self._compressors.get(dk)
+        fold = self._ef_fold.pop(part.pkey, None)
+        use_comp = (comp is not None
+                    and part.dtype in (DT_F32, DT_COMPRESSED)
+                    and part.ln >= self.min_compress_bytes)
+        if fold is not None and fold.size == n:
+            if use_comp and comp.ef:
+                comp.adopt_ef_state({part.pkey: fold})
+            else:
+                x = x + fold
+        if use_comp:
+            blob = comp.encode(part.pkey, x)
+            part.payload = blob
+            part.wire_ln = len(blob)
+            part.dtype = DT_COMPRESSED
+            part.bidirectional = comp.bidirectional
+        else:
+            buf = np.ascontiguousarray(x, np.float32)
+            part.payload = buf.tobytes()
+            part.wire_ln = part.ln
+            part.dtype = DT_F32
+            part.bidirectional = False
+        part.phase = "push"
+        part.ready = None   # payload is materialized; dispatcher sends it
+
+    # -- global knob plane (CMD_KNOB) ---------------------------------------
+    # The CMD_CODEC epoch law generalized to the job's GLOBAL performance
+    # knobs: one epoch-versioned kwargs table per fleet, three actuated
+    # knobs (fusion_bytes / compress_threads / wire_conns), applied on
+    # every participant at the first round boundary at/after the declared
+    # effective round — so no round ever mixes fusion layouts, pool
+    # sizes, or lane sets — with the KNOB_STALE push rejection as the
+    # backstop for workers that miss the memo.
+
+    ACTUATED_KNOBS = ("fusion_bytes", "compress_threads", "wire_conns")
+
+    @staticmethod
+    def _knob_kwargs_to_str(kwargs: Optional[dict]) -> str:
+        """Canonical "k=v,k=v" string for a knob proposal: sorted keys,
+        integer values — every worker proposing the same config emits
+        the same bytes (the server compares epochs, not strings, but the
+        doc round-trips through this form)."""
+        if not kwargs:
+            return ""
+        return ",".join(f"{k}={int(kwargs[k])}" for k in sorted(kwargs))
+
+    @staticmethod
+    def _knob_kwargs_from_str(kwstr: str) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for kv in (kwstr or "").split(","):
+            if "=" in kv:
+                k, v = kv.split("=", 1)
+                try:
+                    out[k.strip()] = int(v)
+                except ValueError:
+                    pass
+        return out
+
+    def current_round(self) -> int:
+        """This session's round high-water mark — the boundary proxy the
+        knob plane compares against effective_round (all keys advance in
+        lockstep under sync rounds)."""
+        return max(self._round.values(), default=0)
+
+    def note_fusion_keys(self, declared_keys) -> None:
+        """Register declared keys whose IDENTITY derives from the fusion
+        plan (bucket/solo units).  Only these may be withdrawn with
+        KnobReplan when FUSION_BYTES changes; everything else replays in
+        place (its key is layout-independent)."""
+        self._fusion_keys.update(int(dk) for dk in declared_keys)
+
+    def propose_knobs(self, kwargs: dict, margin_rounds: int = 2,
+                      effective_round: Optional[int] = None) -> dict:
+        """Propose new values for the GLOBAL actuated knobs, atomically
+        at a future round boundary.
+
+        Sends one epoch-versioned CMD_KNOB SET to EVERY server (the
+        table is global — a ring drain must find the same epoch on every
+        owner): "applied only if newer", the CMD_RING_SET idempotency
+        law, so racing proposers converge and the losers adopt the
+        winner's doc from the response.  The switch takes effect at the
+        first round boundary at/after ``effective_round`` (default: the
+        session's current round + ``margin_rounds``) on the servers and
+        on every worker; workers that miss the memo are caught by the
+        per-worker acked check and recover via KNOB_STALE.  Returns
+        {"accepted", "epoch", "effective_round", "doc"}."""
+        import json as _json
+        unknown = set(kwargs) - set(self.ACTUATED_KNOBS)
+        if unknown:
+            raise ValueError(
+                f"not actuated knob(s) {sorted(unknown)}: the knob plane "
+                f"actuates {list(self.ACTUATED_KNOBS)} only (everything "
+                f"else is launch-only; see docs/performance.md)")
+        kwstr = self._knob_kwargs_to_str(kwargs)
+        with self._knob_lock:
+            epoch = self._knob_epoch + 1
+        eff = (int(effective_round) if effective_round is not None
+               else self.current_round() + max(1, int(margin_rounds)))
+        kb = kwstr.encode()
+        payload = struct.pack("<IQI", epoch, eff, len(kb)) + kb
+        best: Optional[dict] = None
+        for conn in self.conns:
+            try:
+                resp = conn.request(CMD_KNOB, 0, payload,
+                                    worker_id=self.worker_id,
+                                    flags=1, timeout=30.0)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    "CMD_KNOB failed — server too old for the knob "
+                    "plane (rebuild libbyteps_core.so)") from e
+            doc = _json.loads(bytes(resp).decode())
+            if best is None or int(doc.get("epoch", 0)) > int(
+                    best.get("epoch", 0)):
+                best = doc
+        accepted = bool(best) and int(best.get("epoch", -1)) == epoch and (
+            (int(best.get("pending", 0)) == 1
+             and best.get("kwargs_next", "") == kwstr)
+            or (int(best.get("pending", 0)) == 0
+                and best.get("kwargs", "") == kwstr))
+        if accepted:
+            # The SET doubled as this worker's ACK server-side; mirror
+            # that locally so the boundary apply won't re-ack.
+            with self._knob_lock:
+                if epoch > self._knob_acked:
+                    self._knob_acked = epoch
+        if best is not None:
+            self._adopt_knob_doc(best)
+        get_logger().info(
+            "knob proposal %r: %s at round >= %d (epoch %d)",
+            kwstr, "accepted" if accepted else "superseded", eff, epoch)
+        return {"accepted": accepted, "epoch": epoch,
+                "effective_round": eff, "doc": best}
+
+    def poll_knobs(self) -> Optional[dict]:
+        """Refresh this session's view of the global knob table (CMD_KNOB
+        GET against server 0) — how a non-proposing worker learns of a
+        pending switch BEFORE its round crosses the boundary; KNOB_STALE
+        remains the correctness backstop either way.  Returns the doc
+        (None on transport trouble — the backstop covers it)."""
+        import json as _json
+        if not self.conns:
+            return None
+        try:
+            resp = self.conns[0].request(CMD_KNOB, 0, b"",
+                                         worker_id=self.worker_id,
+                                         timeout=10.0)
+            doc = _json.loads(bytes(resp).decode())
+        except Exception:
+            return None
+        self._adopt_knob_doc(doc)
+        return doc
+
+    def knob_table(self) -> dict:
+        """This session's live view of the knob plane (the bps_top /
+        tuner introspection surface)."""
+        with self._knob_lock:
+            return {
+                "epoch": self._knob_epoch,
+                "applied_epoch": self._knob_applied,
+                "acked_epoch": self._knob_acked,
+                "live": dict(self._knob_live),
+                "pending": (dict(self._knob_next)
+                            if self._knob_next else None),
+                "fusion_gen": self._knob_gen,
+                "history": [dict(h) for h in self._knob_history[-8:]],
+            }
+
+    def live_fusion_bytes(self) -> Optional[int]:
+        """The actuated FUSION_BYTES value, or None while launch config
+        rules.  Applies a staged switch whose boundary this call's round
+        has reached — the fusion planner reads this per dispatch, which
+        is exactly the re-plan actuation point (bucket identity is
+        composition-derived, so a new value re-declares new keys via
+        idempotent CMD_INIT)."""
+        self._maybe_apply_knobs()
+        with self._knob_lock:
+            v = self._knob_live.get("fusion_bytes")
+            return None if v is None else int(v)
+
+    def _maybe_apply_knobs(self, rnd: Optional[int] = None) -> None:
+        """Worker half of the boundary apply: install the staged knob
+        table once this session's round reaches its effective round —
+        the same boundary the server applies its half, so no round mixes
+        configurations.  Called at stage time (every _stage) and from
+        live_fusion_bytes; a session with no staged switch pays one
+        attribute read."""
+        if self._knob_next is None:
+            return
+        ack = None
+        with self._knob_lock:
+            pend = self._knob_next
+            if pend is None:
+                return
+            if rnd is None:
+                rnd = self.current_round()
+            if rnd < pend["effective_round"]:
+                return
+            self._apply_knobs_locked(pend["kwargs_str"], pend["epoch"],
+                                     pend["effective_round"])
+            self._knob_next = None
+            if pend["epoch"] > self._knob_acked:
+                ack = pend["epoch"]
+        if ack is not None:
+            self._ack_knobs(ack)
+
+    def _apply_knobs_locked(self, kwstr: str, epoch: int,
+                            eff: int) -> bool:
+        """Install one knob kwargs string as the ACTIVE table (caller
+        holds _knob_lock).  Returns True when the fusion LAYOUT changed
+        (the generation bumped) — the caller then defers the ACK until
+        stale-generation pushes have left the wire."""
+        kv = self._knob_kwargs_from_str(kwstr)
+        applied: Dict[str, int] = {}
+        fusion_changed = False
+        if "fusion_bytes" in kv:
+            val = max(0, int(kv["fusion_bytes"]))
+            if self._knob_live.get("fusion_bytes") != val:
+                self._knob_gen += 1
+                self._knob_fusion_eff = max(1, int(eff))
+                fusion_changed = True
+            self._knob_live["fusion_bytes"] = val
+            applied["fusion_bytes"] = val
+        if "compress_threads" in kv:
+            val = max(1, int(kv["compress_threads"]))
+            if self._codec_pool is not None:
+                # Resize without dropping staged work (grow = start
+                # threads now; shrink = surplus threads exit between
+                # jobs).  threads=0 sessions have no pool: 0 <-> N stays
+                # launch-only, documented in docs/performance.md.
+                self._codec_pool.resize(val)
+                self.compress_threads = val
+                self._knob_live["compress_threads"] = val
+                applied["compress_threads"] = val
+        if "wire_conns" in kv:
+            val = max(1, int(kv["wire_conns"]))
+            self._resize_lanes(val)
+            self._knob_live["wire_conns"] = val
+            applied["wire_conns"] = val
+        self._knob_applied = max(self._knob_applied, int(epoch))
+        self._knob_history.append({"epoch": int(epoch),
+                                   "effective_round": int(eff),
+                                   "kwargs": kwstr,
+                                   "ts": time.time()})
+        del self._knob_history[:-32]
+        with self._transport_lock:
+            self._tstats["knob_switches"] += 1
+        try:
+            from ..common import telemetry as _tm
+            reg = _tm.get_registry()
+            reg.gauge("bps_knob_epoch",
+                      help="newest applied global knob epoch"
+                      ).set(int(epoch))
+            for name, val in applied.items():
+                reg.gauge("bps_knob_value", labels={"knob": name},
+                          help="live value of an actuated global knob"
+                          ).set(val)
+            reg.counter("bps_knob_switches_total",
+                        help="global knob-table applications"
+                        ).inc()
+        except Exception:
+            pass
+        _flightrec.record("knob_switch", epoch=int(epoch),
+                          kwargs=kwstr, effective_round=int(eff),
+                          fusion_gen=self._knob_gen,
+                          worker=self.worker_id)
+        get_logger().info(
+            "knob switch applied (epoch %d, round >= %d): %r%s",
+            epoch, eff, kwstr,
+            " [fusion re-plan]" if fusion_changed else "")
+        return fusion_changed
+
+    def _resize_lanes(self, n: int) -> None:
+        """WIRE_CONNS actuation: dial every server's data-lane pool to
+        `n` sockets.  Growing dials new lanes immediately (the
+        _apply_ring joiner path's move); shrinking marks surplus lanes
+        RETIRING — excluded from _pick_lane, so no new dispatch lands on
+        them — and a drain worker closes each once its outstanding bytes
+        and pending requests hit zero.  The primary conn (control
+        traffic) never retires."""
+        n = max(1, int(n))
+        self._wire_conns = n
+        to_drain: List[tuple] = []
+        for srv, pool in enumerate(self._data_conns):
+            if srv in self._dead_slots:
+                continue
+            primary = (self.conns[srv] if srv < len(self.conns)
+                       else pool[0] if pool else None)
+            live = [c for c in pool if not c.retiring]
+            if len(live) < n:
+                # Reactivate retiring lanes first (a shrink->grow bounce
+                # must not leak half-drained sockets), then dial fresh.
+                for c in pool:
+                    if len(live) >= n:
+                        break
+                    if c.retiring:
+                        c.retiring = False
+                        live.append(c)
+                anchor = live[0] if live else primary
+                while len(live) < n and anchor is not None:
+                    c = self._make_conn(anchor.host, anchor.port)
+                    pool.append(c)
+                    live.append(c)
+            elif len(live) > n:
+                for c in reversed(pool):
+                    if len(live) <= n:
+                        break
+                    if c.retiring or c is primary:
+                        continue
+                    c.retiring = True
+                    live.remove(c)
+                    to_drain.append((pool, c))
+        if to_drain:
+            threading.Thread(target=self._drain_retired_lanes,
+                             args=(to_drain,), daemon=True,
+                             name="bps-ps-lane-drain").start()
+
+    def _drain_retired_lanes(self, to_drain: List[tuple]) -> None:
+        """Close retiring lanes once quiet: outstanding byte credit
+        returned AND no response outstanding — a lane is never cut with
+        a round trip in flight, so a WIRE_CONNS shrink can never lose a
+        push ack or a pull payload."""
+        deadline = time.monotonic() + 60.0
+        for pool, c in to_drain:
+            while time.monotonic() < deadline:
+                with c._pending_lock:
+                    busy = bool(c._pending)
+                if c.outstanding_bytes <= 0 and not busy:
+                    break
+                time.sleep(0.02)
+            else:
+                get_logger().warning(
+                    "retiring lane %s:%d still busy after drain window; "
+                    "closing anyway", c.host, c.port)
+            try:
+                pool.remove(c)
+            except ValueError:
+                pass
+            try:
+                c.close()
+            except Exception:
+                pass
+
+    def _ack_knobs(self, epoch: int) -> None:
+        """Report adoption of knob epoch `epoch` to every server (the
+        per-worker acked map is what the push-path backstop checks).
+        Best effort: a lost ACK just means one more KNOB_STALE round
+        trip — the backstop is idempotent."""
+        payload = struct.pack("<I", int(epoch))
+        for conn in self.conns:
+            try:
+                conn.request(CMD_KNOB, 0, payload,
+                             worker_id=self.worker_id, flags=2,
+                             timeout=10.0)
+            except Exception as e:
+                get_logger().warning(
+                    "knob ACK (epoch %d) to %s:%d failed: %s — the "
+                    "KNOB_STALE backstop will retry", epoch,
+                    conn.host, conn.port, e)
+        with self._knob_lock:
+            if int(epoch) > self._knob_acked:
+                self._knob_acked = int(epoch)
+
+    def _adopt_knob_doc(self, doc: dict, defer_ack: bool = False) -> None:
+        """Adopt the authoritative knob doc (SET/GET response or a
+        KNOB_STALE payload): record the newest epoch, apply the ACTIVE
+        table when the server already crossed the boundary, stage the
+        pending one otherwise.  With defer_ack (the stale path), a
+        fusion-layout change holds the ACK until the stale-generation
+        flight drains (see _knob_retry_loop)."""
+        ack = None
+        with self._knob_lock:
+            ep = int(doc.get("epoch", 0))
+            if ep > self._knob_epoch:
+                self._knob_epoch = ep
+            applied = int(doc.get("applied_epoch", 0))
+            if applied > self._knob_applied:
+                fusion_changed = self._apply_knobs_locked(
+                    doc.get("kwargs", ""), applied,
+                    int(doc.get("effective_round", 0)))
+                if self._knob_next is not None and \
+                        self._knob_next["epoch"] <= applied:
+                    self._knob_next = None
+                if applied > self._knob_acked:
+                    if defer_ack and fusion_changed:
+                        self._knob_ack_due = applied
+                        self._knob_ack_deadline = \
+                            time.monotonic() + 30.0
+                    else:
+                        ack = applied
+            if int(doc.get("pending", 0)) and ep > self._knob_applied:
+                self._knob_next = {
+                    "epoch": ep,
+                    "effective_round": int(doc.get("effective_round", 0)),
+                    "kwargs_str": doc.get("kwargs_next", ""),
+                }
+        if ack is not None:
+            self._ack_knobs(ack)
+
+    # -- KNOB_STALE replay (the knob renegotiation race backstop) -----------
+    def _on_knob_stale(self, pkey: int, phase: str,
+                       err: "_KnobStale") -> None:
+        """A push was rejected because this worker missed a knob switch:
+        park the partition and hand it — with the authoritative doc — to
+        the retry worker.  Runs on a receiver-callback thread, so it
+        must never block."""
+        claimed = self._park_for_remap(pkey, phase)
+        with self._transport_lock:
+            self._tstats["knob_stale_retries"] += 1
+        with self._knob_lock:
+            self._knob_retry_queue.append((pkey if claimed else None,
+                                           err.doc))
+            if self._knob_retry_thread is None:
+                self._knob_retry_thread = threading.Thread(
+                    target=self._knob_retry_loop, daemon=True,
+                    name="bps-ps-knob-retry")
+                self._knob_retry_thread.start()
+
+    def _knob_retry_loop(self) -> None:
+        """Adopt-and-recover worker for KNOB_STALE rejections.
+
+        Order matters: (1) adopt the doc and APPLY the switch (the
+        server already crossed the boundary — that is why it rejected
+        us); (2) while a fusion-layout change holds the ACK, withdraw
+        every stale-generation part that is parked or queued (the
+        dispatcher gate catches queued ones too) and WAIT for the ones
+        already on the wire to resolve — the server keeps rejecting them
+        until the ACK lands, which is exactly the guarantee that no
+        old-layout push can merge into an orphaned bucket key AFTER the
+        ACK re-admits this worker; (3) send the ACK; (4) replay the
+        rejected parts whose keys are layout-independent in place."""
+        pending_parts: List[int] = []
+        while True:
+            with self._knob_lock:
+                item = (self._knob_retry_queue.pop(0)
+                        if self._knob_retry_queue else None)
+                if (item is None and self._knob_ack_due is None
+                        and not pending_parts):
+                    self._knob_retry_thread = None
+                    return
+            if item is not None:
+                pkey, doc = item
+                try:
+                    if doc:
+                        self._adopt_knob_doc(doc, defer_ack=True)
+                except Exception:
+                    get_logger().exception("knob doc adoption failed")
+                if pkey is not None:
+                    pending_parts.append(pkey)
+            # ACK gate: a deferred ACK goes out only once no stale-
+            # generation push can still reach the server.
+            with self._knob_lock:
+                due = self._knob_ack_due
+                deadline = getattr(self, "_knob_ack_deadline", 0.0)
+            if due is not None:
+                parked_stale: List[_PartTask] = []
+                busy = False
+                with self._inflight_lock:
+                    for p in self._inflight.values():
+                        if (p.knob_gen != self._knob_gen
+                                and p.phase == "push"
+                                and p.round >= self._knob_fusion_eff):
+                            if p.parked:
+                                parked_stale.append(p)
+                            elif p.conn is not None:
+                                busy = True   # on the wire: rejection due
+                for p in parked_stale:
+                    if self._unpark(p):
+                        pending_parts = [k for k in pending_parts
+                                         if k != p.pkey]
+                        self._finish_part(p.pkey, KnobReplan(
+                            f"push for key {p.pkey} withdrawn: a "
+                            f"FUSION_BYTES switch re-partitioned the "
+                            f"tree (generation {p.knob_gen} -> "
+                            f"{self._knob_gen}) — re-plan and "
+                            f"re-dispatch"))
+                if not busy or time.monotonic() > deadline:
+                    if busy:
+                        get_logger().warning(
+                            "knob ACK (epoch %d) released with stale-"
+                            "generation pushes still in flight after "
+                            "the drain window", due)
+                    with self._knob_lock:
+                        if self._knob_ack_due == due:
+                            self._knob_ack_due = None
+                    self._ack_knobs(due)
+                else:
+                    time.sleep(0.005)
+                    continue
+            # Replay/withdraw the rejected parts now that the ACK (if
+            # any) is out — an in-place replay sent before the ACK would
+            # only be rejected again.
+            if pending_parts:
+                todo, pending_parts = pending_parts, []
+                for pkey in todo:
+                    self._knob_retry_part(pkey)
+
+    def _knob_retry_part(self, pkey: int) -> None:
+        """Replay one KNOB_STALE-rejected partition in place, or fail it
+        with KnobReplan when its key's identity died with the old
+        fusion plan."""
+        with self._inflight_lock:
+            part = self._inflight.get(pkey)
+        if part is None or not self._unpark(part):
+            return
+        if (part.knob_gen != self._knob_gen
+                and part.round >= self._knob_fusion_eff
+                and (pkey >> 16) in self._fusion_keys):
+            self._finish_part(pkey, KnobReplan(
+                f"push for key {pkey} withdrawn: a FUSION_BYTES switch "
+                f"re-partitioned the tree (generation {part.knob_gen} "
+                f"-> {self._knob_gen}) — re-plan and re-dispatch"))
+            return
+        part.stale_retries += 1
+        if part.stale_retries > 4:
+            # Bounded like the CODEC_STALE replay: a push still rejected
+            # after several adopt-and-ack cycles means the acked epoch
+            # keeps moving under us (knob thrash) or a server/worker
+            # disagreement — fail the handle loudly instead of replaying
+            # forever while the round wedges.
+            self._finish_part(pkey, RuntimeError(
+                f"push for key {pkey} was rejected KNOB_STALE "
+                f"{part.stale_retries} times in a row despite adopting "
+                f"the server's knob doc each time — check for knob "
+                f"thrash (bps doctor: knob_thrash)"))
+            return
+        part.phase = "push"
+        # Stamp the current generation: the part survives THIS switch
+        # (its key is layout-independent), so the dispatcher gate must
+        # not withdraw it.
+        part.knob_gen = self._knob_gen
+        with self._transport_lock:
+            self._tstats["replayed_pushes"] += 1
+        with self._cv:
+            self._queue.add(part.pkey, part.priority, part.credit_ln)
+            self._cv.notify_all()
+
+    # -- server-resident optimizer plane (CMD_OPT) --------------------------
+    @staticmethod
+    def _opt_kwargs_to_str(kwargs: Optional[dict]) -> str:
+        """Canonical kwargs string for an optimizer declaration ("" =
+        off): ``opt`` leads, the remaining hyperparams follow sorted,
+        float values ride ``repr()`` — the shortest decimal that
+        round-trips, which the server's strtod parses back to the
+        IDENTICAL f64 the worker-local optax baseline holds.  The
+        f32-exact equivalence law starts at this string."""
+        if not kwargs:
+            return ""
+        kw = {str(k): v for k, v in kwargs.items()}
+        name = str(kw.pop("opt", "sgd"))
+        parts = [f"opt={name}"]
+        for k in sorted(kw):
+            v = kw[k]
+            parts.append(
+                f"{k}={repr(float(v)) if isinstance(v, float) else v}")
+        return ",".join(parts)
+
+    def _opt_pkeys(self, declared_key: int) -> list:
+        """ALL of this key's partition keys — unlike the codec table,
+        the optimizer plane covers every partition (a sub-floor raw
+        partition's slice of the params updates server-side exactly
+        like a compressed one's).  Once armed, derived from the plan
+        rather than `_inited`: a ring transition invalidates the moved
+        partitions' `_inited` rows until their next push, and the doc
+        surface must keep covering them (the drain test reads slots_crc
+        on BOTH sides of the handoff)."""
+        with self._codec_lock:
+            rec = self._opt_armed.get(declared_key)
+        if rec and rec.get("nbytes"):
+            return sorted(pk for pk, _, _, _ in
+                          self._plan(declared_key, rec["nbytes"]))
+        return sorted(pk for pk in self._inited
+                      if pk >> 16 == declared_key)
+
+    def propose_opt(self, declared_key: int, kwargs,
+                    effective_round: int = 0) -> dict:
+        """Declare (or switch) ``declared_key``'s server-resident
+        optimizer, atomically at a round boundary.
+
+        Sends an epoch-versioned CMD_OPT SET for each declared partition
+        to its owner ("applied only if newer" — the CMD_CODEC law, so
+        every worker declaring the same trainer config is idempotent and
+        racing proposers converge on one winner).  The mode takes effect
+        at the first round boundary at/after ``effective_round``; from
+        that round on the key publishes post-update *parameters* instead
+        of sums.  ``kwargs`` is a dict like ``{"opt": "adam", "lr":
+        1e-3, ...}`` (or a pre-canonicalized string); None/"" switches
+        the update stage off.  Returns {"accepted", "epoch", "doc"}."""
+        import json as _json
+        kwstr = (kwargs if isinstance(kwargs, str)
+                 else self._opt_kwargs_to_str(kwargs))
+        pkeys = self._opt_pkeys(declared_key)
+        if not pkeys:
+            raise RuntimeError(
+                f"propose_opt: key {declared_key} has no declared "
+                f"partitions yet — arm_server_opt() declares them first")
+        with self._codec_lock:
+            rec = self._opt_armed.get(declared_key) or {}
+            epoch = int(rec.get("epoch", 0)) + 1
+        kb = kwstr.encode()
+        payload = struct.pack("<IQI", epoch, int(effective_round),
+                              len(kb)) + kb
+        best: Optional[dict] = None
+        for pk in pkeys:
+            srv = self._pkey_srv.get(pk, 0)
+            doc = None
+            for _attempt in range(3):
+                conn = self.conns[srv]
+                try:
+                    resp = conn.request(CMD_OPT, pk, payload,
+                                        worker_id=self.worker_id,
+                                        flags=1, timeout=30.0)
+                except _KeyMoved as e:
+                    self._safe_adopt_ring(e.doc)
+                    srv = self._pkey_srv.get(pk, srv)
+                    continue
+                except RuntimeError as e:
+                    raise RuntimeError(
+                        "CMD_OPT failed — server too old for the "
+                        "server-resident optimizer plane (rebuild "
+                        "libbyteps_core.so)") from e
+                doc = _json.loads(bytes(resp).decode())
+                if best is None or int(doc.get("epoch", 0)) > int(
+                        best.get("epoch", 0)):
+                    best = doc
+                break
+            if doc is None:
+                # A half-armed key is silent corruption (some partitions
+                # would keep publishing sums the trainer adopts as
+                # params, and their opt_mode 0 keeps the doctor quiet) —
+                # every partition must take the declaration, or nobody
+                # trains on it.
+                raise RuntimeError(
+                    f"ring kept moving while declaring the server "
+                    f"optimizer for partition {pk} of key "
+                    f"{declared_key}; declaration aborted (retry once "
+                    f"the ring settles)")
+        accepted = bool(best) and int(best.get("epoch", -1)) == epoch and (
+            (int(best.get("pending", 0)) == 1
+             and best.get("kwargs_next", "") == kwstr)
+            or (int(best.get("pending", 0)) == 0
+                and best.get("kwargs", "") == kwstr))
+        with self._codec_lock:
+            rec = self._opt_armed.setdefault(declared_key, {})
+            rec["epoch"] = max(int(rec.get("epoch", 0)),
+                               int(best.get("epoch", epoch))
+                               if best else epoch)
+            if best is not None:
+                rec["kwargs_str"] = (best.get("kwargs_next")
+                                     or best.get("kwargs") or kwstr)
+            else:
+                rec["kwargs_str"] = kwstr
+        get_logger().info(
+            "server-opt proposal for key %d (%s): %s -> %r at round >= "
+            "%d (epoch %d)", declared_key, self._label(declared_key),
+            "accepted" if accepted else "superseded", kwstr or "off",
+            int(effective_round), epoch)
+        return {"accepted": accepted, "epoch": epoch, "doc": best}
+
+    def seed_params(self, declared_key: int, flat) -> None:
+        """Bootstrap the key's initial parameters to each partition's
+        owner (CMD_OPT flags bit1): raw f32, applied only while the
+        server holds none — idempotent across workers shipping the same
+        broadcast weights, a no-op against migrated-in state."""
+        flat = np.ascontiguousarray(np.asarray(flat), np.float32).ravel()
+        plan = self._plan(declared_key, flat.nbytes)
+        mv = memoryview(flat).cast("B")
+        for pkey, off, ln, srv in plan:
+            payload = bytes(mv[off:off + ln])
+            srv_i = self._pkey_srv.get(pkey, srv)
+            for _attempt in range(3):
+                try:
+                    self.conns[srv_i].request(
+                        CMD_OPT, pkey, payload,
+                        worker_id=self.worker_id, flags=2, timeout=60.0)
+                    break
+                except _KeyMoved as e:
+                    self._safe_adopt_ring(e.doc)
+                    srv_i = self._pkey_srv.get(pkey, srv_i)
+            else:
+                # An unseeded partition never updates (param_version
+                # stalls while its siblings train) — fail the bootstrap
+                # loudly instead.
+                raise RuntimeError(
+                    f"ring kept moving while seeding params for "
+                    f"partition {pkey} of key {declared_key}; seed "
+                    f"aborted (retry once the ring settles)")
+
+    def arm_server_opt(self, declared_key: int, params, opt_kwargs,
+                       params_fn=None, effective_round: int = 0) -> dict:
+        """One-call bootstrap for the parameter-pull session mode:
+        declare the key's partitions (idempotent CMD_INIT, carrying the
+        key's current codec kwargs so the push-leg compression contract
+        is untouched), send the epoch-versioned optimizer declaration to
+        each partition's owner, and seed the initial parameters.
+
+        ``params_fn`` (optional but recommended) returns the caller's
+        CURRENT flat f32 params — the re-seed source when a
+        post-failover fresh owner answers round 0 for this key
+        (ServerOptTrainer wires its adopted view in here)."""
+        flat = np.ascontiguousarray(np.asarray(params), np.float32).ravel()
+        comp = self._compressors.get(declared_key)
+        kw_bytes = comp.kwargs_string().encode() if comp else b""
+        plan = self._plan(declared_key, flat.nbytes)
+        self._init_parts(plan, kw_bytes)
+        res = self.propose_opt(declared_key, opt_kwargs,
+                               effective_round=effective_round)
+        self.seed_params(declared_key, flat)
+        with self._codec_lock:
+            rec = self._opt_armed.setdefault(declared_key, {})
+            rec["params_fn"] = params_fn
+            rec["nbytes"] = flat.nbytes
+        return res
+
+    def fetch_opt_docs(self, declared_key: int,
+                       timeout: float = 10.0) -> dict:
+        """{pkey: authoritative opt doc} via CMD_OPT GET on each of the
+        key's partitions — param_version / opt_step / slots_crc, the
+        exactly-one-update audit surface tests and tooling read."""
+        import json as _json
+        out = {}
+        for pk in self._opt_pkeys(declared_key):
+            srv = self._pkey_srv.get(pk, 0)
+            for _attempt in range(3):
+                try:
+                    resp = self.conns[srv].request(
+                        CMD_OPT, pk, b"", worker_id=self.worker_id,
+                        timeout=timeout)
+                except _KeyMoved as e:
+                    self._safe_adopt_ring(e.doc)
+                    srv = self._pkey_srv.get(pk, srv)
+                    continue
+                out[pk] = _json.loads(bytes(resp).decode())
+                break
+        return out
+
+    def opt_table(self) -> dict:
+        """Local view of the armed server-opt keys (the codec_table()
+        analog for tooling): {label: {"declared_key", "epoch",
+        "kwargs"}}."""
+        out = {}
+        with self._codec_lock:
+            for dk, rec in self._opt_armed.items():
+                out[self._label(dk)] = {
+                    "declared_key": dk,
+                    "epoch": int(rec.get("epoch", 0)),
+                    "kwargs": rec.get("kwargs_str", ""),
+                }
+        return out
+
+    def _opt_rebase_reseed(self, conn: "_ServerConn",
+                           part: "_PartTask") -> None:
+        """A server answered a round BEHIND ours for an opt-armed key (a
+        restart, or a SIGKILL failover handed the range to a fresh owner
+        with no migrated state): re-declare the optimizer config and
+        re-seed this partition's params slice from the trainer's adopted
+        view, so the rebased rounds continue the trajectory.  Stateless
+        modes (sgd) recover bit-identically — the params after round r
+        are exactly what every worker pulled; stateful slots
+        (momentum/adam m, v) cannot be rebuilt from the workers and
+        restart zeroed (docs/server-optimizer.md "Failover"; drain and
+        scale-up migrate them byte-equal instead)."""
+        dk = part.pkey >> 16
+        with self._codec_lock:
+            rec = dict(self._opt_armed.get(dk) or {})
+        if not rec or rec.get("params_fn") is None:
+            return
+        try:
+            # Probe first: a replication-armed ring hands the fresh owner
+            # the replicated params/m/v (docs/elasticity.md "zero-loss
+            # law"), so a rebase onto an owner that already HOLDS params
+            # must not re-seed (the server would ignore the flags&2 seed
+            # anyway) and must not count an opt_reseed — the counter is
+            # the proof surface for slot continuity.
+            import json as _json
+            doc = _json.loads(bytes(conn.request(
+                CMD_OPT, part.pkey, b"", worker_id=self.worker_id,
+                timeout=10.0)).decode())
+            if int(doc.get("param_version", 0)) > 0 \
+                    or int(doc.get("params_n", 0)) > 0:
+                get_logger().info(
+                    "server-opt key %d: owner %s:%d already holds "
+                    "params (param_version=%s) — skipping re-seed",
+                    part.pkey, conn.host, conn.port,
+                    doc.get("param_version"))
+                return
+        except Exception:
+            pass    # probe is best-effort; fall through to the re-seed
+        try:
+            kwstr = rec.get("kwargs_str", "")
+            kb = kwstr.encode()
+            payload = struct.pack("<IQI", int(rec.get("epoch", 1)), 0,
+                                  len(kb)) + kb
+            conn.request(CMD_OPT, part.pkey, payload,
+                         worker_id=self.worker_id, flags=1, timeout=30.0)
+            flat = np.ascontiguousarray(
+                np.asarray(rec["params_fn"]()), np.float32).ravel()
+            mv = memoryview(flat).cast("B")
+            conn.request(CMD_OPT, part.pkey,
+                         bytes(mv[part.off:part.off + part.ln]),
+                         worker_id=self.worker_id, flags=2, timeout=60.0)
+            with self._transport_lock:
+                self._tstats["opt_reseeds"] += 1
+            get_logger().warning(
+                "server-opt key %d: re-seeded optimizer config + params "
+                "onto %s:%d after rebase", part.pkey, conn.host,
+                conn.port)
+        except Exception:
+            get_logger().exception(
+                "server-opt re-seed for key %d failed (rounds will "
+                "publish sums and param_version will stall)", part.pkey)
+
+    # -- partition planning -------------------------------------------------
+    def _plan(self, declared_key: int, nbytes: int) -> list:
+        """[(pkey, offset, length, server_idx)] for a tensor of `nbytes`
+        bytes.
+
+        Partition bounds and key encoding come from the native core; server
+        placement uses the configured hash over the partition key, with
+        accumulated per-server load logged like the reference's placement
+        summary (reference: global.cc:643-692, 675-682).  The LANE within
+        a server's pool is deliberately NOT planned here: it is picked at
+        dispatch time by byte credit (_pick_lane), so a large fused bucket
+        in flight can never head-of-line-block small high-priority
+        partitions onto the same socket.
+        """
+        with self._plan_lock:
+            cached = self._plans.get((declared_key, nbytes))
+            if cached is not None:
+                return cached
+            core = get_native_core()
+            bounds = core.partition_bounds(nbytes, self.partition_bytes)
+            plan = []
+            for idx, (off, ln) in enumerate(bounds):
+                pkey = core.encode_key(declared_key, idx)
+                if self._ring is not None:
+                    # Ring placement (the elastic law, common/ring.py):
+                    # owner id -> this session's conn slot.  The server
+                    # enforces the same law once the epoch advances, so a
+                    # stale plan self-corrects via status MOVED.
+                    with self._ring_lock:
+                        srv = self._srv_slot[self._ring.owner(pkey)]
+                else:
+                    srv = core.key_to_server(pkey, len(self.conns),
+                                             self.hash_fn)
+                self._server_load[srv] += ln
+                plan.append((pkey, off, ln, srv))
+                self._pkey_srv[pkey] = srv
+            self._plans[(declared_key, nbytes)] = plan
+            total = sum(self._server_load) or 1
+        get_logger().debug(
+            "PS placement: tensor key=%d parts=%d; server load %s",
+            declared_key, len(plan),
+            ["%.1f%%" % (100.0 * l / total) for l in self._server_load])
+        return plan
+
+    def _pick_lane(self, srv: int, nbytes: int) -> _ServerConn:
+        """Byte-credit lane pick: the lane of server `srv` with the least
+        outstanding payload bytes wins (ties broken by fewest lifetime
+        sends, so idle lanes still rotate), charged with this partition's
+        push + expected pull bytes until the round trip settles
+        (_lane_settle).  Replaces the plan-time round-robin stripe, which
+        let a 4MB fused bucket head-of-line-block a late high-priority
+        partition assigned to the same socket."""
+        conn = self._pick_lane_from(self._data_conns[srv])
+        conn.lane_charge(nbytes)
+        return conn
+
+    @staticmethod
+    def _pick_lane_from(pool) -> _ServerConn:
+        """Least-loaded pick among the "up" lanes of one server's pool
+        (static so the scheduler policy is unit-testable on stub conns).
+        Retiring lanes (a WIRE_CONNS shrink draining outstanding bytes
+        before close) never take new work unless they are ALL that's
+        left mid-transition."""
+        if len(pool) == 1:
+            return pool[0]
+        live = [c for c in pool
+                if not getattr(c, "retiring", False)] or pool
+        up = [c for c in live if c.state() == "up"] or live
+        return min(up, key=lambda c: (c.outstanding_bytes, c.lane_sends))
+
+    def _lane_settle(self, part: "_PartTask") -> None:
+        """Return a partition's outstanding-byte charge to its lane —
+        idempotent, called wherever the partition leaves the wire (pull
+        completed, parked for replay, or failed)."""
+        debt, part.lane_debt = part.lane_debt, 0
+        if debt and part.conn is not None:
+            part.conn.lane_return(debt)
+
+    # -- dispatcher ---------------------------------------------------------
+    def _dispatch_loop(self) -> None:
+        while True:
+            with self._cv:
+                while not self._closed and (
+                        self._paused or self._queue.pending() == 0):
+                    self._cv.wait()
+                if self._closed:
+                    return
+                task = self._queue.get()
+                if task is None:
+                    # Credit exhausted: wait for report_finish to return it.
+                    self._cv.wait(timeout=1.0)
+                    continue
+            pkey, _prio, nbytes = task
+            with self._inflight_lock:
+                part = self._inflight.get(pkey)
+            if part is None:  # cancelled (session closing)
+                self._queue.report_finish(nbytes)
+                continue
+            if part.parked:
+                # Parked mid-queue (ring remap / server failover claimed
+                # it before this entry popped): return the credit and let
+                # the replay path re-enqueue it against the new owner.
+                self._queue.report_finish(nbytes)
+                with self._cv:
+                    self._cv.notify_all()
+                continue
+            if (part.knob_gen != self._knob_gen
+                    and part.phase == "push"
+                    and part.round >= self._knob_fusion_eff
+                    and (pkey >> 16) in self._fusion_keys):
+                # A FUSION_BYTES switch landed between staging and
+                # dispatch: this part's bucket key no longer exists in
+                # the fleet's layout at/past the switch round.  Sending
+                # it would merge old-layout bytes into an orphaned key
+                # (or leave a solo key one contributor short forever) —
+                # withdraw it and let the fusion layer re-plan.
+                self._queue.report_finish(nbytes)
+                with self._cv:
+                    self._cv.notify_all()
+                self._finish_part(pkey, KnobReplan(
+                    f"push for key {pkey} withdrawn before dispatch: a "
+                    f"FUSION_BYTES switch re-partitioned the tree "
+                    f"(generation {part.knob_gen} -> {self._knob_gen}) "
+                    f"— re-plan and re-dispatch"))
+                continue
+            if self.record_push_order:
+                self.push_order.append(pkey)
+            if part.ready is not None and not part.ready.is_set():
+                # Codec pipeline: the pool encodes in this same
+                # (priority desc, key asc) order ahead of this loop, so
+                # the wait is the pipeline-fill case (first partition) or
+                # an encoder still catching up — either way the pool keeps
+                # working k+1 while k's bytes go out below.
+                while not part.ready.wait(timeout=1.0):
+                    with self._cv:
+                        if self._closed:
+                            self._queue.report_finish(nbytes)
+                            return
+            if part.enc_err is not None:
+                self._queue.report_finish(nbytes)
+                with self._cv:
+                    self._cv.notify_all()
+                self._finish_part(pkey, part.enc_err)
+                continue
+            core = get_native_core()
+            if core.trace_on and part.enq_ts:
+                part.push_ts = core.trace_now_us()
+                core.trace_record_part(part.label, "QUEUE", part.enq_ts,
+                                       part.push_ts - part.enq_ts, pkey,
+                                       part.wire_ln, part.priority)
+            part.send_mono = time.monotonic()
+            if part.enq_mono:
+                self._m_queue_wait.observe(part.send_mono - part.enq_mono)
+            # Byte-credit lane pick, charged with the push payload plus
+            # the expected pull reply (both legs ride this conn).
+            self._lane_settle(part)     # replays drop any stale charge
+            part.conn = self._pick_lane(part.srv, part.wire_ln + part.ln)
+            part.lane_debt = part.wire_ln + part.ln
+            try:
+                part.conn.send(
+                    CMD_PUSH, pkey, part.payload, worker_id=self.worker_id,
+                    dtype=part.dtype,
+                    flags=_round_flags(part.round, core.trace_on),
+                    callback=lambda data, err, pkey=pkey, nbytes=nbytes:
+                        self._on_push_ack(pkey, nbytes, err))
+            except ConnectionError as e:
+                self._queue.report_finish(nbytes)
+                if not self._park_part(pkey, "push", e):
+                    self._finish_part(pkey, e)
+
+    def _on_push_ack(self, pkey: int, nbytes: int,
+                     error: Optional[Exception]) -> None:
+        # Push landed on the server: return its credit (the reference
+        # reportFinish, scheduled_queue.cc:197-203) and issue the pull.
+        self._queue.report_finish(nbytes)
+        with self._cv:
+            self._cv.notify_all()
+        if error is not None:
+            # Ring redirect: the server handed the key's state to its new
+            # owner and told us so — park the partition and replay it
+            # there (same gradient, so no round is lost and the server's
+            # seen-dedup keeps it single-counted).
+            if isinstance(error, _KeyMoved):
+                self._on_key_moved(pkey, "push", error)
+                return
+            # Codec renegotiation race: the push carried the wrong wire
+            # format for the round being merged — re-encode the same
+            # gradient under the authoritative codec and replay.
+            if isinstance(error, _CodecStale):
+                self._on_codec_stale(pkey, "push", error)
+                return
+            # Global knob renegotiation race: this worker missed a knob
+            # switch — adopt the table, apply, ACK, then replay in place
+            # (pool/lane knobs) or withdraw for re-plan (fusion layout).
+            if isinstance(error, _KnobStale):
+                self._on_knob_stale(pkey, "push", error)
+                return
+            # A reconnect-tagged loss parks the partition for replay (the
+            # ack never arrived, so the push phase must be re-run — the
+            # server's seen-dedup and the stale-round push guard make the
+            # replay idempotent); anything else fails the handle as before.
+            if not self._park_part(pkey, "push", error):
+                self._finish_part(pkey, error)
+            return
+        self._mark_progress()
+        with self._inflight_lock:
+            part = self._inflight.get(pkey)
+            if part is not None:
+                part.phase = "pull"   # push acked: only the pull remains
+        if part is None:
+            return
+        part.ack_mono = time.monotonic()
+        if part.send_mono:
+            self._m_push_rtt.observe(part.ack_mono - part.send_mono)
+        core = get_native_core()
+        if core.trace_on and part.push_ts:
+            part.pull_ts = core.trace_now_us()
+            core.trace_record_part(part.label, "PUSH", part.push_ts,
+                                   part.pull_ts - part.push_ts, pkey,
+                                   part.wire_ln, part.priority)
+        try:
+            self._issue_pull(part)
+        except ConnectionError as e:
+            if not self._park_part(pkey, "pull", e):
+                self._finish_part(pkey, e)
+
+    def _issue_pull(self, part: "_PartTask") -> None:
+        """Send one partition's pull leg (first issue and replay share
+        this).  Raises ConnectionError if the conn can't take it."""
+        # Non-compressed pulls land straight in the output buffer (the
+        # receiver matches on length); bidirectional compressed pulls
+        # come back re-encoded at a different length and take the
+        # allocating path + wire_decode.  sink_live guards the in-place
+        # write against a handle whose wait() already timed out.
+        #
+        # With the auditor armed, the response is payload + 24 trailer
+        # bytes, so the zero-copy sink cannot length-match: audited pulls
+        # ride a pooled buffer instead and _complete_pull splits/verifies
+        # before landing the body (one extra body copy per pull — the
+        # armed-only cost BENCH_AUDIT=1 measures; the unarmed path is
+        # untouched).  Health-SAMPLED rounds skip the sink for the same
+        # reason: the pooled payload routes through the codec pool, so
+        # the O(n) non-finite scan never runs on the receiver thread.
+        part.audit = self._audit_wire
+        health_due = (self._health is not None
+                      and self._health.pull_due(part.round))
+        sink = None
+        if not part.bidirectional and not part.audit and not health_due:
+            sink = memoryview(part.handle.out).cast("B")[
+                part.off:part.off + part.ln]
+        part.conn.send(
+            CMD_PULL, part.pkey, worker_id=self.worker_id,
+            dtype=DT_AUDIT_PULL if part.audit else 0,
+            flags=_round_flags(part.round, get_native_core().trace_on),
+            sink=sink,
+            sink_live=lambda h=part.handle: not h.failed(),
+            pool_ok=True,
+            callback=lambda data, err, pkey=part.pkey:
+                self._on_pull(pkey, data, err))
+
+    def _on_pull(self, pkey: int, data: bytes,
+                 error: Optional[Exception]) -> None:
+        if error is not None:
+            # Ring redirect on the pull leg: the published round migrated
+            # with the key — re-pull from the new owner.
+            if isinstance(error, _KeyMoved):
+                self._on_key_moved(pkey, "pull", error)
+                return
+            # Pull leg lost to a recoverable drop: the push WAS acked, so
+            # replay re-issues only the pull (round flags unchanged — the
+            # server serves completed_round or pends until it publishes).
+            if not self._park_part(pkey, "pull", error):
+                self._finish_part(pkey, error)
+            return
+        self._mark_progress()
+        with self._inflight_lock:
+            part = self._inflight.pop(pkey, None)
+            if part is not None:
+                # Bump inside the lock: a waiter in push_pull_async must see
+                # the new round the moment the key leaves _inflight.
+                self._round[pkey] = part.round + 1
+        if part is None:
+            if isinstance(data, _PooledBuf):
+                data.release()
+            return
+        self._lane_settle(part)     # round trip done: return lane credit
+        if _signals.plane() is not None:
+            # Per-key timer feed for the windowed signal plane: one call
+            # per completed partition round trip, module-None-checked so
+            # an unarmed run (SIGNAL_WINDOW_S=0) pays a single global
+            # read.  serve = push-ack -> pull-data: the server's merge
+            # wait on peers' pushes (+ the pull wire) — the always-on
+            # straggler component.
+            now_m = time.monotonic()
+            _signals.note_part(
+                part.label or f"key_{pkey >> 16}",
+                part.ln, part.ln, wire_bytes=part.wire_ln,
+                queue_s=(part.send_mono - part.enq_mono
+                         if part.enq_mono and part.send_mono else 0.0),
+                rtt_s=(part.ack_mono - part.send_mono
+                       if part.send_mono and part.ack_mono else 0.0),
+                serve_s=(now_m - part.ack_mono if part.ack_mono
+                         else 0.0))
+        core = get_native_core()
+        if core.trace_on and part.pull_ts:
+            core.trace_record_part(part.label, "PULL", part.pull_ts,
+                                   core.trace_now_us() - part.pull_ts, pkey,
+                                   len(data), part.priority)
+        if (self._codec_pool is not None
+                and not isinstance(data, memoryview)
+                and (part.audit
+                     or (self._health is not None
+                         and self._health.pull_due(part.round))
+                     or (part.bidirectional
+                         and len(data) != part.ln))):
+            # Compressed pull payload: decode OFF the receiver thread, so
+            # one slow decode cannot stall every other partition's
+            # response parsing on this socket (the reference's DECOMPRESS
+            # loop thread, core_loops.cc:618-646).  The part already left
+            # _inflight above, so a staged re-push of the same key
+            # proceeds while this round's payload decodes.  Audited pulls
+            # route here too: the digest pass (and the body copy the
+            # trailer forces) runs on a codec thread, not the receiver.
+            try:
+                self._codec_pool.submit(
+                    part.priority, pkey,
+                    lambda part=part, data=data:
+                        self._complete_pull(part, data))
+                return
+            except RuntimeError:
+                pass    # pool already closing: finish inline below
+        self._complete_pull(part, data)
+
+    def _complete_pull(self, part: "_PartTask", data) -> None:
+        """Land one pull payload in the handle's output buffer.
+
+        Runs on the receiver thread for raw/sink payloads (a straight
+        frombuffer/no-op), and on a codec pool thread for compressed
+        payloads (wire_decode is real work) — inline mode
+        (compress_threads=0) keeps everything on the receiver thread.
+        """
+        core = get_native_core()
+        verify = None
+        try:
+            n = part.ln // 4
+            if isinstance(data, memoryview):
+                # Sink path: the receiver already landed the payload in
+                # part.handle.out (length-matched) — nothing to copy.
+                pass
+            else:
+                raw = data.mv if isinstance(data, _PooledBuf) else data
+                if part.audit:
+                    # Audited pull: the last 24 bytes are the server's
+                    # publish-digest trailer.  Stripping is immediate;
+                    # the digest pass itself is DEFERRED until after the
+                    # handle resolves (bottom of this function) — the
+                    # auditor observes, it never fails the handle, so
+                    # its CRC belongs off the round's critical path.
+                    raw, verify = self._audit_split(part, raw)
+                if part.bidirectional and len(raw) != part.ln:
+                    # Bidirectional compressor: the merged buffer came back
+                    # re-compressed; decode it (reference: worker DECOMPRESS
+                    # stage, core_loops.cc:618-646) — straight from the
+                    # (pooled) receive view INTO the handle's output slice:
+                    # no bytes() snapshot, no scratch f32 array, no copy
+                    # pass.  Writing into `out` directly mirrors the raw
+                    # sink path's contract (out is session-allocated and
+                    # wait() never returns it after a failure), so the
+                    # failed() check only skips dead work.
+                    from .wire import decode as wire_decode
+                    t0 = (core.trace_now_us()
+                          if core.trace_on
+                          or self._codec_pool is not None
+                          or _signals.plane() is not None
+                          else 0)
+                    if part.handle.failed():
+                        get_logger().debug(
+                            "discarding late pull for key %d: handle "
+                            "already timed out", part.pkey)
+                    else:
+                        off = part.off // 4
+                        wire_decode(raw, n,
+                                    out=part.handle.out[off:off + n])
+                    if t0:
+                        dur = core.trace_now_us() - t0
+                        if core.trace_on:
+                            core.trace_record_part(
+                                part.label, "DECODE", t0, dur, part.pkey,
+                                len(raw), part.priority)
+                        if self._codec_pool is not None:
+                            self._codec_pool.record("DECODE", dur)
+                        _signals.note_codec(
+                            part.label or f"key_{part.pkey >> 16}",
+                            "decode", dur)
+                else:
+                    got = np.frombuffer(raw, np.float32)
+                    if got.size != n:
+                        raise ValueError(
+                            f"PS pull size mismatch for key {part.pkey}: "
+                            f"got {got.size} f32, want {n}")
+                    if not part.handle._store_result(part.off // 4, got):
+                        get_logger().debug(
+                            "discarding late pull for key %d: handle "
+                            "already timed out", part.pkey)
+            if self._health is not None and not part.handle.failed():
+                # Pull-side value health: the landed sum, sampled at the
+                # monitor's cadence — a NaN storm that originated on
+                # ANOTHER worker is caught here within the same round.
+                off = part.off // 4
+                self._health.check_pull(
+                    part.label, part.round,
+                    part.handle.out[off:off + n], worker=self.worker_id)
+            part.handle._part_done(pkey=part.pkey)
+            if part.handle.done() and not part.handle.failed():
+                # Flight-recorder round marker: one event per tensor per
+                # completed sync round — the timeline postmortem.py merges
+                # across workers to name where trajectories diverged.
+                _flightrec.record(
+                    "round", key=part.label.rsplit(".part", 1)[0],
+                    round=part.round)
+            if verify is not None:
+                # Digest + verdict AFTER the handle resolved: the caller
+                # is already staging the next round while this CRC runs
+                # (on the codec pool thread the audited path rode in
+                # on).  The pooled buffer is still checked out — release
+                # below happens strictly after.
+                verify()
+        except Exception as e:
+            part.handle._part_done(e, pkey=part.pkey)
+        finally:
+            if isinstance(data, _PooledBuf):
+                data.release()
+            part.done_evt.set()
+
+    def _finish_part(self, pkey: int, error: Exception) -> None:
+        with self._inflight_lock:
+            part = self._inflight.pop(pkey, None)
+        if part is not None:
+            self._lane_settle(part)
+            part.handle._part_done(error, pkey=pkey)
+            part.done_evt.set()
+
+    # -- fault tolerance: parking, replay, watchdog -------------------------
+    def _mark_progress(self) -> None:
+        self._last_progress = time.monotonic()
+
+    def _park_part(self, pkey: int, phase: str,
+                   error: Exception) -> bool:
+        """Stash an in-flight partition for post-reconnect replay instead
+        of failing its handle.  Only recoverable drops park (`_ConnLost`
+        with an active reconnect policy); returns False when the caller
+        should fail the partition as before.  Idempotent: the send-raise
+        and drop-resolution paths can both observe one loss.  Server
+        failover (server_evict_timeout_s > 0) arms parking too: a drop
+        must hold partitions until the lease scanner rules the server
+        dead (ring transition + remap to the new owner) or merely
+        rebooting (re-dial + replay)."""
+        recovery_armed = (self.reconnect_attempts > 0
+                          or self.server_evict_timeout_s > 0)
+        if not (recovery_armed
+                and isinstance(error, _ConnLost) and error.will_reconnect):
+            return False
+        if getattr(self, "server_async", False) and phase == "push":
+            # Async mode has no rounds: the server can't tell a replayed
+            # push (whose ack was lost AFTER the sum applied) from a new
+            # delta — neither the seen-dedup nor the stale-round guard is
+            # active.  An at-least-once push would silently double-apply
+            # the gradient, so async push losses fail loudly instead of
+            # parking (pull legs are idempotent and still replay).
+            return False
+        with self._inflight_lock:
+            part = self._inflight.get(pkey)
+            if part is None:
+                return True     # already finished/cancelled elsewhere
+            if part.parked:
+                return True     # the other path got here first
+            part.parked = True
+            part.phase = phase
+        self._lane_settle(part)    # parked work holds no lane credit
+        with self._transport_lock:
+            self._tstats["parked_parts"] += 1
+            self._tstats["parked_total"] += 1
+        get_logger().debug("parked partition key=%d phase=%s (%s)",
+                           pkey, phase, error)
+        if part.conn.state() == "up" and part.conn.on_reconnect is not None:
+            # The conn finished re-dialing before this parking landed (a
+            # fast re-dial can beat the thread that observed the loss), so
+            # the post-reconnect replay scan ran too early to see this
+            # part and no future drop is guaranteed — kick another pass.
+            # Idempotent: replay_lock serializes passes and _unpark lets
+            # exactly one claim each part.
+            threading.Thread(target=part.conn._run_on_reconnect,
+                             daemon=True, name="bps-ps-replay").start()
+        return True
+
+    def _unpark(self, part: "_PartTask") -> bool:
+        """Atomically claim a parked part for replay (False if another
+        replay pass already took it or it finished meanwhile)."""
+        with self._inflight_lock:
+            if self._inflight.get(part.pkey) is not part or not part.parked:
+                return False
+            part.parked = False
+        with self._transport_lock:
+            self._tstats["parked_parts"] -= 1
+        return True
+
+    def _on_conn_gave_up(self, conn: "_ServerConn", exc: Exception) -> None:
+        """Reconnect budget exhausted: everything parked on this conn fails
+        loudly now (the fail-fast contract, just delayed by the backoff)."""
+        with self._transport_lock:
+            self._tstats["reconnects_failed"] += 1
+        _flightrec.record("conn_gave_up", host=conn.host, port=conn.port,
+                          error=str(exc), worker=self.worker_id)
+        with self._inflight_lock:
+            mine = [p for p in self._inflight.values()
+                    if p.conn is conn and p.parked]
+        err = ConnectionError(
+            f"PS reconnect to {conn.host}:{conn.port} gave up after "
+            f"{conn.reconnect_attempts} attempts: {exc}")
+        for p in mine:
+            self._finish_part(p.pkey, err)
+
+    def _on_conn_reconnected(self, conn: "_ServerConn") -> None:
+        """Post-reconnect handshake + replay (runs on the conn's replay
+        thread, serialized by conn.replay_lock).
+
+        Order matters: (1) HELLO re-checks the server's mode flags — a
+        replacement server booted with different async/schedule settings
+        would silently corrupt training; (2) the conn's keys drop out of
+        `_inited` so the next stage re-declares and re-seeds rounds from
+        server state; (3) every parked partition is re-declared via
+        CMD_INIT, reconciled against the server's completed_round (skip
+        the push if its round already published — never double-count;
+        rebase the round if the server restarted and lost it), then
+        replayed in (priority desc, key asc) order — pushes through the
+        scheduler/dispatcher, pull legs directly.
+        """
+        if not getattr(self, "_session_ready", False):
+            return      # drop during __init__: nothing staged to replay yet
+        if self._left:
+            # A departed worker must NOT re-run the handshake: HELLO is
+            # the join door, and re-sending it after leave() would
+            # re-admit this worker into the membership — every future
+            # round would then wait on pushes that are never coming.
+            # (A deliberate rejoin is a NEW session, which HELLOs fresh.)
+            self._fail_parked_on(conn, ConnectionError(
+                "worker left the membership; not replaying"))
+            return
+        # The peer may be a RESTARTED process with a fresh steady_clock
+        # epoch: its pre-restart offset history would place post-restart
+        # trace spans wildly off the worker timeline.  Drop it; the next
+        # sync/fetch re-estimates against the live process.
+        conn_srv = next((i for i, pool in enumerate(self._data_conns)
+                         if conn in pool), None)
+        if conn_srv is not None:
+            with self._clock_lock:
+                self._clock_offsets.pop(conn_srv, None)
+        try:
+            mode = conn.request(
+                CMD_HELLO, worker_id=self.worker_id,
+                flags=HELLO_FLAG_OBSERVER if self.pull_only else 0)
+            modes = ((bool(mode[0]), bool(mode[1]))
+                     if len(mode) >= 2 else (False, False))
+            if modes != (self.server_async, self.server_schedule):
+                raise RuntimeError(
+                    f"PS server at {conn.host}:{conn.port} came back with "
+                    f"different mode flags (async, schedule): {modes} vs "
+                    f"{(self.server_async, self.server_schedule)} — a "
+                    f"replacement server must share BYTEPS_ENABLE_ASYNC / "
+                    f"BYTEPS_SERVER_ENABLE_SCHEDULE settings")
+        except ConnectionError as e:
+            # Dropped again before the handshake finished: the next
+            # reconnect cycle re-runs this whole procedure.
+            get_logger().warning("PS reconnect handshake interrupted: %s", e)
+            return
+        except Exception as e:
+            get_logger().error("PS reconnect handshake failed: %s", e)
+            self._fail_parked_on(conn, e)
+            return
+        if self._audit_wire:
+            # The peer may be a REPLACEMENT server booted without
+            # BYTEPS_TPU_AUDIT: its pulls would carry no trailer, and a
+            # marker-sending client would strip 24 bytes of real payload.
+            # Downgrade the whole session loudly BEFORE any pull replays
+            # (the auditor is an observer — losing it must never corrupt
+            # the data path it watches).
+            try:
+                doc = self._audit_probe(conn)
+                if not doc.get("armed"):
+                    get_logger().error(
+                        "PS server at %s:%d came back WITHOUT "
+                        "BYTEPS_TPU_AUDIT; disabling pull auditing for "
+                        "this session (redeploy the server audit-armed "
+                        "to restore it)", conn.host, conn.port)
+                    self._audit_wire = False
+            except ConnectionError as e:
+                get_logger().warning(
+                    "PS reconnect audit re-probe interrupted: %s", e)
+                return
+            except Exception as e:
+                get_logger().error(
+                    "PS server at %s:%d no longer answers CMD_AUDIT "
+                    "(%s); disabling pull auditing for this session",
+                    conn.host, conn.port, e)
+                self._audit_wire = False
+        _flightrec.record("reconnected", host=conn.host, port=conn.port,
+                          worker=self.worker_id)
+        # Invalidate the re-declare cache for every key planned on this
+        # conn's SERVER: a server restart lost its store sizes and round
+        # counters, and the next _init_parts must re-seed from live state.
+        # (Keys whose state survived just get a cheap idempotent re-INIT.)
+        stale = [pkey for pkey, s in list(self._pkey_srv.items())
+                 if s == conn_srv]
+        for pkey in stale:
+            self._inited.pop(pkey, None)
+        with self._inflight_lock:
+            mine = [p for p in self._inflight.values()
+                    if p.conn is conn and p.parked]
+        mine.sort(key=lambda p: (-p.priority, p.pkey))
+        if mine:
+            get_logger().warning(
+                "replaying %d parked partition(s) on %s:%d",
+                len(mine), conn.host, conn.port)
+            _flightrec.record("replay", host=conn.host, port=conn.port,
+                              parts=len(mine), worker=self.worker_id)
+        for part in mine:
+            try:
+                self._replay_part(conn, part)
+            except _KeyMoved as e:
+                # The reconnected server no longer owns this key (a ring
+                # transition landed during the outage): hand the part to
+                # the remap path instead of failing it.
+                self._on_key_moved(part.pkey, part.phase, e)
+            except ConnectionError as e:
+                # Dropped mid-replay: re-park; the next reconnect cycle
+                # picks the remainder up.  (The part was already claimed
+                # by _unpark, so re-park it explicitly.)  If the conn
+                # meanwhile gave up for good, parking is refused — fail
+                # the part so its handle never dangles.
+                err = (e if isinstance(e, _ConnLost)
+                       else conn._lost_exc(str(e)))
+                if not self._park_part(part.pkey, part.phase, err):
+                    self._finish_part(part.pkey, err)
+                get_logger().warning(
+                    "replay interrupted on %s:%d: %s", conn.host,
+                    conn.port, e)
+                return
+            except Exception as e:
+                self._finish_part(part.pkey, e)
+
+    def _fail_parked_on(self, conn: "_ServerConn", exc: Exception) -> None:
+        with self._inflight_lock:
+            mine = [p for p in self._inflight.values()
+                    if p.conn is conn and p.parked]
+        for p in mine:
+            self._finish_part(p.pkey, exc)
+
+    def _replay_part(self, conn: "_ServerConn", part: "_PartTask") -> None:
+        """Reconcile one parked partition against server state and replay
+        the outstanding leg(s).  Never double-counts a push: the server's
+        completed_round (from the idempotent re-INIT) tells whether the
+        partition's round already published, the per-worker `seen` dedup
+        absorbs a replay into a still-open round, and the server drops
+        pushes whose round flag is stale."""
+        if not self._unpark(part):
+            return      # another replay pass or a failure beat us to it
+        replay_push = self._reconcile_part(conn, part)
+        if replay_push:
+            # Back through the scheduler: replays dispatch in the same
+            # (priority desc, key asc) order as first sends, and re-charge
+            # the same credit (returned when the original send failed).
+            with self._transport_lock:
+                self._tstats["replayed_pushes"] += 1
+            with self._cv:
+                self._queue.add(part.pkey, part.priority, part.credit_ln)
+                self._cv.notify_all()
+        else:
+            with self._transport_lock:
+                self._tstats["replayed_pulls"] += 1
+            # Pull-only replay: re-pick a live lane on the partition's
+            # (possibly re-ringed) server and re-charge it for the reply
+            # leg (the original charge was returned at park time).
+            part.conn = self._pick_lane(part.srv, part.ln)
+            part.lane_debt = part.ln
+            self._issue_pull(part)
+
+    def _reconcile_part(self, conn: "_ServerConn",
+                        part: "_PartTask") -> bool:
+        """Idempotent CMD_INIT against ``conn``'s server + round
+        reconciliation for one partition; returns True when the push leg
+        must (re)run.  Shared by the reconnect replay and the ring-remap
+        path (where ``conn`` is the key's NEW owner — a fresh owner after
+        failover answers completed_round 0 and the partition rebases,
+        re-pushing the open round from gradient state)."""
+        comp = self._compressors.get(part.pkey >> 16)
+        kw_bytes = comp.kwargs_string().encode() if comp else b""
+        init_payload = struct.pack("<QI", part.ln, len(kw_bytes)) + kw_bytes
+        resp = conn.send(CMD_INIT, part.pkey, init_payload,
+                         worker_id=self.worker_id).wait(60.0)
+        (completed,) = struct.unpack("<Q", resp)
+        self._inited[part.pkey] = (part.ln, kw_bytes)
+        replay_push = part.phase == "push"
+        if not self.server_async:
+            if completed == part.round + 1:
+                # The round published while we were away: our push WAS
+                # counted (sync rounds publish only with all workers in),
+                # so re-pushing would pollute the next round — pull only.
+                replay_push = False
+                part.phase = "pull"
+            elif completed == part.round and part.phase == "pull" \
+                    and self._repl_armed:
+                # Replication failover: the fresh owner adopted the
+                # successor's replica at the LAST publish boundary, so
+                # round `part.round` is open again with an empty `seen`
+                # set — every worker's push for it died with the old
+                # owner even though each was individually acked.  Re-push
+                # from gradient state; if the owner in fact survived (a
+                # plain reconnect) its `seen` dedup drops the duplicate.
+                get_logger().warning(
+                    "PS server %s:%d at replica boundary for key %d "
+                    "(completed=%d == staged round): re-pushing the open "
+                    "round (repl failover; seen-dedup absorbs duplicates)",
+                    conn.host, conn.port, part.pkey, completed)
+                replay_push = True
+                part.phase = "push"
+            elif completed < part.round:
+                # The server lost state (restart): rebase this partition
+                # onto the server's round and re-push — the store is gone,
+                # so the push must be re-applied regardless of phase.
+                get_logger().warning(
+                    "PS server %s:%d lost round state for key %d "
+                    "(completed=%d < round=%d): rebasing and re-pushing",
+                    conn.host, conn.port, part.pkey, completed, part.round)
+                with self._inflight_lock:
+                    part.round = completed
+                    self._round[part.pkey] = completed
+                replay_push = True
+                part.phase = "push"
+                # Opt-armed key on a state-less owner: re-declare the
+                # optimizer + re-seed params BEFORE the push replays, so
+                # the rebased round publishes parameters, not sums.
+                self._opt_rebase_reseed(conn, part)
+            elif completed > part.round + 1:
+                raise RuntimeError(
+                    f"PS server round state for key {part.pkey} is ahead "
+                    f"of this worker by {completed - part.round} rounds "
+                    f"(completed={completed}, staged round={part.round}) — "
+                    f"another worker is reusing this worker_id?")
+        if not replay_push:
+            part.phase = "pull"
+        return replay_push
+
+    def _watchdog_loop(self) -> None:
+        interval = max(0.2, min(self.stall_timeout_s / 4.0, 5.0))
+        while not self._watchdog_stop.wait(interval):
+            with self._inflight_lock:
+                outstanding = list(self._inflight.values())
+            if not outstanding:
+                self._mark_progress()   # idle ≠ stalled
+                continue
+            elapsed = time.monotonic() - self._last_progress
+            if elapsed < self.stall_timeout_s:
+                continue
+            self._dump_stall(outstanding, elapsed)
+            with self._transport_lock:
+                self._tstats["watchdog_trips"] += 1
+            _flightrec.record(
+                "stall", elapsed_s=round(elapsed, 2),
+                stuck_keys=sorted(p.pkey for p in outstanding)[:16],
+                worker=self.worker_id)
+            # The black-box moment the flight recorder exists for: dump
+            # the ring + local state into a postmortem bundle BEFORE
+            # failing the handles (the evidence must survive whatever
+            # the caller does with the error).
+            _flightrec.dump_bundle("stall")
+            err = RuntimeError(
+                f"PS round stalled: no partition completed for "
+                f"{elapsed:.1f}s (BYTEPS_TPU_STALL_TIMEOUT_S="
+                f"{self.stall_timeout_s}); stuck keys: "
+                f"{sorted(p.pkey for p in outstanding)[:16]}")
+            for p in outstanding:
+                self._finish_part(p.pkey, err)
+            self._mark_progress()
+
+    def _dump_stall(self, outstanding, elapsed: float) -> None:
+        """Diagnostic snapshot before failing loudly — the worker-side
+        analog of the ORDERING INVARIANT guard in server.cc."""
+        lines = [
+            f"PS STALL: no partition completed for {elapsed:.1f}s "
+            f"(timeout={self.stall_timeout_s}s); "
+            f"{len(outstanding)} partition(s) outstanding, "
+            f"queue pending={self._queue.pending()}",
+        ]
+        for p in sorted(outstanding, key=lambda p: p.pkey):
+            conn = (f"{p.conn.host}:{p.conn.port}[{p.conn.state()}]"
+                    if p.conn is not None else "<undispatched>")
+            lines.append(
+                f"  key={p.pkey} round={p.round} phase={p.phase}"
+                f" parked={p.parked} priority={p.priority}"
+                f" bytes={p.wire_ln} conn={conn}")
+        for i, pool in enumerate(self._data_conns):
+            states = ",".join(c.state() for c in pool)
+            dead = " [retired from ring]" if i in self._dead_slots else ""
+            lines.append(f"  server[{i}] conns: {states}{dead}")
+        # A dead SERVER reads as "slow keys" without this: name every
+        # server whose entire lane pool is down, with the keys planned on
+        # it — those keys are not slow, their store is unreachable (and,
+        # with failover armed, about to be claimed by the survivors).
+        for slot, host, port, owned in self._down_servers():
+            shown = ", ".join(str(k) for k in owned[:16])
+            if len(owned) > 16:
+                shown += f", ... ({len(owned)} total)"
+            lines.append(
+                f"  server[{slot}] {host}:{port} is DOWN (every lane) — "
+                f"owns {len(owned)} planned key(s): [{shown}]"
+                + ("; failover armed: the surviving ring will claim them"
+                   if self.server_evict_timeout_s > 0 else
+                   "; these keys are unreachable, not slow"))
+        with self._transport_lock:
+            lines.append(f"  transport stats: {dict(self._tstats)}")
+        # A stuck partition's round may be waiting on a peer that is GONE
+        # (evicted/left), not merely slow — name it, so the operator (and
+        # the log reader) stops hunting for a straggler that no longer
+        # exists.  Best-effort: a dead server tier degrades to a note.
+        try:
+            m = self.membership(timeout=2.0)
+            gone = sorted(w for w, r in m["workers"].items()
+                          if not r["alive"])
+            lines.append(
+                f"  membership: epoch={m['epoch']} alive={m['alive']}"
+                f" gone={gone}"
+                + (" — stuck rounds re-finalize at the next epoch"
+                   " transition; a gone peer is not coming back"
+                   if gone else ""))
+        except Exception as e:
+            lines.append(f"  membership: unavailable ({e})")
+        get_logger().error("%s", "\n".join(lines))
+
+    # -- elastic membership: heartbeat, leave, membership view --------------
+    def _lease_loop(self) -> None:
+        """Keep this worker's server-side lease warm while idle: an
+        untraced CMD_PING per server every third of the evict timeout.
+        Fire-and-forget — a mid-reconnect conn just skips a beat (the
+        re-dial's HELLO touches the lease anyway).
+
+        Every few beats it also SELF-CHECKS the membership: a worker
+        falsely evicted while its sockets stayed up (GC pause or stall
+        just past the timeout) would otherwise become a silent zombie —
+        every push acked-and-dropped as a non-member, its pulls still
+        served, training "successfully" while contributing nothing.  On
+        detecting its own eviction it logs loudly and re-HELLOs, which
+        re-admits it at the next epoch boundary."""
+        interval = max(0.05, self.evict_timeout_s / 3.0)
+        beat = 0
+        while not self._lease_stop.wait(interval):
+            if self._left:
+                return
+            for c in self.conns:
+                try:
+                    c.send(CMD_PING, worker_id=self.worker_id,
+                           callback=lambda data, err: None)
+                except (ConnectionError, OSError):
+                    pass
+            beat += 1
+            if beat % 3 == 0:       # ~once per evict timeout
+                try:
+                    self._readmit_if_evicted()
+                except Exception as e:
+                    get_logger().debug("membership self-check failed: %s",
+                                       e)
+
+    def _readmit_if_evicted(self) -> None:
+        """Detect this worker's own (false) eviction and re-admit it via
+        HELLO — see _lease_loop.  Safe to call any time; no-op while the
+        membership agrees this worker is alive, or after leave()."""
+        if self._left:
+            return
+        m = self.membership(timeout=5.0)
+        rec = m["workers"].get(self.worker_id)
+        if rec is None or rec["alive"]:
+            return
+        get_logger().error(
+            "worker %d was evicted while still alive (lease lapsed — a "
+            "stall longer than BYTEPS_TPU_EVICT_TIMEOUT_S=%.1fs?); "
+            "re-admitting via HELLO.  Rounds merged while evicted did "
+            "not include this worker's pushes.", self.worker_id,
+            self.evict_timeout_s)
+        _flightrec.record("evicted", worker=self.worker_id,
+                          epoch=int(m.get("epoch", 0)), self_heal=True)
+        # An eviction is a they-declared-us-dead moment: the bundle
+        # preserves which rounds went on without this worker.
+        _flightrec.dump_bundle("evicted")
+        for c in self.conns:
+            try:
+                c.request(CMD_HELLO, worker_id=self.worker_id,
+                          flags=HELLO_FLAG_OBSERVER if self.pull_only
+                          else 0, timeout=10.0)
+            except (ConnectionError, OSError, RuntimeError) as e:
+                get_logger().warning("re-admission HELLO to %s:%d "
+                                     "failed: %s", c.host, c.port, e)
+
+    def leave(self, drain_timeout_s: float = 60.0) -> None:
+        """Graceful departure: drain in-flight rounds, then tell every
+        server to drop this worker from the membership at the next epoch
+        boundary (CMD_LEAVE).  The session stays usable for pulls/close;
+        pushes after leave() would be deferred-dropped by the servers, so
+        the training loop should stop stepping first.
+
+        Raises TimeoutError if in-flight partitions do not drain in
+        ``drain_timeout_s`` — leaving with rounds half-pushed would strand
+        peers waiting on contributions that already happened."""
+        deadline = time.monotonic() + max(0.0, drain_timeout_s)
+        while True:
+            with self._inflight_lock:
+                n = len(self._inflight)
+            if n == 0:
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"bps.leave(): {n} partition(s) still in flight after "
+                    f"{drain_timeout_s}s; wait on outstanding handles "
+                    f"before leaving")
+            time.sleep(0.02)
+        self._left = True
+        self._lease_stop.set()
+        for c in self.conns:
+            try:
+                c.request(CMD_LEAVE, worker_id=self.worker_id, timeout=10.0)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"PS server at {c.host}:{c.port} does not support "
+                    f"CMD_LEAVE (server too old — rebuild/redeploy the "
+                    f"server tier to match this client): {e}") from e
+            except (ConnectionError, OSError) as e:
+                # A server that is itself gone cannot hold our lease open
+                # anyway (it lost all state); best-effort is correct here.
+                get_logger().warning(
+                    "leave notification to %s:%d failed: %s",
+                    c.host, c.port, e)
+        get_logger().info("worker %d left the membership", self.worker_id)
+
+    def membership(self, timeout: float = 10.0) -> dict:
+        """Live membership view merged across servers (CMD_MEMBERS):
+        ``{"epoch", "workers": {id: {"alive", "age_ms"}}, "alive": [ids],
+        "barrier": {gen: [arrived ids]}}`` — see merge_membership for the
+        merge law.  A pre-CMD_MEMBERS server surfaces as a clean "server
+        too old" RuntimeError, never a hang."""
+        import json as _json
+        views = []
+        for c in self.conns:
+            try:
+                raw = c.request(CMD_MEMBERS, worker_id=self.worker_id,
+                                timeout=timeout)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"PS server at {c.host}:{c.port} does not support "
+                    f"CMD_MEMBERS (server too old — rebuild/redeploy the "
+                    f"server tier to match this client): {e}") from e
+            views.append(_json.loads(bytes(raw).decode()))
+        merged = merge_membership(views)
+        if int(merged.get("epoch", 0)) > self._last_epoch:
+            self._last_epoch = int(merged["epoch"])
+        self._members_cache = merged
+        return merged
+
+    def cached_alive(self) -> Optional[list]:
+        """Worker ids alive per the last CMD_MEMBERS fetch, or None when
+        nothing has been fetched (or the epoch never advanced) — the
+        launch set is then authoritative, matching size()'s law."""
+        m = self._members_cache
+        if m is None or int(m.get("epoch", 0)) == 0:
+            return None
+        return list(m.get("alive", ()))
+
+    def slice_leader(self, slice_size: Optional[int] = None,
+                     world: Optional[int] = None) -> Optional[int]:
+        """The leader of THIS worker's slice: the lowest ALIVE member
+        under the last observed membership epoch (docs/architecture.md
+        "Hierarchical reduction" — the leader law).
+
+        Before any membership fetch — or while the epoch has never
+        advanced — the launch set is the electorate, so the leader is
+        simply the slice's lowest id.  After an eviction the next
+        membership refresh moves leadership to the lowest survivor;
+        None means the whole slice has departed."""
+        from ..parallel.hierarchy import elect_leader, slice_members, \
+            slice_of
+        s = self.slice_size if slice_size is None else max(1,
+                                                           int(slice_size))
+        members = slice_members(slice_of(self.worker_id, s), s,
+                                world=world)
+        return elect_leader(members, self.cached_alive())
+
+    def _barrier_diag_text(self, generation: int) -> str:
+        """One line naming who the barrier is waiting on: live epoch
+        membership + arrived ranks from server 0 (where barriers live)."""
+        m = self.membership(timeout=5.0)
+        arrived = m.get("barrier", {}).get(generation, [])
+        waiting_on = sorted(set(m["alive"]) - set(arrived))
+        gone = sorted(w for w, r in m["workers"].items() if not r["alive"])
+        txt = (f"membership epoch={m['epoch']} alive={m['alive']}, "
+               f"arrived={sorted(arrived)}, waiting on rank(s) "
+               f"{waiting_on}")
+        if gone:
+            txt += f"; gone (left/evicted): {gone}"
+        down = self._down_servers()
+        if down:
+            txt += ("; PS server(s) unreachable: "
+                    + ", ".join(f"{slot} ({host}:{port})"
+                                for slot, host, port, _ in down))
+        return txt
+
+    # -- elastic PS ring: placement, redirects, drain, failover -------------
+    def _ring_bootstrap(self) -> None:
+        """Adopt the server tier's ring at session start (CMD_RING from
+        server 0).  A late-starting or restarted worker joining a fleet
+        whose ring already transitioned must learn the live epoch —
+        including any joiner's address — before planning a single key.
+        A pre-ring server answers the unknown command with an error
+        status, surfaced as a clean "server too old" (never a hang); a
+        server with the ring unarmed (or a different vnode count) is a
+        configuration mismatch and fails loudly too — a silent placement
+        disagreement would redirect-livelock every push."""
+        import json as _json
+        try:
+            raw = self.conns[0].request(CMD_RING, worker_id=self.worker_id,
+                                        timeout=30.0)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"PS server at {self.conns[0].host}:{self.conns[0].port} "
+                f"does not support CMD_RING (server too old — "
+                f"rebuild/redeploy the server tier to match this client, "
+                f"or unset BYTEPS_TPU_RING): {e}") from e
+        doc = _json.loads(bytes(raw).decode())
+        if not doc.get("armed"):
+            raise RuntimeError(
+                "BYTEPS_TPU_RING is armed on this worker but not on the "
+                "server tier — set BYTEPS_TPU_RING=1 (plus DMLC_SERVER_ID/"
+                "DMLC_NUM_SERVER) on every server, or unset it here")
+        if int(doc.get("vnodes", self.ring_vnodes)) != self.ring_vnodes:
+            raise RuntimeError(
+                f"BYTEPS_TPU_RING_VNODES mismatch: worker={self.ring_vnodes}"
+                f" server={doc.get('vnodes')} — placement laws must agree")
+        if int(doc.get("epoch", 0)) > 0:
+            self._adopt_ring_doc(doc)
+
+    def get_ring(self, timeout: float = 10.0) -> dict:
+        """The server tier's current ring table (CMD_RING JSON) from the
+        first reachable server: epoch, vnodes, member (id, host, port)
+        rows, keys_owned, draining.  "Server too old" on a pre-ring
+        server, never a hang."""
+        import json as _json
+        last: Optional[Exception] = None
+        for slot, c in enumerate(self.conns):
+            if slot in self._dead_slots:
+                continue
+            try:
+                raw = c.request(CMD_RING, worker_id=self.worker_id,
+                                timeout=timeout)
+                return _json.loads(bytes(raw).decode())
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"PS server at {c.host}:{c.port} does not support "
+                    f"CMD_RING (server too old — rebuild/redeploy the "
+                    f"server tier to match this client): {e}") from e
+            except (ConnectionError, OSError, TimeoutError) as e:
+                last = e
+        raise ConnectionError(f"no PS server reachable for CMD_RING: {last}")
+
+    def drain_server(self, server_id: int, timeout_s: float = 120.0,
+                     shutdown: bool = False) -> dict:
+        """Gracefully scale the PS tier down: drain ``server_id`` out of
+        the ring (CMD_DRAIN).  The survivors adopt the next ring epoch
+        first (so migrations land under the new law), then the target
+        streams every owned key's state — declared meta, merge store,
+        published round, completed_round, the open round's contributor
+        set — to its new owner and answers every later frame with a
+        redirect.  Blocks until the target reports zero owned keys (its
+        drain is complete); ``shutdown=True`` then also retires the
+        process.  Returns the target's final CMD_RING document."""
+        if not self.ring_armed:
+            raise RuntimeError(
+                "drain_server requires the elastic ring "
+                "(BYTEPS_TPU_RING=1 on workers and servers)")
+        import json as _json
+        # Compose from the server tier's FRESH table, not this session's
+        # cached one: servers silently ignore (and idempotently ack) a
+        # STALE-epoch proposal, which would otherwise surface only as a
+        # misleading poll timeout below.
+        self._safe_adopt_ring(self.get_ring())
+        with self._ring_lock:
+            ring = self._ring
+            if ring is None or server_id not in ring.ids():
+                raise ValueError(
+                    f"server {server_id} is not in the current ring "
+                    f"{ring.ids() if ring else []}")
+            proposal = ring.without(server_id)   # raises on last member
+            target_slot = self._srv_slot[server_id]
+            survivors = [(sid, slot) for sid, slot in self._srv_slot.items()
+                         if sid != server_id
+                         and slot not in self._dead_slots]
+        wire = proposal.to_wire()
+        # Survivors first: every migration the drain streams must land on
+        # a server that already accepts the new epoch — otherwise a push
+        # racing the handoff could bounce between two stale owners.
+        for sid, slot in survivors:
+            self.conns[slot].request(CMD_RING_SET, payload=wire,
+                                     worker_id=self.worker_id, timeout=30.0)
+        raw = self.conns[target_slot].request(
+            CMD_DRAIN, payload=wire, worker_id=self.worker_id, timeout=30.0)
+        doc = _json.loads(bytes(raw).decode())
+        if not doc.get("draining"):
+            # The target rejected the epoch (a transition raced this
+            # drain): fail loudly NOW with the real cause instead of
+            # burning the poll deadline on a server that never drained.
+            raise RuntimeError(
+                f"PS server {server_id} did not enter draining (a ring "
+                f"transition raced this drain: server epoch "
+                f"{doc.get('epoch')} vs proposed {proposal.epoch}); "
+                f"re-run drain_server")
+        # NOTE: the new table is adopted only AFTER the target reports
+        # zero owned keys (below).  Until then this worker keeps
+        # planning by the OLD ring, so its pushes land on the draining
+        # target and follow the migrate-then-redirect path — adopting
+        # early would let a concurrent push fresh-INIT a key on the new
+        # owner while that key's migration is still streaming (the
+        # install-race HandleMigrate refuses loudly).
+        deadline = time.monotonic() + max(1.0, timeout_s)
+        while True:
+            raw = self.conns[target_slot].request(
+                CMD_RING, worker_id=self.worker_id, timeout=10.0)
+            doc = _json.loads(bytes(raw).decode())
+            if int(doc.get("keys_owned", 0)) == 0:
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError(
+                    f"drain of PS server {server_id} still reports "
+                    f"{doc.get('keys_owned')} owned key(s) after "
+                    f"{timeout_s}s")
+            time.sleep(0.05)
+        self._safe_adopt_ring(doc)   # every key's state has landed
+        get_logger().info("PS server %d drained (ring epoch %s)",
+                          server_id, doc.get("epoch"))
+        if shutdown:
+            try:
+                self.conns[target_slot].request(
+                    CMD_SHUTDOWN, worker_id=self.worker_id, timeout=10.0)
+            except (ConnectionError, OSError) as e:
+                get_logger().debug("drained-server shutdown race: %s", e)
+            # The process is going away: retire the slot and close its
+            # lanes NOW, or (with failover armed) their effectively-
+            # unbounded re-dial loops would spin against a dead address
+            # for the life of the session.  Without shutdown the server
+            # stays up answering redirects/stats, so its conns stay.
+            self._dead_slots.add(target_slot)
+            for c in self._data_conns[target_slot]:
+                try:
+                    c.close()
+                except Exception:
+                    pass
+        return doc
+
+    def _adopt_ring_doc(self, doc: dict) -> bool:
+        """Adopt a server-sent ring table (CMD_RING / RING_SET response /
+        MOVED payload) if its epoch is newer than ours."""
+        try:
+            table = RingTable.from_json(doc)
+        except Exception as e:
+            get_logger().warning("unparseable ring table ignored: %s", e)
+            return False
+        if not table.servers:
+            return False
+        return self._apply_ring(table)
+
+    def _apply_ring(self, table: RingTable) -> bool:
+        """Install a newer ring table: merge addresses (this session's
+        dial address wins for servers it already knows — it may be a
+        test proxy), dial any joiner, rebuild the id->slot map, then
+        invalidate the placement caches so the next plan (and every
+        remap) follows the new law.  Returns True when the epoch
+        advanced, False when the table is stale OR a joiner could not be
+        dialed — adoption is all-or-nothing (a half-applied table whose
+        owner has no conn slot would crash every plan), and a False here
+        is always retryable: the next MOVED redirect or scanner pass
+        re-presents the table."""
+        with self._ring_lock:
+            if self._ring is None or table.epoch <= self._ring.epoch:
+                return False
+            merged = []
+            joiners = []
+            for sid, h, p in table.servers:
+                slot = self._srv_slot.get(sid)
+                if slot is not None and slot not in self._dead_slots:
+                    c = self.conns[slot]
+                    merged.append((sid, c.host, c.port))
+                else:
+                    merged.append((sid, h, p))
+                    if slot is None:
+                        joiners.append((sid, h, p))
+        # Dial every joiner's lane pool OUTSIDE the ring lock (connects
+        # can block for seconds against a still-booting pod, and _plan
+        # needs the lock on every staging thread), and BEFORE committing
+        # anything — adoption is all-or-nothing: a half-applied table
+        # whose owner has no conn slot would crash every plan.
+        dialed = []
+        try:
+            for sid, h, p in joiners:
+                pool = [self._make_conn(h, p)]
+                for _ in range(self._wire_conns - 1):
+                    pool.append(self._make_conn(h, p))
+                dialed.append((sid, h, p, pool))
+        except OSError as e:
+            for _sid, _h, _p, pool in dialed:
+                for c in pool:
+                    try:
+                        c.close()
+                    except Exception:
+                        pass
+            get_logger().warning(
+                "not adopting ring epoch %d yet: cannot dial joining "
+                "PS server (%s) — will retry on the next redirect",
+                table.epoch, e)
+            return False
+        if self._audit_wire:
+            # A joiner that is not audit-armed would answer trailerless
+            # pulls a marker-sending client mis-splits: downgrade the
+            # session loudly BEFORE the adoption commits (pulls issued
+            # from here on are unmarked; in-flight marked pulls ride
+            # only the already-verified members).
+            for sid, h, p, pool in dialed:
+                try:
+                    armed = bool(self._audit_probe(pool[0]).get("armed"))
+                except Exception:
+                    armed = False
+                if not armed:
+                    get_logger().error(
+                        "joining PS server %d (%s:%d) is not audit-armed "
+                        "(BYTEPS_TPU_AUDIT); disabling pull auditing for "
+                        "this session", sid, h, p)
+                    self._audit_wire = False
+                    break
+        with self._ring_lock:
+            if self._ring is None or table.epoch <= self._ring.epoch:
+                # Another adoption won while we were dialing.
+                for _sid, _h, _p, pool in dialed:
+                    for c in pool:
+                        try:
+                            c.close()
+                        except Exception:
+                            pass
+                return False
+            for sid, h, p, pool in dialed:
+                live = self._srv_slot.get(sid)
+                if live is not None and live not in self._dead_slots:
+                    # A concurrent lower-epoch adoption already slotted
+                    # this joiner while we were dialing — keep its pool.
+                    for c in pool:
+                        try:
+                            c.close()
+                        except Exception:
+                            pass
+                    continue
+                slot = len(self.conns)
+                self.conns.append(pool[0])
+                self._data_conns.append(pool)
+                self._server_load.append(0)
+                self._hosts.append(h)
+                self._ports.append(p)
+                self._srv_slot[sid] = slot
+                self._slot_srv[slot] = sid
+                get_logger().info(
+                    "PS server %d (%s:%d) joined the ring; dialed as "
+                    "slot %d", sid, h, p, slot)
+            self._ring = RingTable(merged, table.vnodes, table.epoch)
+            live_ids = set(self._ring.ids())
+            self._srv_slot = {sid: slot for sid, slot
+                              in self._srv_slot.items() if sid in live_ids}
+            epoch = table.epoch
+        # Placement-cache invalidation OUTSIDE ring_mu_ (the _plan path
+        # takes _plan_lock THEN _ring_lock; same order here).
+        with self._plan_lock:
+            self._plans.clear()
+            with self._ring_lock:
+                ring, slots = self._ring, dict(self._srv_slot)
+            for pkey, old_slot in list(self._pkey_srv.items()):
+                new_slot = slots.get(ring.owner(pkey))
+                if new_slot is not None and new_slot != old_slot:
+                    # Moved key: the next stage must re-INIT on the new
+                    # owner (re-seeding its round from migrated — or,
+                    # after failover, fresh — server state).
+                    self._pkey_srv[pkey] = new_slot
+                    self._inited.pop(pkey, None)
+        get_logger().warning(
+            "adopted PS ring epoch %d: servers %s", epoch,
+            sorted(slots))
+        _flightrec.record("ring_epoch", epoch=epoch,
+                          servers=sorted(slots), worker=self.worker_id)
+        return True
+
+    def _park_for_remap(self, pkey: int,
+                        phase: Optional[str] = None) -> bool:
+        """Claim one in-flight partition for the ring-remap path: mark it
+        parked (so the dispatcher skips any queued entry), settle its
+        lane credit, and count it — the ONE bookkeeping block shared by
+        every redirect/failover site, mirroring what _park_part does for
+        reconnect parking.  Returns False when the part is gone or
+        already claimed."""
+        with self._inflight_lock:
+            part = self._inflight.get(pkey)
+            if part is None or part.parked:
+                return False
+            part.parked = True
+            if phase is not None:
+                part.phase = phase
+        self._lane_settle(part)
+        with self._transport_lock:
+            self._tstats["parked_parts"] += 1
+            self._tstats["parked_total"] += 1
+        return True
+
+    def _safe_adopt_ring(self, doc: dict) -> bool:
+        """_adopt_ring_doc that can never take down its calling thread:
+        both callers (the receiver-callback redirect path and the remap
+        worker) must survive a transiently undialable joiner — adoption
+        is retryable by construction (the next redirect re-presents the
+        table)."""
+        try:
+            return self._adopt_ring_doc(doc)
+        except Exception:
+            get_logger().exception("ring adoption failed (will retry on "
+                                   "the next redirect)")
+            return False
+
+    def _on_key_moved(self, pkey: int, phase: str,
+                      err: _KeyMoved) -> None:
+        """A push/pull drew status MOVED: park the partition and hand it
+        — with the attached ring table — to the remap worker, which
+        adopts the table and replays the partition against the new owner
+        (whose state the old owner already streamed over:
+        state-before-redirect is the server's contract).  Runs on a
+        receiver-callback thread, so it must never block: adoption (which
+        may dial a joiner) belongs to the remap worker."""
+        claimed = self._park_for_remap(pkey, phase)
+        if claimed:
+            with self._transport_lock:
+                self._tstats["ring_redirects"] += 1
+            self._queue_remap(pkey, err.doc)
+        else:
+            self._queue_remap(None, err.doc)   # still adopt the table
+
+    def _queue_remap(self, pkey: Optional[int],
+                     doc: Optional[dict] = None) -> None:
+        # The worker nulls _remap_thread UNDER _remap_lock just before
+        # exiting (see _remap_loop), so this check can never observe a
+        # thread that has already decided to stop — the
+        # append-then-strand TOCTOU a bare is_alive() test would allow.
+        with self._remap_lock:
+            self._remap_queue.append((pkey, doc))
+            if self._remap_thread is None:
+                self._remap_thread = threading.Thread(
+                    target=self._remap_loop, daemon=True,
+                    name="bps-ps-remap-ring")
+                self._remap_thread.start()
+
+    def _remap_loop(self) -> None:
+        """Drain the remap queue: route each parked partition to its
+        current ring owner and replay it (re-INIT + round reconcile +
+        push/pull replay — the same idempotent machinery reconnects
+        use).  Runs on a transient daemon thread so no receiver thread
+        ever blocks on a cross-server round trip."""
+        while True:
+            with self._remap_lock:
+                if not self._remap_queue:
+                    self._remap_thread = None   # hand-off point: a later
+                    return                      # _queue_remap starts fresh
+                pkey, doc = self._remap_queue.pop(0)
+            if doc is not None:
+                self._safe_adopt_ring(doc)
+            if pkey is None:
+                continue        # adoption-only entry
+            with self._inflight_lock:
+                part = self._inflight.get(pkey)
+            if part is None:
+                continue        # finished/failed while queued
+            with self._ring_lock:
+                ring = self._ring
+                slot = (None if ring is None
+                        else self._srv_slot.get(ring.owner(pkey)))
+            if slot is None or slot in self._dead_slots:
+                self._finish_part(pkey, ConnectionError(
+                    f"no live ring owner for moved key {pkey}"))
+                continue
+            part.srv = slot
+            self._pkey_srv[pkey] = slot
+            conn = self.conns[slot]
+            try:
+                self._replay_part(conn, part)
+            except _KeyMoved as e:
+                # Moved again mid-remap (back-to-back transitions, or a
+                # joiner not yet dialable): adopt the newer table and
+                # requeue.  The tiny sleep stops a hot redirect loop
+                # while an undialable joiner keeps adoption at bay —
+                # each retry is otherwise only RTT-throttled.
+                requeue = self._park_for_remap(pkey)
+                if not self._safe_adopt_ring(e.doc):
+                    time.sleep(0.1)
+                if requeue:
+                    self._queue_remap(pkey)
+            except ConnectionError as e:
+                err = (e if isinstance(e, _ConnLost)
+                       else conn._lost_exc(str(e)))
+                if not self._park_part(pkey, part.phase, err):
+                    self._finish_part(pkey, err)
+            except Exception as e:
+                self._finish_part(pkey, e)
+
+    def _down_servers(self) -> list:
+        """[(slot, host, port, planned_pkeys)] for servers whose EVERY
+        lane is down — the "dead server, not slow keys" diagnostic."""
+        rows = []
+        # list() snapshots: _plan/_remap mutate _pkey_srv concurrently,
+        # and a python-level iteration racing an insert raises
+        # "dictionary changed size" — which would kill the watchdog
+        # thread exactly when it is needed.
+        placed = list(self._pkey_srv.items())
+        for slot, pool in enumerate(list(self._data_conns)):
+            if slot in self._dead_slots or not pool:
+                continue
+            if all(c.state() != "up" for c in pool):
+                owned = sorted(k for k, s in placed if s == slot)
+                rows.append((slot, pool[0].host, pool[0].port, owned))
+        return rows
+
+    def _server_lease_loop(self) -> None:
+        """Worker-side server-lease scanner (armed by
+        BYTEPS_TPU_SERVER_EVICT_TIMEOUT_S > 0 — the server-tier mirror
+        of the workers' lease eviction): a ring member whose every lane has
+        been down longer than the timeout is declared dead.  The
+        survivors adopt the next ring epoch (CMD_RING_SET; idempotent
+        under racing workers — all observed the same death, so all
+        propose the same transition), this worker re-routes everything
+        parked on the corpse, and the open round's gradients re-push to
+        the claimed ranges — no round is lost."""
+        interval = max(0.05, min(self.server_evict_timeout_s / 4.0, 1.0))
+        while not self._srvdown_stop.wait(interval):
+            if not self.ring_armed or self._ring is None:
+                continue
+            now = time.monotonic()
+            with self._ring_lock:
+                members = list(self._srv_slot.items())
+            live = [(sid, slot) for sid, slot in members
+                    if slot not in self._dead_slots]
+            for sid, slot in live:
+                pool = self._data_conns[slot]
+                dead = all(
+                    c.state() != "up" and c.down_since
+                    and now - c.down_since > self.server_evict_timeout_s
+                    for c in pool)
+                if not dead:
+                    continue
+                if len(live) <= 1:
+                    get_logger().error(
+                        "PS server %d is down past the evict timeout but "
+                        "is the LAST ring member — nothing to fail over "
+                        "to", sid)
+                    continue
+                try:
+                    self._declare_server_dead(sid, slot)
+                except Exception:
+                    get_logger().exception("server failover failed")
+
+    def _declare_server_dead(self, sid: int, slot: int) -> None:
+        age = max((time.monotonic() - c.down_since)
+                  for c in self._data_conns[slot] if c.down_since)
+        get_logger().error(
+            "PS server %d (%s:%d) declared DEAD: every lane down for "
+            "%.1fs (> BYTEPS_TPU_SERVER_EVICT_TIMEOUT_S=%.1fs); the "
+            "surviving ring claims its key ranges and the open round "
+            "re-pushes from gradient state",
+            sid, self.conns[slot].host, self.conns[slot].port, age,
+            self.server_evict_timeout_s)
+        import json as _json
+        with self._ring_lock:
+            ring = self._ring
+            if ring is None or sid not in ring.ids():
+                return          # another thread/worker beat us to it
+            proposal = ring.without(sid)
+            survivors = [(osid, oslot) for osid, oslot
+                         in self._srv_slot.items()
+                         if osid != sid and oslot not in self._dead_slots]
+        wire = proposal.to_wire()
+        adopted = None
+        for osid, oslot in survivors:
+            try:
+                raw = self.conns[oslot].request(
+                    CMD_RING_SET, payload=wire, worker_id=self.worker_id,
+                    timeout=15.0)
+                doc = _json.loads(bytes(raw).decode())
+                if adopted is None or (int(doc.get("epoch", 0))
+                                       > int(adopted.get("epoch", 0))):
+                    adopted = doc
+            except Exception as e:
+                get_logger().warning(
+                    "failover RING_SET to server %d failed: %s", osid, e)
+        if adopted is None:
+            # NO survivor accepted the proposal: this worker may be the
+            # partitioned one, not the server.  Transitioning locally
+            # anyway would split the fleet across two rings (this worker
+            # pushing a key's fresh lineage to a survivor while everyone
+            # else still pushes it to the "dead" server).  Hold the
+            # line and retry next scan — parked parts stay parked.
+            get_logger().error(
+                "failover of PS server %d aborted: no survivor accepted "
+                "the ring proposal (is THIS worker partitioned?); "
+                "retrying", sid)
+            return
+        self._adopt_ring_doc(adopted)
+        with self._transport_lock:
+            self._tstats["server_failovers"] += 1
+        _flightrec.record(
+            "server_dead", server=sid, host=self.conns[slot].host,
+            port=self.conns[slot].port, down_s=round(age, 2),
+            epoch=int(adopted.get("epoch", 0)), worker=self.worker_id)
+        # Failover is a they-died moment: drop a postmortem bundle so the
+        # lost-round window (if any) has its evidence on disk even if the
+        # job later looks healthy.
+        _flightrec.dump_bundle("server-failover")
+        # Park-and-remap everything routed at the corpse, THEN close its
+        # conns (ending the background re-dial loops).  Parked parts in
+        # the scheduler queue are skipped by the dispatcher until the
+        # remap re-enqueues them against the new owner.
+        with self._inflight_lock:
+            stuck = [p.pkey for p in self._inflight.values()
+                     if p.srv == slot]
+        for pkey in stuck:
+            self._park_for_remap(pkey)   # no-op if already parked — the
+            #                              remap claims each exactly once
+            self._queue_remap(pkey)
+        self._dead_slots.add(slot)
+        for c in self._data_conns[slot]:
+            try:
+                c.close()
+            except Exception:
+                pass
+
+    def transport_stats(self) -> dict:
+        """Fault-tolerance + raw-speed transport counters: reconnects,
+        replayed/parked parts, watchdog trips, receive-pool hit/miss, and
+        per-lane bytes/outstanding (the byte-credit scheduler's working
+        signal) — the get_codec_stats() analog for the transport.  The
+        numeric keys export through the telemetry registry's transport
+        collector; `lanes` is the per-lane detail list (skipped by the
+        exporter, which only takes numbers)."""
+        with self._transport_lock:
+            s = dict(self._tstats)
+        s["reconnects"] = sum(c.reconnects for pool in self._data_conns
+                              for c in pool)
+        hits, misses, held = self._recv_pool.stats()
+        s["pool_hits"], s["pool_misses"] = hits, misses
+        s["pool_buffers_held"] = held
+        lanes = []
+        total_bytes = outstanding = 0
+        for srv, pool in enumerate(self._data_conns):
+            for li, c in enumerate(pool):
+                lanes.append({
+                    "server": srv, "lane": li, "transport": c.transport,
+                    "bytes_total": c.lane_bytes_total,
+                    "outstanding_bytes": c.outstanding_bytes,
+                    "sends": c.lane_sends,
+                })
+                total_bytes += c.lane_bytes_total
+                outstanding += c.outstanding_bytes
+        s["lane_bytes_total"] = total_bytes
+        s["lane_outstanding_bytes"] = outstanding
+        s["lanes"] = lanes
+        return s
+
+    def server_stats(self, timeout: float = 10.0) -> dict:
+        """Server-side CMD_STATS snapshot, merged across all servers.
+
+        Returns {"bytes_in", "bytes_out", "async", "num_workers",
+        "keys": {wire_key: {pushes, merges, completed_round,
+        round_pushes, pending_pulls, bytes}}, "workers": {worker_id:
+        {pushes, round}}}.  `round_pushes` is how many workers have
+        merged into the key's OPEN round — pending-push depth is
+        num_workers - round_pushes, the "who is the round waiting on"
+        signal; `pending_pulls` counts pulls parked for a round that
+        has not published yet.
+        Keys are disjoint across servers (hash placement) so their maps
+        union; per-worker rounds take the MIN across servers — a worker
+        lagging on any server gates every sync round it participates in.
+
+        A pre-CMD_STATS server routes the unknown command to an engine
+        whose default arm answers with an error status, which surfaces
+        here as a clean "server too old" RuntimeError — never a hang.
+        """
+        merged = {"bytes_in": 0, "bytes_out": 0, "async": False,
+                  "num_workers": 0, "scatter_frames": 0, "keys": {},
+                  "workers": {}, "epoch": 0, "deferred_joins": 0,
+                  "members": {}, "ring_epoch": 0, "servers": {},
+                  "codec_sets": 0, "codec_stale_frames": 0,
+                  "opt_sets": 0, "opt_updates": 0, "opt_slot_bytes": 0,
+                  "embed_rows_served": 0, "embed_table_bytes": 0,
+                  "slice_size": 1, "repl_armed": False,
+                  "repl_bytes_total": 0, "repl_lag_rounds": 0,
+                  "repl_replicas_held": 0, "repl_promotions": 0,
+                  "fleet_armed": False, "fleet_workers": 0,
+                  "fleet_windows_held": 0, "fleet_publishes": 0}
+        import json as _json
+        for slot, c in enumerate(self.conns):
+            sid = self._slot_srv.get(slot, slot)
+            if slot in self._dead_slots:
+                merged["servers"][sid] = {"alive": False, "keys_owned": 0,
+                                          "draining": False}
+                continue
+            try:
+                raw = c.request(CMD_STATS, worker_id=self.worker_id,
+                                timeout=timeout)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"PS server at {c.host}:{c.port} does not support "
+                    f"CMD_STATS (server too old — rebuild/redeploy the "
+                    f"server tier to match this client): {e}") from e
+            except (ConnectionError, OSError, TimeoutError):
+                # A dead/unreachable server must not break the whole
+                # stats plane — that is exactly when an operator reads
+                # it.  Its row reports alive=False; the survivors' rows
+                # still merge.
+                merged["servers"][sid] = {"alive": False, "keys_owned": 0,
+                                          "draining": False}
+                continue
+            st = _json.loads(bytes(raw).decode())
+            merged["ring_epoch"] = max(merged["ring_epoch"],
+                                       int(st.get("ring_epoch", 0)))
+            # Row key: the server-reported id only when the ring is
+            # armed (ids are then meaningful and unique).  Unarmed
+            # deployments all report server_id 0 (DMLC_SERVER_ID is not
+            # required there) — keying by it would collapse N servers
+            # into one row and hide a dead one from the exact panel
+            # built to expose it.
+            row_id = (int(st.get("server_id", sid))
+                      if st.get("ring_armed") else sid)
+            merged["servers"][row_id] = {
+                "alive": True,
+                "keys_owned": int(st.get("keys_owned", 0)),
+                "draining": bool(st.get("draining", 0)),
+                "migrations_in": int(st.get("migrations_in", 0)),
+                "migrations_out": int(st.get("migrations_out", 0)),
+                "moved_frames": int(st.get("moved_frames", 0)),
+                # Per-server wire volume, kept on the row (not just the
+                # merged totals): the doctor's server_hot_shard rule
+                # weights keys_owned by per-window bytes_in deltas to
+                # name the byte-heavy server, not just the key-heavy one.
+                "bytes_in": int(st.get("bytes_in", 0)),
+                "bytes_out": int(st.get("bytes_out", 0)),
+            }
+            merged["bytes_in"] += int(st.get("bytes_in", 0))
+            merged["bytes_out"] += int(st.get("bytes_out", 0))
+            merged["scatter_frames"] += int(st.get("scatter_frames", 0))
+            merged["async"] = merged["async"] or bool(st.get("async"))
+            merged["num_workers"] = max(merged["num_workers"],
+                                        int(st.get("num_workers", 0)))
+            # Hierarchical reduction: the slice size the server counts
+            # round completion in (1 = flat; old servers omit it).
+            merged["slice_size"] = max(merged["slice_size"],
+                                       int(st.get("slice_size", 1)))
+            # Elastic membership — the one merge law (_merge_member_rec):
+            # freshest epoch wins, alive = AND across servers, age = max.
+            # Old servers omit these keys entirely.
+            merged["epoch"] = max(merged["epoch"], int(st.get("epoch", 0)))
+            merged["deferred_joins"] += int(st.get("deferred_joins", 0))
+            # Codec renegotiation counters (accepted proposals /
+            # format-mismatch rejections); old servers omit them.
+            merged["codec_sets"] += int(st.get("codec_sets", 0))
+            merged["codec_stale_frames"] += int(
+                st.get("codec_stale_frames", 0))
+            # Server-resident optimizer plane; old servers omit these
+            # (and per-key param_version/opt_mode rows flow through the
+            # wholesale key-row copy below).
+            merged["opt_sets"] += int(st.get("opt_sets", 0))
+            merged["opt_updates"] += int(st.get("opt_updates", 0))
+            merged["opt_slot_bytes"] += int(st.get("opt_slot_bytes", 0))
+            merged["servers"][row_id]["opt_slot_bytes"] = int(
+                st.get("opt_slot_bytes", 0))
+            # Row-sparse embedding plane (old servers omit both).
+            merged["embed_rows_served"] += int(
+                st.get("embed_rows_served", 0))
+            merged["embed_table_bytes"] += int(
+                st.get("embed_table_bytes", 0))
+            merged["servers"][row_id]["embed_table_bytes"] = int(
+                st.get("embed_table_bytes", 0))
+            # Chain replication (CMD_REPL; old servers omit all of
+            # these).  Per-server rows keep the publish-side lag and
+            # replica census — the doctor's replication_lag rule and the
+            # autoscaler both read the ROWS, because lag is a property of
+            # one owner→successor edge, not of the tier.
+            merged["repl_armed"] = (merged["repl_armed"]
+                                    or bool(st.get("repl_armed", 0)))
+            merged["repl_bytes_total"] += int(st.get("repl_bytes_out", 0))
+            merged["repl_lag_rounds"] = max(
+                merged["repl_lag_rounds"], int(st.get("repl_lag_rounds", 0)))
+            merged["repl_replicas_held"] += int(
+                st.get("repl_replicas_held", 0))
+            merged["repl_promotions"] += int(st.get("repl_promotions", 0))
+            merged["servers"][row_id]["repl_lag_rounds"] = int(
+                st.get("repl_lag_rounds", 0))
+            merged["servers"][row_id]["repl_bytes_out"] = int(
+                st.get("repl_bytes_out", 0))
+            merged["servers"][row_id]["repl_replicas_held"] = int(
+                st.get("repl_replicas_held", 0))
+            merged["servers"][row_id]["repl_promotions"] = int(
+                st.get("repl_promotions", 0))
+            # Fleet observability plane (CMD_WINDOW rings; old servers
+            # omit all of these).  worker/ring counts stay per-row too:
+            # after a drain the elastic tests compare the survivor's
+            # census against the drained server's.
+            merged["fleet_armed"] = (merged["fleet_armed"]
+                                     or bool(st.get("fleet_armed", 0)))
+            merged["fleet_workers"] = max(
+                merged["fleet_workers"], int(st.get("fleet_workers", 0)))
+            merged["fleet_windows_held"] += int(
+                st.get("fleet_windows_held", 0))
+            merged["fleet_publishes"] += int(st.get("fleet_publishes", 0))
+            merged["servers"][row_id]["fleet_windows_held"] = int(
+                st.get("fleet_windows_held", 0))
+            for w, rec in (st.get("members") or {}).items():
+                _merge_member_rec(merged["members"], int(w), rec)
+            for k, v in (st.get("keys") or {}).items():
+                merged["keys"][int(k)] = v
+            for w, v in (st.get("workers") or {}).items():
+                w = int(w)
+                prev = merged["workers"].get(w)
+                if prev is None:
+                    merged["workers"][w] = dict(v)
+                else:
+                    prev["pushes"] = (int(prev.get("pushes", 0))
+                                      + int(v.get("pushes", 0)))
+                    prev["round"] = min(int(prev.get("round", 0)),
+                                        int(v.get("round", 0)))
+        return merged
+
+    # -- value-domain consistency auditor (docs/monitoring.md) --------------
+    def _audit_probe(self, conn: "_ServerConn",
+                     timeout: float = 10.0) -> dict:
+        """One CMD_AUDIT round trip, parsed.  A pre-audit server routes
+        the unknown command to an engine whose default arm answers an
+        error status — surfaced as a clean "server too old" RuntimeError,
+        never a hang (the kStats pattern)."""
+        import json as _json
+        try:
+            raw = conn.request(CMD_AUDIT, worker_id=self.worker_id,
+                               timeout=timeout)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"PS server at {conn.host}:{conn.port} does not support "
+                f"CMD_AUDIT (server too old — rebuild/redeploy the server "
+                f"tier to match this client): {e}") from e
+        return _json.loads(bytes(raw).decode())
+
+    def _audit_bootstrap(self) -> None:
+        """Arm the pull-side digest wire — but only after proving the
+        server tier actually records digests (CMD_AUDIT probe).  A
+        mixed/old/async deployment downgrades loudly to "auditing off"
+        instead of sending trailer markers nothing will honor; the
+        unarmed wire therefore stays byte-identical whichever side is
+        missing the feature."""
+        if self.server_async:
+            get_logger().warning(
+                "BYTEPS_TPU_AUDIT armed but the server tier runs ASYNC "
+                "mode (no sync rounds, nothing publishes a digest); pull "
+                "auditing disabled")
+            return
+        # EVERY server must be armed: a mixed fleet would return
+        # trailerless pulls from the unarmed members, and a
+        # marker-sending client would strip 24 bytes of real payload.
+        for c in self.conns:
+            try:
+                doc = self._audit_probe(c)
+            except Exception as e:
+                get_logger().warning(
+                    "BYTEPS_TPU_AUDIT armed but the server tier cannot "
+                    "answer CMD_AUDIT (%s); pull auditing disabled", e)
+                return
+            if not doc.get("armed"):
+                get_logger().warning(
+                    "BYTEPS_TPU_AUDIT armed on this worker but NOT on "
+                    "PS server %s:%d (set BYTEPS_TPU_AUDIT=1 on every "
+                    "server); pull auditing disabled", c.host, c.port)
+                return
+        self._audit_wire = True
+        get_logger().info(
+            "consistency auditor armed: pulls carry publish digests "
+            "(last-%d window per key)", self.audit_window)
+
+    def _audit_split(self, part: "_PartTask", raw):
+        """Strip one audited pull's 24-byte trailer.  Returns ``(body,
+        verify)`` where ``verify`` is a no-arg closure running the
+        digest pass + verdict — or None when there is nothing to verify
+        (short frame, no digest recorded).  The split is O(1); the
+        caller runs ``verify`` only after the handle resolved, keeping
+        the CRC off the round's critical path."""
+        mv = raw if isinstance(raw, memoryview) else memoryview(raw)
+        if len(mv) < _AUDIT_TRAILER.size:
+            get_logger().error(
+                "AUDIT: pull for key %d returned %d bytes — too short to "
+                "carry the trailer an audit-armed server always appends; "
+                "treating as unverified", part.pkey, len(mv))
+            with self._audit_lock:
+                self._audit_stats["unverified"] += 1
+            return mv, None
+        body = mv[:-_AUDIT_TRAILER.size]
+        digest, rnd, epoch, n_contrib = _AUDIT_TRAILER.unpack(
+            mv[-_AUDIT_TRAILER.size:])
+        if n_contrib == 0:
+            # No digest recorded for the served buffer (pre-first armed
+            # publish, or state freshly migrated in): skip, don't flag.
+            with self._audit_lock:
+                self._audit_stats["unverified"] += 1
+            return body, None
+        return body, lambda: self._audit_verify(part, body, digest, rnd,
+                                                epoch, n_contrib)
+
+    def _audit_verify(self, part: "_PartTask", body, digest: int,
+                      rnd: int, epoch: int, n_contrib: int) -> None:
+        """Re-digest one audited pull's body and verify it against what
+        the server recorded at publish.  Verdicts are observations: a
+        mismatch fires a structured ERROR naming key/round/contributors/
+        epoch, bumps the counters, flight-records the event, and (once)
+        drops a postmortem bundle — the payload already landed, because
+        a detected-corrupt round that loudly names itself beats a handle
+        failure that throws away the evidence."""
+        local = audit_digest(body)
+        if epoch > self._last_epoch:
+            self._last_epoch = int(epoch)   # trailer-borne epoch observation
+        with self._audit_lock:
+            self._audit_stats["checked"] += 1
+            dq = self._audit_window_log.get(part.pkey)
+            if dq is None:
+                dq = self._audit_window_log[part.pkey] = deque(
+                    maxlen=self.audit_window)
+            dq.append((int(rnd), int(local), int(epoch), int(n_contrib)))
+        self._m_audit_checked.inc()
+        ring_epoch = self._ring.epoch if self._ring is not None else 0
+        if local != digest:
+            with self._audit_lock:
+                self._audit_stats["mismatches"] += 1
+                first = self._audit_stats["mismatches"] == 1
+                self._audit_last = {
+                    "kind": "digest_mismatch", "key": part.pkey,
+                    "label": part.label, "round": int(rnd),
+                    "local": int(local), "server": int(digest),
+                    "contributors": int(n_contrib), "epoch": int(epoch),
+                    "ring_epoch": int(ring_epoch)}
+            self._m_audit_mismatch.inc()
+            get_logger().error(
+                "AUDIT MISMATCH: pulled bytes for key %d (%s) round %d "
+                "differ from the server's publish digest "
+                "(local=%08x server=%08x; %d contributors, membership "
+                "epoch %d, ring epoch %d, worker %d) — single-bit "
+                "corruption in transit, or a divergent published sum; "
+                "run bps.get_audit(cross_check=True) or "
+                "tools/postmortem.py for cross-worker attribution",
+                part.pkey, part.label, rnd, local, digest, n_contrib,
+                epoch, ring_epoch, self.worker_id)
+            _flightrec.record(
+                "audit_mismatch", key=part.pkey, label=part.label,
+                round=int(rnd), local=int(local), server=int(digest),
+                contributors=int(n_contrib), epoch=int(epoch),
+                ring_epoch=int(ring_epoch), worker=self.worker_id)
+            if first:
+                _flightrec.dump_bundle("audit-mismatch")
+        elif int(rnd) != part.round:
+            # The digest matches the bytes — but they are a DIFFERENT
+            # round than this worker staged: a lost/skewed round (the
+            # elastic failover publish-to-last-pull window,
+            # docs/elasticity.md) now detected instead of silently
+            # training on a stale sum.
+            with self._audit_lock:
+                self._audit_stats["round_skew"] += 1
+                self._audit_last = {
+                    "kind": "round_skew", "key": part.pkey,
+                    "label": part.label, "staged_round": part.round,
+                    "served_round": int(rnd), "epoch": int(epoch),
+                    "ring_epoch": int(ring_epoch)}
+            self._m_audit_skew.inc()
+            get_logger().error(
+                "AUDIT LOST ROUND: pull for key %d (%s) staged round %d "
+                "but the server served round %d's publish (%d "
+                "contributors, membership epoch %d, ring epoch %d, "
+                "worker %d) — a round was lost or skewed across a "
+                "failover/restart boundary (docs/elasticity.md)",
+                part.pkey, part.label, part.round, rnd, n_contrib,
+                epoch, ring_epoch, self.worker_id)
+            _flightrec.record(
+                "audit_lost_round", key=part.pkey, label=part.label,
+                staged_round=part.round, served_round=int(rnd),
+                epoch=int(epoch), ring_epoch=int(ring_epoch),
+                worker=self.worker_id)
+
+    def fetch_server_audit(self, timeout: float = 10.0) -> dict:
+        """Drain every live server's CMD_AUDIT window, merged (keys are
+        disjoint across servers).  ``{"armed", "window", "epoch",
+        "ring_epoch", "keys": {pkey: [{"r","d","e","w"}, ...]}}``."""
+        merged = {"armed": False, "window": 0, "epoch": 0,
+                  "ring_epoch": 0, "keys": {}, "servers_down": 0}
+        for slot, c in enumerate(self.conns):
+            if slot in self._dead_slots:
+                merged["servers_down"] += 1
+                continue
+            try:
+                doc = self._audit_probe(c, timeout=timeout)
+            except (ConnectionError, OSError, TimeoutError):
+                # A dead server must not break the audit plane — it is
+                # exactly when the operator reads it.
+                merged["servers_down"] += 1
+                continue
+            merged["armed"] = merged["armed"] or bool(doc.get("armed"))
+            merged["window"] = max(merged["window"],
+                                   int(doc.get("window", 0)))
+            merged["epoch"] = max(merged["epoch"],
+                                  int(doc.get("epoch", 0)))
+            merged["ring_epoch"] = max(merged["ring_epoch"],
+                                       int(doc.get("ring_epoch", 0)))
+            for k, rows in (doc.get("keys") or {}).items():
+                # Merge BY ROUND, not dict-overwrite: around a key
+                # migration two servers may briefly both hold rows for
+                # the key (the old owner's pre-migration rounds, the new
+                # owner's post-migration ones) — dropping either half
+                # would blind the cross-check exactly at the boundary it
+                # exists for.  A same-round collision keeps the later
+                # server's row (the current owner republishes it).
+                by_round = {int(r["r"]): r
+                            for r in merged["keys"].get(int(k), ())}
+                for r in rows:
+                    by_round[int(r["r"])] = r
+                merged["keys"][int(k)] = [by_round[r]
+                                          for r in sorted(by_round)]
+        return merged
+
+    # -- fleet observability plane (docs/monitoring.md "Fleet plane") -------
+    def _fleet_probe(self, conn: "_ServerConn",
+                     timeout: float = 10.0) -> dict:
+        """One CMD_FLEET round trip, parsed.  A pre-fleet server routes
+        the unknown command to an engine whose default arm answers an
+        error status — surfaced as a clean "server too old" RuntimeError,
+        never a hang (the kStats pattern)."""
+        import json as _json
+        try:
+            raw = conn.request(CMD_FLEET, worker_id=self.worker_id,
+                               timeout=timeout)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"PS server at {conn.host}:{conn.port} does not support "
+                f"CMD_FLEET (server too old — rebuild/redeploy the server "
+                f"tier to match this client): {e}") from e
+        return _json.loads(bytes(raw).decode())
+
+    def _fleet_bootstrap(self) -> None:
+        """Arm the fleet publish wire — but only after proving the
+        server tier actually retains windows (CMD_FLEET probe on EVERY
+        server: rings must survive a drain onto any member).  A
+        mixed/old deployment downgrades loudly to "fleet plane off"
+        instead of publishing summaries nothing retains; the unarmed
+        wire therefore stays byte-identical whichever side is missing
+        the feature (the CMD_AUDIT bootstrap law)."""
+        for c in self.conns:
+            try:
+                doc = self._fleet_probe(c)
+            except Exception as e:
+                get_logger().warning(
+                    "BYTEPS_TPU_FLEET armed but the server tier cannot "
+                    "answer CMD_FLEET (%s); fleet plane disabled", e)
+                return
+            if not doc.get("armed"):
+                get_logger().warning(
+                    "BYTEPS_TPU_FLEET armed on this worker but NOT on "
+                    "PS server %s:%d (set BYTEPS_TPU_FLEET=1 on every "
+                    "server); fleet plane disabled", c.host, c.port)
+                return
+        self._fleet_wire = True
+        get_logger().info(
+            "fleet plane armed: window summaries publish to the server "
+            "tier (last-%d ring per worker)", self.fleet_windows)
+
+    def fleet_clock_offset(self, max_age_s: float = 60.0,
+                           samples: int = 3,
+                           timeout: float = 5.0) -> Optional[dict]:
+        """This worker's clock offset vs its rank-0 server, for the
+        published window summary (the fleet doctor's clock_skew rule
+        compares workers against the fleet median).  NTP-style estimate
+        over CMD_PING round trips, cached for ``max_age_s`` so a window
+        roll does not cost ping frames every time; called only from the
+        signal-plane thread, never on a round's critical path.  None
+        when no live server can answer."""
+        now = time.monotonic()
+        if self._fleet_clock is not None \
+                and now - self._fleet_clock[0] < max_age_s:
+            return self._fleet_clock[1]
+        for slot, c in enumerate(self.conns):
+            if slot in self._dead_slots:
+                continue
+            try:
+                off, rtt = estimate_clock_offset(self._ping_server_clock(
+                    c, samples=samples, timeout=timeout))
+            except (ConnectionError, OSError, TimeoutError, ValueError,
+                    RuntimeError):
+                continue
+            est = {"offset_us": float(off), "rtt_us": float(rtt),
+                   "server": slot}
+            self._fleet_clock = (now, est)
+            return est
+        return None
+
+    def publish_window(self, window: int, doc: dict,
+                       timeout: float = 10.0) -> bool:
+        """Publish one window summary (CMD_WINDOW, key = window index)
+        to this worker's rank-0 server — the first live conn, so a
+        drained/dead server 0 fails over to the next member instead of
+        silencing the worker's row.  Swallows wire errors (the plane
+        must outlive a flaky server; the ring just misses a window) and
+        returns whether the publish landed."""
+        if not self._fleet_wire:
+            return False
+        import json as _json
+        payload = _json.dumps(doc, separators=(",", ":")).encode()
+        for slot, c in enumerate(self.conns):
+            if slot in self._dead_slots:
+                continue
+            try:
+                c.request(CMD_WINDOW, key=int(window), payload=payload,
+                          worker_id=self.worker_id, timeout=timeout)
+                self._fleet_publishes += 1
+                return True
+            except (ConnectionError, OSError, TimeoutError,
+                    RuntimeError) as e:
+                self._fleet_publish_errors += 1
+                get_logger().debug(
+                    "fleet publish of window %d to server %d failed: %s",
+                    window, slot, e)
+                return False
+        self._fleet_publish_errors += 1
+        return False
+
+    def fetch_fleet(self, timeout: float = 10.0) -> dict:
+        """The merged fleet view: every live server's CMD_FLEET rings,
+        folded per (worker, window index).  After a drain two servers
+        may briefly both hold a worker's windows (the migrated copy and
+        the publisher's ongoing ring) — same-index rows are identical by
+        construction (publishes are idempotent replace-in-place), so
+        first-seen wins.  ``{"armed", "cap", "workers": {wid:
+        [summary, ...]}, "servers_down"}`` with each worker's summaries
+        ordered by window index."""
+        merged: dict = {"armed": False, "cap": 0, "workers": {},
+                        "servers_down": 0}
+        by_idx: Dict[int, Dict[int, dict]] = {}
+        for slot, c in enumerate(self.conns):
+            if slot in self._dead_slots:
+                merged["servers_down"] += 1
+                continue
+            try:
+                doc = self._fleet_probe(c, timeout=timeout)
+            except (ConnectionError, OSError, TimeoutError,
+                    RuntimeError):
+                # A dead server must not break the fleet plane — it is
+                # exactly when the operator reads it.
+                merged["servers_down"] += 1
+                continue
+            merged["armed"] = merged["armed"] or bool(doc.get("armed"))
+            merged["cap"] = max(merged["cap"], int(doc.get("cap", 0)))
+            for wid, rows in (doc.get("workers") or {}).items():
+                ring = by_idx.setdefault(int(wid), {})
+                for row in rows:
+                    if not isinstance(row, dict) or "window" not in row:
+                        continue   # a malformed publish poisons only
+                        #            its own row, never the merge
+                    ring.setdefault(int(row["window"]), row)
+        for wid, ring in by_idx.items():
+            merged["workers"][wid] = [ring[i] for i in sorted(ring)]
+        return merged
+
+    def fleet_stats(self) -> dict:
+        """Publish-side accounting for telemetry / the /fleet route."""
+        return {"armed": self._fleet_wire,
+                "publishes": self._fleet_publishes,
+                "publish_errors": self._fleet_publish_errors}
+
+    def audit_check(self, timeout: float = 10.0) -> dict:
+        """Cross-check this worker's last-K pulled-digest window against
+        the servers' published-digest windows (CMD_AUDIT).
+
+        Catches what the per-pull trailer check cannot: a round this
+        worker pulled that the server no longer agrees on (divergence
+        after the fact), and rounds missing from the server's window
+        while inside its span (lost rounds across a failover).  Returns
+        ``{"armed", "compared", "mismatches": [...], "lost_rounds":
+        [...], "counters": {...}}``."""
+        report = {"armed": self._audit_wire, "compared": 0,
+                  "mismatches": [], "lost_rounds": []}
+        with self._audit_lock:
+            local = {k: list(dq)
+                     for k, dq in self._audit_window_log.items()}
+            report["counters"] = dict(self._audit_stats)
+        if not self._audit_wire:
+            return report
+        srv = self.fetch_server_audit(timeout=timeout)
+        report["servers_down"] = srv.get("servers_down", 0)
+        for pkey, recs in local.items():
+            rows = {int(r["r"]): r
+                    for r in srv["keys"].get(pkey, ())}
+            for rnd, dig, epoch, n in recs:
+                row = rows.get(rnd)
+                if row is None:
+                    if rows and min(rows) <= rnd <= max(rows):
+                        # Inside the server's retained window yet absent:
+                        # the server never published (or lost) this round.
+                        report["lost_rounds"].append(
+                            {"key": pkey, "round": rnd})
+                    continue
+                report["compared"] += 1
+                if int(row["d"]) != dig:
+                    report["mismatches"].append({
+                        "key": pkey, "round": rnd, "local": dig,
+                        "server": int(row["d"]),
+                        "contributors": row.get("w", [])})
+        if report["mismatches"] or report["lost_rounds"]:
+            _flightrec.record(
+                "audit_cross_check",
+                mismatches=len(report["mismatches"]),
+                lost_rounds=len(report["lost_rounds"]),
+                worker=self.worker_id)
+        return report
+
+    def audit_stats(self) -> dict:
+        """Local auditor counters + the last verdict detail (no wire
+        traffic; ``audit_check()`` is the cross-checking sibling)."""
+        with self._audit_lock:
+            return {"armed": self._audit_wire,
+                    "window": self.audit_window,
+                    **self._audit_stats,
+                    "last": dict(self._audit_last)
+                            if self._audit_last else None}
+
+    def health_snapshot(self) -> dict:
+        """The gradient-health monitor's last per-key samples (empty when
+        BYTEPS_TPU_HEALTH_SAMPLE_ROUNDS is 0)."""
+        return self._health.snapshot() if self._health is not None else {}
+
+    def _bundle_extra(self) -> dict:
+        """Session sections for a postmortem bundle — everything here is
+        LOCAL state (no wire fetches): a bundle is dumped exactly when
+        the wire may be the broken part."""
+        out: dict = {"worker_id": self.worker_id}
+        try:
+            out["transport"] = self.transport_stats()
+        except Exception:
+            pass
+        try:
+            out["audit"] = self.audit_stats()
+            # The worker's pulled-digest window rides the bundle so
+            # tools/postmortem.py can compare (key, round) digests
+            # ACROSS workers' bundles — two workers that pulled
+            # different bytes for the same round is the silent
+            # divergence this whole plane exists to name.
+            with self._audit_lock:
+                out["audit_window"] = {
+                    str(k): [list(r) for r in dq]
+                    for k, dq in self._audit_window_log.items()}
+        except Exception:
+            pass
+        try:
+            out["health"] = self.health_snapshot()
+        except Exception:
+            pass
+        try:
+            with self._ring_lock:
+                if self._ring is not None:
+                    out["ring"] = {"epoch": self._ring.epoch,
+                                   "vnodes": self._ring.vnodes,
+                                   "servers": list(self._ring.servers),
+                                   "dead_slots":
+                                       sorted(self._dead_slots)}
+        except Exception:
+            pass
+        return out
+
+    # -- distributed tracing: clock sync + server span fetch ----------------
+    def _ping_server_clock(self, conn: "_ServerConn", samples: int = 5,
+                           timeout: float = 10.0) -> list:
+        """``samples`` timestamped ping exchanges with one server:
+        [(t0_us, server_ts_us, t1_us), ...] on the tracer clock.  Raises a
+        "server too old" RuntimeError against a server whose CMD_PING
+        predates the timestamped response (it answers 0 bytes)."""
+        core = get_native_core()
+        out = []
+        for _ in range(max(1, samples)):
+            t0 = core.trace_now_us()
+            raw = conn.request(CMD_PING, worker_id=self.worker_id,
+                               flags=FLAG_TRACED, timeout=timeout)
+            t1 = core.trace_now_us()
+            if len(raw) < 8:
+                raise RuntimeError(
+                    f"PS server at {conn.host}:{conn.port} does not answer "
+                    f"timestamped pings (server too old — rebuild/redeploy "
+                    f"the server tier to match this client)")
+            (ts,) = struct.unpack("<q", bytes(raw[:8]))
+            out.append((t0, ts, t1))
+        return out
+
+    def sync_clocks(self, samples: int = 5) -> dict:
+        """Estimate every server's clock offset (min-RTT NTP midpoint
+        over timestamped CMD_PINGs) and APPEND it to the per-server
+        offset history.  Called at trace-enable, by the periodic sync
+        thread (every ``clock_sync_s``), and again at each fetch; the
+        fetch corrects every span with the history entry nearest the
+        span's timestamp, so periodic samples are what bounds drift
+        across a long trace window.  Returns {server_idx: (offset_us,
+        rtt_us)} for the fresh estimates."""
+        est = {}
+        for i, c in enumerate(self.conns):
+            off, rtt = estimate_clock_offset(
+                self._ping_server_clock(c, samples))
+            self._append_clock_sample(i, off, rtt)
+            est[i] = (off, rtt)
+        return est
+
+    @staticmethod
+    def _server_clock_now(offset_us: float) -> float:
+        """The server's clock 'now' implied by an offset estimate."""
+        return get_native_core().trace_now_us() + offset_us
+
+    def _append_clock_sample(self, srv: int, off: float,
+                             rtt: float) -> list:
+        """Record one offset estimate in server `srv`'s history; returns a
+        snapshot of the history.  A jump far beyond what drift or RTT
+        noise explains means the server process RESTARTED (a fresh
+        steady_clock epoch) — the old entries would place post-restart
+        spans wildly off the timeline, so the history resets to the new
+        epoch instead of only logging."""
+        with self._clock_lock:
+            hist = self._clock_offsets.setdefault(srv, [])
+            if hist:
+                jump = abs(hist[-1][1] - off)
+                if jump > max(1e6, 100 * rtt):
+                    get_logger().warning(
+                        "server %d clock offset jumped %.0fms (restart/"
+                        "epoch change): resetting offset history",
+                        srv, jump / 1e3)
+                    hist.clear()
+                elif jump > 1000:
+                    get_logger().debug(
+                        "server %d clock offset drifted %.0fus since "
+                        "last sync", srv, jump)
+            # Keyed by the SERVER clock at sync time, so a span's own
+            # (server-clock) timestamp selects its nearest estimate
+            # without a correction chicken-and-egg.
+            hist.append((self._server_clock_now(off), off))
+            del hist[:-64]              # bounded history
+            return list(hist)
+
+    def start_clock_sync(self) -> None:
+        """Idempotently start the background re-sync thread: every
+        ``clock_sync_s`` (BYTEPS_TPU_CLOCK_SYNC_S) it re-estimates the
+        offsets — but only while the tracer is actually on, so an
+        untraced run sends no extra wire traffic."""
+        if self._clock_sync_thread is not None:
+            return
+        self._clock_sync_thread = threading.Thread(
+            target=self._clock_sync_loop, daemon=True,
+            name="bps-ps-clocksync")
+        self._clock_sync_thread.start()
+
+    def _clock_sync_loop(self) -> None:
+        while not self._clock_sync_stop.wait(self.clock_sync_s):
+            if not get_native_core().trace_on:
+                continue
+            try:
+                self.sync_clocks()
+            except Exception as e:
+                get_logger().debug("periodic clock sync failed: %s", e)
+
+    def set_trace_members(self, declared_key: int, names: list) -> None:
+        """Record a fusion bucket's member-leaf names so the merged trace
+        can annotate the bucket's spans with the real parameters riding
+        it (the analyzer's slow-bucket attribution)."""
+        self._trace_members[declared_key] = list(names)
+
+    def trace_members(self) -> dict:
+        return dict(self._trace_members)
+
+    def fetch_server_trace(self, timeout: float = 30.0,
+                           ping_timeout: float = 10.0,
+                           ping_samples: int = 5) -> list:
+        """Drain every server's span ring (CMD_TRACE) and return the
+        spans offset-corrected onto THIS worker's tracer clock.
+
+        Each span is ``{"server", "stage", "key", "round", "worker",
+        "ts_us", "dur_us", "bytes"}`` with stage one of RECV / SUM /
+        MERGE_WAIT / PUBLISH / PULL_SEND.  A fresh offset is estimated
+        at the drain, then each span is corrected with the offset-history
+        entry (trace-enable + periodic syncs + this one) NEAREST the
+        span's own timestamp — early-window spans use early estimates,
+        so clock drift across a long window is bounded by the sync
+        cadence, not the window length.  Fetch-and-clear on the server:
+        each span is returned to exactly one fetching worker.
+
+        A pre-CMD_TRACE server surfaces as a clean "server too old"
+        RuntimeError (the unknown command draws an error status from the
+        engine's default arm) — never a hang.
+        """
+        import json as _json
+        spans = []
+        for i, c in enumerate(self.conns):
+            off, rtt = estimate_clock_offset(self._ping_server_clock(
+                c, samples=ping_samples, timeout=ping_timeout))
+            hist = self._append_clock_sample(i, off, rtt)
+            try:
+                raw = c.request(CMD_TRACE, worker_id=self.worker_id,
+                                timeout=timeout)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"PS server at {c.host}:{c.port} does not support "
+                    f"CMD_TRACE (server too old — rebuild/redeploy the "
+                    f"server tier to match this client): {e}") from e
+            st = _json.loads(bytes(raw).decode())
+            if st.get("dropped"):
+                get_logger().warning(
+                    "server %s:%d trace ring dropped %d spans — raise "
+                    "BYTEPS_SERVER_TRACE_EVENTS or fetch more often",
+                    c.host, c.port, st["dropped"])
+            for s in st.get("spans", ()):
+                ts = s["ts"]
+                # Nearest-in-time estimate: history is keyed by the
+                # server clock, as is the span's ts.
+                _, use_off = min(hist, key=lambda h: abs(h[0] - ts))
+                spans.append({
+                    "server": i, "stage": s["st"], "key": int(s["k"]),
+                    "round": int(s["r"]), "worker": int(s["w"]),
+                    "ts_us": int(round(ts - use_off)),
+                    "dur_us": int(s["d"]), "bytes": int(s["b"]),
+                })
+        return spans
+
+    # -- test/introspection hooks -------------------------------------------
+    def pause_dispatch(self) -> None:
+        """Hold dispatch so several push_pull_async calls can enqueue before
+        any push is issued (deterministic priority-order tests)."""
+        with self._cv:
+            self._paused = True
+
+    def resume_dispatch(self) -> None:
+        with self._cv:
+            self._paused = False
+            self._cv.notify_all()
+
+    # -- public API ---------------------------------------------------------
+    def push_pull_async(self, declared_key: int, tensor,
+                        priority: int = 0, raw: bool = False,
+                        seed: bool = False, copy: bool = False) -> PSHandle:
+        """Partitioned, priority-scheduled asynchronous push_pull.
+
+        ZERO-COPY CONTRACT: when `tensor` is already a contiguous float32
+        buffer, partitions are wire views of the caller's memory (the
+        reference's ZPush zero-copy SArray semantics) — the caller must
+        not mutate it until the returned handle completes.  Non-f32 or
+        non-contiguous inputs are converted (snapshotted) first.
+        copy=True restores the old snapshot semantics unconditionally for
+        callers that need to keep mutating the buffer after dispatch
+        (documented in docs/migration.md "wire semantics").
+
+        raw=True pushes last-write-wins bytes instead of f32-summed values.
+        seed=True (async servers only) writes the store ONLY if the key has
+        never been pushed — idempotent initial-weight seeding that cannot
+        reset a live run when a worker joins late or rejoins.
+        """
+        handle, parts = self._stage(declared_key, tensor, priority, raw,
+                                    seed, copy)
+        self._enqueue([(parts, priority)])
+        return handle
+
+    def push_pull_group(self, items, raw: bool = False, seed: bool = False,
+                        copy: bool = False) -> List[PSHandle]:
+        """Grouped staging: stage EVERY (declared_key, tensor, priority)
+        item, then enqueue them all under one dispatcher wakeup.
+
+        This is the fusion layer's dispatch face (common/fusion.py): the
+        priority ScheduledQueue sees the whole bucket set before the
+        dispatcher picks, so buckets leave in strict (priority desc, key
+        asc) order even without a credit limit slowing the first pick —
+        and N buckets cost one lock round-trip instead of N.  Each item
+        follows the same zero-copy contract as push_pull_async.
+        """
+        staged: List[tuple] = []
+        handles: List[PSHandle] = []
+        seen: set = set()
+        try:
+            for declared_key, tensor, priority in items:
+                if declared_key in seen:
+                    # A repeated key inside one group would deadlock: its
+                    # _stage blocks on the earlier round's completion,
+                    # which can't happen until that round is enqueued.
+                    # Flush what's staged so the guard can make progress.
+                    self._enqueue(staged)
+                    staged, seen = [], set()
+                h, parts = self._stage(declared_key, tensor, priority, raw,
+                                       seed, copy)
+                handles.append(h)
+                staged.append((parts, priority))
+                seen.add(declared_key)
+        except Exception:
+            # The failing item rolled back its own parts in _stage; the
+            # EARLIER items are staged but will never be enqueued — unpin
+            # them too, or their keys wedge every later push (the
+            # sequential-use guard would wait on done_evts nothing sets).
+            with self._inflight_lock:
+                for parts, _ in staged:
+                    for p in parts:
+                        if self._inflight.get(p.pkey) is p:
+                            del self._inflight[p.pkey]
+                        p.done_evt.set()
+            raise
+        self._enqueue(staged)
+        return handles
+
+    def _stage(self, declared_key: int, tensor, priority: int, raw: bool,
+               seed: bool, copy: bool) -> tuple:
+        """Partition + stage one tensor into _inflight (INITs included)
+        WITHOUT enqueueing — the caller batches the queue adds so grouped
+        pushes enter the scheduler atomically."""
+        arr = np.asarray(tensor)
+        payload = np.ascontiguousarray(arr, dtype=np.float32).ravel()
+        if copy and np.may_share_memory(payload, arr):
+            # Snapshot only when the wire view would alias the caller's
+            # memory — the non-f32/non-contiguous path already copied.
+            payload = payload.copy()
+        # Zero-copy wire: partitions are sent as memoryview slices of the
+        # caller's buffer (no tobytes snapshot) — the reference's ZPush
+        # contract: the tensor must not be mutated until the handle
+        # completes.  The sequential-use guard in _stage_parts already
+        # serializes re-pushes of the same key.
+        plan = self._plan(declared_key, payload.nbytes)
+        # np.empty, not np.zeros: every partition's pull fills its slice
+        # before wait() can return the buffer (and a failed handle never
+        # returns it at all), so pre-zeroing a 64MB result buffer every
+        # round was a pure memset tax on the pull path.
+        handle = PSHandle(arr.shape, arr.dtype, len(plan),
+                          np.empty(payload.nbytes // 4, np.float32))
+        mv = memoryview(payload).cast("B")
+        # Pending codec renegotiation whose round boundary this push
+        # reaches applies HERE, before the kwargs/INIT and any encode —
+        # the worker half of the atomic switch.  The GLOBAL knob table
+        # applies at the same boundary (staged CMD_KNOB switch whose
+        # effective round this session has reached): pool resize and
+        # lane dial happen before any of this round's parts stage.
+        self._maybe_apply_knobs(self._round.get(plan[0][0], 0))
+        comp = self._current_compressor(declared_key, plan)
+        kw_bytes = comp.kwargs_string().encode() if comp else b""
+        label = self._label(declared_key)
+        if self._health is not None and not raw and not seed:
+            # Push-side value health (every Nth round of this key):
+            # norm/absmax/NaN/Inf of the gradient about to ride the
+            # wire, plus the EF residual when a compressor carries one.
+            # Keyed by the key's REAL round (first partition's counter)
+            # so push and pull samples align; the numpy pass runs on the
+            # codec pool over a snapshot when there is one.
+            self._health.sample_push(
+                label, payload, self._round.get(plan[0][0], 0),
+                pool=self._codec_pool, comp=comp)
+        parts: list = []
+        consumed_folds: dict = {}
+        for attempt in range(4):
+            try:
+                self._stage_parts(plan, payload, mv, comp, kw_bytes,
+                                  handle, parts, raw, seed, label,
+                                  priority, consumed_folds)
+                # Stamp the fusion-layout generation these parts were
+                # staged under — the dispatcher gate and the KNOB_STALE
+                # replay use it to withdraw layout-dependent pushes that
+                # a later FUSION_BYTES switch orphans.
+                gen = self._knob_gen
+                for p in parts:
+                    p.knob_gen = gen
+                return handle, parts
+            except _KeyMoved as e:
+                # A staging INIT hit a ring transition: roll back, adopt
+                # the attached table, re-plan against it, retry (partition
+                # BOUNDS are placement-independent, so the handle stays
+                # valid).  Bounded — a healthy ring settles in one hop.
+                self._rollback_stage(parts)
+                self._restore_folds(consumed_folds)
+                parts = []
+                self._adopt_ring_doc(e.doc)
+                if attempt == 3:
+                    raise RuntimeError(
+                        f"ring kept moving while staging key "
+                        f"{declared_key}") from e
+                plan = self._plan(declared_key, payload.nbytes)
+            except Exception:
+                # Roll back partitions already staged in _inflight:
+                # leaving them would wedge the key forever (the
+                # sequential-use guard waits on done_evt, which nothing
+                # would ever set).
+                self._rollback_stage(parts)
+                self._restore_folds(consumed_folds)
+                raise
+        return handle, parts
+
+    def _restore_folds(self, consumed: dict) -> None:
+        """Re-stage EF folds a rolled-back staging attempt consumed (the
+        residual must ride the RETRY, not vanish with the rollback).
+        Folds adopted into an EF compressor's state need no restore —
+        that state survives the rollback."""
+        for pkey, fold in consumed.items():
+            if pkey not in self._ef_fold:
+                self._ef_fold[pkey] = fold
+        consumed.clear()
+
+    def _rollback_stage(self, parts: list) -> None:
+        with self._inflight_lock:
+            for p in parts:
+                if self._inflight.get(p.pkey) is p:
+                    del self._inflight[p.pkey]
+                p.done_evt.set()
+
+    def _enqueue(self, staged) -> None:
+        """Enqueue staged partitions ([(parts, priority), ...]) into the
+        scheduler under ONE condition-variable hold."""
+        core = get_native_core()
+        enq = core.trace_now_us() if core.trace_on else 0
+        # New work resets the stall clock: an idle session's age must not
+        # count against the first round staged after the lull.
+        self._mark_progress()
+        enq_mono = time.monotonic()
+        with self._cv:
+            for parts, priority in staged:
+                for p in parts:
+                    p.enq_ts = enq
+                    p.enq_mono = enq_mono
+                    # credit_ln: actual wire bytes for ready parts; the
+                    # codec's worst-case bound for pipelined encodes (their
+                    # true size doesn't exist yet and p.wire_ln is racing
+                    # the encoder).  The queue returns the same figure at
+                    # get(), so report_finish stays symmetric either way.
+                    self._queue.add(p.pkey, priority, p.credit_ln)
+            self._cv.notify_all()
+
+    def _label(self, declared_key: int) -> str:
+        """Tensor name for trace rows (falls back to the numeric key for
+        sessions driven outside the declare() registry)."""
+        lbl = self._trace_labels.get(declared_key)
+        if lbl is None:
+            name = get_native_core().declared_name(declared_key)
+            lbl = name if name else f"key_{declared_key}"
+            self._trace_labels[declared_key] = lbl
+        return lbl
+
+    def _init_parts(self, plan, kw_bytes) -> None:
+        """Pipelined per-partition CMD_INIT: issue every needed INIT
+        concurrently, then await them all — one round-trip time per tensor
+        instead of one blocking round-trip per partition (a 64-partition
+        tensor's first push used to pay 64 serial RTTs here).  All futures
+        resolve before any partition is staged, so the PUSH of a key can
+        never beat its INIT to the server."""
+        deadline = time.monotonic() + 60.0
+        inits = []
+        for pkey, off, ln, srv in plan:
+            if self._inited.get(pkey) != (ln, kw_bytes):
+                conn = self.conns[srv]    # control traffic: primary lane
+                init_payload = struct.pack(
+                    "<QI", ln, len(kw_bytes)) + kw_bytes
+                inits.append((pkey, ln, conn, init_payload,
+                              self._send_init(conn, pkey, init_payload,
+                                              deadline)))
+        for pkey, ln, conn, init_payload, fut in inits:
+            while True:
+                try:
+                    resp = fut.wait(max(0.1, deadline - time.monotonic()))
+                    break
+                except _ConnLost as e:
+                    # Dropped mid-outage with reconnect active: INIT is
+                    # idempotent, so ride out the re-dial and re-issue it
+                    # until the deadline — a staging caller should survive
+                    # the same faults the in-flight parts do.
+                    if not e.will_reconnect or time.monotonic() > deadline:
+                        raise
+                    fut = self._send_init(conn, pkey, init_payload, deadline)
+            # Seed the round counter from server state so a reconnected
+            # worker can never pull a stale previous round.
+            (completed,) = struct.unpack("<Q", resp)
+            self._round[pkey] = completed
+            self._inited[pkey] = (ln, kw_bytes)
+
+    def _send_init(self, conn: "_ServerConn", pkey: int, payload: bytes,
+                   deadline: float) -> "_Future":
+        """Send one CMD_INIT, waiting out a mid-reconnect window (sends
+        raise `_ConnLost(will_reconnect=True)` while the conn re-dials)."""
+        while True:
+            try:
+                return conn.send(CMD_INIT, pkey, payload,
+                                 worker_id=self.worker_id)
+            except _ConnLost as e:
+                if not e.will_reconnect or time.monotonic() > deadline:
+                    raise
+                time.sleep(0.05)
+
+    def _encode_part(self, part: "_PartTask", comp, seg) -> None:
+        """Produce one partition's compressed wire payload on a codec pool
+        thread, recording the ENCODE span; always resolves part.ready (an
+        unset event would hang the dispatcher on this key forever)."""
+        core = get_native_core()
+        t0 = core.trace_now_us()
+        try:
+            blob = comp.encode(part.pkey, seg)
+            part.payload = blob
+            part.wire_ln = len(blob)
+        except Exception as e:
+            part.enc_err = e
+        finally:
+            # ready FIRST: if the tracer/stats below ever raised, an unset
+            # event would wedge the in-order dispatcher forever (the
+            # pool's catch-all only logs).
+            part.ready.set()
+            dur = core.trace_now_us() - t0
+            if core.trace_on:
+                core.trace_record_part(part.label, "ENCODE", t0, dur,
+                                       part.pkey, part.wire_ln,
+                                       part.priority)
+            self._codec_pool.record("ENCODE", dur)
+            _signals.note_codec(part.label or f"key_{part.pkey >> 16}",
+                                "encode", dur)
+
+    def _stage_parts(self, plan, payload, mv, comp, kw_bytes, handle,
+                     parts, raw, seed, label="", priority=0,
+                     consumed_folds=None) -> None:
+        self._init_parts(plan, kw_bytes)
+        pool = self._codec_pool
+        core = get_native_core()
+        for pkey, off, ln, srv in plan:
+            seg = payload[off // 4:(off + ln) // 4]
+            # BYTEPS_MIN_COMPRESS_BYTES floor: small partitions go raw
+            # (reference: operations.cc:362-364).
+            use_comp = (comp is not None and not raw and not seed
+                        and ln >= self.min_compress_bytes)
+            # EF residual detached by a codec switch whose target cannot
+            # carry it: fold it into this partition's push exactly once
+            # (the EF-across-switch conservation law).  If the current
+            # codec CAN carry it (a later switch back to an EF codec),
+            # adopt it instead — same total either way.
+            folded = False
+            fold = self._ef_fold.get(pkey)
+            if fold is not None and not raw and not seed \
+                    and fold.size == ln // 4:
+                self._ef_fold.pop(pkey, None)
+                if use_comp and comp.ef:
+                    comp.adopt_ef_state({pkey: fold})
+                else:
+                    seg = (seg + fold).astype(np.float32)
+                    folded = True
+                    if consumed_folds is not None:
+                        consumed_folds[pkey] = fold
+            if use_comp and pool is None:
+                # Inline fallback (BYTEPS_TPU_COMPRESS_THREADS=0): encode
+                # on the caller thread, the pre-pipeline data path.
+                t0 = (core.trace_now_us()
+                      if core.trace_on or _signals.plane() is not None
+                      else 0)
+                wire_payload = comp.encode(pkey, seg)
+                if t0:
+                    dur = core.trace_now_us() - t0
+                    if core.trace_on:
+                        core.trace_record_part(
+                            f"{label}.part{pkey & 0xFFFF}", "ENCODE", t0,
+                            dur, pkey, len(wire_payload), priority)
+                    # Inline encodes must feed the signal plane too, or
+                    # the compute_bound class is unreachable in the
+                    # compress_threads=0 config.
+                    _signals.note_codec(
+                        label or f"key_{pkey >> 16}", "encode", dur)
+                dtype = DT_COMPRESSED
+            elif use_comp:
+                wire_payload = None     # pipelined: the pool fills it in
+                dtype = DT_COMPRESSED
+            else:
+                # A folded segment is a fresh array: its bytes ride the
+                # wire (part.seg keeps it alive); otherwise the caller's
+                # buffer rides zero-copy as before.
+                wire_payload = (memoryview(seg).cast("B") if folded
+                                else mv[off:off + ln])
+                dtype = DT_SEED if seed else (DT_RAW if raw else DT_F32)
+            # Sequential-use guard: a second async push_pull of the same
+            # tensor before the first completed waits for that partition.
+            # Check-and-insert is atomic under _inflight_lock, and the round
+            # tag is read inside the same critical section (after any
+            # previous round's _on_pull bumped it).
+            while True:
+                with self._inflight_lock:
+                    prev = self._inflight.get(pkey)
+                    if prev is None:
+                        part = _PartTask(
+                            pkey, wire_payload, off, ln,
+                            self._round.get(pkey, 0), srv, handle,
+                            dtype=dtype,
+                            bidirectional=use_comp and comp.bidirectional,
+                            label=f"{label}.part{pkey & 0xFFFF}")
+                        part.priority = priority
+                        if not raw and not seed:
+                            part.seg = seg   # re-encode source (CODEC_STALE)
+                        if wire_payload is None:
+                            part.ready = threading.Event()
+                            # Credit charge for a not-yet-encoded part:
+                            # the codec's worst-case wire size (never the
+                            # raw 4n — that would cut credit-gated
+                            # concurrency by the compression ratio).
+                            part.credit_ln = min(
+                                ln, comp.wire_cap_bytes(ln // 4))
+                        self._inflight[pkey] = part
+                        parts.append(part)
+                        handle._register_part(pkey)
+                        break
+                prev.done_evt.wait(timeout=60.0)
+            if part.ready is not None:
+                # Submitted AFTER the guard admits the part, so the encoder
+                # reads this round's EF/momentum/PRNG state strictly after
+                # the previous round's encode finished with it; the pool
+                # drains jobs in (priority desc, key asc) order, ahead of
+                # the dispatcher's identical order, overlapping partition
+                # k's wire send with the encode of k+1.
+                pool.submit(priority, pkey,
+                            lambda part=part, seg=seg:
+                                self._encode_part(part, comp, seg))
+
+    # -- row-sparse embedding plane (docs/sparse-embedding.md) ----------
+    #
+    # Embedding keys bypass the partitioned dispatcher entirely: a table
+    # is ONE wire key (part 0) on ONE server, its payloads are
+    # (indices, rows) pairs — wire bytes proportional to touched rows,
+    # never to table size — and its pulls are batched row lookups.  The
+    # ring still places the key, MOVED still redirects it, and a
+    # reconnecting conn still replays it, all through the same retry
+    # laws the dense path uses; it just never pays partition planning,
+    # fusion, or codec staging built for dense trees.
+
+    def _embed_pkey(self, key: int) -> int:
+        return get_native_core().encode_key(key, 0)
+
+    def _embed_srv(self, pkey: int) -> int:
+        if self._ring is not None:
+            with self._ring_lock:
+                return self._srv_slot[self._ring.owner(pkey)]
+        return get_native_core().key_to_server(pkey, len(self.conns),
+                                        self.hash_fn)
+
+    def _embed_request(self, cmd: int, pkey: int, payload: bytes,
+                       dtype: int = 0, flags: int = 0,
+                       timeout: float = 60.0) -> bytes:
+        """One blocking embed-plane round trip that survives the same
+        faults the dense path does: MOVED adopts the attached ring table
+        and re-routes to the new owner (state-before-redirect is the
+        server's contract, so a ring drain mid-request is invisible
+        beyond latency), and a reconnecting conn's `_ConnLost` rides out
+        the re-dial.  Both replays are safe by construction — pushes
+        dedup on the server's per-round `seen` set, reads and INIT are
+        idempotent."""
+        deadline = time.monotonic() + max(0.1, timeout)
+        while True:
+            conn = self.conns[self._embed_srv(pkey)]
+            try:
+                return conn.request(
+                    cmd, pkey, payload, worker_id=self.worker_id,
+                    dtype=dtype, flags=flags,
+                    timeout=max(0.1, deadline - time.monotonic()))
+            except _KeyMoved as e:
+                if time.monotonic() > deadline:
+                    raise
+                self._safe_adopt_ring(e.doc)
+                with self._transport_lock:
+                    self._tstats["ring_redirects"] += 1
+            except _ConnLost as e:
+                if not e.will_reconnect or time.monotonic() > deadline:
+                    raise
+                time.sleep(0.05)
+
+    def declare_embedding(self, key: int, rows: int, width: int,
+                          kwargs: str = "", timeout: float = 60.0) -> None:
+        """Declare a server-resident embedding table of ``rows`` x
+        ``width`` f32 under declared key ``key`` (idempotent: a same-
+        shape re-declare preserves server state, so reconnects and extra
+        sessions are safe).  ``kwargs`` rides the INIT kwargs string —
+        the same surface CMD_OPT arming uses (e.g. ``opt=adagrad,
+        lr=0.01``)."""
+        rows, width = int(rows), int(width)
+        if rows <= 0 or width <= 0:
+            raise ValueError("embedding shape must be positive, got "
+                             f"{rows}x{width}")
+        kw = f"embed_rows={rows},embed_width={width}"
+        if kwargs:
+            kw += "," + kwargs
+        kw_bytes = kw.encode()
+        pkey = self._embed_pkey(key)
+        resp = self._embed_request(
+            CMD_INIT, pkey,
+            struct.pack("<QI", 0, len(kw_bytes)) + kw_bytes,
+            timeout=timeout)
+        # Seed the accumulating round from server state, exactly like
+        # the dense _init_parts law — a re-declaring session can never
+        # push into (or pull from) a stale round.
+        (completed,) = struct.unpack("<Q", resp)
+        self._round[pkey] = completed
+        # Register with the control planes the dense path feeds from
+        # _init_parts/_plan: _inited makes propose_opt()'s pkey
+        # enumeration see the table, _pkey_srv routes its CMD_OPT frames
+        # (refreshed by the MOVED handler like any other key's).
+        self._inited[pkey] = (0, kw_bytes)
+        self._pkey_srv[pkey] = self._embed_srv(pkey)
+        with self._embed_lock:
+            self._embed_meta[key] = (rows, width)
+            self._embed_cache.pop(key, None)
+            self._embed_ver.pop(key, None)
+            self._embed_ver_ts.pop(key, None)
+
+    def arm_embedding(self, key: int, kwargs, table=None,
+                      effective_round: int = 0) -> dict:
+        """Arm the row-wise server-resident optimizer on an embedding
+        key: CMD_OPT SET (the dense propose_opt law — epoch-versioned,
+        idempotent, applied at a round boundary) plus an optional
+        full-table initial-parameter seed.  From the effective round on,
+        publishes serve post-update PARAMETER rows and optimizer slots
+        materialize row-by-row, only for pushed rows — dense optimizer
+        state never exists on any worker."""
+        rows, width = self._embed_shape(key)
+        doc = self.propose_opt(key, kwargs,
+                               effective_round=effective_round)
+        if table is not None:
+            t = np.ascontiguousarray(np.asarray(table, dtype=np.float32))
+            if t.shape != (rows, width):
+                raise ValueError(f"seed table shape {t.shape} != "
+                                 f"declared {(rows, width)}")
+            # Full-table seed in ONE frame to the one owner — the dense
+            # seed_params() partitioner must not split an embed key.
+            self._embed_request(CMD_OPT, self._embed_pkey(key),
+                                t.tobytes(), flags=2)
+        return doc
+
+    def _embed_shape(self, key: int) -> Tuple[int, int]:
+        with self._embed_lock:
+            meta = self._embed_meta.get(key)
+        if meta is None:
+            raise KeyError(f"embedding key {key} not declared "
+                           "(call declare_embedding first)")
+        return meta
+
+    @staticmethod
+    def _embed_coalesce(indices, rows, width: int):
+        """Sort + dedup the caller's (indices, rows) pair into the wire
+        form: unique ascending u32 indices with duplicate rows SUMMED
+        (gradient semantics — two touches of one row in a batch are one
+        accumulated update).  Returns (uniq, acc, inverse)."""
+        idx = np.ascontiguousarray(np.asarray(indices).ravel(),
+                                   dtype=np.uint32)
+        uniq, inv = np.unique(idx, return_inverse=True)
+        if rows is None:
+            return uniq, None, inv
+        dense = np.ascontiguousarray(
+            np.asarray(rows, dtype=np.float32)).reshape(idx.size, width)
+        if uniq.size == idx.size:
+            acc = dense[np.argsort(idx, kind="stable")]
+        else:
+            acc = np.zeros((uniq.size, width), dtype=np.float32)
+            np.add.at(acc, inv, dense)
+        return uniq, acc, inv
+
+    def push_pull_sparse(self, key: int, indices, rows,
+                         timeout: float = 60.0) -> np.ndarray:
+        """Row-sparse push_pull: merge this worker's (indices, rows)
+        gradient into the server-resident table's accumulating round,
+        wait for the round to publish (every member pushed; the server
+        runs the row-wise optimizer step on exactly the touched rows),
+        and return the published rows for the SAME indices, aligned to
+        the caller's index order.  Wire bytes are proportional to
+        touched rows on both legs — never to table size."""
+        if self.pull_only:
+            raise RuntimeError("pull-only session cannot push_pull_sparse"
+                               " (it is not a round member); use "
+                               "pull_rows")
+        trows, width = self._embed_shape(key)
+        uniq, acc, inv = self._embed_coalesce(indices, rows, width)
+        if uniq.size and int(uniq[-1]) >= trows:
+            raise IndexError(f"row index {int(uniq[-1])} out of range "
+                             f"for embedding of {trows} rows")
+        from .wire import (decode_sparse_response, encode_sparse_block)
+        pkey = self._embed_pkey(key)
+        rnd = self._round.get(pkey, 0)
+        flags = rnd & ROUND_MASK
+        push = encode_sparse_block(uniq, acc, width)
+        self._embed_request(CMD_PUSH, pkey, push, dtype=DT_SPARSE,
+                            flags=flags, timeout=timeout)
+        # Round-gated pull: same round tag, parks server-side until the
+        # round publishes, then serves the optimizer-stepped (armed) or
+        # merged-sum (unarmed) rows.
+        req = encode_sparse_block(uniq, None, width)
+        resp = self._embed_request(CMD_PULL, pkey, req, dtype=DT_SPARSE,
+                                   flags=flags, timeout=timeout)
+        ver, out = decode_sparse_response(resp, uniq.size, width)
+        self._round[pkey] = rnd + 1
+        self._m_embed_pull_bytes.inc(len(req) + len(resp))
+        self._embed_note_version(key, ver, uniq, out)
+        return out[inv]
+
+    def pull_rows(self, key: int, indices,
+                  timeout: float = 60.0) -> np.ndarray:
+        """Batched row lookup against the last PUBLISHED table state —
+        the read path recsys serving wants.  Ungated on the wire
+        (DT_SPARSE_READ): served immediately from the server's published
+        rows, never parking on a round and never touching round state,
+        so a pull-only session can hammer it freely.
+
+        Hot rows are served from the param_version-keyed LRU cache: when
+        every requested row is cached at the key's last-seen version and
+        that version is still fresh (refreshed by any embed response
+        within BYTEPS_TPU_SPARSE_CACHE_TTL_MS), the lookup completes
+        with ZERO wire frames.  Misses are coalesced into batched wire
+        units (fusion.plan_row_batches) capped at partition_bytes."""
+        trows, width = self._embed_shape(key)
+        uniq, _, inv = self._embed_coalesce(indices, None, width)
+        if uniq.size and int(uniq[-1]) >= trows:
+            raise IndexError(f"row index {int(uniq[-1])} out of range "
+                             f"for embedding of {trows} rows")
+        out = np.empty((uniq.size, width), dtype=np.float32)
+        missing: List[int] = []
+        hits = 0
+        now = time.monotonic()
+        with self._embed_lock:
+            cache = self._embed_cache.get(key)
+            fresh = (cache is not None
+                     and key in self._embed_ver
+                     and self._embed_cache_ttl > 0
+                     and now - self._embed_ver_ts.get(key, 0.0)
+                     <= self._embed_cache_ttl)
+            for j in range(uniq.size):
+                r = int(uniq[j])
+                row = cache.get(r) if fresh else None
+                if row is None:
+                    missing.append(j)
+                else:
+                    out[j] = row
+                    cache.move_to_end(r)
+                    hits += 1
+        if hits:
+            self._m_embed_hits.inc(hits)
+        if not missing:
+            return out[inv]     # warm path: zero wire frames
+        self._m_embed_misses.inc(len(missing))
+        from ..common.fusion import plan_row_batches
+        from .wire import (decode_sparse_response, encode_sparse_block)
+        pkey = self._embed_pkey(key)
+        miss = np.asarray(missing, dtype=np.int64)
+        miss_idx = uniq[miss]
+        for start, stop in plan_row_batches(miss_idx.size, width,
+                                            self.partition_bytes):
+            sub = miss_idx[start:stop]
+            req = encode_sparse_block(sub, None, width)
+            resp = self._embed_request(CMD_PULL, pkey, req,
+                                       dtype=DT_SPARSE_READ,
+                                       timeout=timeout)
+            ver, got = decode_sparse_response(resp, sub.size, width)
+            self._m_embed_pull_bytes.inc(len(req) + len(resp))
+            out[miss[start:stop]] = got
+            self._embed_note_version(key, ver, sub, got)
+        return out[inv]
+
+    def embed_version(self, key: int) -> Optional[int]:
+        """Last param_version observed for ``key`` (None before any
+        embed response) — what pull-only readers assert monotone."""
+        with self._embed_lock:
+            return self._embed_ver.get(key)
+
+    def embed_cache_stats(self) -> dict:
+        """Hot-row cache counters + occupancy (for bps_top / tests)."""
+        with self._embed_lock:
+            held = sum(len(c) for c in self._embed_cache.values())
+        return {"hits": self._m_embed_hits.value(),
+                "misses": self._m_embed_misses.value(),
+                "rows_cached": held,
+                "capacity_rows": self._embed_cache_rows}
+
+    def _embed_note_version(self, key: int, ver: int, uniq,
+                            got) -> None:
+        """Fold one embed response into the hot-row cache under the
+        invalidation law: a param_version ADVANCE drops every cached row
+        of the key (they are rows of a superseded table state); matching
+        versions insert/refresh.  Any response refreshes the freshness
+        clock — the TTL bounds how long a version is trusted without
+        hearing from the server."""
+        if self._embed_cache_rows <= 0:
+            with self._embed_lock:
+                self._embed_ver[key] = int(ver)
+                self._embed_ver_ts[key] = time.monotonic()
+            return
+        with self._embed_lock:
+            if self._embed_ver.get(key) != int(ver):
+                self._embed_cache[key] = OrderedDict()
+                self._embed_ver[key] = int(ver)
+            self._embed_ver_ts[key] = time.monotonic()
+            cache = self._embed_cache.setdefault(key, OrderedDict())
+            for j in range(len(uniq)):
+                r = int(uniq[j])
+                cache[r] = np.array(got[j], dtype=np.float32, copy=True)
+                cache.move_to_end(r)
+            while len(cache) > self._embed_cache_rows:
+                cache.popitem(last=False)
+
+    def push_pull(self, key: int, tensor, priority: int = 0,
+                  **kw) -> np.ndarray:
+        return self.push_pull_async(key, tensor, priority, **kw).wait()
+
+    def barrier(self, generation: int = 0) -> None:
+        """Global barrier across workers (reference: Postoffice::Barrier via
+        the scheduler; here server 0 plays the rendezvous role).
+
+        Waits forever by default (peers are allowed to be slow), logging a
+        periodic "still waiting" warning; BYTEPS_TPU_BARRIER_TIMEOUT_S > 0
+        turns a dead peer into a loud TimeoutError instead of a silent
+        hang.  Warnings and the timeout report the live epoch membership
+        and which ranks the barrier is actually waiting on (CMD_MEMBERS),
+        so a dead/evicted peer is named rather than guessed at.
+
+        Generations are ONE-SHOT (use a fresh, monotonically increasing
+        number per rendezvous): once a generation releases, any later
+        arrival at it — an elastic joiner catching up to the startup
+        rendezvous the incumbents passed long ago — returns immediately
+        instead of waiting for arrivals that will never come."""
+        self.conns[0].request(
+            CMD_BARRIER, generation, worker_id=self.worker_id,
+            timeout=self.barrier_timeout_s or None,
+            barrier_diag=lambda gen=generation:
+                self._barrier_diag_text(gen))
+
+    def shutdown_servers(self) -> None:
+        for c in self.conns:
+            try:
+                c.request(CMD_SHUTDOWN, worker_id=self.worker_id)
+            except (ConnectionError, OSError) as e:
+                get_logger().debug("shutdown race: %s", e)
+
+    def codec_stats(self) -> dict:
+        """Codec pipeline counters (parts encoded/decoded off-thread and
+        busy time); zeros with the pipeline disabled (compress_threads=0,
+        where codec work runs inline on the caller/receiver threads)."""
+        if self._codec_pool is None:
+            return dict(CompressionPool.ZERO_STATS)
+        return self._codec_pool.stats()
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        # Detach the bundle provider (only if still ours — a later
+        # session owns the slot otherwise).
+        _flightrec.remove_extra_provider("session", owner=self)
+        self._watchdog_stop.set()
+        self._srvdown_stop.set()
+        self._clock_sync_stop.set()
+        self._lease_stop.set()
+        # Detach the queue-depth gauge's sampler: the registry outlives the
+        # session, and a lazy gauge holding `self` would both leak the
+        # session and report a dead scheduler's depth.  Only if the gauge
+        # still carries OUR sampler — a later session owns it otherwise,
+        # and zeroing here would silence a live scheduler's depth.
+        if self._m_queue_depth._fn is self._queue_depth_fn:
+            self._m_queue_depth.set_fn(None)
+            self._m_queue_depth.set(0)
+        # Dispatcher first (it may be waiting on an encode the pool still
+        # owes), then the codec pool (drains queued jobs so every staged
+        # handle resolves), then the sockets.
+        self._dispatcher.join(timeout=self._join_timeout_s)
+        self._warn_if_wedged(self._dispatcher)
+        if self._codec_pool is not None:
+            self._codec_pool.close()
+        for pool in self._data_conns:
+            for c in pool:
+                c.close()
+        if self._watchdog is not None:
+            self._watchdog.join(timeout=5)
+
+    def _warn_if_wedged(self, thread: threading.Thread) -> None:
+        """A join() that expired used to leak the thread silently; name it
+        and what it was blocked on so a shutdown hang is diagnosable."""
+        if not thread.is_alive():
+            return
+        with self._inflight_lock:
+            keys = sorted(self._inflight)
+        get_logger().warning(
+            "PS session close: thread %s did not exit within its join "
+            "timeout and is being leaked (daemon); in-flight partition "
+            "keys it may be blocked on: %s%s", thread.name, keys[:16],
+            f" (+{len(keys) - 16} more)" if len(keys) > 16 else "")

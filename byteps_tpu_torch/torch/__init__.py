@@ -4,7 +4,9 @@ changing its import.
 
 Counterpart of ``byteps_tpu/torch/__init__.py``, which carries every tensor
 through JAX on the host.  Here tensors stay on their device and ride the
-eager API of ``common.api`` (``torch.distributed`` collectives):
+eager API of ``common.api`` (``torch.distributed`` collectives, or the PS
+servers under ``BYTEPS_TPU_PS_MODE=1``, the tensors then staged through
+host buffers):
 
   - ``push_pull(_async, _async_inplace)``, ``synchronize``, ``poll``: the
     result is written back into the tensor handed in;
@@ -27,8 +29,8 @@ eager API of ``common.api`` (``torch.distributed`` collectives):
 
 ``BYTEPS_DEBUG_SAMPLE_TENSOR`` samples here as in the eager API, whose
 ``push_pull_async`` and ``synchronize`` every push_pull passes through.
-``enable_async=True`` (``BYTEPS_ENABLE_ASYNC``) needs the PS tier and
-raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 6).
+``enable_async=True`` (``BYTEPS_ENABLE_ASYNC``), asynchronous PS training,
+raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 6c).
 """
 
 from __future__ import annotations
@@ -186,13 +188,13 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          backward_passes_per_step: int = 1,
                          enable_async: Optional[bool] = None):
     """enable_async=None reads BYTEPS_ENABLE_ASYNC, as the reference does;
-    the asynchronous mode needs the PS tier (not ported)."""
+    asynchronous PS training is not ported."""
     if enable_async is None:
         enable_async = get_config(refresh=True).enable_async
     if enable_async:
         raise NotImplementedError(
-            "enable_async needs the PS tier, which is not ported to "
-            "byteps_tpu_torch yet (ROADMAP.md Queue 1 item 6)")
+            "enable_async (asynchronous PS training) is not ported to "
+            "byteps_tpu_torch yet (ROADMAP.md Queue 1 item 6c)")
     return _DistributedOptimizer(optimizer, named_parameters, compression,
                                  backward_passes_per_step)
 

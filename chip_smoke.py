@@ -262,6 +262,29 @@ Phases, each of which must pass:
    card's name and power limit.  18d: python -m byteps_tpu_torch.server
    on a free port accepts a TCP connection within 30 s and maps the
    port's library; then it is terminated.
+19. PS-mode training on the card (BYTEPS_TPU_PS_MODE=1).  19a: the port's
+   server started through the launcher's server role, then two worker
+   processes (DMLC_NUM_WORKER=2, ids 0 and 1, this script with
+   --ps-worker), both on cuda:0: each builds phase 4's flagship from the
+   same parameters with its own batch (seeds 1 and 2) and takes 3 AdamW
+   steps through the Horovod face's DistributedOptimizer, its gradients
+   summed by the server.  Each saves its float32 local gradients of the
+   first step (to a temporary directory, deleted after), worker 0 the
+   averages it pulled and worker 1 their SHA-256: every pulled element
+   must equal (g0 + g1) / 2 bit for bit;
+   the two workers' parameters after step 3 bit-equal; the losses finite
+   and within 1e-3 relative of a one-process control here that averages
+   the two batches' gradients itself; 48/24/24 flash launches a step on
+   each worker.  Step ms (median of steps 2-3) beside phase 4's, the
+   staging copies' ms to and from the host, the bytes on the lanes and at
+   the server a step, and the server's rounds are printed.  19b: the same
+   two workers with onebit (phase 18c's kwargs) registered on the PS wire
+   for every gradient of at least BYTEPS_MIN_COMPRESS_BYTES: finite
+   losses, bit-equal parameters, the compressed keys' wire/raw at the
+   server within 2% of phase 18c's 0.031252; step ms and host encode ms.
+   19c (run beside 19a's checks, which are not timed): DMLC_ROLE=joint
+   python -m byteps_tpu_torch.launcher.launch python <a 2-step tiny PS
+   script> exits 0 and its server is gone after.
 
 Prints a ``{"kernels": [...]}`` line (each entry also naming the CUDA
 kernels it launches, ``cuda_kernels``), the card's name and power limit, and
@@ -390,6 +413,9 @@ PS_HASHES = ("djb2", "sdbm", "mixed", "naive")
 PS_SERVERS = (1, 2, 4, 8)
 PS_RING = dict(servers=4, vnodes=64)
 PS_QUEUE_CREDIT = 4 * 4 * 1024 * 1024
+PS_TRAIN_STEPS = 3
+PS_WORKERS = 2
+PS_ONEBIT_RATIO = 0.031252    # phase 18c's onebit wire/raw (measured on one H100)
 
 
 def sh(cmd):
@@ -1240,10 +1266,8 @@ def phase_small_model(tfm, torch, check):
           f"max grad err {gerr:.3g}")
 
 
-def flagship(tfm, bps, torch, inter_compressor=None, remat_policy="none"):
-    """The flagship's config, params, batch, optimizer and step (the
-    compressed variant with ``inter_compressor``)."""
-    from byteps_tpu_torch.common.tree import tree_leaves
+def flagship_model(tfm, torch, remat_policy="none", batch_seed=1):
+    """The flagship's config, params (seed 0) and batch (``batch_seed``)."""
     B, S = FLAGSHIP["batch"], FLAGSHIP["seq"]
     # bench.py:299-302 with its flagship defaults: flash attention with the
     # auto block (512 at S=512), remat "none", 2048-row streamed LM head.
@@ -1253,7 +1277,16 @@ def flagship(tfm, bps, torch, inter_compressor=None, remat_policy="none"):
                          attn_block=tfm.flash_auto_block(S),
                          remat_policy=remat_policy)
     params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
-    batch = tfm.synthetic_batch(torch.Generator().manual_seed(1), B, S, cfg)
+    batch = tfm.synthetic_batch(torch.Generator().manual_seed(batch_seed),
+                                B, S, cfg)
+    return cfg, params, batch
+
+
+def flagship(tfm, bps, torch, inter_compressor=None, remat_policy="none"):
+    """The flagship's config, params, batch, optimizer and step (the
+    compressed variant with ``inter_compressor``)."""
+    from byteps_tpu_torch.common.tree import tree_leaves
+    cfg, params, batch = flagship_model(tfm, torch, remat_policy)
     opt = bps.DistributedOptimizer(
         torch.optim.AdamW(tree_leaves(params), lr=1e-4, weight_decay=1e-4),
         inter_compressor=inter_compressor)
@@ -3310,6 +3343,448 @@ def phase_ps(bps, tfm, fa, torch, check, gpu, ps_build):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: PS-mode training on the card
+# ---------------------------------------------------------------------------
+def ps_named(params):
+    from byteps_tpu_torch.common.tree import tree_leaves, tree_paths
+    return list(zip(tree_paths(params), tree_leaves(params)))
+
+
+def flat_host(tensors):
+    """Every tensor as float32, in order, in one host array."""
+    import torch
+    return torch.cat([t.detach().reshape(-1).float() for t in tensors]
+                     ).cpu().numpy()
+
+
+def digest(arr):
+    import hashlib
+    return hashlib.sha256(arr.tobytes()).hexdigest()
+
+
+def ps_worker(outdir: str, mode: str) -> int:
+    """One PS-mode worker of phase 19 (``chip_smoke.py --ps-worker OUTDIR
+    plain|onebit``; the job comes from the environment): phase 4's
+    flagship with this worker's batch (seed 1 + rank), 3 AdamW steps
+    through the Horovod face's DistributedOptimizer.  Writes
+    ``result<rank>.json``; in ``plain`` mode also the first step's local
+    gradients and pulled averages (``local<rank>.npz``,
+    ``pulled<rank>.npz``)."""
+    t_start = time.perf_counter()
+    import torch
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import byteps_tpu_torch as bps
+    import byteps_tpu_torch.torch as hvd
+    from byteps_tpu_torch.common.config import get_config
+    from byteps_tpu_torch.models import transformer as tfm
+    from byteps_tpu_torch.ops import flash_attention as fa
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.synchronize()        # the CUDA context
+    t_cuda = time.perf_counter()
+    bps.init()
+    t_init = time.perf_counter()
+    rank = bps.rank()
+    cfg, params, batch = flagship_model(tfm, torch, batch_seed=1 + rank)
+    named = ps_named(params)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW([p for _, p in named], lr=1e-4, weight_decay=1e-4),
+        named_parameters=named)
+    sess = bps.get_ps_session()
+    comp = {}        # declared key -> bytes of the compressed gradient
+    if mode == "onebit":
+        kwargs = {n: kw for n, kw, _ in PS_WIRE_CONFIGS}["onebit"]
+        floor = get_config().min_compress_bytes
+        comp = {bps.register_compressor("Gradient." + n, kwargs):
+                p.numel() * 4 for n, p in named if p.numel() * 4 >= floor}
+    res = {"rank": rank, "size": bps.size(), "mode": mode,
+           "process_group": torch.distributed.is_initialized(),
+           "compressed_keys": len(comp), "steps": [],
+           "seconds": {"imports_cuda": t_cuda - t_start,
+                       "init": t_init - t_cuda}}
+    fa.reset_launches()
+    for step in range(PS_TRAIN_STEPS):
+        before = (dict(fa.launches), bps.get_staging_stats(),
+                  bps.get_transport_stats()["lane_bytes_total"],
+                  bps.get_codec_stats())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = tfm.loss_fn(params, batch, cfg)
+        loss.backward()
+        if step == 0 and mode == "plain":
+            torch.cuda.synchronize()
+            t_save = time.perf_counter()
+            flat_host(p.grad for _, p in named).tofile(
+                os.path.join(outdir, f"local{rank}.f32"))
+            t0 += time.perf_counter() - t_save       # not the step's
+        opt.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if step == 0 and mode == "plain":
+            pulled = flat_host(p.grad for _, p in named)
+            res["pulled_digest"] = digest(pulled)
+            if rank == 0:
+                pulled.tofile(os.path.join(outdir, "pulled0.f32"))
+            del pulled
+        st, cs = bps.get_staging_stats(), bps.get_codec_stats()
+        res["steps"].append({
+            "loss": float(loss), "ms": ms,
+            "launches": {n: fa.launches[n] - before[0][n]
+                         for n in RESIDENT},
+            "to_host_ms": st["to_host_ms"] - before[1]["to_host_ms"],
+            "to_device_ms": st["to_device_ms"] - before[1]["to_device_ms"],
+            "staged_bytes": st["to_host_bytes"]
+            - before[1]["to_host_bytes"],
+            "lane_bytes": bps.get_transport_stats()["lane_bytes_total"]
+            - before[2],
+            "encode_ms": (cs["encode_busy_us"]
+                          - before[3]["encode_busy_us"]) / 1e3,
+            "decode_ms": (cs["decode_busy_us"]
+                          - before[3]["decode_busy_us"]) / 1e3})
+    stats = bps.get_server_stats()
+    res["server"] = {"bytes_in": stats["bytes_in"],
+                     "bytes_out": stats["bytes_out"],
+                     "rounds": {k: v["completed_round"]
+                                for k, v in stats["keys"].items()}}
+    if comp:
+        # Wire/raw of the compressed keys at the server: their pushed
+        # bytes over the raw bytes of the same pushes.
+        raw = wire = 0
+        for dk, nbytes in comp.items():
+            for pkey, _, ln, _ in sess._plan(dk, nbytes):
+                row = stats["keys"].get(pkey) or {}
+                wire += int(row.get("bytes", 0))
+                raw += int(row.get("pushes", 0)) * ln
+        res["wire_raw"] = wire / raw if raw else None
+    res["digest"] = digest(flat_host(p for _, p in named))
+    t_shut = time.perf_counter()
+    bps.shutdown()
+    res["seconds"]["shutdown"] = time.perf_counter() - t_shut
+    res["seconds"]["total"] = time.perf_counter() - t_start
+    with open(os.path.join(outdir, f"result{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def launch_ps_server(root_port, num_workers):
+    """The port's server through the launcher's server role, in its own
+    process group (the launcher waits on the server it starts)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, DMLC_ROLE="server", DMLC_SERVER_ID="0",
+               DMLC_NUM_SERVER="1", DMLC_NUM_WORKER=str(num_workers),
+               DMLC_PS_ROOT_PORT=str(root_port), PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    return subprocess.Popen(
+        [sys.executable, "-m", "byteps_tpu_torch.launcher.launch"], env=env,
+        cwd=here, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+        start_new_session=True)
+
+
+def stop_group(proc):
+    import signal
+    try:
+        os.killpg(proc.pid, signal.SIGTERM)
+        proc.wait(15)
+    except (ProcessLookupError, subprocess.TimeoutExpired):
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait(15)
+
+
+def wait_port(port, timeout=30.0, proc=None):
+    import socket
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if proc is not None and proc.poll() is not None:
+            return None
+        try:
+            socket.create_connection(("127.0.0.1", port), 1).close()
+            return time.perf_counter() - t0
+        except OSError:
+            time.sleep(0.1)
+    return None
+
+
+def port_closed(port, timeout=15.0):
+    import socket
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        try:
+            socket.create_connection(("127.0.0.1", port), 0.5).close()
+            time.sleep(0.2)
+        except OSError:
+            return True
+    return False
+
+
+def run_ps_workers(outdir, mode, check):
+    """19a/19b: a server through the launcher, then the two workers;
+    returns their results (None when a process failed)."""
+    root_port = free_port()
+    server = launch_ps_server(root_port, PS_WORKERS)
+    try:
+        up = wait_port(root_port + 1, proc=server)
+        check(up is not None, f"{mode}: the launcher's server role listens "
+                              f"on {root_port + 1}" + (
+                                  f" after {up:.2f} s" if up else ""))
+        if up is None:
+            return None
+        here = os.path.abspath(__file__)
+        procs = []
+        for wid in range(PS_WORKERS):
+            env = dict(os.environ, BYTEPS_TPU_PS_MODE="1",
+                       DMLC_NUM_WORKER=str(PS_WORKERS),
+                       DMLC_WORKER_ID=str(wid), DMLC_NUM_SERVER="1",
+                       DMLC_PS_ROOT_URI="127.0.0.1",
+                       DMLC_PS_ROOT_PORT=str(root_port),
+                       BYTEPS_TPU_SIGNAL_WINDOW_S="0",
+                       BYTEPS_TPU_BARRIER_TIMEOUT_S="120")
+            log = open(os.path.join(outdir, f"{mode}{wid}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, here, "--ps-worker", outdir, mode],
+                env=env, stdout=log, stderr=subprocess.STDOUT), log))
+        ok = True
+        for wid, (p, log) in enumerate(procs):
+            try:
+                rc = p.wait(300)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                rc = p.wait()
+            log.close()
+            if rc != 0:
+                ok = False
+                with open(os.path.join(outdir, f"{mode}{wid}.log")) as f:
+                    print(f"  worker {wid} ({mode}) rc {rc}:\n"
+                          f"{f.read()[-3000:]}")
+            check(rc == 0, f"{mode}: worker {wid} exited 0")
+        if not ok:
+            return None
+        out = []
+        for wid in range(PS_WORKERS):
+            with open(os.path.join(outdir, f"result{wid}.json")) as f:
+                out.append(json.load(f))
+        return out
+    finally:
+        stop_group(server)
+
+
+def ps_report(mode, res, check, gpu, flagship_ms):
+    """Checks and prints what both phase 19 modes share."""
+    want = {"flash_fwd": 48, "flash_bwd_dq": 24, "flash_bwd_dkv": 24}
+    for r in res:
+        steps = r["steps"]
+        ms = statistics.median(s["ms"] for s in steps[1:])
+        losses = [s["loss"] for s in steps]
+        check((r["rank"], r["size"], r["process_group"])
+              == (res.index(r), PS_WORKERS, False),
+              f"{mode}: worker {r['rank']} of {r['size']}, no process "
+              f"group ({r['process_group']})")
+        check(all(math.isfinite(l) for l in losses),
+              f"{mode}: worker {r['rank']} losses finite {losses}")
+        check(all(s["launches"] == want for s in steps),
+              f"{mode}: worker {r['rank']} flash launches a step "
+              f"{[s['launches'] for s in steps]} == {want}")
+        secs = {k: round(v, 2) for k, v in r["seconds"].items()}
+        print(f"  {mode} worker {r['rank']}: seconds {secs}; step ms "
+              f"{[round(s['ms'], 3) for s in steps]}, median of steps 2-3 "
+              f"{ms:.3f} (phase 4's {flagship_ms:.3f}); staging to host "
+              f"{[round(s['to_host_ms'], 3) for s in steps]} ms, to the "
+              f"card {[round(s['to_device_ms'], 3) for s in steps]} ms, "
+              f"{steps[-1]['staged_bytes']} bytes staged a step; lane bytes "
+              f"a step {[s['lane_bytes'] for s in steps]}; host encode "
+              f"{[round(s['encode_ms'], 3) for s in steps]} ms, decode "
+              f"{[round(s['decode_ms'], 3) for s in steps]} ms ({gpu})")
+    rounds = sorted(set(res[0]["server"]["rounds"].values()))
+    print(f"  {mode} server: {res[-1]['server']['bytes_in']} bytes in, "
+          f"{res[-1]['server']['bytes_out']} out over {PS_TRAIN_STEPS} "
+          f"steps of {PS_WORKERS} workers ("
+          f"{res[-1]['server']['bytes_in'] / PS_TRAIN_STEPS / PS_WORKERS:.0f}"
+          f" in a worker-step); completed rounds per key {rounds} over "
+          f"{len(res[0]['server']['rounds'])} partition keys")
+    check(rounds == [PS_TRAIN_STEPS],
+          f"{mode}: every key completed {PS_TRAIN_STEPS} rounds")
+    check(res[0]["digest"] == res[1]["digest"],
+          f"{mode}: the two workers' parameters after step "
+          f"{PS_TRAIN_STEPS} bit-equal")
+    return {"step_ms": [statistics.median(s["ms"] for s in r["steps"][1:])
+                        for r in res],
+            "losses": [[s["loss"] for s in r["steps"]] for r in res],
+            "to_host_ms": [r["steps"][-1]["to_host_ms"] for r in res],
+            "to_device_ms": [r["steps"][-1]["to_device_ms"] for r in res],
+            "lane_bytes": res[0]["steps"][-1]["lane_bytes"],
+            "server_bytes_in": res[-1]["server"]["bytes_in"],
+            "encode_ms": [r["steps"][-1]["encode_ms"] for r in res]}
+
+
+def ps_pulled_exact(outdir, res, check):
+    """19a: the pulled gradients of the first step are (g0 + g1) / 2 of the
+    two workers' float32 local gradients, bit for bit: worker 0's held
+    element by element, worker 1's by their digest."""
+    import numpy as np
+
+    def load(name):
+        return np.fromfile(os.path.join(outdir, name), np.float32)
+    want = (load("local0.f32") + load("local1.f32")) / np.float32(2)
+    got = load("pulled0.f32")
+    bad = int(np.count_nonzero(got != want)) if got.size == want.size \
+        else -1
+    check(got.size > 0 and bad == 0,
+          f"19a: worker 0's {got.size} pulled gradient elements equal "
+          f"(g0 + g1) / 2 bit for bit ({bad} differ)")
+    check(res[1]["pulled_digest"] == res[0]["pulled_digest"] == digest(want),
+          "19a: worker 1 pulled the same bits (SHA-256)")
+
+
+def ps_control(tfm, torch, check, res):
+    """19a's one-process control: the same params, both batches' gradients
+    averaged here, AdamW; each worker's losses within 1e-3 relative of
+    the control's on its batch."""
+    cfg, params, b0 = flagship_model(tfm, torch, batch_seed=1)
+    b1 = flagship_model(tfm, torch, batch_seed=2)[2]
+    named = ps_named(params)
+    leaves = [p for _, p in named]
+    opt = torch.optim.AdamW(leaves, lr=1e-4, weight_decay=1e-4)
+    losses = [[], []]
+    for _ in range(PS_TRAIN_STEPS):
+        grads = []
+        for w, b in enumerate((b0, b1)):
+            for p in leaves:
+                p.grad = None
+            loss = tfm.loss_fn(params, b, cfg)
+            loss.backward()
+            losses[w].append(float(loss))
+            grads.append([p.grad for p in leaves])
+        for p, g0, g1 in zip(leaves, *grads):
+            p.grad = (g0 + g1) / 2
+        opt.step()
+    torch.cuda.synchronize()
+    for w in range(PS_WORKERS):
+        got = res["losses"][w]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, losses[w]))
+        check(rel <= 1e-3,
+              f"19a: worker {w} losses {got} within 1e-3 relative of the "
+              f"control's {losses[w]} ({rel:.2e})")
+    del params, opt
+
+
+TINY_PS_SCRIPT = """
+import time
+t0 = time.perf_counter()
+import torch
+import byteps_tpu_torch as bps
+import byteps_tpu_torch.torch as hvd
+from byteps_tpu_torch.common.tree import tree_leaves
+from byteps_tpu_torch.models import transformer as tfm
+torch.zeros(1, device="cuda")
+t1 = time.perf_counter()
+bps.init()
+t2 = time.perf_counter()
+assert bps.get_ps_session() is not None
+cfg = tfm.get_config("tiny")
+params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+opt = hvd.DistributedOptimizer(torch.optim.AdamW(tree_leaves(params)))
+batch = tfm.synthetic_batch(torch.Generator().manual_seed(1), 4, 64, cfg)
+losses = []
+for _ in range(2):
+    opt.zero_grad()
+    loss = tfm.loss_fn(params, batch, cfg)
+    loss.backward()
+    opt.step()
+    losses.append(float(loss))
+t3 = time.perf_counter()
+bps.shutdown()
+t4 = time.perf_counter()
+assert all(l == l for l in losses), losses
+print("tiny PS losses", losses, "seconds: imports and CUDA", round(t1 - t0, 2),
+      "init", round(t2 - t1, 2), "steps", round(t3 - t2, 2), "shutdown",
+      round(t4 - t3, 2))
+"""
+
+
+def start_ps_joint(outdir):
+    """19c, started: the joint role running the server beside a 2-step
+    tiny PS script (in the background of 19a's checks, which are not
+    timed)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    script = os.path.join(outdir, "tiny_ps.py")
+    with open(script, "w") as f:
+        f.write(TINY_PS_SCRIPT)
+    root_port = free_port()
+    env = dict(os.environ, DMLC_ROLE="joint", BYTEPS_TPU_PS_MODE="1",
+               DMLC_NUM_WORKER="1", DMLC_NUM_SERVER="1",
+               DMLC_PS_ROOT_PORT=str(root_port),
+               BYTEPS_TPU_SIGNAL_WINDOW_S="0",
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "byteps_tpu_torch.launcher.launch",
+         sys.executable, script], env=env, cwd=here,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    return proc, root_port, time.perf_counter()
+
+
+def finish_ps_joint(joint, check):
+    """19c, checked: the script exited 0 and the joint role stopped its
+    server."""
+    proc, root_port, t0 = joint
+    try:
+        out, _ = proc.communicate(timeout=180)
+    except subprocess.TimeoutExpired:
+        stop_group(proc)
+        out = ""
+    secs = time.perf_counter() - t0
+    lines = [l for l in out.splitlines() if "tiny PS losses" in l]
+    print(f"  joint role: rc {proc.returncode} in {secs:.1f} s; "
+          f"{lines[-1] if lines else out[-1500:]}")
+    check(proc.returncode == 0 and lines,
+          "19c: DMLC_ROLE=joint ran the tiny PS script to exit 0")
+    check(port_closed(root_port + 1),
+          "19c: the joint role's server is gone after the script exits")
+
+
+def phase_ps_train(tfm, torch, check, gpu, flagship_ms):
+    """Phase 19: PS-mode training on the card."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    outdir = tempfile.mkdtemp(prefix="bps_ps_")
+    out = {}
+    try:
+        print("== phase 19a: two PS workers on the card, the flagship "
+              "through the Horovod face, summed by the port's server")
+        res = run_ps_workers(outdir, "plain", check)
+        print("== phase 19c: the joint role (beside 19a's checks)")
+        joint = start_ps_joint(outdir)
+        if res is not None:
+            ps_pulled_exact(outdir, res, check)
+            for name in ("local0.f32", "local1.f32", "pulled0.f32"):
+                os.remove(os.path.join(outdir, name))
+            out["plain"] = ps_report("plain", res, check, gpu, flagship_ms)
+            ps_control(tfm, torch, check, out["plain"])
+            torch.cuda.empty_cache()
+        finish_ps_joint(joint, check)
+        print("== phase 19b: the same with onebit on the PS wire")
+        res = run_ps_workers(outdir, "onebit", check)
+        if res is not None:
+            out["onebit"] = ps_report("onebit", res, check, gpu,
+                                      flagship_ms)
+            ratio = res[0]["wire_raw"]
+            out["onebit"]["wire_raw"] = ratio
+            check(res[0]["compressed_keys"] > 0 and ratio is not None
+                  and abs(ratio / PS_ONEBIT_RATIO - 1) <= 0.02,
+                  f"19b: {res[0]['compressed_keys']} compressed keys, "
+                  f"wire/raw {ratio} within 2% of phase 18c's "
+                  f"{PS_ONEBIT_RATIO}")
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 19 in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3466,6 +3941,8 @@ def main() -> int:
                                                       check, gpu)
     torch.cuda.empty_cache()
     yardsticks["ps"] = phase_ps(bps, tfm, fa, torch, check, gpu, ps_build)
+    torch.cuda.empty_cache()
+    yardsticks["ps_train"] = phase_ps_train(tfm, torch, check, gpu, steady)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     if check.failures:
@@ -3508,4 +3985,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ps-worker"]:
+        sys.exit(ps_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

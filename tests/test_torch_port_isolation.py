@@ -90,7 +90,9 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
                 "byteps_tpu_torch.server",
                 "byteps_tpu_torch.server.__main__",
                 "byteps_tpu_torch.server.wire",
-                "byteps_tpu_torch.server.codec_pool"):
+                "byteps_tpu_torch.server.codec_pool",
+                "byteps_tpu_torch.server.client",
+                "byteps_tpu_torch.parallel.hierarchy"):
         assert mod in res["modules"]
 
 

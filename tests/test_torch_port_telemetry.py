@@ -234,17 +234,80 @@ def test_jsonl_rotation_at_the_limit(tmp_path, monkeypatch):
     assert open(path + ".2").read(1) == "{"   # the first rotated live file
 
 
+def _enable_async(monkeypatch):
+    import byteps_tpu_torch.torch as hvd
+    hvd.DistributedOptimizer(torch.optim.SGD([torch.zeros(1)], lr=0.1),
+                             enable_async=True)
+
+
+def _init_with(**env):
+    def run(monkeypatch):
+        for k, v in env.items():
+            monkeypatch.setenv(k, v)
+        bps.init()
+    return run
+
+
+_STUBS = {
+    "push_pull_sparse": lambda mp: bps.push_pull_sparse("emb", None, None),
+    "get_hierarchy": lambda mp: bps.get_hierarchy(),
+    "get_tuner": lambda mp: bps.get_tuner(),
+    "get_autoscaler": lambda mp: bps.get_autoscaler(),
+    "get_fleet": lambda mp: bps.get_fleet(),
+    "enable_async": _enable_async,
+    "BYTEPS_ENABLE_ASYNC": _init_with(BYTEPS_ENABLE_ASYNC="1"),
+    "BYTEPS_TPU_HIERARCHY": _init_with(BYTEPS_TPU_PS_MODE="1",
+                                       BYTEPS_TPU_HIERARCHY="1"),
+}
+
+
 @pytest.mark.parametrize("name,item", [
-    ("push_pull_sparse", "6"), ("drain_ps_server", "6"), ("leave", "6"),
-    ("get_membership", "6"), ("on_membership_change", "6"),
-    ("get_ring", "6"), ("get_codec_stats", "6"),
-    ("get_transport_stats", "6"), ("get_server_stats", "6"),
-    ("get_health", "6"), ("get_audit", "6"), ("get_hierarchy", "6"),
+    ("push_pull_sparse", "6c"), ("get_hierarchy", "6c"),
+    ("enable_async", "6c"), ("BYTEPS_ENABLE_ASYNC", "6c"),
+    ("BYTEPS_TPU_HIERARCHY", "6c"),
     ("get_tuner", "7b"), ("get_autoscaler", "7b"), ("get_fleet", "7b")])
-def test_stubs_name_their_roadmap_item(name, item):
+def test_stubs_name_their_roadmap_item(name, item, monkeypatch):
     with pytest.raises(NotImplementedError,
                        match=rf"Queue 1 item {item}\)"):
-        getattr(bps, name)()
+        _STUBS[name](monkeypatch)
+    assert bps.get_ps_session() is None
+
+
+@pytest.fixture
+def collective_world(monkeypatch):
+    monkeypatch.setenv("BYTEPS_TPU_SIGNAL_WINDOW_S", "0")
+    bps.init()
+    yield
+    bps.shutdown()
+
+
+@pytest.mark.parametrize("name", [
+    "get_codec_stats", "get_transport_stats", "get_server_stats",
+    "get_health", "get_audit", "get_membership", "get_ring", "leave",
+    "drain_ps_server", "on_membership_change"])
+def test_ps_getters_outside_ps_mode(name, collective_world):
+    """The PS tier's getters outside PS mode give the JAX package's
+    shapes (the collective plane has no session): all-zero stats, the
+    fixed launch world, and RuntimeError for what needs a session."""
+    from byteps_tpu.common import api as ref_api
+    if name in ("get_codec_stats", "get_transport_stats",
+                "get_server_stats", "get_health", "get_audit"):
+        assert getattr(bps, name)() == getattr(ref_api, name)()
+    elif name == "get_membership":
+        assert bps.get_membership() == {
+            "epoch": 0, "workers": {0: {"alive": True, "age_ms": 0.0}},
+            "alive": [0], "barrier": {}}
+    elif name == "get_ring":
+        assert bps.get_ring() == {"epoch": 0, "armed": 0, "vnodes": 64,
+                                  "servers": []}
+    elif name == "leave":
+        assert bps.leave() is None
+    else:
+        with pytest.raises(RuntimeError, match="requires PS mode"):
+            if name == "drain_ps_server":
+                bps.drain_ps_server(0)
+            else:
+                bps.on_membership_change(lambda m: None)
 
 
 def test_observability_getters_unarmed(monkeypatch):

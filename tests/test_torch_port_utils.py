@@ -142,8 +142,9 @@ def test_launch_worker_env_and_command():
         assert L.worker_command(["python", "t.py"], e) == \
             JL.worker_command(["python", "t.py"], e)
     for role in ("server", "scheduler", "joint"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            L.server_command(role)
+        assert L.server_command(role) == [
+            w.replace("byteps_tpu.server", "byteps_tpu_torch.server")
+            for w in JL.server_command(role)]
 
 
 def test_launch_worker_role_runs_command(tmp_path):
@@ -152,18 +153,18 @@ def test_launch_worker_role_runs_command(tmp_path):
     out = tmp_path / "out.txt"
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, DMLC_ROLE="worker", PYTHONPATH=repo)
-    # the worker and the (refused) server role side by side
+    # the worker, and beside it a worker role given no command (the
+    # server roles run the PS server: tests/test_torch_port_ps_launch.py)
     worker = subprocess.Popen(
         [sys.executable, "-m", "byteps_tpu_torch.launcher.launch",
          sys.executable, "-c", f"open(r'{out}', 'w').write('ran')"],
         env=env)
     server = subprocess.Popen([sys.executable, "-m",
                                "byteps_tpu_torch.launcher.launch"],
-                              env=dict(env, DMLC_ROLE="server"),
-                              stderr=subprocess.DEVNULL)
+                              env=env, stderr=subprocess.DEVNULL)
     try:
         assert worker.wait(timeout=60) == 0 and out.read_text() == "ran"
-        assert server.wait(timeout=60) != 0
+        assert server.wait(timeout=60) == 2
     finally:
         for p in (worker, server):
             if p.poll() is None:
@@ -174,7 +175,8 @@ def test_launch_worker_role_runs_command(tmp_path):
 def test_dist_launcher_dry_run_matches_jax(tmp_path):
     """The ssh plan for three workers: the JAX launcher's worker commands
     with the package name swapped (no scheduler process: worker 0 serves
-    the rendezvous), and servers refused."""
+    the rendezvous); with servers, the JAX launcher's scheduler and
+    server commands too, and the workers in PS mode."""
     hosts = tmp_path / "workers"
     hosts.write_text("# hosts\nw0\nw1\nw2\nw3\n")
     argv = ["--num-workers", "3", "--worker-hostfile", str(hosts),
@@ -186,6 +188,16 @@ def test_dist_launcher_dry_run_matches_jax(tmp_path):
     assert len(got) == len(workers) == 3
     assert got == [[w.replace("byteps_tpu.launcher", "byteps_tpu_torch."
                               "launcher") for w in c] for c in workers]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        DL.launch(DL.parse_args(["--num-servers", "1", *argv]), dry_run=True)
+    srv = tmp_path / "servers"
+    srv.write_text("s0\n")
+    ps_argv = ["--num-servers", "1", "--server-hostfile", str(srv), *argv]
+    got = DL.launch(DL.parse_args(ps_argv), dry_run=True)
+    want = JDL.launch(JDL.parse_args(ps_argv), dry_run=True)
+    assert [c[-1].split("; ")[0].split("=")[1].split()[0] for c in got] == \
+        ["scheduler", "server", "worker", "worker", "worker"]
+    assert [c[-1] for c in got] == [
+        c[-1].replace("byteps_tpu.launcher", "byteps_tpu_torch.launcher")
+        .replace("; python", " BYTEPS_TPU_PS_MODE=1; python"
+                 if "DMLC_ROLE=worker" in c[-1] else "; python")
+        for c in want]
     assert isinstance(DL.parse_args(argv), argparse.Namespace)
