@@ -45,6 +45,12 @@ The eager API (``push_pull``, ``push_pull_async`` + ``synchronize``/``poll``,
 Horovod-style torch plugin is ``byteps_tpu_torch.torch``: a script written
 for ``byteps_tpu.torch`` runs on the card by changing that import.
 
+PS mode (``BYTEPS_TPU_PS_MODE=1``) reduces through the C++ servers; its
+training modes are ``AsyncPSTrainer`` (weight deltas against servers under
+``BYTEPS_ENABLE_ASYNC=1``), ``ServerOptTrainer`` (the optimizer step on the
+servers, ``BYTEPS_TPU_SERVER_OPT=1``) and ``EmbeddingTable`` (a row-sparse
+table held by the servers), each over a ``get_ps_session()``.
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``.  The
 package imports neither JAX nor ``byteps_tpu``.
 """
@@ -76,6 +82,9 @@ from .parallel.mesh import (
     set_mesh, reset_mesh,
 )
 from .parallel.cross_barrier import CrossBarrierDriver, run_cross_barrier
+from .parallel.async_ps import AsyncPSTrainer
+from .parallel.server_opt import ServerOptTrainer
+from .parallel.embedding import EmbeddingTable
 from .parallel.sharded import (
     build_sharded_train_step, shard_params, init_sharded,
     zero1_opt_specs, zero1_init, fsdp_param_specs, fsdp_init,
@@ -113,6 +122,7 @@ __all__ = [
     "make_mesh", "make_hierarchical_mesh", "make_slice_mesh",
     "get_mesh", "set_mesh", "reset_mesh",
     "CrossBarrierDriver", "run_cross_barrier",
+    "AsyncPSTrainer", "ServerOptTrainer", "EmbeddingTable",
     "build_sharded_train_step", "shard_params", "init_sharded",
     "zero1_opt_specs", "zero1_init", "fsdp_param_specs", "fsdp_init",
     "models", "callbacks", "utils",

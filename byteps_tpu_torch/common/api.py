@@ -24,8 +24,9 @@ instead, as the JAX package's does: ``init()`` opens a
 workers at its barrier, and opens no process group.  The eager path then
 stages each tensor into a float32 host buffer (pinned for a CUDA tensor,
 one set per declared key, reused once its round has completed) and hands
-the session that buffer; the pulled float32 sum is averaged on the
-tensor's device and cast back to its dtype.  ``rank()`` is
+the session that buffer; the pulled float32 sum is cast back to the
+pushed dtype on the tensor's device, decompressed, then averaged there,
+in the JAX package's order.  ``rank()`` is
 ``DMLC_WORKER_ID`` and ``size()`` follows the membership epoch.  In PS
 mode the API runs on the native core, the session's own (its keys, trace
 switch and spans); elsewhere on the Python twin.  There is no fallback:
@@ -45,8 +46,11 @@ trace with its device lane and disarms.  ``get_metrics``,
 ``get_key_signals``, ``get_diagnosis`` and ``get_device_profile`` read
 them.
 
-Asynchronous PS training (``BYTEPS_ENABLE_ASYNC``), ``push_pull_sparse``,
-the hierarchical reduction (``BYTEPS_TPU_HIERARCHY`` in PS mode,
+``BYTEPS_ENABLE_ASYNC`` is the servers' mode: the workers' side of it is
+``parallel.async_ps.AsyncPSTrainer`` and the Horovod face's
+``enable_async``.  ``push_pull_sparse`` reaches a server-resident
+embedding table (``parallel.embedding.EmbeddingTable`` shards one).  The
+hierarchical reduction (``BYTEPS_TPU_HIERARCHY`` in PS mode,
 ``get_hierarchy``) and the fleet-level planes (fleet, tuner, autoscaler)
 are not ported: they raise ``NotImplementedError`` naming their
 ROADMAP.md item.
@@ -96,6 +100,7 @@ class _State:
     doctor: Optional[Any] = None
     doctor_verdict_done: bool = False
     doctor_atexit: bool = False
+    trace_atexit: bool = False        # crash-flush guard registered
     ps_session: Optional[Any] = None  # PS-mode client session, when enabled
     # Elastic membership: the last fetched view (size() reads it), the
     # registered callback and the poller plumbing.
@@ -156,10 +161,6 @@ def init() -> None:
     if _state.initialized and _state.ps_session is not None:
         return
     cfg = get_config(refresh=True)
-    if cfg.enable_async:
-        raise NotImplementedError(
-            "BYTEPS_ENABLE_ASYNC (asynchronous PS training) is not ported "
-            "to byteps_tpu_torch yet (ROADMAP.md Queue 1 item 6c)")
     if cfg.hierarchy and cfg.ps_mode:
         raise NotImplementedError(
             "BYTEPS_TPU_HIERARCHY (hierarchical reduction over the PS tier) "
@@ -183,6 +184,13 @@ def init() -> None:
     _state.initialized = True
     _core().trace_enable(cfg.trace_on and cfg.trace_start_step
                          <= _state.step <= cfg.trace_end_step)
+    if cfg.trace_on and not _state.trace_atexit:
+        # Crash flush: a run that dies mid-window (an exception, a failed
+        # watchdog) still leaves comm.json; after a clean shutdown() the
+        # tracer is empty and the guard writes nothing.
+        import atexit
+        atexit.register(_dump_trace_on_exit)
+        _state.trace_atexit = True
     set_rank(rank() if size() > 1 else None)
     _arm_planes(cfg)
     get_logger().info("byteps_tpu_torch initialized: rank=%d/%d "
@@ -389,6 +397,16 @@ def declare(name: str) -> int:
     return get_core().declare_tensor(name)
 
 
+def _session_declare(name: str) -> int:
+    """The key of ``name`` on the PS client's core, for the PS trainers:
+    through ``declare`` when the API runs in PS mode (both registries stay
+    one), else the native core's own, on which a session opened by hand
+    encodes its keys."""
+    if _state.ps_session is not None:
+        return declare(name)
+    return get_native_core().declare_tensor(name)
+
+
 def declared_key(name: str) -> int:
     return _core().get_declared_key(name)
 
@@ -582,10 +600,9 @@ def _stage_release(dk: int, buf: torch.Tensor) -> None:
         _state.stage_free.setdefault(dk, []).append(buf)
 
 
-def _stage_in(out: np.ndarray, like: torch.Tensor, average: bool
-              ) -> torch.Tensor:
-    """The pulled float32 sum on ``like``'s device, averaged there, in
-    ``like``'s dtype and shape."""
+def _stage_in(out: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """The pulled float32 sum on ``like``'s device, in ``like``'s (the
+    pushed wire tensor's) dtype and shape."""
     t0 = time.perf_counter()
     res = torch.from_numpy(np.ascontiguousarray(out, np.float32).ravel()
                            ).to(like.device)
@@ -594,8 +611,6 @@ def _stage_in(out: np.ndarray, like: torch.Tensor, average: bool
     st = _state.staging
     st["to_device_ms"] += (time.perf_counter() - t0) * 1e3
     st["to_device_bytes"] += res.numel() * 4
-    if average:
-        res = res / size()
     return res.reshape(like.shape).to(like.dtype)
 
 
@@ -694,16 +709,15 @@ def synchronize(handle: int) -> torch.Tensor:
         wire, work, compression, ctx, average, name, t0 = \
             _state.handles.pop(handle)
     if isinstance(work, _PSWork):
-        # The float32 sum, averaged on the tensor's device, then in the
-        # wire's dtype for the decompressor.
-        out = compression.decompress(_stage_in(work.wait(), wire, average),
-                                     ctx)
+        # The float32 sum in the wire's dtype, as the session hands it
+        # back in the JAX package, then decompressed and averaged.
+        out = compression.decompress(_stage_in(work.wait(), wire), ctx)
     else:
         if work is not None:
             work.wait()
         out = compression.decompress(wire, ctx)
-        if average:
-            out = out / size()
+    if average:
+        out = out / size()
     _debug_sample("pull", name, out)
     core = _core()
     core.handle_mark_done(handle)
@@ -734,6 +748,22 @@ def push_pull(tensor: torch.Tensor, name: Optional[str] = None,
     return synchronize(push_pull_async(tensor, name=name, average=average,
                                        priority=priority,
                                        compression=compression))
+
+
+def push_pull_sparse(name: str, indices, rows) -> np.ndarray:
+    """Row-sparse push_pull against a declared server-resident embedding
+    key (docs/sparse-embedding.md): merge this worker's ``(indices,
+    rows)`` gradient into the key's open round and return the published
+    rows for the same indices, as float32 host rows.  PS mode only; most
+    callers want the sharded ``EmbeddingTable``, which also declares the
+    table and arms its optimizer."""
+    _require_init()
+    if _state.ps_session is None:
+        raise RuntimeError(
+            "push_pull_sparse needs PS mode (the row-sparse plane is a "
+            "PS-tier feature; the collective plane has no lookup tier)")
+    return _state.ps_session.push_pull_sparse(declare(name), indices,
+                                              rows)
 
 
 def _dtype_name(dtype: torch.dtype) -> str:
@@ -891,7 +921,9 @@ def _ps_group(units, plan_units, average, scatter, leaf_name) -> None:
             units, handles, held):
         got = h.wait()
         _stage_release(dk, buf)
-        out = comp.decompress(_stage_in(got, wire, average), ctx)
+        out = comp.decompress(_stage_in(got, wire), ctx)
+        if average:
+            out = out / size()
         scatter(members, out.reshape(-1))
         _debug_sample("pull", nm, out)
     if (_state.config or get_config()).telemetry_on:
@@ -1000,7 +1032,7 @@ def current_step() -> int:
     return _state.step
 
 
-def _maybe_dump_trace() -> None:
+def _maybe_dump_trace(exiting: bool = False) -> None:
     cfg = _state.config or get_config()
     core = _core()
     if not cfg.trace_on or core.trace_count() == 0:
@@ -1009,18 +1041,33 @@ def _maybe_dump_trace() -> None:
     os.makedirs(d, exist_ok=True)
     path = os.path.join(d, "comm.json")
     core.trace_dump(path, rank())
-    _merge_trace(path)
+    _merge_trace(path, exiting=exiting)
 
 
-def _server_trace_events(core, events: list, meta: list) -> None:
+def _dump_trace_on_exit() -> None:
+    """atexit guard: flush whatever the tracer still holds (a run that
+    crashed or failed its watchdog never reaches the window-end dump)."""
+    try:
+        _maybe_dump_trace(exiting=True)
+    except Exception:
+        pass
+
+
+def _server_trace_events(core, events: list, meta: list,
+                         exiting: bool = False) -> None:
     """PS mode: each server's spans, offset onto this worker's clock, on
     pid = SERVER_PID_BASE + server (named by process_name metadata);
     fused buckets' spans gain ``args.members``.  A server that cannot be
-    reached leaves the worker's half alone."""
+    reached leaves the worker's half alone.  On the exit path the fetch
+    gets a shorter budget: fail fast, keep the worker's half."""
     sess = _state.ps_session
     try:
-        spans = sess.fetch_server_trace(timeout=5.0, ping_timeout=2.0,
-                                        ping_samples=3)
+        if exiting:
+            spans = sess.fetch_server_trace(timeout=2.0, ping_timeout=1.0,
+                                            ping_samples=2)
+        else:
+            spans = sess.fetch_server_trace(timeout=5.0, ping_timeout=2.0,
+                                            ping_samples=3)
     except Exception as e:
         get_logger().warning("server trace unavailable: %s", e)
         spans = []
@@ -1048,7 +1095,7 @@ def _server_trace_events(core, events: list, meta: list) -> None:
                 e["args"]["members"] = members[k >> 16]
 
 
-def _merge_trace(path: str) -> None:
+def _merge_trace(path: str, exiting: bool = False) -> None:
     """Fold the device lane and, in PS mode, the servers' lanes into the
     freshly dumped worker trace.
 
@@ -1065,7 +1112,7 @@ def _merge_trace(path: str) -> None:
         meta = [{"name": "process_name", "ph": "M", "pid": rank(),
                  "tid": 0, "args": {"name": f"worker{rank()}"}}]
         if _state.ps_session is not None:
-            _server_trace_events(_core(), events, meta)
+            _server_trace_events(_core(), events, meta, exiting)
         prof = devprof.active()
         if prof is not None:
             dev_events = prof.trace_events(rank())
@@ -1358,7 +1405,6 @@ def get_device_profile() -> dict:
 # ---------------------------------------------------------------------------
 # Not ported yet
 # ---------------------------------------------------------------------------
-push_pull_sparse = _not_ported("push_pull_sparse", "6c")
 get_hierarchy = _not_ported("get_hierarchy", "6c")
 get_tuner = _not_ported("get_tuner", "7b")
 get_autoscaler = _not_ported("get_autoscaler", "7b")

@@ -1,11 +1,15 @@
 """Parameter trees: nested dicts and lists of tensors, flattened in the
 order ``jax.tree`` uses (dict keys sorted, lists in order), so that leaf
 indices, and with them the bucket plan, match the JAX package's.  Anything
-else, a tuple included (a shape), is a leaf."""
+else, a tuple included (a shape), is a leaf.  ``FlatHost`` is a tree's
+leaves as one float32 host vector, the PS trainers' view."""
 
 from __future__ import annotations
 
 from typing import Any, Callable, List
+
+import numpy as np
+import torch
 
 Tree = Any
 
@@ -53,3 +57,42 @@ def tree_paths(tree: Tree, prefix: str = "") -> List[str]:
         return [p for i, sub in enumerate(tree)
                 for p in tree_paths(sub, f"{prefix}[{i}]")]
     return [prefix]
+
+
+def _tensor(leaf) -> torch.Tensor:
+    return leaf if torch.is_tensor(leaf) else torch.as_tensor(
+        np.asarray(leaf))
+
+
+class FlatHost:
+    """The leaves of a tree like ``tree`` (tensors or arrays, in
+    ``tree_leaves`` order) as one float32 vector on the host, and back:
+    ``unflatten`` gives each leaf its shape, dtype and device again (an
+    array leaf comes back as a CPU tensor), always in fresh memory."""
+
+    def __init__(self, tree: Tree):
+        leaves = [_tensor(l) for l in tree_leaves(tree)]
+        self.like = tree
+        self.shapes = [tuple(l.shape) for l in leaves]
+        self.sizes = [int(l.numel()) for l in leaves]
+        self.dtypes = [l.dtype for l in leaves]
+        self.devices = [l.device for l in leaves]
+
+    def flatten(self, tree: Tree) -> np.ndarray:
+        leaves = [_tensor(l).detach().reshape(-1) for l in tree_leaves(tree)]
+        if len({l.device for l in leaves}) > 1:
+            leaves = [l.cpu() for l in leaves]
+        return torch.cat([l.to(torch.float32) for l in leaves]).cpu().numpy()
+
+    def unflatten(self, flat: np.ndarray) -> Tree:
+        src = torch.from_numpy(np.ascontiguousarray(flat, np.float32))
+        one = len(set(self.devices)) == 1
+        if one:
+            src = src.to(self.devices[0], copy=True)
+        out, off = [], 0
+        for shape, n, dt, dev in zip(self.shapes, self.sizes, self.dtypes,
+                                     self.devices):
+            out.append(src[off:off + n].reshape(shape).to(
+                device=dev, dtype=dt, copy=not one))
+            off += n
+        return tree_unflatten(self.like, out)

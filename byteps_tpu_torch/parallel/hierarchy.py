@@ -5,7 +5,8 @@ the part ``PSSession.slice_leader`` (``server/client.py``) reads.  Slices
 are contiguous worker-id ranges: worker ``w`` belongs to slice
 ``w // slice_size``, and the leader of a slice is its lowest alive
 member.  The reducer itself (slice-reduce on the card, leader-only wire
-round, broadcast back) is ROADMAP.md Queue 1 item 6c.
+round, broadcast back) is ROADMAP.md Queue 1 item 6c: ``maybe_reducer``,
+the trainers' opt-in, raises where the JAX package's would build one.
 """
 
 from __future__ import annotations
@@ -42,3 +43,20 @@ def elect_leader(members: Sequence[int],
         live = {int(a) for a in alive}
         pool = [m for m in pool if m in live]
     return min(pool) if pool else None
+
+
+def maybe_reducer(session) -> None:
+    """The trainers' hierarchical opt-in (``BYTEPS_TPU_HIERARCHY=1`` with a
+    session): None when off.  The reducer is not ported, so opting in
+    raises ``NotImplementedError``."""
+    import os
+
+    if os.environ.get("BYTEPS_TPU_HIERARCHY", "0") != "1" or session is None:
+        return None
+    raise not_ported_reducer()
+
+
+def not_ported_reducer() -> NotImplementedError:
+    return NotImplementedError(
+        "the hierarchical reducer (BYTEPS_TPU_HIERARCHY, hierarchy=) is "
+        "not ported to byteps_tpu_torch yet (ROADMAP.md Queue 1 item 6c)")

@@ -11,13 +11,21 @@ host buffers):
   - ``push_pull(_async, _async_inplace)``, ``synchronize``, ``poll``: the
     result is written back into the tensor handed in;
   - ``DistributedOptimizer(optimizer, named_parameters, compression,
-    backward_passes_per_step)``: each gradient's ``push_pull_async``
-    (named ``"Gradient." + name``, priority the reverse of its declaration
-    index: the first parameters, needed first by the next forward, go
-    first) starts from a post-accumulate-grad hook as soon as its last
-    backward pass of the step has accumulated it, overlapping the rest of
-    the backward; ``step()`` synchronizes every handle, then steps the
-    inner optimizer;
+    backward_passes_per_step, enable_async)``: on the collective plane
+    each gradient's ``push_pull_async`` (named ``"Gradient." + name``,
+    priority the reverse of its declaration index: the first parameters,
+    needed first by the next forward, go first) starts from a
+    post-accumulate-grad hook as soon as its last backward pass of the
+    step has accumulated it, overlapping the rest of the backward;
+    ``step()`` synchronizes every handle, then steps the inner optimizer.
+    In PS mode the hooks launch nothing: ``step()`` sends every gradient
+    as one ``push_pull_tree`` with ``leaf_names`` the sorted
+    ``"Gradient." + name``, the JAX package's key plan, so that the
+    servers see the same keys, partitions and bytes from either package.
+    ``enable_async=True`` (``BYTEPS_ENABLE_ASYNC``, against servers in
+    that mode) seeds each parameter's ``"AsyncParam." + name`` store with
+    its weights, runs the inner step, pushes every weight delta and
+    adopts the servers' weights;
   - ``broadcast_parameters``, ``broadcast_optimizer_state`` (scalar state
     tensorized), ``DistributedDataParallel`` (gradient sync from an
     end-of-backward engine callback, buffers re-broadcast each forward);
@@ -29,14 +37,13 @@ host buffers):
 
 ``BYTEPS_DEBUG_SAMPLE_TENSOR`` samples here as in the eager API, whose
 ``push_pull_async`` and ``synchronize`` every push_pull passes through.
-``enable_async=True`` (``BYTEPS_ENABLE_ASYNC``), asynchronous PS training,
-raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 6c).
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..common import api as _api
@@ -101,15 +108,18 @@ def poll(handle: int) -> bool:
 class _DistributedOptimizer(torch.optim.Optimizer):
     """Wraps a torch optimizer so that ``step()`` averages gradients across
     workers first.  ``step_handles`` is the number of push_pulls the last
-    step synchronized."""
+    step synchronized (in PS mode, the gradients its one tree carried)."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, named_parameters,
-                 compression, backward_passes_per_step: int = 1):
+                 compression, backward_passes_per_step: int = 1,
+                 enable_async: bool = False):
         if backward_passes_per_step < 1:
             raise ValueError("backward_passes_per_step must be >= 1")
         self._inner = optimizer
         self._compression = compression
         self._bpps = backward_passes_per_step
+        self._enable_async = enable_async
+        self._async_keys: Dict[torch.Tensor, int] = {}
         params = [p for g in optimizer.param_groups for p in g["params"]]
         if named_parameters is not None:
             names = {p: n for n, p in named_parameters}
@@ -117,10 +127,13 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             names = {p: f"param.{i}.{j}"
                      for i, g in enumerate(optimizer.param_groups)
                      for j, p in enumerate(g["params"])}
-        self._names = {p: "Gradient." + names.get(p, f"anon.{id(p)}")
-                       for p in params}
-        for p in params:
-            declare(self._names[p])
+        self._base = {p: names.get(p, f"anon.{id(p)}") for p in params}
+        self._names = {p: "Gradient." + self._base[p] for p in params}
+        # In PS mode keys come from the tree's plan in step(), as in the
+        # JAX package; declaring here would shift them.
+        if not (_ps_mode() or enable_async):
+            for p in params:
+                declare(self._names[p])
         self._priority = {p: len(params) - 1 - i
                           for i, p in enumerate(params)}
         self._passes: Dict[torch.Tensor, int] = {}
@@ -140,7 +153,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             priority=self._priority[p], compression=self._compression)
 
     def _grad_hook(self, p: torch.Tensor) -> None:
-        if p not in self._names:
+        if p not in self._names or self._enable_async \
+                or _api.get_ps_session() is not None:
             return
         n = self._passes.get(p, 0) + 1
         self._passes[p] = n
@@ -149,7 +163,11 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 
     def synchronize(self) -> None:
         """Launch what no hook launched (a gradient set by hand), then wait
-        for every push_pull of this step."""
+        for every push_pull of this step.  In PS mode: every gradient in
+        one ``push_pull_tree``."""
+        if _api.get_ps_session() is not None:
+            self._reduce_tree()
+            return
         for p in self._names:
             if p.grad is not None and p not in self._pending:
                 self._launch(p)
@@ -161,9 +179,67 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._pending.clear()
         self._passes.clear()
 
+    def _reduce_tree(self) -> None:
+        grads: Dict[str, torch.Tensor] = {}
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    grads[self._names.get(p, f"Gradient.anon.{id(p)}")] = \
+                        p.grad
+        if grads:
+            out = _api.push_pull_tree(grads, average=True,
+                                      compression=self._compression,
+                                      leaf_names=sorted(grads))
+            with torch.no_grad():
+                for name, g in grads.items():
+                    g.copy_(out[name])
+        self.step_handles = len(grads)
+        if self._bpps > 1:
+            for g in grads.values():
+                g.div_(self._bpps)
+
     def step(self, closure=None):
+        if self._enable_async:
+            return self._step_async(closure)
         self.synchronize()
         return self._inner.step(closure)
+
+    def _step_async(self, closure):
+        """Asynchronous PS training: run the inner step locally, push each
+        parameter's weight delta, adopt the servers' weights."""
+        sess = _api.get_ps_session()
+        if sess is None or not getattr(sess, "server_async", False):
+            raise RuntimeError(
+                "enable_async requires BYTEPS_TPU_PS_MODE=1 with servers "
+                "running BYTEPS_ENABLE_ASYNC=1")
+        params = [p for g in self.param_groups for p in g["params"]]
+        for p in params:
+            if p in self._async_keys:
+                continue
+            # Seed each (possibly late-added) parameter's store with its
+            # weights; the seed applies only to an untouched store, so a
+            # late joiner adopts the live weights instead.
+            dk = _api.declare("AsyncParam." + self._base.get(
+                p, f"anon.{id(p)}"))
+            self._async_keys[p] = dk
+            got = sess.push_pull(dk, _host(p), seed=True)
+            with torch.no_grad():
+                p.copy_(_from_host(got, p))
+        if self._bpps > 1:
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(self._bpps)
+        old = {p: p.detach().clone() for p in params}
+        loss = self._inner.step(closure)
+        # Every delta goes to the session's dispatcher before any wait,
+        # so the parameters' round trips overlap.
+        handles = [(p, sess.push_pull_async(self._async_keys[p],
+                                            _host(p.detach() - old[p])))
+                   for p in params]
+        for p, h in handles:
+            with torch.no_grad():
+                p.copy_(_from_host(h.wait(), p))
+        return loss
 
     def zero_grad(self, set_to_none: bool = True):
         """Zero the gradients; push_pulls still in flight (a backward
@@ -187,16 +263,27 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          compression=Compression.none,
                          backward_passes_per_step: int = 1,
                          enable_async: Optional[bool] = None):
-    """enable_async=None reads BYTEPS_ENABLE_ASYNC, as the reference does;
-    asynchronous PS training is not ported."""
+    """enable_async=None reads BYTEPS_ENABLE_ASYNC, as the reference does."""
     if enable_async is None:
         enable_async = get_config(refresh=True).enable_async
-    if enable_async:
-        raise NotImplementedError(
-            "enable_async (asynchronous PS training) is not ported to "
-            "byteps_tpu_torch yet (ROADMAP.md Queue 1 item 6c)")
     return _DistributedOptimizer(optimizer, named_parameters, compression,
-                                 backward_passes_per_step)
+                                 backward_passes_per_step, enable_async)
+
+
+def _ps_mode() -> bool:
+    return _api.get_ps_session() is not None or get_config().ps_mode
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy (bfloat16, which numpy lacks, as
+    float32)."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _from_host(a, like: torch.Tensor) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a)).to(dtype=like.dtype,
+                                              device=like.device)
 
 
 def broadcast_parameters(params, root_rank: int = 0) -> None:

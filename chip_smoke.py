@@ -284,7 +284,34 @@ Phases, each of which must pass:
    server within 2% of phase 18c's 0.031252; step ms and host encode ms.
    19c (run beside 19a's checks, which are not timed): DMLC_ROLE=joint
    python -m byteps_tpu_torch.launcher.launch python <a 2-step tiny PS
-   script> exits 0 and its server is gone after.
+   script> exits 0 and its server is gone after.  The face's PS step sends
+   every gradient as one push_pull_tree (the JAX package's key plan).
+20. The PS training modes on the card: two servers through the launcher
+   (A with BYTEPS_ENABLE_ASYNC=1, B synchronous) and two worker processes
+   on cuda:0 (this script with --ps-modes-worker), each with phase 4's
+   flagship from the same parameters and its own batch.  20a, async on A:
+   3 steps of the Horovod face's DistributedOptimizer(AdamW,
+   enable_async=True), then 2 pipelined steps of AsyncPSTrainer over the
+   same tree under other keys (its local step AdamW): finite losses,
+   48/24/24 flash launches a step; after each part both workers drain,
+   meet at a barrier and pull the stores: bit-equal weights on both; the
+   final weights within (additions / 2) float32 ulps of |seed| + the sum
+   of |deltas| of the seed plus every delta either worker pushed, summed
+   in float64 (10 additions: 2 workers x 5 steps).  20b, ServerOptTrainer
+   on B over the flagship's 336,390,144 parameters as one tree, Adam lr
+   1e-4, grad_scale 1/2, each worker's phase 4 gradients: 3 rounds in
+   server mode and 3 in local mode (the step on the card): the parameters
+   of the two modes bit-equal after each round, on both workers; step ms,
+   opt_state_bytes of each mode and the server's opt_slot_bytes printed.
+   20c, EmbeddingTable on B: 10,000,000 x 64 float32 rows (zero-initial),
+   server-side Adagrad lr 0.01; 3 rounds in which each worker looks up
+   100,000 Zipf-skewed ids (a = 1.05, duplicates included), runs a
+   dot-product logistic model on the card (summed loss) and pushes the
+   row gradients:
+   the pulled rows bit-equal a float32 replay of the server's Adagrad
+   (worker 0 replays both workers' pushes), the wire bytes a round within
+   5% of the touched rows' (rows and indices, both legs, plus headers), a
+   warm lookup sends no frame; rows/s of push_pull and lookup printed.
 
 Prints a ``{"kernels": [...]}`` line (each entry also naming the CUDA
 kernels it launches, ``cuda_kernels``), the card's name and power limit, and
@@ -416,6 +443,11 @@ PS_QUEUE_CREDIT = 4 * 4 * 1024 * 1024
 PS_TRAIN_STEPS = 3
 PS_WORKERS = 2
 PS_ONEBIT_RATIO = 0.031252    # phase 18c's onebit wire/raw (measured on one H100)
+PS_ASYNC_STEPS = (3, 2)       # 20a: face steps, then AsyncPSTrainer steps
+PS_OPT_ROUNDS = 3             # 20b: rounds in each mode
+PS_OPT = {"opt": "adam", "lr": 1e-4}
+PS_EMBED = dict(rows=10_000_000, width=64, ids=100_000, zipf=1.05, rounds=3,
+                opt={"opt": "adagrad", "lr": 0.01})
 
 
 def sh(cmd):
@@ -3468,11 +3500,12 @@ def ps_worker(outdir: str, mode: str) -> int:
     return 0
 
 
-def launch_ps_server(root_port, num_workers):
+def launch_ps_server(root_port, num_workers, extra=None):
     """The port's server through the launcher's server role, in its own
     process group (the launcher waits on the server it starts)."""
     here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, DMLC_ROLE="server", DMLC_SERVER_ID="0",
+    env = dict(os.environ, **(extra or {}), DMLC_ROLE="server",
+               DMLC_SERVER_ID="0",
                DMLC_NUM_SERVER="1", DMLC_NUM_WORKER=str(num_workers),
                DMLC_PS_ROOT_PORT=str(root_port), PYTHONPATH=os.pathsep.join(
                    [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
@@ -3531,43 +3564,53 @@ def run_ps_workers(outdir, mode, check):
                                   f" after {up:.2f} s" if up else ""))
         if up is None:
             return None
-        here = os.path.abspath(__file__)
-        procs = []
-        for wid in range(PS_WORKERS):
-            env = dict(os.environ, BYTEPS_TPU_PS_MODE="1",
-                       DMLC_NUM_WORKER=str(PS_WORKERS),
-                       DMLC_WORKER_ID=str(wid), DMLC_NUM_SERVER="1",
-                       DMLC_PS_ROOT_URI="127.0.0.1",
-                       DMLC_PS_ROOT_PORT=str(root_port),
-                       BYTEPS_TPU_SIGNAL_WINDOW_S="0",
-                       BYTEPS_TPU_BARRIER_TIMEOUT_S="120")
-            log = open(os.path.join(outdir, f"{mode}{wid}.log"), "w")
-            procs.append((subprocess.Popen(
-                [sys.executable, here, "--ps-worker", outdir, mode],
-                env=env, stdout=log, stderr=subprocess.STDOUT), log))
-        ok = True
-        for wid, (p, log) in enumerate(procs):
-            try:
-                rc = p.wait(300)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                rc = p.wait()
-            log.close()
-            if rc != 0:
-                ok = False
-                with open(os.path.join(outdir, f"{mode}{wid}.log")) as f:
-                    print(f"  worker {wid} ({mode}) rc {rc}:\n"
-                          f"{f.read()[-3000:]}")
-            check(rc == 0, f"{mode}: worker {wid} exited 0")
-        if not ok:
-            return None
-        out = []
-        for wid in range(PS_WORKERS):
-            with open(os.path.join(outdir, f"result{wid}.json")) as f:
-                out.append(json.load(f))
-        return out
+        return spawn_ps_workers(outdir, ["--ps-worker", outdir, mode],
+                                root_port, mode, check)
     finally:
         stop_group(server)
+
+
+def spawn_ps_workers(outdir, args, root_port, tag, check, timeout=300):
+    """PS_WORKERS processes of this script with ``args``, in PS mode on the
+    server at ``root_port`` + 1; their ``<result|modes><rank>.json``, or
+    None when one failed."""
+    here = os.path.abspath(__file__)
+    procs = []
+    for wid in range(PS_WORKERS):
+        env = dict(os.environ, BYTEPS_TPU_PS_MODE="1",
+                   DMLC_NUM_WORKER=str(PS_WORKERS),
+                   DMLC_WORKER_ID=str(wid), DMLC_NUM_SERVER="1",
+                   DMLC_PS_ROOT_URI="127.0.0.1",
+                   DMLC_PS_ROOT_PORT=str(root_port),
+                   BYTEPS_TPU_SIGNAL_WINDOW_S="0",
+                   BYTEPS_TPU_BARRIER_TIMEOUT_S="300",
+                   BYTEPS_TPU_SPARSE_CACHE_ROWS="1000000",
+                   BYTEPS_TPU_SPARSE_CACHE_TTL_MS="600000")
+        log = open(os.path.join(outdir, f"{tag}{wid}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, here, *args], env=env, stdout=log,
+            stderr=subprocess.STDOUT), log))
+    ok = True
+    for wid, (p, log) in enumerate(procs):
+        try:
+            rc = p.wait(timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = p.wait()
+        log.close()
+        if rc != 0:
+            ok = False
+            with open(os.path.join(outdir, f"{tag}{wid}.log")) as f:
+                print(f"  worker {wid} ({tag}) rc {rc}:\n{f.read()[-3000:]}")
+        check(rc == 0, f"{tag}: worker {wid} exited 0")
+    if not ok:
+        return None
+    name = "modes" if tag == "modes" else "result"
+    out = []
+    for wid in range(PS_WORKERS):
+        with open(os.path.join(outdir, f"{name}{wid}.json")) as f:
+            out.append(json.load(f))
+    return out
 
 
 def ps_report(mode, res, check, gpu, flagship_ms):
@@ -3785,6 +3828,447 @@ def phase_ps_train(tfm, torch, check, gpu, flagship_ms):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the PS training modes on the card
+# ---------------------------------------------------------------------------
+def delta_recorder(sess, acc, absacc, ranges, spent):
+    """Wrap ``sess``'s push calls so that every delta pushed on a key of
+    ``ranges`` (declared key -> [(a, b)] in the flat parameter vector) is
+    summed into ``acc`` (float64) and its magnitude into ``absacc``; the
+    seconds this takes are added to ``spent["s"]``."""
+    import numpy as np
+    push_async, push_group = sess.push_pull_async, sess.push_pull_group
+
+    def note(key, arr):
+        t0 = time.perf_counter()
+        off = 0
+        for a, b in ranges.get(key, ()):
+            d = np.asarray(arr, np.float32).ravel()[off:off + b - a]
+            acc[a:b] += d
+            absacc[a:b] += np.abs(d)
+            off += b - a
+        spent["s"] += time.perf_counter() - t0
+
+    def push_pull_async(key, tensor, *args, seed=False, **kw):
+        if not seed:
+            note(key, tensor)
+        return push_async(key, tensor, *args, seed=seed, **kw)
+
+    def push_pull_group(items, *args, seed=False, **kw):
+        if not seed:
+            for key, arr, _ in items:
+                note(key, arr)
+        return push_group(items, *args, seed=seed, **kw)
+    sess.push_pull_async = push_pull_async
+    sess.push_pull_group = push_pull_group
+
+
+def pull_async_stores(sess, keys, leaves):
+    """Each leaf's async store (a zero delta pushed), adopted in place."""
+    import numpy as np
+    import torch
+    handles = [(p, sess.push_pull_async(k, np.zeros(p.numel(), np.float32)))
+               for k, p in zip(keys, leaves)]
+    with torch.no_grad():
+        for p, h in handles:
+            p.copy_(torch.from_numpy(np.asarray(h.wait(), np.float32)
+                                     ).reshape(p.shape))
+
+
+def within_ulps(final, seed, accs, absaccs, additions, chunk=1 << 24):
+    """The largest |final - (seed + sum of accs)| in float32 ulps of
+    |seed| + the sum of absaccs, element by element (float64 sums);
+    rounding ``additions`` times at most half an ulp each bounds it by
+    additions / 2."""
+    import numpy as np
+    worst = 0.0
+    for a in range(0, final.size, chunk):
+        b = min(final.size, a + chunk)
+        want = seed[a:b].astype(np.float64)
+        mag = np.abs(want)
+        for acc, absacc in zip(accs, absaccs):
+            want += acc[a:b]
+            mag += absacc[a:b]
+        ulp = np.spacing(mag.astype(np.float32)).astype(np.float64)
+        worst = max(worst, float(np.max(np.abs(final[a:b] - want) / ulp)))
+    return worst
+
+
+def async_part(tag, res, step, spent, torch, fa):
+    """20a: ``step()`` (returning its loss) timed PS_ASYNC_STEPS-many
+    times, less the delta accounting's ``spent["s"]``, with its flash
+    launches."""
+    steps = []
+    for _ in range(PS_ASYNC_STEPS[tag == "trainer"]):
+        before, acct = dict(fa.launches), spent["s"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        acct = spent["s"] - acct
+        steps.append({"loss": loss, "accounting_ms": acct * 1e3,
+                      "ms": (time.perf_counter() - t0 - acct) * 1e3,
+                      "launches": {n: fa.launches[n] - before[n]
+                                   for n in RESIDENT}})
+    res[tag] = {"steps": steps}
+
+
+def ps_modes_worker(outdir: str, sync_port: str) -> int:
+    """One worker of phase 20 (``chip_smoke.py --ps-modes-worker OUTDIR
+    SYNC_PORT``; the job, on the async server, comes from the
+    environment; SYNC_PORT is the synchronous server's).  Writes
+    ``modes<rank>.json``; worker 1 also its delta sums and embedding
+    pushes for worker 0's checks."""
+    t_start = time.perf_counter()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("phase 20 worker: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import byteps_tpu_torch as bps
+    import byteps_tpu_torch.torch as hvd
+    from byteps_tpu_torch.common.tree import tree_leaves, tree_unflatten
+    from byteps_tpu_torch.models import transformer as tfm
+    from byteps_tpu_torch.ops import flash_attention as fa
+    from byteps_tpu_torch.server.client import _REQ, _RESP, PSSession
+    from byteps_tpu_torch.server.wire import SPARSE_HDR
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    bps.init()
+    rank, sess = bps.rank(), bps.get_ps_session()
+    res = {"rank": rank, "server_async": sess.server_async,
+           "seconds": {"init": time.perf_counter() - t_start}}
+    cfg, params, batch = flagship_model(tfm, torch, batch_seed=1 + rank)
+    named = ps_named(params)
+    leaves = [p for _, p in named]
+    offs = np.concatenate([[0], np.cumsum([p.numel() for p in leaves])])
+    seed = flat_host(leaves)
+    acc = np.zeros(seed.size, np.float64)
+    absacc = np.zeros(seed.size, np.float64)
+    face_keys = [bps.declare("AsyncParam." + n) for n, _ in named]
+    spent = {"s": 0.0}
+    delta_recorder(sess, acc, absacc, {
+        k: [(int(offs[i]), int(offs[i + 1]))]
+        for i, k in enumerate(face_keys)}, spent)
+
+    def loss_backward():
+        loss = tfm.loss_fn(params, batch, cfg)
+        loss.backward()
+        return float(loss)
+
+    # 20a, the face
+    t0 = time.perf_counter()
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(leaves, lr=1e-4, weight_decay=1e-4),
+        named_parameters=named, enable_async=True)
+    fa.reset_launches()
+
+    def face_step():
+        opt.zero_grad()
+        loss = loss_backward()
+        opt.step()
+        return loss
+    async_part("face", res, face_step, spent, torch, fa)
+    sess.barrier(1)
+    pull_async_stores(sess, face_keys, leaves)
+    res["face"]["digest"] = digest(flat_host(leaves))
+    # 20a, AsyncPSTrainer over the same tree (its local step AdamW)
+    trainer = bps.AsyncPSTrainer(sess, params, name="flagship")
+    opt2 = torch.optim.AdamW(leaves, lr=1e-4, weight_decay=1e-4)
+
+    def trainer_step():
+        view = tree_leaves(trainer.params)
+        with torch.no_grad():
+            for p, v in zip(leaves, view):
+                p.copy_(v)
+        opt2.zero_grad()
+        loss = loss_backward()
+        opt2.step()
+        t0 = time.perf_counter()
+        d = flat_host([p.detach() - v for p, v in zip(leaves, view)])
+        np.add(acc, d, out=acc)
+        np.add(absacc, np.abs(d), out=absacc)
+        spent["s"] += time.perf_counter() - t0
+        trainer.step(params)
+        return loss
+    async_part("trainer", res, trainer_step, spent, torch, fa)
+    trainer.finalize()
+    if rank == 1:
+        acc.tofile(os.path.join(outdir, "acc1.f64"))
+        absacc.tofile(os.path.join(outdir, "abs1.f64"))
+    sess.barrier(2)
+    trainer.step(trainer.params)             # a zero delta: the store
+    with torch.no_grad():                    # 20b starts from it
+        for p, v in zip(leaves, tree_leaves(trainer.finalize())):
+            p.copy_(v)
+    final = flat_host(leaves)
+    res["trainer"]["digest"] = digest(final)
+    if rank == 0:
+        res["trainer"]["ulps"] = within_ulps(
+            final, seed, [acc, np.fromfile(os.path.join(
+                outdir, "acc1.f64"), np.float64)],
+            [absacc, np.fromfile(os.path.join(outdir, "abs1.f64"),
+                                 np.float64)], 2 * sum(PS_ASYNC_STEPS))
+    del acc, absacc, seed, final, trainer, opt, opt2
+    res["seconds"]["20a"] = time.perf_counter() - t0
+
+    # 20b, the server-resident optimizer on the synchronous server
+    t0 = time.perf_counter()
+    sync = PSSession(["127.0.0.1"], [int(sync_port)], worker_id=rank,
+                     num_servers=1)
+    for p in leaves:
+        p.grad = None
+    loss_backward()
+    grads = tree_unflatten(params, [p.grad.detach() for p in leaves])
+    res["serveropt"] = {}
+    for mode in ("server", "local"):
+        tr = bps.ServerOptTrainer(sync, params, PS_OPT, name=f"flag.{mode}",
+                                  mode=mode, grad_scale=0.5)
+        rounds = []
+        for _ in range(PS_OPT_ROUNDS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = tr.step(grads)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+            rounds.append({"ms": ms, "digest": digest(flat_host(
+                tree_leaves(out)))})
+        res["serveropt"][mode] = {
+            "rounds": rounds, "opt_state_bytes": tr.opt_state_bytes(),
+            "device": str(tr.device)}
+        del tr, out
+    stats = sync.server_stats()
+    res["serveropt"]["opt_slot_bytes"] = sum(
+        int(d.get("opt_slot_bytes", 0)) for d in stats["servers"].values())
+    del grads
+    res["seconds"]["20b"] = time.perf_counter() - t0
+
+    # 20c, the embedding table on the synchronous server
+    t0 = time.perf_counter()
+    E = PS_EMBED
+    table = bps.EmbeddingTable(sync, E["rows"], E["width"], name="emb",
+                               opt_kwargs=E["opt"])
+    frames = []
+    request = sync._embed_request
+
+    def counted(cmd, pkey, payload, *args, **kw):
+        resp = request(cmd, pkey, payload, *args, **kw)
+        frames.append(len(payload) + len(resp))
+        return resp
+    sync._embed_request = counted
+    hot = np.random.default_rng(20).permutation(E["rows"])
+    w = torch.randn(E["width"], generator=torch.Generator().manual_seed(21)
+                    ).cuda() * 0.1
+    rounds, pushed, pulled = [], {}, {}
+    for r in range(E["rounds"]):
+        rng = np.random.default_rng(1000 + 10 * rank + r)
+        ids = hot[(rng.zipf(E["zipf"], E["ids"]) - 1) % E["rows"]]
+        y = torch.from_numpy(rng.random(E["ids"]) < 0.5).float().cuda()
+        t1 = time.perf_counter()
+        rows = table.lookup(ids)
+        t_lookup = time.perf_counter() - t1
+        e = torch.from_numpy(rows).cuda().requires_grad_()
+        loss = torch.nn.functional.binary_cross_entropy_with_logits(
+            e @ w, y, reduction="sum")
+        loss.backward()
+        g = e.grad.cpu().numpy()
+        del frames[:]
+        t1 = time.perf_counter()
+        out = table.push_pull(ids, g)
+        t_pp = time.perf_counter() - t1
+        uniq = int(np.unique(ids).size)
+        heads = len(frames) * (_REQ.size + _RESP.size)
+        rounds.append({
+            "loss": float(loss), "lookup_s": t_lookup, "push_pull_s": t_pp,
+            "touched": uniq, "frames": len(frames),
+            "wire_bytes": sum(frames) + heads,
+            # rows and indices both ways, the sparse headers, the version
+            "want_bytes": uniq * 2 * (E["width"] * 4 + 4)
+            + 2 * SPARSE_HDR.size + 8 + heads})
+        pushed[f"ids{r}"], pushed[f"g{r}"], pulled[r] = ids, g, out
+    del frames[:]
+    t1 = time.perf_counter()
+    warm = table.lookup(ids)
+    res["embed"] = {"rounds": rounds, "warm_frames": len(frames),
+                    "warm_lookup_s": time.perf_counter() - t1,
+                    "warm_equal": bool(np.array_equal(warm, out)),
+                    "table_bytes": table.table_bytes}
+    if rank == 1:
+        np.savez(os.path.join(outdir, "embed1.npz"), **pushed)
+    sync.barrier(3)
+    if rank == 0:
+        res["embed"]["replay_equal"] = embed_replay(
+            pushed, np.load(os.path.join(outdir, "embed1.npz")), pulled)
+    stats = sync.server_stats()
+    res["embed"]["server_table_bytes"] = int(stats["embed_table_bytes"])
+    res["embed"]["opt_slot_bytes"] = sum(
+        int(d.get("opt_slot_bytes", 0)) for d in stats["servers"].values())
+    res["seconds"]["20c"] = time.perf_counter() - t0
+    sync.close()
+    bps.shutdown()
+    res["seconds"]["total"] = time.perf_counter() - t_start
+    with open(os.path.join(outdir, f"modes{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def embed_replay(mine, theirs, pulled):
+    """20c: the server's row-wise Adagrad (EmbedUpdateStage, zero-initial
+    rows) replayed in float32 over both workers' pushes, round by round;
+    per round, whether worker 0's pulled rows equal the replay's."""
+    import numpy as np
+    kw = PS_EMBED["opt"]
+    nlr = np.float32(-1.0 * kw["lr"])
+    eps, acc0 = np.float32(1e-7), np.float32(0.1)
+    width = PS_EMBED["width"]
+    every = np.unique(np.concatenate(
+        [src[f"ids{r}"] for src in (mine, theirs)
+         for r in range(PS_EMBED["rounds"])]))
+    P = np.zeros((every.size, width), np.float32)
+    V = np.full((every.size, width), acc0, np.float32)
+    equal = []
+    for r in range(PS_EMBED["rounds"]):
+        G = np.zeros_like(P)
+        hit = np.zeros(every.size, bool)
+        for src in (mine, theirs):
+            # The client's wire form: unique rows, duplicates summed.
+            uniq, inv = np.unique(src[f"ids{r}"], return_inverse=True)
+            rows = np.zeros((uniq.size, width), np.float32)
+            np.add.at(rows, inv, src[f"g{r}"])
+            slot = np.searchsorted(every, uniq)
+            G[slot] += rows
+            hit[slot] = True
+        s = V[hit] + G[hit] * G[hit]
+        V[hit] = s
+        scale = np.where(s > 0, np.float32(1.0) / np.sqrt(s + eps),
+                         np.float32(0.0)).astype(np.float32)
+        P[hit] = P[hit] + nlr * (scale * G[hit])
+        got = pulled[r]
+        equal.append(bool(np.array_equal(
+            got, P[np.searchsorted(every, mine[f"ids{r}"])])))
+    return equal
+
+
+def phase_ps_modes(torch, check, gpu, flagship_ms):
+    """Phase 20: the PS training modes on the card."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    outdir = tempfile.mkdtemp(prefix="bps_modes_")
+    root_a = root_b = free_port()
+    while abs(root_b - root_a) < 2:
+        root_b = free_port()
+    servers = [launch_ps_server(root_a, PS_WORKERS,
+                                {"BYTEPS_ENABLE_ASYNC": "1"}),
+               launch_ps_server(root_b, PS_WORKERS)]
+    out = {}
+    try:
+        for root, srv in zip((root_a, root_b), servers):
+            check(wait_port(root + 1, proc=srv) is not None,
+                  f"20: a server listens on {root + 1}")
+        res = spawn_ps_workers(outdir, ["--ps-modes-worker", outdir,
+                                        str(root_b + 1)], root_a, "modes",
+                               check, timeout=900)
+        if res is not None:
+            out = ps_modes_report(res, check, gpu, flagship_ms)
+    finally:
+        for srv in servers:
+            stop_group(srv)
+        shutil.rmtree(outdir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 20 in {out['seconds']:.1f} s")
+    return out
+
+
+def ps_modes_report(res, check, gpu, flagship_ms):
+    """Phase 20's gates and numbers from the two workers' results."""
+    want = {"flash_fwd": 48, "flash_bwd_dq": 24, "flash_bwd_dkv": 24}
+    out = {}
+    check(all(r["server_async"] for r in res),
+          "20a: both sessions see BYTEPS_ENABLE_ASYNC servers")
+    for part in ("face", "trainer"):
+        for r in res:
+            steps = r[part]["steps"]
+            losses = [s["loss"] for s in steps]
+            check(all(math.isfinite(l) for l in losses),
+                  f"20a {part}: worker {r['rank']} losses finite {losses}")
+            check(all(s["launches"] == want for s in steps),
+                  f"20a {part}: worker {r['rank']} flash launches a step "
+                  f"{[s['launches'] for s in steps]} == {want}")
+            print(f"  20a {part} worker {r['rank']}: step ms "
+                  f"{[round(s['ms'], 3) for s in steps]} (less the delta "
+                  f"accounting's {[round(s['accounting_ms'], 3) for s in steps]}"
+                  f"; phase 4's "
+                  f"{flagship_ms:.3f}), losses {losses} ({gpu})")
+        check(res[0][part]["digest"] == res[1][part]["digest"],
+              f"20a {part}: both workers hold bit-equal weights after the "
+              f"barrier")
+        out[part + "_ms"] = [[s["ms"] for s in r[part]["steps"]]
+                             for r in res]
+    bound = sum(PS_ASYNC_STEPS)
+    ulps = res[0]["trainer"]["ulps"]
+    check(ulps <= bound,
+          f"20a: the final weights are within {ulps:.3f} float32 ulps of "
+          f"the seed plus every pushed delta summed in float64 (bound "
+          f"{bound}: {2 * bound} additions, half an ulp each)")
+    out["async_ulps"] = ulps
+    so = [r["serveropt"] for r in res]
+    for r, s in zip(res, so):
+        for i in range(PS_OPT_ROUNDS):
+            check(s["server"]["rounds"][i]["digest"]
+                  == s["local"]["rounds"][i]["digest"],
+                  f"20b: worker {r['rank']} round {i + 1}: server-mode and "
+                  f"local-mode parameters bit-equal")
+        check(s["local"]["device"].startswith("cuda")
+              and s["server"]["opt_state_bytes"] == 0,
+              f"20b: worker {r['rank']} local mode on {s['local']['device']}"
+              f", server mode holds no optimizer state")
+        print(f"  20b worker {r['rank']}: step ms server "
+              f"{[round(x['ms'], 3) for x in s['server']['rounds']]}, local "
+              f"{[round(x['ms'], 3) for x in s['local']['rounds']]}; "
+              f"opt_state_bytes server {s['server']['opt_state_bytes']}, "
+              f"local {s['local']['opt_state_bytes']}; server "
+              f"opt_slot_bytes {s['opt_slot_bytes']} ({gpu})")
+    check(so[0]["server"]["rounds"][-1]["digest"]
+          == so[1]["server"]["rounds"][-1]["digest"],
+          "20b: both workers hold the same parameters")
+    out["serveropt_ms"] = {m: [[x["ms"] for x in s[m]["rounds"]]
+                               for s in so] for m in ("server", "local")}
+    out["opt_state_bytes"] = so[0]["local"]["opt_state_bytes"]
+    out["opt_slot_bytes"] = so[0]["opt_slot_bytes"]
+    E = PS_EMBED
+    for r in res:
+        em = r["embed"]
+        for i, rd in enumerate(em["rounds"]):
+            got, want_bytes = rd["wire_bytes"], rd["want_bytes"]
+            check(abs(got / want_bytes - 1) <= 0.05 and rd["frames"] == 2,
+                  f"20c: worker {r['rank']} round {i + 1}: {got} wire bytes "
+                  f"in {rd['frames']} round trips for {rd['touched']} "
+                  f"touched rows, within 5% of {want_bytes}")
+        check(em["warm_frames"] == 0 and em["warm_equal"],
+              f"20c: worker {r['rank']}'s warm lookup sent "
+              f"{em['warm_frames']} frames")
+        rates = [(E["ids"] / rd["push_pull_s"], E["ids"] / rd["lookup_s"])
+                 for rd in em["rounds"]]
+        print(f"  20c worker {r['rank']}: touched rows a round "
+              f"{[rd['touched'] for rd in em['rounds']]}; push_pull rows/s "
+              f"{[round(a) for a, _ in rates]}, lookup rows/s "
+              f"{[round(b) for _, b in rates]} (first cold), warm lookup "
+              f"{E['ids'] / max(em['warm_lookup_s'], 1e-9):.0f} rows/s; "
+              f"losses {[rd['loss'] for rd in em['rounds']]}; "
+              f"server table {em['server_table_bytes']} bytes, slots "
+              f"{em['opt_slot_bytes']} ({gpu})")
+        out.setdefault("embed_rows_s", []).append(rates)
+    check(res[0]["embed"]["replay_equal"] == [True] * E["rounds"],
+          f"20c: worker 0's pulled rows equal the float32 Adagrad replay "
+          f"each round {res[0]['embed']['replay_equal']}")
+    for r in res:
+        print(f"  worker {r['rank']} seconds "
+              f"{ {k: round(v, 2) for k, v in r['seconds'].items()} }")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3943,6 +4427,10 @@ def main() -> int:
     yardsticks["ps"] = phase_ps(bps, tfm, fa, torch, check, gpu, ps_build)
     torch.cuda.empty_cache()
     yardsticks["ps_train"] = phase_ps_train(tfm, torch, check, gpu, steady)
+    torch.cuda.empty_cache()
+    print("== phase 20: the PS training modes (async PS, the server-resident "
+          "optimizer, the embedding table)")
+    yardsticks["ps_modes"] = phase_ps_modes(torch, check, gpu, steady)
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     if check.failures:
@@ -3987,4 +4475,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ps-worker"]:
         sys.exit(ps_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--ps-modes-worker"]:
+        sys.exit(ps_modes_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

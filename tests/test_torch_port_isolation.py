@@ -92,7 +92,10 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
                 "byteps_tpu_torch.server.wire",
                 "byteps_tpu_torch.server.codec_pool",
                 "byteps_tpu_torch.server.client",
-                "byteps_tpu_torch.parallel.hierarchy"):
+                "byteps_tpu_torch.parallel.hierarchy",
+                "byteps_tpu_torch.parallel.async_ps",
+                "byteps_tpu_torch.parallel.server_opt",
+                "byteps_tpu_torch.parallel.embedding"):
         assert mod in res["modules"]
 
 

@@ -118,9 +118,14 @@ def test_zero_grad_drops_a_step_that_was_not_taken(both):
 
 
 def test_distributed_optimizer_refuses_async():
-    with pytest.raises(NotImplementedError, match=r"item 6c\)"):
-        hvd.DistributedOptimizer(torch.optim.SGD(_mlp().parameters(),
-                                                 lr=0.1), enable_async=True)
+    """enable_async needs PS mode against servers in async mode: without
+    them step() raises, as the JAX package's does."""
+    m = _mlp()
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(m.parameters(), lr=0.1),
+                                   enable_async=True)
+    m(torch.ones(3, m[0].in_features)).sum().backward()
+    with pytest.raises(RuntimeError, match="BYTEPS_ENABLE_ASYNC=1"):
+        opt.step()
 
 
 def test_broadcast_parameters(both):

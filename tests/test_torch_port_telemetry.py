@@ -234,12 +234,6 @@ def test_jsonl_rotation_at_the_limit(tmp_path, monkeypatch):
     assert open(path + ".2").read(1) == "{"   # the first rotated live file
 
 
-def _enable_async(monkeypatch):
-    import byteps_tpu_torch.torch as hvd
-    hvd.DistributedOptimizer(torch.optim.SGD([torch.zeros(1)], lr=0.1),
-                             enable_async=True)
-
-
 def _init_with(**env):
     def run(monkeypatch):
         for k, v in env.items():
@@ -249,22 +243,17 @@ def _init_with(**env):
 
 
 _STUBS = {
-    "push_pull_sparse": lambda mp: bps.push_pull_sparse("emb", None, None),
     "get_hierarchy": lambda mp: bps.get_hierarchy(),
     "get_tuner": lambda mp: bps.get_tuner(),
     "get_autoscaler": lambda mp: bps.get_autoscaler(),
     "get_fleet": lambda mp: bps.get_fleet(),
-    "enable_async": _enable_async,
-    "BYTEPS_ENABLE_ASYNC": _init_with(BYTEPS_ENABLE_ASYNC="1"),
     "BYTEPS_TPU_HIERARCHY": _init_with(BYTEPS_TPU_PS_MODE="1",
                                        BYTEPS_TPU_HIERARCHY="1"),
 }
 
 
 @pytest.mark.parametrize("name,item", [
-    ("push_pull_sparse", "6c"), ("get_hierarchy", "6c"),
-    ("enable_async", "6c"), ("BYTEPS_ENABLE_ASYNC", "6c"),
-    ("BYTEPS_TPU_HIERARCHY", "6c"),
+    ("get_hierarchy", "6c"), ("BYTEPS_TPU_HIERARCHY", "6c"),
     ("get_tuner", "7b"), ("get_autoscaler", "7b"), ("get_fleet", "7b")])
 def test_stubs_name_their_roadmap_item(name, item, monkeypatch):
     with pytest.raises(NotImplementedError,

@@ -1,6 +1,7 @@
 """Shared harness of the port's PS tests: the port's server as a
-subprocess, a recording TCP proxy, and the reference client pinned to its
-Python core and numpy wire.
+subprocess, a recording TCP proxy, the reference client pinned to its
+Python core and numpy wire, and the worker subprocesses of
+``tests/torch_port_ps_modes_worker.py`` (``worker_env``, ``run_workers``).
 
 The server is ``python -m byteps_tpu_torch.server``, built from the port's
 own copy of the C++ sources (``byteps_tpu_torch/core/build.py``, one build
@@ -26,6 +27,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # client.py's request header: cmd dtype flags req_id worker_id key len
 REQ = struct.Struct("<BBHIIQQ")
+WORKER = os.path.join(REPO, "tests", "torch_port_ps_modes_worker.py")
 
 
 def server_env(port: int, num_workers: int, extra=None) -> dict:
@@ -63,6 +65,43 @@ def wait_closed(port: int, timeout: float = 15.0) -> bool:
         except OSError:
             return True
     return False
+
+
+def worker_env(port, wid=0, n=1, ps=True, extra=None):
+    """A worker's environment: PS mode against the server on ``port``, or
+    (``ps=False``) a process group rooted there."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("BYTEPS_", "DMLC_"))}
+    env.update({"PYTHONPATH": REPO, "DMLC_NUM_WORKER": str(n),
+                "DMLC_WORKER_ID": str(wid), "DMLC_NUM_SERVER": "1",
+                "DMLC_PS_ROOT_URI": "127.0.0.1",
+                "DMLC_PS_ROOT_PORT": str(port - 1 if ps else port),
+                "BYTEPS_LOG_LEVEL": "ERROR",
+                "BYTEPS_TPU_SIGNAL_WINDOW_S": "0", "JAX_PLATFORMS": "cpu"})
+    if ps:
+        env["BYTEPS_TPU_PS_MODE"] = "1"
+    env.update({k: str(v) for k, v in (extra or {}).items()})
+    return env
+
+
+def run_workers(mode, jobs, timeout=120):
+    """``tests/torch_port_ps_modes_worker.py MODE SIDE OUT`` for each
+    (SIDE, OUT, environment) of ``jobs``, side by side; each must exit 0."""
+    procs = [subprocess.Popen([sys.executable, WORKER, mode, side, out],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for side, out, env in jobs]
+    errs = []
+    for p in procs:
+        try:
+            _, err = p.communicate(timeout=timeout)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        errs.append(err)
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
 
 
 @pytest.fixture
